@@ -1,0 +1,505 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch / CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py            (from the repository root)
+
+Phases, one line each, any failure exits non-zero:
+
+1. device   — a CUDA card is present; its name and power limit.
+2. build    — the CUDA kernels built from ``src/repro_torch/kernels/csrc``.
+3. kernels  — each kernel held bitwise against its plain PyTorch version
+              at every shape of the dws and standard plans at B=256, a
+              groups=2 conv, odd and even-HK shapes, and requant shifts
+              {-2, 0, 1, 7} with relu and bias on and off; per shape the
+              kernel's median time, its bound, the plain version's time and
+              one PyTorch call's time as a yardstick (device times from
+              torch.profiler), and the time of back-to-back wrapper calls.
+4. plan     — CNNConfig(primitive="dws") and "standard" at full width with
+              seeded random weights, lowered with a 256-image calibration
+              batch on the card: method="cuda" trunk bitwise equal to
+              method="torch" and to a host run, logits within 1e-5.
+5. serve    — CNNEngine(max_batch=256) over 2,085 images of the dws plan
+              (8 full rounds and a ragged round of 37): every status ok, no
+              error or retry, every kernel launched, logits equal to the
+              plan's forward_batch.
+
+The second-to-last line is a JSON object with one entry per kernel; the
+last line is ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+SEED = 0
+BATCH = 256
+N_SERVE = 8 * BATCH + 37
+
+# Published dense peaks (NVIDIA data sheets): HBM bytes/s and int8 ops/s.
+PEAKS = {"SXM": (3.35e12, 1979e12), "PCIe": (2.0e12, 1513e12)}
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def peaks(name: str):
+    return PEAKS["PCIe"] if "PCIe" in name else PEAKS["SXM"]
+
+
+def time_ms(torch, fn, reps=20, trials=7) -> float:
+    """Median over trials of the mean time of ``reps`` back-to-back calls,
+    by CUDA events, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(trials):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def device_kernels(torch, fn, reps):
+    """torch.profiler's CUDA kernel rows (key_averages) for ``reps`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_ms(torch, fn, reps=20) -> float:
+    """Device time of one call: the summed time of every kernel the call
+    launches (torch.profiler), without the host time between launches.
+    Fails if the profiler sees no device time."""
+    fn()
+    torch.cuda.synchronize()
+    us = sum(e.self_device_time_total
+             for e in device_kernels(torch, fn, reps)) / reps
+    check(us > 0, "torch.profiler saw no device time")
+    return us / 1e3
+
+
+# ---------------------------------------------------------------- phase 3 --
+
+def main_path_shapes(primitive: str):
+    """(kernel, label, args) of every launch of one plan's forward at
+    B=256 (32x32x3 images, widths 16/32/64)."""
+    shapes, hw, cin = [], 32, 3
+    for i, cout in enumerate((16, 32, 64)):
+        if primitive == "dws" and cin >= 4:
+            shapes.append(("depthwise2d", f"dw{i} {cin}ch {hw}^2",
+                           dict(n=BATCH, h=hw, w=hw, c=cin, hk=3)))
+            shapes.append(("conv2d", f"pw{i} {cin}->{cout} {hw}^2",
+                           dict(n=BATCH, h=hw, w=hw, cx=cin, cy=cout, hk=1,
+                                g=1)))
+        else:
+            shapes.append(("conv2d", f"conv{i} {cin}->{cout} {hw}^2",
+                           dict(n=BATCH, h=hw, w=hw, cx=cin, cy=cout, hk=3,
+                                g=1)))
+        shapes.append(("maxpool2d", f"pool{i} {cout}ch {hw}^2",
+                       dict(n=BATCH, h=hw, w=hw, c=cout)))
+        hw, cin = hw // 2, cout
+    return shapes
+
+
+def kernel_cases(torch, K, dev, rng):
+    """Yield (kernel, label, on_main_path, run_kernel, run_plain, run_lib,
+    bytes, ops) for every comparison of phase 3."""
+    import torch.nn.functional as F
+
+    def i8(shape):
+        return torch.from_numpy(rng.integers(-128, 128, shape)
+                                .astype("int8")).to(dev)
+
+    def i32(shape):
+        return torch.from_numpy(rng.integers(-4096, 4096, shape)
+                                .astype("int32")).to(dev)
+
+    def conv(label, n, h, w, cx, cy, hk, g, bias=True, act="relu", shift=7,
+             main=False):
+        x, wt = i8((n, h, w, cx)), i8((hk, hk, cx // g, cy))
+        b = i32((cy,)) if bias else None
+        kw = dict(groups=g, requant_shift=shift, act=act)
+        # yardstick: cuDNN float32 convolution of the same codes
+        # (contraction only), NCHW copies made before timing
+        xf = x.permute(0, 3, 1, 2).float().contiguous()
+        wf = wt.permute(3, 2, 0, 1).float().contiguous()
+        pad = (hk // 2, (hk - 1) // 2, hk // 2, (hk - 1) // 2)
+        xf = F.pad(xf, pad)
+        nbytes = x.numel() + wt.numel() + (4 * cy if bias else 0) + n * h * w * cy
+        ops = 2 * n * h * w * cy * (cx // g) * hk * hk
+        return ("conv2d", label, main,
+                lambda: K.conv2d_q8(x, wt, b, **kw),
+                lambda: K.conv2d_q8_plain(x, wt, b, **kw),
+                lambda: F.conv2d(xf, wf, groups=g), nbytes, ops)
+
+    def dw(label, n, h, w, c, hk, act=None, shift=7, layout4=True,
+           main=False):
+        x = i8((n, h, w, c))
+        wt = i8((hk, hk, c, 1) if layout4 else (hk, hk, c))
+        kw = dict(requant_shift=shift, act=act)
+        xf = x.permute(0, 3, 1, 2).float().contiguous()
+        xf = F.pad(xf, (hk // 2, (hk - 1) // 2, hk // 2, (hk - 1) // 2))
+        wf = wt.reshape(hk, hk, c).permute(2, 0, 1)[:, None].float() \
+            .contiguous()
+        nbytes = 2 * x.numel() + wt.numel()
+        ops = 2 * x.numel() * hk * hk
+        return ("depthwise2d", label, main,
+                lambda: K.depthwise2d_q8(x, wt, **kw),
+                lambda: K.depthwise2d_q8_plain(x, wt, **kw),
+                lambda: F.conv2d(xf, wf, groups=c), nbytes, ops)
+
+    def pool(label, n, h, w, c, win=2, stride=2, main=False):
+        x = i8((n, h, w, c))
+        ho, wo = (h - win) // stride + 1, (w - win) // stride + 1
+        nbytes = x.numel() + n * ho * wo * c
+        ops = n * ho * wo * c * (win * win - 1)
+        lib = None
+        if win == stride and h % win == 0 and w % win == 0:
+            # yardstick: one reduction over a free view of the same int8s
+            v = x.view(n, h // win, win, w // win, win, c)
+            lib = lambda: v.amax(dim=(2, 4))          # noqa: E731
+        return ("maxpool2d", label, main,
+                lambda: K.maxpool2d_s8(x, window=win, stride=stride),
+                lambda: K.maxpool2d_plain(x, window=win, stride=stride),
+                lib, nbytes, ops)
+
+    seen = set()
+    for prim in ("dws", "standard"):
+        for kernel, label, a in main_path_shapes(prim):
+            key = (kernel, tuple(sorted(a.items())))
+            main = prim == "dws"
+            if key in seen and not main:
+                continue
+            seen.add(key)
+            tag = f"{prim} {label}"
+            if kernel == "conv2d":
+                yield conv(tag, a["n"], a["h"], a["w"], a["cx"], a["cy"],
+                           a["hk"], a["g"], main=main)
+            elif kernel == "depthwise2d":
+                yield dw(tag, a["n"], a["h"], a["w"], a["c"], a["hk"],
+                         main=main)
+            else:
+                yield pool(tag, a["n"], a["h"], a["w"], a["c"], main=main)
+    yield conv("grouped g=2 16->32 16^2", BATCH, 16, 16, 16, 32, 3, 2)
+    yield conv("odd 2x15x13x3->8 hk3", 2, 15, 13, 3, 8, 3, 1)
+    yield conv("even hk2 2x6x7x4->8", 2, 6, 7, 4, 8, 2, 1)
+    yield dw("odd 2x15x13x8 hk3 (HK,HK,C)", 2, 15, 13, 8, 3, layout4=False)
+    yield pool("odd 2x15x13x8 3/2", 2, 15, 13, 8, win=3, stride=2)
+    for shift in (-2, 0, 1, 7):
+        for act in (None, "relu"):
+            for bias in (False, True):
+                yield conv(f"shift={shift} act={act} bias={bias}", 8, 16,
+                           16, 16, 32, 3, 1, bias=bias, act=act, shift=shift)
+            yield dw(f"shift={shift} act={act}", 8, 16, 16, 16, 3, act=act,
+                     shift=shift)
+
+
+def phase_kernels(torch, K, dev, name, rng):
+    bw, int8_rate = peaks(name)
+    per_kernel = {}
+    for (kernel, label, main, run_k, run_p, run_lib, nbytes,
+         ops) in kernel_cases(torch, K, dev, rng):
+        got = run_k()
+        want = run_p()
+        torch.cuda.synchronize()
+        check(got.dtype == want.dtype == torch.int8
+              and got.shape == want.shape,
+              f"{kernel} {label}: kernel {got.dtype}{tuple(got.shape)} vs "
+              f"plain {want.dtype}{tuple(want.shape)}")
+        err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+        check(err == 0, f"{kernel} {label}: kernel differs from its plain "
+                        f"version, max |diff| = {err}")
+        row = per_kernel.setdefault(kernel, dict(
+            max_abs_err=0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+            bytes_ms=0.0, ops_ms=0.0, shapes=0))
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["shapes"] += 1
+        if not main:
+            continue
+        bytes_ms, ops_ms = 1e3 * nbytes / bw, 1e3 * ops / int8_rate
+        t_k = device_ms(torch, run_k)
+        t_p = device_ms(torch, run_p, reps=5)
+        t_l = device_ms(torch, run_lib) if run_lib is not None else None
+        call = time_ms(torch, run_k)
+        bound = max(bytes_ms, ops_ms)
+        print(f"[kernels] {kernel:11s} {label:26s} bitwise ok  "
+              f"kernel {t_k:.4f} ms  bound {bound:.5f} ms "
+              f"({'bytes' if bytes_ms >= ops_ms else 'operations'})  "
+              f"plain {t_p:.4f} ms  library "
+              f"{'n/a' if t_l is None else f'{t_l:.4f} ms'}  "
+              f"(device times; back-to-back wrapper calls {call:.4f} ms "
+              f"each)")
+        row["ms"] += t_k
+        row["plain_ms"] += t_p
+        row["bound_ms"] += bound
+        row["bytes_ms"] += bytes_ms
+        row["ops_ms"] += ops_ms
+        if t_l is None or row["library_ms"] is None:
+            row["library_ms"] = None
+        else:
+            row["library_ms"] += t_l
+    for kernel, row in per_kernel.items():
+        print(f"[kernels] {kernel}: {row['shapes']} shapes bitwise equal to "
+              f"the plain version")
+    return per_kernel
+
+
+# ---------------------------------------------------------------- phase 4 --
+
+def numpy_params(cfg, rng):
+    """CNN parameters in the JAX package's layout, He-normal from ``rng``."""
+    from repro_torch.models.convnet import _specs
+    blocks = []
+    for s in _specs(cfg):
+        hk, cx, cy = s.kernel_size, s.in_channels, s.out_channels
+
+        def he(shape, fan_in):
+            return (rng.standard_normal(shape) * (2.0 / fan_in) ** 0.5) \
+                .astype("float32")
+        if s.primitive == "dws":
+            conv = {"w_dw": he((hk, hk, cx, 1), hk * hk),
+                    "w_pw": he((1, 1, cx, cy), cx)}
+        else:
+            conv = {"w": he((hk, hk, cx // s.groups, cy),
+                            hk * hk * cx // s.groups)}
+        conv["b"] = (rng.standard_normal(cy) * 0.1).astype("float32")
+        # mean/var are re-estimated by the calibration sweep
+        bn = {"gamma": (1.0 + 0.1 * rng.standard_normal(cy)).astype("float32"),
+              "beta": (0.1 * rng.standard_normal(cy)).astype("float32"),
+              "mean": np.zeros(cy, "float32"), "var": np.ones(cy, "float32")}
+        blocks.append({"conv": conv, "bn": bn})
+    head = (rng.standard_normal((cfg.widths[-1], cfg.num_classes))
+            * cfg.widths[-1] ** -0.5).astype("float32")
+    return {"blocks": blocks, "head": head}
+
+
+def plan_to_host(plan):
+    """A copy of ``plan`` with every tensor on the host."""
+    from repro_torch.core.quantize import QTensor
+
+    def host(v):
+        if isinstance(v, QTensor):
+            return QTensor(v.q.cpu(), v.frac_bits)
+        return v.cpu() if hasattr(v, "cpu") else v
+    nodes = tuple(dataclasses.replace(
+        n, qparams=None if n.qparams is None
+        else {k: host(v) for k, v in n.qparams.items()}) for n in plan.nodes)
+    return dataclasses.replace(plan, nodes=nodes)
+
+
+def phase_plan(torch, primitive, rng, dev="cuda"):
+    from repro_torch.graph import CompiledPlan
+    from repro_torch.models import CNNConfig, quantize_cnn
+    from repro_torch.weights import params_from_numpy
+    cfg = CNNConfig(primitive=primitive)
+    params = params_from_numpy(numpy_params(cfg, rng), device=dev)
+    calib = (rng.standard_normal((BATCH, 32, 32, 3)) * 0.5).astype("float32")
+    x = (rng.standard_normal((BATCH, 32, 32, 3)) * 0.5).astype("float32")
+    t0 = time.perf_counter()
+    cuda_plan = quantize_cnn(params, cfg, calib, method="cuda", device=dev)
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+    t_lower = time.perf_counter() - t0
+    torch_plan = CompiledPlan(cuda_plan.plan, method="torch", device=dev)
+    host_plan = CompiledPlan(plan_to_host(cuda_plan.plan), method="torch",
+                             device="cpu")
+    tc, tt = cuda_plan.trunk(x), torch_plan.trunk(x)
+    check(tc.q.dtype == torch.int8 and tc.frac_bits == tt.frac_bits,
+          f"{primitive}: trunk dtype/scale mismatch")
+    diff = int((tc.q.int() - tt.q.int()).abs().max())
+    check(diff == 0, f"{primitive}: cuda trunk differs from torch trunk by "
+                     f"{diff}")
+    th = host_plan.trunk(x[:8])
+    check(torch.equal(tc.q[:8].cpu(), th.q),
+          f"{primitive}: card trunk differs from the host run")
+    lc, lt = cuda_plan(x), torch_plan(x)
+    check(tuple(lc.shape) == (BATCH, cfg.num_classes)
+          and bool(torch.isfinite(lc).all()),
+          f"{primitive}: logits not finite of shape (256, 10)")
+    err = float((lc - lt).abs().max())
+    check(err <= 1e-5, f"{primitive}: logits differ by {err} > 1e-5")
+    nz = float((tc.q != 0).float().mean())
+    print(f"[plan] {primitive}: lowered in {t_lower:.2f} s, in_fb="
+          f"{cuda_plan.plan.in_fb}, cuda trunk == torch trunk bitwise "
+          f"({tuple(tc.q.shape)}, {nz:.3f} nonzero) == host trunk, "
+          f"logits max |diff| {err:.2e}")
+    return cuda_plan
+
+
+# ---------------------------------------------------------------- phase 5 --
+
+def phase_serve(torch, K, plan, card, rng):
+    from repro_torch.serve import CNNEngine, CNNServeConfig, ImageRequest
+    images = (rng.standard_normal((N_SERVE, 32, 32, 3)) * 0.5) \
+        .astype("float32")
+    eng = CNNEngine(plan, CNNServeConfig(max_batch=BATCH))
+    for i in range(N_SERVE):
+        eng.submit(ImageRequest(uid=i, image=images[i]))
+    K.reset_launches()
+    done = eng.run_until_drained()
+    launches = {k.__name__: k.launches for k in K.KERNELS}
+    st = eng.stats
+    statuses = {r.status for r in done}
+    check(len(done) == N_SERVE and statuses == {"ok"},
+          f"serve: {len(done)} requests, statuses {statuses}")
+    check(st["errors"] == 0 and st["retries"] == 0,
+          f"serve: errors={st['errors']} retries={st['retries']}")
+    check(all(v > 0 for v in launches.values()),
+          f"serve: a kernel was never launched: {launches}")
+    check(st["batch_rounds"] == 9, f"serve: {st['batch_rounds']} rounds")
+    by_uid = {r.uid: r for r in done}
+    worst = 0.0
+    for start in range(0, N_SERVE, BATCH):
+        chunk = images[start:start + BATCH]
+        want = plan.forward_batch(chunk).cpu().numpy()
+        got = [by_uid[start + j].logits for j in range(len(chunk))]
+        worst = max(worst, float(np.abs(np.stack(got) - want).max()))
+    check(worst <= 1e-5, f"serve: logits differ from forward_batch by "
+                         f"{worst}")
+    round_ms = 1e3 * eng.metrics.counter("serve.cnn.batch_time_s").value \
+        / st["batch_rounds"]
+    print(f"[serve] {N_SERVE} images in {st['batch_rounds']} rounds, all ok; "
+          f"images_per_s={st['images_per_s']:.1f} "
+          f"latency_p50_s={st['latency_p50_s']:.5f} "
+          f"latency_p99_s={st['latency_p99_s']:.5f} on {card}; "
+          f"launches {launches}; logits vs forward_batch max |diff| "
+          f"{worst:.1e}")
+    serve_breakdown(torch, plan, images[:BATCH], round_ms)
+    return launches
+
+
+def serve_breakdown(torch, plan, x_host, round_ms):
+    """Where one full 256-image round goes: the engine's round (host images
+    in, host logits out), forward_batch on host and on device-resident
+    input, and the device time of the kernels under torch.profiler."""
+    x_dev = torch.from_numpy(x_host).cuda()
+    fwd_dev_ms = time_ms(torch, lambda: plan.forward_batch(x_dev), reps=10,
+                         trials=5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        plan.forward_batch(x_host).cpu()
+    fwd_host_ms = 1e3 * (time.perf_counter() - t0) / 10
+    reps = 5
+    kernels = device_kernels(torch, lambda: plan.forward_batch(x_dev), reps)
+    dev_ms = sum(e.self_device_time_total for e in kernels) / reps / 1e3
+    n_kern = sum(e.count for e in kernels) / reps
+    check(dev_ms > 0, "torch.profiler saw no device time")
+    busy = (f"{dev_ms:.4f} ms in {n_kern:.0f} kernels, device idle "
+            f"{1 - dev_ms / fwd_dev_ms:.3f}")
+    print(f"[breakdown] one 256-image round: engine round {round_ms:.4f} ms; "
+          f"forward_batch host in/out {fwd_host_ms:.4f} ms; forward_batch "
+          f"device-resident {fwd_dev_ms:.4f} ms, of which {busy}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"[breakdown]   {e.self_device_time_total / reps:9.1f} us "
+              f"x{e.count // reps:3d}  {e.key[:90]}")
+
+
+# ------------------------------------------------------------------- main --
+
+SOURCES = {
+    "conv2d": ("conv2d_q8", "src/repro_torch/kernels/csrc/conv_im2col.cu",
+               "src/repro/kernels/conv_im2col.py:107"),
+    "depthwise2d": ("depthwise2d_q8",
+                    "src/repro_torch/kernels/csrc/conv_dw.cu",
+                    "src/repro/kernels/conv_dw.py:85"),
+    "maxpool2d": ("maxpool2d_s8", "src/repro_torch/kernels/csrc/pool.cu",
+                  "src/repro/kernels/pool.py:65"),
+}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("[device] FAIL: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 1
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print(f"[device] FAIL: no src/repro_torch beside {__file__}",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import kernels as K
+    from repro_torch.kernels import _build
+
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    print(f"[device] {kind}, {count} visible; nvidia-smi name,power.limit:")
+    print(card)
+    dev = torch.device("cuda")
+
+    info = _build.build()
+    _build.library()
+    regs = [ln.strip() for ln in (_build.BUILD_DIR / "build.log").read_text()
+            .splitlines() if "registers" in ln] if info["built"] else []
+    print(f"[build] {'built' if info['built'] else 'up to date'} "
+          f"{info['path'].relative_to(ROOT)} in {info['seconds']:.1f} s; "
+          + " | ".join(regs))
+
+    rng = np.random.default_rng(SEED)
+    per_kernel = phase_kernels(torch, K, dev, kind, rng)
+    plan = phase_plan(torch, "dws", rng)
+    phase_plan(torch, "standard", rng)
+    launches = phase_serve(torch, K, plan, card, rng)
+
+    rows = []
+    for kernel, (wrapper, source, replaces) in SOURCES.items():
+        r = per_kernel[kernel]
+        rows.append({
+            "name": wrapper, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[wrapper],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"]
+            else "operations",
+            "library_ms": r["library_ms"]})
+    print("# per kernel: ms, plain_ms and library_ms are device times "
+          "(torch.profiler) and bound_ms the HBM/int8 floor, each summed over "
+          "that kernel's launches in one 256-image forward of the dws plan; "
+          f"card: {card}")
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": count}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeFailure as e:
+        print(f"FAIL: {e}", file=sys.stderr)
+        sys.exit(1)

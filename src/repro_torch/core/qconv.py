@@ -1,0 +1,141 @@
+"""Integer-only quantized forward of the standard, grouped and dws
+primitives (port of ``repro/core/qconv.py``).
+
+NNoM's execution model: int8 operands, int32 accumulation, one arithmetic
+shift to the output scale (Algorithm 1), an optional bias added at
+accumulator scale. BN is folded beforehand (``folding.fold``).
+
+Every layer routes through the kernel layer (``repro_torch.kernels.ops``):
+
+* ``method="cuda"`` — the hand-written CUDA kernels with their fused int8
+  epilogues, the analogue of the JAX package's ``"pallas"``;
+* ``method="torch"`` — the plain PyTorch versions, the analogue of
+  ``"xla"``.
+
+Both accumulate exactly in int32 and share the Algorithm-1 epilogue, so
+they are bitwise equal. Layers the kernels cannot express (stride != 1 or
+non-SAME padding) run :func:`_qconv_apply_lax` under ``"torch"`` and raise
+under ``"cuda"``. The ``shift`` and ``add`` primitives and W4 weights are
+not ported yet and raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .primitives import ConvSpec, _not_ported, standard_conv
+from .quantize import QTensor, quantize, requantize, rshift_round
+
+
+def _bias_acc(bias: Optional[QTensor], acc_fb: int) -> Optional[torch.Tensor]:
+    """Bias rescaled to the int32 accumulator scale (Algorithm 1, line 2)."""
+    if bias is None:
+        return None
+    return rshift_round(bias.q.to(torch.int32), bias.frac_bits - acc_fb)
+
+
+def _kernel_layer_ok(spec: ConvSpec) -> bool:
+    return spec.stride == 1 and spec.padding == "SAME"
+
+
+def qconv_apply(qparams: dict, x: QTensor, spec: ConvSpec, out_frac_bits: int,
+                *, method: str = "cuda", act: Optional[str] = None) -> QTensor:
+    """Run one quantized primitive layer; returns an int8 QTensor.
+
+    ``act="relu"`` fuses the activation into the layer's LAST kernel stage
+    at accumulator scale (the graph executor's fused conv+BN+ReLU block).
+    """
+    from repro_torch.kernels import ops as K
+
+    if method not in ("cuda", "torch"):
+        raise ValueError(f"unknown method {method!r}; expected 'cuda' or "
+                         "'torch'")
+    p = spec.primitive
+    if p in ("shift", "add"):
+        raise _not_ported(f"qconv_apply for the {p!r} primitive")
+    bias = qparams.get("b")
+
+    if not _kernel_layer_ok(spec):
+        if method == "cuda":
+            raise NotImplementedError(
+                f"qconv_apply(method='cuda'): the CUDA kernels only support "
+                f"stride=1 SAME layers, got stride={spec.stride} "
+                f"padding={spec.padding!r}; use method='torch'")
+        return _qconv_apply_lax(qparams, x, spec, out_frac_bits, act=act)
+
+    if p in ("standard", "grouped"):
+        w = qparams["w"]
+        groups = spec.groups if p == "grouped" else 1
+        acc_fb = x.frac_bits + w.frac_bits
+        y = K.conv2d(x.q, w.q, _bias_acc(bias, acc_fb), groups=groups,
+                     method=method, requant_shift=acc_fb - out_frac_bits,
+                     act=act)
+        return QTensor(y, out_frac_bits)
+
+    if p == "dws":
+        w_dw, w_pw = qparams["w_dw"], qparams["w_pw"]
+        # depthwise at an intermediate scale, then pointwise
+        mid_fb = qparams.get("mid_frac_bits", out_frac_bits)
+        h = K.depthwise2d(x.q, w_dw.q, method=method,
+                          requant_shift=x.frac_bits + w_dw.frac_bits - mid_fb)
+        acc_fb = mid_fb + w_pw.frac_bits
+        y = K.conv2d(h, w_pw.q, _bias_acc(bias, acc_fb), method=method,
+                     requant_shift=acc_fb - out_frac_bits, act=act)
+        return QTensor(y, out_frac_bits)
+
+    raise ValueError(p)
+
+
+def _conv_int(x_q, w_q, *, stride=1, padding="SAME", groups=1):
+    """int8 x int8 -> exact int32 convolution with XLA's padding rules."""
+    return standard_conv(x_q.to(torch.int32), w_q.to(torch.int32),
+                         stride=stride, padding=padding, groups=groups)
+
+
+def _qconv_apply_lax(qparams: dict, x: QTensor, spec: ConvSpec,
+                     out_frac_bits: int, act: Optional[str] = None) -> QTensor:
+    """Plain integer path for layer shapes outside the kernels' stride-1 /
+    SAME envelope: the same Algorithm-1 arithmetic (int32 accumulation,
+    accumulator-scale bias, fused act, round-to-nearest requantization)."""
+    from repro_torch.kernels.common import apply_act
+
+    p = spec.primitive
+    bias = qparams.get("b")
+
+    def finish(acc, acc_fb):
+        b_acc = _bias_acc(bias, acc_fb)
+        if b_acc is not None:
+            acc = acc + b_acc
+        acc = apply_act(acc, act)
+        return QTensor(requantize(acc, acc_fb, out_frac_bits), out_frac_bits)
+
+    if p in ("standard", "grouped"):
+        w = qparams["w"]
+        groups = spec.groups if p == "grouped" else 1
+        acc = _conv_int(x.q, w.q, stride=spec.stride, padding=spec.padding,
+                        groups=groups)
+        return finish(acc, x.frac_bits + w.frac_bits)
+
+    if p == "dws":
+        w_dw, w_pw = qparams["w_dw"], qparams["w_pw"]
+        mid_fb = qparams.get("mid_frac_bits", out_frac_bits)
+        acc = _conv_int(x.q, w_dw.q.permute(0, 1, 3, 2), stride=spec.stride,
+                        padding=spec.padding, groups=spec.in_channels)
+        h = requantize(acc, x.frac_bits + w_dw.frac_bits, mid_fb)
+        acc2 = _conv_int(h, w_pw.q, stride=1, padding="SAME")
+        return finish(acc2, mid_fb + w_pw.frac_bits)
+
+    raise _not_ported(f"_qconv_apply_lax for the {p!r} primitive")
+
+
+def quantize_conv_params(params: dict, spec: ConvSpec, *,
+                         bits: int = 8) -> dict:
+    """Power-of-two PTQ of a float primitive layer: per-tensor int8
+    QTensors. ``bits=4`` (packed W4) is not ported yet."""
+    if bits == 4:
+        raise _not_ported("W4 weights (quantize_conv_params(bits=4))")
+    if bits != 8:
+        raise ValueError(f"quantize_conv_params: bits must be 8 or 4, "
+                         f"got {bits}")
+    return {k: v if k == "shifts" else quantize(v) for k, v in params.items()}

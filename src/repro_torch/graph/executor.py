@@ -1,0 +1,124 @@
+"""Plan executor: the integer network as one callable.
+
+Port of ``repro/graph/executor.py``. :class:`CompiledPlan` takes a lowered
+:class:`~repro_torch.graph.lower.Plan` and runs it eagerly: activations
+stay int8 from the input quantization to the global average pool — ReLU
+runs as the conv kernels' accumulator-scale epilogue and pooling runs on
+int8 codes (``kernels.ops.maxpool2d``) — and the float head (gap -> dense)
+is plain PyTorch ``mean`` and ``@`` in full float32, as the JAX package
+leaves it to XLA.
+
+``method="cuda"`` runs every conv and pool node through the CUDA kernels
+(never through their plain versions; a node the kernels cannot express
+raises), ``method="torch"`` through the plain versions. On the CPU both
+run the plain versions.
+
+Observability (``repro_torch.obs``): ``__call__``/``forward_batch`` emit a
+span when tracing is on.
+
+There is no ``degrade_to_xla`` counterpart: a plan never switches itself to
+the plain versions, so a kernel that fails raises to the caller.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.qconv import qconv_apply
+from repro_torch.core.quantize import QTensor, quantize
+from repro_torch.device import exact_float32, resolve_device
+from repro_torch.kernels import ops as K
+from repro_torch.kernels.ops import METHODS
+from repro_torch.obs import trace as obs_trace
+
+from .ir import Graph
+from .lower import Plan, PlanNode
+
+
+class CompiledPlan:
+    """Callable integer-only forward for one lowered plan on ``device``.
+
+    The plan's tensors must live on ``device``; inputs (tensors or numpy
+    arrays) are moved there."""
+
+    def __init__(self, plan: Plan, *, method: str = "cuda", device="cuda"):
+        if method not in METHODS:
+            raise ValueError(f"unknown method {method!r}; expected one of "
+                             f"{METHODS}")
+        self.plan = plan
+        self.method = method
+        self.device = resolve_device(device)
+
+    # -------------------------------------------------------------- forward
+
+    def _run_node(self, node: PlanNode, h):
+        if node.op == "qconv":
+            return qconv_apply(node.qparams, h, node.spec, node.out_fb,
+                               method=self.method, act=node.act)
+        if node.op == "maxpool":
+            q = K.maxpool2d(h.q, window=node.attrs["window"],
+                            stride=node.attrs["stride"], method=self.method)
+            return QTensor(q, h.frac_bits)
+        if node.op == "gap":             # head boundary: int8 -> float
+            return h.dequantize().mean(dim=(1, 2))
+        if node.op == "dense":
+            return h @ node.qparams["w"]
+        raise NotImplementedError(
+            f"plan op {node.op!r} is not ported to repro_torch yet "
+            "(ROADMAP.md, queue B)")
+
+    def _input(self, x) -> torch.Tensor:
+        if isinstance(x, np.ndarray):
+            x = torch.from_numpy(x)
+        return x.to(device=self.device, dtype=torch.float32)
+
+    def _forward(self, x, *, stop_at_gap: bool = False):
+        h = quantize(self._input(x), self.plan.in_fb)
+        with exact_float32():
+            for node in self.plan.nodes:
+                if stop_at_gap and node.op == "gap":
+                    break
+                h = self._run_node(node, h)
+        return h
+
+    def trunk(self, x) -> QTensor:
+        """The int8 activation fed into ``gap``: the integer trunk, which
+        tests compare bitwise."""
+        return self._forward(x, stop_at_gap=True)
+
+    def __call__(self, x) -> torch.Tensor:
+        with obs_trace.span("plan.forward", n=x.shape[0]):
+            return self._forward(x)
+
+    # ------------------------------------------------------ batched serving
+
+    @staticmethod
+    def batch_bucket(n: int) -> int:
+        """Smallest power of two >= n: the batch sizes forward_batch runs,
+        so ragged rounds reuse a few shapes."""
+        b = 1
+        while b < n:
+            b *= 2
+        return b
+
+    def forward_batch(self, x) -> torch.Tensor:
+        """One batched forward, zero-padded up to the pow2 batch bucket and
+        cropped back. The int8 trunk is bit-exact with the per-sample loop
+        (every plan op is row-independent); the float head agrees to float
+        rounding only."""
+        x = self._input(x)
+        n = x.shape[0]
+        b = self.batch_bucket(n)
+        with obs_trace.span("plan.forward_batch", n=n, bucket=b):
+            if b != n:
+                x = torch.cat([x, x.new_zeros((b - n,) + tuple(x.shape[1:]))])
+            return self._forward(x)[:n]
+
+
+# ---------------------------------------------------------------- references
+
+def float_forward(graph: Graph, params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Float inference over the IR (BN inference buffers, no stat
+    re-estimation) — the eval path of ``models.convnet.cnn_forward``."""
+    from .lower import interpret
+    return interpret(graph, params, x)["acts"][graph.output]

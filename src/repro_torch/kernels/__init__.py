@@ -1,0 +1,23 @@
+"""repro_torch.kernels — the port's kernel layer: hand-written CUDA C++
+kernels for Hopper (``csrc/``, built at first launch by ``_build.py``),
+each with a plain PyTorch version and a launch counter, dispatched by
+``ops``.
+
+Importing this package builds nothing and needs no ``nvcc``."""
+from .conv_dw import depthwise2d_q8, depthwise2d_q8_plain
+from .conv_im2col import conv2d_q8, conv2d_q8_plain
+from .pool import maxpool2d_plain, maxpool2d_s8
+
+#: the wrappers that carry a ``launches`` counter
+KERNELS = (conv2d_q8, depthwise2d_q8, maxpool2d_s8)
+
+
+def reset_launches():
+    """Set every kernel wrapper's launch count to 0."""
+    for k in KERNELS:
+        k.launches = 0
+
+
+__all__ = ["KERNELS", "conv2d_q8", "conv2d_q8_plain", "depthwise2d_q8",
+           "depthwise2d_q8_plain", "maxpool2d_plain", "maxpool2d_s8",
+           "reset_launches"]

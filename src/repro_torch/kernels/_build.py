@@ -1,0 +1,139 @@
+"""Build and load the port's CUDA kernels: ``nvcc`` into a shared library
+with a plain C interface, loaded with ``ctypes``.
+
+Nothing here runs at import. :func:`library` builds at the first CUDA
+launch: one ``nvcc -c`` per source in ``csrc/``, all started together,
+then one link into ``build/repro_torch/libkernels.so`` under the repository
+root. The library is rebuilt only when the hash of the sources and flags
+changes (``libkernels.sha256`` beside it). ``build.log`` keeps ``ptxas``'s
+register and spill report of the last build. A build holds an exclusive
+``fcntl`` lock on ``build.lock`` in that directory, so two processes that
+launch a kernel for the first time at once build it once, and neither links
+or loads the other's half-written objects.
+"""
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import fcntl
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("conv_im2col.cu", "conv_dw.cu", "pool.cu")
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: C entry points: argument types (every pointer and the stream a c_void_p)
+SIGNATURES = {
+    "repro_conv2d_q8": (_P, _P, _P, _P) + (_I,) * 9 + (_P,),
+    "repro_depthwise2d_q8": (_P, _P, _P) + (_I,) * 7 + (_P,),
+    "repro_maxpool2d_s8": (_P, _P) + (_I,) * 8 + (_P,),
+}
+
+
+def nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, "
+                           "/usr/local/cuda/bin and PATH): the CUDA kernels "
+                           "are built on the machine with the card")
+    return found
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.iterdir()):
+        if p.suffix in (".cu", ".cuh"):
+            h.update(p.name.encode())
+            h.update(p.read_bytes())
+    return h.hexdigest()
+
+
+@contextlib.contextmanager
+def _build_lock():
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def build() -> dict:
+    """Build the library if its sources changed; returns ``{"path",
+    "built", "seconds"}``. Raises with ``nvcc``'s output on failure."""
+    lib = BUILD_DIR / "libkernels.so"
+    stamp = BUILD_DIR / "libkernels.sha256"
+    want = source_hash()
+
+    def up_to_date():
+        return lib.exists() and stamp.exists() and stamp.read_text() == want
+
+    if up_to_date():
+        return {"path": lib, "built": False, "seconds": 0.0}
+    with _build_lock():
+        if up_to_date():                # another process built it meanwhile
+            return {"path": lib, "built": False, "seconds": 0.0}
+        t0 = time.perf_counter()
+        _compile_and_link(lib)
+        stamp.write_text(want)
+        return {"path": lib, "built": True,
+                "seconds": time.perf_counter() - t0}
+
+
+def _compile_and_link(lib: Path):
+    exe = nvcc()
+    procs = []
+    for src in SOURCES:
+        obj = BUILD_DIR / (Path(src).stem + ".o")
+        procs.append((src, obj, subprocess.Popen(
+            [exe, *NVCC_FLAGS, "-c", str(CSRC / src), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for src, _, p in procs:
+        out, _ = p.communicate()
+        log.append(f"== {src} (rc={p.returncode})\n{out}")
+        if p.returncode:
+            failed.append(src)
+    (BUILD_DIR / "build.log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(log))
+    tmp = BUILD_DIR / f"libkernels.{os.getpid()}.so"
+    link = subprocess.run([exe, "-shared", "-o", str(tmp),
+                           *(str(obj) for _, obj, _ in procs)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    if link.returncode:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+    os.replace(tmp, lib)                # a loaded library keeps its inode
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built first if needed), with argtypes."""
+    lib = ctypes.CDLL(str(build()["path"]))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check_launch(name: str, rc: int):
+    """Raise if a C entry point returned a CUDA error."""
+    if rc:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc} "
+                           "(cudaGetLastError)")

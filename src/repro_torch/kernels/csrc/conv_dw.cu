@@ -1,0 +1,63 @@
+// int8 SAME stride-1 depthwise convolution for sm_90a.
+//
+// Replaces the TPU kernel repro/kernels/conv_dw.py (depthwise2d /
+// _depthwise2d, int8 mode): x (N,H,W,C) int8 NHWC, w (HK,HK,C) int8 (the
+// (HK,HK,C,1) layout is the same bytes), per-channel HK x HK multiply-add in
+// int32, then relu, round-to-nearest shift and clip to int8 (epilogue.cuh).
+// Zero padding (HK/2, (HK-1)/2) comes from bounds checks.
+//
+// Index arithmetic is 32-bit (the wrapper keeps every tensor below 2^31
+// elements): 64-bit division and modulo are emulated on the GPU.
+//
+// One thread per output element (n, y, x, c), c fastest, so a warp's loads
+// of one tap are consecutive bytes of one pixel. Depthwise has no channel
+// contraction (HK*HK MACs per output), so its floor is the bytes it moves;
+// this kernel reloads each input byte HK*HK times as a one-byte load, and a
+// shared-memory tile with vector loads is the next step.
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "epilogue.cuh"
+
+__global__ void depthwise2d_q8_kernel(const int8_t* __restrict__ x,
+                                      const int8_t* __restrict__ w,
+                                      int8_t* __restrict__ y, int n, int h,
+                                      int wd, int c, int hk, int shift,
+                                      int relu) {
+  const int total = n * h * wd * c;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  const int ch = idx % c;
+  int t = idx / c;
+  const int ox = t % wd;
+  t /= wd;
+  const int oy = t % h;
+  const int b = t / h;
+  const int pad = hk / 2;
+  int32_t acc = 0;
+  for (int i = 0; i < hk; ++i) {
+    const int iy = oy + i - pad;
+    if (iy < 0 || iy >= h) continue;
+    for (int j = 0; j < hk; ++j) {
+      const int ix = ox + j - pad;
+      if (ix < 0 || ix >= wd) continue;
+      acc += (int32_t)x[((b * h + iy) * wd + ix) * c + ch] *
+             (int32_t)w[(i * hk + j) * c + ch];
+    }
+  }
+  y[idx] = requant_epilogue(acc, relu, shift);
+}
+
+extern "C" int repro_depthwise2d_q8(const void* x, const void* w, void* y,
+                                    int n, int h, int wd, int c, int hk,
+                                    int shift, int relu, void* stream) {
+  const int total = n * h * wd * c;
+  if (total == 0) return (int)cudaSuccess;
+  const int threads = 256;
+  const int blocks = (total + threads - 1) / threads;
+  depthwise2d_q8_kernel<<<blocks, threads, 0,
+                          (cudaStream_t)stream>>>(
+      (const int8_t*)x, (const int8_t*)w, (int8_t*)y, n, h, wd, c, hk, shift,
+      relu);
+  return (int)cudaGetLastError();
+}

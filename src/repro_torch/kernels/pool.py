@@ -1,0 +1,70 @@
+"""int8 VALID max-pool: the CUDA kernel wrapper, its plain PyTorch version
+and its launch counter.
+
+Replaces the TPU kernel ``repro/kernels/pool.py`` (``maxpool2d`` /
+``_maxpool2d``) in its int8 mode; the source is ``csrc/pool.cu``. Max
+commutes with the positive power-of-two scale, so pooling int8 codes is
+exact and activations stay int8 across the pool. What bounds it on an
+H100: pure data movement (input read once, a quarter of it written for
+2x2/2), a few MB per launch at the model's shapes, so HBM time is about a
+microsecond and a launch's fixed cost is of the same order. The design:
+one thread per output element, channels fastest for consecutive-byte
+loads.
+
+On a CPU tensor :func:`maxpool2d_s8` runs :func:`maxpool2d_plain`; on a
+CUDA tensor it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from ._build import check_launch, library
+from .conv_im2col import check_cuda_operand, check_elements
+
+
+def pool_out(size: int, window: int, stride: int) -> int:
+    return (size - window) // stride + 1
+
+
+def maxpool2d_plain(x, *, window: int = 2, stride=None):
+    """Plain PyTorch version, int8 or float: the elementwise max of the
+    window's ``window**2`` strided views."""
+    stride = stride or window
+    _, h, wd, _ = x.shape
+    hout, wout = pool_out(h, window, stride), pool_out(wd, window, stride)
+    out = None
+    for i in range(window):
+        for j in range(window):
+            v = x[:, i:i + (hout - 1) * stride + 1:stride,
+                  j:j + (wout - 1) * stride + 1:stride, :]
+            out = v if out is None else torch.maximum(out, v)
+    return out.contiguous()
+
+
+def maxpool2d_s8(x, *, window: int = 2, stride=None):
+    """x (N,H,W,C) int8 -> (N,Hout,Wout,C) int8, VALID windows."""
+    stride = stride or window
+    if x.dim() != 4:
+        raise ValueError(f"maxpool2d_s8: x must be 4-D, got {tuple(x.shape)}")
+    n, h, wd, c = x.shape
+    if window < 1 or stride < 1 or window > min(h, wd):
+        raise ValueError(f"maxpool2d_s8: window={window} stride={stride} "
+                         f"do not fit x {tuple(x.shape)}")
+    if x.dtype != torch.int8:
+        raise TypeError(f"maxpool2d_s8: takes int8, got {x.dtype}")
+    check_elements("maxpool2d_s8", x.shape)
+    if x.device.type == "cpu":
+        return maxpool2d_plain(x, window=window, stride=stride)
+    check_cuda_operand("maxpool2d_s8", x, x.device, torch.int8)
+    hout, wout = pool_out(h, window, stride), pool_out(wd, window, stride)
+    y = torch.empty((n, hout, wout, c), dtype=torch.int8, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = library().repro_maxpool2d_s8(
+            x.data_ptr(), y.data_ptr(), n, h, wd, c, hout, wout, window,
+            stride, torch.cuda.current_stream().cuda_stream)
+    check_launch("maxpool2d_s8", rc)
+    maxpool2d_s8.launches += 1
+    return y
+
+
+maxpool2d_s8.launches = 0

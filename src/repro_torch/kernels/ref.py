@@ -1,0 +1,31 @@
+"""Plain PyTorch oracles for the ported kernels, under the JAX package's
+names (``repro/kernels/ref.py``).
+
+The int8 oracles are the kernels' plain versions, re-exported from the
+kernel modules: int8 operands, exact int32 accumulation and the same
+Algorithm-1 epilogue as the CUDA kernels, so the kernels are bitwise equal
+to them. The float oracles follow XLA's SAME padding, as the JAX ones do.
+"""
+from __future__ import annotations
+
+from repro_torch.core import primitives as P
+
+from .common import apply_act
+from .conv_dw import depthwise2d_q8_plain as depthwise2d_q8_ref
+from .conv_im2col import conv2d_q8_plain as conv2d_q8_ref
+from .pool import maxpool2d_plain as maxpool2d_ref
+
+__all__ = ["conv2d_ref", "conv2d_q8_ref", "depthwise2d_ref",
+           "depthwise2d_q8_ref", "maxpool2d_ref"]
+
+
+def conv2d_ref(x, w, bias=None, *, groups: int = 1, act=None):
+    y = P.standard_conv(x, w, groups=groups)
+    if bias is not None:
+        y = y + bias
+    return apply_act(y, act)
+
+
+def depthwise2d_ref(x, w_dw, *, act=None):
+    w4 = w_dw[..., None] if w_dw.dim() == 3 else w_dw
+    return apply_act(P.depthwise_conv(x, w4), act)

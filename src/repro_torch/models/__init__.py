@@ -1,0 +1,7 @@
+"""repro_torch.models — the paper-side CNN (port of
+``repro/models/convnet.py``)."""
+from .convnet import (CNNConfig, calibrate_bn, cnn_forward, init_cnn,
+                      quantize_cnn)
+
+__all__ = ["CNNConfig", "calibrate_bn", "cnn_forward", "init_cnn",
+           "quantize_cnn"]

@@ -1,0 +1,73 @@
+"""State carried into the port as plain numpy data.
+
+Both functions take numpy arrays and Python scalars only, so the port
+never touches an object of another framework: a caller converts the
+other side's state leaf by leaf (``np.asarray``) first.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.primitives import ConvSpec
+from repro_torch.core.quantize import QTensor
+from repro_torch.device import resolve_device
+from repro_torch.graph.lower import Plan, PlanNode
+
+#: ConvSpec fields a plain-data node may carry
+SPEC_FIELDS = ("primitive", "in_channels", "out_channels", "kernel_size",
+               "groups", "stride", "padding", "use_bias")
+
+
+def _tensor(a, dev) -> torch.Tensor:
+    return torch.tensor(np.asarray(a), device=dev)
+
+
+def params_from_numpy(tree, device="cuda"):
+    """A CNN parameter tree of numpy arrays (``{"blocks": [{"conv": {w |
+    w_dw | w_pw | b}, "bn": {gamma, beta, mean, var}}, ...], "head": ...}``)
+    -> the same tree of tensors on ``device``, dtypes kept."""
+    dev = resolve_device(device)
+
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [conv(v) for v in t]
+        return _tensor(t, dev)
+    return conv(tree)
+
+
+def _qparam(v, dev):
+    if isinstance(v, tuple):                 # (int8 codes, frac_bits)
+        q, fb = v
+        q = np.asarray(q)
+        if q.dtype != np.int8:
+            raise TypeError(f"quantized codes must be int8, got {q.dtype}")
+        return QTensor(_tensor(q, dev), int(fb))
+    if isinstance(v, np.ndarray):            # float leaf (the dense head)
+        return _tensor(v, dev)
+    return int(v)                            # a scale, e.g. mid_frac_bits
+
+
+def plan_from_numpy(nodes, in_fb: int, device="cuda") -> Plan:
+    """Build a :class:`~repro_torch.graph.lower.Plan` from plain dicts.
+
+    Each node dict holds ``name``, ``op``, ``spec`` (a dict of ConvSpec
+    fields, or None), ``qparams`` (values: ``(int8 ndarray, frac_bits)``
+    pairs for quantized tensors, float ndarrays, or ints), ``in_fb``,
+    ``out_fb``, ``act`` and ``attrs``."""
+    dev = resolve_device(device)
+    out = []
+    for nd in nodes:
+        spec = nd.get("spec")
+        if spec is not None:
+            spec = ConvSpec(**{k: spec[k] for k in SPEC_FIELDS if k in spec})
+        qp = nd.get("qparams")
+        if qp is not None:
+            qp = {k: _qparam(v, dev) for k, v in qp.items()}
+        out.append(PlanNode(
+            name=nd["name"], op=nd["op"], spec=spec, qparams=qp,
+            in_fb=nd.get("in_fb"), out_fb=nd.get("out_fb"),
+            act=nd.get("act"), attrs=dict(nd.get("attrs") or {})))
+    return Plan(tuple(out), int(in_fb))

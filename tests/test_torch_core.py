@@ -1,0 +1,162 @@
+"""The port's core layer against ``repro.core`` on the same seeded numpy
+inputs: ConvSpec counts, the float primitives and BN (float tolerance),
+BN folding, and the integer ``qconv_apply`` inside and outside the
+kernels' stride-1 / SAME envelope (bitwise)."""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+jnp = jax.numpy
+
+from repro.core import primitives as JP  # noqa: E402
+from repro.core.folding import fold as j_fold  # noqa: E402
+from repro.core.qconv import qconv_apply as j_qconv_apply  # noqa: E402
+from repro.core.qconv import quantize_conv_params as j_qparams  # noqa: E402
+from repro.core.quantize import quantize as j_quantize  # noqa: E402
+
+from repro_torch.core import primitives as P  # noqa: E402
+from repro_torch.core.folding import fold  # noqa: E402
+from repro_torch.core.qconv import qconv_apply, quantize_conv_params  # noqa: E402
+from repro_torch.core.quantize import QTensor, quantize  # noqa: E402
+
+# float32 convolutions sum in another order than XLA's
+FLOAT_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _spec(prim, stride=1, padding="SAME", cx=8, cy=12, hk=3):
+    groups = 2 if prim == "grouped" else 1
+    kw = dict(primitive=prim, in_channels=cx, out_channels=cy,
+              kernel_size=hk, groups=groups, stride=stride, padding=padding)
+    return P.ConvSpec(**kw), JP.ConvSpec(**kw)
+
+
+def _params(spec, seed):
+    """Float params in the JAX layout, from numpy."""
+    rng = np.random.default_rng(seed)
+    hk, cx, cy = spec.kernel_size, spec.in_channels, spec.out_channels
+    if spec.primitive == "dws":
+        p = {"w_dw": rng.standard_normal((hk, hk, cx, 1)) * 0.3,
+             "w_pw": rng.standard_normal((1, 1, cx, cy)) * 0.3}
+    else:
+        p = {"w": rng.standard_normal((hk, hk, cx // spec.groups, cy)) * 0.2}
+    p["b"] = rng.standard_normal(cy) * 0.1
+    return {k: v.astype(np.float32) for k, v in p.items()}
+
+
+def _both(p):
+    return ({k: torch.from_numpy(v) for k, v in p.items()},
+            {k: jnp.asarray(v) for k, v in p.items()})
+
+
+@pytest.mark.parametrize("prim", ["standard", "grouped", "dws", "shift",
+                                  "add"])
+def test_convspec_counts(prim):
+    s, js = _spec(prim)
+    assert s.param_count() == js.param_count()
+    assert s.mac_count(16) == js.mac_count(16)
+
+
+@pytest.mark.parametrize("prim,stride,padding", [
+    ("standard", 1, "SAME"), ("standard", 2, "VALID"), ("grouped", 2, "SAME"),
+    ("dws", 1, "SAME"), ("dws", 2, "SAME")])
+def test_float_apply_and_batchnorm(prim, stride, padding):
+    s, js = _spec(prim, stride, padding)
+    tp, jp = _both(_params(s, 1))
+    x = np.random.default_rng(2).standard_normal((2, 9, 11, 8)) \
+        .astype(np.float32)
+    got = P.apply(tp, torch.from_numpy(x), s)
+    want = JP.apply(jp, jnp.asarray(x), js)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FLOAT_TOL)
+    rng = np.random.default_rng(3)
+    bn = {"gamma": rng.standard_normal(12), "beta": rng.standard_normal(12),
+          "mean": rng.standard_normal(12), "var": rng.random(12) + 0.5}
+    tbn, jbn = _both({k: v.astype(np.float32) for k, v in bn.items()})
+    np.testing.assert_allclose(
+        P.batchnorm_apply(tbn, got).numpy(),
+        np.asarray(JP.batchnorm_apply(jbn, jnp.asarray(got.numpy()))),
+        **FLOAT_TOL)
+    f = fold(tp, tbn, s)
+    jf = j_fold(jp, jbn, js)
+    for k in f:
+        np.testing.assert_allclose(f[k].numpy(), np.asarray(jf[k]),
+                                   **FLOAT_TOL)
+
+
+def _qlayer(prim, stride, padding, seed):
+    s, js = _spec(prim, stride, padding)
+    p = _params(s, seed)
+    jq = j_qparams({k: jnp.asarray(v) for k, v in p.items()}, js)
+    q = {k: QTensor(torch.tensor(np.asarray(v.q)), v.frac_bits)
+         for k, v in jq.items()}
+    x = (np.random.default_rng(seed + 1).standard_normal((2, 9, 11, 8))
+         .astype(np.float32))
+    return s, js, q, jq, x
+
+
+@pytest.mark.parametrize("prim,stride,padding,act,mid", [
+    ("standard", 1, "SAME", "relu", None), ("grouped", 1, "SAME", None, None),
+    ("dws", 1, "SAME", "relu", None), ("dws", 1, "SAME", None, 3),
+    ("standard", 2, "VALID", "relu", None), ("grouped", 2, "SAME", None, None),
+    ("dws", 2, "SAME", "relu", None)])
+def test_qconv_apply_bitwise(prim, stride, padding, act, mid):
+    """In the kernels' envelope the port's plain kernels, outside it the
+    lax-path counterpart: both bitwise equal to JAX's xla method."""
+    s, js, q, jq, x = _qlayer(prim, stride, padding, 5)
+    if mid is not None:
+        q["mid_frac_bits"] = jq["mid_frac_bits"] = mid
+    xq = quantize(torch.from_numpy(x), 5)
+    jxq = j_quantize(jnp.asarray(x), 5)
+    got = qconv_apply(q, xq, s, 4, method="torch", act=act)
+    want = j_qconv_apply(jq, jxq, js, 4, method="xla", act=act)
+    assert got.frac_bits == want.frac_bits == 4
+    np.testing.assert_array_equal(got.q.numpy(), np.asarray(want.q))
+    if stride != 1:
+        with pytest.raises(NotImplementedError, match="stride=1 SAME"):
+            qconv_apply(q, xq, s, 4, method="cuda", act=act)
+
+
+def test_quantize_conv_params_matches_jax():
+    s, js = _spec("dws")
+    p = _params(s, 7)
+    got = quantize_conv_params({k: torch.from_numpy(v) for k, v in p.items()},
+                               s)
+    want = j_qparams({k: jnp.asarray(v) for k, v in p.items()}, js)
+    for k in want:
+        assert got[k].frac_bits == want[k].frac_bits
+        np.testing.assert_array_equal(got[k].q.numpy(), np.asarray(want[k].q))
+    with pytest.raises(NotImplementedError, match="W4"):
+        quantize_conv_params({k: torch.from_numpy(v) for k, v in p.items()},
+                             s, bits=4)
+
+
+@pytest.mark.parametrize("prim", ["shift", "add"])
+def test_unported_primitives_raise(prim):
+    s, _ = _spec(prim)
+    x = torch.zeros((1, 4, 4, 8))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        P.apply({"w": torch.zeros((3, 3, 8, 12))}, x, s)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        qconv_apply({}, QTensor(x.to(torch.int8), 0), s, 0, method="torch")
+
+
+def test_cnn_forward_float_matches_jax():
+    """The float eval path through the port's graph interpreter, on the
+    JAX package's parameters converted leaf by leaf."""
+    from repro.models.convnet import CNNConfig as JCNNConfig
+    from repro.models.convnet import cnn_forward as j_cnn_forward
+    from repro.models.convnet import init_cnn as j_init_cnn
+    from repro_torch.models import CNNConfig, cnn_forward
+    from repro_torch.weights import params_from_numpy
+    jcfg = JCNNConfig(primitive="dws", widths=(8, 12), image_size=16)
+    cfg = CNNConfig(**dataclasses.asdict(jcfg))
+    jparams = j_init_cnn(jcfg, jax.random.PRNGKey(0))
+    params = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
+                               device="cpu")
+    x = np.random.default_rng(4).standard_normal((3, 16, 16, 3)) \
+        .astype(np.float32)
+    np.testing.assert_allclose(
+        cnn_forward(params, torch.from_numpy(x), cfg).numpy(),
+        np.asarray(j_cnn_forward(jparams, jnp.asarray(x), jcfg)), **FLOAT_TOL)

@@ -1,0 +1,70 @@
+"""The CUDA kernels against their plain PyTorch versions, bit for bit, on
+the card. Marked ``cuda``: they skip on a host with no card. They import
+no JAX, so they run on the machine with the card:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _i8(rng, shape, dev):
+    return torch.from_numpy(rng.integers(-128, 128, shape)
+                            .astype(np.int8)).to(dev)
+
+
+@pytest.mark.parametrize("case", [
+    (4, 32, 32, 3, 16, 3, 1, True, "relu", 7),
+    (4, 16, 16, 16, 32, 1, 1, True, "relu", 9),
+    (3, 9, 9, 8, 12, 3, 2, False, None, -2),
+    (2, 15, 13, 3, 8, 3, 1, True, None, 0),
+    (2, 6, 7, 4, 8, 2, 1, False, "relu", 1),
+], ids=str)
+def test_conv2d_q8_kernel_equals_plain(dev, case):
+    from repro_torch.kernels import conv2d_q8, conv2d_q8_plain
+    n, h, w, cx, cy, hk, g, with_bias, act, shift = case
+    rng = np.random.default_rng(0)
+    x, wt = _i8(rng, (n, h, w, cx), dev), _i8(rng, (hk, hk, cx // g, cy), dev)
+    b = (torch.from_numpy(rng.integers(-5000, 5000, cy).astype(np.int32))
+         .to(dev) if with_bias else None)
+    before = conv2d_q8.launches
+    got = conv2d_q8(x, wt, b, groups=g, requant_shift=shift, act=act)
+    torch.cuda.synchronize()
+    assert conv2d_q8.launches == before + 1
+    want = conv2d_q8_plain(x, wt, b, groups=g, requant_shift=shift, act=act)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("layout4", [False, True])
+@pytest.mark.parametrize("shift,act", [(-2, None), (0, "relu"), (1, None),
+                                       (7, "relu")])
+def test_depthwise2d_q8_kernel_equals_plain(dev, shift, act, layout4):
+    from repro_torch.kernels import depthwise2d_q8, depthwise2d_q8_plain
+    rng = np.random.default_rng(1)
+    x, wt = _i8(rng, (4, 16, 15, 16), dev), _i8(rng, (3, 3, 16), dev)
+    if layout4:
+        wt = wt[..., None].contiguous()
+    got = depthwise2d_q8(x, wt, requant_shift=shift, act=act)
+    torch.cuda.synchronize()
+    assert torch.equal(got, depthwise2d_q8_plain(x, wt, requant_shift=shift,
+                                                 act=act))
+
+
+@pytest.mark.parametrize("window,stride", [(2, 2), (3, 1), (3, 2)])
+def test_maxpool2d_s8_kernel_equals_plain(dev, window, stride):
+    from repro_torch.kernels import maxpool2d_plain, maxpool2d_s8
+    x = _i8(np.random.default_rng(2), (4, 17, 16, 32), dev)
+    got = maxpool2d_s8(x, window=window, stride=stride)
+    torch.cuda.synchronize()
+    assert torch.equal(got, maxpool2d_plain(x, window=window, stride=stride))
