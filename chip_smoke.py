@@ -8,20 +8,29 @@ Phases, one line each, any failure exits non-zero:
 1. device   — a CUDA card is present; its name and power limit.
 2. build    — the CUDA kernels built from ``src/repro_torch/kernels/csrc``.
 3. kernels  — each kernel held bitwise against its plain PyTorch version
-              at every shape of the dws and standard plans at B=256, a
-              groups=2 conv, odd and even-HK shapes, and requant shifts
-              {-2, 0, 1, 7} with relu and bias on and off; per shape the
-              kernel's median time, its bound, the plain version's time and
-              one PyTorch call's time as a yardstick (device times from
-              torch.profiler), and the time of back-to-back wrapper calls.
-4. plan     — CNNConfig(primitive="dws") and "standard" at full width with
-              seeded random weights, lowered with a 256-image calibration
-              batch on the card: method="cuda" trunk bitwise equal to
-              method="torch" and to a host run, logits within 1e-5.
+              at every shape of the dws, standard, shift and add plans at
+              B=256, a groups=2 conv, odd and even-HK shapes, shift tables
+              with |shift| up to 2 and with every channel on one shift,
+              add pre-shifts (0,0), (0,3), (2,0) and one that wraps int32,
+              and requant shifts {-2, 0, 1, 7} with relu and bias on and
+              off; per main-path shape the kernel's time, its bound, the
+              plain version's time and one PyTorch call's time as a
+              yardstick (device times from torch.profiler, TF32 off), and
+              the time of back-to-back wrapper calls.
+4. plan     — CNNConfig(primitive=...) for "dws", "standard", "shift" and
+              "add" at full width with seeded random weights, lowered with
+              a 256-image calibration batch on the card: method="cuda"
+              trunk bitwise equal to method="torch" and to a host run,
+              logits within 1e-5.
 5. serve    — CNNEngine(max_batch=256) over 2,085 images of the dws plan
-              (8 full rounds and a ragged round of 37): every status ok, no
-              error or retry, every kernel launched, logits equal to the
-              plan's forward_batch.
+              (8 full rounds and a ragged round of 37) and 549 images each
+              of the shift and add plans (2 full rounds and a ragged round
+              of 37), launch counts set to 0 before each run: every status
+              ok, no error or retry, each plan's kernels launched exactly
+              as often as its forwards need and no other kernel, all five
+              kernels launched across the three runs, logits equal to the
+              plan's forward_batch; then a breakdown of one 256-image round
+              of each plan.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -42,9 +51,22 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 BATCH = 256
 N_SERVE = 8 * BATCH + 37
+#: images served per plan: the dws plan's run is the long one
+SERVED = {"dws": N_SERVE, "shift": 2 * BATCH + 37, "add": 2 * BATCH + 37}
+#: kernel launches per forward of each served plan (widths 16/32/64)
+PER_FORWARD = {
+    "dws": {"conv2d_q8": 3, "depthwise2d_q8": 2, "maxpool2d_s8": 3},
+    "shift": {"conv2d_q8": 1, "shift_conv2d_q8": 2, "maxpool2d_s8": 3},
+    "add": {"add_conv2d_q8": 3, "maxpool2d_s8": 3},
+}
+#: the plan whose B=256 forward each kernel's times are summed over
+TIMED_PLAN = {"conv2d": "dws", "depthwise2d": "dws", "maxpool2d": "dws",
+              "shift_conv2d": "shift", "add_conv2d": "add"}
 
 # Published dense peaks (NVIDIA data sheets): HBM bytes/s and int8 ops/s.
 PEAKS = {"SXM": (3.35e12, 1979e12), "PCIe": (2.0e12, 1513e12)}
+#: int32 lanes per SM (Hopper: 64 INT32 units per SM), for add-conv's bound
+INT32_LANES_PER_SM = 64
 
 
 class SmokeFailure(Exception):
@@ -67,6 +89,22 @@ def card_line() -> str:
 
 def peaks(name: str):
     return PEAKS["PCIe"] if "PCIe" in name else PEAKS["SXM"]
+
+
+def int32_rate(torch) -> tuple:
+    """(ops/s, text): the CUDA cores' int32 rate, SMs x 64 lanes x the
+    maximum SM clock (nvidia-smi), the ceiling of add-conv, which has no
+    tensor-core form."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
+    mhz = float(out.stdout.strip().splitlines()[0])
+    rate = sms * INT32_LANES_PER_SM * mhz * 1e6
+    return rate, (f"{sms} SMs x {INT32_LANES_PER_SM} int32 lanes x "
+                  f"{mhz:.0f} MHz = {rate / 1e12:.2f} T ops/s")
 
 
 def time_ms(torch, fn, reps=20, trials=7) -> float:
@@ -118,7 +156,13 @@ def main_path_shapes(primitive: str):
     B=256 (32x32x3 images, widths 16/32/64)."""
     shapes, hw, cin = [], 32, 3
     for i, cout in enumerate((16, 32, 64)):
-        if primitive == "dws" and cin >= 4:
+        if primitive == "add":
+            shapes.append(("add_conv2d", f"add{i} {cin}->{cout} {hw}^2",
+                           dict(n=BATCH, h=hw, w=hw, cx=cin, cy=cout, hk=3)))
+        elif primitive == "shift" and cin >= 4:
+            shapes.append(("shift_conv2d", f"shift{i} {cin}->{cout} {hw}^2",
+                           dict(n=BATCH, h=hw, w=hw, c=cin, cy=cout, d=1)))
+        elif primitive == "dws" and cin >= 4:
             shapes.append(("depthwise2d", f"dw{i} {cin}ch {hw}^2",
                            dict(n=BATCH, h=hw, w=hw, c=cin, hk=3)))
             shapes.append(("conv2d", f"pw{i} {cin}->{cout} {hw}^2",
@@ -134,10 +178,19 @@ def main_path_shapes(primitive: str):
     return shapes
 
 
+def grid_table(c: int, d: int):
+    """The paper's shift assignment (the JAX package's ``init``): channels
+    in order round the (2d+1) x (2d+1) displacement grid, int32 (C, 2)."""
+    grid = [(a, b) for a in range(-d, d + 1) for b in range(-d, d + 1)]
+    return np.array([grid[i % len(grid)] for i in range(c)], np.int32)
+
+
 def kernel_cases(torch, K, dev, rng):
     """Yield (kernel, label, on_main_path, run_kernel, run_plain, run_lib,
-    bytes, ops) for every comparison of phase 3."""
+    bytes, ops) for every comparison of phase 3. ``ops`` is (count, kind):
+    int8 tensor-core operations, or add-conv's int32 |x - w| accumulates."""
     import torch.nn.functional as F
+    from repro_torch.core.primitives import shift_channels
 
     def i8(shape):
         return torch.from_numpy(rng.integers(-128, 128, shape)
@@ -159,7 +212,7 @@ def kernel_cases(torch, K, dev, rng):
         pad = (hk // 2, (hk - 1) // 2, hk // 2, (hk - 1) // 2)
         xf = F.pad(xf, pad)
         nbytes = x.numel() + wt.numel() + (4 * cy if bias else 0) + n * h * w * cy
-        ops = 2 * n * h * w * cy * (cx // g) * hk * hk
+        ops = (2 * n * h * w * cy * (cx // g) * hk * hk, "int8")
         return ("conv2d", label, main,
                 lambda: K.conv2d_q8(x, wt, b, **kw),
                 lambda: K.conv2d_q8_plain(x, wt, b, **kw),
@@ -175,7 +228,7 @@ def kernel_cases(torch, K, dev, rng):
         wf = wt.reshape(hk, hk, c).permute(2, 0, 1)[:, None].float() \
             .contiguous()
         nbytes = 2 * x.numel() + wt.numel()
-        ops = 2 * x.numel() * hk * hk
+        ops = (2 * x.numel() * hk * hk, "int8")
         return ("depthwise2d", label, main,
                 lambda: K.depthwise2d_q8(x, wt, **kw),
                 lambda: K.depthwise2d_q8_plain(x, wt, **kw),
@@ -185,7 +238,7 @@ def kernel_cases(torch, K, dev, rng):
         x = i8((n, h, w, c))
         ho, wo = (h - win) // stride + 1, (w - win) // stride + 1
         nbytes = x.numel() + n * ho * wo * c
-        ops = n * ho * wo * c * (win * win - 1)
+        ops = (n * ho * wo * c * (win * win - 1), "int8")
         lib = None
         if win == stride and h % win == 0 and w % win == 0:
             # yardstick: one reduction over a free view of the same int8s
@@ -196,11 +249,52 @@ def kernel_cases(torch, K, dev, rng):
                 lambda: K.maxpool2d_plain(x, window=win, stride=stride),
                 lib, nbytes, ops)
 
+    def shift_conv(label, n, h, w, c, cy, table, bias=True, act="relu", rs=7,
+              main=False):
+        x, wt = i8((n, h, w, c)), i8((c, cy))
+        s = torch.from_numpy(table).to(dev)
+        d = int(np.abs(table).max())
+        b = i32((cy,)) if bias else None
+        kw = dict(requant_shift=rs, act=act, max_shift=max(1, d))
+        # yardstick: cuDNN float32 1x1 convolution of the already shifted
+        # codes (contraction only), made before timing
+        xs = shift_channels(x, s).permute(0, 3, 1, 2).float().contiguous()
+        wf = wt.t().float()[:, :, None, None].contiguous()
+        nbytes = (x.numel() + wt.numel() + s.numel() * 4
+                  + (4 * cy if bias else 0) + n * h * w * cy)
+        ops = (2 * n * h * w * cy * c, "int8")
+        return ("shift_conv2d", label, main,
+                lambda: K.shift_conv2d_q8(x, s, wt, b, **kw),
+                lambda: K.shift_conv2d_q8_plain(x, s, wt, b, **kw),
+                lambda: F.conv2d(xs, wf), nbytes, ops)
+
+    def add_conv(label, n, h, w, cx, cy, hk, xp=2, wp=0, bias=True, act=None,
+            rs=9, main=False):
+        x, wt = i8((n, h, w, cx)), i8((hk, hk, cx, cy))
+        b = i32((cy,)) if bias else None
+        kw = dict(requant_shift=rs, x_preshift=xp, w_preshift=wp, act=act)
+        # yardstick: torch.cdist(p=1) between float32 patches extracted
+        # beforehand (feature order (c, i, j), as F.unfold gives it) and
+        # the filters
+        pad = (hk // 2, (hk - 1) // 2, hk // 2, (hk - 1) // 2)
+        xf = F.pad(x.permute(0, 3, 1, 2).float(), pad)
+        patches = F.unfold(xf, hk).transpose(1, 2) \
+            .reshape(n * h * w, cx * hk * hk).contiguous()
+        wf = wt.permute(3, 2, 0, 1).reshape(cy, cx * hk * hk).float() \
+            .contiguous()
+        nbytes = x.numel() + wt.numel() + (4 * cy if bias else 0) \
+            + n * h * w * cy
+        ops = (n * h * w * cy * cx * hk * hk, "int32")
+        return ("add_conv2d", label, main,
+                lambda: K.add_conv2d_q8(x, wt, b, **kw),
+                lambda: K.add_conv2d_q8_plain(x, wt, b, **kw),
+                lambda: torch.cdist(patches, wf, p=1), nbytes, ops)
+
     seen = set()
-    for prim in ("dws", "standard"):
+    for prim in ("dws", "standard", "shift", "add"):
         for kernel, label, a in main_path_shapes(prim):
             key = (kernel, tuple(sorted(a.items())))
-            main = prim == "dws"
+            main = prim == TIMED_PLAN[kernel]
             if key in seen and not main:
                 continue
             seen.add(key)
@@ -211,6 +305,13 @@ def kernel_cases(torch, K, dev, rng):
             elif kernel == "depthwise2d":
                 yield dw(tag, a["n"], a["h"], a["w"], a["c"], a["hk"],
                          main=main)
+            elif kernel == "shift_conv2d":
+                yield shift_conv(tag, a["n"], a["h"], a["w"], a["c"],
+                                 a["cy"], grid_table(a["c"], a["d"]),
+                                 main=main)
+            elif kernel == "add_conv2d":
+                yield add_conv(tag, a["n"], a["h"], a["w"], a["cx"],
+                               a["cy"], a["hk"], main=main)
             else:
                 yield pool(tag, a["n"], a["h"], a["w"], a["c"], main=main)
     yield conv("grouped g=2 16->32 16^2", BATCH, 16, 16, 16, 32, 3, 2)
@@ -225,13 +326,45 @@ def kernel_cases(torch, K, dev, rng):
                            16, 16, 32, 3, 1, bias=bias, act=act, shift=shift)
             yield dw(f"shift={shift} act={act}", 8, 16, 16, 16, 3, act=act,
                      shift=shift)
+    yield shift_conv("odd 2x15x13x16->8 grid3", 2, 15, 13, 16, 8,
+                     grid_table(16, 1))
+    yield shift_conv("|shift|<=2 4x16x16x32->16 grid5", 4, 16, 16, 32, 16,
+                     grid_table(32, 2))
+    yield shift_conv("one shift (1,-1) 4x16x16x16->32", 4, 16, 16, 16, 32,
+                     np.tile(np.array([[1, -1]], np.int32), (16, 1)))
+    yield add_conv("odd 2x15x13x3->8", 2, 15, 13, 3, 8, 3)
+    for xp, wp in ((0, 0), (0, 3), (2, 0)):
+        yield add_conv(f"preshift ({xp},{wp}) 4x16x16x16->32", 4, 16, 16,
+                       16, 32, 3, xp=xp, wp=wp)
+    # 127 << 28 leaves int32: the sum wraps, as JAX's int32 does
+    yield add_conv("preshift (28,20) wraps 2x8x8x16->16", 2, 8, 8, 16, 16,
+                   3, xp=28, wp=20, rs=24)
+    for rs in (-2, 0, 1, 7):
+        for act in (None, "relu"):
+            for bias in (False, True):
+                tag = f"requant={rs} act={act} bias={bias}"
+                yield shift_conv(tag, 8, 16, 16, 16, 32, grid_table(16, 1),
+                                 bias=bias, act=act, rs=rs)
+                yield add_conv(tag, 8, 16, 16, 16, 32, 3, bias=bias, act=act,
+                               rs=rs)
 
 
 def phase_kernels(torch, K, dev, name, rng):
+    from repro_torch.device import exact_float32
     bw, int8_rate = peaks(name)
+    i32_rate, i32_text = int32_rate(torch)
+    print(f"[kernels] bounds: bytes / {bw / 1e12:.2f} TB/s; int8 ops / "
+          f"{int8_rate / 1e12:.0f} T ops/s (tensor cores); add-conv's "
+          f"|x - w| accumulates / {i32_text}")
+    rates = {"int8": int8_rate, "int32": i32_rate}
+    with exact_float32():      # the float32 yardsticks run without TF32
+        return _phase_kernels(torch, K, dev, rng, bw, rates)
+
+
+def _phase_kernels(torch, K, dev, rng, bw, rates):
     per_kernel = {}
     for (kernel, label, main, run_k, run_p, run_lib, nbytes,
-         ops) in kernel_cases(torch, K, dev, rng):
+         (n_ops, kind)) in kernel_cases(torch, K, dev, rng):
         got = run_k()
         want = run_p()
         torch.cuda.synchronize()
@@ -249,13 +382,13 @@ def phase_kernels(torch, K, dev, name, rng):
         row["shapes"] += 1
         if not main:
             continue
-        bytes_ms, ops_ms = 1e3 * nbytes / bw, 1e3 * ops / int8_rate
+        bytes_ms, ops_ms = 1e3 * nbytes / bw, 1e3 * n_ops / rates[kind]
         t_k = device_ms(torch, run_k)
         t_p = device_ms(torch, run_p, reps=5)
         t_l = device_ms(torch, run_lib) if run_lib is not None else None
         call = time_ms(torch, run_k)
         bound = max(bytes_ms, ops_ms)
-        print(f"[kernels] {kernel:11s} {label:26s} bitwise ok  "
+        print(f"[kernels] {kernel:12s} {label:26s} bitwise ok  "
               f"kernel {t_k:.4f} ms  bound {bound:.5f} ms "
               f"({'bytes' if bytes_ms >= ops_ms else 'operations'})  "
               f"plain {t_p:.4f} ms  library "
@@ -291,6 +424,9 @@ def numpy_params(cfg, rng):
                 .astype("float32")
         if s.primitive == "dws":
             conv = {"w_dw": he((hk, hk, cx, 1), hk * hk),
+                    "w_pw": he((1, 1, cx, cy), cx)}
+        elif s.primitive == "shift":
+            conv = {"shifts": grid_table(cx, hk // 2),
                     "w_pw": he((1, 1, cx, cy), cx)}
         else:
             conv = {"w": he((hk, hk, cx // s.groups, cy),
@@ -361,47 +497,56 @@ def phase_plan(torch, primitive, rng, dev="cuda"):
 
 # ---------------------------------------------------------------- phase 5 --
 
-def phase_serve(torch, K, plan, card, rng):
+def phase_serve(torch, K, primitive, plan, card, rng):
+    """Serve one plan's images through CNNEngine; returns the launch count
+    of every kernel in that run."""
     from repro_torch.serve import CNNEngine, CNNServeConfig, ImageRequest
-    images = (rng.standard_normal((N_SERVE, 32, 32, 3)) * 0.5) \
+    n_img = SERVED[primitive]
+    images = (rng.standard_normal((n_img, 32, 32, 3)) * 0.5) \
         .astype("float32")
     eng = CNNEngine(plan, CNNServeConfig(max_batch=BATCH))
-    for i in range(N_SERVE):
+    for i in range(n_img):
         eng.submit(ImageRequest(uid=i, image=images[i]))
     K.reset_launches()
     done = eng.run_until_drained()
     launches = {k.__name__: k.launches for k in K.KERNELS}
     st = eng.stats
     statuses = {r.status for r in done}
-    check(len(done) == N_SERVE and statuses == {"ok"},
-          f"serve: {len(done)} requests, statuses {statuses}")
+    check(len(done) == n_img and statuses == {"ok"},
+          f"serve {primitive}: {len(done)} requests, statuses {statuses}")
     check(st["errors"] == 0 and st["retries"] == 0,
-          f"serve: errors={st['errors']} retries={st['retries']}")
-    check(all(v > 0 for v in launches.values()),
-          f"serve: a kernel was never launched: {launches}")
-    check(st["batch_rounds"] == 9, f"serve: {st['batch_rounds']} rounds")
+          f"serve {primitive}: errors={st['errors']} "
+          f"retries={st['retries']}")
+    rounds = -(-n_img // BATCH)
+    check(st["batch_rounds"] == rounds,
+          f"serve {primitive}: {st['batch_rounds']} rounds, not {rounds}")
+    want_launches = {k: rounds * PER_FORWARD[primitive].get(k, 0)
+                     for k in launches}
+    check(launches == want_launches,
+          f"serve {primitive}: launches {launches}, a plan of "
+          f"{rounds} forwards needs {want_launches}")
     by_uid = {r.uid: r for r in done}
     worst = 0.0
-    for start in range(0, N_SERVE, BATCH):
+    for start in range(0, n_img, BATCH):
         chunk = images[start:start + BATCH]
         want = plan.forward_batch(chunk).cpu().numpy()
         got = [by_uid[start + j].logits for j in range(len(chunk))]
         worst = max(worst, float(np.abs(np.stack(got) - want).max()))
-    check(worst <= 1e-5, f"serve: logits differ from forward_batch by "
-                         f"{worst}")
+    check(worst <= 1e-5, f"serve {primitive}: logits differ from "
+                         f"forward_batch by {worst}")
     round_ms = 1e3 * eng.metrics.counter("serve.cnn.batch_time_s").value \
         / st["batch_rounds"]
-    print(f"[serve] {N_SERVE} images in {st['batch_rounds']} rounds, all ok; "
-          f"images_per_s={st['images_per_s']:.1f} "
+    print(f"[serve] {primitive}: {n_img} images in {st['batch_rounds']} "
+          f"rounds, all ok; images_per_s={st['images_per_s']:.1f} "
           f"latency_p50_s={st['latency_p50_s']:.5f} "
           f"latency_p99_s={st['latency_p99_s']:.5f} on {card}; "
           f"launches {launches}; logits vs forward_batch max |diff| "
           f"{worst:.1e}")
-    serve_breakdown(torch, plan, images[:BATCH], round_ms)
+    serve_breakdown(torch, primitive, plan, images[:BATCH], round_ms)
     return launches
 
 
-def serve_breakdown(torch, plan, x_host, round_ms):
+def serve_breakdown(torch, primitive, plan, x_host, round_ms):
     """Where one full 256-image round goes: the engine's round (host images
     in, host logits out), forward_batch on host and on device-resident
     input, and the device time of the kernels under torch.profiler."""
@@ -420,12 +565,15 @@ def serve_breakdown(torch, plan, x_host, round_ms):
     check(dev_ms > 0, "torch.profiler saw no device time")
     busy = (f"{dev_ms:.4f} ms in {n_kern:.0f} kernels, device idle "
             f"{1 - dev_ms / fwd_dev_ms:.3f}")
-    print(f"[breakdown] one 256-image round: engine round {round_ms:.4f} ms; "
+    print(f"[breakdown] {primitive}: one 256-image round: engine round "
+          f"{round_ms:.4f} ms; "
           f"forward_batch host in/out {fwd_host_ms:.4f} ms; forward_batch "
           f"device-resident {fwd_dev_ms:.4f} ms, of which {busy}")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-        print(f"[breakdown]   {e.self_device_time_total / reps:9.1f} us "
-              f"x{e.count // reps:3d}  {e.key[:90]}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total):
+        name = e.key.replace("void ", "").replace("at::native::", "")
+        print(f"[breakdown] {primitive}   "
+              f"{e.self_device_time_total / reps:9.1f} us "
+              f"x{e.count // reps:3d}  {name[:110]}")
 
 
 # ------------------------------------------------------------------- main --
@@ -438,6 +586,11 @@ SOURCES = {
                     "src/repro/kernels/conv_dw.py:85"),
     "maxpool2d": ("maxpool2d_s8", "src/repro_torch/kernels/csrc/pool.cu",
                   "src/repro/kernels/pool.py:65"),
+    "shift_conv2d": ("shift_conv2d_q8",
+                     "src/repro_torch/kernels/csrc/conv_shift.cu",
+                     "src/repro/kernels/conv_shift.py:55"),
+    "add_conv2d": ("add_conv2d_q8", "src/repro_torch/kernels/csrc/conv_add.cu",
+                   "src/repro/kernels/conv_add.py:103"),
 }
 
 
@@ -472,9 +625,14 @@ def main() -> int:
 
     rng = np.random.default_rng(SEED)
     per_kernel = phase_kernels(torch, K, dev, kind, rng)
-    plan = phase_plan(torch, "dws", rng)
-    phase_plan(torch, "standard", rng)
-    launches = phase_serve(torch, K, plan, card, rng)
+    plans = {p: phase_plan(torch, p, rng)
+             for p in ("dws", "standard", "shift", "add")}
+    launches = dict.fromkeys((k.__name__ for k in K.KERNELS), 0)
+    for p in SERVED:
+        for k, v in phase_serve(torch, K, p, plans[p], card, rng).items():
+            launches[k] += v
+    check(all(v > 0 for v in launches.values()),
+          f"serve: a kernel was never launched: {launches}")
 
     rows = []
     for kernel, (wrapper, source, replaces) in SOURCES.items():
@@ -488,9 +646,11 @@ def main() -> int:
             else "operations",
             "library_ms": r["library_ms"]})
     print("# per kernel: ms, plain_ms and library_ms are device times "
-          "(torch.profiler) and bound_ms the HBM/int8 floor, each summed over "
-          "that kernel's launches in one 256-image forward of the dws plan; "
-          f"card: {card}")
+          "(torch.profiler) and bound_ms the larger of the HBM and the "
+          "operations floor, each summed over that kernel's launches in one "
+          "256-image forward of the dws plan (the shift and add plans for "
+          "shift_conv2d_q8 and add_conv2d_q8); launches are summed over the "
+          f"three served runs; card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -1,8 +1,9 @@
 """repro_torch — the PyTorch / CUDA port of the ``repro`` package.
 
 The integer-only CNN inference path of the paper (power-of-two int8
-quantization, the standard / grouped / depthwise-separable primitives, the
-layer-graph lowering and executor, and the CNN serving engine) on an NVIDIA
+quantization, the standard / grouped / depthwise-separable / shift / add
+primitives, the layer-graph lowering and executor, and the CNN serving
+engine) on an NVIDIA
 Hopper card, with hand-written CUDA C++ kernels under ``kernels/csrc``.
 
 Each module keeps the name and layout of its counterpart in the JAX package

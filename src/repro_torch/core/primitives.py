@@ -1,30 +1,27 @@
 """The paper's convolution primitives as PyTorch functions on NHWC tensors.
 
-Port of ``repro/core/primitives.py`` for the primitives this package runs:
+Port of ``repro/core/primitives.py``:
 
   * standard   : dense 2-D convolution (Eq. 1)
   * grouped    : G filter groups (Ioannou et al.)
   * dws        : depthwise-separable = depthwise + pointwise (Szegedy et al.)
+  * shift      : per-channel spatial shift + pointwise (Jeon & Kim, Eq. 2)
+  * add        : AdderNet L1 "convolution" (Chen et al., Eq. 3)
 
-``shift`` and ``add`` keep their :class:`ConvSpec` rows (parameter and MAC
-counts) but their layers raise ``NotImplementedError`` until their kernels
-are ported (ROADMAP.md, queue B). Activations are NHWC and weights HWIO,
-as in the JAX package, so tensors compare with no transposes.
+These float versions serve the calibration sweep and the oracles; the
+served int8 path runs the CUDA kernels (``repro_torch.kernels``).
+Activations are NHWC and weights HWIO, as in the JAX package, so tensors
+compare with no transposes.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 Primitives = ("standard", "grouped", "dws", "shift", "add")
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md, 'Next, in "
-        "order')")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,8 +102,18 @@ def init(generator: torch.Generator, spec: ConvSpec) -> dict:
     elif spec.primitive == "dws":
         params["w_dw"] = he((hk, hk, cx, 1), hk * hk)
         params["w_pw"] = he((1, 1, cx, cy), cx)
-    else:
-        raise _not_ported(f"init of the {spec.primitive!r} primitive")
+    elif spec.primitive == "shift":
+        # Jeon & Kim: shifts are assigned, not learned: channels go round
+        # the HK x HK displacement grid in order.
+        disp = hk // 2
+        grid = [(a, b) for a in range(-disp, disp + 1)
+                for b in range(-disp, disp + 1)]
+        params["shifts"] = torch.tensor(
+            [grid[i % len(grid)] for i in range(cx)], dtype=torch.int32,
+            device=generator.device)
+        params["w_pw"] = he((1, 1, cx, cy), cx)
+    elif spec.primitive == "add":
+        params["w"] = he((hk, hk, cx, cy), hk * hk * cx)
     if spec.use_bias:
         params["b"] = torch.zeros((cy,), dtype=spec.dtype,
                                   device=generator.device)
@@ -188,12 +195,65 @@ def depthwise_conv(x, w_dw, *, stride=1, padding="SAME"):
                      groups=cx)
 
 
+def shift_bound(shifts, max_shift=None) -> int:
+    """The zero-padding a shift table needs, max(1, max |shift|), read on
+    the host; raises if it exceeds the declared ``max_shift``."""
+    a = np.abs(np.asarray(shifts.cpu() if isinstance(shifts, torch.Tensor)
+                          else shifts))
+    pad = max(1, int(a.max()) if a.size else 1)
+    if max_shift is not None and pad > max(1, int(max_shift)):
+        raise ValueError(
+            f"shift_channels: shift table contains |shift|={pad} exceeding "
+            f"the declared max_shift={int(max_shift)}")
+    return pad
+
+
 def shift_channels(x, shifts, *, max_shift=None):
-    raise _not_ported("shift_channels")
+    """Per-channel spatial shift (Eq. 2): I[k,l,m] = X[k+a_m, l+b_m, m], zero
+    outside the image; a gather on a padded copy, as the JAX package does.
+    ``shifts`` is an integer (C, 2) table; reading its bound is a host sync
+    on a card (this is the float and oracle path, not the served one)."""
+    _, h, w, c = x.shape
+    pad = shift_bound(shifts, max_shift)
+    s = shifts.to(device=x.device, dtype=torch.long)
+    xp = F.pad(x, (0, 0, pad, pad, pad, pad))
+    rows = torch.arange(h, device=x.device)[:, None, None] + pad + s[:, 0]
+    cols = torch.arange(w, device=x.device)[None, :, None] + pad + s[:, 1]
+    chan = torch.arange(c, device=x.device)[None, None, :]
+    return xp[:, rows, cols, chan]
 
 
 def add_conv(x, w, *, padding="SAME"):
-    raise _not_ported("add_conv")
+    """AdderNet convolution (Eq. 3): Y = -sum_{i,j,c} |patch - W|, SAME
+    padded (HK//2, (HK-1)//2) as the TPU kernel and the JAX oracle pad.
+
+    Accumulated tap by tap, so no (B,H,W,Cx*HK^2,Cy) difference tensor is
+    ever held. Integer operands give JAX's int32 result bit for bit: each
+    difference wraps to int32 before its absolute value (|INT32_MIN| stays
+    INT32_MIN, congruent to 2^31), and the sum and the negation are taken in
+    int64 and cut back to 32 bits, which equals int32 wrap-around."""
+    hk, _, _, cy = w.shape
+    if padding == "SAME":
+        pads = (hk // 2, (hk - 1) // 2)
+    elif padding == "VALID":
+        pads = (0, 0)
+    else:
+        raise ValueError(f"unknown padding {padding!r}; expected 'SAME' or "
+                         "'VALID'")
+    integer = not x.dtype.is_floating_point
+    work = torch.int64 if integer else x.dtype
+    xp = F.pad(x.to(work), (0, 0) + pads + pads)
+    wk = w.to(work)
+    n, hp, wp, _ = xp.shape
+    hy, wy = hp - hk + 1, wp - hk + 1
+    acc = torch.zeros((n, hy, wy, cy), dtype=work, device=x.device)
+    for i in range(hk):
+        for j in range(hk):
+            d = xp[:, i:i + hy, j:j + wy, :, None] - wk[i, j]
+            if integer:
+                d = d.to(torch.int32).to(torch.int64)
+            acc += d.abs().sum(dim=3)
+    return (-acc).to(torch.int32) if integer else -acc
 
 
 def _maybe_bias(y, params):
@@ -214,8 +274,13 @@ def apply(params: dict, x: torch.Tensor, spec: ConvSpec) -> torch.Tensor:
         h = depthwise_conv(x, params["w_dw"], stride=spec.stride,
                            padding=spec.padding)
         y = standard_conv(h, params["w_pw"], stride=1, padding="SAME")
-    elif p in ("shift", "add"):
-        raise _not_ported(f"the float {p!r} primitive")
+    elif p == "shift":
+        h = shift_channels(x, params["shifts"],
+                           max_shift=spec.kernel_size // 2)
+        y = standard_conv(h, params["w_pw"], stride=spec.stride,
+                          padding="SAME")
+    elif p == "add":
+        y = add_conv(x, params["w"], padding=spec.padding)
     else:
         raise ValueError(p)
     return _maybe_bias(y, params)

@@ -1,9 +1,11 @@
-"""Integer-only quantized forward of the standard, grouped and dws
-primitives (port of ``repro/core/qconv.py``).
+"""Integer-only quantized forward of the five primitives (port of
+``repro/core/qconv.py``).
 
 NNoM's execution model: int8 operands, int32 accumulation, one arithmetic
 shift to the output scale (Algorithm 1), an optional bias added at
-accumulator scale. BN is folded beforehand (``folding.fold``).
+accumulator scale. BN is folded beforehand for the multiplicative
+primitives (``folding.fold``); add-conv is followed by an integer BN node
+(``graph.lower``).
 
 Every layer routes through the kernel layer (``repro_torch.kernels.ops``):
 
@@ -15,8 +17,8 @@ Every layer routes through the kernel layer (``repro_torch.kernels.ops``):
 Both accumulate exactly in int32 and share the Algorithm-1 epilogue, so
 they are bitwise equal. Layers the kernels cannot express (stride != 1 or
 non-SAME padding) run :func:`_qconv_apply_lax` under ``"torch"`` and raise
-under ``"cuda"``. The ``shift`` and ``add`` primitives and W4 weights are
-not ported yet and raise ``NotImplementedError``.
+under ``"cuda"``. W4 weights are not ported yet and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -24,8 +26,9 @@ from typing import Optional
 
 import torch
 
-from .primitives import ConvSpec, _not_ported, standard_conv
-from .quantize import QTensor, quantize, requantize, rshift_round
+from .primitives import ConvSpec, add_conv, shift_channels, standard_conv
+from .quantize import (QTensor, add_preshifts, addmac_align, quantize,
+                       requantize, rshift_round)
 
 
 def _bias_acc(bias: Optional[QTensor], acc_fb: int) -> Optional[torch.Tensor]:
@@ -52,8 +55,6 @@ def qconv_apply(qparams: dict, x: QTensor, spec: ConvSpec, out_frac_bits: int,
         raise ValueError(f"unknown method {method!r}; expected 'cuda' or "
                          "'torch'")
     p = spec.primitive
-    if p in ("shift", "add"):
-        raise _not_ported(f"qconv_apply for the {p!r} primitive")
     bias = qparams.get("b")
 
     if not _kernel_layer_ok(spec):
@@ -82,6 +83,26 @@ def qconv_apply(qparams: dict, x: QTensor, spec: ConvSpec, out_frac_bits: int,
         acc_fb = mid_fb + w_pw.frac_bits
         y = K.conv2d(h, w_pw.q, _bias_acc(bias, acc_fb), method=method,
                      requant_shift=acc_fb - out_frac_bits, act=act)
+        return QTensor(y, out_frac_bits)
+
+    if p == "shift":
+        # the shift is pure data movement, exact in the integer domain: the
+        # kernel reads each channel at its displacement inside the
+        # pointwise contraction
+        w_pw = qparams["w_pw"]
+        acc_fb = x.frac_bits + w_pw.frac_bits
+        y = K.shift_conv2d(x.q, qparams["shifts"], w_pw.q,
+                           _bias_acc(bias, acc_fb), method=method,
+                           requant_shift=acc_fb - out_frac_bits, act=act,
+                           max_shift=spec.kernel_size // 2)
+        return QTensor(y, out_frac_bits)
+
+    if p == "add":
+        w = qparams["w"]
+        x_pre, w_pre, acc_fb = add_preshifts(x.frac_bits, w.frac_bits)
+        y = K.add_conv2d(x.q, w.q, _bias_acc(bias, acc_fb), method=method,
+                         requant_shift=acc_fb - out_frac_bits,
+                         x_preshift=x_pre, w_preshift=w_pre, act=act)
         return QTensor(y, out_frac_bits)
 
     raise ValueError(p)
@@ -126,7 +147,21 @@ def _qconv_apply_lax(qparams: dict, x: QTensor, spec: ConvSpec,
         acc2 = _conv_int(h, w_pw.q, stride=1, padding="SAME")
         return finish(acc2, mid_fb + w_pw.frac_bits)
 
-    raise _not_ported(f"_qconv_apply_lax for the {p!r} primitive")
+    if p == "shift":
+        w_pw = qparams["w_pw"]
+        shifted = shift_channels(x.q, qparams["shifts"],
+                                 max_shift=spec.kernel_size // 2)
+        acc = _conv_int(shifted, w_pw.q, stride=spec.stride, padding="SAME")
+        return finish(acc, x.frac_bits + w_pw.frac_bits)
+
+    if p == "add":
+        # stride 1 whatever spec.stride says, as the JAX package's add path
+        # (and its float add_conv) computes it
+        xi, wi, acc_fb = addmac_align(x.q, qparams["w"].q, x.frac_bits,
+                                      qparams["w"].frac_bits)
+        return finish(add_conv(xi, wi, padding=spec.padding), acc_fb)
+
+    raise ValueError(p)
 
 
 def quantize_conv_params(params: dict, spec: ConvSpec, *,
@@ -134,7 +169,9 @@ def quantize_conv_params(params: dict, spec: ConvSpec, *,
     """Power-of-two PTQ of a float primitive layer: per-tensor int8
     QTensors. ``bits=4`` (packed W4) is not ported yet."""
     if bits == 4:
-        raise _not_ported("W4 weights (quantize_conv_params(bits=4))")
+        raise NotImplementedError(
+            "W4 weights (quantize_conv_params(bits=4)) are not ported to "
+            "repro_torch yet (ROADMAP.md, 'Next, in order')")
     if bits != 8:
         raise ValueError(f"quantize_conv_params: bits must be 8 or 4, "
                          f"got {bits}")

@@ -12,6 +12,9 @@ arithmetic shift, never a division. ``frac_bits`` is carried explicitly.
 Integer paths accumulate in int32 and shift arithmetically; PyTorch's
 ``>>`` on int32 is arithmetic and its int32 adds and left shifts wrap, as
 JAX's do. The W4 half (``pack_w4`` ... ``quantize_w4``) is not ported yet.
+
+Algorithm 1 (right), the additive inner loop of add-convolution, puts both
+operands on a common scale before ``|x - w|``: :func:`addmac_align`.
 """
 from __future__ import annotations
 
@@ -74,3 +77,31 @@ def requantize(acc: torch.Tensor, acc_frac_bits: int,
     """int32 accumulator -> int8 at the output scale (Algorithm 1, line 3)."""
     shifted = rshift_round(acc, acc_frac_bits - out_frac_bits)
     return torch.clamp(shifted, INT8_MIN, INT8_MAX).to(torch.int8)
+
+
+def add_preshifts(fb_x: int, fb_w: int):
+    """Algorithm 1 (right) scale alignment as static left shifts:
+    ``(x_preshift, w_preshift, acc_frac_bits)``. The coarser operand is
+    shifted onto the finer scale, and the accumulator carries
+    max(fb_x, fb_w) fractional bits. (The JAX package writes this decision
+    twice, as ``qconv._add_preshifts`` and inside ``addmac_align``.)"""
+    if fb_x > fb_w:            # weight is coarser: w << (fb_x - fb_w)
+        return 0, fb_x - fb_w, fb_x
+    if fb_w > fb_x:            # input is coarser: x << (fb_w - fb_x)
+        return fb_w - fb_x, 0, fb_w
+    return 0, 0, fb_x
+
+
+def addmac_align(x_q: torch.Tensor, w_q: torch.Tensor, fb_x: int, fb_w: int):
+    """int32 operands on a common scale (:func:`add_preshifts`, wrapping as
+    int32 does), and that scale's frac bits."""
+    x_pre, w_pre, fb = add_preshifts(fb_x, fb_w)
+    return wrap_left_shift(x_q, x_pre), wrap_left_shift(w_q, w_pre), fb
+
+
+def wrap_left_shift(v: torch.Tensor, shift: int) -> torch.Tensor:
+    """``v << shift`` as int32, wrapping as JAX's int32 ``left_shift`` does
+    (the shift is taken in int64 and cut back to 32 bits)."""
+    if not shift:
+        return v.to(torch.int32)
+    return (v.to(torch.int64) << shift).to(torch.int32)

@@ -25,14 +25,25 @@ import numpy as np
 import torch
 
 from repro_torch.core.qconv import qconv_apply
-from repro_torch.core.quantize import QTensor, quantize
+from repro_torch.core.quantize import QTensor, quantize, requantize
 from repro_torch.device import exact_float32, resolve_device
 from repro_torch.kernels import ops as K
+from repro_torch.kernels.common import apply_act
 from repro_torch.kernels.ops import METHODS
 from repro_torch.obs import trace as obs_trace
 
 from .ir import Graph
 from .lower import Plan, PlanNode
+
+
+def _qbn_apply(qp: dict, x: QTensor, out_fb: int, act) -> QTensor:
+    """Integer per-channel BN affine: int8 act * int32 multiplier + bias at
+    accumulator scale, fused act, Algorithm-1 requantization. Plain int32
+    PyTorch under both methods, as the JAX package leaves it to XLA."""
+    acc = x.q.to(torch.int32) * qp["a"] + qp["b"]
+    acc = apply_act(acc, act)
+    return QTensor(requantize(acc, x.frac_bits + qp["a_frac_bits"], out_fb),
+                   out_fb)
 
 
 class CompiledPlan:
@@ -55,6 +66,8 @@ class CompiledPlan:
         if node.op == "qconv":
             return qconv_apply(node.qparams, h, node.spec, node.out_fb,
                                method=self.method, act=node.act)
+        if node.op == "qbn":
+            return _qbn_apply(node.qparams, h, node.out_fb, node.act)
         if node.op == "maxpool":
             q = K.maxpool2d(h.q, window=node.attrs["window"],
                             stride=node.attrs["stride"], method=self.method)
@@ -63,9 +76,7 @@ class CompiledPlan:
             return h.dequantize().mean(dim=(1, 2))
         if node.op == "dense":
             return h @ node.qparams["w"]
-        raise NotImplementedError(
-            f"plan op {node.op!r} is not ported to repro_torch yet "
-            "(ROADMAP.md, queue B)")
+        raise ValueError(f"unknown plan op {node.op!r}")
 
     def _input(self, x) -> torch.Tensor:
         if isinstance(x, np.ndarray):

@@ -1,7 +1,7 @@
 """Lowering passes: float graph + params + calibration data -> integer Plan.
 
-Port of ``repro/graph/lower.py`` for the foldable primitives (standard,
-grouped, dws), with int8 weights:
+Port of ``repro/graph/lower.py`` for the five primitives, with int8
+weights:
 
 1. **annotate** — run the calibration batch through the float graph once,
    recording every node's activation; BN statistics are read off the conv
@@ -9,18 +9,18 @@ grouped, dws), with int8 weights:
    (``device.exact_float32``: cuDNN's TF32 default would move frac bits).
 2. **quantize** — per conv block: BN-fold (``core.folding.fold``),
    per-tensor power-of-two PTQ (``core.quantize``), output frac bits from
-   the post-BN+ReLU calibration activation (paper Eq. 4).
+   the post-BN+ReLU calibration activation (paper Eq. 4). Add-conv cannot
+   fold (|x - w| is not linear in w): its BN becomes an integer ``qbn``
+   node, a per-channel multiplier and bias (:func:`_quantize_bn_affine`).
 3. **fuse** — ReLU becomes the producer kernel's ``act="relu"`` epilogue,
    max-pool an int8 ``maxpool`` node at the producer's scale, and every
    consumer reads its input at the producer's annotated frac bits:
    activations stay int8 from the first conv to the global average pool.
-
-The add-conv ``qbn`` branch (integer BN affine) waits for the add-conv
-kernel (ROADMAP.md, queue B).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -41,11 +41,12 @@ PLAN_OPS = ("qconv", "qbn", "maxpool", "gap", "dense")
 class PlanNode:
     """One executable step of the lowered plan.
 
-    ``qparams`` holds the node's quantized parameters (QTensor leaves for
-    qconv, the float head for dense). ``in_fb``/``out_fb`` are the
-    annotated power-of-two scales; the implied requantization shift is
-    chained into the kernel epilogue by the executor. ``act`` is the fused
-    activation ("relu" or None).
+    ``qparams`` holds the node's quantized parameters (QTensor leaves and a
+    shift node's int32 ``shifts`` table for qconv; int32 ``a``/``b`` and the
+    int ``a_frac_bits`` for qbn; the float head for dense).
+    ``in_fb``/``out_fb`` are the annotated power-of-two scales; the implied
+    requantization shift is chained into the kernel epilogue by the
+    executor. ``act`` is the fused activation ("relu" or None).
     """
 
     name: str
@@ -124,6 +125,28 @@ def annotate(graph: Graph, params: dict, calib_x: torch.Tensor) -> dict:
 
 # ----------------------------------------------- pass 2+3: quantize + fuse --
 
+def _quantize_bn_affine(bn: dict, in_fb: int, eps: float = 1e-5) -> dict:
+    """Integer lowering of an unfoldable BN: y = a*x + b as a per-channel
+    int32 multiplier at a power-of-two scale plus an int32 bias at the
+    accumulator scale (NNoM-style integer BN). The multiplier gets a
+    15-frac-bit budget, capped so that the accumulator scale stays at most
+    24 frac bits and the largest |b| * 2^acc_fb below 2^30. ``a`` is
+    computed in float32 and rounded half to even, as the JAX package does."""
+    a = bn["gamma"] * (bn["var"] + eps) ** -0.5
+    b = bn["beta"] - bn["mean"] * a
+    m = float(a.abs().max())
+    fb_a = 15 - math.ceil(math.log2(m)) if m > 0 else 15
+    mb = float(b.abs().max())
+    cap = 24 if mb <= 0 else min(24, 30 - math.ceil(math.log2(mb)))
+    fb_a = max(0, min(fb_a, cap - in_fb))
+    acc_fb = in_fb + fb_a
+    return {
+        "a": torch.round(a * 2.0 ** fb_a).to(torch.int32),
+        "b": torch.round(b * 2.0 ** acc_fb).to(torch.int32),
+        "a_frac_bits": fb_a,
+    }
+
+
 def lower(graph: Graph, params: dict, calib_x: torch.Tensor, *,
           weight_bits: int = 8) -> Plan:
     """Lower a float graph to an integer-only Plan (single calibration
@@ -155,17 +178,27 @@ def lower(graph: Graph, params: dict, calib_x: torch.Tensor, *,
             tail = rnode or bnode or n           # last fused float node
             out_fb = frac_bits_for(acts[tail.name])
             h_in, w_in = acts[src].shape[1], acts[src].shape[2]
+            act = "relu" if rnode is not None else None
             if bnode is not None and spec.primitive not in FOLDABLE:
-                raise NotImplementedError(
-                    "lowering an unfoldable BN (the add-conv qbn node) is "
-                    "not ported to repro_torch yet (ROADMAP.md, queue B)")
-            if bnode is not None:
-                conv_p = fold(conv_p, bn_calib[bnode.name], spec)
-            qp = quantize_conv_params(conv_p, spec, bits=weight_bits)
-            plan_nodes.append(PlanNode(
-                n.name, "qconv", spec=spec, qparams=qp, in_fb=fb[src],
-                out_fb=out_fb, act="relu" if rnode is not None else None,
-                attrs={"in_hw": (h_in, w_in)}))
+                # add-conv: the conv at its own scale, then an integer BN
+                conv_fb = frac_bits_for(acts[n.name])
+                qp = quantize_conv_params(conv_p, spec, bits=weight_bits)
+                plan_nodes.append(PlanNode(
+                    n.name, "qconv", spec=spec, qparams=qp, in_fb=fb[src],
+                    out_fb=conv_fb, act=None, attrs={"in_hw": (h_in, w_in)}))
+                fb[n.name] = conv_fb
+                plan_nodes.append(PlanNode(
+                    bnode.name, "qbn",
+                    qparams=_quantize_bn_affine(bn_calib[bnode.name],
+                                                conv_fb),
+                    in_fb=conv_fb, out_fb=out_fb, act=act))
+            else:
+                if bnode is not None:
+                    conv_p = fold(conv_p, bn_calib[bnode.name], spec)
+                qp = quantize_conv_params(conv_p, spec, bits=weight_bits)
+                plan_nodes.append(PlanNode(
+                    n.name, "qconv", spec=spec, qparams=qp, in_fb=fb[src],
+                    out_fb=out_fb, act=act, attrs={"in_hw": (h_in, w_in)}))
             consumed.update(c.name for c in (bnode, rnode) if c)
             fb[tail.name] = out_fb
         elif n.op == "pool":

@@ -4,12 +4,15 @@ each with a plain PyTorch version and a launch counter, dispatched by
 ``ops``.
 
 Importing this package builds nothing and needs no ``nvcc``."""
+from .conv_add import add_conv2d_q8, add_conv2d_q8_plain
 from .conv_dw import depthwise2d_q8, depthwise2d_q8_plain
 from .conv_im2col import conv2d_q8, conv2d_q8_plain
+from .conv_shift import shift_conv2d_q8, shift_conv2d_q8_plain
 from .pool import maxpool2d_plain, maxpool2d_s8
 
 #: the wrappers that carry a ``launches`` counter
-KERNELS = (conv2d_q8, depthwise2d_q8, maxpool2d_s8)
+KERNELS = (conv2d_q8, depthwise2d_q8, maxpool2d_s8, shift_conv2d_q8,
+           add_conv2d_q8)
 
 
 def reset_launches():
@@ -18,6 +21,7 @@ def reset_launches():
         k.launches = 0
 
 
-__all__ = ["KERNELS", "conv2d_q8", "conv2d_q8_plain", "depthwise2d_q8",
-           "depthwise2d_q8_plain", "maxpool2d_plain", "maxpool2d_s8",
-           "reset_launches"]
+__all__ = ["KERNELS", "add_conv2d_q8", "add_conv2d_q8_plain", "conv2d_q8",
+           "conv2d_q8_plain", "depthwise2d_q8", "depthwise2d_q8_plain",
+           "maxpool2d_plain", "maxpool2d_s8", "reset_launches",
+           "shift_conv2d_q8", "shift_conv2d_q8_plain"]

@@ -25,7 +25,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("conv_im2col.cu", "conv_dw.cu", "pool.cu")
+SOURCES = ("conv_im2col.cu", "conv_dw.cu", "pool.cu", "conv_shift.cu",
+           "conv_add.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -36,6 +37,8 @@ SIGNATURES = {
     "repro_conv2d_q8": (_P, _P, _P, _P) + (_I,) * 9 + (_P,),
     "repro_depthwise2d_q8": (_P, _P, _P) + (_I,) * 7 + (_P,),
     "repro_maxpool2d_s8": (_P, _P) + (_I,) * 8 + (_P,),
+    "repro_shift_conv2d_q8": (_P,) * 5 + (_I,) * 7 + (_P,),
+    "repro_add_conv2d_q8": (_P,) * 4 + (_I,) * 10 + (_P,),
 }
 
 

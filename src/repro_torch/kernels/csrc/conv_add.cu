@@ -1,0 +1,85 @@
+// int8 add (AdderNet) convolution for sm_90a.
+//
+// Replaces the TPU kernel repro/kernels/conv_add.py (add_conv2d /
+// _add_conv2d, int8 mode): y = -sum_{i,j,c} |(x << xp) - (w << wp)| over the
+// HK x HK window and all Cx input channels, SAME padding (HK/2, (HK-1)/2),
+// then the optional int32 bias at accumulator scale, relu, round-to-nearest
+// shift and clip to int8 (epilogue.cuh). x (N,H,W,Cx) int8 NHWC, w
+// (HK,HK,Cx,Cy) int8 HWIO, y (N,H,W,Cy) int8. xp and wp are the Algorithm-1
+// (right) pre-shifts that put both operands on one scale.
+//
+// A padded zero is not neutral under L1: a tap outside the image still adds
+// |0 - (w << wp)|, so out-of-bounds taps read x = 0 instead of being skipped.
+// The pre-shifts, differences, absolute values, sum and negation are done in
+// uint32_t and cast back, so they wrap exactly as JAX's int32 arithmetic does
+// (signed overflow and a left shift of a negative value are undefined in
+// C++); |INT32_MIN| stays INT32_MIN, as in JAX.
+//
+// Index arithmetic is 32-bit (the wrapper keeps every tensor below 2^31
+// elements).
+//
+// L1 distance is not a sum of products, so there is no tensor-core form (as
+// there is no MXU form on the TPU): the work runs on the CUDA cores' int32
+// lanes, and at the model's shapes it is bound by operations (one |x - w|
+// accumulate per tap, channel and filter), not by the bytes it moves. One
+// thread per output element (n, y, x, co), co fastest: the input byte is a
+// broadcast across the warp and consecutive filters' weights one coalesced
+// row. Register blocking over output pixels (reusing each weight) and over
+// filters (reusing each input byte) is the next step.
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "epilogue.cuh"
+
+__global__ void add_conv2d_q8_kernel(const int8_t* __restrict__ x,
+                                     const int8_t* __restrict__ w,
+                                     const int32_t* __restrict__ bias,
+                                     int8_t* __restrict__ y, int n, int h,
+                                     int wd, int cx, int cy, int hk, int xp,
+                                     int wp, int shift, int relu) {
+  const int total = n * h * wd * cy;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  const int co = idx % cy;
+  int t = idx / cy;
+  const int ox = t % wd;
+  t /= wd;
+  const int oy = t % h;
+  const int b = t / h;
+  const int pad = hk / 2;
+  uint32_t l1 = 0;
+  for (int i = 0; i < hk; ++i) {
+    const int iy = oy + i - pad;
+    const bool row_in = iy >= 0 && iy < h;
+    for (int j = 0; j < hk; ++j) {
+      const int ix = ox + j - pad;
+      const bool in = row_in && ix >= 0 && ix < wd;
+      const int8_t* xq =
+          x + ((b * h + (in ? iy : 0)) * wd + (in ? ix : 0)) * cx;
+      const int8_t* wq = w + (i * hk + j) * cx * cy + co;
+      for (int c = 0; c < cx; ++c) {
+        const uint32_t xv = in ? (uint32_t)(int32_t)xq[c] << xp : 0u;
+        const uint32_t wv = (uint32_t)(int32_t)wq[c * cy] << wp;
+        const uint32_t d = xv - wv;
+        l1 += ((int32_t)d < 0) ? 0u - d : d;
+      }
+    }
+  }
+  int32_t acc = (int32_t)(0u - l1);
+  if (bias != nullptr) acc = wrap_add(acc, bias[co]);
+  y[idx] = requant_epilogue(acc, relu, shift);
+}
+
+extern "C" int repro_add_conv2d_q8(const void* x, const void* w,
+                                   const void* bias, void* y, int n, int h,
+                                   int wd, int cx, int cy, int hk, int xp,
+                                   int wp, int shift, int relu, void* stream) {
+  const int total = n * h * wd * cy;
+  if (total == 0) return (int)cudaSuccess;
+  const int threads = 256;
+  const int blocks = (total + threads - 1) / threads;
+  add_conv2d_q8_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const int8_t*)x, (const int8_t*)w, (const int32_t*)bias, (int8_t*)y, n,
+      h, wd, cx, cy, hk, xp, wp, shift, relu);
+  return (int)cudaGetLastError();
+}

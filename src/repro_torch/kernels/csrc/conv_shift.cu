@@ -1,0 +1,72 @@
+// int8 shift convolution for sm_90a: a per-channel spatial shift fused into
+// the pointwise contraction.
+//
+// Replaces the TPU kernel repro/kernels/conv_shift.py (shift_conv2d, int8
+// mode): y[n,y,x,co] = sum_c x[n, y+a_c, x+b_c, c] * w_pw[c,co], a read
+// outside the image being zero, accumulated in int32; then the optional
+// int32 bias at accumulator scale, relu, round-to-nearest shift and clip to
+// int8 (epilogue.cuh). x (N,H,W,C) int8 NHWC, shifts (C,2) int32 (a, b) on
+// the device, w_pw (C,Cy) int8, y (N,H,W,Cy) int8.
+//
+// The TPU wrapper sorts channels into groups of one shift so that each group
+// is one matrix-unit product; the int32 sum does not depend on the order of
+// its terms, so here each channel is simply read at its own displacement.
+// The bounds checks make the result exact for any displacement: the table's
+// bound is checked once on the host when a plan is built, and never read back
+// per call.
+//
+// Index arithmetic is 32-bit (the wrapper keeps every tensor below 2^31
+// elements): 64-bit division and modulo are emulated on the GPU.
+//
+// One thread per output element (n, y, x, co), co fastest: a warp reads one
+// channel's shift pair and one input byte as broadcasts and consecutive
+// filters' weights as one coalesced row. At the model's shapes a launch moves
+// a few MB for well under a GFLOP, so HBM bounds it at about a microsecond;
+// like conv2d_q8 this first kernel is held back by one-byte loads with no
+// register reuse. Blocking over output channels and tensor cores come later.
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "epilogue.cuh"
+
+__global__ void shift_conv2d_q8_kernel(const int8_t* __restrict__ x,
+                                       const int32_t* __restrict__ shifts,
+                                       const int8_t* __restrict__ w,
+                                       const int32_t* __restrict__ bias,
+                                       int8_t* __restrict__ y, int n, int h,
+                                       int wd, int c, int cy, int shift,
+                                       int relu) {
+  const int total = n * h * wd * cy;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  const int co = idx % cy;
+  int t = idx / cy;
+  const int ox = t % wd;
+  t /= wd;
+  const int oy = t % h;
+  const int b = t / h;
+  const int8_t* xb = x + b * h * wd * c;
+  int32_t acc = 0;
+  for (int ch = 0; ch < c; ++ch) {
+    const int iy = oy + shifts[2 * ch];
+    const int ix = ox + shifts[2 * ch + 1];
+    if (iy < 0 || iy >= h || ix < 0 || ix >= wd) continue;
+    acc += (int32_t)xb[(iy * wd + ix) * c + ch] * (int32_t)w[ch * cy + co];
+  }
+  if (bias != nullptr) acc = wrap_add(acc, bias[co]);
+  y[idx] = requant_epilogue(acc, relu, shift);
+}
+
+extern "C" int repro_shift_conv2d_q8(const void* x, const void* shifts,
+                                     const void* w, const void* bias, void* y,
+                                     int n, int h, int wd, int c, int cy,
+                                     int shift, int relu, void* stream) {
+  const int total = n * h * wd * cy;
+  if (total == 0) return (int)cudaSuccess;
+  const int threads = 256;
+  const int blocks = (total + threads - 1) / threads;
+  shift_conv2d_q8_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const int8_t*)x, (const int32_t*)shifts, (const int8_t*)w,
+      (const int32_t*)bias, (int8_t*)y, n, h, wd, c, cy, shift, relu);
+  return (int)cudaGetLastError();
+}

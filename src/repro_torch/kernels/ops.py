@@ -24,8 +24,10 @@ from typing import Optional
 from repro_torch.obs import metrics as _obs_metrics
 
 from . import ref
+from .conv_add import add_conv2d_q8
 from .conv_dw import depthwise2d_q8
 from .conv_im2col import conv2d_q8
+from .conv_shift import shift_conv2d_q8
 from .pool import maxpool2d_s8
 
 METHODS = ("cuda", "torch")
@@ -77,6 +79,53 @@ def depthwise2d(x, w_dw, *, method: str = "cuda",
         return ref.depthwise2d_q8_ref(x, w_dw, requant_shift=requant_shift,
                                       act=act)
     return depthwise2d_q8(x, w_dw, requant_shift=requant_shift, act=act)
+
+
+def shift_conv2d(x, shifts, w_pw, bias=None, *, method: str = "cuda",
+                 requant_shift: Optional[int] = None,
+                 act: Optional[str] = None, max_shift: Optional[int] = None):
+    """Per-channel shift fused into a pointwise conv; ``shifts`` is (C,2),
+    ``w_pw`` (C,Cy) or (1,1,C,Cy). ``max_shift`` bounds |shift| (pass
+    ``kernel_size // 2``); ``bias`` is added at accumulator scale (int8
+    path only)."""
+    _check_method(method)
+    _count_dispatch("shift_conv2d", method)
+    if requant_shift is None:
+        _float_mode("shift_conv2d", x, method)
+        if bias is not None:
+            raise ValueError("shift_conv2d: bias without requant_shift is "
+                             "only supported on the quantized path")
+        return ref.shift_conv2d_ref(x, shifts, w_pw, max_shift=max_shift,
+                                    act=act)
+    if method == "torch":
+        return ref.shift_conv2d_q8_ref(x, shifts, w_pw, bias,
+                                       requant_shift=requant_shift,
+                                       max_shift=max_shift, act=act)
+    return shift_conv2d_q8(x, shifts, w_pw, bias, requant_shift=requant_shift,
+                           max_shift=max_shift, act=act)
+
+
+def add_conv2d(x, w, bias=None, *, method: str = "cuda",
+               requant_shift: Optional[int] = None, x_preshift: int = 0,
+               w_preshift: int = 0, act: Optional[str] = None):
+    """SAME stride-1 AdderNet conv, NHWC x HWIO. ``x_preshift`` and
+    ``w_preshift`` are the Algorithm-1 (right) left shifts that align the
+    operands' scales; they and ``bias`` (at accumulator scale) belong to
+    the int8 path only."""
+    _check_method(method)
+    _count_dispatch("add_conv2d", method)
+    if requant_shift is None:
+        _float_mode("add_conv2d", x, method)
+        if bias is not None or x_preshift or w_preshift:
+            raise ValueError("add_conv2d: bias/preshifts without "
+                             "requant_shift are only supported on the "
+                             "quantized path")
+        return ref.add_conv2d_ref(x, w, act=act)
+    kw = dict(requant_shift=requant_shift, x_preshift=x_preshift,
+              w_preshift=w_preshift, act=act)
+    if method == "torch":
+        return ref.add_conv2d_q8_ref(x, w, bias, **kw)
+    return add_conv2d_q8(x, w, bias, **kw)
 
 
 def maxpool2d(x, *, window: int = 2, stride: Optional[int] = None,

@@ -4,19 +4,23 @@ names (``repro/kernels/ref.py``).
 The int8 oracles are the kernels' plain versions, re-exported from the
 kernel modules: int8 operands, exact int32 accumulation and the same
 Algorithm-1 epilogue as the CUDA kernels, so the kernels are bitwise equal
-to them. The float oracles follow XLA's SAME padding, as the JAX ones do.
+to them. The float oracles pad as the JAX ones do: XLA's SAME, and
+(HK//2, (HK-1)//2) for add-conv.
 """
 from __future__ import annotations
 
 from repro_torch.core import primitives as P
 
 from .common import apply_act
+from .conv_add import add_conv2d_q8_plain as add_conv2d_q8_ref
 from .conv_dw import depthwise2d_q8_plain as depthwise2d_q8_ref
 from .conv_im2col import conv2d_q8_plain as conv2d_q8_ref
+from .conv_shift import shift_conv2d_q8_plain as shift_conv2d_q8_ref
 from .pool import maxpool2d_plain as maxpool2d_ref
 
-__all__ = ["conv2d_ref", "conv2d_q8_ref", "depthwise2d_ref",
-           "depthwise2d_q8_ref", "maxpool2d_ref"]
+__all__ = ["add_conv2d_ref", "add_conv2d_q8_ref", "conv2d_ref",
+           "conv2d_q8_ref", "depthwise2d_ref", "depthwise2d_q8_ref",
+           "maxpool2d_ref", "shift_conv2d_ref", "shift_conv2d_q8_ref"]
 
 
 def conv2d_ref(x, w, bias=None, *, groups: int = 1, act=None):
@@ -29,3 +33,13 @@ def conv2d_ref(x, w, bias=None, *, groups: int = 1, act=None):
 def depthwise2d_ref(x, w_dw, *, act=None):
     w4 = w_dw[..., None] if w_dw.dim() == 3 else w_dw
     return apply_act(P.depthwise_conv(x, w4), act)
+
+
+def shift_conv2d_ref(x, shifts, w_pw, *, max_shift=None, act=None):
+    w4 = w_pw[None, None] if w_pw.dim() == 2 else w_pw
+    return apply_act(P.standard_conv(
+        P.shift_channels(x, shifts, max_shift=max_shift), w4), act)
+
+
+def add_conv2d_ref(x, w, *, act=None):
+    return apply_act(P.add_conv(x, w), act)

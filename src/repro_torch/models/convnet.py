@@ -1,6 +1,6 @@
 """Paper-side CNN: a small image classifier whose conv blocks all use one
-selectable primitive (port of ``repro/models/convnet.py``; the standard,
-grouped and dws primitives run here).
+selectable primitive (port of ``repro/models/convnet.py``; all five
+primitives run here).
 
 Inference and PTQ run through the ``repro_torch.graph`` layer IR:
 ``quantize_cnn`` lowers the graph in one calibration sweep and returns the

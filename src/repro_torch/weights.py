@@ -9,7 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.primitives import ConvSpec
+from repro_torch.core.primitives import ConvSpec, shift_bound
 from repro_torch.core.quantize import QTensor
 from repro_torch.device import resolve_device
 from repro_torch.graph.lower import Plan, PlanNode
@@ -45,9 +45,10 @@ def _qparam(v, dev):
         if q.dtype != np.int8:
             raise TypeError(f"quantized codes must be int8, got {q.dtype}")
         return QTensor(_tensor(q, dev), int(fb))
-    if isinstance(v, np.ndarray):            # float leaf (the dense head)
+    if isinstance(v, np.ndarray) and v.ndim:
+        # the dense head (float), a shift table or a qbn node's a/b (int32)
         return _tensor(v, dev)
-    return int(v)                            # a scale, e.g. mid_frac_bits
+    return int(v)              # a scale: mid_frac_bits, a_frac_bits
 
 
 def plan_from_numpy(nodes, in_fb: int, device="cuda") -> Plan:
@@ -55,8 +56,10 @@ def plan_from_numpy(nodes, in_fb: int, device="cuda") -> Plan:
 
     Each node dict holds ``name``, ``op``, ``spec`` (a dict of ConvSpec
     fields, or None), ``qparams`` (values: ``(int8 ndarray, frac_bits)``
-    pairs for quantized tensors, float ndarrays, or ints), ``in_fb``,
-    ``out_fb``, ``act`` and ``attrs``."""
+    pairs for quantized tensors, float or int32 ndarrays, or ints; a 0-d
+    array counts as an int), ``in_fb``, ``out_fb``, ``act`` and ``attrs``.
+    A shift node's table is checked against its ``kernel_size // 2`` here,
+    once, so the kernel never reads it back."""
     dev = resolve_device(device)
     out = []
     for nd in nodes:
@@ -64,6 +67,8 @@ def plan_from_numpy(nodes, in_fb: int, device="cuda") -> Plan:
         if spec is not None:
             spec = ConvSpec(**{k: spec[k] for k in SPEC_FIELDS if k in spec})
         qp = nd.get("qparams")
+        if spec is not None and spec.primitive == "shift":
+            shift_bound(qp["shifts"], spec.kernel_size // 2)
         if qp is not None:
             qp = {k: _qparam(v, dev) for k, v in qp.items()}
         out.append(PlanNode(

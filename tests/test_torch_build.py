@@ -55,7 +55,16 @@ def test_every_source_is_built_and_every_entry_point_typed():
     assert sorted(_build.SOURCES) == sorted(
         p.name for p in _build.CSRC.glob("*.cu"))
     assert set(_build.SIGNATURES) == {
-        "repro_conv2d_q8", "repro_depthwise2d_q8", "repro_maxpool2d_s8"}
+        "repro_conv2d_q8", "repro_depthwise2d_q8", "repro_maxpool2d_s8",
+        "repro_shift_conv2d_q8", "repro_add_conv2d_q8"}
+    # each entry point is defined in a source with as many parameters as
+    # its ctypes signature declares
+    import re
+    src = "".join(p.read_text() for p in _build.CSRC.glob("*.cu"))
+    for name, argtypes in _build.SIGNATURES.items():
+        m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src)
+        assert m, name
+        assert len(m.group(1).split(",")) == len(argtypes), name
 
 
 def test_concurrent_first_builds_compile_once(tmp_path, monkeypatch):

@@ -68,3 +68,51 @@ def test_maxpool2d_s8_kernel_equals_plain(dev, window, stride):
     got = maxpool2d_s8(x, window=window, stride=stride)
     torch.cuda.synchronize()
     assert torch.equal(got, maxpool2d_plain(x, window=window, stride=stride))
+
+
+def _grid(c, d):
+    grid = [(a, b) for a in range(-d, d + 1) for b in range(-d, d + 1)]
+    return np.array([grid[i % len(grid)] for i in range(c)], np.int32)
+
+
+@pytest.mark.parametrize("case", [
+    (4, 16, 16, 16, 32, 1, True, "relu", 7),
+    (3, 9, 7, 12, 8, 2, False, None, -2),
+    (2, 8, 8, 32, 64, 1, True, None, 0),
+], ids=str)
+def test_shift_conv2d_q8_kernel_equals_plain(dev, case):
+    from repro_torch.kernels import shift_conv2d_q8, shift_conv2d_q8_plain
+    n, h, w, c, cy, d, with_bias, act, shift = case
+    rng = np.random.default_rng(3)
+    x, wt = _i8(rng, (n, h, w, c), dev), _i8(rng, (c, cy), dev)
+    table = torch.from_numpy(_grid(c, d)).to(dev)
+    b = (torch.from_numpy(rng.integers(-5000, 5000, cy).astype(np.int32))
+         .to(dev) if with_bias else None)
+    kw = dict(requant_shift=shift, act=act, max_shift=d)
+    before = shift_conv2d_q8.launches
+    got = shift_conv2d_q8(x, table, wt, b, **kw)
+    torch.cuda.synchronize()
+    assert shift_conv2d_q8.launches == before + 1
+    assert torch.equal(got, shift_conv2d_q8_plain(x, table, wt, b, **kw))
+
+
+@pytest.mark.parametrize("case", [
+    (4, 16, 16, 3, 16, 3, 0, 0, True, "relu", 7),
+    (3, 9, 7, 16, 8, 3, 0, 3, False, None, 9),
+    (2, 8, 8, 8, 16, 3, 2, 0, True, None, 1),
+    (2, 6, 7, 4, 8, 2, 0, 0, False, "relu", -2),
+    (2, 5, 5, 8, 8, 3, 28, 20, True, None, 24),
+], ids=str)
+def test_add_conv2d_q8_kernel_equals_plain(dev, case):
+    from repro_torch.kernels import add_conv2d_q8, add_conv2d_q8_plain
+    n, h, w, cx, cy, hk, xp, wp, with_bias, act, shift = case
+    rng = np.random.default_rng(4)
+    x, wt = _i8(rng, (n, h, w, cx), dev), _i8(rng, (hk, hk, cx, cy), dev)
+    b = (torch.from_numpy(rng.integers(-5000, 5000, cy).astype(np.int32))
+         .to(dev) if with_bias else None)
+    kw = dict(requant_shift=shift, x_preshift=xp, w_preshift=wp, act=act)
+    before = add_conv2d_q8.launches
+    got = add_conv2d_q8(x, wt, b, **kw)
+    torch.cuda.synchronize()
+    assert add_conv2d_q8.launches == before + 1
+    assert torch.equal(got, add_conv2d_q8_plain(x, wt, b, **kw))

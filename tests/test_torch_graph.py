@@ -22,7 +22,17 @@ from repro_torch.graph import CompiledPlan, build_cnn_graph, lower  # noqa: E402
 from repro_torch.models import CNNConfig  # noqa: E402
 from repro_torch.weights import params_from_numpy, plan_from_numpy  # noqa: E402
 
-PRIMS = ("standard", "grouped", "dws")
+PRIMS = ("standard", "grouped", "dws", "shift", "add")
+
+
+def _leaf(v):
+    """One qparams leaf as plain data: QTensor -> (codes, frac_bits),
+    integer scalars stay Python ints, arrays become numpy."""
+    if isinstance(v, JQTensor):
+        return np.asarray(v.q), v.frac_bits
+    if isinstance(v, int):
+        return v
+    return np.asarray(v)
 
 
 def plan_to_numpy(plan):
@@ -35,9 +45,7 @@ def plan_to_numpy(plan):
                     if k != "dtype"}
         qp = None
         if n.qparams is not None:
-            qp = {k: (np.asarray(v.q), v.frac_bits)
-                  if isinstance(v, JQTensor) else np.asarray(v)
-                  for k, v in n.qparams.items()}
+            qp = {k: _leaf(v) for k, v in n.qparams.items()}
         nodes.append(dict(name=n.name, op=n.op, spec=spec, qparams=qp,
                           in_fb=n.in_fb, out_fb=n.out_fb, act=n.act,
                           attrs=dict(n.attrs)))
@@ -86,9 +94,10 @@ def test_plan_trunk_bitwise_and_logits(lowered):
 
 def test_port_lower_matches_jax_lower(lowered):
     """The port's own lower on the same params gives the same frac bits in
-    every node. Float calibration (conv, BN mean/var, fold) sums in another
-    order than XLA, so a weight code may sit one floor step away: at most
-    1 apart in at most 0.1% of the entries."""
+    every node and the same shift tables. Float calibration (conv, BN
+    mean/var, fold) sums in another order than XLA, so a weight code, or a
+    qbn node's multiplier or bias, may sit one rounding step away: at most
+    1 apart, and weight codes in at most 0.1% of the entries."""
     jplan = lowered["jplan"]
     cfg = CNNConfig(primitive=lowered["prim"], widths=(8, 12), image_size=16)
     params = params_from_numpy(
@@ -101,10 +110,21 @@ def test_port_lower_matches_jax_lower(lowered):
     for n, jn in zip(plan.nodes, jplan.nodes):
         assert (n.op, n.in_fb, n.out_fb, n.act) == \
             (jn.op, jn.in_fb, jn.out_fb, jn.act), n.name
+        if n.op == "qbn":
+            assert n.qparams["a_frac_bits"] == jn.qparams["a_frac_bits"]
+            for k in ("a", "b"):
+                d = np.abs(n.qparams[k].numpy().astype(np.int64)
+                           - np.asarray(jn.qparams[k]).astype(np.int64))
+                assert d.max() <= 1, (n.name, k)
+            continue
         if n.op != "qconv":
             continue
+        assert set(n.qparams) == set(jn.qparams), n.name
         for k, v in n.qparams.items():
             jv = jn.qparams[k]
+            if k == "shifts":
+                np.testing.assert_array_equal(v.numpy(), np.asarray(jv))
+                continue
             assert v.frac_bits == jv.frac_bits, (n.name, k)
             d = np.abs(v.q.numpy().astype(np.int32)
                        - np.asarray(jv.q).astype(np.int32))
@@ -142,3 +162,74 @@ def test_cuda_method_on_cpu_runs_plain(lowered):
     b = CompiledPlan(plan, method="torch", device="cpu").trunk(x)
     np.testing.assert_array_equal(a.q.numpy(), b.q.numpy())
     assert all(k.launches == 0 for k in kernels.KERNELS)
+
+
+def test_plan_from_numpy_keeps_ints_and_checks_the_shift_table():
+    """Integer scalars stay Python ints (a 0-d array too, so requantize
+    never gets a tensor shift), integer tables stay int32 tensors, and a
+    shift table beyond kernel_size // 2 is refused once, on the host."""
+    spec = dict(primitive="shift", in_channels=2, out_channels=3,
+                kernel_size=3)
+    w_pw = (np.ones((1, 1, 2, 3), np.int8), 6)
+    qbn = dict(name="bn0", op="qbn", in_fb=2, out_fb=4, act="relu",
+               qparams={"a": np.array([3, 4, 5], np.int32),
+                        "b": np.array([0, -1, 1], np.int32),
+                        "a_frac_bits": np.asarray(9)})
+
+    def conv(table):
+        return dict(name="conv0", op="qconv", spec=spec, in_fb=5, out_fb=2,
+                    qparams={"shifts": np.array(table, np.int32),
+                             "w_pw": w_pw})
+    plan = plan_from_numpy([conv([[1, -1], [0, 0]]), qbn], 5, device="cpu")
+    shifts = plan.nodes[0].qparams["shifts"]
+    assert shifts.dtype == torch.int32 and shifts.tolist() == [[1, -1],
+                                                               [0, 0]]
+    bn = plan.nodes[1].qparams
+    assert type(bn["a_frac_bits"]) is int and bn["a_frac_bits"] == 9
+    assert bn["a"].dtype == bn["b"].dtype == torch.int32
+    with pytest.raises(ValueError, match="exceeding the declared max_shift"):
+        plan_from_numpy([conv([[2, 0], [0, 0]]), qbn], 5, device="cpu")
+
+
+@pytest.mark.parametrize("beta_scale,gamma_scale,in_fb", [
+    (0.1, 1.0, -3), (3e4, 1.0, 2), (0.1, 0.0, 0), (1.0, 40.0, 6)],
+    ids=["plain", "large-offset-cap", "zero-multiplier", "large-gamma"])
+def test_qbn_affine_and_apply_match_jax(beta_scale, gamma_scale, in_fb):
+    """The integer BN node on its own: the lowering of the affine and the
+    int32 apply, bitwise on the same qparams. The frac bits agree exactly.
+    PyTorch's float32 (var + eps) ** -0.5 differs from XLA's by one ulp in
+    about a quarter of the entries, so a (|a| <= 2^15 after scaling) may
+    sit one rounding step away, and b, scaled towards 2^30, by up to two
+    float32 ulps of its own magnitude."""
+    from repro.core.quantize import QTensor as JQ
+    from repro.graph.executor import _qbn_apply as j_qbn_apply
+    from repro.graph.lower import _quantize_bn_affine as j_affine
+    from repro_torch.core.quantize import QTensor
+    from repro_torch.graph.executor import _qbn_apply
+    from repro_torch.graph.lower import _quantize_bn_affine
+    rng = np.random.default_rng(7)
+    bn = {"gamma": gamma_scale * (1 + 0.2 * rng.standard_normal(16)),
+          "beta": beta_scale * rng.standard_normal(16),
+          "mean": 50 * rng.standard_normal(16),
+          "var": 100 * rng.random(16) + 1}
+    bn = {k: v.astype(np.float32) for k, v in bn.items()}
+    got = _quantize_bn_affine({k: torch.from_numpy(v) for k, v in bn.items()},
+                              in_fb)
+    want = j_affine({k: jax.numpy.asarray(v) for k, v in bn.items()}, in_fb)
+    assert got["a_frac_bits"] == want["a_frac_bits"]
+    for k in ("a", "b"):
+        assert got[k].dtype == torch.int32
+        g = got[k].numpy().astype(np.int64)
+        w = np.asarray(want[k]).astype(np.int64)
+        assert (np.abs(g - w) <= 1 + np.abs(w) * 2.0 ** -22).all(), k
+    qp = {k: np.array(want[k]) for k in ("a", "b")}
+    x = rng.integers(-128, 128, (2, 5, 5, 16)).astype(np.int8)
+    for act in (None, "relu"):
+        t = _qbn_apply({**{k: torch.from_numpy(v) for k, v in qp.items()},
+                        "a_frac_bits": want["a_frac_bits"]},
+                       QTensor(torch.from_numpy(x), in_fb), 3, act)
+        j = j_qbn_apply({**{k: jax.numpy.asarray(v) for k, v in qp.items()},
+                         "a_frac_bits": want["a_frac_bits"]},
+                        JQ(jax.numpy.asarray(x), in_fb), 3, act)
+        assert t.frac_bits == j.frac_bits == 3
+        np.testing.assert_array_equal(t.q.numpy(), np.asarray(j.q))

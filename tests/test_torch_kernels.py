@@ -106,6 +106,110 @@ def test_maxpool2d_plain_equals_ref_and_pallas(dtype, window, stride):
     np.testing.assert_array_equal(got.numpy(), np.asarray(pallas))
 
 
+def _shift_table(kind, c, rng):
+    """(C,2) int32 shift tables: the paper's HK x HK grid assignment, every
+    channel on one displacement, or random within max_shift=2."""
+    if kind in ("grid3", "grid5"):
+        d = int(kind[-1]) // 2
+        grid = [(a, b) for a in range(-d, d + 1) for b in range(-d, d + 1)]
+        return np.array([grid[i % len(grid)] for i in range(c)], np.int32)
+    if kind == "one":
+        return np.tile(np.array([[1, -1]], np.int32), (c, 1))
+    return rng.integers(-2, 3, (c, 2)).astype(np.int32)
+
+
+# (N, H, W, C, Cy, table, max_shift, bias, act, shift)
+SHIFT_CASES = [
+    (2, 8, 8, 8, 8, "grid3", 1, True, "relu", 7),
+    (2, 7, 5, 9, 8, "grid5", 2, False, None, 0),
+    (2, 8, 8, 8, 16, "one", 1, True, None, -2),
+    (2, 9, 7, 12, 8, "random", 2, True, "relu", 1),
+]
+
+
+@pytest.mark.parametrize("case", SHIFT_CASES, ids=str)
+def test_shift_conv2d_q8_plain_equals_ref_and_pallas(case):
+    n, h, w, c, cy, kind, max_shift, with_bias, act, shift = case
+    rng = np.random.default_rng(100 + SHIFT_CASES.index(case))
+    x = _i8(rng, (n, h, w, c))
+    table = _shift_table(kind, c, rng)
+    wt = _i8(rng, (c, cy))
+    b = rng.integers(-3000, 3000, cy).astype(np.int32) if with_bias else None
+    kw = dict(requant_shift=shift, act=act, max_shift=max_shift)
+    got = K.shift_conv2d(_t(x), _t(table), _t(wt), _t(b), method="torch",
+                         **kw)
+    assert got.dtype == torch.int8 and got.shape == (n, h, w, cy)
+    jb = None if b is None else jnp.asarray(b)
+    want = JR.shift_conv2d_q8_ref(jnp.asarray(x), jnp.asarray(table),
+                                  jnp.asarray(wt), jb, **kw)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    pallas = JK.shift_conv2d(jnp.asarray(x), jnp.asarray(table),
+                             jnp.asarray(wt), jb, method="pallas", **kw)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(pallas))
+    # the (1,1,C,Cy) weight layout is the same bytes
+    got4 = K.shift_conv2d(_t(x), _t(table), _t(wt[None, None]), _t(b),
+                          method="torch", **kw)
+    assert torch.equal(got4, got)
+
+
+# (N, H, W, Cx, Cy, HK, x_preshift, w_preshift, bias, act, shift); the
+# last case pre-shifts far enough that the int32 sum wraps
+ADD_CASES = [
+    (2, 8, 8, 4, 8, 3, 0, 0, True, "relu", 7),
+    (2, 7, 5, 3, 8, 3, 0, 3, False, None, 9),
+    (2, 6, 6, 4, 8, 3, 2, 0, True, None, 10),
+    (2, 6, 7, 4, 8, 2, 0, 0, True, None, 6),
+    (2, 5, 5, 4, 4, 3, 28, 20, True, None, 24),
+]
+
+
+@pytest.mark.parametrize("case", ADD_CASES, ids=str)
+def test_add_conv2d_q8_plain_equals_ref_and_pallas(case):
+    n, h, w, cx, cy, hk, xp, wp, with_bias, act, shift = case
+    rng = np.random.default_rng(200 + ADD_CASES.index(case))
+    x = _i8(rng, (n, h, w, cx))
+    wt = _i8(rng, (hk, hk, cx, cy))
+    b = rng.integers(-3000, 3000, cy).astype(np.int32) if with_bias else None
+    kw = dict(requant_shift=shift, x_preshift=xp, w_preshift=wp, act=act)
+    got = K.add_conv2d(_t(x), _t(wt), _t(b), method="torch", **kw)
+    assert got.dtype == torch.int8 and got.shape == (n, h, w, cy)
+    jb = None if b is None else jnp.asarray(b)
+    pallas = JK.add_conv2d(jnp.asarray(x), jnp.asarray(wt), jb,
+                           method="pallas", **kw)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(pallas))
+    if hk % 2:    # for even HK the JAX oracle pads the XLA way round
+        want = JR.add_conv2d_q8_ref(jnp.asarray(x), jnp.asarray(wt), jb,
+                                    **kw)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    if xp >= 24:  # the exact sum leaves int32: the result is its wrap
+        exact = -np.abs((x.astype(np.int64) << xp)[..., None]
+                        - (wt[1, 1].astype(np.int64) << wp)).sum(axis=-2)
+        assert np.abs(exact).max() > 2 ** 31
+        assert len(np.unique(got.numpy())) > 50
+
+
+def test_float_shift_and_add_follow_the_oracles():
+    """The float modes: plain versions on the host, against the JAX oracles
+    (float32 sums in another order: rtol=atol=1e-5)."""
+    rng = np.random.default_rng(300)
+    x = rng.standard_normal((2, 7, 6, 8)).astype(np.float32)
+    table = _shift_table("grid3", 8, rng)
+    w_pw = rng.standard_normal((8, 4)).astype(np.float32)
+    w = rng.standard_normal((3, 3, 8, 4)).astype(np.float32)
+    got = K.shift_conv2d(_t(x), _t(table), _t(w_pw), max_shift=1,
+                         act="relu")
+    want = JR.shift_conv2d_ref(jnp.asarray(x), jnp.asarray(table),
+                               jnp.asarray(w_pw), max_shift=1, act="relu")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    got = K.add_conv2d(_t(x), _t(w))
+    want = JR.add_conv2d_ref(jnp.asarray(x), jnp.asarray(w))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    with pytest.raises(ValueError, match="quantized path"):
+        K.add_conv2d(_t(x), _t(w), x_preshift=1)
+
+
 def test_cuda_method_on_host_tensors_runs_plain_without_launch():
     """A CPU tensor always runs the plain version, whatever the method, and
     launches nothing."""
@@ -145,8 +249,19 @@ def test_default_device_raises_without_a_card():
 
 
 def test_wrappers_reject_bad_arguments():
-    from repro_torch.kernels import conv2d_q8, depthwise2d_q8, maxpool2d_s8
+    from repro_torch.kernels import (add_conv2d_q8, conv2d_q8, depthwise2d_q8,
+                                     maxpool2d_s8, shift_conv2d_q8)
     x = torch.zeros((1, 4, 4, 4), dtype=torch.int8)
+    table = torch.zeros((4, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="shift table"):
+        shift_conv2d_q8(x, table[:3], torch.zeros((4, 8), dtype=torch.int8))
+    with pytest.raises(ValueError, match="does not fit"):
+        shift_conv2d_q8(x, table, torch.zeros((5, 8), dtype=torch.int8))
+    with pytest.raises(ValueError, match="x_preshift"):
+        add_conv2d_q8(x, torch.zeros((3, 3, 4, 8), dtype=torch.int8),
+                      x_preshift=32)
+    with pytest.raises(ValueError, match="does not fit"):
+        add_conv2d_q8(x, torch.zeros((3, 3, 3, 8), dtype=torch.int8))
     with pytest.raises(ValueError, match="requant_shift"):
         conv2d_q8(x, torch.zeros((3, 3, 4, 4), dtype=torch.int8),
                   requant_shift=32)

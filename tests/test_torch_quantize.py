@@ -56,3 +56,23 @@ def test_requantize(acc_fb, out_fb):
     want = JQ.requantize(jnp.asarray(ACC), acc_fb, out_fb)
     assert got.dtype == torch.int8
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("fb_x,fb_w", [(5, 5), (7, 4), (3, 9), (0, 31)])
+def test_addmac_align(fb_x, fb_w):
+    """Algorithm 1 (right): the coarser int8 operand shifted onto the finer
+    scale in int32 (wrapping at the largest shifts), the same accumulator
+    frac bits, and the same static pre-shifts as the JAX package's
+    ``qconv._add_preshifts``."""
+    codes = np.arange(-128, 128, dtype=np.int8)
+    x, w = codes, codes[::-1].copy()
+    xi, wi, fb = Q.addmac_align(torch.from_numpy(x), torch.from_numpy(w),
+                                fb_x, fb_w)
+    jxi, jwi, jfb = JQ.addmac_align(jnp.asarray(x), jnp.asarray(w), fb_x,
+                                    fb_w)
+    assert fb == jfb == max(fb_x, fb_w)
+    from repro.core.qconv import _add_preshifts
+    assert Q.add_preshifts(fb_x, fb_w) == _add_preshifts(fb_x, fb_w)
+    assert xi.dtype == wi.dtype == torch.int32
+    np.testing.assert_array_equal(xi.numpy(), np.asarray(jxi))
+    np.testing.assert_array_equal(wi.numpy(), np.asarray(jwi))

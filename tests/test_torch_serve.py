@@ -179,3 +179,27 @@ def test_round_and_forward_spans_on_the_tracer(plan):
     with trace.span("off") as sp:           # disabled: the shared no-op
         assert sp is trace._NULL_SPAN
     assert trace.TRACER.events() == []
+
+
+@pytest.mark.parametrize("prim", ["shift", "add"])
+def test_shift_and_add_plans_serve(prim):
+    """Plans of the two primitives the dws fixture does not run (the add
+    plan with its integer BN nodes) served over a ragged last round: every
+    request ok, logits equal to the plan's forward_batch."""
+    cfg = CNNConfig(primitive=prim, widths=(8, 12), image_size=16)
+    params = init_cnn(cfg, torch.Generator().manual_seed(4), device="cpu")
+    calib = _images(8, seed=5)
+    plan = quantize_cnn(params, cfg, calib, method="torch", device="cpu")
+    ops = [n.op for n in plan.plan.nodes]
+    assert ops.count("qbn") == (2 if prim == "add" else 0)
+    imgs = _images(7, seed=6)
+    eng = CNNEngine(plan, CNNServeConfig(max_batch=4))
+    for i, im in enumerate(imgs):
+        eng.submit(ImageRequest(uid=i, image=im))
+    done = eng.run_until_drained()
+    assert [r.status for r in done] == ["ok"] * 7
+    assert eng.stats["batch_rounds"] == 2
+    for start in (0, 4):
+        want = plan.forward_batch(imgs[start:start + 4]).numpy()
+        np.testing.assert_array_equal(
+            np.stack([r.logits for r in done[start:start + 4]]), want)
