@@ -7,30 +7,37 @@ Phases, one line each, any failure exits non-zero:
 
 1. device   — a CUDA card is present; its name and power limit.
 2. build    — the CUDA kernels built from ``src/repro_torch/kernels/csrc``.
-3. kernels  — each kernel held bitwise against its plain PyTorch version
-              at every shape of the dws, standard, shift and add plans at
-              B=256, a groups=2 conv, odd and even-HK shapes, shift tables
-              with |shift| up to 2 and with every channel on one shift,
-              add pre-shifts (0,0), (0,3), (2,0) and one that wraps int32,
-              and requant shifts {-2, 0, 1, 7} with relu and bias on and
-              off; per main-path shape the kernel's time, its bound, the
-              plain version's time and one PyTorch call's time as a
-              yardstick (device times from torch.profiler, TF32 off), and
-              the time of back-to-back wrapper calls.
+3. kernels  — each of the nine kernel entry points (five int8, four W4)
+              held bitwise against its plain PyTorch version at every
+              shape of the dws, standard, shift and add plans at B=256, a
+              groups=2 conv, odd and even-HK shapes, shift tables with
+              |shift| up to 2 and with every channel on one shift, add
+              pre-shifts (0,0), (0,3), (2,0) and one that wraps int32, and
+              requant shifts {-2, 0, 1, 7} with relu and bias on and off;
+              the W4 modes with random packed nibbles (-8 and +7 included),
+              group shifts in [0, 4] (all 4 in some cases), odd Cx (a pad
+              nibble) and depthwise HK 1, 3 and 5; per main-path shape the
+              kernel's time, its bound, the plain version's time and one
+              PyTorch call's time as a yardstick (device times from
+              torch.profiler, TF32 off), and the time of back-to-back
+              wrapper calls.
 4. plan     — CNNConfig(primitive=...) for "dws", "standard", "shift" and
               "add" at full width with seeded random weights, lowered with
-              a 256-image calibration batch on the card: method="cuda"
-              trunk bitwise equal to method="torch" and to a host run,
-              logits within 1e-5.
-5. serve    — CNNEngine(max_batch=256) over 2,085 images of the dws plan
-              (8 full rounds and a ragged round of 37) and 549 images each
-              of the shift and add plans (2 full rounds and a ragged round
-              of 37), launch counts set to 0 before each run: every status
-              ok, no error or retry, each plan's kernels launched exactly
-              as often as its forwards need and no other kernel, all five
-              kernels launched across the three runs, logits equal to the
-              plan's forward_batch; then a breakdown of one 256-image round
-              of each plan.
+              a 256-image calibration batch on the card, with int8 weights
+              and with W4 weights (weight_bits=4, group_size=32; and one
+              standard plan at group_size=8): method="cuda" trunk bitwise
+              equal to method="torch" and to a host run, logits within
+              1e-5; a W4 forward launches no int8 conv kernel.
+5. serve    — CNNEngine(max_batch=256) over 2,085 images of the int8 dws
+              plan (8 full rounds and a ragged round of 37) and 549 images
+              each of the int8 shift and add plans and the W4 dws, shift
+              and add plans (2 full rounds and a ragged round of 37),
+              launch counts set to 0 before each run: every status ok, no
+              error or retry, each plan's kernels launched exactly as often
+              as its forwards need and no other kernel, all nine kernels
+              launched across the six runs, logits equal to the plan's
+              forward_batch; then a breakdown of one 256-image round of
+              each plan.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -51,17 +58,32 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 BATCH = 256
 N_SERVE = 8 * BATCH + 37
-#: images served per plan: the dws plan's run is the long one
-SERVED = {"dws": N_SERVE, "shift": 2 * BATCH + 37, "add": 2 * BATCH + 37}
+N_SHORT = 2 * BATCH + 37
+#: images served per plan: the int8 dws plan's run is the long one
+SERVED = {"dws": N_SERVE, "shift": N_SHORT, "add": N_SHORT,
+          "dws-w4": N_SHORT, "shift-w4": N_SHORT, "add-w4": N_SHORT}
 #: kernel launches per forward of each served plan (widths 16/32/64)
 PER_FORWARD = {
     "dws": {"conv2d_q8": 3, "depthwise2d_q8": 2, "maxpool2d_s8": 3},
     "shift": {"conv2d_q8": 1, "shift_conv2d_q8": 2, "maxpool2d_s8": 3},
     "add": {"add_conv2d_q8": 3, "maxpool2d_s8": 3},
+    "dws-w4": {"conv2d_w4": 3, "depthwise2d_w4": 2, "maxpool2d_s8": 3},
+    "shift-w4": {"conv2d_w4": 1, "shift_conv2d_w4": 2, "maxpool2d_s8": 3},
+    "add-w4": {"add_conv2d_w4": 3, "maxpool2d_s8": 3},
 }
+#: plans lowered in phase 4: (primitive, weight_bits, group_size). The
+#: group_size=8 plan's weights fall by an octave from one group of 8 input
+#: channels to the next, so its layers carry several distinct group shifts.
+PLANS = {"dws": ("dws", 8, 32), "standard": ("standard", 8, 32),
+         "shift": ("shift", 8, 32), "add": ("add", 8, 32),
+         "dws-w4": ("dws", 4, 32), "standard-w4": ("standard", 4, 32),
+         "shift-w4": ("shift", 4, 32), "add-w4": ("add", 4, 32),
+         "standard-w4-g8": ("standard", 4, 8)}
 #: the plan whose B=256 forward each kernel's times are summed over
 TIMED_PLAN = {"conv2d": "dws", "depthwise2d": "dws", "maxpool2d": "dws",
               "shift_conv2d": "shift", "add_conv2d": "add"}
+#: the W4 mode's pre-shifts (x, w) and requant shift of each add layer
+W4_ADD_PRESHIFTS = ((0, 3, 9), (2, 0, 9), (28, 20, 24))
 
 # Published dense peaks (NVIDIA data sheets): HBM bytes/s and int8 ops/s.
 PEAKS = {"SXM": (3.35e12, 1979e12), "PCIe": (2.0e12, 1513e12)}
@@ -191,6 +213,7 @@ def kernel_cases(torch, K, dev, rng):
     int8 tensor-core operations, or add-conv's int32 |x - w| accumulates."""
     import torch.nn.functional as F
     from repro_torch.core.primitives import shift_channels
+    from repro_torch.core.quantize import expand_w4, pack_w4
 
     def i8(shape):
         return torch.from_numpy(rng.integers(-128, 128, shape)
@@ -200,39 +223,76 @@ def kernel_cases(torch, K, dev, rng):
         return torch.from_numpy(rng.integers(-4096, 4096, shape)
                                 .astype("int32")).to(dev)
 
+    def w4(shape, axis, all_max=False):
+        """Random int4 codes (-8 and +7 included) packed along ``axis``,
+        group shifts in [0, 4] (all 4 with ``all_max``), and the int8 codes
+        they expand to (for the yardstick only)."""
+        q = rng.integers(-8, 8, shape).astype("int8")
+        q.flat[0], q.flat[-1] = -8, 7
+        n = shape[axis]
+        ws = (np.full(n, 4) if all_max else rng.integers(0, 5, n)) \
+            .astype("int8")
+        wp = pack_w4(torch.from_numpy(q), axis).contiguous().to(dev)
+        ws = torch.from_numpy(ws).to(dev)
+        return wp, ws, expand_w4(wp, ws, n, axis)
+
     def conv(label, n, h, w, cx, cy, hk, g, bias=True, act="relu", shift=7,
-             main=False):
-        x, wt = i8((n, h, w, cx)), i8((hk, hk, cx // g, cy))
+             main=False, w4_mode=False, all_max=False):
+        x = i8((n, h, w, cx))
+        if w4_mode:
+            wp, ws, wt = w4((hk, hk, cx // g, cy), 2, all_max)
+            wbytes = wp.numel() + ws.numel()
+        else:
+            wt = i8((hk, hk, cx // g, cy))
+            wbytes = wt.numel()
         b = i32((cy,)) if bias else None
         kw = dict(groups=g, requant_shift=shift, act=act)
-        # yardstick: cuDNN float32 convolution of the same codes
+        # yardstick: cuDNN float32 convolution of the same (expanded) codes
         # (contraction only), NCHW copies made before timing
         xf = x.permute(0, 3, 1, 2).float().contiguous()
         wf = wt.permute(3, 2, 0, 1).float().contiguous()
         pad = (hk // 2, (hk - 1) // 2, hk // 2, (hk - 1) // 2)
         xf = F.pad(xf, pad)
-        nbytes = x.numel() + wt.numel() + (4 * cy if bias else 0) + n * h * w * cy
+        nbytes = x.numel() + wbytes + (4 * cy if bias else 0) + n * h * w * cy
         ops = (2 * n * h * w * cy * (cx // g) * hk * hk, "int8")
+        lib = lambda: F.conv2d(xf, wf, groups=g)       # noqa: E731
+        if w4_mode:
+            return ("conv2d_w4", label, main,
+                    lambda: K.conv2d_w4(x, wp, ws, b, **kw),
+                    lambda: K.conv2d_w4_plain(x, wp, ws, b, **kw),
+                    lib, nbytes, ops)
         return ("conv2d", label, main,
                 lambda: K.conv2d_q8(x, wt, b, **kw),
                 lambda: K.conv2d_q8_plain(x, wt, b, **kw),
-                lambda: F.conv2d(xf, wf, groups=g), nbytes, ops)
+                lib, nbytes, ops)
 
     def dw(label, n, h, w, c, hk, act=None, shift=7, layout4=True,
-           main=False):
+           main=False, w4_mode=False, all_max=False):
         x = i8((n, h, w, c))
-        wt = i8((hk, hk, c, 1) if layout4 else (hk, hk, c))
+        shape = (hk, hk, c, 1) if layout4 else (hk, hk, c)
+        if w4_mode:                      # packed along the tap rows
+            wp, ws, wt = w4(shape, 0, all_max)
+            wbytes = wp.numel() + ws.numel()
+        else:
+            wt = i8(shape)
+            wbytes = wt.numel()
         kw = dict(requant_shift=shift, act=act)
         xf = x.permute(0, 3, 1, 2).float().contiguous()
         xf = F.pad(xf, (hk // 2, (hk - 1) // 2, hk // 2, (hk - 1) // 2))
         wf = wt.reshape(hk, hk, c).permute(2, 0, 1)[:, None].float() \
             .contiguous()
-        nbytes = 2 * x.numel() + wt.numel()
+        nbytes = 2 * x.numel() + wbytes
         ops = (2 * x.numel() * hk * hk, "int8")
+        lib = lambda: F.conv2d(xf, wf, groups=c)       # noqa: E731
+        if w4_mode:
+            return ("depthwise2d_w4", label, main,
+                    lambda: K.depthwise2d_w4(x, wp, ws, **kw),
+                    lambda: K.depthwise2d_w4_plain(x, wp, ws, **kw),
+                    lib, nbytes, ops)
         return ("depthwise2d", label, main,
                 lambda: K.depthwise2d_q8(x, wt, **kw),
                 lambda: K.depthwise2d_q8_plain(x, wt, **kw),
-                lambda: F.conv2d(xf, wf, groups=c), nbytes, ops)
+                lib, nbytes, ops)
 
     def pool(label, n, h, w, c, win=2, stride=2, main=False):
         x = i8((n, h, w, c))
@@ -250,8 +310,14 @@ def kernel_cases(torch, K, dev, rng):
                 lib, nbytes, ops)
 
     def shift_conv(label, n, h, w, c, cy, table, bias=True, act="relu", rs=7,
-              main=False):
-        x, wt = i8((n, h, w, c)), i8((c, cy))
+                   main=False, w4_mode=False, all_max=False):
+        x = i8((n, h, w, c))
+        if w4_mode:
+            wp, ws, wt = w4((c, cy), 0, all_max)
+            wbytes = wp.numel() + ws.numel()
+        else:
+            wt = i8((c, cy))
+            wbytes = wt.numel()
         s = torch.from_numpy(table).to(dev)
         d = int(np.abs(table).max())
         b = i32((cy,)) if bias else None
@@ -260,17 +326,29 @@ def kernel_cases(torch, K, dev, rng):
         # codes (contraction only), made before timing
         xs = shift_channels(x, s).permute(0, 3, 1, 2).float().contiguous()
         wf = wt.t().float()[:, :, None, None].contiguous()
-        nbytes = (x.numel() + wt.numel() + s.numel() * 4
+        nbytes = (x.numel() + wbytes + s.numel() * 4
                   + (4 * cy if bias else 0) + n * h * w * cy)
         ops = (2 * n * h * w * cy * c, "int8")
+        lib = lambda: F.conv2d(xs, wf)                 # noqa: E731
+        if w4_mode:
+            return ("shift_conv2d_w4", label, main,
+                    lambda: K.shift_conv2d_w4(x, s, wp, ws, b, **kw),
+                    lambda: K.shift_conv2d_w4_plain(x, s, wp, ws, b, **kw),
+                    lib, nbytes, ops)
         return ("shift_conv2d", label, main,
                 lambda: K.shift_conv2d_q8(x, s, wt, b, **kw),
                 lambda: K.shift_conv2d_q8_plain(x, s, wt, b, **kw),
-                lambda: F.conv2d(xs, wf), nbytes, ops)
+                lib, nbytes, ops)
 
     def add_conv(label, n, h, w, cx, cy, hk, xp=2, wp=0, bias=True, act=None,
-            rs=9, main=False):
-        x, wt = i8((n, h, w, cx)), i8((hk, hk, cx, cy))
+                 rs=9, main=False, w4_mode=False, all_max=False):
+        x = i8((n, h, w, cx))
+        if w4_mode:
+            wpk, ws, wt = w4((hk, hk, cx, cy), 2, all_max)
+            wbytes = wpk.numel() + ws.numel()
+        else:
+            wt = i8((hk, hk, cx, cy))
+            wbytes = wt.numel()
         b = i32((cy,)) if bias else None
         kw = dict(requant_shift=rs, x_preshift=xp, w_preshift=wp, act=act)
         # yardstick: torch.cdist(p=1) between float32 patches extracted
@@ -282,13 +360,19 @@ def kernel_cases(torch, K, dev, rng):
             .reshape(n * h * w, cx * hk * hk).contiguous()
         wf = wt.permute(3, 2, 0, 1).reshape(cy, cx * hk * hk).float() \
             .contiguous()
-        nbytes = x.numel() + wt.numel() + (4 * cy if bias else 0) \
+        nbytes = x.numel() + wbytes + (4 * cy if bias else 0) \
             + n * h * w * cy
         ops = (n * h * w * cy * cx * hk * hk, "int32")
+        lib = lambda: torch.cdist(patches, wf, p=1)    # noqa: E731
+        if w4_mode:
+            return ("add_conv2d_w4", label, main,
+                    lambda: K.add_conv2d_w4(x, wpk, ws, b, **kw),
+                    lambda: K.add_conv2d_w4_plain(x, wpk, ws, b, **kw),
+                    lib, nbytes, ops)
         return ("add_conv2d", label, main,
                 lambda: K.add_conv2d_q8(x, wt, b, **kw),
                 lambda: K.add_conv2d_q8_plain(x, wt, b, **kw),
-                lambda: torch.cdist(patches, wf, p=1), nbytes, ops)
+                lib, nbytes, ops)
 
     seen = set()
     for prim in ("dws", "standard", "shift", "add"):
@@ -347,6 +431,51 @@ def kernel_cases(torch, K, dev, rng):
                                  bias=bias, act=act, rs=rs)
                 yield add_conv(tag, 8, 16, 16, 16, 32, 3, bias=bias, act=act,
                                rs=rs)
+    yield from w4_cases(conv, dw, shift_conv, add_conv)
+
+
+def w4_cases(conv, dw, shift_conv, add_conv):
+    """The W4 mode of the four weight-carrying kernels: every W4 launch of
+    the dws, shift and add plans' forwards at B=256 (timed), then odd
+    shapes, a pad nibble, every group shift at 4 and depthwise HK 1 and 5
+    (bitwise only)."""
+    packed = dict(w4_mode=True)
+    yield conv("W4 dws conv0 3->16 32^2", BATCH, 32, 32, 3, 16, 3, 1,
+               main=True, **packed)
+    yield dw("W4 dws dw1 16ch 16^2", BATCH, 16, 16, 16, 3, main=True, **packed)
+    yield conv("W4 dws pw1 16->32 16^2", BATCH, 16, 16, 16, 32, 1, 1,
+               main=True, **packed)
+    yield dw("W4 dws dw2 32ch 8^2", BATCH, 8, 8, 32, 3, main=True, **packed)
+    yield conv("W4 dws pw2 32->64 8^2", BATCH, 8, 8, 32, 64, 1, 1, main=True,
+               **packed)
+    yield shift_conv("W4 shift shift1 16->32 16^2", BATCH, 16, 16, 16, 32,
+                     grid_table(16, 1), main=True, **packed)
+    yield shift_conv("W4 shift shift2 32->64 8^2", BATCH, 8, 8, 32, 64,
+                     grid_table(32, 1), main=True, **packed)
+    hw, cin = 32, 3
+    for i, cout in enumerate((16, 32, 64)):
+        xp, wp, rs = W4_ADD_PRESHIFTS[i]
+        yield add_conv(f"W4 add add{i} {cin}->{cout} {hw}^2 ({xp},{wp})",
+                       BATCH, hw, hw, cin, cout, 3, xp=xp, wp=wp, rs=rs,
+                       main=True, **packed)
+        hw, cin = hw // 2, cout
+    yield conv("W4 standard conv1 16->32 16^2 all shifts 4", BATCH, 16, 16,
+               16, 32, 3, 1, all_max=True, **packed)
+    yield conv("W4 grouped g=2 16->32 16^2", BATCH, 16, 16, 16, 32, 3, 2,
+               **packed)
+    yield conv("W4 odd 2x15x13x5->8 hk3 g=1", 2, 15, 13, 5, 8, 3, 1,
+               bias=False, act=None, shift=0, **packed)
+    yield conv("W4 even hk2 2x6x7x12->8 g=2", 2, 6, 7, 12, 8, 2, 2,
+               shift=-2, **packed)
+    for hk in (1, 5):
+        yield dw(f"W4 hk{hk} 4x16x16x16 (HK,HK,C)", 4, 16, 16, 16, hk,
+                 act="relu", layout4=False, all_max=hk == 5, **packed)
+    yield shift_conv("W4 odd 2x15x13x7->8 grid5 all shifts 4", 2, 15, 13, 7,
+                     8, grid_table(7, 2), all_max=True, **packed)
+    yield add_conv("W4 odd 2x15x13x3->8 all shifts 4", 2, 15, 13, 3, 8, 3,
+                   xp=0, wp=3, all_max=True, **packed)
+    yield add_conv("W4 preshift (28,20) 2x8x8x5->16 relu", 2, 8, 8, 5, 16, 3,
+                   xp=28, wp=20, rs=24, act="relu", **packed)
 
 
 def phase_kernels(torch, K, dev, name, rng):
@@ -412,8 +541,10 @@ def _phase_kernels(torch, K, dev, rng, bw, rates):
 
 # ---------------------------------------------------------------- phase 4 --
 
-def numpy_params(cfg, rng):
-    """CNN parameters in the JAX package's layout, He-normal from ``rng``."""
+def numpy_params(cfg, rng, group_spread=None):
+    """CNN parameters in the JAX package's layout, He-normal from ``rng``.
+    With ``group_spread=g``, each conv weight's input channels are scaled
+    by 2^-((c // g) % 4): one octave down per group of ``g``."""
     from repro_torch.models.convnet import _specs
     blocks = []
     for s in _specs(cfg):
@@ -431,6 +562,12 @@ def numpy_params(cfg, rng):
         else:
             conv = {"w": he((hk, hk, cx // s.groups, cy),
                             hk * hk * cx // s.groups)}
+        if group_spread:
+            for k in ("w", "w_pw"):
+                if k in conv:
+                    c = conv[k].shape[2]
+                    octave = (np.arange(c) // group_spread) % 4
+                    conv[k] *= (2.0 ** -octave)[:, None].astype("float32")
         conv["b"] = (rng.standard_normal(cy) * 0.1).astype("float32")
         # mean/var are re-estimated by the calibration sweep
         bn = {"gamma": (1.0 + 0.1 * rng.standard_normal(cy)).astype("float32"),
@@ -444,11 +581,13 @@ def numpy_params(cfg, rng):
 
 def plan_to_host(plan):
     """A copy of ``plan`` with every tensor on the host."""
-    from repro_torch.core.quantize import QTensor
+    from repro_torch.core.quantize import QTensor, QTensorW4
 
     def host(v):
         if isinstance(v, QTensor):
             return QTensor(v.q.cpu(), v.frac_bits)
+        if isinstance(v, QTensorW4):
+            return dataclasses.replace(v, q=v.q.cpu(), shifts=v.shifts.cpu())
         return v.cpu() if hasattr(v, "cpu") else v
     nodes = tuple(dataclasses.replace(
         n, qparams=None if n.qparams is None
@@ -456,52 +595,81 @@ def plan_to_host(plan):
     return dataclasses.replace(plan, nodes=nodes)
 
 
-def phase_plan(torch, primitive, rng, dev="cuda"):
-    from repro_torch.graph import CompiledPlan
+def phase_plan(torch, K, name, rng, dev="cuda"):
+    """Lower one plan of ``PLANS`` on ``dev`` and hold its cuda trunk
+    against the torch trunk and a host run."""
+    from repro_torch.core.quantize import QTensorW4
+    from repro_torch.graph import CompiledPlan, build_cnn_graph, lower
     from repro_torch.models import CNNConfig, quantize_cnn
     from repro_torch.weights import params_from_numpy
+    primitive, bits, group = PLANS[name]
     cfg = CNNConfig(primitive=primitive)
-    params = params_from_numpy(numpy_params(cfg, rng), device=dev)
+    spread = group if bits == 4 and group < 32 else None
+    params = params_from_numpy(numpy_params(cfg, rng, spread), device=dev)
     calib = (rng.standard_normal((BATCH, 32, 32, 3)) * 0.5).astype("float32")
     x = (rng.standard_normal((BATCH, 32, 32, 3)) * 0.5).astype("float32")
     t0 = time.perf_counter()
-    cuda_plan = quantize_cnn(params, cfg, calib, method="cuda", device=dev)
+    if bits == 8:
+        cuda_plan = quantize_cnn(params, cfg, calib, method="cuda",
+                                 device=dev)
+    else:        # W4A8: JAX's quantize_cnn has no weight_bits, nor the port's
+        plan = lower(build_cnn_graph(cfg), params,
+                     torch.as_tensor(calib, device=dev), weight_bits=bits,
+                     group_size=group)
+        cuda_plan = CompiledPlan(plan, method="cuda", device=dev)
     if torch.device(dev).type == "cuda":
         torch.cuda.synchronize()
     t_lower = time.perf_counter() - t0
+    weights = [v for n in cuda_plan.plan.nodes if n.op == "qconv"
+               for k, v in n.qparams.items() if k in ("w", "w_dw", "w_pw")]
+    check(all(isinstance(v, QTensorW4) == (bits == 4) for v in weights),
+          f"{name}: not every conv weight is {'W4' if bits == 4 else 'int8'}")
     torch_plan = CompiledPlan(cuda_plan.plan, method="torch", device=dev)
     host_plan = CompiledPlan(plan_to_host(cuda_plan.plan), method="torch",
                              device="cpu")
-    tc, tt = cuda_plan.trunk(x), torch_plan.trunk(x)
+    K.reset_launches()
+    tc = cuda_plan.trunk(x)
+    used = sorted(k.__name__ for k in K.KERNELS if k.launches)
+    suffix = "_w4" if bits == 4 else "_q8"
+    check(all(u.endswith(suffix) or u == "maxpool2d_s8" for u in used),
+          f"{name}: a {bits}-bit forward launched {used}")
+    tt = torch_plan.trunk(x)
     check(tc.q.dtype == torch.int8 and tc.frac_bits == tt.frac_bits,
-          f"{primitive}: trunk dtype/scale mismatch")
+          f"{name}: trunk dtype/scale mismatch")
     diff = int((tc.q.int() - tt.q.int()).abs().max())
-    check(diff == 0, f"{primitive}: cuda trunk differs from torch trunk by "
+    check(diff == 0, f"{name}: cuda trunk differs from torch trunk by "
                      f"{diff}")
     th = host_plan.trunk(x[:8])
     check(torch.equal(tc.q[:8].cpu(), th.q),
-          f"{primitive}: card trunk differs from the host run")
+          f"{name}: card trunk differs from the host run")
     lc, lt = cuda_plan(x), torch_plan(x)
     check(tuple(lc.shape) == (BATCH, cfg.num_classes)
           and bool(torch.isfinite(lc).all()),
-          f"{primitive}: logits not finite of shape (256, 10)")
+          f"{name}: logits not finite of shape (256, 10)")
     err = float((lc - lt).abs().max())
-    check(err <= 1e-5, f"{primitive}: logits differ by {err} > 1e-5")
+    check(err <= 1e-5, f"{name}: logits differ by {err} > 1e-5")
     nz = float((tc.q != 0).float().mean())
-    print(f"[plan] {primitive}: lowered in {t_lower:.2f} s, in_fb="
+    groups = ""
+    if bits == 4:
+        n_groups = [len(set(v.shifts.tolist())) for v in weights]
+        check(not spread or max(n_groups) > 1,
+              f"{name}: no layer carries more than one group shift")
+        groups = (f", W4 group_size={group}, distinct group shifts per "
+                  f"weight {n_groups}, kernels {used}")
+    print(f"[plan] {name}: lowered in {t_lower:.2f} s, in_fb="
           f"{cuda_plan.plan.in_fb}, cuda trunk == torch trunk bitwise "
           f"({tuple(tc.q.shape)}, {nz:.3f} nonzero) == host trunk, "
-          f"logits max |diff| {err:.2e}")
+          f"logits max |diff| {err:.2e}{groups}")
     return cuda_plan
 
 
 # ---------------------------------------------------------------- phase 5 --
 
-def phase_serve(torch, K, primitive, plan, card, rng):
+def phase_serve(torch, K, name, plan, card, rng):
     """Serve one plan's images through CNNEngine; returns the launch count
     of every kernel in that run."""
     from repro_torch.serve import CNNEngine, CNNServeConfig, ImageRequest
-    n_img = SERVED[primitive]
+    n_img = SERVED[name]
     images = (rng.standard_normal((n_img, 32, 32, 3)) * 0.5) \
         .astype("float32")
     eng = CNNEngine(plan, CNNServeConfig(max_batch=BATCH))
@@ -513,17 +681,17 @@ def phase_serve(torch, K, primitive, plan, card, rng):
     st = eng.stats
     statuses = {r.status for r in done}
     check(len(done) == n_img and statuses == {"ok"},
-          f"serve {primitive}: {len(done)} requests, statuses {statuses}")
+          f"serve {name}: {len(done)} requests, statuses {statuses}")
     check(st["errors"] == 0 and st["retries"] == 0,
-          f"serve {primitive}: errors={st['errors']} "
+          f"serve {name}: errors={st['errors']} "
           f"retries={st['retries']}")
     rounds = -(-n_img // BATCH)
     check(st["batch_rounds"] == rounds,
-          f"serve {primitive}: {st['batch_rounds']} rounds, not {rounds}")
-    want_launches = {k: rounds * PER_FORWARD[primitive].get(k, 0)
+          f"serve {name}: {st['batch_rounds']} rounds, not {rounds}")
+    want_launches = {k: rounds * PER_FORWARD[name].get(k, 0)
                      for k in launches}
     check(launches == want_launches,
-          f"serve {primitive}: launches {launches}, a plan of "
+          f"serve {name}: launches {launches}, a plan of "
           f"{rounds} forwards needs {want_launches}")
     by_uid = {r.uid: r for r in done}
     worst = 0.0
@@ -532,21 +700,21 @@ def phase_serve(torch, K, primitive, plan, card, rng):
         want = plan.forward_batch(chunk).cpu().numpy()
         got = [by_uid[start + j].logits for j in range(len(chunk))]
         worst = max(worst, float(np.abs(np.stack(got) - want).max()))
-    check(worst <= 1e-5, f"serve {primitive}: logits differ from "
+    check(worst <= 1e-5, f"serve {name}: logits differ from "
                          f"forward_batch by {worst}")
     round_ms = 1e3 * eng.metrics.counter("serve.cnn.batch_time_s").value \
         / st["batch_rounds"]
-    print(f"[serve] {primitive}: {n_img} images in {st['batch_rounds']} "
+    print(f"[serve] {name}: {n_img} images in {st['batch_rounds']} "
           f"rounds, all ok; images_per_s={st['images_per_s']:.1f} "
           f"latency_p50_s={st['latency_p50_s']:.5f} "
           f"latency_p99_s={st['latency_p99_s']:.5f} on {card}; "
           f"launches {launches}; logits vs forward_batch max |diff| "
           f"{worst:.1e}")
-    serve_breakdown(torch, primitive, plan, images[:BATCH], round_ms)
+    serve_breakdown(torch, name, plan, images[:BATCH], round_ms)
     return launches
 
 
-def serve_breakdown(torch, primitive, plan, x_host, round_ms):
+def serve_breakdown(torch, name, plan, x_host, round_ms):
     """Where one full 256-image round goes: the engine's round (host images
     in, host logits out), forward_batch on host and on device-resident
     input, and the device time of the kernels under torch.profiler."""
@@ -565,15 +733,15 @@ def serve_breakdown(torch, primitive, plan, x_host, round_ms):
     check(dev_ms > 0, "torch.profiler saw no device time")
     busy = (f"{dev_ms:.4f} ms in {n_kern:.0f} kernels, device idle "
             f"{1 - dev_ms / fwd_dev_ms:.3f}")
-    print(f"[breakdown] {primitive}: one 256-image round: engine round "
+    print(f"[breakdown] {name}: one 256-image round: engine round "
           f"{round_ms:.4f} ms; "
           f"forward_batch host in/out {fwd_host_ms:.4f} ms; forward_batch "
           f"device-resident {fwd_dev_ms:.4f} ms, of which {busy}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total):
-        name = e.key.replace("void ", "").replace("at::native::", "")
-        print(f"[breakdown] {primitive}   "
+        kernel = e.key.replace("void ", "").replace("at::native::", "")
+        print(f"[breakdown] {name}   "
               f"{e.self_device_time_total / reps:9.1f} us "
-              f"x{e.count // reps:3d}  {name[:110]}")
+              f"x{e.count // reps:3d}  {kernel[:110]}")
 
 
 # ------------------------------------------------------------------- main --
@@ -591,6 +759,17 @@ SOURCES = {
                      "src/repro/kernels/conv_shift.py:55"),
     "add_conv2d": ("add_conv2d_q8", "src/repro_torch/kernels/csrc/conv_add.cu",
                    "src/repro/kernels/conv_add.py:103"),
+    "conv2d_w4": ("conv2d_w4", "src/repro_torch/kernels/csrc/conv_im2col.cu",
+                  "src/repro/kernels/conv_im2col.py:107"),
+    "depthwise2d_w4": ("depthwise2d_w4",
+                       "src/repro_torch/kernels/csrc/conv_dw.cu",
+                       "src/repro/kernels/conv_dw.py:85"),
+    "shift_conv2d_w4": ("shift_conv2d_w4",
+                        "src/repro_torch/kernels/csrc/conv_shift.cu",
+                        "src/repro/kernels/conv_shift.py:55"),
+    "add_conv2d_w4": ("add_conv2d_w4",
+                      "src/repro_torch/kernels/csrc/conv_add.cu",
+                      "src/repro/kernels/conv_add.py:103"),
 }
 
 
@@ -625,8 +804,7 @@ def main() -> int:
 
     rng = np.random.default_rng(SEED)
     per_kernel = phase_kernels(torch, K, dev, kind, rng)
-    plans = {p: phase_plan(torch, p, rng)
-             for p in ("dws", "standard", "shift", "add")}
+    plans = {name: phase_plan(torch, K, name, rng) for name in PLANS}
     launches = dict.fromkeys((k.__name__ for k in K.KERNELS), 0)
     for p in SERVED:
         for k, v in phase_serve(torch, K, p, plans[p], card, rng).items():
@@ -649,8 +827,9 @@ def main() -> int:
           "(torch.profiler) and bound_ms the larger of the HBM and the "
           "operations floor, each summed over that kernel's launches in one "
           "256-image forward of the dws plan (the shift and add plans for "
-          "shift_conv2d_q8 and add_conv2d_q8); launches are summed over the "
-          f"three served runs; card: {card}")
+          "the shift and add kernels; the W4 rows in the W4 plans, bytes "
+          "counting the packed weights); launches are summed over the "
+          f"six served runs; card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -3,8 +3,11 @@ integer-only layer forward (ports of ``repro/core``)."""
 from .folding import FOLDABLE, fold
 from .primitives import (ConvSpec, Primitives, apply, batchnorm_apply, init,
                          init_block)
-from .quantize import QTensor, frac_bits_for, quantize, requantize, rshift_round
+from .quantize import (QTensor, QTensorW4, expand_w4, frac_bits_for,
+                       pack_w4, quantize, quantize_w4, requantize,
+                       rshift_round, unpack_w4)
 
 __all__ = ["FOLDABLE", "fold", "ConvSpec", "Primitives", "apply",
-           "batchnorm_apply", "init", "init_block", "QTensor",
-           "frac_bits_for", "quantize", "requantize", "rshift_round"]
+           "batchnorm_apply", "init", "init_block", "QTensor", "QTensorW4",
+           "expand_w4", "frac_bits_for", "pack_w4", "quantize",
+           "quantize_w4", "requantize", "rshift_round", "unpack_w4"]

@@ -17,8 +17,13 @@ Every layer routes through the kernel layer (``repro_torch.kernels.ops``):
 Both accumulate exactly in int32 and share the Algorithm-1 epilogue, so
 they are bitwise equal. Layers the kernels cannot express (stride != 1 or
 non-SAME padding) run :func:`_qconv_apply_lax` under ``"torch"`` and raise
-under ``"cuda"``. W4 weights are not ported yet and raise
-``NotImplementedError``.
+under ``"cuda"``.
+
+W4A8: a :class:`~repro_torch.core.quantize.QTensorW4` weight leaf stays
+nibble-packed on its way to the kernel layer, which unpacks it in
+registers; its ``frac_bits`` is the base scale its expanded codes live at,
+so the scale arithmetic is the same as for an int8 leaf. The plain integer
+path outside the kernels' envelope expands W4 leaves first.
 """
 from __future__ import annotations
 
@@ -27,8 +32,8 @@ from typing import Optional
 import torch
 
 from .primitives import ConvSpec, add_conv, shift_channels, standard_conv
-from .quantize import (QTensor, add_preshifts, addmac_align, quantize,
-                       requantize, rshift_round)
+from .quantize import (QTensor, QTensorW4, add_preshifts, addmac_align,
+                       quantize, quantize_w4, requantize, rshift_round)
 
 
 def _bias_acc(bias: Optional[QTensor], acc_fb: int) -> Optional[torch.Tensor]:
@@ -40,6 +45,21 @@ def _bias_acc(bias: Optional[QTensor], acc_fb: int) -> Optional[torch.Tensor]:
 
 def _kernel_layer_ok(spec: ConvSpec) -> bool:
     return spec.stride == 1 and spec.padding == "SAME"
+
+
+def _wq(w):
+    """(weight tensor, w_shifts or None) for the kernel layer: a QTensorW4
+    leaf stays packed, a QTensor passes through."""
+    if isinstance(w, QTensorW4):
+        return w.q, w.shifts
+    return w.q, None
+
+
+def _expand_w4_qparams(qparams: dict) -> dict:
+    """W4 leaves -> the equivalent int8 QTensors (for the plain path outside
+    the kernels' envelope, which has no packed-weight form)."""
+    return {k: QTensor(v.expand(), v.frac_bits)
+            if isinstance(v, QTensorW4) else v for k, v in qparams.items()}
 
 
 def qconv_apply(qparams: dict, x: QTensor, spec: ConvSpec, out_frac_bits: int,
@@ -63,26 +83,32 @@ def qconv_apply(qparams: dict, x: QTensor, spec: ConvSpec, out_frac_bits: int,
                 f"qconv_apply(method='cuda'): the CUDA kernels only support "
                 f"stride=1 SAME layers, got stride={spec.stride} "
                 f"padding={spec.padding!r}; use method='torch'")
-        return _qconv_apply_lax(qparams, x, spec, out_frac_bits, act=act)
+        return _qconv_apply_lax(_expand_w4_qparams(qparams), x, spec,
+                                out_frac_bits, act=act)
 
     if p in ("standard", "grouped"):
         w = qparams["w"]
+        wq, ws = _wq(w)
         groups = spec.groups if p == "grouped" else 1
         acc_fb = x.frac_bits + w.frac_bits
-        y = K.conv2d(x.q, w.q, _bias_acc(bias, acc_fb), groups=groups,
+        y = K.conv2d(x.q, wq, _bias_acc(bias, acc_fb), groups=groups,
                      method=method, requant_shift=acc_fb - out_frac_bits,
-                     act=act)
+                     act=act, w_shifts=ws)
         return QTensor(y, out_frac_bits)
 
     if p == "dws":
         w_dw, w_pw = qparams["w_dw"], qparams["w_pw"]
+        wdq, wds = _wq(w_dw)
+        wpq, wps = _wq(w_pw)
         # depthwise at an intermediate scale, then pointwise
         mid_fb = qparams.get("mid_frac_bits", out_frac_bits)
-        h = K.depthwise2d(x.q, w_dw.q, method=method,
-                          requant_shift=x.frac_bits + w_dw.frac_bits - mid_fb)
+        h = K.depthwise2d(x.q, wdq, method=method,
+                          requant_shift=x.frac_bits + w_dw.frac_bits - mid_fb,
+                          w_shifts=wds)
         acc_fb = mid_fb + w_pw.frac_bits
-        y = K.conv2d(h, w_pw.q, _bias_acc(bias, acc_fb), method=method,
-                     requant_shift=acc_fb - out_frac_bits, act=act)
+        y = K.conv2d(h, wpq, _bias_acc(bias, acc_fb), method=method,
+                     requant_shift=acc_fb - out_frac_bits, act=act,
+                     w_shifts=wps)
         return QTensor(y, out_frac_bits)
 
     if p == "shift":
@@ -90,19 +116,22 @@ def qconv_apply(qparams: dict, x: QTensor, spec: ConvSpec, out_frac_bits: int,
         # kernel reads each channel at its displacement inside the
         # pointwise contraction
         w_pw = qparams["w_pw"]
+        wpq, wps = _wq(w_pw)
         acc_fb = x.frac_bits + w_pw.frac_bits
-        y = K.shift_conv2d(x.q, qparams["shifts"], w_pw.q,
+        y = K.shift_conv2d(x.q, qparams["shifts"], wpq,
                            _bias_acc(bias, acc_fb), method=method,
                            requant_shift=acc_fb - out_frac_bits, act=act,
-                           max_shift=spec.kernel_size // 2)
+                           max_shift=spec.kernel_size // 2, w_shifts=wps)
         return QTensor(y, out_frac_bits)
 
     if p == "add":
         w = qparams["w"]
+        wq, ws = _wq(w)
         x_pre, w_pre, acc_fb = add_preshifts(x.frac_bits, w.frac_bits)
-        y = K.add_conv2d(x.q, w.q, _bias_acc(bias, acc_fb), method=method,
+        y = K.add_conv2d(x.q, wq, _bias_acc(bias, acc_fb), method=method,
                          requant_shift=acc_fb - out_frac_bits,
-                         x_preshift=x_pre, w_preshift=w_pre, act=act)
+                         x_preshift=x_pre, w_preshift=w_pre, act=act,
+                         w_shifts=ws)
         return QTensor(y, out_frac_bits)
 
     raise ValueError(p)
@@ -164,15 +193,33 @@ def _qconv_apply_lax(qparams: dict, x: QTensor, spec: ConvSpec,
     raise ValueError(p)
 
 
-def quantize_conv_params(params: dict, spec: ConvSpec, *,
-                         bits: int = 8) -> dict:
-    """Power-of-two PTQ of a float primitive layer: per-tensor int8
-    QTensors. ``bits=4`` (packed W4) is not ported yet."""
-    if bits == 4:
-        raise NotImplementedError(
-            "W4 weights (quantize_conv_params(bits=4)) are not ported to "
-            "repro_torch yet (ROADMAP.md, 'Next, in order')")
-    if bits != 8:
+def _w4_axis(key: str, v) -> int:
+    """W4 packing axis per parameter key, the axis the kernels unpack
+    along: input channels for the contraction weights (``ndim - 2``, so a
+    2-D pointwise layout works too), tap rows for depthwise (channels stay
+    the contiguous axis)."""
+    return 0 if key == "w_dw" else v.dim() - 2
+
+
+def quantize_conv_params(params: dict, spec: ConvSpec, *, bits: int = 8,
+                         group_size: int = 32) -> dict:
+    """Power-of-two PTQ of a float primitive layer.
+
+    ``bits=8``: per-tensor int8 QTensors. ``bits=4``: the weight tensors
+    (``w``, ``w_dw``, ``w_pw``) become nibble-packed :class:`QTensorW4`
+    with per-group scales (``group_size`` consecutive elements along the
+    unpack axis); biases stay int8 (they are added at int32 accumulator
+    scale, packing them buys nothing). The shift table is kept as it is."""
+    if bits not in (8, 4):
         raise ValueError(f"quantize_conv_params: bits must be 8 or 4, "
                          f"got {bits}")
-    return {k: v if k == "shifts" else quantize(v) for k, v in params.items()}
+    out = {}
+    for k, v in params.items():
+        if k == "shifts":
+            out[k] = v
+        elif bits == 4 and k in ("w", "w_dw", "w_pw"):
+            out[k] = quantize_w4(v, axis=_w4_axis(k, v),
+                                 group_size=group_size)
+        else:
+            out[k] = quantize(v)
+    return out

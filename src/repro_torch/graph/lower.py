@@ -1,17 +1,18 @@
 """Lowering passes: float graph + params + calibration data -> integer Plan.
 
-Port of ``repro/graph/lower.py`` for the five primitives, with int8
-weights:
+Port of ``repro/graph/lower.py`` for the five primitives, with int8 or
+nibble-packed W4 weights (``lower(..., weight_bits=4)``):
 
 1. **annotate** — run the calibration batch through the float graph once,
    recording every node's activation; BN statistics are read off the conv
    outputs during the same sweep. On a card the sweep runs in full float32
    (``device.exact_float32``: cuDNN's TF32 default would move frac bits).
 2. **quantize** — per conv block: BN-fold (``core.folding.fold``),
-   per-tensor power-of-two PTQ (``core.quantize``), output frac bits from
-   the post-BN+ReLU calibration activation (paper Eq. 4). Add-conv cannot
-   fold (|x - w| is not linear in w): its BN becomes an integer ``qbn``
-   node, a per-channel multiplier and bias (:func:`_quantize_bn_affine`).
+   power-of-two PTQ (``core.quantize``: per tensor, or per scale group
+   for W4), output frac bits from the post-BN+ReLU calibration activation
+   (paper Eq. 4). Add-conv cannot fold (|x - w| is not linear in w): its
+   BN becomes an integer ``qbn`` node, a per-channel multiplier and bias
+   (:func:`_quantize_bn_affine`).
 3. **fuse** — ReLU becomes the producer kernel's ``act="relu"`` epilogue,
    max-pool an int8 ``maxpool`` node at the producer's scale, and every
    consumer reads its input at the producer's annotated frac bits:
@@ -41,12 +42,13 @@ PLAN_OPS = ("qconv", "qbn", "maxpool", "gap", "dense")
 class PlanNode:
     """One executable step of the lowered plan.
 
-    ``qparams`` holds the node's quantized parameters (QTensor leaves and a
-    shift node's int32 ``shifts`` table for qconv; int32 ``a``/``b`` and the
-    int ``a_frac_bits`` for qbn; the float head for dense).
-    ``in_fb``/``out_fb`` are the annotated power-of-two scales; the implied
-    requantization shift is chained into the kernel epilogue by the
-    executor. ``act`` is the fused activation ("relu" or None).
+    ``qparams`` holds the node's quantized parameters (QTensor or
+    QTensorW4 leaves and a shift node's int32 ``shifts`` table for qconv;
+    int32 ``a``/``b`` and the int ``a_frac_bits`` for qbn; the float head
+    for dense). ``in_fb``/``out_fb`` are the annotated power-of-two
+    scales; the implied requantization shift is chained into the kernel
+    epilogue by the executor. ``act`` is the fused activation ("relu" or
+    None).
     """
 
     name: str
@@ -148,10 +150,16 @@ def _quantize_bn_affine(bn: dict, in_fb: int, eps: float = 1e-5) -> dict:
 
 
 def lower(graph: Graph, params: dict, calib_x: torch.Tensor, *,
-          weight_bits: int = 8) -> Plan:
+          weight_bits: int = 8, group_size: int = 32) -> Plan:
     """Lower a float graph to an integer-only Plan (single calibration
     sweep; see the module docstring). The plan's tensors live on
-    ``calib_x``'s device."""
+    ``calib_x``'s device.
+
+    ``weight_bits=4`` lowers every conv / dws / shift / add weight tensor to
+    nibble-packed W4 with per-group scales (``group_size`` elements per
+    scale group along the unpack axis); the executor then runs the packed
+    kernel modes (W4A8). Activations and the scale chaining are unchanged,
+    int8 end to end."""
     ann = annotate(graph, params, calib_x)
     acts, bn_calib, node_params = ann["acts"], ann["bn"], ann["params"]
     in_fb = frac_bits_for(calib_x)
@@ -182,7 +190,8 @@ def lower(graph: Graph, params: dict, calib_x: torch.Tensor, *,
             if bnode is not None and spec.primitive not in FOLDABLE:
                 # add-conv: the conv at its own scale, then an integer BN
                 conv_fb = frac_bits_for(acts[n.name])
-                qp = quantize_conv_params(conv_p, spec, bits=weight_bits)
+                qp = quantize_conv_params(conv_p, spec, bits=weight_bits,
+                                          group_size=group_size)
                 plan_nodes.append(PlanNode(
                     n.name, "qconv", spec=spec, qparams=qp, in_fb=fb[src],
                     out_fb=conv_fb, act=None, attrs={"in_hw": (h_in, w_in)}))
@@ -195,7 +204,8 @@ def lower(graph: Graph, params: dict, calib_x: torch.Tensor, *,
             else:
                 if bnode is not None:
                     conv_p = fold(conv_p, bn_calib[bnode.name], spec)
-                qp = quantize_conv_params(conv_p, spec, bits=weight_bits)
+                qp = quantize_conv_params(conv_p, spec, bits=weight_bits,
+                                          group_size=group_size)
                 plan_nodes.append(PlanNode(
                     n.name, "qconv", spec=spec, qparams=qp, in_fb=fb[src],
                     out_fb=out_fb, act=act, attrs={"in_hw": (h_in, w_in)}))

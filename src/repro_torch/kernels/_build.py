@@ -39,6 +39,10 @@ SIGNATURES = {
     "repro_maxpool2d_s8": (_P, _P) + (_I,) * 8 + (_P,),
     "repro_shift_conv2d_q8": (_P,) * 5 + (_I,) * 7 + (_P,),
     "repro_add_conv2d_q8": (_P,) * 4 + (_I,) * 10 + (_P,),
+    "repro_conv2d_w4": (_P,) * 5 + (_I,) * 9 + (_P,),
+    "repro_depthwise2d_w4": (_P,) * 4 + (_I,) * 7 + (_P,),
+    "repro_shift_conv2d_w4": (_P,) * 6 + (_I,) * 7 + (_P,),
+    "repro_add_conv2d_w4": (_P,) * 5 + (_I,) * 10 + (_P,),
 }
 
 

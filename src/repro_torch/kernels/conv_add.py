@@ -1,8 +1,8 @@
-"""int8 add (AdderNet) convolution: the CUDA kernel wrapper, its plain
-PyTorch version and its launch counter.
+"""int8 and W4A8 add (AdderNet) convolution: the CUDA kernel wrappers,
+their plain PyTorch versions and their launch counters.
 
 Replaces the TPU kernel ``repro/kernels/conv_add.py`` (``add_conv2d`` /
-``_add_conv2d``) in its int8 mode; the source is ``csrc/conv_add.cu``.
+``_add_conv2d``) in its int8 and W4 modes; the source is ``csrc/conv_add.cu``.
 ``-sum |x - w|`` is not a contraction, so neither the TPU's matrix unit nor
 Hopper's tensor cores apply: the kernel runs on the CUDA cores' int32 lanes
 and is bound by operations (one ``|x - w|`` accumulate per tap, channel
@@ -11,20 +11,26 @@ not by bytes. The design: one thread per output element, taps outside the
 image read as zero (a padded zero is not neutral under L1), every step in
 wrapping 32-bit arithmetic so the result equals JAX's int32 bit for bit.
 
-On a CPU tensor :func:`add_conv2d_q8` runs :func:`add_conv2d_q8_plain`; on a
-CUDA tensor it launches the kernel or raises.
+The W4 mode (:func:`add_conv2d_w4`) takes the weight packed along Cx
+with one int8 group shift per input channel: each code is shifted to the
+base scale first, then by ``w_preshift``, as the TPU kernel orders them,
+and the pad nibble of an odd Cx is never summed (a zero weight is not
+neutral under L1).
+
+On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
+launches the kernel or raises.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.primitives import add_conv
-from repro_torch.core.quantize import wrap_left_shift
+from repro_torch.core.quantize import expand_w4, wrap_left_shift
 
 from ._build import check_launch, library
 from .common import apply_act, apply_requant
 from .conv_im2col import (check_act, check_cuda_operand, check_elements,
-                          check_shift)
+                          check_shift, check_w4)
 
 
 def add_conv2d_q8_plain(x, w, bias=None, *, requant_shift: int = 0,
@@ -40,32 +46,42 @@ def add_conv2d_q8_plain(x, w, bias=None, *, requant_shift: int = 0,
     return apply_requant(acc, requant_shift).to(torch.int8)
 
 
-def _check_preshift(name: str, v):
+def _check_preshift(kernel: str, name: str, v):
     if not isinstance(v, int) or not 0 <= v <= 31:
-        raise ValueError(f"add_conv2d_q8: {name} must be an int in [0, 31], "
+        raise ValueError(f"{kernel}: {name} must be an int in [0, 31], "
                          f"got {v!r}")
+
+
+def _check_add(name, x, w_shape, bias, requant_shift, x_preshift,
+               w_preshift, act):
+    """Shapes and options of one add-conv call; ``w_shape`` is the unpacked
+    (HK,HK,Cx,Cy). Returns (n, h, w, cx, cy, hk)."""
+    if x.dim() != 4 or len(w_shape) != 4:
+        raise ValueError(f"{name}: x and w must be 4-D, got "
+                         f"{tuple(x.shape)} and {tuple(w_shape)}")
+    n, h, wd, cx = x.shape
+    hk, hk2, wcx, cy = w_shape
+    if hk != hk2 or wcx != cx:
+        raise ValueError(f"{name}: weight {tuple(w_shape)} does not fit "
+                         f"x {tuple(x.shape)}")
+    if bias is not None and tuple(bias.shape) != (cy,):
+        raise ValueError(f"{name}: bias shape {tuple(bias.shape)} != "
+                         f"({cy},)")
+    _check_preshift(name, "x_preshift", x_preshift)
+    _check_preshift(name, "w_preshift", w_preshift)
+    check_shift(name, requant_shift)
+    check_act(name, act)
+    check_elements(name, x.shape, (n, h, wd, cy))
+    return n, h, wd, cx, cy, hk
 
 
 def add_conv2d_q8(x, w, bias=None, *, requant_shift: int = 0,
                   x_preshift: int = 0, w_preshift: int = 0, act=None):
     """x (N,H,W,Cx) int8, w (HK,HK,Cx,Cy) int8, bias (Cy,) int32 or None
     -> (N,H,W,Cy) int8, SAME stride 1."""
-    if x.dim() != 4 or w.dim() != 4:
-        raise ValueError(f"add_conv2d_q8: x and w must be 4-D, got "
-                         f"{tuple(x.shape)} and {tuple(w.shape)}")
-    n, h, wd, cx = x.shape
-    hk, hk2, wcx, cy = w.shape
-    if hk != hk2 or wcx != cx:
-        raise ValueError(f"add_conv2d_q8: weight {tuple(w.shape)} does not "
-                         f"fit x {tuple(x.shape)}")
-    if bias is not None and tuple(bias.shape) != (cy,):
-        raise ValueError(f"add_conv2d_q8: bias shape {tuple(bias.shape)} != "
-                         f"({cy},)")
-    _check_preshift("x_preshift", x_preshift)
-    _check_preshift("w_preshift", w_preshift)
-    check_shift("add_conv2d_q8", requant_shift)
-    check_act("add_conv2d_q8", act)
-    check_elements("add_conv2d_q8", x.shape, (n, h, wd, cy))
+    n, h, wd, cx, cy, hk = _check_add("add_conv2d_q8", x, w.shape, bias,
+                                      requant_shift, x_preshift, w_preshift,
+                                      act)
     if x.device.type == "cpu":
         return add_conv2d_q8_plain(x, w, bias, requant_shift=requant_shift,
                                    x_preshift=x_preshift,
@@ -87,3 +103,53 @@ def add_conv2d_q8(x, w, bias=None, *, requant_shift: int = 0,
 
 
 add_conv2d_q8.launches = 0
+
+
+def add_conv2d_w4_plain(x, w_p, w_shifts, bias=None, *,
+                        requant_shift: int = 0, x_preshift: int = 0,
+                        w_preshift: int = 0, act=None):
+    """Plain W4 version: the codes expanded to the base scale
+    (``expand_w4`` along Cx, the pad nibble dropped), then
+    :func:`add_conv2d_q8_plain` unchanged, which applies ``w_preshift``."""
+    w = expand_w4(w_p, w_shifts, x.shape[-1], 2)
+    return add_conv2d_q8_plain(x, w, bias, requant_shift=requant_shift,
+                               x_preshift=x_preshift, w_preshift=w_preshift,
+                               act=act)
+
+
+def add_conv2d_w4(x, w_p, w_shifts, bias=None, *, requant_shift=None,
+                  x_preshift: int = 0, w_preshift: int = 0, act=None):
+    """x (N,H,W,Cx) int8, w_p (HK,HK,ceil(Cx/2),Cy) int8 nibble-packed
+    along Cx, w_shifts (Cx,) int8, bias (Cy,) int32 or None -> (N,H,W,Cy)
+    int8, SAME stride 1."""
+    if x.dim() != 4 or w_p.dim() != 4:
+        raise ValueError(f"add_conv2d_w4: x and w must be 4-D, got "
+                         f"{tuple(x.shape)} and {tuple(w_p.shape)}")
+    cx = x.shape[-1]
+    check_w4("add_conv2d_w4", w_p, 2, cx, w_shifts, requant_shift)
+    hk, hk2, _, cy = w_p.shape
+    n, h, wd, cx, cy, hk = _check_add("add_conv2d_w4", x, (hk, hk2, cx, cy),
+                                      bias, requant_shift, x_preshift,
+                                      w_preshift, act)
+    if x.device.type == "cpu":
+        return add_conv2d_w4_plain(x, w_p, w_shifts, bias,
+                                   requant_shift=requant_shift,
+                                   x_preshift=x_preshift,
+                                   w_preshift=w_preshift, act=act)
+    for t in (x, w_p, w_shifts):
+        check_cuda_operand("add_conv2d_w4", t, x.device, torch.int8)
+    if bias is not None:
+        check_cuda_operand("add_conv2d_w4", bias, x.device, torch.int32)
+    y = torch.empty((n, h, wd, cy), dtype=torch.int8, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = library().repro_add_conv2d_w4(
+            x.data_ptr(), w_p.data_ptr(), w_shifts.data_ptr(),
+            None if bias is None else bias.data_ptr(), y.data_ptr(),
+            n, h, wd, cx, cy, hk, x_preshift, w_preshift, requant_shift,
+            int(act == "relu"), torch.cuda.current_stream().cuda_stream)
+    check_launch("add_conv2d_w4", rc)
+    add_conv2d_w4.launches += 1
+    return y
+
+
+add_conv2d_w4.launches = 0

@@ -1,8 +1,9 @@
-"""int8 SAME stride-1 depthwise convolution: the CUDA kernel wrapper, its
-plain PyTorch version and its launch counter.
+"""int8 and W4A8 SAME stride-1 depthwise convolution: the CUDA kernel
+wrappers, their plain PyTorch versions and their launch counters.
 
 Replaces the TPU kernel ``repro/kernels/conv_dw.py`` (``depthwise2d`` /
-``_depthwise2d``) in its int8 mode; the source is ``csrc/conv_dw.cu``.
+``_depthwise2d``) in its int8 and W4 modes; the source is
+``csrc/conv_dw.cu``.
 What bounds it on an H100: HK^2 MACs per output and no channel
 contraction, so it is bound by the bytes it moves (about 2 MB per launch
 at the model's shapes, under a microsecond of HBM time); this first kernel
@@ -10,19 +11,24 @@ takes 10-25x that, in one-byte loads with no reuse of the input taps. The design
 fastest so a warp reads consecutive bytes, the epilogue of
 ``csrc/epilogue.cuh``.
 
-On a CPU tensor :func:`depthwise2d_q8` runs :func:`depthwise2d_q8_plain`;
-on a CUDA tensor it launches the kernel or raises.
+The W4 mode (:func:`depthwise2d_w4`) takes the weight packed along the
+tap-row axis, ``(ceil(HK/2), HK, C)``, so that channels stay the
+contiguous axis, with one int8 group shift per tap row.
+
+On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
+launches the kernel or raises.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.primitives import conv_nhwc
+from repro_torch.core.quantize import expand_w4
 
 from ._build import check_launch, library
 from .common import apply_act, apply_requant
 from .conv_im2col import (MAX_CONTRACTION, check_act, check_cuda_operand,
-                          check_elements, check_shift, kernel_pads)
+                          check_elements, check_shift, check_w4, kernel_pads)
 
 
 def depthwise2d_q8_plain(x, w_dw, *, requant_shift: int = 0, act=None):
@@ -72,3 +78,63 @@ def depthwise2d_q8(x, w_dw, *, requant_shift: int = 0, act=None):
 
 
 depthwise2d_q8.launches = 0
+
+
+def _rank3(name, w):
+    """(A,HK,C) or (A,HK,C,1) -> (A,HK,C)."""
+    if w.dim() == 4:
+        if w.shape[3] != 1:
+            raise ValueError(f"{name}: weight {tuple(w.shape)} must be "
+                             "rank 3 or end in a unit axis")
+        return w[..., 0]
+    if w.dim() != 3:
+        raise ValueError(f"{name}: weight {tuple(w.shape)} must be rank 3 "
+                         "or 4")
+    return w
+
+
+def depthwise2d_w4_plain(x, w_dw_p, w_shifts, *, requant_shift: int = 0,
+                         act=None):
+    """Plain W4 version: the tap rows expanded (``expand_w4`` along axis 0),
+    then :func:`depthwise2d_q8_plain` unchanged."""
+    w_dw_p = _rank3("depthwise2d_w4", w_dw_p)
+    w = expand_w4(w_dw_p, w_shifts, w_dw_p.shape[1], 0)
+    return depthwise2d_q8_plain(x, w, requant_shift=requant_shift, act=act)
+
+
+def depthwise2d_w4(x, w_dw_p, w_shifts, *, requant_shift=None, act=None):
+    """x (N,H,W,C) int8, w_dw_p (ceil(HK/2),HK,C) or (ceil(HK/2),HK,C,1)
+    int8 nibble-packed along the tap rows, w_shifts (HK,) int8 ->
+    (N,H,W,C) int8."""
+    if x.dim() != 4:
+        raise ValueError(f"depthwise2d_w4: x must be 4-D, got "
+                         f"{tuple(x.shape)}")
+    w_dw_p = _rank3("depthwise2d_w4", w_dw_p)
+    n, h, wd, c = x.shape
+    hk = w_dw_p.shape[1]
+    check_w4("depthwise2d_w4", w_dw_p, 0, hk, w_shifts, requant_shift)
+    if w_dw_p.shape[2] != c:
+        raise ValueError(f"depthwise2d_w4: weight {tuple(w_dw_p.shape)} "
+                         f"does not fit x {tuple(x.shape)}")
+    if hk * hk > MAX_CONTRACTION:
+        raise ValueError("depthwise2d_w4: kernel too large for int32")
+    check_shift("depthwise2d_w4", requant_shift)
+    check_act("depthwise2d_w4", act)
+    check_elements("depthwise2d_w4", x.shape)
+    if x.device.type == "cpu":
+        return depthwise2d_w4_plain(x, w_dw_p, w_shifts,
+                                    requant_shift=requant_shift, act=act)
+    for t in (x, w_dw_p, w_shifts):
+        check_cuda_operand("depthwise2d_w4", t, x.device, torch.int8)
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        rc = library().repro_depthwise2d_w4(
+            x.data_ptr(), w_dw_p.data_ptr(), w_shifts.data_ptr(),
+            y.data_ptr(), n, h, wd, c, hk, requant_shift, int(act == "relu"),
+            torch.cuda.current_stream().cuda_stream)
+    check_launch("depthwise2d_w4", rc)
+    depthwise2d_w4.launches += 1
+    return y
+
+
+depthwise2d_w4.launches = 0

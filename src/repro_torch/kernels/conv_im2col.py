@@ -1,27 +1,33 @@
-"""int8 SAME stride-1 standard / grouped convolution: the CUDA kernel
-wrapper, its plain PyTorch version and its launch counter.
+"""int8 and W4A8 SAME stride-1 standard / grouped convolution: the CUDA
+kernel wrappers, their plain PyTorch versions and their launch counters.
 
-Replaces the TPU kernel ``repro/kernels/conv_im2col.py``
-(``conv2d_im2col`` / ``_conv2d_im2col``) in its int8 mode; the source is
+Replaces the TPU kernel ``repro/kernels/conv_im2col.py`` (``conv2d_im2col``
+/ ``_conv2d_im2col``) in its int8 and W4 modes; the source is
 ``csrc/conv_im2col.cu``. What bounds it on an H100: at the model's shapes
 (B=256, up to 32x32x16 outputs) each launch moves a few MB and does well
 under a GFLOP of int8 work, so its floor is a microsecond or two of HBM
 time. This first kernel is far from that floor: one thread per output
 element issues two one-byte loads per multiply-add and reuses nothing in
-registers, so load-instruction throughput bounds it (the 3->16 stem at
-B=256 takes over a hundred microseconds on an H100 SXM at 700 W; PERF.md
-has the numbers). The design answers correctness first: exact int32
-accumulation and the epilogue of ``csrc/epilogue.cuh``; register blocking
-over output channels, tensor cores and input tiling come later.
+registers, so load-instruction throughput bounds it (the 3->16 stem at B=256
+takes over a hundred microseconds on an H100 SXM at 700 W; PERF.md has the
+numbers). The design answers correctness first: exact int32 accumulation and
+the epilogue of ``csrc/epilogue.cuh``; register blocking over output
+channels, tensor cores and input tiling come later.
 
-On a CPU tensor :func:`conv2d_q8` runs :func:`conv2d_q8_plain`; on a CUDA
-tensor it launches the kernel or raises.
+The W4 mode (:func:`conv2d_w4`) reads the nibble-packed weight bytes and
+the int8 group shifts and unpacks each code in registers, so the weight
+bytes it moves are half the int8 mode's; its plain version expands the
+codes (``expand_w4``) and runs the int8 plain version.
+
+On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
+launches the kernel or raises.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.primitives import conv_nhwc
+from repro_torch.core.quantize import expand_w4
 
 from ._build import check_launch, library
 from .common import apply_act, apply_requant
@@ -79,27 +85,54 @@ def check_cuda_operand(name: str, t: torch.Tensor, device, dtype):
         raise ValueError(f"{name}: operands must be contiguous")
 
 
+def check_w4(name: str, w_p, axis: int, size: int, w_shifts,
+             requant_shift):
+    """A W4 weight operand: int8 bytes packed along ``axis`` (extent
+    ``ceil(size/2)``) and an int8 shift vector of length ``size``. W4 has
+    no float mode, so ``requant_shift`` must be given."""
+    if requant_shift is None:
+        raise ValueError(f"{name}: W4 weights need the quantized path "
+                         "(requant_shift); there is no float W4 mode")
+    if w_p.dtype != torch.int8 or w_shifts.dtype != torch.int8:
+        raise TypeError(f"{name}: packed weights and shifts must be int8, "
+                        f"got {w_p.dtype} and {w_shifts.dtype}")
+    if w_p.shape[axis] != (size + 1) // 2:
+        raise ValueError(f"{name}: packed extent {w_p.shape[axis]} along "
+                         f"axis {axis} != ceil({size}/2)")
+    if tuple(w_shifts.shape) != (size,):
+        raise ValueError(f"{name}: shifts {tuple(w_shifts.shape)} != "
+                         f"({size},)")
+
+
+def _check_conv(name, x, w_shape, bias, groups, requant_shift, act):
+    """Shapes and options of one conv call; ``w_shape`` is the unpacked
+    (HK,HK,Cx/g,Cy). Returns (n, h, w, cx, cy, hk)."""
+    if x.dim() != 4 or len(w_shape) != 4:
+        raise ValueError(f"{name}: x and w must be 4-D, got "
+                         f"{tuple(x.shape)} and {tuple(w_shape)}")
+    n, h, wd, cx = x.shape
+    hk, hk2, cxg, cy = w_shape
+    if hk != hk2 or groups < 1 or cx != cxg * groups or cy % groups:
+        raise ValueError(f"{name}: weight {tuple(w_shape)} does not fit "
+                         f"x {tuple(x.shape)} with groups={groups}")
+    if bias is not None and tuple(bias.shape) != (cy,):
+        raise ValueError(f"{name}: bias shape {tuple(bias.shape)} != "
+                         f"({cy},)")
+    if cxg * hk * hk > MAX_CONTRACTION:
+        raise ValueError(f"{name}: contraction of {cxg * hk * hk} taps "
+                         "could overflow the int32 accumulator")
+    check_shift(name, requant_shift)
+    check_act(name, act)
+    check_elements(name, x.shape, (n, h, wd, cy))
+    return n, h, wd, cx, cy, hk
+
+
 def conv2d_q8(x, w, bias=None, *, groups: int = 1, requant_shift: int = 0,
               act=None):
     """x (N,H,W,Cx) int8, w (HK,HK,Cx/g,Cy) int8, bias (Cy,) int32 or None
     -> (N,H,W,Cy) int8."""
-    if x.dim() != 4 or w.dim() != 4:
-        raise ValueError(f"conv2d_q8: x and w must be 4-D, got "
-                         f"{tuple(x.shape)} and {tuple(w.shape)}")
-    n, h, wd, cx = x.shape
-    hk, hk2, cxg, cy = w.shape
-    if hk != hk2 or groups < 1 or cx != cxg * groups or cy % groups:
-        raise ValueError(f"conv2d_q8: weight {tuple(w.shape)} does not fit "
-                         f"x {tuple(x.shape)} with groups={groups}")
-    if bias is not None and tuple(bias.shape) != (cy,):
-        raise ValueError(f"conv2d_q8: bias shape {tuple(bias.shape)} != "
-                         f"({cy},)")
-    if cxg * hk * hk > MAX_CONTRACTION:
-        raise ValueError(f"conv2d_q8: contraction of {cxg * hk * hk} taps "
-                         "could overflow the int32 accumulator")
-    check_shift("conv2d_q8", requant_shift)
-    check_act("conv2d_q8", act)
-    check_elements("conv2d_q8", x.shape, (n, h, wd, cy))
+    n, h, wd, cx, cy, hk = _check_conv("conv2d_q8", x, w.shape, bias, groups,
+                                       requant_shift, act)
     if x.device.type == "cpu":
         return conv2d_q8_plain(x, w, bias, groups=groups,
                                requant_shift=requant_shift, act=act)
@@ -120,3 +153,47 @@ def conv2d_q8(x, w, bias=None, *, groups: int = 1, requant_shift: int = 0,
 
 
 conv2d_q8.launches = 0
+
+
+def conv2d_w4_plain(x, w_p, w_shifts, bias=None, *, groups: int = 1,
+                    requant_shift: int = 0, act=None):
+    """Plain W4 version: the weight codes expanded (``expand_w4`` along
+    Cx/g), then :func:`conv2d_q8_plain` unchanged."""
+    w = expand_w4(w_p, w_shifts, x.shape[-1] // groups, 2)
+    return conv2d_q8_plain(x, w, bias, groups=groups,
+                           requant_shift=requant_shift, act=act)
+
+
+def conv2d_w4(x, w_p, w_shifts, bias=None, *, groups: int = 1,
+              requant_shift=None, act=None):
+    """x (N,H,W,Cx) int8, w_p (HK,HK,ceil(Cx/g/2),Cy) int8 nibble-packed
+    along Cx/g, w_shifts (Cx/g,) int8, bias (Cy,) int32 or None ->
+    (N,H,W,Cy) int8."""
+    if x.dim() != 4 or w_p.dim() != 4:
+        raise ValueError(f"conv2d_w4: x and w must be 4-D, got "
+                         f"{tuple(x.shape)} and {tuple(w_p.shape)}")
+    cxg = x.shape[-1] // max(groups, 1)
+    check_w4("conv2d_w4", w_p, 2, cxg, w_shifts, requant_shift)
+    hk, _, _, cy = w_p.shape
+    n, h, wd, cx, cy, hk = _check_conv("conv2d_w4", x, (hk, hk, cxg, cy),
+                                       bias, groups, requant_shift, act)
+    if x.device.type == "cpu":
+        return conv2d_w4_plain(x, w_p, w_shifts, bias, groups=groups,
+                               requant_shift=requant_shift, act=act)
+    for t in (x, w_p, w_shifts):
+        check_cuda_operand("conv2d_w4", t, x.device, torch.int8)
+    if bias is not None:
+        check_cuda_operand("conv2d_w4", bias, x.device, torch.int32)
+    y = torch.empty((n, h, wd, cy), dtype=torch.int8, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = library().repro_conv2d_w4(
+            x.data_ptr(), w_p.data_ptr(), w_shifts.data_ptr(),
+            None if bias is None else bias.data_ptr(), y.data_ptr(),
+            n, h, wd, cx, cy, hk, groups, requant_shift, int(act == "relu"),
+            torch.cuda.current_stream().cuda_stream)
+    check_launch("conv2d_w4", rc)
+    conv2d_w4.launches += 1
+    return y
+
+
+conv2d_w4.launches = 0

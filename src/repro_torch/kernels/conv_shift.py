@@ -1,33 +1,39 @@
-"""int8 shift convolution (per-channel shift fused into the pointwise
-contraction): the CUDA kernel wrapper, its plain PyTorch version and its
-launch counter.
+"""int8 and W4A8 shift convolution (per-channel shift fused into the
+pointwise contraction): the CUDA kernel wrappers, their plain PyTorch
+versions and their launch counters.
 
 Replaces the TPU kernel ``repro/kernels/conv_shift.py`` (``shift_conv2d``)
-in its int8 mode; the source is ``csrc/conv_shift.cu``. What bounds it on an
-H100: a 1x1 contraction over C channels, a few MB and well under a GFLOP per
-launch at the model's shapes, so its floor is about a microsecond of HBM
-time. The design: one thread per output element reads each channel at its
-own displacement (no channel sort, which the TPU needed for its matrix unit)
-and shares the epilogue of ``csrc/epilogue.cuh``.
+in its int8 and W4 modes; the source is ``csrc/conv_shift.cu``. What bounds
+it on an H100: a 1x1 contraction over C channels, a few MB and well under a
+GFLOP per launch at the model's shapes, so its floor is about a microsecond
+of HBM time. The design: one thread per output element reads each channel at
+its own displacement (no channel sort, which the TPU needed for its matrix
+unit) and shares the epilogue of ``csrc/epilogue.cuh``.
 
 The shift table stays on the device and is never read back per call: the
 kernel's bounds checks are exact for any displacement, and its bound
 (``max_shift``) is checked on the host once, when a plan is lowered or
 loaded (``weights.plan_from_numpy``).
 
-On a CPU tensor :func:`shift_conv2d_q8` runs :func:`shift_conv2d_q8_plain`;
-on a CUDA tensor it launches the kernel or raises.
+The W4 mode (:func:`shift_conv2d_w4`) takes the pointwise weight packed
+along C with one int8 group shift per channel. The TPU wrapper re-packs
+the nibbles along its channel sort; with no sort there is nothing to
+re-pack.
+
+On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
+launches the kernel or raises.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.primitives import conv_nhwc, shift_channels
+from repro_torch.core.quantize import expand_w4
 
 from ._build import check_launch, library
 from .common import apply_act, apply_requant
 from .conv_im2col import (MAX_CONTRACTION, check_act, check_cuda_operand,
-                          check_elements, check_shift)
+                          check_elements, check_shift, check_w4)
 
 
 def _pointwise(w_pw):
@@ -49,33 +55,45 @@ def shift_conv2d_q8_plain(x, shifts, w_pw, bias=None, *,
     return apply_requant(acc, requant_shift).to(torch.int8)
 
 
+def _check_shift_conv(name, x, shifts, wp_shape, bias, requant_shift, act):
+    """Shapes and options of one shift-conv call; ``wp_shape`` is the
+    unpacked (C,Cy). Returns (n, h, w, c, cy)."""
+    n, h, wd, c = x.shape
+    cy = wp_shape[-1]
+    if tuple(wp_shape) != (c, cy):
+        raise ValueError(f"{name}: weight {tuple(wp_shape)} does not fit "
+                         f"x {tuple(x.shape)}")
+    if tuple(shifts.shape) != (c, 2):
+        raise ValueError(f"{name}: shift table {tuple(shifts.shape)} != "
+                         f"({c}, 2)")
+    if bias is not None and tuple(bias.shape) != (cy,):
+        raise ValueError(f"{name}: bias shape {tuple(bias.shape)} != "
+                         f"({cy},)")
+    if c > MAX_CONTRACTION:
+        raise ValueError(f"{name}: contraction of {c} channels could "
+                         "overflow the int32 accumulator")
+    check_shift(name, requant_shift)
+    check_act(name, act)
+    check_elements(name, x.shape, (n, h, wd, cy))
+    return n, h, wd, c, cy
+
+
+def _check_ranks(name, x, w_pw):
+    if x.dim() != 4 or w_pw.dim() not in (2, 4) or (
+            w_pw.dim() == 4 and w_pw.shape[:2] != (1, 1)):
+        raise ValueError(f"{name}: bad ranks x {tuple(x.shape)}, w_pw "
+                         f"{tuple(w_pw.shape)}")
+
+
 def shift_conv2d_q8(x, shifts, w_pw, bias=None, *, requant_shift: int = 0,
                     max_shift=None, act=None):
     """x (N,H,W,C) int8, shifts (C,2) int32, w_pw (C,Cy) or (1,1,C,Cy) int8,
     bias (Cy,) int32 or None -> (N,H,W,Cy) int8. ``max_shift`` is used by the
     plain version only (see the module docstring)."""
-    if x.dim() != 4 or w_pw.dim() not in (2, 4):
-        raise ValueError(f"shift_conv2d_q8: bad ranks x {tuple(x.shape)}, "
-                         f"w_pw {tuple(w_pw.shape)}")
-    n, h, wd, c = x.shape
+    _check_ranks("shift_conv2d_q8", x, w_pw)
     wp = _pointwise(w_pw)
-    cy = wp.shape[-1]
-    if tuple(wp.shape) != (c, cy) or (w_pw.dim() == 4
-                                      and w_pw.shape[:2] != (1, 1)):
-        raise ValueError(f"shift_conv2d_q8: weight {tuple(w_pw.shape)} does "
-                         f"not fit x {tuple(x.shape)}")
-    if tuple(shifts.shape) != (c, 2):
-        raise ValueError(f"shift_conv2d_q8: shift table "
-                         f"{tuple(shifts.shape)} != ({c}, 2)")
-    if bias is not None and tuple(bias.shape) != (cy,):
-        raise ValueError(f"shift_conv2d_q8: bias shape {tuple(bias.shape)} "
-                         f"!= ({cy},)")
-    if c > MAX_CONTRACTION:
-        raise ValueError(f"shift_conv2d_q8: contraction of {c} channels "
-                         "could overflow the int32 accumulator")
-    check_shift("shift_conv2d_q8", requant_shift)
-    check_act("shift_conv2d_q8", act)
-    check_elements("shift_conv2d_q8", x.shape, (n, h, wd, cy))
+    n, h, wd, c, cy = _check_shift_conv("shift_conv2d_q8", x, shifts,
+                                        wp.shape, bias, requant_shift, act)
     if x.device.type == "cpu":
         return shift_conv2d_q8_plain(x, shifts, w_pw, bias,
                                      requant_shift=requant_shift,
@@ -98,3 +116,50 @@ def shift_conv2d_q8(x, shifts, w_pw, bias=None, *, requant_shift: int = 0,
 
 
 shift_conv2d_q8.launches = 0
+
+
+def shift_conv2d_w4_plain(x, shifts, w_pw_p, w_shifts, bias=None, *,
+                          requant_shift: int = 0, max_shift=None, act=None):
+    """Plain W4 version: the pointwise codes expanded (``expand_w4`` along
+    C), then :func:`shift_conv2d_q8_plain` unchanged."""
+    w = expand_w4(_pointwise(w_pw_p), w_shifts, x.shape[-1], 0)
+    return shift_conv2d_q8_plain(x, shifts, w, bias,
+                                 requant_shift=requant_shift,
+                                 max_shift=max_shift, act=act)
+
+
+def shift_conv2d_w4(x, shifts, w_pw_p, w_shifts, bias=None, *,
+                    requant_shift=None, max_shift=None, act=None):
+    """x (N,H,W,C) int8, shifts (C,2) int32, w_pw_p (ceil(C/2),Cy) or
+    (1,1,ceil(C/2),Cy) int8 nibble-packed along C, w_shifts (C,) int8, bias
+    (Cy,) int32 or None -> (N,H,W,Cy) int8. ``max_shift`` is used by the
+    plain version only."""
+    _check_ranks("shift_conv2d_w4", x, w_pw_p)
+    wp = _pointwise(w_pw_p)
+    c = x.shape[-1]
+    check_w4("shift_conv2d_w4", wp, 0, c, w_shifts, requant_shift)
+    n, h, wd, c, cy = _check_shift_conv("shift_conv2d_w4", x, shifts,
+                                        (c, wp.shape[-1]), bias,
+                                        requant_shift, act)
+    if x.device.type == "cpu":
+        return shift_conv2d_w4_plain(x, shifts, w_pw_p, w_shifts, bias,
+                                     requant_shift=requant_shift,
+                                     max_shift=max_shift, act=act)
+    for t in (x, wp, w_shifts):
+        check_cuda_operand("shift_conv2d_w4", t, x.device, torch.int8)
+    check_cuda_operand("shift_conv2d_w4", shifts, x.device, torch.int32)
+    if bias is not None:
+        check_cuda_operand("shift_conv2d_w4", bias, x.device, torch.int32)
+    y = torch.empty((n, h, wd, cy), dtype=torch.int8, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = library().repro_shift_conv2d_w4(
+            x.data_ptr(), shifts.data_ptr(), wp.data_ptr(),
+            w_shifts.data_ptr(), None if bias is None else bias.data_ptr(),
+            y.data_ptr(), n, h, wd, c, cy, requant_shift, int(act == "relu"),
+            torch.cuda.current_stream().cuda_stream)
+    check_launch("shift_conv2d_w4", rc)
+    shift_conv2d_w4.launches += 1
+    return y
+
+
+shift_conv2d_w4.launches = 0

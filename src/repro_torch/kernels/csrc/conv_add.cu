@@ -1,12 +1,13 @@
-// int8 add (AdderNet) convolution for sm_90a.
+// int8 and W4A8 add (AdderNet) convolution for sm_90a.
 //
 // Replaces the TPU kernel repro/kernels/conv_add.py (add_conv2d /
-// _add_conv2d, int8 mode): y = -sum_{i,j,c} |(x << xp) - (w << wp)| over the
-// HK x HK window and all Cx input channels, SAME padding (HK/2, (HK-1)/2),
-// then the optional int32 bias at accumulator scale, relu, round-to-nearest
-// shift and clip to int8 (epilogue.cuh). x (N,H,W,Cx) int8 NHWC, w
-// (HK,HK,Cx,Cy) int8 HWIO, y (N,H,W,Cy) int8. xp and wp are the Algorithm-1
-// (right) pre-shifts that put both operands on one scale.
+// _add_conv2d, int8 and W4 modes):
+// y = -sum_{i,j,c} |(x << xp) - (w << wp)| over the HK x HK window and all
+// Cx input channels, SAME padding (HK/2, (HK-1)/2), then the optional int32
+// bias at accumulator scale, relu, round-to-nearest shift and clip to int8
+// (epilogue.cuh). x (N,H,W,Cx) int8 NHWC, w (HK,HK,Cx,Cy) int8 HWIO, y
+// (N,H,W,Cy) int8. xp and wp are the Algorithm-1 (right) pre-shifts that
+// put both operands on one scale.
 //
 // A padded zero is not neutral under L1: a tap outside the image still adds
 // |0 - (w << wp)|, so out-of-bounds taps read x = 0 instead of being skipped.
@@ -14,6 +15,14 @@
 // uint32_t and cast back, so they wrap exactly as JAX's int32 arithmetic does
 // (signed overflow and a left shift of a negative value are undefined in
 // C++); |INT32_MIN| stays INT32_MIN, as in JAX.
+//
+// W4 mode (repro_add_conv2d_w4): w is (HK,HK,ceil(Cx/2),Cy), two int4 codes
+// per byte along Cx, with an int8 group shift per input channel (ws, length
+// Cx). The group shift comes first (w4.cuh: it lands on the base scale,
+// within int8), then << wp in uint32_t, as the TPU kernel orders them; the
+// other order wraps differently at large pre-shifts. The loop runs over the
+// Cx real channels only: the pad nibble of an odd Cx is a zero weight, and a
+// zero weight is not neutral under L1.
 //
 // Index arithmetic is 32-bit (the wrapper keeps every tensor below 2^31
 // elements).
@@ -30,13 +39,14 @@
 #include <cuda_runtime.h>
 
 #include "epilogue.cuh"
+#include "w4.cuh"
 
-__global__ void add_conv2d_q8_kernel(const int8_t* __restrict__ x,
-                                     const int8_t* __restrict__ w,
-                                     const int32_t* __restrict__ bias,
-                                     int8_t* __restrict__ y, int n, int h,
-                                     int wd, int cx, int cy, int hk, int xp,
-                                     int wp, int shift, int relu) {
+template <bool W4>
+__global__ void add_conv2d_kernel(
+    const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+    const int8_t* __restrict__ ws, const int32_t* __restrict__ bias,
+    int8_t* __restrict__ y, int n, int h, int wd, int cx, int cy, int hk,
+    int xp, int wp, int shift, int relu) {
   const int total = n * h * wd * cy;
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= total) return;
@@ -46,6 +56,7 @@ __global__ void add_conv2d_q8_kernel(const int8_t* __restrict__ x,
   t /= wd;
   const int oy = t % h;
   const int b = t / h;
+  const int wrows = W4 ? (cx + 1) / 2 : cx;  // weight rows per tap
   const int pad = hk / 2;
   uint32_t l1 = 0;
   for (int i = 0; i < hk; ++i) {
@@ -56,10 +67,12 @@ __global__ void add_conv2d_q8_kernel(const int8_t* __restrict__ x,
       const bool in = row_in && ix >= 0 && ix < wd;
       const int8_t* xq =
           x + ((b * h + (in ? iy : 0)) * wd + (in ? ix : 0)) * cx;
-      const int8_t* wq = w + (i * hk + j) * cx * cy + co;
+      const int8_t* wq = w + (i * hk + j) * wrows * cy + co;
       for (int c = 0; c < cx; ++c) {
+        const int32_t wc = W4 ? w4_code(wq[(c >> 1) * cy], c & 1, ws[c])
+                              : (int32_t)wq[c * cy];
         const uint32_t xv = in ? (uint32_t)(int32_t)xq[c] << xp : 0u;
-        const uint32_t wv = (uint32_t)(int32_t)wq[c * cy] << wp;
+        const uint32_t wv = (uint32_t)wc << wp;
         const uint32_t d = xv - wv;
         l1 += ((int32_t)d < 0) ? 0u - d : d;
       }
@@ -78,8 +91,24 @@ extern "C" int repro_add_conv2d_q8(const void* x, const void* w,
   if (total == 0) return (int)cudaSuccess;
   const int threads = 256;
   const int blocks = (total + threads - 1) / threads;
-  add_conv2d_q8_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)x, (const int8_t*)w, (const int32_t*)bias, (int8_t*)y, n,
-      h, wd, cx, cy, hk, xp, wp, shift, relu);
+  add_conv2d_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const int8_t*)x, (const int8_t*)w, nullptr, (const int32_t*)bias,
+      (int8_t*)y, n, h, wd, cx, cy, hk, xp, wp, shift, relu);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int repro_add_conv2d_w4(const void* x, const void* w,
+                                   const void* ws, const void* bias, void* y,
+                                   int n, int h, int wd, int cx, int cy,
+                                   int hk, int xp, int wp, int shift, int relu,
+                                   void* stream) {
+  const int total = n * h * wd * cy;
+  if (total == 0) return (int)cudaSuccess;
+  const int threads = 256;
+  const int blocks = (total + threads - 1) / threads;
+  add_conv2d_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const int8_t*)x, (const int8_t*)w, (const int8_t*)ws,
+      (const int32_t*)bias, (int8_t*)y, n, h, wd, cx, cy, hk, xp, wp, shift,
+      relu);
   return (int)cudaGetLastError();
 }

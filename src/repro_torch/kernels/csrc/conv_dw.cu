@@ -1,10 +1,16 @@
-// int8 SAME stride-1 depthwise convolution for sm_90a.
+// int8 and W4A8 SAME stride-1 depthwise convolution for sm_90a.
 //
 // Replaces the TPU kernel repro/kernels/conv_dw.py (depthwise2d /
-// _depthwise2d, int8 mode): x (N,H,W,C) int8 NHWC, w (HK,HK,C) int8 (the
-// (HK,HK,C,1) layout is the same bytes), per-channel HK x HK multiply-add in
-// int32, then relu, round-to-nearest shift and clip to int8 (epilogue.cuh).
-// Zero padding (HK/2, (HK-1)/2) comes from bounds checks.
+// _depthwise2d, int8 and W4 modes): x (N,H,W,C) int8 NHWC, w (HK,HK,C) int8
+// (the (HK,HK,C,1) layout is the same bytes), per-channel HK x HK
+// multiply-add in int32, then relu, round-to-nearest shift and clip to int8
+// (epilogue.cuh). Zero padding (HK/2, (HK-1)/2) comes from bounds checks.
+//
+// W4 mode (repro_depthwise2d_w4): w is (ceil(HK/2),HK,C), packed along the
+// tap-row axis so that channels stay the contiguous axis: tap row i is nibble
+// i & 1 of byte row i >> 1, and its group shift ws[i] (length HK) is the same
+// for every channel. Each nibble is unpacked and shifted in registers
+// (w4.cuh); from there the int8 body runs unchanged.
 //
 // Index arithmetic is 32-bit (the wrapper keeps every tensor below 2^31
 // elements): 64-bit division and modulo are emulated on the GPU.
@@ -18,12 +24,13 @@
 #include <cuda_runtime.h>
 
 #include "epilogue.cuh"
+#include "w4.cuh"
 
-__global__ void depthwise2d_q8_kernel(const int8_t* __restrict__ x,
-                                      const int8_t* __restrict__ w,
-                                      int8_t* __restrict__ y, int n, int h,
-                                      int wd, int c, int hk, int shift,
-                                      int relu) {
+template <bool W4>
+__global__ void depthwise2d_kernel(
+    const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+    const int8_t* __restrict__ ws, int8_t* __restrict__ y, int n, int h,
+    int wd, int c, int hk, int shift, int relu) {
   const int total = n * h * wd * c;
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= total) return;
@@ -38,11 +45,13 @@ __global__ void depthwise2d_q8_kernel(const int8_t* __restrict__ x,
   for (int i = 0; i < hk; ++i) {
     const int iy = oy + i - pad;
     if (iy < 0 || iy >= h) continue;
+    const int8_t* wrow = w + (W4 ? (i >> 1) : i) * hk * c + ch;
     for (int j = 0; j < hk; ++j) {
       const int ix = ox + j - pad;
       if (ix < 0 || ix >= wd) continue;
-      acc += (int32_t)x[((b * h + iy) * wd + ix) * c + ch] *
-             (int32_t)w[(i * hk + j) * c + ch];
+      const int32_t wv = W4 ? w4_code(wrow[j * c], i & 1, ws[i])
+                            : (int32_t)wrow[j * c];
+      acc += (int32_t)x[((b * h + iy) * wd + ix) * c + ch] * wv;
     }
   }
   y[idx] = requant_epilogue(acc, relu, shift);
@@ -55,9 +64,22 @@ extern "C" int repro_depthwise2d_q8(const void* x, const void* w, void* y,
   if (total == 0) return (int)cudaSuccess;
   const int threads = 256;
   const int blocks = (total + threads - 1) / threads;
-  depthwise2d_q8_kernel<<<blocks, threads, 0,
-                          (cudaStream_t)stream>>>(
-      (const int8_t*)x, (const int8_t*)w, (int8_t*)y, n, h, wd, c, hk, shift,
-      relu);
+  depthwise2d_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const int8_t*)x, (const int8_t*)w, nullptr, (int8_t*)y, n, h, wd, c,
+      hk, shift, relu);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int repro_depthwise2d_w4(const void* x, const void* w,
+                                    const void* ws, void* y, int n, int h,
+                                    int wd, int c, int hk, int shift, int relu,
+                                    void* stream) {
+  const int total = n * h * wd * c;
+  if (total == 0) return (int)cudaSuccess;
+  const int threads = 256;
+  const int blocks = (total + threads - 1) / threads;
+  depthwise2d_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const int8_t*)x, (const int8_t*)w, (const int8_t*)ws, (int8_t*)y, n, h,
+      wd, c, hk, shift, relu);
   return (int)cudaGetLastError();
 }

@@ -1,9 +1,9 @@
-// int8 shift convolution for sm_90a: a per-channel spatial shift fused into
-// the pointwise contraction.
+// int8 and W4A8 shift convolution for sm_90a: a per-channel spatial shift
+// fused into the pointwise contraction.
 //
 // Replaces the TPU kernel repro/kernels/conv_shift.py (shift_conv2d, int8
-// mode): y[n,y,x,co] = sum_c x[n, y+a_c, x+b_c, c] * w_pw[c,co], a read
-// outside the image being zero, accumulated in int32; then the optional
+// and W4 modes): y[n,y,x,co] = sum_c x[n, y+a_c, x+b_c, c] * w_pw[c,co], a
+// read outside the image being zero, accumulated in int32; then the optional
 // int32 bias at accumulator scale, relu, round-to-nearest shift and clip to
 // int8 (epilogue.cuh). x (N,H,W,C) int8 NHWC, shifts (C,2) int32 (a, b) on
 // the device, w_pw (C,Cy) int8, y (N,H,W,Cy) int8.
@@ -14,6 +14,11 @@
 // The bounds checks make the result exact for any displacement: the table's
 // bound is checked once on the host when a plan is built, and never read back
 // per call.
+//
+// W4 mode (repro_shift_conv2d_w4): w_pw is (ceil(C/2),Cy), two int4 codes
+// per byte along C, with an int8 group shift per channel (ws, length C),
+// unpacked and shifted in registers (w4.cuh). The TPU wrapper re-packs the
+// nibbles along its channel sort; with no sort there is nothing to re-pack.
 //
 // Index arithmetic is 32-bit (the wrapper keeps every tensor below 2^31
 // elements): 64-bit division and modulo are emulated on the GPU.
@@ -28,14 +33,14 @@
 #include <cuda_runtime.h>
 
 #include "epilogue.cuh"
+#include "w4.cuh"
 
-__global__ void shift_conv2d_q8_kernel(const int8_t* __restrict__ x,
-                                       const int32_t* __restrict__ shifts,
-                                       const int8_t* __restrict__ w,
-                                       const int32_t* __restrict__ bias,
-                                       int8_t* __restrict__ y, int n, int h,
-                                       int wd, int c, int cy, int shift,
-                                       int relu) {
+template <bool W4>
+__global__ void shift_conv2d_kernel(
+    const int8_t* __restrict__ x, const int32_t* __restrict__ shifts,
+    const int8_t* __restrict__ w, const int8_t* __restrict__ ws,
+    const int32_t* __restrict__ bias, int8_t* __restrict__ y, int n, int h,
+    int wd, int c, int cy, int shift, int relu) {
   const int total = n * h * wd * cy;
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= total) return;
@@ -51,7 +56,9 @@ __global__ void shift_conv2d_q8_kernel(const int8_t* __restrict__ x,
     const int iy = oy + shifts[2 * ch];
     const int ix = ox + shifts[2 * ch + 1];
     if (iy < 0 || iy >= h || ix < 0 || ix >= wd) continue;
-    acc += (int32_t)xb[(iy * wd + ix) * c + ch] * (int32_t)w[ch * cy + co];
+    const int32_t wv = W4 ? w4_code(w[(ch >> 1) * cy + co], ch & 1, ws[ch])
+                          : (int32_t)w[ch * cy + co];
+    acc += (int32_t)xb[(iy * wd + ix) * c + ch] * wv;
   }
   if (bias != nullptr) acc = wrap_add(acc, bias[co]);
   y[idx] = requant_epilogue(acc, relu, shift);
@@ -65,8 +72,24 @@ extern "C" int repro_shift_conv2d_q8(const void* x, const void* shifts,
   if (total == 0) return (int)cudaSuccess;
   const int threads = 256;
   const int blocks = (total + threads - 1) / threads;
-  shift_conv2d_q8_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)x, (const int32_t*)shifts, (const int8_t*)w,
+  shift_conv2d_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const int8_t*)x, (const int32_t*)shifts, (const int8_t*)w, nullptr,
       (const int32_t*)bias, (int8_t*)y, n, h, wd, c, cy, shift, relu);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int repro_shift_conv2d_w4(const void* x, const void* shifts,
+                                     const void* w, const void* ws,
+                                     const void* bias, void* y, int n, int h,
+                                     int wd, int c, int cy, int shift,
+                                     int relu, void* stream) {
+  const int total = n * h * wd * cy;
+  if (total == 0) return (int)cudaSuccess;
+  const int threads = 256;
+  const int blocks = (total + threads - 1) / threads;
+  shift_conv2d_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const int8_t*)x, (const int32_t*)shifts, (const int8_t*)w,
+      (const int8_t*)ws, (const int32_t*)bias, (int8_t*)y, n, h, wd, c, cy,
+      shift, relu);
   return (int)cudaGetLastError();
 }

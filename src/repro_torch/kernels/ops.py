@@ -10,8 +10,11 @@ versions. The tensor's device decides what runs:
   ``chip_smoke.py`` compare the two this way).
 
 There is no fallback from a kernel to its plain version: a kernel that
-fails to build or launch raises. Only the int8 modes are ported; the
-float modes run their plain version on the host and raise on a card under
+fails to build or launch raises. The int8 and W4A8 modes are ported: a
+call with ``w_shifts`` takes nibble-packed weights (``core.quantize.
+QTensorW4``'s ``q`` and ``shifts``) and runs the W4 kernel or its plain
+version; W4 has no float mode, so it needs ``requant_shift``. The float
+modes run their plain version on the host and raise on a card under
 ``"cuda"`` (ROADMAP.md, queue B).
 
 Every call counts into the process metrics registry as
@@ -21,13 +24,15 @@ from __future__ import annotations
 
 from typing import Optional
 
+import torch
+
 from repro_torch.obs import metrics as _obs_metrics
 
 from . import ref
-from .conv_add import add_conv2d_q8
-from .conv_dw import depthwise2d_q8
-from .conv_im2col import conv2d_q8
-from .conv_shift import shift_conv2d_q8
+from .conv_add import add_conv2d_q8, add_conv2d_w4
+from .conv_dw import depthwise2d_q8, depthwise2d_w4
+from .conv_im2col import conv2d_q8, conv2d_w4
+from .conv_shift import shift_conv2d_q8, shift_conv2d_w4
 from .pool import maxpool2d_s8
 
 METHODS = ("cuda", "torch")
@@ -51,11 +56,27 @@ def _float_mode(kernel: str, x, method: str):
             "method='torch'")
 
 
+def _check_w4(kernel: str, x, requant_shift):
+    if requant_shift is None:
+        raise ValueError(f"{kernel}: W4 weights need the quantized path "
+                         "(requant_shift); there is no float W4 mode")
+    if x.dtype != torch.int8:
+        raise ValueError(f"{kernel}: W4 weights require int8 activations "
+                         f"(W4A8), got {x.dtype}")
+
+
 def conv2d(x, w, bias=None, *, groups: int = 1, method: str = "cuda",
-           requant_shift: Optional[int] = None, act: Optional[str] = None):
-    """SAME stride-1 standard / grouped conv, NHWC x HWIO."""
+           requant_shift: Optional[int] = None, act: Optional[str] = None,
+           w_shifts=None):
+    """SAME stride-1 standard / grouped conv, NHWC x HWIO. With
+    ``w_shifts``, ``w`` is packed W4 (HK,HK,ceil(Cx/g/2),Cy)."""
     _check_method(method)
     _count_dispatch("conv2d", method)
+    if w_shifts is not None:
+        _check_w4("conv2d", x, requant_shift)
+        kernel = ref.conv2d_w4_ref if method == "torch" else conv2d_w4
+        return kernel(x, w, w_shifts, bias, groups=groups,
+                      requant_shift=requant_shift, act=act)
     if requant_shift is None:
         _float_mode("conv2d", x, method)
         return ref.conv2d_ref(x, w, bias, groups=groups, act=act)
@@ -68,10 +89,17 @@ def conv2d(x, w, bias=None, *, groups: int = 1, method: str = "cuda",
 
 def depthwise2d(x, w_dw, *, method: str = "cuda",
                 requant_shift: Optional[int] = None,
-                act: Optional[str] = None):
-    """SAME stride-1 depthwise conv; ``w_dw`` is (HK,HK,C) or (HK,HK,C,1)."""
+                act: Optional[str] = None, w_shifts=None):
+    """SAME stride-1 depthwise conv; ``w_dw`` is (HK,HK,C) or (HK,HK,C,1),
+    or with ``w_shifts`` packed W4 along the tap rows (ceil(HK/2),HK,C)."""
     _check_method(method)
     _count_dispatch("depthwise2d", method)
+    if w_shifts is not None:
+        _check_w4("depthwise2d", x, requant_shift)
+        kernel = ref.depthwise2d_w4_ref if method == "torch" \
+            else depthwise2d_w4
+        return kernel(x, w_dw, w_shifts, requant_shift=requant_shift,
+                      act=act)
     if requant_shift is None:
         _float_mode("depthwise2d", x, method)
         return ref.depthwise2d_ref(x, w_dw, act=act)
@@ -83,13 +111,21 @@ def depthwise2d(x, w_dw, *, method: str = "cuda",
 
 def shift_conv2d(x, shifts, w_pw, bias=None, *, method: str = "cuda",
                  requant_shift: Optional[int] = None,
-                 act: Optional[str] = None, max_shift: Optional[int] = None):
+                 act: Optional[str] = None, max_shift: Optional[int] = None,
+                 w_shifts=None):
     """Per-channel shift fused into a pointwise conv; ``shifts`` is (C,2),
-    ``w_pw`` (C,Cy) or (1,1,C,Cy). ``max_shift`` bounds |shift| (pass
-    ``kernel_size // 2``); ``bias`` is added at accumulator scale (int8
-    path only)."""
+    ``w_pw`` (C,Cy) or (1,1,C,Cy), packed W4 along C with ``w_shifts``.
+    ``max_shift`` bounds |shift| (pass ``kernel_size // 2``); ``bias`` is
+    added at accumulator scale (quantized paths only)."""
     _check_method(method)
     _count_dispatch("shift_conv2d", method)
+    if w_shifts is not None:
+        _check_w4("shift_conv2d", x, requant_shift)
+        kernel = ref.shift_conv2d_w4_ref if method == "torch" \
+            else shift_conv2d_w4
+        return kernel(x, shifts, w_pw, w_shifts, bias,
+                      requant_shift=requant_shift, max_shift=max_shift,
+                      act=act)
     if requant_shift is None:
         _float_mode("shift_conv2d", x, method)
         if bias is not None:
@@ -107,13 +143,20 @@ def shift_conv2d(x, shifts, w_pw, bias=None, *, method: str = "cuda",
 
 def add_conv2d(x, w, bias=None, *, method: str = "cuda",
                requant_shift: Optional[int] = None, x_preshift: int = 0,
-               w_preshift: int = 0, act: Optional[str] = None):
-    """SAME stride-1 AdderNet conv, NHWC x HWIO. ``x_preshift`` and
-    ``w_preshift`` are the Algorithm-1 (right) left shifts that align the
-    operands' scales; they and ``bias`` (at accumulator scale) belong to
-    the int8 path only."""
+               w_preshift: int = 0, act: Optional[str] = None,
+               w_shifts=None):
+    """SAME stride-1 AdderNet conv, NHWC x HWIO (packed W4 along Cx with
+    ``w_shifts``). ``x_preshift`` and ``w_preshift`` are the Algorithm-1
+    (right) left shifts that align the operands' scales; they and ``bias``
+    (at accumulator scale) belong to the quantized paths only."""
     _check_method(method)
     _count_dispatch("add_conv2d", method)
+    if w_shifts is not None:
+        _check_w4("add_conv2d", x, requant_shift)
+        kernel = ref.add_conv2d_w4_ref if method == "torch" \
+            else add_conv2d_w4
+        return kernel(x, w, w_shifts, bias, requant_shift=requant_shift,
+                      x_preshift=x_preshift, w_preshift=w_preshift, act=act)
     if requant_shift is None:
         _float_mode("add_conv2d", x, method)
         if bias is not None or x_preshift or w_preshift:

@@ -4,8 +4,10 @@ names (``repro/kernels/ref.py``).
 The int8 oracles are the kernels' plain versions, re-exported from the
 kernel modules: int8 operands, exact int32 accumulation and the same
 Algorithm-1 epilogue as the CUDA kernels, so the kernels are bitwise equal
-to them. The float oracles pad as the JAX ones do: XLA's SAME, and
-(HK//2, (HK-1)//2) for add-conv.
+to them. The W4 oracles expand the nibble-packed weights
+(``core.quantize.expand_w4``) and run the unchanged int8 oracle. The
+float oracles pad as the JAX ones do: XLA's SAME, and (HK//2, (HK-1)//2)
+for add-conv.
 """
 from __future__ import annotations
 
@@ -13,14 +15,19 @@ from repro_torch.core import primitives as P
 
 from .common import apply_act
 from .conv_add import add_conv2d_q8_plain as add_conv2d_q8_ref
+from .conv_add import add_conv2d_w4_plain as add_conv2d_w4_ref
 from .conv_dw import depthwise2d_q8_plain as depthwise2d_q8_ref
+from .conv_dw import depthwise2d_w4_plain as depthwise2d_w4_ref
 from .conv_im2col import conv2d_q8_plain as conv2d_q8_ref
+from .conv_im2col import conv2d_w4_plain as conv2d_w4_ref
 from .conv_shift import shift_conv2d_q8_plain as shift_conv2d_q8_ref
+from .conv_shift import shift_conv2d_w4_plain as shift_conv2d_w4_ref
 from .pool import maxpool2d_plain as maxpool2d_ref
 
-__all__ = ["add_conv2d_ref", "add_conv2d_q8_ref", "conv2d_ref",
-           "conv2d_q8_ref", "depthwise2d_ref", "depthwise2d_q8_ref",
-           "maxpool2d_ref", "shift_conv2d_ref", "shift_conv2d_q8_ref"]
+__all__ = ["add_conv2d_ref", "add_conv2d_q8_ref", "add_conv2d_w4_ref",
+           "conv2d_ref", "conv2d_q8_ref", "conv2d_w4_ref", "depthwise2d_ref",
+           "depthwise2d_q8_ref", "depthwise2d_w4_ref", "maxpool2d_ref",
+           "shift_conv2d_ref", "shift_conv2d_q8_ref", "shift_conv2d_w4_ref"]
 
 
 def conv2d_ref(x, w, bias=None, *, groups: int = 1, act=None):

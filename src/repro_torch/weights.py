@@ -10,7 +10,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.primitives import ConvSpec, shift_bound
-from repro_torch.core.quantize import QTensor
+from repro_torch.core.quantize import W4_MAX_GROUP_SHIFT, QTensor, QTensorW4
 from repro_torch.device import resolve_device
 from repro_torch.graph.lower import Plan, PlanNode
 
@@ -38,7 +38,30 @@ def params_from_numpy(tree, device="cuda"):
     return conv(tree)
 
 
+def _w4_leaf(v: dict, dev) -> QTensorW4:
+    """A W4 leaf's plain data -> QTensorW4 on ``dev``, checked on the host
+    once: int8 bytes of extent ceil(size/2) along ``axis``, and ``size``
+    int8 group shifts in [0, W4_MAX_GROUP_SHIFT] (the kernels read them
+    from the device and never check them per call)."""
+    q, shifts = np.asarray(v["q"]), np.asarray(v["shifts"])
+    size, axis = int(v["size"]), int(v["axis"])
+    if q.dtype != np.int8 or shifts.dtype != np.int8:
+        raise TypeError(f"W4 bytes and shifts must be int8, got {q.dtype} "
+                        f"and {shifts.dtype}")
+    if q.shape[axis] != (size + 1) // 2 or shifts.shape != (size,):
+        raise ValueError(f"W4 leaf: bytes {q.shape} and shifts "
+                         f"{shifts.shape} do not fit size {size} along "
+                         f"axis {axis}")
+    if size and not 0 <= shifts.min() <= shifts.max() <= W4_MAX_GROUP_SHIFT:
+        raise ValueError(f"W4 leaf: group shifts must lie in [0, "
+                         f"{W4_MAX_GROUP_SHIFT}]")
+    return QTensorW4(_tensor(q, dev), _tensor(shifts, dev),
+                     int(v["frac_bits"]), size, axis)
+
+
 def _qparam(v, dev):
+    if isinstance(v, dict):                  # a packed W4 weight
+        return _w4_leaf(v, dev)
     if isinstance(v, tuple):                 # (int8 codes, frac_bits)
         q, fb = v
         q = np.asarray(q)
@@ -56,8 +79,10 @@ def plan_from_numpy(nodes, in_fb: int, device="cuda") -> Plan:
 
     Each node dict holds ``name``, ``op``, ``spec`` (a dict of ConvSpec
     fields, or None), ``qparams`` (values: ``(int8 ndarray, frac_bits)``
-    pairs for quantized tensors, float or int32 ndarrays, or ints; a 0-d
-    array counts as an int), ``in_fb``, ``out_fb``, ``act`` and ``attrs``.
+    pairs for int8 tensors, ``{"q", "shifts", "frac_bits", "size",
+    "axis"}`` dicts for nibble-packed W4 weights, float or int32 ndarrays,
+    or ints; a 0-d array counts as an int), ``in_fb``, ``out_fb``, ``act``
+    and ``attrs``.
     A shift node's table is checked against its ``kernel_size // 2`` here,
     once, so the kernel never reads it back."""
     dev = resolve_device(device)

@@ -214,9 +214,28 @@ def test_quantize_conv_params_matches_jax(prim):
             continue
         assert got[k].frac_bits == want[k].frac_bits
         np.testing.assert_array_equal(got[k].q.numpy(), np.asarray(want[k].q))
-    with pytest.raises(NotImplementedError, match="W4"):
+    # bits=4: the weights become QTensorW4 equal to JAX's bit for bit (the
+    # same float weights, no fold), biases stay int8
+    got4 = quantize_conv_params({k: torch.from_numpy(v)
+                                 for k, v in p.items()}, s, bits=4,
+                                group_size=4)
+    want4 = j_qparams({k: jnp.asarray(v) for k, v in p.items()}, js, bits=4,
+                      group_size=4)
+    for k in ("w", "w_dw", "w_pw", "b"):
+        if k not in want4:
+            continue
+        assert type(got4[k]).__name__ == type(want4[k]).__name__, k
+        assert got4[k].frac_bits == want4[k].frac_bits, k
+        np.testing.assert_array_equal(got4[k].q.numpy(),
+                                      np.asarray(want4[k].q))
+        if k != "b":
+            assert (got4[k].size, got4[k].axis) == (want4[k].size,
+                                                    want4[k].axis)
+            np.testing.assert_array_equal(got4[k].shifts.numpy(),
+                                          np.asarray(want4[k].shifts))
+    with pytest.raises(ValueError, match="bits"):
         quantize_conv_params({k: torch.from_numpy(v) for k, v in p.items()},
-                             s, bits=4)
+                             s, bits=2)
 
 
 @pytest.mark.parametrize("prim", ["dws", "shift", "add"])

@@ -116,3 +116,110 @@ def test_add_conv2d_q8_kernel_equals_plain(dev, case):
     torch.cuda.synchronize()
     assert add_conv2d_q8.launches == before + 1
     assert torch.equal(got, add_conv2d_q8_plain(x, wt, b, **kw))
+
+
+def _w4(rng, shape, axis, dev, all_max=False):
+    """Random packed int4 codes (-8 and +7 included) along ``axis`` and
+    group shifts in [0, 4] (all 4 with ``all_max``), on the card."""
+    from repro_torch.core.quantize import pack_w4
+    q = rng.integers(-8, 8, shape).astype(np.int8)
+    q.flat[0], q.flat[-1] = -8, 7
+    n = shape[axis]
+    ws = (np.full(n, 4) if all_max else rng.integers(0, 5, n)).astype(np.int8)
+    return (pack_w4(torch.from_numpy(q), axis).contiguous().to(dev),
+            torch.from_numpy(ws).to(dev))
+
+
+@pytest.mark.parametrize("case", [
+    (4, 32, 32, 3, 16, 3, 1, True, "relu", 7, False),
+    (4, 16, 16, 16, 32, 1, 1, True, "relu", 9, True),
+    (3, 9, 9, 12, 12, 3, 3, False, None, -2, False),
+    (2, 6, 7, 5, 8, 2, 1, False, "relu", 1, False),
+], ids=str)
+def test_conv2d_w4_kernel_equals_plain(dev, case):
+    from repro_torch.kernels import conv2d_w4, conv2d_w4_plain
+    n, h, w, cx, cy, hk, g, with_bias, act, shift, all_max = case
+    rng = np.random.default_rng(5)
+    x = _i8(rng, (n, h, w, cx), dev)
+    wp, ws = _w4(rng, (hk, hk, cx // g, cy), 2, dev, all_max)
+    b = (torch.from_numpy(rng.integers(-5000, 5000, cy).astype(np.int32))
+         .to(dev) if with_bias else None)
+    kw = dict(groups=g, requant_shift=shift, act=act)
+    before = conv2d_w4.launches
+    got = conv2d_w4(x, wp, ws, b, **kw)
+    torch.cuda.synchronize()
+    assert conv2d_w4.launches == before + 1
+    assert torch.equal(got, conv2d_w4_plain(x, wp, ws, b, **kw))
+
+
+@pytest.mark.parametrize("hk", [1, 2, 3, 5])
+def test_depthwise2d_w4_kernel_equals_plain(dev, hk):
+    from repro_torch.kernels import depthwise2d_w4, depthwise2d_w4_plain
+    rng = np.random.default_rng(6)
+    x = _i8(rng, (4, 16, 15, 16), dev)
+    wp, ws = _w4(rng, (hk, hk, 16), 0, dev, all_max=hk == 5)
+    got = depthwise2d_w4(x, wp, ws, requant_shift=5, act="relu")
+    torch.cuda.synchronize()
+    assert torch.equal(got, depthwise2d_w4_plain(x, wp, ws, requant_shift=5,
+                                                 act="relu"))
+
+
+@pytest.mark.parametrize("c,cy,d", [(16, 32, 1), (7, 8, 2), (32, 64, 1)])
+def test_shift_conv2d_w4_kernel_equals_plain(dev, c, cy, d):
+    from repro_torch.kernels import shift_conv2d_w4, shift_conv2d_w4_plain
+    rng = np.random.default_rng(7)
+    x = _i8(rng, (3, 9, 8, c), dev)
+    wp, ws = _w4(rng, (c, cy), 0, dev, all_max=c == 7)
+    table = torch.from_numpy(_grid(c, d)).to(dev)
+    b = torch.from_numpy(rng.integers(-5000, 5000, cy).astype(np.int32)) \
+        .to(dev)
+    kw = dict(requant_shift=7, act="relu", max_shift=d)
+    got = shift_conv2d_w4(x, table, wp, ws, b, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, shift_conv2d_w4_plain(x, table, wp, ws, b, **kw))
+
+
+@pytest.mark.parametrize("case", [
+    (4, 16, 16, 3, 16, 3, 0, 3, True, "relu", 9, False),
+    (3, 9, 7, 16, 8, 3, 2, 0, False, None, 9, True),
+    (2, 5, 5, 5, 8, 3, 28, 20, True, None, 24, False),
+    (2, 6, 7, 4, 8, 2, 0, 0, False, "relu", -2, True),
+], ids=str)
+def test_add_conv2d_w4_kernel_equals_plain(dev, case):
+    from repro_torch.kernels import add_conv2d_w4, add_conv2d_w4_plain
+    n, h, w, cx, cy, hk, xp, wp_, with_bias, act, shift, all_max = case
+    rng = np.random.default_rng(8)
+    x = _i8(rng, (n, h, w, cx), dev)
+    wp, ws = _w4(rng, (hk, hk, cx, cy), 2, dev, all_max)
+    b = (torch.from_numpy(rng.integers(-5000, 5000, cy).astype(np.int32))
+         .to(dev) if with_bias else None)
+    kw = dict(requant_shift=shift, x_preshift=xp, w_preshift=wp_, act=act)
+    before = add_conv2d_w4.launches
+    got = add_conv2d_w4(x, wp, ws, b, **kw)
+    torch.cuda.synchronize()
+    assert add_conv2d_w4.launches == before + 1
+    assert torch.equal(got, add_conv2d_w4_plain(x, wp, ws, b, **kw))
+
+
+@pytest.mark.parametrize("prim", ["dws", "add"])
+def test_w4_plan_cuda_trunk_equals_torch_trunk(dev, prim):
+    """A W4 plan lowered on the card: the cuda trunk equals the torch trunk
+    bit for bit, and its forward launches W4 kernels only."""
+    from repro_torch import kernels
+    from repro_torch.graph import CompiledPlan, build_cnn_graph, lower
+    from repro_torch.models import CNNConfig, init_cnn
+    cfg = CNNConfig(primitive=prim, widths=(8, 12), image_size=16)
+    params = init_cnn(cfg, torch.Generator().manual_seed(0), device=dev)
+    rng = np.random.default_rng(9)
+    calib = torch.from_numpy((rng.standard_normal((8, 16, 16, 3)) * 0.5)
+                             .astype(np.float32)).to(dev)
+    plan = lower(build_cnn_graph(cfg), params, calib, weight_bits=4,
+                 group_size=8)
+    x = (rng.standard_normal((6, 16, 16, 3)) * 0.5).astype(np.float32)
+    kernels.reset_launches()
+    tc = CompiledPlan(plan, method="cuda", device=dev).trunk(x)
+    launched = {k.__name__ for k in kernels.KERNELS if k.launches}
+    tt = CompiledPlan(plan, method="torch", device=dev).trunk(x)
+    assert torch.equal(tc.q, tt.q)
+    assert not any(name.endswith("_q8") for name in launched), launched
+    assert any(name.endswith("_w4") for name in launched), launched

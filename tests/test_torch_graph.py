@@ -12,6 +12,7 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 
 from repro.core.quantize import QTensor as JQTensor  # noqa: E402
+from repro.core.quantize import QTensorW4 as JQTensorW4  # noqa: E402
 from repro.graph import CompiledPlan as JCompiledPlan  # noqa: E402
 from repro.graph import build_cnn_graph as j_build  # noqa: E402
 from repro.graph import lower as j_lower  # noqa: E402
@@ -27,9 +28,13 @@ PRIMS = ("standard", "grouped", "dws", "shift", "add")
 
 def _leaf(v):
     """One qparams leaf as plain data: QTensor -> (codes, frac_bits),
-    integer scalars stay Python ints, arrays become numpy."""
+    QTensorW4 -> {"q", "shifts", "frac_bits", "size", "axis"}, integer
+    scalars stay Python ints, arrays become numpy."""
     if isinstance(v, JQTensor):
         return np.asarray(v.q), v.frac_bits
+    if isinstance(v, JQTensorW4):
+        return dict(q=np.asarray(v.q), shifts=np.asarray(v.shifts),
+                    frac_bits=v.frac_bits, size=v.size, axis=v.axis)
     if isinstance(v, int):
         return v
     return np.asarray(v)
