@@ -7,7 +7,7 @@ Phases, one line each, any failure exits non-zero:
 
 1. device   — a CUDA card is present; its name and power limit.
 2. build    — the CUDA kernels built from ``src/repro_torch/kernels/csrc``.
-3. kernels  — each of the nine kernel entry points (five int8, four W4)
+3. kernels  — each of the eleven kernel entry points (six int8, five W4)
               held bitwise against its plain PyTorch version at every
               shape of the dws, standard, shift and add plans at B=256, a
               groups=2 conv, odd and even-HK shapes, shift tables with
@@ -16,11 +16,15 @@ Phases, one line each, any failure exits non-zero:
               requant shifts {-2, 0, 1, 7} with relu and bias on and off;
               the W4 modes with random packed nibbles (-8 and +7 included),
               group shifts in [0, 4] (all 4 in some cases), odd Cx (a pad
-              nibble) and depthwise HK 1, 3 and 5; per main-path shape the
-              kernel's time, its bound, the plain version's time and one
-              PyTorch call's time as a yardstick (device times from
-              torch.profiler, TF32 off), and the time of back-to-back
-              wrapper calls.
+              nibble) and depthwise HK 1, 3 and 5; the LM's matmul_q8 and
+              matmul_w4 at Qwen2-0.5B's decode shapes (8x896x4864,
+              8x4864x896), prefill shapes (32, 64 and 128 x896x4864,
+              64x4864x896) and ragged ones
+              (K = 45, 33 and 4864 with N = 37, M = 5, 13 and 70), requant
+              shifts -2 to 16; per main-path shape the kernel's time, its
+              bound, the plain version's time and one PyTorch call's time
+              as a yardstick (device times from torch.profiler, TF32 off),
+              and the time of back-to-back wrapper calls.
 4. plan     — CNNConfig(primitive=...) for "dws", "standard", "shift" and
               "add" at full width with seeded random weights, lowered with
               a 256-image calibration batch on the card, with int8 weights
@@ -38,6 +42,18 @@ Phases, one line each, any failure exits non-zero:
               launched across the six runs, logits equal to the plan's
               forward_batch; then a breakdown of one 256-image round of
               each plan.
+6. lm       — Qwen2-0.5B at full width and depth (24 layers, d_model 896,
+              d_ff 4864, vocab 151,936), seeded random weights made on the
+              card, served by Engine(max_batch=8, max_len=256): 24 requests,
+              prompts of 16-96 tokens, 32 new tokens each, greedy, in the
+              precisions "int8", "int8-torch", "w4a8" (group_size=32),
+              "w4a8-torch" and "float"; every status ok, the kernel
+              precisions' token streams equal to their plain versions',
+              matmul_q8 (int8) or matmul_w4 (w4a8) launched exactly 72 times
+              per prefill and per decode step and no other kernel; tokens/s,
+              decode-step ms and TTFT per precision (after a two-request
+              warm-up of each engine), and one decode step's device
+              breakdown.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -84,6 +100,13 @@ TIMED_PLAN = {"conv2d": "dws", "depthwise2d": "dws", "maxpool2d": "dws",
               "shift_conv2d": "shift", "add_conv2d": "add"}
 #: the W4 mode's pre-shifts (x, w) and requant shift of each add layer
 W4_ADD_PRESHIFTS = ((0, 3, 9), (2, 0, 9), (28, 20, 24))
+#: phase 6: the served model and its traffic
+LM_ARCH = "qwen2-0.5b"
+LM_PRECISIONS = ("int8", "int8-torch", "w4a8", "w4a8-torch", "float")
+LM_BATCH, LM_MAX_LEN, LM_REQUESTS, LM_NEW = 8, 256, 24, 32
+LM_PROMPT = (16, 96)
+#: each kernel precision's matmul entry point; 3 FFN matmuls per layer
+LM_KERNEL = {"int8": "matmul_q8", "w4a8": "matmul_w4"}
 
 # Published dense peaks (NVIDIA data sheets): HBM bytes/s and int8 ops/s.
 PEAKS = {"SXM": (3.35e12, 1979e12), "PCIe": (2.0e12, 1513e12)}
@@ -147,22 +170,33 @@ def time_ms(torch, fn, reps=20, trials=7) -> float:
     return statistics.median(times)
 
 
+#: profiler sessions tried before a window with no device activity counts:
+#: on the card's machine an occasional session records no CUDA activity
+PROFILE_TRIES = 4
+
+
 def device_kernels(torch, fn, reps):
-    """torch.profiler's CUDA kernel rows (key_averages) for ``reps`` calls."""
+    """torch.profiler's CUDA kernel rows (key_averages) for ``reps`` calls;
+    a session that recorded no device time is run again, up to
+    ``PROFILE_TRIES`` sessions in all (an empty list if none did)."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        if sum(e.self_device_time_total for e in rows) > 0:
+            return rows
+    return []
 
 
 def device_ms(torch, fn, reps=20) -> float:
     """Device time of one call: the summed time of every kernel the call
     launches (torch.profiler), without the host time between launches.
-    Fails if the profiler sees no device time."""
+    Fails if no profiler session sees device time."""
     fn()
     torch.cuda.synchronize()
     us = sum(e.self_device_time_total
@@ -340,6 +374,38 @@ def kernel_cases(torch, K, dev, rng):
                 lambda: K.shift_conv2d_q8_plain(x, s, wt, b, **kw),
                 lib, nbytes, ops)
 
+    def mm(label, m, k, n, shift=9, act=None, weight=None, w4_mode=False,
+           all_max=False):
+        """One matmul case; ``weight`` is how often the shape runs per
+        Qwen2-0.5B decode step (0: timed, not summed; None: bitwise only)."""
+        a = i8((m, k))
+        if w4_mode:
+            wp, ws, wt = w4((k, n), 0, all_max)
+            wbytes = wp.numel() + ws.numel()
+        else:
+            wt = i8((k, n))
+            wbytes = wt.numel()
+        kw = dict(requant_shift=shift, act=act)
+        nbytes = a.numel() + wbytes + m * n
+        ops = (2 * m * n * k, "int8")
+        lib = None
+        if k % 8 == 0 and n % 8 == 0:
+            # yardstick: torch._int_mm on the same (expanded) codes, its a
+            # padded with zero rows to 32 where M <= 16 (its shape rule),
+            # made before timing; the int32 product only
+            ap = a if m > 16 else torch.cat(
+                [a, a.new_zeros((32 - m, k))]).contiguous()
+            lib = lambda: torch._int_mm(ap, wt)        # noqa: E731
+        if w4_mode:
+            return ("matmul_w4", label, weight,
+                    lambda: K.matmul_w4(a, wp, ws, **kw),
+                    lambda: K.matmul_w4_plain(a, wp, ws, **kw),
+                    lib, nbytes, ops)
+        return ("matmul", label, weight,
+                lambda: K.matmul_q8(a, wt, **kw),
+                lambda: K.matmul_q8_plain(a, wt, **kw),
+                lib, nbytes, ops)
+
     def add_conv(label, n, h, w, cx, cy, hk, xp=2, wp=0, bias=True, act=None,
                  rs=9, main=False, w4_mode=False, all_max=False):
         x = i8((n, h, w, cx))
@@ -432,6 +498,7 @@ def kernel_cases(torch, K, dev, rng):
                 yield add_conv(tag, 8, 16, 16, 16, 32, 3, bias=bias, act=act,
                                rs=rs)
     yield from w4_cases(conv, dw, shift_conv, add_conv)
+    yield from matmul_cases(mm)
 
 
 def w4_cases(conv, dw, shift_conv, add_conv):
@@ -478,6 +545,35 @@ def w4_cases(conv, dw, shift_conv, add_conv):
                    xp=28, wp=20, rs=24, act="relu", **packed)
 
 
+def matmul_cases(mm):
+    """The LM FFN's matmuls at Qwen2-0.5B's widths: the decode shapes
+    (timed and summed over one decode step's 72 launches), prefill shapes
+    of 32, 64 and 128 tokens (timed), and ragged, odd-K and shift cases (bitwise
+    only), in both modes."""
+    layers, d, ff = 24, 896, 4864
+    for w4_mode in (False, True):
+        tag = "W4 " if w4_mode else ""
+        yield mm(f"{tag}decode gate/up 8x{d}x{ff}", 8, d, ff, shift=14,
+                 weight=2 * layers, w4_mode=w4_mode)
+        yield mm(f"{tag}decode down 8x{ff}x{d}", 8, ff, d, shift=16,
+                 weight=layers, w4_mode=w4_mode)
+        for m in (32, 64, 128):        # phase 6's prefill buckets past 16
+            yield mm(f"{tag}prefill gate/up {m}x{d}x{ff}", m, d, ff,
+                     shift=14, act="relu", weight=0, w4_mode=w4_mode)
+        yield mm(f"{tag}prefill down 64x{ff}x{d}", 64, ff, d, shift=16,
+                 weight=0, w4_mode=w4_mode)
+        yield mm(f"{tag}ragged 5x45x37 shift -2 relu", 5, 45, 37, shift=-2,
+                 act="relu", w4_mode=w4_mode)
+        yield mm(f"{tag}odd K 13x33x37 shift 0", 13, 33, 37, shift=0,
+                 w4_mode=w4_mode)
+        yield mm(f"{tag}ragged 70x{ff}x37 relu", 70, ff, 37, shift=16,
+                 act="relu", w4_mode=w4_mode)
+        yield mm(f"{tag}ragged 17x{d}x100", 17, d, 100, shift=13,
+                 w4_mode=w4_mode)
+    yield mm(f"W4 all shifts 4 8x{d}x{ff}", 8, d, ff, shift=16,
+             w4_mode=True, all_max=True)
+
+
 def phase_kernels(torch, K, dev, name, rng):
     from repro_torch.device import exact_float32
     bw, int8_rate = peaks(name)
@@ -509,8 +605,9 @@ def _phase_kernels(torch, K, dev, rng, bw, rates):
             bytes_ms=0.0, ops_ms=0.0, shapes=0))
         row["max_abs_err"] = max(row["max_abs_err"], err)
         row["shapes"] += 1
-        if not main:
+        if main is None or main is False:
             continue
+        weight = 1 if main is True else main      # launches per summed unit
         bytes_ms, ops_ms = 1e3 * nbytes / bw, 1e3 * n_ops / rates[kind]
         t_k = device_ms(torch, run_k)
         t_p = device_ms(torch, run_p, reps=5)
@@ -524,15 +621,17 @@ def _phase_kernels(torch, K, dev, rng, bw, rates):
               f"{'n/a' if t_l is None else f'{t_l:.4f} ms'}  "
               f"(device times; back-to-back wrapper calls {call:.4f} ms "
               f"each)")
-        row["ms"] += t_k
-        row["plain_ms"] += t_p
-        row["bound_ms"] += bound
-        row["bytes_ms"] += bytes_ms
-        row["ops_ms"] += ops_ms
+        row["ms"] += weight * t_k
+        row["plain_ms"] += weight * t_p
+        row["bound_ms"] += weight * bound
+        row["bytes_ms"] += weight * bytes_ms
+        row["ops_ms"] += weight * ops_ms
+        if not weight:
+            continue
         if t_l is None or row["library_ms"] is None:
             row["library_ms"] = None
         else:
-            row["library_ms"] += t_l
+            row["library_ms"] += weight * t_l
     for kernel, row in per_kernel.items():
         print(f"[kernels] {kernel}: {row['shapes']} shapes bitwise equal to "
               f"the plain version")
@@ -744,6 +843,149 @@ def serve_breakdown(torch, name, plan, x_host, round_ms):
               f"x{e.count // reps:3d}  {kernel[:110]}")
 
 
+# ---------------------------------------------------------------- phase 6 --
+
+def phase_lm(torch, K, card, rng, dev="cuda", cfg=None, n_req=LM_REQUESTS,
+             new_tokens=LM_NEW, prompt=LM_PROMPT):
+    """Serve Qwen2-0.5B in every precision of ``LM_PRECISIONS``; returns
+    the launch count of every kernel over the runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.serve import Engine, Request, ServeConfig
+    cfg = cfg or get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, torch.Generator(device=dev)
+                             .manual_seed(SEED), device=dev)
+    sync(torch, dev)
+    n_params = sum(v.numel() for v in _leaves(params))
+    # the config's analytic count leaves out the final norm's d_model
+    check(n_params == cfg.param_count() + cfg.d_model,
+          f"lm: {n_params} parameters, the config counts "
+          f"{cfg.param_count()} + {cfg.d_model}")
+    print(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, {n_params:,} parameters "
+          f"made on the card in {time.perf_counter() - t0:.2f} s")
+    prompts = [rng.integers(0, cfg.vocab, (int(n),)).astype(np.int32)
+               for n in rng.integers(prompt[0], prompt[1] + 1, n_req)]
+    launches = dict.fromkeys((k.__name__ for k in K.KERNELS), 0)
+    streams, engines = {}, {}
+    for prec in LM_PRECISIONS:
+        t0 = time.perf_counter()
+        eng = Engine(cfg, params, ServeConfig(max_batch=LM_BATCH,
+                                              max_len=LM_MAX_LEN,
+                                              precision=prec))
+        sync(torch, dev)
+        t_init = time.perf_counter() - t0
+        # warm-up: two short requests through both code paths (first
+        # launches, library handles, the allocator), then zeroed stats
+        for i in range(2):
+            eng.submit(Request(uid=-1 - i, prompt=prompts[i][:prompt[0]],
+                               max_new_tokens=2))
+        eng.run_until_drained()
+        eng.reset_stats()
+        for i, p in enumerate(prompts):
+            eng.submit(Request(uid=i, prompt=p, max_new_tokens=new_tokens))
+        K.reset_launches()
+        t0 = time.perf_counter()
+        done = eng.run_until_drained()
+        wall = time.perf_counter() - t0
+        got = {k.__name__: k.launches for k in K.KERNELS}
+        st = eng.stats
+        statuses = {r.status for r in done}
+        check(len(done) == n_req and statuses == {"ok"},
+              f"lm {prec}: {len(done)} requests, statuses {statuses}")
+        done = sorted(done, key=lambda r: r.uid)
+        check(all(len(r.out_tokens) == new_tokens
+                  and all(0 <= t < cfg.vocab for t in r.out_tokens)
+                  for r in done),
+              f"lm {prec}: a stream is short or holds an id outside the "
+              "vocabulary")
+        check(st["errors"] == st["retries"] == 0,
+              f"lm {prec}: errors={st['errors']} retries={st['retries']}")
+        calls = 3 * cfg.n_layers * (st["prefills"] + st["decode_steps"])
+        want = dict.fromkeys(got, 0)
+        if prec in LM_KERNEL and torch.device(dev).type == "cuda":
+            want[LM_KERNEL[prec]] = calls     # a host run launches nothing
+        check(got == want, f"lm {prec}: launches {got}, "
+                           f"{st['prefills']} prefills and "
+                           f"{st['decode_steps']} decode steps need {want}")
+        for k, v in got.items():
+            launches[k] += v
+        streams[prec] = [r.out_tokens for r in done]
+        ttft = np.percentile([r.ttft_s for r in done], [50, 99])
+        step_ms = 1e3 * eng.metrics.counter("serve.decode_time_s").value \
+            / st["decode_steps"]
+        print(f"[lm] {prec}: {n_req} requests ok, {st['tokens_out']} tokens "
+              f"in {wall:.2f} s ({st['tokens_out'] / wall:.1f} tokens/s "
+              f"end to end; decode_tok_s={st['decode_tok_s']:.1f}), "
+              f"{st['prefills']} prefills, {st['decode_steps']} decode "
+              f"steps at {step_ms:.3f} ms, occupancy "
+              f"{st['occupancy']:.3f}, TTFT p50 {ttft[0]:.4f} s p99 "
+              f"{ttft[1]:.4f} s (over the {n_req} requests), engine init "
+              f"{t_init:.2f} s; launches "
+              f"{ {k: v for k, v in got.items() if v} } on {card}")
+        if prec in ("int8", "w4a8", "float"):
+            engines[prec] = eng
+        del eng
+    for prec in LM_KERNEL:
+        check(streams[prec] == streams[prec + "-torch"],
+              f"lm {prec}: the kernel's token streams differ from the "
+              "plain version's")
+        agree = np.mean([a == b for x, y in zip(streams[prec],
+                                                streams["float"])
+                         for a, b in zip(x, y)])
+        print(f"[lm] {prec}: token streams equal to {prec}-torch's "
+              f"({n_req} x {new_tokens} tokens); {agree:.3f} of tokens "
+              "equal to the float engine's")
+    for prec, eng in engines.items():
+        lm_breakdown(torch, prec, eng, cfg, dev)
+    return launches
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def sync(torch, dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def lm_breakdown(torch, prec, eng, cfg, dev, pos=128, reps=5):
+    """One decode step of all ``LM_BATCH`` slots at position ``pos``: its
+    time (CUDA events), the device time of its kernels (torch.profiler),
+    split into the matmul kernels and everything else, and the idle
+    share."""
+    from repro_torch.models import api
+    cache = api.init_slot_cache(cfg, LM_BATCH, LM_MAX_LEN, device=dev)
+    cache["len"].fill_(pos)
+    tok = torch.zeros((LM_BATCH, 1), dtype=torch.long, device=dev)
+    step = lambda: eng.decode(eng.params, tok, cache)     # noqa: E731
+    step_ms = time_ms(torch, step, reps=reps, trials=3)
+    kernels = device_kernels(torch, step, reps)
+    dev_ms = sum(e.self_device_time_total for e in kernels) / reps / 1e3
+    check(dev_ms > 0, "torch.profiler saw no device time")
+    mm_ms = sum(e.self_device_time_total for e in kernels
+                if any(t in e.key for t in ("matmul_kernel", "epilogue_kernel",
+                                            "Memset"))) / reps / 1e3
+    n_kern = sum(e.count for e in kernels) / reps
+    print(f"[lm-breakdown] {prec}: one decode step, {LM_BATCH} slots at "
+          f"position {pos}: {step_ms:.4f} ms (CUDA events), device busy "
+          f"{dev_ms:.4f} ms in {n_kern:.0f} kernels, of which the port's "
+          f"matmul kernels and their workspace memsets {mm_ms:.4f} ms and "
+          f"the rest {dev_ms - mm_ms:.4f} "
+          f"ms; device idle {1 - dev_ms / step_ms:.3f}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        kernel = e.key.replace("void ", "").replace("at::native::", "")
+        print(f"[lm-breakdown] {prec}   "
+              f"{e.self_device_time_total / reps:9.1f} us "
+              f"x{e.count // reps:4d}  {kernel[:100]}")
+
+
 # ------------------------------------------------------------------- main --
 
 SOURCES = {
@@ -770,6 +1012,10 @@ SOURCES = {
     "add_conv2d_w4": ("add_conv2d_w4",
                       "src/repro_torch/kernels/csrc/conv_add.cu",
                       "src/repro/kernels/conv_add.py:103"),
+    "matmul": ("matmul_q8", "src/repro_torch/kernels/csrc/matmul_q8.cu",
+               "src/repro/kernels/matmul_q8.py:106"),
+    "matmul_w4": ("matmul_w4", "src/repro_torch/kernels/csrc/matmul_q8.cu",
+                  "src/repro/kernels/matmul_q8.py:106"),
 }
 
 
@@ -809,6 +1055,9 @@ def main() -> int:
     for p in SERVED:
         for k, v in phase_serve(torch, K, p, plans[p], card, rng).items():
             launches[k] += v
+    del plans
+    for k, v in phase_lm(torch, K, card, rng).items():
+        launches[k] += v
     check(all(v > 0 for v in launches.values()),
           f"serve: a kernel was never launched: {launches}")
 
@@ -828,8 +1077,10 @@ def main() -> int:
           "operations floor, each summed over that kernel's launches in one "
           "256-image forward of the dws plan (the shift and add plans for "
           "the shift and add kernels; the W4 rows in the W4 plans, bytes "
-          "counting the packed weights); launches are summed over the "
-          f"six served runs; card: {card}")
+          "counting the packed weights), and for matmul_q8 and matmul_w4 "
+          "over the 72 launches of one Qwen2-0.5B decode step at 8 slots "
+          "(library: torch._int_mm); launches are summed over the six "
+          f"served CNN runs and the five LM runs; card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

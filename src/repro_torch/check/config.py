@@ -1,14 +1,27 @@
-"""Serve-config static checks for the CNN engine: every violation of a
+"""Serve-config static checks: every violation of a
+:class:`~repro_torch.serve.engine.ServeConfig` or a
 :class:`~repro_torch.serve.cnn.CNNServeConfig` at once, as a list.
 
-The port's own copy of ``check_cnn_serve_config`` and ``_check_resilience``
-from the JAX package's ``repro/check/config.py``.
+The port's own copy of ``check_serve_config``, ``check_cnn_serve_config``
+and ``_check_resilience`` from the JAX package's ``repro/check/config.py``,
+cut to the knobs the port serves: the paged layout's block-size and pool
+checks are left out with the layout itself (``Engine`` raises
+``NotImplementedError`` for it), and so is the KV budget against a device
+size, which no caller of the port passes. The enums keep the JAX package's
+values, so a JAX ``ServeConfig`` validates the same here; the precisions
+are the port's (``"int8-torch"`` and ``"w4a8-torch"`` where JAX has
+``"int8-xla"``).
 """
 from __future__ import annotations
 
 from typing import List
 
+SCHEDULERS = ("continuous", "static")
 SHED_POLICIES = ("reject", "drop")
+PRECISIONS = ("float", "int8", "int8-torch", "w4a8", "w4a8-torch")
+KV_CACHES = ("float", "int8")
+KV_LAYOUTS = ("contiguous", "paged")
+ATTN_IMPLS = ("full", "flash", "flash_tri")
 
 
 def _check_resilience(scfg, errs: List[str]):
@@ -38,6 +51,44 @@ def _check_resilience(scfg, errs: List[str]):
     rb = getattr(scfg, "retry_backoff_s", 0.0)
     if not isinstance(rb, (int, float)) or rb < 0:
         errs.append(f"retry_backoff_s must be >= 0, got {rb!r}")
+
+
+def check_serve_config(scfg, cfg=None, *, strict: bool = True) -> List[str]:
+    """Every violation of a :class:`~repro_torch.serve.engine.ServeConfig`
+    (optionally against a :class:`~repro_torch.configs.base.ModelConfig`).
+    ``strict=False`` is the subset ``Engine.__init__`` enforces; strict
+    mode also flags a prefill bucket floor above ``max_len``."""
+    errs: List[str] = []
+    for knob, allowed in (("scheduler", SCHEDULERS),
+                          ("precision", PRECISIONS),
+                          ("kv_cache", KV_CACHES),
+                          ("kv_layout", KV_LAYOUTS),
+                          ("attn_impl", ATTN_IMPLS)):
+        v = getattr(scfg, knob)
+        if v not in allowed:
+            errs.append(f"unknown {knob}: {v!r} (choose from {allowed})")
+    for knob in ("max_batch", "max_len", "prefill_bucket"):
+        v = getattr(scfg, knob)
+        if not isinstance(v, int) or v < 1:
+            errs.append(f"{knob} must be a positive int, got {v!r}")
+    if scfg.temperature < 0:
+        errs.append(f"temperature must be >= 0, got {scfg.temperature!r}")
+    _check_resilience(scfg, errs)
+    if scfg.kv_cache == "int8" and scfg.scheduler != "continuous":
+        errs.append("kv_cache='int8' needs scheduler='continuous' (the "
+                    "static path decodes off the float prefill cache)")
+    if cfg is not None:
+        if scfg.precision != "float" and (cfg.family != "dense"
+                                          or cfg.moe is not None):
+            errs.append(f"precision={scfg.precision!r} quantizes dense FFN "
+                        "matmuls; moe/ssm/hybrid/encdec are unsupported")
+        if strict and isinstance(scfg.prefill_bucket, int) \
+                and isinstance(scfg.max_len, int) \
+                and scfg.prefill_bucket > scfg.max_len:
+            errs.append(f"prefill_bucket={scfg.prefill_bucket} exceeds "
+                        f"max_len={scfg.max_len}; every bucket would "
+                        "overflow the per-slot KV capacity")
+    return errs
 
 
 def check_cnn_serve_config(scfg) -> List[str]:

@@ -1,9 +1,10 @@
 """Deterministic fault injection core.
 
 The port's own copy of the JAX package's stdlib-only
-``repro/faults/inject.py``, cut to what the port's serving layer uses: the
-one seam it has (``cnn.batch_round``), the ``raise`` and ``corrupt`` kinds,
-and firing on a window of hit numbers.
+``repro/faults/inject.py``, cut to what the port's serving layer uses: its
+seams (``cnn.batch_round``, ``engine.prefill``, ``engine.decode_round``),
+the ``raise`` and ``corrupt`` kinds, and firing on a window of hit
+numbers.
 
 Fault *sites* are named seams in the hot paths — the instrumented code
 calls :func:`check(site)` at each seam. With no plan active that call is
@@ -40,6 +41,8 @@ from repro_torch.obs import metrics as _obs_metrics
 #: construction-time ValueError, so schedules can't silently rot when a
 #: seam is renamed.
 SITES = frozenset({
+    "engine.prefill",        # LM Engine admission prefill (per attempt)
+    "engine.decode_round",   # LM Engine decode round (per attempt)
     "cnn.batch_round",       # CNNEngine batch round (per attempt)
 })
 

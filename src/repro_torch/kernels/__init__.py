@@ -1,8 +1,9 @@
 """repro_torch.kernels — the port's kernel layer: hand-written CUDA C++
 kernels for Hopper (``csrc/``, built at first launch by ``_build.py``),
 each with a plain PyTorch version and a launch counter, dispatched by
-``ops``. The four weight-carrying convolutions have an int8 mode
-(``*_q8``) and a W4A8 mode (``*_w4``) that reads nibble-packed weights.
+``ops``. The four weight-carrying convolutions and the LM's matmul have an
+int8 mode (``*_q8``) and a W4A8 mode (``*_w4``) that reads nibble-packed
+weights.
 
 Importing this package builds nothing and needs no ``nvcc``."""
 from .conv_add import (add_conv2d_q8, add_conv2d_q8_plain, add_conv2d_w4,
@@ -13,12 +14,14 @@ from .conv_im2col import (conv2d_q8, conv2d_q8_plain, conv2d_w4,
                           conv2d_w4_plain)
 from .conv_shift import (shift_conv2d_q8, shift_conv2d_q8_plain,
                          shift_conv2d_w4, shift_conv2d_w4_plain)
+from .matmul_q8 import (matmul_q8, matmul_q8_plain, matmul_w4,
+                        matmul_w4_plain)
 from .pool import maxpool2d_plain, maxpool2d_s8
 
 #: the wrappers that carry a ``launches`` counter
 KERNELS = (conv2d_q8, depthwise2d_q8, maxpool2d_s8, shift_conv2d_q8,
            add_conv2d_q8, conv2d_w4, depthwise2d_w4, shift_conv2d_w4,
-           add_conv2d_w4)
+           add_conv2d_w4, matmul_q8, matmul_w4)
 
 
 def reset_launches():
@@ -31,6 +34,7 @@ __all__ = ["KERNELS", "add_conv2d_q8", "add_conv2d_q8_plain",
            "add_conv2d_w4", "add_conv2d_w4_plain", "conv2d_q8",
            "conv2d_q8_plain", "conv2d_w4", "conv2d_w4_plain",
            "depthwise2d_q8", "depthwise2d_q8_plain", "depthwise2d_w4",
-           "depthwise2d_w4_plain", "maxpool2d_plain", "maxpool2d_s8",
+           "depthwise2d_w4_plain", "matmul_q8", "matmul_q8_plain",
+           "matmul_w4", "matmul_w4_plain", "maxpool2d_plain", "maxpool2d_s8",
            "reset_launches", "shift_conv2d_q8", "shift_conv2d_q8_plain",
            "shift_conv2d_w4", "shift_conv2d_w4_plain"]

@@ -26,7 +26,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("conv_im2col.cu", "conv_dw.cu", "pool.cu", "conv_shift.cu",
-           "conv_add.cu")
+           "conv_add.cu", "matmul_q8.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -43,6 +43,8 @@ SIGNATURES = {
     "repro_depthwise2d_w4": (_P,) * 4 + (_I,) * 7 + (_P,),
     "repro_shift_conv2d_w4": (_P,) * 6 + (_I,) * 7 + (_P,),
     "repro_add_conv2d_w4": (_P,) * 5 + (_I,) * 10 + (_P,),
+    "repro_matmul_q8": (_P,) * 4 + (_I,) * 7 + (_P,),
+    "repro_matmul_w4": (_P,) * 5 + (_I,) * 7 + (_P,),
 }
 
 

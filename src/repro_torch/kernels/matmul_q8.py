@@ -1,0 +1,159 @@
+"""int8 and W4A8 matmul with the Algorithm-1 epilogue: the CUDA kernel
+wrappers, their plain PyTorch versions and their launch counters.
+
+Replaces the TPU kernel ``repro/kernels/matmul_q8.py`` (``matmul`` /
+``_matmul``) in its int8 and W4 modes; the source is ``csrc/matmul_q8.cu``.
+The LM's integer FFN (``models/blocks.qmlp``) runs its three projections
+through it. What bounds it on an H100: at decode (8 rows) each launch reads
+one whole 896x4864 weight, 4.36 MB in int8 and 2.18 MB in W4, for 70 M
+operations, so device-memory bytes set the floor (about 1.3 us and 0.65 us
+at 3.35 TB/s); the design and its distance from that floor are in the
+source's header and in PERF.md.
+
+Both modes take ``a`` (M, K) int8 codes; :func:`matmul_q8` takes ``b`` (K,
+N) int8, :func:`matmul_w4` takes ``b`` nibble-packed along K, (ceil(K/2),
+N), with one int8 group shift per K element (``core.quantize.QTensorW4``'s
+``q`` and ``shifts``). Each returns (M, N) int8: the exact int32 products,
+relu at accumulator scale if asked, ``rshift_round(requant_shift)`` and a
+clip to int8.
+
+The plain versions contract in int32 on the host and in float64 on a card,
+which has no int32 matmul; float64 is exact here, since |sum| <=
+K * 128 * 128 < 2^31 < 2^53 for every K the wrappers accept.
+
+On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
+launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from repro_torch.core.quantize import expand_w4
+
+from ._build import check_launch, library
+from .common import apply_act, apply_requant
+from .conv_im2col import (MAX_CONTRACTION, check_act, check_cuda_operand,
+                          check_elements, check_shift, check_w4)
+
+#: output columns per block and K elements per stage (csrc/matmul_q8.cu)
+BLOCK_N, BLOCK_K = 256, 32
+#: blocks per SM the K split aims for
+SPLIT_DEPTH = 4
+
+
+def _contract(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact int32 ``a @ b`` of two int8 (or int8-valued) operands."""
+    if a.device.type == "cpu":
+        return torch.mm(a.to(torch.int32), b.to(torch.int32))
+    return torch.mm(a.to(torch.float64), b.to(torch.float64)).to(torch.int32)
+
+
+def matmul_q8_plain(a, b, *, requant_shift: int = 0, act=None):
+    """Plain PyTorch version: exact int32 contraction, the common
+    epilogue."""
+    acc = apply_act(_contract(a, b), act)
+    return apply_requant(acc, requant_shift).to(torch.int8)
+
+
+def matmul_w4_plain(a, b_p, w_shifts, *, requant_shift: int = 0, act=None):
+    """Plain W4 version: the weight codes expanded (``expand_w4`` along K),
+    then :func:`matmul_q8_plain` unchanged."""
+    b = expand_w4(b_p, w_shifts, a.shape[-1], 0)
+    return matmul_q8_plain(a, b, requant_shift=requant_shift, act=act)
+
+
+def split_plan(m: int, k: int, n: int, sms: int):
+    """``(splits, steps_per_split)``: how many K ranges the kernel's grid
+    runs in parallel (gridDim.z) and how many 32-deep K stages each takes.
+    A product whose output tiles fill the card runs unsplit; a decode-shaped
+    one (8 rows, 19 or 4 column tiles) is split until the grid holds about
+    ``SPLIT_DEPTH`` blocks per SM. Every split range is non-empty."""
+    bm = 16 if m <= 32 else 64           # the kernel's tile rows
+    tiles = -(-m // bm) * -(-n // BLOCK_N)
+    steps = -(-k // BLOCK_K)
+    if steps == 0 or tiles == 0:
+        return 1, 1
+    splits = max(1, min(steps, -(-SPLIT_DEPTH * sms // tiles)))
+    per = -(-steps // splits)
+    return -(-steps // per), per
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _check_mm(name, a, k, n_rows_b, n, requant_shift, act):
+    if a.dim() != 2:
+        raise ValueError(f"{name}: a must be (M, K), got {tuple(a.shape)}")
+    if a.shape[1] != k:
+        raise ValueError(f"{name}: a {tuple(a.shape)} and b of K={k} do "
+                         "not contract")
+    if k > MAX_CONTRACTION:
+        raise ValueError(f"{name}: K={k} could overflow the int32 "
+                         "accumulator")
+    check_shift(name, requant_shift)
+    check_act(name, act)
+    check_elements(name, a.shape, (n_rows_b, n), (a.shape[0], n))
+
+
+def _launch(name, fn, a, operands, n, requant_shift, act):
+    """Allocate the output (and the split workspace) and launch ``fn``."""
+    m, k = a.shape
+    splits, per = split_plan(m, k, n, _sm_count(a.device.index or 0))
+    y = torch.empty((m, n), dtype=torch.int8, device=a.device)
+    part = (torch.empty((m, n), dtype=torch.int32, device=a.device)
+            if splits > 1 else None)
+    with torch.cuda.device(a.device):
+        rc = fn(a.data_ptr(), *(t.data_ptr() for t in operands),
+                None if part is None else part.data_ptr(), y.data_ptr(),
+                m, k, n, splits, per, requant_shift, int(act == "relu"),
+                torch.cuda.current_stream().cuda_stream)
+    check_launch(name, rc)
+    return y
+
+
+def matmul_q8(a, b, *, requant_shift: int = 0, act=None):
+    """a (M,K) int8 @ b (K,N) int8 -> (M,N) int8."""
+    if b.dim() != 2:
+        raise ValueError(f"matmul_q8: b must be (K, N), got "
+                         f"{tuple(b.shape)}")
+    k, n = b.shape
+    _check_mm("matmul_q8", a, k, k, n, requant_shift, act)
+    if a.device.type == "cpu":
+        return matmul_q8_plain(a, b, requant_shift=requant_shift, act=act)
+    for t in (a, b):
+        check_cuda_operand("matmul_q8", t, a.device, torch.int8)
+    y = _launch("matmul_q8", library().repro_matmul_q8, a, (b,), n,
+                requant_shift, act)
+    matmul_q8.launches += 1
+    return y
+
+
+matmul_q8.launches = 0
+
+
+def matmul_w4(a, b_p, w_shifts, *, requant_shift=None, act=None):
+    """a (M,K) int8 @ b_p (ceil(K/2),N) int8 nibble-packed along K, with
+    w_shifts (K,) int8 -> (M,N) int8."""
+    if a.dim() != 2 or b_p.dim() != 2:
+        raise ValueError(f"matmul_w4: a and b must be 2-D, got "
+                         f"{tuple(a.shape)} and {tuple(b_p.shape)}")
+    k = a.shape[1]
+    check_w4("matmul_w4", b_p, 0, k, w_shifts, requant_shift)
+    n = b_p.shape[1]
+    _check_mm("matmul_w4", a, k, b_p.shape[0], n, requant_shift, act)
+    if a.device.type == "cpu":
+        return matmul_w4_plain(a, b_p, w_shifts, requant_shift=requant_shift,
+                               act=act)
+    for t in (a, b_p, w_shifts):
+        check_cuda_operand("matmul_w4", t, a.device, torch.int8)
+    y = _launch("matmul_w4", library().repro_matmul_w4, a, (b_p, w_shifts),
+                n, requant_shift, act)
+    matmul_w4.launches += 1
+    return y
+
+
+matmul_w4.launches = 0

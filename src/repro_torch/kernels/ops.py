@@ -14,8 +14,9 @@ fails to build or launch raises. The int8 and W4A8 modes are ported: a
 call with ``w_shifts`` takes nibble-packed weights (``core.quantize.
 QTensorW4``'s ``q`` and ``shifts``) and runs the W4 kernel or its plain
 version; W4 has no float mode, so it needs ``requant_shift``. The float
-modes run their plain version on the host and raise on a card under
-``"cuda"`` (ROADMAP.md, queue B).
+modes (the convolutions', the pool's and ``matmul``'s) run their plain
+version on the host and raise on a card under ``"cuda"`` (ROADMAP.md,
+queue B).
 
 Every call counts into the process metrics registry as
 ``kernels.dispatch.<kernel>.<method>``.
@@ -33,6 +34,7 @@ from .conv_add import add_conv2d_q8, add_conv2d_w4
 from .conv_dw import depthwise2d_q8, depthwise2d_w4
 from .conv_im2col import conv2d_q8, conv2d_w4
 from .conv_shift import shift_conv2d_q8, shift_conv2d_w4
+from .matmul_q8 import matmul_q8, matmul_w4
 from .pool import maxpool2d_s8
 
 METHODS = ("cuda", "torch")
@@ -182,3 +184,33 @@ def maxpool2d(x, *, window: int = 2, stride: Optional[int] = None,
     if method == "torch":
         return ref.maxpool2d_ref(x, window=window, stride=stride)
     return maxpool2d_s8(x, window=window, stride=stride)
+
+
+def matmul(a, b, *, method: str = "cuda", requant_shift: Optional[int] = None,
+           act: Optional[str] = None, w_shifts=None):
+    """``a`` (M,K) or (B,M,K) @ ``b`` (K,N): int8 codes with
+    ``requant_shift`` (the kernel, or its plain version), or floats (plain
+    version only). A 3-D ``a`` folds its batch into M, so one launch covers
+    the whole batch. With ``w_shifts``, ``b`` is packed W4 along K,
+    (ceil(K/2), N)."""
+    _check_method(method)
+    _count_dispatch("matmul", method)
+    if a.dim() == 3:
+        nb, m, k = a.shape
+        out = _matmul(a.reshape(nb * m, k), b, method, requant_shift, act,
+                      w_shifts)
+        return out.reshape(nb, m, out.shape[-1])
+    return _matmul(a, b, method, requant_shift, act, w_shifts)
+
+
+def _matmul(a, b, method, requant_shift, act, w_shifts):
+    if w_shifts is not None:
+        _check_w4("matmul", a, requant_shift)
+        kernel = ref.matmul_w4_ref if method == "torch" else matmul_w4
+        return kernel(a, b, w_shifts, requant_shift=requant_shift, act=act)
+    if requant_shift is None:
+        _float_mode("matmul", a, method)
+        return ref.matmul_ref(a, b, act=act)
+    if method == "torch":
+        return ref.matmul_ref(a, b, requant_shift=requant_shift, act=act)
+    return matmul_q8(a, b, requant_shift=requant_shift, act=act)

@@ -11,6 +11,8 @@ for add-conv.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.core import primitives as P
 
 from .common import apply_act
@@ -22,11 +24,14 @@ from .conv_im2col import conv2d_q8_plain as conv2d_q8_ref
 from .conv_im2col import conv2d_w4_plain as conv2d_w4_ref
 from .conv_shift import shift_conv2d_q8_plain as shift_conv2d_q8_ref
 from .conv_shift import shift_conv2d_w4_plain as shift_conv2d_w4_ref
+from .matmul_q8 import matmul_q8_plain
+from .matmul_q8 import matmul_w4_plain as matmul_w4_ref
 from .pool import maxpool2d_plain as maxpool2d_ref
 
 __all__ = ["add_conv2d_ref", "add_conv2d_q8_ref", "add_conv2d_w4_ref",
            "conv2d_ref", "conv2d_q8_ref", "conv2d_w4_ref", "depthwise2d_ref",
-           "depthwise2d_q8_ref", "depthwise2d_w4_ref", "maxpool2d_ref",
+           "depthwise2d_q8_ref", "depthwise2d_w4_ref", "matmul_ref",
+           "matmul_w4_ref", "maxpool2d_ref",
            "shift_conv2d_ref", "shift_conv2d_q8_ref", "shift_conv2d_w4_ref"]
 
 
@@ -50,3 +55,14 @@ def shift_conv2d_ref(x, shifts, w_pw, *, max_shift=None, act=None):
 
 def add_conv2d_ref(x, w, *, act=None):
     return apply_act(P.add_conv(x, w), act)
+
+
+def matmul_ref(a, b, *, requant_shift=None, act=None):
+    """``a @ b``. With ``requant_shift``: int8 codes, exact int32 sums and
+    the common epilogue (:func:`~repro_torch.kernels.matmul_q8.
+    matmul_q8_plain`). Without: the float product, accumulated in float32
+    and returned in ``a``'s dtype, as the JAX oracle does."""
+    if requant_shift is not None:
+        return matmul_q8_plain(a, b, requant_shift=requant_shift, act=act)
+    y = torch.matmul(a.to(torch.float32), b.to(torch.float32))
+    return apply_act(y, act).to(a.dtype)

@@ -4,8 +4,8 @@ The port's own copy of the JAX package's stdlib-only ``repro/obs/metrics.py``
 (the port imports nothing of that package), cut to what the port uses. A
 :class:`Registry` is a thread-safe, name-keyed collection of instruments.
 :data:`REGISTRY` is the process-wide default that the kernel dispatch layer
-and the fault seams count into; each ``CNNEngine`` owns a private
-``Registry`` so its ``stats`` stay isolated across engine instances
+and the fault seams count into; each ``CNNEngine`` and LM ``Engine`` owns a
+private ``Registry`` so its ``stats`` stay isolated across engine instances
 (``reset`` zeroes values in place, so handles held by an engine stay live).
 
 Histograms use fixed bucket boundaries (default: 1-2-5 log-spaced seconds
@@ -40,6 +40,28 @@ class Counter:
             raise ValueError(f"counter {self.name}: negative increment {n}")
         with self._lock:
             self._v += n
+
+    @property
+    def value(self) -> float:
+        return self._v
+
+    def reset(self):
+        with self._lock:
+            self._v = 0.0
+
+
+class Gauge:
+    """Last-write-wins value (e.g. the LM engine's block-pool gauges)."""
+    __slots__ = ("name", "_lock", "_v")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._lock = threading.Lock()
+        self._v = 0.0
+
+    def set(self, v: Union[int, float]):
+        with self._lock:
+            self._v = float(v)
 
     @property
     def value(self) -> float:
@@ -146,6 +168,9 @@ class Registry:
 
     def counter(self, name: str) -> Counter:
         return self._get_or_create(name, Counter)
+
+    def gauge(self, name: str) -> Gauge:
+        return self._get_or_create(name, Gauge)
 
     def histogram(self, name: str,
                   buckets: Optional[Sequence[float]] = None) -> Histogram:

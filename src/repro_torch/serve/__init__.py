@@ -1,5 +1,8 @@
-"""repro_torch.serve — the CNN microbatching engine (port of
-``repro/serve/cnn.py``)."""
-from .cnn import CNNEngine, CNNServeConfig, ImageRequest, QueueFullError
+"""repro_torch.serve — the CNN microbatching engine and the continuous-
+batching LM engine (ports of ``repro/serve/cnn.py`` and
+``repro/serve/engine.py``)."""
+from .cnn import CNNEngine, CNNServeConfig, ImageRequest
+from .engine import Engine, QueueFullError, Request, ServeConfig
 
-__all__ = ["CNNEngine", "CNNServeConfig", "ImageRequest", "QueueFullError"]
+__all__ = ["CNNEngine", "CNNServeConfig", "Engine", "ImageRequest",
+           "QueueFullError", "Request", "ServeConfig"]

@@ -41,11 +41,7 @@ from repro_torch.faults import inject as faults
 from repro_torch.graph.executor import CompiledPlan
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
-
-
-class QueueFullError(RuntimeError):
-    """Raised by :meth:`CNNEngine.submit` under ``shed_policy="reject"``
-    when the queue already holds ``max_queue`` requests."""
+from repro_torch.serve.engine import QueueFullError
 
 
 @dataclasses.dataclass

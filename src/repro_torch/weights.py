@@ -1,6 +1,6 @@
 """State carried into the port as plain numpy data.
 
-Both functions take numpy arrays and Python scalars only, so the port
+Every function takes numpy arrays and Python scalars only, so the port
 never touches an object of another framework: a caller converts the
 other side's state leaf by leaf (``np.asarray``) first.
 """
@@ -42,13 +42,18 @@ def _w4_leaf(v: dict, dev) -> QTensorW4:
     """A W4 leaf's plain data -> QTensorW4 on ``dev``, checked on the host
     once: int8 bytes of extent ceil(size/2) along ``axis``, and ``size``
     int8 group shifts in [0, W4_MAX_GROUP_SHIFT] (the kernels read them
-    from the device and never check them per call)."""
+    from the device and never check them per call). A layer-stacked leaf
+    carries one more leading axis on both arrays; ``axis`` and ``size``
+    then describe one layer's slice."""
     q, shifts = np.asarray(v["q"]), np.asarray(v["shifts"])
     size, axis = int(v["size"]), int(v["axis"])
+    lead = shifts.ndim - 1                   # 1 for a layer-stacked leaf
     if q.dtype != np.int8 or shifts.dtype != np.int8:
         raise TypeError(f"W4 bytes and shifts must be int8, got {q.dtype} "
                         f"and {shifts.dtype}")
-    if q.shape[axis] != (size + 1) // 2 or shifts.shape != (size,):
+    if lead not in (0, 1) or q.shape[lead + axis] != (size + 1) // 2 \
+            or shifts.shape[lead:] != (size,) \
+            or q.shape[:lead] != shifts.shape[:lead]:
         raise ValueError(f"W4 leaf: bytes {q.shape} and shifts "
                          f"{shifts.shape} do not fit size {size} along "
                          f"axis {axis}")
@@ -101,3 +106,28 @@ def plan_from_numpy(nodes, in_fb: int, device="cuda") -> Plan:
             in_fb=nd.get("in_fb"), out_fb=nd.get("out_fb"),
             act=nd.get("act"), attrs=dict(nd.get("attrs") or {})))
     return Plan(tuple(out), int(in_fb))
+
+
+#: the keys of a W4 leaf's plain data
+W4_KEYS = frozenset({"q", "shifts", "frac_bits", "size", "axis"})
+
+
+def lm_params_from_numpy(tree, device="cuda"):
+    """An LM parameter tree of numpy arrays (the JAX package's
+    ``init_params`` layout, layer-stacked) -> the same tree of tensors on
+    ``device``, dtypes kept. A quantized FFN tree may ride along under
+    ``tree["layers"]["qmlp"]``: an int8 weight as an ``(int8 codes,
+    frac_bits)`` pair, a W4 weight as a ``{"q", "shifts", "frac_bits",
+    "size", "axis"}`` dict (stacked or not), checked as
+    :func:`plan_from_numpy` checks them."""
+    dev = resolve_device(device)
+
+    def conv(t):
+        if isinstance(t, dict) and W4_KEYS <= set(t):
+            return _w4_leaf(t, dev)
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        if isinstance(t, tuple):
+            return _qparam(t, dev)
+        return _tensor(t, dev)
+    return conv(tree)

@@ -223,3 +223,90 @@ def test_w4_plan_cuda_trunk_equals_torch_trunk(dev, prim):
     assert torch.equal(tc.q, tt.q)
     assert not any(name.endswith("_q8") for name in launched), launched
     assert any(name.endswith("_w4") for name in launched), launched
+
+
+MATMUL_SHAPES = [(8, 896, 4864), (8, 4864, 896), (64, 896, 4864),
+                 (5, 45, 37), (13, 33, 37), (70, 128, 64), (1, 1, 1)]
+
+
+@pytest.mark.parametrize("shape", MATMUL_SHAPES, ids=str)
+@pytest.mark.parametrize("shift,act", [(-2, None), (7, "relu"),
+                                       (12, None)])
+def test_matmul_q8_kernel_equals_plain(dev, shape, shift, act):
+    from repro_torch.kernels import matmul_q8, matmul_q8_plain
+    m, k, n = shape
+    rng = np.random.default_rng(10)
+    a, b = _i8(rng, (m, k), dev), _i8(rng, (k, n), dev)
+    before = matmul_q8.launches
+    got = matmul_q8(a, b, requant_shift=shift, act=act)
+    torch.cuda.synchronize()
+    assert matmul_q8.launches == before + 1
+    assert torch.equal(got, matmul_q8_plain(a, b, requant_shift=shift,
+                                            act=act))
+
+
+@pytest.mark.parametrize("shape", MATMUL_SHAPES, ids=str)
+@pytest.mark.parametrize("all_max", [False, True])
+def test_matmul_w4_kernel_equals_plain(dev, shape, all_max):
+    from repro_torch.kernels import matmul_w4, matmul_w4_plain
+    m, k, n = shape
+    rng = np.random.default_rng(11)
+    a = _i8(rng, (m, k), dev)
+    wp, ws = _w4(rng, (k, n), 0, dev, all_max)
+    before = matmul_w4.launches
+    got = matmul_w4(a, wp, ws, requant_shift=9, act="relu")
+    torch.cuda.synchronize()
+    assert matmul_w4.launches == before + 1
+    assert torch.equal(got, matmul_w4_plain(a, wp, ws, requant_shift=9,
+                                            act="relu"))
+
+
+def test_matmul_q8_unaligned_a_takes_the_bytewise_path(dev):
+    """A contiguous ``a`` that starts off a 4-byte boundary is read byte by
+    byte, with the same result."""
+    from repro_torch.kernels import matmul_q8, matmul_q8_plain
+    rng = np.random.default_rng(12)
+    buf = _i8(rng, (8 * 64 + 1,), dev)
+    a = buf[1:].view(8, 64)
+    b = _i8(rng, (64, 96), dev)
+    got = matmul_q8(a, b, requant_shift=8)
+    torch.cuda.synchronize()
+    assert torch.equal(got, matmul_q8_plain(a, b, requant_shift=8))
+
+
+@pytest.mark.parametrize("precision", ["int8", "w4a8"])
+def test_engine_kernel_streams_equal_plain_streams(dev, precision):
+    """A tiny Qwen2 served on the card: the kernel precision's greedy
+    token streams equal the plain versions', and the FFN launched only
+    its own matmul kernel."""
+    import dataclasses
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.serve import Engine, Request, ServeConfig
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"), n_layers=2,
+                              d_model=64, n_heads=4, n_kv_heads=2, d_ff=160,
+                              vocab=96)
+    params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, 96, (n,)).astype(np.int32)
+               for n in (5, 19, 9, 3)]
+    streams = {}
+    for prec in (precision, precision + "-torch"):
+        eng = Engine(cfg, params, ServeConfig(max_batch=2, max_len=48,
+                                              precision=prec))
+        for i, p in enumerate(prompts):
+            eng.submit(Request(uid=i, prompt=p, max_new_tokens=6))
+        kernels.reset_launches()
+        done = sorted(eng.run_until_drained(), key=lambda r: r.uid)
+        assert [r.status for r in done] == ["ok"] * 4
+        streams[prec] = [r.out_tokens for r in done]
+        launched = {k.__name__: k.launches for k in kernels.KERNELS
+                    if k.launches}
+        st = eng.stats
+        calls = 3 * cfg.n_layers * (st["prefills"] + st["decode_steps"])
+        want = {} if prec.endswith("-torch") else {
+            "matmul_q8" if precision == "int8" else "matmul_w4": calls}
+        assert launched == want
+    assert streams[precision] == streams[precision + "-torch"]
