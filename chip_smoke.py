@@ -7,8 +7,9 @@ Phases, one line each, any failure exits non-zero:
 
 1. device   — a CUDA card is present; its name and power limit.
 2. build    — the CUDA kernels built from ``src/repro_torch/kernels/csrc``.
-3. kernels  — each of the eleven kernel entry points (six int8, five W4)
-              held bitwise against its plain PyTorch version at every
+3. kernels  — each of the twelve kernel entry points (six int8, five W4,
+              and the float causal_conv1d) held bitwise against its plain
+              PyTorch version at every
               shape of the dws, standard, shift and add plans at B=256, a
               groups=2 conv, odd and even-HK shapes, shift tables with
               |shift| up to 2 and with every channel on one shift, add
@@ -21,7 +22,13 @@ Phases, one line each, any failure exits non-zero:
               8x4864x896), prefill shapes (32, 64 and 128 x896x4864,
               64x4864x896) and ragged ones
               (K = 45, 33 and 4864 with N = 37, M = 5, 13 and 70), requant
-              shifts -2 to 16; per main-path shape the kernel's time, its
+              shifts -2 to 16; causal_conv1d at Falcon-Mamba's prefill
+              shapes (1 x L x 8192 bf16 for L = 16, 33, 96 and 256, and
+              8 x 64 x 8192), in float32, at D = 100 with K 1, 2 and 4 and
+              relu on and off, with (K,1,D) weights, and its backward (dx
+              bitwise against flip-plain-flip, dw against the plain
+              reduction, both within 1e-5 of autograd through the plain
+              version); per main-path shape the kernel's time, its
               bound, the plain version's time and one PyTorch call's time
               as a yardstick (device times from torch.profiler, TF32 off),
               and the time of back-to-back wrapper calls.
@@ -53,6 +60,19 @@ Phases, one line each, any failure exits non-zero:
               per prefill and per decode step and no other kernel; tokens/s,
               decode-step ms and TTFT per precision (after a two-request
               warm-up of each engine), and one decode step's device
+              breakdown.
+7. ssm      — Falcon-Mamba-7B at full width and depth (64 layers, d_model
+              4096, d_inner 8192, d_state 16, d_conv 4, dt_rank 256, vocab
+              65,024; 7.27 B parameters), seeded random weights made on the
+              card after phase 6's model is freed, served by
+              Engine(max_batch=8, max_len=256) in "float": 16 requests,
+              prompts of 16-96 tokens each prefilled at its exact length,
+              32 new tokens each, greedy, after a two-request warm-up;
+              every status ok, causal_conv1d launched exactly 64 times per
+              prefill and never in a decode step, no other kernel;
+              mamba_forward with the kernel bitwise equal to the plain
+              version on three layers at a served prompt; tokens/s,
+              decode-step ms, TTFT p50/p99 and one decode step's device
               breakdown.
 
 The second-to-last line is a JSON object with one entry per kernel; the
@@ -107,9 +127,22 @@ LM_BATCH, LM_MAX_LEN, LM_REQUESTS, LM_NEW = 8, 256, 24, 32
 LM_PROMPT = (16, 96)
 #: each kernel precision's matmul entry point; 3 FFN matmuls per layer
 LM_KERNEL = {"int8": "matmul_q8", "w4a8": "matmul_w4"}
+#: phase 7: the served ssm model and its traffic (prompts as in phase 6)
+SSM_ARCH = "falcon-mamba-7b"
+SSM_REQUESTS = 16
+#: mamba_forward layers held kernel against plain version at full width
+SSM_CHECK_LAYERS = 3
+#: phase 3: causal_conv1d at Falcon-Mamba's prefill shapes (B, L), bf16,
+#: d_inner 8192, K=4; the L=96 row (the longest served prompt) is summed
+#: over one prefill's 64 launches into the kernel's JSON row
+C1D_SHAPES = ((1, 16), (1, 33), (1, 96), (1, 256), (8, 64))
+C1D_WIDTH, C1D_TAPS, C1D_SUMMED = 8192, 4, (1, 96)
+C1D_PER_PREFILL = 64           # Falcon-Mamba-7B's layers
 
-# Published dense peaks (NVIDIA data sheets): HBM bytes/s and int8 ops/s.
+# Published dense peaks (NVIDIA data sheets): HBM bytes/s and int8 ops/s;
+# float32 outside the tensor cores (causal_conv1d's multiply-adds).
 PEAKS = {"SXM": (3.35e12, 1979e12), "PCIe": (2.0e12, 1513e12)}
+F32_PEAKS = {"SXM": 67e12, "PCIe": 51e12}
 #: int32 lanes per SM (Hopper: 64 INT32 units per SM), for add-conv's bound
 INT32_LANES_PER_SM = 64
 
@@ -582,8 +615,12 @@ def phase_kernels(torch, K, dev, name, rng):
           f"{int8_rate / 1e12:.0f} T ops/s (tensor cores); add-conv's "
           f"|x - w| accumulates / {i32_text}")
     rates = {"int8": int8_rate, "int32": i32_rate}
+    f32_rate = F32_PEAKS["PCIe" if "PCIe" in name else "SXM"]
     with exact_float32():      # the float32 yardsticks run without TF32
-        return _phase_kernels(torch, K, dev, rng, bw, rates)
+        per_kernel = _phase_kernels(torch, K, dev, rng, bw, rates)
+        per_kernel["causal_conv1d"] = phase_conv1d(torch, K, dev, rng, bw,
+                                                   f32_rate)
+    return per_kernel
 
 
 def _phase_kernels(torch, K, dev, rng, bw, rates):
@@ -636,6 +673,134 @@ def _phase_kernels(torch, K, dev, rng, bw, rates):
         print(f"[kernels] {kernel}: {row['shapes']} shapes bitwise equal to "
               f"the plain version")
     return per_kernel
+
+
+def _bits(torch, t):
+    """A float tensor's bit pattern, for bitwise comparison."""
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def conv1d_cases(torch, dev, rng):
+    """(label, timed, x, w, act) of every causal_conv1d comparison: the
+    model's prefill shapes in bfloat16 (timed), then float32, D=100 with
+    K in {1, 2, 4} and relu on and off, ragged L and (K,1,D) weights
+    (bitwise only)."""
+    def f(shape, dtype=torch.bfloat16):
+        return torch.from_numpy(rng.standard_normal(shape).astype("float32")
+                                ).to(dev).to(dtype)
+    for b, l in C1D_SHAPES:
+        yield (f"bf16 {b}x{l}x{C1D_WIDTH} K={C1D_TAPS}", True,
+               f((b, l, C1D_WIDTH)), f((C1D_TAPS, C1D_WIDTH)), None)
+    yield (f"f32 1x96x{C1D_WIDTH} K=4", False,
+           f((1, 96, C1D_WIDTH), torch.float32),
+           f((4, C1D_WIDTH), torch.float32), None)
+    for k in (1, 2, 4):
+        for act in (None, "relu"):
+            for dtype in (torch.float32, torch.bfloat16):
+                yield (f"{str(dtype)[6:]} 3x45x100 K={k} act={act}", False,
+                       f((3, 45, 100), dtype), f((k, 100), dtype), act)
+    yield ("bf16 2x2x100 K=4 (L < K)", False, f((2, 2, 100)), f((4, 100)),
+           None)
+    yield ("bf16 2x70x96 (K,1,D) weights relu", False, f((2, 70, 96)),
+           f((4, 1, 96)), "relu")
+
+
+def phase_conv1d(torch, K, dev, rng, bw, f32_rate):
+    """Phase 3 for causal_conv1d: bitwise against its plain version at
+    every case, times at the model's shapes, then the backward."""
+    import torch.nn.functional as F
+    row = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+               library_ms=0.0, bytes_ms=0.0, ops_ms=0.0, shapes=0)
+    for label, timed, x, w, act in conv1d_cases(torch, dev, rng):
+        got = K.causal_conv1d(x, w, act=act)
+        want = K.causal_conv1d_plain(x, w, act=act)
+        torch.cuda.synchronize()
+        check(got.dtype == want.dtype == x.dtype and got.shape == x.shape,
+              f"causal_conv1d {label}: kernel {got.dtype}{tuple(got.shape)} "
+              f"vs plain {want.dtype}{tuple(want.shape)}")
+        err = float((got.float() - want.float()).abs().max())
+        check(torch.equal(_bits(torch, got), _bits(torch, want)),
+              f"causal_conv1d {label}: kernel differs from its plain "
+              f"version, max |diff| = {err}")
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["shapes"] += 1
+        if not timed:
+            continue
+        b, l, d = x.shape
+        k = w.shape[0]
+        nbytes = (2 * b * l * d + k * d) * x.element_size()
+        bytes_ms = 1e3 * nbytes / bw
+        ops_ms = 1e3 * 2 * k * b * l * d / f32_rate
+        # yardstick: cuDNN's depthwise conv1d (groups=D) on channel-major
+        # copies left-padded by K-1, made before timing
+        xt = F.pad(x.transpose(1, 2).contiguous(), (k - 1, 0))
+        wt = w.t().contiguous()[:, None, :]
+        lib = lambda: F.conv1d(xt, wt, groups=d)      # noqa: E731
+        lib_err = float((lib().transpose(1, 2).float() - want.float())
+                        .abs().max())
+        check(lib_err <= 0.05, f"causal_conv1d {label}: the library call "
+                               f"computes another function ({lib_err})")
+        t_k = device_ms(torch, lambda: K.causal_conv1d(x, w, act=act))
+        t_p = device_ms(torch, lambda: K.causal_conv1d_plain(x, w, act=act),
+                        reps=5)
+        t_l = device_ms(torch, lib)
+        call = time_ms(torch, lambda: K.causal_conv1d(x, w, act=act))
+        bound = max(bytes_ms, ops_ms)
+        print(f"[kernels] causal_conv1d {label:26s} bitwise ok  kernel "
+              f"{t_k:.4f} ms  bound {bound:.5f} ms "
+              f"({'bytes' if bytes_ms >= ops_ms else 'operations'})  plain "
+              f"{t_p:.4f} ms  library {t_l:.4f} ms  (device times; "
+              f"back-to-back wrapper calls {call:.4f} ms each)")
+        if (b, l) == C1D_SUMMED:       # one prefill: a launch per layer
+            n = C1D_PER_PREFILL
+            row["ms"], row["plain_ms"] = n * t_k, n * t_p
+            row["bound_ms"], row["library_ms"] = n * bound, n * t_l
+            row["bytes_ms"], row["ops_ms"] = n * bytes_ms, n * ops_ms
+    conv1d_backward(torch, K, dev, rng)
+    print(f"[kernels] causal_conv1d: {row['shapes']} shapes bitwise equal to "
+          "the plain version")
+    return row
+
+
+def conv1d_backward(torch, K, dev, rng, shape=(2, 96, C1D_WIDTH)):
+    """The differentiable entry point's backward on the card: dx bitwise
+    equal to flip-plain-flip, dw to the plain reduction (the ``"torch"``
+    method's), and in float32 both within 1e-5 (relative to the largest
+    magnitude) of autograd through the plain version."""
+    from repro_torch.kernels import ops
+    for dtype in (torch.bfloat16, torch.float32):
+        def f(s):
+            return torch.from_numpy(rng.standard_normal(s).astype("float32")
+                                    ).to(dev).to(dtype)
+        x = f(shape).requires_grad_()
+        w = f((C1D_TAPS, shape[2])).requires_grad_()
+        g = f(shape)
+        gx, gw = torch.autograd.grad(ops.causal_conv1d(x, w), (x, w), g)
+        flip = torch.flip(K.causal_conv1d_plain(torch.flip(g, [1]),
+                                                w.detach()), [1])
+        _, pw = torch.autograd.grad(ops.causal_conv1d(x, w, method="torch"),
+                                    (x, w), g)
+        torch.cuda.synchronize()
+        name = str(dtype)[6:]
+        check(torch.equal(_bits(torch, gx), _bits(torch, flip)),
+              f"causal_conv1d backward {name}: dx differs from "
+              "flip-plain-flip")
+        check(torch.equal(_bits(torch, gw), _bits(torch, pw)),
+              f"causal_conv1d backward {name}: dw differs from the plain "
+              "reduction")
+        worst = 0.0
+        if dtype == torch.float32:
+            ax, aw = torch.autograd.grad(K.causal_conv1d_plain(x, w), (x, w),
+                                         g)
+            for got, want in ((gx, ax), (gw, aw)):
+                scale = max(1.0, float(want.abs().max()))
+                worst = max(worst, float((got - want).abs().max()) / scale)
+            check(worst <= 1e-5, f"causal_conv1d backward: {worst:.2e} from "
+                                 "autograd through the plain version")
+        print(f"[kernels] causal_conv1d backward {name} {tuple(shape)}: dx "
+              "bitwise == flip-plain-flip, dw == plain reduction"
+              + (f", within {worst:.1e} of autograd through the plain "
+                 "version" if dtype == torch.float32 else ""))
 
 
 # ---------------------------------------------------------------- phase 4 --
@@ -955,11 +1120,13 @@ def sync(torch, dev):
         torch.cuda.synchronize()
 
 
-def lm_breakdown(torch, prec, eng, cfg, dev, pos=128, reps=5):
+def lm_breakdown(torch, prec, eng, cfg, dev, pos=128, reps=5,
+                 port=("matmul_kernel", "epilogue_kernel", "Memset"),
+                 what="the port's matmul kernels and their workspace memsets"):
     """One decode step of all ``LM_BATCH`` slots at position ``pos``: its
     time (CUDA events), the device time of its kernels (torch.profiler),
-    split into the matmul kernels and everything else, and the idle
-    share."""
+    split into the kernels whose names contain one of ``port`` and
+    everything else, and the idle share."""
     from repro_torch.models import api
     cache = api.init_slot_cache(cfg, LM_BATCH, LM_MAX_LEN, device=dev)
     cache["len"].fill_(pos)
@@ -970,20 +1137,128 @@ def lm_breakdown(torch, prec, eng, cfg, dev, pos=128, reps=5):
     dev_ms = sum(e.self_device_time_total for e in kernels) / reps / 1e3
     check(dev_ms > 0, "torch.profiler saw no device time")
     mm_ms = sum(e.self_device_time_total for e in kernels
-                if any(t in e.key for t in ("matmul_kernel", "epilogue_kernel",
-                                            "Memset"))) / reps / 1e3
+                if any(t in e.key for t in port)) / reps / 1e3
     n_kern = sum(e.count for e in kernels) / reps
     print(f"[lm-breakdown] {prec}: one decode step, {LM_BATCH} slots at "
           f"position {pos}: {step_ms:.4f} ms (CUDA events), device busy "
-          f"{dev_ms:.4f} ms in {n_kern:.0f} kernels, of which the port's "
-          f"matmul kernels and their workspace memsets {mm_ms:.4f} ms and "
-          f"the rest {dev_ms - mm_ms:.4f} "
+          f"{dev_ms:.4f} ms in {n_kern:.0f} kernels, of which {what} "
+          f"{mm_ms:.4f} ms and the rest {dev_ms - mm_ms:.4f} "
           f"ms; device idle {1 - dev_ms / step_ms:.3f}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         kernel = e.key.replace("void ", "").replace("at::native::", "")
         print(f"[lm-breakdown] {prec}   "
               f"{e.self_device_time_total / reps:9.1f} us "
               f"x{e.count // reps:4d}  {kernel[:100]}")
+
+
+# ---------------------------------------------------------------- phase 7 --
+
+def phase_ssm(torch, K, card, rng, dev="cuda", cfg=None, n_req=SSM_REQUESTS,
+              new_tokens=LM_NEW, prompt=LM_PROMPT,
+              check_layers=SSM_CHECK_LAYERS):
+    """Serve Falcon-Mamba-7B in "float"; returns the launch count of every
+    kernel in the served run."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api, mamba
+    from repro_torch.models import transformer as T
+    from repro_torch.models.blocks import rmsnorm
+    from repro_torch.serve import Engine, Request, ServeConfig
+    cfg = cfg or get_config(SSM_ARCH)
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, torch.Generator(device=dev)
+                             .manual_seed(SEED), device=dev)
+    sync(torch, dev)
+    n_params = sum(v.numel() for v in _leaves(params))
+    check(n_params == cfg.param_count() + cfg.d_model,
+          f"ssm: {n_params} parameters, the config counts "
+          f"{cfg.param_count()} + {cfg.d_model}")
+    m = cfg.mamba
+    print(f"[ssm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"d_inner {m.expand * cfg.d_model}, d_state {m.d_state}, d_conv "
+          f"{m.d_conv}, dt_rank {m.rank(cfg.d_model)}, vocab {cfg.vocab}, "
+          f"{n_params:,} parameters made on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    prompts = [rng.integers(0, cfg.vocab, (int(n),)).astype(np.int32)
+               for n in rng.integers(prompt[0], prompt[1] + 1, n_req)]
+    t0 = time.perf_counter()
+    eng = Engine(cfg, params, ServeConfig(max_batch=LM_BATCH,
+                                          max_len=LM_MAX_LEN))
+    del params                  # the engine holds the cast copy it serves
+    sync(torch, dev)
+    t_init = time.perf_counter() - t0
+    for i in range(2):          # warm-up, then zeroed stats
+        eng.submit(Request(uid=-1 - i, prompt=prompts[i][:prompt[0]],
+                           max_new_tokens=2))
+    eng.run_until_drained()
+    eng.reset_stats()
+    for i, p in enumerate(prompts):
+        eng.submit(Request(uid=i, prompt=p, max_new_tokens=new_tokens))
+    K.reset_launches()
+    t0 = time.perf_counter()
+    done = eng.run_until_drained()
+    wall = time.perf_counter() - t0
+    got = {k.__name__: k.launches for k in K.KERNELS}
+    st = eng.stats
+    statuses = {r.status for r in done}
+    check(len(done) == n_req and statuses == {"ok"},
+          f"ssm: {len(done)} requests, statuses {statuses}")
+    done = sorted(done, key=lambda r: r.uid)
+    check(all(len(r.out_tokens) == new_tokens
+              and all(0 <= t < cfg.vocab for t in r.out_tokens)
+              for r in done),
+          "ssm: a stream is short or holds an id outside the vocabulary")
+    check(st["errors"] == st["retries"] == 0,
+          f"ssm: errors={st['errors']} retries={st['retries']}")
+    check(st["prefills"] == n_req, f"ssm: {st['prefills']} prefills")
+    want = dict.fromkeys(got, 0)
+    if torch.device(dev).type == "cuda":   # a host run launches nothing
+        want["causal_conv1d"] = cfg.n_layers * st["prefills"]
+    check(got == want, f"ssm: launches {got}, {st['prefills']} prefills "
+                       f"and {st['decode_steps']} decode steps need {want}")
+    ttft = np.percentile([r.ttft_s for r in done], [50, 99])
+    step_ms = 1e3 * eng.metrics.counter("serve.decode_time_s").value \
+        / st["decode_steps"]
+    print(f"[ssm] float: {n_req} requests ok, {st['tokens_out']} tokens in "
+          f"{wall:.2f} s ({st['tokens_out'] / wall:.1f} tokens/s end to "
+          f"end; decode_tok_s={st['decode_tok_s']:.1f}), {st['prefills']} "
+          f"prefills at their exact lengths ({min(map(len, prompts))}-"
+          f"{max(map(len, prompts))} tokens), {st['decode_steps']} decode "
+          f"steps at {step_ms:.3f} ms, occupancy {st['occupancy']:.3f}, "
+          f"TTFT p50 {ttft[0]:.4f} s p99 {ttft[1]:.4f} s (over the {n_req} "
+          f"requests), engine init {t_init:.2f} s; launches "
+          f"{ {k: v for k, v in got.items() if v} } ({cfg.n_layers} per "
+          f"prefill, 0 per decode step) on {card}")
+    # the block with the kernel against the block with its plain version,
+    # on the first layers of the served (cast) weights at a served prompt
+    cdt = T._cdt(cfg)
+    tok = torch.as_tensor(prompts[0][None].astype(np.int64), device=dev)
+    h = T.embed_tokens(eng.params, tok, cfg, cdt)
+    for layer in range(check_layers):
+        lp = T._take(eng.params["layers"], layer)
+        x = rmsnorm(h, lp["ln"], cfg.norm_eps)
+        y = mamba.mamba_forward(lp["mamba"], x, m, cdt, conv_method="cuda")
+        y_plain = mamba.mamba_forward(lp["mamba"], x, m, cdt,
+                                      conv_method="torch")
+        sync(torch, dev)
+        check(bool(torch.isfinite(y).all()) and torch.equal(y, y_plain),
+              f"ssm: layer {layer}'s block with the kernel differs from "
+              "the block with the plain version (or is not finite)")
+        h = h + y
+    logits, _ = eng.prefill(eng.params, {
+        "tokens": tok, "prompt_lens": torch.tensor(
+            [tok.shape[1]], dtype=torch.int32, device=dev)})
+    check(tuple(logits.shape) == (1, 1, cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"ssm: prefill logits {tuple(logits.shape)} not finite of shape "
+          f"(1, 1, {cfg.vocab})")
+    print(f"[ssm] mamba_forward with the kernel == with the plain version "
+          f"bitwise on layers 0-{check_layers - 1} at a "
+          f"{tok.shape[1]}-token prompt; prefill logits finite, "
+          f"{tuple(logits.shape)}")
+    lm_breakdown(torch, "ssm float", eng, cfg, dev,
+                 port=("causal_conv1d_kernel",),
+                 what="the port's causal_conv1d kernel")
+    return got
 
 
 # ------------------------------------------------------------------- main --
@@ -1016,6 +1291,9 @@ SOURCES = {
                "src/repro/kernels/matmul_q8.py:106"),
     "matmul_w4": ("matmul_w4", "src/repro_torch/kernels/csrc/matmul_q8.cu",
                   "src/repro/kernels/matmul_q8.py:106"),
+    "causal_conv1d": ("causal_conv1d",
+                      "src/repro_torch/kernels/csrc/conv1d_causal.cu",
+                      "src/repro/kernels/conv1d_causal.py:58"),
 }
 
 
@@ -1058,6 +1336,9 @@ def main() -> int:
     del plans
     for k, v in phase_lm(torch, K, card, rng).items():
         launches[k] += v
+    torch.cuda.empty_cache()    # phase 6's model is gone; 7.27 B params next
+    for k, v in phase_ssm(torch, K, card, rng).items():
+        launches[k] += v
     check(all(v > 0 for v in launches.values()),
           f"serve: a kernel was never launched: {launches}")
 
@@ -1079,8 +1360,11 @@ def main() -> int:
           "the shift and add kernels; the W4 rows in the W4 plans, bytes "
           "counting the packed weights), and for matmul_q8 and matmul_w4 "
           "over the 72 launches of one Qwen2-0.5B decode step at 8 slots "
-          "(library: torch._int_mm); launches are summed over the six "
-          f"served CNN runs and the five LM runs; card: {card}")
+          "(library: torch._int_mm), and for causal_conv1d over the 64 "
+          "launches of one 96-token Falcon-Mamba-7B prefill (1 x 96 x 8192 "
+          "bf16; library: cuDNN conv1d, groups=D); launches are summed over "
+          "the six served CNN runs, the five LM runs and the ssm run; "
+          f"card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -3,8 +3,10 @@
 The integer-only CNN inference path of the paper (power-of-two int8
 quantization, the standard / grouped / depthwise-separable / shift / add
 primitives, the layer-graph lowering and executor, and the CNN serving
-engine) on an NVIDIA
-Hopper card, with hand-written CUDA C++ kernels under ``kernels/csrc``.
+engine), and the LM serve path (a dense LM with the paper's integer FFN,
+and the ssm family's Mamba blocks on the depthwise ``causal_conv1d``) on
+an NVIDIA Hopper card, with hand-written CUDA C++ kernels under
+``kernels/csrc``.
 
 Each module keeps the name and layout of its counterpart in the JAX package
 (NHWC activations, HWIO weights, int8 codes with an integer ``frac_bits``),

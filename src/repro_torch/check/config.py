@@ -78,11 +78,19 @@ def check_serve_config(scfg, cfg=None, *, strict: bool = True) -> List[str]:
         errs.append("kv_cache='int8' needs scheduler='continuous' (the "
                     "static path decodes off the float prefill cache)")
     if cfg is not None:
+        recurrent = cfg.family in ("ssm", "hybrid", "encdec")
+        if scfg.kv_layout == "paged" and recurrent:
+            errs.append("kv_layout='paged' covers attention-family dense "
+                        "KV caches only (no ssm / hybrid / encdec)")
         if scfg.precision != "float" and (cfg.family != "dense"
                                           or cfg.moe is not None):
             errs.append(f"precision={scfg.precision!r} quantizes dense FFN "
                         "matmuls; moe/ssm/hybrid/encdec are unsupported")
-        if strict and isinstance(scfg.prefill_bucket, int) \
+        if scfg.kv_cache == "int8" and recurrent:
+            errs.append("kv_cache='int8' covers attention-family dense KV "
+                        "caches only (no ssm / hybrid / encdec)")
+        if strict and not cfg.sub_quadratic() and cfg.family != "encdec" \
+                and isinstance(scfg.prefill_bucket, int) \
                 and isinstance(scfg.max_len, int) \
                 and scfg.prefill_bucket > scfg.max_len:
             errs.append(f"prefill_bucket={scfg.prefill_bucket} exceeds "

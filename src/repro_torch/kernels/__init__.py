@@ -3,9 +3,11 @@ kernels for Hopper (``csrc/``, built at first launch by ``_build.py``),
 each with a plain PyTorch version and a launch counter, dispatched by
 ``ops``. The four weight-carrying convolutions and the LM's matmul have an
 int8 mode (``*_q8``) and a W4A8 mode (``*_w4``) that reads nibble-packed
-weights.
+weights; Mamba's depthwise ``causal_conv1d`` is a float32 / bfloat16
+kernel.
 
 Importing this package builds nothing and needs no ``nvcc``."""
+from .conv1d_causal import causal_conv1d, causal_conv1d_plain
 from .conv_add import (add_conv2d_q8, add_conv2d_q8_plain, add_conv2d_w4,
                        add_conv2d_w4_plain)
 from .conv_dw import (depthwise2d_q8, depthwise2d_q8_plain, depthwise2d_w4,
@@ -21,7 +23,7 @@ from .pool import maxpool2d_plain, maxpool2d_s8
 #: the wrappers that carry a ``launches`` counter
 KERNELS = (conv2d_q8, depthwise2d_q8, maxpool2d_s8, shift_conv2d_q8,
            add_conv2d_q8, conv2d_w4, depthwise2d_w4, shift_conv2d_w4,
-           add_conv2d_w4, matmul_q8, matmul_w4)
+           add_conv2d_w4, matmul_q8, matmul_w4, causal_conv1d)
 
 
 def reset_launches():
@@ -31,7 +33,8 @@ def reset_launches():
 
 
 __all__ = ["KERNELS", "add_conv2d_q8", "add_conv2d_q8_plain",
-           "add_conv2d_w4", "add_conv2d_w4_plain", "conv2d_q8",
+           "add_conv2d_w4", "add_conv2d_w4_plain", "causal_conv1d",
+           "causal_conv1d_plain", "conv2d_q8",
            "conv2d_q8_plain", "conv2d_w4", "conv2d_w4_plain",
            "depthwise2d_q8", "depthwise2d_q8_plain", "depthwise2d_w4",
            "depthwise2d_w4_plain", "matmul_q8", "matmul_q8_plain",

@@ -26,7 +26,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("conv_im2col.cu", "conv_dw.cu", "pool.cu", "conv_shift.cu",
-           "conv_add.cu", "matmul_q8.cu")
+           "conv_add.cu", "matmul_q8.cu", "conv1d_causal.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -45,6 +45,7 @@ SIGNATURES = {
     "repro_add_conv2d_w4": (_P,) * 5 + (_I,) * 10 + (_P,),
     "repro_matmul_q8": (_P,) * 4 + (_I,) * 7 + (_P,),
     "repro_matmul_w4": (_P,) * 5 + (_I,) * 7 + (_P,),
+    "repro_causal_conv1d": (_P,) * 3 + (_I,) * 6 + (_P,),
 }
 
 

@@ -16,7 +16,8 @@ QTensorW4``'s ``q`` and ``shifts``) and runs the W4 kernel or its plain
 version; W4 has no float mode, so it needs ``requant_shift``. The float
 modes (the convolutions', the pool's and ``matmul``'s) run their plain
 version on the host and raise on a card under ``"cuda"`` (ROADMAP.md,
-queue B).
+queue B). :func:`causal_conv1d` is a float kernel and differentiable: its
+backward mirrors the JAX package's custom VJP.
 
 Every call counts into the process metrics registry as
 ``kernels.dispatch.<kernel>.<method>``.
@@ -26,10 +27,12 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.obs import metrics as _obs_metrics
 
 from . import ref
+from .conv1d_causal import causal_conv1d as _c1d_kernel
 from .conv_add import add_conv2d_q8, add_conv2d_w4
 from .conv_dw import depthwise2d_q8, depthwise2d_w4
 from .conv_im2col import conv2d_q8, conv2d_w4
@@ -214,3 +217,51 @@ def _matmul(a, b, method, requant_shift, act, w_shifts):
     if method == "torch":
         return ref.matmul_ref(a, b, requant_shift=requant_shift, act=act)
     return matmul_q8(a, b, requant_shift=requant_shift, act=act)
+
+
+def _c1d(x, w, method):
+    if method == "torch":
+        return ref.causal_conv1d_f32(x, w)
+    return _c1d_kernel(x, w)
+
+
+class _CausalConv1d(torch.autograd.Function):
+    """The kernel forward and the analytic backward of the JAX package's
+    custom VJP (``repro/kernels/ops.py`` ``_c1d_bwd``): dx is the kernel
+    run on the flipped gradient, flipped back (the anti-causal conv with the
+    same taps); dw[k,d] = sum_{b,l} g[b,l,d] * x_leftpad[b,l+k,d], summed in
+    float32 as plain PyTorch and returned in w's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w, method):
+        ctx.save_for_backward(x, w)
+        ctx.method = method
+        return _c1d(x, w, method)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = torch.flip(_c1d(torch.flip(g, [1]).contiguous(), w,
+                                 ctx.method), [1])
+        if ctx.needs_input_grad[1]:
+            k, l = w.shape[0], x.shape[1]
+            xp = F.pad(x, (0, 0, k - 1, 0)).to(torch.float32)
+            g32 = g.to(torch.float32)
+            gw = torch.stack([torch.einsum("bld,bld->d", g32,
+                                           xp[:, kk:kk + l])
+                              for kk in range(k)]).to(w.dtype)
+            gw = gw.reshape(w.shape)
+        return gx, gw, None
+
+
+def causal_conv1d(x, w, *, method: str = "cuda"):
+    """Differentiable depthwise causal conv1d, x (B,L,D) * w (K,D) or
+    (K,1,D): the kernel (``"cuda"``) or its plain version (``"torch"``),
+    forward and in the backward's dx. Like the JAX entry point it takes no
+    ``act`` (the backward assumes a linear kernel); the kernel-level
+    wrapper has one."""
+    _check_method(method)
+    _count_dispatch("causal_conv1d", method)
+    return _CausalConv1d.apply(x, w, method)

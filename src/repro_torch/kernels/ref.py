@@ -12,10 +12,12 @@ for add-conv.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import primitives as P
 
 from .common import apply_act
+from .conv1d_causal import causal_conv1d_plain as causal_conv1d_f32
 from .conv_add import add_conv2d_q8_plain as add_conv2d_q8_ref
 from .conv_add import add_conv2d_w4_plain as add_conv2d_w4_ref
 from .conv_dw import depthwise2d_q8_plain as depthwise2d_q8_ref
@@ -29,7 +31,8 @@ from .matmul_q8 import matmul_w4_plain as matmul_w4_ref
 from .pool import maxpool2d_plain as maxpool2d_ref
 
 __all__ = ["add_conv2d_ref", "add_conv2d_q8_ref", "add_conv2d_w4_ref",
-           "conv2d_ref", "conv2d_q8_ref", "conv2d_w4_ref", "depthwise2d_ref",
+           "causal_conv1d_f32", "causal_conv1d_ref", "conv2d_ref",
+           "conv2d_q8_ref", "conv2d_w4_ref", "depthwise2d_ref",
            "depthwise2d_q8_ref", "depthwise2d_w4_ref", "matmul_ref",
            "matmul_w4_ref", "maxpool2d_ref",
            "shift_conv2d_ref", "shift_conv2d_q8_ref", "shift_conv2d_w4_ref"]
@@ -66,3 +69,17 @@ def matmul_ref(a, b, *, requant_shift=None, act=None):
         return matmul_q8_plain(a, b, requant_shift=requant_shift, act=act)
     y = torch.matmul(a.to(torch.float32), b.to(torch.float32))
     return apply_act(y, act).to(a.dtype)
+
+
+def causal_conv1d_ref(x, w, *, act=None):
+    """x: (B,L,D); w: (K,D) or (K,1,D). Zero history before t=0. The JAX
+    oracle: products and sums in ``x``'s dtype (at bfloat16 it rounds after
+    every operation, where the kernel rounds once)."""
+    if w.dim() == 3:
+        w = w[:, 0]
+    k = w.shape[0]
+    xp = F.pad(x, (0, 0, k - 1, 0))
+    out = torch.zeros_like(x)
+    for kk in range(k):
+        out = out + xp[:, kk:kk + x.shape[1]] * w[kk]
+    return apply_act(out, act)

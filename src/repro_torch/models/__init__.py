@@ -1,7 +1,7 @@
 """repro_torch.models — the paper-side CNN (port of
-``repro/models/convnet.py``) and the dense LM of the serve path
-(``blocks``, ``attention``, ``transformer``, ``api``; ports of the same
-modules of ``repro/models``)."""
+``repro/models/convnet.py``) and the dense and ssm LMs of the serve path
+(``blocks``, ``attention``, ``mamba``, ``transformer``, ``api``; ports of
+the same modules of ``repro/models``)."""
 from .convnet import (CNNConfig, calibrate_bn, cnn_forward, init_cnn,
                       quantize_cnn)
 

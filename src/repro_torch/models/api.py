@@ -1,13 +1,15 @@
 """Model API of the serve path: init, prefill, decode and the per-slot KV
 cache helpers of continuous batching.
 
-Port of the dense, contiguous-cache part of ``repro/models/api.py``. The
-continuous-batching engine keeps ONE live batched decode cache with
-per-slot lengths and splices freshly prefilled requests into free slots
-between decode rounds; these helpers own the cache layout, (L, B, S, Hkv,
-D) K and V plus a (B,) ``"len"`` vector. Unlike the JAX helpers, which
-return new arrays, the slot writes here update the live cache in place and
-return a dict holding the same tensors.
+Port of the dense and ssm, contiguous-cache part of
+``repro/models/api.py``. The continuous-batching engine keeps ONE live
+batched decode cache with per-slot lengths and splices freshly prefilled
+requests into free slots between decode rounds; these helpers own the
+cache layout (:func:`slot_batch_axes`): (L, B, S, Hkv, D) K and V for the
+dense family, (L, B, K-1, d_inner) conv and (L, B, d_inner, d_state) ssm
+state for the ssm family, plus a (B,) ``"len"`` vector. Unlike the JAX
+helpers, which return new arrays, the slot writes here update the live
+cache in place and return a dict holding the same tensors.
 """
 from __future__ import annotations
 
@@ -37,8 +39,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
 
 def prefill_fn(cfg: ModelConfig, max_len: int, *, attn_impl="flash",
                precision: str = "float", attn_block_k: int = 256):
-    T.check_dense(cfg, "prefill_fn")
+    T.check_family(cfg, "prefill_fn")
     T.check_precision(precision)
+    T.check_ssm_precision(cfg, precision, "prefill")
 
     def fn(params, batch):
         if batch.get("embeds") is not None:
@@ -53,9 +56,26 @@ def prefill_fn(cfg: ModelConfig, max_len: int, *, attn_impl="flash",
 
 
 def decode_fn(cfg: ModelConfig, *, precision: str = "float"):
-    T.check_dense(cfg, "decode_fn")
+    T.check_family(cfg, "decode_fn")
     T.check_precision(precision)
+    T.check_ssm_precision(cfg, precision, "decode")
     return functools.partial(T.decode_step, cfg=cfg, precision=precision)
+
+
+def slot_batch_axes(cfg: ModelConfig) -> dict:
+    """Batch axis of every slotted cache leaf (``"len"`` excluded), as the
+    JAX package lays them out: dense/moe/vlm {k, v} (L, B, S, Hkv, Dh);
+    ssm recurrent state (L, B, ...); hybrid mamba state per super-block
+    (nb, nm, B, ...). encdec's cross-attention cache is not slotted."""
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            "slot surgery: encdec cross-attention caches are per-batch, "
+            "not per-slot; serve encdec through the static scheduler")
+    if cfg.family == "ssm":
+        return {"conv": 1, "ssm": 1}
+    if cfg.family == "hybrid":
+        return {"k": 1, "v": 1, "conv": 2, "ssm": 2}
+    return {"k": 1, "v": 1}
 
 
 def init_slot_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -66,6 +86,9 @@ def init_slot_cache(cfg: ModelConfig, batch: int, max_len: int,
     if kv not in ("float", "int8"):
         raise ValueError(f"init_slot_cache: kv must be 'float' or 'int8', "
                          f"got {kv!r}")
+    if kv == "int8" and cfg.family in ("ssm", "hybrid", "encdec"):
+        raise NotImplementedError(
+            "int8 KV slot cache only covers attention-family dense caches")
     if kv == "int8":
         raise NotImplementedError(
             "init_slot_cache: the int8 KV cache is not ported (ROADMAP.md, "
@@ -79,12 +102,13 @@ def init_slot_cache(cfg: ModelConfig, batch: int, max_len: int,
 def cache_write_slot(cfg: ModelConfig, live: dict, new: dict, slot: int,
                      src: int = 0) -> dict:
     """Write row ``src`` of a freshly prefilled cache into slot ``slot`` of
-    the live cache, K/V and length, in place. ``new["len"]`` may be a
-    scalar (plain prefill) or the (B,) vector of a ``prompt_lens``
-    prefill."""
-    T.check_dense(cfg, "cache_write_slot")
-    for key in ("k", "v"):
-        live[key][:, slot] = new[key][:, src].to(live[key].dtype)
+    the live cache, K/V (or recurrent state) and length, in place.
+    ``new["len"]`` may be a scalar (plain prefill) or the (B,) vector of a
+    ``prompt_lens`` prefill."""
+    T.check_family(cfg, "cache_write_slot")
+    for key, ax in slot_batch_axes(cfg).items():
+        row = new[key].select(ax, src).to(live[key].dtype)
+        live[key].select(ax, slot).copy_(row)
     nl = new["len"]
     live["len"][slot] = nl[src] if nl.dim() else nl
     return dict(live)
@@ -92,6 +116,7 @@ def cache_write_slot(cfg: ModelConfig, live: dict, new: dict, slot: int,
 
 def cache_free_slot(live: dict, slot: int) -> dict:
     """Retire a slot by zeroing its length: the per-slot attention mask
-    makes its stale K/V unreachable, so no data moves."""
+    makes its stale K/V unreachable, and the next admission overwrites a
+    recurrent state, so no data moves."""
     live["len"][slot] = 0
     return dict(live)

@@ -1,17 +1,24 @@
-"""Decoder-only LM, dense family: init, prefill and one-token decode.
+"""Decoder-only LM, dense and ssm families: init, prefill and one-token
+decode.
 
-Port of the dense half of ``repro/models/transformer.py``. Parameters keep
-the JAX package's layer-stacked layout (every leaf of ``params["layers"]``
-carries a leading layer axis), so a JAX parameter tree carries across leaf
-by leaf (``repro_torch.weights.lm_params_from_numpy``). Where the JAX
-package scans over the stack, the port loops over it in Python, taking
-each layer as views of the stacked tensors.
+Port of the dense and ssm parts of ``repro/models/transformer.py``.
+Parameters keep the JAX package's layer-stacked layout (every leaf of
+``params["layers"]`` carries a leading layer axis), so a JAX parameter
+tree carries across leaf by leaf
+(``repro_torch.weights.lm_params_from_numpy``). Where the JAX package
+scans over the stack, the port loops over it in Python, taking each layer
+as views of the stacked tensors.
 
 Serving state is a contiguous float KV cache, ``{"k", "v"}`` of (L, B, S,
 Hkv, D) plus ``"len"``: a (B,) vector of per-slot lengths, or a scalar for
 a plain prefill. Decode writes each row's new K/V into the cache IN PLACE
 at that row's own length (eager PyTorch would otherwise copy the whole
-cache every step); the returned dict holds the same tensors.
+cache every step); the returned dict holds the same tensors. An ssm
+(Mamba) model's state is ``{"conv"}`` (L, B, K-1, d_inner) in the cache
+dtype and ``{"ssm"}`` (L, B, d_inner, d_state) in float32, plus
+``"len"``; decode overwrites it in place too. Its prefill runs the
+``causal_conv1d`` CUDA kernel once per layer; its recurrence is
+position-exact, so a prompt is prefilled at its exact length.
 
 ``precision`` picks the FFN: ``"float"``, or the integer modes of the
 serving engine — ``"int8"`` / ``"w4a8"`` through the ``matmul_q8`` /
@@ -19,9 +26,10 @@ serving engine — ``"int8"`` / ``"w4a8"`` through the ``matmul_q8`` /
 their plain versions (the JAX package's ``"int8-xla"``); those need the
 quantized ``"qmlp"`` tree beside ``"mlp"`` in each layer.
 
-Not ported yet, and raising ``NotImplementedError``: the moe, ssm, hybrid
-and encdec families, the paged and int8 KV caches, training
-(ROADMAP.md, queue A).
+Not ported yet, and raising ``NotImplementedError``: the moe, hybrid and
+encdec families, the paged and int8 KV caches, training (ROADMAP.md,
+queue A). The ssm family runs in ``"float"`` precision only, as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -33,19 +41,29 @@ from repro_torch.core.quantize import QTensor, QTensorW4
 
 from . import attention as A
 from .blocks import init_mlp, mlp, qmlp, rmsnorm, rope
+from .mamba import (init_mamba, mamba_decode_step, mamba_forward_with_state,
+                    mamba_init_state)
 
 
 def _cdt(cfg: ModelConfig):
     return torch_dtype(cfg.compute_dtype)
 
 
-def check_dense(cfg: ModelConfig, what: str):
-    """Raise unless ``cfg`` is of the one family the port builds."""
-    if cfg.family != "dense" or cfg.moe is not None:
+def check_family(cfg: ModelConfig, what: str):
+    """Raise unless ``cfg`` is of a family the port builds: dense (without
+    moe) or ssm."""
+    if cfg.family not in ("dense", "ssm") or cfg.moe is not None:
         raise NotImplementedError(
-            f"{what}: the port builds the dense family only, not "
+            f"{what}: the port builds the dense and ssm families only, not "
             f"{cfg.family!r}{' with moe' if cfg.moe is not None else ''} "
-            "(ROADMAP.md, queue A: moe, ssm, hybrid and encdec follow)")
+            "(ROADMAP.md, queue A: moe, hybrid and encdec follow)")
+
+
+def check_ssm_precision(cfg: ModelConfig, precision: str, what: str):
+    """The JAX package's gate: the integer FFN covers dense MLPs only."""
+    if precision != "float" and cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            f"integer-FFN {what} only covers attention-family dense MLPs")
 
 
 def check_precision(precision: str):
@@ -59,8 +77,10 @@ def check_precision(precision: str):
 def init_lm(cfg: ModelConfig, generator: torch.Generator) -> dict:
     """Random parameters drawn from ``generator`` on its device, in the JAX
     package's layout and scales (normal embeddings * 0.02, normal matmul
-    weights * fan_in^-1/2, zero biases, unit norms), in ``param_dtype``."""
-    check_dense(cfg, "init_lm")
+    weights * fan_in^-1/2, zero biases, unit norms; Mamba's as
+    :func:`~repro_torch.models.mamba.init_mamba` draws them), in
+    ``param_dtype``."""
+    check_family(cfg, "init_lm")
     pdt = torch_dtype(cfg.param_dtype)
     dev = generator.device
     d, hq, hkv, dh, nl = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
@@ -68,7 +88,7 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator) -> dict:
 
     def normal(shape, std):
         return torch.randn(shape, generator=generator, dtype=pdt,
-                           device=dev) * std
+                           device=dev).mul_(std)
 
     def ones(*shape):
         return torch.ones(shape, dtype=pdt, device=dev)
@@ -76,6 +96,11 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator) -> dict:
     params = {"embed": normal((cfg.vocab, d), 0.02), "final_norm": ones(d)}
     if not cfg.tied_embeddings:
         params["unembed"] = normal((d, cfg.vocab), d ** -0.5)
+    if cfg.family == "ssm":
+        params["layers"] = {"ln": ones(nl, d),
+                            "mamba": init_mamba(generator, d, cfg.mamba, pdt,
+                                                n_layers=nl)}
+        return params
     attn = {"wq": normal((nl, d, hq * dh), d ** -0.5),
             "wk": normal((nl, d, hkv * dh), d ** -0.5),
             "wv": normal((nl, d, hkv * dh), d ** -0.5),
@@ -96,10 +121,16 @@ def cast_params(params: dict, cfg: ModelConfig, *, mlp_too: bool = True):
     """A copy of ``params`` whose attention weights and biases (and, with
     ``mlp_too``, the float FFN weights) are in the compute dtype: the
     values every call would otherwise get from a per-use cast, made once.
+    For an ssm model: every Mamba leaf but ``A_log``, which stays float32
+    (A = -exp(A_log) is computed from the float32 parameter, as in JAX).
     The embedding (read in float32 by :func:`unembed`), the norms and any
     quantized tree are kept as they are."""
     cdt = _cdt(cfg)
     layers = dict(params["layers"])
+    if cfg.family == "ssm":
+        layers["mamba"] = {k: v if k == "A_log" else v.to(cdt)
+                           for k, v in layers["mamba"].items()}
+        return dict(params, layers=layers)
     layers["attn"] = {k: v.to(cdt) for k, v in layers["attn"].items()}
     if mlp_too:
         layers["mlp"] = {k: v.to(cdt) for k, v in layers["mlp"].items()}
@@ -198,7 +229,14 @@ def unembed(params, h, cfg: ModelConfig):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cuda"):
-    check_dense(cfg, "init_cache")
+    check_family(cfg, "init_cache")
+    if cfg.family == "ssm":
+        st = mamba_init_state(cfg.d_model, cfg.mamba, batch, dtype, device)
+        return {"conv": st["conv"].expand((cfg.n_layers,)
+                                          + st["conv"].shape).contiguous(),
+                "ssm": st["ssm"].expand((cfg.n_layers,)
+                                        + st["ssm"].shape).contiguous(),
+                "len": torch.zeros((), dtype=torch.int32, device=device)}
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
@@ -215,14 +253,27 @@ def _check_cache(cache):
 def decode_step(params, token, cache, cfg: ModelConfig, *,
                 precision: str = "float"):
     """One-token serve step. token: (B, 1) int. Returns ``(logits (B,1,V)
-    float32, cache)`` with the cache's K/V written in place and ``"len"``
-    advanced by one."""
-    check_dense(cfg, "decode_step")
+    float32, cache)`` with the cache's K/V (an ssm model: its conv and ssm
+    states) written in place and ``"len"`` advanced by one."""
+    check_family(cfg, "decode_step")
+    check_ssm_precision(cfg, precision, "decode")
     _check_cache(cache)
     cdt = _cdt(cfg)
     h = embed_tokens(params, token, cfg, cdt)
     b = token.shape[0]
     clen = cache["len"]
+    if cfg.family == "ssm":
+        for l, lp in enumerate(_layers(params, cfg)):
+            x = rmsnorm(h, lp["ln"], cfg.norm_eps)
+            conv, ssm = cache["conv"][l], cache["ssm"][l]
+            y, st = mamba_decode_step(lp["mamba"], x,
+                                      {"conv": conv, "ssm": ssm}, cfg.mamba,
+                                      cdt)
+            conv.copy_(st["conv"])
+            ssm.copy_(st["ssm"])
+            h = h + y
+        h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+        return unembed(params, h, cfg), dict(cache, len=clen + 1)
     cl = clen.expand(b) if clen.dim() == 0 else clen
     for l, lp in enumerate(_layers(params, cfg)):
         x = rmsnorm(h, lp["ln1"], cfg.norm_eps)
@@ -243,22 +294,21 @@ def prefill(params, tokens, cfg: ModelConfig, max_len: int, *,
     i's real tokens occupy positions [0, prompt_lens[i]); causality keeps
     them from attending the trailing pads, pad K/V land at positions the
     per-slot decode mask never reads, logits are taken at each row's last
-    real position, and ``cache["len"]`` is the length vector."""
-    check_dense(cfg, "prefill")
+    real position, and ``cache["len"]`` is the length vector. Right-padding
+    is exact for the dense family only: an ssm recurrence folds every
+    position into its state, so its callers pass exact lengths
+    (``prompt_lens[i] == S``), as the serving engine does."""
+    check_family(cfg, "prefill")
+    check_ssm_precision(cfg, precision, "prefill")
     cdt = _cdt(cfg)
     b, s = tokens.shape
     cache = init_cache(cfg, b, max_len, device=tokens.device)
     h = embed_tokens(params, tokens, cfg, cdt)
-    for l, lp in enumerate(_layers(params, cfg)):
-        x = rmsnorm(h, lp["ln1"], cfg.norm_eps)
-        a, (k, v) = attn_forward(lp["attn"], x, cfg, cdt, impl=attn_impl,
-                                 block_k=attn_block_k)
-        h = h + a
-        f = ffn_forward(lp, rmsnorm(h, lp["ln2"], cfg.norm_eps), cfg, cdt,
-                        precision=precision)
-        cache["k"][l, :, :s] = k.to(cache["k"].dtype)
-        cache["v"][l, :, :s] = v.to(cache["v"].dtype)
-        h = h + f
+    if cfg.family == "ssm":
+        h = _ssm_prefill_layers(params, h, cfg, cdt, cache)
+    else:
+        h = _dense_prefill_layers(params, h, cfg, cdt, cache, attn_impl,
+                                  precision, attn_block_k)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
     if prompt_lens is None:
         cache["len"] = torch.tensor(s, dtype=torch.int32,
@@ -269,3 +319,33 @@ def prefill(params, tokens, cfg: ModelConfig, max_len: int, *,
     cache["len"] = pl
     idx = (pl.long() - 1)[:, None, None].expand(b, 1, h.shape[-1])
     return unembed(params, torch.gather(h, 1, idx), cfg), cache
+
+
+def _ssm_prefill_layers(params, h, cfg: ModelConfig, cdt, cache):
+    """The Mamba stack over the prompt; each layer's final conv and ssm
+    state goes into ``cache``."""
+    for l, lp in enumerate(_layers(params, cfg)):
+        x = rmsnorm(h, lp["ln"], cfg.norm_eps)
+        y, st = mamba_forward_with_state(lp["mamba"], x, cfg.mamba, cdt)
+        cache["conv"][l] = st["conv"].to(cache["conv"].dtype)
+        cache["ssm"][l] = st["ssm"]
+        h = h + y
+    return h
+
+
+def _dense_prefill_layers(params, h, cfg: ModelConfig, cdt, cache, attn_impl,
+                          precision, attn_block_k):
+    """The attention stack over the prompt; each layer's K/V go into
+    ``cache``."""
+    s = h.shape[1]
+    for l, lp in enumerate(_layers(params, cfg)):
+        x = rmsnorm(h, lp["ln1"], cfg.norm_eps)
+        a, (k, v) = attn_forward(lp["attn"], x, cfg, cdt, impl=attn_impl,
+                                 block_k=attn_block_k)
+        h = h + a
+        f = ffn_forward(lp, rmsnorm(h, lp["ln2"], cfg.norm_eps), cfg, cdt,
+                        precision=precision)
+        cache["k"][l, :, :s] = k.to(cache["k"].dtype)
+        cache["v"][l, :, :s] = v.to(cache["v"].dtype)
+        h = h + f
+    return h

@@ -2,12 +2,14 @@
 budget.
 
 Port of the continuous scheduler of ``repro/serve/engine.py`` with the
-contiguous KV layout. Each admitted request is prefilled on its own,
-right-padded to a power-of-two length bucket (``prefill_bucket`` is the
-floor), and its K/V and length are written into a free slot of the ONE live
-batched cache (``models/api.cache_write_slot``). Decode then advances every
-occupied slot one token per round with per-slot lengths. A sequence
-retires the round it finishes — per-request EOS, per-request
+contiguous KV layout, for the dense and ssm families. Each admitted
+request is prefilled on its own, right-padded to a power-of-two length
+bucket (``prefill_bucket`` is the floor; an ssm model's recurrence is
+position-exact, so its prompts are prefilled at their exact length), and
+its K/V (or conv and ssm state) and length are written into a free slot of
+the ONE live batched cache (``models/api.cache_write_slot``). Decode then
+advances every occupied slot one token per round with per-slot lengths. A
+sequence retires the round it finishes — per-request EOS, per-request
 ``max_new_tokens``, or the ``max_len`` KV cap — and its freed slot is
 refilled from the queue between decode rounds.
 
@@ -20,10 +22,11 @@ paper's integer FFN (Eq. 4 / Algorithm 1) with weights PTQ'd once at init —
 ``"int8"`` and ``"w4a8"`` (nibble-packed weights) through the ``matmul_q8``
 and ``matmul_w4`` CUDA kernels, ``"int8-torch"`` and ``"w4a8-torch"``
 through their plain PyTorch versions (the JAX package's ``"int8-xla"``);
-a kernel and its plain version give the same token streams. At init the
-engine also casts the float32 attention (and, for ``"float"``, FFN)
-weights to the compute dtype once — the values JAX's per-use casts give —
-and keeps per-layer views of the stack.
+a kernel and its plain version give the same token streams. An ssm model
+serves in ``"float"`` only, as in the JAX package. At init the engine also
+casts the float32 attention (and, for ``"float"``, FFN) weights, or an ssm
+model's Mamba weights but ``A_log``, to the compute dtype once — the values
+JAX's per-use casts give.
 
 ``Engine.stats`` has the JAX engine's keys: prefill/decode-round/token
 counters, slot occupancy, TTFT/TPOT/queue-wait quantiles, decode
@@ -49,8 +52,10 @@ fault poisons the sampled host logits; the affected uids are recorded in
 
 Not ported yet, and raising ``NotImplementedError`` (ROADMAP.md, queue A):
 ``scheduler="static"``, ``kv_layout="paged"`` with its block pool and
-prefix cache, ``kv_cache="int8"``, ``attn_impl="flash_tri"``, and every
-family but dense.
+prefix cache, ``kv_cache="int8"``, ``attn_impl="flash_tri"``, and the moe,
+hybrid and encdec families. An ssm model with a non-float precision,
+``kv_cache="int8"`` or ``kv_layout="paged"`` raises the JAX engine's
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -62,6 +67,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch.check.config import PRECISIONS
 from repro_torch.configs.base import ModelConfig
 from repro_torch.faults import inject as faults
 from repro_torch.models import api
@@ -144,10 +150,30 @@ def _not_ported(what: str):
                               "scheduler over a contiguous float KV cache")
 
 
+def _check_family_gates(cfg: ModelConfig, scfg: ServeConfig):
+    """The JAX engine's gates for the ssm family, with its messages: no
+    int8 KV cache, no paged layout, no integer FFN."""
+    if cfg.family != "ssm":
+        return
+    if scfg.kv_cache == "int8":
+        raise NotImplementedError(
+            "kv_cache='int8' covers attention-family dense KV caches "
+            "only (no ssm / hybrid / encdec)")
+    if scfg.kv_layout == "paged":
+        raise NotImplementedError(
+            "kv_layout='paged' covers attention-family dense KV "
+            "caches only (no ssm / hybrid / encdec)")
+    if scfg.precision in PRECISIONS and scfg.precision != "float":
+        raise NotImplementedError(
+            "ServeConfig.precision='int8' quantizes dense FFN "
+            "matmuls; moe/ssm/hybrid/encdec configs are unsupported")
+
+
 class Engine:
     def __init__(self, cfg: ModelConfig, params, scfg: ServeConfig):
         from repro_torch.check.config import check_serve_config
-        T.check_dense(cfg, "Engine")
+        T.check_family(cfg, "Engine")
+        _check_family_gates(cfg, scfg)
         bad = check_serve_config(scfg, cfg, strict=False)
         if bad:
             raise ValueError("invalid ServeConfig:\n"
@@ -315,6 +341,9 @@ class Engine:
         return self.scfg.eos_id if req.eos_id is None else req.eos_id
 
     def _bucket_len(self, plen: int) -> int:
+        # oversized prompts were already rejected by _validate_prompt_len
+        if self.cfg.family in ("ssm", "hybrid"):
+            return plen                 # recurrent state is position-exact
         b = max(self.scfg.prefill_bucket, 1)
         while b < plen:
             b *= 2

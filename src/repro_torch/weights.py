@@ -114,11 +114,12 @@ W4_KEYS = frozenset({"q", "shifts", "frac_bits", "size", "axis"})
 
 def lm_params_from_numpy(tree, device="cuda"):
     """An LM parameter tree of numpy arrays (the JAX package's
-    ``init_params`` layout, layer-stacked) -> the same tree of tensors on
-    ``device``, dtypes kept. A quantized FFN tree may ride along under
-    ``tree["layers"]["qmlp"]``: an int8 weight as an ``(int8 codes,
-    frac_bits)`` pair, a W4 weight as a ``{"q", "shifts", "frac_bits",
-    "size", "axis"}`` dict (stacked or not), checked as
+    ``init_params`` layout, layer-stacked: a dense model's ``{"ln1", "ln2",
+    "attn", "mlp"}`` layers or an ssm model's ``{"ln", "mamba"}``) -> the
+    same tree of tensors on ``device``, dtypes kept. A quantized FFN tree
+    may ride along under ``tree["layers"]["qmlp"]``: an int8 weight as an
+    ``(int8 codes, frac_bits)`` pair, a W4 weight as a ``{"q", "shifts",
+    "frac_bits", "size", "axis"}`` dict (stacked or not), checked as
     :func:`plan_from_numpy` checks them."""
     dev = resolve_device(device)
 

@@ -58,7 +58,8 @@ def test_every_source_is_built_and_every_entry_point_typed():
         "repro_conv2d_q8", "repro_depthwise2d_q8", "repro_maxpool2d_s8",
         "repro_shift_conv2d_q8", "repro_add_conv2d_q8", "repro_conv2d_w4",
         "repro_depthwise2d_w4", "repro_shift_conv2d_w4",
-        "repro_add_conv2d_w4", "repro_matmul_q8", "repro_matmul_w4"}
+        "repro_add_conv2d_w4", "repro_matmul_q8", "repro_matmul_w4",
+        "repro_causal_conv1d"}
     # each entry point is defined in a source with as many parameters as
     # its ctypes signature declares
     import re

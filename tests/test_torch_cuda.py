@@ -310,3 +310,114 @@ def test_engine_kernel_streams_equal_plain_streams(dev, precision):
             "matmul_q8" if precision == "int8" else "matmul_w4": calls}
         assert launched == want
     assert streams[precision] == streams[precision + "-torch"]
+
+
+def _bits(t):
+    """A float tensor's bit pattern, for bitwise comparison."""
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def _f(rng, shape, dtype, dev):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)) \
+        .to(dev).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1, 16, 8192), (1, 33, 8192),
+                                   (2, 70, 100), (1, 2, 100), (3, 1, 64)],
+                         ids=str)
+@pytest.mark.parametrize("k,act", [(1, None), (2, "relu"), (4, None),
+                                   (4, "relu")])
+def test_causal_conv1d_kernel_equals_plain(dev, dtype, shape, k, act):
+    from repro_torch.kernels import causal_conv1d, causal_conv1d_plain
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(14)
+    x = _f(rng, shape, dt, dev)
+    w = _f(rng, (k, shape[2]), dt, dev)
+    before = causal_conv1d.launches
+    got = causal_conv1d(x, w, act=act)
+    torch.cuda.synchronize()
+    assert causal_conv1d.launches == before + 1
+    assert got.dtype == dt and got.shape == x.shape
+    assert torch.equal(_bits(got), _bits(causal_conv1d_plain(x, w, act=act)))
+
+
+def test_causal_conv1d_takes_k1d_weights_and_rejects_bad_operands(dev):
+    from repro_torch.kernels import causal_conv1d, causal_conv1d_plain
+    rng = np.random.default_rng(15)
+    x = _f(rng, (2, 40, 96), torch.bfloat16, dev)
+    w = _f(rng, (4, 1, 96), torch.bfloat16, dev)
+    got = causal_conv1d(x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(causal_conv1d_plain(x, w)))
+    with pytest.raises(ValueError, match="contiguous"):
+        causal_conv1d(x.transpose(0, 1).contiguous().transpose(0, 1), w)
+    with pytest.raises(TypeError):
+        causal_conv1d(x, w.float())
+    with pytest.raises(TypeError):
+        causal_conv1d(x.half(), w.half())
+    with pytest.raises(ValueError, match="K <= 8"):
+        causal_conv1d(x, _f(rng, (9, 96), torch.bfloat16, dev))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_causal_conv1d_backward_on_the_card(dev, dtype):
+    """dx is the kernel on the flipped gradient, bitwise equal to
+    flip-plain-flip; dw the plain float32 reduction; both within 1e-5
+    (float32) of autograd through the plain version."""
+    from repro_torch.kernels import causal_conv1d, causal_conv1d_plain, ops
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(16)
+    x = _f(rng, (2, 50, 256), dt, dev).requires_grad_()
+    w = _f(rng, (4, 256), dt, dev).requires_grad_()
+    g = _f(rng, (2, 50, 256), dt, dev)
+    before = causal_conv1d.launches
+    gx, gw = torch.autograd.grad(ops.causal_conv1d(x, w), (x, w), g)
+    torch.cuda.synchronize()
+    assert causal_conv1d.launches == before + 2
+    want_dx = torch.flip(causal_conv1d_plain(torch.flip(g, [1]), w.detach()),
+                         [1])
+    assert torch.equal(_bits(gx), _bits(want_dx))
+    px, pw = torch.autograd.grad(ops.causal_conv1d(x, w, method="torch"),
+                                 (x, w), g)
+    assert torch.equal(_bits(gx), _bits(px))
+    assert torch.equal(_bits(gw), _bits(pw))
+    if dt == torch.float32:
+        ax, aw = torch.autograd.grad(causal_conv1d_plain(x, w), (x, w), g)
+        for got, want in ((gx, ax), (gw, aw)):
+            scale = max(1.0, float(want.abs().max()))
+            assert float((got - want).abs().max()) <= 1e-5 * scale
+
+
+def test_ssm_engine_on_the_card_launches_conv_once_per_layer(dev):
+    """A tiny Falcon-Mamba served on the card: every prefill launches
+    causal_conv1d once per layer, a decode step none, and no other kernel
+    runs; the block with the kernel equals the block with its plain
+    version bit for bit."""
+    import dataclasses
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import api, mamba
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Engine, Request, ServeConfig
+    cfg = dataclasses.replace(get_config("falcon-mamba-7b"), n_layers=3,
+                              d_model=64, vocab=96)
+    params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+    eng = Engine(cfg, params, ServeConfig(max_batch=2, max_len=48))
+    rng = np.random.default_rng(17)
+    for i, n in enumerate((5, 19, 9, 3)):
+        eng.submit(Request(uid=i, prompt=rng.integers(0, 96, (n,))
+                           .astype(np.int32), max_new_tokens=6))
+    kernels.reset_launches()
+    done = eng.run_until_drained()
+    assert [r.status for r in done] == ["ok"] * 4
+    launched = {k.__name__: k.launches for k in kernels.KERNELS
+                if k.launches}
+    assert launched == {"causal_conv1d": cfg.n_layers * eng.stats["prefills"]}
+    lp = T._take(eng.params["layers"], 0)
+    x = _f(rng, (1, 19, 64), torch.bfloat16, dev)
+    y_cuda = mamba.mamba_forward(lp["mamba"], x, cfg.mamba, torch.bfloat16)
+    y_torch = mamba.mamba_forward(lp["mamba"], x, cfg.mamba, torch.bfloat16,
+                                  conv_method="torch")
+    assert torch.equal(_bits(y_cuda), _bits(y_torch))
