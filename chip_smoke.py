@@ -7,9 +7,9 @@ Phases, one line each, any failure exits non-zero:
 
 1. device   — a CUDA card is present; its name and power limit.
 2. build    — the CUDA kernels built from ``src/repro_torch/kernels/csrc``.
-3. kernels  — each of the twelve kernel entry points (six int8, five W4,
-              and the float causal_conv1d) held bitwise against its plain
-              PyTorch version at every
+3. kernels  — each of the eighteen kernel entry points (six int8, five
+              W4, six float32 / bfloat16 and the float causal_conv1d) held
+              bitwise against its plain PyTorch version at every
               shape of the dws, standard, shift and add plans at B=256, a
               groups=2 conv, odd and even-HK shapes, shift tables with
               |shift| up to 2 and with every channel on one shift, add
@@ -28,7 +28,14 @@ Phases, one line each, any failure exits non-zero:
               relu on and off, with (K,1,D) weights, and its backward (dx
               bitwise against flip-plain-flip, dw against the plain
               reduction, both within 1e-5 of autograd through the plain
-              version); per main-path shape the kernel's time, its
+              version); the float modes of conv2d, depthwise2d,
+              maxpool2d, shift_conv2d, add_conv2d and matmul in float32
+              and bfloat16 at the tuner's Table-2 jobs, at every layer
+              shape of the four CNN plans at B=256 and at edges (HK 1, 2
+              and 5, groups, C = 19, M = 1, K = 33 and 45, relu and bias
+              on and off); every config of the tuner's space of every
+              entry point, at one shape each, bitwise equal to the default
+              config's output; per main-path shape the kernel's time, its
               bound, the plain version's time and one PyTorch call's time
               as a yardstick (device times from torch.profiler, TF32 off),
               and the time of back-to-back wrapper calls.
@@ -74,6 +81,17 @@ Phases, one line each, any failure exits non-zero:
               version on three layers at a served prompt; tokens/s,
               decode-step ms, TTFT p50/p99 and one decode step's device
               breakdown.
+8. tune     — the autotuner: ``python -m repro_torch.tune``'s main over
+              the paper's Table-2 jobs and the four CNN primitives' int8
+              and W4 plans at B=256, plus the tuner's float32 and bfloat16
+              pool jobs, every candidate ranked by device time; the cache
+              written under build/repro_torch/, reloaded and installed; the
+              int8 dws and W4 shift plans of phase 4 served through
+              CompiledPlan with it, trunks bitwise equal to phase 4's,
+              configs read from the cache, throughput in images/s tuned
+              and on the analytic configs; every kernel but matmul_w4
+              (which no job runs) launched; the host time of a memo-hit
+              config lookup.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -169,17 +187,22 @@ def peaks(name: str):
     return PEAKS["PCIe"] if "PCIe" in name else PEAKS["SXM"]
 
 
-def int32_rate(torch) -> tuple:
-    """(ops/s, text): the CUDA cores' int32 rate, SMs x 64 lanes x the
-    maximum SM clock (nvidia-smi), the ceiling of add-conv, which has no
-    tensor-core form."""
+def sms_and_clock(torch) -> tuple:
+    """(SMs, maximum SM clock in MHz as nvidia-smi reports it)."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"],
         capture_output=True, text=True, timeout=60)
     check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
-    mhz = float(out.stdout.strip().splitlines()[0])
+    return sms, float(out.stdout.strip().splitlines()[0])
+
+
+def int32_rate(torch) -> tuple:
+    """(ops/s, text): the CUDA cores' int32 rate, SMs x 64 lanes x the
+    maximum SM clock (nvidia-smi), the ceiling of add-conv, which has no
+    tensor-core form."""
+    sms, mhz = sms_and_clock(torch)
     rate = sms * INT32_LANES_PER_SM * mhz * 1e6
     return rate, (f"{sms} SMs x {INT32_LANES_PER_SM} int32 lanes x "
                   f"{mhz:.0f} MHz = {rate / 1e12:.2f} T ops/s")
@@ -203,39 +226,27 @@ def time_ms(torch, fn, reps=20, trials=7) -> float:
     return statistics.median(times)
 
 
-#: profiler sessions tried before a window with no device activity counts:
-#: on the card's machine an occasional session records no CUDA activity
-PROFILE_TRIES = 4
-
-
 def device_kernels(torch, fn, reps):
-    """torch.profiler's CUDA kernel rows (key_averages) for ``reps`` calls;
-    a session that recorded no device time is run again, up to
-    ``PROFILE_TRIES`` sessions in all (an empty list if none did)."""
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(PROFILE_TRIES):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        rows = [e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
-        if sum(e.self_device_time_total for e in rows) > 0:
-            return rows
-    return []
+    """The device activity of one call of ``fn`` (``repro_torch.tune.
+    runner.device_kernels``: one row per kernel with its launches and
+    device microseconds per call, from two torch.profiler sessions of
+    ``reps`` calls, the records a session lost filled in; on the card's
+    machine a session now and then records none or only part of its
+    device activity); fails if too few sessions recorded anything."""
+    from repro_torch.tune.runner import device_kernels as per_call
+    try:
+        return per_call(fn, calls=reps)
+    except RuntimeError as e:
+        raise SmokeFailure(str(e)) from e
 
 
 def device_ms(torch, fn, reps=20) -> float:
     """Device time of one call: the summed time of every kernel the call
     launches (torch.profiler), without the host time between launches.
     Fails if no profiler session sees device time."""
-    fn()
-    torch.cuda.synchronize()
-    us = sum(e.self_device_time_total
-             for e in device_kernels(torch, fn, reps)) / reps
-    check(us > 0, "torch.profiler saw no device time")
-    return us / 1e3
+    ms = sum(r.us for r in device_kernels(torch, fn, reps)) / 1e3
+    check(ms > 0, "torch.profiler saw no device time")
+    return ms
 
 
 # ---------------------------------------------------------------- phase 3 --
@@ -620,6 +631,8 @@ def phase_kernels(torch, K, dev, name, rng):
         per_kernel = _phase_kernels(torch, K, dev, rng, bw, rates)
         per_kernel["causal_conv1d"] = phase_conv1d(torch, K, dev, rng, bw,
                                                    f32_rate)
+        per_kernel.update(phase_float(torch, K, dev, rng, bw))
+    phase_candidates(torch, K, dev, rng)
     return per_kernel
 
 
@@ -803,6 +816,357 @@ def conv1d_backward(torch, K, dev, rng, shape=(2, 96, C1D_WIDTH)):
                  "version" if dtype == torch.float32 else ""))
 
 
+# ------------------------------------------------- phase 3: float modes --
+
+#: the float jobs of the tuner's Table-2 plan (repro_torch.tune.__main__
+#: shapes_table2), plus the tuner's float pool job: each float kernel's
+#: JSON row sums its times over these
+T2_CONV = ((1, 10, 10, 128, 64, 3, 1), (1, 10, 10, 128, 64, 3, 4),
+           (1, 32, 32, 16, 16, 3, 1), (1, 32, 32, 16, 16, 7, 1),
+           (1, 8, 8, 16, 16, 3, 1), (1, 32, 32, 32, 32, 3, 1))
+T2_DW, T2_SHIFT, T2_ADD = (1, 32, 32, 64, 3), (1, 32, 32, 64, 64), \
+    (1, 10, 10, 16, 16, 3)
+T2_MATMUL = ((256, 512, 256), (512, 512, 512))
+T2_POOL = (8, 32, 32, 64, 2, 2)
+
+
+def f32_rates(torch) -> tuple:
+    """(FMA flop/s, non-FMA op/s, text): float32 on the CUDA cores, SMs x
+    128 lanes x the maximum SM clock (nvidia-smi), x 2 for an FMA."""
+    sms, mhz = sms_and_clock(torch)
+    ops = sms * 128 * mhz * 1e6
+    return 2 * ops, ops, (f"{sms} SMs x 128 float32 lanes x {mhz:.0f} MHz "
+                          f"= {ops / 1e12:.2f} T ops/s, {2 * ops / 1e12:.2f} "
+                          "TFLOP/s as FMAs")
+
+
+def float_cases(torch, K, dev, rng):
+    """Yield (kernel, label, timed, run_kernel, run_plain, run_lib, bytes,
+    (ops, kind)) for every float-mode comparison of phase 3: the tuner's
+    Table-2 float jobs and the CNN plans' layer shapes at B=256 (float32,
+    timed; the Table-2 ones summed into the JSON row, ``timed == "t2"``),
+    the same in bfloat16, then HK=1, even HK, grouped, C off a multiple of
+    32, M=1, K off a multiple of 32, relu and bias on and off (bitwise
+    only). ``kind`` is "fma" (float32 multiply-adds, 2 flops each) or
+    "op" (float32 operations with no FMA form)."""
+    import torch.nn.functional as F
+    from repro_torch.core.primitives import shift_channels
+
+    def f(shape, dtype):
+        return torch.from_numpy(rng.standard_normal(shape).astype("float32")
+                                ).to(dev).to(dtype)
+
+    def pads(hk):
+        return (hk // 2, (hk - 1) // 2, hk // 2, (hk - 1) // 2)
+
+    def conv(label, shape, dtype, timed=False, bias=True, act="relu"):
+        n, h, w, cx, cy, hk, g = shape
+        x, wt = f((n, h, w, cx), dtype), f((hk, hk, cx // g, cy), dtype)
+        b = f((cy,), dtype) if bias else None
+        kw = dict(groups=g, act=act)
+        es = x.element_size()
+        xf = F.pad(x.permute(0, 3, 1, 2).float(), pads(hk)).contiguous()
+        wf = wt.permute(3, 2, 0, 1).float().contiguous()
+        return ("conv2d_f", label, timed,
+                lambda: K.conv2d_f(x, wt, b, **kw),
+                lambda: K.conv2d_f_plain(x, wt, b, **kw),
+                lambda: F.conv2d(xf, wf, groups=g),
+                es * (x.numel() + wt.numel() + n * h * w * cy + (cy if bias
+                                                                 else 0)),
+                (n * h * w * cy * (cx // g) * hk * hk, "fma"))
+
+    def dw(label, shape, dtype, timed=False, act="relu"):
+        n, h, w, c, hk = shape
+        x, wt = f((n, h, w, c), dtype), f((hk, hk, c), dtype)
+        xf = F.pad(x.permute(0, 3, 1, 2).float(), pads(hk)).contiguous()
+        wf = wt.permute(2, 0, 1)[:, None].float().contiguous()
+        return ("depthwise2d_f", label, timed,
+                lambda: K.depthwise2d_f(x, wt, act=act),
+                lambda: K.depthwise2d_f_plain(x, wt, act=act),
+                lambda: F.conv2d(xf, wf, groups=c),
+                x.element_size() * (2 * x.numel() + wt.numel()),
+                (x.numel() * hk * hk, "fma"))
+
+    def pool(label, shape, dtype, timed=False):
+        n, h, w, c, win, st = shape
+        x = f((n, h, w, c), dtype)
+        ho, wo = (h - win) // st + 1, (w - win) // st + 1
+        lib = None
+        if win == st and h % win == 0 and w % win == 0:
+            v = x.view(n, h // win, win, w // win, win, c)
+            lib = lambda: v.amax(dim=(2, 4))          # noqa: E731
+        return ("maxpool2d_f", label, timed,
+                lambda: K.maxpool2d_f(x, window=win, stride=st),
+                lambda: K.maxpool2d_plain(x, window=win, stride=st), lib,
+                x.element_size() * (x.numel() + n * ho * wo * c),
+                (n * ho * wo * c * (win * win - 1), "op"))
+
+    def shift(label, shape, dtype, d=1, timed=False, act="relu"):
+        n, h, w, c, cy = shape
+        x, wt = f((n, h, w, c), dtype), f((c, cy), dtype)
+        table = torch.from_numpy(grid_table(c, d)).to(dev)
+        xs = shift_channels(x.float(), table).permute(0, 3, 1, 2) \
+            .contiguous()
+        wf = wt.t().float()[:, :, None, None].contiguous()
+        return ("shift_conv2d_f", label, timed,
+                lambda: K.shift_conv2d_f(x, table, wt, max_shift=d, act=act),
+                lambda: K.shift_conv2d_f_plain(x, table, wt, max_shift=d,
+                                               act=act),
+                lambda: F.conv2d(xs, wf),
+                x.element_size() * (x.numel() + wt.numel() + n * h * w * cy)
+                + 8 * c, (n * h * w * cy * c, "fma"))
+
+    def add(label, shape, dtype, timed=False, act=None):
+        n, h, w, cx, cy, hk = shape
+        x, wt = f((n, h, w, cx), dtype), f((hk, hk, cx, cy), dtype)
+        xf = F.pad(x.permute(0, 3, 1, 2).float(), pads(hk))
+        patches = F.unfold(xf, hk).transpose(1, 2) \
+            .reshape(n * h * w, cx * hk * hk).contiguous()
+        wf = wt.permute(3, 2, 0, 1).reshape(cy, cx * hk * hk).float() \
+            .contiguous()
+        return ("add_conv2d_f", label, timed,
+                lambda: K.add_conv2d_f(x, wt, act=act),
+                lambda: K.add_conv2d_f_plain(x, wt, act=act),
+                lambda: torch.cdist(patches, wf, p=1),
+                x.element_size() * (x.numel() + wt.numel() + n * h * w * cy),
+                (2 * n * h * w * cy * cx * hk * hk, "op"))
+
+    def mm(label, shape, dtype, timed=False, act=None):
+        m, k, n = shape
+        a, b = f((m, k), dtype), f((k, n), dtype)
+        af, bf = a.float(), b.float()
+        return ("matmul_f", label, timed,
+                lambda: K.matmul_f(a, b, act=act),
+                lambda: K.matmul_f_plain(a, b, act=act),
+                lambda: torch.matmul(af, bf),
+                a.element_size() * (a.numel() + b.numel() + m * n),
+                (m * n * k, "fma"))
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    for dtype in (f32, bf16):
+        tag = "f32" if dtype == f32 else "bf16"
+        t2 = "t2" if dtype == f32 else True       # bf16: timed, not summed
+        timed = dtype == f32
+        for shape in T2_CONV:
+            yield conv(f"{tag} table2 {shape}", shape, dtype, t2)
+        yield dw(f"{tag} table2 {T2_DW}", T2_DW, dtype, t2)
+        yield shift(f"{tag} table2 {T2_SHIFT}", T2_SHIFT, dtype, timed=t2)
+        yield add(f"{tag} table2 {T2_ADD}", T2_ADD, dtype, t2)
+        for shape in T2_MATMUL:
+            yield mm(f"{tag} table2 {shape}", shape, dtype, t2)
+        yield pool(f"{tag} tuner pool {T2_POOL}", T2_POOL, dtype, t2)
+        seen = set()
+        for prim in ("dws", "standard", "shift", "add"):
+            for kernel, label, a in main_path_shapes(prim):
+                key = (kernel, tuple(sorted(a.items())))
+                if key in seen:
+                    continue
+                seen.add(key)
+                lab = f"{tag} {prim} {label} B={BATCH}"
+                if kernel == "conv2d":
+                    yield conv(lab, (a["n"], a["h"], a["w"], a["cx"],
+                                     a["cy"], a["hk"], a["g"]), dtype, timed)
+                elif kernel == "depthwise2d":
+                    yield dw(lab, (a["n"], a["h"], a["w"], a["c"], a["hk"]),
+                             dtype, timed)
+                elif kernel == "shift_conv2d":
+                    yield shift(lab, (a["n"], a["h"], a["w"], a["c"],
+                                      a["cy"]), dtype, a["d"], timed)
+                elif kernel == "add_conv2d":
+                    yield add(lab, (a["n"], a["h"], a["w"], a["cx"], a["cy"],
+                                    a["hk"]), dtype, timed)
+                else:
+                    yield pool(lab, (a["n"], a["h"], a["w"], a["c"], 2, 2),
+                               dtype, timed)
+        # edges: bitwise only
+        yield conv(f"{tag} HK=1 2x8x8x5->7", (2, 8, 8, 5, 7, 1, 1), dtype)
+        yield conv(f"{tag} even HK=2 2x6x7x4->8 no bias", (2, 6, 7, 4, 8, 2,
+                                                           1), dtype,
+                   bias=False, act=None)
+        yield conv(f"{tag} grouped g=3 2x9x9x6->9", (2, 9, 9, 6, 9, 3, 3),
+                   dtype)
+        yield conv(f"{tag} C=19 2x15x13x19->37 HK=5", (2, 15, 13, 19, 37, 5,
+                                                       1), dtype, act=None)
+        yield dw(f"{tag} C=19 HK=5 2x15x13", (2, 15, 13, 19, 5), dtype)
+        yield dw(f"{tag} HK=1 2x8x8x7", (2, 8, 8, 7, 1), dtype, act=None)
+        yield pool(f"{tag} 3/2 2x15x13x19", (2, 15, 13, 19, 3, 2), dtype)
+        yield pool(f"{tag} 3/1 2x9x8x33", (2, 9, 8, 33, 3, 1), dtype)
+        yield shift(f"{tag} |shift|<=2 C=19 2x15x13->8", (2, 15, 13, 19, 8),
+                    dtype, d=2)
+        yield shift(f"{tag} no relu 4x16x16x16->32", (4, 16, 16, 16, 32),
+                    dtype, act=None)
+        yield add(f"{tag} 2x15x13x3->8 relu", (2, 15, 13, 3, 8, 3), dtype,
+                  act="relu")
+        yield add(f"{tag} HK=1 C=19 2x8x8->8", (2, 8, 8, 19, 8, 1), dtype)
+        for shape in ((1, 896, 37), (1, 45, 37), (13, 33, 300),
+                      (70, 4864, 37), (17, 64, 100)):
+            yield mm(f"{tag} {shape}", shape, dtype, act="relu" if
+                     shape[0] % 2 else None)
+
+
+def phase_float(torch, K, dev, rng, bw):
+    """Phase 3 for the six float modes: bitwise against the plain versions
+    at every case, device times at the timed ones."""
+    fma_rate, op_rate, text = f32_rates(torch)
+    print(f"[kernels] float bounds: bytes / {bw / 1e12:.2f} TB/s; float32 "
+          f"multiply-adds and |x - w| / max operations against {text}")
+    rates = {"fma": fma_rate / 2, "op": op_rate}    # per MAC / per op
+    rows = {}
+    for (kernel, label, timed, run_k, run_p, run_lib, nbytes,
+         (n_ops, kind)) in float_cases(torch, K, dev, rng):
+        got = run_k()
+        want = run_p()
+        torch.cuda.synchronize()
+        check(got.dtype == want.dtype and got.shape == want.shape,
+              f"{kernel} {label}: kernel {got.dtype}{tuple(got.shape)} vs "
+              f"plain {want.dtype}{tuple(want.shape)}")
+        err = float((got.float() - want.float()).abs().max())
+        check(torch.equal(_bits(torch, got), _bits(torch, want)),
+              f"{kernel} {label}: kernel differs from its plain version, "
+              f"max |diff| = {err}")
+        row = rows.setdefault(kernel, dict(
+            max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+            library_ms=0.0, bytes_ms=0.0, ops_ms=0.0, shapes=0))
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["shapes"] += 1
+        if not timed:
+            continue
+        bytes_ms, ops_ms = 1e3 * nbytes / bw, 1e3 * n_ops / rates[kind]
+        t_k = device_ms(torch, run_k)
+        t_p = device_ms(torch, run_p, reps=3)
+        t_l = device_ms(torch, run_lib) if run_lib is not None else None
+        bound = max(bytes_ms, ops_ms)
+        print(f"[kernels] {kernel:14s} {label:44s} bitwise ok  kernel "
+              f"{t_k:.4f} ms  bound {bound:.5f} ms "
+              f"({'bytes' if bytes_ms >= ops_ms else 'operations'})  plain "
+              f"{t_p:.4f} ms  library "
+              f"{'n/a' if t_l is None else f'{t_l:.4f} ms'}")
+        if timed != "t2":
+            continue
+        row["ms"] += t_k
+        row["plain_ms"] += t_p
+        row["bound_ms"] += bound
+        row["bytes_ms"] += bytes_ms
+        row["ops_ms"] += ops_ms
+        if t_l is None or row["library_ms"] is None:
+            row["library_ms"] = None
+        else:
+            row["library_ms"] += t_l
+    for kernel, row in rows.items():
+        print(f"[kernels] {kernel}: {row['shapes']} cases (float32 and "
+              "bfloat16) bitwise equal to the plain version")
+    return rows
+
+
+def entry_points(torch, K, dev, rng):
+    """(name, sig, dtype, call(**config)) of every kernel entry point at
+    one shape, for the candidate-invariance check."""
+    from repro_torch import tune
+    from repro_torch.core.quantize import pack_w4
+
+    def i8(shape):
+        return torch.from_numpy(rng.integers(-128, 128, shape)
+                                .astype("int8")).to(dev)
+
+    def f(shape, dtype=torch.float32):
+        return torch.from_numpy(rng.standard_normal(shape).astype("float32")
+                                ).to(dev).to(dtype)
+
+    def w4(shape, axis):
+        q = torch.from_numpy(rng.integers(-8, 8, shape).astype("int8"))
+        ws = torch.from_numpy(rng.integers(0, 5, shape[axis])
+                              .astype("int8")).to(dev)
+        return pack_w4(q, axis).contiguous().to(dev), ws
+
+    n, h, w, c, cy = 8, 16, 16, 16, 32
+    x8, xf = i8((n, h, w, c)), f((n, h, w, c))
+    b = torch.from_numpy(rng.integers(-4000, 4000, cy).astype("int32")) \
+        .to(dev)
+    table = torch.from_numpy(grid_table(c, 1)).to(dev)
+    q = dict(requant_shift=7, act="relu")
+    conv_sig = tune.sig_conv2d(n, h, w, c, cy, 3, 1)
+    dw_sig = tune.sig_depthwise2d(n, h, w, c, 3)
+    pool_sig = tune.sig_maxpool2d(n, h, w, c, 2, 2)
+    shift_sig = tune.sig_shift_conv2d(n, h, w, c, cy)
+    add_sig = tune.sig_add_conv2d(n, h, w, c, cy, 3)
+    mm_sig = tune.sig_matmul(8, 896, 4864)
+    wc, wd, ws_, wa = (i8((3, 3, c, cy)), i8((3, 3, c)), i8((c, cy)),
+                       i8((3, 3, c, cy)))
+    pc, pd, pshift, pa = (w4((3, 3, c, cy), 2), w4((3, 3, c), 0),
+                          w4((c, cy), 0), w4((3, 3, c, cy), 2))
+    a8, bm8 = i8((8, 896)), i8((896, 4864))
+    pm = w4((896, 4864), 0)
+    fc, fd, fs, fa = (f((3, 3, c, cy)), f((3, 3, c)), f((c, cy)),
+                      f((3, 3, c, cy)))
+    fa_, fb_ = f((40, 300)), f((300, 520))
+    xc, wcv = f((2, 70, 300), torch.bfloat16), f((4, 300), torch.bfloat16)
+    akw = dict(requant_shift=9, x_preshift=2, w_preshift=0)
+    return [
+        ("conv2d_q8", conv_sig, "int8",
+         lambda **k: K.conv2d_q8(x8, wc, b, **q, **k)),
+        ("depthwise2d_q8", dw_sig, "int8",
+         lambda **k: K.depthwise2d_q8(x8, wd, **q, **k)),
+        ("maxpool2d_s8", pool_sig, "int8",
+         lambda **k: K.maxpool2d_s8(x8, **k)),
+        ("shift_conv2d_q8", shift_sig, "int8",
+         lambda **k: K.shift_conv2d_q8(x8, table, ws_, b, **q, **k)),
+        ("add_conv2d_q8", add_sig, "int8",
+         lambda **k: K.add_conv2d_q8(x8, wa, b, **akw, **k)),
+        ("conv2d_w4", conv_sig, "w4a8",
+         lambda **k: K.conv2d_w4(x8, *pc, b, **q, **k)),
+        ("depthwise2d_w4", dw_sig, "w4a8",
+         lambda **k: K.depthwise2d_w4(x8, *pd, **q, **k)),
+        ("shift_conv2d_w4", shift_sig, "w4a8",
+         lambda **k: K.shift_conv2d_w4(x8, table, *pshift, b, **q, **k)),
+        ("add_conv2d_w4", add_sig, "w4a8",
+         lambda **k: K.add_conv2d_w4(x8, *pa, b, **akw, **k)),
+        ("matmul_q8", mm_sig, "int8",
+         lambda **k: K.matmul_q8(a8, bm8, requant_shift=14, **k)),
+        ("matmul_w4", mm_sig, "w4a8",
+         lambda **k: K.matmul_w4(a8, *pm, requant_shift=14, **k)),
+        ("causal_conv1d", tune.sig_causal_conv1d(2, 70, 300, 4), "bfloat16",
+         lambda **k: K.causal_conv1d(xc, wcv, **k)),
+        ("conv2d_f", conv_sig, "float32",
+         lambda **k: K.conv2d_f(xf, fc, act="relu", **k)),
+        ("depthwise2d_f", dw_sig, "float32",
+         lambda **k: K.depthwise2d_f(xf, fd, **k)),
+        ("maxpool2d_f", pool_sig, "float32",
+         lambda **k: K.maxpool2d_f(xf, **k)),
+        ("shift_conv2d_f", shift_sig, "float32",
+         lambda **k: K.shift_conv2d_f(xf, table, fs, max_shift=1, **k)),
+        ("add_conv2d_f", add_sig, "float32",
+         lambda **k: K.add_conv2d_f(xf, fa, **k)),
+        ("matmul_f", tune.sig_matmul(40, 300, 520), "float32",
+         lambda **k: K.matmul_f(fa_, fb_, **k)),
+    ]
+
+
+def phase_candidates(torch, K, dev, rng):
+    """Every config in the tuner's space of every entry point, at one shape
+    each, bitwise equal to the default config's output."""
+    from repro_torch import tune
+    total = 0
+    for name, sig, dtype, call in entry_points(torch, K, dev, rng):
+        cands = list(tune.candidates(sig, dtype))
+        check(len(cands) >= 2, f"{name}: a space of {len(cands)}")
+        want = call(**tune.default_config(sig.kernel, sig, dtype))
+        for cfg in cands:
+            got = call(**cfg)
+            torch.cuda.synchronize()
+            check(torch.equal(_bits(torch, got) if got.is_floating_point()
+                              else got,
+                              _bits(torch, want) if want.is_floating_point()
+                              else want),
+                  f"{name} {sig.key()} {cfg}: output differs from the "
+                  "default config's")
+        total += len(cands)
+        print(f"[kernels] {name} {sig.key()} [{dtype}]: all "
+              f"{len(cands)} candidates {cands} bitwise equal to the "
+              "default")
+    print(f"[kernels] tuner candidates: {total} configs of 18 entry points "
+          "bitwise equal to their defaults")
+
+
 # ---------------------------------------------------------------- phase 4 --
 
 def numpy_params(cfg, rng, group_spread=None):
@@ -861,7 +1225,8 @@ def plan_to_host(plan):
 
 def phase_plan(torch, K, name, rng, dev="cuda"):
     """Lower one plan of ``PLANS`` on ``dev`` and hold its cuda trunk
-    against the torch trunk and a host run."""
+    against the torch trunk and a host run; returns ``(plan, x, trunk)``,
+    the CompiledPlan, its 256 input images and its cuda trunk."""
     from repro_torch.core.quantize import QTensorW4
     from repro_torch.graph import CompiledPlan, build_cnn_graph, lower
     from repro_torch.models import CNNConfig, quantize_cnn
@@ -924,7 +1289,7 @@ def phase_plan(torch, K, name, rng, dev="cuda"):
           f"{cuda_plan.plan.in_fb}, cuda trunk == torch trunk bitwise "
           f"({tuple(tc.q.shape)}, {nz:.3f} nonzero) == host trunk, "
           f"logits max |diff| {err:.2e}{groups}")
-    return cuda_plan
+    return cuda_plan, x, tc
 
 
 # ---------------------------------------------------------------- phase 5 --
@@ -992,8 +1357,8 @@ def serve_breakdown(torch, name, plan, x_host, round_ms):
     fwd_host_ms = 1e3 * (time.perf_counter() - t0) / 10
     reps = 5
     kernels = device_kernels(torch, lambda: plan.forward_batch(x_dev), reps)
-    dev_ms = sum(e.self_device_time_total for e in kernels) / reps / 1e3
-    n_kern = sum(e.count for e in kernels) / reps
+    dev_ms = sum(r.us for r in kernels) / 1e3
+    n_kern = sum(r.launches for r in kernels)
     check(dev_ms > 0, "torch.profiler saw no device time")
     busy = (f"{dev_ms:.4f} ms in {n_kern:.0f} kernels, device idle "
             f"{1 - dev_ms / fwd_dev_ms:.3f}")
@@ -1001,11 +1366,10 @@ def serve_breakdown(torch, name, plan, x_host, round_ms):
           f"{round_ms:.4f} ms; "
           f"forward_batch host in/out {fwd_host_ms:.4f} ms; forward_batch "
           f"device-resident {fwd_dev_ms:.4f} ms, of which {busy}")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total):
-        kernel = e.key.replace("void ", "").replace("at::native::", "")
-        print(f"[breakdown] {name}   "
-              f"{e.self_device_time_total / reps:9.1f} us "
-              f"x{e.count // reps:3d}  {kernel[:110]}")
+    for r in sorted(kernels, key=lambda r: -r.us):
+        kernel = r.key.replace("void ", "").replace("at::native::", "")
+        print(f"[breakdown] {name}   {r.us:9.1f} us x{r.launches:3.0f}  "
+              f"{kernel[:110]}")
 
 
 # ---------------------------------------------------------------- phase 6 --
@@ -1134,21 +1498,20 @@ def lm_breakdown(torch, prec, eng, cfg, dev, pos=128, reps=5,
     step = lambda: eng.decode(eng.params, tok, cache)     # noqa: E731
     step_ms = time_ms(torch, step, reps=reps, trials=3)
     kernels = device_kernels(torch, step, reps)
-    dev_ms = sum(e.self_device_time_total for e in kernels) / reps / 1e3
+    dev_ms = sum(r.us for r in kernels) / 1e3
     check(dev_ms > 0, "torch.profiler saw no device time")
-    mm_ms = sum(e.self_device_time_total for e in kernels
-                if any(t in e.key for t in port)) / reps / 1e3
-    n_kern = sum(e.count for e in kernels) / reps
+    mm_ms = sum(r.us for r in kernels
+                if any(t in r.key for t in port)) / 1e3
+    n_kern = sum(r.launches for r in kernels)
     print(f"[lm-breakdown] {prec}: one decode step, {LM_BATCH} slots at "
           f"position {pos}: {step_ms:.4f} ms (CUDA events), device busy "
           f"{dev_ms:.4f} ms in {n_kern:.0f} kernels, of which {what} "
           f"{mm_ms:.4f} ms and the rest {dev_ms - mm_ms:.4f} "
           f"ms; device idle {1 - dev_ms / step_ms:.3f}")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        kernel = e.key.replace("void ", "").replace("at::native::", "")
-        print(f"[lm-breakdown] {prec}   "
-              f"{e.self_device_time_total / reps:9.1f} us "
-              f"x{e.count // reps:4d}  {kernel[:100]}")
+    for r in sorted(kernels, key=lambda r: -r.us)[:8]:
+        kernel = r.key.replace("void ", "").replace("at::native::", "")
+        print(f"[lm-breakdown] {prec}   {r.us:9.1f} us x{r.launches:4.0f}  "
+              f"{kernel[:100]}")
 
 
 # ---------------------------------------------------------------- phase 7 --
@@ -1261,6 +1624,114 @@ def phase_ssm(torch, K, card, rng, dev="cuda", cfg=None, n_req=SSM_REQUESTS,
     return got
 
 
+# ---------------------------------------------------------------- phase 8 --
+
+#: phase 8: the phase-4 plans served again with the tuned cache installed
+TUNED_PLANS = ("dws", "shift-w4")
+TUNE_CACHE = ROOT / "build" / "repro_torch" / "tune_cache.json"
+
+
+def phase_tune(torch, K, card, plans, dev="cuda"):
+    """The autotuner path: ``python -m repro_torch.tune``'s main over the
+    Table-2 jobs and the four CNN primitives' int8 and W4 plans at B=256,
+    plus the tuner's float pool jobs; the cache written, reloaded and
+    installed; the int8 dws and W4 shift plans of phase 4 served through
+    CompiledPlan with it, their trunks bitwise equal to phase 4's; their
+    throughput; the host cost of a memo-hit lookup. Returns the launch
+    count of every kernel over the phase."""
+    from repro_torch import tune
+    from repro_torch.graph import CompiledPlan
+    from repro_torch.obs import metrics
+    from repro_torch.tune.__main__ import _Maker, _pool
+    from repro_torch.tune.__main__ import main as tune_main
+    tune.reset()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    cache = tune_main(["--shapes", "table2", "--cnn",
+                       "standard,dws,shift,add", "--cnn-batch", str(BATCH),
+                       "--out", str(TUNE_CACHE), "--device", str(dev)])
+    # shapes_table2 pools int8: the tuner's float pool jobs, as the JAX
+    # script's _pool(dtype=...) would give them
+    mk = _Maker(dev)
+    for dt in ("float32", "bfloat16"):
+        kernel, sig, arrays, dtype, kw = _pool(mk, 8, 32, 32, 64, 2, 2,
+                                               dtype=dt)
+        best, best_us = tune.autotune_into(cache, kernel, sig, arrays,
+                                           dtype, kwargs=kw, reps=3,
+                                           warmup=1)
+        e = cache.get(tune.cache_key(kernel, sig.key(), dtype,
+                                     tune.backend_tag(dev)))
+        print(f"{kernel}/{sig.key()}/{dtype}: best={best} {best_us:.2f}us "
+              f"default={e['default_us']:.2f}us speedup="
+              f"{e['default_us'] / best_us:.2f}x")
+    cache.save(str(TUNE_CACHE))
+    t_tune = time.perf_counter() - t0
+    entries = cache.entries
+    wins = sum(e["us"] < e["default_us"] for e in entries.values())
+    speedups = [e["default_us"] / e["us"] for e in entries.values()]
+    print(f"[tune] {len(entries)} jobs tuned on {tune.backend_tag(dev)} in "
+          f"{t_tune:.1f} s ({sum(e['n_candidates'] for e in entries.values())}"
+          f" candidates, ranked by device time); {wins} beat their default "
+          "config; "
+          f"default/best {min(speedups):.3f}-{max(speedups):.3f}x, geometric "
+          f"mean {float(np.exp(np.mean(np.log(speedups)))):.3f}x; wrote "
+          f"{TUNE_CACHE.relative_to(ROOT)}")
+
+    reloaded = tune.TuneCache(str(TUNE_CACHE))
+    check(not reloaded.stale and reloaded.entries == json.loads(
+        json.dumps(entries)), "tune: the reloaded cache differs from the "
+                              "one written")
+    tune.set_default_cache(reloaded)
+    hits = metrics.counter("tune.cache.hit")
+    for name in TUNED_PLANS:
+        plan, x, want = plans[name]
+        h0 = hits.value
+        ex = CompiledPlan(plan.plan, method="cuda", device=dev)
+        got = ex.trunk(x)
+        check(torch.equal(got.q, want.q) and got.frac_bits == want.frac_bits,
+              f"tune {name}: the tuned plan's trunk differs from phase 4's")
+        n_cfg = sum(len(c) for c in ex.node_configs.values())
+        check(hits.value - h0 >= n_cfg > 0,
+              f"tune {name}: {hits.value - h0} cache hits for {n_cfg} "
+              "resolved node configs")
+        # the analytic configs (no cache) and the tuned ones, in turns:
+        # analytic, tuned, tuned, analytic
+        untuned = CompiledPlan(plan.plan, method="cuda", device=dev)
+        ips = {"tuned": [], "analytic": []}
+        for which in ("analytic", "tuned", "tuned", "analytic"):
+            tune.set_default_cache(reloaded if which == "tuned"
+                                   else tune.TuneCache(None))
+            r = (ex if which == "tuned" else untuned).throughput(
+                x, reps=10, warmup=3)
+            check(r["images_per_s"] > 0, f"tune {name}: no throughput")
+            ips[which].append(r["images_per_s"])
+        tune.set_default_cache(reloaded)
+        print(f"[tune] {name}: trunk with the tuned cache == phase 4's "
+              f"bitwise; node configs {ex.node_configs}; throughput (images/s"
+              f", batch {BATCH}, wall clock, in turns) tuned "
+              f"{ips['tuned'][0]:.1f} and {ips['tuned'][1]:.1f}, analytic "
+              f"configs {ips['analytic'][0]:.1f} and {ips['analytic'][1]:.1f} "
+              f"on {card}")
+    launches = {k.__name__: k.launches for k in K.KERNELS}
+    missing = [k for k, v in launches.items() if not v and k != "matmul_w4"]
+    check(not missing, f"tune: the tuner never launched {missing}")
+
+    sig = tune.sig_conv2d(BATCH, 32, 32, 3, 16, 3, 1)
+    tune.get_config(sig, "int8", dev)
+    n = 20000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        tune.get_config(sig, "int8", dev)
+    us = 1e6 * (time.perf_counter() - t0) / n
+    lost = metrics.counter("tune.profile.lost_sessions").value
+    print(f"[tune] a memo-hit get_config takes {us:.3f} us of host time "
+          f"({n} calls); {lost:.0f} profiler sessions of this run (phases "
+          "3-8) recorded none or only part of their device activity (run "
+          f"again, or filled in); launches {launches}")
+    tune.reset()
+    return launches
+
+
 # ------------------------------------------------------------------- main --
 
 SOURCES = {
@@ -1294,6 +1765,21 @@ SOURCES = {
     "causal_conv1d": ("causal_conv1d",
                       "src/repro_torch/kernels/csrc/conv1d_causal.cu",
                       "src/repro/kernels/conv1d_causal.py:58"),
+    "conv2d_f": ("conv2d_f", "src/repro_torch/kernels/csrc/conv_im2col.cu",
+                 "src/repro/kernels/conv_im2col.py:107"),
+    "depthwise2d_f": ("depthwise2d_f",
+                      "src/repro_torch/kernels/csrc/conv_dw.cu",
+                      "src/repro/kernels/conv_dw.py:85"),
+    "maxpool2d_f": ("maxpool2d_f", "src/repro_torch/kernels/csrc/pool.cu",
+                    "src/repro/kernels/pool.py:65"),
+    "shift_conv2d_f": ("shift_conv2d_f",
+                       "src/repro_torch/kernels/csrc/conv_shift.cu",
+                       "src/repro/kernels/conv_shift.py:55"),
+    "add_conv2d_f": ("add_conv2d_f",
+                     "src/repro_torch/kernels/csrc/conv_add.cu",
+                     "src/repro/kernels/conv_add.py:103"),
+    "matmul_f": ("matmul_f", "src/repro_torch/kernels/csrc/matmul_q8.cu",
+                 "src/repro/kernels/matmul_q8.py:106"),
 }
 
 
@@ -1331,16 +1817,23 @@ def main() -> int:
     plans = {name: phase_plan(torch, K, name, rng) for name in PLANS}
     launches = dict.fromkeys((k.__name__ for k in K.KERNELS), 0)
     for p in SERVED:
-        for k, v in phase_serve(torch, K, p, plans[p], card, rng).items():
+        for k, v in phase_serve(torch, K, p, plans[p][0], card,
+                                rng).items():
             launches[k] += v
-    del plans
+    plans = {name: plans[name] for name in TUNED_PLANS}   # for phase 8
     for k, v in phase_lm(torch, K, card, rng).items():
         launches[k] += v
     torch.cuda.empty_cache()    # phase 6's model is gone; 7.27 B params next
     for k, v in phase_ssm(torch, K, card, rng).items():
         launches[k] += v
-    check(all(v > 0 for v in launches.values()),
+    integer = [k for k in launches if not k.endswith("_f")]
+    check(all(launches[k] > 0 for k in integer),
           f"serve: a kernel was never launched: {launches}")
+    torch.cuda.empty_cache()    # phase 7's model is gone
+    for k, v in phase_tune(torch, K, card, plans).items():
+        launches[k] += v
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel was never launched: {launches}")
 
     rows = []
     for kernel, (wrapper, source, replaces) in SOURCES.items():
@@ -1362,9 +1855,12 @@ def main() -> int:
           "over the 72 launches of one Qwen2-0.5B decode step at 8 slots "
           "(library: torch._int_mm), and for causal_conv1d over the 64 "
           "launches of one 96-token Falcon-Mamba-7B prefill (1 x 96 x 8192 "
-          "bf16; library: cuDNN conv1d, groups=D); launches are summed over "
-          "the six served CNN runs, the five LM runs and the ssm run; "
-          f"card: {card}")
+          "bf16; library: cuDNN conv1d, groups=D); the float rows (*_f) "
+          "over the tuner's float32 Table-2 jobs of that kernel, one launch "
+          "each (pool: the tuner's float pool job; library: cuDNN conv2d, "
+          "amax, torch.cdist(p=1), torch.matmul, TF32 off); launches are "
+          "summed over the six served CNN runs, the five LM runs, the ssm "
+          f"run and the tuner's run (phase 8); card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

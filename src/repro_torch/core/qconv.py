@@ -15,7 +15,9 @@ Every layer routes through the kernel layer (``repro_torch.kernels.ops``):
   ``"xla"``.
 
 Both accumulate exactly in int32 and share the Algorithm-1 epilogue, so
-they are bitwise equal. Layers the kernels cannot express (stride != 1 or
+they are bitwise equal. ``configs=`` pins the kernels' launch configs per
+stage (``repro_torch.tune``); without it each ``"cuda"`` call looks its
+config up in the tuner. Layers the kernels cannot express (stride != 1 or
 non-SAME padding) run :func:`_qconv_apply_lax` under ``"torch"`` and raise
 under ``"cuda"``.
 
@@ -63,19 +65,28 @@ def _expand_w4_qparams(qparams: dict) -> dict:
 
 
 def qconv_apply(qparams: dict, x: QTensor, spec: ConvSpec, out_frac_bits: int,
-                *, method: str = "cuda", act: Optional[str] = None) -> QTensor:
+                *, method: str = "cuda", act: Optional[str] = None,
+                configs: Optional[dict] = None) -> QTensor:
     """Run one quantized primitive layer; returns an int8 QTensor.
 
     ``act="relu"`` fuses the activation into the layer's LAST kernel stage
     at accumulator scale (the graph executor's fused conv+BN+ReLU block).
+    ``configs`` pins the launch configs per stage: ``{"main": {...}}`` for
+    the single-kernel primitives, ``{"dw": ..., "pw": ...}`` for dws; only
+    with ``method="cuda"`` (the plain versions have no launch).
     """
     from repro_torch.kernels import ops as K
 
     if method not in ("cuda", "torch"):
         raise ValueError(f"unknown method {method!r}; expected 'cuda' or "
                          "'torch'")
+    if configs is not None and method != "cuda":
+        raise ValueError("qconv_apply: configs= pins CUDA launch configs; "
+                         "method='torch' has none (drop configs or use "
+                         "'cuda')")
     p = spec.primitive
     bias = qparams.get("b")
+    cfgs = configs or {}
 
     if not _kernel_layer_ok(spec):
         if method == "cuda":
@@ -93,7 +104,7 @@ def qconv_apply(qparams: dict, x: QTensor, spec: ConvSpec, out_frac_bits: int,
         acc_fb = x.frac_bits + w.frac_bits
         y = K.conv2d(x.q, wq, _bias_acc(bias, acc_fb), groups=groups,
                      method=method, requant_shift=acc_fb - out_frac_bits,
-                     act=act, w_shifts=ws)
+                     act=act, w_shifts=ws, config=cfgs.get("main"))
         return QTensor(y, out_frac_bits)
 
     if p == "dws":
@@ -104,11 +115,11 @@ def qconv_apply(qparams: dict, x: QTensor, spec: ConvSpec, out_frac_bits: int,
         mid_fb = qparams.get("mid_frac_bits", out_frac_bits)
         h = K.depthwise2d(x.q, wdq, method=method,
                           requant_shift=x.frac_bits + w_dw.frac_bits - mid_fb,
-                          w_shifts=wds)
+                          w_shifts=wds, config=cfgs.get("dw"))
         acc_fb = mid_fb + w_pw.frac_bits
         y = K.conv2d(h, wpq, _bias_acc(bias, acc_fb), method=method,
                      requant_shift=acc_fb - out_frac_bits, act=act,
-                     w_shifts=wps)
+                     w_shifts=wps, config=cfgs.get("pw"))
         return QTensor(y, out_frac_bits)
 
     if p == "shift":
@@ -121,7 +132,8 @@ def qconv_apply(qparams: dict, x: QTensor, spec: ConvSpec, out_frac_bits: int,
         y = K.shift_conv2d(x.q, qparams["shifts"], wpq,
                            _bias_acc(bias, acc_fb), method=method,
                            requant_shift=acc_fb - out_frac_bits, act=act,
-                           max_shift=spec.kernel_size // 2, w_shifts=wps)
+                           max_shift=spec.kernel_size // 2, w_shifts=wps,
+                           config=cfgs.get("main"))
         return QTensor(y, out_frac_bits)
 
     if p == "add":
@@ -131,7 +143,7 @@ def qconv_apply(qparams: dict, x: QTensor, spec: ConvSpec, out_frac_bits: int,
         y = K.add_conv2d(x.q, wq, _bias_acc(bias, acc_fb), method=method,
                          requant_shift=acc_fb - out_frac_bits,
                          x_preshift=x_pre, w_preshift=w_pre, act=act,
-                         w_shifts=ws)
+                         w_shifts=ws, config=cfgs.get("main"))
         return QTensor(y, out_frac_bits)
 
     raise ValueError(p)

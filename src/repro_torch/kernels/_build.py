@@ -32,20 +32,29 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-#: C entry points: argument types (every pointer and the stream a c_void_p)
+#: C entry points: argument types (every pointer and the stream a c_void_p).
+#: The one-thread-per-output kernels take their block size (``threads``)
+#: as the int before the stream; the float modes take a dtype code (0
+#: float32, 1 bfloat16) before it; the matmuls take their tile height.
 SIGNATURES = {
-    "repro_conv2d_q8": (_P, _P, _P, _P) + (_I,) * 9 + (_P,),
-    "repro_depthwise2d_q8": (_P, _P, _P) + (_I,) * 7 + (_P,),
-    "repro_maxpool2d_s8": (_P, _P) + (_I,) * 8 + (_P,),
-    "repro_shift_conv2d_q8": (_P,) * 5 + (_I,) * 7 + (_P,),
-    "repro_add_conv2d_q8": (_P,) * 4 + (_I,) * 10 + (_P,),
-    "repro_conv2d_w4": (_P,) * 5 + (_I,) * 9 + (_P,),
-    "repro_depthwise2d_w4": (_P,) * 4 + (_I,) * 7 + (_P,),
-    "repro_shift_conv2d_w4": (_P,) * 6 + (_I,) * 7 + (_P,),
-    "repro_add_conv2d_w4": (_P,) * 5 + (_I,) * 10 + (_P,),
-    "repro_matmul_q8": (_P,) * 4 + (_I,) * 7 + (_P,),
-    "repro_matmul_w4": (_P,) * 5 + (_I,) * 7 + (_P,),
-    "repro_causal_conv1d": (_P,) * 3 + (_I,) * 6 + (_P,),
+    "repro_conv2d_q8": (_P,) * 4 + (_I,) * 10 + (_P,),
+    "repro_depthwise2d_q8": (_P,) * 3 + (_I,) * 8 + (_P,),
+    "repro_maxpool2d_s8": (_P,) * 2 + (_I,) * 9 + (_P,),
+    "repro_shift_conv2d_q8": (_P,) * 5 + (_I,) * 8 + (_P,),
+    "repro_add_conv2d_q8": (_P,) * 4 + (_I,) * 11 + (_P,),
+    "repro_conv2d_w4": (_P,) * 5 + (_I,) * 10 + (_P,),
+    "repro_depthwise2d_w4": (_P,) * 4 + (_I,) * 8 + (_P,),
+    "repro_shift_conv2d_w4": (_P,) * 6 + (_I,) * 8 + (_P,),
+    "repro_add_conv2d_w4": (_P,) * 5 + (_I,) * 11 + (_P,),
+    "repro_matmul_q8": (_P,) * 4 + (_I,) * 8 + (_P,),
+    "repro_matmul_w4": (_P,) * 5 + (_I,) * 8 + (_P,),
+    "repro_causal_conv1d": (_P,) * 3 + (_I,) * 7 + (_P,),
+    "repro_conv2d_f": (_P,) * 4 + (_I,) * 10 + (_P,),
+    "repro_depthwise2d_f": (_P,) * 3 + (_I,) * 8 + (_P,),
+    "repro_maxpool2d_f": (_P,) * 2 + (_I,) * 10 + (_P,),
+    "repro_shift_conv2d_f": (_P,) * 4 + (_I,) * 8 + (_P,),
+    "repro_add_conv2d_f": (_P,) * 3 + (_I,) * 9 + (_P,),
+    "repro_matmul_f": (_P,) * 3 + (_I,) * 6 + (_P,),
 }
 
 

@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ._build import check_launch, library
-from .common import apply_act
+from .common import FLOAT_CODES, apply_act
 from .conv_im2col import check_act, check_cuda_operand
 
 #: the kernel's register window is a template argument up to this width
@@ -33,7 +33,9 @@ MAX_K = 8
 #: grid limits of the launch: runs of 32 positions along y, batch along z
 MAX_RUNS, MAX_BATCH = 65535, 65535
 _RUN = 32
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: channels per block: each a template instantiation (the tuner's knob)
+THREADS = (64, 128, 256)
+DEFAULT_THREADS = 128
 
 
 def _taps(name, x, w):
@@ -67,14 +69,18 @@ def causal_conv1d_plain(x, w, *, act=None):
     return apply_act(acc, act).to(x.dtype)
 
 
-def causal_conv1d(x, w, *, act=None):
+def causal_conv1d(x, w, *, act=None, threads: int = DEFAULT_THREADS):
     """x (B,L,D) float32 or bfloat16, w (K,D) or (K,1,D) in x's dtype ->
-    (B,L,D) in x's dtype."""
+    (B,L,D) in x's dtype. ``threads`` (channels per block: 64, 128 or 256)
+    changes only the launch shape."""
     w = _taps("causal_conv1d", x, w)
     check_act("causal_conv1d", act)
+    if threads not in THREADS:
+        raise ValueError(f"causal_conv1d: threads must be one of {THREADS}, "
+                         f"got {threads!r}")
     if x.device.type == "cpu":
         return causal_conv1d_plain(x, w, act=act)
-    if x.dtype not in _DTYPES:
+    if x.dtype not in FLOAT_CODES:
         raise TypeError(f"causal_conv1d: the kernel takes float32 or "
                         f"bfloat16, got {x.dtype}")
     for t in (x, w):
@@ -91,7 +97,7 @@ def causal_conv1d(x, w, *, act=None):
     with torch.cuda.device(x.device):
         rc = library().repro_causal_conv1d(
             x.data_ptr(), w.data_ptr(), y.data_ptr(), b, l, d, k,
-            int(act == "relu"), _DTYPES[x.dtype],
+            int(act == "relu"), FLOAT_CODES[x.dtype], threads,
             torch.cuda.current_stream().cuda_stream)
     check_launch("causal_conv1d", rc)
     causal_conv1d.launches += 1

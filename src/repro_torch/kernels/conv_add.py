@@ -1,8 +1,8 @@
-"""int8 and W4A8 add (AdderNet) convolution: the CUDA kernel wrappers,
-their plain PyTorch versions and their launch counters.
+"""int8, W4A8 and float add (AdderNet) convolution: the CUDA kernel
+wrappers, their plain PyTorch versions and their launch counters.
 
 Replaces the TPU kernel ``repro/kernels/conv_add.py`` (``add_conv2d`` /
-``_add_conv2d``) in its int8 and W4 modes; the source is ``csrc/conv_add.cu``.
+``_add_conv2d``) in all its modes; the source is ``csrc/conv_add.cu``.
 ``-sum |x - w|`` is not a contraction, so neither the TPU's matrix unit nor
 Hopper's tensor cores apply: the kernel runs on the CUDA cores' int32 lanes
 and is bound by operations (one ``|x - w|`` accumulate per tap, channel
@@ -17,20 +17,33 @@ base scale first, then by ``w_preshift``, as the TPU kernel orders them,
 and the pad nibble of an odd Cx is never summed (a zero weight is not
 neutral under L1).
 
+The float mode (:func:`add_conv2d_f`, float32 or bfloat16) has no
+pre-shifts and no bias: ``acc = acc - |x - w|`` in float32 over taps
+(i, j), then input channels, in order, bound by the CUDA cores' float32
+rate (a subtract and an add per tap, no FMA form). Its plain version
+repeats that order, so the two are bitwise equal; the TPU kernel sums each
+tap's channels before subtracting, so the JAX package agrees within a
+tolerance.
+
+Every wrapper takes ``threads``, the block size of its launch (the tuner's
+knob); it changes no output.
+
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches the kernel or raises.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.primitives import add_conv
 from repro_torch.core.quantize import expand_w4, wrap_left_shift
 
 from ._build import check_launch, library
-from .common import apply_act, apply_requant
+from .common import (DEFAULT_THREADS, acc_dtype, apply_act, apply_requant,
+                     check_threads, float_code)
 from .conv_im2col import (check_act, check_cuda_operand, check_elements,
-                          check_shift, check_w4)
+                          check_shift, check_w4, kernel_pads)
 
 
 def add_conv2d_q8_plain(x, w, bias=None, *, requant_shift: int = 0,
@@ -53,9 +66,10 @@ def _check_preshift(kernel: str, name: str, v):
 
 
 def _check_add(name, x, w_shape, bias, requant_shift, x_preshift,
-               w_preshift, act):
+               w_preshift, act, integer=True):
     """Shapes and options of one add-conv call; ``w_shape`` is the unpacked
-    (HK,HK,Cx,Cy). Returns (n, h, w, cx, cy, hk)."""
+    (HK,HK,Cx,Cy). Returns (n, h, w, cx, cy, hk). The float mode
+    (``integer=False``) has no pre-shifts and no requant shift."""
     if x.dim() != 4 or len(w_shape) != 4:
         raise ValueError(f"{name}: x and w must be 4-D, got "
                          f"{tuple(x.shape)} and {tuple(w_shape)}")
@@ -67,21 +81,24 @@ def _check_add(name, x, w_shape, bias, requant_shift, x_preshift,
     if bias is not None and tuple(bias.shape) != (cy,):
         raise ValueError(f"{name}: bias shape {tuple(bias.shape)} != "
                          f"({cy},)")
-    _check_preshift(name, "x_preshift", x_preshift)
-    _check_preshift(name, "w_preshift", w_preshift)
-    check_shift(name, requant_shift)
+    if integer:
+        _check_preshift(name, "x_preshift", x_preshift)
+        _check_preshift(name, "w_preshift", w_preshift)
+        check_shift(name, requant_shift)
     check_act(name, act)
     check_elements(name, x.shape, (n, h, wd, cy))
     return n, h, wd, cx, cy, hk
 
 
 def add_conv2d_q8(x, w, bias=None, *, requant_shift: int = 0,
-                  x_preshift: int = 0, w_preshift: int = 0, act=None):
+                  x_preshift: int = 0, w_preshift: int = 0, act=None,
+                  threads: int = DEFAULT_THREADS):
     """x (N,H,W,Cx) int8, w (HK,HK,Cx,Cy) int8, bias (Cy,) int32 or None
     -> (N,H,W,Cy) int8, SAME stride 1."""
     n, h, wd, cx, cy, hk = _check_add("add_conv2d_q8", x, w.shape, bias,
                                       requant_shift, x_preshift, w_preshift,
                                       act)
+    check_threads("add_conv2d_q8", threads)
     if x.device.type == "cpu":
         return add_conv2d_q8_plain(x, w, bias, requant_shift=requant_shift,
                                    x_preshift=x_preshift,
@@ -96,7 +113,8 @@ def add_conv2d_q8(x, w, bias=None, *, requant_shift: int = 0,
             x.data_ptr(), w.data_ptr(),
             None if bias is None else bias.data_ptr(), y.data_ptr(),
             n, h, wd, cx, cy, hk, x_preshift, w_preshift, requant_shift,
-            int(act == "relu"), torch.cuda.current_stream().cuda_stream)
+            int(act == "relu"), threads,
+            torch.cuda.current_stream().cuda_stream)
     check_launch("add_conv2d_q8", rc)
     add_conv2d_q8.launches += 1
     return y
@@ -118,7 +136,8 @@ def add_conv2d_w4_plain(x, w_p, w_shifts, bias=None, *,
 
 
 def add_conv2d_w4(x, w_p, w_shifts, bias=None, *, requant_shift=None,
-                  x_preshift: int = 0, w_preshift: int = 0, act=None):
+                  x_preshift: int = 0, w_preshift: int = 0, act=None,
+                  threads: int = DEFAULT_THREADS):
     """x (N,H,W,Cx) int8, w_p (HK,HK,ceil(Cx/2),Cy) int8 nibble-packed
     along Cx, w_shifts (Cx,) int8, bias (Cy,) int32 or None -> (N,H,W,Cy)
     int8, SAME stride 1."""
@@ -131,6 +150,7 @@ def add_conv2d_w4(x, w_p, w_shifts, bias=None, *, requant_shift=None,
     n, h, wd, cx, cy, hk = _check_add("add_conv2d_w4", x, (hk, hk2, cx, cy),
                                       bias, requant_shift, x_preshift,
                                       w_preshift, act)
+    check_threads("add_conv2d_w4", threads)
     if x.device.type == "cpu":
         return add_conv2d_w4_plain(x, w_p, w_shifts, bias,
                                    requant_shift=requant_shift,
@@ -146,10 +166,57 @@ def add_conv2d_w4(x, w_p, w_shifts, bias=None, *, requant_shift=None,
             x.data_ptr(), w_p.data_ptr(), w_shifts.data_ptr(),
             None if bias is None else bias.data_ptr(), y.data_ptr(),
             n, h, wd, cx, cy, hk, x_preshift, w_preshift, requant_shift,
-            int(act == "relu"), torch.cuda.current_stream().cuda_stream)
+            int(act == "relu"), threads,
+            torch.cuda.current_stream().cuda_stream)
     check_launch("add_conv2d_w4", rc)
     add_conv2d_w4.launches += 1
     return y
 
 
 add_conv2d_w4.launches = 0
+
+
+def add_conv2d_f_plain(x, w, *, act=None):
+    """Plain float version in the kernel's order: ``acc = acc - |x - w|``
+    in float32 from zero over taps (i, j), then input channels c, in order,
+    each subtraction its own operation, on the kernel's zero padding (a
+    padded zero still adds ``|0 - w|``); relu; one rounding to x's
+    dtype."""
+    _, h, wd, _ = x.shape
+    hk, _, cx, cy = w.shape
+    (pt, pb), (pl, pr) = kernel_pads(hk)
+    xp = F.pad(x.to(torch.float32), (0, 0, pl, pr, pt, pb))
+    w32 = w.to(torch.float32)
+    acc = torch.zeros(x.shape[:3] + (cy,), dtype=acc_dtype(x.dtype),
+                      device=x.device)
+    for i in range(hk):
+        for j in range(hk):
+            win = xp[:, i:i + h, j:j + wd]
+            for c in range(cx):
+                acc = acc - (win[..., c:c + 1] - w32[i, j, c]).abs()
+    return apply_act(acc, act).to(x.dtype)
+
+
+def add_conv2d_f(x, w, *, act=None, threads: int = DEFAULT_THREADS):
+    """x (N,H,W,Cx) float32 or bfloat16, w (HK,HK,Cx,Cy) in x's dtype ->
+    (N,H,W,Cy) in x's dtype, SAME stride 1."""
+    n, h, wd, cx, cy, hk = _check_add("add_conv2d_f", x, w.shape, None, None,
+                                      0, 0, act, integer=False)
+    check_threads("add_conv2d_f", threads)
+    if x.device.type == "cpu":
+        return add_conv2d_f_plain(x, w, act=act)
+    code = float_code("add_conv2d_f", x)
+    for t in (x, w):
+        check_cuda_operand("add_conv2d_f", t, x.device, x.dtype)
+    y = torch.empty((n, h, wd, cy), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = library().repro_add_conv2d_f(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), n, h, wd, cx, cy, hk,
+            int(act == "relu"), code, threads,
+            torch.cuda.current_stream().cuda_stream)
+    check_launch("add_conv2d_f", rc)
+    add_conv2d_f.launches += 1
+    return y
+
+
+add_conv2d_f.launches = 0

@@ -1,9 +1,9 @@
-"""int8 and W4A8 shift convolution (per-channel shift fused into the
+"""int8, W4A8 and float shift convolution (per-channel shift fused into the
 pointwise contraction): the CUDA kernel wrappers, their plain PyTorch
 versions and their launch counters.
 
 Replaces the TPU kernel ``repro/kernels/conv_shift.py`` (``shift_conv2d``)
-in its int8 and W4 modes; the source is ``csrc/conv_shift.cu``. What bounds
+in all its modes; the source is ``csrc/conv_shift.cu``. What bounds
 it on an H100: a 1x1 contraction over C channels, a few MB and well under a
 GFLOP per launch at the model's shapes, so its floor is about a microsecond
 of HBM time. The design: one thread per output element reads each channel at
@@ -20,6 +20,17 @@ along C with one int8 group shift per channel. The TPU wrapper re-packs
 the nibbles along its channel sort; with no sort there is nothing to
 re-pack.
 
+The float mode (:func:`shift_conv2d_f`, float32 or bfloat16) sums the
+input channels in index order, each at its own shift, in float32; its
+plain version repeats that order one multiply and one add at a time, so the
+two are bitwise equal. The TPU kernel sums per shift group on its matrix
+unit, so the float mode agrees with the JAX package within a tolerance
+(ROADMAP.md, section C: float shift is not bitwise even inside the
+reference).
+
+Every wrapper takes ``threads``, the block size of its launch (the tuner's
+knob); it changes no output.
+
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches the kernel or raises.
 """
@@ -31,7 +42,8 @@ from repro_torch.core.primitives import conv_nhwc, shift_channels
 from repro_torch.core.quantize import expand_w4
 
 from ._build import check_launch, library
-from .common import apply_act, apply_requant
+from .common import (DEFAULT_THREADS, acc_dtype, apply_act, apply_requant,
+                     check_threads, float_code)
 from .conv_im2col import (MAX_CONTRACTION, check_act, check_cuda_operand,
                           check_elements, check_shift, check_w4)
 
@@ -55,9 +67,11 @@ def shift_conv2d_q8_plain(x, shifts, w_pw, bias=None, *,
     return apply_requant(acc, requant_shift).to(torch.int8)
 
 
-def _check_shift_conv(name, x, shifts, wp_shape, bias, requant_shift, act):
+def _check_shift_conv(name, x, shifts, wp_shape, bias, requant_shift, act,
+                      integer=True):
     """Shapes and options of one shift-conv call; ``wp_shape`` is the
-    unpacked (C,Cy). Returns (n, h, w, c, cy)."""
+    unpacked (C,Cy). Returns (n, h, w, c, cy). The float mode
+    (``integer=False``) has no requant shift and no int32 to overflow."""
     n, h, wd, c = x.shape
     cy = wp_shape[-1]
     if tuple(wp_shape) != (c, cy):
@@ -69,10 +83,11 @@ def _check_shift_conv(name, x, shifts, wp_shape, bias, requant_shift, act):
     if bias is not None and tuple(bias.shape) != (cy,):
         raise ValueError(f"{name}: bias shape {tuple(bias.shape)} != "
                          f"({cy},)")
-    if c > MAX_CONTRACTION:
-        raise ValueError(f"{name}: contraction of {c} channels could "
-                         "overflow the int32 accumulator")
-    check_shift(name, requant_shift)
+    if integer:
+        if c > MAX_CONTRACTION:
+            raise ValueError(f"{name}: contraction of {c} channels could "
+                             "overflow the int32 accumulator")
+        check_shift(name, requant_shift)
     check_act(name, act)
     check_elements(name, x.shape, (n, h, wd, cy))
     return n, h, wd, c, cy
@@ -86,7 +101,7 @@ def _check_ranks(name, x, w_pw):
 
 
 def shift_conv2d_q8(x, shifts, w_pw, bias=None, *, requant_shift: int = 0,
-                    max_shift=None, act=None):
+                    max_shift=None, act=None, threads: int = DEFAULT_THREADS):
     """x (N,H,W,C) int8, shifts (C,2) int32, w_pw (C,Cy) or (1,1,C,Cy) int8,
     bias (Cy,) int32 or None -> (N,H,W,Cy) int8. ``max_shift`` is used by the
     plain version only (see the module docstring)."""
@@ -94,6 +109,7 @@ def shift_conv2d_q8(x, shifts, w_pw, bias=None, *, requant_shift: int = 0,
     wp = _pointwise(w_pw)
     n, h, wd, c, cy = _check_shift_conv("shift_conv2d_q8", x, shifts,
                                         wp.shape, bias, requant_shift, act)
+    check_threads("shift_conv2d_q8", threads)
     if x.device.type == "cpu":
         return shift_conv2d_q8_plain(x, shifts, w_pw, bias,
                                      requant_shift=requant_shift,
@@ -108,7 +124,7 @@ def shift_conv2d_q8(x, shifts, w_pw, bias=None, *, requant_shift: int = 0,
         rc = library().repro_shift_conv2d_q8(
             x.data_ptr(), shifts.data_ptr(), wp.data_ptr(),
             None if bias is None else bias.data_ptr(), y.data_ptr(),
-            n, h, wd, c, cy, requant_shift, int(act == "relu"),
+            n, h, wd, c, cy, requant_shift, int(act == "relu"), threads,
             torch.cuda.current_stream().cuda_stream)
     check_launch("shift_conv2d_q8", rc)
     shift_conv2d_q8.launches += 1
@@ -129,7 +145,8 @@ def shift_conv2d_w4_plain(x, shifts, w_pw_p, w_shifts, bias=None, *,
 
 
 def shift_conv2d_w4(x, shifts, w_pw_p, w_shifts, bias=None, *,
-                    requant_shift=None, max_shift=None, act=None):
+                    requant_shift=None, max_shift=None, act=None,
+                    threads: int = DEFAULT_THREADS):
     """x (N,H,W,C) int8, shifts (C,2) int32, w_pw_p (ceil(C/2),Cy) or
     (1,1,ceil(C/2),Cy) int8 nibble-packed along C, w_shifts (C,) int8, bias
     (Cy,) int32 or None -> (N,H,W,Cy) int8. ``max_shift`` is used by the
@@ -141,6 +158,7 @@ def shift_conv2d_w4(x, shifts, w_pw_p, w_shifts, bias=None, *,
     n, h, wd, c, cy = _check_shift_conv("shift_conv2d_w4", x, shifts,
                                         (c, wp.shape[-1]), bias,
                                         requant_shift, act)
+    check_threads("shift_conv2d_w4", threads)
     if x.device.type == "cpu":
         return shift_conv2d_w4_plain(x, shifts, w_pw_p, w_shifts, bias,
                                      requant_shift=requant_shift,
@@ -156,10 +174,58 @@ def shift_conv2d_w4(x, shifts, w_pw_p, w_shifts, bias=None, *,
             x.data_ptr(), shifts.data_ptr(), wp.data_ptr(),
             w_shifts.data_ptr(), None if bias is None else bias.data_ptr(),
             y.data_ptr(), n, h, wd, c, cy, requant_shift, int(act == "relu"),
-            torch.cuda.current_stream().cuda_stream)
+            threads, torch.cuda.current_stream().cuda_stream)
     check_launch("shift_conv2d_w4", rc)
     shift_conv2d_w4.launches += 1
     return y
 
 
 shift_conv2d_w4.launches = 0
+
+
+def shift_conv2d_f_plain(x, shifts, w_pw, *, max_shift=None, act=None):
+    """Plain float version in the kernel's order: the shifted map gathered
+    explicitly (zero outside the image), then float32 products and sums as
+    separate operations from a zero accumulator over the channels in index
+    order; relu; one rounding to x's dtype. Reads the table's bound on the
+    host (a sync on a card)."""
+    shifted = shift_channels(x.to(torch.float32), shifts, max_shift=max_shift)
+    wp = _pointwise(w_pw).to(torch.float32)
+    n, h, wd, c = x.shape
+    acc = torch.zeros((n, h, wd, wp.shape[-1]), dtype=acc_dtype(x.dtype),
+                      device=x.device)
+    for ch in range(c):
+        acc = acc + shifted[..., ch:ch + 1] * wp[ch]
+    return apply_act(acc, act).to(x.dtype)
+
+
+def shift_conv2d_f(x, shifts, w_pw, *, max_shift=None, act=None,
+                   threads: int = DEFAULT_THREADS):
+    """x (N,H,W,C) float32 or bfloat16, shifts (C,2) int32, w_pw (C,Cy) or
+    (1,1,C,Cy) in x's dtype -> (N,H,W,Cy) in x's dtype. ``max_shift`` is
+    used by the plain version only."""
+    _check_ranks("shift_conv2d_f", x, w_pw)
+    wp = _pointwise(w_pw)
+    n, h, wd, c, cy = _check_shift_conv("shift_conv2d_f", x, shifts,
+                                        wp.shape, None, None, act,
+                                        integer=False)
+    check_threads("shift_conv2d_f", threads)
+    if x.device.type == "cpu":
+        return shift_conv2d_f_plain(x, shifts, w_pw, max_shift=max_shift,
+                                    act=act)
+    code = float_code("shift_conv2d_f", x)
+    for t in (x, wp):
+        check_cuda_operand("shift_conv2d_f", t, x.device, x.dtype)
+    check_cuda_operand("shift_conv2d_f", shifts, x.device, torch.int32)
+    y = torch.empty((n, h, wd, cy), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = library().repro_shift_conv2d_f(
+            x.data_ptr(), shifts.data_ptr(), wp.data_ptr(), y.data_ptr(),
+            n, h, wd, c, cy, int(act == "relu"), code, threads,
+            torch.cuda.current_stream().cuda_stream)
+    check_launch("shift_conv2d_f", rc)
+    shift_conv2d_f.launches += 1
+    return y
+
+
+shift_conv2d_f.launches = 0

@@ -20,31 +20,24 @@
 // then sums from registers (the Pallas kernel's halo from the next block
 // becomes K-1 extra loads per run, which hit L2): each input is read from
 // HBM once; no shared memory. K is a template argument (1..MAX_K) and RUN a
-// constant, so both loops unroll and every register index is static.
+// constant, so both loops unroll and every register index is static. The
+// block size (THREADS channels: 64, 128 or 256, the tuner's knob; 128 by
+// default) is a template argument too, one instantiation each; it changes
+// only the launch shape.
 #include <cstdint>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "float_io.cuh"
 
 namespace {
 
-constexpr int THREADS = 128;   // channels per block
 constexpr int RUN = 32;        // positions per thread
 constexpr int MAX_K = 8;
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
-template <typename T, int K>
-__global__ void causal_conv1d_kernel(const T* __restrict__ x,
-                                     const T* __restrict__ w,
-                                     T* __restrict__ y, int L, int D,
-                                     int relu) {
+template <typename T, int K, int THREADS>
+__global__ void __launch_bounds__(THREADS) causal_conv1d_kernel(
+    const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y, int L,
+    int D, int relu) {
   const int d = blockIdx.x * THREADS + threadIdx.x;
   if (d >= D) return;
   const int l0 = blockIdx.y * RUN;
@@ -81,21 +74,18 @@ __global__ void causal_conv1d_kernel(const T* __restrict__ x,
   }
 }
 
-template <typename T>
-int launch(const void* x, const void* w, void* y, int b, int l, int d, int k,
-           int relu, void* stream) {
-  if (b == 0 || l == 0 || d == 0) return (int)cudaSuccess;
-  if (k < 1 || k > MAX_K) return (int)cudaErrorInvalidValue;
+template <typename T, int THREADS>
+int launch_k(const void* x, const void* w, void* y, int b, int l, int d,
+             int k, int relu, cudaStream_t s) {
   const dim3 grid((d + THREADS - 1) / THREADS, (l + RUN - 1) / RUN, b);
   const T* xp = (const T*)x;
   const T* wp = (const T*)w;
   T* yp = (T*)y;
-  cudaStream_t s = (cudaStream_t)stream;
   switch (k) {
 #define REPRO_C1D_CASE(KK)                                                   \
   case KK:                                                                   \
-    causal_conv1d_kernel<T, KK><<<grid, THREADS, 0, s>>>(xp, wp, yp, l, d,   \
-                                                         relu);              \
+    causal_conv1d_kernel<T, KK, THREADS><<<grid, THREADS, 0, s>>>(           \
+        xp, wp, yp, l, d, relu);                                             \
     break;
     REPRO_C1D_CASE(1)
     REPRO_C1D_CASE(2)
@@ -110,14 +100,28 @@ int launch(const void* x, const void* w, void* y, int b, int l, int d, int k,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch(const void* x, const void* w, void* y, int b, int l, int d, int k,
+           int relu, int threads, void* stream) {
+  if (b == 0 || l == 0 || d == 0) return (int)cudaSuccess;
+  if (k < 1 || k > MAX_K) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  // the block size is a template argument: each is its own instantiation
+  if (threads == 64) return launch_k<T, 64>(x, w, y, b, l, d, k, relu, s);
+  if (threads == 128) return launch_k<T, 128>(x, w, y, b, l, d, k, relu, s);
+  if (threads == 256) return launch_k<T, 256>(x, w, y, b, l, d, k, relu, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.
+// dtype: 0 float32, 1 bfloat16; threads: channels per block, 64, 128 or 256.
 extern "C" int repro_causal_conv1d(const void* x, const void* w, void* y,
                                    int b, int l, int d, int k, int relu,
-                                   int dtype, void* stream) {
-  if (dtype == 0) return launch<float>(x, w, y, b, l, d, k, relu, stream);
+                                   int dtype, int threads, void* stream) {
+  if (dtype == 0)
+    return launch<float>(x, w, y, b, l, d, k, relu, threads, stream);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, w, y, b, l, d, k, relu, stream);
+    return launch<__nv_bfloat16>(x, w, y, b, l, d, k, relu, threads, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,7 +1,7 @@
-// int8 and W4A8 add (AdderNet) convolution for sm_90a.
+// int8, W4A8 and float32 / bfloat16 add (AdderNet) convolution for sm_90a.
 //
 // Replaces the TPU kernel repro/kernels/conv_add.py (add_conv2d /
-// _add_conv2d, int8 and W4 modes):
+// _add_conv2d, all modes):
 // y = -sum_{i,j,c} |(x << xp) - (w << wp)| over the HK x HK window and all
 // Cx input channels, SAME padding (HK/2, (HK-1)/2), then the optional int32
 // bias at accumulator scale, relu, round-to-nearest shift and clip to int8
@@ -24,6 +24,17 @@
 // Cx real channels only: the pad nibble of an odd Cx is a zero weight, and a
 // zero weight is not neutral under L1.
 //
+// Float mode (repro_add_conv2d_f): x and w in float32 or bfloat16, no
+// pre-shifts and no bias; acc = acc - |x - w| in float32 from zero, over
+// taps (i, j) and then input channels c in order, every subtraction rounded
+// on its own (__fsub_rn; fabsf is exact); relu; one rounding to x's dtype
+// (float_io.cuh). An out-of-image tap reads x = 0, as in the integer modes.
+// The TPU kernel sums each tap's channels first and then subtracts, another
+// order, so the float mode agrees with the JAX package within a tolerance.
+//
+// Every entry point takes the block size (`threads`, the tuner's knob); it
+// changes only the launch shape.
+//
 // Index arithmetic is 32-bit (the wrapper keeps every tensor below 2^31
 // elements).
 //
@@ -39,10 +50,11 @@
 #include <cuda_runtime.h>
 
 #include "epilogue.cuh"
+#include "float_io.cuh"
 #include "w4.cuh"
 
 template <bool W4>
-__global__ void add_conv2d_kernel(
+__global__ void __launch_bounds__(1024) add_conv2d_kernel(
     const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     const int8_t* __restrict__ ws, const int32_t* __restrict__ bias,
     int8_t* __restrict__ y, int n, int h, int wd, int cx, int cy, int hk,
@@ -83,13 +95,47 @@ __global__ void add_conv2d_kernel(
   y[idx] = requant_epilogue(acc, relu, shift);
 }
 
+template <typename T>
+__global__ void __launch_bounds__(1024) add_conv2d_f_kernel(
+    const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y,
+    int n, int h, int wd, int cx, int cy, int hk, int relu) {
+  const int total = n * h * wd * cy;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  const int co = idx % cy;
+  int t = idx / cy;
+  const int ox = t % wd;
+  t /= wd;
+  const int oy = t % h;
+  const int b = t / h;
+  const int pad = hk / 2;
+  float acc = 0.0f;
+  for (int i = 0; i < hk; ++i) {
+    const int iy = oy + i - pad;
+    const bool row_in = iy >= 0 && iy < h;
+    for (int j = 0; j < hk; ++j) {
+      const int ix = ox + j - pad;
+      const bool in = row_in && ix >= 0 && ix < wd;
+      const T* xq = x + ((b * h + (in ? iy : 0)) * wd + (in ? ix : 0)) * cx;
+      const T* wq = w + (i * hk + j) * cx * cy + co;
+      for (int c = 0; c < cx; ++c) {
+        const float xv = in ? load_f32(xq + c) : 0.0f;
+        acc = __fsub_rn(acc, fabsf(__fsub_rn(xv, load_f32(wq + c * cy))));
+      }
+    }
+  }
+  if (relu && acc < 0.0f) acc = 0.0f;
+  store_f32(y + idx, acc);
+}
+
 extern "C" int repro_add_conv2d_q8(const void* x, const void* w,
                                    const void* bias, void* y, int n, int h,
                                    int wd, int cx, int cy, int hk, int xp,
-                                   int wp, int shift, int relu, void* stream) {
+                                   int wp, int shift, int relu, int threads,
+                                   void* stream) {
   const int total = n * h * wd * cy;
   if (total == 0) return (int)cudaSuccess;
-  const int threads = 256;
+  if (!valid_threads(threads)) return (int)cudaErrorInvalidValue;
   const int blocks = (total + threads - 1) / threads;
   add_conv2d_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const int8_t*)x, (const int8_t*)w, nullptr, (const int32_t*)bias,
@@ -101,14 +147,38 @@ extern "C" int repro_add_conv2d_w4(const void* x, const void* w,
                                    const void* ws, const void* bias, void* y,
                                    int n, int h, int wd, int cx, int cy,
                                    int hk, int xp, int wp, int shift, int relu,
-                                   void* stream) {
+                                   int threads, void* stream) {
   const int total = n * h * wd * cy;
   if (total == 0) return (int)cudaSuccess;
-  const int threads = 256;
+  if (!valid_threads(threads)) return (int)cudaErrorInvalidValue;
   const int blocks = (total + threads - 1) / threads;
   add_conv2d_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const int8_t*)x, (const int8_t*)w, (const int8_t*)ws,
       (const int32_t*)bias, (int8_t*)y, n, h, wd, cx, cy, hk, xp, wp, shift,
       relu);
+  return (int)cudaGetLastError();
+}
+
+// dtype: 0 float32, 1 bfloat16 (x, w and y alike).
+extern "C" int repro_add_conv2d_f(const void* x, const void* w, void* y,
+                                  int n, int h, int wd, int cx, int cy, int hk,
+                                  int relu, int dtype, int threads,
+                                  void* stream) {
+  const int total = n * h * wd * cy;
+  if (total == 0) return (int)cudaSuccess;
+  if (!valid_threads(threads)) return (int)cudaErrorInvalidValue;
+  const int blocks = (total + threads - 1) / threads;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0) {
+    add_conv2d_f_kernel<float><<<blocks, threads, 0, st>>>(
+        (const float*)x, (const float*)w, (float*)y, n, h, wd, cx, cy, hk,
+        relu);
+  } else if (dtype == 1) {
+    add_conv2d_f_kernel<__nv_bfloat16><<<blocks, threads, 0, st>>>(
+        (const __nv_bfloat16*)x, (const __nv_bfloat16*)w, (__nv_bfloat16*)y,
+        n, h, wd, cx, cy, hk, relu);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,8 @@
-// int8 and W4A8 SAME stride-1 depthwise convolution for sm_90a.
+// int8, W4A8 and float32 / bfloat16 SAME stride-1 depthwise convolution for
+// sm_90a.
 //
 // Replaces the TPU kernel repro/kernels/conv_dw.py (depthwise2d /
-// _depthwise2d, int8 and W4 modes): x (N,H,W,C) int8 NHWC, w (HK,HK,C) int8
+// _depthwise2d, all modes): x (N,H,W,C) int8 NHWC, w (HK,HK,C) int8
 // (the (HK,HK,C,1) layout is the same bytes), per-channel HK x HK
 // multiply-add in int32, then relu, round-to-nearest shift and clip to int8
 // (epilogue.cuh). Zero padding (HK/2, (HK-1)/2) comes from bounds checks.
@@ -11,6 +12,15 @@
 // i & 1 of byte row i >> 1, and its group shift ws[i] (length HK) is the same
 // for every channel. Each nibble is unpacked and shifted in registers
 // (w4.cuh); from there the int8 body runs unchanged.
+//
+// Float mode (repro_depthwise2d_f): x and w in float32 or bfloat16, a
+// float32 accumulator from zero summed over taps (i, j) in order with
+// __fmul_rn / __fadd_rn, relu, one rounding to x's dtype (float_io.cuh). A tap
+// outside the image is skipped, which for finite weights equals the plain
+// version's zero-padded product.
+//
+// Every entry point takes the block size (`threads`, the tuner's knob); it
+// changes only the launch shape.
 //
 // Index arithmetic is 32-bit (the wrapper keeps every tensor below 2^31
 // elements): 64-bit division and modulo are emulated on the GPU.
@@ -24,10 +34,11 @@
 #include <cuda_runtime.h>
 
 #include "epilogue.cuh"
+#include "float_io.cuh"
 #include "w4.cuh"
 
 template <bool W4>
-__global__ void depthwise2d_kernel(
+__global__ void __launch_bounds__(1024) depthwise2d_kernel(
     const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     const int8_t* __restrict__ ws, int8_t* __restrict__ y, int n, int h,
     int wd, int c, int hk, int shift, int relu) {
@@ -57,12 +68,43 @@ __global__ void depthwise2d_kernel(
   y[idx] = requant_epilogue(acc, relu, shift);
 }
 
+template <typename T>
+__global__ void __launch_bounds__(1024) depthwise2d_f_kernel(
+    const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y,
+    int n, int h, int wd, int c, int hk, int relu) {
+  const int total = n * h * wd * c;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  const int ch = idx % c;
+  int t = idx / c;
+  const int ox = t % wd;
+  t /= wd;
+  const int oy = t % h;
+  const int b = t / h;
+  const int pad = hk / 2;
+  float acc = 0.0f;
+  for (int i = 0; i < hk; ++i) {
+    const int iy = oy + i - pad;
+    if (iy < 0 || iy >= h) continue;
+    for (int j = 0; j < hk; ++j) {
+      const int ix = ox + j - pad;
+      if (ix < 0 || ix >= wd) continue;
+      acc = __fadd_rn(acc, __fmul_rn(
+          load_f32(x + ((b * h + iy) * wd + ix) * c + ch),
+          load_f32(w + (i * hk + j) * c + ch)));
+    }
+  }
+  if (relu && acc < 0.0f) acc = 0.0f;
+  store_f32(y + idx, acc);
+}
+
 extern "C" int repro_depthwise2d_q8(const void* x, const void* w, void* y,
                                     int n, int h, int wd, int c, int hk,
-                                    int shift, int relu, void* stream) {
+                                    int shift, int relu, int threads,
+                                    void* stream) {
   const int total = n * h * wd * c;
   if (total == 0) return (int)cudaSuccess;
-  const int threads = 256;
+  if (!valid_threads(threads)) return (int)cudaErrorInvalidValue;
   const int blocks = (total + threads - 1) / threads;
   depthwise2d_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const int8_t*)x, (const int8_t*)w, nullptr, (int8_t*)y, n, h, wd, c,
@@ -73,13 +115,36 @@ extern "C" int repro_depthwise2d_q8(const void* x, const void* w, void* y,
 extern "C" int repro_depthwise2d_w4(const void* x, const void* w,
                                     const void* ws, void* y, int n, int h,
                                     int wd, int c, int hk, int shift, int relu,
-                                    void* stream) {
+                                    int threads, void* stream) {
   const int total = n * h * wd * c;
   if (total == 0) return (int)cudaSuccess;
-  const int threads = 256;
+  if (!valid_threads(threads)) return (int)cudaErrorInvalidValue;
   const int blocks = (total + threads - 1) / threads;
   depthwise2d_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const int8_t*)x, (const int8_t*)w, (const int8_t*)ws, (int8_t*)y, n, h,
       wd, c, hk, shift, relu);
+  return (int)cudaGetLastError();
+}
+
+// dtype: 0 float32, 1 bfloat16 (x, w and y alike).
+extern "C" int repro_depthwise2d_f(const void* x, const void* w, void* y,
+                                   int n, int h, int wd, int c, int hk,
+                                   int relu, int dtype, int threads,
+                                   void* stream) {
+  const int total = n * h * wd * c;
+  if (total == 0) return (int)cudaSuccess;
+  if (!valid_threads(threads)) return (int)cudaErrorInvalidValue;
+  const int blocks = (total + threads - 1) / threads;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0) {
+    depthwise2d_f_kernel<float><<<blocks, threads, 0, st>>>(
+        (const float*)x, (const float*)w, (float*)y, n, h, wd, c, hk, relu);
+  } else if (dtype == 1) {
+    depthwise2d_f_kernel<__nv_bfloat16><<<blocks, threads, 0, st>>>(
+        (const __nv_bfloat16*)x, (const __nv_bfloat16*)w, (__nv_bfloat16*)y,
+        n, h, wd, c, hk, relu);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

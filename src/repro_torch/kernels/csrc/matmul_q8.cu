@@ -1,7 +1,8 @@
-// int8 and W4A8 matmul with the Algorithm-1 epilogue for sm_90a.
+// int8, W4A8 and float32 / bfloat16 matmul for sm_90a, the integer modes
+// with the Algorithm-1 epilogue.
 //
 // Replaces the TPU kernel repro/kernels/matmul_q8.py (matmul / _matmul,
-// int8 and W4 modes): a (M,K) int8 @ b (K,N) int8 -> exact int32 sums ->
+// all modes): a (M,K) int8 @ b (K,N) int8 -> exact int32 sums ->
 // optional relu at accumulator scale -> round-to-nearest shift (a negative
 // shift is a left shift) -> clip to int8 (epilogue.cuh). The LM's integer FFN
 // (models/blocks.qmlp) runs its gate, up and down projections through it.
@@ -30,7 +31,20 @@
 // across gridDim.z: each split adds its int32 partial sums into a zeroed
 // workspace with atomicAdd, and a second kernel applies the epilogue.
 // Integer sums do not depend on order, so every tiling and split gives the
-// plain version's result bit for bit.
+// plain version's result bit for bit. The tile height (BM, 16 or 64) and the
+// number of K splits are arguments (the tuner's knobs); the wrapper's own
+// choice is the default.
+//
+// Float mode (repro_matmul_f): a (M,K) and b (K,N) in float32 or bfloat16,
+// the same block shape (256 columns, one per thread, and BM rows), A's stage
+// of 32 K elements staged in shared memory as float32 (broadcast reads), B's
+// element of the thread's column read straight from device memory (coalesced
+// across the warp). Each thread sums its BM rows in float32 from zero with K
+// strictly in order (__fmul_rn / __fadd_rn), so there is no K split: float
+// atomics would make the sum depend on the order the splits land in. Only the
+// K real elements are summed. Then relu and one rounding to a's dtype
+// (float_io.cuh). The TPU kernel sums K in MXU blocks, another order, so the
+// float mode agrees with the JAX package within a tolerance.
 // Tensor cores (mma.sync s8 / wgmma) and TMA are the next steps, not this one.
 //
 // Index arithmetic is 32-bit (the wrapper keeps every tensor below 2^31
@@ -40,6 +54,7 @@
 #include <cuda_runtime.h>
 
 #include "epilogue.cuh"
+#include "float_io.cuh"
 #include "w4.cuh"
 
 namespace {
@@ -160,12 +175,53 @@ __global__ void epilogue_kernel(const int32_t* __restrict__ part,
   if (i < total) y[i] = requant_epilogue(part[i], relu, shift);
 }
 
+template <int BM, typename T>
+__global__ void __launch_bounds__(THREADS) matmul_f_kernel(
+    const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ y,
+    int m, int k, int n, int relu) {
+  __shared__ float as[BK][BM];               // A's stage, [k][row]
+  const int c = threadIdx.x;
+  const int row0 = blockIdx.y * BM;
+  const int gc = blockIdx.x * BN + c;
+  float acc[BM];
+#pragma unroll
+  for (int i = 0; i < BM; ++i) acc[i] = 0.0f;
+  for (int k0 = 0; k0 < k; k0 += BK) {
+    for (int t = threadIdx.x; t < BM * BK; t += THREADS) {
+      const int r = t / BK, kk = t % BK;
+      const int gr = row0 + r, gk = k0 + kk;
+      as[kk][r] = gr < m && gk < k ? load_f32(a + gr * k + gk) : 0.0f;
+    }
+    __syncthreads();
+    const int kn = min(BK, k - k0);
+    if (gc < n) {
+      for (int kk = 0; kk < kn; ++kk) {
+        const float bv = load_f32(b + (k0 + kk) * n + gc);
+#pragma unroll
+        for (int i = 0; i < BM; ++i)
+          acc[i] = __fadd_rn(acc[i], __fmul_rn(as[kk][i], bv));
+      }
+    }
+    __syncthreads();
+  }
+  if (gc >= n) return;
+#pragma unroll
+  for (int i = 0; i < BM; ++i) {
+    const int r = row0 + i;
+    if (r >= m) break;
+    float v = acc[i];
+    if (relu && v < 0.0f) v = 0.0f;
+    store_f32(y + r * n + gc, v);
+  }
+}
+
 template <bool W4>
 int launch(const void* a, const void* b, const void* ws, void* part, void* y,
-           int m, int k, int n, int splits, int steps_per_split, int shift,
-           int relu, void* stream) {
+           int m, int k, int n, int bm, int splits, int steps_per_split,
+           int shift, int relu, void* stream) {
   if (m == 0 || n == 0) return (int)cudaSuccess;
-  if (splits < 1 || steps_per_split < 1 || (splits > 1 && part == nullptr))
+  if (splits < 1 || steps_per_split < 1 || (splits > 1 && part == nullptr) ||
+      (bm != 16 && bm != 64))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   int32_t* p = splits > 1 ? (int32_t*)part : nullptr;
@@ -175,7 +231,6 @@ int launch(const void* a, const void* b, const void* ws, void* part, void* y,
     if (e != cudaSuccess) return (int)e;
   }
   const int a_vec = (k % 4 == 0) && ((uintptr_t)a % 4 == 0);
-  const int bm = m <= 32 ? 16 : 64;
   const dim3 grid((n + BN - 1) / BN, (m + bm - 1) / bm, splits);
   if (bm == 16) {
     matmul_kernel<16, W4><<<grid, THREADS, 0, st>>>(
@@ -194,20 +249,48 @@ int launch(const void* a, const void* b, const void* ws, void* part, void* y,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_f(const void* a, const void* b, void* y, int m, int k, int n,
+             int bm, int relu, void* stream) {
+  if (m == 0 || n == 0) return (int)cudaSuccess;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const dim3 grid((n + BN - 1) / BN, (m + bm - 1) / bm);
+  if (bm == 16) {
+    matmul_f_kernel<16, T><<<grid, THREADS, 0, st>>>(
+        (const T*)a, (const T*)b, (T*)y, m, k, n, relu);
+  } else if (bm == 64) {
+    matmul_f_kernel<64, T><<<grid, THREADS, 0, st>>>(
+        (const T*)a, (const T*)b, (T*)y, m, k, n, relu);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int repro_matmul_q8(const void* a, const void* b, void* part,
-                               void* y, int m, int k, int n, int splits,
-                               int steps_per_split, int shift, int relu,
-                               void* stream) {
-  return launch<false>(a, b, nullptr, part, y, m, k, n, splits,
+                               void* y, int m, int k, int n, int bm,
+                               int splits, int steps_per_split, int shift,
+                               int relu, void* stream) {
+  return launch<false>(a, b, nullptr, part, y, m, k, n, bm, splits,
                        steps_per_split, shift, relu, stream);
 }
 
 extern "C" int repro_matmul_w4(const void* a, const void* b, const void* ws,
                                void* part, void* y, int m, int k, int n,
-                               int splits, int steps_per_split, int shift,
-                               int relu, void* stream) {
-  return launch<true>(a, b, ws, part, y, m, k, n, splits, steps_per_split,
+                               int bm, int splits, int steps_per_split,
+                               int shift, int relu, void* stream) {
+  return launch<true>(a, b, ws, part, y, m, k, n, bm, splits, steps_per_split,
                       shift, relu, stream);
+}
+
+// dtype: 0 float32, 1 bfloat16 (a, b and y alike).
+extern "C" int repro_matmul_f(const void* a, const void* b, void* y, int m,
+                              int k, int n, int bm, int relu, int dtype,
+                              void* stream) {
+  if (dtype == 0) return launch_f<float>(a, b, y, m, k, n, bm, relu, stream);
+  if (dtype == 1)
+    return launch_f<__nv_bfloat16>(a, b, y, m, k, n, bm, relu, stream);
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,9 @@
-"""int8 and W4A8 matmul with the Algorithm-1 epilogue: the CUDA kernel
-wrappers, their plain PyTorch versions and their launch counters.
+"""int8 and W4A8 matmul with the Algorithm-1 epilogue, and the float
+matmul: the CUDA kernel wrappers, their plain PyTorch versions and their
+launch counters.
 
 Replaces the TPU kernel ``repro/kernels/matmul_q8.py`` (``matmul`` /
-``_matmul``) in its int8 and W4 modes; the source is ``csrc/matmul_q8.cu``.
+``_matmul``) in all its modes; the source is ``csrc/matmul_q8.cu``.
 The LM's integer FFN (``models/blocks.qmlp``) runs its three projections
 through it. What bounds it on an H100: at decode (8 rows) each launch reads
 one whole 896x4864 weight, 4.36 MB in int8 and 2.18 MB in W4, for 70 M
@@ -21,6 +22,14 @@ The plain versions contract in int32 on the host and in float64 on a card,
 which has no int32 matmul; float64 is exact here, since |sum| <=
 K * 128 * 128 < 2^31 < 2^53 for every K the wrappers accept.
 
+The integer wrappers take the tile height ``bm`` (16 or 64) and the number
+of K ``splits``; by default they choose as before (``split_plan``). Both
+are the tuner's knobs and change no output: integer sums do not depend on
+order. The float mode (:func:`matmul_f`, float32 or bfloat16) takes ``bm``
+only: it sums K strictly in order in float32, with no split, and its plain
+version repeats that order one multiply and one add at a time, so the two
+are bitwise equal.
+
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches the kernel or raises.
 """
@@ -33,7 +42,7 @@ import torch
 from repro_torch.core.quantize import expand_w4
 
 from ._build import check_launch, library
-from .common import apply_act, apply_requant
+from .common import acc_dtype, apply_act, apply_requant, cdiv, float_code
 from .conv_im2col import (MAX_CONTRACTION, check_act, check_cuda_operand,
                           check_elements, check_shift, check_w4)
 
@@ -64,20 +73,35 @@ def matmul_w4_plain(a, b_p, w_shifts, *, requant_shift: int = 0, act=None):
     return matmul_q8_plain(a, b, requant_shift=requant_shift, act=act)
 
 
-def split_plan(m: int, k: int, n: int, sms: int):
+def default_bm(m: int) -> int:
+    """The tile height the wrappers take by default: 16 rows for M <= 32,
+    else 64 (measured, PERF.md)."""
+    return 16 if m <= 32 else 64
+
+
+def split_plan(m: int, k: int, n: int, sms: int, *, bm=None, splits=None):
     """``(splits, steps_per_split)``: how many K ranges the kernel's grid
     runs in parallel (gridDim.z) and how many 32-deep K stages each takes.
-    A product whose output tiles fill the card runs unsplit; a decode-shaped
-    one (8 rows, 19 or 4 column tiles) is split until the grid holds about
-    ``SPLIT_DEPTH`` blocks per SM. Every split range is non-empty."""
-    bm = 16 if m <= 32 else 64           # the kernel's tile rows
-    tiles = -(-m // bm) * -(-n // BLOCK_N)
-    steps = -(-k // BLOCK_K)
+    By default a product whose output tiles fill the card runs unsplit; a
+    decode-shaped one (8 rows, 19 or 4 column tiles) is split until the
+    grid holds about ``SPLIT_DEPTH`` blocks per SM. A requested ``splits``
+    is capped at the K stages. Every split range is non-empty, so the
+    splits returned may be fewer than asked for."""
+    bm = bm or default_bm(m)
+    tiles = cdiv(m, bm) * cdiv(n, BLOCK_N)
+    steps = cdiv(k, BLOCK_K)
     if steps == 0 or tiles == 0:
         return 1, 1
-    splits = max(1, min(steps, -(-SPLIT_DEPTH * sms // tiles)))
-    per = -(-steps // splits)
-    return -(-steps // per), per
+    if splits is None:
+        splits = max(1, min(steps, cdiv(SPLIT_DEPTH * sms, tiles)))
+    per = cdiv(steps, max(1, min(splits, steps)))
+    return cdiv(steps, per), per
+
+
+def check_bm(name: str, bm):
+    if bm not in (16, 64):
+        raise ValueError(f"{name}: bm must be 16 or 64, got {bm!r}")
+    return bm
 
 
 @functools.lru_cache(maxsize=None)
@@ -99,24 +123,31 @@ def _check_mm(name, a, k, n_rows_b, n, requant_shift, act):
     check_elements(name, a.shape, (n_rows_b, n), (a.shape[0], n))
 
 
-def _launch(name, fn, a, operands, n, requant_shift, act):
+def _launch(name, fn, a, operands, n, requant_shift, act, bm, splits):
     """Allocate the output (and the split workspace) and launch ``fn``."""
     m, k = a.shape
-    splits, per = split_plan(m, k, n, _sm_count(a.device.index or 0))
+    bm = check_bm(name, bm or default_bm(m))
+    if splits is not None and (not isinstance(splits, int) or splits < 1):
+        raise ValueError(f"{name}: splits must be a positive int, got "
+                         f"{splits!r}")
+    splits, per = split_plan(m, k, n, _sm_count(a.device.index or 0), bm=bm,
+                             splits=splits)
     y = torch.empty((m, n), dtype=torch.int8, device=a.device)
     part = (torch.empty((m, n), dtype=torch.int32, device=a.device)
             if splits > 1 else None)
     with torch.cuda.device(a.device):
         rc = fn(a.data_ptr(), *(t.data_ptr() for t in operands),
                 None if part is None else part.data_ptr(), y.data_ptr(),
-                m, k, n, splits, per, requant_shift, int(act == "relu"),
+                m, k, n, bm, splits, per, requant_shift, int(act == "relu"),
                 torch.cuda.current_stream().cuda_stream)
     check_launch(name, rc)
     return y
 
 
-def matmul_q8(a, b, *, requant_shift: int = 0, act=None):
-    """a (M,K) int8 @ b (K,N) int8 -> (M,N) int8."""
+def matmul_q8(a, b, *, requant_shift: int = 0, act=None, bm=None,
+              splits=None):
+    """a (M,K) int8 @ b (K,N) int8 -> (M,N) int8. ``bm`` and ``splits``
+    default to the wrapper's own choice."""
     if b.dim() != 2:
         raise ValueError(f"matmul_q8: b must be (K, N), got "
                          f"{tuple(b.shape)}")
@@ -127,7 +158,7 @@ def matmul_q8(a, b, *, requant_shift: int = 0, act=None):
     for t in (a, b):
         check_cuda_operand("matmul_q8", t, a.device, torch.int8)
     y = _launch("matmul_q8", library().repro_matmul_q8, a, (b,), n,
-                requant_shift, act)
+                requant_shift, act, bm, splits)
     matmul_q8.launches += 1
     return y
 
@@ -135,7 +166,8 @@ def matmul_q8(a, b, *, requant_shift: int = 0, act=None):
 matmul_q8.launches = 0
 
 
-def matmul_w4(a, b_p, w_shifts, *, requant_shift=None, act=None):
+def matmul_w4(a, b_p, w_shifts, *, requant_shift=None, act=None, bm=None,
+              splits=None):
     """a (M,K) int8 @ b_p (ceil(K/2),N) int8 nibble-packed along K, with
     w_shifts (K,) int8 -> (M,N) int8."""
     if a.dim() != 2 or b_p.dim() != 2:
@@ -151,9 +183,50 @@ def matmul_w4(a, b_p, w_shifts, *, requant_shift=None, act=None):
     for t in (a, b_p, w_shifts):
         check_cuda_operand("matmul_w4", t, a.device, torch.int8)
     y = _launch("matmul_w4", library().repro_matmul_w4, a, (b_p, w_shifts),
-                n, requant_shift, act)
+                n, requant_shift, act, bm, splits)
     matmul_w4.launches += 1
     return y
 
 
 matmul_w4.launches = 0
+
+
+def matmul_f_plain(a, b, *, act=None):
+    """Plain float version in the kernel's order: float32 products and sums
+    as separate operations from a zero accumulator, K in order; relu; one
+    rounding to a's dtype."""
+    a32, b32 = a.to(torch.float32), b.to(torch.float32)
+    acc = torch.zeros((a.shape[0], b.shape[1]), dtype=acc_dtype(a.dtype),
+                      device=a.device)
+    for kk in range(a.shape[1]):
+        acc = acc + a32[:, kk:kk + 1] * b32[kk]
+    return apply_act(acc, act).to(a.dtype)
+
+
+def matmul_f(a, b, *, act=None, bm=None):
+    """a (M,K) @ b (K,N), float32 or bfloat16 (one dtype) -> (M,N) in a's
+    dtype. ``bm`` (16 or 64) defaults to the integer modes' choice."""
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"matmul_f: a {tuple(a.shape)} and b "
+                         f"{tuple(b.shape)} do not contract")
+    m, k = a.shape
+    n = b.shape[1]
+    bm = check_bm("matmul_f", bm or default_bm(m))
+    check_act("matmul_f", act)
+    check_elements("matmul_f", a.shape, b.shape, (m, n))
+    if a.device.type == "cpu":
+        return matmul_f_plain(a, b, act=act)
+    code = float_code("matmul_f", a)
+    for t in (a, b):
+        check_cuda_operand("matmul_f", t, a.device, a.dtype)
+    y = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    with torch.cuda.device(a.device):
+        rc = library().repro_matmul_f(
+            a.data_ptr(), b.data_ptr(), y.data_ptr(), m, k, n, bm,
+            int(act == "relu"), code, torch.cuda.current_stream().cuda_stream)
+    check_launch("matmul_f", rc)
+    matmul_f.launches += 1
+    return y
+
+
+matmul_f.launches = 0

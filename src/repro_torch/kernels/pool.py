@@ -1,24 +1,30 @@
-"""int8 VALID max-pool: the CUDA kernel wrapper, its plain PyTorch version
-and its launch counter.
+"""int8 and float VALID max-pool: the CUDA kernel wrappers, their plain
+PyTorch version and their launch counters.
 
 Replaces the TPU kernel ``repro/kernels/pool.py`` (``maxpool2d`` /
-``_maxpool2d``) in its int8 mode; the source is ``csrc/pool.cu``. Max
+``_maxpool2d``) in its int8 and float modes; the source is
+``csrc/pool.cu``. Max
 commutes with the positive power-of-two scale, so pooling int8 codes is
 exact and activations stay int8 across the pool. What bounds it on an
 H100: pure data movement (input read once, a quarter of it written for
 2x2/2), a few MB per launch at the model's shapes, so HBM time is about a
 microsecond and a launch's fixed cost is of the same order. The design:
 one thread per output element, channels fastest for consecutive-byte
-loads.
+loads. The float mode (:func:`maxpool2d_f`, float32 or bfloat16) is the
+same design; a max rounds nothing, so it is exact, and bitwise equal to
+JAX's oracle as well as to the plain version (NaN propagates, as in
+``jnp.max``). Both wrappers take ``threads``, the block size of the launch
+(the tuner's knob); it changes no output.
 
-On a CPU tensor :func:`maxpool2d_s8` runs :func:`maxpool2d_plain`; on a
-CUDA tensor it launches the kernel or raises.
+On a CPU tensor each wrapper runs :func:`maxpool2d_plain`; on a CUDA
+tensor it launches its kernel or raises.
 """
 from __future__ import annotations
 
 import torch
 
 from ._build import check_launch, library
+from .common import DEFAULT_THREADS, check_threads, float_code
 from .conv_im2col import check_cuda_operand, check_elements
 
 
@@ -41,18 +47,25 @@ def maxpool2d_plain(x, *, window: int = 2, stride=None):
     return out.contiguous()
 
 
-def maxpool2d_s8(x, *, window: int = 2, stride=None):
+def _check_pool(name, x, window, stride, threads):
+    if x.dim() != 4:
+        raise ValueError(f"{name}: x must be 4-D, got {tuple(x.shape)}")
+    _, h, wd, _ = x.shape
+    if window < 1 or stride < 1 or window > min(h, wd):
+        raise ValueError(f"{name}: window={window} stride={stride} "
+                         f"do not fit x {tuple(x.shape)}")
+    check_elements(name, x.shape)
+    check_threads(name, threads)
+
+
+def maxpool2d_s8(x, *, window: int = 2, stride=None,
+                 threads: int = DEFAULT_THREADS):
     """x (N,H,W,C) int8 -> (N,Hout,Wout,C) int8, VALID windows."""
     stride = stride or window
-    if x.dim() != 4:
-        raise ValueError(f"maxpool2d_s8: x must be 4-D, got {tuple(x.shape)}")
-    n, h, wd, c = x.shape
-    if window < 1 or stride < 1 or window > min(h, wd):
-        raise ValueError(f"maxpool2d_s8: window={window} stride={stride} "
-                         f"do not fit x {tuple(x.shape)}")
+    _check_pool("maxpool2d_s8", x, window, stride, threads)
     if x.dtype != torch.int8:
         raise TypeError(f"maxpool2d_s8: takes int8, got {x.dtype}")
-    check_elements("maxpool2d_s8", x.shape)
+    n, h, wd, c = x.shape
     if x.device.type == "cpu":
         return maxpool2d_plain(x, window=window, stride=stride)
     check_cuda_operand("maxpool2d_s8", x, x.device, torch.int8)
@@ -61,10 +74,35 @@ def maxpool2d_s8(x, *, window: int = 2, stride=None):
     with torch.cuda.device(x.device):
         rc = library().repro_maxpool2d_s8(
             x.data_ptr(), y.data_ptr(), n, h, wd, c, hout, wout, window,
-            stride, torch.cuda.current_stream().cuda_stream)
+            stride, threads, torch.cuda.current_stream().cuda_stream)
     check_launch("maxpool2d_s8", rc)
     maxpool2d_s8.launches += 1
     return y
 
 
 maxpool2d_s8.launches = 0
+
+
+def maxpool2d_f(x, *, window: int = 2, stride=None,
+                threads: int = DEFAULT_THREADS):
+    """x (N,H,W,C) float32 or bfloat16 -> (N,Hout,Wout,C) in x's dtype,
+    VALID windows."""
+    stride = stride or window
+    _check_pool("maxpool2d_f", x, window, stride, threads)
+    if x.device.type == "cpu":
+        return maxpool2d_plain(x, window=window, stride=stride)
+    code = float_code("maxpool2d_f", x)
+    check_cuda_operand("maxpool2d_f", x, x.device, x.dtype)
+    n, h, wd, c = x.shape
+    hout, wout = pool_out(h, window, stride), pool_out(wd, window, stride)
+    y = torch.empty((n, hout, wout, c), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = library().repro_maxpool2d_f(
+            x.data_ptr(), y.data_ptr(), n, h, wd, c, hout, wout, window,
+            stride, code, threads, torch.cuda.current_stream().cuda_stream)
+    check_launch("maxpool2d_f", rc)
+    maxpool2d_f.launches += 1
+    return y
+
+
+maxpool2d_f.launches = 0

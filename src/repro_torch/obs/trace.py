@@ -1,8 +1,9 @@
 """Span tracer.
 
 The port's own copy of the JAX package's stdlib-only ``repro/obs/trace.py``,
-cut to what the port uses: :func:`span` around the executor's forwards and
-the serving engine's rounds. Events are Chrome trace-event duration pairs
+cut to what the port uses: :func:`span` around the executor's forwards,
+the serving engine's rounds and the tuner's candidates (``set`` adds
+attributes to a span's "E" event). Events are Chrome trace-event duration pairs
 ("B"/"E"), read back with :meth:`Tracer.events`.
 
 Enabling: tracing is OFF by default and gated by the ``REPRO_TRACE`` env
@@ -38,26 +39,36 @@ class _NullSpan:
     def __exit__(self, *exc):
         return False
 
+    def set(self, **attrs):
+        return self
+
 
 _NULL_SPAN = _NullSpan()
 
 
 class _Span:
     """Context manager emitting one balanced B/E pair on the owning tracer;
-    the attributes ride on the "B" event."""
-    __slots__ = ("_tr", "_name", "_attrs")
+    the constructor's attributes ride on the "B" event, those given to
+    :meth:`set` on the "E" event."""
+    __slots__ = ("_tr", "_name", "_attrs", "_end")
 
     def __init__(self, tr: "Tracer", name: str, attrs: dict):
         self._tr = tr
         self._name = name
         self._attrs = attrs
+        self._end = {}
 
     def __enter__(self):
         self._tr._emit("B", self._name, self._attrs)
         return self
 
+    def set(self, **attrs):
+        """Attributes known only at the end (a measured time)."""
+        self._end.update(attrs)
+        return self
+
     def __exit__(self, *exc):
-        self._tr._emit("E", self._name, {})
+        self._tr._emit("E", self._name, self._end)
         return False
 
 

@@ -1,0 +1,293 @@
+"""Per-kernel search spaces of the port's autotuner (port of
+``repro/tune/space.py``).
+
+The knobs are what the port's CUDA kernels expose, not the Pallas block
+names, which mean nothing to them:
+
+* the one-thread-per-output kernels (``conv2d``, ``depthwise2d``,
+  ``shift_conv2d``, ``add_conv2d``, ``maxpool2d``, every mode): the block
+  size ``threads``, one of 64, 128, 256, 512 or 1024 (default 256, their
+  launch before the tuner existed);
+* ``matmul``: the tile height ``bm`` (16 or 64; default 16 for M <= 32,
+  else 64) and, in the integer modes, the number of K ``splits`` (1, the
+  wrapper's own choice, twice and four times it, capped at the 32-deep K
+  stages). The float mode sums K in order and has no split;
+* ``causal_conv1d``: channels per block, ``threads``, 64, 128 or 256
+  (default 128; a template argument, one instantiation each).
+
+No knob changes the value of an output: each changes only the launch
+shape, and the integer split sums are exact. So every candidate gives
+output bitwise equal to the default's, which is what makes the tuner safe
+to leave on.
+
+A *config* is a plain dict of those kwargs. :func:`candidates` enumerates
+the configs a shape can launch, default first and deduplicated by the
+schedule they run (:func:`effective_config`); :func:`check_config` rejects
+one outside that space. Shape signatures and their ``key()`` strings are
+the JAX package's, so one (kernel, key, dtype) names the same job in both.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Dict, Iterator, List, Tuple
+
+from repro_torch.kernels.common import DEFAULT_THREADS, cdiv
+from repro_torch.kernels.conv1d_causal import DEFAULT_THREADS as C1D_DEFAULT
+from repro_torch.kernels.conv1d_causal import THREADS as C1D_THREADS
+from repro_torch.kernels.matmul_q8 import BLOCK_K, default_bm, split_plan
+
+# Kernels the tuner knows about. Names match repro_torch.kernels.ops.
+KERNELS = ("conv2d", "depthwise2d", "shift_conv2d", "add_conv2d",
+           "causal_conv1d", "matmul", "maxpool2d")
+
+#: the one-thread-per-output kernels and their block sizes, default first
+THREADED = ("conv2d", "depthwise2d", "shift_conv2d", "add_conv2d",
+            "maxpool2d")
+THREADS = (DEFAULT_THREADS, 64, 128, 512, 1024)
+#: matmul tile heights
+MM_BM = (16, 64)
+#: SMs of the card the space is sized for (an H100 SXM): the integer
+#: matmul's default K split depends on it
+SMS = 132
+#: CUDA grid limits: x, and y and z
+MAX_GRID_X, MAX_GRID_YZ = 2 ** 31 - 1, 65535
+
+
+def dtype_key(dtype) -> str:
+    """The cache's dtype string: ``"float32"``, ``"bfloat16"``, ``"int8"``
+    or ``"w4a8"`` (packed weights), as the JAX package writes them; a
+    ``torch.dtype`` is named without its ``torch.`` prefix."""
+    return str(dtype).replace("torch.", "")
+
+
+def integer(dtype) -> bool:
+    """int8 codes (and W4A8: packed weights, int8 activations)."""
+    return dtype_key(dtype) in ("int8", "uint8", "w4a8")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSig:
+    """Canonical shape signature of one kernel invocation.
+
+    ``dims`` is a tuple of named ints in kernel-specific order; it is what the
+    cache keys on and what the space enumerates against.
+    """
+
+    kernel: str
+    dims: Tuple[Tuple[str, int], ...]
+
+    def __post_init__(self):
+        if self.kernel not in KERNELS:
+            raise ValueError(f"unknown kernel {self.kernel!r}; "
+                             f"known: {KERNELS}")
+
+    def get(self, name: str) -> int:
+        for k, v in self.dims:
+            if k == name:
+                return v
+        raise KeyError(name)
+
+    def key(self) -> str:
+        return "_".join(f"{k}{v}" for k, v in self.dims)
+
+
+def sig_conv2d(n, h, w, cx, cy, hk, groups=1) -> ShapeSig:
+    return ShapeSig("conv2d", (("n", n), ("h", h), ("w", w), ("ci", cx),
+                               ("co", cy), ("k", hk), ("g", groups)))
+
+
+def sig_depthwise2d(n, h, w, c, hk) -> ShapeSig:
+    return ShapeSig("depthwise2d", (("n", n), ("h", h), ("w", w), ("c", c),
+                                    ("k", hk)))
+
+
+def sig_shift_conv2d(n, h, w, c, cy) -> ShapeSig:
+    return ShapeSig("shift_conv2d", (("n", n), ("h", h), ("w", w), ("c", c),
+                                     ("co", cy)))
+
+
+def sig_add_conv2d(n, h, w, cx, cy, hk) -> ShapeSig:
+    return ShapeSig("add_conv2d", (("n", n), ("h", h), ("w", w), ("ci", cx),
+                                   ("co", cy), ("k", hk)))
+
+
+def sig_causal_conv1d(b, l, d, k) -> ShapeSig:
+    return ShapeSig("causal_conv1d", (("b", b), ("l", l), ("d", d), ("k", k)))
+
+
+def sig_matmul(m, k, n) -> ShapeSig:
+    return ShapeSig("matmul", (("m", m), ("k", k), ("n", n)))
+
+
+def sig_maxpool2d(n, h, w, c, window, stride) -> ShapeSig:
+    return ShapeSig("maxpool2d", (("n", n), ("h", h), ("w", w), ("c", c),
+                                  ("k", window), ("s", stride)))
+
+
+def outputs(sig: ShapeSig) -> int:
+    """Output elements of one invocation: one thread each in the
+    one-thread-per-output kernels."""
+    g = sig.get
+    k = sig.kernel
+    if k == "maxpool2d":
+        win, s = g("k"), g("s")
+        return (g("n") * ((g("h") - win) // s + 1) * ((g("w") - win) // s + 1)
+                * g("c"))
+    if k == "depthwise2d":
+        return g("n") * g("h") * g("w") * g("c")
+    if k in ("conv2d", "shift_conv2d", "add_conv2d"):
+        return g("n") * g("h") * g("w") * g("co")
+    if k == "causal_conv1d":
+        return g("b") * g("l") * g("d")
+    return g("m") * g("n")
+
+
+def knobs(kernel: str, dtype) -> Tuple[str, ...]:
+    """The config keys ``kernel`` takes in ``dtype``."""
+    if kernel in THREADED or kernel == "causal_conv1d":
+        return ("threads",)
+    if kernel == "matmul":
+        return ("bm", "splits") if integer(dtype) else ("bm",)
+    raise ValueError(f"unknown kernel {kernel!r}")
+
+
+def default_config(kernel: str, sig: ShapeSig = None,
+                   dtype="float32") -> Dict[str, int]:
+    """Today's launch: what each wrapper does when given no config. The
+    matmul's depends on the shape (``sig``)."""
+    if kernel in THREADED:
+        return {"threads": DEFAULT_THREADS}
+    if kernel == "causal_conv1d":
+        return {"threads": C1D_DEFAULT}
+    if kernel != "matmul":
+        raise ValueError(f"unknown kernel {kernel!r}")
+    if sig is None:
+        raise ValueError("matmul's default config depends on its shape: "
+                         "pass sig")
+    m, k, n = sig.get("m"), sig.get("k"), sig.get("n")
+    if not integer(dtype):
+        return {"bm": default_bm(m)}
+    return {"bm": default_bm(m), "splits": split_plan(m, k, n, SMS)[0]}
+
+
+def effective_config(sig: ShapeSig, cfg: Dict[str, int],
+                     dtype="float32") -> Dict[str, int]:
+    """The launch ``cfg`` runs on this shape, absent knobs at their
+    default: a requested K split becomes the number of non-empty K ranges
+    the wrapper launches. Two configs with equal effective configs are the
+    same launch; the space dedupes on this."""
+    eff = dict(default_config(sig.kernel, sig, dtype))
+    eff.update({k: v for k, v in cfg.items() if k in eff})
+    if sig.kernel == "matmul" and "splits" in eff:
+        m, k, n = sig.get("m"), sig.get("k"), sig.get("n")
+        eff["splits"] = split_plan(m, k, n, SMS, bm=eff["bm"],
+                                   splits=eff["splits"])[0]
+    return eff
+
+
+def launch_errors(sig: ShapeSig, cfg: Dict[str, int], dtype) -> List[str]:
+    """Why an (effective) config cannot launch on this shape: the block
+    size and the grid limits of its kernel. Empty if it can."""
+    k = sig.kernel
+    errs = []
+    if k in THREADED or k == "causal_conv1d":
+        t = cfg["threads"]
+        if k in THREADED and not (isinstance(t, int) and 32 <= t <= 1024
+                                  and t % 32 == 0):
+            errs.append(f"threads={t!r} is not a whole number of warps up "
+                        "to 1024")
+        elif k == "causal_conv1d" and t not in C1D_THREADS:
+            errs.append(f"threads={t!r} has no instantiation (one of "
+                        f"{C1D_THREADS})")
+        elif k in THREADED and cdiv(outputs(sig), t) > MAX_GRID_X:
+            errs.append(f"{cdiv(outputs(sig), t)} blocks exceed the grid")
+        elif k == "causal_conv1d" and (
+                cdiv(sig.get("l"), 32) > MAX_GRID_YZ
+                or sig.get("b") > MAX_GRID_YZ):
+            errs.append("L / 32 or B exceeds the grid's y or z limit")
+    elif k == "matmul":
+        bm = cfg["bm"]
+        if bm not in MM_BM:
+            errs.append(f"bm={bm!r} is not one of {MM_BM}")
+        elif cdiv(sig.get("m"), bm) > MAX_GRID_YZ:
+            errs.append(f"M / bm = {cdiv(sig.get('m'), bm)} exceeds the "
+                        "grid's y limit")
+        s = cfg.get("splits", 1)
+        if not isinstance(s, int) or not 1 <= s <= MAX_GRID_YZ:
+            errs.append(f"splits={s!r} is not in [1, {MAX_GRID_YZ}]")
+    return errs
+
+
+def _key(cfg) -> tuple:
+    return tuple(sorted(cfg.items()))
+
+
+def candidates(sig: ShapeSig, dtype="float32") -> Iterator[Dict[str, int]]:
+    """Enumerate the configs this shape can launch, default first, each
+    effective launch once. The default is always a member."""
+    k = sig.kernel
+    out: List[Dict[str, int]] = []
+    seen = set()
+
+    def emit(cfg, prune=True):
+        eff = effective_config(sig, cfg, dtype)
+        if _key(eff) in seen or (prune and launch_errors(sig, eff, dtype)):
+            return
+        seen.add(_key(eff))
+        out.append(dict(cfg))
+
+    default = default_config(k, sig, dtype)
+    emit(default, prune=False)
+    if k in THREADED:
+        for t in THREADS:
+            emit({"threads": t})
+    elif k == "causal_conv1d":
+        for t in C1D_THREADS:
+            emit({"threads": t})
+    elif not integer(dtype):                       # float matmul
+        for bm in MM_BM:
+            emit({"bm": bm})
+    else:                                          # integer matmul
+        d = default["splits"]
+        steps = cdiv(sig.get("k"), BLOCK_K)
+        for bm in MM_BM:
+            for s in sorted({1, d, 2 * d, 4 * d}):
+                emit({"bm": bm, "splits": max(1, min(s, steps))})
+    return iter(out)
+
+
+def space_size(sig: ShapeSig, dtype="float32") -> int:
+    return sum(1 for _ in candidates(sig, dtype))
+
+
+@functools.lru_cache(maxsize=4096)
+def _check(sig: ShapeSig, items: tuple, dtype: str):
+    cfg = dict(items)
+    unknown = set(cfg) - set(knobs(sig.kernel, dtype))
+    if unknown:
+        raise ValueError(f"{sig.kernel}/{sig.key()} [{dtype}]: config "
+                         f"{cfg} has unknown knobs {sorted(unknown)}; "
+                         f"{sig.kernel} takes {knobs(sig.kernel, dtype)}")
+    eff = effective_config(sig, cfg, dtype)
+    errs = launch_errors(sig, eff, dtype)
+    if errs:
+        raise ValueError(f"{sig.kernel}/{sig.key()} [{dtype}]: config {cfg} "
+                         f"cannot launch: {'; '.join(errs)}")
+    if _key(eff) not in {_key(effective_config(sig, c, dtype))
+                         for c in candidates(sig, dtype)}:
+        raise ValueError(f"{sig.kernel}/{sig.key()} [{dtype}]: config {cfg} "
+                         "is outside the tuner's space")
+
+
+def check_config(sig: ShapeSig, config: Dict[str, int], dtype="float32"):
+    """Raise ``ValueError`` for a config outside the space or one that
+    breaks a launch limit; return the config unchanged. Verdicts are
+    memoized, so a config checked once costs a dict probe after."""
+    try:
+        items = _key(config)
+        hash(items)
+    except TypeError:
+        raise ValueError(f"config must be a dict of ints, got {config!r}")
+    _check(sig, items, dtype_key(dtype))
+    return config

@@ -421,3 +421,247 @@ def test_ssm_engine_on_the_card_launches_conv_once_per_layer(dev):
     y_torch = mamba.mamba_forward(lp["mamba"], x, cfg.mamba, torch.bfloat16,
                                   conv_method="torch")
     assert torch.equal(_bits(y_cuda), _bits(y_torch))
+
+
+# ------------------------------------------------- float modes, tuner knobs
+
+def _float_case(kernel, shape, dtype, dev, rng, act="relu"):
+    """(kernel call taking **config, plain call) of one float-mode case."""
+    from repro_torch import kernels as K
+    dt = getattr(torch, dtype)
+
+    def f(s):
+        return _f(rng, s, dt, dev)
+    if kernel == "conv2d_f":
+        n, h, w, cx, cy, hk, g = shape
+        x, wt, b = f((n, h, w, cx)), f((hk, hk, cx // g, cy)), f((cy,))
+        return (lambda **c: K.conv2d_f(x, wt, b, groups=g, act=act, **c),
+                lambda: K.conv2d_f_plain(x, wt, b, groups=g, act=act))
+    if kernel == "depthwise2d_f":
+        n, h, w, c, hk = shape
+        x, wt = f((n, h, w, c)), f((hk, hk, c))
+        return (lambda **c: K.depthwise2d_f(x, wt, act=act, **c),
+                lambda: K.depthwise2d_f_plain(x, wt, act=act))
+    if kernel == "maxpool2d_f":
+        n, h, w, c, win, s = shape
+        x = f((n, h, w, c))
+        return (lambda **c: K.maxpool2d_f(x, window=win, stride=s, **c),
+                lambda: K.maxpool2d_plain(x, window=win, stride=s))
+    if kernel == "shift_conv2d_f":
+        n, h, w, c, cy, d = shape
+        x, wt = f((n, h, w, c)), f((c, cy))
+        s = torch.from_numpy(_grid(c, d)).to(dev)
+        return (lambda **cf: K.shift_conv2d_f(x, s, wt, max_shift=d,
+                                              act=act, **cf),
+                lambda: K.shift_conv2d_f_plain(x, s, wt, max_shift=d,
+                                               act=act))
+    if kernel == "add_conv2d_f":
+        n, h, w, cx, cy, hk = shape
+        x, wt = f((n, h, w, cx)), f((hk, hk, cx, cy))
+        return (lambda **c: K.add_conv2d_f(x, wt, act=act, **c),
+                lambda: K.add_conv2d_f_plain(x, wt, act=act))
+    m, k, n = shape
+    a, b = f((m, k)), f((k, n))
+    return (lambda **c: K.matmul_f(a, b, act=act, **c),
+            lambda: K.matmul_f_plain(a, b, act=act))
+
+
+FLOAT_CASES = [
+    ("conv2d_f", (1, 10, 10, 128, 64, 3, 1)),
+    ("conv2d_f", (1, 10, 10, 128, 64, 3, 4)),
+    ("conv2d_f", (1, 32, 32, 16, 16, 7, 1)),
+    ("conv2d_f", (2, 15, 13, 3, 8, 3, 1)),
+    ("conv2d_f", (2, 6, 7, 4, 8, 2, 1)),
+    ("conv2d_f", (2, 8, 8, 5, 7, 1, 1)),
+    ("depthwise2d_f", (1, 32, 32, 64, 3)),
+    ("depthwise2d_f", (2, 15, 13, 19, 5)),
+    ("depthwise2d_f", (2, 8, 8, 7, 1)),
+    ("maxpool2d_f", (8, 32, 32, 64, 2, 2)),
+    ("maxpool2d_f", (2, 15, 13, 19, 3, 2)),
+    ("shift_conv2d_f", (1, 32, 32, 64, 64, 1)),
+    ("shift_conv2d_f", (2, 15, 13, 19, 8, 2)),
+    ("add_conv2d_f", (1, 10, 10, 16, 16, 3)),
+    ("add_conv2d_f", (2, 15, 13, 3, 8, 3)),
+    ("matmul_f", (256, 512, 256)),
+    ("matmul_f", (1, 45, 37)),
+    ("matmul_f", (70, 33, 300)),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kernel,shape", FLOAT_CASES, ids=str)
+def test_float_kernel_equals_plain(dev, kernel, shape, dtype):
+    """Each float mode bitwise equal to its plain version (which sums in
+    the kernel's order), and one launch counted."""
+    from repro_torch import kernels as K
+    run, plain = _float_case(kernel, shape, dtype, dev,
+                             np.random.default_rng(hash(shape) % 2 ** 32))
+    wrapper = getattr(K, kernel)
+    before = wrapper.launches
+    got = run()
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    want = plain()
+    assert got.dtype == want.dtype == getattr(torch, dtype)
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("op,kernel", [
+    ("conv2d", "conv2d_f"), ("depthwise2d", "depthwise2d_f"),
+    ("maxpool2d", "maxpool2d_f"), ("shift_conv2d", "shift_conv2d_f"),
+    ("add_conv2d", "add_conv2d_f"), ("matmul", "matmul_f")])
+def test_float_ops_launch_their_kernel(dev, op, kernel):
+    """ops.<op> on float32 card tensors under "cuda" launches the float
+    kernel (no plain version, no NotImplementedError)."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(21)
+    x = _f(rng, (2, 8, 8, 8), torch.float32, dev)
+    args = {"conv2d": (x, _f(rng, (3, 3, 8, 4), torch.float32, dev)),
+            "depthwise2d": (x, _f(rng, (3, 3, 8), torch.float32, dev)),
+            "maxpool2d": (x,),
+            "shift_conv2d": (x, torch.from_numpy(_grid(8, 1)).to(dev),
+                             _f(rng, (8, 4), torch.float32, dev)),
+            "add_conv2d": (x, _f(rng, (3, 3, 8, 4), torch.float32, dev)),
+            "matmul": (x.reshape(16, 64)[:, :8].contiguous(),
+                       _f(rng, (8, 4), torch.float32, dev))}[op]
+    wrapper = getattr(K, kernel)
+    before = wrapper.launches
+    got = getattr(ops, op)(*args, method="cuda")
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert torch.isfinite(got).all()
+
+
+def _entry(name, dev, rng):
+    """(sig, dtype, call(**config)) of one kernel entry point at one
+    shape, for the candidate-invariance check."""
+    from repro_torch import kernels as K
+    from repro_torch import tune
+    from repro_torch.core.quantize import pack_w4
+
+    def w4(shape, axis):
+        q = torch.from_numpy(rng.integers(-8, 8, shape).astype(np.int8))
+        ws = torch.from_numpy(rng.integers(0, 5, shape[axis])
+                              .astype(np.int8)).to(dev)
+        return pack_w4(q, axis).contiguous().to(dev), ws
+    x8 = _i8(rng, (4, 12, 10, 16), dev)
+    kw = dict(requant_shift=7, act="relu")
+    if name.endswith("_f"):
+        shape = {"conv2d_f": (4, 12, 10, 16, 24, 3, 2),
+                 "depthwise2d_f": (4, 12, 10, 16, 3),
+                 "maxpool2d_f": (4, 12, 10, 16, 3, 2),
+                 "shift_conv2d_f": (4, 12, 10, 16, 24, 1),
+                 "add_conv2d_f": (4, 12, 10, 16, 24, 3),
+                 "matmul_f": (40, 300, 520)}[name]
+        run, _ = _float_case(name, shape, "float32", dev, rng)
+        sig = {"conv2d_f": lambda: tune.sig_conv2d(*shape),
+               "depthwise2d_f": lambda: tune.sig_depthwise2d(*shape),
+               "maxpool2d_f": lambda: tune.sig_maxpool2d(*shape),
+               "shift_conv2d_f": lambda: tune.sig_shift_conv2d(*shape[:5]),
+               "add_conv2d_f": lambda: tune.sig_add_conv2d(*shape),
+               "matmul_f": lambda: tune.sig_matmul(*shape)}[name]()
+        return sig, "float32", run
+    if name == "causal_conv1d":
+        x, w = (_f(rng, (2, 70, 300), torch.bfloat16, dev),
+                _f(rng, (4, 300), torch.bfloat16, dev))
+        return (tune.sig_causal_conv1d(2, 70, 300, 4), "bfloat16",
+                lambda **c: K.causal_conv1d(x, w, **c))
+    if name in ("matmul_q8", "matmul_w4"):
+        a = _i8(rng, (8, 896), dev)
+        sig = tune.sig_matmul(8, 896, 600)
+        if name == "matmul_q8":
+            b = _i8(rng, (896, 600), dev)
+            return sig, "int8", lambda **c: K.matmul_q8(a, b, **kw, **c)
+        bp, bs = w4((896, 600), 0)
+        return sig, "w4a8", lambda **c: K.matmul_w4(a, bp, bs, **kw, **c)
+    dt = "w4a8" if name.endswith("_w4") else "int8"
+    base = name[:-3]
+    b = torch.from_numpy(rng.integers(-4000, 4000, 24).astype(np.int32)) \
+        .to(dev)
+    if base == "conv2d":
+        sig = tune.sig_conv2d(4, 12, 10, 16, 24, 3, 1)
+        if dt == "int8":
+            w = _i8(rng, (3, 3, 16, 24), dev)
+            return sig, dt, lambda **c: K.conv2d_q8(x8, w, b, **kw, **c)
+        wp, ws = w4((3, 3, 16, 24), 2)
+        return sig, dt, lambda **c: K.conv2d_w4(x8, wp, ws, b, **kw, **c)
+    if base == "depthwise2d":
+        sig = tune.sig_depthwise2d(4, 12, 10, 16, 3)
+        if dt == "int8":
+            w = _i8(rng, (3, 3, 16), dev)
+            return sig, dt, lambda **c: K.depthwise2d_q8(x8, w, **kw, **c)
+        wp, ws = w4((3, 3, 16), 0)
+        return sig, dt, lambda **c: K.depthwise2d_w4(x8, wp, ws, **kw, **c)
+    if base == "maxpool2d":
+        return (tune.sig_maxpool2d(4, 12, 10, 16, 3, 2), dt,
+                lambda **c: K.maxpool2d_s8(x8, window=3, stride=2, **c))
+    if base == "shift_conv2d":
+        sig = tune.sig_shift_conv2d(4, 12, 10, 16, 24)
+        s = torch.from_numpy(_grid(16, 1)).to(dev)
+        if dt == "int8":
+            w = _i8(rng, (16, 24), dev)
+            return sig, dt, lambda **c: K.shift_conv2d_q8(x8, s, w, b, **kw,
+                                                          **c)
+        wp, ws = w4((16, 24), 0)
+        return sig, dt, lambda **c: K.shift_conv2d_w4(x8, s, wp, ws, b, **kw,
+                                                      **c)
+    sig = tune.sig_add_conv2d(4, 12, 10, 16, 24, 3)
+    akw = dict(requant_shift=9, x_preshift=2, w_preshift=0)
+    if dt == "int8":
+        w = _i8(rng, (3, 3, 16, 24), dev)
+        return sig, dt, lambda **c: K.add_conv2d_q8(x8, w, b, **akw, **c)
+    wp, ws = w4((3, 3, 16, 24), 2)
+    return sig, dt, lambda **c: K.add_conv2d_w4(x8, wp, ws, b, **akw, **c)
+
+
+ENTRY_POINTS = ["conv2d_q8", "depthwise2d_q8", "maxpool2d_s8",
+                "shift_conv2d_q8", "add_conv2d_q8", "conv2d_w4",
+                "depthwise2d_w4", "shift_conv2d_w4", "add_conv2d_w4",
+                "matmul_q8", "matmul_w4", "causal_conv1d", "conv2d_f",
+                "depthwise2d_f", "maxpool2d_f", "shift_conv2d_f",
+                "add_conv2d_f", "matmul_f"]
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_every_candidate_equals_the_default(dev, name):
+    """Every config in the tuner's space gives output bitwise equal to the
+    default config's: the knobs change only the launch shape."""
+    from repro_torch import tune
+    sig, dtype, call = _entry(name, dev, np.random.default_rng(22))
+    cands = list(tune.candidates(sig, dtype))
+    assert len(cands) >= 2, cands
+    want = call(**tune.default_config(sig.kernel, sig, dtype))
+    for cfg in cands:
+        got = call(**cfg)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (name, cfg)
+
+
+def test_tuned_plan_on_the_card_equals_the_untuned_plan(dev, tmp_path):
+    """autotune_plan on the card, its cache installed: the plan's trunk is
+    bitwise the trunk without a cache, and every node resolved a config
+    from the cache."""
+    from repro_torch import tune
+    from repro_torch.graph import CompiledPlan, build_cnn_graph, lower
+    from repro_torch.models import CNNConfig, init_cnn
+    cfg = CNNConfig(primitive="dws", widths=(8, 12), image_size=16)
+    params = init_cnn(cfg, torch.Generator().manual_seed(0), device=dev)
+    rng = np.random.default_rng(23)
+    calib = torch.from_numpy((rng.standard_normal((8, 16, 16, 3)) * 0.5)
+                             .astype(np.float32)).to(dev)
+    plan = lower(build_cnn_graph(cfg), params, calib)
+    x = (rng.standard_normal((8, 16, 16, 3)) * 0.5).astype(np.float32)
+    try:
+        tune.set_default_cache(tune.TuneCache(None))
+        want = CompiledPlan(plan, method="cuda", device=dev).trunk(x)
+        cache = tune.TuneCache(None)
+        tune.autotune_plan(cache, plan, batch=8, reps=2)
+        cache.save(str(tmp_path / "c.json"))
+        tune.set_default_cache(tune.TuneCache(str(tmp_path / "c.json")))
+        got = CompiledPlan(plan, method="cuda", device=dev).trunk(x)
+        assert torch.equal(got.q, want.q)
+        assert all(e["source"] == "measured" for e in cache.entries.values())
+        assert all(k.endswith(tune.backend_tag(dev)) for k in cache.entries)
+    finally:
+        tune.reset()

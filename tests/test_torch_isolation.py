@@ -40,6 +40,7 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.kernels.ops, repro_torch.models\n"
         "import repro_torch.configs, repro_torch.serve.engine\n"
         "import repro_torch.models.api, repro_torch.models.transformer\n"
+        "import repro_torch.tune, repro_torch.tune.__main__\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
