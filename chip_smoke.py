@@ -6,7 +6,10 @@
 Phases, one line each, any failure exits non-zero:
 
 1. device   — a CUDA card is present; its name and power limit.
-2. build    — the CUDA kernels built from ``src/repro_torch/kernels/csrc``.
+2. build    — the CUDA kernels built from ``src/repro_torch/kernels/csrc``;
+              at a fresh build, ptxas's registers, shared memory and spills
+              of every instantiation of the integer conv and the float
+              matmul.
 3. kernels  — each of the eighteen kernel entry points (six int8, five
               W4, six float32 / bfloat16 and the float causal_conv1d) held
               bitwise against its plain PyTorch version at every
@@ -22,8 +25,14 @@ Phases, one line each, any failure exits non-zero:
               8x4864x896), prefill shapes (32, 64 and 128 x896x4864,
               64x4864x896) and ragged ones
               (K = 45, 33 and 4864 with N = 37, M = 5, 13 and 70), requant
-              shifts -2 to 16; causal_conv1d at Falcon-Mamba's prefill
-              shapes (1 x L x 8192 bf16 for L = 16, 33, 96 and 256, and
+              shifts -2 to 16; the integer conv's implicit GEMM also at the
+              tuner's Table-2 int8 jobs (Cx = 128 at 10^2, g = 1 and 4;
+              16->16 at 32^2, n = 1 and 8; timed with the standard plan's
+              conv1 and conv2, not summed), HK 5 and 7, groups of 3, odd
+              Cx/g in W4, Cy = 20 and x at an odd address; the launch
+              arithmetic of the integer conv and the float matmul (every
+              tile) equal to their sources'; causal_conv1d at Falcon-Mamba's
+              prefill shapes (1 x L x 8192 bf16 for L = 16, 33, 96 and 256, and
               8 x 64 x 8192), in float32, at D = 100 with K 1, 2 and 4 and
               relu on and off, with (K,1,D) weights, and its backward (dx
               bitwise against flip-plain-flip, dw against the plain
@@ -32,8 +41,10 @@ Phases, one line each, any failure exits non-zero:
               maxpool2d, shift_conv2d, add_conv2d and matmul in float32
               and bfloat16 at the tuner's Table-2 jobs, at every layer
               shape of the four CNN plans at B=256 and at edges (HK 1, 2
-              and 5, groups, C = 19, M = 1, K = 33 and 45, relu and bias
-              on and off); every config of the tuner's space of every
+              and 5, groups, C = 19, M = 1, K = 33 and 45, matmuls of
+              37x45x33 and 257x513x255 and with operands at unaligned
+              addresses, relu and bias on and off); every config of the
+              tuner's space of every
               entry point, at one shape each, bitwise equal to the default
               config's output; per main-path shape the kernel's time, its
               bound, the plain version's time and one PyTorch call's time
@@ -84,7 +95,8 @@ Phases, one line each, any failure exits non-zero:
 8. tune     — the autotuner: ``python -m repro_torch.tune``'s main over
               the paper's Table-2 jobs and the four CNN primitives' int8
               and W4 plans at B=256, plus the tuner's float32 and bfloat16
-              pool jobs, every candidate ranked by device time; the cache
+              pool jobs, every candidate ranked by device time (each
+              candidate's time printed); the cache
               written under build/repro_torch/, reloaded and installed; the
               int8 dws and W4 shift plans of phase 4 served through
               CompiledPlan with it, trunks bitwise equal to phase 4's,
@@ -251,6 +263,20 @@ def device_ms(torch, fn, reps=20) -> float:
 
 # ---------------------------------------------------------------- phase 3 --
 
+#: the tuner's Table-2 int8 conv jobs (repro_torch.tune.__main__
+#: shapes_table2): (n, h, w, cx, cy, hk, groups)
+T2_INT8_CONV = ((1, 10, 10, 128, 64, 3, 1), (1, 10, 10, 128, 64, 3, 4),
+                (1, 32, 32, 16, 16, 3, 1), (8, 32, 32, 16, 16, 3, 1))
+
+
+def offset_view(torch, t, offset: int):
+    """A contiguous tensor equal to ``t`` whose data starts ``offset``
+    elements into a larger buffer: an operand at an unaligned address."""
+    buf = torch.zeros(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:offset + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
 def main_path_shapes(primitive: str):
     """(kernel, label, args) of every launch of one plan's forward at
     B=256 (32x32x3 images, widths 16/32/64)."""
@@ -315,8 +341,10 @@ def kernel_cases(torch, K, dev, rng):
         return wp, ws, expand_w4(wp, ws, n, axis)
 
     def conv(label, n, h, w, cx, cy, hk, g, bias=True, act="relu", shift=7,
-             main=False, w4_mode=False, all_max=False):
+             main=False, w4_mode=False, all_max=False, x_offset=0):
         x = i8((n, h, w, cx))
+        if x_offset:                 # the same codes at an odd address
+            x = offset_view(torch, x, x_offset)
         if w4_mode:
             wp, ws, wt = w4((hk, hk, cx // g, cy), 2, all_max)
             wbytes = wp.numel() + ws.numel()
@@ -489,6 +517,8 @@ def kernel_cases(torch, K, dev, rng):
         for kernel, label, a in main_path_shapes(prim):
             key = (kernel, tuple(sorted(a.items())))
             main = prim == TIMED_PLAN[kernel]
+            if kernel == "conv2d" and prim == "standard" and not main:
+                main = 0                      # timed, not summed
             if key in seen and not main:
                 continue
             seen.add(key)
@@ -511,6 +541,18 @@ def kernel_cases(torch, K, dev, rng):
     yield conv("grouped g=2 16->32 16^2", BATCH, 16, 16, 16, 32, 3, 2)
     yield conv("odd 2x15x13x3->8 hk3", 2, 15, 13, 3, 8, 3, 1)
     yield conv("even hk2 2x6x7x4->8", 2, 6, 7, 4, 8, 2, 1)
+    # the tuner's Table-2 int8 conv jobs (timed, not summed) and the
+    # implicit GEMM's edges: K chunks (K words > 32), HK 5 and 7, groups
+    # of 3, Cy off a multiple of the thread's 4-16 channels, x at an odd
+    # address (the bytewise window)
+    for shape in T2_INT8_CONV:
+        yield conv(f"table2 {shape}", *shape, main=0)
+    yield conv("hk5 2x15x13x19->37", 2, 15, 13, 19, 37, 5, 1)
+    yield conv("hk7 g=2 1x12x11x8->12", 1, 12, 11, 8, 12, 7, 2)
+    yield conv("grouped g=3 2x9x9x6->9", 2, 9, 9, 6, 9, 3, 3)
+    yield conv("Cy=20 3x5x40x8->20", 3, 5, 40, 8, 20, 3, 1)
+    yield conv("x offset by 1 byte 2x16x16x16->32", 2, 16, 16, 16, 32, 3, 1,
+               x_offset=1)
     yield dw("odd 2x15x13x8 hk3 (HK,HK,C)", 2, 15, 13, 8, 3, layout4=False)
     yield pool("odd 2x15x13x8 3/2", 2, 15, 13, 8, win=3, stride=2)
     for shift in (-2, 0, 1, 7):
@@ -570,8 +612,18 @@ def w4_cases(conv, dw, shift_conv, add_conv):
                        BATCH, hw, hw, cin, cout, 3, xp=xp, wp=wp, rs=rs,
                        main=True, **packed)
         hw, cin = hw // 2, cout
+    yield conv("W4 standard conv1 16->32 16^2", BATCH, 16, 16, 16, 32, 3, 1,
+               main=0, **packed)
+    yield conv("W4 standard conv2 32->64 8^2", BATCH, 8, 8, 32, 64, 3, 1,
+               main=0, **packed)
+    for shape in T2_INT8_CONV:
+        yield conv(f"W4 table2 {shape}", *shape, main=0, **packed)
     yield conv("W4 standard conv1 16->32 16^2 all shifts 4", BATCH, 16, 16,
                16, 32, 3, 1, all_max=True, **packed)
+    yield conv("W4 odd Cx/g=5 g=2 2x9x9x10->8 hk5", 2, 9, 9, 10, 8, 5, 2,
+               **packed)
+    yield conv("W4 hk7 odd Cx/g=3 1x12x11x3->20", 1, 12, 11, 3, 20, 7, 1,
+               **packed)
     yield conv("W4 grouped g=2 16->32 16^2", BATCH, 16, 16, 16, 32, 3, 2,
                **packed)
     yield conv("W4 odd 2x15x13x5->8 hk3 g=1", 2, 15, 13, 5, 8, 3, 1,
@@ -618,6 +670,93 @@ def matmul_cases(mm):
              w4_mode=True, all_max=True)
 
 
+#: the kernels whose shared-memory tiles this repository sizes itself: each
+#: instantiation's ptxas report is printed at a fresh build
+TILED_KERNELS = ("conv2d_kernel", "matmul_f_kernel")
+
+
+def ptxas_report(log: str, kernels) -> list:
+    """One line per instantiation of ``kernels`` in ``nvcc -Xptxas -v``'s
+    output: its name (demangled by c++filt where the machine has it), its
+    registers, static shared memory and spill bytes."""
+    import re
+    out, name, props = [], None, {}
+
+    def flush():
+        if name is not None and any(
+                re.search(rf"(?<!\w){k}<", name) for k in kernels):
+            out.append(f"{name}: {props.get('regs', '?')} registers, "
+                       f"{props.get('smem', '0')} bytes static shared "
+                       "memory (its tiles: dynamic, sized per launch), "
+                       f"spill stores {props.get('st', '?')} loads "
+                       f"{props.get('ld', '?')} bytes")
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            flush()
+            name = _demangle(m.group(1)).replace("(anonymous namespace)::", "")
+            name, props = name.split("(")[0], {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            props["st"], props["ld"] = m.group(1), m.group(2)
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            props["regs"] = m.group(1)
+            s = re.search(r"(\d+) bytes smem", ln)
+            props["smem"] = s.group(1) if s else "0"
+    flush()
+    return out
+
+
+def _demangle(sym: str) -> str:
+    try:
+        r = subprocess.run(["c++filt", sym], capture_output=True, text=True,
+                           timeout=30)
+        return r.stdout.strip() or sym if r.returncode == 0 else sym
+    except (OSError, subprocess.SubprocessError):
+        return sym
+
+
+def check_plans(K):
+    """The Python launch arithmetic of the two tiled kernels (the tuner's
+    footprint check reads it) equal to their sources' own, at every tile
+    of the dws plan's convs, the Table-2 int8 convs and Table-2 matmuls."""
+    import ctypes
+    import importlib
+    from repro_torch.kernels import _build
+    ci = importlib.import_module("repro_torch.kernels.conv_im2col")
+    mq = importlib.import_module("repro_torch.kernels.matmul_q8")
+    lib = _build.library()
+    shapes = [(BATCH, 32, 32, 3, 16, 3, 1), (BATCH, 16, 16, 16, 32, 1, 1),
+              (BATCH, 8, 8, 32, 64, 1, 1), (2, 15, 13, 19, 37, 5, 1),
+              *T2_INT8_CONV]
+    n = 0
+    for s in shapes:
+        for bp in ci.CONV_BP:
+            for q in ci.CONV_Q:
+                c = (ctypes.c_int * 6)()
+                lib.repro_conv2d_i8_plan(c, *s, bp, q)
+                p = ci.conv_plan(*s, bp, q)
+                check(list(c) == [*p["grid"], p["threads"], p["smem"],
+                                  p["k_words"], p["window"]],
+                      f"conv2d plan {s} bp={bp} q={q}: source {list(c)} vs "
+                      f"Python {p}")
+                n += 1
+    for m, _, nn in T2_MATMUL:
+        for tile in mq.MMF_TILES:
+            for code, es in ((0, 4), (1, 2)):
+                c = (ctypes.c_int * 4)()
+                check(lib.repro_matmul_f_plan(c, m, nn, *tile, code) == 0,
+                      f"matmul_f tile {tile} not instantiated")
+                p = mq.mmf_plan(m, nn, tile, es)
+                check(list(c) == [*p["grid"], p["threads"], p["smem"]],
+                      f"matmul_f plan {tile}: source {list(c)} vs {p}")
+                n += 1
+    print(f"[kernels] launch arithmetic: {n} plans of the integer conv and "
+          "the float matmul equal to their sources'")
+
+
 def phase_kernels(torch, K, dev, name, rng):
     from repro_torch.device import exact_float32
     bw, int8_rate = peaks(name)
@@ -627,6 +766,7 @@ def phase_kernels(torch, K, dev, name, rng):
           f"|x - w| accumulates / {i32_text}")
     rates = {"int8": int8_rate, "int32": i32_rate}
     f32_rate = F32_PEAKS["PCIe" if "PCIe" in name else "SXM"]
+    check_plans(K)
     with exact_float32():      # the float32 yardsticks run without TF32
         per_kernel = _phase_kernels(torch, K, dev, rng, bw, rates)
         per_kernel["causal_conv1d"] = phase_conv1d(torch, K, dev, rng, bw,
@@ -931,9 +1071,11 @@ def float_cases(torch, K, dev, rng):
                 x.element_size() * (x.numel() + wt.numel() + n * h * w * cy),
                 (2 * n * h * w * cy * cx * hk * hk, "op"))
 
-    def mm(label, shape, dtype, timed=False, act=None):
+    def mm(label, shape, dtype, timed=False, act=None, off=0):
         m, k, n = shape
         a, b = f((m, k), dtype), f((k, n), dtype)
+        if off:                      # operands at unaligned addresses
+            a, b = offset_view(torch, a, off), offset_view(torch, b, off)
         af, bf = a.float(), b.float()
         return ("matmul_f", label, timed,
                 lambda: K.matmul_f(a, b, act=act),
@@ -999,9 +1141,14 @@ def float_cases(torch, K, dev, rng):
                   act="relu")
         yield add(f"{tag} HK=1 C=19 2x8x8->8", (2, 8, 8, 19, 8, 1), dtype)
         for shape in ((1, 896, 37), (1, 45, 37), (13, 33, 300),
-                      (70, 4864, 37), (17, 64, 100)):
+                      (70, 4864, 37), (17, 64, 100), (37, 45, 33),
+                      (257, 513, 255)):
             yield mm(f"{tag} {shape}", shape, dtype, act="relu" if
                      shape[0] % 2 else None)
+        # M, N, K off every tile; the bytewise staging of misaligned rows
+        for off in (1, 3):
+            yield mm(f"{tag} (70, 33, 100) offset by {off}", (70, 33, 100),
+                     dtype, act="relu", off=off)
 
 
 def phase_float(torch, K, dev, rng, bw):
@@ -1647,9 +1794,12 @@ def phase_tune(torch, K, card, plans, dev="cuda"):
     tune.reset()
     K.reset_launches()
     t0 = time.perf_counter()
+    # --verbose: every candidate's device time, one line each (the tile
+    # sweeps of the integer conv and the float matmul among them)
     cache = tune_main(["--shapes", "table2", "--cnn",
                        "standard,dws,shift,add", "--cnn-batch", str(BATCH),
-                       "--out", str(TUNE_CACHE), "--device", str(dev)])
+                       "--out", str(TUNE_CACHE), "--device", str(dev),
+                       "--verbose"])
     # shapes_table2 pools int8: the tuner's float pool jobs, as the JAX
     # script's _pool(dtype=...) would give them
     mk = _Maker(dev)
@@ -1806,11 +1956,16 @@ def main() -> int:
 
     info = _build.build()
     _build.library()
-    regs = [ln.strip() for ln in (_build.BUILD_DIR / "build.log").read_text()
-            .splitlines() if "registers" in ln] if info["built"] else []
+    log = (_build.BUILD_DIR / "build.log").read_text()
+    regs = [ln.strip() for ln in log.splitlines()
+            if "registers" in ln] if info["built"] else []
     print(f"[build] {'built' if info['built'] else 'up to date'} "
           f"{info['path'].relative_to(ROOT)} in {info['seconds']:.1f} s; "
           + " | ".join(regs))
+    # ptxas's report of the build that made the library (this run's, or
+    # the one an earlier process made from the same sources)
+    for line in ptxas_report(log, TILED_KERNELS):
+        print(f"[build] {line}")
 
     rng = np.random.default_rng(SEED)
     per_kernel = phase_kernels(torch, K, dev, kind, rng)

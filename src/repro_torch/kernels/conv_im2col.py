@@ -6,19 +6,21 @@ Replaces the TPU kernel ``repro/kernels/conv_im2col.py`` (``conv2d_im2col``
 / ``_conv2d_im2col``) in all its modes; the source is
 ``csrc/conv_im2col.cu``. What bounds it on an H100: at the model's shapes
 (B=256, up to 32x32x16 outputs) each launch moves a few MB and does well
-under a GFLOP of int8 work, so its floor is a microsecond or two of HBM
-time. This first kernel is far from that floor: one thread per output
-element issues two one-byte loads per multiply-add and reuses nothing in
-registers, so load-instruction throughput bounds it (the 3->16 stem at B=256
-takes over a hundred microseconds on an H100 SXM at 700 W; PERF.md has the
-numbers). The design answers correctness first: exact int32 accumulation and
-the epilogue of ``csrc/epilogue.cuh``; register blocking over output
-channels, tensor cores and input tiling come later.
+under a GFLOP of int8 work, so bytes bound it: its floor is a microsecond
+or two of HBM time. The integer modes run an implicit GEMM per group (M =
+output pixels, N = Cy/g, K = HK*HK*Cx/g): a block stages its run of
+pixels' input window and the group's filter slice (as words of four int8
+K-consecutive codes) in shared memory once, and each thread sums 32
+accumulators (PT pixels x Q channels) with ``__dp4a``; exact int32 sums,
+then the epilogue of ``csrc/epilogue.cuh``. The block's pixels ``bp`` and a
+thread's channels ``q`` are the tuner's knobs; :func:`conv_plan` is the
+launch arithmetic the source computes (grid, threads, K words, shared
+bytes), and :func:`default_tile` the wrappers' choice.
 
 The W4 mode (:func:`conv2d_w4`) reads the nibble-packed weight bytes and
-the int8 group shifts and unpacks each code in registers, so the weight
-bytes it moves are half the int8 mode's; its plain version expands the
-codes (``expand_w4``) and runs the int8 plain version.
+the int8 group shifts; each block unpacks and shifts every code once, while
+it stages the filter, and from there runs the int8 body. Its plain version
+expands the codes (``expand_w4``) and runs the int8 plain version.
 
 The float mode (:func:`conv2d_f`, float32 or bfloat16) runs the same
 one-thread-per-output design with a float32 accumulator: at Table-2's
@@ -30,13 +32,16 @@ tap row, tap column, then input channel, one float32 multiply and one add
 at a time, so the two are bitwise equal; JAX's oracle and the Pallas
 kernel sum in other orders and agree within a tolerance.
 
-Every wrapper takes ``threads``, the block size of its launch (the tuner's
-knob, ``repro_torch.tune``); it changes no output.
+The float wrapper takes ``threads``, the block size of its launch; the
+integer ones take ``bp`` and ``q``. They are the tuner's knobs
+(``repro_torch.tune``) and change no output.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches the kernel or raises.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -46,12 +51,132 @@ from repro_torch.core.quantize import expand_w4
 
 from ._build import check_launch, library
 from .common import (DEFAULT_THREADS, acc_dtype, apply_act, apply_requant,
-                     check_threads, float_code)
+                     cdiv, check_threads, float_code)
 
 #: largest Cx/g * HK^2 whose int8 x int8 sum cannot leave int32
 MAX_CONTRACTION = (2 ** 31 - 1) // (128 * 128)
 #: the kernels index with 32-bit ints: every tensor stays below this size
 MAX_ELEMENTS = 2 ** 31 - 2 ** 16
+#: the integer modes' knobs: pixels a block and channels a thread, each
+#: thread owning 32 // q pixels. The tuner's space holds these values; a
+#: launch takes any whole number of 32-pixel runs up to 256 as bp
+#: (csrc/conv_im2col.cu valid_tile)
+CONV_BP = (32, 64, 128, 256)
+CONV_Q = (4, 8, 16)
+#: K words a staged chunk, and threads a block at most and at least (csrc
+#: KC, MAX_THREADS, MIN_THREADS: a small tile's block is padded with
+#: threads that only stage)
+CONV_KC, CONV_MAX_THREADS, CONV_MIN_THREADS = 32, 256, 128
+#: blocks the default tile's grid aims for: about one per SM of an H100
+DEFAULT_BLOCKS = 128
+#: the shared memory a block can use on an H100 (the tiled kernels' tiles
+#: are dynamic shared memory: above 48 KB after cudaFuncSetAttribute, which
+#: the sources call) and the grid's y limit
+MAX_DYNAMIC_SMEM, MAX_GRID_Y = 232448, 65535
+
+
+@functools.lru_cache(maxsize=4096)
+def conv_plan(n: int, h: int, w: int, cx: int, cy: int, hk: int,
+              groups: int, bp: int, q: int) -> dict:
+    """The integer modes' launch arithmetic, as ``conv_plan`` in
+    ``csrc/conv_im2col.cu`` computes it: ``grid`` (x, y), ``threads``,
+    ``smem`` (dynamic shared bytes), ``k_words`` (K = HK*HK*Cx/g padded to
+    a multiple of 4, in words of four int8), ``window`` (the input window's
+    shared bytes) and ``block_channels``. A pointwise conv (HK = 1) runs as
+    one image of one row of N*H*W pixels. Memoized: do not mutate the
+    dict."""
+    if hk == 1:
+        n, h, w = 1, 1, n * h * w
+    pt = 32 // q
+    cxg, ng = cx // groups, cy // groups
+    k_words = cdiv(hk * hk * cxg, 4)
+    kcw = min(CONV_KC, k_words)
+    ct = min(cdiv(ng, q), CONV_MAX_THREADS // (bp // pt))
+    bn = ct * q
+    ps = cxg + 4 if cxg % 4 == 0 and cx % 4 == 0 else cxg
+    # rows a run of bp pixels (starting at a multiple of bp) spans, and the
+    # window's width
+    if h == 1 or w % bp == 0:
+        rows, ww = 1, min(bp, w) + hk - 1
+    elif bp % w == 0:
+        rows, ww = min(h, bp // w), w + hk - 1
+    else:
+        rows, ww = min(h, bp // w + 2), w + hk - 1
+    window = -(-(rows + hk - 1) * ww * ps // 16) * 16
+    smem = window + 4 * (kcw * bp + kcw * bn + 4 * kcw + bp)
+    return dict(grid=(n * cdiv(h * w, bp), groups * cdiv(ng, bn)),
+                threads=max((bp // pt) * ct, CONV_MIN_THREADS), smem=smem,
+                k_words=k_words, window=window, block_channels=bn)
+
+
+def knob_errors(bp, q) -> list:
+    """Why (bp, q) is not a tile the integer kernel takes: bp a whole
+    number of 32-pixel runs up to 256, q one of :data:`CONV_Q`."""
+    errs = []
+    if (not isinstance(bp, int) or isinstance(bp, bool)
+            or not 32 <= bp <= 256 or bp % 32):
+        errs.append(f"bp must be a multiple of 32 in [32, 256], got {bp!r}")
+    if q not in CONV_Q or isinstance(q, bool):
+        errs.append(f"q must be one of {CONV_Q}, got {q!r}")
+    return errs
+
+
+def tile_errors(plan: dict) -> list:
+    """Why a :func:`conv_plan` cannot launch on an H100: its shared bytes
+    and its grid. Empty if it can."""
+    errs = []
+    if plan["smem"] > MAX_DYNAMIC_SMEM:
+        errs.append(f"{plan['smem']} bytes of shared memory exceed the "
+                    f"{MAX_DYNAMIC_SMEM} a block can use")
+    if plan["grid"][1] > MAX_GRID_Y:
+        errs.append(f"{plan['grid'][1]} channel blocks exceed the grid's y "
+                    "limit")
+    return errs
+
+
+def default_tile(n, h, w, cx, cy, hk, groups) -> dict:
+    """The wrappers' own tile: 16 channels a thread where the group has 16
+    or more (8 or 4 for a narrower one), and the largest block of pixels,
+    at most twice the run a block can cover (an image; all pixels at HK =
+    1) rounded up to a power of two, whose grid still holds
+    ``DEFAULT_BLOCKS`` blocks; 32 pixels where none does (a small batch:
+    the most blocks). On an H100 the fastest tile, or within 9% of it, at
+    every shape timed but Table-2's Cx = 128, g = 1 job (PERF.md); a
+    smaller block where a tile does not fit."""
+    return dict(zip(("bp", "q"), _default_tile(n, h, w, cx, cy, hk,
+                                                groups)))
+
+
+@functools.lru_cache(maxsize=4096)
+def _default_tile(n, h, w, cx, cy, hk, groups) -> tuple:
+    ng = cy // groups
+    q = 16 if ng >= 16 else (8 if ng >= 8 else 4)
+    run = n * h * w if hk == 1 else h * w
+    cap = max(CONV_BP[0], 2 * (1 << max(0, run - 1).bit_length()))
+    for bp in sorted(CONV_BP, reverse=True):
+        plan = conv_plan(n, h, w, cx, cy, hk, groups, bp, q)
+        gx, gy = plan["grid"]
+        if (bp <= cap and gx * gy >= DEFAULT_BLOCKS
+                and not tile_errors(plan)):
+            return bp, q
+    return CONV_BP[0], q
+
+
+def check_tile(name: str, shape: tuple, bp, q) -> dict:
+    """The tile an integer wrapper launches: ``bp`` and ``q`` (None: the
+    default's), each one of its knob's values, and a launch that fits."""
+    if bp is None or q is None:
+        d = _default_tile(*shape)
+        bp = d[0] if bp is None else bp
+        q = d[1] if q is None else q
+    errs = knob_errors(bp, q)
+    if errs:
+        raise ValueError(f"{name}: " + "; ".join(errs))
+    errs = tile_errors(conv_plan(*shape, bp, q))
+    if errs:
+        raise ValueError(f"{name}: tile bp={bp}, q={q} cannot launch: "
+                         + "; ".join(errs))
+    return {"bp": bp, "q": q}
 
 
 def kernel_pads(hk: int):
@@ -147,12 +272,12 @@ def _check_conv(name, x, w_shape, bias, groups, requant_shift, act,
 
 
 def conv2d_q8(x, w, bias=None, *, groups: int = 1, requant_shift: int = 0,
-              act=None, threads: int = DEFAULT_THREADS):
+              act=None, bp=None, q=None):
     """x (N,H,W,Cx) int8, w (HK,HK,Cx/g,Cy) int8, bias (Cy,) int32 or None
-    -> (N,H,W,Cy) int8."""
+    -> (N,H,W,Cy) int8. ``bp`` and ``q`` default to :func:`default_tile`."""
     n, h, wd, cx, cy, hk = _check_conv("conv2d_q8", x, w.shape, bias, groups,
                                        requant_shift, act)
-    check_threads("conv2d_q8", threads)
+    tile = check_tile("conv2d_q8", (n, h, wd, cx, cy, hk, groups), bp, q)
     if x.device.type == "cpu":
         return conv2d_q8_plain(x, w, bias, groups=groups,
                                requant_shift=requant_shift, act=act)
@@ -166,7 +291,7 @@ def conv2d_q8(x, w, bias=None, *, groups: int = 1, requant_shift: int = 0,
             x.data_ptr(), w.data_ptr(),
             None if bias is None else bias.data_ptr(), y.data_ptr(),
             n, h, wd, cx, cy, hk, groups, requant_shift, int(act == "relu"),
-            threads, torch.cuda.current_stream().cuda_stream)
+            tile["bp"], tile["q"], torch.cuda.current_stream().cuda_stream)
     check_launch("conv2d_q8", rc)
     conv2d_q8.launches += 1
     return y
@@ -185,10 +310,10 @@ def conv2d_w4_plain(x, w_p, w_shifts, bias=None, *, groups: int = 1,
 
 
 def conv2d_w4(x, w_p, w_shifts, bias=None, *, groups: int = 1,
-              requant_shift=None, act=None, threads: int = DEFAULT_THREADS):
+              requant_shift=None, act=None, bp=None, q=None):
     """x (N,H,W,Cx) int8, w_p (HK,HK,ceil(Cx/g/2),Cy) int8 nibble-packed
     along Cx/g, w_shifts (Cx/g,) int8, bias (Cy,) int32 or None ->
-    (N,H,W,Cy) int8."""
+    (N,H,W,Cy) int8. ``bp`` and ``q`` default to :func:`default_tile`."""
     if x.dim() != 4 or w_p.dim() != 4:
         raise ValueError(f"conv2d_w4: x and w must be 4-D, got "
                          f"{tuple(x.shape)} and {tuple(w_p.shape)}")
@@ -197,7 +322,7 @@ def conv2d_w4(x, w_p, w_shifts, bias=None, *, groups: int = 1,
     hk, _, _, cy = w_p.shape
     n, h, wd, cx, cy, hk = _check_conv("conv2d_w4", x, (hk, hk, cxg, cy),
                                        bias, groups, requant_shift, act)
-    check_threads("conv2d_w4", threads)
+    tile = check_tile("conv2d_w4", (n, h, wd, cx, cy, hk, groups), bp, q)
     if x.device.type == "cpu":
         return conv2d_w4_plain(x, w_p, w_shifts, bias, groups=groups,
                                requant_shift=requant_shift, act=act)
@@ -211,7 +336,7 @@ def conv2d_w4(x, w_p, w_shifts, bias=None, *, groups: int = 1,
             x.data_ptr(), w_p.data_ptr(), w_shifts.data_ptr(),
             None if bias is None else bias.data_ptr(), y.data_ptr(),
             n, h, wd, cx, cy, hk, groups, requant_shift, int(act == "relu"),
-            threads, torch.cuda.current_stream().cuda_stream)
+            tile["bp"], tile["q"], torch.cuda.current_stream().cuda_stream)
     check_launch("conv2d_w4", rc)
     conv2d_w4.launches += 1
     return y

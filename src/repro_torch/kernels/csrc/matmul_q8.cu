@@ -36,16 +36,41 @@
 // choice is the default.
 //
 // Float mode (repro_matmul_f): a (M,K) and b (K,N) in float32 or bfloat16,
-// the same block shape (256 columns, one per thread, and BM rows), A's stage
-// of 32 K elements staged in shared memory as float32 (broadcast reads), B's
-// element of the thread's column read straight from device memory (coalesced
-// across the warp). Each thread sums its BM rows in float32 from zero with K
-// strictly in order (__fmul_rn / __fadd_rn), so there is no K split: float
-// atomics would make the sum depend on the order the splits land in. Only the
-// K real elements are summed. Then relu and one rounding to a's dtype
-// (float_io.cuh). The TPU kernel sums K in MXU blocks, another order, so the
-// float mode agrees with the JAX package within a tolerance.
-// Tensor cores (mma.sync s8 / wgmma) and TMA are the next steps, not this one.
+// a register-tiled SIMT GEMM. What bounds it on an H100 is operations: at
+// Table-2's 256x512x256 and 512^3 a float32 product does 34 M and 134 M
+// multiply-adds against 0.6 MB and 3 MB of operands. The design: a block
+// owns a BM x BN output tile and each of its (BM/TM) x (BN/TN) threads a
+// TM x TN register tile. A and B are staged in (dynamic) shared memory in
+// 64-deep K stages, a ring of three with two in flight, by cp.async: A as
+// 4-byte copies into a k-major, padded layout, so that a thread reads its TM
+// A values of one k as one vector load; B as 16-byte copies of whole rows,
+// read TN at a time as one vector load. A thread reads the operands of 8 k
+// into registers before it sums them, so one shared-memory latency covers
+// 8 k. On an H100 the loads were what held back a first, double-buffered
+// version with 16-deep stages (PERF.md). A ragged M, N or K edge is
+// zero-filled by the copies' source size; an operand whose rows are not
+// 4-byte (A) or 16-byte (B) aligned (an odd K in bfloat16, N off a multiple
+// of 4 or 8, an offset view) is staged by plain loads instead. bfloat16 is
+// staged as its raw bytes (A as words of two K-consecutive values) and
+// widened to float32 on the shared-memory read; a product of two bfloat16
+// values is exact in float32. The tile (BM, BN, TM, TN) is a template
+// argument, one instantiation per entry of MMF_TILES, and the tuner's knob;
+// the wrapper picks one by the shape.
+//
+// The order rule, which keeps the kernel bitwise equal to its plain version
+// (matmul_f_plain): every accumulator starts at +0.0f and sums k = 0..K-1
+// strictly in order as __fadd_rn(acc, __fmul_rn(a, b)). So there is no FMA
+// (nvcc would round the product once less), no K split (float atomics would
+// make the sum depend on the order the splits land in) and no tensor core
+// (TF32 and bfloat16 mma / wgmma accumulate in another order and
+// precision). The cost: a multiply-add takes two CUDA-core instructions, so
+// the float32 ceiling is half the 66.91 TFLOP/s FMA peak and the Table-2
+// pair cannot take less than about 0.0100 ms. Elements past K are staged as
+// zeros in both operands: each adds +0 * +0 = +0, and the accumulator,
+// which starts at +0 and never becomes -0, does not change. Then relu and
+// one rounding to a's dtype (float_io.cuh). The TPU kernel sums K in MXU
+// blocks, another order, so the float mode agrees with the JAX package
+// within a tolerance.
 //
 // Index arithmetic is 32-bit (the wrapper keeps every tensor below 2^31
 // elements). Elements past K are read as zero from A, so a pad nibble or a
@@ -175,46 +200,6 @@ __global__ void epilogue_kernel(const int32_t* __restrict__ part,
   if (i < total) y[i] = requant_epilogue(part[i], relu, shift);
 }
 
-template <int BM, typename T>
-__global__ void __launch_bounds__(THREADS) matmul_f_kernel(
-    const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ y,
-    int m, int k, int n, int relu) {
-  __shared__ float as[BK][BM];               // A's stage, [k][row]
-  const int c = threadIdx.x;
-  const int row0 = blockIdx.y * BM;
-  const int gc = blockIdx.x * BN + c;
-  float acc[BM];
-#pragma unroll
-  for (int i = 0; i < BM; ++i) acc[i] = 0.0f;
-  for (int k0 = 0; k0 < k; k0 += BK) {
-    for (int t = threadIdx.x; t < BM * BK; t += THREADS) {
-      const int r = t / BK, kk = t % BK;
-      const int gr = row0 + r, gk = k0 + kk;
-      as[kk][r] = gr < m && gk < k ? load_f32(a + gr * k + gk) : 0.0f;
-    }
-    __syncthreads();
-    const int kn = min(BK, k - k0);
-    if (gc < n) {
-      for (int kk = 0; kk < kn; ++kk) {
-        const float bv = load_f32(b + (k0 + kk) * n + gc);
-#pragma unroll
-        for (int i = 0; i < BM; ++i)
-          acc[i] = __fadd_rn(acc[i], __fmul_rn(as[kk][i], bv));
-      }
-    }
-    __syncthreads();
-  }
-  if (gc >= n) return;
-#pragma unroll
-  for (int i = 0; i < BM; ++i) {
-    const int r = row0 + i;
-    if (r >= m) break;
-    float v = acc[i];
-    if (relu && v < 0.0f) v = 0.0f;
-    store_f32(y + r * n + gc, v);
-  }
-}
-
 template <bool W4>
 int launch(const void* a, const void* b, const void* ws, void* part, void* y,
            int m, int k, int n, int bm, int splits, int steps_per_split,
@@ -249,24 +234,283 @@ int launch(const void* a, const void* b, const void* ws, void* part, void* y,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_f(const void* a, const void* b, void* y, int m, int k, int n,
-             int bm, int relu, void* stream) {
-  if (m == 0 || n == 0) return (int)cudaSuccess;
-  const cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid((n + BN - 1) / BN, (m + bm - 1) / bm);
-  if (bm == 16) {
-    matmul_f_kernel<16, T><<<grid, THREADS, 0, st>>>(
-        (const T*)a, (const T*)b, (T*)y, m, k, n, relu);
-  } else if (bm == 64) {
-    matmul_f_kernel<64, T><<<grid, THREADS, 0, st>>>(
-        (const T*)a, (const T*)b, (T*)y, m, k, n, relu);
+// ---------------------------------------------------------------- float --
+
+constexpr int FBK = 64;                    // K elements per float stage
+constexpr int FNS = 3;                     // stages in the shared ring
+constexpr int FKH = 8;                     // k whose operands a thread loads
+                                           // into registers at once
+
+// The tiles the float mode is instantiated for, (BM, BN, TM, TN): the
+// tuner's candidates (repro_torch.kernels.matmul_q8.MMF_TILES, same order).
+#define MMF_TILES(X)                                                        \
+  X(16, 32, 2, 2) X(16, 64, 2, 4) X(32, 32, 2, 2) X(32, 32, 2, 4)           \
+  X(32, 64, 2, 4) X(32, 64, 4, 4) X(64, 64, 4, 4) X(64, 64, 8, 4)
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// cp.async of `bytes` (4 or 16) with a source size: the bytes past
+// `src_bytes` are written as zeros, and none is read when it is 0.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         int src_bytes) {
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(src_bytes));
   } else {
-    return (int)cudaErrorInvalidValue;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(src_bytes));
   }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Copy BYTES (4, 8, 16 or 32) of shared memory into words, as vector loads.
+template <int BYTES>
+__device__ __forceinline__ void lds(const void* p, uint32_t* out) {
+  if constexpr (BYTES == 4) {
+    out[0] = *reinterpret_cast<const uint32_t*>(p);
+  } else if constexpr (BYTES == 8) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    out[0] = v.x, out[1] = v.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < BYTES / 16; ++i) {
+      const uint4 v = reinterpret_cast<const uint4*>(p)[i];
+      out[4 * i] = v.x, out[4 * i + 1] = v.y, out[4 * i + 2] = v.z,
+                  out[4 * i + 3] = v.w;
+    }
+  }
+}
+
+// The raw 16 bits of a bfloat16 and the float32 of a raw bfloat16 (exact).
+__device__ __forceinline__ uint32_t raw16(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint16_t*>(p);
+}
+__device__ __forceinline__ float widen(uint32_t bits16) {
+  return __uint_as_float(bits16 << 16);
+}
+
+template <typename T, int BM, int BN, int TM, int TN>
+struct FTile {
+  static constexpr int EPW = 4 / (int)sizeof(T);   // elements per A word
+  static constexpr int KW = FBK / EPW;             // A words per row, stage
+  static constexpr int AS = BM + 4;                // A words per k-word row
+  static constexpr int CH = 16 / (int)sizeof(T);   // B elements per copy
+  static constexpr int THREADS = (BM / TM) * (BN / TN);
+  static constexpr int A_BYTES = KW * AS * 4;     // one stage of A
+  static constexpr int SMEM = FNS * (A_BYTES + FBK * BN * (int)sizeof(T));
+};
+
+template <typename T, int BM, int BN, int TM, int TN>
+__global__ void __launch_bounds__(FTile<T, BM, BN, TM, TN>::THREADS)
+    matmul_f_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                    T* __restrict__ y, int m, int k, int n, int relu,
+                    int a_async, int b_async, int y_vec) {
+  using F = FTile<T, BM, BN, TM, TN>;
+  constexpr int EPW = F::EPW, KW = F::KW, AS = F::AS, CH = F::CH;
+  constexpr int THREADS = F::THREADS, NT = BN / TN;
+  extern __shared__ __align__(16) unsigned char fsmem[];
+  // the ring: FNS stages of A as words, [k word][row], then of B, [k][col]
+  auto As = reinterpret_cast<uint32_t (*)[KW][AS]>(fsmem);
+  auto Bs = reinterpret_cast<T (*)[FBK][BN]>(fsmem + FNS * F::A_BYTES);
+
+  const int tid = threadIdx.x;
+  const int tx = tid % NT, ty = tid / NT;
+  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
+  const int stages = (k + FBK - 1) / FBK;
+
+  auto stage = [&](int s, int buf) {
+    const int k0 = s * FBK;
+    for (int e = tid; e < BM * KW; e += THREADS) {
+      const int r = e / KW, w = e % KW;
+      const int gr = row0 + r, gk = k0 + w * EPW;
+      uint32_t* dst = &As[buf][w][r];
+      if (a_async) {
+        const int left = gr < m ? (k - gk) * (int)sizeof(T) : 0;
+        cp_async<4>(dst, left > 0 ? (const void*)(a + gr * k + gk) : a,
+                    left > 0 ? min(left, 4) : 0);
+      } else {
+        uint32_t word = 0;
+        if (gr < m) {
+          if constexpr (EPW == 1) {
+            if (gk < k) word = __float_as_uint(load_f32(a + gr * k + gk));
+          } else {
+            if (gk < k) word = raw16(a + gr * k + gk);
+            if (gk + 1 < k) word |= raw16(a + gr * k + gk + 1) << 16;
+          }
+        }
+        *dst = word;
+      }
+    }
+    for (int e = tid; e < FBK * (BN / CH); e += THREADS) {
+      const int kk = e / (BN / CH), c = (e % (BN / CH)) * CH;
+      const int gk = k0 + kk, gc = col0 + c;
+      T* dst = &Bs[buf][kk][c];
+      if (b_async) {
+        const int left = gk < k ? (n - gc) * (int)sizeof(T) : 0;
+        cp_async<16>(dst, left > 0 ? (const void*)(b + gk * n + gc) : b,
+                     left > 0 ? min(left, 16) : 0);
+      } else {
+#pragma unroll
+        for (int i = 0; i < CH; ++i)
+          dst[i] = gk < k && gc + i < n ? b[gk * n + gc + i] : T(0.0f);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+
+  // A ring of FNS stages, FNS - 1 in flight: every iteration commits one
+  // copy group (empty past the last stage), so waiting until at most
+  // FNS - 2 are pending means stage s has landed. The stage issued at s
+  // refills the buffer computed at s - 1, which every thread has left by
+  // the barrier.
+  for (int s = 0; s < FNS - 1; ++s) {
+    if (s < stages) stage(s, s);
+    else cp_async_commit();
+  }
+  for (int s = 0; s < stages; ++s) {
+    const int buf = s % FNS;
+    cp_async_wait<FNS - 2>();
+    __syncthreads();
+    if (s + FNS - 1 < stages) stage(s + FNS - 1, (s + FNS - 1) % FNS);
+    else cp_async_commit();
+    // FKH k at a time: every operand of the FKH k read into registers
+    // first, then the products and sums, k strictly in order
+#pragma unroll
+    for (int h0 = 0; h0 < FBK; h0 += FKH) {
+      float av[FKH][TM], bv[FKH][TN];
+#pragma unroll
+      for (int q = 0; q < FKH; ++q) {
+        const int kk = h0 + q, h = kk % EPW;     // k = word * EPW + h
+        uint32_t aw[TM];
+        lds<4 * TM>(&As[buf][kk / EPW][ty * TM], aw);
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+          av[q][i] = EPW == 1 ? __uint_as_float(aw[i])
+                              : widen(h ? aw[i] >> 16 : aw[i] & 0xffff);
+        if constexpr (EPW == 1) {
+          uint32_t bw[TN];
+          lds<4 * TN>(&Bs[buf][kk][tx * TN], bw);
+#pragma unroll
+          for (int j = 0; j < TN; ++j) bv[q][j] = __uint_as_float(bw[j]);
+        } else {
+          uint32_t bw[(TN + 1) / 2];
+          lds<2 * TN>(&Bs[buf][kk][tx * TN], bw);
+#pragma unroll
+          for (int j = 0; j < TN; ++j)
+            bv[q][j] = widen(j & 1 ? bw[j / 2] >> 16 : bw[j / 2] & 0xffff);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < FKH; ++q)
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j)
+            acc[i][j] = __fadd_rn(acc[i][j], __fmul_rn(av[q][i], bv[q][j]));
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = row0 + ty * TM + i;
+    if (r >= m) break;
+    const int c0 = col0 + tx * TN;
+    T* yp = y + r * n + c0;
+    if (y_vec && c0 + TN <= n) {
+      alignas(16) T out[TN];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        float v = acc[i][j];
+        if (relu && v < 0.0f) v = 0.0f;
+        store_f32(out + j, v);
+      }
+      if constexpr (TN * sizeof(T) % 16 == 0) {
+#pragma unroll
+        for (int q = 0; q < (int)(TN * sizeof(T) / 16); ++q)
+          reinterpret_cast<uint4*>(yp)[q] =
+              reinterpret_cast<const uint4*>(out)[q];
+      } else if constexpr (TN * sizeof(T) == 8) {
+        *reinterpret_cast<uint2*>(yp) = *reinterpret_cast<const uint2*>(out);
+      } else {
+        *reinterpret_cast<uint32_t*>(yp) =
+            *reinterpret_cast<const uint32_t*>(out);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        if (c0 + j >= n) break;
+        float v = acc[i][j];
+        if (relu && v < 0.0f) v = 0.0f;
+        store_f32(yp + j, v);
+      }
+    }
+  }
+}
+
+// The launch of one float tile: grid, threads and dynamic shared bytes
+// (plan[0..3]); what repro_torch.kernels.matmul_q8.mmf_plan computes.
+template <typename T, int BM, int BN, int TM, int TN>
+int launch_f(const void* a, const void* b, void* y, int m, int k, int n,
+             int relu, cudaStream_t st, int* plan) {
+  using F = FTile<T, BM, BN, TM, TN>;
+  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
+  if (plan != nullptr) {
+    plan[0] = (int)grid.x, plan[1] = (int)grid.y, plan[2] = F::THREADS,
+    plan[3] = F::SMEM;
+    return (int)cudaSuccess;
+  }
+  if (m == 0 || n == 0) return (int)cudaSuccess;
+  const int esz = (int)sizeof(T);
+  // A's 4-byte words: float32 always; bfloat16 with an even K and a 4-byte
+  // aligned a. B's 16-byte copies: rows of a multiple of 16 bytes, b aligned.
+  const int a_async = (k * esz) % 4 == 0 && (uintptr_t)a % 4 == 0;
+  const int b_async = (n * esz) % 16 == 0 && (uintptr_t)b % 16 == 0;
+  const int y_vec = (n * esz) % (TN * esz > 16 ? 16 : TN * esz) == 0 &&
+                    (uintptr_t)y % 16 == 0;
+  auto kern = matmul_f_kernel<T, BM, BN, TM, TN>;
+  if (F::SMEM > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, F::SMEM);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kern<<<grid, F::THREADS, F::SMEM, st>>>(
+      (const T*)a, (const T*)b, (T*)y, m, k, n, relu, a_async, b_async,
+      y_vec);
   return (int)cudaGetLastError();
 }
 
+// Dispatch on (bm, bn, tm, tn) to the instantiated tile; `plan` non-null
+// asks for the launch arithmetic only.
+template <typename T>
+int dispatch_f(const void* a, const void* b, void* y, int m, int k, int n,
+               int bm, int bn, int tm, int tn, int relu, cudaStream_t st,
+               int* plan) {
+#define MMF_CASE(BM, BN, TM, TN)                                         \
+  if (bm == BM && bn == BN && tm == TM && tn == TN)                      \
+    return launch_f<T, BM, BN, TM, TN>(a, b, y, m, k, n, relu, st, plan);
+  MMF_TILES(MMF_CASE)
+#undef MMF_CASE
+  return (int)cudaErrorInvalidValue;
+}
 }  // namespace
 
 extern "C" int repro_matmul_q8(const void* a, const void* b, void* part,
@@ -285,12 +529,30 @@ extern "C" int repro_matmul_w4(const void* a, const void* b, const void* ws,
                       shift, relu, stream);
 }
 
-// dtype: 0 float32, 1 bfloat16 (a, b and y alike).
+// dtype: 0 float32, 1 bfloat16 (a, b and y alike). (bm, bn, tm, tn) must be
+// one of MMF_TILES.
 extern "C" int repro_matmul_f(const void* a, const void* b, void* y, int m,
-                              int k, int n, int bm, int relu, int dtype,
-                              void* stream) {
-  if (dtype == 0) return launch_f<float>(a, b, y, m, k, n, bm, relu, stream);
+                              int k, int n, int bm, int bn, int tm, int tn,
+                              int relu, int dtype, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0)
+    return dispatch_f<float>(a, b, y, m, k, n, bm, bn, tm, tn, relu, st,
+                             nullptr);
   if (dtype == 1)
-    return launch_f<__nv_bfloat16>(a, b, y, m, k, n, bm, relu, stream);
+    return dispatch_f<__nv_bfloat16>(a, b, y, m, k, n, bm, bn, tm, tn, relu,
+                                     st, nullptr);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The float mode's launch arithmetic for (m, n) and a tile: plan[0..3] =
+// grid x, grid y, threads, shared bytes. Nothing is launched.
+extern "C" int repro_matmul_f_plan(int* plan, int m, int n, int bm, int bn,
+                                   int tm, int tn, int dtype) {
+  if (dtype == 0)
+    return dispatch_f<float>(nullptr, nullptr, nullptr, m, 0, n, bm, bn, tm,
+                             tn, 0, nullptr, plan);
+  if (dtype == 1)
+    return dispatch_f<__nv_bfloat16>(nullptr, nullptr, nullptr, m, 0, n, bm,
+                                     bn, tm, tn, 0, nullptr, plan);
   return (int)cudaErrorInvalidValue;
 }

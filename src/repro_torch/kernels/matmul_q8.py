@@ -25,10 +25,19 @@ K * 128 * 128 < 2^31 < 2^53 for every K the wrappers accept.
 The integer wrappers take the tile height ``bm`` (16 or 64) and the number
 of K ``splits``; by default they choose as before (``split_plan``). Both
 are the tuner's knobs and change no output: integer sums do not depend on
-order. The float mode (:func:`matmul_f`, float32 or bfloat16) takes ``bm``
-only: it sums K strictly in order in float32, with no split, and its plain
-version repeats that order one multiply and one add at a time, so the two
-are bitwise equal.
+order.
+
+The float mode (:func:`matmul_f`, float32 or bfloat16) is a register-tiled
+GEMM bound by operations: a block owns a ``bm`` x ``bn`` output tile, each
+thread a ``tm`` x ``tn`` register tile, A and B staged in shared memory in
+16-deep K stages with ``cp.async``, a ring of four stages. The tile is one of
+:data:`MMF_TILES` (template instantiations, the tuner's knobs;
+:func:`mmf_plan` is its launch arithmetic, :func:`default_mmf_tile` the
+wrapper's choice). Every accumulator sums K strictly in order in float32
+from +0, one rounded multiply and one rounded add per element, with no
+FMA, no K split and no tensor core, so its plain version, which repeats
+that order one multiply and one add at a time, is bitwise equal to it; the
+cost is a float32 ceiling at half the card's FMA rate.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches the kernel or raises.
@@ -43,11 +52,25 @@ from repro_torch.core.quantize import expand_w4
 
 from ._build import check_launch, library
 from .common import acc_dtype, apply_act, apply_requant, cdiv, float_code
-from .conv_im2col import (MAX_CONTRACTION, check_act, check_cuda_operand,
-                          check_elements, check_shift, check_w4)
+from .conv_im2col import (MAX_CONTRACTION, MAX_DYNAMIC_SMEM, MAX_GRID_Y,
+                          check_act, check_cuda_operand, check_elements,
+                          check_shift, check_w4)
 
 #: output columns per block and K elements per stage (csrc/matmul_q8.cu)
 BLOCK_N, BLOCK_K = 256, 32
+#: the float mode's tiles (bm, bn, tm, tn), csrc/matmul_q8.cu's MMF_TILES in
+#: its order: a block of bm x bn outputs, a thread of tm x tn
+MMF_TILES = ((16, 32, 2, 2), (16, 64, 2, 4), (32, 32, 2, 2), (32, 32, 2, 4),
+             (32, 64, 2, 4), (32, 64, 4, 4), (64, 64, 4, 4), (64, 64, 8, 4))
+#: the float mode's tile knobs, in a config's order
+MMF_KNOBS = ("bm", "bn", "tm", "tn")
+#: K elements per float stage and stages in its shared ring (csrc FBK,
+#: FNS); the ring is dynamic shared memory (above 48 KB after
+#: cudaFuncSetAttribute, which the source calls)
+MMF_BK, MMF_STAGES = 64, 3
+#: the float default tiles: the large one where its grid holds about a
+#: block per SM of an H100 (MMF_BLOCKS), else the small one (PERF.md)
+MMF_LARGE, MMF_SMALL, MMF_BLOCKS = (32, 64, 2, 4), (16, 32, 2, 2), 128
 #: blocks per SM the K split aims for
 SPLIT_DEPTH = 4
 
@@ -191,6 +214,63 @@ def matmul_w4(a, b_p, w_shifts, *, requant_shift=None, act=None, bm=None,
 matmul_w4.launches = 0
 
 
+def mmf_plan(m: int, n: int, tile, esize: int = 4) -> dict:
+    """The float mode's launch arithmetic for an (M, N) output and a tile
+    (bm, bn, tm, tn), as ``launch_f`` in ``csrc/matmul_q8.cu`` computes it:
+    ``grid`` (x, y), ``threads`` and ``smem`` (dynamic shared bytes: the
+    ring's stages of A as words, k-major, and of B) for ``esize``-byte
+    elements."""
+    bm, bn, tm, tn = tile
+    epw = 4 // esize
+    smem = MMF_STAGES * ((MMF_BK // epw) * (bm + 4) * 4
+                         + MMF_BK * bn * esize)
+    return dict(grid=(cdiv(n, bn), cdiv(m, bm)),
+                threads=(bm // tm) * (bn // tn), smem=smem)
+
+
+def mmf_tile_errors(m: int, n: int, tile, esize: int = 4) -> list:
+    """Why a float tile cannot launch on an H100: not instantiated, its
+    shared bytes, threads or grid. Empty if it can."""
+    if tuple(tile) not in MMF_TILES:
+        return [f"tile {dict(zip(MMF_KNOBS, tile))} is not one of the "
+                f"instantiated {MMF_TILES}"]
+    plan = mmf_plan(m, n, tile, esize)
+    errs = []
+    if plan["smem"] > MAX_DYNAMIC_SMEM:
+        errs.append(f"{plan['smem']} bytes of shared memory exceed the "
+                    f"{MAX_DYNAMIC_SMEM} a block can use")
+    if plan["threads"] > 1024:
+        errs.append(f"{plan['threads']} threads a block exceed 1024")
+    if plan["grid"][1] > MAX_GRID_Y:
+        errs.append(f"M / bm = {plan['grid'][1]} exceeds the grid's y limit")
+    return errs
+
+
+def default_mmf_tile(m: int, n: int) -> dict:
+    """The float wrapper's own tile: 32 x 64 blocks of 2 x 4 thread tiles
+    where that grid holds ``MMF_BLOCKS`` blocks (512^2: 128), else 16 x 32
+    blocks of 2 x 2 (256^2: 128 blocks); the fastest at Table-2's two
+    shapes on an H100 (PERF.md)."""
+    return dict(zip(MMF_KNOBS, _default_mmf_tile(m, n)))
+
+
+def _default_mmf_tile(m: int, n: int) -> tuple:
+    large = cdiv(m, MMF_LARGE[0]) * cdiv(n, MMF_LARGE[1]) >= MMF_BLOCKS
+    return MMF_LARGE if large else MMF_SMALL
+
+
+def check_mmf_tile(name: str, m: int, n: int, esize: int, **knobs) -> tuple:
+    """The tile a float call launches: the knobs given, the rest from
+    :func:`default_mmf_tile`; raises if it cannot launch."""
+    d = _default_mmf_tile(m, n)
+    tile = tuple(dv if knobs[k] is None else knobs[k]
+                 for k, dv in zip(MMF_KNOBS, d))
+    errs = mmf_tile_errors(m, n, tile, esize)
+    if errs:
+        raise ValueError(f"{name}: " + "; ".join(errs))
+    return tile
+
+
 def matmul_f_plain(a, b, *, act=None):
     """Plain float version in the kernel's order: float32 products and sums
     as separate operations from a zero accumulator, K in order; relu; one
@@ -203,15 +283,18 @@ def matmul_f_plain(a, b, *, act=None):
     return apply_act(acc, act).to(a.dtype)
 
 
-def matmul_f(a, b, *, act=None, bm=None):
+def matmul_f(a, b, *, act=None, bm=None, bn=None, tm=None, tn=None):
     """a (M,K) @ b (K,N), float32 or bfloat16 (one dtype) -> (M,N) in a's
-    dtype. ``bm`` (16 or 64) defaults to the integer modes' choice."""
+    dtype. The tile (``bm``, ``bn``, ``tm``, ``tn``), one of
+    :data:`MMF_TILES`, defaults knob by knob to :func:`default_mmf_tile`."""
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"matmul_f: a {tuple(a.shape)} and b "
                          f"{tuple(b.shape)} do not contract")
     m, k = a.shape
     n = b.shape[1]
-    bm = check_bm("matmul_f", bm or default_bm(m))
+    tile = check_mmf_tile("matmul_f", m, n,
+                          2 if a.dtype == torch.bfloat16 else 4, bm=bm,
+                          bn=bn, tm=tm, tn=tn)
     check_act("matmul_f", act)
     check_elements("matmul_f", a.shape, b.shape, (m, n))
     if a.device.type == "cpu":
@@ -222,7 +305,7 @@ def matmul_f(a, b, *, act=None, bm=None):
     y = torch.empty((m, n), dtype=a.dtype, device=a.device)
     with torch.cuda.device(a.device):
         rc = library().repro_matmul_f(
-            a.data_ptr(), b.data_ptr(), y.data_ptr(), m, k, n, bm,
+            a.data_ptr(), b.data_ptr(), y.data_ptr(), m, k, n, *tile,
             int(act == "relu"), code, torch.cuda.current_stream().cuda_stream)
     check_launch("matmul_f", rc)
     matmul_f.launches += 1

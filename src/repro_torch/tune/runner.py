@@ -11,7 +11,10 @@ Two ways to pick a schedule, as in the JAX package:
   results ``cpu``, so a card never consumes them.
 * :func:`analytic_config` measures nothing: the lowest price under
   :func:`estimate_s`, a first-order H100 model (the larger of the bytes and
-  the operations term, times a tail-wave factor, plus the launch overhead).
+  the operations term, times a tail-wave factor, plus the launch overhead;
+  for the two tiled kernels, the integer conv2d and the float matmul, the
+  operations term is the instructions their tiles issue, over the SMs'
+  issue rate, slowed where too few warps are resident to hide latency).
 
 :func:`get_config` is the dispatch layer's lookup: memo, then the loaded
 cache, then the analytic model. Every knob changes only a launch shape, so
@@ -48,6 +51,12 @@ F32_OPS = 33.45e12
 INT32_OPS = 16.73e12
 #: fixed cost of one kernel launch on the device
 LAUNCH_S = 3e-6
+#: the tiled kernels' issue model: warp instructions an SM issues a cycle
+#: (four schedulers), its clock, the resident warps an SM needs to keep
+#: them busy, its shared memory, and instructions per element staged by
+#: index arithmetic (divisions and bounds checks)
+ISSUE_PER_CLK, CLOCK_HZ, WARPS_TO_HIDE = 4, 1.98e9, 8
+SMEM_PER_SM, STAGE_INSTR = 228 * 1024, 20
 #: profiler sessions tried before the device timer gives up, the pause
 #: after a session that recorded nothing (doubled each time), the fewest
 #: calls a session times, and the sessions each measurement merges. On the
@@ -152,11 +161,59 @@ def _tail(blocks: int, threads: int) -> float:
     return math.ceil(waves) / waves if waves > 0 else 1.0
 
 
+def _issue_s(blocks: int, threads: int, smem: int,
+             instr_per_thread: float) -> float:
+    """Seconds an H100 takes to issue ``blocks`` blocks of ``threads``
+    threads that each issue ``instr_per_thread`` instructions, with
+    ``smem`` shared bytes a block: the warp instructions over the SMs'
+    issue rate, slowed by WARPS_TO_HIDE / the resident warps where fewer
+    are resident."""
+    warps = _space.cdiv(threads, 32)
+    resident = max(1, min(BLOCKS_PER_SM, THREADS_PER_SM // threads,
+                          SMEM_PER_SM // max(smem, 1)))
+    per_sm = min(blocks / SMS, resident) * warps
+    slow = max(1.0, WARPS_TO_HIDE / per_sm)
+    return (blocks * warps * instr_per_thread * slow
+            / (SMS * ISSUE_PER_CLK * CLOCK_HZ))
+
+
+def _tiled_s(sig: ShapeSig, eff: Dict[str, int], dtype) -> float:
+    """The operations term of the integer conv2d's implicit GEMM and of the
+    float matmul's register tiles, from the instructions they issue."""
+    if sig.kernel == "conv2d":
+        plan = _space.conv_plan(*_space.conv_shape(sig), eff["bp"],
+                                eff["q"])
+        q, bp, kw = eff["q"], eff["bp"], plan["k_words"]
+        pt, t = 32 // q, plan["threads"]
+        # the tile's threads sum and requantize; all of them stage
+        summing = (bp // pt) * (plan["block_channels"] // q)
+        staged = plan["window"] + kw * (bp + plan["block_channels"] * 4)
+        per_thread = (summing * (pt * q * kw + kw * (pt + q // 4)
+                                 + 10 * pt * q) + STAGE_INSTR * staged) / t
+        gx, gy = plan["grid"]
+        return _issue_s(gx * gy, t, plan["smem"], per_thread)
+    from repro_torch.kernels.matmul_q8 import mmf_plan
+    m, kk, n = sig.get("m"), sig.get("k"), sig.get("n")
+    tile = tuple(eff[x] for x in _space.MMF_KNOBS)
+    plan = mmf_plan(m, n, tile, int(_elem_bytes(dtype)[0]))
+    bm, bn, tm, tn = tile
+    t = plan["threads"]
+    # a multiply and an add per element, the vector loads of the operands,
+    # and each stage's copies
+    per_thread = kk * (2 * tm * tn + _space.cdiv(tm, 4) + _space.cdiv(tn, 4)
+                       + (bm + bn) / t)
+    gx, gy = plan["grid"]
+    return _issue_s(gx * gy, t, plan["smem"], per_thread)
+
+
 def estimate_s(sig: ShapeSig, config: Dict[str, int], dtype) -> float:
     """Estimated seconds for one invocation under ``config``."""
     k = sig.kernel
     eff = effective_config(sig, config, dtype)
     nbytes, ops_s = _work(sig, dtype)
+    if (k == "conv2d" and integer(dtype)) or (k == "matmul"
+                                              and not integer(dtype)):
+        return max(nbytes / HBM_BPS, _tiled_s(sig, eff, dtype)) + LAUNCH_S
     launches = 1
     if k in _space.THREADED:
         threads = eff["threads"]

@@ -4,21 +4,33 @@
 The knobs are what the port's CUDA kernels expose, not the Pallas block
 names, which mean nothing to them:
 
-* the one-thread-per-output kernels (``conv2d``, ``depthwise2d``,
-  ``shift_conv2d``, ``add_conv2d``, ``maxpool2d``, every mode): the block
-  size ``threads``, one of 64, 128, 256, 512 or 1024 (default 256, their
-  launch before the tuner existed);
-* ``matmul``: the tile height ``bm`` (16 or 64; default 16 for M <= 32,
-  else 64) and, in the integer modes, the number of K ``splits`` (1, the
+* the one-thread-per-output kernels (``depthwise2d``, ``shift_conv2d``,
+  ``add_conv2d``, ``maxpool2d``, every mode, and ``conv2d``'s float mode):
+  the block size ``threads``, one of 64, 128, 256, 512 or 1024 (default
+  256, their launch before the tuner existed);
+* ``conv2d``'s integer modes (int8, W4A8), an implicit GEMM: the block's
+  run of output pixels ``bp`` (32, 64, 128 or 256) and a thread's output
+  channels ``q`` (4, 8 or 16); the default is the wrapper's
+  (``kernels.conv_im2col.default_tile``), which depends on the shape;
+* ``matmul``: in the integer modes the tile height ``bm`` (16 or 64;
+  default 16 for M <= 32, else 64) and the number of K ``splits`` (1, the
   wrapper's own choice, twice and four times it, capped at the 32-deep K
-  stages). The float mode sums K in order and has no split;
+  stages); in the float mode the block tile ``bm`` x ``bn`` and the thread
+  tile ``tm`` x ``tn``, one of the instantiated ``MMF_TILES`` (default
+  ``kernels.matmul_q8.default_mmf_tile``, by the shape). The float mode
+  sums K in order and has no split;
 * ``causal_conv1d``: channels per block, ``threads``, 64, 128 or 256
   (default 128; a template argument, one instantiation each).
 
 No knob changes the value of an output: each changes only the launch
 shape, and the integer split sums are exact. So every candidate gives
 output bitwise equal to the default's, which is what makes the tuner safe
-to leave on.
+to leave on. :func:`launch_errors` holds each config to the H100's limits:
+the grid, threads per block and, for the two kernels that stage tiles in
+shared memory (the integer ``conv2d``, the float ``matmul``), the Hopper
+footprint: their tiles are dynamic shared memory, at most 232,448 bytes a
+block (past 48 KB the sources raise the kernel's limit with
+``cudaFuncSetAttribute``).
 
 A *config* is a plain dict of those kwargs. :func:`candidates` enumerates
 the configs a shape can launch, default first and deduplicated by the
@@ -35,7 +47,12 @@ from typing import Dict, Iterator, List, Tuple
 from repro_torch.kernels.common import DEFAULT_THREADS, cdiv
 from repro_torch.kernels.conv1d_causal import DEFAULT_THREADS as C1D_DEFAULT
 from repro_torch.kernels.conv1d_causal import THREADS as C1D_THREADS
-from repro_torch.kernels.matmul_q8 import BLOCK_K, default_bm, split_plan
+from repro_torch.kernels.conv_im2col import (CONV_BP, CONV_MAX_THREADS,
+                                             CONV_Q, conv_plan, default_tile,
+                                             knob_errors, tile_errors)
+from repro_torch.kernels.matmul_q8 import (BLOCK_K, MMF_KNOBS, MMF_TILES,
+                                           default_bm, default_mmf_tile,
+                                           mmf_tile_errors, split_plan)
 
 # Kernels the tuner knows about. Names match repro_torch.kernels.ops.
 KERNELS = ("conv2d", "depthwise2d", "shift_conv2d", "add_conv2d",
@@ -143,31 +160,48 @@ def outputs(sig: ShapeSig) -> int:
     return g("m") * g("n")
 
 
+def threaded(kernel: str, dtype) -> bool:
+    """Whether ``kernel`` in ``dtype`` is a one-thread-per-output kernel
+    (its knob is ``threads``): every THREADED kernel but the integer
+    ``conv2d``."""
+    return kernel in THREADED and not (kernel == "conv2d" and integer(dtype))
+
+
 def knobs(kernel: str, dtype) -> Tuple[str, ...]:
     """The config keys ``kernel`` takes in ``dtype``."""
-    if kernel in THREADED or kernel == "causal_conv1d":
+    if threaded(kernel, dtype) or kernel == "causal_conv1d":
         return ("threads",)
+    if kernel == "conv2d":
+        return ("bp", "q")
     if kernel == "matmul":
-        return ("bm", "splits") if integer(dtype) else ("bm",)
+        return ("bm", "splits") if integer(dtype) else MMF_KNOBS
     raise ValueError(f"unknown kernel {kernel!r}")
+
+
+def conv_shape(sig: ShapeSig) -> tuple:
+    """A conv2d signature as the kernels' (n, h, w, cx, cy, hk, groups)."""
+    g = sig.get
+    return (g("n"), g("h"), g("w"), g("ci"), g("co"), g("k"), g("g"))
 
 
 def default_config(kernel: str, sig: ShapeSig = None,
                    dtype="float32") -> Dict[str, int]:
     """Today's launch: what each wrapper does when given no config. The
-    matmul's depends on the shape (``sig``)."""
-    if kernel in THREADED:
+    matmul's and the integer conv2d's depend on the shape (``sig``)."""
+    if threaded(kernel, dtype):
         return {"threads": DEFAULT_THREADS}
     if kernel == "causal_conv1d":
         return {"threads": C1D_DEFAULT}
-    if kernel != "matmul":
+    if kernel not in ("matmul", "conv2d"):
         raise ValueError(f"unknown kernel {kernel!r}")
     if sig is None:
-        raise ValueError("matmul's default config depends on its shape: "
+        raise ValueError(f"{kernel}'s default config depends on its shape: "
                          "pass sig")
+    if kernel == "conv2d":
+        return default_tile(*conv_shape(sig))
     m, k, n = sig.get("m"), sig.get("k"), sig.get("n")
     if not integer(dtype):
-        return {"bm": default_bm(m)}
+        return default_mmf_tile(m, n)
     return {"bm": default_bm(m), "splits": split_plan(m, k, n, SMS)[0]}
 
 
@@ -187,11 +221,30 @@ def effective_config(sig: ShapeSig, cfg: Dict[str, int],
 
 
 def launch_errors(sig: ShapeSig, cfg: Dict[str, int], dtype) -> List[str]:
-    """Why an (effective) config cannot launch on this shape: the block
-    size and the grid limits of its kernel. Empty if it can."""
+    """Why an (effective) config cannot launch on this shape on an H100:
+    the block size, the grid limits and, for the kernels that stage tiles
+    (the integer conv2d, the float matmul), the Hopper footprint: shared
+    bytes per block (static at most 48 KB, dynamic at most 232,448) and
+    threads per block. Empty if it can."""
     k = sig.kernel
     errs = []
-    if k in THREADED or k == "causal_conv1d":
+    if k == "conv2d" and integer(dtype):
+        bp, q = cfg["bp"], cfg["q"]
+        errs = knob_errors(bp, q)
+        if errs:
+            return errs
+        plan = conv_plan(*conv_shape(sig), bp, q)
+        errs.extend(tile_errors(plan))
+        if plan["threads"] > CONV_MAX_THREADS:
+            errs.append(f"{plan['threads']} threads a block exceed "
+                        f"{CONV_MAX_THREADS}")
+        if plan["grid"][0] > MAX_GRID_X:
+            errs.append(f"{plan['grid'][0]} pixel blocks exceed the grid")
+    elif k == "matmul" and not integer(dtype):
+        esize = 2 if dtype_key(dtype) == "bfloat16" else 4
+        errs.extend(mmf_tile_errors(sig.get("m"), sig.get("n"),
+                                    tuple(cfg[x] for x in MMF_KNOBS), esize))
+    elif k in THREADED or k == "causal_conv1d":
         t = cfg["threads"]
         if k in THREADED and not (isinstance(t, int) and 32 <= t <= 1024
                                   and t % 32 == 0):
@@ -239,15 +292,19 @@ def candidates(sig: ShapeSig, dtype="float32") -> Iterator[Dict[str, int]]:
 
     default = default_config(k, sig, dtype)
     emit(default, prune=False)
-    if k in THREADED:
+    if threaded(k, dtype):
         for t in THREADS:
             emit({"threads": t})
     elif k == "causal_conv1d":
         for t in C1D_THREADS:
             emit({"threads": t})
+    elif k == "conv2d":                            # integer conv2d
+        for bp in CONV_BP:
+            for q in CONV_Q:
+                emit({"bp": bp, "q": q})
     elif not integer(dtype):                       # float matmul
-        for bm in MM_BM:
-            emit({"bm": bm})
+        for tile in MMF_TILES:
+            emit(dict(zip(MMF_KNOBS, tile)))
     else:                                          # integer matmul
         d = default["splits"]
         steps = cdiv(sig.get("k"), BLOCK_K)

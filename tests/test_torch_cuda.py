@@ -665,3 +665,110 @@ def test_tuned_plan_on_the_card_equals_the_untuned_plan(dev, tmp_path):
         assert all(k.endswith(tune.backend_tag(dev)) for k in cache.entries)
     finally:
         tune.reset()
+
+
+# ----------------------------------------- the two tiled kernels' edges --
+
+@pytest.mark.parametrize("w4", [False, True], ids=["q8", "w4"])
+@pytest.mark.parametrize("shape", [
+    (1, 10, 10, 128, 64, 3, 1), (1, 10, 10, 128, 64, 3, 4),
+    (2, 15, 13, 19, 37, 5, 1), (1, 12, 11, 8, 12, 7, 2),
+    (2, 6, 7, 12, 8, 2, 2), (2, 9, 9, 10, 8, 3, 2), (3, 5, 40, 8, 20, 3, 1),
+    (8, 32, 32, 3, 16, 3, 1)], ids=str)
+def test_integer_conv_tiles_equal_plain(dev, shape, w4):
+    """Every tile of the implicit GEMM (bp 32, 96, 256; q 4, 8, 16) at K
+    chunks (Cx = 128), HK 2, 5 and 7, groups, odd Cx/g (a W4 pad nibble)
+    and Cy off a multiple of q: bitwise the plain version."""
+    from repro_torch.kernels import (conv2d_q8, conv2d_q8_plain, conv2d_w4,
+                                     conv2d_w4_plain)
+    n, h, w, cx, cy, hk, g = shape
+    rng = np.random.default_rng(31)
+    x = _i8(rng, (n, h, w, cx), dev)
+    b = torch.from_numpy(rng.integers(-5000, 5000, cy).astype(np.int32)) \
+        .to(dev)
+    kw = dict(groups=g, requant_shift=9, act="relu")
+    if w4:
+        wts = _w4(rng, (hk, hk, cx // g, cy), 2, dev, False)
+        fn, plain = conv2d_w4, conv2d_w4_plain
+    else:
+        wts = (_i8(rng, (hk, hk, cx // g, cy), dev),)
+        fn, plain = conv2d_q8, conv2d_q8_plain
+    want = plain(x, *wts, b, **kw)
+    for bp in (32, 96, 256):
+        for q in (4, 8, 16):
+            got = fn(x, *wts, b, bp=bp, q=q, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (bp, q)
+
+
+def test_integer_conv_unaligned_x_takes_the_bytewise_window(dev):
+    from repro_torch.kernels import conv2d_q8, conv2d_q8_plain
+    rng = np.random.default_rng(32)
+    x = _i8(rng, (2, 16, 16, 16), dev)
+    buf = torch.zeros(x.numel() + 1, dtype=torch.int8, device=dev)
+    xo = buf[1:].view(x.shape)
+    xo.copy_(x)
+    w = _i8(rng, (3, 3, 16, 32), dev)
+    got = conv2d_q8(xo, w, requant_shift=8)
+    torch.cuda.synchronize()
+    assert torch.equal(got, conv2d_q8_plain(x, w, requant_shift=8))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,off", [((37, 45, 33), 0), ((257, 513, 255), 0),
+                                       ((70, 33, 100), 1), ((13, 33, 300), 3),
+                                       ((1, 896, 37), 0)], ids=str)
+def test_matmul_f_tiles_equal_plain(dev, dtype, shape, off):
+    """Every tile of the float GEMM, M, N and K off every tile, operands at
+    unaligned addresses (the plainly loaded stages), relu: bitwise the
+    plain version."""
+    import importlib
+    mq = importlib.import_module("repro_torch.kernels.matmul_q8")
+    dt = getattr(torch, dtype)
+    m, k, n = shape
+    rng = np.random.default_rng(33)
+
+    def f(s):
+        t = torch.from_numpy(rng.standard_normal(s).astype(np.float32)) \
+            .to(dev).to(dt)
+        if not off:
+            return t
+        buf = torch.zeros(t.numel() + off, dtype=dt, device=dev)
+        v = buf[off:].view(s)
+        v.copy_(t)
+        return v
+    a, b = f((m, k)), f((k, n))
+    bits = torch.int32 if dt == torch.float32 else torch.int16
+    want = mq.matmul_f_plain(a, b, act="relu").view(bits)
+    for tile in mq.MMF_TILES:
+        got = mq.matmul_f(a, b, act="relu", **dict(zip(mq.MMF_KNOBS, tile)))
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(bits), want), tile
+
+
+def test_tiled_launch_arithmetic_equals_the_sources(dev):
+    """conv_plan and mmf_plan, which the tuner's footprint check reads,
+    equal the arithmetic the CUDA sources launch with."""
+    import ctypes
+    import importlib
+    from repro_torch.kernels import _build
+    ci = importlib.import_module("repro_torch.kernels.conv_im2col")
+    mq = importlib.import_module("repro_torch.kernels.matmul_q8")
+    lib = _build.library()
+    for s in [(256, 32, 32, 3, 16, 3, 1), (256, 16, 16, 16, 32, 1, 1),
+              (1, 10, 10, 128, 64, 3, 4), (2, 15, 13, 5, 8, 3, 1),
+              (1, 64, 64, 512, 64, 3, 1)]:
+        for bp in (32, 96, 256):
+            for q in ci.CONV_Q:
+                c = (ctypes.c_int * 6)()
+                rc = lib.repro_conv2d_i8_plan(c, *s, bp, q)
+                p = ci.conv_plan(*s, bp, q)
+                assert list(c) == [*p["grid"], p["threads"], p["smem"],
+                                   p["k_words"], p["window"]]
+                assert (rc == 0) == (not ci.tile_errors(p))
+    for tile in mq.MMF_TILES:
+        for code, es in ((0, 4), (1, 2)):
+            c = (ctypes.c_int * 4)()
+            assert lib.repro_matmul_f_plan(c, 257, 513, *tile, code) == 0
+            p = mq.mmf_plan(257, 513, tile, es)
+            assert list(c) == [*p["grid"], p["threads"], p["smem"]]

@@ -199,7 +199,8 @@ def test_add_conv2d_f_plain_vs_pallas_and_ref(case, dtype):
     _close(got, JR.add_conv2d_ref(jx, jw), **_tol(dtype))
 
 
-MM_SHAPES = [(32, 64, 16), (128, 128, 128), (8, 16, 8), (1, 45, 37)]
+MM_SHAPES = [(32, 64, 16), (128, 128, 128), (8, 16, 8), (1, 45, 37),
+             (37, 45, 33)]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -272,8 +273,8 @@ def test_float_wrappers_check_their_operands():
         kernels.conv2d_f(x, torch.zeros((3, 3, 4, 4)), threads=100)
     with pytest.raises(ValueError, match="does not fit"):
         kernels.add_conv2d_f(x, torch.zeros((3, 3, 3, 4)))
-    with pytest.raises(ValueError, match="bm"):
-        kernels.matmul_f(torch.zeros((4, 4)), torch.zeros((4, 4)), bm=32)
+    with pytest.raises(ValueError, match="bm"):      # no such tile
+        kernels.matmul_f(torch.zeros((4, 4)), torch.zeros((4, 4)), bm=48)
     with pytest.raises(ValueError, match="contract"):
         kernels.matmul_f(torch.zeros((4, 4)), torch.zeros((5, 4)))
     with pytest.raises(ValueError, match="act"):

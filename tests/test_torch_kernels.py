@@ -33,6 +33,9 @@ CONV_CASES = [
     (2, 8, 8, 8, 8, 1, 2, False, "relu", -2),
     (2, 7, 5, 3, 8, 3, 1, True, "relu", 1),
     (2, 8, 8, 8, 8, 3, 1, False, None, -2),
+    # the Table-2 jobs' width: Cx = 128 at 10^2, n = 1, groups 4 and 1
+    (1, 10, 10, 128, 64, 3, 4, True, "relu", 9),
+    (1, 10, 10, 128, 64, 3, 1, False, None, 12),
 ]
 
 

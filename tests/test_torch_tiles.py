@@ -1,0 +1,218 @@
+"""The launch arithmetic around the port's two tiled kernels, on the CPU:
+the integer conv's implicit-GEMM tiles (``kernels.conv_im2col.conv_plan``)
+and the float matmul's register tiles (``kernels.matmul_q8.mmf_plan``),
+their default tiles, the wrappers' checks of the tile knobs, and the
+tuner's Hopper footprint check (``tune.launch_errors``). The CUDA sources
+compute the same arithmetic themselves; ``chip_smoke.py`` and
+``tests/test_torch_cuda.py`` hold the two equal on the card."""
+import importlib
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import tune  # noqa: E402
+from repro_torch.core.quantize import pack_w4  # noqa: E402
+
+C = importlib.import_module("repro_torch.kernels.conv_im2col")
+M = importlib.import_module("repro_torch.kernels.matmul_q8")
+
+
+# (shape, bp, q) -> (grid, threads, k_words, window, smem, block channels),
+# counted by hand from the kernel's layout (a block of fewer than 128
+# threads padded to 128 that only stage): the window (rows spanned + HK-1)
+# x (columns + HK-1) x a pixel's bytes (Cx/g, + 4 where Cx/g is a multiple
+# of 4), then 4-byte words of the K chunk's im2col tile, its filter tile,
+# its K offsets and the block's pixel bases
+CONV_PLANS = [
+    # the dws stem: 8 rows of 32 a block, K = 27 -> 7 words
+    ((256, 32, 32, 3, 16, 3, 1), 256, 16,
+     ((1024, 1), 128, 7, 1024, 1024 + 4 * (7 * 256 + 7 * 16 + 28 + 256),
+      16)),
+    # pw1: HK = 1 runs as one row of 65,536 pixels
+    ((256, 16, 16, 16, 32, 1, 1), 128, 16,
+     ((512, 1), 128, 4, 128 * 20, 128 * 20 + 4 * (4 * 128 + 4 * 32 + 16
+                                                  + 128), 32)),
+    # Table-2, g = 4: a 32-pixel run spans at most 5 rows of 10
+    ((1, 10, 10, 128, 64, 3, 4), 32, 16,
+     ((4, 4), 128, 72, 7 * 12 * 36, 3024 + 4 * (32 * 32 + 32 * 16 + 128
+                                               + 32), 16)),
+    # odd Cx = 5: bytes, no pad; runs of 64 span at most 6 rows of 13
+    ((2, 15, 13, 5, 8, 3, 1), 64, 8,
+     ((8, 1), 128, 12, 608, 608 + 4 * (12 * 64 + 12 * 8 + 48 + 64), 8)),
+]
+
+
+@pytest.mark.parametrize("shape,bp,q,want", CONV_PLANS, ids=str)
+def test_conv_plan_counts(shape, bp, q, want):
+    grid, threads, k_words, window, smem, bn = want
+    p = C.conv_plan(*shape, bp, q)
+    assert p["grid"] == grid and p["threads"] == threads
+    assert p["k_words"] == k_words and p["window"] == window
+    assert p["smem"] == smem and p["block_channels"] == bn
+
+
+def _blocks(n, h, w, cx, cy, hk, g, bp):
+    """Each block's input window as the kernel computes it from blockIdx:
+    (rows, columns, [(pixel row, pixel column) in the window])."""
+    if hk == 1:
+        n, h, w = 1, 1, n * h * w
+    hw = h * w
+    for blk in range(-(-hw // bp)):
+        p0, p1 = blk * bp, min(blk * bp + bp, hw)
+        r0, r1 = p0 // w, (p1 - 1) // w
+        one_row = r0 == r1
+        cmin = p0 - r0 * w if one_row else 0
+        wwb = p1 - p0 + hk - 1 if one_row else w + hk - 1
+        whb = r1 - r0 + hk
+        yield whb, wwb, [(pi // w - r0, pi % w - cmin) for pi in range(p0, p1)]
+
+
+@pytest.mark.parametrize("shape", [
+    (2, 32, 32, 3, 16, 3, 1), (2, 16, 16, 16, 32, 1, 1),
+    (1, 10, 10, 128, 64, 3, 4), (2, 15, 13, 5, 8, 3, 1),
+    (2, 9, 9, 6, 9, 3, 3), (3, 5, 40, 8, 20, 3, 1), (1, 12, 11, 8, 12, 7, 2),
+    (2, 6, 7, 4, 8, 2, 1), (2, 33, 70, 4, 4, 5, 1)], ids=str)
+@pytest.mark.parametrize("bp", [32, 64, 96, 128, 256])
+def test_conv_plan_window_holds_every_blocks_taps(shape, bp):
+    """The window the plan sizes shared memory for holds every block's
+    window, and every tap of every pixel of a block lies inside it."""
+    n, h, w, cx, cy, hk, g = shape
+    p = C.conv_plan(*shape, bp, 16)
+    cxg = cx // g
+    ps = cxg + 4 if cxg % 4 == 0 and cx % 4 == 0 else cxg
+    for whb, wwb, pixels in _blocks(*shape, bp):
+        assert whb * wwb * ps <= p["window"]
+        for pr, pc in pixels:
+            assert 0 <= pr and pr + hk - 1 < whb
+            assert 0 <= pc and pc + hk - 1 < wwb
+
+
+def test_default_tiles():
+    # the dws plan at B=256: the largest block whose grid holds 128 blocks
+    # (conv0 1,024 of 256 pixels, pw2 64 x 2 channel blocks); at most
+    # twice an 8x8 image with a halo; 32 pixels for a small batch; 16
+    # channels a thread, fewer for narrow groups
+    assert C.default_tile(256, 32, 32, 3, 16, 3, 1) == {"bp": 256, "q": 16}
+    assert C.default_tile(256, 16, 16, 16, 32, 1, 1) == {"bp": 256, "q": 16}
+    assert C.default_tile(256, 8, 8, 32, 64, 1, 1) == {"bp": 256, "q": 16}
+    assert C.default_tile(8, 32, 32, 16, 16, 3, 1) == {"bp": 64, "q": 16}
+    assert C.default_tile(256, 8, 8, 32, 64, 3, 1) == {"bp": 128, "q": 16}
+    assert C.default_tile(1, 10, 10, 128, 64, 3, 4) == {"bp": 32, "q": 16}
+    assert C.default_tile(2, 2, 3, 4, 8, 3, 1) == {"bp": 32, "q": 8}
+    assert C.default_tile(2, 8, 8, 4, 6, 3, 2) == {"bp": 32, "q": 4}
+    for m, n in ((256, 256), (512, 512), (1, 37), (8, 4864)):
+        tile = tuple(M.default_mmf_tile(m, n).values())
+        assert tile in M.MMF_TILES and not M.mmf_tile_errors(m, n, tile)
+    # Table-2: 16 x 32 blocks of 2 x 2 at 256^2, 32 x 64 of 2 x 4 at 512^2
+    assert M.default_mmf_tile(256, 256) == dict(bm=16, bn=32, tm=2, tn=2)
+    assert M.default_mmf_tile(512, 512) == dict(bm=32, bn=64, tm=2, tn=4)
+
+
+@pytest.mark.parametrize("m,n,tile,esize,want", [
+    # three 64-deep stages of A (words of 1 or 2 elements, rows padded by 4)
+    # and of B
+    (256, 256, (16, 32, 2, 2), 4, ((8, 16), 128, 3 * (64 * 20 * 4
+                                                       + 64 * 32 * 4))),
+    (256, 256, (16, 32, 2, 2), 2, ((8, 16), 128, 3 * (32 * 20 * 4
+                                                       + 64 * 32 * 2))),
+    (257, 513, (64, 64, 8, 4), 4, ((9, 5), 128, 3 * (64 * 68 * 4
+                                                      + 64 * 64 * 4))),
+    (37, 33, (32, 64, 2, 4), 2, ((1, 2), 256, 3 * (32 * 36 * 4
+                                                    + 64 * 64 * 2))),
+], ids=str)
+def test_mmf_plan_counts(m, n, tile, esize, want):
+    grid, threads, smem = want
+    assert M.mmf_plan(m, n, tile, esize) == dict(grid=grid, threads=threads,
+                                                 smem=smem)
+
+
+def _conv_args(cx=8, cy=8, hk=3, g=1, w4=False):
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.integers(-128, 128, (2, 6, 6, cx))
+                         .astype(np.int8))
+    q = rng.integers(-8 if w4 else -128, 8 if w4 else 128,
+                     (hk, hk, cx // g, cy)).astype(np.int8)
+    if not w4:
+        return x, (torch.from_numpy(q),)
+    ws = torch.from_numpy(rng.integers(0, 5, cx // g).astype(np.int8))
+    return x, (pack_w4(torch.from_numpy(q), 2).contiguous(), ws)
+
+
+@pytest.mark.parametrize("w4", [False, True], ids=["q8", "w4"])
+@pytest.mark.parametrize("knobs,match", [
+    (dict(bp=48), "bp must be"), (dict(bp=512), "bp must be"),
+    (dict(bp=True), "bp must be"), (dict(q=12), "q must be"),
+    (dict(q=2), "q must be"), (dict(bp=64.0), "bp must be")], ids=str)
+def test_conv_wrappers_reject_bad_tiles(w4, knobs, match):
+    x, wts = _conv_args(w4=w4)
+    fn = C.conv2d_w4 if w4 else C.conv2d_q8
+    with pytest.raises(ValueError, match=match):
+        fn(x, *wts, requant_shift=7, **knobs)
+
+
+@pytest.mark.parametrize("w4", [False, True], ids=["q8", "w4"])
+def test_conv_wrappers_take_every_tile_on_the_host(w4):
+    """On host tensors every tile runs the plain version: same output."""
+    x, wts = _conv_args(w4=w4)
+    fn = C.conv2d_w4 if w4 else C.conv2d_q8
+    want = fn(x, *wts, requant_shift=7, act="relu")
+    for bp in (32, 96, 256):
+        for q in C.CONV_Q:
+            assert torch.equal(fn(x, *wts, requant_shift=7, act="relu",
+                                  bp=bp, q=q), want)
+
+
+# Cx = 512 at 64x64: a 256-pixel block spans 4 rows, a 6 x 66 x 516-byte
+# window plus its tiles, over the 232,448 bytes a block can use
+WIDE = (1, 64, 64, 512, 64, 3, 1)
+
+
+def test_tile_over_shared_memory_is_rejected():
+    assert C.conv_plan(*WIDE, 256, 16)["smem"] > C.MAX_DYNAMIC_SMEM
+    assert not C.tile_errors(C.conv_plan(*WIDE, 32, 16))
+    x = torch.zeros(WIDE[:4], dtype=torch.int8)
+    w = torch.zeros((3, 3, 512, 64), dtype=torch.int8)
+    with pytest.raises(ValueError, match="shared memory"):
+        C.conv2d_q8(x, w, bp=256, q=16)
+    sig = tune.sig_conv2d(*WIDE)
+    errs = tune.space.launch_errors(sig, {"bp": 256, "q": 16}, "int8")
+    assert errs and "shared memory" in errs[0]
+    cands = list(tune.candidates(sig, "int8"))
+    assert {"bp": 256, "q": 16} not in cands and {"bp": 32, "q": 16} in cands
+    # the default falls back to a tile that fits
+    assert not tune.space.launch_errors(
+        sig, tune.default_config("conv2d", sig, "int8"), "int8")
+    with pytest.raises(ValueError, match="cannot launch"):
+        tune.check_config(sig, {"bp": 256, "q": 4}, "int8")
+
+
+def test_matmul_f_rejects_tiles_it_has_no_instantiation_for():
+    a, b = torch.zeros((4, 4)), torch.zeros((4, 4))
+    with pytest.raises(ValueError, match="not one of"):
+        M.matmul_f(a, b, bm=48)
+    with pytest.raises(ValueError, match="not one of"):
+        M.matmul_f(a, b, bm=16, bn=32, tm=4, tn=4)
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(rng.standard_normal((37, 45)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((45, 33)).astype(np.float32))
+    want = M.matmul_f_plain(a, b, act="relu")
+    for tile in M.MMF_TILES:
+        got = M.matmul_f(a, b, act="relu", **dict(zip(M.MMF_KNOBS, tile)))
+        assert torch.equal(got, want)
+
+
+def test_float_matmul_footprint_check(monkeypatch):
+    """A tile past the 232,448 bytes of shared memory a block can use or
+    1,024 threads is rejected with its reasons, here a 256 x 512 block of
+    8 x 8 tiles."""
+    big = (256, 512, 8, 8)
+    monkeypatch.setattr(M, "MMF_TILES", M.MMF_TILES + (big,))
+    sig = tune.sig_matmul(512, 64, 512)
+    errs = tune.space.launch_errors(sig, dict(zip(M.MMF_KNOBS, big)),
+                                    "float32")
+    assert any("shared memory" in e for e in errs)
+    assert any("2048 threads" in e for e in errs)
+    assert not tune.space.launch_errors(
+        sig, dict(zip(M.MMF_KNOBS, M.MMF_TILES[0])), "bfloat16")

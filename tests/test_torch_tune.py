@@ -158,16 +158,32 @@ def test_space_knobs_and_defaults_are_todays_launches():
     sig = tune.sig_matmul(8, 896, 4864)
     assert tune.default_config("matmul", sig, "int8") == \
         {"bm": 16, "splits": split_plan(8, 896, 4864, 132)[0]}
+    from repro_torch.kernels.conv_im2col import default_tile
+    from repro_torch.kernels.matmul_q8 import MMF_TILES, default_mmf_tile
     assert tune.default_config("matmul", tune.sig_matmul(64, 8, 8),
-                               "float32") == {"bm": 64}
-    # the float matmul has no K split; splits stay within the K stages
-    assert all(set(c) == {"bm"} for c in tune.candidates(sig, "float32"))
+                               "float32") == default_mmf_tile(64, 8)
+    # the float matmul has no K split: its knobs are the tile, every
+    # instantiated tile a candidate; splits stay within the K stages
+    fcands = list(tune.candidates(sig, "float32"))
+    assert all(set(c) == {"bm", "bn", "tm", "tn"} for c in fcands)
+    assert {tuple(c[k] for k in ("bm", "bn", "tm", "tn"))
+            for c in fcands} == set(MMF_TILES)
     assert all(c["splits"] <= 28 for c in tune.candidates(sig, "int8"))
+    # the integer conv2d's knobs are its tile; the float conv2d keeps
+    # threads
+    csig = tune.sig_conv2d(256, 32, 32, 3, 16, 3)
+    for dt in ("int8", "w4a8"):
+        assert tune.default_config("conv2d", csig, dt) == \
+            default_tile(256, 32, 32, 3, 16, 3, 1)
+        assert {(c["bp"], c["q"]) for c in tune.candidates(csig, dt)} == \
+            {(bp, q) for bp in (32, 64, 128, 256) for q in (4, 8, 16)}
+    assert tune.default_config("conv2d", csig, "float32") == {"threads": 256}
 
 
 @pytest.mark.parametrize("sig,dtype,bad,match", [
-    (tune.sig_conv2d(1, 8, 8, 4, 8, 3), "int8", {"threads": 96}, "outside"),
-    (tune.sig_conv2d(1, 8, 8, 4, 8, 3), "int8", {"threads": 2048},
+    (tune.sig_conv2d(1, 8, 8, 4, 8, 3), "int8", {"bp": 96, "q": 16},
+     "outside"),
+    (tune.sig_conv2d(1, 8, 8, 4, 8, 3), "int8", {"bp": 512, "q": 16},
      "cannot launch"),
     (tune.sig_conv2d(1, 8, 8, 4, 8, 3), "int8", {"block_co": 8}, "unknown"),
     (tune.sig_matmul(8, 64, 64), "float32", {"splits": 2}, "unknown"),
@@ -208,6 +224,24 @@ def test_cache_other_schema_is_ignored(tmp_path):
         "k": {"config": {"threads": 64}}}}))
     c = tune.TuneCache(str(p))
     assert c.stale and len(c) == 0
+
+
+def test_cache_of_the_threads_space_is_stale_not_an_error(tmp_path):
+    """A v1 cache, written when the integer conv2d took threads and the
+    float matmul bm, is ignored as stale: lookups fall back to the analytic
+    model instead of raising in check_config."""
+    assert tune.SCHEMA_VERSION == 2
+    sig = tune.sig_conv2d(8, 16, 16, 16, 32, 3)
+    key = tune.cache_key("conv2d", sig.key(), "int8", "cpu")
+    p = tmp_path / "v1.json"
+    p.write_text(json.dumps({"schema_version": 1, "entries": {
+        key: {"config": {"threads": 64}, "us": 1.0,
+              "source": "measured"}}}))
+    c = tune.TuneCache(str(p))
+    assert c.stale and len(c) == 0
+    tune.set_default_cache(c)
+    assert tune.get_config(sig, "int8", "cpu") == \
+        tune.analytic_config(sig, "int8")
 
 
 def test_cache_corrupt_file_is_ignored(tmp_path):
@@ -296,7 +330,7 @@ def _op_args():
                          .astype(np.int8))
     table = torch.zeros((8, 2), dtype=torch.int32)
     return {
-        "conv2d": ((x8, w), dict(requant_shift=7), {"threads": 64}),
+        "conv2d": ((x8, w), dict(requant_shift=7), {"bp": 64, "q": 8}),
         "depthwise2d": ((x8, w[..., 0]), dict(requant_shift=7),
                         {"threads": 1024}),
         "shift_conv2d": ((x8, table, w[0, 0]), dict(requant_shift=7),
@@ -337,7 +371,7 @@ def test_qconv_apply_configs_only_under_cuda():
                     kernel_size=3)
     x = QTensor(torch.zeros((1, 4, 4, 4), dtype=torch.int8), 5)
     qp = {"w": QTensor(torch.ones((3, 3, 4, 4), dtype=torch.int8), 5)}
-    cfg = {"main": {"threads": 64}}
+    cfg = {"main": {"bp": 64, "q": 8}}
     with pytest.raises(ValueError, match="configs"):
         qconv_apply(qp, x, spec, 4, method="torch", configs=cfg)
     y = qconv_apply(qp, x, spec, 4, method="cuda", configs=cfg)
@@ -421,7 +455,9 @@ def test_planted_cache_plan_trunk_equals_untuned(host_plan, tmp_path):
     qconv = [n.name for n in plan.nodes if n.op == "qconv"]
     assert set(ex.node_configs) == set(qconv)
     for name, cfgs in ex.node_configs.items():
-        assert all("threads" in c for c in cfgs.values())
+        # the integer conv2d's knobs are its tile, the others' threads
+        assert all(set(c) in ({"threads"}, {"bp", "q"})
+                   for c in cfgs.values())
 
 
 def test_plan_configs_resolved_once_per_node_and_bucket(host_plan):
@@ -451,9 +487,9 @@ def test_plan_validate_rejects_a_bad_cached_config(host_plan):
                           node.spec.out_channels, node.spec.kernel_size)
     from repro_torch.graph.executor import _node_dtype
     c.put(tune.cache_key("conv2d", sig.key(), _node_dtype(node), "cpu"),
-          {"threads": 2048})
+          {"bp": 512, "q": 16})
     tune.set_default_cache(c)
-    with pytest.raises(ValueError, match="node 'conv0'.*threads"):
+    with pytest.raises(ValueError, match="node 'conv0'.*bp"):
         CompiledPlan(plan, method="cuda", device="cpu").forward_batch(x)
     with pytest.raises(ValueError, match="cannot launch"):
         CompiledPlan(plan, method="cuda", device="cpu",

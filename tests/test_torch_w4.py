@@ -171,6 +171,7 @@ def _both(qt):
     (2, 7, 5, 6, 9, 3, 3, False, None, 5),
     (1, 6, 6, 5, 4, 1, 1, True, None, 0),
     (2, 7, 5, 3, 8, 3, 1, False, "relu", -2),
+    (1, 10, 10, 128, 64, 3, 4, True, "relu", 9),
 ], ids=str)
 def test_conv2d_w4_plain_equals_ref_and_pallas(case):
     """Odd Cx and Cx/g carry a pad nibble; tolerance 0."""
