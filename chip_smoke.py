@@ -7,9 +7,9 @@ Phases, one line each, any failure exits non-zero:
 
 1. device   — a CUDA card is present; its name and power limit.
 2. build    — the CUDA kernels built from ``src/repro_torch/kernels/csrc``;
-              at a fresh build, ptxas's registers, shared memory and spills
-              of every instantiation of the integer conv and the float
-              matmul.
+              ptxas's registers, shared memory and spills of every
+              instantiation of the implicit GEMM (the integer conv and
+              shift conv), the float shift conv and the float matmul.
 3. kernels  — each of the eighteen kernel entry points (six int8, five
               W4, six float32 / bfloat16 and the float causal_conv1d) held
               bitwise against its plain PyTorch version at every
@@ -29,9 +29,14 @@ Phases, one line each, any failure exits non-zero:
               tuner's Table-2 int8 jobs (Cx = 128 at 10^2, g = 1 and 4;
               16->16 at 32^2, n = 1 and 8; timed with the standard plan's
               conv1 and conv2, not summed), HK 5 and 7, groups of 3, odd
-              Cx/g in W4, Cy = 20 and x at an odd address; the launch
-              arithmetic of the integer conv and the float matmul (every
-              tile) equal to their sources'; causal_conv1d at Falcon-Mamba's
+              Cx/g in W4, Cy = 20 and x at an odd address; the integer
+              shift conv on the same implicit GEMM at |shift| up to 3, C =
+              9 and 19, C = 130 (K chunks), Cy = 20 with x at an odd
+              address, W4 with every group shift at 4 and the tuner's
+              Table-2 int8 shift jobs (n = 1 and 8, timed, not summed); the
+              launch arithmetic of the integer conv, the shift conv
+              (integer and float) and the float matmul (every tile) equal
+              to their sources'; causal_conv1d at Falcon-Mamba's
               prefill shapes (1 x L x 8192 bf16 for L = 16, 33, 96 and 256, and
               8 x 64 x 8192), in float32, at D = 100 with K 1, 2 and 4 and
               relu on and off, with (K,1,D) weights, and its backward (dx
@@ -41,7 +46,8 @@ Phases, one line each, any failure exits non-zero:
               maxpool2d, shift_conv2d, add_conv2d and matmul in float32
               and bfloat16 at the tuner's Table-2 jobs, at every layer
               shape of the four CNN plans at B=256 and at edges (HK 1, 2
-              and 5, groups, C = 19, M = 1, K = 33 and 45, matmuls of
+              and 5, groups, C = 19, shifts up to 3 at C = 5, C = 130 with
+              x at an unaligned address, M = 1, K = 33 and 45, matmuls of
               37x45x33 and 257x513x255 and with operands at unaligned
               addresses, relu and bias on and off); every config of the
               tuner's space of every
@@ -416,8 +422,10 @@ def kernel_cases(torch, K, dev, rng):
                 lib, nbytes, ops)
 
     def shift_conv(label, n, h, w, c, cy, table, bias=True, act="relu", rs=7,
-                   main=False, w4_mode=False, all_max=False):
+                   main=False, w4_mode=False, all_max=False, x_offset=0):
         x = i8((n, h, w, c))
+        if x_offset:                 # the same codes at an odd address
+            x = offset_view(torch, x, x_offset)
         if w4_mode:
             wp, ws, wt = w4((c, cy), 0, all_max)
             wbytes = wp.numel() + ws.numel()
@@ -568,6 +576,21 @@ def kernel_cases(torch, K, dev, rng):
                      grid_table(32, 2))
     yield shift_conv("one shift (1,-1) 4x16x16x16->32", 4, 16, 16, 16, 32,
                      np.tile(np.array([[1, -1]], np.int32), (16, 1)))
+    # the shift conv's implicit GEMM at its edges: d = 3 (a 7-wide window),
+    # C off a multiple of 4 (the bytewise window), K chunks (C = 130: 33
+    # words), Cy off a multiple of q, x at an odd address
+    yield shift_conv("|shift|<=3 2x12x11x9->24 grid7", 2, 12, 11, 9, 24,
+                     grid_table(9, 3))
+    yield shift_conv("|shift|<=2 C=19 2x15x13->8 grid5", 2, 15, 13, 19, 8,
+                     grid_table(19, 2), bias=False, act=None, rs=0)
+    yield shift_conv("K chunks C=130 1x10x10->16 grid3", 1, 10, 10, 130, 16,
+                     grid_table(130, 1))
+    yield shift_conv("Cy=20 x offset by 1 byte 2x9x7x12", 2, 9, 7, 12, 20,
+                     grid_table(12, 2), x_offset=1)
+    # the tuner's Table-2 int8 shift jobs (timed, not summed)
+    for n in (1, 8):
+        yield shift_conv(f"table2 {n}x32x32x64->64", n, 32, 32, 64, 64,
+                         grid_table(64, 1), main=0)
     yield add_conv("odd 2x15x13x3->8", 2, 15, 13, 3, 8, 3)
     for xp, wp in ((0, 0), (0, 3), (2, 0)):
         yield add_conv(f"preshift ({xp},{wp}) 4x16x16x16->32", 4, 16, 16,
@@ -635,6 +658,10 @@ def w4_cases(conv, dw, shift_conv, add_conv):
                  act="relu", layout4=False, all_max=hk == 5, **packed)
     yield shift_conv("W4 odd 2x15x13x7->8 grid5 all shifts 4", 2, 15, 13, 7,
                      8, grid_table(7, 2), all_max=True, **packed)
+    yield shift_conv("W4 |shift|<=3 odd C=9 1x12x11->24 all shifts 4", 1, 12,
+                     11, 9, 24, grid_table(9, 3), all_max=True, **packed)
+    yield shift_conv("W4 shift1 16->32 16^2 all shifts 4", BATCH, 16, 16, 16,
+                     32, grid_table(16, 1), all_max=True, **packed)
     yield add_conv("W4 odd 2x15x13x3->8 all shifts 4", 2, 15, 13, 3, 8, 3,
                    xp=0, wp=3, all_max=True, **packed)
     yield add_conv("W4 preshift (28,20) 2x8x8x5->16 relu", 2, 8, 8, 5, 16, 3,
@@ -670,9 +697,17 @@ def matmul_cases(mm):
              w4_mode=True, all_max=True)
 
 
+#: the shift conv's launch arithmetic checked against its source: (n, h,
+#: w, c, cy, d) of the shift plan's rows, Table-2's job at d = 1, 2 and 3,
+#: an odd C and a C of K chunks
+SHIFT_PLAN_SHAPES = ((BATCH, 16, 16, 16, 32, 1), (BATCH, 8, 8, 32, 64, 1),
+                     (1, 32, 32, 64, 64, 1), (1, 32, 32, 64, 64, 2),
+                     (1, 32, 32, 64, 64, 3), (2, 15, 13, 19, 8, 2),
+                     (1, 10, 10, 130, 16, 1))
 #: the kernels whose shared-memory tiles this repository sizes itself: each
-#: instantiation's ptxas report is printed at a fresh build
-TILED_KERNELS = ("conv2d_kernel", "matmul_f_kernel")
+#: instantiation's ptxas report is printed at a fresh build (igemm_kernel:
+#: the integer conv's and the integer shift conv's implicit GEMM)
+TILED_KERNELS = ("igemm_kernel", "matmul_f_kernel", "shift_conv2d_f_kernel")
 
 
 def ptxas_report(log: str, kernels) -> list:
@@ -719,9 +754,10 @@ def _demangle(sym: str) -> str:
 
 
 def check_plans(K):
-    """The Python launch arithmetic of the two tiled kernels (the tuner's
+    """The Python launch arithmetic of the tiled kernels (the tuner's
     footprint check reads it) equal to their sources' own, at every tile
-    of the dws plan's convs, the Table-2 int8 convs and Table-2 matmuls."""
+    of the dws plan's convs, the Table-2 int8 convs and Table-2 matmuls,
+    and of the shift conv's rows, Table-2 job and edges."""
     import ctypes
     import importlib
     from repro_torch.kernels import _build
@@ -743,6 +779,26 @@ def check_plans(K):
                       f"conv2d plan {s} bp={bp} q={q}: source {list(c)} vs "
                       f"Python {p}")
                 n += 1
+    cs = importlib.import_module("repro_torch.kernels.conv_shift")
+    for s in SHIFT_PLAN_SHAPES:
+        for bp in ci.CONV_BP:
+            for q in ci.CONV_Q:
+                c = (ctypes.c_int * 6)()
+                rc = lib.repro_shift_conv2d_i8_plan(c, *s, bp, q)
+                p = cs.shift_plan(*s, bp, q)
+                check(list(c) == [*p["grid"], p["threads"], p["smem"],
+                                  p["k_words"], p["window"]]
+                      and (rc == 0) == (not ci.tile_errors(p)),
+                      f"shift_conv2d plan {s} bp={bp} q={q}: source "
+                      f"{list(c)} (rc {rc}) vs Python {p}")
+                c = (ctypes.c_int * 4)()
+                rc = lib.repro_shift_conv2d_f_plan(c, *s[:5], bp, q)
+                p = cs.shift_f_plan(*s[:5], bp, q)
+                check(list(c) == [*p["grid"], p["threads"], p["smem"]]
+                      and (rc == 0) == (not ci.tile_errors(p)),
+                      f"shift_conv2d_f plan {s[:5]} bp={bp} q={q}: source "
+                      f"{list(c)} (rc {rc}) vs Python {p}")
+                n += 2
     for m, _, nn in T2_MATMUL:
         for tile in mq.MMF_TILES:
             for code, es in ((0, 4), (1, 2)):
@@ -753,8 +809,9 @@ def check_plans(K):
                 check(list(c) == [*p["grid"], p["threads"], p["smem"]],
                       f"matmul_f plan {tile}: source {list(c)} vs {p}")
                 n += 1
-    print(f"[kernels] launch arithmetic: {n} plans of the integer conv and "
-          "the float matmul equal to their sources'")
+    print(f"[kernels] launch arithmetic: {n} plans of the integer conv, the "
+          "shift conv (integer and float) and the float matmul equal to "
+          "their sources'")
 
 
 def phase_kernels(torch, K, dev, name, rng):
@@ -1041,9 +1098,11 @@ def float_cases(torch, K, dev, rng):
                 x.element_size() * (x.numel() + n * ho * wo * c),
                 (n * ho * wo * c * (win * win - 1), "op"))
 
-    def shift(label, shape, dtype, d=1, timed=False, act="relu"):
+    def shift(label, shape, dtype, d=1, timed=False, act="relu", off=0):
         n, h, w, c, cy = shape
         x, wt = f((n, h, w, c), dtype), f((c, cy), dtype)
+        if off:                      # x at an unaligned address
+            x = offset_view(torch, x, off)
         table = torch.from_numpy(grid_table(c, d)).to(dev)
         xs = shift_channels(x.float(), table).permute(0, 3, 1, 2) \
             .contiguous()
@@ -1137,6 +1196,10 @@ def float_cases(torch, K, dev, rng):
                     dtype, d=2)
         yield shift(f"{tag} no relu 4x16x16x16->32", (4, 16, 16, 16, 32),
                     dtype, act=None)
+        yield shift(f"{tag} |shift|<=3 C=5 2x9x7->37", (2, 9, 7, 5, 37), dtype,
+                    d=3, act=None)
+        yield shift(f"{tag} C=130 (chunks) offset by 1 2x8x8->12",
+                    (2, 8, 8, 130, 12), dtype, off=1)
         yield add(f"{tag} 2x15x13x3->8 relu", (2, 15, 13, 3, 8, 3), dtype,
                   act="relu")
         yield add(f"{tag} HK=1 C=19 2x8x8->8", (2, 8, 8, 19, 8, 1), dtype)
@@ -1256,7 +1319,8 @@ def entry_points(torch, K, dev, rng):
         ("maxpool2d_s8", pool_sig, "int8",
          lambda **k: K.maxpool2d_s8(x8, **k)),
         ("shift_conv2d_q8", shift_sig, "int8",
-         lambda **k: K.shift_conv2d_q8(x8, table, ws_, b, **q, **k)),
+         lambda **k: K.shift_conv2d_q8(x8, table, ws_, b, max_shift=1, **q,
+                                       **k)),
         ("add_conv2d_q8", add_sig, "int8",
          lambda **k: K.add_conv2d_q8(x8, wa, b, **akw, **k)),
         ("conv2d_w4", conv_sig, "w4a8",
@@ -1264,7 +1328,8 @@ def entry_points(torch, K, dev, rng):
         ("depthwise2d_w4", dw_sig, "w4a8",
          lambda **k: K.depthwise2d_w4(x8, *pd, **q, **k)),
         ("shift_conv2d_w4", shift_sig, "w4a8",
-         lambda **k: K.shift_conv2d_w4(x8, table, *pshift, b, **q, **k)),
+         lambda **k: K.shift_conv2d_w4(x8, table, *pshift, b, max_shift=1,
+                                       **q, **k)),
         ("add_conv2d_w4", add_sig, "w4a8",
          lambda **k: K.add_conv2d_w4(x8, *pa, b, **akw, **k)),
         ("matmul_q8", mm_sig, "int8",

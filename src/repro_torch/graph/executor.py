@@ -109,8 +109,9 @@ class CompiledPlan:
                         "pw": tune.sig_conv2d(n, h, w, c, spec.out_channels,
                                               1, 1)}
             elif p == "shift":
-                sigs = {"main": tune.sig_shift_conv2d(n, h, w, c,
-                                                      spec.out_channels)}
+                sigs = {"main": tune.sig_shift_conv2d(
+                    n, h, w, c, spec.out_channels,
+                    max(1, spec.kernel_size // 2))}
             else:                        # add
                 sigs = {"main": tune.sig_add_conv2d(n, h, w, c,
                                                     spec.out_channels,

@@ -12,10 +12,12 @@ output pixels, N = Cy/g, K = HK*HK*Cx/g): a block stages its run of
 pixels' input window and the group's filter slice (as words of four int8
 K-consecutive codes) in shared memory once, and each thread sums 32
 accumulators (PT pixels x Q channels) with ``__dp4a``; exact int32 sums,
-then the epilogue of ``csrc/epilogue.cuh``. The block's pixels ``bp`` and a
-thread's channels ``q`` are the tuner's knobs; :func:`conv_plan` is the
-launch arithmetic the source computes (grid, threads, K words, shared
-bytes), and :func:`default_tile` the wrappers' choice.
+then the epilogue of ``csrc/epilogue.cuh``. The body is
+``csrc/igemm.cuh``, shared with the integer shift conv (``conv_shift``),
+whose K-offset builder differs. The block's pixels ``bp`` and a thread's
+channels ``q`` are the tuner's knobs; :func:`conv_plan` is the launch
+arithmetic the source computes (grid, threads, K words, shared bytes),
+and :func:`default_tile` the wrappers' choice.
 
 The W4 mode (:func:`conv2d_w4`) reads the nibble-packed weight bytes and
 the int8 group shifts; each block unpacks and shifts every code once, while
@@ -60,12 +62,13 @@ MAX_ELEMENTS = 2 ** 31 - 2 ** 16
 #: the integer modes' knobs: pixels a block and channels a thread, each
 #: thread owning 32 // q pixels. The tuner's space holds these values; a
 #: launch takes any whole number of 32-pixel runs up to 256 as bp
-#: (csrc/conv_im2col.cu valid_tile)
+#: (csrc/igemm.cuh valid_tile); the shift conv takes the same knobs
+#: (conv_shift.py)
 CONV_BP = (32, 64, 128, 256)
 CONV_Q = (4, 8, 16)
-#: K words a staged chunk, and threads a block at most and at least (csrc
-#: KC, MAX_THREADS, MIN_THREADS: a small tile's block is padded with
-#: threads that only stage)
+#: K words a staged chunk, and threads a block at most and at least
+#: (csrc/igemm.cuh KC, MAX_THREADS, MIN_THREADS: a small tile's block is
+#: padded with threads that only stage)
 CONV_KC, CONV_MAX_THREADS, CONV_MIN_THREADS = 32, 256, 128
 #: blocks the default tile's grid aims for: about one per SM of an H100
 DEFAULT_BLOCKS = 128
@@ -78,18 +81,28 @@ MAX_DYNAMIC_SMEM, MAX_GRID_Y = 232448, 65535
 @functools.lru_cache(maxsize=4096)
 def conv_plan(n: int, h: int, w: int, cx: int, cy: int, hk: int,
               groups: int, bp: int, q: int) -> dict:
-    """The integer modes' launch arithmetic, as ``conv_plan`` in
-    ``csrc/conv_im2col.cu`` computes it: ``grid`` (x, y), ``threads``,
-    ``smem`` (dynamic shared bytes), ``k_words`` (K = HK*HK*Cx/g padded to
-    a multiple of 4, in words of four int8), ``window`` (the input window's
-    shared bytes) and ``block_channels``. A pointwise conv (HK = 1) runs as
-    one image of one row of N*H*W pixels. Memoized: do not mutate the
-    dict."""
+    """The integer modes' launch arithmetic, as ``igemm_plan`` in
+    ``csrc/igemm.cuh`` computes it for ``csrc/conv_im2col.cu``: ``grid``
+    (x, y), ``threads``, ``smem`` (dynamic shared bytes), ``k_words`` (K =
+    HK*HK*Cx/g padded to a multiple of 4, in words of four int8),
+    ``window`` (the input window's shared bytes) and ``block_channels``. A
+    pointwise conv (HK = 1) runs as one image of one row of N*H*W pixels.
+    Memoized: do not mutate the dict."""
+    return igemm_plan(n, h, w, cx, cy, hk, groups, hk * hk * (cx // groups),
+                      bp, q)
+
+
+def igemm_plan(n: int, h: int, w: int, cx: int, cy: int, hk: int,
+               groups: int, kk: int, bp: int, q: int) -> dict:
+    """The implicit GEMM's launch arithmetic (``csrc/igemm.cuh``
+    ``igemm_plan``) for an HK x HK window and a contraction of ``kk`` K
+    elements: the integer conv's (:func:`conv_plan`) and the integer shift
+    conv's (``conv_shift.shift_plan``)."""
     if hk == 1:
         n, h, w = 1, 1, n * h * w
     pt = 32 // q
     cxg, ng = cx // groups, cy // groups
-    k_words = cdiv(hk * hk * cxg, 4)
+    k_words = cdiv(kk, 4)
     kcw = min(CONV_KC, k_words)
     ct = min(cdiv(ng, q), CONV_MAX_THREADS // (bp // pt))
     bn = ct * q
@@ -122,8 +135,9 @@ def knob_errors(bp, q) -> list:
 
 
 def tile_errors(plan: dict) -> list:
-    """Why a :func:`conv_plan` cannot launch on an H100: its shared bytes
-    and its grid. Empty if it can."""
+    """Why a :func:`conv_plan` (or a shift conv's plan,
+    ``conv_shift.shift_plan`` / ``shift_f_plan``) cannot launch on an
+    H100: its shared bytes and its grid. Empty if it can."""
     errs = []
     if plan["smem"] > MAX_DYNAMIC_SMEM:
         errs.append(f"{plan['smem']} bytes of shared memory exceed the "
@@ -149,15 +163,22 @@ def default_tile(n, h, w, cx, cy, hk, groups) -> dict:
 
 @functools.lru_cache(maxsize=4096)
 def _default_tile(n, h, w, cx, cy, hk, groups) -> tuple:
-    ng = cy // groups
+    return tile_rule(cy // groups, n * h * w if hk == 1 else h * w,
+                     lambda bp, q: conv_plan(n, h, w, cx, cy, hk, groups,
+                                             bp, q))
+
+
+def tile_rule(ng: int, run: int, plan) -> tuple:
+    """:func:`default_tile`'s rule for an implicit GEMM of ``ng`` channels
+    a group whose block covers at most ``run`` pixels, ``plan(bp, q)`` its
+    launch arithmetic: (bp, q)."""
     q = 16 if ng >= 16 else (8 if ng >= 8 else 4)
-    run = n * h * w if hk == 1 else h * w
     cap = max(CONV_BP[0], 2 * (1 << max(0, run - 1).bit_length()))
     for bp in sorted(CONV_BP, reverse=True):
-        plan = conv_plan(n, h, w, cx, cy, hk, groups, bp, q)
-        gx, gy = plan["grid"]
+        p = plan(bp, q)
+        gx, gy = p["grid"]
         if (bp <= cap and gx * gy >= DEFAULT_BLOCKS
-                and not tile_errors(plan)):
+                and not tile_errors(p)):
             return bp, q
     return CONV_BP[0], q
 

@@ -44,7 +44,8 @@ from .conv1d_causal import causal_conv1d as _c1d_kernel
 from .conv_add import add_conv2d_f, add_conv2d_q8, add_conv2d_w4
 from .conv_dw import depthwise2d_f, depthwise2d_q8, depthwise2d_w4
 from .conv_im2col import conv2d_f, conv2d_q8, conv2d_w4
-from .conv_shift import shift_conv2d_f, shift_conv2d_q8, shift_conv2d_w4
+from .conv_shift import (shift_conv2d_f, shift_conv2d_q8, shift_conv2d_w4,
+                         window_shift)
 from .matmul_q8 import matmul_f, matmul_q8, matmul_w4
 from .pool import maxpool2d_f, maxpool2d_s8
 
@@ -157,13 +158,16 @@ def shift_conv2d(x, shifts, w_pw, bias=None, *, method: str = "cuda",
                  w_shifts=None, config: Optional[dict] = None):
     """Per-channel shift fused into a pointwise conv; ``shifts`` is (C,2),
     ``w_pw`` (C,Cy) or (1,1,C,Cy), packed W4 along C with ``w_shifts``.
-    ``max_shift`` bounds |shift| (pass ``kernel_size // 2``); ``bias`` is
+    ``max_shift`` bounds |shift| (pass ``kernel_size // 2``; required on a
+    card under ``"cuda"``, where it sizes the kernel's window); ``bias`` is
     added at accumulator scale (quantized paths only)."""
     _check_method(method)
     _count_dispatch("shift_conv2d", method)
     n, h, wd, c = x.shape
+    d = 1 if method == "torch" else window_shift("shift_conv2d", shifts,
+                                                 max_shift, x.device)
     cfg = _launch_config("shift_conv2d", method, config, "sig_shift_conv2d",
-                         (n, h, wd, c, w_pw.shape[-1]), x, w_shifts)
+                         (n, h, wd, c, w_pw.shape[-1], d), x, w_shifts)
     kw = dict(requant_shift=requant_shift, max_shift=max_shift, act=act)
     if w_shifts is not None:
         _check_w4("shift_conv2d", x, requant_shift)

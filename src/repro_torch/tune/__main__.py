@@ -73,7 +73,7 @@ def _shift(mk, n, h, w, c, co, dtype="float32"):
     shifts = torch.tensor([[(i % 3) - 1, ((i // 3) % 3) - 1]
                            for i in range(c)], dtype=torch.int32,
                           device=mk.device)
-    return ("shift_conv2d", tune.sig_shift_conv2d(n, h, w, c, co),
+    return ("shift_conv2d", tune.sig_shift_conv2d(n, h, w, c, co, 1),
             (f((n, h, w, c)), shifts, f((c, co))), dtype,
             _qkw(dtype, max_shift=1))
 

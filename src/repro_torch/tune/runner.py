@@ -178,19 +178,27 @@ def _issue_s(blocks: int, threads: int, smem: int,
 
 
 def _tiled_s(sig: ShapeSig, eff: Dict[str, int], dtype) -> float:
-    """The operations term of the integer conv2d's implicit GEMM and of the
-    float matmul's register tiles, from the instructions they issue."""
-    if sig.kernel == "conv2d":
-        plan = _space.conv_plan(*_space.conv_shape(sig), eff["bp"],
-                                eff["q"])
-        q, bp, kw = eff["q"], eff["bp"], plan["k_words"]
-        pt, t = 32 // q, plan["threads"]
-        # the tile's threads sum and requantize; all of them stage
-        summing = (bp // pt) * (plan["block_channels"] // q)
-        staged = plan["window"] + kw * (bp + plan["block_channels"] * 4)
+    """The operations term of the implicit GEMM (the integer conv2d and
+    shift_conv2d), of the float shift conv's and of the float matmul's
+    register tiles, from the instructions they issue."""
+    if _space.tiled(sig.kernel, dtype):
+        q, bp = eff["q"], eff["bp"]
+        plan = _space.tile_plan(sig, bp, q, dtype)
+        t, bn = plan["threads"], plan["block_channels"]
+        gx, gy = plan["grid"]
+        if not integer(dtype):           # the float shift conv: 1 x q a thread
+            c = sig.get("c")
+            per_thread = (c * (2 * q + 1 + q // 4)
+                          + STAGE_INSTR * c * (bp + bn) / t)
+            return _issue_s(gx * gy, t, plan["smem"], per_thread)
+        kw, pt = plan["k_words"], 32 // q
+        # the tile's threads sum and requantize; all of them stage (a shift
+        # conv gathers each im2col word as four bytes)
+        summing = (bp // pt) * (bn // q)
+        gather = 4 if sig.kernel == "shift_conv2d" else 1
+        staged = plan["window"] + kw * (gather * bp + bn * 4)
         per_thread = (summing * (pt * q * kw + kw * (pt + q // 4)
                                  + 10 * pt * q) + STAGE_INSTR * staged) / t
-        gx, gy = plan["grid"]
         return _issue_s(gx * gy, t, plan["smem"], per_thread)
     from repro_torch.kernels.matmul_q8 import mmf_plan
     m, kk, n = sig.get("m"), sig.get("k"), sig.get("n")
@@ -211,8 +219,7 @@ def estimate_s(sig: ShapeSig, config: Dict[str, int], dtype) -> float:
     k = sig.kernel
     eff = effective_config(sig, config, dtype)
     nbytes, ops_s = _work(sig, dtype)
-    if (k == "conv2d" and integer(dtype)) or (k == "matmul"
-                                              and not integer(dtype)):
+    if _space.tiled(k, dtype) or (k == "matmul" and not integer(dtype)):
         return max(nbytes / HBM_BPS, _tiled_s(sig, eff, dtype)) + LAUNCH_S
     launches = 1
     if k in _space.THREADED:
@@ -483,7 +490,9 @@ def plan_jobs(plan, *, batch: int = 1) -> list:
         elif p == "shift":
             w_pw = node.qparams["w_pw"]
             kw, dt = wkw(w_pw)
-            emit("shift_conv2d", _space.sig_shift_conv2d(batch, h, w, ci, co),
+            emit("shift_conv2d",
+                 _space.sig_shift_conv2d(batch, h, w, ci, co,
+                                         max(1, hk // 2)),
                  (x, node.qparams["shifts"],
                   w_pw.q[0, 0] if w_pw.q.dim() == 4 else w_pw.q),
                  dict(requant_shift=node.in_fb + w_pw.frac_bits - node.out_fb,

@@ -4,14 +4,17 @@
 The knobs are what the port's CUDA kernels expose, not the Pallas block
 names, which mean nothing to them:
 
-* the one-thread-per-output kernels (``depthwise2d``, ``shift_conv2d``,
-  ``add_conv2d``, ``maxpool2d``, every mode, and ``conv2d``'s float mode):
-  the block size ``threads``, one of 64, 128, 256, 512 or 1024 (default
-  256, their launch before the tuner existed);
-* ``conv2d``'s integer modes (int8, W4A8), an implicit GEMM: the block's
-  run of output pixels ``bp`` (32, 64, 128 or 256) and a thread's output
-  channels ``q`` (4, 8 or 16); the default is the wrapper's
-  (``kernels.conv_im2col.default_tile``), which depends on the shape;
+* the one-thread-per-output kernels (``depthwise2d``, ``add_conv2d``,
+  ``maxpool2d``, every mode, and ``conv2d``'s float mode): the block size
+  ``threads``, one of 64, 128, 256, 512 or 1024 (default 256, their launch
+  before the tuner existed);
+* ``conv2d``'s integer modes (int8, W4A8), an implicit GEMM, and
+  ``shift_conv2d`` in every mode (the integer modes on the same implicit
+  GEMM, the float mode a register-tiled kernel): the block's run of output
+  pixels ``bp`` (32, 64, 128 or 256) and a thread's output channels ``q``
+  (4, 8 or 16); the default is the wrapper's
+  (``kernels.conv_im2col.default_tile``,
+  ``kernels.conv_shift.default_shift_tile``), which depends on the shape;
 * ``matmul``: in the integer modes the tile height ``bm`` (16 or 64;
   default 16 for M <= 32, else 64) and the number of K ``splits`` (1, the
   wrapper's own choice, twice and four times it, capped at the 32-deep K
@@ -26,11 +29,11 @@ No knob changes the value of an output: each changes only the launch
 shape, and the integer split sums are exact. So every candidate gives
 output bitwise equal to the default's, which is what makes the tuner safe
 to leave on. :func:`launch_errors` holds each config to the H100's limits:
-the grid, threads per block and, for the two kernels that stage tiles in
-shared memory (the integer ``conv2d``, the float ``matmul``), the Hopper
-footprint: their tiles are dynamic shared memory, at most 232,448 bytes a
-block (past 48 KB the sources raise the kernel's limit with
-``cudaFuncSetAttribute``).
+the grid, threads per block and, for the kernels that stage tiles in
+shared memory (the integer ``conv2d``, ``shift_conv2d``, the float
+``matmul``), the Hopper footprint: their tiles are dynamic shared memory,
+at most 232,448 bytes a block (past 48 KB the sources raise the kernel's
+limit with ``cudaFuncSetAttribute``).
 
 A *config* is a plain dict of those kwargs. :func:`candidates` enumerates
 the configs a shape can launch, default first and deduplicated by the
@@ -50,6 +53,8 @@ from repro_torch.kernels.conv1d_causal import THREADS as C1D_THREADS
 from repro_torch.kernels.conv_im2col import (CONV_BP, CONV_MAX_THREADS,
                                              CONV_Q, conv_plan, default_tile,
                                              knob_errors, tile_errors)
+from repro_torch.kernels.conv_shift import (default_shift_tile, shift_f_plan,
+                                            shift_plan)
 from repro_torch.kernels.matmul_q8 import (BLOCK_K, MMF_KNOBS, MMF_TILES,
                                            default_bm, default_mmf_tile,
                                            mmf_tile_errors, split_plan)
@@ -59,8 +64,9 @@ KERNELS = ("conv2d", "depthwise2d", "shift_conv2d", "add_conv2d",
            "causal_conv1d", "matmul", "maxpool2d")
 
 #: the one-thread-per-output kernels and their block sizes, default first
-THREADED = ("conv2d", "depthwise2d", "shift_conv2d", "add_conv2d",
-            "maxpool2d")
+THREADED = ("conv2d", "depthwise2d", "add_conv2d", "maxpool2d")
+#: the kernels whose knobs are an implicit GEMM's tile (bp, q)
+TILED = ("conv2d", "shift_conv2d")
 THREADS = (DEFAULT_THREADS, 64, 128, 512, 1024)
 #: matmul tile heights
 MM_BM = (16, 64)
@@ -119,9 +125,13 @@ def sig_depthwise2d(n, h, w, c, hk) -> ShapeSig:
                                     ("k", hk)))
 
 
-def sig_shift_conv2d(n, h, w, c, cy) -> ShapeSig:
-    return ShapeSig("shift_conv2d", (("n", n), ("h", h), ("w", w), ("c", c),
-                                     ("co", cy)))
+def sig_shift_conv2d(n, h, w, c, cy, d=1) -> ShapeSig:
+    """``d``: the shift table's bound (``max_shift``, at least 1), which
+    sizes the integer kernels' window. Keyed only where it is not 1, so
+    the paper's 3x3 shift grid keeps the JAX package's key (whose kernel
+    has no window)."""
+    dims = (("n", n), ("h", h), ("w", w), ("c", c), ("co", cy))
+    return ShapeSig("shift_conv2d", dims + ((("d", d),) if d != 1 else ()))
 
 
 def sig_add_conv2d(n, h, w, cx, cy, hk) -> ShapeSig:
@@ -167,11 +177,17 @@ def threaded(kernel: str, dtype) -> bool:
     return kernel in THREADED and not (kernel == "conv2d" and integer(dtype))
 
 
+def tiled(kernel: str, dtype) -> bool:
+    """Whether ``kernel`` in ``dtype`` takes an implicit GEMM's tile (bp,
+    q): the integer ``conv2d`` and every mode of ``shift_conv2d``."""
+    return kernel in TILED and not threaded(kernel, dtype)
+
+
 def knobs(kernel: str, dtype) -> Tuple[str, ...]:
     """The config keys ``kernel`` takes in ``dtype``."""
     if threaded(kernel, dtype) or kernel == "causal_conv1d":
         return ("threads",)
-    if kernel == "conv2d":
+    if tiled(kernel, dtype):
         return ("bp", "q")
     if kernel == "matmul":
         return ("bm", "splits") if integer(dtype) else MMF_KNOBS
@@ -184,6 +200,23 @@ def conv_shape(sig: ShapeSig) -> tuple:
     return (g("n"), g("h"), g("w"), g("ci"), g("co"), g("k"), g("g"))
 
 
+def shift_shape(sig: ShapeSig) -> tuple:
+    """A shift_conv2d signature as the kernels' (n, h, w, c, cy, d)."""
+    g = sig.get
+    d = dict(sig.dims).get("d", 1)
+    return (g("n"), g("h"), g("w"), g("c"), g("co"), d)
+
+
+def tile_plan(sig: ShapeSig, bp: int, q: int, dtype) -> dict:
+    """The launch arithmetic of a TILED kernel's (bp, q) on this shape."""
+    if sig.kernel == "conv2d":
+        return conv_plan(*conv_shape(sig), bp, q)
+    n, h, w, c, cy, d = shift_shape(sig)
+    if integer(dtype):
+        return shift_plan(n, h, w, c, cy, d, bp, q)
+    return shift_f_plan(n, h, w, c, cy, bp, q)
+
+
 def default_config(kernel: str, sig: ShapeSig = None,
                    dtype="float32") -> Dict[str, int]:
     """Today's launch: what each wrapper does when given no config. The
@@ -192,13 +225,15 @@ def default_config(kernel: str, sig: ShapeSig = None,
         return {"threads": DEFAULT_THREADS}
     if kernel == "causal_conv1d":
         return {"threads": C1D_DEFAULT}
-    if kernel not in ("matmul", "conv2d"):
+    if kernel not in ("matmul", "conv2d", "shift_conv2d"):
         raise ValueError(f"unknown kernel {kernel!r}")
     if sig is None:
         raise ValueError(f"{kernel}'s default config depends on its shape: "
                          "pass sig")
     if kernel == "conv2d":
         return default_tile(*conv_shape(sig))
+    if kernel == "shift_conv2d":
+        return default_shift_tile(*shift_shape(sig), integer=integer(dtype))
     m, k, n = sig.get("m"), sig.get("k"), sig.get("n")
     if not integer(dtype):
         return default_mmf_tile(m, n)
@@ -223,17 +258,17 @@ def effective_config(sig: ShapeSig, cfg: Dict[str, int],
 def launch_errors(sig: ShapeSig, cfg: Dict[str, int], dtype) -> List[str]:
     """Why an (effective) config cannot launch on this shape on an H100:
     the block size, the grid limits and, for the kernels that stage tiles
-    (the integer conv2d, the float matmul), the Hopper footprint: shared
-    bytes per block (static at most 48 KB, dynamic at most 232,448) and
-    threads per block. Empty if it can."""
+    (the integer conv2d, shift_conv2d, the float matmul), the Hopper
+    footprint: shared bytes per block (static at most 48 KB, dynamic at
+    most 232,448) and threads per block. Empty if it can."""
     k = sig.kernel
     errs = []
-    if k == "conv2d" and integer(dtype):
+    if tiled(k, dtype):
         bp, q = cfg["bp"], cfg["q"]
         errs = knob_errors(bp, q)
         if errs:
             return errs
-        plan = conv_plan(*conv_shape(sig), bp, q)
+        plan = tile_plan(sig, bp, q, dtype)
         errs.extend(tile_errors(plan))
         if plan["threads"] > CONV_MAX_THREADS:
             errs.append(f"{plan['threads']} threads a block exceed "
@@ -298,7 +333,7 @@ def candidates(sig: ShapeSig, dtype="float32") -> Iterator[Dict[str, int]]:
     elif k == "causal_conv1d":
         for t in C1D_THREADS:
             emit({"threads": t})
-    elif k == "conv2d":                            # integer conv2d
+    elif tiled(k, dtype):                # integer conv2d, shift_conv2d
         for bp in CONV_BP:
             for q in CONV_Q:
                 emit({"bp": bp, "q": q})

@@ -525,9 +525,10 @@ def test_float_ops_launch_their_kernel(dev, op, kernel):
             "add_conv2d": (x, _f(rng, (3, 3, 8, 4), torch.float32, dev)),
             "matmul": (x.reshape(16, 64)[:, :8].contiguous(),
                        _f(rng, (8, 4), torch.float32, dev))}[op]
+    kw = {"max_shift": 1} if op == "shift_conv2d" else {}
     wrapper = getattr(K, kernel)
     before = wrapper.launches
-    got = getattr(ops, op)(*args, method="cuda")
+    got = getattr(ops, op)(*args, method="cuda", **kw)
     torch.cuda.synchronize()
     assert wrapper.launches == before + 1
     assert torch.isfinite(got).all()
@@ -601,11 +602,11 @@ def _entry(name, dev, rng):
         s = torch.from_numpy(_grid(16, 1)).to(dev)
         if dt == "int8":
             w = _i8(rng, (16, 24), dev)
-            return sig, dt, lambda **c: K.shift_conv2d_q8(x8, s, w, b, **kw,
-                                                          **c)
+            return sig, dt, lambda **c: K.shift_conv2d_q8(
+                x8, s, w, b, max_shift=1, **kw, **c)
         wp, ws = w4((16, 24), 0)
-        return sig, dt, lambda **c: K.shift_conv2d_w4(x8, s, wp, ws, b, **kw,
-                                                      **c)
+        return sig, dt, lambda **c: K.shift_conv2d_w4(
+            x8, s, wp, ws, b, max_shift=1, **kw, **c)
     sig = tune.sig_add_conv2d(4, 12, 10, 16, 24, 3)
     akw = dict(requant_shift=9, x_preshift=2, w_preshift=0)
     if dt == "int8":
@@ -772,3 +773,127 @@ def test_tiled_launch_arithmetic_equals_the_sources(dev):
             assert lib.repro_matmul_f_plan(c, 257, 513, *tile, code) == 0
             p = mq.mmf_plan(257, 513, tile, es)
             assert list(c) == [*p["grid"], p["threads"], p["smem"]]
+
+
+# --------------------------------------------- the shift conv's tiles --
+
+SHIFT_TILES = [(bp, q) for bp in (32, 64, 96, 128, 256) for q in (4, 8, 16)]
+
+
+@pytest.mark.parametrize("w4", [False, True], ids=["q8", "w4"])
+@pytest.mark.parametrize("shape", [
+    (4, 16, 16, 16, 32, 1), (2, 8, 8, 32, 64, 1), (2, 15, 13, 19, 8, 2),
+    (1, 12, 11, 9, 24, 3), (1, 10, 10, 130, 16, 1), (2, 9, 7, 12, 20, 2)],
+    ids=str)
+def test_integer_shift_tiles_equal_plain(dev, shape, w4):
+    """Every tile of the integer shift conv's implicit GEMM at d = 1, 2
+    and 3, C off a multiple of 4 (the bytewise window), K chunks (C =
+    130), Cy off a multiple of q, W4 with every group shift at 4: bitwise
+    the plain version, with and without bias and relu."""
+    from repro_torch.kernels import (shift_conv2d_q8, shift_conv2d_q8_plain,
+                                     shift_conv2d_w4, shift_conv2d_w4_plain)
+    n, h, w, c, cy, d = shape
+    rng = np.random.default_rng(41)
+    x = _i8(rng, (n, h, w, c), dev)
+    table = torch.from_numpy(_grid(c, d)).to(dev)
+    b = torch.from_numpy(rng.integers(-5000, 5000, cy).astype(np.int32)) \
+        .to(dev)
+    if w4:
+        wts = _w4(rng, (c, cy), 0, dev, True)
+        fn, plain = shift_conv2d_w4, shift_conv2d_w4_plain
+    else:
+        wts = (_i8(rng, (c, cy), dev),)
+        fn, plain = shift_conv2d_q8, shift_conv2d_q8_plain
+    for bias, act, rs in ((b, "relu", 9), (None, None, -2)):
+        kw = dict(requant_shift=rs, act=act, max_shift=d)
+        want = plain(x, table, *wts, bias, **kw)
+        for bp, q in SHIFT_TILES:
+            got = fn(x, table, *wts, bias, bp=bp, q=q, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (bp, q, bias is None)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,off", [
+    ((1, 32, 32, 64, 64, 1), 0), ((2, 15, 13, 19, 8, 2), 0),
+    ((2, 9, 7, 5, 37, 3), 0), ((2, 8, 8, 130, 12, 1), 1)], ids=str)
+def test_float_shift_tiles_equal_plain(dev, dtype, shape, off):
+    """Every tile of the float shift conv, d = 1 to 3, C off a multiple of
+    4 and past two chunks of 64, Cy off a multiple of q, x at an unaligned
+    address, relu on and off: bitwise the plain version."""
+    from repro_torch.kernels import shift_conv2d_f, shift_conv2d_f_plain
+    n, h, w, c, cy, d = shape
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(42)
+    x = _f(rng, (n, h, w, c), dt, dev)
+    if off:
+        buf = torch.zeros(x.numel() + off, dtype=dt, device=dev)
+        xo = buf[off:].view(x.shape)
+        xo.copy_(x)
+        x = xo
+    wt = _f(rng, (c, cy), dt, dev)
+    table = torch.from_numpy(_grid(c, d)).to(dev)
+    for act in ("relu", None):
+        want = _bits(shift_conv2d_f_plain(x, table, wt, max_shift=d,
+                                          act=act))
+        for bp, q in SHIFT_TILES:
+            got = shift_conv2d_f(x, table, wt, max_shift=d, act=act, bp=bp,
+                                 q=q)
+            torch.cuda.synchronize()
+            assert torch.equal(_bits(got), want), (bp, q, act)
+
+
+def test_shift_unaligned_x_and_max_shift_required(dev):
+    """x at an odd address takes the bytewise window; a card call with no
+    max_shift raises in every mode (the window depends on it)."""
+    from repro_torch.kernels import (shift_conv2d_f, shift_conv2d_q8,
+                                     shift_conv2d_q8_plain, shift_conv2d_w4)
+    rng = np.random.default_rng(43)
+    x = _i8(rng, (2, 16, 16, 16), dev)
+    buf = torch.zeros(x.numel() + 1, dtype=torch.int8, device=dev)
+    xo = buf[1:].view(x.shape)
+    xo.copy_(x)
+    w = _i8(rng, (16, 32), dev)
+    table = torch.from_numpy(_grid(16, 1)).to(dev)
+    got = shift_conv2d_q8(xo, table, w, requant_shift=8, max_shift=1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, shift_conv2d_q8_plain(x, table, w,
+                                                  requant_shift=8))
+    wp, ws = _w4(rng, (16, 32), 0, dev, False)
+    before = (shift_conv2d_q8.launches, shift_conv2d_w4.launches,
+              shift_conv2d_f.launches)
+    with pytest.raises(ValueError, match="max_shift"):
+        shift_conv2d_q8(x, table, w, requant_shift=8)
+    with pytest.raises(ValueError, match="max_shift"):
+        shift_conv2d_w4(x, table, wp, ws, requant_shift=8)
+    with pytest.raises(ValueError, match="max_shift"):
+        shift_conv2d_f(_f(rng, (2, 16, 16, 16), torch.float32, dev), table,
+                       _f(rng, (16, 32), torch.float32, dev))
+    assert (shift_conv2d_q8.launches, shift_conv2d_w4.launches,
+            shift_conv2d_f.launches) == before
+
+
+def test_shift_launch_arithmetic_equals_the_source(dev):
+    """shift_plan and shift_f_plan, which the tuner's footprint check
+    reads, equal the arithmetic the CUDA source launches with."""
+    import ctypes
+    import importlib
+    from repro_torch.kernels import _build
+    ci = importlib.import_module("repro_torch.kernels.conv_im2col")
+    cs = importlib.import_module("repro_torch.kernels.conv_shift")
+    lib = _build.library()
+    for s in [(256, 16, 16, 16, 32, 1), (256, 8, 8, 32, 64, 1),
+              (1, 32, 32, 64, 64, 2), (2, 15, 13, 19, 8, 3),
+              (1, 64, 64, 512, 64, 3)]:
+        for bp, q in SHIFT_TILES:
+            c = (ctypes.c_int * 6)()
+            rc = lib.repro_shift_conv2d_i8_plan(c, *s, bp, q)
+            p = cs.shift_plan(*s, bp, q)
+            assert list(c) == [*p["grid"], p["threads"], p["smem"],
+                               p["k_words"], p["window"]]
+            assert (rc == 0) == (not ci.tile_errors(p))
+            c = (ctypes.c_int * 4)()
+            rc = lib.repro_shift_conv2d_f_plan(c, *s[:5], bp, q)
+            p = cs.shift_f_plan(*s[:5], bp, q)
+            assert list(c) == [*p["grid"], p["threads"], p["smem"]]
+            assert (rc == 0) == (not ci.tile_errors(p))

@@ -216,3 +216,184 @@ def test_float_matmul_footprint_check(monkeypatch):
     assert any("2048 threads" in e for e in errs)
     assert not tune.space.launch_errors(
         sig, dict(zip(M.MMF_KNOBS, M.MMF_TILES[0])), "bfloat16")
+
+
+# ------------------------------------------------------ the shift conv --
+
+S = importlib.import_module("repro_torch.kernels.conv_shift")
+
+# (n, h, w, c, cy, d), bp, q -> (grid, threads, k_words, window, smem,
+# block channels), counted by hand: the implicit GEMM of a (2d+1)-wide
+# window over K = C, each channel gathered at its own displacement
+SHIFT_PLANS = [
+    # shift1 at B=256: a block is one 16x16 image, window 18 x 18 x 20
+    ((256, 16, 16, 16, 32, 1), 256, 16,
+     ((256, 1), 256, 4, 18 * 18 * 20,
+      6480 + 4 * (4 * 256 + 4 * 32 + 16 + 256), 32)),
+    # shift2 at B=256: 128-pixel blocks over 8x8 images, window 10x10x36
+    ((256, 8, 8, 32, 64, 1), 128, 16,
+     ((256, 1), 256, 8, 10 * 10 * 36,
+      3600 + 4 * (8 * 128 + 8 * 64 + 32 + 128), 64)),
+    # Table-2's job at d = 2: two rows of 32 and a halo of 2
+    ((1, 32, 32, 64, 64, 2), 64, 8,
+     ((16, 1), 128, 16, 6 * 36 * 68,
+      14688 + 4 * (16 * 64 + 16 * 64 + 64 + 64), 64)),
+    # d = 3: one row of 32 and a halo of 3, 18,088 bytes rounded to 16
+    ((1, 32, 32, 64, 64, 3), 32, 4,
+     ((32, 1), 128, 16, 18096, 18096 + 4 * (16 * 32 + 16 * 64 + 64 + 32),
+      64)),
+    # odd C = 19: bytes, no pad; runs of 64 span at most 6 rows of 13
+    ((2, 15, 13, 19, 8, 2), 64, 8,
+     ((8, 1), 128, 5, 3232, 3232 + 4 * (5 * 64 + 5 * 8 + 20 + 64), 8)),
+]
+
+
+@pytest.mark.parametrize("shape,bp,q,want", SHIFT_PLANS, ids=str)
+def test_shift_plan_counts(shape, bp, q, want):
+    grid, threads, k_words, window, smem, bn = want
+    p = S.shift_plan(*shape, bp, q)
+    assert p["grid"] == grid and p["threads"] == threads
+    assert p["k_words"] == k_words and p["window"] == window
+    assert p["smem"] == smem and p["block_channels"] == bn
+
+
+@pytest.mark.parametrize("shape,bp,q,want", [
+    # Table-2: 32 pixels x 4 threads of 4 channels, 128 blocks; chunks of
+    # 64 channels, the staged rows padded to 33 floats
+    ((1, 32, 32, 64, 64), 32, 4,
+     ((32, 4), 128, 4 * (64 * 33 + 64 * 16 + 4 * 32 + 2 * 64), 16)),
+    # 256 pixels a block: one thread of 16 channels each, a row pitch of 257
+    ((256, 16, 16, 16, 32), 256, 16,
+     ((256, 2), 256, 4 * (64 * 257 + 64 * 16 + 4 * 256 + 2 * 64), 16)),
+    # Cy = 37 off every q: 3 channel blocks of 16
+    ((2, 9, 7, 5, 37), 64, 8, ((2, 3), 128, 4 * (64 * 65 + 64 * 16 + 256
+                                                  + 128), 16)),
+], ids=str)
+def test_shift_f_plan_counts(shape, bp, q, want):
+    grid, threads, smem, bn = want
+    assert S.shift_f_plan(*shape, bp, q) == dict(
+        grid=grid, threads=threads, smem=smem, block_channels=bn)
+
+
+@pytest.mark.parametrize("shape", [
+    (2, 16, 16, 16, 32, 1), (2, 8, 8, 32, 64, 1), (1, 32, 32, 64, 64, 2),
+    (1, 32, 32, 64, 64, 3), (2, 15, 13, 19, 8, 2), (1, 12, 11, 9, 24, 3),
+    (2, 33, 70, 4, 4, 2)], ids=str)
+@pytest.mark.parametrize("bp", [32, 64, 96, 128, 256])
+def test_shift_plan_window_holds_every_shifted_read(shape, bp):
+    """The window the plan sizes shared memory for holds every block's
+    window, and every pixel's read at every displacement (a, b) with
+    |a|, |b| <= d lies inside it."""
+    n, h, w, c, cy, d = shape
+    hk = 2 * d + 1
+    p = S.shift_plan(*shape, bp, 16)
+    ps = c + 4 if c % 4 == 0 else c
+    for whb, wwb, pixels in _blocks(n, h, w, c, cy, hk, 1, bp):
+        assert whb * wwb * ps <= p["window"]
+        for pr, pc in pixels:
+            for a in range(-d, d + 1):
+                assert 0 <= pr + a + d < whb
+                assert 0 <= pc + a + d < wwb
+
+
+def test_default_shift_tiles():
+    # the integer modes: default_tile's rule on the shift plan (shift1: one
+    # image a block; shift2: twice an 8x8 image, 256 blocks); the float
+    # mode: 32 pixels x 4 channels
+    assert S.default_shift_tile(256, 16, 16, 16, 32, 1) == {"bp": 256,
+                                                            "q": 16}
+    assert S.default_shift_tile(256, 8, 8, 32, 64, 1) == {"bp": 128, "q": 16}
+    assert S.default_shift_tile(1, 32, 32, 64, 64, 1) == {"bp": 32, "q": 16}
+    assert S.default_shift_tile(2, 9, 7, 12, 8, 2) == {"bp": 32, "q": 8}
+    assert S.default_shift_tile(1, 32, 32, 64, 64, 1, integer=False) == \
+        {"bp": 32, "q": 4}
+
+
+def _shift_args(mode, c=8, cy=8):
+    rng = np.random.default_rng(8)
+    table = torch.from_numpy(np.array(
+        [[(i % 3) - 1, ((i // 3) % 3) - 1] for i in range(c)], np.int32))
+    if mode == "f":
+        x = torch.from_numpy(rng.standard_normal((2, 6, 6, c))
+                             .astype(np.float32))
+        w = torch.from_numpy(rng.standard_normal((c, cy)).astype(np.float32))
+        return S.shift_conv2d_f, (x, table, w), dict(act="relu")
+    x = torch.from_numpy(rng.integers(-128, 128, (2, 6, 6, c))
+                         .astype(np.int8))
+    if mode == "q8":
+        w = torch.from_numpy(rng.integers(-128, 128, (c, cy)).astype(np.int8))
+        return S.shift_conv2d_q8, (x, table, w), dict(requant_shift=7,
+                                                      act="relu")
+    q = torch.from_numpy(rng.integers(-8, 8, (c, cy)).astype(np.int8))
+    ws = torch.from_numpy(rng.integers(0, 5, c).astype(np.int8))
+    return (S.shift_conv2d_w4, (x, table, pack_w4(q, 0).contiguous(), ws),
+            dict(requant_shift=7, act="relu"))
+
+
+@pytest.mark.parametrize("mode", ["q8", "w4", "f"])
+@pytest.mark.parametrize("knobs,match", [
+    (dict(bp=48), "bp must be"), (dict(bp=512), "bp must be"),
+    (dict(bp=True), "bp must be"), (dict(q=12), "q must be"),
+    (dict(q=2), "q must be"), (dict(bp=64.0), "bp must be"),
+    (dict(max_shift=-1), "max_shift"), (dict(max_shift=1.5), "max_shift"),
+    (dict(threads=256), "threads")], ids=str)
+def test_shift_wrappers_reject_bad_tiles(mode, knobs, match):
+    fn, args, kw = _shift_args(mode)
+    with pytest.raises((ValueError, TypeError), match=match):
+        fn(*args, **kw, **knobs)
+
+
+@pytest.mark.parametrize("mode", ["q8", "w4", "f"])
+def test_shift_wrappers_take_every_tile_on_the_host(mode):
+    """On host tensors every tile of the space runs the plain version, with
+    or without max_shift: the default's output."""
+    fn, args, kw = _shift_args(mode)
+    want = fn(*args, **kw)
+    for bp in C.CONV_BP:
+        for q in C.CONV_Q:
+            for d in (None, 1, 2):
+                assert torch.equal(fn(*args, **kw, bp=bp, q=q, max_shift=d),
+                                   want)
+
+
+# C = 512 at 64x64 with d = 3: a 256-pixel block's 10 x 70 x 516-byte window
+# is over the 232,448 bytes a block can use
+WIDE_SHIFT = (1, 64, 64, 512, 64, 3)
+
+
+def test_shift_tile_over_shared_memory_is_rejected():
+    assert S.shift_plan(*WIDE_SHIFT, 256, 16)["smem"] > C.MAX_DYNAMIC_SMEM
+    assert not C.tile_errors(S.shift_plan(*WIDE_SHIFT, 32, 16))
+    x = torch.zeros(WIDE_SHIFT[:4], dtype=torch.int8)
+    table = torch.zeros((512, 2), dtype=torch.int32)
+    w = torch.zeros((512, 64), dtype=torch.int8)
+    with pytest.raises(ValueError, match="shared memory"):
+        S.shift_conv2d_q8(x, table, w, max_shift=3, bp=256, q=16)
+    sig = tune.sig_shift_conv2d(*WIDE_SHIFT)
+    errs = tune.space.launch_errors(sig, {"bp": 256, "q": 16}, "int8")
+    assert errs and "shared memory" in errs[0]
+    cands = list(tune.candidates(sig, "int8"))
+    assert {"bp": 256, "q": 16} not in cands and {"bp": 32, "q": 16} in cands
+    assert not tune.space.launch_errors(
+        sig, tune.default_config("shift_conv2d", sig, "int8"), "int8")
+    with pytest.raises(ValueError, match="cannot launch"):
+        tune.check_config(sig, {"bp": 256, "q": 4}, "w4a8")
+    # the float mode stages no window: every tile fits
+    assert len(list(tune.candidates(sig, "float32"))) == 12
+
+
+def test_shift_sig_keys_its_window_bound():
+    """d is keyed where it is not 1 (the JAX package's key otherwise), and
+    the tuner's space, checks and defaults read it."""
+    d1 = tune.sig_shift_conv2d(8, 32, 32, 64, 64)
+    assert d1 == tune.sig_shift_conv2d(8, 32, 32, 64, 64, 1)
+    d2 = tune.sig_shift_conv2d(8, 32, 32, 64, 64, 2)
+    assert d2.key() == d1.key() + "_d2"
+    assert tune.space.shift_shape(d2) == (8, 32, 32, 64, 64, 2)
+    for dt in ("int8", "w4a8", "float32", "bfloat16"):
+        assert tune.space.knobs("shift_conv2d", dt) == ("bp", "q")
+        assert set(tune.default_config("shift_conv2d", d2, dt)) == {"bp", "q"}
+    assert tune.space.tile_plan(d2, 64, 8, "int8") == \
+        S.shift_plan(8, 32, 32, 64, 64, 2, 64, 8)
+    assert tune.space.tile_plan(d2, 64, 8, "float32") == \
+        S.shift_f_plan(8, 32, 32, 64, 64, 64, 8)

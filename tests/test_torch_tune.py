@@ -230,7 +230,7 @@ def test_cache_of_the_threads_space_is_stale_not_an_error(tmp_path):
     """A v1 cache, written when the integer conv2d took threads and the
     float matmul bm, is ignored as stale: lookups fall back to the analytic
     model instead of raising in check_config."""
-    assert tune.SCHEMA_VERSION == 2
+    assert tune.SCHEMA_VERSION == 3
     sig = tune.sig_conv2d(8, 16, 16, 16, 32, 3)
     key = tune.cache_key("conv2d", sig.key(), "int8", "cpu")
     p = tmp_path / "v1.json"
@@ -242,6 +242,21 @@ def test_cache_of_the_threads_space_is_stale_not_an_error(tmp_path):
     tune.set_default_cache(c)
     assert tune.get_config(sig, "int8", "cpu") == \
         tune.analytic_config(sig, "int8")
+
+
+def test_cache_of_the_shift_threads_space_is_stale(tmp_path):
+    """A v2 cache, written when shift_conv2d took threads, is ignored as
+    stale: its shift entries are never applied to the (bp, q) space."""
+    sig = tune.sig_shift_conv2d(8, 32, 32, 64, 64)
+    key = tune.cache_key("shift_conv2d", sig.key(), "int8", "cpu")
+    p = tmp_path / "v2.json"
+    p.write_text(json.dumps({"schema_version": 2, "entries": {
+        key: {"config": {"threads": 128}, "us": 1.0,
+              "source": "measured"}}}))
+    c = tune.TuneCache(str(p))
+    assert c.stale and len(c) == 0
+    tune.set_default_cache(c)
+    assert set(tune.get_config(sig, "int8", "cpu")) == {"bp", "q"}
 
 
 def test_cache_corrupt_file_is_ignored(tmp_path):
@@ -334,7 +349,7 @@ def _op_args():
         "depthwise2d": ((x8, w[..., 0]), dict(requant_shift=7),
                         {"threads": 1024}),
         "shift_conv2d": ((x8, table, w[0, 0]), dict(requant_shift=7),
-                         {"threads": 128}),
+                         {"bp": 32, "q": 4}),
         "add_conv2d": ((x8, w), dict(requant_shift=9), {"threads": 512}),
         "maxpool2d": ((x8,), {}, {"threads": 64}),
         "matmul": ((x8.reshape(128, 8), w[0, 0]), dict(requant_shift=7),
