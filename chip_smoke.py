@@ -9,7 +9,8 @@ Phases, one line each, any failure exits non-zero:
 2. build    — the CUDA kernels built from ``src/repro_torch/kernels/csrc``;
               ptxas's registers, shared memory and spills of every
               instantiation of the implicit GEMM (the integer conv and
-              shift conv), the float shift conv and the float matmul.
+              shift conv), the float implicit GEMM (the float conv and
+              float add conv), the float shift conv and the float matmul.
 3. kernels  — each of the eighteen kernel entry points (six int8, five
               W4, six float32 / bfloat16 and the float causal_conv1d) held
               bitwise against its plain PyTorch version at every
@@ -34,9 +35,9 @@ Phases, one line each, any failure exits non-zero:
               9 and 19, C = 130 (K chunks), Cy = 20 with x at an odd
               address, W4 with every group shift at 4 and the tuner's
               Table-2 int8 shift jobs (n = 1 and 8, timed, not summed); the
-              launch arithmetic of the integer conv, the shift conv
-              (integer and float) and the float matmul (every tile) equal
-              to their sources'; causal_conv1d at Falcon-Mamba's
+              launch arithmetic of the integer conv, the float conv and
+              float add conv, the shift conv (integer and float) and the
+              float matmul (every tile) equal to their sources'; causal_conv1d at Falcon-Mamba's
               prefill shapes (1 x L x 8192 bf16 for L = 16, 33, 96 and 256, and
               8 x 64 x 8192), in float32, at D = 100 with K 1, 2 and 4 and
               relu on and off, with (K,1,D) weights, and its backward (dx
@@ -47,7 +48,9 @@ Phases, one line each, any failure exits non-zero:
               and bfloat16 at the tuner's Table-2 jobs, at every layer
               shape of the four CNN plans at B=256 and at edges (HK 1, 2
               and 5, groups, C = 19, shifts up to 3 at C = 5, C = 130 with
-              x at an unaligned address, M = 1, K = 33 and 45, matmuls of
+              x at an unaligned address, the add at HK = 5, Cx = 19, Cy =
+              20 and the conv at ci = 130, g = 2, both with x at an
+              unaligned address, M = 1, K = 33 and 45, matmuls of
               37x45x33 and 257x513x255 and with operands at unaligned
               addresses, relu and bias on and off); every config of the
               tuner's space of every
@@ -704,10 +707,25 @@ SHIFT_PLAN_SHAPES = ((BATCH, 16, 16, 16, 32, 1), (BATCH, 8, 8, 32, 64, 1),
                      (1, 32, 32, 64, 64, 1), (1, 32, 32, 64, 64, 2),
                      (1, 32, 32, 64, 64, 3), (2, 15, 13, 19, 8, 2),
                      (1, 10, 10, 130, 16, 1))
+#: the float implicit GEMM's launch arithmetic checked against its
+#: sources: (n, h, w, cx, cy, hk, groups) of Table-2's float convs, the
+#: B=256 layers (the add plan's are the standard plan's shapes), a
+#: pointwise layer, edges (odd sizes, ci = 130 with g = 2, HK = 7) and a
+#: window too large for the larger tiles
+F_PLAN_SHAPES = ((1, 10, 10, 128, 64, 3, 1), (1, 10, 10, 128, 64, 3, 4),
+                 (1, 32, 32, 16, 16, 3, 1), (1, 32, 32, 16, 16, 7, 1),
+                 (1, 8, 8, 16, 16, 3, 1), (1, 32, 32, 32, 32, 3, 1),
+                 (1, 10, 10, 16, 16, 3, 1), (BATCH, 32, 32, 3, 16, 3, 1),
+                 (BATCH, 16, 16, 16, 32, 3, 1), (BATCH, 8, 8, 32, 64, 3, 1),
+                 (BATCH, 16, 16, 16, 32, 1, 1), (2, 15, 13, 19, 37, 5, 1),
+                 (1, 10, 10, 130, 20, 3, 2), (1, 12, 11, 8, 12, 7, 2),
+                 (1, 64, 64, 512, 64, 3, 1))
 #: the kernels whose shared-memory tiles this repository sizes itself: each
 #: instantiation's ptxas report is printed at a fresh build (igemm_kernel:
-#: the integer conv's and the integer shift conv's implicit GEMM)
-TILED_KERNELS = ("igemm_kernel", "matmul_f_kernel", "shift_conv2d_f_kernel")
+#: the integer conv's and the integer shift conv's implicit GEMM;
+#: fgemm_kernel: the float conv's and the float add conv's)
+TILED_KERNELS = ("igemm_kernel", "fgemm_kernel", "matmul_f_kernel",
+                 "shift_conv2d_f_kernel")
 
 
 def ptxas_report(log: str, kernels) -> list:
@@ -757,7 +775,8 @@ def check_plans(K):
     """The Python launch arithmetic of the tiled kernels (the tuner's
     footprint check reads it) equal to their sources' own, at every tile
     of the dws plan's convs, the Table-2 int8 convs and Table-2 matmuls,
-    and of the shift conv's rows, Table-2 job and edges."""
+    of the shift conv's rows, Table-2 job and edges, and of the float conv
+    and float add conv at F_PLAN_SHAPES."""
     import ctypes
     import importlib
     from repro_torch.kernels import _build
@@ -799,6 +818,30 @@ def check_plans(K):
                       f"shift_conv2d_f plan {s[:5]} bp={bp} q={q}: source "
                       f"{list(c)} (rc {rc}) vs Python {p}")
                 n += 2
+    ca = importlib.import_module("repro_torch.kernels.conv_add")
+    tiles = [(bp, q) for bp in (*ci.CONV_BP, 96) for q in ci.CONV_Q]
+    for s in F_PLAN_SHAPES:
+        for bp, q in tiles:
+            c = (ctypes.c_int * 5)()
+            rc = lib.repro_conv2d_f_plan(c, *s, bp, q)
+            p = ci.conv_f_plan(*s, bp, q)
+            check(list(c) == [*p["grid"], p["threads"], p["smem"],
+                              p["window"]]
+                  and (rc == 0) == (not ci.tile_errors(p)),
+                  f"conv2d_f plan {s} bp={bp} q={q}: source {list(c)} (rc "
+                  f"{rc}) vs Python {p}")
+            n += 1
+            if s[6] != 1:
+                continue
+            c = (ctypes.c_int * 5)()
+            rc = lib.repro_add_conv2d_f_plan(c, *s[:6], bp, q)
+            p = ca.add_f_plan(*s[:6], bp, q)
+            check(list(c) == [*p["grid"], p["threads"], p["smem"],
+                              p["window"]]
+                  and (rc == 0) == (not ci.tile_errors(p)),
+                  f"add_conv2d_f plan {s[:6]} bp={bp} q={q}: source "
+                  f"{list(c)} (rc {rc}) vs Python {p}")
+            n += 1
     for m, _, nn in T2_MATMUL:
         for tile in mq.MMF_TILES:
             for code, es in ((0, 4), (1, 2)):
@@ -810,8 +853,8 @@ def check_plans(K):
                       f"matmul_f plan {tile}: source {list(c)} vs {p}")
                 n += 1
     print(f"[kernels] launch arithmetic: {n} plans of the integer conv, the "
-          "shift conv (integer and float) and the float matmul equal to "
-          "their sources'")
+          "float conv and float add conv, the shift conv (integer and "
+          "float) and the float matmul equal to their sources'")
 
 
 def phase_kernels(torch, K, dev, name, rng):
@@ -1056,9 +1099,12 @@ def float_cases(torch, K, dev, rng):
     def pads(hk):
         return (hk // 2, (hk - 1) // 2, hk // 2, (hk - 1) // 2)
 
-    def conv(label, shape, dtype, timed=False, bias=True, act="relu"):
+    def conv(label, shape, dtype, timed=False, bias=True, act="relu",
+             off=0):
         n, h, w, cx, cy, hk, g = shape
         x, wt = f((n, h, w, cx), dtype), f((hk, hk, cx // g, cy), dtype)
+        if off:                      # x at an unaligned address
+            x = offset_view(torch, x, off)
         b = f((cy,), dtype) if bias else None
         kw = dict(groups=g, act=act)
         es = x.element_size()
@@ -1115,9 +1161,11 @@ def float_cases(torch, K, dev, rng):
                 x.element_size() * (x.numel() + wt.numel() + n * h * w * cy)
                 + 8 * c, (n * h * w * cy * c, "fma"))
 
-    def add(label, shape, dtype, timed=False, act=None):
+    def add(label, shape, dtype, timed=False, act=None, off=0):
         n, h, w, cx, cy, hk = shape
         x, wt = f((n, h, w, cx), dtype), f((hk, hk, cx, cy), dtype)
+        if off:                      # x at an unaligned address
+            x = offset_view(torch, x, off)
         xf = F.pad(x.permute(0, 3, 1, 2).float(), pads(hk))
         patches = F.unfold(xf, hk).transpose(1, 2) \
             .reshape(n * h * w, cx * hk * hk).contiguous()
@@ -1203,6 +1251,11 @@ def float_cases(torch, K, dev, rng):
         yield add(f"{tag} 2x15x13x3->8 relu", (2, 15, 13, 3, 8, 3), dtype,
                   act="relu")
         yield add(f"{tag} HK=1 C=19 2x8x8->8", (2, 8, 8, 19, 8, 1), dtype)
+        yield add(f"{tag} HK=5 C=19->20 offset by 3 2x9x11", (2, 9, 11, 19,
+                                                             20, 5), dtype,
+                  act="relu", off=3)
+        yield conv(f"{tag} ci=130 g=2 (K chunks) offset by 1 2x10x10->20",
+                   (2, 10, 10, 130, 20, 3, 2), dtype, off=1)
         for shape in ((1, 896, 37), (1, 45, 37), (13, 33, 300),
                       (70, 4864, 37), (17, 64, 100), (37, 45, 33),
                       (257, 513, 255)):

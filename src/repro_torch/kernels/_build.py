@@ -35,11 +35,12 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #: C entry points: argument types (every pointer and the stream a c_void_p).
 #: The one-thread-per-output kernels take their block size (``threads``)
 #: as the int before the stream; the float modes take a dtype code (0
-#: float32, 1 bfloat16) before it; the integer convs and every shift conv
-#: take their tile (bp, q), the integer shift convs the table's bound d
+#: float32, 1 bfloat16) before it; every conv, shift conv and float add
+#: conv takes its tile (bp, q), the integer shift convs the table's bound d
 #: before their requant shift, the integer matmuls their tile height and K
-#: split, the float matmul its tile (bm, bn, tm, tn). The ``*_plan`` functions fill an int array
-#: with a launch's arithmetic and launch nothing.
+#: split, the float matmul its tile (bm, bn, tm, tn). The ``*_plan``
+#: functions fill an int array with a launch's arithmetic and launch
+#: nothing.
 SIGNATURES = {
     "repro_conv2d_q8": (_P,) * 4 + (_I,) * 11 + (_P,),
     "repro_depthwise2d_q8": (_P,) * 3 + (_I,) * 8 + (_P,),
@@ -53,16 +54,18 @@ SIGNATURES = {
     "repro_matmul_q8": (_P,) * 4 + (_I,) * 8 + (_P,),
     "repro_matmul_w4": (_P,) * 5 + (_I,) * 8 + (_P,),
     "repro_causal_conv1d": (_P,) * 3 + (_I,) * 7 + (_P,),
-    "repro_conv2d_f": (_P,) * 4 + (_I,) * 10 + (_P,),
+    "repro_conv2d_f": (_P,) * 4 + (_I,) * 11 + (_P,),
     "repro_depthwise2d_f": (_P,) * 3 + (_I,) * 8 + (_P,),
     "repro_maxpool2d_f": (_P,) * 2 + (_I,) * 10 + (_P,),
     "repro_shift_conv2d_f": (_P,) * 4 + (_I,) * 9 + (_P,),
-    "repro_add_conv2d_f": (_P,) * 3 + (_I,) * 9 + (_P,),
+    "repro_add_conv2d_f": (_P,) * 3 + (_I,) * 10 + (_P,),
     "repro_matmul_f": (_P,) * 3 + (_I,) * 9 + (_P,),
     "repro_conv2d_i8_plan": (_P,) + (_I,) * 9,
     "repro_matmul_f_plan": (_P,) + (_I,) * 7,
     "repro_shift_conv2d_i8_plan": (_P,) + (_I,) * 8,
     "repro_shift_conv2d_f_plan": (_P,) + (_I,) * 7,
+    "repro_conv2d_f_plan": (_P,) + (_I,) * 9,
+    "repro_add_conv2d_f_plan": (_P,) + (_I,) * 8,
 }
 
 

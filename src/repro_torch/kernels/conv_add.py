@@ -7,9 +7,10 @@ Replaces the TPU kernel ``repro/kernels/conv_add.py`` (``add_conv2d`` /
 Hopper's tensor cores apply: the kernel runs on the CUDA cores' int32 lanes
 and is bound by operations (one ``|x - w|`` accumulate per tap, channel
 and filter, about 0.72 G of them per 256-image forward of the add plan),
-not by bytes. The design: one thread per output element, taps outside the
-image read as zero (a padded zero is not neutral under L1), every step in
-wrapping 32-bit arithmetic so the result equals JAX's int32 bit for bit.
+not by bytes. The integer modes' design: one thread per output element,
+taps outside the image read as zero (a padded zero is not neutral under L1),
+every step in wrapping 32-bit arithmetic so the result equals JAX's int32
+bit for bit.
 
 The W4 mode (:func:`add_conv2d_w4`) takes the weight packed along Cx
 with one int8 group shift per input channel: each code is shifted to the
@@ -20,13 +21,19 @@ neutral under L1).
 The float mode (:func:`add_conv2d_f`, float32 or bfloat16) has no
 pre-shifts and no bias: ``acc = acc - |x - w|`` in float32 over taps
 (i, j), then input channels, in order, bound by the CUDA cores' float32
-rate (a subtract and an add per tap, no FMA form). Its plain version
-repeats that order, so the two are bitwise equal; the TPU kernel sums each
-tap's channels before subtracting, so the JAX package agrees within a
-tolerance.
+rate (a subtract and a subtract of the absolute value per term, no FMA
+form). It runs the float implicit GEMM shared with the float conv
+(``csrc/fgemm.cuh``): a block stages its pixels' input window and its
+weights once, and each thread sums one or more pixels x ``q`` channels in
+registers, so every weight read from shared memory serves a thread's
+pixels and every input ``q`` channels. Its plain version repeats that order, so the two are bitwise
+equal; the TPU kernel sums each tap's channels before subtracting, so the
+JAX package agrees within a tolerance. :func:`add_f_plan` is its launch
+arithmetic (the float conv's at ``groups=1``).
 
-Every wrapper takes ``threads``, the block size of its launch (the tuner's
-knob); it changes no output.
+The integer wrappers take ``threads``, the block size of their launch;
+the float wrapper the tile ``bp`` (pixels a block) and ``q`` (channels a
+thread). They are the tuner's knobs and change no output.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches the kernel or raises.
@@ -43,7 +50,16 @@ from ._build import check_launch, library
 from .common import (DEFAULT_THREADS, acc_dtype, apply_act, apply_requant,
                      check_threads, float_code)
 from .conv_im2col import (check_act, check_cuda_operand, check_elements,
-                          check_shift, check_w4, kernel_pads)
+                          check_shift, check_tile, check_w4, conv_f_plan,
+                          kernel_pads)
+
+
+def add_f_plan(n: int, h: int, w: int, cx: int, cy: int, hk: int, bp: int,
+               q: int) -> dict:
+    """The float mode's launch arithmetic, as ``repro_add_conv2d_f_plan``
+    computes it: the float conv's (``conv_im2col.conv_f_plan``) at
+    ``groups=1``. Memoized: do not mutate the dict."""
+    return conv_f_plan(n, h, w, cx, cy, hk, 1, bp, q)
 
 
 def add_conv2d_q8_plain(x, w, bias=None, *, requant_shift: int = 0,
@@ -197,12 +213,14 @@ def add_conv2d_f_plain(x, w, *, act=None):
     return apply_act(acc, act).to(x.dtype)
 
 
-def add_conv2d_f(x, w, *, act=None, threads: int = DEFAULT_THREADS):
+def add_conv2d_f(x, w, *, act=None, bp=None, q=None):
     """x (N,H,W,Cx) float32 or bfloat16, w (HK,HK,Cx,Cy) in x's dtype ->
-    (N,H,W,Cy) in x's dtype, SAME stride 1."""
+    (N,H,W,Cy) in x's dtype, SAME stride 1. ``bp`` and ``q`` default to
+    ``conv_im2col.default_f_tile`` at ``groups=1``."""
     n, h, wd, cx, cy, hk = _check_add("add_conv2d_f", x, w.shape, None, None,
                                       0, 0, act, integer=False)
-    check_threads("add_conv2d_f", threads)
+    tile = check_tile("add_conv2d_f", (n, h, wd, cx, cy, hk, 1), bp, q,
+                      integer=False)
     if x.device.type == "cpu":
         return add_conv2d_f_plain(x, w, act=act)
     code = float_code("add_conv2d_f", x)
@@ -212,7 +230,7 @@ def add_conv2d_f(x, w, *, act=None, threads: int = DEFAULT_THREADS):
     with torch.cuda.device(x.device):
         rc = library().repro_add_conv2d_f(
             x.data_ptr(), w.data_ptr(), y.data_ptr(), n, h, wd, cx, cy, hk,
-            int(act == "relu"), code, threads,
+            int(act == "relu"), code, tile["bp"], tile["q"],
             torch.cuda.current_stream().cuda_stream)
     check_launch("add_conv2d_f", rc)
     add_conv2d_f.launches += 1

@@ -24,19 +24,25 @@ the int8 group shifts; each block unpacks and shifts every code once, while
 it stages the filter, and from there runs the int8 body. Its plain version
 expands the codes (``expand_w4``) and runs the int8 plain version.
 
-The float mode (:func:`conv2d_f`, float32 or bfloat16) runs the same
-one-thread-per-output design with a float32 accumulator: at Table-2's
-``ci=128, k=3`` layer each output sums 1,152 products, about 30 MFLOP per
-image, so it is bound by operations at the card's float32 rate (not
-tensor cores), and this first kernel, reloading every operand from L1 or
-L2, is far from that too. Its plain version sums in the kernel's order,
-tap row, tap column, then input channel, one float32 multiply and one add
-at a time, so the two are bitwise equal; JAX's oracle and the Pallas
-kernel sum in other orders and agree within a tolerance.
+The float mode (:func:`conv2d_f`, float32 or bfloat16) runs the float
+implicit GEMM (``csrc/fgemm.cuh``, shared with the float add conv): a
+block stages its run of pixels' input window once as float32 and the
+block's weights (all of K where they fit, else chunk by chunk), and each
+thread sums :func:`pixels_a_thread` pixels x ``q`` channels in registers,
+indexing the window by each K element's offset without dividing. At
+Table-2's ``ci=128, k=3`` layer each output sums 1,152 products, so it is
+bound by operations at the card's float32 rate (two instructions a term:
+no FMA) and, at n = 1, by the latency of those chains; at the B=256
+layers a thread's several pixels keep the shared-memory loads a step
+below its float instructions. Its plain version sums in
+the kernel's order, tap row, tap column, then input channel, one float32
+multiply and one add at a time, so the two are bitwise equal; JAX's oracle
+and the Pallas kernel sum in other orders and agree within a tolerance.
+:func:`conv_f_plan` is its launch arithmetic and :func:`default_f_tile`
+its default tile.
 
-The float wrapper takes ``threads``, the block size of its launch; the
-integer ones take ``bp`` and ``q``. They are the tuner's knobs
-(``repro_torch.tune``) and change no output.
+Every wrapper takes the tile ``bp`` (pixels a block) and ``q`` (channels a
+thread), the tuner's knobs (``repro_torch.tune``); they change no output.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches the kernel or raises.
@@ -52,8 +58,8 @@ from repro_torch.core.primitives import conv_nhwc
 from repro_torch.core.quantize import expand_w4
 
 from ._build import check_launch, library
-from .common import (DEFAULT_THREADS, acc_dtype, apply_act, apply_requant,
-                     cdiv, check_threads, float_code)
+from .common import (acc_dtype, apply_act, apply_requant, cdiv,
+                     float_code)
 
 #: largest Cx/g * HK^2 whose int8 x int8 sum cannot leave int32
 MAX_CONTRACTION = (2 ** 31 - 1) // (128 * 128)
@@ -76,6 +82,14 @@ DEFAULT_BLOCKS = 128
 #: are dynamic shared memory: above 48 KB after cudaFuncSetAttribute, which
 #: the sources call) and the grid's y limit
 MAX_DYNAMIC_SMEM, MAX_GRID_Y = 232448, 65535
+#: the float implicit GEMM's threads a block below bp = 128, its K
+#: elements a staged chunk at most, and the weights a thread stages a chunk
+#: at most (csrc/fgemm.cuh FG_THREADS, FG_KC, FG_UW)
+F_THREADS, F_KC, F_UW = 128, 128, 8
+#: the float default tile's largest block: at the B=256 layers 128-pixel
+#: blocks beat 256-pixel ones, whose windows cross more image boundaries
+#: and whose shared memory leaves fewer blocks resident
+F_DEFAULT_BP = 128
 
 
 @functools.lru_cache(maxsize=4096)
@@ -122,6 +136,73 @@ def igemm_plan(n: int, h: int, w: int, cx: int, cy: int, hk: int,
                 k_words=k_words, window=window, block_channels=bn)
 
 
+@functools.lru_cache(maxsize=4096)
+def conv_f_plan(n: int, h: int, w: int, cx: int, cy: int, hk: int,
+                groups: int, bp: int, q: int) -> dict:
+    """The float mode's launch arithmetic, as ``repro_conv2d_f_plan``
+    computes it (:func:`fgemm_plan`). Memoized: do not mutate the dict."""
+    return fgemm_plan(n, h, w, cx, cy, hk, groups, bp, q)
+
+
+def fgemm_plan(n: int, h: int, w: int, cx: int, cy: int, hk: int,
+               groups: int, bp: int, q: int) -> dict:
+    """The float implicit GEMM's launch arithmetic (``csrc/fgemm.cuh``
+    ``fgemm_plan``), shared by the float conv and the float add conv:
+    ``grid`` (pixel blocks over all N*H*W pixels, group x channel blocks),
+    ``threads`` (bp / ``pixels`` x the block's channel groups, at most 128
+    below 128 threads a group), ``pixels`` (a thread's pixels,
+    :func:`pixels_a_thread`), ``smem`` (dynamic shared bytes: the window,
+    the weights of ``k_chunk`` K elements and their offsets, each pixel's
+    base and each window row's input offset, 4 bytes each; all K elements
+    where they fit in a block's shared memory, else chunks of min(128, 8 x
+    threads a group / q)), ``window`` (the input window's bytes: the
+    padded rows a run of bp pixels spans, plus HK-1 padding rows for each
+    image boundary it crosses, x the padded columns x (Cx/g) | 1 floats a
+    pixel, rounded to 4 floats), ``block_channels`` and ``k_chunk``. A
+    pointwise conv (HK = 1) runs as one image of one row of N*H*W
+    pixels."""
+    if hk == 1:
+        n, h, w = 1, 1, n * h * w
+    cxg, ng = cx // groups, cy // groups
+    pt = pixels_a_thread(bp, q)
+    npx = bp // pt
+    ct = min(cdiv(ng, q), F_THREADS // npx if npx < F_THREADS else 1)
+    bn = ct * q
+    kk = hk * hk * cxg
+    ps = cxg | 1
+    nh = n * h
+    # output rows a run of bp pixels (starting at a multiple of bp) spans,
+    # the image boundaries they cross, and the window's width
+    if nh == 1 or w % bp == 0:
+        rows, ww = 1, min(bp, w) + hk - 1
+    elif bp % w == 0:
+        rows, ww = min(nh, bp // w), w + hk - 1
+    else:
+        rows, ww = min(nh, bp // w + 2), w + hk - 1
+    cross = min(n - 1, cdiv(rows - 1, h))
+    wrows = rows + cross * (hk - 1) + hk - 1
+    win = -(-wrows * ww * ps // 4) * 4
+    # all K elements' weights and offsets resident where they fit, else
+    # chunks of at most F_UW weights a thread
+    fixed = win + bp + wrows
+    kc = (kk if 4 * (fixed + kk * bn + kk) <= MAX_DYNAMIC_SMEM
+          else min(F_KC, F_UW * npx // q))
+    smem = 4 * (fixed + kc * bn + kc)
+    return dict(grid=(cdiv(n * h * w, bp), groups * cdiv(ng, bn)),
+                threads=npx * ct, smem=smem, window=4 * win,
+                block_channels=bn, k_chunk=kc, pixels=pt)
+
+
+def pixels_a_thread(bp: int, q: int) -> int:
+    """A float GEMM thread's pixels (``csrc/fgemm.cuh``
+    ``pixels_a_thread``): the largest power of two that divides bp / 32
+    and keeps pixels x q at most 32 accumulators."""
+    pt = 1
+    while (bp // 32) % (2 * pt) == 0 and 2 * pt * q <= 32:
+        pt *= 2
+    return pt
+
+
 def knob_errors(bp, q) -> list:
     """Why (bp, q) is not a tile the integer kernel takes: bp a whole
     number of 32-pixel runs up to 256, q one of :data:`CONV_Q`."""
@@ -135,9 +216,10 @@ def knob_errors(bp, q) -> list:
 
 
 def tile_errors(plan: dict) -> list:
-    """Why a :func:`conv_plan` (or a shift conv's plan,
-    ``conv_shift.shift_plan`` / ``shift_f_plan``) cannot launch on an
-    H100: its shared bytes and its grid. Empty if it can."""
+    """Why a :func:`conv_plan` or :func:`conv_f_plan` (or a shift conv's
+    plan, ``conv_shift.shift_plan`` / ``shift_f_plan``, or the float add
+    conv's, ``conv_add.add_f_plan``) cannot launch on an H100: its shared
+    bytes and its grid. Empty if it can."""
     errs = []
     if plan["smem"] > MAX_DYNAMIC_SMEM:
         errs.append(f"{plan['smem']} bytes of shared memory exceed the "
@@ -183,17 +265,46 @@ def tile_rule(ng: int, run: int, plan) -> tuple:
     return CONV_BP[0], q
 
 
-def check_tile(name: str, shape: tuple, bp, q) -> dict:
-    """The tile an integer wrapper launches: ``bp`` and ``q`` (None: the
-    default's), each one of its knob's values, and a launch that fits."""
+def default_f_tile(n, h, w, cx, cy, hk, groups) -> dict:
+    """The float wrappers' own tile (the float conv's and the float add
+    conv's, ``groups=1``): 16 channels a thread where the group has 16 or
+    more (8 or 4 for a narrower one) and the largest block of at most
+    ``F_DEFAULT_BP`` pixels whose grid still holds ``DEFAULT_BLOCKS``
+    blocks; where none does (Table-2's n = 1 jobs), 32 pixels x 4
+    channels, the most blocks and threads. On an H100 the fastest tile,
+    or within 12% of it, at Table-2's float jobs and the B=256 layers
+    (PERF.md, ``scripts/torch_float_tiles.py``)."""
+    return dict(zip(("bp", "q"), _default_f_tile(n, h, w, cx, cy, hk,
+                                                  groups)))
+
+
+@functools.lru_cache(maxsize=4096)
+def _default_f_tile(n, h, w, cx, cy, hk, groups) -> tuple:
+    ng = cy // groups
+    q = 16 if ng >= 16 else (8 if ng >= 8 else 4)
+    for bp in sorted((b for b in CONV_BP if b <= F_DEFAULT_BP),
+                     reverse=True):
+        p = conv_f_plan(n, h, w, cx, cy, hk, groups, bp, q)
+        gx, gy = p["grid"]
+        if gx * gy >= DEFAULT_BLOCKS and not tile_errors(p):
+            return bp, q
+    return CONV_BP[0], 4
+
+
+def check_tile(name: str, shape: tuple, bp, q, integer=True) -> dict:
+    """The tile a conv wrapper launches on ``shape`` = (n, h, w, cx, cy,
+    hk, groups): ``bp`` and ``q`` (None: the default's), each one of its
+    knob's values, and a launch that fits. ``integer=False``: the float
+    implicit GEMM's (the float conv's and the float add conv's)."""
     if bp is None or q is None:
-        d = _default_tile(*shape)
+        d = (_default_tile if integer else _default_f_tile)(*shape)
         bp = d[0] if bp is None else bp
         q = d[1] if q is None else q
     errs = knob_errors(bp, q)
     if errs:
         raise ValueError(f"{name}: " + "; ".join(errs))
-    errs = tile_errors(conv_plan(*shape, bp, q))
+    errs = tile_errors((conv_plan if integer else conv_f_plan)(*shape, bp,
+                                                                q))
     if errs:
         raise ValueError(f"{name}: tile bp={bp}, q={q} cannot launch: "
                          + "; ".join(errs))
@@ -393,13 +504,15 @@ def conv2d_f_plain(x, w, bias=None, *, groups: int = 1, act=None):
     return apply_act(acc, act).to(x.dtype)
 
 
-def conv2d_f(x, w, bias=None, *, groups: int = 1, act=None,
-             threads: int = DEFAULT_THREADS):
+def conv2d_f(x, w, bias=None, *, groups: int = 1, act=None, bp=None,
+             q=None):
     """x (N,H,W,Cx) float32 or bfloat16, w (HK,HK,Cx/g,Cy) and bias (Cy,)
-    or None in x's dtype -> (N,H,W,Cy) in x's dtype."""
+    or None in x's dtype -> (N,H,W,Cy) in x's dtype. ``bp`` and ``q``
+    default to :func:`default_f_tile`."""
     n, h, wd, cx, cy, hk = _check_conv("conv2d_f", x, w.shape, bias, groups,
                                        None, act, integer=False)
-    check_threads("conv2d_f", threads)
+    tile = check_tile("conv2d_f", (n, h, wd, cx, cy, hk, groups), bp, q,
+                      integer=False)
     if x.device.type == "cpu":
         return conv2d_f_plain(x, w, bias, groups=groups, act=act)
     code = float_code("conv2d_f", x)
@@ -410,8 +523,8 @@ def conv2d_f(x, w, bias=None, *, groups: int = 1, act=None,
         rc = library().repro_conv2d_f(
             x.data_ptr(), w.data_ptr(),
             None if bias is None else bias.data_ptr(), y.data_ptr(),
-            n, h, wd, cx, cy, hk, groups, int(act == "relu"), code, threads,
-            torch.cuda.current_stream().cuda_stream)
+            n, h, wd, cx, cy, hk, groups, int(act == "relu"), code,
+            tile["bp"], tile["q"], torch.cuda.current_stream().cuda_stream)
     check_launch("conv2d_f", rc)
     conv2d_f.launches += 1
     return y

@@ -25,31 +25,39 @@
 // zero weight is not neutral under L1.
 //
 // Float mode (repro_add_conv2d_f): x and w in float32 or bfloat16, no
-// pre-shifts and no bias; acc = acc - |x - w| in float32 from zero, over
-// taps (i, j) and then input channels c in order, every subtraction rounded
-// on its own (__fsub_rn; fabsf is exact); relu; one rounding to x's dtype
-// (float_io.cuh). An out-of-image tap reads x = 0, as in the integer modes.
+// pre-shifts and no bias, on the float implicit GEMM shared with the float
+// conv (fgemm.cuh), whose term here is acc = acc - |x - w| in float32 from
+// +0, over taps (i, j) and then input channels c in order, every
+// subtraction rounded on its own (__fsub_rn; fabsf is exact); relu; one
+// rounding to x's dtype (float_io.cuh). An out-of-image tap reads a staged
+// x = 0, as in the integer modes. A block stages its run of pixels' input
+// window and its weights once and each thread sums PT pixels x Q channels
+// in registers, so a weight is read from shared memory once for PT pixels
+// and an input once for Q channels. It takes the tile (bp, q), the
+// tuner's knobs; repro_add_conv2d_f_plan exports its launch arithmetic.
 // The TPU kernel sums each tap's channels first and then subtracts, another
 // order, so the float mode agrees with the JAX package within a tolerance.
 //
-// Every entry point takes the block size (`threads`, the tuner's knob); it
-// changes only the launch shape.
+// The integer entry points take the block size (`threads`, the tuner's
+// knob); it changes only the launch shape.
 //
 // Index arithmetic is 32-bit (the wrapper keeps every tensor below 2^31
 // elements).
 //
 // L1 distance is not a sum of products, so there is no tensor-core form (as
 // there is no MXU form on the TPU): the work runs on the CUDA cores' int32
-// lanes, and at the model's shapes it is bound by operations (one |x - w|
-// accumulate per tap, channel and filter), not by the bytes it moves. One
-// thread per output element (n, y, x, co), co fastest: the input byte is a
-// broadcast across the warp and consecutive filters' weights one coalesced
-// row. Register blocking over output pixels (reusing each weight) and over
-// filters (reusing each input byte) is the next step.
+// lanes (float32 lanes in the float mode), and at the model's shapes it is
+// bound by operations (one |x - w| accumulate per tap, channel and filter,
+// two instructions in float32), not by the bytes it moves. The integer
+// modes run one thread per output element (n, y, x, co), co fastest: the
+// input byte is a broadcast across the warp and consecutive filters'
+// weights one coalesced row. Moving them onto a register-tiled body, as
+// the float mode is, is the next step.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "epilogue.cuh"
+#include "fgemm.cuh"
 #include "float_io.cuh"
 #include "w4.cuh"
 
@@ -95,39 +103,6 @@ __global__ void __launch_bounds__(1024) add_conv2d_kernel(
   y[idx] = requant_epilogue(acc, relu, shift);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(1024) add_conv2d_f_kernel(
-    const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y,
-    int n, int h, int wd, int cx, int cy, int hk, int relu) {
-  const int total = n * h * wd * cy;
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int co = idx % cy;
-  int t = idx / cy;
-  const int ox = t % wd;
-  t /= wd;
-  const int oy = t % h;
-  const int b = t / h;
-  const int pad = hk / 2;
-  float acc = 0.0f;
-  for (int i = 0; i < hk; ++i) {
-    const int iy = oy + i - pad;
-    const bool row_in = iy >= 0 && iy < h;
-    for (int j = 0; j < hk; ++j) {
-      const int ix = ox + j - pad;
-      const bool in = row_in && ix >= 0 && ix < wd;
-      const T* xq = x + ((b * h + (in ? iy : 0)) * wd + (in ? ix : 0)) * cx;
-      const T* wq = w + (i * hk + j) * cx * cy + co;
-      for (int c = 0; c < cx; ++c) {
-        const float xv = in ? load_f32(xq + c) : 0.0f;
-        acc = __fsub_rn(acc, fabsf(__fsub_rn(xv, load_f32(wq + c * cy))));
-      }
-    }
-  }
-  if (relu && acc < 0.0f) acc = 0.0f;
-  store_f32(y + idx, acc);
-}
-
 extern "C" int repro_add_conv2d_q8(const void* x, const void* w,
                                    const void* bias, void* y, int n, int h,
                                    int wd, int cx, int cy, int hk, int xp,
@@ -159,26 +134,20 @@ extern "C" int repro_add_conv2d_w4(const void* x, const void* w,
   return (int)cudaGetLastError();
 }
 
-// dtype: 0 float32, 1 bfloat16 (x, w and y alike).
+// dtype: 0 float32, 1 bfloat16 (x, w and y alike); bp and q: the tile.
 extern "C" int repro_add_conv2d_f(const void* x, const void* w, void* y,
                                   int n, int h, int wd, int cx, int cy, int hk,
-                                  int relu, int dtype, int threads,
+                                  int relu, int dtype, int bp, int q,
                                   void* stream) {
-  const int total = n * h * wd * cy;
-  if (total == 0) return (int)cudaSuccess;
-  if (!valid_threads(threads)) return (int)cudaErrorInvalidValue;
-  const int blocks = (total + threads - 1) / threads;
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) {
-    add_conv2d_f_kernel<float><<<blocks, threads, 0, st>>>(
-        (const float*)x, (const float*)w, (float*)y, n, h, wd, cx, cy, hk,
-        relu);
-  } else if (dtype == 1) {
-    add_conv2d_f_kernel<__nv_bfloat16><<<blocks, threads, 0, st>>>(
-        (const __nv_bfloat16*)x, (const __nv_bfloat16*)w, (__nv_bfloat16*)y,
-        n, h, wd, cx, cy, hk, relu);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return fgemm_run<NegL1>(x, w, nullptr, y, n, h, wd, cx, cy, hk, 1, relu,
+                          dtype, bp, q, TapOffsets{}, stream);
+}
+
+// The float mode's launch arithmetic: plan[0..4] = grid x, grid y,
+// threads, shared bytes, window bytes. Returns non-zero if the tile is not
+// one of the knobs' values or does not fit (plan still filled).
+extern "C" int repro_add_conv2d_f_plan(int* plan, int n, int h, int wd,
+                                       int cx, int cy, int hk, int bp,
+                                       int q) {
+  return fgemm_plan_out(plan, n, h, wd, cx, cy, hk, 1, bp, q);
 }

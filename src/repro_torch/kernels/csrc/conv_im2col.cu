@@ -34,42 +34,41 @@
 // never read.
 //
 // Float mode (repro_conv2d_f): x, w and the optional bias in float32 or
-// bfloat16 (one dtype for all three), a float32 accumulator from zero summed
-// tap row i, tap column j, then input channel c, each product and sum
-// rounded on its own (__fmul_rn / __fadd_rn, float_io.cuh), then the bias in
-// float32, relu, and one rounding to x's dtype: the Pallas body's order of
-// epilogue steps (sum, + bias, relu, cast). A tap outside the image is
-// skipped; the plain version adds the zero-padded product instead, which is
-// the same float32 value for finite weights (the accumulator starts at +0
-// and never becomes -0, so adding +-0 leaves it unchanged).
+// bfloat16 (one dtype for all three), on the float implicit GEMM shared
+// with the float add conv (fgemm.cuh), whose term here is a multiply and an
+// add: a float32 accumulator from +0 summed tap row i, tap column j, then
+// input channel c of the group, each product and sum rounded on its own
+// (__fmul_rn / __fadd_rn, float_io.cuh), then the bias in float32, relu,
+// and one rounding to x's dtype: the Pallas body's order of epilogue steps
+// (sum, + bias, relu, cast). A block stages its run of pixels' input
+// window once (zeros outside the image: the plain version's zero-padded
+// product, the same float32 value as a skipped tap for finite weights,
+// since the accumulator starts at +0 and never becomes -0) and its
+// weights, and each thread sums PT pixels x Q channels in registers. What
+// bounds it on an H100:
+// operations, at the CUDA cores' float32 rate, since a multiply and an add
+// that may not contract into an FMA are two instructions (Table-2's ci=128
+// job is 7.4 M of them), and at Table-2's n = 1 jobs the few outputs (a
+// chain of up to 1,152 dependent adds each) leave latency in the way, so
+// those tiles' blocks are small and their weights resident: the sums run
+// with no barrier and no load from device memory.
 //
-// The float entry point takes the block size (`threads`, a whole number of
-// warps up to 1024, the tuner's knob); every knob changes only the launch
-// shape, never the value of an output.
+// Every mode takes the tile (bp: pixels a block, a multiple of 32 up to
+// 256; q: channels a thread, 4, 8 or 16), the tuner's knobs; they change
+// only the launch shape, never the value of an output. The plan entry
+// points (repro_conv2d_i8_plan, repro_conv2d_f_plan) export the launch
+// arithmetic.
 //
 // Index arithmetic is 32-bit (the wrapper keeps every tensor below 2^31
 // elements): 64-bit division and modulo are emulated on the GPU.
-//
-// The float mode runs one thread per output element (n, y, x, co), co
-// fastest: a warp reads one pixel's Cx/g inputs as a broadcast and
-// consecutive filters' weights as one coalesced row.
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "fgemm.cuh"
 #include "float_io.cuh"
 #include "igemm.cuh"
 
 namespace {
-
-// A conv's K element k = (tap row i, tap column j, channel c of the group)
-// lies at window offset (i * wwb + j) * ps + c from its pixel's base.
-struct TapOffsets {
-  __device__ int operator()(const IgemmGeo& g, int k, int wwb) const {
-    const int tap = k / g.cxg, c = k - tap * g.cxg;
-    const int i = tap / g.hk, j = tap - i * g.hk;
-    return (i * wwb + j) * g.ps + c;
-  }
-};
 
 template <bool W4>
 int launch_int(const void* x, const void* w, const void* ws,
@@ -88,41 +87,6 @@ int launch_int(const void* x, const void* w, const void* ws,
 }
 
 }  // namespace
-
-template <typename T>
-__global__ void __launch_bounds__(1024) conv2d_f_kernel(
-    const T* __restrict__ x, const T* __restrict__ w,
-    const T* __restrict__ bias, T* __restrict__ y, int n, int h, int wd,
-    int cx, int cy, int hk, int groups, int relu) {
-  const int total = n * h * wd * cy;
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int co = idx % cy;
-  int t = idx / cy;
-  const int ox = t % wd;
-  t /= wd;
-  const int oy = t % h;
-  const int b = t / h;
-  const int cxg = cx / groups;
-  const int g = co / (cy / groups);
-  const int pad = hk / 2;
-  float acc = 0.0f;
-  for (int i = 0; i < hk; ++i) {
-    const int iy = oy + i - pad;
-    if (iy < 0 || iy >= h) continue;
-    for (int j = 0; j < hk; ++j) {
-      const int ix = ox + j - pad;
-      if (ix < 0 || ix >= wd) continue;
-      const T* xp = x + ((b * h + iy) * wd + ix) * cx + g * cxg;
-      const T* wp = w + (i * hk + j) * cxg * cy + co;
-      for (int c = 0; c < cxg; ++c)
-        acc = __fadd_rn(acc, __fmul_rn(load_f32(xp + c), load_f32(wp + c * cy)));
-    }
-  }
-  if (bias != nullptr) acc = __fadd_rn(acc, load_f32(bias + co));
-  if (relu && acc < 0.0f) acc = 0.0f;
-  store_f32(y + idx, acc);
-}
 
 // bp (pixels a block) and q (channels a thread) are the tuner's knobs; they
 // change only the launch shape.
@@ -156,27 +120,21 @@ extern "C" int repro_conv2d_i8_plan(int* plan, int n, int h, int wd, int cx,
   return fits ? (int)cudaSuccess : (int)cudaErrorInvalidValue;
 }
 
-// dtype: 0 float32, 1 bfloat16 (x, w, bias and y alike).
+// dtype: 0 float32, 1 bfloat16 (x, w, bias and y alike); bp and q: the
+// tile.
 extern "C" int repro_conv2d_f(const void* x, const void* w, const void* bias,
                               void* y, int n, int h, int wd, int cx, int cy,
-                              int hk, int groups, int relu, int dtype,
-                              int threads, void* stream) {
-  const int total = n * h * wd * cy;
-  if (total == 0) return (int)cudaSuccess;
-  if (!valid_threads(threads)) return (int)cudaErrorInvalidValue;
-  const int blocks = (total + threads - 1) / threads;
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) {
-    conv2d_f_kernel<float><<<blocks, threads, 0, st>>>(
-        (const float*)x, (const float*)w, (const float*)bias, (float*)y, n, h,
-        wd, cx, cy, hk, groups, relu);
-  } else if (dtype == 1) {
-    conv2d_f_kernel<__nv_bfloat16><<<blocks, threads, 0, st>>>(
-        (const __nv_bfloat16*)x, (const __nv_bfloat16*)w,
-        (const __nv_bfloat16*)bias, (__nv_bfloat16*)y, n, h, wd, cx, cy, hk,
-        groups, relu);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+                              int hk, int groups, int relu, int dtype, int bp,
+                              int q, void* stream) {
+  return fgemm_run<MulAdd>(x, w, bias, y, n, h, wd, cx, cy, hk, groups, relu,
+                           dtype, bp, q, TapOffsets{}, stream);
+}
+
+// The float mode's launch arithmetic: plan[0..4] = grid x, grid y,
+// threads, shared bytes, window bytes. Returns non-zero if the tile is not
+// one of the knobs' values or does not fit (plan still filled).
+extern "C" int repro_conv2d_f_plan(int* plan, int n, int h, int wd, int cx,
+                                   int cy, int hk, int groups, int bp,
+                                   int q) {
+  return fgemm_plan_out(plan, n, h, wd, cx, cy, hk, groups, bp, q);
 }

@@ -135,20 +135,6 @@ bool shift_f_plan(ShiftFGeo& g, int* gx, int* gy, int* threads, int n,
   return g.smem <= 232448 && *gy <= 65535;
 }
 
-// Element tid + k * nthr of a row-major [rows][cols] array, walked without
-// divisions: (r, c) advances by (nthr / cols, nthr % cols) a step.
-struct Walk {
-  int r, c, dr, dc, cols;
-  __device__ Walk(int tid, int nthr, int cols_) : cols(cols_) {
-    r = tid / cols, c = tid - r * cols;
-    dr = nthr / cols, dc = nthr - dr * cols;
-  }
-  __device__ void next() {
-    r += dr, c += dc;
-    if (c >= cols) c -= cols, ++r;
-  }
-};
-
 // A block: BP consecutive output pixels (of all images) x BN output
 // channels; thread (tp, tq) owns pixel tp x channels tq*Q .. tq*Q+Q-1.
 // With one warp a scheduler at Table-2's small job, instructions and

@@ -41,6 +41,7 @@
 #include <cuda_runtime.h>
 
 #include "epilogue.cuh"
+#include "tile.cuh"
 #include "w4.cuh"
 
 namespace {
@@ -65,16 +66,6 @@ struct IgemmGeo {
   int y_vec;                       // Q output bytes as one store
   int shift, relu;
 };
-
-int round16(int v) { return (v + 15) & ~15; }
-int imin(int a, int b) { return a < b ? a : b; }
-
-// A tile the kernels take: bp (pixels a block) a multiple of 32 up to 256
-// (the tuner tries 32, 64, 128 and 256); q (channels a thread) 4, 8 or 16.
-bool valid_tile(int bp, int q) {
-  return bp >= 32 && bp <= 256 && bp % 32 == 0 &&
-         (q == 4 || q == 8 || q == 16);
-}
 
 // The launch arithmetic (repro_torch.kernels.conv_im2col.igemm_plan
 // mirrors it) of a window of HK x HK taps and a contraction of kk K

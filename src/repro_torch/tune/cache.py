@@ -31,8 +31,9 @@ from repro_torch.obs import metrics as _obs_metrics
 #: v1: threads / bm / splits spaces of the port's CUDA kernels; v2: the
 #: integer conv2d's tile (bp, q) in place of threads, the float matmul's
 #: tile (bm, bn, tm, tn) in place of bm; v3: shift_conv2d's tile (bp, q) in
-#: place of threads, in every mode
-SCHEMA_VERSION = 3
+#: place of threads, in every mode; v4: the float conv2d's and the float
+#: add_conv2d's tile (bp, q) in place of threads
+SCHEMA_VERSION = 4
 #: the environment variable naming the default cache file
 ENV_VAR = "REPRO_TORCH_TUNE_CACHE"
 

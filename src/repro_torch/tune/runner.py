@@ -12,9 +12,10 @@ Two ways to pick a schedule, as in the JAX package:
 * :func:`analytic_config` measures nothing: the lowest price under
   :func:`estimate_s`, a first-order H100 model (the larger of the bytes and
   the operations term, times a tail-wave factor, plus the launch overhead;
-  for the two tiled kernels, the integer conv2d and the float matmul, the
-  operations term is the instructions their tiles issue, over the SMs'
-  issue rate, slowed where too few warps are resident to hide latency).
+  for the tiled kernels, conv2d, shift_conv2d, the float add_conv2d and
+  the float matmul, the operations term is the instructions their tiles
+  issue, over the SMs' issue rate, slowed where too few warps are
+  resident to hide latency).
 
 :func:`get_config` is the dispatch layer's lookup: memo, then the loaded
 cache, then the analytic model. Every knob changes only a launch shape, so
@@ -178,14 +179,31 @@ def _issue_s(blocks: int, threads: int, smem: int,
 
 
 def _tiled_s(sig: ShapeSig, eff: Dict[str, int], dtype) -> float:
-    """The operations term of the implicit GEMM (the integer conv2d and
-    shift_conv2d), of the float shift conv's and of the float matmul's
-    register tiles, from the instructions they issue."""
+    """The operations term of the implicit GEMMs (conv2d and shift_conv2d
+    in the integer modes; conv2d and add_conv2d in the float modes), of the
+    float shift conv's and of the float matmul's register tiles, from the
+    instructions they issue."""
     if _space.tiled(sig.kernel, dtype):
         q, bp = eff["q"], eff["bp"]
         plan = _space.tile_plan(sig, bp, q, dtype)
         t, bn = plan["threads"], plan["block_channels"]
         gx, gy = plan["grid"]
+        if not integer(dtype) and sig.kernel != "shift_conv2d":
+            # the float implicit GEMM (conv2d, add_conv2d): pt x q a
+            # thread, per K element two float instructions an output, pt
+            # window loads, q/4 weight loads and an offset; the window and
+            # the weights staged once a block. A warp's K step also takes
+            # pt + q cycles of the SM's shared-memory bandwidth (a
+            # broadcast float4 delivers 512 bytes)
+            pt = plan["pixels"]
+            grp = dict(sig.dims).get("g", 1)
+            kk = sig.get("k") ** 2 * (sig.get("ci") // grp)
+            per_thread = (kk * (2 * pt * q + pt + q // 4 + 1)
+                          + STAGE_INSTR * (plan["window"] / 4 + kk * bn) / t)
+            lsu_s = (gx * gy * _space.cdiv(t, 32) * kk * (pt + q)
+                     / (SMS * CLOCK_HZ))
+            return max(lsu_s, _issue_s(gx * gy, t, plan["smem"],
+                                       per_thread))
         if not integer(dtype):           # the float shift conv: 1 x q a thread
             c = sig.get("c")
             per_thread = (c * (2 * q + 1 + q // 4)

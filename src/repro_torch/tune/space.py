@@ -4,17 +4,19 @@
 The knobs are what the port's CUDA kernels expose, not the Pallas block
 names, which mean nothing to them:
 
-* the one-thread-per-output kernels (``depthwise2d``, ``add_conv2d``,
-  ``maxpool2d``, every mode, and ``conv2d``'s float mode): the block size
+* the one-thread-per-output kernels (``depthwise2d`` and ``maxpool2d``,
+  every mode, and ``add_conv2d``'s integer modes): the block size
   ``threads``, one of 64, 128, 256, 512 or 1024 (default 256, their launch
   before the tuner existed);
-* ``conv2d``'s integer modes (int8, W4A8), an implicit GEMM, and
-  ``shift_conv2d`` in every mode (the integer modes on the same implicit
-  GEMM, the float mode a register-tiled kernel): the block's run of output
-  pixels ``bp`` (32, 64, 128 or 256) and a thread's output channels ``q``
-  (4, 8 or 16); the default is the wrapper's
-  (``kernels.conv_im2col.default_tile``,
-  ``kernels.conv_shift.default_shift_tile``), which depends on the shape;
+* ``conv2d`` in every mode (the integer modes an implicit GEMM, the float
+  mode a float implicit GEMM), ``shift_conv2d`` in every mode (the integer
+  modes on the integer conv's implicit GEMM, the float mode a
+  register-tiled kernel) and ``add_conv2d``'s float mode (on the float
+  conv's implicit GEMM): the block's run of output pixels ``bp`` (32, 64,
+  128 or 256) and a thread's output channels ``q`` (4, 8 or 16); the
+  default is the wrapper's (``kernels.conv_im2col.default_tile`` /
+  ``default_f_tile``, ``kernels.conv_shift.default_shift_tile``), which
+  depends on the shape;
 * ``matmul``: in the integer modes the tile height ``bm`` (16 or 64;
   default 16 for M <= 32, else 64) and the number of K ``splits`` (1, the
   wrapper's own choice, twice and four times it, capped at the 32-deep K
@@ -30,8 +32,8 @@ shape, and the integer split sums are exact. So every candidate gives
 output bitwise equal to the default's, which is what makes the tuner safe
 to leave on. :func:`launch_errors` holds each config to the H100's limits:
 the grid, threads per block and, for the kernels that stage tiles in
-shared memory (the integer ``conv2d``, ``shift_conv2d``, the float
-``matmul``), the Hopper footprint: their tiles are dynamic shared memory,
+shared memory (``conv2d``, ``shift_conv2d``, the float ``add_conv2d``, the
+float ``matmul``), the Hopper footprint: their tiles are dynamic shared memory,
 at most 232,448 bytes a block (past 48 KB the sources raise the kernel's
 limit with ``cudaFuncSetAttribute``).
 
@@ -50,8 +52,10 @@ from typing import Dict, Iterator, List, Tuple
 from repro_torch.kernels.common import DEFAULT_THREADS, cdiv
 from repro_torch.kernels.conv1d_causal import DEFAULT_THREADS as C1D_DEFAULT
 from repro_torch.kernels.conv1d_causal import THREADS as C1D_THREADS
+from repro_torch.kernels.conv_add import add_f_plan
 from repro_torch.kernels.conv_im2col import (CONV_BP, CONV_MAX_THREADS,
-                                             CONV_Q, conv_plan, default_tile,
+                                             CONV_Q, conv_f_plan, conv_plan,
+                                             default_f_tile, default_tile,
                                              knob_errors, tile_errors)
 from repro_torch.kernels.conv_shift import (default_shift_tile, shift_f_plan,
                                             shift_plan)
@@ -63,10 +67,12 @@ from repro_torch.kernels.matmul_q8 import (BLOCK_K, MMF_KNOBS, MMF_TILES,
 KERNELS = ("conv2d", "depthwise2d", "shift_conv2d", "add_conv2d",
            "causal_conv1d", "matmul", "maxpool2d")
 
-#: the one-thread-per-output kernels and their block sizes, default first
-THREADED = ("conv2d", "depthwise2d", "add_conv2d", "maxpool2d")
+#: the one-thread-per-output kernels (add_conv2d in its integer modes
+#: only) and their block sizes, default first
+THREADED = ("depthwise2d", "add_conv2d", "maxpool2d")
 #: the kernels whose knobs are an implicit GEMM's tile (bp, q)
-TILED = ("conv2d", "shift_conv2d")
+#: (add_conv2d in its float mode only)
+TILED = ("conv2d", "shift_conv2d", "add_conv2d")
 THREADS = (DEFAULT_THREADS, 64, 128, 512, 1024)
 #: matmul tile heights
 MM_BM = (16, 64)
@@ -172,14 +178,16 @@ def outputs(sig: ShapeSig) -> int:
 
 def threaded(kernel: str, dtype) -> bool:
     """Whether ``kernel`` in ``dtype`` is a one-thread-per-output kernel
-    (its knob is ``threads``): every THREADED kernel but the integer
-    ``conv2d``."""
-    return kernel in THREADED and not (kernel == "conv2d" and integer(dtype))
+    (its knob is ``threads``): every THREADED kernel but the float
+    ``add_conv2d``."""
+    return kernel in THREADED and not (kernel == "add_conv2d"
+                                       and not integer(dtype))
 
 
 def tiled(kernel: str, dtype) -> bool:
     """Whether ``kernel`` in ``dtype`` takes an implicit GEMM's tile (bp,
-    q): the integer ``conv2d`` and every mode of ``shift_conv2d``."""
+    q): every mode of ``conv2d`` and ``shift_conv2d``, and the float
+    ``add_conv2d``."""
     return kernel in TILED and not threaded(kernel, dtype)
 
 
@@ -207,10 +215,19 @@ def shift_shape(sig: ShapeSig) -> tuple:
     return (g("n"), g("h"), g("w"), g("c"), g("co"), d)
 
 
+def add_shape(sig: ShapeSig) -> tuple:
+    """An add_conv2d signature as the kernels' (n, h, w, cx, cy, hk)."""
+    g = sig.get
+    return (g("n"), g("h"), g("w"), g("ci"), g("co"), g("k"))
+
+
 def tile_plan(sig: ShapeSig, bp: int, q: int, dtype) -> dict:
     """The launch arithmetic of a TILED kernel's (bp, q) on this shape."""
     if sig.kernel == "conv2d":
-        return conv_plan(*conv_shape(sig), bp, q)
+        plan = conv_plan if integer(dtype) else conv_f_plan
+        return plan(*conv_shape(sig), bp, q)
+    if sig.kernel == "add_conv2d":
+        return add_f_plan(*add_shape(sig), bp, q)
     n, h, w, c, cy, d = shift_shape(sig)
     if integer(dtype):
         return shift_plan(n, h, w, c, cy, d, bp, q)
@@ -220,18 +237,21 @@ def tile_plan(sig: ShapeSig, bp: int, q: int, dtype) -> dict:
 def default_config(kernel: str, sig: ShapeSig = None,
                    dtype="float32") -> Dict[str, int]:
     """Today's launch: what each wrapper does when given no config. The
-    matmul's and the integer conv2d's depend on the shape (``sig``)."""
+    tiled kernels' and the matmul's depend on the shape (``sig``)."""
     if threaded(kernel, dtype):
         return {"threads": DEFAULT_THREADS}
     if kernel == "causal_conv1d":
         return {"threads": C1D_DEFAULT}
-    if kernel not in ("matmul", "conv2d", "shift_conv2d"):
+    if kernel not in ("matmul", "conv2d", "shift_conv2d", "add_conv2d"):
         raise ValueError(f"unknown kernel {kernel!r}")
     if sig is None:
         raise ValueError(f"{kernel}'s default config depends on its shape: "
                          "pass sig")
     if kernel == "conv2d":
-        return default_tile(*conv_shape(sig))
+        tile = default_tile if integer(dtype) else default_f_tile
+        return tile(*conv_shape(sig))
+    if kernel == "add_conv2d":
+        return default_f_tile(*add_shape(sig), 1)
     if kernel == "shift_conv2d":
         return default_shift_tile(*shift_shape(sig), integer=integer(dtype))
     m, k, n = sig.get("m"), sig.get("k"), sig.get("n")
@@ -258,7 +278,8 @@ def effective_config(sig: ShapeSig, cfg: Dict[str, int],
 def launch_errors(sig: ShapeSig, cfg: Dict[str, int], dtype) -> List[str]:
     """Why an (effective) config cannot launch on this shape on an H100:
     the block size, the grid limits and, for the kernels that stage tiles
-    (the integer conv2d, shift_conv2d, the float matmul), the Hopper
+    (conv2d, shift_conv2d, the float add_conv2d, the float matmul), the
+    Hopper
     footprint: shared bytes per block (static at most 48 KB, dynamic at
     most 232,448) and threads per block. Empty if it can."""
     k = sig.kernel
@@ -333,7 +354,7 @@ def candidates(sig: ShapeSig, dtype="float32") -> Iterator[Dict[str, int]]:
     elif k == "causal_conv1d":
         for t in C1D_THREADS:
             emit({"threads": t})
-    elif tiled(k, dtype):                # integer conv2d, shift_conv2d
+    elif tiled(k, dtype):       # conv2d, shift_conv2d, the float add_conv2d
         for bp in CONV_BP:
             for q in CONV_Q:
                 emit({"bp": bp, "q": q})

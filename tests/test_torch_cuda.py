@@ -897,3 +897,104 @@ def test_shift_launch_arithmetic_equals_the_source(dev):
             p = cs.shift_f_plan(*s[:5], bp, q)
             assert list(c) == [*p["grid"], p["threads"], p["smem"]]
             assert (rc == 0) == (not ci.tile_errors(p))
+
+
+# ------------------------- the float conv's and float add conv's tiles --
+
+def _offset(t, off):
+    """A contiguous copy of ``t`` whose data starts ``off`` elements into a
+    larger buffer: an operand at an unaligned address."""
+    if not off:
+        return t
+    buf = torch.zeros(t.numel() + off, dtype=t.dtype, device=t.device)
+    v = buf[off:].view(t.shape)
+    v.copy_(t)
+    return v
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,off", [
+    ((4, 12, 10, 16, 24, 3, 2), 0), ((4, 12, 10, 16, 24, 3, 2), 1),
+    ((1, 10, 10, 130, 20, 3, 2), 3), ((2, 6, 7, 4, 8, 2, 1), 0),
+    ((1, 12, 11, 8, 12, 7, 2), 0), ((2, 8, 8, 5, 7, 1, 1), 0),
+    ((1, 10, 10, 128, 64, 3, 4), 0), ((1, 6, 5, 512, 20, 5, 1), 1)],
+    ids=str)
+def test_float_conv_tiles_equal_plain(dev, dtype, shape, off):
+    """Every tile of the float conv (bp 32 to 256 and 96, q 4, 8, 16) at
+    the candidate check's shape (Cy/g = 12, off every q but 4), with x at
+    an unaligned address, ci = 130 with g = 2, even HK, HK = 7, HK = 1,
+    Table-2's g = 4 job and K = 12,800 (weights staged chunk by chunk, not
+    resident), bias and relu on and off: bitwise the plain version."""
+    from repro_torch.kernels import conv2d_f, conv2d_f_plain
+    n, h, w, cx, cy, hk, g = shape
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(51)
+    x = _offset(_f(rng, (n, h, w, cx), dt, dev), off)
+    wt = _f(rng, (hk, hk, cx // g, cy), dt, dev)
+    b = _f(rng, (cy,), dt, dev)
+    for bias, act in ((b, "relu"), (None, None)):
+        want = _bits(conv2d_f_plain(x, wt, bias, groups=g, act=act))
+        for bp, q in SHIFT_TILES:
+            got = conv2d_f(x, wt, bias, groups=g, act=act, bp=bp, q=q)
+            torch.cuda.synchronize()
+            assert torch.equal(_bits(got), want), (bp, q, act)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,off", [
+    ((4, 12, 10, 16, 24, 3), 0), ((4, 12, 10, 16, 24, 3), 1),
+    ((2, 9, 11, 19, 20, 5), 3), ((1, 10, 10, 16, 16, 3), 0),
+    ((2, 8, 8, 19, 8, 1), 0), ((2, 6, 7, 4, 8, 2), 0),
+    ((1, 6, 5, 513, 20, 5), 0)], ids=str)
+def test_float_add_tiles_equal_plain(dev, dtype, shape, off):
+    """Every tile of the float add conv at the candidate check's shape (Cy
+    = 24, off q = 16), with x at an unaligned address, HK = 5 with Cx = 19
+    and Cy = 20, Table-2's job, HK = 1, even HK and K = 12,825 (chunked
+    weights, Cx off a multiple of 4), relu on and off: bitwise the plain
+    version (a tap outside the image adds |0 - w|)."""
+    from repro_torch.kernels import add_conv2d_f, add_conv2d_f_plain
+    n, h, w, cx, cy, hk = shape
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(52)
+    x = _offset(_f(rng, (n, h, w, cx), dt, dev), off)
+    wt = _f(rng, (hk, hk, cx, cy), dt, dev)
+    for act in ("relu", None):
+        want = _bits(add_conv2d_f_plain(x, wt, act=act))
+        for bp, q in SHIFT_TILES:
+            got = add_conv2d_f(x, wt, act=act, bp=bp, q=q)
+            torch.cuda.synchronize()
+            assert torch.equal(_bits(got), want), (bp, q, act)
+
+
+def test_float_gemm_launch_arithmetic_equals_the_sources(dev):
+    """conv_f_plan and add_f_plan, which the tuner's footprint check
+    reads, equal the arithmetic the CUDA sources launch with, at Table-2's
+    float jobs, the B=256 layers, edges and a window too large for some
+    tiles."""
+    import ctypes
+    import importlib
+    from repro_torch.kernels import _build
+    ci = importlib.import_module("repro_torch.kernels.conv_im2col")
+    ca = importlib.import_module("repro_torch.kernels.conv_add")
+    lib = _build.library()
+    for s in [(1, 10, 10, 128, 64, 3, 1), (1, 10, 10, 128, 64, 3, 4),
+              (1, 32, 32, 16, 16, 7, 1), (1, 8, 8, 16, 16, 3, 1),
+              (256, 32, 32, 3, 16, 3, 1), (256, 16, 16, 16, 32, 3, 1),
+              (256, 8, 8, 32, 64, 3, 1), (256, 16, 16, 16, 32, 1, 1),
+              (2, 15, 13, 5, 8, 3, 1), (1, 10, 10, 130, 20, 3, 2),
+              (1, 12, 11, 8, 12, 7, 2), (1, 64, 64, 512, 64, 3, 1)]:
+        for bp, q in SHIFT_TILES:
+            c = (ctypes.c_int * 5)()
+            rc = lib.repro_conv2d_f_plan(c, *s, bp, q)
+            p = ci.conv_f_plan(*s, bp, q)
+            assert list(c) == [*p["grid"], p["threads"], p["smem"],
+                               p["window"]]
+            assert (rc == 0) == (not ci.tile_errors(p))
+            if s[6] != 1:
+                continue
+            c = (ctypes.c_int * 5)()
+            rc = lib.repro_add_conv2d_f_plan(c, *s[:6], bp, q)
+            p = ca.add_f_plan(*s[:6], bp, q)
+            assert list(c) == [*p["grid"], p["threads"], p["smem"],
+                               p["window"]]
+            assert (rc == 0) == (not ci.tile_errors(p))

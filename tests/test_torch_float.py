@@ -269,8 +269,8 @@ def test_ops_float_cuda_runs_the_plain_version_torch_the_oracle(op):
 
 def test_float_wrappers_check_their_operands():
     x = torch.zeros((1, 4, 4, 4))
-    with pytest.raises(ValueError, match="threads"):
-        kernels.conv2d_f(x, torch.zeros((3, 3, 4, 4)), threads=100)
+    with pytest.raises(ValueError, match="bp must be"):
+        kernels.conv2d_f(x, torch.zeros((3, 3, 4, 4)), bp=100)
     with pytest.raises(ValueError, match="does not fit"):
         kernels.add_conv2d_f(x, torch.zeros((3, 3, 3, 4)))
     with pytest.raises(ValueError, match="bm"):      # no such tile

@@ -1,10 +1,13 @@
-"""The launch arithmetic around the port's two tiled kernels, on the CPU:
-the integer conv's implicit-GEMM tiles (``kernels.conv_im2col.conv_plan``)
-and the float matmul's register tiles (``kernels.matmul_q8.mmf_plan``),
-their default tiles, the wrappers' checks of the tile knobs, and the
-tuner's Hopper footprint check (``tune.launch_errors``). The CUDA sources
-compute the same arithmetic themselves; ``chip_smoke.py`` and
-``tests/test_torch_cuda.py`` hold the two equal on the card."""
+"""The launch arithmetic around the port's tiled kernels, on the CPU: the
+integer conv's implicit-GEMM tiles (``kernels.conv_im2col.conv_plan``),
+the float conv's and float add conv's (``conv_f_plan``,
+``conv_add.add_f_plan``), the shift conv's (``conv_shift.shift_plan``,
+``shift_f_plan``) and the float matmul's register tiles
+(``kernels.matmul_q8.mmf_plan``), their default tiles, the wrappers'
+checks of the tile knobs, and the tuner's Hopper footprint check
+(``tune.launch_errors``). The CUDA sources compute the same arithmetic
+themselves; ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold the
+two equal on the card."""
 import importlib
 
 import numpy as np
@@ -397,3 +400,253 @@ def test_shift_sig_keys_its_window_bound():
         S.shift_plan(8, 32, 32, 64, 64, 2, 64, 8)
     assert tune.space.tile_plan(d2, 64, 8, "float32") == \
         S.shift_f_plan(8, 32, 32, 64, 64, 64, 8)
+
+
+# ------------------------------------ the float conv and float add conv --
+
+A = importlib.import_module("repro_torch.kernels.conv_add")
+
+# (n, h, w, cx, cy, hk, groups), bp, q -> (grid, threads, window, smem,
+# block channels, K chunk), counted by hand from the float implicit GEMM's
+# layout: a block of bp pixels x (at most 128 / bp below bp = 128, else 1)
+# groups of q channels; the window (rows spanned + HK-1 padding rows for
+# each image boundary crossed + HK-1) x (columns + HK-1) x (Cx/g | 1)
+# floats, rounded to 4 floats; then a chunk's weights (min(128, 8 bp / q)
+# K elements x the block's channels), its K offsets, the pixel bases and
+# the window rows' input offsets, 4 bytes each
+F_PLANS = [
+    # Table-2 ci=128, g=1 at 10^2, n=1: 32 pixels span at most 5 rows of
+    # 10, no image boundary; 4 x 4 blocks of 128 threads, one pixel each;
+    # all 1,152 K elements' weights (16 channels) and offsets resident
+    ((1, 10, 10, 128, 64, 3, 1), 32, 4,
+     ((4, 4), 128, 4 * 7 * 12 * 129, 4 * (7 * 12 * 129 + 1152 * 16 + 1152
+                                          + 32 + 7), 16, 1152, 1)),
+    # the same with 16 channels a thread: 64 channels a block, and 1,152 x
+    # 64 weights do not fit, so chunks of 8 x 32 / 16 = 16 K elements
+    ((1, 10, 10, 128, 64, 3, 1), 32, 16,
+     ((4, 1), 128, 4 * 7 * 12 * 129, 4 * (7 * 12 * 129 + 16 * 64 + 16 + 32
+                                          + 7), 64, 16, 1)),
+    # the same, grouped g=4: 32 channels a group, 16 outputs, one block
+    # of 16 channels a group
+    ((1, 10, 10, 128, 64, 3, 4), 32, 4,
+     ((4, 4), 128, 4 * 7 * 12 * 33, 4 * (7 * 12 * 33 + 288 * 16 + 288 + 32
+                                         + 7), 16, 288, 1)),
+    # standard conv1 at B=256, 256 pixels (2 a thread, 16 channels): 16
+    # whole rows of 16 that may cross one image boundary (2 padding rows)
+    ((256, 16, 16, 16, 32, 3, 1), 256, 16,
+     ((256, 2), 128, 4 * 20 * 18 * 17, 4 * (20 * 18 * 17 + 144 * 16 + 144
+                                            + 256 + 20), 16, 144, 2)),
+    # conv0 / add0 at B=256: 8 rows of 32, 3 channels (ps 3), K = 27
+    ((256, 32, 32, 3, 16, 3, 1), 256, 16,
+     ((1024, 1), 128, 4 * 12 * 34 * 3, 4 * (12 * 34 * 3 + 27 * 16 + 27
+                                            + 256 + 12), 16, 27, 2)),
+    # conv2 at B=256, 128 pixels (4 a thread, 8 channels): 16 rows of 8, up
+    # to 2 image boundaries; 4 channel groups (32 channels) a block
+    ((256, 8, 8, 32, 64, 3, 1), 128, 8,
+     ((128, 2), 128, 4 * 22 * 10 * 33, 4 * (22 * 10 * 33 + 288 * 32 + 288
+                                            + 128 + 22), 32, 288, 4)),
+    # pointwise: one row of 65,536 pixels, no halo
+    ((256, 16, 16, 16, 32, 1, 1), 128, 8,
+     ((512, 1), 128, 4 * 128 * 17, 4 * (128 * 17 + 16 * 32 + 16 + 128 + 1),
+      32, 16, 4)),
+    # odd everything: runs of 64 (2 a thread) span at most 6 rows of 13
+    # and one image boundary; 750 floats rounded to 752
+    ((2, 15, 13, 5, 8, 3, 1), 64, 8,
+     ((7, 1), 32, 4 * 752, 4 * (752 + 45 * 8 + 45 + 64 + 10), 8, 45, 2)),
+]
+
+
+@pytest.mark.parametrize("shape,bp,q,want", F_PLANS, ids=str)
+def test_conv_f_plan_counts(shape, bp, q, want):
+    grid, threads, window, smem, bn, kc, pt = want
+    assert C.conv_f_plan(*shape, bp, q) == dict(
+        grid=grid, threads=threads, smem=smem, window=window,
+        block_channels=bn, k_chunk=kc, pixels=pt)
+
+
+@pytest.mark.parametrize("shape,bp,q,want", [
+    # Table-2's add job, 1x10x10, 16->16, k=3: all 144 K resident
+    ((1, 10, 10, 16, 16, 3), 32, 4,
+     ((4, 1), 128, 4 * 7 * 12 * 17, 4 * (7 * 12 * 17 + 144 * 16 + 144 + 32
+                                         + 7), 16, 144, 1)),
+    # add1 at B=256 (the standard conv1's geometry)
+    ((256, 16, 16, 16, 32, 3), 256, 16,
+     ((256, 2), 128, 4 * 20 * 18 * 17, 4 * (20 * 18 * 17 + 144 * 16 + 144
+                                            + 256 + 20), 16, 144, 2)),
+    # add2 at B=256, 64-pixel blocks (2 a thread): one 8x8 image, but the
+    # plan allows for one boundary; 4 groups of 16 channels, 128 threads
+    ((256, 8, 8, 32, 64, 3), 64, 16,
+     ((256, 1), 128, 4 * 12 * 10 * 33, 4 * (12 * 10 * 33 + 288 * 64 + 288
+                                           + 64 + 12), 64, 288, 2)),
+], ids=str)
+def test_add_f_plan_counts(shape, bp, q, want):
+    grid, threads, window, smem, bn, kc, pt = want
+    assert A.add_f_plan(*shape, bp, q) == dict(
+        grid=grid, threads=threads, smem=smem, window=window,
+        block_channels=bn, k_chunk=kc, pixels=pt)
+    assert A.add_f_plan(*shape, bp, q) == C.conv_f_plan(*shape, 1, bp, q)
+
+
+def _f_blocks(n, h, w, hk, bp):
+    """Each block of the float implicit GEMM as the kernel computes it
+    from blockIdx: (window rows, window columns, the first window row's
+    padded row, the first window column's input column, [(image, row,
+    column, window row, window column) of each pixel])."""
+    if hk == 1:
+        n, h, w = 1, 1, n * h * w
+    hw, hp, total = h * w, h + hk - 1, n * h * w
+    for p0 in range(0, total, bp):
+        p1 = min(p0 + bp, total)
+        b0, y0 = p0 // hw, (p0 % hw) // w
+        b1, y1 = (p1 - 1) // hw, ((p1 - 1) % hw) // w
+        one_row = b0 == b1 and y0 == y1
+        cmin = p0 % hw - y0 * w if one_row else 0
+        wwb = p1 - p0 + hk - 1 if one_row else w + hk - 1
+        prow0 = b0 * hp + y0
+        whb = b1 * hp + y1 - prow0 + hk
+        pixels = []
+        for pi in range(p0, p1):
+            b, y, x = pi // hw, (pi % hw) // w, pi % w
+            pixels.append((b, y, x, b * hp + y - prow0, x - cmin))
+        yield whb, wwb, prow0, cmin, pixels
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 10, 10, 128, 64, 3, 4), (2, 15, 13, 5, 8, 3, 1),
+    (3, 5, 40, 8, 20, 3, 1), (1, 12, 11, 8, 12, 7, 2),
+    (2, 6, 7, 4, 8, 2, 1), (4, 3, 4, 6, 10, 5, 1), (5, 8, 8, 32, 64, 3, 1),
+    (2, 8, 8, 5, 7, 1, 1), (3, 2, 33, 3, 16, 4, 1), (2, 33, 70, 4, 4, 6, 1)],
+    ids=str)
+@pytest.mark.parametrize("bp", [32, 64, 96, 128, 256])
+def test_f_plan_window_holds_every_tap(shape, bp):
+    """The window the float plan sizes shared memory for holds every
+    block's window; every tap of every pixel lies inside it, on a padded
+    row of the pixel's own image, at the input row and column the TPU
+    kernels' (HK//2, (HK-1)//2) padding gives (even HK and HK = 7
+    included)."""
+    n, h, w, cx, cy, hk, g = shape
+    p = C.conv_f_plan(*shape, bp, 4)
+    ps = (cx // g) | 1
+    hw_ = (1, 1) if hk == 1 else (h, w)
+    hp, pad = hw_[0] + hk - 1, hk // 2
+    for whb, wwb, prow0, cmin, pixels in _f_blocks(n, h, w, hk, bp):
+        assert whb * wwb * ps * 4 <= p["window"]
+        for b, y, x, wr, wc in pixels:
+            assert 0 <= wr and wr + hk - 1 < whb
+            assert 0 <= wc and wc + hk - 1 < wwb
+            for i in range(hk):
+                pr = prow0 + wr + i
+                assert pr // hp == b                     # its own image
+                assert pr % hp - pad == y + i - pad      # its input row
+            for j in range(hk):
+                assert cmin + wc + j - pad == x + j - pad
+
+
+def test_default_f_tiles():
+    # Table-2's n = 1 jobs: no tile's grid holds 128 blocks, so 32 pixels
+    # x 4 channels, the most blocks and threads (the ci=128 job: 16 blocks
+    # of 128 threads); the B=256 layers: 16 channels a thread and the
+    # largest block of at most 128 pixels whose grid holds 128 blocks
+    for s in ((1, 10, 10, 128, 64, 3, 1), (1, 10, 10, 128, 64, 3, 4),
+              (1, 32, 32, 16, 16, 3, 1), (1, 32, 32, 16, 16, 7, 1),
+              (1, 8, 8, 16, 16, 3, 1), (1, 32, 32, 32, 32, 3, 1)):
+        assert C.default_f_tile(*s) == {"bp": 32, "q": 4}, s
+    assert C.conv_f_plan(1, 10, 10, 128, 64, 3, 1, 32, 4)["grid"] == (4, 4)
+    for s in ((256, 32, 32, 3, 16, 3, 1), (256, 16, 16, 16, 32, 3, 1),
+              (256, 8, 8, 32, 64, 3, 1), (256, 16, 16, 16, 32, 1, 1)):
+        assert C.default_f_tile(*s) == {"bp": 128, "q": 16}, s
+    # narrow groups: 8 channels a thread (128 blocks of 32 pixels), or 4
+    # for 3 channels a group (64-pixel blocks, 64 x 2 of them); a small
+    # job of 16 blocks at best falls back to 32 x 4
+    assert C.default_f_tile(64, 8, 8, 8, 8, 3, 1) == {"bp": 32, "q": 8}
+    assert C.default_f_tile(64, 8, 8, 6, 6, 3, 2) == {"bp": 64, "q": 4}
+    assert C.default_f_tile(8, 8, 8, 8, 8, 3, 1) == {"bp": 32, "q": 4}
+    # the float add conv's: the float conv's at groups=1
+    assert C.default_f_tile(1, 10, 10, 16, 16, 3, 1) == {"bp": 32, "q": 4}
+    assert C.default_f_tile(256, 16, 16, 16, 32, 3, 1) == {"bp": 128,
+                                                           "q": 16}
+
+
+def _f_args(add, cx=6, cy=10, hk=3, g=2):
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal((2, 7, 6, cx))
+                         .astype(np.float32))
+    if add:
+        w = torch.from_numpy(rng.standard_normal((hk, hk, cx, cy))
+                             .astype(np.float32))
+        return A.add_conv2d_f, (x, w), dict(act="relu")
+    w = torch.from_numpy(rng.standard_normal((hk, hk, cx // g, cy))
+                         .astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal(cy).astype(np.float32))
+    return C.conv2d_f, (x, w, b), dict(groups=g, act="relu")
+
+
+@pytest.mark.parametrize("add", [False, True], ids=["conv", "add"])
+@pytest.mark.parametrize("knobs,match", [
+    (dict(bp=48), "bp must be"), (dict(bp=512), "bp must be"),
+    (dict(bp=True), "bp must be"), (dict(q=12), "q must be"),
+    (dict(q=2), "q must be"), (dict(bp=64.0), "bp must be"),
+    (dict(threads=256), "threads")], ids=str)
+def test_float_wrappers_reject_bad_tiles(add, knobs, match):
+    fn, args, kw = _f_args(add)
+    with pytest.raises((ValueError, TypeError), match=match):
+        fn(*args, **kw, **knobs)
+
+
+@pytest.mark.parametrize("add", [False, True], ids=["conv", "add"])
+def test_float_wrappers_take_every_tile_on_the_host(add):
+    """On host tensors every tile of the space (and bp = 96) runs the plain
+    version: the default's output."""
+    fn, args, kw = _f_args(add)
+    want = fn(*args, **kw)
+    for bp in C.CONV_BP + (96,):
+        for q in C.CONV_Q:
+            assert torch.equal(fn(*args, **kw, bp=bp, q=q), want)
+
+
+def test_float_tile_over_shared_memory_is_rejected():
+    """Cx = 512 at 64x64: a 256-pixel block's 6 x 66 x 513-float window is
+    over the 232,448 bytes a block can use; 32-pixel blocks fit, and the
+    default falls back to one."""
+    assert C.conv_f_plan(*WIDE, 256, 16)["smem"] > C.MAX_DYNAMIC_SMEM
+    assert not C.tile_errors(C.conv_f_plan(*WIDE, 32, 16))
+    x = torch.zeros(WIDE[:4])
+    w = torch.zeros((3, 3, 512, 64))
+    with pytest.raises(ValueError, match="shared memory"):
+        C.conv2d_f(x, w, bp=256, q=16)
+    with pytest.raises(ValueError, match="shared memory"):
+        A.add_conv2d_f(x, w, bp=256, q=16)
+    assert C.default_f_tile(*WIDE) == {"bp": 32, "q": 16}
+    for sig, dt in ((tune.sig_conv2d(*WIDE), "float32"),
+                    (tune.sig_add_conv2d(*WIDE[:6]), "bfloat16")):
+        errs = tune.space.launch_errors(sig, {"bp": 256, "q": 16}, dt)
+        assert errs and "shared memory" in errs[0]
+        cands = list(tune.candidates(sig, dt))
+        assert {"bp": 256, "q": 16} not in cands
+        assert {"bp": 32, "q": 16} in cands
+        assert not tune.space.launch_errors(
+            sig, tune.default_config(sig.kernel, sig, dt), dt)
+        with pytest.raises(ValueError, match="cannot launch"):
+            tune.check_config(sig, {"bp": 128, "q": 4}, dt)
+
+
+def test_float_conv_and_add_sigs_take_tiles():
+    """The float conv2d and add_conv2d are tiled (the integer add keeps
+    threads), and the tuner's plans are the wrappers'."""
+    csig = tune.sig_conv2d(8, 16, 16, 16, 32, 3, 2)
+    asig = tune.sig_add_conv2d(8, 16, 16, 16, 32, 3)
+    for dt in ("float32", "bfloat16"):
+        assert tune.space.knobs("conv2d", dt) == ("bp", "q")
+        assert tune.space.knobs("add_conv2d", dt) == ("bp", "q")
+        assert tune.space.tiled("add_conv2d", dt)
+        assert tune.space.tile_plan(csig, 64, 8, dt) == \
+            C.conv_f_plan(8, 16, 16, 16, 32, 3, 2, 64, 8)
+        assert tune.space.tile_plan(asig, 64, 8, dt) == \
+            A.add_f_plan(8, 16, 16, 16, 32, 3, 64, 8)
+        assert tune.default_config("add_conv2d", asig, dt) == \
+            C.default_f_tile(8, 16, 16, 16, 32, 3, 1)
+        assert len(list(tune.candidates(asig, dt))) == 12
+    for dt in ("int8", "w4a8"):
+        assert tune.space.knobs("add_conv2d", dt) == ("threads",)
+        assert tune.default_config("add_conv2d", asig, dt) == \
+            {"threads": 256}

@@ -149,10 +149,12 @@ def test_space_default_first_analytic_member(sig, dtype):
 
 def test_space_knobs_and_defaults_are_todays_launches():
     from repro_torch.kernels.matmul_q8 import split_plan
-    assert tune.default_config("conv2d") == {"threads": 256}
+    assert tune.default_config("add_conv2d", dtype="int8") == \
+        {"threads": 256}
     assert tune.default_config("causal_conv1d") == {"threads": 128}
     assert {c["threads"] for c in tune.candidates(
-        tune.sig_add_conv2d(1, 6, 6, 4, 6, 3))} == {64, 128, 256, 512, 1024}
+        tune.sig_add_conv2d(1, 6, 6, 4, 6, 3), "int8")} == \
+        {64, 128, 256, 512, 1024}
     assert {c["threads"] for c in tune.candidates(
         tune.sig_causal_conv1d(1, 96, 8192, 4))} == {64, 128, 256}
     sig = tune.sig_matmul(8, 896, 4864)
@@ -169,15 +171,21 @@ def test_space_knobs_and_defaults_are_todays_launches():
     assert {tuple(c[k] for k in ("bm", "bn", "tm", "tn"))
             for c in fcands} == set(MMF_TILES)
     assert all(c["splits"] <= 28 for c in tune.candidates(sig, "int8"))
-    # the integer conv2d's knobs are its tile; the float conv2d keeps
-    # threads
+    # conv2d's knobs are its tile in every mode: the integer modes' implicit
+    # GEMM and the float mode's take the same (bp, q) space, with their own
+    # default tiles
+    from repro_torch.kernels.conv_im2col import default_f_tile
     csig = tune.sig_conv2d(256, 32, 32, 3, 16, 3)
-    for dt in ("int8", "w4a8"):
+    for dt in ("int8", "w4a8", "float32", "bfloat16"):
+        tile = default_tile if dt in ("int8", "w4a8") else default_f_tile
         assert tune.default_config("conv2d", csig, dt) == \
-            default_tile(256, 32, 32, 3, 16, 3, 1)
+            tile(256, 32, 32, 3, 16, 3, 1)
         assert {(c["bp"], c["q"]) for c in tune.candidates(csig, dt)} == \
             {(bp, q) for bp in (32, 64, 128, 256) for q in (4, 8, 16)}
-    assert tune.default_config("conv2d", csig, "float32") == {"threads": 256}
+    assert tune.default_config("conv2d", csig, "float32") == \
+        {"bp": 128, "q": 16}
+    with pytest.raises(ValueError, match="pass sig"):
+        tune.default_config("conv2d")
 
 
 @pytest.mark.parametrize("sig,dtype,bad,match", [
@@ -230,7 +238,7 @@ def test_cache_of_the_threads_space_is_stale_not_an_error(tmp_path):
     """A v1 cache, written when the integer conv2d took threads and the
     float matmul bm, is ignored as stale: lookups fall back to the analytic
     model instead of raising in check_config."""
-    assert tune.SCHEMA_VERSION == 3
+    assert tune.SCHEMA_VERSION == 4
     sig = tune.sig_conv2d(8, 16, 16, 16, 32, 3)
     key = tune.cache_key("conv2d", sig.key(), "int8", "cpu")
     p = tmp_path / "v1.json"
@@ -257,6 +265,27 @@ def test_cache_of_the_shift_threads_space_is_stale(tmp_path):
     assert c.stale and len(c) == 0
     tune.set_default_cache(c)
     assert set(tune.get_config(sig, "int8", "cpu")) == {"bp", "q"}
+
+
+def test_cache_of_the_float_threads_space_is_stale(tmp_path):
+    """A v3 cache, written when the float conv2d and the float add_conv2d
+    took threads, is ignored as stale: its entries are never applied to
+    their (bp, q) space, and a lookup gives a tile."""
+    csig = tune.sig_conv2d(1, 10, 10, 128, 64, 3, 1)
+    asig = tune.sig_add_conv2d(1, 10, 10, 16, 16, 3)
+    keys = [tune.cache_key(s.kernel, s.key(), "float32", "cpu")
+            for s in (csig, asig)]
+    p = tmp_path / "v3.json"
+    p.write_text(json.dumps({"schema_version": 3, "entries": {
+        k: {"config": {"threads": 512}, "us": 1.0, "source": "measured"}
+        for k in keys}}))
+    c = tune.TuneCache(str(p))
+    assert c.stale and len(c) == 0
+    tune.set_default_cache(c)
+    for sig in (csig, asig):
+        cfg = tune.get_config(sig, "float32", "cpu")
+        assert set(cfg) == {"bp", "q"}
+        assert tune.check_config(sig, cfg, "float32") is cfg
 
 
 def test_cache_corrupt_file_is_ignored(tmp_path):
@@ -311,14 +340,14 @@ def test_get_config_memo_then_cache_then_analytic():
     # a planted entry wins over the analytic model
     c = tune.TuneCache(None)
     c.put(tune.cache_key("conv2d", sig.key(), "float32", "cpu"),
-          {"threads": 512})
+          {"bp": 64, "q": 8})
     tune.set_default_cache(c)
-    assert tune.get_config(sig, torch.float32, "cpu") == {"threads": 512}
+    assert tune.get_config(sig, torch.float32, "cpu") == {"bp": 64, "q": 8}
     assert hit.value == h0 + 1
     # memoized: a later change to the cache is not re-read
     c.put(tune.cache_key("conv2d", sig.key(), "float32", "cpu"),
-          {"threads": 64})
-    assert tune.get_config(sig, "float32", "cpu") == {"threads": 512}
+          {"bp": 32, "q": 4})
+    assert tune.get_config(sig, "float32", "cpu") == {"bp": 64, "q": 8}
     assert hit.value == h0 + 1
 
 
