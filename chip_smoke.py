@@ -10,7 +10,8 @@ Phases, one line each, any failure exits non-zero:
               ptxas's registers, shared memory and spills of every
               instantiation of the implicit GEMM (the integer conv and
               shift conv), the float implicit GEMM (the float conv and
-              float add conv), the float shift conv and the float matmul.
+              every add conv mode), the float shift conv, the depthwise
+              conv and the float matmul.
 3. kernels  — each of the eighteen kernel entry points (six int8, five
               W4, six float32 / bfloat16 and the float causal_conv1d) held
               bitwise against its plain PyTorch version at every
@@ -21,7 +22,15 @@ Phases, one line each, any failure exits non-zero:
               requant shifts {-2, 0, 1, 7} with relu and bias on and off;
               the W4 modes with random packed nibbles (-8 and +7 included),
               group shifts in [0, 4] (all 4 in some cases), odd Cx (a pad
-              nibble) and depthwise HK 1, 3 and 5; the LM's matmul_q8 and
+              nibble) and depthwise HK 1, 2, 3, 5 and 7; the staged-row
+              depthwise kernel also at C = 7 and 19, x at an odd address and
+              a 300-wide row (runs of columns), in every mode; the integer
+              add on the float implicit GEMM's body also at pre-shifts
+              (31,0) and (0,31), HK 1, 2, 5 and 7, Cy = 20 and 24, x at an
+              odd address and the tuner's Table-2 int8 add job (timed, not
+              summed), W4 with odd Cx and every group shift at 4; the
+              redesigned rows printed beside their earlier times; the LM's
+              matmul_q8 and
               matmul_w4 at Qwen2-0.5B's decode shapes (8x896x4864,
               8x4864x896), prefill shapes (32, 64 and 128 x896x4864,
               64x4864x896) and ragged ones
@@ -36,8 +45,9 @@ Phases, one line each, any failure exits non-zero:
               address, W4 with every group shift at 4 and the tuner's
               Table-2 int8 shift jobs (n = 1 and 8, timed, not summed); the
               launch arithmetic of the integer conv, the float conv and
-              float add conv, the shift conv (integer and float) and the
-              float matmul (every tile) equal to their sources'; causal_conv1d at Falcon-Mamba's
+              the add conv, the shift conv (integer and float), the
+              depthwise conv and the float matmul (every tile) equal to
+              their sources'; causal_conv1d at Falcon-Mamba's
               prefill shapes (1 x L x 8192 bf16 for L = 16, 33, 96 and 256, and
               8 x 64 x 8192), in float32, at D = 100 with K 1, 2 and 4 and
               relu on and off, with (K,1,D) weights, and its backward (dx
@@ -382,8 +392,10 @@ def kernel_cases(torch, K, dev, rng):
                 lib, nbytes, ops)
 
     def dw(label, n, h, w, c, hk, act=None, shift=7, layout4=True,
-           main=False, w4_mode=False, all_max=False):
+           main=False, w4_mode=False, all_max=False, x_offset=0):
         x = i8((n, h, w, c))
+        if x_offset:                 # the same codes at an odd address
+            x = offset_view(torch, x, x_offset)
         shape = (hk, hk, c, 1) if layout4 else (hk, hk, c)
         if w4_mode:                      # packed along the tap rows
             wp, ws, wt = w4(shape, 0, all_max)
@@ -490,8 +502,10 @@ def kernel_cases(torch, K, dev, rng):
                 lib, nbytes, ops)
 
     def add_conv(label, n, h, w, cx, cy, hk, xp=2, wp=0, bias=True, act=None,
-                 rs=9, main=False, w4_mode=False, all_max=False):
+                 rs=9, main=False, w4_mode=False, all_max=False, x_offset=0):
         x = i8((n, h, w, cx))
+        if x_offset:                 # the same codes at an odd address
+            x = offset_view(torch, x, x_offset)
         if w4_mode:
             wpk, ws, wt = w4((hk, hk, cx, cy), 2, all_max)
             wbytes = wpk.numel() + ws.numel()
@@ -565,6 +579,14 @@ def kernel_cases(torch, K, dev, rng):
     yield conv("x offset by 1 byte 2x16x16x16->32", 2, 16, 16, 16, 32, 3, 1,
                x_offset=1)
     yield dw("odd 2x15x13x8 hk3 (HK,HK,C)", 2, 15, 13, 8, 3, layout4=False)
+    # the staged-row depthwise kernel's edges: C off a multiple of 4, even
+    # HK, HK 5 and 7 (weights read from shared memory a tap), x at an odd
+    # address (element loads), a row cut into runs of columns
+    yield dw("C=19 hk5 2x15x13", 2, 15, 13, 19, 5, act="relu")
+    yield dw("C=7 even hk2 2x5x13", 2, 5, 13, 7, 2, shift=1)
+    yield dw("hk7 1x12x11x8", 1, 12, 11, 8, 7, act="relu", shift=9)
+    yield dw("x offset by 1 byte 4x12x10x16", 4, 12, 10, 16, 3, x_offset=1)
+    yield dw("wide row 1x3x300x8", 1, 3, 300, 8, 3)
     yield pool("odd 2x15x13x8 3/2", 2, 15, 13, 8, win=3, stride=2)
     for shift in (-2, 0, 1, 7):
         for act in (None, "relu"):
@@ -601,6 +623,19 @@ def kernel_cases(torch, K, dev, rng):
     # 127 << 28 leaves int32: the sum wraps, as JAX's int32 does
     yield add_conv("preshift (28,20) wraps 2x8x8x16->16", 2, 8, 8, 16, 16,
                    3, xp=28, wp=20, rs=24)
+    # the integer add's implicit GEMM at its edges: differences that wrap
+    # from either operand, HK 1, 2, 5 and 7, Cx off a multiple of 4, Cy off
+    # q, x at an odd address; and the tuner's Table-2 int8 add job (timed,
+    # not summed)
+    yield add_conv("preshift (31,0) hk1 2x8x8x19->8", 2, 8, 8, 19, 8, 1,
+                   xp=31, wp=0, rs=24)
+    yield add_conv("preshift (0,31) even hk2 2x6x7x4->8", 2, 6, 7, 4, 8, 2,
+                   xp=0, wp=31, rs=24, act="relu")
+    yield add_conv("hk5 Cy=20 2x9x9x7->20", 2, 9, 9, 7, 20, 5, xp=0, wp=3)
+    yield add_conv("hk7 1x12x11x5->12", 1, 12, 11, 5, 12, 7, bias=False)
+    yield add_conv("Cy=24 x offset by 1 byte 4x12x10x16", 4, 12, 10, 16, 24,
+                   3, x_offset=1)
+    yield add_conv("table2 1x10x10x16->16", 1, 10, 10, 16, 16, 3, main=0)
     for rs in (-2, 0, 1, 7):
         for act in (None, "relu"):
             for bias in (False, True):
@@ -669,6 +704,17 @@ def w4_cases(conv, dw, shift_conv, add_conv):
                    xp=0, wp=3, all_max=True, **packed)
     yield add_conv("W4 preshift (28,20) 2x8x8x5->16 relu", 2, 8, 8, 5, 16, 3,
                    xp=28, wp=20, rs=24, act="relu", **packed)
+    yield add_conv("W4 preshift (31,0) odd Cx=7 hk5 2x9x9->20 all shifts 4",
+                   2, 9, 9, 7, 20, 5, xp=31, wp=0, rs=24, all_max=True,
+                   **packed)
+    yield add_conv("W4 preshift (0,31) hk1 x offset by 3 2x8x8x19->8", 2, 8,
+                   8, 19, 8, 1, xp=0, wp=31, rs=24, x_offset=3, **packed)
+    yield add_conv("W4 table2 1x10x10x16->16", 1, 10, 10, 16, 16, 3, main=0,
+                   **packed)
+    yield dw("W4 hk2 C=7 2x5x13 all shifts 4", 2, 5, 13, 7, 2, act="relu",
+             layout4=False, all_max=True, **packed)
+    yield dw("W4 hk7 x offset by 1 byte 1x12x11x8", 1, 12, 11, 8, 7,
+             x_offset=1, **packed)
 
 
 def matmul_cases(mm):
@@ -720,12 +766,20 @@ F_PLAN_SHAPES = ((1, 10, 10, 128, 64, 3, 1), (1, 10, 10, 128, 64, 3, 4),
                  (BATCH, 16, 16, 16, 32, 1, 1), (2, 15, 13, 19, 37, 5, 1),
                  (1, 10, 10, 130, 20, 3, 2), (1, 12, 11, 8, 12, 7, 2),
                  (1, 64, 64, 512, 64, 3, 1))
+#: the depthwise conv's launch arithmetic checked against its source, at
+#: every tile and element size: (n, h, w, c, hk) of the dws rows, Table-2's
+#: job, C off 4, HK 1, 2, 5 and 7, a row cut into runs, a window too large
+DW_PLAN_SHAPES = ((BATCH, 16, 16, 16, 3), (BATCH, 8, 8, 32, 3),
+                  (1, 32, 32, 64, 3), (2, 15, 13, 19, 5), (2, 5, 13, 7, 2),
+                  (2, 8, 8, 12, 1), (1, 12, 11, 8, 7), (1, 3, 300, 8, 3),
+                  (1, 4, 4, 4, 181))
 #: the kernels whose shared-memory tiles this repository sizes itself: each
 #: instantiation's ptxas report is printed at a fresh build (igemm_kernel:
 #: the integer conv's and the integer shift conv's implicit GEMM;
-#: fgemm_kernel: the float conv's and the float add conv's)
+#: fgemm_kernel: the float conv's and every add conv mode's;
+#: depthwise2d_kernel: every depthwise mode's staged rows)
 TILED_KERNELS = ("igemm_kernel", "fgemm_kernel", "matmul_f_kernel",
-                 "shift_conv2d_f_kernel")
+                 "shift_conv2d_f_kernel", "depthwise2d_kernel")
 
 
 def ptxas_report(log: str, kernels) -> list:
@@ -775,8 +829,9 @@ def check_plans(K):
     """The Python launch arithmetic of the tiled kernels (the tuner's
     footprint check reads it) equal to their sources' own, at every tile
     of the dws plan's convs, the Table-2 int8 convs and Table-2 matmuls,
-    of the shift conv's rows, Table-2 job and edges, and of the float conv
-    and float add conv at F_PLAN_SHAPES."""
+    of the shift conv's rows, Table-2 job and edges, of the float conv
+    and the add conv (every mode) at F_PLAN_SHAPES, and of the depthwise
+    conv at DW_PLAN_SHAPES."""
     import ctypes
     import importlib
     from repro_torch.kernels import _build
@@ -842,6 +897,21 @@ def check_plans(K):
                   f"add_conv2d_f plan {s[:6]} bp={bp} q={q}: source "
                   f"{list(c)} (rc {rc}) vs Python {p}")
             n += 1
+    cd = importlib.import_module("repro_torch.kernels.conv_dw")
+    for s in DW_PLAN_SHAPES:
+        for es in (1, 2, 4):
+            for pt in cd.DW_PT:
+                for rows in cd.DW_ROWS:
+                    c = (ctypes.c_int * 5)()
+                    rc = lib.repro_depthwise2d_plan(c, *s, es, pt, rows)
+                    p = cd.dw_plan(*s, es, pt, rows)
+                    check(list(c) == [*p["grid"], p["threads"], p["smem"],
+                                      p["window"]]
+                          and (rc == 0) == (not cd.dw_tile_errors(p)),
+                          f"depthwise2d plan {s} esize {es} pt={pt} "
+                          f"rows={rows}: source {list(c)} (rc {rc}) vs "
+                          f"Python {p}")
+                    n += 1
     for m, _, nn in T2_MATMUL:
         for tile in mq.MMF_TILES:
             for code, es in ((0, 4), (1, 2)):
@@ -853,8 +923,18 @@ def check_plans(K):
                       f"matmul_f plan {tile}: source {list(c)} vs {p}")
                 n += 1
     print(f"[kernels] launch arithmetic: {n} plans of the integer conv, the "
-          "float conv and float add conv, the shift conv (integer and "
-          "float) and the float matmul equal to their sources'")
+          "float conv and the add conv, the shift conv (integer and "
+          "float), the depthwise conv and the float matmul equal to their "
+          "sources'")
+
+
+#: the redesigned kernels' rows before this design (PERF.md §6: runs 8
+#: and K on an NVIDIA H100 80GB HBM3 at 700.00 W), printed beside this
+#: run's: the dws row summed (depthwise2d, _w4), Table-2's float32 job
+#: (depthwise2d_f), the add plan summed (add_conv2d, _w4)
+EARLIER_MS = {"depthwise2d": 0.0284, "depthwise2d_w4": 0.0345,
+              "depthwise2d_f": 0.0035, "add_conv2d": 0.5330,
+              "add_conv2d_w4": 0.6710}
 
 
 def phase_kernels(torch, K, dev, name, rng):
@@ -872,6 +952,13 @@ def phase_kernels(torch, K, dev, name, rng):
         per_kernel["causal_conv1d"] = phase_conv1d(torch, K, dev, rng, bw,
                                                    f32_rate)
         per_kernel.update(phase_float(torch, K, dev, rng, bw))
+    for kernel, before in EARLIER_MS.items():
+        r = per_kernel[kernel]
+        lib = r["library_ms"]
+        print(f"[kernels] {kernel} row: {r['ms']:.4f} ms (before this "
+              f"design {before:.4f} ms, {before / r['ms']:.2f}x); bound "
+              f"{r['bound_ms']:.5f} ms; library "
+              f"{'n/a' if lib is None else f'{lib:.4f} ms'}")
     phase_candidates(torch, K, dev, rng)
     return per_kernel
 
@@ -1118,9 +1205,11 @@ def float_cases(torch, K, dev, rng):
                                                                  else 0)),
                 (n * h * w * cy * (cx // g) * hk * hk, "fma"))
 
-    def dw(label, shape, dtype, timed=False, act="relu"):
+    def dw(label, shape, dtype, timed=False, act="relu", off=0):
         n, h, w, c, hk = shape
         x, wt = f((n, h, w, c), dtype), f((hk, hk, c), dtype)
+        if off:                      # x at an unaligned address
+            x = offset_view(torch, x, off)
         xf = F.pad(x.permute(0, 3, 1, 2).float(), pads(hk)).contiguous()
         wf = wt.permute(2, 0, 1)[:, None].float().contiguous()
         return ("depthwise2d_f", label, timed,
@@ -1238,6 +1327,11 @@ def float_cases(torch, K, dev, rng):
                                                        1), dtype, act=None)
         yield dw(f"{tag} C=19 HK=5 2x15x13", (2, 15, 13, 19, 5), dtype)
         yield dw(f"{tag} HK=1 2x8x8x7", (2, 8, 8, 7, 1), dtype, act=None)
+        yield dw(f"{tag} even HK=2 C=7 2x5x13", (2, 5, 13, 7, 2), dtype)
+        yield dw(f"{tag} HK=7 offset by 1 1x12x11x8", (1, 12, 11, 8, 7),
+                 dtype, off=1)
+        yield dw(f"{tag} wide row 1x3x300x8", (1, 3, 300, 8, 3), dtype,
+                 act=None)
         yield pool(f"{tag} 3/2 2x15x13x19", (2, 15, 13, 19, 3, 2), dtype)
         yield pool(f"{tag} 3/1 2x9x8x33", (2, 9, 8, 33, 3, 1), dtype)
         yield shift(f"{tag} |shift|<=2 C=19 2x15x13->8", (2, 15, 13, 19, 8),

@@ -33,29 +33,29 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: C entry points: argument types (every pointer and the stream a c_void_p).
-#: The one-thread-per-output kernels take their block size (``threads``)
-#: as the int before the stream; the float modes take a dtype code (0
-#: float32, 1 bfloat16) before it; every conv, shift conv and float add
-#: conv takes its tile (bp, q), the integer shift convs the table's bound d
-#: before their requant shift, the integer matmuls their tile height and K
-#: split, the float matmul its tile (bm, bn, tm, tn). The ``*_plan``
+#: The pools take their block size (``threads``) as the int before the
+#: stream; the float modes take a dtype code (0 float32, 1 bfloat16)
+#: before it; every conv, shift conv and add conv takes its tile (bp, q),
+#: the depthwise convs theirs (pt, rows), the integer shift convs the
+#: table's bound d before their requant shift, the integer matmuls their
+#: tile height and K split, the float matmul its tile (bm, bn, tm, tn). The ``*_plan``
 #: functions fill an int array with a launch's arithmetic and launch
 #: nothing.
 SIGNATURES = {
     "repro_conv2d_q8": (_P,) * 4 + (_I,) * 11 + (_P,),
-    "repro_depthwise2d_q8": (_P,) * 3 + (_I,) * 8 + (_P,),
+    "repro_depthwise2d_q8": (_P,) * 3 + (_I,) * 9 + (_P,),
     "repro_maxpool2d_s8": (_P,) * 2 + (_I,) * 9 + (_P,),
     "repro_shift_conv2d_q8": (_P,) * 5 + (_I,) * 10 + (_P,),
-    "repro_add_conv2d_q8": (_P,) * 4 + (_I,) * 11 + (_P,),
+    "repro_add_conv2d_q8": (_P,) * 4 + (_I,) * 12 + (_P,),
     "repro_conv2d_w4": (_P,) * 5 + (_I,) * 11 + (_P,),
-    "repro_depthwise2d_w4": (_P,) * 4 + (_I,) * 8 + (_P,),
+    "repro_depthwise2d_w4": (_P,) * 4 + (_I,) * 9 + (_P,),
     "repro_shift_conv2d_w4": (_P,) * 6 + (_I,) * 10 + (_P,),
-    "repro_add_conv2d_w4": (_P,) * 5 + (_I,) * 11 + (_P,),
+    "repro_add_conv2d_w4": (_P,) * 5 + (_I,) * 12 + (_P,),
     "repro_matmul_q8": (_P,) * 4 + (_I,) * 8 + (_P,),
     "repro_matmul_w4": (_P,) * 5 + (_I,) * 8 + (_P,),
     "repro_causal_conv1d": (_P,) * 3 + (_I,) * 7 + (_P,),
     "repro_conv2d_f": (_P,) * 4 + (_I,) * 11 + (_P,),
-    "repro_depthwise2d_f": (_P,) * 3 + (_I,) * 8 + (_P,),
+    "repro_depthwise2d_f": (_P,) * 3 + (_I,) * 9 + (_P,),
     "repro_maxpool2d_f": (_P,) * 2 + (_I,) * 10 + (_P,),
     "repro_shift_conv2d_f": (_P,) * 4 + (_I,) * 9 + (_P,),
     "repro_add_conv2d_f": (_P,) * 3 + (_I,) * 10 + (_P,),
@@ -66,6 +66,7 @@ SIGNATURES = {
     "repro_shift_conv2d_f_plan": (_P,) + (_I,) * 7,
     "repro_conv2d_f_plan": (_P,) + (_I,) * 9,
     "repro_add_conv2d_f_plan": (_P,) + (_I,) * 8,
+    "repro_depthwise2d_plan": (_P,) + (_I,) * 8,
 }
 
 

@@ -4,14 +4,21 @@ wrappers, their plain PyTorch versions and their launch counters.
 Replaces the TPU kernel ``repro/kernels/conv_add.py`` (``add_conv2d`` /
 ``_add_conv2d``) in all its modes; the source is ``csrc/conv_add.cu``.
 ``-sum |x - w|`` is not a contraction, so neither the TPU's matrix unit nor
-Hopper's tensor cores apply: the kernel runs on the CUDA cores' int32 lanes
-and is bound by operations (one ``|x - w|`` accumulate per tap, channel
-and filter, about 0.72 G of them per 256-image forward of the add plan),
-not by bytes. The integer modes' design: one thread per output element,
-taps outside the image read as zero (a padded zero is not neutral under L1),
-every step in wrapping 32-bit arithmetic so the result equals JAX's int32
-bit for bit.
+Hopper's tensor cores apply: the kernel runs on the CUDA cores' int32
+lanes and is bound by operations (one ``|x - w|`` accumulate per tap,
+channel and filter, about 0.72 G of them per 256-image forward of the add
+plan, at least three int32 instructions each), not by bytes. Every mode
+runs the implicit GEMM of ``csrc/fgemm.cuh`` (shared with the float conv):
+a block stages its pixels' input window and its weights once, and each
+thread sums :func:`~repro_torch.kernels.conv_im2col.pixels_a_thread`
+pixels x ``q`` channels in registers, so every weight read from shared
+memory serves a thread's pixels and every input ``q`` channels; a tap
+outside the image reads a staged zero (a padded zero is not neutral under
+L1: it adds ``|0 - w|``).
 
+The integer modes stage ``x << x_preshift`` and ``w << w_preshift`` as
+uint32 and sum ``|d|`` of the wrapped difference in uint32, so the result
+equals JAX's int32 bit for bit at every tile (the sum is associative).
 The W4 mode (:func:`add_conv2d_w4`) takes the weight packed along Cx
 with one int8 group shift per input channel: each code is shifted to the
 base scale first, then by ``w_preshift``, as the TPU kernel orders them,
@@ -22,18 +29,14 @@ The float mode (:func:`add_conv2d_f`, float32 or bfloat16) has no
 pre-shifts and no bias: ``acc = acc - |x - w|`` in float32 over taps
 (i, j), then input channels, in order, bound by the CUDA cores' float32
 rate (a subtract and a subtract of the absolute value per term, no FMA
-form). It runs the float implicit GEMM shared with the float conv
-(``csrc/fgemm.cuh``): a block stages its pixels' input window and its
-weights once, and each thread sums one or more pixels x ``q`` channels in
-registers, so every weight read from shared memory serves a thread's
-pixels and every input ``q`` channels. Its plain version repeats that order, so the two are bitwise
+form). Its plain version repeats that order, so the two are bitwise
 equal; the TPU kernel sums each tap's channels before subtracting, so the
-JAX package agrees within a tolerance. :func:`add_f_plan` is its launch
-arithmetic (the float conv's at ``groups=1``).
+JAX package agrees within a tolerance.
 
-The integer wrappers take ``threads``, the block size of their launch;
-the float wrapper the tile ``bp`` (pixels a block) and ``q`` (channels a
-thread). They are the tuner's knobs and change no output.
+:func:`add_f_plan` is every mode's launch arithmetic (the float conv's at
+``groups=1``: each staged element is 4 bytes in every mode). Every
+wrapper takes the tile ``bp`` (pixels a block) and ``q`` (channels a
+thread), the tuner's knobs; they change no output.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches the kernel or raises.
@@ -47,8 +50,7 @@ from repro_torch.core.primitives import add_conv
 from repro_torch.core.quantize import expand_w4, wrap_left_shift
 
 from ._build import check_launch, library
-from .common import (DEFAULT_THREADS, acc_dtype, apply_act, apply_requant,
-                     check_threads, float_code)
+from .common import acc_dtype, apply_act, apply_requant, float_code
 from .conv_im2col import (check_act, check_cuda_operand, check_elements,
                           check_shift, check_tile, check_w4, conv_f_plan,
                           kernel_pads)
@@ -56,10 +58,16 @@ from .conv_im2col import (check_act, check_cuda_operand, check_elements,
 
 def add_f_plan(n: int, h: int, w: int, cx: int, cy: int, hk: int, bp: int,
                q: int) -> dict:
-    """The float mode's launch arithmetic, as ``repro_add_conv2d_f_plan``
+    """Every mode's launch arithmetic, as ``repro_add_conv2d_f_plan``
     computes it: the float conv's (``conv_im2col.conv_f_plan``) at
     ``groups=1``. Memoized: do not mutate the dict."""
     return conv_f_plan(n, h, w, cx, cy, hk, 1, bp, q)
+
+
+def _tile(name, shape, bp, q) -> dict:
+    """The tile an add-conv wrapper launches on ``shape`` = (n, h, w, cx,
+    cy, hk): the float implicit GEMM's, whose plan every mode shares."""
+    return check_tile(name, shape + (1,), bp, q, integer=False)
 
 
 def add_conv2d_q8_plain(x, w, bias=None, *, requant_shift: int = 0,
@@ -108,13 +116,14 @@ def _check_add(name, x, w_shape, bias, requant_shift, x_preshift,
 
 def add_conv2d_q8(x, w, bias=None, *, requant_shift: int = 0,
                   x_preshift: int = 0, w_preshift: int = 0, act=None,
-                  threads: int = DEFAULT_THREADS):
+                  bp=None, q=None):
     """x (N,H,W,Cx) int8, w (HK,HK,Cx,Cy) int8, bias (Cy,) int32 or None
-    -> (N,H,W,Cy) int8, SAME stride 1."""
+    -> (N,H,W,Cy) int8, SAME stride 1. ``bp`` and ``q`` default to
+    ``conv_im2col.default_f_tile`` at ``groups=1``."""
     n, h, wd, cx, cy, hk = _check_add("add_conv2d_q8", x, w.shape, bias,
                                       requant_shift, x_preshift, w_preshift,
                                       act)
-    check_threads("add_conv2d_q8", threads)
+    tile = _tile("add_conv2d_q8", (n, h, wd, cx, cy, hk), bp, q)
     if x.device.type == "cpu":
         return add_conv2d_q8_plain(x, w, bias, requant_shift=requant_shift,
                                    x_preshift=x_preshift,
@@ -129,7 +138,7 @@ def add_conv2d_q8(x, w, bias=None, *, requant_shift: int = 0,
             x.data_ptr(), w.data_ptr(),
             None if bias is None else bias.data_ptr(), y.data_ptr(),
             n, h, wd, cx, cy, hk, x_preshift, w_preshift, requant_shift,
-            int(act == "relu"), threads,
+            int(act == "relu"), tile["bp"], tile["q"],
             torch.cuda.current_stream().cuda_stream)
     check_launch("add_conv2d_q8", rc)
     add_conv2d_q8.launches += 1
@@ -153,10 +162,11 @@ def add_conv2d_w4_plain(x, w_p, w_shifts, bias=None, *,
 
 def add_conv2d_w4(x, w_p, w_shifts, bias=None, *, requant_shift=None,
                   x_preshift: int = 0, w_preshift: int = 0, act=None,
-                  threads: int = DEFAULT_THREADS):
+                  bp=None, q=None):
     """x (N,H,W,Cx) int8, w_p (HK,HK,ceil(Cx/2),Cy) int8 nibble-packed
     along Cx, w_shifts (Cx,) int8, bias (Cy,) int32 or None -> (N,H,W,Cy)
-    int8, SAME stride 1."""
+    int8, SAME stride 1. ``bp`` and ``q`` default to
+    ``conv_im2col.default_f_tile`` at ``groups=1``."""
     if x.dim() != 4 or w_p.dim() != 4:
         raise ValueError(f"add_conv2d_w4: x and w must be 4-D, got "
                          f"{tuple(x.shape)} and {tuple(w_p.shape)}")
@@ -166,7 +176,7 @@ def add_conv2d_w4(x, w_p, w_shifts, bias=None, *, requant_shift=None,
     n, h, wd, cx, cy, hk = _check_add("add_conv2d_w4", x, (hk, hk2, cx, cy),
                                       bias, requant_shift, x_preshift,
                                       w_preshift, act)
-    check_threads("add_conv2d_w4", threads)
+    tile = _tile("add_conv2d_w4", (n, h, wd, cx, cy, hk), bp, q)
     if x.device.type == "cpu":
         return add_conv2d_w4_plain(x, w_p, w_shifts, bias,
                                    requant_shift=requant_shift,
@@ -182,7 +192,7 @@ def add_conv2d_w4(x, w_p, w_shifts, bias=None, *, requant_shift=None,
             x.data_ptr(), w_p.data_ptr(), w_shifts.data_ptr(),
             None if bias is None else bias.data_ptr(), y.data_ptr(),
             n, h, wd, cx, cy, hk, x_preshift, w_preshift, requant_shift,
-            int(act == "relu"), threads,
+            int(act == "relu"), tile["bp"], tile["q"],
             torch.cuda.current_stream().cuda_stream)
     check_launch("add_conv2d_w4", rc)
     add_conv2d_w4.launches += 1
@@ -219,8 +229,7 @@ def add_conv2d_f(x, w, *, act=None, bp=None, q=None):
     ``conv_im2col.default_f_tile`` at ``groups=1``."""
     n, h, wd, cx, cy, hk = _check_add("add_conv2d_f", x, w.shape, None, None,
                                       0, 0, act, integer=False)
-    tile = check_tile("add_conv2d_f", (n, h, wd, cx, cy, hk, 1), bp, q,
-                      integer=False)
+    tile = _tile("add_conv2d_f", (n, h, wd, cx, cy, hk), bp, q)
     if x.device.type == "cpu":
         return add_conv2d_f_plain(x, w, act=act)
     code = float_code("add_conv2d_f", x)

@@ -33,13 +33,13 @@
 // x = 0, as in the integer modes. A block stages its run of pixels' input
 // window and its weights once and each thread sums PT pixels x Q channels
 // in registers, so a weight is read from shared memory once for PT pixels
-// and an input once for Q channels. It takes the tile (bp, q), the
-// tuner's knobs; repro_add_conv2d_f_plan exports its launch arithmetic.
-// The TPU kernel sums each tap's channels first and then subtracts, another
+// and an input once for Q channels. The TPU kernel sums each tap's channels first and then subtracts, another
 // order, so the float mode agrees with the JAX package within a tolerance.
 //
-// The integer entry points take the block size (`threads`, the tuner's
-// knob); it changes only the launch shape.
+// Every entry point takes the tile (bp, q), the tuner's knobs; they change
+// only the launch shape. repro_add_conv2d_f_plan exports the launch
+// arithmetic, which the integer modes share (their staged elements are 4
+// bytes, as float32's are).
 //
 // Index arithmetic is 32-bit (the wrapper keeps every tensor below 2^31
 // elements).
@@ -47,91 +47,38 @@
 // L1 distance is not a sum of products, so there is no tensor-core form (as
 // there is no MXU form on the TPU): the work runs on the CUDA cores' int32
 // lanes (float32 lanes in the float mode), and at the model's shapes it is
-// bound by operations (one |x - w| accumulate per tap, channel and filter,
-// two instructions in float32), not by the bytes it moves. The integer
-// modes run one thread per output element (n, y, x, co), co fastest: the
-// input byte is a broadcast across the warp and consecutive filters'
-// weights one coalesced row. Moving them onto a register-tiled body, as
-// the float mode is, is the next step.
+// bound by operations (one |x - w| accumulate per tap, channel and filter:
+// at least three int32 instructions, a subtract, an absolute value and an
+// add, or two float32 ones), not by the bytes it moves. The integer modes
+// run the implicit GEMM of fgemm.cuh as the float mode does (IntAddMode):
+// a block stages its pixels' window once with x already shifted (x << xp
+// in uint32, a padded tap the staged zero, which still adds |0 - (w <<
+// wp)|) and its weights once already shifted (W4: unpacked and
+// group-shifted first), each thread sums PT pixels x Q channels in uint32
+// registers, |d| of the wrapped difference; the uint32 sum is associative,
+// so every tile gives the plain version's bits. Only the Cx real channels
+// are K elements: the pad nibble of an odd Cx is never a term.
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "epilogue.cuh"
 #include "fgemm.cuh"
-#include "float_io.cuh"
-#include "w4.cuh"
-
-template <bool W4>
-__global__ void __launch_bounds__(1024) add_conv2d_kernel(
-    const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-    const int8_t* __restrict__ ws, const int32_t* __restrict__ bias,
-    int8_t* __restrict__ y, int n, int h, int wd, int cx, int cy, int hk,
-    int xp, int wp, int shift, int relu) {
-  const int total = n * h * wd * cy;
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int co = idx % cy;
-  int t = idx / cy;
-  const int ox = t % wd;
-  t /= wd;
-  const int oy = t % h;
-  const int b = t / h;
-  const int wrows = W4 ? (cx + 1) / 2 : cx;  // weight rows per tap
-  const int pad = hk / 2;
-  uint32_t l1 = 0;
-  for (int i = 0; i < hk; ++i) {
-    const int iy = oy + i - pad;
-    const bool row_in = iy >= 0 && iy < h;
-    for (int j = 0; j < hk; ++j) {
-      const int ix = ox + j - pad;
-      const bool in = row_in && ix >= 0 && ix < wd;
-      const int8_t* xq =
-          x + ((b * h + (in ? iy : 0)) * wd + (in ? ix : 0)) * cx;
-      const int8_t* wq = w + (i * hk + j) * wrows * cy + co;
-      for (int c = 0; c < cx; ++c) {
-        const int32_t wc = W4 ? w4_code(wq[(c >> 1) * cy], c & 1, ws[c])
-                              : (int32_t)wq[c * cy];
-        const uint32_t xv = in ? (uint32_t)(int32_t)xq[c] << xp : 0u;
-        const uint32_t wv = (uint32_t)wc << wp;
-        const uint32_t d = xv - wv;
-        l1 += ((int32_t)d < 0) ? 0u - d : d;
-      }
-    }
-  }
-  int32_t acc = (int32_t)(0u - l1);
-  if (bias != nullptr) acc = wrap_add(acc, bias[co]);
-  y[idx] = requant_epilogue(acc, relu, shift);
-}
 
 extern "C" int repro_add_conv2d_q8(const void* x, const void* w,
                                    const void* bias, void* y, int n, int h,
                                    int wd, int cx, int cy, int hk, int xp,
-                                   int wp, int shift, int relu, int threads,
+                                   int wp, int shift, int relu, int bp, int q,
                                    void* stream) {
-  const int total = n * h * wd * cy;
-  if (total == 0) return (int)cudaSuccess;
-  if (!valid_threads(threads)) return (int)cudaErrorInvalidValue;
-  const int blocks = (total + threads - 1) / threads;
-  add_conv2d_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)x, (const int8_t*)w, nullptr, (const int32_t*)bias,
-      (int8_t*)y, n, h, wd, cx, cy, hk, xp, wp, shift, relu);
-  return (int)cudaGetLastError();
+  return fgemm_run_add_int<false>(x, w, nullptr, bias, y, n, h, wd, cx, cy,
+                                  hk, xp, wp, shift, relu, bp, q, stream);
 }
 
 extern "C" int repro_add_conv2d_w4(const void* x, const void* w,
                                    const void* ws, const void* bias, void* y,
                                    int n, int h, int wd, int cx, int cy,
                                    int hk, int xp, int wp, int shift, int relu,
-                                   int threads, void* stream) {
-  const int total = n * h * wd * cy;
-  if (total == 0) return (int)cudaSuccess;
-  if (!valid_threads(threads)) return (int)cudaErrorInvalidValue;
-  const int blocks = (total + threads - 1) / threads;
-  add_conv2d_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)x, (const int8_t*)w, (const int8_t*)ws,
-      (const int32_t*)bias, (int8_t*)y, n, h, wd, cx, cy, hk, xp, wp, shift,
-      relu);
-  return (int)cudaGetLastError();
+                                   int bp, int q, void* stream) {
+  return fgemm_run_add_int<true>(x, w, ws, bias, y, n, h, wd, cx, cy, hk, xp,
+                                 wp, shift, relu, bp, q, stream);
 }
 
 // dtype: 0 float32, 1 bfloat16 (x, w and y alike); bp and q: the tile.
@@ -143,8 +90,8 @@ extern "C" int repro_add_conv2d_f(const void* x, const void* w, void* y,
                           dtype, bp, q, TapOffsets{}, stream);
 }
 
-// The float mode's launch arithmetic: plan[0..4] = grid x, grid y,
-// threads, shared bytes, window bytes. Returns non-zero if the tile is not
+// Every mode's launch arithmetic: plan[0..4] = grid x, grid y, threads,
+// shared bytes, window bytes. Returns non-zero if the tile is not
 // one of the knobs' values or does not fit (plan still filled).
 extern "C" int repro_add_conv2d_f_plan(int* plan, int n, int h, int wd,
                                        int cx, int cy, int hk, int bp,

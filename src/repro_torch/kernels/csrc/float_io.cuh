@@ -16,10 +16,3 @@ static __device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
 static __device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
-
-// Launch-shape check shared by the one-thread-per-output kernels: a block of
-// `threads` threads, a whole number of warps, at most 1024 (the kernels are
-// compiled with __launch_bounds__(1024), so every such block fits an SM).
-static inline bool valid_threads(int threads) {
-  return threads >= 32 && threads <= 1024 && threads % 32 == 0;
-}

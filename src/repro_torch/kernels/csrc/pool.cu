@@ -22,6 +22,13 @@
 
 #include "float_io.cuh"
 
+// The launch-shape check: a block of `threads` threads, a whole number of
+// warps, at most 1024 (the kernels are compiled with
+// __launch_bounds__(1024), so every such block fits an SM).
+static inline bool valid_threads(int threads) {
+  return threads >= 32 && threads <= 1024 && threads % 32 == 0;
+}
+
 __global__ void __launch_bounds__(1024) maxpool2d_s8_kernel(const int8_t* __restrict__ x,
                                     int8_t* __restrict__ y, int n, int h,
                                     int wd, int c, int hout, int wout, int win,

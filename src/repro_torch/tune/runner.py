@@ -12,10 +12,12 @@ Two ways to pick a schedule, as in the JAX package:
 * :func:`analytic_config` measures nothing: the lowest price under
   :func:`estimate_s`, a first-order H100 model (the larger of the bytes and
   the operations term, times a tail-wave factor, plus the launch overhead;
-  for the tiled kernels, conv2d, shift_conv2d, the float add_conv2d and
-  the float matmul, the operations term is the instructions their tiles
-  issue, over the SMs' issue rate, slowed where too few warps are
-  resident to hide latency).
+  for the tiled kernels, conv2d, shift_conv2d, add_conv2d and the float
+  matmul, the operations term is the instructions their tiles issue, over
+  the SMs' issue rate, slowed where too few warps are resident to hide
+  latency; for depthwise2d the bytes term counts its staged halo and the
+  sectors a narrow channel slab wastes, and a grid of fewer than 128
+  blocks is slowed in proportion).
 
 :func:`get_config` is the dispatch layer's lookup: memo, then the loaded
 cache, then the analytic model. Every knob changes only a launch shape, so
@@ -52,6 +54,9 @@ F32_OPS = 33.45e12
 INT32_OPS = 16.73e12
 #: fixed cost of one kernel launch on the device
 LAUNCH_S = 3e-6
+#: device memory's access granularity (bytes), and the blocks a job needs
+#: to keep the card's SMs busy (kernels.conv_im2col.DEFAULT_BLOCKS)
+SECTOR, DEFAULT_BLOCKS = 32, 128
 #: the tiled kernels' issue model: warp instructions an SM issues a cycle
 #: (four schedulers), its clock, the resident warps an SM needs to keep
 #: them busy, its shared memory, and instructions per element staged by
@@ -180,25 +185,28 @@ def _issue_s(blocks: int, threads: int, smem: int,
 
 def _tiled_s(sig: ShapeSig, eff: Dict[str, int], dtype) -> float:
     """The operations term of the implicit GEMMs (conv2d and shift_conv2d
-    in the integer modes; conv2d and add_conv2d in the float modes), of the
-    float shift conv's and of the float matmul's register tiles, from the
-    instructions they issue."""
+    in the integer modes; conv2d in the float mode and add_conv2d in every
+    mode), of the float shift conv's and of the float matmul's register
+    tiles, from the instructions they issue."""
     if _space.tiled(sig.kernel, dtype):
         q, bp = eff["q"], eff["bp"]
         plan = _space.tile_plan(sig, bp, q, dtype)
         t, bn = plan["threads"], plan["block_channels"]
         gx, gy = plan["grid"]
-        if not integer(dtype) and sig.kernel != "shift_conv2d":
+        if sig.kernel == "add_conv2d" or (sig.kernel == "conv2d"
+                                          and not integer(dtype)):
             # the float implicit GEMM (conv2d, add_conv2d): pt x q a
-            # thread, per K element two float instructions an output, pt
-            # window loads, q/4 weight loads and an offset; the window and
-            # the weights staged once a block. A warp's K step also takes
-            # pt + q cycles of the SM's shared-memory bandwidth (a
-            # broadcast float4 delivers 512 bytes)
+            # thread, per K element two float instructions an output (the
+            # integer add three), pt window loads, q/4 weight loads and an
+            # offset; the window and the weights staged once a block. A
+            # warp's K step also takes pt + q cycles of the SM's
+            # shared-memory bandwidth (a broadcast 16-byte load delivers
+            # 512 bytes)
             pt = plan["pixels"]
             grp = dict(sig.dims).get("g", 1)
             kk = sig.get("k") ** 2 * (sig.get("ci") // grp)
-            per_thread = (kk * (2 * pt * q + pt + q // 4 + 1)
+            terms = 3 if integer(dtype) else 2
+            per_thread = (kk * (terms * pt * q + pt + q // 4 + 1)
                           + STAGE_INSTR * (plan["window"] / 4 + kk * bn) / t)
             lsu_s = (gx * gy * _space.cdiv(t, 32) * kk * (pt + q)
                      / (SMS * CLOCK_HZ))
@@ -240,6 +248,25 @@ def estimate_s(sig: ShapeSig, config: Dict[str, int], dtype) -> float:
     if _space.tiled(k, dtype) or (k == "matmul" and not integer(dtype)):
         return max(nbytes / HBM_BPS, _tiled_s(sig, eff, dtype)) + LAUNCH_S
     launches = 1
+    if k == "depthwise2d":
+        # a staged-row block reads its rows' and columns' halo too, and a
+        # slab of fewer channels than a pixel reads whole 32-byte sectors
+        # for its share of each pixel; fewer blocks than DEFAULT_BLOCKS
+        # leave SMs idle on a job that is one trip through device memory
+        n, h, w, c, hk = _space.dw_shape(sig)
+        plan = _space.dw_plan(n, h, w, c, hk, _space.dw_esize(dtype),
+                              eff["pt"], eff["rows"])
+        xb = _elem_bytes(dtype)[0]
+        rows, cols, slab = (plan["rows"], plan["columns"],
+                            plan["channels"] * xb)
+        halo = (rows + hk - 1) / rows * (cols + hk - 1) / cols
+        waste = (1.0 if slab >= c * xb
+                 else math.ceil(slab / SECTOR) * SECTOR / slab)
+        x_bytes = xb * n * h * w * c
+        staged = nbytes - x_bytes + x_bytes * halo * waste
+        gx, gy = plan["grid"]
+        return (max(staged / HBM_BPS, ops_s)
+                * max(1.0, DEFAULT_BLOCKS / (gx * gy)) + LAUNCH_S)
     if k in _space.THREADED:
         threads = eff["threads"]
         blocks = _space.cdiv(_space.outputs(sig), threads)

@@ -4,14 +4,17 @@
 The knobs are what the port's CUDA kernels expose, not the Pallas block
 names, which mean nothing to them:
 
-* the one-thread-per-output kernels (``depthwise2d`` and ``maxpool2d``,
-  every mode, and ``add_conv2d``'s integer modes): the block size
-  ``threads``, one of 64, 128, 256, 512 or 1024 (default 256, their launch
-  before the tuner existed);
+* the one-thread-per-output kernel ``maxpool2d`` (every mode): the block
+  size ``threads``, one of 64, 128, 256, 512 or 1024 (default 256, its
+  launch before the tuner existed);
+* ``depthwise2d`` in every mode (a staged-row kernel): a thread's output
+  pixels along a row ``pt`` (1, 2 or 4) and a block's output rows
+  ``rows`` (1, 2, 4 or 8); the default is the wrapper's
+  (``kernels.conv_dw.default_dw_tile``), which depends on the shape;
 * ``conv2d`` in every mode (the integer modes an implicit GEMM, the float
   mode a float implicit GEMM), ``shift_conv2d`` in every mode (the integer
   modes on the integer conv's implicit GEMM, the float mode a
-  register-tiled kernel) and ``add_conv2d``'s float mode (on the float
+  register-tiled kernel) and ``add_conv2d`` in every mode (on the float
   conv's implicit GEMM): the block's run of output pixels ``bp`` (32, 64,
   128 or 256) and a thread's output channels ``q`` (4, 8 or 16); the
   default is the wrapper's (``kernels.conv_im2col.default_tile`` /
@@ -32,10 +35,10 @@ shape, and the integer split sums are exact. So every candidate gives
 output bitwise equal to the default's, which is what makes the tuner safe
 to leave on. :func:`launch_errors` holds each config to the H100's limits:
 the grid, threads per block and, for the kernels that stage tiles in
-shared memory (``conv2d``, ``shift_conv2d``, the float ``add_conv2d``, the
-float ``matmul``), the Hopper footprint: their tiles are dynamic shared memory,
-at most 232,448 bytes a block (past 48 KB the sources raise the kernel's
-limit with ``cudaFuncSetAttribute``).
+shared memory (``conv2d``, ``depthwise2d``, ``shift_conv2d``,
+``add_conv2d``, the float ``matmul``), the Hopper footprint: their tiles
+are dynamic shared memory, at most 232,448 bytes a block (past 48 KB the
+sources raise the kernel's limit with ``cudaFuncSetAttribute``).
 
 A *config* is a plain dict of those kwargs. :func:`candidates` enumerates
 the configs a shape can launch, default first and deduplicated by the
@@ -53,6 +56,9 @@ from repro_torch.kernels.common import DEFAULT_THREADS, cdiv
 from repro_torch.kernels.conv1d_causal import DEFAULT_THREADS as C1D_DEFAULT
 from repro_torch.kernels.conv1d_causal import THREADS as C1D_THREADS
 from repro_torch.kernels.conv_add import add_f_plan
+from repro_torch.kernels.conv_dw import (DW_PT, DW_ROWS, default_dw_tile,
+                                         dw_knob_errors, dw_plan,
+                                         dw_tile_errors)
 from repro_torch.kernels.conv_im2col import (CONV_BP, CONV_MAX_THREADS,
                                              CONV_Q, conv_f_plan, conv_plan,
                                              default_f_tile, default_tile,
@@ -67,11 +73,9 @@ from repro_torch.kernels.matmul_q8 import (BLOCK_K, MMF_KNOBS, MMF_TILES,
 KERNELS = ("conv2d", "depthwise2d", "shift_conv2d", "add_conv2d",
            "causal_conv1d", "matmul", "maxpool2d")
 
-#: the one-thread-per-output kernels (add_conv2d in its integer modes
-#: only) and their block sizes, default first
-THREADED = ("depthwise2d", "add_conv2d", "maxpool2d")
+#: the one-thread-per-output kernels and their block sizes, default first
+THREADED = ("maxpool2d",)
 #: the kernels whose knobs are an implicit GEMM's tile (bp, q)
-#: (add_conv2d in its float mode only)
 TILED = ("conv2d", "shift_conv2d", "add_conv2d")
 THREADS = (DEFAULT_THREADS, 64, 128, 512, 1024)
 #: matmul tile heights
@@ -176,19 +180,21 @@ def outputs(sig: ShapeSig) -> int:
     return g("m") * g("n")
 
 
-def threaded(kernel: str, dtype) -> bool:
-    """Whether ``kernel`` in ``dtype`` is a one-thread-per-output kernel
-    (its knob is ``threads``): every THREADED kernel but the float
-    ``add_conv2d``."""
-    return kernel in THREADED and not (kernel == "add_conv2d"
-                                       and not integer(dtype))
+def threaded(kernel: str, dtype=None) -> bool:
+    """Whether ``kernel`` is a one-thread-per-output kernel (its knob is
+    ``threads``), in every mode."""
+    return kernel in THREADED
 
 
-def tiled(kernel: str, dtype) -> bool:
-    """Whether ``kernel`` in ``dtype`` takes an implicit GEMM's tile (bp,
-    q): every mode of ``conv2d`` and ``shift_conv2d``, and the float
-    ``add_conv2d``."""
-    return kernel in TILED and not threaded(kernel, dtype)
+def tiled(kernel: str, dtype=None) -> bool:
+    """Whether ``kernel`` takes an implicit GEMM's tile (bp, q): every mode
+    of ``conv2d``, ``shift_conv2d`` and ``add_conv2d``."""
+    return kernel in TILED
+
+
+def dw_esize(dtype) -> int:
+    """Bytes an element of a depthwise mode's x: the plan's ``esize``."""
+    return {"bfloat16": 2, "float32": 4}.get(dtype_key(dtype), 1)
 
 
 def knobs(kernel: str, dtype) -> Tuple[str, ...]:
@@ -197,6 +203,8 @@ def knobs(kernel: str, dtype) -> Tuple[str, ...]:
         return ("threads",)
     if tiled(kernel, dtype):
         return ("bp", "q")
+    if kernel == "depthwise2d":
+        return ("pt", "rows")
     if kernel == "matmul":
         return ("bm", "splits") if integer(dtype) else MMF_KNOBS
     raise ValueError(f"unknown kernel {kernel!r}")
@@ -213,6 +221,12 @@ def shift_shape(sig: ShapeSig) -> tuple:
     g = sig.get
     d = dict(sig.dims).get("d", 1)
     return (g("n"), g("h"), g("w"), g("c"), g("co"), d)
+
+
+def dw_shape(sig: ShapeSig) -> tuple:
+    """A depthwise2d signature as the kernels' (n, h, w, c, hk)."""
+    g = sig.get
+    return (g("n"), g("h"), g("w"), g("c"), g("k"))
 
 
 def add_shape(sig: ShapeSig) -> tuple:
@@ -242,7 +256,8 @@ def default_config(kernel: str, sig: ShapeSig = None,
         return {"threads": DEFAULT_THREADS}
     if kernel == "causal_conv1d":
         return {"threads": C1D_DEFAULT}
-    if kernel not in ("matmul", "conv2d", "shift_conv2d", "add_conv2d"):
+    if kernel not in ("matmul", "conv2d", "shift_conv2d", "add_conv2d",
+                      "depthwise2d"):
         raise ValueError(f"unknown kernel {kernel!r}")
     if sig is None:
         raise ValueError(f"{kernel}'s default config depends on its shape: "
@@ -252,6 +267,8 @@ def default_config(kernel: str, sig: ShapeSig = None,
         return tile(*conv_shape(sig))
     if kernel == "add_conv2d":
         return default_f_tile(*add_shape(sig), 1)
+    if kernel == "depthwise2d":
+        return default_dw_tile(*dw_shape(sig), dw_esize(dtype))
     if kernel == "shift_conv2d":
         return default_shift_tile(*shift_shape(sig), integer=integer(dtype))
     m, k, n = sig.get("m"), sig.get("k"), sig.get("n")
@@ -278,10 +295,9 @@ def effective_config(sig: ShapeSig, cfg: Dict[str, int],
 def launch_errors(sig: ShapeSig, cfg: Dict[str, int], dtype) -> List[str]:
     """Why an (effective) config cannot launch on this shape on an H100:
     the block size, the grid limits and, for the kernels that stage tiles
-    (conv2d, shift_conv2d, the float add_conv2d, the float matmul), the
-    Hopper
-    footprint: shared bytes per block (static at most 48 KB, dynamic at
-    most 232,448) and threads per block. Empty if it can."""
+    (conv2d, depthwise2d, shift_conv2d, add_conv2d, the float matmul), the
+    Hopper footprint: shared bytes per block (static at most 48 KB,
+    dynamic at most 232,448) and threads per block. Empty if it can."""
     k = sig.kernel
     errs = []
     if tiled(k, dtype):
@@ -296,6 +312,15 @@ def launch_errors(sig: ShapeSig, cfg: Dict[str, int], dtype) -> List[str]:
                         f"{CONV_MAX_THREADS}")
         if plan["grid"][0] > MAX_GRID_X:
             errs.append(f"{plan['grid'][0]} pixel blocks exceed the grid")
+    elif k == "depthwise2d":
+        pt, rows = cfg["pt"], cfg["rows"]
+        errs = dw_knob_errors(pt, rows)
+        if errs:
+            return errs
+        plan = dw_plan(*dw_shape(sig), dw_esize(dtype), pt, rows)
+        errs.extend(dw_tile_errors(plan))
+        if plan["grid"][0] > MAX_GRID_X:
+            errs.append(f"{plan['grid'][0]} row blocks exceed the grid")
     elif k == "matmul" and not integer(dtype):
         esize = 2 if dtype_key(dtype) == "bfloat16" else 4
         errs.extend(mmf_tile_errors(sig.get("m"), sig.get("n"),
@@ -354,10 +379,14 @@ def candidates(sig: ShapeSig, dtype="float32") -> Iterator[Dict[str, int]]:
     elif k == "causal_conv1d":
         for t in C1D_THREADS:
             emit({"threads": t})
-    elif tiled(k, dtype):       # conv2d, shift_conv2d, the float add_conv2d
+    elif tiled(k, dtype):       # conv2d, shift_conv2d, add_conv2d
         for bp in CONV_BP:
             for q in CONV_Q:
                 emit({"bp": bp, "q": q})
+    elif k == "depthwise2d":
+        for pt in DW_PT:
+            for rows in DW_ROWS:
+                emit({"pt": pt, "rows": rows})
     elif not integer(dtype):                       # float matmul
         for tile in MMF_TILES:
             emit(dict(zip(MMF_KNOBS, tile)))

@@ -998,3 +998,124 @@ def test_float_gemm_launch_arithmetic_equals_the_sources(dev):
             assert list(c) == [*p["grid"], p["threads"], p["smem"],
                                p["window"]]
             assert (rc == 0) == (not ci.tile_errors(p))
+
+
+# ------------------- the depthwise conv's and the integer add's tiles --
+
+DW_TILES = [(pt, rows) for pt in (1, 2, 4) for rows in (1, 2, 4, 8)]
+
+
+@pytest.mark.parametrize("mode", ["q8", "w4", "float32", "bfloat16"])
+@pytest.mark.parametrize("shape,off", [
+    ((256, 16, 16, 16, 3), 0), ((256, 8, 8, 32, 3), 0),
+    ((1, 32, 32, 64, 3), 0), ((4, 12, 10, 16, 3), 1),
+    ((2, 15, 13, 19, 5), 0), ((2, 5, 13, 7, 2), 3), ((2, 8, 8, 12, 1), 0),
+    ((1, 12, 11, 8, 7), 0), ((1, 3, 300, 8, 3), 0)], ids=str)
+def test_depthwise_tiles_equal_plain(dev, mode, shape, off):
+    """Every tile of the staged-row depthwise kernel (pt 1, 2, 4 x rows 1,
+    2, 4, 8) at the dws plan's B=256 rows, Table-2's job, x at an unaligned
+    address (element loads), C off a multiple of 4, HK 1, 2, 5 and 7, a row
+    cut into runs of columns, relu and requant shifts on and off, W4 with
+    every group shift at 4 at HK = 5: bitwise the plain version, one launch
+    counted each."""
+    from repro_torch import kernels as K
+    n, h, w, c, hk = shape
+    rng = np.random.default_rng(61)
+    if mode in ("float32", "bfloat16"):
+        dt = getattr(torch, mode)
+        x = _offset(_f(rng, (n, h, w, c), dt, dev), off)
+        wt = _f(rng, (hk, hk, c), dt, dev)
+        cases = [(lambda a, **t: K.depthwise2d_f(x, wt, act=a, **t),
+                  lambda a: K.depthwise2d_f_plain(x, wt, act=a), a)
+                 for a in ("relu", None)]
+        wrapper = K.depthwise2d_f
+    else:
+        x = _offset(_i8(rng, (n, h, w, c), dev), off)
+        if mode == "w4":
+            wp, ws = _w4(rng, (hk, hk, c), 0, dev, all_max=hk == 5)
+            wrapper = K.depthwise2d_w4
+            cases = [(lambda a, s=s, **t: K.depthwise2d_w4(
+                          x, wp, ws, requant_shift=s, act=a, **t),
+                      lambda a, s=s: K.depthwise2d_w4_plain(
+                          x, wp, ws, requant_shift=s, act=a), a)
+                     for s, a in ((9, "relu"), (-2, None))]
+        else:
+            wt = _i8(rng, (hk, hk, c), dev)
+            wrapper = K.depthwise2d_q8
+            cases = [(lambda a, s=s, **t: K.depthwise2d_q8(
+                          x, wt, requant_shift=s, act=a, **t),
+                      lambda a, s=s: K.depthwise2d_q8_plain(
+                          x, wt, requant_shift=s, act=a), a)
+                     for s, a in ((7, "relu"), (0, None))]
+    for run, plain, act in cases:
+        want = plain(act)
+        for pt, rows in DW_TILES:
+            before = wrapper.launches
+            got = run(act, pt=pt, rows=rows)
+            torch.cuda.synchronize()
+            assert wrapper.launches == before + 1
+            assert torch.equal(_bits(got) if got.is_floating_point() else got,
+                               _bits(want) if want.is_floating_point()
+                               else want), (mode, pt, rows, act)
+
+
+@pytest.mark.parametrize("w4", [False, True], ids=["q8", "w4"])
+@pytest.mark.parametrize("shape,xp,wp,off", [
+    ((256, 32, 32, 3, 16, 3), 0, 3, 0), ((256, 16, 16, 16, 32, 3), 2, 0, 0),
+    ((256, 8, 8, 32, 64, 3), 28, 20, 0), ((1, 10, 10, 16, 16, 3), 2, 0, 0),
+    ((4, 12, 10, 16, 24, 3), 2, 0, 1), ((2, 9, 9, 7, 20, 5), 31, 0, 0),
+    ((2, 8, 8, 19, 8, 1), 0, 31, 3), ((2, 6, 7, 4, 8, 2), 28, 20, 0),
+    ((1, 12, 11, 5, 12, 7), 0, 3, 0)], ids=str)
+def test_int_add_tiles_equal_plain(dev, w4, shape, xp, wp, off):
+    """Every tile of the integer add conv on the float implicit GEMM's
+    body (bp 32 to 256 and 96, q 4, 8, 16) at the add plan's B=256 layers,
+    Table-2's int8 job, x at an unaligned address, Cx off a multiple of 4
+    (W4: a pad nibble, every group shift at 4 where Cx = 7), Cy off q, HK
+    1, 2, 5 and 7, pre-shifts that wrap int32 ((28, 20), (31, 0), (0,
+    31)), bias and relu on and off: bitwise the plain version."""
+    from repro_torch import kernels as K
+    n, h, w, cx, cy, hk = shape
+    rng = np.random.default_rng(62)
+    x = _offset(_i8(rng, (n, h, w, cx), dev), off)
+    b = torch.from_numpy(rng.integers(-5000, 5000, cy).astype(np.int32)) \
+        .to(dev)
+    if w4:
+        wpk, ws = _w4(rng, (hk, hk, cx, cy), 2, dev, all_max=cx == 7)
+        wrapper, args = K.add_conv2d_w4, (x, wpk, ws)
+        plain = K.add_conv2d_w4_plain
+    else:
+        wrapper, args = K.add_conv2d_q8, (x, _i8(rng, (hk, hk, cx, cy),
+                                                 dev))
+        plain = K.add_conv2d_q8_plain
+    for bias, act, rs in ((b, "relu", 9 if max(xp, wp) < 20 else 24),
+                          (None, None, 0)):
+        kw = dict(requant_shift=rs, x_preshift=xp, w_preshift=wp, act=act)
+        want = plain(*args, bias, **kw)
+        for bp, q in SHIFT_TILES:
+            before = wrapper.launches
+            got = wrapper(*args, bias, **kw, bp=bp, q=q)
+            torch.cuda.synchronize()
+            assert wrapper.launches == before + 1
+            assert torch.equal(got, want), (bp, q, act)
+
+
+def test_depthwise_launch_arithmetic_equals_the_source(dev):
+    """dw_plan, which the tuner's footprint check reads, equals the
+    arithmetic repro_depthwise2d_plan launches with, at every tile and
+    element size of the dws rows, Table-2's job and edges (C off 4, HK 1,
+    2, 5, 7, a row cut into runs, HK = 181 over the shared memory)."""
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import conv_dw as D
+    lib = _build.library()
+    for s in [(256, 16, 16, 16, 3), (256, 8, 8, 32, 3), (1, 32, 32, 64, 3),
+              (2, 15, 13, 19, 5), (2, 5, 13, 7, 2), (2, 8, 8, 12, 1),
+              (1, 12, 11, 8, 7), (1, 3, 300, 8, 3), (1, 4, 4, 4, 181)]:
+        for es in (1, 2, 4):
+            for pt, rows in DW_TILES:
+                c = (ctypes.c_int * 5)()
+                rc = lib.repro_depthwise2d_plan(c, *s, es, pt, rows)
+                p = D.dw_plan(*s, es, pt, rows)
+                assert list(c) == [*p["grid"], p["threads"], p["smem"],
+                                   p["window"]], (s, es, pt, rows)
+                assert (rc == 0) == (not D.dw_tile_errors(p))

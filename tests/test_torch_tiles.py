@@ -1,8 +1,9 @@
 """The launch arithmetic around the port's tiled kernels, on the CPU: the
 integer conv's implicit-GEMM tiles (``kernels.conv_im2col.conv_plan``),
-the float conv's and float add conv's (``conv_f_plan``,
+the float conv's and every add conv mode's (``conv_f_plan``,
 ``conv_add.add_f_plan``), the shift conv's (``conv_shift.shift_plan``,
-``shift_f_plan``) and the float matmul's register tiles
+``shift_f_plan``), the depthwise conv's staged rows
+(``kernels.conv_dw.dw_plan``) and the float matmul's register tiles
 (``kernels.matmul_q8.mmf_plan``), their default tiles, the wrappers'
 checks of the tile knobs, and the tuner's Hopper footprint check
 (``tune.launch_errors``). The CUDA sources compute the same arithmetic
@@ -631,8 +632,8 @@ def test_float_tile_over_shared_memory_is_rejected():
 
 
 def test_float_conv_and_add_sigs_take_tiles():
-    """The float conv2d and add_conv2d are tiled (the integer add keeps
-    threads), and the tuner's plans are the wrappers'."""
+    """The float conv2d and add_conv2d are tiled (the integer add takes the
+    same tile), and the tuner's plans are the wrappers'."""
     csig = tune.sig_conv2d(8, 16, 16, 16, 32, 3, 2)
     asig = tune.sig_add_conv2d(8, 16, 16, 16, 32, 3)
     for dt in ("float32", "bfloat16"):
@@ -647,6 +648,325 @@ def test_float_conv_and_add_sigs_take_tiles():
             C.default_f_tile(8, 16, 16, 16, 32, 3, 1)
         assert len(list(tune.candidates(asig, dt))) == 12
     for dt in ("int8", "w4a8"):
-        assert tune.space.knobs("add_conv2d", dt) == ("threads",)
+        assert tune.space.knobs("add_conv2d", dt) == ("bp", "q")
+        assert tune.space.tile_plan(asig, 64, 8, dt) == \
+            A.add_f_plan(8, 16, 16, 16, 32, 3, 64, 8)
         assert tune.default_config("add_conv2d", asig, dt) == \
-            {"threads": 256}
+            C.default_f_tile(8, 16, 16, 16, 32, 3, 1)
+
+
+# ---------------------------------------------- the integer add conv --
+
+# (n, h, w, cx, cy, hk), bp, q -> (grid, threads, window, smem, block
+# channels, K chunk, pixels a thread), counted by hand as F_PLANS: the
+# integer add stages x << xp and w << wp as 4-byte elements, so its plan is
+# the float implicit GEMM's at groups = 1
+INT_ADD_PLANS = [
+    # add0 at B=256 on its default tile: 128 pixels, 2 a thread (64
+    # threads, one group of 16 channels); runs of 4 rows of 32 that may
+    # cross one image boundary: 4 + 2 + 2 rows of 34 x 3 (ps 3); K = 27
+    ((256, 32, 32, 3, 16, 3), 128, 16,
+     ((2048, 1), 64, 4 * 816, 4 * (816 + 27 * 16 + 27 + 128 + 8), 16, 27,
+      2)),
+    # add2 at B=256 on its default tile: 16 rows of 8 (2 images) a block,
+    # the plan allowing for 2 image boundaries (4 padding rows); 2 groups
+    # of 16 channels, 288 K x 32 channels resident
+    ((256, 8, 8, 32, 64, 3), 128, 16,
+     ((128, 2), 128, 4 * 22 * 10 * 33, 4 * (22 * 10 * 33 + 288 * 32 + 288
+                                            + 128 + 22), 32, 288, 2)),
+    # W4's odd Cx = 7 at HK = 5 (ps 7): 64 pixels span all 9 rows of 9,
+    # 2 groups of 8 channels; 1,183 window elements rounded to 1,184
+    ((1, 9, 9, 7, 12, 5), 64, 8,
+     ((2, 1), 64, 4 * 1184, 4 * (1184 + 175 * 16 + 175 + 64 + 13), 16, 175,
+      2)),
+    # HK = 1: one row of 65,536 pixels, 4 a thread, 4 groups of 8
+    ((256, 16, 16, 16, 32, 1), 128, 8,
+     ((512, 1), 128, 4 * 128 * 17, 4 * (128 * 17 + 16 * 32 + 16 + 128 + 1),
+      32, 16, 4)),
+    # even HK = 2 (pads 1 and 0): runs of 32 span at most 6 rows of 7 and
+    # one image boundary (1 padding row): 8 rows of 8 x 5
+    ((2, 6, 7, 4, 8, 2), 32, 4,
+     ((3, 1), 64, 4 * 320, 4 * (320 + 16 * 8 + 16 + 32 + 8), 8, 16, 1)),
+]
+
+
+@pytest.mark.parametrize("shape,bp,q,want", INT_ADD_PLANS, ids=str)
+def test_int_add_plan_counts(shape, bp, q, want):
+    grid, threads, window, smem, bn, kc, pt = want
+    assert A.add_f_plan(*shape, bp, q) == dict(
+        grid=grid, threads=threads, smem=smem, window=window,
+        block_channels=bn, k_chunk=kc, pixels=pt)
+    for dt in ("int8", "w4a8"):
+        assert tune.space.tile_plan(tune.sig_add_conv2d(*shape), bp, q,
+                                    dt) == A.add_f_plan(*shape, bp, q)
+
+
+def _int_add_args(w4, cx=5, cy=10, hk=3):
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.integers(-128, 128, (2, 7, 6, cx))
+                         .astype(np.int8))
+    b = torch.from_numpy(rng.integers(-500, 500, cy).astype(np.int32))
+    kw = dict(requant_shift=9, x_preshift=2, w_preshift=1, act="relu")
+    if w4:
+        q = rng.integers(-8, 8, (hk, hk, cx, cy)).astype(np.int8)
+        wp = pack_w4(torch.from_numpy(q), 2).contiguous()
+        ws = torch.from_numpy(rng.integers(0, 5, cx).astype(np.int8))
+        return A.add_conv2d_w4, (x, wp, ws, b), kw
+    w = torch.from_numpy(rng.integers(-128, 128, (hk, hk, cx, cy))
+                         .astype(np.int8))
+    return A.add_conv2d_q8, (x, w, b), kw
+
+
+@pytest.mark.parametrize("w4", [False, True], ids=["q8", "w4"])
+@pytest.mark.parametrize("knobs,match", [
+    (dict(bp=48), "bp must be"), (dict(bp=512), "bp must be"),
+    (dict(bp=True), "bp must be"), (dict(q=12), "q must be"),
+    (dict(q=2), "q must be"), (dict(threads=256), "threads")], ids=str)
+def test_int_add_wrappers_reject_bad_tiles(w4, knobs, match):
+    fn, args, kw = _int_add_args(w4)
+    with pytest.raises((ValueError, TypeError), match=match):
+        fn(*args, **kw, **knobs)
+
+
+@pytest.mark.parametrize("w4", [False, True], ids=["q8", "w4"])
+def test_int_add_wrappers_take_every_tile_on_the_host(w4):
+    """On host tensors every tile of the space (and bp = 96) runs the plain
+    version: the default's output."""
+    fn, args, kw = _int_add_args(w4)
+    want = fn(*args, **kw)
+    for bp in C.CONV_BP + (96,):
+        for q in C.CONV_Q:
+            assert torch.equal(fn(*args, **kw, bp=bp, q=q), want)
+
+
+def test_int_add_default_tiles_and_footprint():
+    """The integer add's default tile is the float add's; a window over the
+    232,448 bytes a block can use is refused by the wrapper and the tuner
+    alike (Cx = 512 at 64 x 64, as for the float GEMM)."""
+    for s in ((256, 32, 32, 3, 16, 3), (256, 16, 16, 16, 32, 3),
+              (256, 8, 8, 32, 64, 3), (1, 10, 10, 16, 16, 3)):
+        for dt in ("int8", "w4a8"):
+            assert tune.default_config("add_conv2d", tune.sig_add_conv2d(*s),
+                                       dt) == C.default_f_tile(*s, 1)
+    assert C.default_f_tile(1, 10, 10, 16, 16, 3, 1) == {"bp": 32, "q": 4}
+    assert C.default_f_tile(256, 8, 8, 32, 64, 3, 1) == {"bp": 128, "q": 16}
+    x = torch.zeros(WIDE[:4], dtype=torch.int8)
+    w = torch.zeros((3, 3, 512, 64), dtype=torch.int8)
+    with pytest.raises(ValueError, match="shared memory"):
+        A.add_conv2d_q8(x, w, requant_shift=9, bp=256, q=16)
+    sig = tune.sig_add_conv2d(*WIDE[:6])
+    errs = tune.space.launch_errors(sig, {"bp": 256, "q": 16}, "int8")
+    assert errs and "shared memory" in errs[0]
+    assert {"bp": 256, "q": 16} not in list(tune.candidates(sig, "w4a8"))
+
+
+# ------------------------------------------------ the depthwise conv --
+
+D = importlib.import_module("repro_torch.kernels.conv_dw")
+
+# (n, h, w, c, hk), esize, pt, rows -> (grid, threads, window, smem), counted
+# by hand from the staged-row layout: a block of min(rows, H) rows x the
+# row's ceil(W / pt) column groups (runs of 256 // rows where the row alone
+# is over 256) x as many 4-channel vectors as keep it at most 128 threads
+# (at least one); the window (rows + HK-1) x (columns + HK-1) x 4 x vectors
+# elements of esize bytes, rounded to 16 bytes, then HK^2 x the slab's
+# channels of weights (int8, or float32 for the float modes)
+DW_PLANS = [
+    # dws dw1 at B=256, int8, 1 x 8: 16 groups x 8 rows = 128 threads of one
+    # vector; 10 x 18 x 4 bytes
+    ((256, 16, 16, 16, 3), 1, 1, 8, ((512, 4), 128, 720, 720 + 9 * 4)),
+    # dw1, 2 pixels a thread x 2 rows: 8 x 2 groups x all 4 vectors
+    ((256, 16, 16, 16, 3), 1, 2, 2,
+     ((2048, 1), 64, 4 * 18 * 16, 4 * 18 * 16 + 9 * 16)),
+    # dws dw2 at B=256: one 8 x 8 image a block, 2 vectors (8 channels)
+    ((256, 8, 8, 32, 3), 1, 1, 8, ((256, 4), 128, 800, 800 + 9 * 8)),
+    # Table-2 1x32x32x64 float32, 1 x 4: 32 x 4 groups, one vector, 16
+    # slabs; weights as float32
+    ((1, 32, 32, 64, 3), 4, 1, 4,
+     ((8, 16), 128, 6 * 34 * 4 * 4, 6 * 34 * 16 + 9 * 4 * 4)),
+    # the same in bfloat16, 2 x 1: 16 groups x 8 vectors (32 channels)
+    ((1, 32, 32, 64, 3), 2, 2, 1,
+     ((32, 2), 128, 3 * 34 * 32 * 2, 3 * 34 * 64 + 9 * 32 * 4)),
+    # a row of 300 columns: runs of 256 // 2 = 128 columns, 3 a row
+    ((1, 3, 300, 8, 3), 1, 1, 2,
+     ((6, 2), 256, 4 * 130 * 4, 4 * 130 * 4 + 9 * 4)),
+    # C = 19 (5 vectors, the last with 3 channels) at HK = 5, 4 x 4
+    ((2, 15, 13, 19, 5), 1, 4, 4,
+     ((8, 1), 80, 8 * 20 * 20, 8 * 20 * 20 + 25 * 20)),
+    # HK = 7 float32, 2 x 8: 6 groups x 8 rows x 2 vectors
+    ((1, 12, 11, 8, 7), 4, 2, 8,
+     ((2, 1), 96, 14 * 18 * 8 * 4, 14 * 18 * 32 + 49 * 8 * 4)),
+    # HK = 1 bfloat16: no halo
+    ((2, 8, 8, 7, 1), 2, 1, 8, ((2, 1), 128, 8 * 8 * 8 * 2, 1024 + 8 * 4)),
+    # even HK = 2 (pads 1 and 0): 5 x 15 x 8 bytes rounded to 608
+    ((2, 5, 13, 7, 2), 1, 2, 4, ((4, 1), 56, 608, 608 + 4 * 8)),
+    # rows capped at H = 3
+    ((4, 3, 5, 16, 3), 1, 1, 8, ((4, 1), 60, 5 * 7 * 16, 560 + 9 * 16)),
+]
+
+
+@pytest.mark.parametrize("shape,esize,pt,rows,want", DW_PLANS, ids=str)
+def test_dw_plan_counts(shape, esize, pt, rows, want):
+    grid, threads, window, smem = want
+    p = D.dw_plan(*shape, esize, pt, rows)
+    assert (p["grid"], p["threads"], p["window"], p["smem"]) == want
+    assert p["threads"] <= D.DW_MAX_THREADS and not D.dw_tile_errors(p)
+
+
+def _dw_blocks(n, h, w, c, hk, esize, pt, rows):
+    """Each block and thread of the staged-row kernel as the source maps
+    them from blockIdx and threadIdx: (window rows, window columns, the
+    window's first input row and column, [(row, column, channel) of each
+    output the thread owns, and its window row and column])."""
+    p = D.dw_plan(n, h, w, c, hk, esize, pt, rows)
+    r, bw, ps = p["rows"], p["columns"], p["channels"]
+    csv, cg = ps // 4, bw // pt
+    rb, cb = -(-h // r), -(-w // bw)
+    for bx in range(p["grid"][0]):
+        b, rem = divmod(bx, rb * cb)
+        ry, cx_ = divmod(rem, cb)
+        y0, x0 = ry * r, cx_ * bw
+        for by in range(p["grid"][1]):
+            c0 = by * ps
+            outs = []
+            for tid in range(p["threads"]):
+                cv, t2 = tid % csv, tid // csv
+                tc, tr = t2 % cg, t2 // cg
+                for q in range(pt):
+                    for e in range(4):
+                        oy, ox, ch = y0 + tr, x0 + tc * pt + q, c0 + 4 * cv + e
+                        if oy < h and ox < w and ch < c:
+                            outs.append((b, oy, ox, ch, tr, tc * pt + q))
+            yield r + hk - 1, bw + hk - 1, y0 - hk // 2, x0 - hk // 2, outs
+
+
+@pytest.mark.parametrize("shape", [
+    (2, 9, 11, 16, 3), (1, 8, 8, 32, 3), (2, 7, 6, 19, 5), (2, 5, 13, 7, 2),
+    (1, 6, 5, 12, 1), (1, 12, 11, 8, 7), (1, 3, 300, 8, 3)], ids=str)
+@pytest.mark.parametrize("pt,rows", [(1, 1), (2, 4), (4, 8), (4, 2)])
+def test_dw_plan_window_holds_every_tap(shape, pt, rows):
+    """Every output is owned by exactly one thread; every tap it reads lies
+    inside its block's staged window, at the input row and column the TPU
+    kernels' (HK//2, (HK-1)//2) padding gives (even HK and HK = 7
+    included), and the window fits the bytes the plan sizes."""
+    n, h, w, c, hk = shape
+    owned = set()
+    p = D.dw_plan(*shape, 1, pt, rows)
+    for wr, wc, iy0, ix0, outs in _dw_blocks(*shape, 1, pt, rows):
+        assert wr * wc * p["channels"] <= p["window"]
+        for b, oy, ox, ch, r, col in outs:
+            assert (b, oy, ox, ch) not in owned
+            owned.add((b, oy, ox, ch))
+            for i in range(hk):
+                for j in range(hk):
+                    assert r + i < wr and col + j < wc
+                    assert iy0 + r + i == oy + i - hk // 2
+                    assert ix0 + col + j == ox + j - hk // 2
+    assert len(owned) == n * h * w * c
+
+
+def test_default_dw_tiles():
+    """The most pixels a thread whose grid holds 128 blocks, then the most
+    rows that keep two channel vectors a block: the dws rows at B=256 take
+    4 x 8 (dw1: 512 blocks of all 16 channels), Table-2's n = 1 job 1 x 2
+    (128 blocks of 8 channels; 1 x 4 holds 128 blocks too, of 4
+    channels); a job too small for 128 blocks at any tile takes 1 x 1."""
+    for es in (1, 2, 4):
+        assert D.default_dw_tile(256, 16, 16, 16, 3, es) == \
+            {"pt": 4, "rows": 8}
+        assert D.default_dw_tile(256, 8, 8, 32, 3, es) == \
+            {"pt": 4, "rows": 8}
+        assert D.default_dw_tile(1, 32, 32, 64, 3, es) == \
+            {"pt": 1, "rows": 2}
+    assert D.dw_plan(256, 16, 16, 16, 3, 1, 4, 8)["grid"] == (512, 1)
+    p = D.dw_plan(1, 32, 32, 64, 3, 4, 1, 4)
+    assert p["grid"] == (8, 16) and p["channels"] == 4
+    assert D.default_dw_tile(1, 8, 8, 8, 3, 1) == {"pt": 1, "rows": 1}
+    for dt, es in (("int8", 1), ("w4a8", 1), ("float32", 4),
+                   ("bfloat16", 2)):
+        sig = tune.sig_depthwise2d(1, 32, 32, 64, 3)
+        assert tune.default_config("depthwise2d", sig, dt) == \
+            D.default_dw_tile(1, 32, 32, 64, 3, es)
+
+
+def _dw_args(mode, c=6, hk=3):
+    rng = np.random.default_rng(12)
+    if mode == "f":
+        x = torch.from_numpy(rng.standard_normal((2, 7, 6, c))
+                             .astype(np.float32))
+        w = torch.from_numpy(rng.standard_normal((hk, hk, c))
+                             .astype(np.float32))
+        return D.depthwise2d_f, (x, w), dict(act="relu")
+    x = torch.from_numpy(rng.integers(-128, 128, (2, 7, 6, c))
+                         .astype(np.int8))
+    kw = dict(requant_shift=7, act="relu")
+    if mode == "w4":
+        q = rng.integers(-8, 8, (hk, hk, c)).astype(np.int8)
+        wp = pack_w4(torch.from_numpy(q), 0).contiguous()
+        ws = torch.from_numpy(rng.integers(0, 5, hk).astype(np.int8))
+        return D.depthwise2d_w4, (x, wp, ws), kw
+    w = torch.from_numpy(rng.integers(-128, 128, (hk, hk, c))
+                         .astype(np.int8))
+    return D.depthwise2d_q8, (x, w), kw
+
+
+@pytest.mark.parametrize("mode", ["q8", "w4", "f"])
+@pytest.mark.parametrize("knobs,match", [
+    (dict(pt=3), "pt must be"), (dict(pt=8), "pt must be"),
+    (dict(pt=True), "pt must be"), (dict(rows=3), "rows must be"),
+    (dict(rows=16), "rows must be"), (dict(rows=2.0), "rows must be"),
+    (dict(threads=256), "threads")], ids=str)
+def test_dw_wrappers_reject_bad_tiles(mode, knobs, match):
+    fn, args, kw = _dw_args(mode)
+    with pytest.raises((ValueError, TypeError), match=match):
+        fn(*args, **kw, **knobs)
+
+
+@pytest.mark.parametrize("mode", ["q8", "w4", "f"])
+def test_dw_wrappers_take_every_tile_on_the_host(mode):
+    """On host tensors every tile of the space runs the plain version: the
+    default's output."""
+    fn, args, kw = _dw_args(mode)
+    want = fn(*args, **kw)
+    for pt in D.DW_PT:
+        for rows in D.DW_ROWS:
+            assert torch.equal(fn(*args, **kw, pt=pt, rows=rows), want)
+
+
+def test_dw_tile_over_shared_memory_is_rejected():
+    """HK = 181 on a 4 x 4 image: even one row's window (181 x 184 pixels
+    of 4 float32 channels) is over the 232,448 bytes a block can use, so
+    every tile is refused, by the wrapper and the tuner."""
+    p = D.dw_plan(1, 4, 4, 4, 181, 4, 1, 1)
+    assert p["window"] == 181 * 184 * 16
+    assert D.dw_tile_errors(p)
+    x = torch.zeros((1, 4, 4, 4))
+    w = torch.zeros((181, 181, 4))
+    with pytest.raises(ValueError, match="shared memory"):
+        D.depthwise2d_f(x, w)
+    sig = tune.sig_depthwise2d(1, 4, 4, 4, 181)
+    errs = tune.space.launch_errors(sig, {"pt": 1, "rows": 1}, "float32")
+    assert errs and "shared memory" in errs[0]
+    # a wide image is cut into runs of columns, so it always fits
+    assert not D.dw_tile_errors(D.dw_plan(1, 2, 100000, 64, 3, 4, 4, 8))
+
+
+def test_dw_sigs_take_tiles():
+    """depthwise2d's knobs are (pt, rows) in every mode; the tuner's plan
+    and footprint check read dw_plan at the mode's element size."""
+    sig = tune.sig_depthwise2d(256, 16, 16, 16, 3)
+    for dt in ("int8", "w4a8", "float32", "bfloat16"):
+        assert tune.space.knobs("depthwise2d", dt) == ("pt", "rows")
+        assert not tune.space.threaded("depthwise2d", dt)
+        assert len(list(tune.candidates(sig, dt))) == 12
+    # the analytic model (what a plan launches with no tuned cache) picks
+    # the default tile at the dws rows and Table-2's float32 job
+    for s, dt in (((256, 16, 16, 16, 3), "int8"), ((256, 8, 8, 32, 3), "w4a8"),
+                  ((1, 32, 32, 64, 3), "float32")):
+        ds = tune.sig_depthwise2d(*s)
+        assert tune.analytic_config(ds, dt) == \
+            tune.default_config("depthwise2d", ds, dt)
+    with pytest.raises(ValueError, match="cannot launch|outside|unknown"):
+        tune.check_config(sig, {"threads": 256}, "int8")
+    with pytest.raises(ValueError, match="cannot launch"):
+        tune.check_config(sig, {"pt": 3, "rows": 2}, "int8")

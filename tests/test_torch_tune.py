@@ -120,6 +120,8 @@ SIGS = [(tune.sig_conv2d(1, 10, 10, 128, 64, 3, 4), "float32"),
         (tune.sig_conv2d(256, 32, 32, 3, 16, 3), "int8"),
         (tune.sig_conv2d(256, 16, 16, 16, 32, 1), "w4a8"),
         (tune.sig_depthwise2d(1, 32, 32, 64, 3), "bfloat16"),
+        (tune.sig_depthwise2d(256, 16, 16, 16, 3), "int8"),
+        (tune.sig_add_conv2d(256, 8, 8, 32, 64, 3), "w4a8"),
         (tune.sig_shift_conv2d(8, 32, 32, 64, 64), "int8"),
         (tune.sig_add_conv2d(1, 10, 10, 16, 16, 3), "float32"),
         (tune.sig_maxpool2d(8, 32, 32, 64, 2, 2), "int8"),
@@ -148,13 +150,25 @@ def test_space_default_first_analytic_member(sig, dtype):
 
 
 def test_space_knobs_and_defaults_are_todays_launches():
+    from repro_torch.kernels.conv_dw import default_dw_tile
     from repro_torch.kernels.matmul_q8 import split_plan
-    assert tune.default_config("add_conv2d", dtype="int8") == \
-        {"threads": 256}
+    # the integer add conv takes the float GEMM's tile (bp, q) and its
+    # default; the depthwise conv its (pt, rows) tile in every mode
+    asig = tune.sig_add_conv2d(1, 6, 6, 4, 6, 3)
+    from repro_torch.kernels.conv_im2col import default_f_tile as dft
+    for dt in ("int8", "w4a8"):
+        assert tune.default_config("add_conv2d", asig, dt) == \
+            dft(1, 6, 6, 4, 6, 3, 1)
+        assert {(c["bp"], c["q"]) for c in tune.candidates(asig, dt)} == \
+            {(bp, q) for bp in (32, 64, 128, 256) for q in (4, 8, 16)}
+    dsig = tune.sig_depthwise2d(256, 16, 16, 16, 3)
+    for dt, es in (("int8", 1), ("w4a8", 1), ("float32", 4),
+                   ("bfloat16", 2)):
+        assert tune.default_config("depthwise2d", dsig, dt) == \
+            default_dw_tile(256, 16, 16, 16, 3, es)
+        assert {(c["pt"], c["rows"]) for c in tune.candidates(dsig, dt)} \
+            == {(pt, r) for pt in (1, 2, 4) for r in (1, 2, 4, 8)}
     assert tune.default_config("causal_conv1d") == {"threads": 128}
-    assert {c["threads"] for c in tune.candidates(
-        tune.sig_add_conv2d(1, 6, 6, 4, 6, 3), "int8")} == \
-        {64, 128, 256, 512, 1024}
     assert {c["threads"] for c in tune.candidates(
         tune.sig_causal_conv1d(1, 96, 8192, 4))} == {64, 128, 256}
     sig = tune.sig_matmul(8, 896, 4864)
@@ -238,7 +252,7 @@ def test_cache_of_the_threads_space_is_stale_not_an_error(tmp_path):
     """A v1 cache, written when the integer conv2d took threads and the
     float matmul bm, is ignored as stale: lookups fall back to the analytic
     model instead of raising in check_config."""
-    assert tune.SCHEMA_VERSION == 4
+    assert tune.SCHEMA_VERSION == 5
     sig = tune.sig_conv2d(8, 16, 16, 16, 32, 3)
     key = tune.cache_key("conv2d", sig.key(), "int8", "cpu")
     p = tmp_path / "v1.json"
@@ -286,6 +300,28 @@ def test_cache_of_the_float_threads_space_is_stale(tmp_path):
         cfg = tune.get_config(sig, "float32", "cpu")
         assert set(cfg) == {"bp", "q"}
         assert tune.check_config(sig, cfg, "float32") is cfg
+
+
+def test_cache_of_the_depthwise_and_integer_add_threads_is_stale(tmp_path):
+    """A v4 cache, written when depthwise2d and the integer add_conv2d
+    took threads, is ignored as stale: its entries are never applied to
+    their tile spaces, and a lookup gives a tile."""
+    dsig = tune.sig_depthwise2d(256, 16, 16, 16, 3)
+    asig = tune.sig_add_conv2d(256, 8, 8, 32, 64, 3)
+    keys = [tune.cache_key(s.kernel, s.key(), dt, "cpu")
+            for s in (dsig, asig) for dt in ("int8", "w4a8")]
+    p = tmp_path / "v4.json"
+    p.write_text(json.dumps({"schema_version": 4, "entries": {
+        k: {"config": {"threads": 512}, "us": 1.0, "source": "measured"}
+        for k in keys}}))
+    c = tune.TuneCache(str(p))
+    assert c.stale and len(c) == 0
+    tune.set_default_cache(c)
+    for sig, knobs in ((dsig, {"pt", "rows"}), (asig, {"bp", "q"})):
+        for dt in ("int8", "w4a8"):
+            cfg = tune.get_config(sig, dt, "cpu")
+            assert set(cfg) == knobs
+            assert tune.check_config(sig, cfg, dt) is cfg
 
 
 def test_cache_corrupt_file_is_ignored(tmp_path):
@@ -376,10 +412,10 @@ def _op_args():
     return {
         "conv2d": ((x8, w), dict(requant_shift=7), {"bp": 64, "q": 8}),
         "depthwise2d": ((x8, w[..., 0]), dict(requant_shift=7),
-                        {"threads": 1024}),
+                        {"pt": 2, "rows": 4}),
         "shift_conv2d": ((x8, table, w[0, 0]), dict(requant_shift=7),
                          {"bp": 32, "q": 4}),
-        "add_conv2d": ((x8, w), dict(requant_shift=9), {"threads": 512}),
+        "add_conv2d": ((x8, w), dict(requant_shift=9), {"bp": 64, "q": 8}),
         "maxpool2d": ((x8,), {}, {"threads": 64}),
         "matmul": ((x8.reshape(128, 8), w[0, 0]), dict(requant_shift=7),
                    {"bm": 64, "splits": 1}),
@@ -499,8 +535,9 @@ def test_planted_cache_plan_trunk_equals_untuned(host_plan, tmp_path):
     qconv = [n.name for n in plan.nodes if n.op == "qconv"]
     assert set(ex.node_configs) == set(qconv)
     for name, cfgs in ex.node_configs.items():
-        # the integer conv2d's knobs are its tile, the others' threads
-        assert all(set(c) in ({"threads"}, {"bp", "q"})
+        # the convs' knobs are their (bp, q) tile, the depthwise conv's
+        # its (pt, rows) tile
+        assert all(set(c) in ({"bp", "q"}, {"pt", "rows"})
                    for c in cfgs.values())
 
 
