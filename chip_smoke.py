@@ -11,7 +11,8 @@ Phases, one line each, any failure exits non-zero:
               instantiation of the implicit GEMM (the integer conv and
               shift conv), the float implicit GEMM (the float conv and
               every add conv mode), the float shift conv, the depthwise
-              conv and the float matmul.
+              conv, the float matmul, the integer matmul (every tile, int8
+              and W4) and the int8 pool's 16-channel vector kernel.
 3. kernels  — each of the eighteen kernel entry points (six int8, five
               W4, six float32 / bfloat16 and the float causal_conv1d) held
               bitwise against its plain PyTorch version at every
@@ -28,14 +29,18 @@ Phases, one line each, any failure exits non-zero:
               add on the float implicit GEMM's body also at pre-shifts
               (31,0) and (0,31), HK 1, 2, 5 and 7, Cy = 20 and 24, x at an
               odd address and the tuner's Table-2 int8 add job (timed, not
-              summed), W4 with odd Cx and every group shift at 4; the
-              redesigned rows printed beside their earlier times; the LM's
-              matmul_q8 and
+              summed), W4 with odd Cx and every group shift at 4; the int8
+              pool also at C = 19 (its scalar path), x at an odd address,
+              windows 3/2 and 2/1; the
+              redesigned rows (the integer matmul, the int8 pool) printed
+              beside their earlier times; the LM's matmul_q8 and
               matmul_w4 at Qwen2-0.5B's decode shapes (8x896x4864,
-              8x4864x896), prefill shapes (32, 64 and 128 x896x4864,
+              8x4864x896), prefill shapes (16, 32, 64 and 128 x896x4864,
               64x4864x896) and ragged ones
-              (K = 45, 33 and 4864 with N = 37, M = 5, 13 and 70), requant
-              shifts -2 to 16; the integer conv's implicit GEMM also at the
+              (K = 45, 33 and 4864 with N = 37 and 100, M = 1, 5, 13, 17
+              and 70), operands at an odd address, requant shifts -2 to
+              16, W4 nibbles -8 and +7 with every group shift at 4; the
+              integer conv's implicit GEMM also at the
               tuner's Table-2 int8 jobs (Cx = 128 at 10^2, g = 1 and 4;
               16->16 at 32^2, n = 1 and 8; timed with the standard plan's
               conv1 and conv2, not summed), HK 5 and 7, groups of 3, odd
@@ -46,8 +51,9 @@ Phases, one line each, any failure exits non-zero:
               Table-2 int8 shift jobs (n = 1 and 8, timed, not summed); the
               launch arithmetic of the integer conv, the float conv and
               the add conv, the shift conv (integer and float), the
-              depthwise conv and the float matmul (every tile) equal to
-              their sources'; causal_conv1d at Falcon-Mamba's
+              depthwise conv, the float matmul (every tile), the integer
+              matmul (every tile and cluster size) and the int8 pool
+              (vector or scalar) equal to their sources'; causal_conv1d at Falcon-Mamba's
               prefill shapes (1 x L x 8192 bf16 for L = 16, 33, 96 and 256, and
               8 x 64 x 8192), in float32, at D = 100 with K 1, 2 and 4 and
               relu on and off, with (K,1,D) weights, and its backward (dx
@@ -97,7 +103,8 @@ Phases, one line each, any failure exits non-zero:
               per prefill and per decode step and no other kernel; tokens/s,
               decode-step ms and TTFT per precision (after a two-request
               warm-up of each engine), and one decode step's device
-              breakdown.
+              breakdown with its count of device operations (kernels and
+              memsets).
 7. ssm      — Falcon-Mamba-7B at full width and depth (64 layers, d_model
               4096, d_inner 8192, d_state 16, d_conv 4, dt_rank 256, vocab
               65,024; 7.27 B parameters), seeded random weights made on the
@@ -421,8 +428,10 @@ def kernel_cases(torch, K, dev, rng):
                 lambda: K.depthwise2d_q8_plain(x, wt, **kw),
                 lib, nbytes, ops)
 
-    def pool(label, n, h, w, c, win=2, stride=2, main=False):
+    def pool(label, n, h, w, c, win=2, stride=2, main=False, x_offset=0):
         x = i8((n, h, w, c))
+        if x_offset:                 # the same codes at an odd address
+            x = offset_view(torch, x, x_offset)
         ho, wo = (h - win) // stride + 1, (w - win) // stride + 1
         nbytes = x.numel() + n * ho * wo * c
         ops = (n * ho * wo * c * (win * win - 1), "int8")
@@ -470,9 +479,11 @@ def kernel_cases(torch, K, dev, rng):
                 lib, nbytes, ops)
 
     def mm(label, m, k, n, shift=9, act=None, weight=None, w4_mode=False,
-           all_max=False):
+           all_max=False, offset=0):
         """One matmul case; ``weight`` is how often the shape runs per
-        Qwen2-0.5B decode step (0: timed, not summed; None: bitwise only)."""
+        Qwen2-0.5B decode step (0: timed, not summed; None: bitwise only);
+        ``offset``: every operand that many bytes past an aligned address
+        (the kernel's bytewise staging)."""
         a = i8((m, k))
         if w4_mode:
             wp, ws, wt = w4((k, n), 0, all_max)
@@ -480,6 +491,12 @@ def kernel_cases(torch, K, dev, rng):
         else:
             wt = i8((k, n))
             wbytes = wt.numel()
+        if offset:
+            a = offset_view(torch, a, offset)
+            if w4_mode:
+                wp, ws = (offset_view(torch, t, offset) for t in (wp, ws))
+            else:
+                wt = offset_view(torch, wt, offset)
         kw = dict(requant_shift=shift, act=act)
         nbytes = a.numel() + wbytes + m * n
         ops = (2 * m * n * k, "int8")
@@ -588,6 +605,14 @@ def kernel_cases(torch, K, dev, rng):
     yield dw("x offset by 1 byte 4x12x10x16", 4, 12, 10, 16, 3, x_offset=1)
     yield dw("wide row 1x3x300x8", 1, 3, 300, 8, 3)
     yield pool("odd 2x15x13x8 3/2", 2, 15, 13, 8, win=3, stride=2)
+    # the vector path (C a multiple of 16, x aligned) and the scalar one
+    # (C = 19, x at an odd address), windows 3/2 and 2/1
+    for c in (16, 32, 64, 19):
+        for win, st in ((3, 2), (2, 1)):
+            yield pool(f"C={c} {win}/{st} 3x11x10", 3, 11, 10, c, win=win,
+                       stride=st)
+    yield pool("x offset by 1 byte 8x16x16x32 2/2", 8, 16, 16, 32,
+               x_offset=1)
     for shift in (-2, 0, 1, 7):
         for act in (None, "relu"):
             for bias in (False, True):
@@ -729,7 +754,7 @@ def matmul_cases(mm):
                  weight=2 * layers, w4_mode=w4_mode)
         yield mm(f"{tag}decode down 8x{ff}x{d}", 8, ff, d, shift=16,
                  weight=layers, w4_mode=w4_mode)
-        for m in (32, 64, 128):        # phase 6's prefill buckets past 16
+        for m in (16, 32, 64, 128):    # phase 6's prefill buckets
             yield mm(f"{tag}prefill gate/up {m}x{d}x{ff}", m, d, ff,
                      shift=14, act="relu", weight=0, w4_mode=w4_mode)
         yield mm(f"{tag}prefill down 64x{ff}x{d}", 64, ff, d, shift=16,
@@ -742,7 +767,15 @@ def matmul_cases(mm):
                  act="relu", w4_mode=w4_mode)
         yield mm(f"{tag}ragged 17x{d}x100", 17, d, 100, shift=13,
                  w4_mode=w4_mode)
+        yield mm(f"{tag}M=1 1x{d}x{ff}", 1, d, ff, shift=12, act="relu",
+                 w4_mode=w4_mode)
+        yield mm(f"{tag}operands offset by 1 byte 8x{ff}x{d}", 8, ff, d,
+                 shift=16, w4_mode=w4_mode, offset=1)
+        yield mm(f"{tag}operands offset by 3 bytes 20x100x48", 20, 100, 48,
+                 shift=10, act="relu", w4_mode=w4_mode, offset=3)
     yield mm(f"W4 all shifts 4 8x{d}x{ff}", 8, d, ff, shift=16,
+             w4_mode=True, all_max=True)
+    yield mm(f"W4 all shifts 4 odd K 16x45x{ff}", 16, 45, ff, shift=4,
              w4_mode=True, all_max=True)
 
 
@@ -773,13 +806,24 @@ DW_PLAN_SHAPES = ((BATCH, 16, 16, 16, 3), (BATCH, 8, 8, 32, 3),
                   (1, 32, 32, 64, 3), (2, 15, 13, 19, 5), (2, 5, 13, 7, 2),
                   (2, 8, 8, 12, 1), (1, 12, 11, 8, 7), (1, 3, 300, 8, 3),
                   (1, 4, 4, 4, 181))
-#: the kernels whose shared-memory tiles this repository sizes itself: each
-#: instantiation's ptxas report is printed at a fresh build (igemm_kernel:
-#: the integer conv's and the integer shift conv's implicit GEMM;
-#: fgemm_kernel: the float conv's and every add conv mode's;
-#: depthwise2d_kernel: every depthwise mode's staged rows)
+#: the integer matmul's launch arithmetic checked against its source at
+#: every tile and cluster size: (m, k, n) of Qwen2-0.5B's decode and
+#: prefill shapes and a ragged one
+MM_PLAN_SHAPES = ((8, 896, 4864), (8, 4864, 896), (32, 896, 4864),
+                  (128, 896, 4864), (64, 4864, 896), (5, 45, 37))
+#: the int8 pool's vector or scalar launch checked against its source:
+#: (n, hout, wout, c) of the dws plan's pools and C off 16
+POOL_PLAN_SHAPES = ((BATCH, 16, 16, 16), (BATCH, 8, 8, 32), (BATCH, 4, 4, 64),
+                    (2, 7, 6, 19), (3, 5, 4, 33))
+#: the kernels whose shared-memory tiles this repository sizes itself, and
+#: the int8 pool's vector kernel: each instantiation's ptxas report is
+#: printed at a fresh build (igemm_kernel: the integer conv's and the
+#: integer shift conv's implicit GEMM; fgemm_kernel: the float conv's and
+#: every add conv mode's; depthwise2d_kernel: every depthwise mode's staged
+#: rows; matmul_q_kernel: the integer matmul's tiles, int8 and W4)
 TILED_KERNELS = ("igemm_kernel", "fgemm_kernel", "matmul_f_kernel",
-                 "shift_conv2d_f_kernel", "depthwise2d_kernel")
+                 "shift_conv2d_f_kernel", "depthwise2d_kernel",
+                 "matmul_q_kernel", "maxpool2d_s8_vec_kernel")
 
 
 def ptxas_report(log: str, kernels) -> list:
@@ -922,19 +966,42 @@ def check_plans(K):
                 check(list(c) == [*p["grid"], p["threads"], p["smem"]],
                       f"matmul_f plan {tile}: source {list(c)} vs {p}")
                 n += 1
+    for shape in MM_PLAN_SHAPES:
+        for bn, bm in mq.MMQ_TILES:
+            for cs in mq.MMQ_CLUSTERS:
+                for w4 in (0, 1):
+                    c = (ctypes.c_int * 7)()
+                    rc = lib.repro_matmul_q8_plan(c, *shape, bn, bm, cs, w4)
+                    p = mq.mmq_plan(*shape, bn, bm, cs, bool(w4))
+                    check(rc == 0 and list(c) == [
+                        *p["grid"], p["cluster"], p["threads"], p["smem"],
+                        p["stages"], p["ring"]],
+                          f"matmul plan {shape} {(bn, bm, cs)} w4={w4}: "
+                          f"source {list(c)} (rc {rc}) vs Python {p}")
+                    n += 1
+    pl = importlib.import_module("repro_torch.kernels.pool")
+    for shape in POOL_PLAN_SHAPES:
+        for aligned in (0, 1):
+            for threads in (64, 256, 1024):
+                c = (ctypes.c_int * 3)()
+                rc = lib.repro_maxpool2d_s8_plan(c, *shape, aligned, threads)
+                p = pl.pool_plan(*shape, aligned, threads)
+                check(rc == 0 and list(c) == [p["blocks"], p["threads"],
+                                              int(p["vector"])],
+                      f"maxpool2d_s8 plan {shape} aligned={aligned} "
+                      f"threads={threads}: source {list(c)} vs Python {p}")
+                n += 1
     print(f"[kernels] launch arithmetic: {n} plans of the integer conv, the "
           "float conv and the add conv, the shift conv (integer and "
-          "float), the depthwise conv and the float matmul equal to their "
-          "sources'")
+          "float), the depthwise conv, the float matmul, the integer "
+          "matmul and the int8 pool equal to their sources'")
 
 
-#: the redesigned kernels' rows before this design (PERF.md §6: runs 8
-#: and K on an NVIDIA H100 80GB HBM3 at 700.00 W), printed beside this
-#: run's: the dws row summed (depthwise2d, _w4), Table-2's float32 job
-#: (depthwise2d_f), the add plan summed (add_conv2d, _w4)
-EARLIER_MS = {"depthwise2d": 0.0284, "depthwise2d_w4": 0.0345,
-              "depthwise2d_f": 0.0035, "add_conv2d": 0.5330,
-              "add_conv2d_w4": 0.6710}
+#: the redesigned kernels' rows before this design (PERF.md §6: run 8 on
+#: an NVIDIA H100 80GB HBM3 at 700.00 W), printed beside this run's: a
+#: Qwen2-0.5B decode step's 72 launches (matmul, matmul_w4), the dws
+#: plan's three pools (maxpool2d)
+EARLIER_MS = {"matmul": 0.7678, "matmul_w4": 0.8064, "maxpool2d": 0.0178}
 
 
 def phase_kernels(torch, K, dev, name, rng):
@@ -1844,12 +1911,12 @@ def sync(torch, dev):
 
 
 def lm_breakdown(torch, prec, eng, cfg, dev, pos=128, reps=5,
-                 port=("matmul_kernel", "epilogue_kernel", "Memset"),
-                 what="the port's matmul kernels and their workspace memsets"):
+                 port=("matmul_q_kernel",), what="the port's matmul kernel"):
     """One decode step of all ``LM_BATCH`` slots at position ``pos``: its
-    time (CUDA events), the device time of its kernels (torch.profiler),
-    split into the kernels whose names contain one of ``port`` and
-    everything else, and the idle share."""
+    time (CUDA events), the device time of its device operations (kernels
+    and memsets, torch.profiler) and their count, split into those whose
+    names contain one of ``port`` and everything else, and the idle
+    share."""
     from repro_torch.models import api
     cache = api.init_slot_cache(cfg, LM_BATCH, LM_MAX_LEN, device=dev)
     cache["len"].fill_(pos)
@@ -1859,13 +1926,16 @@ def lm_breakdown(torch, prec, eng, cfg, dev, pos=128, reps=5,
     kernels = device_kernels(torch, step, reps)
     dev_ms = sum(r.us for r in kernels) / 1e3
     check(dev_ms > 0, "torch.profiler saw no device time")
-    mm_ms = sum(r.us for r in kernels
-                if any(t in r.key for t in port)) / 1e3
-    n_kern = sum(r.launches for r in kernels)
+    mine = [r for r in kernels if any(t in r.key for t in port)]
+    mm_ms = sum(r.us for r in mine) / 1e3
+    n_ops = sum(r.launches for r in kernels)
+    n_mine = sum(r.launches for r in mine)
+    n_memset = sum(r.launches for r in kernels if "Memset" in r.key)
     print(f"[lm-breakdown] {prec}: one decode step, {LM_BATCH} slots at "
           f"position {pos}: {step_ms:.4f} ms (CUDA events), device busy "
-          f"{dev_ms:.4f} ms in {n_kern:.0f} kernels, of which {what} "
-          f"{mm_ms:.4f} ms and the rest {dev_ms - mm_ms:.4f} "
+          f"{dev_ms:.4f} ms in {n_ops:.0f} device operations ({n_memset:.0f}"
+          f" of them memsets), of which {what} {mm_ms:.4f} ms in "
+          f"{n_mine:.0f} launches and the rest {dev_ms - mm_ms:.4f} "
           f"ms; device idle {1 - dev_ms / step_ms:.3f}")
     for r in sorted(kernels, key=lambda r: -r.us)[:8]:
         kernel = r.key.replace("void ", "").replace("at::native::", "")

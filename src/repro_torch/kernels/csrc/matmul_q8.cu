@@ -9,31 +9,57 @@
 //
 // W4 mode (repro_matmul_w4): b is (ceil(K/2),N), two int4 codes per byte along
 // K (element 2i in the low nibble of byte row i), with an int8 group shift per
-// K element (ws, length K). The packed bytes are what a block stages in
-// shared memory; each nibble is unpacked and shifted in registers (w4.cuh) as
-// the dot products read it, so the weight bytes read from device memory and
-// held on chip are half the int8 mode's.
+// K element (ws, length K). The packed bytes are what a block reads and
+// stages; each word of four columns is unpacked and shifted in registers
+// (w4.cuh's w4_codes4, four codes at once) as the fragments are built, so the
+// weight bytes read from device memory and held on chip are half the int8
+// mode's.
 //
 // What bounds it on an H100: at decode (M = 8 rows, one per slot) each launch
 // reads a whole 896x4864 weight (4.36 MB int8, 2.18 MB W4) to do 70 M
-// operations, so device-memory bytes set the floor (about 1.3 us int8 at
-// 3.35 TB/s); at prefill (M up to 128) it is still below the card's int8
-// ridge. The design: a block owns a BM x 256 output tile (BM = 16 for
-// M <= 32, else 64: on an H100 the 16-row tile is 1.15x faster at M = 32 and
-// 1.2-1.3x slower at M = 64 and 128, PERF.md) and walks K in stages of 32; a
-// stage stages A's rows and B's columns in shared memory as 32-bit words of
-// four K-consecutive int8s (W4: 16 bits of packed bytes per word), and each
-// of the 256 threads owns one column and all BM rows of the tile: it reads
-// its column's word once per stage word (unpacking a W4 word once, not once
-// per row group) and takes __dp4a with the BM row words, which every thread
-// reads at the same address (a shared-memory broadcast). A decode-shaped
-// product has too few output tiles to fill 132 SMs, so the wrapper splits K
-// across gridDim.z: each split adds its int32 partial sums into a zeroed
-// workspace with atomicAdd, and a second kernel applies the epilogue.
-// Integer sums do not depend on order, so every tiling and split gives the
-// plain version's result bit for bit. The tile height (BM, 16 or 64) and the
-// number of K splits are arguments (the tuner's knobs); the wrapper's own
-// choice is the default.
+// operations, so device-memory bytes set the floor (about 1.3 us int8 and
+// 0.65 us W4 at 3.35 TB/s), and with so little work a launch is over in a
+// few trips to device memory: what counts is how many bytes are in flight
+// at once and how few steps follow the last load. At prefill (M = 32-128)
+// the operations grow with M while the weight bytes do not, and the int8
+// tensor cores (1,979 T ops/s) keep them below the byte floor.
+//
+// The design (repro_matmul_q8 / repro_matmul_w4, matmul_q_kernel): one
+// launch a product, no workspace. A block owns BN output columns x BM rows
+// of a; the K stages (64 deep) are dealt round-robin to its warps (8 for
+// the decode tiles, BM <= 16, else 4) and to those of a thread-block cluster
+// of cs blocks (1, 2, 4 or 8, x-major in the grid), so a decode-shaped
+// product whose column tiles are too few to fill 132 SMs still spreads its
+// weight over the card (down: 28 tiles of 32 columns x 4 blocks). Each warp
+// streams its stages through a private ring in shared memory (4 stages for
+// the decode tiles, 3 for the taller ones), all but one in flight, by
+// 16-byte cp.async copies of b's rows (W4: packed rows) and a's rows, so a
+// decode warp's whole share of the weight is requested at once and no
+// block-wide barrier stalls the stream. The sums run on the int8 tensor
+// cores (mma.sync m16n8k32) with the operands swapped: the weights are the
+// mma's A, 16 output columns, and a's rows its B, 8 tokens, so a decode
+// step's 8 rows fill the mma's narrow side. b is N-major and the mma wants
+// K-major words: a thread reads 4 x 4 byte blocks of a stage as words (a
+// swizzle puts the four rows it reads at once in distinct banks) and
+// transposes them with __byte_perm. At the end each warp's int32 partial
+// tile goes to shared memory and the block sums its warps; the cluster's
+// other blocks store their sums into the leader block's shared memory
+// (distributed shared memory, map_shared_rank) before one cluster barrier,
+// and the leader adds them, applies the epilogue and stores int8. Integer
+// sums do not depend on order, so every tile and cluster size gives the
+// plain version's result bit for bit. The tile (BN, BM) is a template
+// argument, one instantiation per entry of MMQ_TILES; the tile and the
+// cluster size are the tuner's knobs, the wrapper's own choice the default.
+// What is left on an H100 (PERF.md): a decode launch still takes about 3x
+// its byte floor, a fixed 2-2.5 us (the launch and one trip to device
+// memory) plus each warp's chain of stages; a cluster adds about 1 us, and
+// W4's unpack lengthens the chain more than its halved bytes save.
+//
+// Edges: elements past K are staged as zeros (the copies' source size, or
+// the bytewise staging's guard), so a pad nibble of an odd K meets a zero
+// of a and a ragged stage adds nothing; columns past N and rows past M are
+// staged as zeros and never stored. b, a or ws off a 16-byte boundary, or N
+// (b) or K (a, ws) off a multiple of 16, are staged byte by byte.
 //
 // Float mode (repro_matmul_f): a (M,K) and b (K,N) in float32 or bfloat16,
 // a register-tiled SIMT GEMM. What bounds it on an H100 is operations: at
@@ -73,166 +99,18 @@
 // within a tolerance.
 //
 // Index arithmetic is 32-bit (the wrapper keeps every tensor below 2^31
-// elements). Elements past K are read as zero from A, so a pad nibble or a
-// ragged stage of B never reaches a sum.
+// elements).
 #include <cstdint>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "epilogue.cuh"
 #include "float_io.cuh"
 #include "w4.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
-
-constexpr int BN = 256;        // output columns per block, one per thread
-constexpr int BK = 32;         // K elements per shared-memory stage
-constexpr int KW = BK / 4;     // 32-bit words of four int8 per row per stage
-constexpr int THREADS = BN;
-
-// Four int8 values (in the low bytes of ints) as one dp4a operand, the first
-// in the low byte.
-__device__ __forceinline__ int pack4(int v0, int v1, int v2, int v3) {
-  return (int)((uint32_t)(v0 & 0xff) | ((uint32_t)(v1 & 0xff) << 8) |
-               ((uint32_t)(v2 & 0xff) << 16) | ((uint32_t)(v3 & 0xff) << 24));
-}
-
-template <int BM, bool W4>
-__global__ void __launch_bounds__(THREADS) matmul_kernel(
-    const int8_t* __restrict__ a, const int8_t* __restrict__ b,
-    const int8_t* __restrict__ ws, int32_t* __restrict__ part,
-    int8_t* __restrict__ y, int m, int k, int n, int steps_per_split,
-    int a_vec, int shift, int relu) {
-  __shared__ __align__(16) int as[KW][BM];   // A words, [k word][row]
-  __shared__ int bs[W4 ? 1 : KW][BN];        // int8 B words, [k word][col]
-  __shared__ uint16_t bp[W4 ? KW : 1][BN];   // W4: two packed bytes per word
-  __shared__ int8_t ss[W4 ? BK : 1];         // W4: the stage's group shifts
-
-  const int c = threadIdx.x;                 // this thread's column
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-  const int nsteps = (k + BK - 1) / BK;
-  const int s0 = blockIdx.z * steps_per_split;
-  const int s1 = min(nsteps, s0 + steps_per_split);
-  const int kp = (k + 1) / 2;                // W4: packed rows
-
-  int acc[BM];
-#pragma unroll
-  for (int i = 0; i < BM; ++i) acc[i] = 0;
-
-  for (int s = s0; s < s1; ++s) {
-    const int k0 = s * BK;
-    for (int t = threadIdx.x; t < BM * KW; t += THREADS) {
-      const int r = t / KW, w = t % KW;
-      const int gr = row0 + r, gk = k0 + 4 * w;
-      int word = 0;
-      if (gr < m) {
-        const int8_t* p = a + gr * k + gk;
-        if (a_vec && gk + 3 < k) {
-          word = *reinterpret_cast<const int*>(p);   // 4-byte aligned
-        } else {
-          word = pack4(gk < k ? p[0] : 0, gk + 1 < k ? p[1] : 0,
-                       gk + 2 < k ? p[2] : 0, gk + 3 < k ? p[3] : 0);
-        }
-      }
-      as[w][r] = word;
-    }
-    for (int t = threadIdx.x; t < KW * BN; t += THREADS) {
-      const int w = t / BN, cc = t % BN;
-      const int gc = col0 + cc, gk = k0 + 4 * w;
-      if constexpr (W4) {
-        const int p0 = gk / 2;                 // packed rows p0, p0 + 1
-        uint32_t h = 0;
-        if (gc < n) {
-          if (p0 < kp) h = (uint8_t)b[p0 * n + gc];
-          if (p0 + 1 < kp) h |= (uint32_t)(uint8_t)b[(p0 + 1) * n + gc] << 8;
-        }
-        bp[w][cc] = (uint16_t)h;
-      } else {
-        int word = 0;
-        if (gc < n) {
-          word = pack4(gk < k ? b[gk * n + gc] : 0,
-                       gk + 1 < k ? b[(gk + 1) * n + gc] : 0,
-                       gk + 2 < k ? b[(gk + 2) * n + gc] : 0,
-                       gk + 3 < k ? b[(gk + 3) * n + gc] : 0);
-        }
-        bs[w][cc] = word;
-      }
-    }
-    if constexpr (W4) {
-      const int t = threadIdx.x;
-      if (t < BK) ss[t] = k0 + t < k ? ws[k0 + t] : 0;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int w = 0; w < KW; ++w) {
-      int bv;
-      if constexpr (W4) {
-        const uint32_t h = bp[w][c];
-        const int8_t lo = (int8_t)(h & 0xff), hi = (int8_t)(h >> 8);
-        bv = pack4(w4_code(lo, 0, ss[4 * w]), w4_code(lo, 1, ss[4 * w + 1]),
-                   w4_code(hi, 0, ss[4 * w + 2]), w4_code(hi, 1, ss[4 * w + 3]));
-      } else {
-        bv = bs[w][c];
-      }
-#pragma unroll
-      for (int i = 0; i < BM; ++i) acc[i] = __dp4a(as[w][i], bv, acc[i]);
-    }
-    __syncthreads();
-  }
-
-  const int gc = col0 + c;
-  if (gc >= n) return;
-#pragma unroll
-  for (int i = 0; i < BM; ++i) {
-    const int r = row0 + i;
-    if (r >= m) break;
-    if (part != nullptr) {
-      atomicAdd(part + r * n + gc, acc[i]);
-    } else {
-      y[r * n + gc] = requant_epilogue(acc[i], relu, shift);
-    }
-  }
-}
-
-__global__ void epilogue_kernel(const int32_t* __restrict__ part,
-                                int8_t* __restrict__ y, int total, int shift,
-                                int relu) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < total) y[i] = requant_epilogue(part[i], relu, shift);
-}
-
-template <bool W4>
-int launch(const void* a, const void* b, const void* ws, void* part, void* y,
-           int m, int k, int n, int bm, int splits, int steps_per_split,
-           int shift, int relu, void* stream) {
-  if (m == 0 || n == 0) return (int)cudaSuccess;
-  if (splits < 1 || steps_per_split < 1 || (splits > 1 && part == nullptr) ||
-      (bm != 16 && bm != 64))
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  int32_t* p = splits > 1 ? (int32_t*)part : nullptr;
-  if (p != nullptr) {
-    const cudaError_t e =
-        cudaMemsetAsync(p, 0, (size_t)m * n * sizeof(int32_t), st);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int a_vec = (k % 4 == 0) && ((uintptr_t)a % 4 == 0);
-  const dim3 grid((n + BN - 1) / BN, (m + bm - 1) / bm, splits);
-  if (bm == 16) {
-    matmul_kernel<16, W4><<<grid, THREADS, 0, st>>>(
-        (const int8_t*)a, (const int8_t*)b, (const int8_t*)ws, p, (int8_t*)y,
-        m, k, n, steps_per_split, a_vec, shift, relu);
-  } else {
-    matmul_kernel<64, W4><<<grid, THREADS, 0, st>>>(
-        (const int8_t*)a, (const int8_t*)b, (const int8_t*)ws, p, (int8_t*)y,
-        m, k, n, steps_per_split, a_vec, shift, relu);
-  }
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || p == nullptr) return (int)e;
-  const int total = m * n;
-  epilogue_kernel<<<(total + 255) / 256, 256, 0, st>>>(p, (int8_t*)y, total,
-                                                       shift, relu);
-  return (int)cudaGetLastError();
-}
 
 // ---------------------------------------------------------------- float --
 
@@ -511,22 +389,426 @@ int dispatch_f(const void* a, const void* b, void* y, int m, int k, int n,
 #undef MMF_CASE
   return (int)cudaErrorInvalidValue;
 }
+
+// ------------------------------------------------------------- integer --
+//
+// int8 and W4 weights, int8 activations, exact int32 sums on the int8
+// tensor cores (mma.sync m16n8k32), one launch a product. See the header.
+
+constexpr int QBK = 64;            // K elements of one warp stage
+constexpr int QAP = QBK + 16;      // bytes a staged row of a (padded: the
+                                   // eight rows a fragment load reads fall
+                                   // in eight distinct bank quads)
+
+// The tiles the integer modes are instantiated for, (BN, BM): a block of
+// BN output columns x BM rows of a (tokens). The tuner's candidates
+// (repro_torch.kernels.matmul_q8.MMQ_TILES, same order).
+#define MMQ_TILES(X)                                                       \
+  X(32, 8) X(64, 8) X(128, 8) X(32, 16) X(64, 16) X(128, 16) X(32, 32)     \
+  X(64, 32) X(128, 32) X(32, 64) X(64, 64)
+
+template <int BN, int BM, bool W4>
+struct QTile {
+  static constexpr int NO = BN / 32;             // 32-column chunks
+  static constexpr int NT = BM / 8;              // the mma's 8-token tiles
+  static constexpr int WROWS = W4 ? QBK / 2 : QBK;   // staged rows of b
+  static constexpr int WBYTES = WROWS * BN;
+  static constexpr int ABYTES = BM * QAP;
+  static constexpr int SBYTES = W4 ? QBK : 0;    // the stage's group shifts
+  static constexpr int STAGE = WBYTES + ABYTES + SBYTES;
+  // Warps a block, each with its own K stages, and stages in a warp's
+  // ring, RING - 1 in flight. The decode tiles (BM <= 16) take 8 warps of
+  // 4 stages: a warp's chain of stages is its latency (one warp a
+  // scheduler leaves each load and transpose waiting), so twice the warps
+  // with half the stages each; 4 stages hold a decode warp's share of the
+  // weight. The taller tiles take 4 warps of 3 stages, so more blocks fit
+  // an SM.
+  static constexpr int WARPS = BM <= 16 ? 8 : 4;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int RING = BM <= 16 ? 4 : 3;
+  static constexpr int RBYTES = RING * STAGE;    // one warp's ring
+  static constexpr int RED = WARPS * BM * BN * 4;    // the warps' partials
+  // the block's own bytes; a cluster's leader also takes an inbox of
+  // (cs - 1) x BM x BN int32 partial tiles past them
+  static constexpr int SMEM = WARPS * RBYTES > RED ? WARPS * RBYTES : RED;
+  // the swizzle's row shift: the four rows one fragment load reads sit in
+  // four distinct 32-byte octets of a 128-byte line (see stage_offset)
+  static constexpr int SWZ = (W4 && NO >= 2) ? 1 : 2;
+};
+
+// Byte offset, in a stage, of byte `col` (0..BN-1) of staged row `r`: the
+// stage is 32-byte octets, row-major, and the low two bits of an octet's
+// index are xor'ed with (r >> SWZ) & 3. A fragment load reads one octet of
+// each of four rows (int8: rows 4t + j, t = 0..3; W4: packed rows 2t + j),
+// and the swizzle puts them in four distinct quarters of the banks. The
+// xor changes only bits below the ones it is taken from, so it permutes
+// octets within their 128-byte line.
+template <int BN, int SWZ>
+__device__ __forceinline__ int stage_offset(int r, int col) {
+  const int oct = r * (BN / 32) + (col >> 5);
+  return ((oct ^ ((r >> SWZ) & 3)) << 5) | (col & 31);
+}
+
+// Four rows of four bytes (r[j] = row j, byte i = column i) to four
+// K-major words (c[i] = column i, byte j = row j).
+__device__ __forceinline__ void transpose4x4(const uint32_t r[4],
+                                             uint32_t c[4]) {
+  const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140);
+  const uint32_t t1 = __byte_perm(r[0], r[1], 0x7362);
+  const uint32_t t2 = __byte_perm(r[2], r[3], 0x5140);
+  const uint32_t t3 = __byte_perm(r[2], r[3], 0x7362);
+  c[0] = __byte_perm(t0, t2, 0x5410);
+  c[1] = __byte_perm(t0, t2, 0x7632);
+  c[2] = __byte_perm(t1, t3, 0x5410);
+  c[3] = __byte_perm(t1, t3, 0x7632);
+}
+
+// d += A (16 x 32 int8, row) * B (32 x 8 int8, col), int32 accumulators.
+__device__ __forceinline__ void mma_s8(int* d, uint32_t a0, uint32_t a1,
+                                       uint32_t a2, uint32_t a3,
+                                       const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b[0]), "r"(b[1]));
+}
+
+template <int BN, int BM, bool W4>
+__global__ void __launch_bounds__(QTile<BN, BM, W4>::THREADS) matmul_q_kernel(
+    const int8_t* __restrict__ a, const int8_t* __restrict__ b,
+    const int8_t* __restrict__ ws, int8_t* __restrict__ y, int m, int k,
+    int n, int cs, int shift, int relu, int b_vec, int a_vec, int s_vec) {
+  using Q = QTile<BN, BM, W4>;
+  constexpr int NO = Q::NO, NT = Q::NT;
+  extern __shared__ __align__(16) unsigned char qsm[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;        // the mma's group, thread
+  const int rank = (int)(blockIdx.x % cs);      // in the cluster (x-major)
+  const int col0 = (int)(blockIdx.x / cs) * BN, row0 = blockIdx.y * BM;
+  const int rows_b = W4 ? (k + 1) / 2 : k;
+  // The K stages are dealt round-robin to the cs x WARPS warps of the
+  // cluster: this warp takes stages q, q + nq, q + 2 nq, ...
+  const int nst = (k + QBK - 1) / QBK;
+  const int q = rank * Q::WARPS + warp, nq = cs * Q::WARPS;
+  const int mine = nst > q ? (nst - q + nq - 1) / nq : 0;
+  unsigned char* ring = qsm + warp * Q::RBYTES;
+
+  // Stage the warp's i-th K stage into ring buffer `buf`: b's rows (int8:
+  // 64, W4: 32 packed) x BN columns and a's BM rows x 64 in 16-byte
+  // cp.async copies (the bytes past an edge zero-filled), the W4 group
+  // shifts too; an operand not 16-byte aligned (or N, K off a multiple of
+  // 16) is staged byte by byte instead. One commit group a stage.
+  auto stage = [&](int i, int buf) {
+    const int k0 = (q + i * nq) * QBK;
+    const int r0 = W4 ? k0 / 2 : k0;
+    unsigned char* sw = ring + buf * Q::STAGE;
+    unsigned char* sa = sw + Q::WBYTES;
+    constexpr int CPR = BN / 16;                // 16-byte chunks a row
+    for (int e = lane; e < Q::WROWS * CPR; e += 32) {
+      const int r = e / CPR, c = (e % CPR) * 16;
+      const int gr = r0 + r, gc = col0 + c;
+      unsigned char* dst = sw + stage_offset<BN, Q::SWZ>(r, c);
+      if (b_vec) {
+        const bool ok = gr < rows_b && gc < n;
+        cp_async<16>(dst, ok ? (const void*)(b + gr * n + gc) : b,
+                     ok ? 16 : 0);
+      } else {
+        uint32_t v[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+        for (int x = 0; x < 16; ++x)
+          if (gr < rows_b && gc + x < n)
+            v[x >> 2] |= (uint32_t)(uint8_t)b[gr * n + gc + x] << (8 * (x & 3));
+        *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
+      }
+    }
+    for (int e = lane; e < BM * (QBK / 16); e += 32) {
+      const int r = e / (QBK / 16), c = (e % (QBK / 16)) * 16;
+      const int gr = row0 + r, gk = k0 + c;
+      unsigned char* dst = sa + r * QAP + c;
+      if (a_vec) {
+        const bool ok = gr < m && gk < k;
+        cp_async<16>(dst, ok ? (const void*)(a + gr * k + gk) : a,
+                     ok ? 16 : 0);
+      } else {
+        uint32_t v[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+        for (int x = 0; x < 16; ++x)
+          if (gr < m && gk + x < k)
+            v[x >> 2] |= (uint32_t)(uint8_t)a[gr * k + gk + x] << (8 * (x & 3));
+        *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
+      }
+    }
+    if constexpr (W4) {
+      unsigned char* ss = sa + Q::ABYTES;
+      if (s_vec) {
+        if (lane < QBK / 16) {
+          const int gk = k0 + lane * 16;
+          cp_async<16>(ss + lane * 16, gk < k ? (const void*)(ws + gk) : ws,
+                       gk < k ? 16 : 0);
+        }
+      } else {
+        for (int e = lane; e < QBK; e += 32)
+          ss[e] = k0 + e < k ? (unsigned char)ws[k0 + e] : 0;
+      }
+    }
+    cp_async_commit();
+  };
+
+  int acc[NO][NT][8];
+#pragma unroll
+  for (int c = 0; c < NO; ++c)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int x = 0; x < 8; ++x) acc[c][j][x] = 0;
+
+  // The sums of one stage. Thread (g, t) of the mma owns, in each 32-column
+  // chunk c, columns 32c + 4g .. 32c + 4g + 3 and K groups t and 4 + t of
+  // each 32-deep half: it reads their 4 x 4 byte blocks (W4: 2 packed rows
+  // x 4, unpacked and shifted) as words and transposes them to K-major
+  // words. The weights are the mma's A (its rows: output columns 32c + 4g
+  // and + 1 in one mma, + 2 and + 3 in the other), a's rows its B (the
+  // tokens: rows 8j + g, K-major as stored), so each 16 x 8 result is 16
+  // output columns x 8 tokens.
+  auto compute = [&](int buf) {
+    const unsigned char* sw = ring + buf * Q::STAGE;
+    const unsigned char* sa = sw + Q::WBYTES;
+#pragma unroll
+    for (int ks = 0; ks < QBK / 32; ++ks) {
+      uint32_t bf[NT][2];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const unsigned char* p = sa + (8 * j + g) * QAP + 32 * ks + 4 * t;
+        bf[j][0] = *reinterpret_cast<const uint32_t*>(p);
+        bf[j][1] = *reinterpret_cast<const uint32_t*>(p + 16);
+      }
+      // W4: the group shifts of this thread's 2 x 4 K elements (K groups t
+      // and 4 + t of the half) and their byte masks, once for every chunk
+      uint32_t sh[2][4], keep[2][4];
+      if constexpr (W4) {
+        const unsigned char* ss = sa + Q::ABYTES + 32 * ks + 4 * t;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint32_t w = *reinterpret_cast<const uint32_t*>(ss + 16 * h);
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            sh[h][x] = (w >> (8 * x)) & 0xffu;
+            keep[h][x] = w4_keep(sh[h][x]);
+          }
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < NO; ++c) {
+        uint32_t fr[2][4];               // [K half][column 4g + i]
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          uint32_t rw[4];                // [k of the group][column 4g + i]
+          if constexpr (W4) {
+#pragma unroll
+            for (int jj = 0; jj < 2; ++jj) {
+              const int r = 16 * ks + 8 * h + 2 * t + jj;
+              const uint32_t pk = *reinterpret_cast<const uint32_t*>(
+                  sw + stage_offset<BN, Q::SWZ>(r, 32 * c + 4 * g));
+              rw[2 * jj] = w4_codes4(pk & 0x0f0f0f0fu, sh[h][2 * jj],
+                                     keep[h][2 * jj]);
+              rw[2 * jj + 1] = w4_codes4((pk >> 4) & 0x0f0f0f0fu,
+                                         sh[h][2 * jj + 1],
+                                         keep[h][2 * jj + 1]);
+            }
+          } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int r = 32 * ks + 16 * h + 4 * t + j;
+              rw[j] = *reinterpret_cast<const uint32_t*>(
+                  sw + stage_offset<BN, Q::SWZ>(r, 32 * c + 4 * g));
+            }
+          }
+          transpose4x4(rw, fr[h]);
+        }
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          mma_s8(&acc[c][j][0], fr[0][0], fr[0][1], fr[1][0], fr[1][1],
+                 bf[j]);
+          mma_s8(&acc[c][j][4], fr[0][2], fr[0][3], fr[1][2], fr[1][3],
+                 bf[j]);
+        }
+      }
+    }
+  };
+
+  // A ring of RING stages, RING - 1 in flight, private to the warp: each
+  // iteration commits one copy group (empty past the warp's last stage), so
+  // waiting until at most RING - 2 are pending means stage i has landed;
+  // __syncwarp makes every lane's copies visible to the others, and the
+  // buffer refilled at i was last read at i - 1, before that __syncwarp.
+  constexpr int RING = Q::RING;
+#pragma unroll
+  for (int i = 0; i < RING - 1; ++i) {
+    if (i < mine) stage(i, i);
+    else cp_async_commit();
+  }
+  for (int i = 0; i < mine; ++i) {
+    cp_async_wait<RING - 2>();
+    __syncwarp();
+    if (i + RING - 1 < mine) stage(i + RING - 1, (i + RING - 1) % RING);
+    else cp_async_commit();
+    compute(i % RING);
+  }
+  cp_async_wait<0>();
+
+  // The K reduction, on chip: each warp's partial tile into shared memory
+  // (over the rings, once every warp is done), summed over the block's
+  // warps; a cluster's other blocks store their sums into the leader's
+  // inbox (distributed shared memory, past the leader's rings, so they may
+  // land while it still computes) and arrive at one cluster barrier, whose
+  // release / acquire orders those stores before the leader's reads; the
+  // leader adds them, applies the epilogue and stores int8.
+  __syncthreads();
+  int* red = reinterpret_cast<int*>(qsm);
+  {
+    int* mine_red = red + warp * BM * BN;
+#pragma unroll
+    for (int c = 0; c < NO; ++c)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        int* p = mine_red + (8 * j + 2 * t) * BN + 32 * c + 4 * g;
+        const int* d = acc[c][j];
+        *reinterpret_cast<int4*>(p) = make_int4(d[0], d[2], d[4], d[6]);
+        *reinterpret_cast<int4*>(p + BN) = make_int4(d[1], d[3], d[5], d[7]);
+      }
+  }
+  __syncthreads();
+  constexpr int E = BM * BN;
+  int* inbox = reinterpret_cast<int*>(qsm + Q::SMEM);
+  cg::cluster_group cluster = cg::this_cluster();
+  if (rank > 0) {
+    int* dst = cluster.map_shared_rank(inbox, 0) + (rank - 1) * E;
+    for (int e = threadIdx.x; e < E; e += Q::THREADS) {
+      int s = red[e];
+#pragma unroll
+      for (int w = 1; w < Q::WARPS; ++w) s += red[w * E + e];
+      dst[e] = s;
+    }
+    cluster.sync();
+    return;
+  }
+  constexpr int PER = (E + Q::THREADS - 1) / Q::THREADS;
+  int sums[PER];
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int e = i * Q::THREADS + threadIdx.x;
+    int s = 0;
+    if (e < E) {
+      s = red[e];
+#pragma unroll
+      for (int w = 1; w < Q::WARPS; ++w) s += red[w * E + e];
+    }
+    sums[i] = s;
+  }
+  if (cs > 1) cluster.sync();
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int e = i * Q::THREADS + threadIdx.x;
+    if (e >= E) break;
+    int s = sums[i];
+    for (int r = 0; r < cs - 1; ++r) s += inbox[r * E + e];
+    const int gr = row0 + e / BN, gc = col0 + e % BN;
+    if (gr < m && gc < n) y[gr * n + gc] = requant_epilogue(s, relu, shift);
+  }
+}
+
+// The launch of one integer tile: plan[0..6] = grid x, grid y, cluster
+// size, threads, dynamic shared bytes, K stages of the busiest warp, stages
+// in a warp's ring (what repro_torch.kernels.matmul_q8.mmq_plan computes);
+// with `plan` non-null nothing is launched.
+template <int BN, int BM, bool W4>
+int launch_q(const void* a, const void* b, const void* ws, void* y, int m,
+             int k, int n, int cs, int shift, int relu, cudaStream_t st,
+             int* plan) {
+  using Q = QTile<BN, BM, W4>;
+  if (cs != 1 && cs != 2 && cs != 4 && cs != 8)
+    return (int)cudaErrorInvalidValue;
+  const int gx = (n + BN - 1) / BN * cs, gy = (m + BM - 1) / BM;
+  const int smem = Q::SMEM + (cs - 1) * BM * BN * 4;
+  if (plan != nullptr) {
+    const int nst = (k + QBK - 1) / QBK;
+    plan[0] = gx, plan[1] = gy, plan[2] = cs, plan[3] = Q::THREADS,
+    plan[4] = smem, plan[5] = (nst + cs * Q::WARPS - 1) / (cs * Q::WARPS),
+    plan[6] = Q::RING;
+    return (int)cudaSuccess;
+  }
+  if (m == 0 || n == 0) return (int)cudaSuccess;
+  auto kern = matmul_q_kernel<BN, BM, W4>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int b_vec = n % 16 == 0 && (uintptr_t)b % 16 == 0;
+  const int a_vec = k % 16 == 0 && (uintptr_t)a % 16 == 0;
+  const int s_vec = k % 16 == 0 && (uintptr_t)ws % 16 == 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(gx, gy);
+  cfg.blockDim = dim3(Q::THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, kern, (const int8_t*)a, (const int8_t*)b, (const int8_t*)ws,
+      (int8_t*)y, m, k, n, cs, shift, relu, b_vec, a_vec, s_vec);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// Dispatch on (bn, bm) to the instantiated tile; `plan` non-null asks for
+// the launch arithmetic only.
+template <bool W4>
+int dispatch_q(const void* a, const void* b, const void* ws, void* y, int m,
+               int k, int n, int bn, int bm, int cs, int shift, int relu,
+               cudaStream_t st, int* plan) {
+#define MMQ_CASE(BN, BM)                                                  \
+  if (bn == BN && bm == BM)                                               \
+    return launch_q<BN, BM, W4>(a, b, ws, y, m, k, n, cs, shift, relu, st, \
+                                plan);
+  MMQ_TILES(MMQ_CASE)
+#undef MMQ_CASE
+  return (int)cudaErrorInvalidValue;
+}
 }  // namespace
 
-extern "C" int repro_matmul_q8(const void* a, const void* b, void* part,
-                               void* y, int m, int k, int n, int bm,
-                               int splits, int steps_per_split, int shift,
-                               int relu, void* stream) {
-  return launch<false>(a, b, nullptr, part, y, m, k, n, bm, splits,
-                       steps_per_split, shift, relu, stream);
+// (bn, bm) must be one of MMQ_TILES and cluster 1, 2, 4 or 8.
+extern "C" int repro_matmul_q8(const void* a, const void* b, void* y, int m,
+                               int k, int n, int bn, int bm, int cluster,
+                               int shift, int relu, void* stream) {
+  return dispatch_q<false>(a, b, nullptr, y, m, k, n, bn, bm, cluster, shift,
+                           relu, (cudaStream_t)stream, nullptr);
 }
 
 extern "C" int repro_matmul_w4(const void* a, const void* b, const void* ws,
-                               void* part, void* y, int m, int k, int n,
-                               int bm, int splits, int steps_per_split,
-                               int shift, int relu, void* stream) {
-  return launch<true>(a, b, ws, part, y, m, k, n, bm, splits, steps_per_split,
-                      shift, relu, stream);
+                               void* y, int m, int k, int n, int bn, int bm,
+                               int cluster, int shift, int relu,
+                               void* stream) {
+  return dispatch_q<true>(a, b, ws, y, m, k, n, bn, bm, cluster, shift, relu,
+                          (cudaStream_t)stream, nullptr);
+}
+
+// The integer modes' launch arithmetic for (m, k, n) and a tile and cluster
+// size: plan[0..6] = grid x, grid y, cluster size, threads, shared bytes,
+// K stages of the busiest warp, stages in a warp's ring; w4: 0 int8, 1 W4.
+// Nothing is launched.
+extern "C" int repro_matmul_q8_plan(int* plan, int m, int k, int n, int bn,
+                                    int bm, int cluster, int w4) {
+  if (w4)
+    return dispatch_q<true>(nullptr, nullptr, nullptr, nullptr, m, k, n, bn,
+                            bm, cluster, 0, 0, nullptr, plan);
+  return dispatch_q<false>(nullptr, nullptr, nullptr, nullptr, m, k, n, bn,
+                           bm, cluster, 0, 0, nullptr, plan);
 }
 
 // dtype: 0 float32, 1 bfloat16 (a, b and y alike). (bm, bn, tm, tn) must be

@@ -8,11 +8,15 @@ commutes with the positive power-of-two scale, so pooling int8 codes is
 exact and activations stay int8 across the pool. What bounds it on an
 H100: pure data movement (input read once, a quarter of it written for
 2x2/2), a few MB per launch at the model's shapes, so HBM time is about a
-microsecond and a launch's fixed cost is of the same order. The design:
-one thread per output element, channels fastest for consecutive-byte
-loads. The float mode (:func:`maxpool2d_f`, float32 or bfloat16) is the
-same design; a max rounds nothing, so it is exact, and bitwise equal to
-JAX's oracle as well as to the plain version (NaN propagates, as in
+microsecond and a launch's fixed cost is of the same order. The int8
+design: where C is a multiple of 16 and x and y are 16-byte aligned (every
+pool of the CNN plans), a thread owns 16 channels of one output pixel, one
+16-byte load a window tap and a bytewise signed max (``__vmaxs4``); else
+one thread per output byte, channels fastest. :func:`pool_plan` mirrors
+the source's choice and grid (``repro_maxpool2d_s8_plan``). The float mode
+(:func:`maxpool2d_f`, float32 or bfloat16) is one thread per output
+element; a max rounds nothing, so it is exact, and bitwise equal to JAX's
+oracle as well as to the plain version (NaN propagates, as in
 ``jnp.max``). Both wrappers take ``threads``, the block size of the launch
 (the tuner's knob); it changes no output.
 
@@ -24,12 +28,25 @@ from __future__ import annotations
 import torch
 
 from ._build import check_launch, library
-from .common import DEFAULT_THREADS, check_threads, float_code
+from .common import DEFAULT_THREADS, cdiv, check_threads, float_code
 from .conv_im2col import check_cuda_operand, check_elements
+
+#: channels a thread of the int8 vector path owns (one 16-byte load a tap)
+POOL_VEC = 16
 
 
 def pool_out(size: int, window: int, stride: int) -> int:
     return (size - window) // stride + 1
+
+
+def pool_plan(n: int, hout: int, wout: int, c: int, aligned: bool,
+              threads: int = DEFAULT_THREADS) -> dict:
+    """The int8 launch, as ``repro_maxpool2d_s8_plan`` in ``csrc/pool.cu``
+    computes it: ``vector`` (C a multiple of 16 and x and y 16-byte
+    ``aligned``: 16 channels a thread), ``blocks`` and ``threads``."""
+    vector = c % POOL_VEC == 0 and bool(aligned)
+    total = n * hout * wout * (c // POOL_VEC if vector else c)
+    return dict(blocks=cdiv(total, threads), threads=threads, vector=vector)
 
 
 def maxpool2d_plain(x, *, window: int = 2, stride=None):

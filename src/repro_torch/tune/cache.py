@@ -33,8 +33,10 @@ from repro_torch.obs import metrics as _obs_metrics
 #: tile (bm, bn, tm, tn) in place of bm; v3: shift_conv2d's tile (bp, q) in
 #: place of threads, in every mode; v4: the float conv2d's and the float
 #: add_conv2d's tile (bp, q) in place of threads; v5: depthwise2d's tile
-#: (pt, rows) and the integer add_conv2d's tile (bp, q) in place of threads
-SCHEMA_VERSION = 5
+#: (pt, rows) and the integer add_conv2d's tile (bp, q) in place of threads;
+#: v6: the integer matmul's tile (bn, bm) and cluster in place of bm /
+#: splits
+SCHEMA_VERSION = 6
 #: the environment variable naming the default cache file
 ENV_VAR = "REPRO_TORCH_TUNE_CACHE"
 

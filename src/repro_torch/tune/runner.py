@@ -15,7 +15,10 @@ Two ways to pick a schedule, as in the JAX package:
   for the tiled kernels, conv2d, shift_conv2d, add_conv2d and the float
   matmul, the operations term is the instructions their tiles issue, over
   the SMs' issue rate, slowed where too few warps are resident to hide
-  latency; for depthwise2d the bytes term counts its staged halo and the
+  latency; for the integer matmul, whose blocks wait on device memory,
+  its waves of blocks times each block's chain (trips to device memory,
+  instructions, a cluster's barrier) plus its bytes, constants fitted to
+  the card's sweep of its configs; for depthwise2d the bytes term counts its staged halo and the
   sectors a narrow channel slab wastes, and a grid of fewer than 128
   blocks is slowed in proportion).
 
@@ -50,8 +53,22 @@ HBM_BPS = 3.35e12
 F32_FMA_FLOPS = 66.9e12
 #: float32 operations with no FMA form (|x - w|'s subtract and add, max)
 F32_OPS = 33.45e12
-#: int32 lanes: 132 SMs x 64 x 1.98 GHz (dp4a does 4 int8 MACs per lane op)
+#: int32 lanes: 132 SMs x 64 x 1.98 GHz
 INT32_OPS = 16.73e12
+#: int8 operations on the tensor cores (dense peak; the integer matmul's)
+INT8_TC_OPS = 1979e12
+#: the integer matmul's latency terms, fitted to every config's device time
+#: at Qwen2-0.5B's FFN shapes (scripts/torch_matmul_tiles.py on an NVIDIA
+#: H100 80GB HBM3 at 700 W, PERF.md): a trip to device memory and back (a
+#: warp requests its stages ring - 1 at a time), a warp instruction of one
+#: warp's chain (about 8 cycles), a cluster's launch and barrier, and its
+#: leader's inbox per block and 256 outputs; and the L2's rate for the
+#: operands a grid reads more than once
+DRAM_TRIP_S, WARP_INSTR_S = 0.25e-6, 4e-9
+CLUSTER_S, CLUSTER_TILE_S = 2e-6, 2e-7
+L2_BPS = 6e12
+#: bytes device memory moves for one access however few are asked for
+DRAM_BURST = 64
 #: fixed cost of one kernel launch on the device
 LAUNCH_S = 3e-6
 #: device memory's access granularity (bytes), and the blocks a job needs
@@ -118,8 +135,9 @@ def _elem_bytes(dtype) -> Tuple[float, float]:
 
 def _work(sig: ShapeSig, dtype) -> Tuple[float, float]:
     """(bytes, operation seconds) of one invocation: each input read once
-    and each output written once, and its arithmetic at the CUDA cores'
-    rate for its type (the port's kernels use no tensor cores)."""
+    and each output written once, and its arithmetic at the rate of the
+    units that run it: the CUDA cores' for its type, the integer matmul's
+    the int8 tensor cores'."""
     g = sig.get
     k = sig.kernel
     xb, wb = _elem_bytes(dtype)
@@ -152,8 +170,7 @@ def _work(sig: ShapeSig, dtype) -> Tuple[float, float]:
     elif k == "matmul":
         macs = out * g("k")
         nbytes = xb * g("m") * g("k") + wb * g("k") * g("n") + xb * out
-        return nbytes, (macs / (4 * INT32_OPS) if ints
-                        else 2 * macs / F32_FMA_FLOPS)
+        return nbytes, 2 * macs / (INT8_TC_OPS if ints else F32_FMA_FLOPS)
     else:
         raise ValueError(f"unknown kernel {k!r}")
     return nbytes, (macs / INT32_OPS if ints else 2 * macs / F32_FMA_FLOPS)
@@ -240,14 +257,66 @@ def _tiled_s(sig: ShapeSig, eff: Dict[str, int], dtype) -> float:
     return _issue_s(gx * gy, t, plan["smem"], per_thread)
 
 
+def _mmq_s(sig: ShapeSig, eff: Dict[str, int], dtype) -> float:
+    """The integer matmul's device seconds under (bn, bm, cluster): one
+    launch, no workspace, blocks that stream K and wait on device memory.
+    The waves of blocks the SMs hold at once (by shared memory), each as
+    long as its warps' chain: a trip to device memory per ring - 1 K
+    stages, the stages' instructions (a's fragments, the weights' word
+    loads and transposes, W4's unpack, the mma, the copies) slowed by the
+    warps that share a scheduler, and a cluster's launch, barrier and
+    inbox; plus the bytes, each operand once over HBM_BPS (a weight row
+    read in pieces narrower than DRAM_BURST counted whole) or all the
+    grid's re-reads (the weight once a row tile, a once a column tile)
+    over L2_BPS, slowed where the grid has fewer than WARPS_TO_HIDE warps
+    an SM, or its operations at the tensor cores' rate if longer."""
+    from repro_torch.kernels.matmul_q8 import mmq_plan
+    m, kk, n = sig.get("m"), sig.get("k"), sig.get("n")
+    w4 = dtype_key(dtype) == "w4a8"
+    bn, bm, cs = eff["bn"], eff["bm"], eff["cluster"]
+    plan = mmq_plan(m, kk, n, bn, bm, cs, w4)
+    gx, gy = plan["grid"]
+    blocks, tiles_n = gx * gy, gx // cs
+    resident = max(1, min(BLOCKS_PER_SM, THREADS_PER_SM // plan["threads"],
+                          SMEM_PER_SM // plan["smem"]))
+    waves = math.ceil(blocks / (SMS * resident))
+    no, nt = bn // 32, bm // 8
+    # per 32-deep half of a stage: nt x 2 fragment loads of a; per 32
+    # columns 8 word loads and 16 byte permutes (W4: 4 loads and the
+    # unpack), 2 nt mma and the addressing; then the stage's 16-byte
+    # copies, a lane's share
+    per_half = 2 * nt + no * ((28 if w4 else 24) + 2 * nt + 4)
+    copies = ((32 if w4 else 64) * bn + 64 * bm) / 16 / 32
+    instr = 2 * per_half + STAGE_INSTR * copies
+    sharing = max(1.0, min(blocks / SMS, resident) * plan["threads"] / 32
+                  / ISSUE_PER_CLK)
+    chain = plan["stages"] * instr * WARP_INSTR_S * sharing
+    trips = _space.cdiv(plan["stages"], plan["ring"] - 1)
+    cluster = (CLUSTER_S + CLUSTER_TILE_S * (cs - 1) * bm * bn / 256
+               if cs > 1 else 0.0)
+    xb, wb = _elem_bytes(dtype)
+    # a block reads bn bytes of each weight row: narrower than a DRAM burst,
+    # the rest of the burst is read for nothing
+    burst = max(1.0, DRAM_BURST / bn)
+    once = wb * kk * n * burst + xb * m * kk + xb * m * n
+    reread = wb * kk * n * gy + xb * m * kk * tiles_n + xb * m * n
+    warps = blocks * plan["threads"] / 32
+    bytes_s = (max(once / HBM_BPS, reread / L2_BPS)
+               / min(1.0, warps / (SMS * WARPS_TO_HIDE)))
+    ops_s = _work(sig, dtype)[1]
+    return (waves * (trips * DRAM_TRIP_S + chain + cluster)
+            + max(bytes_s, ops_s))
+
+
 def estimate_s(sig: ShapeSig, config: Dict[str, int], dtype) -> float:
     """Estimated seconds for one invocation under ``config``."""
     k = sig.kernel
     eff = effective_config(sig, config, dtype)
+    if k == "matmul" and integer(dtype):
+        return _mmq_s(sig, eff, dtype) + LAUNCH_S
     nbytes, ops_s = _work(sig, dtype)
     if _space.tiled(k, dtype) or (k == "matmul" and not integer(dtype)):
         return max(nbytes / HBM_BPS, _tiled_s(sig, eff, dtype)) + LAUNCH_S
-    launches = 1
     if k == "depthwise2d":
         # a staged-row block reads its rows' and columns' halo too, and a
         # slab of fewer channels than a pixel reads whole 32-byte sectors
@@ -270,24 +339,12 @@ def estimate_s(sig: ShapeSig, config: Dict[str, int], dtype) -> float:
     if k in _space.THREADED:
         threads = eff["threads"]
         blocks = _space.cdiv(_space.outputs(sig), threads)
-    elif k == "causal_conv1d":
+    else:                                        # causal_conv1d
         threads = eff["threads"]
         blocks = (_space.cdiv(sig.get("d"), threads)
                   * _space.cdiv(sig.get("l"), 32) * sig.get("b"))
-    else:                                        # matmul: 256-column tiles
-        m, kk, n = sig.get("m"), sig.get("k"), sig.get("n")
-        xb, wb = _elem_bytes(dtype)
-        threads, splits = 256, eff.get("splits", 1)
-        col_tiles, row_tiles = _space.cdiv(n, 256), _space.cdiv(m, eff["bm"])
-        blocks = col_tiles * row_tiles * splits
-        # A is re-read by every column tile, B by every row tile
-        nbytes += (xb * m * kk * (col_tiles - 1)
-                   + wb * kk * n * (row_tiles - 1))
-        if splits > 1:       # zeroed workspace, atomics, epilogue kernel
-            nbytes += 3 * 4 * m * n
-            launches += 2
     return (max(nbytes / HBM_BPS, ops_s) * _tail(blocks, threads)
-            + launches * LAUNCH_S)
+            + LAUNCH_S)
 
 
 def analytic_config(sig: ShapeSig, dtype="float32") -> Dict[str, int]:

@@ -20,11 +20,14 @@ names, which mean nothing to them:
   default is the wrapper's (``kernels.conv_im2col.default_tile`` /
   ``default_f_tile``, ``kernels.conv_shift.default_shift_tile``), which
   depends on the shape;
-* ``matmul``: in the integer modes the tile height ``bm`` (16 or 64;
-  default 16 for M <= 32, else 64) and the number of K ``splits`` (1, the
-  wrapper's own choice, twice and four times it, capped at the 32-deep K
-  stages); in the float mode the block tile ``bm`` x ``bn`` and the thread
-  tile ``tm`` x ``tn``, one of the instantiated ``MMF_TILES`` (default
+* ``matmul``: in the integer modes the block's tile, ``bn`` output
+  columns x ``bm`` rows of a, one of the instantiated ``MMQ_TILES`` (``bm``
+  at most the least power of two from 8 that holds M), and the
+  ``cluster`` of blocks that split K (1, 2, 4 or 8, and no more than give
+  every warp a 64-deep K stage); default
+  ``kernels.matmul_q8.default_mmq_config``, by the shape; in the float
+  mode the block tile ``bm`` x ``bn`` and the thread tile ``tm`` x ``tn``,
+  one of the instantiated ``MMF_TILES`` (default
   ``kernels.matmul_q8.default_mmf_tile``, by the shape). The float mode
   sums K in order and has no split;
 * ``causal_conv1d``: channels per block, ``threads``, 64, 128 or 256
@@ -34,11 +37,12 @@ No knob changes the value of an output: each changes only the launch
 shape, and the integer split sums are exact. So every candidate gives
 output bitwise equal to the default's, which is what makes the tuner safe
 to leave on. :func:`launch_errors` holds each config to the H100's limits:
-the grid, threads per block and, for the kernels that stage tiles in
+the grid, threads per block, the integer matmul's cluster (at most 8
+blocks, the portable limit) and, for the kernels that stage tiles in
 shared memory (``conv2d``, ``depthwise2d``, ``shift_conv2d``,
-``add_conv2d``, the float ``matmul``), the Hopper footprint: their tiles
-are dynamic shared memory, at most 232,448 bytes a block (past 48 KB the
-sources raise the kernel's limit with ``cudaFuncSetAttribute``).
+``add_conv2d``, ``matmul``), the Hopper footprint: their tiles are dynamic
+shared memory, at most 232,448 bytes a block (past 48 KB the sources raise
+the kernel's limit with ``cudaFuncSetAttribute``).
 
 A *config* is a plain dict of those kwargs. :func:`candidates` enumerates
 the configs a shape can launch, default first and deduplicated by the
@@ -65,9 +69,12 @@ from repro_torch.kernels.conv_im2col import (CONV_BP, CONV_MAX_THREADS,
                                              knob_errors, tile_errors)
 from repro_torch.kernels.conv_shift import (default_shift_tile, shift_f_plan,
                                             shift_plan)
-from repro_torch.kernels.matmul_q8 import (BLOCK_K, MMF_KNOBS, MMF_TILES,
-                                           default_bm, default_mmf_tile,
-                                           mmf_tile_errors, split_plan)
+from repro_torch.kernels.matmul_q8 import (MMF_KNOBS, MMF_TILES,
+                                           MMQ_CLUSTERS, MMQ_KNOBS,
+                                           MMQ_TILES, default_mmf_tile,
+                                           default_mmq_config, mmf_tile_errors,
+                                           mmq_bm_cap, mmq_cluster_cap,
+                                           mmq_config_errors)
 
 # Kernels the tuner knows about. Names match repro_torch.kernels.ops.
 KERNELS = ("conv2d", "depthwise2d", "shift_conv2d", "add_conv2d",
@@ -78,10 +85,8 @@ THREADED = ("maxpool2d",)
 #: the kernels whose knobs are an implicit GEMM's tile (bp, q)
 TILED = ("conv2d", "shift_conv2d", "add_conv2d")
 THREADS = (DEFAULT_THREADS, 64, 128, 512, 1024)
-#: matmul tile heights
-MM_BM = (16, 64)
 #: SMs of the card the space is sized for (an H100 SXM): the integer
-#: matmul's default K split depends on it
+#: matmul's default cluster depends on it
 SMS = 132
 #: CUDA grid limits: x, and y and z
 MAX_GRID_X, MAX_GRID_YZ = 2 ** 31 - 1, 65535
@@ -206,7 +211,7 @@ def knobs(kernel: str, dtype) -> Tuple[str, ...]:
     if kernel == "depthwise2d":
         return ("pt", "rows")
     if kernel == "matmul":
-        return ("bm", "splits") if integer(dtype) else MMF_KNOBS
+        return MMQ_KNOBS if integer(dtype) else MMF_KNOBS
     raise ValueError(f"unknown kernel {kernel!r}")
 
 
@@ -274,30 +279,26 @@ def default_config(kernel: str, sig: ShapeSig = None,
     m, k, n = sig.get("m"), sig.get("k"), sig.get("n")
     if not integer(dtype):
         return default_mmf_tile(m, n)
-    return {"bm": default_bm(m), "splits": split_plan(m, k, n, SMS)[0]}
+    return default_mmq_config(m, k, n, SMS)
 
 
 def effective_config(sig: ShapeSig, cfg: Dict[str, int],
                      dtype="float32") -> Dict[str, int]:
     """The launch ``cfg`` runs on this shape, absent knobs at their
-    default: a requested K split becomes the number of non-empty K ranges
-    the wrapper launches. Two configs with equal effective configs are the
-    same launch; the space dedupes on this."""
+    default. Two configs with equal effective configs are the same launch;
+    the space dedupes on this."""
     eff = dict(default_config(sig.kernel, sig, dtype))
     eff.update({k: v for k, v in cfg.items() if k in eff})
-    if sig.kernel == "matmul" and "splits" in eff:
-        m, k, n = sig.get("m"), sig.get("k"), sig.get("n")
-        eff["splits"] = split_plan(m, k, n, SMS, bm=eff["bm"],
-                                   splits=eff["splits"])[0]
     return eff
 
 
 def launch_errors(sig: ShapeSig, cfg: Dict[str, int], dtype) -> List[str]:
     """Why an (effective) config cannot launch on this shape on an H100:
-    the block size, the grid limits and, for the kernels that stage tiles
-    (conv2d, depthwise2d, shift_conv2d, add_conv2d, the float matmul), the
-    Hopper footprint: shared bytes per block (static at most 48 KB,
-    dynamic at most 232,448) and threads per block. Empty if it can."""
+    the block size, the grid limits, the integer matmul's cluster (at most
+    8) and, for the kernels that stage tiles (conv2d, depthwise2d,
+    shift_conv2d, add_conv2d, matmul), the Hopper footprint: shared bytes
+    per block (static at most 48 KB, dynamic at most 232,448) and threads
+    per block. Empty if it can."""
     k = sig.kernel
     errs = []
     if tiled(k, dtype):
@@ -341,15 +342,9 @@ def launch_errors(sig: ShapeSig, cfg: Dict[str, int], dtype) -> List[str]:
                 or sig.get("b") > MAX_GRID_YZ):
             errs.append("L / 32 or B exceeds the grid's y or z limit")
     elif k == "matmul":
-        bm = cfg["bm"]
-        if bm not in MM_BM:
-            errs.append(f"bm={bm!r} is not one of {MM_BM}")
-        elif cdiv(sig.get("m"), bm) > MAX_GRID_YZ:
-            errs.append(f"M / bm = {cdiv(sig.get('m'), bm)} exceeds the "
-                        "grid's y limit")
-        s = cfg.get("splits", 1)
-        if not isinstance(s, int) or not 1 <= s <= MAX_GRID_YZ:
-            errs.append(f"splits={s!r} is not in [1, {MAX_GRID_YZ}]")
+        errs.extend(mmq_config_errors(sig.get("m"), sig.get("k"),
+                                      sig.get("n"), cfg,
+                                      dtype_key(dtype) == "w4a8"))
     return errs
 
 
@@ -391,11 +386,11 @@ def candidates(sig: ShapeSig, dtype="float32") -> Iterator[Dict[str, int]]:
         for tile in MMF_TILES:
             emit(dict(zip(MMF_KNOBS, tile)))
     else:                                          # integer matmul
-        d = default["splits"]
-        steps = cdiv(sig.get("k"), BLOCK_K)
-        for bm in MM_BM:
-            for s in sorted({1, d, 2 * d, 4 * d}):
-                emit({"bm": bm, "splits": max(1, min(s, steps))})
+        bm_cap = mmq_bm_cap(sig.get("m"))
+        for bn, bm in MMQ_TILES:
+            for c in MMQ_CLUSTERS:
+                if bm <= bm_cap and c <= mmq_cluster_cap(sig.get("k"), bm):
+                    emit({"bn": bn, "bm": bm, "cluster": c})
     return iter(out)
 
 

@@ -70,6 +70,51 @@ def test_maxpool2d_s8_kernel_equals_plain(dev, window, stride):
     assert torch.equal(got, maxpool2d_plain(x, window=window, stride=stride))
 
 
+@pytest.mark.parametrize("c", [16, 32, 64, 19])
+@pytest.mark.parametrize("window,stride", [(2, 2), (3, 2), (2, 1)])
+@pytest.mark.parametrize("offset", [0, 16, 1])
+def test_maxpool2d_s8_vector_and_scalar_paths(dev, c, window, stride,
+                                              offset):
+    """The 16-channel vector path (C a multiple of 16, x aligned; an
+    offset of 16 bytes keeps it) and the scalar path (C = 19, or x at an
+    odd address) equal the plain version, -128 and 127 included."""
+    from repro_torch.kernels import maxpool2d_plain, maxpool2d_s8
+    rng = np.random.default_rng(30)
+    x = _i8(rng, (3, 11, 10, c), dev)
+    x.view(-1)[::7] = -128
+    x.view(-1)[3::11] = 127
+    if offset:
+        buf = torch.zeros(x.numel() + offset, dtype=torch.int8, device=dev)
+        view = buf[offset:].view(x.shape)
+        view.copy_(x)
+        x = view
+    before = maxpool2d_s8.launches
+    got = maxpool2d_s8(x, window=window, stride=stride)
+    torch.cuda.synchronize()
+    assert maxpool2d_s8.launches == before + 1
+    assert torch.equal(got, maxpool2d_plain(x, window=window, stride=stride))
+
+
+def test_pool_plan_equals_the_source(dev):
+    """pool_plan's vector/scalar choice and grid equal the source's."""
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.pool import pool_plan
+    lib = _build.library()
+    for n, ho, wo, c in [(256, 16, 16, 16), (256, 8, 8, 32), (256, 4, 4, 64),
+                         (2, 7, 6, 19), (3, 5, 4, 33), (1, 1, 1, 16)]:
+        for aligned in (0, 1):
+            for threads in (64, 256, 1024):
+                out = (ctypes.c_int * 3)()
+                assert lib.repro_maxpool2d_s8_plan(out, n, ho, wo, c, aligned,
+                                                   threads) == 0
+                p = pool_plan(n, ho, wo, c, aligned, threads)
+                assert list(out) == [p["blocks"], p["threads"],
+                                     int(p["vector"])]
+    out = (ctypes.c_int * 3)()
+    assert lib.repro_maxpool2d_s8_plan(out, 1, 2, 2, 16, 1, 48) != 0
+
+
 def _grid(c, d):
     grid = [(a, b) for a in range(-d, d + 1) for b in range(-d, d + 1)]
     return np.array([grid[i % len(grid)] for i in range(c)], np.int32)
@@ -226,6 +271,8 @@ def test_w4_plan_cuda_trunk_equals_torch_trunk(dev, prim):
 
 
 MATMUL_SHAPES = [(8, 896, 4864), (8, 4864, 896), (64, 896, 4864),
+                 (1, 896, 4864), (16, 896, 4864), (17, 896, 100),
+                 (32, 896, 4864), (128, 896, 4864), (64, 4864, 896),
                  (5, 45, 37), (13, 33, 37), (70, 128, 64), (1, 1, 1)]
 
 
@@ -259,6 +306,91 @@ def test_matmul_w4_kernel_equals_plain(dev, shape, all_max):
     assert matmul_w4.launches == before + 1
     assert torch.equal(got, matmul_w4_plain(a, wp, ws, requant_shift=9,
                                             act="relu"))
+
+
+@pytest.mark.parametrize("w4", [False, True], ids=["q8", "w4"])
+@pytest.mark.parametrize("m,k,n", [(8, 896, 4864), (8, 4864, 896),
+                                   (20, 100, 48), (9, 45, 37)], ids=str)
+@pytest.mark.parametrize("offset", [1, 4, 16])
+def test_matmul_operands_at_an_offset(dev, w4, m, k, n, offset):
+    """a, b (and W4's shifts) at an offset from a 16-byte boundary are
+    staged byte by byte (16: the copies stay), with the same result."""
+    from repro_torch.kernels import (matmul_q8, matmul_q8_plain, matmul_w4,
+                                     matmul_w4_plain)
+    rng = np.random.default_rng(31)
+
+    def at(t):
+        buf = torch.zeros(t.numel() + offset, dtype=t.dtype, device=dev)
+        view = buf[offset:].view(t.shape)
+        view.copy_(t)
+        return view
+    a = at(_i8(rng, (m, k), dev))
+    if w4:
+        wp, ws = (at(t) for t in _w4(rng, (k, n), 0, dev))
+        got = matmul_w4(a, wp, ws, requant_shift=10, act="relu")
+        want = matmul_w4_plain(a, wp, ws, requant_shift=10, act="relu")
+    else:
+        b = at(_i8(rng, (k, n), dev))
+        got = matmul_q8(a, b, requant_shift=12)
+        want = matmul_q8_plain(a, b, requant_shift=12)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("w4", [False, True], ids=["q8", "w4"])
+@pytest.mark.parametrize("shape", [(8, 896, 4864), (8, 4864, 896)], ids=str)
+def test_matmul_decode_candidates_equal_the_default(dev, w4, shape):
+    """Every tuner candidate of Qwen2-0.5B's decode shapes (every tile and
+    cluster size) is bitwise equal to the default config's output, at
+    requant shifts -2 and 16 (W4: every group shift at 4, nibbles -8 and
+    +7)."""
+    from repro_torch import tune
+    from repro_torch.kernels import matmul_q8, matmul_w4
+    m, k, n = shape
+    rng = np.random.default_rng(32)
+    a = _i8(rng, (m, k), dev)
+    if w4:
+        wp, ws = _w4(rng, (k, n), 0, dev, all_max=True)
+        call = lambda **c: matmul_w4(a, wp, ws, **c)      # noqa: E731
+    else:
+        b = _i8(rng, (k, n), dev)
+        call = lambda **c: matmul_q8(a, b, **c)           # noqa: E731
+    sig, dt = tune.sig_matmul(*shape), "w4a8" if w4 else "int8"
+    cands = list(tune.candidates(sig, dt))
+    assert len(cands) >= 2, cands
+    for shift in (-2, 16):
+        want = call(requant_shift=shift,
+                    **tune.default_config("matmul", sig, dt))
+        for cfg in cands:
+            got = call(requant_shift=shift, **cfg)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), cfg
+
+
+def test_matmul_launch_arithmetic_equals_the_source(dev):
+    """mmq_plan, which the tuner's footprint check reads, equals the
+    integer source's launch arithmetic at every tile and cluster size."""
+    import ctypes
+    import importlib
+    from repro_torch.kernels import _build
+    mq = importlib.import_module("repro_torch.kernels.matmul_q8")
+    lib = _build.library()
+    for m, k, n in [(8, 896, 4864), (8, 4864, 896), (128, 896, 4864),
+                    (64, 4864, 896), (5, 45, 37), (1, 1, 1)]:
+        for bn, bm in mq.MMQ_TILES:
+            for cs in mq.MMQ_CLUSTERS:
+                for w4 in (0, 1):
+                    c = (ctypes.c_int * 7)()
+                    assert lib.repro_matmul_q8_plan(c, m, k, n, bn, bm, cs,
+                                                    w4) == 0
+                    p = mq.mmq_plan(m, k, n, bn, bm, cs, bool(w4))
+                    assert list(c) == [*p["grid"], p["cluster"],
+                                       p["threads"], p["smem"],
+                                       p["stages"], p["ring"]], \
+                        (bn, bm, cs, w4)
+    c = (ctypes.c_int * 7)()
+    assert lib.repro_matmul_q8_plan(c, 8, 64, 64, 48, 8, 1, 0) != 0
+    assert lib.repro_matmul_q8_plan(c, 8, 64, 64, 32, 8, 16, 0) != 0
 
 
 def test_matmul_q8_unaligned_a_takes_the_bytewise_path(dev):

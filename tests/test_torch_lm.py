@@ -227,18 +227,31 @@ def test_matmul_w4_rejects_a_wrong_packed_extent():
 
 
 def test_split_plan_covers_k_with_non_empty_splits():
-    from repro_torch.kernels.matmul_q8 import BLOCK_K, split_plan
+    """The integer matmul's K split: the 64-deep K stages dealt round-robin
+    to the cluster's warps cover K once, and the default config leaves
+    no warp without a stage, at the served shapes and ragged ones."""
+    from repro_torch.kernels.matmul_q8 import (MMQ_BK, default_mmq_config,
+                                               mmq_plan, mmq_warps)
     for m, k, n in [(8, 896, 4864), (8, 4864, 896), (128, 896, 4864),
                     (3, 45, 37), (8, 0, 16), (300, 4096, 4096)]:
-        splits, per = split_plan(m, k, n, 132)
-        steps = -(-k // BLOCK_K)
-        assert splits >= 1 and per >= 1
-        if steps:
-            assert (splits - 1) * per < steps <= splits * per
-    assert split_plan(8, 896, 4864, 132) == (28, 1)    # decode gate/up
-    assert split_plan(8, 4864, 896, 132) == (76, 2)    # decode down
-    assert split_plan(32, 896, 4864, 132) == (14, 2)   # 16-row tiles
-    assert split_plan(64, 896, 4864, 132) == (28, 1)   # 64-row tiles
+        cfg = default_mmq_config(m, k, n, 132)
+        block = mmq_warps(cfg["bm"])
+        warps = block * cfg["cluster"]
+        stages = -(-k // MMQ_BK)
+        dealt = [[s for s in range(stages) if s % warps == q]
+                 for q in range(warps)]
+        assert sorted(s for d in dealt for s in d) == list(range(stages))
+        assert max(map(len, dealt)) == \
+            mmq_plan(m, k, n, cfg["bn"], cfg["bm"], cfg["cluster"])["stages"]
+        if stages >= block:
+            assert min(map(len, dealt)) >= 1
+    # decode gate/up: 14 stages over 8 warps (1 or 2 each); down: 76 over
+    # 4 x 8; prefill gate/up 4 warps a block, down at M = 64 4 x 4
+    assert default_mmq_config(8, 896, 4864) == dict(bn=64, bm=8, cluster=1)
+    assert default_mmq_config(8, 4864, 896) == dict(bn=32, bm=8, cluster=4)
+    assert default_mmq_config(32, 896, 4864)["cluster"] == 1
+    assert default_mmq_config(128, 896, 4864)["cluster"] == 1
+    assert default_mmq_config(64, 4864, 896)["cluster"] == 4
 
 
 # --------------------------------------------------- quantized FFN params --

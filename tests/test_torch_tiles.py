@@ -3,9 +3,11 @@ integer conv's implicit-GEMM tiles (``kernels.conv_im2col.conv_plan``),
 the float conv's and every add conv mode's (``conv_f_plan``,
 ``conv_add.add_f_plan``), the shift conv's (``conv_shift.shift_plan``,
 ``shift_f_plan``), the depthwise conv's staged rows
-(``kernels.conv_dw.dw_plan``) and the float matmul's register tiles
-(``kernels.matmul_q8.mmf_plan``), their default tiles, the wrappers'
-checks of the tile knobs, and the tuner's Hopper footprint check
+(``kernels.conv_dw.dw_plan``), the float matmul's register tiles
+(``kernels.matmul_q8.mmf_plan``), the integer matmul's tiles and clusters
+(``mmq_plan``) and the int8 pool's vector or scalar launch
+(``kernels.pool.pool_plan``), their default tiles, the wrappers' checks of
+the tile knobs, and the tuner's Hopper footprint check
 (``tune.launch_errors``). The CUDA sources compute the same arithmetic
 themselves; ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold the
 two equal on the card."""
@@ -130,6 +132,172 @@ def test_mmf_plan_counts(m, n, tile, esize, want):
     grid, threads, smem = want
     assert M.mmf_plan(m, n, tile, esize) == dict(grid=grid, threads=threads,
                                                  smem=smem)
+
+
+# (m, k, n, bn, bm, cluster, w4) -> (grid, threads, smem, stages, ring),
+# counted by hand: grid x = N / bn column tiles x the cluster, y = M / bm;
+# 8 warps of a ring of 4 stages for bm <= 16, else 4 warps of 3; a stage
+# is b's 64 rows (W4: 32 packed) x bn, a's bm rows of 64 + 16 bytes and, in
+# W4, 64 group shifts; then the leader's inbox of cluster - 1 int32
+# partial tiles; stages: the 64-deep K stages over the cluster's warps,
+# rounded up
+MMQ_PLANS = [
+    # decode gate/up: 76 tiles of 64 columns, 14 stages over 8 warps
+    ((8, 896, 4864, 64, 8, 1, False),
+     ((76, 1), 256, 8 * 4 * (64 * 64 + 8 * 80), 2, 4)),
+    ((8, 896, 4864, 64, 8, 2, True),
+     ((152, 1), 256, 8 * 4 * (32 * 64 + 8 * 80 + 64) + 8 * 64 * 4, 1, 4)),
+    # decode down: 28 tiles of 32 x 4 = 112 blocks, 76 stages over 32 warps
+    ((8, 4864, 896, 32, 8, 4, False),
+     ((112, 1), 256, 8 * 4 * (64 * 32 + 8 * 80) + 3 * 8 * 32 * 4, 3, 4)),
+    ((8, 4864, 896, 32, 8, 8, True),
+     ((224, 1), 256, 8 * 4 * (32 * 32 + 8 * 80 + 64) + 7 * 8 * 32 * 4, 2,
+      4)),
+    # prefill gate/up M = 32, 64, 128 and down M = 64
+    ((32, 896, 4864, 64, 32, 2, False),
+     ((152, 1), 128, 4 * 3 * (64 * 64 + 32 * 80) + 32 * 64 * 4, 2, 3)),
+    ((64, 896, 4864, 64, 64, 2, False),
+     ((152, 1), 128, 4 * 3 * (64 * 64 + 64 * 80) + 64 * 64 * 4, 2, 3)),
+    ((128, 896, 4864, 64, 64, 1, True),
+     ((76, 2), 128, 4 * 3 * (32 * 64 + 64 * 80 + 64), 4, 3)),
+    ((64, 4864, 896, 32, 64, 8, False),
+     ((224, 1), 128, 4 * 3 * (64 * 32 + 64 * 80) + 7 * 64 * 32 * 4, 3, 3)),
+    # ragged: one stage, a tile past every edge
+    ((5, 45, 37, 32, 8, 1, False),
+     ((2, 1), 256, 8 * 4 * (64 * 32 + 8 * 80), 1, 4)),
+    ((70, 4864, 37, 32, 64, 4, True),
+     ((8, 2), 128, 4 * 3 * (32 * 32 + 64 * 80 + 64) + 3 * 64 * 32 * 4, 5,
+      3)),
+    # a 128-column decode tile: 8 rings of 4 stages of 8,832 bytes, past
+    # what a block can use in int8 (W4's packed stages fit)
+    ((8, 896, 4864, 128, 8, 1, False),
+     ((38, 1), 256, 8 * 4 * (64 * 128 + 8 * 80), 2, 4)),
+]
+
+
+@pytest.mark.parametrize("args,want", MMQ_PLANS, ids=str)
+def test_mmq_plan_counts(args, want):
+    m, k, n, bn, bm, cs, w4 = args
+    grid, threads, smem, stages, ring = want
+    assert M.mmq_plan(m, k, n, bn, bm, cs, w4) == dict(
+        grid=grid, cluster=cs, threads=threads, smem=smem, stages=stages,
+        ring=ring)
+
+
+def test_default_mmq_configs():
+    """The integer wrappers' default: a decode tile (8 warps a block) of 64
+    columns with no cluster where that gives 66 blocks on an H100
+    (gate/up: 76), else 32 columns on the smallest cluster that does
+    (down: 28 x 4 = 112); a taller tile of 32 columns (64 x 64 first past
+    64 rows) on the smallest cluster that gives 132 blocks, else the one
+    with the most (Table-2's 256^3: 32 x 32, 64 blocks, not 64 x 64's 16);
+    and no warp of a default is left without a K stage."""
+    d = M.default_mmq_config
+    assert d(8, 896, 4864) == dict(bn=64, bm=8, cluster=1)
+    assert d(8, 4864, 896) == dict(bn=32, bm=8, cluster=4)
+    assert d(16, 896, 4864) == dict(bn=64, bm=16, cluster=1)
+    assert d(32, 896, 4864) == dict(bn=32, bm=32, cluster=1)
+    assert d(64, 896, 4864) == dict(bn=32, bm=32, cluster=1)
+    assert d(128, 896, 4864) == dict(bn=64, bm=64, cluster=1)
+    assert d(64, 4864, 896) == dict(bn=32, bm=32, cluster=4)
+    assert d(128, 4864, 896) == dict(bn=64, bm=64, cluster=8)
+    assert d(5, 45, 37) == dict(bn=32, bm=8, cluster=1)
+    assert d(256, 256, 256) == dict(bn=32, bm=32, cluster=1)
+    assert d(512, 512, 512) == dict(bn=32, bm=32, cluster=1)
+    assert d(300, 4096, 4096) == dict(bn=64, bm=64, cluster=1)
+    for m, k, n in ((8, 896, 4864), (8, 4864, 896), (1, 896, 4864),
+                    (128, 896, 4864), (64, 4864, 896), (3, 100, 7)):
+        cfg = d(m, k, n)
+        p = M.mmq_plan(m, k, n, *cfg.values())
+        assert not M.mmq_config_errors(m, k, n, cfg)
+        warps = M.mmq_warps(cfg["bm"]) * cfg["cluster"]
+        assert warps <= max(M.mmq_warps(cfg["bm"]), -(-k // M.MMQ_BK))
+        if (m, k, n) in ((8, 896, 4864), (8, 4864, 896)):
+            assert p["grid"][0] * p["grid"][1] * p["threads"] >= 132 * 128
+    assert [M.mmq_bm_cap(m) for m in (1, 8, 9, 16, 17, 33, 64, 65, 500)] \
+        == [8, 8, 16, 16, 32, 64, 64, 64, 64]
+    assert [M.mmq_warps(bm) for bm in (8, 16, 32, 64)] == [8, 8, 4, 4]
+    assert [M.mmq_ring(bm) for bm in (8, 16, 32, 64)] == [4, 4, 3, 3]
+    # clusters whose every warp gets a K stage: 8 or 4 warps a block
+    assert [M.mmq_cluster_cap(k, 8) for k in (64, 512, 896, 1024, 4864)] \
+        == [1, 1, 1, 2, 8]
+    assert [M.mmq_cluster_cap(k, 32) for k in (64, 512, 896, 1024, 4864)] \
+        == [1, 2, 2, 4, 8]
+
+
+@pytest.mark.parametrize("w4", [False, True], ids=["q8", "w4"])
+@pytest.mark.parametrize("knobs,match", [
+    (dict(bn=48), "not one of"), (dict(bm=24), "not one of"),
+    (dict(cluster=16), "at most 8"), (dict(cluster=3), "at most 8")])
+def test_integer_matmul_rejects_bad_configs(w4, knobs, match):
+    rng = np.random.default_rng(4)
+    a = torch.from_numpy(rng.integers(-128, 128, (8, 64)).astype(np.int8))
+    b = torch.from_numpy(rng.integers(-128, 128, (64, 40)).astype(np.int8))
+    with pytest.raises(ValueError, match=match):
+        M.check_mmq_config("matmul", 8, 64, 40, w4, sms=132,
+                           **{**dict(bn=None, bm=None, cluster=None),
+                              **knobs})
+    # on the host the wrappers run the plain version for every member
+    want = M.matmul_q8_plain(a, b, requant_shift=9)
+    for bn, bm in M.MMQ_TILES:
+        assert torch.equal(M.matmul_q8(a, b, requant_shift=9, bn=bn, bm=bm,
+                                       cluster=2), want)
+
+
+def test_integer_matmul_footprint_check(monkeypatch):
+    """A config past the 232,448 bytes of shared memory a block can use is
+    rejected with its reason: a 128 x 32 tile's rings (129,024 bytes) and
+    a cluster of 8's inbox (7 x 16,384) in int8; a 128-column decode
+    tile's eight int8 rings (282,624); a 256 x 64 tile's four warps'
+    partial tiles (4 x 64 x 256 x 4, more than its rings' 4 x 3 x 21,504);
+    so is a cluster past the portable 8."""
+    sig = tune.sig_matmul(64, 896, 4864)
+    assert M.mmq_plan(64, 896, 4864, 128, 32, 8)["smem"] == 243712
+    errs = tune.space.launch_errors(sig, dict(bn=128, bm=32, cluster=8),
+                                    "int8")
+    assert any("shared memory" in e for e in errs), errs
+    assert not tune.space.launch_errors(sig, dict(bn=128, bm=32, cluster=4),
+                                        "int8")
+    for bm in (8, 16):
+        errs = tune.space.launch_errors(sig, dict(bn=128, bm=bm, cluster=1),
+                                        "int8")
+        assert any("shared memory" in e for e in errs), errs
+        assert not tune.space.launch_errors(
+            sig, dict(bn=128, bm=bm, cluster=1), "w4a8")
+    monkeypatch.setattr(M, "MMQ_TILES", M.MMQ_TILES + ((256, 64),))
+    big = dict(bn=256, bm=64, cluster=1)
+    assert M.mmq_plan(64, 896, 4864, 256, 64, 1)["smem"] == 262144
+    errs = tune.space.launch_errors(sig, big, "int8")
+    assert any("shared memory" in e for e in errs), errs
+    errs = tune.space.launch_errors(sig, dict(big, bn=64, cluster=16),
+                                    "w4a8")
+    assert any("at most 8" in e for e in errs), errs
+    fits = [(bn, bm, c) for bn, bm in M.MMQ_TILES[:-1]
+            for c in M.MMQ_CLUSTERS
+            if not tune.space.launch_errors(
+                sig, dict(bn=bn, bm=bm, cluster=c), "int8")]
+    # all but 128 x 8 and 128 x 16 (any cluster) and 128 x 32 x 8
+    assert len(fits) == 4 * 11 - 9
+
+
+P = importlib.import_module("repro_torch.kernels.pool")
+
+
+@pytest.mark.parametrize("shape,aligned,threads,want", [
+    # the dws plan's pools at B=256: 16 channels a thread
+    ((256, 16, 16, 16), True, 256, (256, True)),
+    ((256, 8, 8, 32), True, 256, (128, True)),
+    ((256, 4, 4, 64), True, 256, (64, True)),
+    ((256, 4, 4, 64), True, 1024, (16, True)),
+    # C = 19, or x off a 16-byte boundary: a thread a byte
+    ((2, 7, 6, 19), True, 256, (7, False)),
+    ((256, 16, 16, 16), False, 256, (4096, False)),
+    ((3, 5, 4, 64), False, 64, (60, False)),
+], ids=str)
+def test_pool_plan_counts(shape, aligned, threads, want):
+    blocks, vector = want
+    assert P.pool_plan(*shape, aligned, threads) == dict(
+        blocks=blocks, threads=threads, vector=vector)
 
 
 def _conv_args(cx=8, cy=8, hk=3, g=1, w4=False):

@@ -151,7 +151,7 @@ def test_space_default_first_analytic_member(sig, dtype):
 
 def test_space_knobs_and_defaults_are_todays_launches():
     from repro_torch.kernels.conv_dw import default_dw_tile
-    from repro_torch.kernels.matmul_q8 import split_plan
+    from repro_torch.kernels.matmul_q8 import default_mmq_config
     # the integer add conv takes the float GEMM's tile (bp, q) and its
     # default; the depthwise conv its (pt, rows) tile in every mode
     asig = tune.sig_add_conv2d(1, 6, 6, 4, 6, 3)
@@ -173,7 +173,8 @@ def test_space_knobs_and_defaults_are_todays_launches():
         tune.sig_causal_conv1d(1, 96, 8192, 4))} == {64, 128, 256}
     sig = tune.sig_matmul(8, 896, 4864)
     assert tune.default_config("matmul", sig, "int8") == \
-        {"bm": 16, "splits": split_plan(8, 896, 4864, 132)[0]}
+        default_mmq_config(8, 896, 4864, 132) == \
+        {"bn": 64, "bm": 8, "cluster": 1}
     from repro_torch.kernels.conv_im2col import default_tile
     from repro_torch.kernels.matmul_q8 import MMF_TILES, default_mmf_tile
     assert tune.default_config("matmul", tune.sig_matmul(64, 8, 8),
@@ -184,7 +185,25 @@ def test_space_knobs_and_defaults_are_todays_launches():
     assert all(set(c) == {"bm", "bn", "tm", "tn"} for c in fcands)
     assert {tuple(c[k] for k in ("bm", "bn", "tm", "tn"))
             for c in fcands} == set(MMF_TILES)
-    assert all(c["splits"] <= 28 for c in tune.candidates(sig, "int8"))
+    # the integer matmul's knobs are its tile (bn, bm) and cluster: every
+    # instantiated tile no taller than M needs that fits a block's shared
+    # memory, every cluster that leaves each warp a K stage (gate/up: 14
+    # stages, 8 warps a decode block, no cluster; down: 76, up to 8); a
+    # 128-column decode tile fits only in W4
+    from repro_torch.kernels.matmul_q8 import MMQ_TILES
+    for dt in ("int8", "w4a8"):
+        wide = (128,) if dt == "w4a8" else ()
+        icands = list(tune.candidates(sig, dt))
+        assert all(set(c) == {"bn", "bm", "cluster"} for c in icands)
+        assert {(c["bn"], c["bm"], c["cluster"]) for c in icands} == \
+            {(bn, 8, 1) for bn in (32, 64) + wide}
+        dsig = tune.sig_matmul(8, 4864, 896)
+        assert {(c["bn"], c["bm"], c["cluster"])
+                for c in tune.candidates(dsig, dt)} == \
+            {(bn, 8, c) for bn in (32, 64) + wide for c in (1, 2, 4, 8)}
+        psig = tune.sig_matmul(128, 896, 4864)
+        assert {(c["bn"], c["bm"]) for c in tune.candidates(psig, dt)} == \
+            set(MMQ_TILES) - ({(128, 8), (128, 16)} if not wide else set())
     # conv2d's knobs are its tile in every mode: the integer modes' implicit
     # GEMM and the float mode's take the same (bp, q) space, with their own
     # default tiles
@@ -209,8 +228,12 @@ def test_space_knobs_and_defaults_are_todays_launches():
      "cannot launch"),
     (tune.sig_conv2d(1, 8, 8, 4, 8, 3), "int8", {"block_co": 8}, "unknown"),
     (tune.sig_matmul(8, 64, 64), "float32", {"splits": 2}, "unknown"),
-    (tune.sig_matmul(8, 64, 64), "int8", {"bm": 32}, "cannot launch"),
-    (tune.sig_matmul(8, 4864, 896), "int8", {"splits": 3}, "outside"),
+    (tune.sig_matmul(8, 64, 64), "int8", {"bn": 48}, "cannot launch"),
+    (tune.sig_matmul(8, 4864, 896), "int8", {"bm": 64}, "outside"),
+    (tune.sig_matmul(8, 4864, 896), "w4a8", {"cluster": 16},
+     "cannot launch"),
+    (tune.sig_matmul(8, 896, 4864), "int8", {"cluster": 4}, "outside"),
+    (tune.sig_matmul(8, 4864, 896), "int8", {"splits": 3}, "unknown"),
     (tune.sig_causal_conv1d(1, 16, 64, 4), "float32", {"threads": 512},
      "cannot launch"),
 ])
@@ -252,7 +275,7 @@ def test_cache_of_the_threads_space_is_stale_not_an_error(tmp_path):
     """A v1 cache, written when the integer conv2d took threads and the
     float matmul bm, is ignored as stale: lookups fall back to the analytic
     model instead of raising in check_config."""
-    assert tune.SCHEMA_VERSION == 5
+    assert tune.SCHEMA_VERSION == 6
     sig = tune.sig_conv2d(8, 16, 16, 16, 32, 3)
     key = tune.cache_key("conv2d", sig.key(), "int8", "cpu")
     p = tmp_path / "v1.json"
@@ -322,6 +345,26 @@ def test_cache_of_the_depthwise_and_integer_add_threads_is_stale(tmp_path):
             cfg = tune.get_config(sig, dt, "cpu")
             assert set(cfg) == knobs
             assert tune.check_config(sig, cfg, dt) is cfg
+
+
+def test_cache_of_the_integer_matmul_split_space_is_stale(tmp_path):
+    """A v5 cache, written when the integer matmul took a tile height and
+    a K split (bm, splits), is ignored as stale: a lookup gives the new
+    (bn, bm, cluster) space's config."""
+    sig = tune.sig_matmul(8, 896, 4864)
+    keys = [tune.cache_key("matmul", sig.key(), dt, "cpu")
+            for dt in ("int8", "w4a8")]
+    p = tmp_path / "v5.json"
+    p.write_text(json.dumps({"schema_version": 5, "entries": {
+        k: {"config": {"bm": 16, "splits": 28}, "us": 1.0,
+            "source": "measured"} for k in keys}}))
+    c = tune.TuneCache(str(p))
+    assert c.stale and len(c) == 0
+    tune.set_default_cache(c)
+    for dt in ("int8", "w4a8"):
+        cfg = tune.get_config(sig, dt, "cpu")
+        assert set(cfg) == {"bn", "bm", "cluster"}
+        assert tune.check_config(sig, cfg, dt) is cfg
 
 
 def test_cache_corrupt_file_is_ignored(tmp_path):
@@ -418,7 +461,7 @@ def _op_args():
         "add_conv2d": ((x8, w), dict(requant_shift=9), {"bp": 64, "q": 8}),
         "maxpool2d": ((x8,), {}, {"threads": 64}),
         "matmul": ((x8.reshape(128, 8), w[0, 0]), dict(requant_shift=7),
-                   {"bm": 64, "splits": 1}),
+                   {"bn": 32, "bm": 64, "cluster": 1}),
         "causal_conv1d": ((torch.randn(2, 16, 8), torch.randn(4, 8)), {},
                           {"threads": 256}),
     }
