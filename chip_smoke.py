@@ -12,7 +12,8 @@ Phases, one line each, any failure exits non-zero:
               shift conv), the float implicit GEMM (the float conv and
               every add conv mode), the float shift conv, the depthwise
               conv, the float matmul, the integer matmul (every tile, int8
-              and W4) and the int8 pool's 16-channel vector kernel.
+              and W4), the int8 and float pools' vector kernels and the
+              causal conv1d's vector kernel (bf16, K = 4).
 3. kernels  — each of the eighteen kernel entry points (six int8, five
               W4, six float32 / bfloat16 and the float causal_conv1d) held
               bitwise against its plain PyTorch version at every
@@ -63,7 +64,11 @@ Phases, one line each, any failure exits non-zero:
               maxpool2d, shift_conv2d, add_conv2d and matmul in float32
               and bfloat16 at the tuner's Table-2 jobs, at every layer
               shape of the four CNN plans at B=256 and at edges (HK 1, 2
-              and 5, groups, C = 19, shifts up to 3 at C = 5, C = 130 with
+              and 5, groups, C = 19, the pool at C = 4, 8, 12 and 64
+              with windows 2/2, 3/2 and 4/3, NaN taps of three bit
+              patterns (compared bit for bit) and x at an odd address,
+              each timed pool beside its scalar path on the same values,
+              shifts up to 3 at C = 5, C = 130 with
               x at an unaligned address, the add at HK = 5, Cx = 19, Cy =
               20 and the conv at ci = 130, g = 2, both with x at an
               unaligned address, M = 1, K = 33 and 45, matmuls of
@@ -117,7 +122,11 @@ Phases, one line each, any failure exits non-zero:
               mamba_forward with the kernel bitwise equal to the plain
               version on three layers at a served prompt; tokens/s,
               decode-step ms, TTFT p50/p99 and one decode step's device
-              breakdown.
+              breakdown; one 96-token prefill's breakdown (its time,
+              device busy and idle, device operations, the 64
+              causal_conv1d launches' time and the copy kernels), and the
+              same prefill with x_in copied before each conv taking
+              exactly 64 device operations more.
 8. tune     — the autotuner: ``python -m repro_torch.tune``'s main over
               the paper's Table-2 jobs and the four CNN primitives' int8
               and W4 plans at B=256, plus the tuner's float32 and bfloat16
@@ -188,6 +197,8 @@ SSM_ARCH = "falcon-mamba-7b"
 SSM_REQUESTS = 16
 #: mamba_forward layers held kernel against plain version at full width
 SSM_CHECK_LAYERS = 3
+#: the prompt length of phase 7's prefill breakdown (the longest served)
+SSM_BREAKDOWN_LEN = 96
 #: phase 3: causal_conv1d at Falcon-Mamba's prefill shapes (B, L), bf16,
 #: d_inner 8192, K=4; the L=96 row (the longest served prompt) is summed
 #: over one prefill's 64 launches into the kernel's JSON row
@@ -811,19 +822,30 @@ DW_PLAN_SHAPES = ((BATCH, 16, 16, 16, 3), (BATCH, 8, 8, 32, 3),
 #: prefill shapes and a ragged one
 MM_PLAN_SHAPES = ((8, 896, 4864), (8, 4864, 896), (32, 896, 4864),
                   (128, 896, 4864), (64, 4864, 896), (5, 45, 37))
-#: the int8 pool's vector or scalar launch checked against its source:
-#: (n, hout, wout, c) of the dws plan's pools and C off 16
+#: the int8 and float pools' vector or scalar launches checked against
+#: their source: (n, hout, wout, c) of the dws plan's pools, the tuner's
+#: float pool job, C = 4, 8 and 12 and C off 16
 POOL_PLAN_SHAPES = ((BATCH, 16, 16, 16), (BATCH, 8, 8, 32), (BATCH, 4, 4, 64),
-                    (2, 7, 6, 19), (3, 5, 4, 33))
+                    (2, 7, 6, 19), (3, 5, 4, 33), (8, 16, 16, 64),
+                    (3, 5, 4, 4), (3, 5, 4, 8), (3, 5, 4, 12))
+#: the causal conv1d's launch arithmetic checked at every run and block
+#: size: Falcon-Mamba's prefill shapes, D = 100, 8196, 320 and L < K
+C1D_PLAN_SHAPES = ((1, 16, 8192), (1, 33, 8192), (1, 96, 8192),
+                   (1, 256, 8192), (8, 64, 8192), (3, 45, 100),
+                   (1, 20, 8196), (2, 70, 320), (2, 2, 100))
 #: the kernels whose shared-memory tiles this repository sizes itself, and
 #: the int8 pool's vector kernel: each instantiation's ptxas report is
 #: printed at a fresh build (igemm_kernel: the integer conv's and the
 #: integer shift conv's implicit GEMM; fgemm_kernel: the float conv's and
 #: every add conv mode's; depthwise2d_kernel: every depthwise mode's staged
-#: rows; matmul_q_kernel: the integer matmul's tiles, int8 and W4)
+#: rows; matmul_q_kernel: the integer matmul's tiles, int8 and W4; the
+#: pools' vector kernels; the causal conv1d's vector kernel at bf16 K=4,
+#: every run and block size), as regular expressions of the name
 TILED_KERNELS = ("igemm_kernel", "fgemm_kernel", "matmul_f_kernel",
                  "shift_conv2d_f_kernel", "depthwise2d_kernel",
-                 "matmul_q_kernel", "maxpool2d_s8_vec_kernel")
+                 "matmul_q_kernel", "maxpool2d_s8_vec_kernel",
+                 "maxpool2d_f_vec_kernel",
+                 "causal_conv1d_vec_kernel(?=<__nv_bfloat16, 4,)")
 
 
 def ptxas_report(log: str, kernels) -> list:
@@ -874,8 +896,9 @@ def check_plans(K):
     footprint check reads it) equal to their sources' own, at every tile
     of the dws plan's convs, the Table-2 int8 convs and Table-2 matmuls,
     of the shift conv's rows, Table-2 job and edges, of the float conv
-    and the add conv (every mode) at F_PLAN_SHAPES, and of the depthwise
-    conv at DW_PLAN_SHAPES."""
+    and the add conv (every mode) at F_PLAN_SHAPES, of the depthwise conv
+    at DW_PLAN_SHAPES, and the pools' and the causal conv1d's vector or
+    scalar launches."""
     import ctypes
     import importlib
     from repro_torch.kernels import _build
@@ -991,17 +1014,52 @@ def check_plans(K):
                       f"maxpool2d_s8 plan {shape} aligned={aligned} "
                       f"threads={threads}: source {list(c)} vs Python {p}")
                 n += 1
+                for es in (2, 4):
+                    c = (ctypes.c_int * 3)()
+                    rc = lib.repro_maxpool2d_f_plan(c, *shape, es, aligned,
+                                                    threads)
+                    p = pl.pool_f_plan(*shape, es, aligned, threads)
+                    check(rc == 0 and list(c) == [p["blocks"], p["threads"],
+                                                  int(p["vector"])],
+                          f"maxpool2d_f plan {shape} esize {es} aligned="
+                          f"{aligned} threads={threads}: source {list(c)} "
+                          f"vs Python {p}")
+                    n += 1
+    c1 = importlib.import_module("repro_torch.kernels.conv1d_causal")
+    for shape in C1D_PLAN_SHAPES:
+        for es in (2, 4):
+            for aligned in (0, 1):
+                for run in c1.RUNS:
+                    for threads in c1.THREADS:
+                        c = (ctypes.c_int * 6)()
+                        rc = lib.repro_causal_conv1d_plan(
+                            c, *shape, es, aligned, run, threads)
+                        p = c1.c1d_plan(*shape, es, aligned, run, threads)
+                        check(rc == 0 and list(c) == [
+                            *p["grid"], p["threads"], p["run"],
+                            int(p["vector"])],
+                              f"causal_conv1d plan {shape} esize {es} "
+                              f"aligned={aligned} run={run} threads="
+                              f"{threads}: source {list(c)} vs Python {p}")
+                        n += 1
     print(f"[kernels] launch arithmetic: {n} plans of the integer conv, the "
           "float conv and the add conv, the shift conv (integer and "
           "float), the depthwise conv, the float matmul, the integer "
-          "matmul and the int8 pool equal to their sources'")
+          "matmul, the int8 and float pools and the causal conv1d equal "
+          "to their sources'")
 
 
-#: the redesigned kernels' rows before this design (PERF.md §6: run 8 on
+#: the redesigned kernels' rows before their design (PERF.md §6: run 8 on
 #: an NVIDIA H100 80GB HBM3 at 700.00 W), printed beside this run's: a
 #: Qwen2-0.5B decode step's 72 launches (matmul, matmul_w4), the dws
-#: plan's three pools (maxpool2d)
-EARLIER_MS = {"matmul": 0.7678, "matmul_w4": 0.8064, "maxpool2d": 0.0178}
+#: plan's three pools (maxpool2d), a 96-token Falcon-Mamba-7B prefill's 64
+#: launches (causal_conv1d), the tuner's float32 pool job (maxpool2d_f)
+EARLIER_MS = {"matmul": 0.7678, "matmul_w4": 0.8064, "maxpool2d": 0.0178,
+              "causal_conv1d": 0.2345, "maxpool2d_f": 0.0027}
+#: causal_conv1d's launch before its vector design at each timed (B, L)
+#: (PERF.md §6 row 7, run 8), printed beside each timed line
+EARLIER_C1D_MS = {(1, 16): 0.0029, (1, 33): 0.0032, (1, 96): 0.0037,
+                  (1, 256): 0.0053, (8, 64): 0.0093}
 
 
 def phase_kernels(torch, K, dev, name, rng):
@@ -1087,25 +1145,61 @@ def _bits(torch, t):
     return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
 
 
+#: quiet NaNs of several bit patterns (+NaN, a payload, -NaN) as int16
+#: (bfloat16) and int32 (float32) words
+NAN_BITS = {2: (0x7FC0, 0x7FC5, 0xFFC0 - 0x10000),
+            4: (0x7FC00000, 0x7FC00005, 0xFFC00000 - 2 ** 32)}
+
+
+def plant_nans(torch, t, rng, share=0.15):
+    """Set about ``share`` of float tensor ``t``'s elements, in place, to
+    NaNs drawn from NAN_BITS: windows with several NaN taps of different
+    bits, compared bit for bit."""
+    flat = _bits(torch, t).view(-1)
+    hit = torch.from_numpy(rng.random(t.numel()) < share).to(t.device)
+    pick = torch.from_numpy(rng.integers(0, 3, t.numel())).to(t.device)
+    bits = torch.tensor(NAN_BITS[t.element_size()], dtype=flat.dtype,
+                        device=t.device)[pick]
+    flat[hit] = bits[hit]
+
+
 def conv1d_cases(torch, dev, rng):
     """(label, timed, x, w, act) of every causal_conv1d comparison: the
-    model's prefill shapes in bfloat16 (timed), then float32, D=100 with
-    K in {1, 2, 4} and relu on and off, ragged L and (K,1,D) weights
-    (bitwise only)."""
+    model's prefill shapes in bfloat16, x the x half of a (B, L, 2D)
+    in_proj product read in place as the model reads it (timed), then
+    float32, D=100 with K in {1, 2, 4, 8} and relu on and off, the in_proj
+    view, x at an odd address and bf16 D = 8196 (the scalar path), K = 8
+    and L < K in both dtypes, (K,1,D) weights (bitwise only)."""
     def f(shape, dtype=torch.bfloat16):
         return torch.from_numpy(rng.standard_normal(shape).astype("float32")
                                 ).to(dev).to(dtype)
+
+    def in_proj(b, l, d, dtype=torch.bfloat16):
+        return f((b, l, 2 * d), dtype).chunk(2, dim=-1)[0]
+    bf16, f32 = torch.bfloat16, torch.float32
     for b, l in C1D_SHAPES:
-        yield (f"bf16 {b}x{l}x{C1D_WIDTH} K={C1D_TAPS}", True,
-               f((b, l, C1D_WIDTH)), f((C1D_TAPS, C1D_WIDTH)), None)
+        yield (f"bf16 {b}x{l}x{C1D_WIDTH} K={C1D_TAPS} in_proj view",
+               (b, l), in_proj(b, l, C1D_WIDTH),
+               f((C1D_TAPS, C1D_WIDTH)), None)
     yield (f"f32 1x96x{C1D_WIDTH} K=4", False,
-           f((1, 96, C1D_WIDTH), torch.float32),
-           f((4, C1D_WIDTH), torch.float32), None)
-    for k in (1, 2, 4):
-        for act in (None, "relu"):
-            for dtype in (torch.float32, torch.bfloat16):
-                yield (f"{str(dtype)[6:]} 3x45x100 K={k} act={act}", False,
+           f((1, 96, C1D_WIDTH), f32), f((4, C1D_WIDTH), f32), None)
+    yield (f"f32 2x37x{C1D_WIDTH} K=4 in_proj view relu", False,
+           in_proj(2, 37, C1D_WIDTH, f32), f((4, C1D_WIDTH), f32), "relu")
+    for dtype in (f32, bf16):
+        tag = str(dtype)[6:]
+        yield (f"{tag} 1x96x{C1D_WIDTH} K=4 offset by 1 (scalar path)",
+               False, offset_view(torch, f((1, 96, C1D_WIDTH), dtype), 1),
+               f((4, C1D_WIDTH), dtype), "relu")
+        for k in (1, 2, 4, 8):
+            for act in (None, "relu"):
+                yield (f"{tag} 3x45x100 K={k} act={act}", False,
                        f((3, 45, 100), dtype), f((k, 100), dtype), act)
+            yield (f"{tag} 2x37x256 K={k} in_proj view", False,
+                   in_proj(2, 37, 256, dtype), f((k, 256), dtype), None)
+            yield (f"{tag} 2x3x64 K={k} (L < K for K = 4, 8)", False,
+                   f((2, 3, 64), dtype), f((k, 64), dtype), "relu")
+    yield ("bf16 1x20x8196 K=4 (D * 2 off 16 bytes: scalar path)", False,
+           f((1, 20, 8196)), f((4, 8196)), None)
     yield ("bf16 2x2x100 K=4 (L < K)", False, f((2, 2, 100)), f((4, 100)),
            None)
     yield ("bf16 2x70x96 (K,1,D) weights relu", False, f((2, 70, 96)),
@@ -1114,15 +1208,20 @@ def conv1d_cases(torch, dev, rng):
 
 def phase_conv1d(torch, K, dev, rng, bw, f32_rate):
     """Phase 3 for causal_conv1d: bitwise against its plain version at
-    every case, times at the model's shapes, then the backward."""
+    every case, times at the model's shapes (each beside the first design's
+    launch in PERF.md and the same values through this run's scalar path,
+    the first design's kernel, at an odd address), then the backward."""
     import torch.nn.functional as F
+    from repro_torch.kernels.conv1d_causal import c1d_plan, row_stride
     row = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
                library_ms=0.0, bytes_ms=0.0, ops_ms=0.0, shapes=0)
+    paths = {True: 0, False: 0}
     for label, timed, x, w, act in conv1d_cases(torch, dev, rng):
         got = K.causal_conv1d(x, w, act=act)
         want = K.causal_conv1d_plain(x, w, act=act)
         torch.cuda.synchronize()
-        check(got.dtype == want.dtype == x.dtype and got.shape == x.shape,
+        check(got.dtype == want.dtype == x.dtype and got.shape == x.shape
+              and got.is_contiguous(),
               f"causal_conv1d {label}: kernel {got.dtype}{tuple(got.shape)} "
               f"vs plain {want.dtype}{tuple(want.shape)}")
         err = float((got.float() - want.float()).abs().max())
@@ -1131,6 +1230,11 @@ def phase_conv1d(torch, K, dev, rng, bw, f32_rate):
               f"version, max |diff| = {err}")
         row["max_abs_err"] = max(row["max_abs_err"], err)
         row["shapes"] += 1
+        es = x.element_size()
+        paths[c1d_plan(*x.shape, es, x.data_ptr() % 16 == 0
+                       and w.data_ptr() % 16 == 0
+                       and row_stride("c1d", x) * es % 16 == 0, 1,
+                       64)["vector"]] += 1
         if not timed:
             continue
         b, l, d = x.shape
@@ -1147,25 +1251,37 @@ def phase_conv1d(torch, K, dev, rng, bw, f32_rate):
                         .abs().max())
         check(lib_err <= 0.05, f"causal_conv1d {label}: the library call "
                                f"computes another function ({lib_err})")
+        xo = offset_view(torch, x.contiguous(), 1)    # the scalar path
+        check(torch.equal(_bits(torch, K.causal_conv1d(xo, w, act=act)),
+                          _bits(torch, want)),
+              f"causal_conv1d {label}: the scalar path differs")
         t_k = device_ms(torch, lambda: K.causal_conv1d(x, w, act=act))
+        t_s = device_ms(torch, lambda: K.causal_conv1d(xo, w, act=act))
         t_p = device_ms(torch, lambda: K.causal_conv1d_plain(x, w, act=act),
                         reps=5)
         t_l = device_ms(torch, lib)
         call = time_ms(torch, lambda: K.causal_conv1d(x, w, act=act))
         bound = max(bytes_ms, ops_ms)
-        print(f"[kernels] causal_conv1d {label:26s} bitwise ok  kernel "
+        before = EARLIER_C1D_MS[timed]
+        print(f"[kernels] causal_conv1d {label:34s} bitwise ok  kernel "
               f"{t_k:.4f} ms  bound {bound:.5f} ms "
               f"({'bytes' if bytes_ms >= ops_ms else 'operations'})  plain "
-              f"{t_p:.4f} ms  library {t_l:.4f} ms  (device times; "
+              f"{t_p:.4f} ms  library {t_l:.4f} ms  before this design "
+              f"{before:.4f} ms ({before / t_k:.2f}x; the scalar path, its "
+              f"kernel, on these values {t_s:.4f} ms) (device times; "
               f"back-to-back wrapper calls {call:.4f} ms each)")
-        if (b, l) == C1D_SUMMED:       # one prefill: a launch per layer
+        if timed == C1D_SUMMED:        # one prefill: a launch per layer
             n = C1D_PER_PREFILL
             row["ms"], row["plain_ms"] = n * t_k, n * t_p
             row["bound_ms"], row["library_ms"] = n * bound, n * t_l
             row["bytes_ms"], row["ops_ms"] = n * bytes_ms, n * ops_ms
+    check(paths[True] and paths[False],
+          f"causal_conv1d: the cases took the vector path {paths[True]} and "
+          f"the scalar path {paths[False]} times; both must run")
     conv1d_backward(torch, K, dev, rng)
     print(f"[kernels] causal_conv1d: {row['shapes']} shapes bitwise equal to "
-          "the plain version")
+          f"the plain version ({paths[True]} on the vector path, "
+          f"{paths[False]} on the scalar path)")
     return row
 
 
@@ -1234,7 +1350,7 @@ def f32_rates(torch) -> tuple:
                           "TFLOP/s as FMAs")
 
 
-def float_cases(torch, K, dev, rng):
+def float_cases(torch, K, dev, rng, earlier):
     """Yield (kernel, label, timed, run_kernel, run_plain, run_lib, bytes,
     (ops, kind)) for every float-mode comparison of phase 3: the tuner's
     Table-2 float jobs and the CNN plans' layer shapes at B=256 (float32,
@@ -1242,7 +1358,9 @@ def float_cases(torch, K, dev, rng):
     the same in bfloat16, then HK=1, even HK, grouped, C off a multiple of
     32, M=1, K off a multiple of 32, relu and bias on and off (bitwise
     only). ``kind`` is "fma" (float32 multiply-adds, 2 flops each) or
-    "op" (float32 operations with no FMA form)."""
+    "op" (float32 operations with no FMA form). Each timed pool case puts
+    into ``earlier``, under its label, a call of the first design's kernel
+    (the scalar path) on the same values at an odd address."""
     import torch.nn.functional as F
     from repro_torch.core.primitives import shift_channels
 
@@ -1286,12 +1404,20 @@ def float_cases(torch, K, dev, rng):
                 x.element_size() * (2 * x.numel() + wt.numel()),
                 (x.numel() * hk * hk, "fma"))
 
-    def pool(label, shape, dtype, timed=False):
+    def pool(label, shape, dtype, timed=False, off=0, nans=False):
         n, h, w, c, win, st = shape
         x = f((n, h, w, c), dtype)
+        if nans:                     # NaN taps of several bit patterns
+            plant_nans(torch, x, rng)
+        if off:                      # x at an unaligned address
+            x = offset_view(torch, x, off)
         ho, wo = (h - win) // st + 1, (w - win) // st + 1
+        if timed:
+            xo = offset_view(torch, x, 1)
+            earlier[label] = lambda: K.maxpool2d_f(xo, window=win,
+                                                   stride=st)
         lib = None
-        if win == st and h % win == 0 and w % win == 0:
+        if win == st and h % win == 0 and w % win == 0 and not off:
             v = x.view(n, h // win, win, w // win, win, c)
             lib = lambda: v.amax(dim=(2, 4))          # noqa: E731
         return ("maxpool2d_f", label, timed,
@@ -1401,6 +1527,12 @@ def float_cases(torch, K, dev, rng):
                  act=None)
         yield pool(f"{tag} 3/2 2x15x13x19", (2, 15, 13, 19, 3, 2), dtype)
         yield pool(f"{tag} 3/1 2x9x8x33", (2, 9, 8, 33, 3, 1), dtype)
+        for c in (4, 8, 12, 64):
+            for win, st in ((2, 2), (3, 2), (4, 3)):
+                yield pool(f"{tag} C={c} {win}/{st} NaN taps 3x11x10",
+                           (3, 11, 10, c, win, st), dtype, nans=True)
+            yield pool(f"{tag} C={c} offset by 1 NaN taps 3x11x10",
+                       (3, 11, 10, c, 2, 2), dtype, off=1, nans=True)
         yield shift(f"{tag} |shift|<=2 C=19 2x15x13->8", (2, 15, 13, 19, 8),
                     dtype, d=2)
         yield shift(f"{tag} no relu 4x16x16x16->32", (4, 16, 16, 16, 32),
@@ -1435,9 +1567,9 @@ def phase_float(torch, K, dev, rng, bw):
     print(f"[kernels] float bounds: bytes / {bw / 1e12:.2f} TB/s; float32 "
           f"multiply-adds and |x - w| / max operations against {text}")
     rates = {"fma": fma_rate / 2, "op": op_rate}    # per MAC / per op
-    rows = {}
+    rows, earlier = {}, {}
     for (kernel, label, timed, run_k, run_p, run_lib, nbytes,
-         (n_ops, kind)) in float_cases(torch, K, dev, rng):
+         (n_ops, kind)) in float_cases(torch, K, dev, rng, earlier):
         got = run_k()
         want = run_p()
         torch.cuda.synchronize()
@@ -1460,11 +1592,19 @@ def phase_float(torch, K, dev, rng, bw):
         t_p = device_ms(torch, run_p, reps=3)
         t_l = device_ms(torch, run_lib) if run_lib is not None else None
         bound = max(bytes_ms, ops_ms)
+        before = ""
+        if label in earlier:         # the pool's first design, this run
+            t_e = device_ms(torch, earlier[label])
+            was = (f"{EARLIER_MS[kernel]:.4f} ms, " if timed == "t2"
+                   else "")
+            before = (f"  before this design {was}the scalar path, its "
+                      f"kernel, on these values {t_e:.4f} ms "
+                      f"({t_e / t_k:.2f}x)")
         print(f"[kernels] {kernel:14s} {label:44s} bitwise ok  kernel "
               f"{t_k:.4f} ms  bound {bound:.5f} ms "
               f"({'bytes' if bytes_ms >= ops_ms else 'operations'})  plain "
               f"{t_p:.4f} ms  library "
-              f"{'n/a' if t_l is None else f'{t_l:.4f} ms'}")
+              f"{'n/a' if t_l is None else f'{t_l:.4f} ms'}{before}")
         if timed != "t2":
             continue
         row["ms"] += t_k
@@ -1523,7 +1663,7 @@ def entry_points(torch, K, dev, rng):
     fc, fd, fs, fa = (f((3, 3, c, cy)), f((3, 3, c)), f((c, cy)),
                       f((3, 3, c, cy)))
     fa_, fb_ = f((40, 300)), f((300, 520))
-    xc, wcv = f((2, 70, 300), torch.bfloat16), f((4, 300), torch.bfloat16)
+    xc, wcv = f((2, 70, 320), torch.bfloat16), f((4, 320), torch.bfloat16)
     akw = dict(requant_shift=9, x_preshift=2, w_preshift=0)
     return [
         ("conv2d_q8", conv_sig, "int8",
@@ -1550,7 +1690,7 @@ def entry_points(torch, K, dev, rng):
          lambda **k: K.matmul_q8(a8, bm8, requant_shift=14, **k)),
         ("matmul_w4", mm_sig, "w4a8",
          lambda **k: K.matmul_w4(a8, *pm, requant_shift=14, **k)),
-        ("causal_conv1d", tune.sig_causal_conv1d(2, 70, 300, 4), "bfloat16",
+        ("causal_conv1d", tune.sig_causal_conv1d(2, 70, 320, 4), "bfloat16",
          lambda **k: K.causal_conv1d(xc, wcv, **k)),
         ("conv2d_f", conv_sig, "float32",
          lambda **k: K.conv2d_f(xf, fc, act="relu", **k)),
@@ -2048,9 +2188,74 @@ def phase_ssm(torch, K, card, rng, dev="cuda", cfg=None, n_req=SSM_REQUESTS,
           f"{tok.shape[1]}-token prompt; prefill logits finite, "
           f"{tuple(logits.shape)}")
     lm_breakdown(torch, "ssm float", eng, cfg, dev,
-                 port=("causal_conv1d_kernel",),
+                 port=("causal_conv1d",),
                  what="the port's causal_conv1d kernel")
+    ssm_breakdown(torch, eng, cfg, dev, rng)
     return got
+
+
+def ssm_breakdown(torch, eng, cfg, dev, rng, length=SSM_BREAKDOWN_LEN,
+                  reps=3, tries=3):
+    """One prefill of a ``length``-token prompt, as the engine runs it: its
+    time (CUDA events), the device time of its device operations and their
+    count, the causal_conv1d launches' share and the copy kernels; then
+    the same prefill with each layer's x_in copied before the conv (the
+    layout before the conv read the in_proj view in place), which must
+    take exactly one device operation a layer more. Each pair is measured
+    again, up to ``tries`` times, where a profiler session lost records."""
+    from repro_torch.models import mamba
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab, (1, length)),
+                          device=dev)
+    batch = {"tokens": tok, "prompt_lens": torch.tensor(
+        [length], dtype=torch.int32, device=dev)}
+    prefill = lambda: eng.prefill(eng.params, batch)      # noqa: E731
+    real = mamba.K.causal_conv1d
+
+    def copied(x, w, **kw):
+        return real(x.contiguous(), w, **kw)
+
+    def measure():
+        ms = time_ms(torch, prefill, reps=reps, trials=3)
+        rows = device_kernels(torch, prefill, reps)
+        return ms, rows
+    for _ in range(tries):
+        wall, rows = measure()
+        mamba.K.causal_conv1d = copied
+        try:
+            wall_c, rows_c = measure()
+        finally:
+            mamba.K.causal_conv1d = real
+        n_ops = sum(r.launches for r in rows)
+        n_ops_c = sum(r.launches for r in rows_c)
+        if n_ops_c - n_ops == cfg.n_layers:
+            break
+    busy = sum(r.us for r in rows) / 1e3
+    conv = [r for r in rows if "causal_conv1d" in r.key]
+    conv_ms = sum(r.us for r in conv) / 1e3
+    n_conv = sum(r.launches for r in conv)
+
+    def copies(rs):
+        return sum(r.launches for r in rs if "copy" in r.key.lower())
+    check(busy > 0, "torch.profiler saw no device time")
+    check(n_conv == cfg.n_layers, f"ssm-breakdown: {n_conv} causal_conv1d "
+                                  f"launches a prefill, not {cfg.n_layers}")
+    check(n_ops_c - n_ops == cfg.n_layers,
+          f"ssm-breakdown: the prefill takes {n_ops} device operations, "
+          f"with x_in copied {n_ops_c}: not {cfg.n_layers} fewer")
+    print(f"[ssm-breakdown] float: one {length}-token prefill: {wall:.4f} "
+          f"ms (CUDA events), device busy {busy:.4f} ms in {n_ops:.0f} "
+          f"device operations, of which the {n_conv:.0f} causal_conv1d "
+          f"launches {conv_ms:.4f} ms ({conv_ms / busy:.4f} of busy) and "
+          f"{copies(rows):.0f} copy kernels; device idle "
+          f"{1 - busy / wall:.3f}. With x_in copied before each conv (the "
+          f"earlier layout): {wall_c:.4f} ms, busy "
+          f"{sum(r.us for r in rows_c) / 1e3:.4f} ms in {n_ops_c:.0f} device "
+          f"operations ({n_ops_c - n_ops:.0f} more), {copies(rows_c):.0f} "
+          "copy kernels")
+    for r in sorted(rows, key=lambda r: -r.us)[:8]:
+        kernel = r.key.replace("void ", "").replace("at::native::", "")
+        print(f"[ssm-breakdown]   {r.us:9.1f} us x{r.launches:4.0f}  "
+              f"{kernel[:100]}")
 
 
 # ---------------------------------------------------------------- phase 8 --
@@ -2292,7 +2497,7 @@ def main() -> int:
           "over the 72 launches of one Qwen2-0.5B decode step at 8 slots "
           "(library: torch._int_mm), and for causal_conv1d over the 64 "
           "launches of one 96-token Falcon-Mamba-7B prefill (1 x 96 x 8192 "
-          "bf16; library: cuDNN conv1d, groups=D); the float rows (*_f) "
+          "bf16, the in_proj view; library: cuDNN conv1d, groups=D); the float rows (*_f) "
           "over the tuner's float32 Table-2 jobs of that kernel, one launch "
           "each (pool: the tuner's float pool job; library: cuDNN conv2d, "
           "amax, torch.cdist(p=1), torch.matmul, TF32 off); launches are "

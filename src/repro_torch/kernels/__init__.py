@@ -5,8 +5,9 @@ each with a plain PyTorch version and a launch counter, dispatched by
 int8 mode (``*_q8``) and a W4A8 mode (``*_w4``) that reads nibble-packed
 weights; the five convolutions, the pool and the matmul have a float32 /
 bfloat16 mode (``*_f``); Mamba's depthwise ``causal_conv1d`` is a float32 /
-bfloat16 kernel. Every wrapper takes its launch-shape knobs (a tile, or
-``threads`` for the pools and ``causal_conv1d``), which
+bfloat16 kernel. Every wrapper takes its launch-shape knobs (a tile,
+``threads`` for the pools, ``run`` and ``threads`` for
+``causal_conv1d``), which
 ``repro_torch.tune`` searches; no knob changes an output.
 
 Importing this package builds nothing and needs no ``nvcc``."""

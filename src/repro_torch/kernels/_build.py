@@ -39,7 +39,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #: the depthwise convs theirs (pt, rows), the integer shift convs the
 #: table's bound d before their requant shift, the integer matmuls their
 #: tile (bn, bm) and cluster size, the float matmul its tile (bm, bn, tm,
-#: tn). The ``*_plan``
+#: tn), the causal conv1d x's row stride after D and its run and block
+#: size after the dtype code. The ``*_plan``
 #: functions fill an int array with a launch's arithmetic and launch
 #: nothing.
 SIGNATURES = {
@@ -54,7 +55,7 @@ SIGNATURES = {
     "repro_add_conv2d_w4": (_P,) * 5 + (_I,) * 12 + (_P,),
     "repro_matmul_q8": (_P,) * 3 + (_I,) * 8 + (_P,),
     "repro_matmul_w4": (_P,) * 4 + (_I,) * 8 + (_P,),
-    "repro_causal_conv1d": (_P,) * 3 + (_I,) * 7 + (_P,),
+    "repro_causal_conv1d": (_P,) * 3 + (_I,) * 9 + (_P,),
     "repro_conv2d_f": (_P,) * 4 + (_I,) * 11 + (_P,),
     "repro_depthwise2d_f": (_P,) * 3 + (_I,) * 9 + (_P,),
     "repro_maxpool2d_f": (_P,) * 2 + (_I,) * 10 + (_P,),
@@ -70,6 +71,8 @@ SIGNATURES = {
     "repro_depthwise2d_plan": (_P,) + (_I,) * 8,
     "repro_matmul_q8_plan": (_P,) + (_I,) * 7,
     "repro_maxpool2d_s8_plan": (_P,) + (_I,) * 6,
+    "repro_maxpool2d_f_plan": (_P,) + (_I,) * 7,
+    "repro_causal_conv1d_plan": (_P,) + (_I,) * 7,
 }
 
 

@@ -14,11 +14,15 @@ pool of the CNN plans), a thread owns 16 channels of one output pixel, one
 16-byte load a window tap and a bytewise signed max (``__vmaxs4``); else
 one thread per output byte, channels fastest. :func:`pool_plan` mirrors
 the source's choice and grid (``repro_maxpool2d_s8_plan``). The float mode
-(:func:`maxpool2d_f`, float32 or bfloat16) is one thread per output
-element; a max rounds nothing, so it is exact, and bitwise equal to JAX's
-oracle as well as to the plain version (NaN propagates, as in
-``jnp.max``). Both wrappers take ``threads``, the block size of the launch
-(the tuner's knob); it changes no output.
+(:func:`maxpool2d_f`, float32 or bfloat16) has the same two paths: where
+C * elsize is a multiple of 16 and x and y are 16-byte aligned, a thread
+owns one 16-byte vector of a pixel's channels (4 float32 or 8 bf16), else
+one thread per output element; :func:`pool_f_plan` mirrors
+``repro_maxpool2d_f_plan``. A max rounds nothing, so it is exact, and
+bitwise equal to JAX's oracle as well as to the plain version (NaN
+propagates, as in ``jnp.max``; the first NaN tap's bits win, as
+``torch.maximum`` keeps them). Both wrappers take ``threads``, the block
+size of the launch (the tuner's knob); it changes no output.
 
 On a CPU tensor each wrapper runs :func:`maxpool2d_plain`; on a CUDA
 tensor it launches its kernel or raises.
@@ -31,7 +35,8 @@ from ._build import check_launch, library
 from .common import DEFAULT_THREADS, cdiv, check_threads, float_code
 from .conv_im2col import check_cuda_operand, check_elements
 
-#: channels a thread of the int8 vector path owns (one 16-byte load a tap)
+#: bytes a thread of the vector paths owns (one 16-byte load a tap): 16
+#: int8 channels, 4 float32 or 8 bfloat16
 POOL_VEC = 16
 
 
@@ -46,6 +51,17 @@ def pool_plan(n: int, hout: int, wout: int, c: int, aligned: bool,
     ``aligned``: 16 channels a thread), ``blocks`` and ``threads``."""
     vector = c % POOL_VEC == 0 and bool(aligned)
     total = n * hout * wout * (c // POOL_VEC if vector else c)
+    return dict(blocks=cdiv(total, threads), threads=threads, vector=vector)
+
+
+def pool_f_plan(n: int, hout: int, wout: int, c: int, esize: int,
+                aligned: bool, threads: int = DEFAULT_THREADS) -> dict:
+    """The float launch, as ``repro_maxpool2d_f_plan`` in ``csrc/pool.cu``
+    computes it: ``vector`` (C * ``esize`` a multiple of 16 and x and y
+    16-byte ``aligned``: a 16-byte vector a thread), ``blocks`` and
+    ``threads``."""
+    vector = c * esize % POOL_VEC == 0 and bool(aligned)
+    total = n * hout * wout * (c * esize // POOL_VEC if vector else c)
     return dict(blocks=cdiv(total, threads), threads=threads, vector=vector)
 
 

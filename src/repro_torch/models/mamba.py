@@ -108,8 +108,8 @@ def _mixer(p, x, cdt, chunk, conv_method):
     rank = p["dt_proj"].shape[0]
     n = p["A_log"].shape[-1]
     xz = x @ p["in_proj"].to(cdt)
+    # x_in is a view of xz's first D columns: the conv reads it in place
     x_in, z = xz.chunk(2, dim=-1)
-    x_in = x_in.contiguous()
     x_c = K.causal_conv1d(x_in, p["conv_w"].to(cdt), method=conv_method)
     x_c = F.silu(x_c + p["conv_b"].to(cdt))
     dbc = x_c @ p["x_proj"].to(cdt)

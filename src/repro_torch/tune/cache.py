@@ -35,8 +35,9 @@ from repro_torch.obs import metrics as _obs_metrics
 #: add_conv2d's tile (bp, q) in place of threads; v5: depthwise2d's tile
 #: (pt, rows) and the integer add_conv2d's tile (bp, q) in place of threads;
 #: v6: the integer matmul's tile (bn, bm) and cluster in place of bm /
-#: splits
-SCHEMA_VERSION = 6
+#: splits; v7: causal_conv1d's run and block size (run, threads) in place
+#: of threads alone, and the pools' vector paths
+SCHEMA_VERSION = 7
 #: the environment variable naming the default cache file
 ENV_VAR = "REPRO_TORCH_TUNE_CACHE"
 

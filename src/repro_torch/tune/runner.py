@@ -20,7 +20,9 @@ Two ways to pick a schedule, as in the JAX package:
   instructions, a cluster's barrier) plus its bytes, constants fitted to
   the card's sweep of its configs; for depthwise2d the bytes term counts its staged halo and the
   sectors a narrow channel slab wastes, and a grid of fewer than 128
-  blocks is slowed in proportion).
+  blocks is slowed in proportion; for causal_conv1d the kernel module's
+  model, fitted to the card's sweep, whose pick is the wrapper's default;
+  the pools' blocks are those of their vector or scalar launch).
 
 :func:`get_config` is the dispatch layer's lookup: memo, then the loaded
 cache, then the analytic model. Every knob changes only a launch shape, so
@@ -37,6 +39,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.conv1d_causal import c1d_cost_s
 from repro_torch.obs import metrics as _obs_metrics
 from repro_torch.obs import trace as _obs_trace
 
@@ -338,13 +341,19 @@ def estimate_s(sig: ShapeSig, config: Dict[str, int], dtype) -> float:
                 * max(1.0, DEFAULT_BLOCKS / (gx * gy)) + LAUNCH_S)
     if k in _space.THREADED:
         threads = eff["threads"]
-        blocks = _space.cdiv(_space.outputs(sig), threads)
-    else:                                        # causal_conv1d
-        threads = eff["threads"]
-        blocks = (_space.cdiv(sig.get("d"), threads)
-                  * _space.cdiv(sig.get("l"), 32) * sig.get("b"))
-    return (max(nbytes / HBM_BPS, ops_s) * _tail(blocks, threads)
-            + LAUNCH_S)
+        blocks = _space.pool_launch(sig, threads, dtype)["blocks"]
+        return (max(nbytes / HBM_BPS, ops_s) * _tail(blocks, threads)
+                + LAUNCH_S)
+    return _c1d_s(sig, eff, dtype)
+
+
+def _c1d_s(sig: ShapeSig, eff: Dict[str, int], dtype) -> float:
+    """causal_conv1d's device seconds under (run, threads), launch
+    included: ``kernels.conv1d_causal.c1d_cost_s``, the model fitted to
+    the card's sweep whose cheapest config is the wrapper's default."""
+    g = sig.get
+    return c1d_cost_s(g("b"), g("l"), g("d"), g("k"),
+                      int(_elem_bytes(dtype)[0]), eff["run"], eff["threads"])
 
 
 def analytic_config(sig: ShapeSig, dtype="float32") -> Dict[str, int]:

@@ -4,9 +4,11 @@
 The knobs are what the port's CUDA kernels expose, not the Pallas block
 names, which mean nothing to them:
 
-* the one-thread-per-output kernel ``maxpool2d`` (every mode): the block
-  size ``threads``, one of 64, 128, 256, 512 or 1024 (default 256, its
-  launch before the tuner existed);
+* ``maxpool2d`` (every mode; a thread owns one output element, or one
+  16-byte vector of a pixel's channels on the vector paths, which the
+  kernels take by shape and alignment): the block size ``threads``, one
+  of 64, 128, 256, 512 or 1024 (default 256, its launch before the tuner
+  existed);
 * ``depthwise2d`` in every mode (a staged-row kernel): a thread's output
   pixels along a row ``pt`` (1, 2 or 4) and a block's output rows
   ``rows`` (1, 2, 4 or 8); the default is the wrapper's
@@ -30,8 +32,12 @@ names, which mean nothing to them:
   one of the instantiated ``MMF_TILES`` (default
   ``kernels.matmul_q8.default_mmf_tile``, by the shape). The float mode
   sums K in order and has no split;
-* ``causal_conv1d``: channels per block, ``threads``, 64, 128 or 256
-  (default 128; a template argument, one instantiation each).
+* ``causal_conv1d``: a thread's run of positions on the vector path,
+  ``run`` (1, 2, 4 or 8), and the block size ``threads`` (64, 128 or
+  256), each a template argument; the default is the wrapper's
+  (``kernels.conv1d_causal.default_c1d_config``), which depends on the
+  shape. Where D * elsize is not a multiple of 16 the kernel takes its
+  scalar path, which has no run: there only ``threads`` varies.
 
 No knob changes the value of an output: each changes only the launch
 shape, and the integer split sums are exact. So every candidate gives
@@ -57,8 +63,10 @@ import functools
 from typing import Dict, Iterator, List, Tuple
 
 from repro_torch.kernels.common import DEFAULT_THREADS, cdiv
-from repro_torch.kernels.conv1d_causal import DEFAULT_THREADS as C1D_DEFAULT
+from repro_torch.kernels.conv1d_causal import RUNS as C1D_RUNS
 from repro_torch.kernels.conv1d_causal import THREADS as C1D_THREADS
+from repro_torch.kernels.conv1d_causal import (MAX_BATCH, MAX_RUNS, c1d_plan,
+                                               default_c1d_config)
 from repro_torch.kernels.conv_add import add_f_plan
 from repro_torch.kernels.conv_dw import (DW_PT, DW_ROWS, default_dw_tile,
                                          dw_knob_errors, dw_plan,
@@ -75,12 +83,14 @@ from repro_torch.kernels.matmul_q8 import (MMF_KNOBS, MMF_TILES,
                                            default_mmq_config, mmf_tile_errors,
                                            mmq_bm_cap, mmq_cluster_cap,
                                            mmq_config_errors)
+from repro_torch.kernels.pool import pool_f_plan, pool_plan
 
 # Kernels the tuner knows about. Names match repro_torch.kernels.ops.
 KERNELS = ("conv2d", "depthwise2d", "shift_conv2d", "add_conv2d",
            "causal_conv1d", "matmul", "maxpool2d")
 
-#: the one-thread-per-output kernels and their block sizes, default first
+#: the kernels whose one knob is the block size, and its values, default
+#: first
 THREADED = ("maxpool2d",)
 #: the kernels whose knobs are an implicit GEMM's tile (bp, q)
 TILED = ("conv2d", "shift_conv2d", "add_conv2d")
@@ -168,8 +178,7 @@ def sig_maxpool2d(n, h, w, c, window, stride) -> ShapeSig:
 
 
 def outputs(sig: ShapeSig) -> int:
-    """Output elements of one invocation: one thread each in the
-    one-thread-per-output kernels."""
+    """Output elements of one invocation."""
     g = sig.get
     k = sig.kernel
     if k == "maxpool2d":
@@ -186,9 +195,30 @@ def outputs(sig: ShapeSig) -> int:
 
 
 def threaded(kernel: str, dtype=None) -> bool:
-    """Whether ``kernel`` is a one-thread-per-output kernel (its knob is
-    ``threads``), in every mode."""
+    """Whether ``kernel``'s one knob is ``threads`` (the pool), in every
+    mode."""
     return kernel in THREADED
+
+
+def pool_launch(sig: ShapeSig, threads: int, dtype) -> dict:
+    """A pool job's launch (``kernels.pool.pool_plan`` / ``pool_f_plan``)
+    on 16-byte aligned tensors, as the tuner's jobs and the CNN plans give
+    them: ``blocks``, ``threads`` and ``vector``."""
+    g = sig.get
+    win, s = g("k"), g("s")
+    ho, wo = (g("h") - win) // s + 1, (g("w") - win) // s + 1
+    if integer(dtype):
+        return pool_plan(g("n"), ho, wo, g("c"), True, threads)
+    return pool_f_plan(g("n"), ho, wo, g("c"), dw_esize(dtype), True,
+                       threads)
+
+
+def c1d_launch(sig: ShapeSig, cfg: Dict[str, int], dtype) -> dict:
+    """A causal_conv1d job's launch (``kernels.conv1d_causal.c1d_plan``)
+    under ``cfg`` on 16-byte aligned tensors."""
+    g = sig.get
+    return c1d_plan(g("b"), g("l"), g("d"), dw_esize(dtype), True,
+                    cfg["run"], cfg["threads"])
 
 
 def tiled(kernel: str, dtype=None) -> bool:
@@ -204,8 +234,10 @@ def dw_esize(dtype) -> int:
 
 def knobs(kernel: str, dtype) -> Tuple[str, ...]:
     """The config keys ``kernel`` takes in ``dtype``."""
-    if threaded(kernel, dtype) or kernel == "causal_conv1d":
+    if threaded(kernel, dtype):
         return ("threads",)
+    if kernel == "causal_conv1d":
+        return ("run", "threads")
     if tiled(kernel, dtype):
         return ("bp", "q")
     if kernel == "depthwise2d":
@@ -259,10 +291,8 @@ def default_config(kernel: str, sig: ShapeSig = None,
     tiled kernels' and the matmul's depend on the shape (``sig``)."""
     if threaded(kernel, dtype):
         return {"threads": DEFAULT_THREADS}
-    if kernel == "causal_conv1d":
-        return {"threads": C1D_DEFAULT}
     if kernel not in ("matmul", "conv2d", "shift_conv2d", "add_conv2d",
-                      "depthwise2d"):
+                      "depthwise2d", "causal_conv1d"):
         raise ValueError(f"unknown kernel {kernel!r}")
     if sig is None:
         raise ValueError(f"{kernel}'s default config depends on its shape: "
@@ -274,6 +304,9 @@ def default_config(kernel: str, sig: ShapeSig = None,
         return default_f_tile(*add_shape(sig), 1)
     if kernel == "depthwise2d":
         return default_dw_tile(*dw_shape(sig), dw_esize(dtype))
+    if kernel == "causal_conv1d":
+        return default_c1d_config(sig.get("b"), sig.get("l"), sig.get("d"),
+                                  sig.get("k"), dw_esize(dtype))
     if kernel == "shift_conv2d":
         return default_shift_tile(*shift_shape(sig), integer=integer(dtype))
     m, k, n = sig.get("m"), sig.get("k"), sig.get("n")
@@ -326,21 +359,27 @@ def launch_errors(sig: ShapeSig, cfg: Dict[str, int], dtype) -> List[str]:
         esize = 2 if dtype_key(dtype) == "bfloat16" else 4
         errs.extend(mmf_tile_errors(sig.get("m"), sig.get("n"),
                                     tuple(cfg[x] for x in MMF_KNOBS), esize))
-    elif k in THREADED or k == "causal_conv1d":
+    elif k in THREADED:
         t = cfg["threads"]
-        if k in THREADED and not (isinstance(t, int) and 32 <= t <= 1024
-                                  and t % 32 == 0):
+        if not (isinstance(t, int) and 32 <= t <= 1024 and t % 32 == 0):
             errs.append(f"threads={t!r} is not a whole number of warps up "
                         "to 1024")
-        elif k == "causal_conv1d" and t not in C1D_THREADS:
+        elif pool_launch(sig, t, dtype)["blocks"] > MAX_GRID_X:
+            errs.append(f"{pool_launch(sig, t, dtype)['blocks']} blocks "
+                        "exceed the grid")
+    elif k == "causal_conv1d":
+        t, r = cfg["threads"], cfg["run"]
+        if t not in C1D_THREADS:
             errs.append(f"threads={t!r} has no instantiation (one of "
                         f"{C1D_THREADS})")
-        elif k in THREADED and cdiv(outputs(sig), t) > MAX_GRID_X:
-            errs.append(f"{cdiv(outputs(sig), t)} blocks exceed the grid")
-        elif k == "causal_conv1d" and (
-                cdiv(sig.get("l"), 32) > MAX_GRID_YZ
-                or sig.get("b") > MAX_GRID_YZ):
-            errs.append("L / 32 or B exceeds the grid's y or z limit")
+        elif r not in C1D_RUNS:
+            errs.append(f"run={r!r} has no instantiation (one of "
+                        f"{C1D_RUNS})")
+        else:
+            _, gy, gz = c1d_launch(sig, cfg, dtype)["grid"]
+            if gy > MAX_RUNS or gz > MAX_BATCH:
+                errs.append(f"{gy} runs or batch {gz} exceed the grid's y "
+                            "or z limit")
     elif k == "matmul":
         errs.extend(mmq_config_errors(sig.get("m"), sig.get("k"),
                                       sig.get("n"), cfg,
@@ -372,8 +411,11 @@ def candidates(sig: ShapeSig, dtype="float32") -> Iterator[Dict[str, int]]:
         for t in THREADS:
             emit({"threads": t})
     elif k == "causal_conv1d":
-        for t in C1D_THREADS:
-            emit({"threads": t})
+        # the scalar path (D * elsize off 16 bytes) has no run
+        vector = c1d_launch(sig, default, dtype)["vector"]
+        for r in C1D_RUNS if vector else (default["run"],):
+            for t in C1D_THREADS:
+                emit({"run": r, "threads": t})
     elif tiled(k, dtype):       # conv2d, shift_conv2d, add_conv2d
         for bp in CONV_BP:
             for q in CONV_Q:

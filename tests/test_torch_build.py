@@ -65,7 +65,8 @@ def test_every_source_is_built_and_every_entry_point_typed():
         "repro_shift_conv2d_i8_plan", "repro_shift_conv2d_f_plan",
         "repro_conv2d_f_plan", "repro_add_conv2d_f_plan",
         "repro_depthwise2d_plan", "repro_matmul_q8_plan",
-        "repro_maxpool2d_s8_plan"}
+        "repro_maxpool2d_s8_plan", "repro_maxpool2d_f_plan",
+        "repro_causal_conv1d_plan"}
     # each entry point is defined in a source with as many parameters as
     # its ctypes signature declares
     import re

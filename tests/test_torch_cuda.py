@@ -482,8 +482,15 @@ def test_causal_conv1d_takes_k1d_weights_and_rejects_bad_operands(dev):
     got = causal_conv1d(x, w)
     torch.cuda.synchronize()
     assert torch.equal(_bits(got), _bits(causal_conv1d_plain(x, w)))
-    with pytest.raises(ValueError, match="contiguous"):
+    # x's rows may lie apart, but not its channels, and its batch rows
+    # must follow its rows; w must be contiguous
+    with pytest.raises(ValueError, match="rows end to end"):
         causal_conv1d(x.transpose(0, 1).contiguous().transpose(0, 1), w)
+    with pytest.raises(ValueError, match="channel stride"):
+        causal_conv1d(_f(rng, (2, 40, 192), torch.bfloat16, dev)[..., ::2],
+                      w)
+    with pytest.raises(ValueError, match="contiguous"):
+        causal_conv1d(x, _f(rng, (96, 4), torch.bfloat16, dev).t())
     with pytest.raises(TypeError):
         causal_conv1d(x, w.float())
     with pytest.raises(TypeError):
@@ -519,6 +526,158 @@ def test_causal_conv1d_backward_on_the_card(dev, dtype):
         for got, want in ((gx, ax), (gw, aw)):
             scale = max(1.0, float(want.abs().max()))
             assert float((got - want).abs().max()) <= 1e-5 * scale
+
+
+def _c1d_x(rng, shape, dtype, dev, layout):
+    """x of ``shape`` laid out as ``layout``: "contiguous", "in_proj" (the
+    x half of a (B, L, 2D) product, read in place), or "offset" (x at an
+    address one element past a 16-byte boundary)."""
+    b, l, d = shape
+    if layout == "in_proj":
+        return _f(rng, (b, l, 2 * d), dtype, dev).chunk(2, dim=-1)[0]
+    x = _f(rng, shape, dtype, dev)
+    if layout == "offset":
+        buf = torch.zeros(x.numel() + 1, dtype=dtype, device=dev)
+        view = buf[1:].view(shape)
+        view.copy_(x)
+        return view
+    return x
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,layout,vector", [
+    ((1, 96, 8192), "contiguous", True),
+    ((1, 96, 8192), "in_proj", True),
+    ((2, 37, 256), "in_proj", True),
+    ((1, 96, 8192), "offset", False),
+    ((2, 3, 64), "contiguous", True),        # L < K
+    ((3, 45, 100), "in_proj", None),         # bf16: 200 bytes, scalar
+    ((1, 20, 8196), "contiguous", None),     # bf16: 16,392 bytes, scalar
+], ids=str)
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+def test_causal_conv1d_vector_and_scalar_paths(dev, dtype, shape, layout,
+                                               vector, k):
+    """Both paths of the kernel bitwise equal to the plain version, on a
+    contiguous x, the in_proj view and x at an odd address, K = 1, 2, 4
+    and 8, L < K, relu on; the path taken is the plan's (vector None: by
+    D * elsize)."""
+    from repro_torch.kernels import causal_conv1d, causal_conv1d_plain
+    from repro_torch.kernels.conv1d_causal import c1d_plan, row_stride
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(40 + k)
+    x = _c1d_x(rng, shape, dt, dev, layout)
+    w = _f(rng, (k, shape[2]), dt, dev)
+    es = x.element_size()
+    aligned = x.data_ptr() % 16 == 0 and row_stride("t", x) * es % 16 == 0
+    plan = c1d_plan(*shape, es, aligned, 2, 64)
+    assert plan["vector"] == (shape[2] * es % 16 == 0 if vector is None
+                              else vector)
+    before = causal_conv1d.launches
+    for cfg in ({}, {"run": 8, "threads": 256}):
+        got = causal_conv1d(x, w, act="relu", **cfg)
+        torch.cuda.synchronize()
+        assert got.is_contiguous() and got.shape == x.shape
+        assert torch.equal(_bits(got),
+                           _bits(causal_conv1d_plain(x, w, act="relu")))
+    assert causal_conv1d.launches == before + 2
+
+
+def test_causal_conv1d_plan_equals_the_source(dev):
+    """c1d_plan's vector/scalar choice and grid equal the source's."""
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.conv1d_causal import RUNS, THREADS, c1d_plan
+    lib = _build.library()
+    for b, l, d in [(1, 16, 8192), (1, 33, 8192), (1, 96, 8192),
+                    (1, 256, 8192), (8, 64, 8192), (3, 45, 100),
+                    (1, 20, 8196), (2, 2, 100), (1, 1, 8)]:
+        for es in (2, 4):
+            for aligned in (0, 1):
+                for run in RUNS:
+                    for threads in THREADS:
+                        out = (ctypes.c_int * 6)()
+                        assert lib.repro_causal_conv1d_plan(
+                            out, b, l, d, es, aligned, run, threads) == 0
+                        p = c1d_plan(b, l, d, es, aligned, run, threads)
+                        assert list(out) == [*p["grid"], p["threads"],
+                                             p["run"], int(p["vector"])]
+    out = (ctypes.c_int * 6)()
+    assert lib.repro_causal_conv1d_plan(out, 1, 8, 8, 2, 1, 3, 64) != 0
+    assert lib.repro_causal_conv1d_plan(out, 1, 8, 8, 2, 1, 2, 96) != 0
+
+
+#: quiet NaNs of several bit patterns (+NaN, a payload, -NaN), as int16
+#: (bfloat16) and int32 (float32)
+NAN_BITS = {torch.bfloat16: (0x7FC0, 0x7FC5, 0xFFC0 - 0x10000),
+            torch.float32: (0x7FC00000, 0x7FC00005, 0xFFC00000 - 2 ** 32)}
+
+
+def _plant_nans(t, rng, share=0.15):
+    """Set about ``share`` of float tensor ``t``'s elements, in place, to
+    NaNs drawn from NAN_BITS: windows with several NaN taps of different
+    bits."""
+    flat = _bits(t).view(-1)
+    hit = torch.from_numpy(rng.random(t.numel()) < share).to(t.device)
+    pick = torch.from_numpy(rng.integers(0, 3, t.numel())).to(t.device)
+    bits = torch.tensor(NAN_BITS[t.dtype], dtype=flat.dtype,
+                        device=t.device)[pick]
+    flat[hit] = bits[hit]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c", [4, 8, 12, 64])
+@pytest.mark.parametrize("window,stride", [(2, 2), (3, 2), (2, 1), (4, 3)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_maxpool2d_f_vector_and_scalar_paths(dev, dtype, c, window, stride,
+                                             offset):
+    """The float pool's 16-byte vector path (C * elsize a multiple of 16,
+    x aligned) and its scalar path (else, or x at an odd address) bitwise
+    equal to the plain version on the bit pattern, NaN taps of several
+    payloads included (the first NaN tap of a window wins)."""
+    from repro_torch.kernels import maxpool2d_f, maxpool2d_plain
+    from repro_torch.kernels.pool import pool_f_plan, pool_out
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(60 + c)
+    x = _f(rng, (3, 11, 10, c), dt, dev)
+    _plant_nans(x, rng)
+    if offset:
+        buf = torch.zeros(x.numel() + offset, dtype=dt, device=dev)
+        view = buf[offset:].view(x.shape)
+        view.copy_(x)
+        x = view
+    es = x.element_size()
+    ho, wo = pool_out(11, window, stride), pool_out(10, window, stride)
+    plan = pool_f_plan(3, ho, wo, c, es, x.data_ptr() % 16 == 0)
+    assert plan["vector"] == (c * es % 16 == 0 and not offset)
+    before = maxpool2d_f.launches
+    got = maxpool2d_f(x, window=window, stride=stride)
+    torch.cuda.synchronize()
+    assert maxpool2d_f.launches == before + 1
+    want = maxpool2d_plain(x, window=window, stride=stride)
+    assert torch.isnan(want).any()
+    assert torch.equal(_bits(got), _bits(want))
+
+
+def test_pool_f_plan_equals_the_source(dev):
+    """pool_f_plan's vector/scalar choice and grid equal the source's."""
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.pool import pool_f_plan
+    lib = _build.library()
+    for n, ho, wo, c in [(8, 16, 16, 64), (2, 7, 6, 19), (3, 5, 4, 4),
+                         (3, 5, 4, 8), (3, 5, 4, 12), (1, 1, 1, 2)]:
+        for es in (2, 4):
+            for aligned in (0, 1):
+                for threads in (64, 256, 1024):
+                    out = (ctypes.c_int * 3)()
+                    assert lib.repro_maxpool2d_f_plan(
+                        out, n, ho, wo, c, es, aligned, threads) == 0
+                    p = pool_f_plan(n, ho, wo, c, es, aligned, threads)
+                    assert list(out) == [p["blocks"], p["threads"],
+                                         int(p["vector"])]
+    out = (ctypes.c_int * 3)()
+    assert lib.repro_maxpool2d_f_plan(out, 1, 2, 2, 16, 4, 1, 48) != 0
+    assert lib.repro_maxpool2d_f_plan(out, 1, 2, 2, 16, 1, 1, 64) != 0
 
 
 def test_ssm_engine_on_the_card_launches_conv_once_per_layer(dev):
@@ -696,9 +855,9 @@ def _entry(name, dev, rng):
                "matmul_f": lambda: tune.sig_matmul(*shape)}[name]()
         return sig, "float32", run
     if name == "causal_conv1d":
-        x, w = (_f(rng, (2, 70, 300), torch.bfloat16, dev),
-                _f(rng, (4, 300), torch.bfloat16, dev))
-        return (tune.sig_causal_conv1d(2, 70, 300, 4), "bfloat16",
+        x, w = (_f(rng, (2, 70, 320), torch.bfloat16, dev),
+                _f(rng, (4, 320), torch.bfloat16, dev))
+        return (tune.sig_causal_conv1d(2, 70, 320, 4), "bfloat16",
                 lambda **c: K.causal_conv1d(x, w, **c))
     if name in ("matmul_q8", "matmul_w4"):
         a = _i8(rng, (8, 896), dev)

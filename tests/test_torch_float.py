@@ -143,6 +143,24 @@ def test_maxpool2d_f_bitwise_vs_pallas_and_ref(window, stride, dtype):
                                       np.asarray(want).astype(np.float32))
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c", [4, 8, 12, 64])
+def test_maxpool2d_f_vector_widths_bitwise_vs_ref_with_nans(c, dtype):
+    """The channel counts whose pixels are whole 16-byte vectors on the
+    card (C = 4, 8, 12, 64: a vector path in float32, and at 8 and 64 in
+    bf16), with a share of NaN taps: bitwise against JAX's oracle, NaN
+    where a window holds one."""
+    rng = np.random.default_rng(70 + c)
+    a = _rnd(rng, (2, 9, 8, c), dtype)
+    a[rng.random(a.shape) < 0.1] = np.nan
+    x, jx = _pair(a, dtype)
+    got = kernels.maxpool2d_f(x, window=2, stride=2)
+    want = np.asarray(JR.maxpool2d_ref(jx, window=2, stride=2)
+                      .astype(jnp.float32))
+    assert np.isnan(want).any() and not np.isnan(want).all()
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
 def test_maxpool2d_f_propagates_nan_as_jnp_max():
     x = torch.zeros((1, 4, 4, 2))
     x[0, 1, 1, 0] = float("nan")

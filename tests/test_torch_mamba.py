@@ -228,6 +228,61 @@ def test_ops_causal_conv1d_dispatch_and_arguments():
         causal_conv1d(x[0], w)
 
 
+def test_causal_conv1d_reads_the_in_proj_view_and_refuses_other_layouts():
+    """The wrapper takes the x half of a (B, L, 2D) in_proj product as it
+    lies (row stride 2D), equal to JAX's oracle on the same values (float32:
+    bitwise, as for a contiguous x);
+    it refuses x with strided channels, or batch rows that do not follow
+    its rows, on the host as on the card."""
+    from repro_torch.kernels.conv1d_causal import row_stride
+    rng = np.random.default_rng(32)
+    xz, w = _f32(rng, (2, 9, 48)), _f32(rng, (4, 24))
+    x_in = _tt(xz).chunk(2, dim=-1)[0]
+    assert not x_in.is_contiguous() and row_stride("t", x_in) == 48
+    got = causal_conv1d(x_in, _tt(w), act="relu")
+    assert got.is_contiguous()
+    assert torch.equal(got, causal_conv1d_plain(x_in.contiguous(), _tt(w),
+                                                act="relu"))
+    want = JR.causal_conv1d_ref(jnp.asarray(xz[..., :24]), jnp.asarray(w))
+    np.testing.assert_array_equal(causal_conv1d(x_in, _tt(w)).numpy(),
+                                  np.asarray(want))
+    x = _tt(_f32(rng, (2, 9, 48)))
+    with pytest.raises(ValueError, match="channel stride"):
+        causal_conv1d(x[..., ::2], _tt(w))
+    with pytest.raises(ValueError, match="rows end to end"):
+        causal_conv1d(x[..., :24].transpose(0, 1).contiguous()
+                      .transpose(0, 1), _tt(w))
+    # one batch row: its stride is never read; one position a batch row:
+    # the batch rows are the rows
+    assert row_stride("t", x[:1, :, :24]) == 48
+    assert row_stride("t", x[:, :1, :24]) == 432
+
+
+def test_the_mixer_hands_the_conv_its_in_proj_view(monkeypatch):
+    """_mixer no longer copies x_in: the conv gets the view (row stride
+    2 d_inner), and the block and its state still track JAX's (float32,
+    rtol 1e-5)."""
+    cfg, jp, tp, x, _ = _block_inputs(6, "float32")
+    m = cfg.mamba
+    seen = []
+    real = mamba.K.causal_conv1d
+
+    def spy(xv, wv, **kw):
+        seen.append((xv.is_contiguous(), xv.stride()))
+        return real(xv, wv, **kw)
+    monkeypatch.setattr(mamba.K, "causal_conv1d", spy)
+    ty, tst = mamba.mamba_forward_with_state(tp, _tt(x), m, torch.float32)
+    di = m.expand * cfg.d_model
+    b, l, _ = x.shape
+    assert seen == [(False, (l * 2 * di, 2 * di, 1))]
+    jy, jst = j_T._mamba_forward_with_state(jp, jnp.asarray(x), m,
+                                            jnp.dtype("float32"))
+    for got, want in ((ty, jy), (tst["conv"], jst["conv"]),
+                      (tst["ssm"], jst["ssm"])):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-5)
+
+
 # ------------------------------------------------------------ mamba_scan --
 
 @pytest.mark.parametrize("l,chunk", [(10, 4), (13, 4), (10, 256), (1, 4)])

@@ -5,8 +5,9 @@ the float conv's and every add conv mode's (``conv_f_plan``,
 ``shift_f_plan``), the depthwise conv's staged rows
 (``kernels.conv_dw.dw_plan``), the float matmul's register tiles
 (``kernels.matmul_q8.mmf_plan``), the integer matmul's tiles and clusters
-(``mmq_plan``) and the int8 pool's vector or scalar launch
-(``kernels.pool.pool_plan``), their default tiles, the wrappers' checks of
+(``mmq_plan``), the int8 and float pools' vector or scalar launches
+(``kernels.pool.pool_plan``, ``pool_f_plan``) and the causal conv1d's
+(``kernels.conv1d_causal.c1d_plan``), their default tiles, the wrappers' checks of
 the tile knobs, and the tuner's Hopper footprint check
 (``tune.launch_errors``). The CUDA sources compute the same arithmetic
 themselves; ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold the
@@ -298,6 +299,91 @@ def test_pool_plan_counts(shape, aligned, threads, want):
     blocks, vector = want
     assert P.pool_plan(*shape, aligned, threads) == dict(
         blocks=blocks, threads=threads, vector=vector)
+
+
+@pytest.mark.parametrize("shape,esize,aligned,threads,want", [
+    # the tuner's float pool job: a 16-byte vector a thread (4 float32, 8
+    # bf16), or a thread an element at an odd address
+    ((8, 16, 16, 64), 4, True, 256, (128, True)),
+    ((8, 16, 16, 64), 2, True, 256, (64, True)),
+    ((8, 16, 16, 64), 4, False, 256, (512, False)),
+    # C = 12: three float32 vectors a pixel; 24 bf16 bytes: scalar
+    ((3, 5, 4, 12), 4, True, 64, (3, True)),
+    ((3, 5, 4, 12), 2, True, 64, (12, False)),
+    # C = 4 and 8: one float32 / one bf16 vector; C = 4 bf16: scalar
+    ((3, 5, 4, 4), 4, True, 64, (1, True)),
+    ((3, 5, 4, 8), 2, True, 64, (1, True)),
+    ((3, 5, 4, 4), 2, True, 64, (4, False)),
+    ((2, 7, 6, 19), 4, True, 1024, (2, False)),
+], ids=str)
+def test_pool_f_plan_counts(shape, esize, aligned, threads, want):
+    blocks, vector = want
+    assert P.pool_f_plan(*shape, esize, aligned, threads) == dict(
+        blocks=blocks, threads=threads, vector=vector)
+
+
+C1 = importlib.import_module("repro_torch.kernels.conv1d_causal")
+
+
+@pytest.mark.parametrize("args,want", [
+    # Falcon-Mamba's prefill (d_inner 8192): 1,024 bf16 vectors (2,048
+    # float32) over 64 threads, runs of R positions
+    ((1, 96, 8192, 2, True, 4, 64), ((16, 24, 1), 4, True)),
+    ((1, 96, 8192, 4, True, 8, 64), ((32, 12, 1), 8, True)),
+    ((1, 16, 8192, 2, True, 2, 64), ((16, 8, 1), 2, True)),
+    ((1, 256, 8192, 2, True, 8, 128), ((8, 32, 1), 8, True)),
+    ((8, 64, 8192, 2, True, 8, 256), ((4, 8, 8), 8, True)),
+    # x at an odd address: the scalar path, a channel a thread, runs of 32
+    ((1, 96, 8192, 2, False, 4, 64), ((128, 3, 1), 32, False)),
+    # D = 100: 200 bf16 bytes is off 16 (scalar), 400 float32 bytes is 25
+    # vectors
+    ((3, 45, 100, 2, True, 2, 128), ((1, 2, 3), 32, False)),
+    ((3, 45, 100, 4, True, 2, 128), ((1, 23, 3), 2, True)),
+    ((1, 20, 8196, 2, True, 1, 64), ((129, 1, 1), 32, False)),
+    # L < K
+    ((2, 2, 64, 2, True, 8, 64), ((1, 1, 2), 8, True)),
+], ids=str)
+def test_c1d_plan_counts(args, want):
+    grid, run, vector = want
+    assert C1.c1d_plan(*args) == dict(grid=grid, threads=args[-1], run=run,
+                                      vector=vector)
+
+
+def test_default_c1d_configs():
+    """The wrapper's default is the cheapest config under the fitted cost
+    model, which the tuner's analytic model prices with: longer runs as L
+    grows, 64 threads at every prefill shape."""
+    want = {(1, 16, 2): 2, (1, 33, 2): 2, (1, 96, 2): 4, (1, 256, 2): 8,
+            (8, 64, 2): 8, (1, 96, 4): 8}
+    for (b, l, es), run in want.items():
+        cfg = C1.default_c1d_config(b, l, 8192, 4, es)
+        assert cfg == {"run": run, "threads": 64}
+        dt = "bfloat16" if es == 2 else "float32"
+        sig = tune.sig_causal_conv1d(b, l, 8192, 4)
+        assert tune.analytic_config(sig, dt) == cfg
+        for c in tune.candidates(sig, dt):
+            assert C1.c1d_cost_s(b, l, 8192, 4, es, c["run"], c["threads"]) \
+                >= C1.c1d_cost_s(b, l, 8192, 4, es, run, 64)
+
+
+def test_c1d_launch_errors():
+    """The tuner holds causal_conv1d's configs to its instantiations and
+    the grid's y (runs) and z (batch) limits."""
+    sig = tune.sig_causal_conv1d(1, 70000, 64, 4)
+    assert tune.space.launch_errors(sig, {"run": 1, "threads": 64},
+                                    "float32")
+    assert not tune.space.launch_errors(sig, {"run": 2, "threads": 64},
+                                        "float32")
+    assert tune.space.launch_errors(
+        tune.sig_causal_conv1d(70000, 4, 64, 4), {"run": 1, "threads": 64},
+        "float32")
+    for bad in ({"run": 3, "threads": 64}, {"run": 2, "threads": 96}):
+        assert tune.space.launch_errors(tune.sig_causal_conv1d(1, 8, 64, 4),
+                                        bad, "float32")
+    x = torch.zeros((1, 8, 64))
+    for kw in ({"run": 3}, {"threads": 96}):
+        with pytest.raises(ValueError, match="must be one of"):
+            C1.causal_conv1d(x, torch.zeros((4, 64)), **kw)
 
 
 def _conv_args(cx=8, cy=8, hk=3, g=1, w4=False):

@@ -168,9 +168,26 @@ def test_space_knobs_and_defaults_are_todays_launches():
             default_dw_tile(256, 16, 16, 16, 3, es)
         assert {(c["pt"], c["rows"]) for c in tune.candidates(dsig, dt)} \
             == {(pt, r) for pt in (1, 2, 4) for r in (1, 2, 4, 8)}
-    assert tune.default_config("causal_conv1d") == {"threads": 128}
-    assert {c["threads"] for c in tune.candidates(
-        tune.sig_causal_conv1d(1, 96, 8192, 4))} == {64, 128, 256}
+    # causal_conv1d's knobs are its vector path's run and its block size;
+    # its default is the wrapper's, the cheapest config under the kernel's
+    # fitted cost model, by the shape (a Falcon-Mamba prefill: runs of 4
+    # in bf16, of 8 in float32, 64 threads); where D * elsize is off 16
+    # bytes (the scalar path, no run) only the block size varies
+    from repro_torch.kernels.conv1d_causal import default_c1d_config
+    with pytest.raises(ValueError, match="pass sig"):
+        tune.default_config("causal_conv1d")
+    csig = tune.sig_causal_conv1d(1, 96, 8192, 4)
+    assert tune.default_config("causal_conv1d", csig, "bfloat16") == \
+        default_c1d_config(1, 96, 8192, 4, 2) == {"run": 4, "threads": 64}
+    assert tune.default_config("causal_conv1d", csig, "float32") == \
+        {"run": 8, "threads": 64}
+    assert {(c["run"], c["threads"]) for c in tune.candidates(
+        csig, "bfloat16")} == {(r, t) for r in (1, 2, 4, 8)
+                               for t in (64, 128, 256)}
+    ssig = tune.sig_causal_conv1d(2, 70, 300, 4)
+    assert {(c["run"], c["threads"]) for c in tune.candidates(
+        ssig, "bfloat16")} == {(8, t) for t in (64, 128, 256)}
+    assert len(list(tune.candidates(ssig, "float32"))) == 12
     sig = tune.sig_matmul(8, 896, 4864)
     assert tune.default_config("matmul", sig, "int8") == \
         default_mmq_config(8, 896, 4864, 132) == \
@@ -236,6 +253,12 @@ def test_space_knobs_and_defaults_are_todays_launches():
     (tune.sig_matmul(8, 4864, 896), "int8", {"splits": 3}, "unknown"),
     (tune.sig_causal_conv1d(1, 16, 64, 4), "float32", {"threads": 512},
      "cannot launch"),
+    (tune.sig_causal_conv1d(1, 16, 64, 4), "float32", {"run": 3},
+     "cannot launch"),
+    (tune.sig_causal_conv1d(1, 16, 64, 4), "float32", {"block": 64},
+     "unknown"),
+    (tune.sig_causal_conv1d(1, 16, 100, 4), "bfloat16", {"run": 1},
+     "outside"),
 ])
 def test_check_config_rejects_non_members(sig, dtype, bad, match):
     with pytest.raises(ValueError, match=match):
@@ -275,7 +298,7 @@ def test_cache_of_the_threads_space_is_stale_not_an_error(tmp_path):
     """A v1 cache, written when the integer conv2d took threads and the
     float matmul bm, is ignored as stale: lookups fall back to the analytic
     model instead of raising in check_config."""
-    assert tune.SCHEMA_VERSION == 6
+    assert tune.SCHEMA_VERSION == 7
     sig = tune.sig_conv2d(8, 16, 16, 16, 32, 3)
     key = tune.cache_key("conv2d", sig.key(), "int8", "cpu")
     p = tmp_path / "v1.json"
@@ -365,6 +388,25 @@ def test_cache_of_the_integer_matmul_split_space_is_stale(tmp_path):
         cfg = tune.get_config(sig, dt, "cpu")
         assert set(cfg) == {"bn", "bm", "cluster"}
         assert tune.check_config(sig, cfg, dt) is cfg
+
+
+def test_cache_of_the_conv1d_threads_space_is_stale(tmp_path):
+    """A v6 cache, written when causal_conv1d took only threads, is ignored
+    as stale: a lookup gives the new (run, threads) space's config, the
+    analytic one, which is the wrapper's default."""
+    sig = tune.sig_causal_conv1d(1, 96, 8192, 4)
+    key = tune.cache_key("causal_conv1d", sig.key(), "bfloat16", "cpu")
+    p = tmp_path / "v6.json"
+    p.write_text(json.dumps({"schema_version": 6, "entries": {
+        key: {"config": {"threads": 256}, "us": 1.0,
+              "source": "measured"}}}))
+    c = tune.TuneCache(str(p))
+    assert c.stale and len(c) == 0
+    tune.set_default_cache(c)
+    cfg = tune.get_config(sig, "bfloat16", "cpu")
+    assert cfg == tune.default_config("causal_conv1d", sig, "bfloat16") \
+        == tune.analytic_config(sig, "bfloat16")
+    assert tune.check_config(sig, cfg, "bfloat16") is cfg
 
 
 def test_cache_corrupt_file_is_ignored(tmp_path):
