@@ -86,7 +86,17 @@ Phases, one line each, any failure exits non-zero:
               and with W4 weights (weight_bits=4, group_size=32; and one
               standard plan at group_size=8): method="cuda" trunk bitwise
               equal to method="torch" and to a host run, logits within
-              1e-5; a W4 forward launches no int8 conv kernel.
+              1e-5; a W4 forward launches no int8 conv kernel. Every plan
+              is served captured (jit=True, one CUDA graph per batch
+              size): this phase warms and captures each plan at every
+              bucket phase 5 serves (256, and 64 for the ragged round of
+              37) before phase 5 sets the counts to 0, holds each
+              bucket's captured trunk (its capture call and a replay)
+              bitwise against the same plan with jit=False, a replay's
+              launches equal to an eager forward's, and at each bucket
+              the launches its capture recorded (which every replay adds
+              to the counts) equal to the port's kernels that
+              torch.profiler sees one replay run on the card.
 5. serve    — CNNEngine(max_batch=256) over 2,085 images of the int8 dws
               plan (8 full rounds and a ragged round of 37) and 549 images
               each of the int8 shift and add plans and the W4 dws, shift
@@ -94,9 +104,13 @@ Phases, one line each, any failure exits non-zero:
               launch counts set to 0 before each run: every status ok, no
               error or retry, each plan's kernels launched exactly as often
               as its forwards need and no other kernel, all nine kernels
-              launched across the six runs, logits equal to the plan's
+              launched across the six runs (each round one replay of a
+              graph phase 4 captured), logits equal to the plan's
               forward_batch; then a breakdown of one 256-image round of
-              each plan.
+              each plan: the captured plan and the same plan with
+              jit=False in one run, each with its device-resident
+              forward ms, device busy ms and idle share and throughput
+              images/s, beside the card's name and power limit.
 6. lm       — Qwen2-0.5B at full width and depth (24 layers, d_model 896,
               d_ff 4864, vocab 151,936), seeded random weights made on the
               card, served by Engine(max_batch=8, max_len=256): 24 requests,
@@ -138,7 +152,24 @@ Phases, one line each, any failure exits non-zero:
               configs read from the cache, throughput in images/s tuned
               and on the analytic configs; every kernel but matmul_w4
               (which no job runs) launched; the host time of a memo-hit
-              config lookup.
+              config lookup. The tuned plans are new CompiledPlans, so
+              each captures its graphs after the cache is installed, and
+              node_configs shows the configs it captured with.
+9. cnn-flow — the paper's deployment flow (examples/train_cnn_torch.py)
+              for each of the five primitives: CNNConfig(widths=(16, 32,
+              64)) at 32x32 trained from seeded weights for 100 AdamW
+              steps (lr 2e-3, warmup 20, cosine) at batch 64 on
+              IndexedDataset(kind="image", seed=7), TF32 off and cuDNN
+              deterministic, launching no int8 kernel; the mean loss of
+              the last 10 steps below the first 10's; a checkpoint at step
+              50 restored into fresh state reproduces the uninterrupted
+              run's losses within 1e-4; then calibrate_bn, quantize_cnn(
+              method="cuda"), its first forward launching exactly one
+              eager forward and one replay, its captured trunk bitwise
+              equal to method="torch"'s on 256 test images; profile of the
+              int8 plan at B=256 (a line per row: measured us, MACs, the
+              MCU latency and energy model); steps/s, training images/s
+              and the float / int8 top-1 agreement (printed, not gated).
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -180,6 +211,20 @@ PLANS = {"dws": ("dws", 8, 32), "standard": ("standard", 8, 32),
          "dws-w4": ("dws", 4, 32), "standard-w4": ("standard", 4, 32),
          "shift-w4": ("shift", 4, 32), "add-w4": ("add", 4, 32),
          "standard-w4-g8": ("standard", 4, 8)}
+#: phase 4 captures each served plan at the buckets phase 5 serves: full
+#: rounds of 256 and the ragged round of 37, padded to 64
+CAPTURED_BUCKETS = (BATCH, 1 << (N_SHORT % BATCH - 1).bit_length())
+#: the device kernel (a part of its name in a torch.profiler record) that
+#: each CNN wrapper launches once per call; wrappers that share one kernel
+#: are summed
+DEVICE_KERNEL = {"conv2d_q8": "igemm_kernel", "conv2d_w4": "igemm_kernel",
+                 "shift_conv2d_q8": "igemm_kernel",
+                 "shift_conv2d_w4": "igemm_kernel",
+                 "add_conv2d_q8": "fgemm_kernel",
+                 "add_conv2d_w4": "fgemm_kernel",
+                 "depthwise2d_q8": "depthwise2d_kernel",
+                 "depthwise2d_w4": "depthwise2d_kernel",
+                 "maxpool2d_s8": "maxpool2d_s8"}
 #: the plan whose B=256 forward each kernel's times are summed over
 TIMED_PLAN = {"conv2d": "dws", "depthwise2d": "dws", "maxpool2d": "dws",
               "shift_conv2d": "shift", "add_conv2d": "add"}
@@ -1822,6 +1867,9 @@ def phase_plan(torch, K, name, rng, dev="cuda"):
     torch_plan = CompiledPlan(cuda_plan.plan, method="torch", device=dev)
     host_plan = CompiledPlan(plan_to_host(cuda_plan.plan), method="torch",
                              device="cpu")
+    captured = ""
+    if torch.device(dev).type == "cuda":
+        captured = check_captured(torch, K, name, cuda_plan, x)
     K.reset_launches()
     tc = cuda_plan.trunk(x)
     used = sorted(k.__name__ for k in K.KERNELS if k.launches)
@@ -1854,8 +1902,72 @@ def phase_plan(torch, K, name, rng, dev="cuda"):
     print(f"[plan] {name}: lowered in {t_lower:.2f} s, in_fb="
           f"{cuda_plan.plan.in_fb}, cuda trunk == torch trunk bitwise "
           f"({tuple(tc.q.shape)}, {nz:.3f} nonzero) == host trunk, "
-          f"logits max |diff| {err:.2e}{groups}")
+          f"logits max |diff| {err:.2e}{groups}{captured}")
     return cuda_plan, x, tc
+
+
+def check_captured(torch, K, name, plan, x):
+    """Capture ``plan`` (jit=True) at every bucket phase 5 serves and hold
+    each captured trunk bitwise against the same plan run node by node
+    from Python (jit=False): the capture's first call and a replay. A
+    replay then counts exactly the launches an eager forward counts, and
+    at each bucket the launches its capture recorded (what every replay
+    adds to the wrappers' counts) equal the port's kernels that
+    torch.profiler sees one replay run on the card. Returns a note for
+    the [plan] line."""
+    from repro_torch.graph import CompiledPlan
+    check(plan.jit and plan.traces == 0,
+          f"{name}: the served plan is not a fresh jit=True plan")
+    eager = CompiledPlan(plan.plan, method=plan.method, device=plan.device,
+                         jit=False)
+    first_ms = []
+    for b in CAPTURED_BUCKETS:
+        want = eager.trunk(x[:b])
+        for call in ("capture", "replay"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = plan.trunk(x[:b])
+            torch.cuda.synchronize()
+            if call == "capture":
+                first_ms.append(1e3 * (time.perf_counter() - t0))
+            check(torch.equal(got.q, want.q)
+                  and got.frac_bits == want.frac_bits,
+                  f"{name}: the captured trunk at batch {b} ({call}) "
+                  "differs from jit=False")
+        err = float((plan(x[:b]) - eager(x[:b])).abs().max())
+        check(err <= 1e-5, f"{name}: captured logits at batch {b} differ "
+                           f"from jit=False by {err}")
+    check(plan.traces == len(CAPTURED_BUCKETS),
+          f"{name}: {plan.traces} captures for buckets {CAPTURED_BUCKETS}")
+    K.reset_launches()
+    eager.trunk(x)
+    want = {k.__name__: k.launches for k in K.KERNELS}
+    K.reset_launches()
+    plan.trunk(x)
+    got = {k.__name__: k.launches for k in K.KERNELS}
+    check(got == want and any(got.values()),
+          f"{name}: a replay launched {got}, an eager forward {want}")
+    seen = []
+    for b in CAPTURED_BUCKETS:
+        recorded = {}
+        for k, n in plan._graphs[b].launches.items():
+            sym = DEVICE_KERNEL[k.__name__]
+            recorded[sym] = recorded.get(sym, 0) + n
+        x_dev = torch.from_numpy(x[:b]).cuda()
+        rows = device_kernels(torch, lambda: plan.forward_batch(x_dev), 5)
+        ran = {sym: sum(r.launches for r in rows if sym in r.key)
+               for sym in set(DEVICE_KERNEL.values())}
+        ran = {sym: n for sym, n in ran.items() if n}
+        check(ran == recorded,
+              f"{name}: one replay at batch {b} ran {ran} on the card "
+              f"(torch.profiler), its capture recorded {recorded}")
+        seen.append(f"{b}: {dict(sorted(ran.items()))}")
+    return (f"; captured at batches {CAPTURED_BUCKETS} ({plan.traces} "
+            "graphs; first call, warm-up + capture + replay, "
+            + " and ".join(f"{ms:.1f}" for ms in first_ms) + " ms), each "
+            "trunk == jit=False bitwise, a replay's launches == an eager "
+            "forward's == the kernels torch.profiler saw one replay run ("
+            + "; ".join(seen) + ")")
 
 
 # ---------------------------------------------------------------- phase 5 --
@@ -1905,34 +2017,44 @@ def phase_serve(torch, K, name, plan, card, rng):
           f"latency_p99_s={st['latency_p99_s']:.5f} on {card}; "
           f"launches {launches}; logits vs forward_batch max |diff| "
           f"{worst:.1e}")
-    serve_breakdown(torch, name, plan, images[:BATCH], round_ms)
+    serve_breakdown(torch, name, plan, images[:BATCH], round_ms, card)
     return launches
 
 
-def serve_breakdown(torch, name, plan, x_host, round_ms):
+def serve_breakdown(torch, name, plan, x_host, round_ms, card):
     """Where one full 256-image round goes: the engine's round (host images
-    in, host logits out), forward_batch on host and on device-resident
-    input, and the device time of the kernels under torch.profiler."""
+    in, host logits out), forward_batch on host input, and, for the plan
+    as served (its captured graph) and the same plan run node by node from
+    Python (jit=False), in one run: forward_batch on device-resident input
+    (CUDA events), the device time of its kernels (torch.profiler), the
+    device's idle share and throughput images/s."""
+    from repro_torch.graph import CompiledPlan
     x_dev = torch.from_numpy(x_host).cuda()
-    fwd_dev_ms = time_ms(torch, lambda: plan.forward_batch(x_dev), reps=10,
-                         trials=5)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(10):
         plan.forward_batch(x_host).cpu()
     fwd_host_ms = 1e3 * (time.perf_counter() - t0) / 10
-    reps = 5
-    kernels = device_kernels(torch, lambda: plan.forward_batch(x_dev), reps)
-    dev_ms = sum(r.us for r in kernels) / 1e3
-    n_kern = sum(r.launches for r in kernels)
-    check(dev_ms > 0, "torch.profiler saw no device time")
-    busy = (f"{dev_ms:.4f} ms in {n_kern:.0f} kernels, device idle "
-            f"{1 - dev_ms / fwd_dev_ms:.3f}")
+    eager = CompiledPlan(plan.plan, method=plan.method, device=plan.device,
+                         jit=False)
+    parts, rows = [], None
+    for label, ex in (("captured", plan), ("jit=False", eager)):
+        fwd_ms = time_ms(torch, lambda: ex.forward_batch(x_dev), reps=10,
+                         trials=5)
+        kernels = device_kernels(torch, lambda: ex.forward_batch(x_dev), 5)
+        dev_ms = sum(r.us for r in kernels) / 1e3
+        n_kern = sum(r.launches for r in kernels)
+        check(dev_ms > 0, f"torch.profiler saw no device time ({label})")
+        ips = ex.throughput(x_dev, reps=10, warmup=3)["images_per_s"]
+        parts.append(f"{label}: forward_batch device-resident {fwd_ms:.4f} "
+                     f"ms, device busy {dev_ms:.4f} ms in {n_kern:.0f} "
+                     f"kernels, idle {1 - dev_ms / fwd_ms:.3f}, throughput "
+                     f"{ips:.1f} images/s")
+        rows = rows or kernels
     print(f"[breakdown] {name}: one 256-image round: engine round "
-          f"{round_ms:.4f} ms; "
-          f"forward_batch host in/out {fwd_host_ms:.4f} ms; forward_batch "
-          f"device-resident {fwd_dev_ms:.4f} ms, of which {busy}")
-    for r in sorted(kernels, key=lambda r: -r.us):
+          f"{round_ms:.4f} ms; forward_batch host in/out {fwd_host_ms:.4f} "
+          f"ms; {'; '.join(parts)}; on {card}")
+    for r in sorted(rows, key=lambda r: -r.us):
         kernel = r.key.replace("void ", "").replace("at::native::", "")
         print(f"[breakdown] {name}   {r.us:9.1f} us x{r.launches:3.0f}  "
               f"{kernel[:110]}")
@@ -2369,6 +2491,150 @@ def phase_tune(torch, K, card, plans, dev="cuda"):
     return launches
 
 
+# ---------------------------------------------------------------- phase 9 --
+
+#: phase 9: the paper's deployment flow, as examples/train_cnn_torch.py runs
+#: it: each primitive trained at full width, quantized, served and profiled
+FLOW_PRIMS = ("standard", "grouped", "dws", "shift", "add")
+FLOW_BATCH, FLOW_STEPS, FLOW_RESUME = 64, 100, 50
+#: int8 kernel launches per forward of each primitive's plan (widths
+#: 16/32/64; the 3-channel stem is a standard conv, PER_FORWARD's rows)
+FLOW_PER_FORWARD = {"standard": {"conv2d_q8": 3, "maxpool2d_s8": 3},
+                    "grouped": {"conv2d_q8": 3, "maxpool2d_s8": 3},
+                    "dws": PER_FORWARD["dws"], "shift": PER_FORWARD["shift"],
+                    "add": PER_FORWARD["add"]}
+FLOW_CKPT = ROOT / "build" / "chip_smoke_ckpt"
+
+
+def phase_cnn_flow(torch, K, card, dev="cuda", prims=FLOW_PRIMS,
+                   steps=FLOW_STEPS, resume_at=FLOW_RESUME):
+    """Train -> checkpoint -> resume -> PTQ -> serve -> profile for each
+    primitive; returns the kernel launches of the plans' forwards and
+    profiles (training launches none: it runs the float primitives)."""
+    import shutil
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.data import DataConfig, IndexedDataset, PrefetchLoader
+    from repro_torch.device import exact_float32
+    from repro_torch.graph import CompiledPlan
+    from repro_torch.models import (CNNConfig, calibrate_bn, cnn_forward,
+                                    cnn_value_and_grad, init_cnn,
+                                    quantize_cnn)
+    from repro_torch.optim import OptConfig, apply_updates, init_opt_state
+    ds = IndexedDataset(DataConfig(kind="image", global_batch=FLOW_BATCH,
+                                   image_size=32, num_classes=10, seed=7))
+    test = IndexedDataset(DataConfig(kind="image", global_batch=BATCH,
+                                     image_size=32, num_classes=10,
+                                     seed=7)).batch(10_000)
+    x = torch.as_tensor(test["images"], dtype=torch.float32, device=dev)
+    labels = torch.as_tensor(test["labels"], device=dev).long()
+    calib = torch.as_tensor(ds.batch(20_000)["images"], dtype=torch.float32,
+                            device=dev)
+    opt = OptConfig(lr=2e-3, warmup_steps=20, total_steps=steps,
+                    weight_decay=1e-4, grad_clip=1.0)
+    on_card = torch.device(dev).type == "cuda"
+    launches = dict.fromkeys((k.__name__ for k in K.KERNELS), 0)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    for prim in prims:
+        cfg = CNNConfig(primitive=prim, widths=(16, 32, 64))
+        ckdir = FLOW_CKPT / prim
+        shutil.rmtree(ckdir, ignore_errors=True)
+        ck = Checkpointer(str(ckdir), keep=2)
+
+        def fresh(seed):
+            p = init_cnn(cfg, torch.Generator(dev).manual_seed(seed),
+                         device=dev)
+            return p, init_opt_state(p, opt)
+
+        def train(params, state, start, save_at=None):
+            loader = PrefetchLoader(ds, start_step=start, device=dev)
+            losses = []
+            # full float32 and deterministic cuDNN, so a resumed run
+            # repeats the uninterrupted one's sums
+            with exact_float32(), torch.backends.cudnn.flags(
+                    enabled=True, benchmark=False, deterministic=True,
+                    allow_tf32=False):
+                for i in range(start, steps):
+                    (loss, _), grads = cnn_value_and_grad(
+                        params, next(loader), cfg)
+                    params, state, _ = apply_updates(params, grads, state,
+                                                     opt)
+                    losses.append(loss)
+                    if i + 1 == save_at:
+                        ck.save(i + 1, {"params": params, "opt": state})
+            return params, state, [float(v) for v in losses]
+
+        K.reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        params, _, losses = train(*fresh(0), 0, save_at=resume_at)
+        sync()
+        t_train = time.perf_counter() - t0
+        ck.wait()
+        check(not any(k.launches for k in K.KERNELS),
+              f"flow {prim}: training launched a kernel of the int8 path")
+        first, last = np.mean(losses[:10]), np.mean(losses[-10:])
+        check(np.isfinite(losses).all() and last < first,
+              f"flow {prim}: mean loss of the last 10 steps {last:.4f} not "
+              f"below the first 10's {first:.4f}")
+        # kill and resume: fresh state from another seed, then the
+        # checkpoint of step resume_at
+        p2, s2 = fresh(1)
+        tree, start = ck.restore({"params": p2, "opt": s2})
+        check(start == resume_at, f"flow {prim}: restored step {start}")
+        _, _, resumed = train(tree["params"], tree["opt"], start)
+        gap = max(abs(a - b) for a, b in zip(resumed, losses[start:]))
+        check(len(resumed) == steps - start and gap <= 1e-4,
+              f"flow {prim}: resumed losses differ from the uninterrupted "
+              f"run by {gap}")
+
+        params = calibrate_bn(params, cfg, calib)
+        K.reset_launches()
+        plan = quantize_cnn(params, cfg, calib, method="cuda", device=dev)
+        trunk = plan.trunk(x)                 # eager warm-up, capture, replay
+        per = {k.__name__: k.launches for k in K.KERNELS}
+        want = {k: 2 * FLOW_PER_FORWARD[prim].get(k, 0) for k in per} \
+            if on_card else dict.fromkeys(per, 0)
+        check(per == want, f"flow {prim}: the first forward launched {per}, "
+                           f"not {want}")
+        plain = CompiledPlan(plan.plan, method="torch", device=dev).trunk(x)
+        check(torch.equal(trunk.q, plain.q)
+              and trunk.frac_bits == plain.frac_bits,
+              f"flow {prim}: cuda trunk differs from the torch trunk")
+        with exact_float32():
+            lf = cnn_forward(params, x, cfg)
+        lq = plan(x)
+        check(bool(torch.isfinite(lq).all()) and tuple(lq.shape) ==
+              (BATCH, cfg.num_classes), f"flow {prim}: bad int8 logits")
+        agree = float((lf.argmax(-1) == lq.argmax(-1)).float().mean())
+        acc_f = float((lf.argmax(-1) == labels).float().mean())
+        acc_q = float((lq.argmax(-1) == labels).float().mean())
+        rows = plan.profile(x, reps=3)
+        for k in K.KERNELS:
+            launches[k.__name__] += k.launches
+        check(all(launches[k] for k in FLOW_PER_FORWARD[prim]) or
+              not on_card, f"flow {prim}: a kernel of the plan never ran")
+        n = steps + steps - resume_at
+        print(f"[flow] {prim}: {steps} AdamW steps (batch {FLOW_BATCH}, "
+              f"32x32, widths 16/32/64) in {t_train:.2f} s, "
+              f"{steps / t_train:.1f} steps/s, "
+              f"{steps * FLOW_BATCH / t_train:.1f} training images/s; loss "
+              f"first 10 {first:.4f} -> last 10 {last:.4f}; resumed from "
+              f"step {start}: max |loss diff| {gap:.2e} over {steps - start} "
+              f"steps ({n} steps in all); int8 trunk (cuda, {plan.traces} "
+              f"captured graph) == torch trunk bitwise; top-1 float {acc_f:.3f}, int8 "
+              f"{acc_q:.3f}, float/int8 agreement {agree:.3f} (not gated) "
+              f"on {BATCH} test images; on {card}")
+        for r in rows:
+            mcu = "".join(f" {k} {r[k]:.4f}" for k in r if k.startswith("mcu"))
+            print(f"[flow] {prim}   profile {r['name']:6s} {r['op']:8s} "
+                  f"{r['us']:9.1f} us  macs {r['macs']:>10d}{mcu}")
+    return launches
+
+
 # ------------------------------------------------------------------- main --
 
 SOURCES = {
@@ -2474,6 +2740,8 @@ def main() -> int:
     torch.cuda.empty_cache()    # phase 7's model is gone
     for k, v in phase_tune(torch, K, card, plans).items():
         launches[k] += v
+    for k, v in phase_cnn_flow(torch, K, card).items():
+        launches[k] += v
     check(all(v > 0 for v in launches.values()),
           f"a kernel was never launched: {launches}")
 
@@ -2502,7 +2770,8 @@ def main() -> int:
           "each (pool: the tuner's float pool job; library: cuDNN conv2d, "
           "amax, torch.cdist(p=1), torch.matmul, TF32 off); launches are "
           "summed over the six served CNN runs, the five LM runs, the ssm "
-          f"run and the tuner's run (phase 8); card: {card}")
+          "run, the tuner's run (phase 8) and the five trained plans' "
+          f"forwards and profiles (phase 9); card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

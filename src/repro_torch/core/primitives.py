@@ -211,10 +211,23 @@ def shift_bound(shifts, max_shift=None) -> int:
 def shift_channels(x, shifts, *, max_shift=None):
     """Per-channel spatial shift (Eq. 2): I[k,l,m] = X[k+a_m, l+b_m, m], zero
     outside the image; a gather on a padded copy, as the JAX package does.
-    ``shifts`` is an integer (C, 2) table; reading its bound is a host sync
-    on a card (this is the float and oracle path, not the served one)."""
+    ``shifts`` is an integer (C, 2) table. With ``max_shift`` given the
+    padding is ``max(1, max_shift)`` on every device, as the shift kernels'
+    windows take it, and the table is checked against that bound: on the
+    host by reading it (``ValueError``), on a card by a device-side assert,
+    so the table is never read back and a captured CUDA graph can hold this
+    gather. Without ``max_shift`` the bound is read from the table."""
     _, h, w, c = x.shape
-    pad = shift_bound(shifts, max_shift)
+    if max_shift is None:
+        pad = shift_bound(shifts)
+    else:
+        pad = max(1, int(max_shift))
+        if shifts.device.type == "cpu":
+            shift_bound(shifts, max_shift)
+        elif shifts.numel():
+            torch._assert_async(shifts.abs().max() <= pad,
+                                f"shift_channels: shift table exceeds the "
+                                f"declared max_shift={int(max_shift)}")
     s = shifts.to(device=x.device, dtype=torch.long)
     xp = F.pad(x, (0, 0, pad, pad, pad, pad))
     rows = torch.arange(h, device=x.device)[:, None, None] + pad + s[:, 0]
@@ -290,3 +303,25 @@ def batchnorm_apply(bn: dict, y: torch.Tensor, eps: float = 1e-5):
     inv = torch.rsqrt(bn["var"] + eps).to(y.dtype)
     return ((y - bn["mean"].to(y.dtype)) * inv * bn["gamma"].to(y.dtype)
             + bn["beta"].to(y.dtype))
+
+
+def apply_block(params: dict, x: torch.Tensor, spec: ConvSpec, *,
+                train_stats=None, act=torch.relu) -> torch.Tensor:
+    """Conv + BatchNorm + activation (the paper couples every primitive
+    with BN; add-conv needs it to recover positive activations, section
+    2.2). With ``train_stats`` (a dict), BN normalises with the batch's
+    statistics, the biased variance as ``jnp.var`` takes it, and writes
+    them into ``train_stats["mean"]`` / ``["var"]``; the caller owns any
+    running average. Differentiable by autograd through the float
+    primitives; an integer leaf (a shift table) takes no gradient."""
+    y = apply(params["conv"], x, spec)
+    if "bn" in params:
+        if train_stats is not None:
+            mean = y.mean(dim=(0, 1, 2))
+            var = y.var(dim=(0, 1, 2), correction=0)
+            train_stats["mean"], train_stats["var"] = mean, var
+            bn = dict(params["bn"], mean=mean, var=var)
+        else:
+            bn = params["bn"]
+        y = batchnorm_apply(bn, y)
+    return act(y) if act is not None else y

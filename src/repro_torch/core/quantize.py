@@ -20,6 +20,8 @@ ordinary int8 weight at one base scale and Algorithm 1 is untouched.
 
 Algorithm 1 (right), the additive inner loop of add-convolution, puts both
 operands on a common scale before ``|x - w|``: :func:`addmac_align`.
+:func:`mac_inner` and :func:`addmac_inner` are Algorithm 1's two inner
+loops for one operand pair, the reference the kernels' epilogues repeat.
 """
 from __future__ import annotations
 
@@ -28,6 +30,8 @@ import math
 from typing import Optional
 
 import torch
+
+from repro_torch.tree import tree_map
 
 INT8_MIN, INT8_MAX = -128, 127
 
@@ -110,6 +114,40 @@ def wrap_left_shift(v: torch.Tensor, shift: int) -> torch.Tensor:
     if not shift:
         return v.to(torch.int32)
     return (v.to(torch.int64) << shift).to(torch.int32)
+
+
+# --------------------------------------------------------------------------
+# Algorithm 1's reference inner loops, calibration and tree quantization.
+# --------------------------------------------------------------------------
+
+def mac_inner(x_q: torch.Tensor, w_q: torch.Tensor, fb_x: int, fb_w: int,
+              fb_y: int) -> torch.Tensor:
+    """Algorithm 1 (left), one (input, weight) pair: ``(x * w) >> shift``.
+    The accumulator carries fb_x + fb_w frac bits; the output shift is
+    fb_x + fb_w - fb_y."""
+    acc = x_q.to(torch.int32) * w_q.to(torch.int32)
+    return requantize(acc, fb_x + fb_w, fb_y)
+
+
+def addmac_inner(x_q: torch.Tensor, w_q: torch.Tensor, fb_x: int, fb_w: int,
+                 fb_y: int) -> torch.Tensor:
+    """Algorithm 1 (right), one pair: ``-|x - w|`` on a common scale
+    (:func:`addmac_align`), requantized to ``fb_y``."""
+    xi, wi, fb = addmac_align(x_q, w_q, fb_x, fb_w)
+    return requantize(-(xi - wi).abs(), fb, fb_y)
+
+
+def calibrate(fn, *sample_args) -> int:
+    """Output frac bits of a float ``fn`` on sample data (Eq. 4)."""
+    return frac_bits_for(fn(*sample_args))
+
+
+def quantize_params(params):
+    """Quantize a tree of float weights leaf by leaf (per-tensor scales).
+    The tree is nested dicts, lists and tuples of tensors; a leaf that is
+    not floating point (a shift table) is kept as it is."""
+    return tree_map(lambda t: quantize(t) if t.is_floating_point() else t,
+                    params)
 
 
 # --------------------------------------------------------------------------

@@ -1,46 +1,76 @@
 """Plan executor: the integer network as one callable.
 
 Port of ``repro/graph/executor.py``. :class:`CompiledPlan` takes a lowered
-:class:`~repro_torch.graph.lower.Plan` and runs it eagerly: activations
-stay int8 from the input quantization to the global average pool — ReLU
-runs as the conv kernels' accumulator-scale epilogue and pooling runs on
-int8 codes (``kernels.ops.maxpool2d``) — and the float head (gap -> dense)
-is plain PyTorch ``mean`` and ``@`` in full float32, as the JAX package
-leaves it to XLA.
+:class:`~repro_torch.graph.lower.Plan`: activations stay int8 from the
+input quantization to the global average pool (ReLU runs as the conv
+kernels' accumulator-scale epilogue and pooling runs on int8 codes,
+``kernels.ops.maxpool2d``), and the float head (gap -> dense) is plain
+PyTorch ``mean`` and ``@`` in full float32, as the JAX package leaves it to
+XLA.
 
 ``method="cuda"`` runs every conv and pool node through the CUDA kernels
-(never through their plain versions; a node the kernels cannot express
-raises), ``method="torch"`` through the plain versions. On the CPU both
-run the plain versions.
+(never through their plain versions; a node the kernels cannot express,
+such as a stride-2 or VALID conv, raises) and ``method="torch"`` through
+the plain versions. On the CPU both methods run the plain versions.
 
-Launch configs (``repro_torch.tune``): under ``"cuda"`` each qconv node's
-per-stage configs are looked up once per node and batch bucket (memo,
-then the installed cache, then the analytic model), checked against the
+``jit=True`` (the default) is the counterpart of ``jax.jit`` over the
+whole forward: on a card each batch size is captured once as a CUDA graph
+(``torch.cuda.CUDAGraph``) and replayed afterwards, so a forward costs one
+graph launch instead of a Python call per node. A size's first call runs
+the plan eagerly once (resolving its launch configs, and building the
+kernel library at a process's first launch), captures it, then replays.
+``forward_batch`` captures its pow2 buckets, ``__call__`` and ``trunk``
+the batch size they are given; a graph keeps the launch configs it was
+captured with, as a jit trace does. Captures count into ``traces`` and
+into the process metrics as ``graph.compiles`` and
+``graph.compiles.n<batch>``. A failed capture raises; it never falls back
+to the eager path. A replay adds to each kernel wrapper's ``launches`` the
+launches its capture recorded; the wrapper calls made while capturing
+execute nothing and do not count. On a CPU plan there is nothing to
+capture: ``jit`` has no effect there and ``traces`` stays 0.
+``jit=False`` runs every node from Python on every call.
+
+Launch configs (``repro_torch.tune``): each ``"cuda"`` qconv node's
+per-stage configs are looked up once per node and batch size (memo, then
+the installed cache, then the analytic model), checked against the
 tuner's space when ``validate`` is on, recorded in ``node_configs`` and
 passed to ``qconv_apply``; pool nodes look theirs up in ``ops``. No
 config changes an output, so a tuned plan's trunk is bitwise the
-untuned one's. :meth:`CompiledPlan.throughput` reports images/s.
+untuned one's. :meth:`CompiledPlan.throughput` reports images/s and
+:meth:`CompiledPlan.profile` the paper's per-layer reading: measured time,
+analytic MACs and the MCU latency / energy model (``core.energy``).
+
+Two more entry points share the plan: :func:`float_forward`, the float
+interpreter over the IR, and :func:`unfused_forward`, the float-bounce
+regime the fusion pass removes, bitwise equal to the fused trunk.
 
 Observability (``repro_torch.obs``): ``__call__``/``forward_batch`` emit a
-span when tracing is on.
+span when tracing is on, a capture a ``plan.trace`` span, and ``profile``
+one ``layer.<name>`` span per row.
 
 There is no ``degrade_to_xla`` counterpart: a plan never switches itself to
 the plain versions, so a kernel that fails raises to the caller.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import dataclasses
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.core.energy import MCUModel
 from repro_torch.core.qconv import qconv_apply
 from repro_torch.core.quantize import QTensor, QTensorW4, quantize, requantize
 from repro_torch.device import exact_float32, resolve_device
+from repro_torch.kernels import KERNELS
 from repro_torch.kernels import ops as K
 from repro_torch.kernels.common import apply_act
-from repro_torch.kernels.ops import METHODS
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
+
+#: the executor's methods, the kernel layer's two
+PLAN_METHODS = ("cuda", "torch")
 
 from .ir import Graph
 from .lower import Plan, PlanNode
@@ -64,32 +94,50 @@ def _node_dtype(node: PlanNode) -> str:
     return "int8"
 
 
+@dataclasses.dataclass
+class _Captured:
+    """One batch size's captured forward: the graph, its static input and
+    outputs (the int8 trunk fed into gap, and the logits), and the kernel
+    launches one replay makes."""
+    graph: "torch.cuda.CUDAGraph"
+    x: torch.Tensor
+    trunk: QTensor
+    logits: torch.Tensor
+    launches: Dict[object, int]
+
+
 class CompiledPlan:
     """Callable integer-only forward for one lowered plan on ``device``.
 
     The plan's tensors must live on ``device``; inputs (tensors or numpy
     arrays) are moved there. ``validate=True`` checks every resolved launch
     config against the tuner's space (a stale or hand-edited cache entry
-    raises ``ValueError`` naming the node)."""
+    raises ``ValueError`` naming the node). ``jit`` captures each batch
+    size as a CUDA graph on a card (module docstring)."""
 
     def __init__(self, plan: Plan, *, method: str = "cuda", device="cuda",
-                 validate: bool = True):
-        if method not in METHODS:
+                 jit: bool = True, validate: bool = True):
+        if method not in PLAN_METHODS:
             raise ValueError(f"unknown method {method!r}; expected one of "
-                             f"{METHODS}")
+                             f"{PLAN_METHODS}")
         self.plan = plan
         self.method = method
         self.device = resolve_device(device)
+        self.jit = jit
         self.validate = validate
         #: node name -> its stage configs at the last resolved batch
         self.node_configs: Dict[str, dict] = {}
+        #: CUDA graph captures made (one per batch size), as JAX counts
+        #: traces
+        self.traces = 0
         self._configs: Dict[tuple, dict] = {}
+        self._graphs: Dict[int, _Captured] = {}
 
     # ------------------------------------------------------------- dispatch
 
     def _resolve_configs(self, node: PlanNode, xq: QTensor) -> Optional[dict]:
         """The launch configs of one qconv node's stages at this input
-        shape, looked up once per node and batch bucket."""
+        shape, looked up once per node and batch size."""
         if self.method != "cuda":
             return None
         n, h, w, c = xq.q.shape
@@ -141,7 +189,8 @@ class CompiledPlan:
             return _qbn_apply(node.qparams, h, node.out_fb, node.act)
         if node.op == "maxpool":
             q = K.maxpool2d(h.q, window=node.attrs["window"],
-                            stride=node.attrs["stride"], method=self.method)
+                            stride=node.attrs["stride"],
+                            method=self.method)
             return QTensor(q, h.frac_bits)
         if node.op == "gap":             # head boundary: int8 -> float
             return h.dequantize().mean(dim=(1, 2))
@@ -154,30 +203,94 @@ class CompiledPlan:
             x = torch.from_numpy(x)
         return x.to(device=self.device, dtype=torch.float32)
 
-    def _forward(self, x, *, stop_at_gap: bool = False):
-        h = quantize(self._input(x), self.plan.in_fb)
+    def _forward(self, x: torch.Tensor):
+        """(trunk, logits) of one float batch on the plan's device, every
+        node run from Python: the int8 activation fed into ``gap`` (the
+        last one for a plan without a head) and the plan's output."""
+        h = quantize(x, self.plan.in_fb)
+        trunk = None
         with exact_float32():
             for node in self.plan.nodes:
-                if stop_at_gap and node.op == "gap":
-                    break
+                if node.op == "gap":
+                    trunk = h
                 h = self._run_node(node, h)
-        return h
+        return (h if trunk is None else trunk), h
+
+    def _captures(self) -> bool:
+        return self.jit and self.device.type == "cuda"
+
+    def _capture(self, b: int, x: torch.Tensor) -> _Captured:
+        """Capture the forward at batch size ``b``: one eager pass on a side
+        stream (it launches, and counts, like any forward), then the
+        capture, whose wrapper calls execute nothing and so are taken back
+        out of the launch counts and kept as one replay's."""
+        dev = self.device
+        with obs_trace.span("plan.trace", n=b, method=self.method), \
+                torch.cuda.device(dev):
+            xs = torch.zeros((b,) + tuple(x.shape[1:]), dtype=torch.float32,
+                             device=dev)
+            xs[:x.shape[0]].copy_(x)
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                self._forward(xs)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            before = {k: k.launches for k in KERNELS}
+            graph = torch.cuda.CUDAGraph()
+            try:
+                with torch.cuda.graph(graph):
+                    trunk, logits = self._forward(xs)
+            finally:
+                launches = {k: k.launches - n for k, n in before.items()
+                            if k.launches != n}
+                for k, n in before.items():
+                    k.launches = n
+        self.traces += 1
+        obs_metrics.counter("graph.compiles").inc()
+        obs_metrics.counter(f"graph.compiles.n{b}").inc()
+        cap = _Captured(graph, xs, trunk, logits, launches)
+        self._graphs[b] = cap
+        return cap
+
+    def _replay(self, x, b: int) -> _Captured:
+        """Run the graph of batch size ``b`` on ``x`` (n <= b images, host
+        or device), zero-padded to ``b``; the outputs stay in the graph's
+        static tensors until the next replay."""
+        x = torch.as_tensor(x)
+        n = x.shape[0]
+        cap = self._graphs.get(b)
+        if cap is None:
+            cap = self._capture(b, x)
+        else:
+            cap.x[:n].copy_(x)
+            if n < b:
+                cap.x[n:].zero_()
+        cap.graph.replay()
+        for k, count in cap.launches.items():
+            k.launches += count
+        return cap
 
     def trunk(self, x) -> QTensor:
         """The int8 activation fed into ``gap``: the integer trunk, which
-        tests compare bitwise."""
-        return self._forward(x, stop_at_gap=True)
+        tests compare bitwise. Read from the same captured graph as
+        ``__call__`` under ``jit`` on a card."""
+        if self._captures():
+            t = self._replay(x, x.shape[0]).trunk
+            return QTensor(t.q.clone(), t.frac_bits)
+        return self._forward(self._input(x))[0]
 
     def __call__(self, x) -> torch.Tensor:
         with obs_trace.span("plan.forward", n=x.shape[0]):
-            return self._forward(x)
+            if self._captures():
+                return self._replay(x, x.shape[0]).logits.clone()
+            return self._forward(self._input(x))[1]
 
     # ------------------------------------------------------ batched serving
 
     @staticmethod
     def batch_bucket(n: int) -> int:
         """Smallest power of two >= n: the batch sizes forward_batch runs,
-        so ragged rounds reuse a few shapes."""
+        so ragged rounds reuse a few shapes (and a few captured graphs)."""
         b = 1
         while b < n:
             b *= 2
@@ -188,13 +301,15 @@ class CompiledPlan:
         cropped back. The int8 trunk is bit-exact with the per-sample loop
         (every plan op is row-independent); the float head agrees to float
         rounding only."""
-        x = self._input(x)
         n = x.shape[0]
         b = self.batch_bucket(n)
         with obs_trace.span("plan.forward_batch", n=n, bucket=b):
+            if self._captures():
+                return self._replay(x, b).logits[:n].clone()
+            x = self._input(x)
             if b != n:
                 x = torch.cat([x, x.new_zeros((b - n,) + tuple(x.shape[1:]))])
-            return self._forward(x)[:n]
+            return self._forward(x)[1][:n]
 
     def throughput(self, x, *, reps: int = 5, warmup: int = 2) -> dict:
         """Measured images/s of :meth:`forward_batch` at ``x``'s batch size:
@@ -209,6 +324,56 @@ class CompiledPlan:
                 "us_per_batch": us, "us_per_image": us / n,
                 "images_per_s": 1e6 * n / us}
 
+    # ------------------------------------------------- per-layer attribution
+
+    def profile(self, x, *, f_mhz: float = 84.0, reps: int = 3,
+                mode: str = "latency") -> List[dict]:
+        """Per-layer attribution, the paper's Table-2 reading: one row per
+        plan node with its measured time (the node run alone from Python,
+        ``tune.runner.time_config``, which synchronises on a card), its
+        analytic MACs and, for conv nodes, the MCU model's latency and
+        energy, scalar and SIMD (``core.energy.MCUModel`` at ``f_mhz``).
+
+        ``mode="throughput"`` adds each node's ``us_per_image`` and
+        ``images_per_s`` at ``x``'s batch size."""
+        if mode not in ("latency", "throughput"):
+            raise ValueError(f"unknown profile mode {mode!r}; expected "
+                             "'latency' or 'throughput'")
+        from repro_torch.tune.runner import time_config
+        mcu = MCUModel()
+        rows: List[dict] = []
+        x = self._input(x)
+        batch = x.shape[0]
+        h = quantize(x, self.plan.in_fb)
+        with exact_float32():
+            for node in self.plan.nodes:
+                def fn(v, _n=node):
+                    return self._run_node(_n, v)
+                with obs_trace.span(f"layer.{node.name}", cat="graph.profile",
+                                    op=node.op, batch=batch) as sp:
+                    us = time_config(fn, h, reps=reps, warmup=1)
+                    sp.set(us=us)
+                row = dict(name=node.name, op=node.op, us=us, macs=0,
+                           primitive=node.spec.primitive if node.spec
+                           else None)
+                if node.op == "qconv":
+                    width = node.attrs["in_hw"][1]
+                    row["macs"] = node.spec.mac_count(width)
+                    row["mcu_lat_scalar_ms"] = 1e3 * mcu.latency_s(
+                        node.spec, width, simd=False, f_mhz=f_mhz)
+                    row["mcu_lat_simd_ms"] = 1e3 * mcu.latency_s(
+                        node.spec, width, simd=True, f_mhz=f_mhz)
+                    row["mcu_e_scalar_mj"] = mcu.energy_mj(
+                        node.spec, width, simd=False, f_mhz=f_mhz)
+                    row["mcu_e_simd_mj"] = mcu.energy_mj(
+                        node.spec, width, simd=True, f_mhz=f_mhz)
+                if mode == "throughput":
+                    row["us_per_image"] = us / batch
+                    row["images_per_s"] = 1e6 * batch / us if us > 0 else 0.0
+                h = fn(h)
+                rows.append(row)
+        return rows
+
 
 # ---------------------------------------------------------------- references
 
@@ -217,3 +382,40 @@ def float_forward(graph: Graph, params: dict, x: torch.Tensor) -> torch.Tensor:
     re-estimation) — the eval path of ``models.convnet.cnn_forward``."""
     from .lower import interpret
     return interpret(graph, params, x)["acts"][graph.output]
+
+
+def unfused_forward(plan: Plan, x, *, method: str = "torch"):
+    """The float-bounce regime the fusion pass removes, rebuilt from the same
+    plan: every conv and BN node dequantizes to float for its ReLU and
+    requantizes at the node's annotated scale, and the pool runs on
+    dequantized floats (the plain ``maxpool2d_ref``). Same integer conv
+    arithmetic and scales, so bitwise equal to :class:`CompiledPlan` (relu
+    and max commute with the positive pow2 scale, requantization is
+    monotone with ``rshift_round(0) == 0``), with the two float round trips
+    per block the fusion removes. ``x`` (tensor or numpy) lies on the
+    plan's device; ``method`` is the conv nodes' kernel-layer method."""
+    from repro_torch.kernels.ref import maxpool2d_ref
+    h = quantize(torch.as_tensor(x, dtype=torch.float32), plan.in_fb)
+    with exact_float32():
+        for node in plan.nodes:
+            if node.op == "qconv":
+                y = qconv_apply(node.qparams, h, node.spec, node.out_fb,
+                                method=method, act=None).dequantize()
+                if node.act == "relu":
+                    y = torch.relu(y)
+                h = quantize(y, node.out_fb)
+            elif node.op == "qbn":
+                y = _qbn_apply(node.qparams, h, node.out_fb,
+                               act=None).dequantize()
+                if node.act == "relu":
+                    y = torch.relu(y)
+                h = quantize(y, node.out_fb)
+            elif node.op == "maxpool":
+                y = maxpool2d_ref(h.dequantize(), window=node.attrs["window"],
+                                  stride=node.attrs["stride"])
+                h = quantize(y, node.out_fb)
+            elif node.op == "gap":
+                h = h.dequantize().mean(dim=(1, 2))
+            elif node.op == "dense":
+                h = h @ node.qparams["w"]
+    return h

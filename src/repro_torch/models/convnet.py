@@ -2,20 +2,25 @@
 selectable primitive (port of ``repro/models/convnet.py``; all five
 primitives run here).
 
-Inference and PTQ run through the ``repro_torch.graph`` layer IR:
-``quantize_cnn`` lowers the graph in one calibration sweep and returns the
-integer-only executor (activations int8 end to end, fused ReLU/pool
-epilogues). ``method="cuda"`` routes every layer through the CUDA kernels.
-Training (``cnn_forward(train=True)``) is not ported.
+Training runs on the float primitives (``cnn_forward(train=True)``,
+:func:`cnn_loss`, :func:`cnn_value_and_grad`, by autograd); inference and
+PTQ run through the ``repro_torch.graph`` layer IR: ``quantize_cnn``
+lowers the graph in one calibration sweep and returns the integer-only
+executor (activations int8 end to end, fused ReLU/pool epilogues).
+``method="cuda"`` routes every layer through the CUDA kernels. Together
+they are the paper's deployment flow, train -> PTQ -> serve
+(``examples/train_cnn_torch.py``).
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.core import ConvSpec, init_block
+from repro_torch.core import ConvSpec, apply_block, init_block
 from repro_torch.device import resolve_device
+from repro_torch.tree import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,12 +67,55 @@ def init_cnn(cfg: CNNConfig, generator: torch.Generator, *, device="cuda"):
 
 
 def cnn_forward(params, x, cfg: CNNConfig, *, train: bool = False):
-    """Float inference over the layer-graph IR (BN inference buffers)."""
-    if train:
-        raise NotImplementedError("training is not ported to repro_torch "
-                                  "yet (ROADMAP.md, queue A)")
-    from repro_torch.graph import build_cnn_graph, float_forward
-    return float_forward(build_cnn_graph(cfg), params, x)
+    """Logits of a float NHWC batch. ``train=False``: inference over the
+    layer-graph IR (BN inference buffers). ``train=True``: every block
+    normalises with its batch's statistics (``apply_block(train_stats=)``),
+    then a 2x2/2 VALID max-pool, the spatial mean and the head."""
+    if not train:
+        from repro_torch.graph import build_cnn_graph, float_forward
+        return float_forward(build_cnn_graph(cfg), params, x)
+    h = x
+    for p, s in zip(params["blocks"], _specs(cfg)):
+        h = apply_block(p, h, s, train_stats={})
+        # the pool's gradient goes to the first maximum of each window, as
+        # XLA's reduce_window max routes it
+        h = F.max_pool2d(h.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
+    return h.mean(dim=(1, 2)) @ params["head"]
+
+
+def cnn_loss(params, batch, cfg: CNNConfig):
+    """(mean log-softmax NLL, top-1 accuracy) of ``batch`` = {"images",
+    "labels"} under the training forward."""
+    logits = cnn_forward(params, batch["images"], cfg, train=True)
+    labels = batch["labels"].long()
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(1, labels[:, None]).mean()
+    acc = (logits.argmax(-1) == labels).float().mean()
+    return nll, acc
+
+
+def cnn_value_and_grad(params, batch, cfg: CNNConfig):
+    """``((loss, acc), grads)``: the counterpart of ``jax.value_and_grad(
+    cnn_loss, has_aux=True, allow_int=True)``. ``grads`` has ``params``'
+    structure. An integer leaf (a shift table) takes no gradient: it gets
+    zeros of its own dtype, and the optimizer skips it. A float leaf the
+    loss does not read (the BN running statistics) gets float zeros, as
+    JAX's gradient has there."""
+    marked = []
+
+    def mark(t):
+        if t.is_floating_point():
+            t = t.detach().requires_grad_(True)
+            marked.append(t)
+        return t
+    p = tree_map(mark, params)
+    loss, acc = cnn_loss(p, batch, cfg)
+    grads = iter(torch.autograd.grad(loss, marked, allow_unused=True))
+
+    def grad_of(t):
+        g = next(grads) if t.is_floating_point() else None
+        return torch.zeros_like(t) if g is None else g
+    return (loss.detach(), acc), tree_map(grad_of, p)
 
 
 def calibrate_bn(params, cfg: CNNConfig, calib_x):

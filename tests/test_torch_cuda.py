@@ -1410,3 +1410,184 @@ def test_depthwise_launch_arithmetic_equals_the_source(dev):
                 assert list(c) == [*p["grid"], p["threads"], p["smem"],
                                    p["window"]], (s, es, pt, rows)
                 assert (rc == 0) == (not D.dw_tile_errors(p))
+
+
+# ------------------------------------------- the plan captured as a graph --
+
+def _card_plan(dev, prim, bits, widths=(16, 32, 64), size=32):
+    """A plan lowered on the card from seeded weights, int8 or W4."""
+    from repro_torch.graph import build_cnn_graph, lower
+    from repro_torch.models import CNNConfig, init_cnn
+    cfg = CNNConfig(primitive=prim, widths=widths, image_size=size)
+    params = init_cnn(cfg, torch.Generator().manual_seed(0), device=dev)
+    rng = np.random.default_rng(31)
+    calib = torch.from_numpy((rng.standard_normal((16, size, size, 3)) * .5)
+                             .astype(np.float32)).to(dev)
+    x = torch.from_numpy((rng.standard_normal((256, size, size, 3)) * .5)
+                         .astype(np.float32)).to(dev)
+    return lower(build_cnn_graph(cfg), params, calib, weight_bits=bits), x
+
+
+@pytest.mark.parametrize("bits", [8, 4], ids=["int8", "w4"])
+@pytest.mark.parametrize("prim", ["standard", "grouped", "dws", "shift",
+                                  "add"])
+def test_captured_trunk_equals_eager_at_every_bucket(dev, prim, bits):
+    """jit=True captures one graph per batch size: at every pow2 bucket
+    from 1 to 256 the captured trunk (its capture call and a replay) is
+    bitwise the jit=False trunk, and a ragged forward_batch (one image
+    short of the bucket) replays that bucket's graph, logits within
+    1e-5."""
+    from repro_torch.graph import CompiledPlan
+    from repro_torch.obs import metrics
+    plan, x = _card_plan(dev, prim, bits)
+    ex = CompiledPlan(plan, method="cuda", device=dev)
+    eager = CompiledPlan(plan, method="cuda", device=dev, jit=False)
+    buckets = [1 << i for i in range(9)]
+    compiles = metrics.counter("graph.compiles").value
+    for b in buckets:
+        want = eager.trunk(x[:b])
+        for _ in range(2):
+            got = ex.trunk(x[:b])
+            assert got.frac_bits == want.frac_bits
+            assert torch.equal(got.q, want.q), (prim, bits, b)
+        if b > 1:
+            n = b - 1
+            err = (ex.forward_batch(x[:n]) - eager.forward_batch(x[:n]))
+            assert err.abs().max() <= 1e-5
+    assert ex.traces == len(buckets) and eager.traces == 0
+    assert metrics.counter("graph.compiles").value == compiles + len(buckets)
+    assert metrics.counter("graph.compiles.n256").value >= 1
+
+
+def test_replays_count_exact_launches(dev):
+    """The first call of a bucket launches one eager forward (the capture's
+    wrapper calls execute nothing and are not counted) and one replay;
+    every later call one replay's launches, the same as an eager
+    forward's."""
+    from repro_torch import kernels
+    from repro_torch.graph import CompiledPlan
+    plan, x = _card_plan(dev, "dws", 8)
+    eager = CompiledPlan(plan, method="cuda", device=dev, jit=False)
+    kernels.reset_launches()
+    eager.trunk(x)
+    one = {k.__name__: k.launches for k in kernels.KERNELS}
+    assert one["conv2d_q8"] == 3 and one["depthwise2d_q8"] == 2
+    assert one["maxpool2d_s8"] == 3
+    ex = CompiledPlan(plan, method="cuda", device=dev)
+    kernels.reset_launches()
+    ex.forward_batch(x)
+    assert {k.__name__: k.launches for k in kernels.KERNELS} == \
+        {k: 2 * v for k, v in one.items()}
+    kernels.reset_launches()
+    for _ in range(5):
+        ex.forward_batch(x[:200])        # bucket 256: a replay each
+    torch.cuda.synchronize()
+    assert {k.__name__: k.launches for k in kernels.KERNELS} == \
+        {k: 5 * v for k, v in one.items()}
+    assert ex.traces == 1
+
+
+def test_failed_capture_raises_and_never_runs_eager(dev, monkeypatch):
+    """A host sync inside the forward breaks the capture: the call raises,
+    no graph is kept, and the next call raises again rather than running
+    the plan node by node."""
+    from repro_torch.graph import CompiledPlan
+    from repro_torch.kernels import ops
+    plan, x = _card_plan(dev, "standard", 8, widths=(8, 12), size=16)
+    pool = ops.maxpool2d
+
+    def syncing_pool(h, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            h.cpu()
+        return pool(h, **kw)
+    monkeypatch.setattr(ops, "maxpool2d", syncing_pool)
+    ex = CompiledPlan(plan, method="cuda", device=dev)
+    for _ in range(2):
+        with pytest.raises(RuntimeError):
+            ex.trunk(x[:4])
+        assert ex.traces == 0 and not ex._graphs
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("prim", ["shift", "add"])
+def test_plain_plan_captures(dev, prim):
+    """The plain versions hold no host sync either (the shift table's
+    bound is checked on the card, never read back): a method="torch" plan
+    captures, and its trunk equals the cuda plan's bit for bit."""
+    from repro_torch.graph import CompiledPlan
+    plan, x = _card_plan(dev, prim, 8, widths=(8, 12), size=16)
+    want = CompiledPlan(plan, method="cuda", device=dev, jit=False).trunk(x)
+    ex = CompiledPlan(plan, method="torch", device=dev)
+    for _ in range(2):
+        assert torch.equal(ex.trunk(x).q, want.q)
+    assert ex.traces == 1
+
+
+def test_shift_table_beyond_max_shift_fails_on_card(dev):
+    """shift_channels checks a table on the card against max_shift with a
+    device-side assert (no host sync): a table within the bound gathers as
+    on the host, one beyond it fails the process. The failing case runs in
+    a child process, since a device-side assert ends its CUDA context."""
+    import os
+    import subprocess
+    import sys
+    from repro_torch.core.primitives import shift_channels
+    x = torch.arange(32, dtype=torch.float32).reshape(1, 4, 4, 2)
+    table = torch.tensor([[0, 2], [1, -1]], dtype=torch.int32)
+    got = shift_channels(x.to(dev), table.to(dev), max_shift=2)
+    assert torch.equal(got.cpu(), shift_channels(x, table, max_shift=2))
+    code = ("import torch\n"
+            "from repro_torch.core.primitives import shift_channels\n"
+            "x = torch.zeros((1, 4, 4, 2), device='cuda')\n"
+            "t = torch.tensor([[0, 2], [1, -1]], dtype=torch.int32, "
+            "device='cuda')\n"
+            "shift_channels(x, t, max_shift=1)\n"
+            "torch.cuda.synchronize()\n")
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    run = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert run.returncode != 0
+    assert "assert" in run.stderr.lower(), run.stderr[-2000:]
+
+
+@pytest.mark.parametrize("prim", ["standard", "grouped", "dws", "shift",
+                                  "add"])
+def test_training_step_on_card_matches_host(dev, prim):
+    """One training step on the card with TF32 off against the same step
+    on the host: the loss and every gradient within rtol 1e-4 / atol 1e-5
+    (float32 sums in another order), and the AdamW update of the host's
+    gradients on each side within the same tolerance (Adam's first step
+    is about lr * sign(g), so gradients that are float noise, such as a
+    conv bias ahead of batch-statistics BN, are fed the same on both
+    sides)."""
+    from repro_torch.device import exact_float32
+    from repro_torch.models import CNNConfig, cnn_value_and_grad, init_cnn
+    from repro_torch.optim import OptConfig, apply_updates, init_opt_state
+    from repro_torch.tree import leaves, tree_map
+    cfg = CNNConfig(primitive=prim, widths=(16, 32), image_size=16)
+    opt = OptConfig(lr=2e-3, warmup_steps=0, total_steps=10)
+    params = init_cnn(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(4)
+    batch = {"images": torch.from_numpy(rng.standard_normal((8, 16, 16, 3))
+                                        .astype(np.float32)),
+             "labels": torch.from_numpy(rng.integers(0, 10, 8)
+                                        .astype(np.int32))}
+    out, host_grads = {}, None
+    for where in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(where), params)
+        b = {k: v.to(where) for k, v in batch.items()}
+        with exact_float32():
+            (loss, _), grads = cnn_value_and_grad(p, b, cfg)
+            host_grads = host_grads or grads
+            new, _, _ = apply_updates(
+                p, tree_map(lambda t: t.to(where), host_grads),
+                init_opt_state(p, opt), opt)
+        out[where] = (float(loss), leaves(grads), leaves(new))
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-4)
+    for i in (1, 2):
+        for c, h in zip(out["cuda"][i], out["cpu"][i]):
+            np.testing.assert_allclose(c.cpu().float().numpy(),
+                                       h.float().numpy(), rtol=1e-4,
+                                       atol=1e-5)

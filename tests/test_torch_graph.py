@@ -238,3 +238,134 @@ def test_qbn_affine_and_apply_match_jax(beta_scale, gamma_scale, in_fb):
                         JQ(jax.numpy.asarray(x), in_fb), 3, act)
         assert t.frac_bits == j.frac_bits == 3
         np.testing.assert_array_equal(t.q.numpy(), np.asarray(j.q))
+
+
+# -------------------------------- unfused_forward, profile, stride 2 ---
+
+def _trunk_nodes(plan):
+    """The plan cut before its head: running it returns the int8 trunk."""
+    return dataclasses.replace(plan, nodes=tuple(
+        n for n in plan.nodes if n.op not in ("gap", "dense")))
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_unfused_forward_matches_jax_and_the_fused_trunk(lowered, bits):
+    """The float-bounce regime: its int8 trunk bitwise equal to JAX's
+    unfused_forward(method="xla") and to the port's fused trunk, and its
+    logits bitwise equal to the fused plan's (the same float head), in
+    int8 and W4."""
+    from repro.graph import unfused_forward as j_unfused
+    from repro_torch.graph import unfused_forward
+    jplan, x = lowered["jplan"], lowered["x"]
+    if bits == 4:
+        jplan = j_lower(j_build(JCNNConfig(primitive=lowered["prim"],
+                                           widths=(8, 12), image_size=16)),
+                        lowered["jparams"], lowered["calib"], weight_bits=4,
+                        group_size=4)
+    plan = plan_from_numpy(plan_to_numpy(jplan), jplan.in_fb, device="cpu")
+    got = unfused_forward(_trunk_nodes(plan), x)
+    want = j_unfused(_trunk_nodes(jplan), x, method="xla")
+    assert got.frac_bits == want.frac_bits
+    np.testing.assert_array_equal(got.q.numpy(), np.asarray(want.q))
+    fused = CompiledPlan(plan, method="torch", device="cpu")
+    np.testing.assert_array_equal(got.q.numpy(), fused.trunk(x).q.numpy())
+    assert torch.equal(unfused_forward(plan, x), fused(x))
+
+
+def test_profile_matches_jax_rows(lowered):
+    """profile: JAX's row names, ops and primitives, the same MACs, the MCU
+    columns within rel 1e-12, a measured time on every row; the
+    throughput mode's keys; an unknown mode raises."""
+    jplan, x = lowered["jplan"], lowered["x"]
+    plan = plan_from_numpy(plan_to_numpy(jplan), jplan.in_fb, device="cpu")
+    ex = CompiledPlan(plan, method="torch", device="cpu")
+    want = JCompiledPlan(jplan, method="xla").profile(x, reps=1)
+    got = ex.profile(x, reps=1)
+    assert [(r["name"], r["op"], r["primitive"]) for r in got] == \
+        [(r["name"], r["op"], r["primitive"]) for r in want]
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys()
+        assert g["macs"] == w["macs"] and g["us"] > 0
+        for k in g:
+            if k.startswith("mcu_"):
+                assert g[k] == pytest.approx(w[k], rel=1e-12, abs=0)
+    rows = ex.profile(x, reps=1, mode="throughput")
+    assert all(r["images_per_s"] > 0 and r["us_per_image"] ==
+               r["us"] / x.shape[0] for r in rows)
+    with pytest.raises(ValueError, match="mode"):
+        ex.profile(x, mode="bogus")
+
+
+def test_profile_emits_one_layer_span_per_row(lowered):
+    from repro_torch.obs import trace
+    jplan, x = lowered["jplan"], lowered["x"]
+    plan = plan_from_numpy(plan_to_numpy(jplan), jplan.in_fb, device="cpu")
+    trace.clear()
+    trace.enable()
+    try:
+        rows = CompiledPlan(plan, method="torch", device="cpu").profile(
+            x, reps=1)
+    finally:
+        trace.disable()
+    ends = [e for e in trace.TRACER.events()
+            if e["ph"] == "E" and e["name"].startswith("layer.")]
+    trace.clear()
+    assert [e["name"] for e in ends] == [f"layer.{r['name']}" for r in rows]
+    assert [e["args"]["us"] for e in ends] == [r["us"] for r in rows]
+
+
+def test_stride2_plan_runs_plain_under_torch_and_raises_under_cuda():
+    """A stride-2 conv lies outside the kernels' envelope: method="torch"
+    runs it through the plain version, its trunk bitwise JAX's "xla" and
+    its logits within 1e-5; method="cuda" raises on it rather than
+    running it plain."""
+    from repro.core import init as j_init
+    from repro.graph import Graph as JGraph
+    from repro.graph import Node as JNode
+    from repro.core import ConvSpec as JConvSpec
+    from repro.core.quantize import quantize as j_quantize
+    spec = JConvSpec("standard", 3, 8, 3, stride=2)
+    g = JGraph((JNode("conv0", "conv", ("x",), spec=spec),
+                JNode("gap", "gap", ("conv0",)),
+                JNode("head", "dense", ("gap",))))
+    params = {"blocks": [{"conv": j_init(jax.random.PRNGKey(0), spec)}],
+              "head": jax.random.normal(jax.random.PRNGKey(1), (8, 10)) * .3}
+    calib = np.array(jax.random.normal(jax.random.PRNGKey(2),
+                                       (2, 16, 16, 3)) * 0.5)
+    jplan = j_lower(g, params, calib)
+    plan = plan_from_numpy(plan_to_numpy(jplan), jplan.in_fb, device="cpu")
+    ex = CompiledPlan(plan, method="torch", device="cpu")
+    want = JCompiledPlan(jplan, method="xla", jit=False)
+    jt = want._run_node(jplan.nodes[0], j_quantize(jax.numpy.asarray(calib),
+                                                    jplan.in_fb))
+    got = ex.trunk(calib)
+    assert got.q.shape == (2, 8, 8, 8)
+    np.testing.assert_array_equal(got.q.numpy(), np.asarray(jt.q))
+    np.testing.assert_allclose(ex(calib).numpy(),
+                               np.asarray(want(calib)), rtol=0, atol=1e-5)
+    with pytest.raises(NotImplementedError, match="stride"):
+        CompiledPlan(plan, method="cuda", device="cpu")(calib)
+
+
+def test_jit_on_a_cpu_plan_captures_nothing(lowered):
+    """jit is the CUDA-graph capture: on the host it has no effect, traces
+    stays 0, and jit=False gives the same trunk and logits."""
+    jplan, x = lowered["jplan"], lowered["x"]
+    plan = plan_from_numpy(plan_to_numpy(jplan), jplan.in_fb, device="cpu")
+    a = CompiledPlan(plan, method="cuda", device="cpu")
+    b = CompiledPlan(plan, method="cuda", device="cpu", jit=False)
+    assert a.jit and not b.jit
+    np.testing.assert_array_equal(a.trunk(x).q.numpy(),
+                                  b.trunk(x).q.numpy())
+    assert torch.equal(a.forward_batch(x[:3]), b.forward_batch(x[:3]))
+    assert a.traces == b.traces == 0
+
+
+@pytest.mark.parametrize("method", ["pallas", "auto"])
+def test_plan_rejects_an_unknown_method(lowered, method):
+    """The plan takes the kernel layer's two methods only: there is no
+    per-node "auto" that would run a node plain on the card."""
+    jplan = lowered["jplan"]
+    plan = plan_from_numpy(plan_to_numpy(jplan), jplan.in_fb, device="cpu")
+    with pytest.raises(ValueError, match="method"):
+        CompiledPlan(plan, method=method, device="cpu")

@@ -1,5 +1,6 @@
 """The port imports neither JAX nor the JAX package: an AST scan of its
-sources and of chip_smoke.py, and a clean-interpreter import check."""
+sources, of chip_smoke.py and of examples/train_cnn_torch.py, and a
+clean-interpreter import check."""
 import ast
 import os
 import subprocess
@@ -10,7 +11,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py", ROOT / "examples" / "train_cnn_torch.py"]
 
 
 def _forbidden(mod: str) -> bool:
@@ -41,6 +42,7 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.configs, repro_torch.serve.engine\n"
         "import repro_torch.models.api, repro_torch.models.transformer\n"
         "import repro_torch.tune, repro_torch.tune.__main__\n"
+        "import repro_torch.optim, repro_torch.data, repro_torch.checkpoint\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
