@@ -114,29 +114,42 @@ Phases, one line each, any failure exits non-zero:
 6. lm       — Qwen2-0.5B at full width and depth (24 layers, d_model 896,
               d_ff 4864, vocab 151,936), seeded random weights made on the
               card, served by Engine(max_batch=8, max_len=256): 24 requests,
-              prompts of 16-96 tokens, 32 new tokens each, greedy, in the
-              precisions "int8", "int8-torch", "w4a8" (group_size=32),
-              "w4a8-torch" and "float"; every status ok, the kernel
-              precisions' token streams equal to their plain versions',
-              matmul_q8 (int8) or matmul_w4 (w4a8) launched exactly 72 times
-              per prefill and per decode step and no other kernel; tokens/s,
-              decode-step ms and TTFT per precision (after a two-request
-              warm-up of each engine), and one decode step's device
-              breakdown with its count of device operations (kernels and
-              memsets).
+              prompts of 16-96 tokens, 32 new tokens each, greedy, captured
+              (jit=True: one decode graph, one prefill graph per bucket),
+              in the precisions "int8", "int8-torch", "w4a8"
+              (group_size=32), "w4a8-torch" and "float", and "int8",
+              "int8-torch" and "float" over the int8 KV cache; each engine
+              warmed up with one request into every prefill bucket the
+              timed run serves (16, 32, 64, 128), each graph's first call
+              (eager pass + capture) printed, so that the timed run only
+              replays; every status ok, the kernel precisions' token
+              streams equal to their plain versions' (the int8-KV ones
+              too), matmul_q8 (int8) or matmul_w4 (w4a8) launched exactly
+              72 times per prefill and per decode step and no other kernel;
+              "float" and "int8" again with jit=False on the first 8
+              requests, their token streams equal to the captured
+              engines'; the float engine's token agreement over the int8
+              KV cache printed; tokens/s, decode-step ms and TTFT per
+              engine; then one decode step's device breakdown (its count
+              of device operations, kernels and memsets) captured and
+              with jit=False for float, int8, w4a8 and int8 over the int8
+              KV cache, and the captured prefill against the eager one at
+              buckets 32 and 128.
 7. ssm      — Falcon-Mamba-7B at full width and depth (64 layers, d_model
               4096, d_inner 8192, d_state 16, d_conv 4, dt_rank 256, vocab
               65,024; 7.27 B parameters), seeded random weights made on the
               card after phase 6's model is freed, served by
-              Engine(max_batch=8, max_len=256) in "float": 16 requests,
-              prompts of 16-96 tokens each prefilled at its exact length,
-              32 new tokens each, greedy, after a two-request warm-up;
-              every status ok, causal_conv1d launched exactly 64 times per
-              prefill and never in a decode step, no other kernel;
-              mamba_forward with the kernel bitwise equal to the plain
-              version on three layers at a served prompt; tokens/s,
-              decode-step ms, TTFT p50/p99 and one decode step's device
-              breakdown; one 96-token prefill's breakdown (its time,
+              Engine(max_batch=8, max_len=256) in "float", its decode step
+              captured (each prompt prefilled eagerly at its exact length):
+              16 requests, prompts of 16-96 tokens, 32 new tokens each,
+              greedy, after a two-request warm-up; every status ok,
+              causal_conv1d launched exactly 64 times per prefill and never
+              in a decode step, no other kernel; the first 4 requests again
+              with jit=False, token streams equal; mamba_forward with the
+              kernel bitwise equal to the plain version on three layers at
+              a served prompt; tokens/s, decode-step ms, TTFT p50/p99 and
+              one decode step's device breakdown, captured and with
+              jit=False; one 96-token prefill's breakdown (its time,
               device busy and idle, device operations, the 64
               causal_conv1d launches' time and the copy kernels), and the
               same prefill with x_in copied before each conv taking
@@ -232,7 +245,16 @@ TIMED_PLAN = {"conv2d": "dws", "depthwise2d": "dws", "maxpool2d": "dws",
 W4_ADD_PRESHIFTS = ((0, 3, 9), (2, 0, 9), (28, 20, 24))
 #: phase 6: the served model and its traffic
 LM_ARCH = "qwen2-0.5b"
-LM_PRECISIONS = ("int8", "int8-torch", "w4a8", "w4a8-torch", "float")
+#: (precision, KV cache) of the captured engines; LM_EAGER again with
+#: jit=False on the first LM_EAGER_REQUESTS requests
+LM_RUNS = (("int8", "float"), ("int8-torch", "float"), ("w4a8", "float"),
+           ("w4a8-torch", "float"), ("float", "float"), ("int8", "int8"),
+           ("int8-torch", "int8"), ("float", "int8"))
+LM_EAGER, LM_EAGER_REQUESTS = ("float", "int8"), 8
+#: the served engines whose decode step is broken down
+LM_BREAKDOWN = ("float", "int8", "w4a8", "int8 kv=int8")
+#: the prefill buckets whose captured and eager times are printed
+LM_PREFILL_TIMED = (32, 128)
 LM_BATCH, LM_MAX_LEN, LM_REQUESTS, LM_NEW = 8, 256, 24, 32
 LM_PROMPT = (16, 96)
 #: each kernel precision's matmul entry point; 3 FFN matmuls per layer
@@ -240,6 +262,8 @@ LM_KERNEL = {"int8": "matmul_q8", "w4a8": "matmul_w4"}
 #: phase 7: the served ssm model and its traffic (prompts as in phase 6)
 SSM_ARCH = "falcon-mamba-7b"
 SSM_REQUESTS = 16
+#: of them served again with jit=False
+SSM_EAGER_REQUESTS = 4
 #: mamba_forward layers held kernel against plain version at full width
 SSM_CHECK_LAYERS = 3
 #: the prompt length of phase 7's prefill breakdown (the longest served)
@@ -2063,12 +2087,14 @@ def serve_breakdown(torch, name, plan, x_host, round_ms, card):
 # ---------------------------------------------------------------- phase 6 --
 
 def phase_lm(torch, K, card, rng, dev="cuda", cfg=None, n_req=LM_REQUESTS,
-             new_tokens=LM_NEW, prompt=LM_PROMPT):
-    """Serve Qwen2-0.5B in every precision of ``LM_PRECISIONS``; returns
-    the launch count of every kernel over the runs."""
+             new_tokens=LM_NEW, prompt=LM_PROMPT, n_eager=LM_EAGER_REQUESTS):
+    """Serve Qwen2-0.5B in every (precision, KV cache) of ``LM_RUNS``,
+    captured, and ``LM_EAGER`` again with jit=False on the first
+    ``n_eager`` requests; returns the launch count of every kernel over
+    the runs."""
     from repro_torch.configs import get_config
     from repro_torch.models import api
-    from repro_torch.serve import Engine, Request, ServeConfig
+    from repro_torch.serve import Engine, ServeConfig
     cfg = cfg or get_config(LM_ARCH)
     t0 = time.perf_counter()
     params = api.init_params(cfg, torch.Generator(device=dev)
@@ -2086,77 +2112,130 @@ def phase_lm(torch, K, card, rng, dev="cuda", cfg=None, n_req=LM_REQUESTS,
                for n in rng.integers(prompt[0], prompt[1] + 1, n_req)]
     launches = dict.fromkeys((k.__name__ for k in K.KERNELS), 0)
     streams, engines = {}, {}
-    for prec in LM_PRECISIONS:
+    runs = [(prec, kv, True, prompts) for prec, kv in LM_RUNS] + \
+        [(prec, "float", False, prompts[:n_eager]) for prec in LM_EAGER]
+    for prec, kv, jit, served in runs:
+        label = prec + (" kv=int8" if kv == "int8" else "") + \
+            ("" if jit else " jit=False")
         t0 = time.perf_counter()
         eng = Engine(cfg, params, ServeConfig(max_batch=LM_BATCH,
                                               max_len=LM_MAX_LEN,
-                                              precision=prec))
+                                              precision=prec, kv_cache=kv),
+                     jit=jit)
         sync(torch, dev)
         t_init = time.perf_counter() - t0
-        # warm-up: two short requests through both code paths (first
-        # launches, library handles, the allocator), then zeroed stats
-        for i in range(2):
-            eng.submit(Request(uid=-1 - i, prompt=prompts[i][:prompt[0]],
-                               max_new_tokens=2))
-        eng.run_until_drained()
-        eng.reset_stats()
-        for i, p in enumerate(prompts):
-            eng.submit(Request(uid=i, prompt=p, max_new_tokens=new_tokens))
-        K.reset_launches()
-        t0 = time.perf_counter()
-        done = eng.run_until_drained()
-        wall = time.perf_counter() - t0
-        got = {k.__name__: k.launches for k in K.KERNELS}
+        got, done, wall = serve_lm(torch, K, eng, served, new_tokens, label,
+                                   dev)
         st = eng.stats
-        statuses = {r.status for r in done}
-        check(len(done) == n_req and statuses == {"ok"},
-              f"lm {prec}: {len(done)} requests, statuses {statuses}")
-        done = sorted(done, key=lambda r: r.uid)
-        check(all(len(r.out_tokens) == new_tokens
-                  and all(0 <= t < cfg.vocab for t in r.out_tokens)
-                  for r in done),
-              f"lm {prec}: a stream is short or holds an id outside the "
-              "vocabulary")
-        check(st["errors"] == st["retries"] == 0,
-              f"lm {prec}: errors={st['errors']} retries={st['retries']}")
         calls = 3 * cfg.n_layers * (st["prefills"] + st["decode_steps"])
         want = dict.fromkeys(got, 0)
         if prec in LM_KERNEL and torch.device(dev).type == "cuda":
             want[LM_KERNEL[prec]] = calls     # a host run launches nothing
-        check(got == want, f"lm {prec}: launches {got}, "
+        check(got == want, f"lm {label}: launches {got}, "
                            f"{st['prefills']} prefills and "
                            f"{st['decode_steps']} decode steps need {want}")
         for k, v in got.items():
             launches[k] += v
-        streams[prec] = [r.out_tokens for r in done]
+        streams[label] = [r.out_tokens for r in done]
         ttft = np.percentile([r.ttft_s for r in done], [50, 99])
         step_ms = 1e3 * eng.metrics.counter("serve.decode_time_s").value \
             / st["decode_steps"]
-        print(f"[lm] {prec}: {n_req} requests ok, {st['tokens_out']} tokens "
-              f"in {wall:.2f} s ({st['tokens_out'] / wall:.1f} tokens/s "
-              f"end to end; decode_tok_s={st['decode_tok_s']:.1f}), "
-              f"{st['prefills']} prefills, {st['decode_steps']} decode "
-              f"steps at {step_ms:.3f} ms, occupancy "
-              f"{st['occupancy']:.3f}, TTFT p50 {ttft[0]:.4f} s p99 "
-              f"{ttft[1]:.4f} s (over the {n_req} requests), engine init "
-              f"{t_init:.2f} s; launches "
+        print(f"[lm] {label}: {len(served)} requests ok, {st['tokens_out']} "
+              f"tokens in {wall:.2f} s ({st['tokens_out'] / wall:.1f} "
+              f"tokens/s end to end; decode_tok_s="
+              f"{st['decode_tok_s']:.1f}), {st['prefills']} prefills, "
+              f"{st['decode_steps']} decode steps at {step_ms:.3f} ms, "
+              f"occupancy {st['occupancy']:.3f}, TTFT p50 {ttft[0]:.4f} s "
+              f"p99 {ttft[1]:.4f} s (over the {len(served)} requests), "
+              f"engine init {t_init:.2f} s, {eng.traces} graphs; launches "
               f"{ {k: v for k, v in got.items() if v} } on {card}")
-        if prec in ("int8", "w4a8", "float"):
-            engines[prec] = eng
+        if jit and label in LM_BREAKDOWN:
+            engines[label] = eng
         del eng
     for prec in LM_KERNEL:
         check(streams[prec] == streams[prec + "-torch"],
               f"lm {prec}: the kernel's token streams differ from the "
               "plain version's")
-        agree = np.mean([a == b for x, y in zip(streams[prec],
-                                                streams["float"])
-                         for a, b in zip(x, y)])
+        agree = agreement(streams[prec], streams["float"])
         print(f"[lm] {prec}: token streams equal to {prec}-torch's "
               f"({n_req} x {new_tokens} tokens); {agree:.3f} of tokens "
               "equal to the float engine's")
-    for prec, eng in engines.items():
-        lm_breakdown(torch, prec, eng, cfg, dev)
+    for prec in LM_EAGER:
+        check(streams[prec + " jit=False"] == streams[prec][:n_eager],
+              f"lm {prec}: jit=False token streams differ from the "
+              "captured engine's")
+        print(f"[lm] {prec}: captured token streams equal to jit=False's "
+              f"({n_eager} x {new_tokens} tokens)")
+    check(streams["int8 kv=int8"] == streams["int8-torch kv=int8"],
+          "lm int8 kv=int8: the kernel's token streams differ from the "
+          "plain version's")
+    print(f"[lm] kv=int8: int8 token streams equal to int8-torch's "
+          f"({n_req} x {new_tokens} tokens); token agreement with the float "
+          f"KV cache: float "
+          f"{agreement(streams['float kv=int8'], streams['float']):.3f}, "
+          f"int8 {agreement(streams['int8 kv=int8'], streams['int8']):.3f}")
+    for label, eng in engines.items():
+        lm_breakdown(torch, label, eng, cfg, dev)
     return launches
+
+
+def agreement(a, b) -> float:
+    """The share of equal tokens of two sets of token streams."""
+    return float(np.mean([x == y for s, t in zip(a, b)
+                          for x, y in zip(s, t)]))
+
+
+def serve_lm(torch, K, eng, prompts, new_tokens, label, dev):
+    """Warm ``eng`` up with one request into each prefill bucket the
+    prompts fall into (for a captured engine: each graph's capture, whose
+    first-call ms is printed), zero its stats and the launch counts, then
+    serve ``prompts``: every status ok, streams of ``new_tokens`` ids in
+    the vocabulary, no error or retry, and no capture in the timed run.
+    Returns (launches, requests by uid, wall seconds)."""
+    from repro_torch.serve import Request
+    vocab = eng.cfg.vocab
+    buckets = sorted({eng._bucket_len(len(p)) for p in prompts})
+    if eng.cfg.family == "dense":
+        warm = [np.resize(prompts[0], b) for b in buckets]
+    else:                       # exact lengths, an eager prefill each
+        warm = [p[:LM_PROMPT[0]] for p in prompts[:2]]
+    for i, p in enumerate(warm):
+        eng.submit(Request(uid=-1 - i, prompt=p, max_new_tokens=2))
+    eng.run_until_drained()
+    eng.reset_stats()
+    if eng._captures():
+        want = 1 + (len(buckets) if eng.cfg.family == "dense" else 0)
+        check(eng.traces == want, f"lm {label}: {eng.traces} graphs after "
+                                  f"the warm-up, not {want}")
+        for key, cap in eng._graphs.items():
+            print(f"[lm] {label}: graph {key[0]} "
+                  f"{'batch' if key[0] == 'decode' else 'bucket'} {key[1]}"
+                  f": first call (eager pass + capture) "
+                  f"{1e3 * cap.seconds:.1f} ms, "
+                  f"{sum(cap.launches.values())} kernel launches a replay")
+    traces = eng.traces
+    for i, p in enumerate(prompts):
+        eng.submit(Request(uid=i, prompt=p, max_new_tokens=new_tokens))
+    K.reset_launches()
+    t0 = time.perf_counter()
+    done = eng.run_until_drained()
+    wall = time.perf_counter() - t0
+    got = {k.__name__: k.launches for k in K.KERNELS}
+    st = eng.stats
+    statuses = {r.status for r in done}
+    check(len(done) == len(prompts) and statuses == {"ok"},
+          f"lm {label}: {len(done)} requests, statuses {statuses}")
+    done = sorted(done, key=lambda r: r.uid)
+    check(all(len(r.out_tokens) == new_tokens
+              and all(0 <= t < vocab for t in r.out_tokens)
+              for r in done),
+          f"lm {label}: a stream is short or holds an id outside the "
+          "vocabulary")
+    check(st["errors"] == st["retries"] == 0,
+          f"lm {label}: errors={st['errors']} retries={st['retries']}")
+    check(eng.traces == traces, f"lm {label}: the timed run captured "
+                                f"{eng.traces - traces} graphs")
+    return got, done, wall
 
 
 def _leaves(tree):
@@ -2172,51 +2251,94 @@ def sync(torch, dev):
         torch.cuda.synchronize()
 
 
-def lm_breakdown(torch, prec, eng, cfg, dev, pos=128, reps=5,
+def lm_breakdown(torch, label, eng, cfg, dev, pos=128, reps=5,
                  port=("matmul_q_kernel",), what="the port's matmul kernel"):
-    """One decode step of all ``LM_BATCH`` slots at position ``pos``: its
-    time (CUDA events), the device time of its device operations (kernels
-    and memsets, torch.profiler) and their count, split into those whose
-    names contain one of ``port`` and everything else, and the idle
-    share."""
+    """One decode step of all ``LM_BATCH`` slots at position ``pos`` over a
+    cache of the engine's KV dtype, captured (``graph.capture``, as the
+    engine captures its step) and run op by op from Python (jit=False):
+    each one's time (CUDA events), the device time of its device
+    operations (kernels and memsets, torch.profiler) and their count,
+    split into those whose names contain one of ``port`` and everything
+    else, and the idle share. For a dense engine also the captured
+    prefill (the engine's own graph) against the eager one at the buckets
+    ``LM_PREFILL_TIMED``."""
+    from repro_torch.graph.capture import capture
     from repro_torch.models import api
-    cache = api.init_slot_cache(cfg, LM_BATCH, LM_MAX_LEN, device=dev)
+    cache = api.init_slot_cache(cfg, LM_BATCH, LM_MAX_LEN,
+                                kv=eng.scfg.kv_cache, device=dev)
     cache["len"].fill_(pos)
     tok = torch.zeros((LM_BATCH, 1), dtype=torch.long, device=dev)
     step = lambda: eng.decode(eng.params, tok, cache)     # noqa: E731
-    step_ms = time_ms(torch, step, reps=reps, trials=3)
-    kernels = device_kernels(torch, step, reps)
-    dev_ms = sum(r.us for r in kernels) / 1e3
-    check(dev_ms > 0, "torch.profiler saw no device time")
-    mine = [r for r in kernels if any(t in r.key for t in port)]
-    mm_ms = sum(r.us for r in mine) / 1e3
-    n_ops = sum(r.launches for r in kernels)
-    n_mine = sum(r.launches for r in mine)
-    n_memset = sum(r.launches for r in kernels if "Memset" in r.key)
-    print(f"[lm-breakdown] {prec}: one decode step, {LM_BATCH} slots at "
-          f"position {pos}: {step_ms:.4f} ms (CUDA events), device busy "
-          f"{dev_ms:.4f} ms in {n_ops:.0f} device operations ({n_memset:.0f}"
-          f" of them memsets), of which {what} {mm_ms:.4f} ms in "
-          f"{n_mine:.0f} launches and the rest {dev_ms - mm_ms:.4f} "
-          f"ms; device idle {1 - dev_ms / step_ms:.3f}")
-    for r in sorted(kernels, key=lambda r: -r.us)[:8]:
+    cap, _ = capture(lambda t: eng.decode(eng.params, t, cache)[0], (tok,),
+                     key="lm.breakdown")
+    rows = None
+    for variant, fn in (("captured", cap.replay), ("jit=False", step)):
+        step_ms = time_ms(torch, fn, reps=reps, trials=3)
+        kernels = device_kernels(torch, fn, reps)
+        dev_ms = sum(r.us for r in kernels) / 1e3
+        check(dev_ms > 0, "torch.profiler saw no device time")
+        mine = [r for r in kernels if any(t in r.key for t in port)]
+        mm_ms = sum(r.us for r in mine) / 1e3
+        n_ops = sum(r.launches for r in kernels)
+        n_mine = sum(r.launches for r in mine)
+        n_memset = sum(r.launches for r in kernels if "Memset" in r.key)
+        print(f"[lm-breakdown] {label}: one decode step {variant}, "
+              f"{LM_BATCH} slots at position {pos}: {step_ms:.4f} ms (CUDA "
+              f"events), device busy {dev_ms:.4f} ms in {n_ops:.0f} device "
+              f"operations ({n_memset:.0f} of them memsets), of which "
+              f"{what} {mm_ms:.4f} ms in {n_mine:.0f} launches and the rest "
+              f"{dev_ms - mm_ms:.4f} ms; device idle "
+              f"{1 - dev_ms / step_ms:.3f}")
+        rows = rows or kernels
+    for r in sorted(rows, key=lambda r: -r.us)[:8]:
         kernel = r.key.replace("void ", "").replace("at::native::", "")
-        print(f"[lm-breakdown] {prec}   {r.us:9.1f} us x{r.launches:4.0f}  "
+        print(f"[lm-breakdown] {label}   {r.us:9.1f} us x{r.launches:4.0f}  "
               f"{kernel[:100]}")
+    # the round's host work after the step, as the engine does it: the
+    # logits to the host, then each slot's greedy pick there
+    logits = cap.replay()
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        host = logits.cpu().numpy()
+    copy_ms = 1e3 * (time.perf_counter() - t0) / reps
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        picks = [int(np.argmax(host[i, -1])) for i in range(LM_BATCH)]
+    pick_ms = 1e3 * (time.perf_counter() - t0) / reps
+    check(len(picks) == LM_BATCH, "lm-breakdown: a slot has no pick")
+    print(f"[lm-breakdown] {label}: a decode round's host work (host "
+          f"clock, mean of {reps}): the {tuple(logits.shape)} float32 "
+          f"logits ({logits.numel() * 4 / 1e6:.2f} MB) to the host "
+          f"{copy_ms:.4f} ms, the greedy pick of its {LM_BATCH} rows "
+          f"{pick_ms:.4f} ms")
+    if cfg.family != "dense":
+        return
+    for b in LM_PREFILL_TIMED:
+        graph = eng._graphs[("prefill", b)]
+        toks, plen = graph.inputs
+        eager = lambda: eng.prefill(eng.params, {    # noqa: E731
+            "tokens": toks, "prompt_lens": plen})
+        ms = {v: time_ms(torch, fn, reps=reps, trials=3)
+              for v, fn in (("captured", graph.replay), ("eager", eager))}
+        print(f"[lm-breakdown] {label}: one prefill at bucket {b} (batch 1): "
+              f"captured {ms['captured']:.4f} ms, eager {ms['eager']:.4f} ms "
+              f"(CUDA events)")
 
 
 # ---------------------------------------------------------------- phase 7 --
 
 def phase_ssm(torch, K, card, rng, dev="cuda", cfg=None, n_req=SSM_REQUESTS,
               new_tokens=LM_NEW, prompt=LM_PROMPT,
-              check_layers=SSM_CHECK_LAYERS):
-    """Serve Falcon-Mamba-7B in "float"; returns the launch count of every
-    kernel in the served run."""
+              check_layers=SSM_CHECK_LAYERS, n_eager=SSM_EAGER_REQUESTS):
+    """Serve Falcon-Mamba-7B in "float", captured, and its first
+    ``n_eager`` requests again with jit=False; returns the launch count of
+    every kernel in the captured run."""
     from repro_torch.configs import get_config
     from repro_torch.models import api, mamba
     from repro_torch.models import transformer as T
     from repro_torch.models.blocks import rmsnorm
-    from repro_torch.serve import Engine, Request, ServeConfig
+    from repro_torch.serve import Engine, ServeConfig
     cfg = cfg or get_config(SSM_ARCH)
     t0 = time.perf_counter()
     params = api.init_params(cfg, torch.Generator(device=dev)
@@ -2234,35 +2356,15 @@ def phase_ssm(torch, K, card, rng, dev="cuda", cfg=None, n_req=SSM_REQUESTS,
           f"{time.perf_counter() - t0:.2f} s")
     prompts = [rng.integers(0, cfg.vocab, (int(n),)).astype(np.int32)
                for n in rng.integers(prompt[0], prompt[1] + 1, n_req)]
+    scfg = ServeConfig(max_batch=LM_BATCH, max_len=LM_MAX_LEN)
     t0 = time.perf_counter()
-    eng = Engine(cfg, params, ServeConfig(max_batch=LM_BATCH,
-                                          max_len=LM_MAX_LEN))
+    eng = Engine(cfg, params, scfg)
     del params                  # the engine holds the cast copy it serves
     sync(torch, dev)
     t_init = time.perf_counter() - t0
-    for i in range(2):          # warm-up, then zeroed stats
-        eng.submit(Request(uid=-1 - i, prompt=prompts[i][:prompt[0]],
-                           max_new_tokens=2))
-    eng.run_until_drained()
-    eng.reset_stats()
-    for i, p in enumerate(prompts):
-        eng.submit(Request(uid=i, prompt=p, max_new_tokens=new_tokens))
-    K.reset_launches()
-    t0 = time.perf_counter()
-    done = eng.run_until_drained()
-    wall = time.perf_counter() - t0
-    got = {k.__name__: k.launches for k in K.KERNELS}
+    got, done, wall = serve_lm(torch, K, eng, prompts, new_tokens, "ssm",
+                               dev)
     st = eng.stats
-    statuses = {r.status for r in done}
-    check(len(done) == n_req and statuses == {"ok"},
-          f"ssm: {len(done)} requests, statuses {statuses}")
-    done = sorted(done, key=lambda r: r.uid)
-    check(all(len(r.out_tokens) == new_tokens
-              and all(0 <= t < cfg.vocab for t in r.out_tokens)
-              for r in done),
-          "ssm: a stream is short or holds an id outside the vocabulary")
-    check(st["errors"] == st["retries"] == 0,
-          f"ssm: errors={st['errors']} retries={st['retries']}")
     check(st["prefills"] == n_req, f"ssm: {st['prefills']} prefills")
     want = dict.fromkeys(got, 0)
     if torch.device(dev).type == "cuda":   # a host run launches nothing
@@ -2279,9 +2381,26 @@ def phase_ssm(torch, K, card, rng, dev="cuda", cfg=None, n_req=SSM_REQUESTS,
           f"{max(map(len, prompts))} tokens), {st['decode_steps']} decode "
           f"steps at {step_ms:.3f} ms, occupancy {st['occupancy']:.3f}, "
           f"TTFT p50 {ttft[0]:.4f} s p99 {ttft[1]:.4f} s (over the {n_req} "
-          f"requests), engine init {t_init:.2f} s; launches "
-          f"{ {k: v for k, v in got.items() if v} } ({cfg.n_layers} per "
-          f"prefill, 0 per decode step) on {card}")
+          f"requests), engine init {t_init:.2f} s, {eng.traces} graph; "
+          f"launches { {k: v for k, v in got.items() if v} } ({cfg.n_layers} "
+          f"per prefill, 0 per decode step) on {card}")
+    # the same engine op by op (it shares the cast weights) on the first
+    # requests: the captured step changes no token
+    eager = Engine(cfg, eng.params, scfg, jit=False)
+    _, done_e, wall_e = serve_lm(torch, K, eager, prompts[:n_eager],
+                                 new_tokens, "ssm jit=False", dev)
+    check([r.out_tokens for r in done_e]
+          == [r.out_tokens for r in done[:n_eager]],
+          "ssm: jit=False token streams differ from the captured engine's")
+    st_e = eager.stats
+    step_e = 1e3 * eager.metrics.counter("serve.decode_time_s").value \
+        / st_e["decode_steps"]
+    print(f"[ssm] float jit=False: {n_eager} requests ok, captured token "
+          f"streams equal to jit=False's ({n_eager} x {new_tokens} tokens); "
+          f"decode_tok_s={st_e['decode_tok_s']:.1f}, "
+          f"{st_e['decode_steps']} decode steps at {step_e:.3f} ms, "
+          f"{st_e['tokens_out'] / wall_e:.1f} tokens/s end to end")
+    del eager
     # the block with the kernel against the block with its plain version,
     # on the first layers of the served (cast) weights at a served prompt
     cdt = T._cdt(cfg)
@@ -2769,7 +2888,7 @@ def main() -> int:
           "over the tuner's float32 Table-2 jobs of that kernel, one launch "
           "each (pool: the tuner's float pool job; library: cuDNN conv2d, "
           "amax, torch.cdist(p=1), torch.matmul, TF32 off); launches are "
-          "summed over the six served CNN runs, the five LM runs, the ssm "
+          "summed over the six served CNN runs, the ten LM runs, the ssm "
           "run, the tuner's run (phase 8) and the five trained plans' "
           f"forwards and profiles (phase 9); card: {card}")
     print(json.dumps({"kernels": rows}))

@@ -18,7 +18,8 @@ whole forward: on a card each batch size is captured once as a CUDA graph
 (``torch.cuda.CUDAGraph``) and replayed afterwards, so a forward costs one
 graph launch instead of a Python call per node. A size's first call runs
 the plan eagerly once (resolving its launch configs, and building the
-kernel library at a process's first launch), captures it, then replays.
+kernel library at a process's first launch), captures it, then replays
+(``graph/capture.py``, which the LM engine shares).
 ``forward_batch`` captures its pow2 buckets, ``__call__`` and ``trunk``
 the batch size they are given; a graph keeps the launch configs it was
 captured with, as a jit trace does. Captures count into ``traces`` and
@@ -53,8 +54,7 @@ the plain versions, so a kernel that fails raises to the caller.
 """
 from __future__ import annotations
 
-import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -63,15 +63,14 @@ from repro_torch.core.energy import MCUModel
 from repro_torch.core.qconv import qconv_apply
 from repro_torch.core.quantize import QTensor, QTensorW4, quantize, requantize
 from repro_torch.device import exact_float32, resolve_device
-from repro_torch.kernels import KERNELS
 from repro_torch.kernels import ops as K
 from repro_torch.kernels.common import apply_act
-from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 
 #: the executor's methods, the kernel layer's two
 PLAN_METHODS = ("cuda", "torch")
 
+from .capture import CapturedFn, capture
 from .ir import Graph
 from .lower import Plan, PlanNode
 
@@ -92,18 +91,6 @@ def _node_dtype(node: PlanNode) -> str:
     if any(isinstance(v, QTensorW4) for v in (node.qparams or {}).values()):
         return "w4a8"
     return "int8"
-
-
-@dataclasses.dataclass
-class _Captured:
-    """One batch size's captured forward: the graph, its static input and
-    outputs (the int8 trunk fed into gap, and the logits), and the kernel
-    launches one replay makes."""
-    graph: "torch.cuda.CUDAGraph"
-    x: torch.Tensor
-    trunk: QTensor
-    logits: torch.Tensor
-    launches: Dict[object, int]
 
 
 class CompiledPlan:
@@ -131,7 +118,7 @@ class CompiledPlan:
         #: traces
         self.traces = 0
         self._configs: Dict[tuple, dict] = {}
-        self._graphs: Dict[int, _Captured] = {}
+        self._graphs: Dict[int, CapturedFn] = {}
 
     # ------------------------------------------------------------- dispatch
 
@@ -219,70 +206,48 @@ class CompiledPlan:
     def _captures(self) -> bool:
         return self.jit and self.device.type == "cuda"
 
-    def _capture(self, b: int, x: torch.Tensor) -> _Captured:
-        """Capture the forward at batch size ``b``: one eager pass on a side
-        stream (it launches, and counts, like any forward), then the
-        capture, whose wrapper calls execute nothing and so are taken back
-        out of the launch counts and kept as one replay's."""
-        dev = self.device
-        with obs_trace.span("plan.trace", n=b, method=self.method), \
-                torch.cuda.device(dev):
+    def _capture(self, b: int, x: torch.Tensor) -> CapturedFn:
+        """Capture the forward at batch size ``b`` (``capture.capture``:
+        one eager pass, which launches and counts like any forward, then
+        the capture); its outputs are the trunk and the logits."""
+        with obs_trace.span("plan.trace", n=b, method=self.method):
             xs = torch.zeros((b,) + tuple(x.shape[1:]), dtype=torch.float32,
-                             device=dev)
+                             device=self.device)
             xs[:x.shape[0]].copy_(x)
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
-                self._forward(xs)
-            torch.cuda.current_stream(dev).wait_stream(side)
-            before = {k: k.launches for k in KERNELS}
-            graph = torch.cuda.CUDAGraph()
-            try:
-                with torch.cuda.graph(graph):
-                    trunk, logits = self._forward(xs)
-            finally:
-                launches = {k: k.launches - n for k, n in before.items()
-                            if k.launches != n}
-                for k, n in before.items():
-                    k.launches = n
+            cap, _ = capture(self._forward, (xs,), key=f"n{b}")
         self.traces += 1
-        obs_metrics.counter("graph.compiles").inc()
-        obs_metrics.counter(f"graph.compiles.n{b}").inc()
-        cap = _Captured(graph, xs, trunk, logits, launches)
         self._graphs[b] = cap
         return cap
 
-    def _replay(self, x, b: int) -> _Captured:
+    def _replay(self, x, b: int) -> Tuple[QTensor, torch.Tensor]:
         """Run the graph of batch size ``b`` on ``x`` (n <= b images, host
-        or device), zero-padded to ``b``; the outputs stay in the graph's
-        static tensors until the next replay."""
+        or device), zero-padded to ``b``; returns its (trunk, logits),
+        which stay in the graph's static tensors until the next replay."""
         x = torch.as_tensor(x)
         n = x.shape[0]
         cap = self._graphs.get(b)
         if cap is None:
             cap = self._capture(b, x)
         else:
-            cap.x[:n].copy_(x)
+            xs = cap.inputs[0]
+            xs[:n].copy_(x)
             if n < b:
-                cap.x[n:].zero_()
-        cap.graph.replay()
-        for k, count in cap.launches.items():
-            k.launches += count
-        return cap
+                xs[n:].zero_()
+        return cap.replay()
 
     def trunk(self, x) -> QTensor:
         """The int8 activation fed into ``gap``: the integer trunk, which
         tests compare bitwise. Read from the same captured graph as
         ``__call__`` under ``jit`` on a card."""
         if self._captures():
-            t = self._replay(x, x.shape[0]).trunk
+            t = self._replay(x, x.shape[0])[0]
             return QTensor(t.q.clone(), t.frac_bits)
         return self._forward(self._input(x))[0]
 
     def __call__(self, x) -> torch.Tensor:
         with obs_trace.span("plan.forward", n=x.shape[0]):
             if self._captures():
-                return self._replay(x, x.shape[0]).logits.clone()
+                return self._replay(x, x.shape[0])[1].clone()
             return self._forward(self._input(x))[1]
 
     # ------------------------------------------------------ batched serving
@@ -305,7 +270,7 @@ class CompiledPlan:
         b = self.batch_bucket(n)
         with obs_trace.span("plan.forward_batch", n=n, bucket=b):
             if self._captures():
-                return self._replay(x, b).logits[:n].clone()
+                return self._replay(x, b)[1][:n].clone()
             x = self._input(x)
             if b != n:
                 x = torch.cat([x, x.new_zeros((b - n,) + tuple(x.shape[1:]))])

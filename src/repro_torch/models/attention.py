@@ -1,5 +1,5 @@
 """GQA attention for serving: prefill (``"full"`` and ``"flash"``) and
-one-token decode against a contiguous KV cache.
+one-token decode against a contiguous KV cache, float or int8.
 
 Port of the inference half of ``repro/models/attention.py``. Attention is
 not a TPU kernel in the JAX package, so it is plain PyTorch here. Layouts
@@ -7,6 +7,13 @@ are the JAX package's: q (B,Sq,Hq,D), k and v (B,Sk,Hkv,D); the ``Hq``
 query heads split into ``Hkv`` groups of ``G = Hq / Hkv``. Scores and the
 softmax run in float32; the probabilities are cast to q's dtype before the
 product with v, as the JAX package does.
+
+The int8 KV cache stores each position's K or V as int8 codes plus one
+float32 scale per (position, kv-head), a 127-max symmetric quantizer over
+the head_dim vector (:func:`quantize_kv`); per-token scales mean a slot
+refill or retirement never re-scales a neighbouring position. Decode
+dequantizes on read (:func:`decode_attention_q8`), so the attention
+arithmetic is the float path's on the same codes.
 """
 from __future__ import annotations
 
@@ -110,3 +117,28 @@ def decode_attention(q, k_cache, v_cache, cache_len):
     p = torch.softmax(sc, dim=-1).to(q.dtype)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v_cache.to(q.dtype))
     return o.reshape(b, 1, hq, d)
+
+
+def quantize_kv(x):
+    """x: (..., H, D) -> (int8 codes, float32 scales (..., H)): scale =
+    amax / 127 over the head_dim vector (1.0 for an all-zero vector, whose
+    codes stay zero), codes rounded half to even, as ``jnp.round``."""
+    xf = x.to(torch.float32)
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(q, scale, dtype):
+    """Inverse of :func:`quantize_kv` (up to the rounding step)."""
+    return (q.to(torch.float32) * scale[..., None]).to(dtype)
+
+
+def decode_attention_q8(q, k_cache, v_cache, k_scale, v_scale, cache_len):
+    """:func:`decode_attention` over an int8 KV cache: int8 (B,S,Hkv,D)
+    codes and (B,S,Hkv) float32 scales, dequantized on read to q's
+    dtype."""
+    k = dequantize_kv(k_cache, k_scale, q.dtype)
+    v = dequantize_kv(v_cache, v_scale, q.dtype)
+    return decode_attention(q, k, v, cache_len)

@@ -9,11 +9,15 @@ tree carries across leaf by leaf
 scans over the stack, the port loops over it in Python, taking each layer
 as views of the stacked tensors.
 
-Serving state is a contiguous float KV cache, ``{"k", "v"}`` of (L, B, S,
-Hkv, D) plus ``"len"``: a (B,) vector of per-slot lengths, or a scalar for
-a plain prefill. Decode writes each row's new K/V into the cache IN PLACE
-at that row's own length (eager PyTorch would otherwise copy the whole
-cache every step); the returned dict holds the same tensors. An ssm
+Serving state is a contiguous KV cache, ``{"k", "v"}`` of (L, B, S, Hkv,
+D) plus ``"len"``: a (B,) vector of per-slot lengths, or a scalar for a
+plain prefill. K/V are in the cache dtype, or int8 codes with
+``{"k_scale", "v_scale"}`` of (L, B, S, Hkv) float32 beside them (the int8
+KV cache, which prefill never builds: ``api.cache_write_slot`` quantizes
+a prefilled row on the way in). Decode writes each row's new K/V into the
+cache IN PLACE at that row's own length (eager PyTorch would otherwise
+copy the whole cache every step); the returned dict holds the same
+tensors, and a new ``"len"``. An ssm
 (Mamba) model's state is ``{"conv"}`` (L, B, K-1, d_inner) in the cache
 dtype and ``{"ssm"}`` (L, B, d_inner, d_state) in float32, plus
 ``"len"``; decode overwrites it in place too. Its prefill runs the
@@ -27,9 +31,8 @@ their plain versions (the JAX package's ``"int8-xla"``); those need the
 quantized ``"qmlp"`` tree beside ``"mlp"`` in each layer.
 
 Not ported yet, and raising ``NotImplementedError``: the moe, hybrid and
-encdec families, the paged and int8 KV caches, training (ROADMAP.md,
-queue A). The ssm family runs in ``"float"`` precision only, as in the JAX
-package.
+encdec families, the paged KV cache, training (ROADMAP.md, queue A). The
+ssm family runs in ``"float"`` precision only, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -180,22 +183,36 @@ def attn_forward(lp, x, cfg: ModelConfig, cdt, *, impl: str, q_offset=0,
     return out, (k, v)
 
 
-def attn_decode(lp, x, cfg: ModelConfig, cdt, k_cache, v_cache, cache_len):
+def attn_decode(lp, x, cfg: ModelConfig, cdt, k_cache, v_cache, cache_len,
+                kv_scales=None):
     """One decode step against one layer's cache, (B,S,Hkv,D) each.
 
     ``cache_len`` is a (B,) vector: row i writes its new K/V at position
     ``cache_len[i]`` (in place) and attends its own prefix. A row whose
-    length is past the end of the cache writes nothing."""
+    length is past the end of the cache writes nothing. ``kv_scales=
+    (k_scale, v_scale)``, each (B,S,Hkv) float32, marks an int8 cache:
+    the new K/V row is quantized on write at its own position (its scale
+    beside it) and the cache is dequantized on read."""
     b = x.shape[0]
     s = k_cache.shape[1]
     q, k, v = _qkv(lp, x, cfg, cdt, cache_len[:, None])
     rows = torch.arange(b, device=x.device)
     pos = torch.clamp(cache_len, max=s - 1)
-    live = (cache_len < s)[:, None, None]
-    for cache, new in ((k_cache, k), (v_cache, v)):
-        cache[rows, pos] = torch.where(live, new[:, 0].to(cache.dtype),
+    live = (cache_len < s)[:, None]
+    writes = [(k_cache, k), (v_cache, v)]
+    if kv_scales is not None:
+        (kq, ks), (vq, vs) = A.quantize_kv(k), A.quantize_kv(v)
+        writes = [(k_cache, kq), (v_cache, vq), (kv_scales[0], ks),
+                  (kv_scales[1], vs)]
+    for cache, new in writes:
+        lv = live.reshape((b,) + (1,) * (cache.dim() - 2))
+        cache[rows, pos] = torch.where(lv, new[:, 0].to(cache.dtype),
                                        cache[rows, pos])
-    o = A.decode_attention(q, k_cache, v_cache, cache_len + 1)
+    if kv_scales is not None:
+        o = A.decode_attention_q8(q, k_cache, v_cache, *kv_scales,
+                                  cache_len + 1)
+    else:
+        o = A.decode_attention(q, k_cache, v_cache, cache_len + 1)
     return o.reshape(b, 1, cfg.n_heads * cfg.head_dim) @ lp["wo"].to(cdt)
 
 
@@ -243,21 +260,25 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             "len": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def _check_cache(cache):
-    if "block_table" in cache or "k_scale" in cache:
+def _check_cache(cfg: ModelConfig, cache):
+    if "block_table" in cache:
         raise NotImplementedError(
-            "decode_step: the paged and int8 KV caches are not ported; the "
-            "port decodes a contiguous float cache (ROADMAP.md, queue A)")
+            "decode_step: the paged KV cache is not ported; the port decodes "
+            "a contiguous cache (ROADMAP.md, queue A)")
+    if "k_scale" in cache and cfg.family != "dense":
+        raise NotImplementedError(
+            "int8 KV decode only covers attention-family dense caches")
 
 
 def decode_step(params, token, cache, cfg: ModelConfig, *,
                 precision: str = "float"):
     """One-token serve step. token: (B, 1) int. Returns ``(logits (B,1,V)
-    float32, cache)`` with the cache's K/V (an ssm model: its conv and ssm
-    states) written in place and ``"len"`` advanced by one."""
+    float32, cache)`` with the cache's K/V (an int8 cache: codes and
+    scales; an ssm model: its conv and ssm states) written in place and
+    ``"len"`` a new tensor, advanced by one."""
     check_family(cfg, "decode_step")
     check_ssm_precision(cfg, precision, "decode")
-    _check_cache(cache)
+    _check_cache(cfg, cache)
     cdt = _cdt(cfg)
     h = embed_tokens(params, token, cfg, cdt)
     b = token.shape[0]
@@ -277,8 +298,10 @@ def decode_step(params, token, cache, cfg: ModelConfig, *,
     cl = clen.expand(b) if clen.dim() == 0 else clen
     for l, lp in enumerate(_layers(params, cfg)):
         x = rmsnorm(h, lp["ln1"], cfg.norm_eps)
+        scales = ((cache["k_scale"][l], cache["v_scale"][l])
+                  if "k_scale" in cache else None)
         h = h + attn_decode(lp["attn"], x, cfg, cdt, cache["k"][l],
-                            cache["v"][l], cl)
+                            cache["v"][l], cl, kv_scales=scales)
         h = h + ffn_forward(lp, rmsnorm(h, lp["ln2"], cfg.norm_eps), cfg,
                             cdt, precision=precision)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)

@@ -23,7 +23,12 @@ paper's integer FFN (Eq. 4 / Algorithm 1) with weights PTQ'd once at init —
 and ``matmul_w4`` CUDA kernels, ``"int8-torch"`` and ``"w4a8-torch"``
 through their plain PyTorch versions (the JAX package's ``"int8-xla"``);
 a kernel and its plain version give the same token streams. An ssm model
-serves in ``"float"`` only, as in the JAX package. At init the engine also
+serves in ``"float"`` only, as in the JAX package. ``ServeConfig.kv_cache``
+picks the resident cache: ``"float"`` (the compute dtype) or ``"int8"``
+(int8 codes with per-(position, head) float32 scales; a prefilled row is
+quantized as it is written into its slot, and each decode step quantizes
+its new K/V at the slot's own position), dense models only. At init the
+engine also
 casts the float32 attention (and, for ``"float"``, FFN) weights, or an ssm
 model's Mamba weights but ``A_log``, to the compute dtype once — the values
 JAX's per-use casts give.
@@ -50,19 +55,41 @@ exception (a kernel that fails to build or launch) is not. A ``corrupt``
 fault poisons the sampled host logits; the affected uids are recorded in
 ``Engine.poisoned_uids``.
 
+``Engine(..., jit=True)`` (the default) is the counterpart of the JAX
+engine's ``jax.jit`` of prefill and decode: on a card the decode step is
+captured once per engine as a CUDA graph (``graph/capture.py``; the decode
+batch is always ``max_batch``) at the first decode round, after one eager
+pass, which is that round's result, and every later round replays it. Its
+static input is a (max_batch, 1) token tensor, which each round fills
+from a pinned host buffer; its static output the (max_batch, 1, V) float32
+logits; its cache is the live arena's own tensors (K/V, or conv and ssm
+state, the int8 scales and ``"len"``), which the engine therefore only
+ever updates in place: slot writes and frees, the per-slot lengths
+rewritten after every round from a pinned host mirror, and the arena
+zeroed in place at each drain and after an unrecoverable round. A dense
+model's prefill is captured once per power-of-two bucket at batch 1
+(static tokens and prompt length; static logits and fresh cache, copied
+into the arena by the eager ``cache_write_slot``), in one memory pool with
+the decode graph. An ssm model's prefill stays eager: its prompts run at
+their exact length, so capture would take one graph per length, and the
+prefill is device-bound anyway. ``traces`` counts captures (also in the
+process counter ``graph.compiles``). A capture or replay that fails
+raises, and the round fails by the failure model below; nothing falls
+back to the eager path. On the host ``jit`` has no effect;
+``jit=False`` runs every op from Python.
+
 Not ported yet, and raising ``NotImplementedError`` (ROADMAP.md, queue A):
 ``scheduler="static"``, ``kv_layout="paged"`` with its block pool and
-prefix cache, ``kv_cache="int8"``, ``attn_impl="flash_tri"``, and the moe,
-hybrid and encdec families. An ssm model with a non-float precision,
-``kv_cache="int8"`` or ``kv_layout="paged"`` raises the JAX engine's
-``NotImplementedError``.
+prefix cache, ``attn_impl="flash_tri"``, and the moe, hybrid and encdec
+families. An ssm model with a non-float precision, ``kv_cache="int8"`` or
+``kv_layout="paged"`` raises the JAX engine's ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
 import queue
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -70,6 +97,7 @@ import torch
 from repro_torch.check.config import PRECISIONS
 from repro_torch.configs.base import ModelConfig
 from repro_torch.faults import inject as faults
+from repro_torch.graph.capture import CapturedFn, capture
 from repro_torch.models import api
 from repro_torch.models import transformer as T
 from repro_torch.obs import metrics as obs_metrics
@@ -117,9 +145,10 @@ class Request:
 class ServeConfig:
     """Engine knobs, with the JAX package's fields and defaults (see
     ``repro/serve/engine.py`` for each). The port serves
-    ``scheduler="continuous"``, ``kv_layout="contiguous"`` and
-    ``kv_cache="float"``; ``precision`` is one of ``"float"``, ``"int8"``,
-    ``"int8-torch"``, ``"w4a8"`` and ``"w4a8-torch"``. The paged-layout
+    ``scheduler="continuous"`` and ``kv_layout="contiguous"``, with
+    ``kv_cache`` ``"float"`` or ``"int8"``; ``precision`` is one of
+    ``"float"``, ``"int8"``, ``"int8-torch"``, ``"w4a8"`` and
+    ``"w4a8-torch"``. The paged-layout
     knobs (``kv_block_size``, ``kv_num_blocks``, ``prefix_cache``) are kept
     for a config's round trip and unused."""
     max_batch: int = 4
@@ -147,7 +176,7 @@ class ServeConfig:
 def _not_ported(what: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md, "
                               "queue A); the port serves the continuous "
-                              "scheduler over a contiguous float KV cache")
+                              "scheduler over a contiguous KV cache")
 
 
 def _check_family_gates(cfg: ModelConfig, scfg: ServeConfig):
@@ -170,7 +199,11 @@ def _check_family_gates(cfg: ModelConfig, scfg: ServeConfig):
 
 
 class Engine:
-    def __init__(self, cfg: ModelConfig, params, scfg: ServeConfig):
+    """The continuous-batching LM engine (module docstring); ``jit``
+    captures its decode step and dense prefill buckets on a card."""
+
+    def __init__(self, cfg: ModelConfig, params, scfg: ServeConfig, *,
+                 jit: bool = True):
         from repro_torch.check.config import check_serve_config
         T.check_family(cfg, "Engine")
         _check_family_gates(cfg, scfg)
@@ -182,8 +215,6 @@ class Engine:
             _not_ported("scheduler='static'")
         if scfg.kv_layout == "paged":
             _not_ported("kv_layout='paged'")
-        if scfg.kv_cache == "int8":
-            _not_ported("kv_cache='int8'")
         if scfg.attn_impl == "flash_tri":
             _not_ported("attn_impl='flash_tri'")
         if scfg.precision != "float":
@@ -204,6 +235,19 @@ class Engine:
                                       attn_impl=scfg.attn_impl,
                                       precision=scfg.precision)
         self.decode = api.decode_fn(cfg, precision=scfg.precision)
+        self.jit = jit
+        #: CUDA graph captures made (the decode step, each prefill bucket)
+        self.traces = 0
+        self._graphs: Dict[tuple, CapturedFn] = {}
+        self._pool = None
+        # the live cache, made at the first drain, and the host buffers
+        # the decode step's tokens and the per-slot lengths come from
+        self._arena: Optional[dict] = None
+        pinned = self.device.type == "cuda"
+        self._host_tok = torch.zeros((scfg.max_batch, 1), dtype=torch.int64,
+                                     pin_memory=pinned)
+        self._host_len = torch.zeros((scfg.max_batch,), dtype=torch.int32,
+                                     pin_memory=pinned)
         self.queue: "queue.Queue[Request]" = queue.Queue()
         self._rng = np.random.default_rng(scfg.seed)
         # private registry: per-engine stats isolation; handles stay valid
@@ -349,19 +393,80 @@ class Engine:
             b *= 2
         return min(b, self.scfg.max_len)
 
+    # ------------------------------------------------------------ capture --
+
+    def _captures(self) -> bool:
+        return self.jit and self.device.type == "cuda"
+
+    def _capture(self, key: tuple, fn, inputs: tuple):
+        """Capture ``fn`` over ``inputs`` as the graph ``key`` (in the
+        engine's one memory pool); returns the eager pass's outputs."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        name = ".".join(map(str, key))
+        with obs_trace.span("engine.trace", graph=name):
+            cap, out = capture(fn, inputs, key=f"lm.{name}", pool=self._pool)
+        self._graphs[key] = cap
+        self.traces += 1
+        return out
+
+    def _prefill_slot(self, toks: np.ndarray, plen: int):
+        """(logits, fresh cache) of one right-padded prompt, (1, bucket):
+        a replay of the bucket's graph under capture (a dense model), else
+        the eager prefill."""
+        dev = self.device
+        if not (self._captures() and self.cfg.family == "dense"):
+            return self.prefill(self.params, {
+                "tokens": torch.from_numpy(toks).to(dev),
+                "prompt_lens": torch.tensor([plen], dtype=torch.int32,
+                                            device=dev)})
+        key = ("prefill", toks.shape[1])
+        cap = self._graphs.get(key)
+        if cap is None:
+            return self._capture(
+                key, lambda t, n: self.prefill(
+                    self.params, {"tokens": t, "prompt_lens": n}),
+                (torch.from_numpy(toks).to(dev),
+                 torch.tensor([plen], dtype=torch.int32, device=dev)))
+        cap.inputs[0].copy_(torch.from_numpy(toks))
+        cap.inputs[1].fill_(plen)
+        return cap.replay()
+
+    def _decode_logits(self, cache: dict, tok: torch.Tensor):
+        """The (B, 1, V) logits of one decode round over the live cache
+        ``cache`` (written in place) for the host tokens ``tok``: a replay
+        of the engine's decode graph under capture, else the eager step.
+        The step's returned ``"len"`` is dropped: the engine rewrites the
+        arena's lengths itself."""
+        dev = self.device
+        if not self._captures():
+            return self.decode(self.params, tok.to(dev), cache)[0]
+        key = ("decode", self.scfg.max_batch)
+        cap = self._graphs.get(key)
+        if cap is None:
+            return self._capture(
+                key, lambda t: self.decode(self.params, t, cache)[0],
+                (tok.to(dev),))
+        cap.inputs[0].copy_(tok)
+        return cap.replay()
+
     # --------------------------------------------------------- continuous --
 
     def _run_continuous(self) -> List[Request]:
         B = self.scfg.max_batch
         dev = self.device
-
-        def new_arena():
-            return api.init_slot_cache(self.cfg, B, self.scfg.max_len,
-                                       device=dev)
-        cache = new_arena()
+        if self._arena is None:
+            self._arena = api.init_slot_cache(self.cfg, B, self.scfg.max_len,
+                                              kv=self.scfg.kv_cache,
+                                              device=dev)
+        # the arena's tensors persist (a captured step reads them by
+        # address); each drain starts from a cleared arena
+        cache = api.cache_clear(self._arena)
         slots: List[Optional[Request]] = [None] * B
-        lens = [0] * B                  # host mirror of cache["len"]
-        cur = np.zeros((B, 1), np.int64)
+        lens = self._host_len.numpy()   # host mirror of cache["len"]
+        lens[:] = 0
+        cur = self._host_tok.numpy()    # the next round's tokens
+        cur[:] = 0
         finished: List[Request] = []
 
         def try_admit(i: int, req: Request) -> bool:
@@ -387,10 +492,7 @@ class Engine:
                     toks[0, :plen] = req.prompt    # right-pad: 0..plen-1
                     with obs_trace.span("engine.prefill", uid=req.uid,
                                         slot=i, plen=plen, bucket=bucket):
-                        logits, fresh = self.prefill(self.params, {
-                            "tokens": torch.from_numpy(toks).to(dev),
-                            "prompt_lens": torch.tensor(
-                                [plen], dtype=torch.int32, device=dev)})
+                        logits, fresh = self._prefill_slot(toks, plen)
                         self._m["prefills"].inc()
                         cache = api.cache_write_slot(self.cfg, cache, fresh,
                                                      i)
@@ -486,8 +588,7 @@ class Engine:
                 t0 = time.perf_counter()
                 with obs_trace.span("engine.decode_round",
                                     round=self._round, active=len(active)):
-                    logits, cache = self.decode(
-                        self.params, torch.from_numpy(cur).to(dev), cache)
+                    logits = self._decode_logits(cache, self._host_tok)
                     if dev.type == "cuda":   # device time, not the enqueue
                         torch.cuda.synchronize(dev)
                 self._m["decode_time"].inc(time.perf_counter() - t0)
@@ -501,11 +602,11 @@ class Engine:
                                    * (2 ** (decode_failures - 1)))
                     continue
                 # unrecoverable round: the batch shares one cache, so retire
-                # the whole active set and rebuild the arena
+                # the whole active set and rebuild the arena (in place)
                 for i in active:
                     retire_slot(i, "error", repr(e))
                 self._m["arena_rebuilds"].inc()
-                cache = new_arena()
+                cache = api.cache_clear(cache)
                 decode_failures = 0
                 continue
             decode_failures = 0
@@ -528,7 +629,8 @@ class Engine:
                 maybe_retire(i)
                 if slots[i] is not None and self._expired(req, now_r):
                     retire_slot(i, "timeout")   # round-boundary cancel
-            # decode advanced every row's length, retired and empty slots
-            # too; re-zero them so dead rows never drift past max_len
-            cache["len"] = torch.tensor(lens, dtype=torch.int32, device=dev)
+            # the arena's lengths from the host mirror, in place: the step
+            # wrote K/V at each live row's length, and retired and empty
+            # rows stay at 0
+            cache["len"].copy_(self._host_len)
         return finished

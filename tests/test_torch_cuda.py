@@ -1591,3 +1591,203 @@ def test_training_step_on_card_matches_host(dev, prim):
             np.testing.assert_allclose(c.cpu().float().numpy(),
                                        h.float().numpy(), rtol=1e-4,
                                        atol=1e-5)
+
+
+# ------------------------------------ the LM engine's captured decode step
+
+def _tiny_lm(dev, family):
+    """A tiny Qwen2 or Falcon-Mamba with seeded weights made on the card."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    if family == "ssm":
+        cfg = dataclasses.replace(get_config("falcon-mamba-7b"), n_layers=3,
+                                  d_model=64, vocab=96)
+    else:
+        cfg = dataclasses.replace(get_config("qwen2-0.5b"), n_layers=2,
+                                  d_model=64, n_heads=4, n_kv_heads=2,
+                                  d_ff=160, vocab=96)
+    return cfg, api.init_params(cfg, torch.Generator(device=dev)
+                                .manual_seed(0), device=dev)
+
+
+LM_MODES = [("dense", p, kv) for p in ("float", "int8", "int8-torch", "w4a8",
+                                       "w4a8-torch")
+            for kv in ("float", "int8")] + [("ssm", "float", "float")]
+
+
+@pytest.mark.parametrize("family,precision,kv", LM_MODES,
+                         ids=["-".join(m) for m in LM_MODES])
+def test_captured_decode_equals_eager_bitwise(dev, family, precision, kv):
+    """The engine's prefill and decode paths with jit=True (the dense
+    prefill replayed per bucket, the decode step captured at its first
+    round and replayed) and jit=False, driven over their own arenas: the
+    prefill and every decode round's logits bitwise equal, and the arena
+    (K/V or state, int8 scales, lengths) bitwise equal after 5 rounds.
+    The first round launches one eager pass (the capture counts nothing),
+    each later round one replay's launches, the same as an eager step's;
+    the engine holds one decode graph and one graph per prefill bucket."""
+    from repro_torch import kernels
+    from repro_torch.models import api
+    from repro_torch.serve import Engine, ServeConfig
+    cfg, params = _tiny_lm(dev, family)
+    scfg = ServeConfig(max_batch=3, max_len=48, precision=precision,
+                       kv_cache=kv)
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(0, 96, (n,)).astype(np.int32) for n in (5, 19)]
+    kernel = {"int8": kernels.matmul_q8, "w4a8": kernels.matmul_w4}.get(
+        precision)
+    out = {}
+    for jit in (True, False):
+        eng = Engine(cfg, params, scfg, jit=jit)
+        arena = api.init_slot_cache(cfg, 3, 48, kv=kv, device=dev)
+        tok = torch.zeros((3, 1), dtype=torch.int64).pin_memory()
+        lens = torch.zeros((3,), dtype=torch.int32).pin_memory()
+        logits = []
+        for rep in range(2):                 # a bucket's capture, a replay
+            for slot, p in enumerate(prompts):
+                b = eng._bucket_len(len(p))
+                toks = np.zeros((1, b), np.int64)
+                toks[0, :len(p)] = p
+                lg, fresh = eng._prefill_slot(toks, len(p))
+                api.cache_write_slot(cfg, arena, fresh, slot)
+                logits.append(lg.clone())
+                tok[slot, 0] = int(lg[0, -1].argmax())
+                lens[slot] = len(p)
+        calls = []
+        for r in range(5):
+            kernels.reset_launches()
+            lg = eng._decode_logits(arena, tok)
+            torch.cuda.synchronize()
+            calls.append(kernel.launches if kernel else 0)
+            logits.append(lg.clone())
+            tok[:, 0] = lg[:, -1].argmax(-1).cpu()
+            lens[:len(prompts)] += 1          # the empty slot stays at 0
+            arena["len"].copy_(lens)
+        if kernel is not None:
+            assert calls == [3 * cfg.n_layers] * 5, calls
+        out[jit] = (logits, {k: v.clone() for k, v in arena.items()})
+        buckets = {eng._bucket_len(len(p)) for p in prompts}
+        if jit:
+            want = {("decode", 3)} | ({("prefill", b) for b in buckets}
+                                      if family == "dense" else set())
+            assert set(eng._graphs) == want and eng.traces == len(want)
+        else:
+            assert eng.traces == 0 and not eng._graphs
+    for i, (a, b) in enumerate(zip(out[True][0], out[False][0])):
+        assert torch.equal(a, b), i
+    for key, t in out[False][1].items():
+        assert torch.equal(out[True][1][key], t), key
+
+
+@pytest.mark.parametrize("precision,kv", [("int8", "float"),
+                                          ("int8", "int8"),
+                                          ("float", "float")])
+def test_captured_engine_streams_traces_and_launches(dev, precision, kv):
+    """Served captured (the default) and with jit=False: equal token
+    streams over two drains; one decode graph per engine and one per
+    prefill bucket (16 and 32 here), counted in traces and in
+    graph.compiles; the second drain captures nothing; the kernel's
+    launches are exactly 3 per layer per prefill and decode step."""
+    from repro_torch import kernels
+    from repro_torch.obs import metrics
+    from repro_torch.serve import Engine, Request, ServeConfig
+    cfg, params = _tiny_lm(dev, "dense")
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, 96, (n,)).astype(np.int32)
+               for n in (5, 19, 9, 3, 30)]
+    streams = {}
+    for jit in (True, False):
+        eng = Engine(cfg, params, ServeConfig(max_batch=2, max_len=64,
+                                              precision=precision,
+                                              kv_cache=kv), jit=jit)
+        compiles = metrics.counter("graph.compiles").value
+        runs = []
+        for _ in range(2):
+            for i, p in enumerate(prompts):
+                eng.submit(Request(uid=i, prompt=p, max_new_tokens=6))
+            kernels.reset_launches()
+            done = sorted(eng.run_until_drained(), key=lambda r: r.uid)
+            assert [r.status for r in done] == ["ok"] * len(prompts)
+            runs.append([r.out_tokens for r in done])
+            st = eng.stats
+            if precision == "int8":
+                assert kernels.matmul_q8.launches == 3 * cfg.n_layers * (
+                    st["prefills"] + st["decode_steps"])
+            if jit:
+                assert eng.traces == 3
+            eng.reset_stats()
+        assert runs[0] == runs[1]
+        assert metrics.counter("graph.compiles").value - compiles == \
+            (3 if jit else 0)
+        streams[jit] = runs[0]
+    assert streams[True] == streams[False]
+
+
+@pytest.mark.parametrize("family", ["dense", "ssm"])
+def test_arena_rebuilt_in_place_and_the_graph_replays(dev, family):
+    """An unrecoverable decode round (an injected fault outliving
+    max_retries) retires the active set and clears the arena in place:
+    the arena keeps its tensors, the next rounds replay the same decode
+    graph (no new capture), and the survivors' streams equal a jit=False
+    engine's under the same fault."""
+    from repro_torch.faults import FaultPlan, FaultSpec
+    from repro_torch.serve import Engine, Request, ServeConfig
+    cfg, params = _tiny_lm(dev, family)
+    rng = np.random.default_rng(23)
+    prompts = [rng.integers(0, 96, (n,)).astype(np.int32)
+               for n in (5, 9, 7, 4, 6)]
+    results = {}
+    for jit in (True, False):
+        eng = Engine(cfg, params, ServeConfig(max_batch=2, max_len=48),
+                     jit=jit)
+        eng.submit(Request(uid=-1, prompt=prompts[0], max_new_tokens=3))
+        eng.run_until_drained()                  # captures, if jit
+        graphs = dict(eng._graphs)
+        ptrs = {k: v.data_ptr() for k, v in eng._arena.items()}
+        for i, p in enumerate(prompts):
+            eng.submit(Request(uid=i, prompt=p, max_new_tokens=5))
+        with FaultPlan([FaultSpec(site="engine.decode_round", kind="raise",
+                                  nth=2, times=3)]):
+            done = sorted(eng.run_until_drained(), key=lambda r: r.uid)
+        status = [r.status for r in done]
+        assert status.count("error") == 2 and status.count("ok") == 3
+        assert eng.stats["arena_rebuilds"] == 1
+        assert {k: v.data_ptr() for k, v in eng._arena.items()} == ptrs
+        assert eng._graphs.keys() == graphs.keys()
+        assert all(eng._graphs[k] is g for k, g in graphs.items())
+        if jit:
+            assert ("decode", 2) in graphs
+        results[jit] = [(r.status, r.out_tokens) for r in done]
+    assert results[True] == results[False]
+
+
+def test_failed_decode_capture_raises_and_never_runs_eager(dev,
+                                                           monkeypatch):
+    """A host sync inside the decode step breaks its capture: the round
+    fails (the requests retire as "error" after their prefill token, the
+    arena is cleared), no decode graph is kept, and no round ever falls
+    back to the eager step."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Engine, Request, ServeConfig
+    cfg, params = _tiny_lm(dev, "dense")
+    attn = T.attn_decode
+
+    def syncing(*a, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            a[1].cpu()
+        return attn(*a, **kw)
+    monkeypatch.setattr(T, "attn_decode", syncing)
+    eng = Engine(cfg, params, ServeConfig(max_batch=2, max_len=48))
+    rng = np.random.default_rng(29)
+    for i, n in enumerate((5, 9, 7)):
+        eng.submit(Request(uid=i, prompt=rng.integers(0, 96, (n,))
+                           .astype(np.int32), max_new_tokens=4))
+    done = eng.run_until_drained()
+    torch.cuda.synchronize()
+    assert [r.status for r in done] == ["error"] * 3
+    assert all(len(r.out_tokens) == 1 for r in done)
+    assert eng.stats["decode_steps"] == 0
+    assert eng.stats["arena_rebuilds"] == 2
+    assert ("decode", 2) not in eng._graphs
+    assert eng.traces == len(eng._graphs) == 1       # the prefill bucket

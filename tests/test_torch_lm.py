@@ -561,7 +561,6 @@ def test_engine_corrupt_fault_is_recorded(lm):
 @pytest.mark.parametrize("kw,match", [
     (dict(scheduler="static"), "static"),
     (dict(kv_layout="paged"), "paged"),
-    (dict(kv_cache="int8"), "kv_cache"),
     (dict(attn_impl="flash_tri"), "flash_tri")])
 def test_engine_raises_for_what_is_not_ported(lm, kw, match):
     _, _, cfg, params = lm
@@ -589,8 +588,6 @@ def test_other_families_raise(lm, family):
 
 def test_cache_helpers_raise_for_unported_layouts(lm):
     _, _, cfg, params = lm
-    with pytest.raises(NotImplementedError, match="int8"):
-        api.init_slot_cache(cfg, 2, 16, kv="int8", device="cpu")
     cache = api.init_slot_cache(cfg, 2, 16, device="cpu")
     cache["block_table"] = torch.zeros((2, 1), dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="paged"):
