@@ -130,11 +130,38 @@ Phases, one line each, any failure exits non-zero:
               requests, their token streams equal to the captured
               engines'; the float engine's token agreement over the int8
               KV cache printed; tokens/s, decode-step ms and TTFT per
-              engine; then one decode step's device breakdown (its count
-              of device operations, kernels and memsets) captured and
-              with jit=False for float, int8, w4a8 and int8 over the int8
-              KV cache, and the captured prefill against the eager one at
-              buckets 32 and 128.
+              engine. The same model's other serve paths, each run
+              printing its tokens/s, decode_tok_s, step ms, TTFT, graphs,
+              pool gauges and launch counts, its pool audited empty after
+              the drain: (a) the paged KV cache (16-position pages,
+              prefix cache off) in "float", "int8" and "int8" over the
+              int8 KV cache, streams equal to the contiguous engine's;
+              (b) prefix traffic (24 requests sharing a 64-token system
+              prompt, each with its own 8-40-token suffix: every prompt
+              in bucket 128), and mixed-bucket prefix traffic (24
+              requests sharing a 48-token prompt, every other one with a
+              1-16-token suffix, in bucket 64, the rest with a 17-72-token
+              one, in bucket 128), each paged with the prefix cache and
+              contiguous, in "float" and in "int8" over the int8 KV
+              cache: streams equal, hit rate above 0, the mixed traffic
+              with hits in both buckets (a hit shares only pages of a
+              prefill of its own bucket); the prefix exactness measured
+              (the prefix rows' K/V at buckets 64, 128 and 256,
+              prefill_suffix against the whole prompt), each run with its
+              miss's and hits' prefill latency;
+              (c) a tight pool (kv_num_blocks=41) in "float", streams
+              equal to the contiguous engine's, with at least one
+              preemption (an engine.block_free span with preempt=True);
+              (d) the static scheduler in "float", "int8" and
+              "int8-torch" (one decode graph for batch 8), "float" and
+              "int8" equal to jit=False on the first 8 requests and
+              "int8" to "int8-torch"; (e) attn_impl="flash_tri", its
+              agreement with "flash" printed. Then one decode step's
+              device breakdown (its count of device operations, kernels
+              and memsets) captured and with jit=False for float, int8,
+              w4a8, int8 over the int8 KV cache and float and int8 over
+              the paged cache, and the captured prefill against the eager
+              one at buckets 32 and 128.
 7. ssm      — Falcon-Mamba-7B at full width and depth (64 layers, d_model
               4096, d_inner 8192, d_state 16, d_conv 4, dt_rank 256, vocab
               65,024; 7.27 B parameters), seeded random weights made on the
@@ -252,11 +279,31 @@ LM_RUNS = (("int8", "float"), ("int8-torch", "float"), ("w4a8", "float"),
            ("int8-torch", "int8"), ("float", "int8"))
 LM_EAGER, LM_EAGER_REQUESTS = ("float", "int8"), 8
 #: the served engines whose decode step is broken down
-LM_BREAKDOWN = ("float", "int8", "w4a8", "int8 kv=int8")
+LM_BREAKDOWN = ("float", "int8", "w4a8", "int8 kv=int8", "float paged",
+                "int8 paged")
 #: the prefill buckets whose captured and eager times are printed
 LM_PREFILL_TIMED = (32, 128)
 LM_BATCH, LM_MAX_LEN, LM_REQUESTS, LM_NEW = 8, 256, 24, 32
 LM_PROMPT = (16, 96)
+#: phase 6's other serve paths on the same model and prompts: the paged
+#: layout (pages of LM_BLOCK positions) without the prefix cache, per
+#: (precision, KV cache), held against the contiguous engine's streams
+LM_BLOCK = 16
+LM_PAGED = (("float", "float"), ("int8", "float"), ("int8", "int8"))
+#: prefix traffic: a LM_SHARED-token system prompt (4 pages) shared by
+#: every request, each with its own suffix of LM_SUFFIX tokens, served
+#: paged (prefix cache on) and contiguous, per (precision, KV cache)
+LM_SHARED, LM_SUFFIX = 64, (8, 40)
+#: mixed-bucket prefix traffic: a LM_MIXED_SHARED-token prompt (3 pages),
+#: every other request's suffix of LM_MIXED_SUFFIX[0] tokens (bucket 64),
+#: the rest's of LM_MIXED_SUFFIX[1] (bucket 128)
+LM_MIXED_SHARED, LM_MIXED_SUFFIX = 48, ((1, 16), (17, 72))
+LM_PREFIX = (("float", "float"), ("int8", "int8"))
+#: the tight pool: 40 usable pages for 8 slots of up to 8 pages each
+LM_TIGHT_BLOCKS = 41
+#: the static scheduler's precisions; LM_EAGER again with jit=False on
+#: the first LM_EAGER_REQUESTS requests
+LM_STATIC = ("float", "int8", "int8-torch")
 #: each kernel precision's matmul entry point; 3 FFN matmuls per layer
 LM_KERNEL = {"int8": "matmul_q8", "w4a8": "matmul_w4"}
 #: phase 7: the served ssm model and its traffic (prompts as in phase 6)
@@ -2090,11 +2137,10 @@ def phase_lm(torch, K, card, rng, dev="cuda", cfg=None, n_req=LM_REQUESTS,
              new_tokens=LM_NEW, prompt=LM_PROMPT, n_eager=LM_EAGER_REQUESTS):
     """Serve Qwen2-0.5B in every (precision, KV cache) of ``LM_RUNS``,
     captured, and ``LM_EAGER`` again with jit=False on the first
-    ``n_eager`` requests; returns the launch count of every kernel over
-    the runs."""
+    ``n_eager`` requests; then the other serve paths (:func:`lm_paths`);
+    returns the launch count of every kernel over the runs."""
     from repro_torch.configs import get_config
     from repro_torch.models import api
-    from repro_torch.serve import Engine, ServeConfig
     cfg = cfg or get_config(LM_ARCH)
     t0 = time.perf_counter()
     params = api.init_params(cfg, torch.Generator(device=dev)
@@ -2110,48 +2156,14 @@ def phase_lm(torch, K, card, rng, dev="cuda", cfg=None, n_req=LM_REQUESTS,
           f"made on the card in {time.perf_counter() - t0:.2f} s")
     prompts = [rng.integers(0, cfg.vocab, (int(n),)).astype(np.int32)
                for n in rng.integers(prompt[0], prompt[1] + 1, n_req)]
-    launches = dict.fromkeys((k.__name__ for k in K.KERNELS), 0)
-    streams, engines = {}, {}
-    runs = [(prec, kv, True, prompts) for prec, kv in LM_RUNS] + \
-        [(prec, "float", False, prompts[:n_eager]) for prec in LM_EAGER]
-    for prec, kv, jit, served in runs:
-        label = prec + (" kv=int8" if kv == "int8" else "") + \
-            ("" if jit else " jit=False")
-        t0 = time.perf_counter()
-        eng = Engine(cfg, params, ServeConfig(max_batch=LM_BATCH,
-                                              max_len=LM_MAX_LEN,
-                                              precision=prec, kv_cache=kv),
-                     jit=jit)
-        sync(torch, dev)
-        t_init = time.perf_counter() - t0
-        got, done, wall = serve_lm(torch, K, eng, served, new_tokens, label,
-                                   dev)
-        st = eng.stats
-        calls = 3 * cfg.n_layers * (st["prefills"] + st["decode_steps"])
-        want = dict.fromkeys(got, 0)
-        if prec in LM_KERNEL and torch.device(dev).type == "cuda":
-            want[LM_KERNEL[prec]] = calls     # a host run launches nothing
-        check(got == want, f"lm {label}: launches {got}, "
-                           f"{st['prefills']} prefills and "
-                           f"{st['decode_steps']} decode steps need {want}")
-        for k, v in got.items():
-            launches[k] += v
-        streams[label] = [r.out_tokens for r in done]
-        ttft = np.percentile([r.ttft_s for r in done], [50, 99])
-        step_ms = 1e3 * eng.metrics.counter("serve.decode_time_s").value \
-            / st["decode_steps"]
-        print(f"[lm] {label}: {len(served)} requests ok, {st['tokens_out']} "
-              f"tokens in {wall:.2f} s ({st['tokens_out'] / wall:.1f} "
-              f"tokens/s end to end; decode_tok_s="
-              f"{st['decode_tok_s']:.1f}), {st['prefills']} prefills, "
-              f"{st['decode_steps']} decode steps at {step_ms:.3f} ms, "
-              f"occupancy {st['occupancy']:.3f}, TTFT p50 {ttft[0]:.4f} s "
-              f"p99 {ttft[1]:.4f} s (over the {len(served)} requests), "
-              f"engine init {t_init:.2f} s, {eng.traces} graphs; launches "
-              f"{ {k: v for k, v in got.items() if v} } on {card}")
-        if jit and label in LM_BREAKDOWN:
-            engines[label] = eng
-        del eng
+    runner = LMRunner(torch, K, card, cfg, params, dev, new_tokens)
+    streams, engines = runner.streams, runner.engines
+    for prec, kv in LM_RUNS:
+        runner.run("lm", lm_label(prec, kv), prompts, precision=prec,
+                   kv_cache=kv)
+    for prec in LM_EAGER:
+        runner.run("lm", prec + " jit=False", prompts[:n_eager], jit=False,
+                   precision=prec)
     for prec in LM_KERNEL:
         check(streams[prec] == streams[prec + "-torch"],
               f"lm {prec}: the kernel's token streams differ from the "
@@ -2174,9 +2186,248 @@ def phase_lm(torch, K, card, rng, dev="cuda", cfg=None, n_req=LM_REQUESTS,
           f"KV cache: float "
           f"{agreement(streams['float kv=int8'], streams['float']):.3f}, "
           f"int8 {agreement(streams['int8 kv=int8'], streams['int8']):.3f}")
+    lm_paths(runner, prompts, n_eager)
     for label, eng in engines.items():
         lm_breakdown(torch, label, eng, cfg, dev)
-    return launches
+    return runner.launches
+
+
+def lm_label(prec, kv="float", layout=""):
+    return " ".join([prec] + (["kv=int8"] if kv == "int8" else [])
+                    + ([layout] if layout else []))
+
+
+class LMRunner:
+    """Phase 6's engines on one model: :meth:`run` builds one, serves it
+    (:func:`serve_lm`), checks its kernel launches and its pool, prints
+    its line and keeps its streams under its label."""
+
+    def __init__(self, torch, K, card, cfg, params, dev, new_tokens):
+        self.torch, self.K, self.card, self.cfg = torch, K, card, cfg
+        self.params, self.dev, self.new_tokens = params, dev, new_tokens
+        self.launches = dict.fromkeys((k.__name__ for k in K.KERNELS), 0)
+        self.streams, self.engines, self.done = {}, {}, {}
+
+    def run(self, tag, label, served, jit=True, warm=None, graphs=None,
+            trace=False, **scfg_kw):
+        from repro_torch.serve import Engine, ServeConfig
+        torch, dev, cfg = self.torch, self.dev, self.cfg
+        t0 = time.perf_counter()
+        eng = Engine(cfg, self.params, ServeConfig(
+            max_batch=LM_BATCH, max_len=LM_MAX_LEN, **scfg_kw), jit=jit)
+        sync(torch, dev)
+        t_init = time.perf_counter() - t0
+        got, done, wall, events = serve_lm(torch, self.K, eng, served,
+                                           self.new_tokens, label, dev,
+                                           warm=warm, graphs=graphs,
+                                           trace=trace)
+        st = eng.stats
+        calls = 3 * cfg.n_layers * (st["prefills"] + st["decode_steps"])
+        want = dict.fromkeys(got, 0)
+        prec = eng.scfg.precision
+        if prec in LM_KERNEL and torch.device(dev).type == "cuda":
+            want[LM_KERNEL[prec]] = calls     # a host run launches nothing
+        check(got == want, f"{tag} {label}: launches {got}, "
+                           f"{st['prefills']} prefills and "
+                           f"{st['decode_steps']} decode steps need {want}")
+        if eng.pool is not None:
+            bad = eng.pool.audit(expect_drained=True)
+            check(bad == [], f"{tag} {label}: the pool audits {bad}")
+        for k, v in got.items():
+            self.launches[k] += v
+        self.streams[label] = [r.out_tokens for r in done]
+        self.done[label] = done
+        ttft = np.percentile([r.ttft_s for r in done], [50, 99])
+        step_ms = 1e3 * eng.metrics.counter("serve.decode_time_s").value \
+            / st["decode_steps"]
+        pool = ""
+        if eng.paged:
+            pool = (f"; blocks_in_use {st['blocks_in_use']}, blocks_free "
+                    f"{st['blocks_free']}, prefix_hit_rate "
+                    f"{st['prefix_hit_rate']:.4f}")
+        print(f"[{tag}] {label}: {len(served)} requests ok, "
+              f"{st['tokens_out']} tokens in {wall:.2f} s "
+              f"({st['tokens_out'] / wall:.1f} tokens/s end to end; "
+              f"decode_tok_s={st['decode_tok_s']:.1f}), {st['prefills']} "
+              f"prefills, {st['decode_steps']} decode steps at "
+              f"{step_ms:.3f} ms, occupancy {st['occupancy']:.3f}, TTFT p50 "
+              f"{ttft[0]:.4f} s p99 {ttft[1]:.4f} s (over the {len(served)} "
+              f"requests), engine init {t_init:.2f} s, {eng.traces} graphs"
+              f"{pool}; launches { {k: v for k, v in got.items() if v} } "
+              f"on {self.card}")
+        if jit and label in LM_BREAKDOWN:
+            self.engines[label] = eng
+        return eng, events
+
+
+def lm_paths(runner, prompts, n_eager):
+    """Phase 6's other serve paths on the same model: (a) the paged
+    layout without the prefix cache, per ``LM_PAGED``, streams equal to
+    the contiguous engine's; (b) prefix traffic (``LM_SHARED`` shared
+    tokens, own suffixes) and mixed-bucket prefix traffic
+    (``LM_MIXED_SHARED`` tokens, suffixes in two buckets), each paged and
+    contiguous per ``LM_PREFIX``, streams equal, hit rate above 0, the
+    mixed traffic with hits in both buckets; (c) the tight pool,
+    streams equal to the contiguous engine's with at least one preemption
+    (an ``engine.block_free`` span with ``preempt=True``); (d) the static
+    scheduler per ``LM_STATIC``, captured equal to jit=False on the first
+    ``n_eager`` requests and int8 to int8-torch; (e) ``attn_impl=
+    "flash_tri"``, its agreement with ``"flash"`` printed."""
+    streams, cfg = runner.streams, runner.cfg
+    n_req, new = len(prompts), runner.new_tokens
+    for prec, kv in LM_PAGED:
+        label = lm_label(prec, kv, "paged")
+        runner.run("paged", label, prompts, precision=prec, kv_cache=kv,
+                   kv_layout="paged", kv_block_size=LM_BLOCK,
+                   prefix_cache=False)
+        check(streams[label] == streams[lm_label(prec, kv)],
+              f"paged {label}: token streams differ from the contiguous "
+              "engine's")
+        print(f"[paged] {label}: token streams equal to the contiguous "
+              f"engine's ({n_req} x {new} tokens)")
+    # (b) a system prompt shared by every request of a chat service
+    prng = np.random.default_rng([SEED, 6])
+    shared = prng.integers(0, cfg.vocab, (LM_SHARED,)).astype(np.int32)
+    chat = [np.concatenate([shared, prng.integers(0, cfg.vocab, (int(n),))])
+            .astype(np.int32) for n in prng.integers(
+                LM_SUFFIX[0], LM_SUFFIX[1] + 1, n_req)]
+    # ... and one whose requests' prefills fall in two buckets
+    shared = prng.integers(0, cfg.vocab, (LM_MIXED_SHARED,)).astype(np.int32)
+    mixed = [np.concatenate([shared, prng.integers(0, cfg.vocab, (int(
+        prng.integers(lo, hi + 1)),))]).astype(np.int32)
+        for lo, hi in LM_MIXED_SUFFIX * (n_req // 2)]
+    for traffic, served in (("prefix", chat), ("mixed prefix", mixed)):
+        for prec, kv in LM_PREFIX:
+            prefix_run(runner, traffic, served, prec, kv)
+    prefix_exactness(runner, chat[0])
+    label = "float tight paged"
+    _, events = runner.run("paged", label, prompts, trace=True,
+                           kv_layout="paged", kv_block_size=LM_BLOCK,
+                           kv_num_blocks=LM_TIGHT_BLOCKS)
+    preempts = sum(1 for e in events if e["name"] == "engine.block_free"
+                   and e["ph"] == "B" and e.get("args", {}).get("preempt"))
+    check(preempts > 0, f"paged {label}: no preemption in the run")
+    check(streams[label] == streams["float"],
+          f"paged {label}: token streams differ from the contiguous "
+          "engine's")
+    print(f"[paged] {label}: kv_num_blocks={LM_TIGHT_BLOCKS}, {preempts} "
+          "preemptions (engine.block_free spans with preempt=True); token "
+          f"streams equal to the contiguous engine's ({n_req} x {new} "
+          "tokens)")
+    static_warm = prompts[:LM_BATCH]
+    for prec in LM_STATIC:
+        runner.run("static", prec + " static", prompts, warm=static_warm,
+                   graphs=1, precision=prec, scheduler="static")
+    for prec in LM_EAGER:
+        runner.run("static", prec + " static jit=False", prompts[:n_eager],
+                   jit=False, precision=prec, scheduler="static")
+        check(streams[prec + " static jit=False"]
+              == streams[prec + " static"][:n_eager],
+              f"static {prec}: jit=False token streams differ from the "
+              "captured engine's")
+    check(streams["int8 static"] == streams["int8-torch static"],
+          "static int8: the kernel's token streams differ from the plain "
+          "version's")
+    agree = {p: agreement(streams[p + " static"], streams[p])
+             for p in ("float", "int8")}
+    print(f"[static] captured float and int8 token streams equal to "
+          f"jit=False's ({n_eager} x {new} tokens), int8 equal to "
+          f"int8-torch's ({n_req} x {new}); agreement with the continuous "
+          f"engine: float {agree['float']:.3f}, int8 {agree['int8']:.3f} "
+          "(left-padded prompts: not gated)")
+    runner.run("lm", "float flash_tri", prompts, attn_impl="flash_tri")
+    print(f"[lm] float flash_tri: "
+          f"{agreement(streams['float flash_tri'], streams['float']):.4f} "
+          "of tokens equal to attn_impl='flash''s")
+
+
+def prefix_run(runner, traffic, served, prec, kv):
+    """Serve ``served`` contiguous and paged with the prefix cache: streams
+    equal, hit rate above 0, and a hit in every prefill bucket the
+    prompts fall in (the ``engine.prefill`` spans' ``prefix_hit``)."""
+    streams, n_req, new = runner.streams, len(served), runner.new_tokens
+    ref = lm_label(prec, kv, traffic + " contiguous")
+    runner.run("paged", ref, served, precision=prec, kv_cache=kv)
+    label = lm_label(prec, kv, traffic + " paged")
+    eng, events = runner.run("paged", label, served, precision=prec,
+                             kv_cache=kv, kv_layout="paged",
+                             kv_block_size=LM_BLOCK, trace=True)
+    check(streams[label] == streams[ref],
+          f"paged {label}: token streams differ from the contiguous "
+          "engine's on the same prompts")
+    check(eng.stats["prefix_hit_rate"] > 0, f"paged {label}: no prefix hit")
+    hits = {}
+    for e in events:
+        if e["name"] == "engine.prefill" and e["ph"] == "B":
+            a = e["args"]
+            hits.setdefault(a["bucket"], []).append(a["prefix_hit"] > 0)
+    check(all(any(h) for h in hits.values()),
+          f"paged {label}: a prefill bucket has no hit ({hits})")
+    print(f"[paged] {label}: token streams equal to the contiguous "
+          f"engine's on the same prompts ({n_req} x {new} tokens); hits "
+          "share storage and recompute their prompt; hits / prefills by "
+          "bucket " + ", ".join(f"{b}: {sum(h)} / {len(h)}"
+                                for b, h in sorted(hits.items()))
+          + "; " + prefill_latency(runner.done[label], runner.done[ref]))
+
+
+def prefix_exactness(runner, prompt):
+    """What a prefix hit's exactness rests on, measured on one prefix
+    prompt (float, the engine's prefill): the max |diff| of the prefix
+    rows' K/V between a prefill of the prefix alone at each bucket and of
+    the whole prompt at its bucket, and of the logits and suffix K/V of
+    ``prefill_suffix`` over the whole prompt's prefix K/V against the
+    whole prompt's."""
+    from repro_torch.models import api
+    from repro_torch.models import transformer as T
+    torch, dev, cfg = runner.torch, runner.dev, runner.cfg
+    params = T.cast_params(runner.params, cfg)
+    pre = api.prefill_fn(cfg, LM_MAX_LEN)
+
+    def prefill(toks, n, bucket):
+        t = torch.zeros((1, bucket), dtype=torch.long, device=dev)
+        t[0, :n] = torch.from_numpy(toks[:n]).to(dev)
+        return pre(params, {"tokens": t, "prompt_lens": torch.tensor(
+            [n], dtype=torch.int32, device=dev)})
+    plen, n = len(prompt), LM_SHARED
+    full = 1 << (plen - 1).bit_length()
+    logits, cache = prefill(prompt, plen, full)
+    diffs = []
+    for b in (64, 128, 256):
+        _, c = prefill(prompt, n, b)
+        diffs.append(max((c[k][:, :, :n].float() - cache[k][:, :, :n]
+                          .float()).abs().max().item() for k in ("k", "v")))
+    s = plen - n
+    sb = max(16, 1 << (s - 1).bit_length())
+    t = torch.zeros((1, sb), dtype=torch.long, device=dev)
+    t[0, :s] = torch.from_numpy(prompt[n:]).to(dev)
+    lg, ks, _ = api.prefill_suffix_fn(cfg)(params, {
+        "tokens": t, "prefix_k": cache["k"][:, :, :n],
+        "prefix_v": cache["v"][:, :, :n],
+        "suffix_lens": torch.tensor([s], dtype=torch.int32, device=dev)})
+    dk = (ks[:, :, :s].to(cache["k"].dtype).float()
+          - cache["k"][:, :, n:plen].float()).abs().max().item()
+    print(f"[paged] prefix exactness (float, one {plen}-token prompt, "
+          f"{n}-token prefix): max |diff| of the prefix rows' K/V, prefix "
+          f"alone at bucket 64 / 128 / 256 against the whole prompt at "
+          f"{full}: {diffs[0]} / {diffs[1]} / {diffs[2]}; prefill_suffix "
+          f"({s} rows at bucket {sb}) against the whole prompt: logits "
+          f"{(lg - logits).abs().max().item()}, suffix K {dk}")
+
+
+def prefill_latency(done, ref) -> str:
+    """Admission to first token (the prefill, no queue wait), p50, of a
+    run's first-admitted request (the prefix's miss) and of the rest (its
+    hits), beside the contiguous run's on the same prompts."""
+    def split(rs):
+        rs = sorted(rs, key=lambda r: r.admit_t)
+        lat = [r.first_token_t - r.admit_t for r in rs]
+        return lat[0], float(np.median(lat[1:]))
+    (miss, hit), (c_miss, c_hit) = split(done), split(ref)
+    return (f"prefill (admission to first token) of the miss "
+            f"{1e3 * miss:.3f} ms, p50 of the {len(done) - 1} hits "
+            f"{1e3 * hit:.3f} ms; contiguous {1e3 * c_miss:.3f} / "
+            f"{1e3 * c_hit:.3f} ms")
 
 
 def agreement(a, b) -> float:
@@ -2185,31 +2436,42 @@ def agreement(a, b) -> float:
                           for x, y in zip(s, t)]))
 
 
-def serve_lm(torch, K, eng, prompts, new_tokens, label, dev):
+def serve_lm(torch, K, eng, prompts, new_tokens, label, dev, warm=None,
+             graphs=None, trace=False):
     """Warm ``eng`` up with one request into each prefill bucket the
-    prompts fall into (for a captured engine: each graph's capture, whose
-    first-call ms is printed), zero its stats and the launch counts, then
-    serve ``prompts``: every status ok, streams of ``new_tokens`` ids in
-    the vocabulary, no error or retry, and no capture in the timed run.
-    Returns (launches, requests by uid, wall seconds)."""
+    prompts fall into, or with the prompts ``warm`` after which a captured
+    engine holds ``graphs`` graphs (each graph's capture, whose first-call
+    ms is printed; their count checked), zero
+    its stats and the launch counts, then serve ``prompts``: every status
+    ok, streams of ``new_tokens`` ids in the vocabulary, no error or
+    retry, and no capture in the timed run. Returns (launches, requests by
+    uid, wall seconds, the tracer's events of the timed run if
+    ``trace``)."""
+    from repro_torch.obs import trace as obs_trace
     from repro_torch.serve import Request
     vocab = eng.cfg.vocab
     buckets = sorted({eng._bucket_len(len(p)) for p in prompts})
-    if eng.cfg.family == "dense":
-        warm = [np.resize(prompts[0], b) for b in buckets]
-    else:                       # exact lengths, an eager prefill each
-        warm = [p[:LM_PROMPT[0]] for p in prompts[:2]]
+    want = graphs
+    if warm is None:
+        if eng.cfg.family == "dense":
+            warm = [np.resize(prompts[0], b) for b in buckets]
+            want = 1 + len(buckets)
+        else:                   # exact lengths, an eager prefill each
+            warm = [p[:LM_PROMPT[0]] for p in prompts[:2]]
+            want = 1
     for i, p in enumerate(warm):
         eng.submit(Request(uid=-1 - i, prompt=p, max_new_tokens=2))
     eng.run_until_drained()
     eng.reset_stats()
     if eng._captures():
-        want = 1 + (len(buckets) if eng.cfg.family == "dense" else 0)
-        check(eng.traces == want, f"lm {label}: {eng.traces} graphs after "
-                                  f"the warm-up, not {want}")
+        check(eng.traces == want,
+              f"lm {label}: {eng.traces} graphs after the warm-up, not "
+              f"{want}")
         for key, cap in eng._graphs.items():
-            print(f"[lm] {label}: graph {key[0]} "
-                  f"{'batch' if key[0] == 'decode' else 'bucket'} {key[1]}"
+            what = {"decode": "batch", "static": "batch",
+                    "prefill": "bucket"}
+            print(f"[lm] {label}: graph {key[0]} {what[key[0]]} "
+                  f"{', '.join(map(str, key[1:]))}"
                   f": first call (eager pass + capture) "
                   f"{1e3 * cap.seconds:.1f} ms, "
                   f"{sum(cap.launches.values())} kernel launches a replay")
@@ -2217,9 +2479,18 @@ def serve_lm(torch, K, eng, prompts, new_tokens, label, dev):
     for i, p in enumerate(prompts):
         eng.submit(Request(uid=i, prompt=p, max_new_tokens=new_tokens))
     K.reset_launches()
-    t0 = time.perf_counter()
-    done = eng.run_until_drained()
-    wall = time.perf_counter() - t0
+    if trace:
+        obs_trace.clear()
+        obs_trace.enable()
+    try:
+        t0 = time.perf_counter()
+        done = eng.run_until_drained()
+        wall = time.perf_counter() - t0
+    finally:
+        events = obs_trace.TRACER.events() if trace else []
+        if trace:
+            obs_trace.disable()
+            obs_trace.clear()
     got = {k.__name__: k.launches for k in K.KERNELS}
     st = eng.stats
     statuses = {r.status for r in done}
@@ -2235,7 +2506,7 @@ def serve_lm(torch, K, eng, prompts, new_tokens, label, dev):
           f"lm {label}: errors={st['errors']} retries={st['retries']}")
     check(eng.traces == traces, f"lm {label}: the timed run captured "
                                 f"{eng.traces - traces} graphs")
-    return got, done, wall
+    return got, done, wall, events
 
 
 def _leaves(tree):
@@ -2262,10 +2533,22 @@ def lm_breakdown(torch, label, eng, cfg, dev, pos=128, reps=5,
     else, and the idle share. For a dense engine also the captured
     prefill (the engine's own graph) against the eager one at the buckets
     ``LM_PREFILL_TIMED``."""
+    from repro_torch.check.config import paged_num_blocks
     from repro_torch.graph.capture import capture
     from repro_torch.models import api
-    cache = api.init_slot_cache(cfg, LM_BATCH, LM_MAX_LEN,
-                                kv=eng.scfg.kv_cache, device=dev)
+    if eng.paged:
+        # each slot's pages, in an order that interleaves the slots
+        bs = eng.scfg.kv_block_size
+        cache = api.init_paged_cache(cfg, LM_BATCH,
+                                     paged_num_blocks(eng.scfg), bs,
+                                     LM_MAX_LEN, kv=eng.scfg.kv_cache,
+                                     device=dev)
+        n = pos // bs + 1
+        ids = 1 + torch.arange(LM_BATCH * n, device=dev).reshape(n, -1).t()
+        cache["block_table"][:, :n] = ids
+    else:
+        cache = api.init_slot_cache(cfg, LM_BATCH, LM_MAX_LEN,
+                                    kv=eng.scfg.kv_cache, device=dev)
     cache["len"].fill_(pos)
     tok = torch.zeros((LM_BATCH, 1), dtype=torch.long, device=dev)
     step = lambda: eng.decode(eng.params, tok, cache)     # noqa: E731
@@ -2312,7 +2595,7 @@ def lm_breakdown(torch, label, eng, cfg, dev, pos=128, reps=5,
           f"logits ({logits.numel() * 4 / 1e6:.2f} MB) to the host "
           f"{copy_ms:.4f} ms, the greedy pick of its {LM_BATCH} rows "
           f"{pick_ms:.4f} ms")
-    if cfg.family != "dense":
+    if cfg.family != "dense" or eng.paged:
         return
     for b in LM_PREFILL_TIMED:
         graph = eng._graphs[("prefill", b)]
@@ -2362,8 +2645,8 @@ def phase_ssm(torch, K, card, rng, dev="cuda", cfg=None, n_req=SSM_REQUESTS,
     del params                  # the engine holds the cast copy it serves
     sync(torch, dev)
     t_init = time.perf_counter() - t0
-    got, done, wall = serve_lm(torch, K, eng, prompts, new_tokens, "ssm",
-                               dev)
+    got, done, wall, _ = serve_lm(torch, K, eng, prompts, new_tokens,
+                                  "ssm", dev)
     st = eng.stats
     check(st["prefills"] == n_req, f"ssm: {st['prefills']} prefills")
     want = dict.fromkeys(got, 0)
@@ -2387,8 +2670,8 @@ def phase_ssm(torch, K, card, rng, dev="cuda", cfg=None, n_req=SSM_REQUESTS,
     # the same engine op by op (it shares the cast weights) on the first
     # requests: the captured step changes no token
     eager = Engine(cfg, eng.params, scfg, jit=False)
-    _, done_e, wall_e = serve_lm(torch, K, eager, prompts[:n_eager],
-                                 new_tokens, "ssm jit=False", dev)
+    _, done_e, wall_e, _ = serve_lm(torch, K, eager, prompts[:n_eager],
+                                    new_tokens, "ssm jit=False", dev)
     check([r.out_tokens for r in done_e]
           == [r.out_tokens for r in done[:n_eager]],
           "ssm: jit=False token streams differ from the captured engine's")
@@ -2888,8 +3171,9 @@ def main() -> int:
           "over the tuner's float32 Table-2 jobs of that kernel, one launch "
           "each (pool: the tuner's float pool job; library: cuDNN conv2d, "
           "amax, torch.cdist(p=1), torch.matmul, TF32 off); launches are "
-          "summed over the six served CNN runs, the ten LM runs, the ssm "
-          "run, the tuner's run (phase 8) and the five trained plans' "
+          "summed over the six served CNN runs, phase 6's LM runs "
+          "(contiguous, paged, static), the ssm run, the tuner's run "
+          "(phase 8) and the five trained plans' "
           f"forwards and profiles (phase 9); card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -3,7 +3,7 @@
 The port's own copy of the JAX package's stdlib-only
 ``repro/faults/inject.py``, cut to what the port's serving layer uses: its
 seams (``cnn.batch_round``, ``engine.prefill``, ``engine.decode_round``,
-``tune.cache_load``),
+``blockpool.alloc``, ``tune.cache_load``),
 the ``raise`` and ``corrupt`` kinds, and firing on a window of hit
 numbers.
 
@@ -44,6 +44,7 @@ from repro_torch.obs import metrics as _obs_metrics
 SITES = frozenset({
     "engine.prefill",        # LM Engine admission prefill (per attempt)
     "engine.decode_round",   # LM Engine decode round (per attempt)
+    "blockpool.alloc",       # paged-KV BlockPool.alloc (per call)
     "cnn.batch_round",       # CNNEngine batch round (per attempt)
     "tune.cache_load",       # tuner cache file read (repro_torch.tune)
 })

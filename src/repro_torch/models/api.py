@@ -1,18 +1,25 @@
-"""Model API of the serve path: init, prefill, decode and the per-slot KV
-cache helpers of continuous batching.
+"""Model API of the serve path: init, prefill (whole prompts, or a suffix
+against cached prefix K/V), decode and the KV cache helpers of continuous
+batching, contiguous and paged.
 
-Port of the dense and ssm, contiguous-cache part of
-``repro/models/api.py``. The continuous-batching engine keeps ONE live
-batched decode cache with per-slot lengths and splices freshly prefilled
-requests into free slots between decode rounds; these helpers own the
+Port of the dense and ssm part of ``repro/models/api.py``. The
+continuous-batching engine keeps ONE live batched decode cache with
+per-slot lengths and splices freshly prefilled requests into free slots
+between decode rounds; these helpers own the
 cache layout (:func:`slot_batch_axes`): (L, B, S, Hkv, D) K and V for the
 dense family (in the cache dtype, or int8 codes with (L, B, S, Hkv)
 float32 ``k_scale`` / ``v_scale``), (L, B, K-1, d_inner) conv and (L, B,
 d_inner, d_state) ssm state for the ssm family, plus a (B,) ``"len"``
-vector. Unlike the JAX helpers, which return new arrays, the slot writes
-here update the live cache in place and return a dict holding the same
-tensors, so a captured decode step that reads the cache by address stays
-valid across them.
+vector. The paged layout (:func:`init_paged_cache`, dense family only)
+keeps K/V in pools of fixed-size pages instead, (L, NB, bs, Hkv, D) each
+(int8 codes with (L, NB, bs, Hkv) scale pools beside them), plus a (B,
+max_len // bs) int32 ``"block_table"`` shared by every layer and the (B,)
+``"len"``; page 0 is the reserved garbage page that a retired slot's
+zeroed table row writes into. The engine owns the pages (its
+``BlockPool``) and the table on the host. Unlike the JAX helpers, which
+return new arrays, the slot and page writes here update the live cache in
+place and return a dict holding the same tensors, so a captured decode
+step that reads the cache by address stays valid across them.
 """
 from __future__ import annotations
 
@@ -56,6 +63,29 @@ def prefill_fn(cfg: ModelConfig, max_len: int, *, attn_impl="flash",
                          attn_impl=attn_impl,
                          prompt_lens=batch.get("prompt_lens"),
                          precision=precision, attn_block_k=attn_block_k)
+    return fn
+
+
+def prefill_suffix_fn(cfg: ModelConfig, *, attn_impl="flash",
+                      attn_block_k: int = 256, precision: str = "float"):
+    """JAX's prefix-cache hit path: only the suffix of a prompt runs, against
+    gathered prefix K/V (:func:`~repro_torch.models.transformer.
+    prefill_suffix`). The prefix length is ``batch["prefix_k"].shape[2]``.
+    Dense layer stacks only."""
+    if cfg.family in ("ssm", "hybrid", "encdec"):
+        raise NotImplementedError(
+            "prefill_suffix covers attention-family dense layer stacks only")
+    T.check_family(cfg, "prefill_suffix_fn")
+    T.check_precision(precision)
+
+    def fn(params, batch):
+        pk = batch["prefix_k"]
+        return T.prefill_suffix(params, batch["tokens"], pk,
+                                batch["prefix_v"], pk.shape[2], cfg,
+                                suffix_lens=batch["suffix_lens"],
+                                attn_impl=attn_impl,
+                                attn_block_k=attn_block_k,
+                                precision=precision)
     return fn
 
 
@@ -113,8 +143,10 @@ def init_slot_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def cache_clear(live: dict) -> dict:
-    """Every slot of a live cache back to :func:`init_slot_cache`'s state,
-    in place: zero lengths, K/V and recurrent state, int8 scales of one."""
+    """Every slot of a live cache back to :func:`init_slot_cache`'s (or a
+    paged arena to :func:`init_paged_cache`'s) state, in place: zero
+    lengths, K/V (pools), recurrent state and block table, int8 scales of
+    one."""
     for key, t in live.items():
         t.fill_(1 if key.endswith("_scale") else 0)
     return live
@@ -146,3 +178,118 @@ def cache_free_slot(live: dict, slot: int) -> dict:
     recurrent state, so no data moves."""
     live["len"][slot] = 0
     return dict(live)
+
+
+# ------------------------------------------------------------ paged KV pool --
+
+def init_paged_cache(cfg: ModelConfig, batch: int, num_blocks: int,
+                     block_size: int, max_len: int, dtype=torch.bfloat16,
+                     kv: str = "float", device="cuda"):
+    """A paged decode cache: K/V pools, per-slot block tables and lengths,
+    all zero (``kv="int8"``: int8 code pools and float32 scale pools of
+    ones, the same per-token quantization as the contiguous int8 cache).
+    Dense caches only; ``block_size`` must divide ``max_len``, so the
+    gathered view spans exactly ``max_len`` positions."""
+    if kv not in ("float", "int8"):
+        raise ValueError(f"init_paged_cache: kv must be 'float' or 'int8', "
+                         f"got {kv!r}")
+    if cfg.family in ("ssm", "hybrid", "encdec"):
+        raise NotImplementedError(
+            "paged KV cache only covers attention-family dense caches")
+    if max_len % block_size:
+        raise ValueError(f"init_paged_cache: block_size={block_size} must "
+                         f"divide max_len={max_len}")
+    if num_blocks < 2:
+        raise ValueError("init_paged_cache: need >= 2 blocks (page 0 is the "
+                         "reserved garbage page)")
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads,
+             cfg.head_dim)
+    if kv == "int8":
+        cache = {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                 "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                 "k_scale": torch.ones(shape[:-1], dtype=torch.float32,
+                                       device=dev),
+                 "v_scale": torch.ones(shape[:-1], dtype=torch.float32,
+                                       device=dev)}
+    else:
+        cache = {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                 "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    cache["block_table"] = torch.zeros((batch, max_len // block_size),
+                                       dtype=torch.int32, device=dev)
+    cache["len"] = torch.zeros((batch,), dtype=torch.int32, device=dev)
+    return cache
+
+
+def _page_ids(live: dict, block_ids) -> torch.Tensor:
+    return torch.as_tensor(block_ids, dtype=torch.long,
+                           device=live["k"].device)
+
+
+def _scatter_pages(live: dict, key: str, seg, ids):
+    """Write a (L, n * bs, ...) contiguous segment into pages ``ids`` of
+    pool ``key``, in place (quantized on the way into an int8 pool)."""
+    L, n, bs = seg.shape[0], ids.numel(), live["k"].shape[2]
+    if key + "_scale" in live:
+        seg, scale = A.quantize_kv(seg)       # (L,n*bs,Hkv,D) -> (L,n*bs,Hkv)
+        live[key + "_scale"][:, ids] = scale.reshape(
+            (L, n, bs) + scale.shape[2:])
+    live[key][:, ids] = seg.reshape((L, n, bs) + seg.shape[2:]).to(
+        live[key].dtype)
+
+
+def paged_write_prompt(cfg: ModelConfig, live: dict, new: dict, block_ids,
+                       *, src: int = 0, skip_blocks: int = 0) -> dict:
+    """Scatter row ``src`` of a freshly prefilled contiguous cache into
+    pool pages ``block_ids`` of a paged cache, in place: the pages of
+    prompt blocks ``skip_blocks .. skip_blocks + len(block_ids) - 1`` (a
+    prefix hit skips its shared leading pages). An int8 pool gets the codes
+    and scales :func:`cache_write_slot` would write at the same positions.
+    The caller keeps the block table and ``"len"``."""
+    T.check_family(cfg, "paged_write_prompt")
+    if not len(block_ids):
+        return dict(live)
+    ids = _page_ids(live, block_ids)
+    bs = live["k"].shape[2]
+    lo = skip_blocks * bs
+    for key in ("k", "v"):
+        row = new[key].select(1, src)                    # (L, S, Hkv, D)
+        _scatter_pages(live, key, row[:, lo:lo + ids.numel() * bs], ids)
+    return dict(live)
+
+
+def paged_write_kv(live: dict, k_new, v_new, block_ids, *,
+                   src: int = 0) -> dict:
+    """Scatter freshly computed K/V rows, (L, B, S, Hkv, D) (the suffix K/V
+    of :func:`prefill_suffix_fn`), into pool pages ``block_ids`` in place,
+    the sequence zero-padded or cut to the pages' span; positions past the
+    real length hold pad K/V, masked as in the contiguous cache."""
+    if not len(block_ids):
+        return dict(live)
+    ids = _page_ids(live, block_ids)
+    span = ids.numel() * live["k"].shape[2]
+    for key, new in (("k", k_new), ("v", v_new)):
+        row = new.select(1, src)                         # (L, S, Hkv, D)
+        if row.shape[1] < span:
+            row = torch.nn.functional.pad(
+                row, (0, 0, 0, 0, 0, span - row.shape[1]))
+        _scatter_pages(live, key, row[:, :span], ids)
+    return dict(live)
+
+
+def paged_gather_prefix(live: dict, block_ids):
+    """Pages ``block_ids`` gathered into contiguous (L, 1, n * bs, Hkv, D)
+    prefix K/V for :func:`prefill_suffix_fn`. Float pools only: a
+    dequantized int8 prefix is not the float prefix its donor computed, so
+    an int8 hit shares storage and recomputes the prompt instead."""
+    if "k_scale" in live:
+        raise NotImplementedError(
+            "paged_gather_prefix: int8 pools share storage only — recompute "
+            "the prompt and skip the shared-page writes")
+    ids = _page_ids(live, block_ids)
+    outs = []
+    for key in ("k", "v"):
+        g = live[key][:, ids]                            # (L, n, bs, Hkv, D)
+        outs.append(g.reshape((g.shape[0], 1, g.shape[1] * g.shape[2])
+                              + g.shape[3:]))
+    return tuple(outs)

@@ -1,5 +1,6 @@
-"""GQA attention for serving: prefill (``"full"`` and ``"flash"``) and
-one-token decode against a contiguous KV cache, float or int8.
+"""GQA attention for serving: prefill (``"full"``, ``"flash"`` and
+``"flash_tri"``) and one-token decode against a contiguous or a paged KV
+cache, float or int8.
 
 Port of the inference half of ``repro/models/attention.py``. Attention is
 not a TPU kernel in the JAX package, so it is plain PyTorch here. Layouts
@@ -14,6 +15,15 @@ the head_dim vector (:func:`quantize_kv`); per-token scales mean a slot
 refill or retirement never re-scales a neighbouring position. Decode
 dequantizes on read (:func:`decode_attention_q8`), so the attention
 arithmetic is the float path's on the same codes.
+
+The paged KV cache keeps K/V in a pool of fixed-size pages, (NB, bs, Hkv,
+D) per layer, and each decode slot an ordered block table of ``max_len //
+bs`` page ids. Gathering the pool by table (:func:`gather_kv_blocks`)
+rebuilds exactly the contiguous cache a slot would own at every position
+below its length; table entries past the allocated span name the reserved
+garbage page 0, whose positions are at or past the length and masked to
+an exact-zero softmax weight. So the paged decode variants equal their
+contiguous counterparts bitwise, provided ``bs`` divides ``max_len``.
 """
 from __future__ import annotations
 
@@ -87,16 +97,38 @@ def flash_attention(q, k, v, *, causal: bool, block_k: int = 256,
     return o.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(q.dtype)
 
 
+def flash_attention_tri(q, k, v, *, block_k: int = 256, n_chunks: int = 8):
+    """Causal flash with a static triangle schedule: q splits into
+    ``n_chunks`` chunks (the largest count up to it that divides Sq), and
+    chunk i visits only the KV prefix [0, (i+1) * Sq / n_chunks), so the
+    fully masked upper blocks of the plain schedule are never computed."""
+    sq = q.shape[1]
+    nc = n_chunks
+    while sq % nc:
+        nc -= 1
+    cq = sq // nc
+    outs = []
+    for i in range(nc):
+        kv_end = (i + 1) * cq
+        outs.append(flash_attention(q[:, i * cq:kv_end], k[:, :kv_end],
+                                    v[:, :kv_end], causal=True,
+                                    block_k=min(block_k, kv_end),
+                                    q_offset=i * cq))
+    return torch.cat(outs, dim=1)
+
+
 def attention(q, k, v, *, causal: bool, impl: str = "full", q_offset=0,
               block_k: int = 256):
-    if impl == "flash":
+    """``"flash_tri"`` takes the triangle schedule for causal
+    self-attention (Sq == Sk) and the plain flash scan otherwise, as the
+    JAX package does; any other ``impl`` than the flash ones is
+    ``"full"``."""
+    if impl == "flash_tri" and causal and q.shape[1] == k.shape[1]:
+        return flash_attention_tri(q, k, v, block_k=block_k)
+    if impl in ("flash", "flash_tri"):
         return flash_attention(q, k, v, causal=causal, q_offset=q_offset,
                                block_k=block_k)
-    if impl == "full":
-        return full_attention(q, k, v, causal=causal, q_offset=q_offset)
-    raise NotImplementedError(
-        f"attention impl {impl!r} is not ported; the port has 'full' and "
-        "'flash' (ROADMAP.md, queue A)")
+    return full_attention(q, k, v, causal=causal, q_offset=q_offset)
 
 
 def decode_attention(q, k_cache, v_cache, cache_len):
@@ -142,3 +174,34 @@ def decode_attention_q8(q, k_cache, v_cache, k_scale, v_scale, cache_len):
     k = dequantize_kv(k_cache, k_scale, q.dtype)
     v = dequantize_kv(v_cache, v_scale, q.dtype)
     return decode_attention(q, k, v, cache_len)
+
+
+# ----------------------------------------------------------- paged KV cache --
+
+def gather_kv_blocks(pool, block_table):
+    """pool: (NB, bs, ...); block_table: (B, nb) int -> (B, nb * bs, ...):
+    row i is slot i's logical cache, page ``block_table[i, j]`` holding
+    positions [j * bs, (j + 1) * bs)."""
+    g = pool[block_table.long()]                   # (B, nb, bs, ...)
+    return g.reshape((g.shape[0], g.shape[1] * g.shape[2]) + g.shape[3:])
+
+
+def decode_attention_paged(q, k_pool, v_pool, block_table, cache_len):
+    """:func:`decode_attention` over one layer's paged pools, (NB, bs, Hkv,
+    D) each: the gathered view equals the contiguous cache below each
+    row's length, and so does the output, bitwise."""
+    k = gather_kv_blocks(k_pool, block_table)
+    v = gather_kv_blocks(v_pool, block_table)
+    return decode_attention(q, k, v, cache_len)
+
+
+def decode_attention_paged_q8(q, k_pool, v_pool, k_scale_pool, v_scale_pool,
+                              block_table, cache_len):
+    """:func:`decode_attention_q8` over int8 paged pools: int8 (NB, bs, Hkv,
+    D) codes and (NB, bs, Hkv) float32 scales, gathered by the block table,
+    then dequantized on read."""
+    k = gather_kv_blocks(k_pool, block_table)
+    v = gather_kv_blocks(v_pool, block_table)
+    ks = gather_kv_blocks(k_scale_pool, block_table)
+    vs = gather_kv_blocks(v_scale_pool, block_table)
+    return decode_attention_q8(q, k, v, ks, vs, cache_len)

@@ -14,10 +14,13 @@ D) plus ``"len"``: a (B,) vector of per-slot lengths, or a scalar for a
 plain prefill. K/V are in the cache dtype, or int8 codes with
 ``{"k_scale", "v_scale"}`` of (L, B, S, Hkv) float32 beside them (the int8
 KV cache, which prefill never builds: ``api.cache_write_slot`` quantizes
-a prefilled row on the way in). Decode writes each row's new K/V into the
-cache IN PLACE at that row's own length (eager PyTorch would otherwise
-copy the whole cache every step); the returned dict holds the same
-tensors, and a new ``"len"``. An ssm
+a prefilled row on the way in). Or it is a paged cache (``api.
+init_paged_cache``): pools of (L, NB, bs, Hkv, D) pages (int8 with scale
+pools, or float) and a (B, S / bs) ``"block_table"``, a row's position p
+living at offset p % bs of page ``block_table[row, p // bs]``. Decode
+writes each row's new K/V into the cache IN PLACE at that row's own
+length (eager PyTorch would otherwise copy the whole cache every step);
+the returned dict holds the same tensors, and a new ``"len"``. An ssm
 (Mamba) model's state is ``{"conv"}`` (L, B, K-1, d_inner) in the cache
 dtype and ``{"ssm"}`` (L, B, d_inner, d_state) in float32, plus
 ``"len"``; decode overwrites it in place too. Its prefill runs the
@@ -30,9 +33,14 @@ serving engine — ``"int8"`` / ``"w4a8"`` through the ``matmul_q8`` /
 their plain versions (the JAX package's ``"int8-xla"``); those need the
 quantized ``"qmlp"`` tree beside ``"mlp"`` in each layer.
 
+:func:`prefill_suffix` is JAX's prefix-hit prefill: only a prompt's
+suffix runs, against its prefix's cached K/V. Bitwise the full prefill on
+the host; the port's engine serves no hit with it (on a card a suffix's
+rows do not get the bits the whole prompt's get).
+
 Not ported yet, and raising ``NotImplementedError``: the moe, hybrid and
-encdec families, the paged KV cache, training (ROADMAP.md, queue A). The
-ssm family runs in ``"float"`` precision only, as in the JAX package.
+encdec families, training (ROADMAP.md, queue A). The ssm family runs in
+``"float"`` precision only, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -184,15 +192,17 @@ def attn_forward(lp, x, cfg: ModelConfig, cdt, *, impl: str, q_offset=0,
 
 
 def attn_decode(lp, x, cfg: ModelConfig, cdt, k_cache, v_cache, cache_len,
-                kv_scales=None):
+                kv_scales=None, lockstep: bool = False):
     """One decode step against one layer's cache, (B,S,Hkv,D) each.
 
     ``cache_len`` is a (B,) vector: row i writes its new K/V at position
     ``cache_len[i]`` (in place) and attends its own prefix. A row whose
-    length is past the end of the cache writes nothing. ``kv_scales=
-    (k_scale, v_scale)``, each (B,S,Hkv) float32, marks an int8 cache:
-    the new K/V row is quantized on write at its own position (its scale
-    beside it) and the cache is dequantized on read."""
+    length is past the end of the cache writes nothing; with ``lockstep``
+    (a scalar length, the static scheduler's) it writes at the last
+    position instead, as JAX's clamped ``dynamic_update_slice`` does.
+    ``kv_scales=(k_scale, v_scale)``, each (B,S,Hkv) float32, marks an
+    int8 cache: the new K/V row is quantized on write at its own position
+    (its scale beside it) and the cache is dequantized on read."""
     b = x.shape[0]
     s = k_cache.shape[1]
     q, k, v = _qkv(lp, x, cfg, cdt, cache_len[:, None])
@@ -205,14 +215,52 @@ def attn_decode(lp, x, cfg: ModelConfig, cdt, k_cache, v_cache, cache_len,
         writes = [(k_cache, kq), (v_cache, vq), (kv_scales[0], ks),
                   (kv_scales[1], vs)]
     for cache, new in writes:
-        lv = live.reshape((b,) + (1,) * (cache.dim() - 2))
-        cache[rows, pos] = torch.where(lv, new[:, 0].to(cache.dtype),
-                                       cache[rows, pos])
+        new = new[:, 0].to(cache.dtype)
+        if not lockstep:
+            lv = live.reshape((b,) + (1,) * (cache.dim() - 2))
+            new = torch.where(lv, new, cache[rows, pos])
+        cache[rows, pos] = new
     if kv_scales is not None:
         o = A.decode_attention_q8(q, k_cache, v_cache, *kv_scales,
                                   cache_len + 1)
     else:
         o = A.decode_attention(q, k_cache, v_cache, cache_len + 1)
+    return o.reshape(b, 1, cfg.n_heads * cfg.head_dim) @ lp["wo"].to(cdt)
+
+
+def attn_decode_paged(lp, x, cfg: ModelConfig, cdt, k_pool, v_pool,
+                      block_table, cache_len, scale_pools=None):
+    """One decode step against one layer's paged pools, (NB, bs, Hkv, D)
+    each, with ``block_table`` (B, S / bs) and ``cache_len`` (B,).
+
+    Row i writes its new K/V in place into page ``block_table[i,
+    cache_len[i] // bs]`` at offset ``cache_len[i] % bs``, then attends the
+    pages gathered by its table, which equal its contiguous cache below
+    its length. A retired row (length 0, zeroed table row) writes into the
+    garbage page 0. ``scale_pools=(k_scale_pool, v_scale_pool)``, each
+    (NB, bs, Hkv) float32, marks int8 pools: quantize on write at the
+    page slot, dequantize on read."""
+    b = x.shape[0]
+    bs = k_pool.shape[1]
+    q, k, v = _qkv(lp, x, cfg, cdt, cache_len[:, None])
+    # the engine retires a row at max_len, so a live row's page index is
+    # in the table; the clamp only keeps an idle row's gather in range
+    col = torch.clamp(cache_len // bs, max=block_table.shape[1] - 1)
+    bi = block_table.gather(1, col[:, None].long())[:, 0].long()
+    off = (cache_len % bs).long()
+    writes = [(k_pool, k), (v_pool, v)]
+    if scale_pools is not None:
+        (kq, ks), (vq, vs) = A.quantize_kv(k), A.quantize_kv(v)
+        writes = [(k_pool, kq), (v_pool, vq), (scale_pools[0], ks),
+                  (scale_pools[1], vs)]
+    for pool, new in writes:
+        pool[bi, off] = new[:, 0].to(pool.dtype)
+    if scale_pools is not None:
+        o = A.decode_attention_paged_q8(q, k_pool, v_pool, *scale_pools,
+                                        block_table, cache_len + 1)
+    else:
+        o = A.decode_attention_paged(q, k_pool, v_pool, block_table,
+                                     cache_len + 1)
     return o.reshape(b, 1, cfg.n_heads * cfg.head_dim) @ lp["wo"].to(cdt)
 
 
@@ -261,10 +309,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def _check_cache(cfg: ModelConfig, cache):
-    if "block_table" in cache:
+    if "block_table" in cache and cfg.family != "dense":
         raise NotImplementedError(
-            "decode_step: the paged KV cache is not ported; the port decodes "
-            "a contiguous cache (ROADMAP.md, queue A)")
+            "paged KV decode only covers attention-family dense caches")
     if "k_scale" in cache and cfg.family != "dense":
         raise NotImplementedError(
             "int8 KV decode only covers attention-family dense caches")
@@ -274,8 +321,9 @@ def decode_step(params, token, cache, cfg: ModelConfig, *,
                 precision: str = "float"):
     """One-token serve step. token: (B, 1) int. Returns ``(logits (B,1,V)
     float32, cache)`` with the cache's K/V (an int8 cache: codes and
-    scales; an ssm model: its conv and ssm states) written in place and
-    ``"len"`` a new tensor, advanced by one."""
+    scales; a paged cache: its pools' page slots; an ssm model: its conv
+    and ssm states) written in place and ``"len"`` a new tensor, advanced
+    by one."""
     check_family(cfg, "decode_step")
     check_ssm_precision(cfg, precision, "decode")
     _check_cache(cfg, cache)
@@ -295,13 +343,21 @@ def decode_step(params, token, cache, cfg: ModelConfig, *,
             h = h + y
         h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
         return unembed(params, h, cfg), dict(cache, len=clen + 1)
-    cl = clen.expand(b) if clen.dim() == 0 else clen
+    lockstep = clen.dim() == 0
+    cl = clen.expand(b) if lockstep else clen
     for l, lp in enumerate(_layers(params, cfg)):
         x = rmsnorm(h, lp["ln1"], cfg.norm_eps)
         scales = ((cache["k_scale"][l], cache["v_scale"][l])
                   if "k_scale" in cache else None)
-        h = h + attn_decode(lp["attn"], x, cfg, cdt, cache["k"][l],
-                            cache["v"][l], cl, kv_scales=scales)
+        if "block_table" in cache:
+            a = attn_decode_paged(lp["attn"], x, cfg, cdt, cache["k"][l],
+                                  cache["v"][l], cache["block_table"], cl,
+                                  scale_pools=scales)
+        else:
+            a = attn_decode(lp["attn"], x, cfg, cdt, cache["k"][l],
+                            cache["v"][l], cl, kv_scales=scales,
+                            lockstep=lockstep)
+        h = h + a
         h = h + ffn_forward(lp, rmsnorm(h, lp["ln2"], cfg.norm_eps), cfg,
                             cdt, precision=precision)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
@@ -372,3 +428,50 @@ def _dense_prefill_layers(params, h, cfg: ModelConfig, cdt, cache, attn_impl,
         cache["v"][l, :, :s] = v.to(cache["v"].dtype)
         h = h + f
     return h
+
+
+def prefill_suffix(params, tokens, prefix_k, prefix_v, prefix_len: int,
+                   cfg: ModelConfig, *, suffix_lens, attn_impl: str = "flash",
+                   attn_block_k: int = 256, precision: str = "float"):
+    """Prefill only a prompt's suffix against its cached prefix: the JAX
+    engine's prefix-hit path (module docstring).
+
+    ``tokens`` (B, S_sfx), the right-padded suffix, sits at global
+    positions ``prefix_len ..``; per layer its queries attend the
+    concatenation of the prefix K/V (L, B, prefix_len, Hkv, D) and its own
+    fresh K/V, with ``q_offset=prefix_len``. Causality keeps the prefix's
+    hidden states independent of the suffix, and a fixed ``attn_block_k``
+    keeps the flash schedule of each suffix row the full prompt's, so the
+    logits and suffix K/V are what a prefill of the whole prompt gives
+    (bitwise where the row products do not depend on the row count).
+    Returns ``(last_logits, k_sfx, v_sfx)``, K/V (L, B, S_sfx, Hkv, D) in
+    the compute dtype, for the caller to scatter into its pages. Dense
+    layer stacks only."""
+    check_family(cfg, "prefill_suffix")
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            "prefill_suffix covers attention-family dense layer stacks only")
+    cdt = _cdt(cfg)
+    b, s = tokens.shape
+    h = embed_tokens(params, tokens, cfg, cdt)
+    positions = prefix_len + torch.arange(s, device=tokens.device)[None, :]
+    ks, vs = [], []
+    for l, lp in enumerate(_layers(params, cfg)):
+        x = rmsnorm(h, lp["ln1"], cfg.norm_eps)
+        q, k, v = _qkv(lp["attn"], x, cfg, cdt, positions)
+        o = A.attention(q, torch.cat([prefix_k[l].to(k.dtype), k], dim=1),
+                        torch.cat([prefix_v[l].to(v.dtype), v], dim=1),
+                        causal=True, impl=attn_impl, q_offset=prefix_len,
+                        block_k=attn_block_k)
+        h = h + o.reshape(b, s, cfg.n_heads * cfg.head_dim) \
+            @ lp["attn"]["wo"].to(cdt)
+        h = h + ffn_forward(lp, rmsnorm(h, lp["ln2"], cfg.norm_eps), cfg,
+                            cdt, precision=precision)
+        ks.append(k)
+        vs.append(v)
+    h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    sl = torch.as_tensor(suffix_lens, dtype=torch.int32,
+                         device=tokens.device)
+    idx = (sl.long() - 1)[:, None, None].expand(b, 1, h.shape[-1])
+    return (unembed(params, torch.gather(h, 1, idx), cfg), torch.stack(ks),
+            torch.stack(vs))

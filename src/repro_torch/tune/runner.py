@@ -84,12 +84,13 @@ SECTOR, DEFAULT_BLOCKS = 32, 128
 ISSUE_PER_CLK, CLOCK_HZ, WARPS_TO_HIDE = 4, 1.98e9, 8
 SMEM_PER_SM, STAGE_INSTR = 228 * 1024, 20
 #: profiler sessions tried before the device timer gives up, the pause
-#: after a session that recorded nothing (doubled each time), the fewest
-#: calls a session times, and the sessions each measurement merges. On the
-#: card's machine (an H100 under torch.profiler's CUPTI tracing) a session
-#: now and then records none, or only part, of the device activity it ran,
-#: more often late in a long process
-PROFILE_TRIES, PROFILE_PAUSE_S, PROFILE_MIN_CALLS = 8, 0.05, 20
+#: after a session that recorded nothing (doubled each time, up to 32x),
+#: the fewest calls a session times, and the sessions each measurement
+#: merges. On the card's machine (an H100 under torch.profiler's CUPTI
+#: tracing) a session now and then records none, or only part, of the
+#: device activity it ran, more often late in a long process: 800-930
+#: lossy sessions a chip_smoke.py run, and once 8 empty ones in a row
+PROFILE_TRIES, PROFILE_PAUSE_S, PROFILE_MIN_CALLS = 16, 0.05, 20
 PROFILE_SESSIONS = 2
 
 
@@ -427,7 +428,7 @@ def device_kernels(fn: Callable, *args,
                 if e.device_type == torch.autograd.DeviceType.CUDA}
         if not rows:
             _obs_metrics.counter("tune.profile.lost_sessions").inc()
-            time.sleep(PROFILE_PAUSE_S * 2 ** i)
+            time.sleep(PROFILE_PAUSE_S * 2 ** min(i, 5))
             continue
         sessions.append(rows)
         if len(sessions) == PROFILE_SESSIONS:

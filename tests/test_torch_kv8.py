@@ -311,7 +311,8 @@ def test_int8_kv_gates_keep_jax_messages(lm):
     with pytest.raises(NotImplementedError, match="int8 KV decode"):
         T.decode_step({}, torch.zeros((2, 1), dtype=torch.long), cache, ssm)
     static = ServeConfig(kv_cache="int8", scheduler="static")
-    with pytest.raises(ValueError, match="needs scheduler='continuous'"):
+    with pytest.raises(NotImplementedError,
+                       match="use scheduler='continuous'"):
         Engine(cfg, params, static)
     assert any("continuous" in m for m in check_serve_config(static, cfg))
     with pytest.raises(ValueError, match="kv must be"):

@@ -556,16 +556,23 @@ def test_engine_corrupt_fault_is_recorded(lm):
     assert eng.poisoned_uids == {0, 1}
 
 
-# ----------------------------------------------------- not ported, invalid --
+# ------------------------------------- static, paged, flash_tri; invalid --
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(scheduler="static"), "static"),
-    (dict(kv_layout="paged"), "paged"),
-    (dict(attn_impl="flash_tri"), "flash_tri")])
-def test_engine_raises_for_what_is_not_ported(lm, kw, match):
-    _, _, cfg, params = lm
-    with pytest.raises(NotImplementedError, match=match):
-        Engine(cfg, params, ServeConfig(**kw))
+@pytest.mark.parametrize("kw", [
+    dict(scheduler="static"), dict(kv_layout="paged", kv_block_size=8),
+    dict(attn_impl="flash_tri")], ids=["static", "paged", "flash_tri"])
+def test_engine_serves_static_paged_and_flash_tri(lm, kw):
+    """The scheduler, KV layout and prefill attention that JAX's engine
+    also serves build and serve the streams of JAX's engine under the same
+    parameters (tests/test_torch_static.py and tests/test_torch_paged.py
+    hold each in depth)."""
+    jcfg, jparams, cfg, params = lm
+    jdone = _drain(JEngine(jcfg, jparams, JServeConfig(
+        max_batch=2, max_len=32, **kw)), _requests(JRequest, SPECS))
+    eng = Engine(cfg, params, ServeConfig(max_batch=2, max_len=32, **kw))
+    done = _drain(eng, _requests(Request, SPECS))
+    assert [r.status for r in done] == ["ok"] * len(SPECS)
+    assert [r.out_tokens for r in done] == [r.out_tokens for r in jdone]
 
 
 @pytest.mark.parametrize("family", ["ssm", "hybrid", "moe", "encdec"])
@@ -586,13 +593,38 @@ def test_other_families_raise(lm, family):
         T.init_lm(other, torch.Generator().manual_seed(0))
 
 
-def test_cache_helpers_raise_for_unported_layouts(lm):
-    _, _, cfg, params = lm
-    cache = api.init_slot_cache(cfg, 2, 16, device="cpu")
-    cache["block_table"] = torch.zeros((2, 1), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="paged"):
-        T.decode_step(params, torch.zeros((2, 1), dtype=torch.long), cache,
-                      cfg)
+def test_paged_decode_step_and_unregistered_config(lm):
+    """``decode_step`` decodes a paged cache (a block table): the logits
+    of JAX's decode over the same pages; a config the port has not
+    registered is a KeyError naming the registered ones."""
+    jcfg, jparams, cfg, params = lm
+    toks = np.array([[4, 5, 6, 0], [7, 8, 9, 10]], np.int32)
+    lens = [3, 4]
+    cache = api.init_paged_cache(cfg, 2, 5, 4, 16, device="cpu")
+    jcache = j_api.init_paged_cache(jcfg, 2, 5, 4, 16)
+    _, fresh = T.prefill(params, torch.from_numpy(toks).long(), cfg, 16,
+                         prompt_lens=lens)
+    _, jfresh = j_api.prefill_fn(jcfg, 16)(
+        jparams, {"tokens": jnp.asarray(toks),
+                  "prompt_lens": jnp.asarray(lens, jnp.int32)})
+    table = np.array([[2, 0, 0, 0], [4, 1, 0, 0]], np.int32)
+    for i in range(2):
+        api.paged_write_prompt(cfg, cache, fresh, [int(table[i, 0])], src=i)
+        jcache = j_api.paged_write_prompt(jcfg, jcache, jfresh,
+                                          [int(table[i, 0])], src=i)
+    cache["block_table"].copy_(torch.from_numpy(table))
+    cache["len"].copy_(torch.tensor(lens, dtype=torch.int32))
+    jcache = dict(jcache, block_table=jnp.asarray(table),
+                  len=jnp.asarray(lens, jnp.int32))
+    tok = np.array([[11], [12]], np.int32)
+    tl, tc = T.decode_step(params, torch.from_numpy(tok).long(), cache, cfg)
+    jl, jc = j_api.decode_fn(jcfg)(jparams, jnp.asarray(tok), jcache)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-3,
+                               atol=1e-4)
+    assert tc["len"].tolist() == [4, 5]
+    np.testing.assert_allclose(tc["k"].float().numpy(),
+                               np.asarray(jc["k"], np.float32),
+                               rtol=1e-2, atol=1e-2)
     with pytest.raises(KeyError, match="qwen2-0.5b"):
         get_config("jamba-v0.1-52b")
 
