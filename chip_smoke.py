@@ -37,7 +37,10 @@ Phases, one line each, any failure exits non-zero:
               beside their earlier times; the LM's matmul_q8 and
               matmul_w4 at Qwen2-0.5B's decode shapes (8x896x4864,
               8x4864x896), prefill shapes (16, 32, 64 and 128 x896x4864,
-              64x4864x896) and ragged ones
+              64x4864x896), granite-3-2b's decode shapes (8x2048x8192,
+              8x8192x2048; summed over its step's 120 launches on a line
+              of their own) and prefill shapes (16, 32, 64 and 128
+              x2048x8192 and x8192x2048) and ragged ones
               (K = 45, 33 and 4864 with N = 37 and 100, M = 1, 5, 13, 17
               and 70), operands at an odd address, requant shifts -2 to
               16, W4 nibbles -8 and +7 with every group shift at 4; the
@@ -210,12 +213,48 @@ Phases, one line each, any failure exits non-zero:
               int8 plan at B=256 (a line per row: measured us, MACs, the
               MCU latency and energy model); steps/s, training images/s
               and the float / int8 top-1 agreement (printed, not gated).
+10. families — the moe, vlm and further dense configs, seeded random
+              weights made on the card after phase 7's model is freed,
+              each model freed before the next is made, all served by
+              Engine(max_batch=8, max_len=256) on phase 6's prompts taken
+              into each model's vocabulary:
+              granite-moe-1b-a400m at full width and depth (24 layers, 32
+              experts top-8, 1.33 B parameters) in "float", captured, over
+              the contiguous, paged and int8 KV caches (every status ok;
+              the paged and int8 streams' agreement with contiguous
+              printed), its first 8 requests again with jit=False
+              (streams equal; the (token, expert) pairs a decode step
+              drops at capacity printed), precision="int8" refused with
+              JAX's message and one decode step's breakdown;
+              internvl2-1b at full width (0.49 B), served text-only in
+              "float", "int8", "int8-torch", "w4a8" and "w4a8-torch",
+              captured (kernel streams equal to the -torch ones,
+              matmul_q8 / matmul_w4 exactly 72 times a prefill and a
+              decode step), one prefill_fn call with 256 patch embeddings
+              ahead of a prompt then 16 decode steps, and the gate: a
+              prefill whose embeds are the embeddings of a prompt's first
+              tokens, then its other tokens, bitwise equal (logits and
+              cache) to the prefill of the whole prompt; granite-3-2b at
+              full width (2.53 B) in the same five precisions (kernel
+              streams equal to the -torch ones, 120 launches a prefill
+              and a step); granite-34b (33.96 B) and qwen1.5-32b (35.20
+              B) with bf16 weights in "float", each after its reckoned
+              peak (weights, the float32 copy of the unembedding that
+              unembed makes, held by the eager allocator and the graph
+              pool, the KV cache) is printed, at full depth where 4 GB of
+              the card stays free under it, else at the most layers that
+              leave it (the cut printed): 8 requests of 16 new tokens,
+              captured, the first 2 again with jit=False (streams
+              equal), the peak memory printed.
 
-The second-to-last line is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+The phases run in the order 1-5, 8, 9, 6, 7, 10; each one's wall time is
+printed as it ends ([time]). The second-to-last
+line is a JSON object with one entry per kernel; the last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -608,7 +647,8 @@ def kernel_cases(torch, K, dev, rng):
     def mm(label, m, k, n, shift=9, act=None, weight=None, w4_mode=False,
            all_max=False, offset=0):
         """One matmul case; ``weight`` is how often the shape runs per
-        Qwen2-0.5B decode step (0: timed, not summed; None: bitwise only);
+        Qwen2-0.5B decode step (0: timed, not summed; None: bitwise only;
+        (model, n): n times per decode step of that model, summed apart);
         ``offset``: every operand that many bytes past an aligned address
         (the kernel's bytewise staging)."""
         a = i8((m, k))
@@ -869,12 +909,20 @@ def w4_cases(conv, dw, shift_conv, add_conv):
              x_offset=1, **packed)
 
 
+#: phase 10's granite-3-2b: its FFN's layers, d_model and d_ff; its decode
+#: step's matmuls are summed apart from Qwen2-0.5B's into their own line
+GRANITE_FFN = ("granite-3-2b", 40, 2048, 8192)
+
+
 def matmul_cases(mm):
     """The LM FFN's matmuls at Qwen2-0.5B's widths: the decode shapes
     (timed and summed over one decode step's 72 launches), prefill shapes
-    of 32, 64 and 128 tokens (timed), and ragged, odd-K and shift cases (bitwise
-    only), in both modes."""
+    of 16, 32, 64 and 128 tokens (timed), and ragged, odd-K and shift
+    cases (bitwise only), in both modes; then at granite-3-2b's widths the
+    decode shapes (timed and summed over its step's 120 launches, on a
+    line of their own) and the prefill shapes (timed)."""
     layers, d, ff = 24, 896, 4864
+    g_name, g_layers, g_d, g_ff = GRANITE_FFN
     for w4_mode in (False, True):
         tag = "W4 " if w4_mode else ""
         yield mm(f"{tag}decode gate/up 8x{d}x{ff}", 8, d, ff, shift=14,
@@ -886,6 +934,17 @@ def matmul_cases(mm):
                      shift=14, act="relu", weight=0, w4_mode=w4_mode)
         yield mm(f"{tag}prefill down 64x{ff}x{d}", 64, ff, d, shift=16,
                  weight=0, w4_mode=w4_mode)
+        yield mm(f"{tag}{g_name} decode gate/up 8x{g_d}x{g_ff}", 8, g_d,
+                 g_ff, shift=14, weight=(g_name, 2 * g_layers),
+                 w4_mode=w4_mode)
+        yield mm(f"{tag}{g_name} decode down 8x{g_ff}x{g_d}", 8, g_ff, g_d,
+                 shift=16, weight=(g_name, g_layers), w4_mode=w4_mode)
+        for m in (16, 32, 64, 128):
+            yield mm(f"{tag}{g_name} prefill gate/up {m}x{g_d}x{g_ff}", m,
+                     g_d, g_ff, shift=14, act="relu", weight=0,
+                     w4_mode=w4_mode)
+            yield mm(f"{tag}{g_name} prefill down {m}x{g_ff}x{g_d}", m,
+                     g_ff, g_d, shift=16, weight=0, w4_mode=w4_mode)
         yield mm(f"{tag}ragged 5x45x37 shift -2 relu", 5, 45, 37, shift=-2,
                  act="relu", w4_mode=w4_mode)
         yield mm(f"{tag}odd K 13x33x37 shift 0", 13, 33, 37, shift=0,
@@ -1225,7 +1284,10 @@ def _phase_kernels(torch, K, dev, rng, bw, rates):
         row["shapes"] += 1
         if main is None or main is False:
             continue
-        weight = 1 if main is True else main      # launches per summed unit
+        # launches per summed unit; a (model, n) pair sums into that
+        # model's own line instead of the kernel's row
+        step, weight = main if isinstance(main, tuple) else \
+            (None, 1 if main is True else main)
         bytes_ms, ops_ms = 1e3 * nbytes / bw, 1e3 * n_ops / rates[kind]
         t_k = device_ms(torch, run_k)
         t_p = device_ms(torch, run_p, reps=5)
@@ -1239,20 +1301,34 @@ def _phase_kernels(torch, K, dev, rng, bw, rates):
               f"{'n/a' if t_l is None else f'{t_l:.4f} ms'}  "
               f"(device times; back-to-back wrapper calls {call:.4f} ms "
               f"each)")
-        row["ms"] += weight * t_k
-        row["plain_ms"] += weight * t_p
-        row["bound_ms"] += weight * bound
-        row["bytes_ms"] += weight * bytes_ms
-        row["ops_ms"] += weight * ops_ms
+        summed = row if step is None else row.setdefault(
+            "steps", {}).setdefault(step, dict(
+                ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                bytes_ms=0.0, ops_ms=0.0, launches=0))
+        summed["ms"] += weight * t_k
+        summed["plain_ms"] += weight * t_p
+        summed["bound_ms"] += weight * bound
+        summed["bytes_ms"] += weight * bytes_ms
+        summed["ops_ms"] += weight * ops_ms
+        if step is not None:
+            summed["launches"] += weight
         if not weight:
             continue
-        if t_l is None or row["library_ms"] is None:
-            row["library_ms"] = None
+        if t_l is None or summed["library_ms"] is None:
+            summed["library_ms"] = None
         else:
-            row["library_ms"] += weight * t_l
+            summed["library_ms"] += weight * t_l
     for kernel, row in per_kernel.items():
         print(f"[kernels] {kernel}: {row['shapes']} shapes bitwise equal to "
               f"the plain version")
+        for step, r in row.pop("steps", {}).items():
+            lib = r["library_ms"]
+            by = "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations"
+            print(f"[kernels] {kernel} over one {step} decode step of 8 "
+                  f"slots ({r['launches']} launches): kernel {r['ms']:.4f} "
+                  f"ms, bound {r['bound_ms']:.5f} ms ({by}), plain "
+                  f"{r['plain_ms']:.4f} ms, library "
+                  f"{'n/a' if lib is None else f'{lib:.4f} ms'}")
     return per_kernel
 
 
@@ -2138,22 +2214,13 @@ def phase_lm(torch, K, card, rng, dev="cuda", cfg=None, n_req=LM_REQUESTS,
     """Serve Qwen2-0.5B in every (precision, KV cache) of ``LM_RUNS``,
     captured, and ``LM_EAGER`` again with jit=False on the first
     ``n_eager`` requests; then the other serve paths (:func:`lm_paths`);
-    returns the launch count of every kernel over the runs."""
+    returns the launch count of every kernel over the runs and the
+    prompts."""
     from repro_torch.configs import get_config
-    from repro_torch.models import api
     cfg = cfg or get_config(LM_ARCH)
-    t0 = time.perf_counter()
-    params = api.init_params(cfg, torch.Generator(device=dev)
-                             .manual_seed(SEED), device=dev)
-    sync(torch, dev)
-    n_params = sum(v.numel() for v in _leaves(params))
-    # the config's analytic count leaves out the final norm's d_model
-    check(n_params == cfg.param_count() + cfg.d_model,
-          f"lm: {n_params} parameters, the config counts "
-          f"{cfg.param_count()} + {cfg.d_model}")
+    params, made = make_lm_params(torch, cfg, dev, "lm")
     print(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, {n_params:,} parameters "
-          f"made on the card in {time.perf_counter() - t0:.2f} s")
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, {made}")
     prompts = [rng.integers(0, cfg.vocab, (int(n),)).astype(np.int32)
                for n in rng.integers(prompt[0], prompt[1] + 1, n_req)]
     runner = LMRunner(torch, K, card, cfg, params, dev, new_tokens)
@@ -2189,7 +2256,25 @@ def phase_lm(torch, K, card, rng, dev="cuda", cfg=None, n_req=LM_REQUESTS,
     lm_paths(runner, prompts, n_eager)
     for label, eng in engines.items():
         lm_breakdown(torch, label, eng, cfg, dev)
-    return runner.launches
+    return runner.launches, prompts
+
+
+def make_lm_params(torch, cfg, dev, tag):
+    """Seeded random parameters of ``cfg`` made on ``dev``, their count
+    checked against the config's; returns them and a line's text of their
+    count and time."""
+    from repro_torch.models import api
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, torch.Generator(device=dev)
+                             .manual_seed(SEED), device=dev)
+    sync(torch, dev)
+    n_params = sum(v.numel() for v in _leaves(params))
+    # the config's analytic count leaves out the final norm's d_model
+    check(n_params == cfg.param_count() + cfg.d_model,
+          f"{tag}: {n_params} parameters, the config counts "
+          f"{cfg.param_count()} + {cfg.d_model}")
+    return params, (f"{n_params:,} parameters ({cfg.param_dtype}) made on "
+                    f"the card in {time.perf_counter() - t0:.2f} s")
 
 
 def lm_label(prec, kv="float", layout=""):
@@ -2450,10 +2535,11 @@ def serve_lm(torch, K, eng, prompts, new_tokens, label, dev, warm=None,
     from repro_torch.obs import trace as obs_trace
     from repro_torch.serve import Request
     vocab = eng.cfg.vocab
+    from repro_torch.models.transformer import NOT_DENSE_KV
     buckets = sorted({eng._bucket_len(len(p)) for p in prompts})
     want = graphs
     if warm is None:
-        if eng.cfg.family == "dense":
+        if eng.cfg.family not in NOT_DENSE_KV:
             warm = [np.resize(prompts[0], b) for b in buckets]
             want = 1 + len(buckets)
         else:                   # exact lengths, an eager prefill each
@@ -2530,12 +2616,13 @@ def lm_breakdown(torch, label, eng, cfg, dev, pos=128, reps=5,
     each one's time (CUDA events), the device time of its device
     operations (kernels and memsets, torch.profiler) and their count,
     split into those whose names contain one of ``port`` and everything
-    else, and the idle share. For a dense engine also the captured
-    prefill (the engine's own graph) against the eager one at the buckets
-    ``LM_PREFILL_TIMED``."""
+    else, and the idle share. For an attention-family engine on the
+    contiguous cache also the captured prefill (the engine's own graph)
+    against the eager one at the buckets ``LM_PREFILL_TIMED``."""
     from repro_torch.check.config import paged_num_blocks
     from repro_torch.graph.capture import capture
     from repro_torch.models import api
+    from repro_torch.models.transformer import NOT_DENSE_KV
     if eng.paged:
         # each slot's pages, in an order that interleaves the slots
         bs = eng.scfg.kv_block_size
@@ -2595,7 +2682,7 @@ def lm_breakdown(torch, label, eng, cfg, dev, pos=128, reps=5,
           f"logits ({logits.numel() * 4 / 1e6:.2f} MB) to the host "
           f"{copy_ms:.4f} ms, the greedy pick of its {LM_BATCH} rows "
           f"{pick_ms:.4f} ms")
-    if cfg.family != "dense" or eng.paged:
+    if cfg.family in NOT_DENSE_KV or eng.paged:
         return
     for b in LM_PREFILL_TIMED:
         graph = eng._graphs[("prefill", b)]
@@ -2618,25 +2705,17 @@ def phase_ssm(torch, K, card, rng, dev="cuda", cfg=None, n_req=SSM_REQUESTS,
     ``n_eager`` requests again with jit=False; returns the launch count of
     every kernel in the captured run."""
     from repro_torch.configs import get_config
-    from repro_torch.models import api, mamba
+    from repro_torch.models import mamba
     from repro_torch.models import transformer as T
     from repro_torch.models.blocks import rmsnorm
     from repro_torch.serve import Engine, ServeConfig
     cfg = cfg or get_config(SSM_ARCH)
-    t0 = time.perf_counter()
-    params = api.init_params(cfg, torch.Generator(device=dev)
-                             .manual_seed(SEED), device=dev)
-    sync(torch, dev)
-    n_params = sum(v.numel() for v in _leaves(params))
-    check(n_params == cfg.param_count() + cfg.d_model,
-          f"ssm: {n_params} parameters, the config counts "
-          f"{cfg.param_count()} + {cfg.d_model}")
+    params, made = make_lm_params(torch, cfg, dev, "ssm")
     m = cfg.mamba
     print(f"[ssm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"d_inner {m.expand * cfg.d_model}, d_state {m.d_state}, d_conv "
           f"{m.d_conv}, dt_rank {m.rank(cfg.d_model)}, vocab {cfg.vocab}, "
-          f"{n_params:,} parameters made on the card in "
-          f"{time.perf_counter() - t0:.2f} s")
+          f"{made}")
     prompts = [rng.integers(0, cfg.vocab, (int(n),)).astype(np.int32)
                for n in rng.integers(prompt[0], prompt[1] + 1, n_req)]
     scfg = ServeConfig(max_batch=LM_BATCH, max_len=LM_MAX_LEN)
@@ -2782,6 +2861,284 @@ def ssm_breakdown(torch, eng, cfg, dev, rng, length=SSM_BREAKDOWN_LEN,
               f"{kernel[:100]}")
 
 
+# --------------------------------------------------------------- phase 10 --
+
+#: phase 10: the moe model's (precision, KV cache, layout) runs, captured;
+#: its first LM_EAGER_REQUESTS requests again with jit=False
+MOE_ARCH = "granite-moe-1b-a400m"
+MOE_RUNS = (("float", "float", ""), ("float", "float", "paged"),
+            ("float", "int8", ""))
+#: the JAX engine's message for an integer FFN precision on a moe model
+MOE_INT8_MESSAGE = ("ServeConfig.precision='int8' quantizes dense FFN "
+                    "matmuls; moe/ssm/hybrid/encdec configs are unsupported")
+#: the vlm model (served text-only) and the dense granite-3-2b, captured
+#: in every precision
+VLM_ARCH = "internvl2-1b"
+ALL_PRECISIONS = ("float", "int8", "int8-torch", "w4a8", "w4a8-torch")
+#: decode steps after the vlm model's prefill of its patch embeddings
+VLM_PATCH_DECODE = 16
+#: the two largest dense configs, bf16 weights made on the card: requests,
+#: new tokens, of them again with jit=False
+BIG_ARCHS = ("granite-34b", "qwen1.5-32b")
+BIG_REQUESTS, BIG_NEW, BIG_EAGER = 8, 16, 2
+#: card memory that must stay free under the reckoned peak for a model to
+#: be served at full depth
+BIG_HEADROOM = 4e9
+
+
+def phase_families(torch, K, card, prompts, dev="cuda"):
+    """The moe, vlm and further dense configs (module docstring, 10), each
+    model freed before the next is made; ``prompts`` are phase 6's, taken
+    into each model's vocabulary. Returns the launch count of every
+    kernel over the runs."""
+    launches = dict.fromkeys((k.__name__ for k in K.KERNELS), 0)
+    runs = [lambda: family_moe(torch, K, card, prompts, dev),
+            lambda: family_vlm(torch, K, card, prompts, dev),
+            lambda: family_granite(torch, K, card, prompts, dev)]
+    runs += [lambda a=a: family_big(torch, K, card, prompts, a, dev)
+             for a in BIG_ARCHS]
+    for run in runs:
+        for k, v in run().items():
+            launches[k] += v
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()    # the model is gone
+    return launches
+
+
+def family_runner(torch, K, card, cfg, prompts, dev, new_tokens=LM_NEW,
+                  **cfg_kw):
+    """An LMRunner over seeded parameters of ``cfg`` (``cfg_kw`` replaced
+    in it) made on ``dev``, and ``prompts`` in its vocabulary."""
+    cfg = dataclasses.replace(cfg, **cfg_kw)
+    params, made = make_lm_params(torch, cfg, dev, cfg.name)
+    moe = cfg.moe
+    print(f"[families] {cfg.name} ({cfg.family}): {cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, heads {cfg.n_heads} / {cfg.n_kv_heads} "
+          f"KV, d_ff {cfg.d_ff}, {cfg.act}, vocab {cfg.vocab}"
+          + (f", {moe.num_experts} experts top-{moe.top_k} d_ff {moe.d_ff}"
+             f" capacity factor {moe.capacity_factor}" if moe else "")
+          + f"; {made}")
+    runner = LMRunner(torch, K, card, cfg, params, dev, new_tokens)
+    return runner, [(p % cfg.vocab).astype(np.int32) for p in prompts]
+
+
+def family_moe(torch, K, card, prompts, dev):
+    """granite-moe-1b-a400m at full width and depth in "float": captured
+    over the contiguous, paged and int8 KV caches (every status ok; the
+    paged and int8 streams' agreement printed: a free slot's K/V and so
+    its routing differ between the layouts), the first requests again with
+    jit=False (streams equal; the (token, expert) pairs each decode step
+    dropped counted there), an integer precision refused with JAX's
+    message, and one decode step's breakdown."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as M
+    from repro_torch.serve import Engine, ServeConfig
+    runner, served = family_runner(torch, K, card, get_config(MOE_ARCH),
+                                   prompts, dev)
+    cfg, streams = runner.cfg, runner.streams
+    for prec, kv, layout in MOE_RUNS:
+        kw = dict(kv_layout="paged", kv_block_size=LM_BLOCK) if layout \
+            else {}
+        runner.run("moe", lm_label(prec, kv, layout), served, precision=prec,
+                   kv_cache=kv, **kw)
+    print(f"[moe] token agreement with the contiguous float cache: paged "
+          f"{agreement(streams['float paged'], streams['float']):.4f}, int8 "
+          f"KV {agreement(streams['float kv=int8'], streams['float']):.4f}")
+    drops, real = [], M._dispatch_combine
+
+    def counted(x2d, probs, ids, fn, e, cap):
+        over = torch.bincount(ids.reshape(-1), minlength=e) - cap
+        drops.append((x2d.shape[0], over.clamp(min=0).sum()))
+        return real(x2d, probs, ids, fn, e, cap)
+    n = LM_EAGER_REQUESTS
+    M._dispatch_combine = counted
+    try:
+        runner.run("moe", "float jit=False", served[:n], jit=False)
+    finally:
+        M._dispatch_combine = real
+    check(streams["float jit=False"] == streams["float"][:n],
+          "moe: jit=False token streams differ from the captured engine's")
+    # a decode step routes LM_BATCH tokens a layer (every slot, free ones
+    # too); a prefill routes its bucket of 16 or more
+    step = [int(d) for t, d in drops if t == LM_BATCH]
+    per_step = np.add.reduceat(step, range(0, len(step), cfg.n_layers))
+    pairs = LM_BATCH * cfg.moe.top_k
+    cap = M._capacity(LM_BATCH, cfg.moe)
+    print(f"[moe] captured token streams equal to jit=False's ({n} x "
+          f"{LM_NEW} tokens); dropped (token, expert) pairs in a decode "
+          f"step of {LM_BATCH} slots (capacity {cap} an expert, {pairs} pairs "
+          f"a layer, {cfg.n_layers} layers): mean {np.mean(per_step):.1f} "
+          f"(min {per_step.min()}, max {per_step.max()}) of "
+          f"{pairs * cfg.n_layers} a step over {len(per_step)} jit=False "
+          "steps")
+    try:
+        Engine(cfg, runner.params, ServeConfig(precision="int8"))
+        message = None
+    except NotImplementedError as e:
+        message = str(e)
+    check(message == MOE_INT8_MESSAGE,
+          f"moe: precision='int8' gave {message!r}, not JAX's message")
+    print(f"[moe] precision='int8' raises JAX's message: {message}")
+    lm_breakdown(torch, "moe float", runner.engines["float"], cfg, dev,
+                 port=("gemm", "nvjet"), what="the cuBLAS matmuls "
+                 "(attention, experts, unembedding)")
+    return runner.launches
+
+
+def family_vlm(torch, K, card, prompts, dev):
+    """internvl2-1b at full width, served text-only in every precision,
+    captured (kernel streams equal to their plain versions'; the launch
+    counts checked by the runner); one prefill_fn call with
+    ``frontend_positions`` patch embeddings ahead of a prompt, then
+    ``VLM_PATCH_DECODE`` decode steps; the gate: a prefill whose embeds
+    are the embeddings of a prompt's first tokens gives the logits and
+    cache of the prefill of the whole prompt, bitwise."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.models import transformer as T
+    runner, served = family_runner(torch, K, card, get_config(VLM_ARCH),
+                                   prompts, dev)
+    cfg, streams = runner.cfg, runner.streams
+    for prec in ALL_PRECISIONS:
+        runner.run("vlm", prec, served, precision=prec)
+    for prec in LM_KERNEL:
+        check(streams[prec] == streams[prec + "-torch"],
+              f"vlm {prec}: the kernel's token streams differ from the "
+              "plain version's")
+    print(f"[vlm] int8 and w4a8 token streams equal to their -torch "
+          f"versions' ({len(served)} x {LM_NEW} tokens); "
+          f"{3 * cfg.n_layers} matmul launches a prefill and a decode step")
+    params = T.cast_params(runner.params, cfg)
+    n_patch = cfg.frontend_positions
+    tok = torch.as_tensor(served[0][None].astype(np.int64), device=dev)
+    embeds = torch.randn((1, n_patch, cfg.d_model), device=dev,
+                         generator=torch.Generator(device=dev)
+                         .manual_seed(SEED)) * 0.02
+    length = n_patch + tok.shape[1]
+    pre = api.prefill_fn(cfg, length + VLM_PATCH_DECODE)
+    dec = api.decode_fn(cfg)
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    logits, cache = pre(params, {"tokens": tok, "embeds": embeds})
+    sync(torch, dev)
+    t_pre = time.perf_counter() - t0
+    check(int(cache["len"]) == length, f"vlm: prefill length "
+          f"{int(cache['len'])}, not {n_patch} patches + {tok.shape[1]}")
+    t0 = time.perf_counter()
+    for _ in range(VLM_PATCH_DECODE):
+        logits, cache = dec(params, logits.argmax(-1), cache)
+    sync(torch, dev)
+    t_dec = time.perf_counter() - t0
+    check(tuple(logits.shape) == (1, 1, cfg.vocab)
+          and bool(torch.isfinite(logits).all())
+          and int(cache["len"]) == length + VLM_PATCH_DECODE,
+          "vlm: decode after the patch prefill is not finite or not at "
+          "its length")
+    print(f"[vlm] prefill_fn of {n_patch} patch embeddings + a "
+          f"{tok.shape[1]}-token prompt (eager) {1e3 * t_pre:.1f} ms, then "
+          f"{VLM_PATCH_DECODE} decode steps (eager) "
+          f"{1e3 * t_dec / VLM_PATCH_DECODE:.1f} ms each; logits finite, "
+          f"length {int(cache['len'])}")
+    head = tok.shape[1] // 2
+    got_l, got_c = pre(params, {"tokens": tok[:, head:],
+                                "embeds": params["embed"][tok[:, :head]]})
+    want_l, want_c = pre(params, {"tokens": tok})
+    sync(torch, dev)
+    check(torch.equal(got_l, want_l)
+          and all(torch.equal(got_c[k], want_c[k]) for k in ("k", "v", "len")),
+          "vlm: a prefill with the embeddings of the prompt's head as embeds "
+          "differs from the prefill of the prompt")
+    print(f"[vlm] a prefill with the embeddings of the prompt's first {head} "
+          f"tokens as embeds, then its other {tok.shape[1] - head}: logits "
+          "and cache bitwise equal to the prefill of the whole prompt")
+    return runner.launches
+
+
+def family_granite(torch, K, card, prompts, dev):
+    """granite-3-2b at full width in every precision, captured: kernel
+    streams equal to their plain versions', its FFN's 120 matmul launches
+    a prefill and a decode step checked by the runner."""
+    from repro_torch.configs import get_config
+    runner, served = family_runner(torch, K, card,
+                                   get_config(GRANITE_FFN[0]), prompts, dev)
+    streams = runner.streams
+    for prec in ALL_PRECISIONS:
+        runner.run("granite", prec, served, precision=prec)
+    for prec in LM_KERNEL:
+        check(streams[prec] == streams[prec + "-torch"],
+              f"granite {prec}: the kernel's token streams differ from the "
+              "plain version's")
+    print(f"[granite] int8 and w4a8 token streams equal to their -torch "
+          f"versions' ({len(served)} x {LM_NEW} tokens); "
+          f"{3 * runner.cfg.n_layers} matmul launches a prefill and a "
+          f"decode step; token agreement with float: int8 "
+          f"{agreement(streams['int8'], streams['float']):.4f}, w4a8 "
+          f"{agreement(streams['w4a8'], streams['float']):.4f}")
+    return runner.launches
+
+
+def big_peak(cfg, n_layers=None) -> dict:
+    """The reckoned device bytes of serving ``cfg`` in "float" with bf16
+    weights (at ``n_layers``): the weights, the float32 copy of the
+    unembedding that ``unembed`` makes at each call (held once by the
+    eager allocator's cache, once by the graph pool), the KV cache of
+    LM_BATCH x LM_MAX_LEN."""
+    from repro_torch.check.config import kv_cache_bytes
+    from repro_torch.serve import ServeConfig
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    f32_unembed = 4 * cfg.d_model * cfg.vocab
+    parts = {"weights": 2 * (cfg.param_count() + cfg.d_model),
+             "float32 unembedding (eager)": f32_unembed,
+             "float32 unembedding (graph pool)": f32_unembed,
+             "KV": kv_cache_bytes(cfg, ServeConfig(max_batch=LM_BATCH,
+                                                   max_len=LM_MAX_LEN))}
+    return dict(parts, total=sum(parts.values()))
+
+
+def family_big(torch, K, card, prompts, arch, dev):
+    """One of the big dense configs in "float", bf16 weights made on the
+    card: the reckoned peak printed first; at full depth where
+    ``BIG_HEADROOM`` stays free under it, else at the most layers that
+    leave it (the cut printed); BIG_REQUESTS requests of BIG_NEW tokens,
+    captured, the first BIG_EAGER again with jit=False (streams equal);
+    the peak memory the card saw."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(arch), param_dtype="bfloat16")
+    on_card = torch.device(dev).type == "cuda"
+    free = torch.cuda.mem_get_info()[0] if on_card else float("inf")
+    peak = big_peak(cfg)
+    layers = cfg.n_layers
+    while layers > 1 and free - big_peak(cfg, layers)["total"] \
+            < BIG_HEADROOM:
+        layers -= 1
+    print(f"[families] {arch}: reckoned peak "
+          + ", ".join(f"{k} {v / 1e9:.2f} GB" for k, v in peak.items())
+          + f"; {free / 1e9:.2f} GB free on the card: "
+          + ("served at full depth" if layers == cfg.n_layers else
+             f"depth cut from {cfg.n_layers} to {layers} layers, whose "
+             f"reckoned peak {big_peak(cfg, layers)['total'] / 1e9:.2f}"
+             f" GB leaves {BIG_HEADROOM / 1e9:.0f} GB free"))
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    runner, served = family_runner(torch, K, card, cfg, prompts, dev,
+                                   new_tokens=BIG_NEW, n_layers=layers)
+    runner.run("families", f"{arch} float", served[:BIG_REQUESTS])
+    runner.run("families", f"{arch} float jit=False", served[:BIG_EAGER],
+               jit=False)
+    streams = runner.streams
+    check(streams[f"{arch} float jit=False"]
+          == streams[f"{arch} float"][:BIG_EAGER],
+          f"{arch}: jit=False token streams differ from the captured "
+          "engine's")
+    mem = (f"peak allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+           f"GB, reserved {torch.cuda.max_memory_reserved() / 1e9:.2f} GB"
+           if on_card else "host run")
+    print(f"[families] {arch}: captured token streams equal to jit=False's "
+          f"({BIG_EAGER} x {BIG_NEW} tokens); {mem} on {card}")
+    return runner.launches
+
+
 # ---------------------------------------------------------------- phase 8 --
 
 #: phase 8: the phase-4 plans served again with the tuned cache installed
@@ -2886,8 +3243,8 @@ def phase_tune(torch, K, card, plans, dev="cuda"):
     us = 1e6 * (time.perf_counter() - t0) / n
     lost = metrics.counter("tune.profile.lost_sessions").value
     print(f"[tune] a memo-hit get_config takes {us:.3f} us of host time "
-          f"({n} calls); {lost:.0f} profiler sessions of this run (phases "
-          "3-8) recorded none or only part of their device activity (run "
+          f"({n} calls); {lost:.0f} profiler sessions of this run so far "
+          "recorded none or only part of their device activity (run "
           f"again, or filled in); launches {launches}")
     tune.reset()
     return launches
@@ -3088,7 +3445,16 @@ SOURCES = {
 }
 
 
+@contextlib.contextmanager
+def phase_clock(name: str):
+    """Print the wall time of the phase run inside the block."""
+    t0 = time.perf_counter()
+    yield
+    print(f"[time] phase {name}: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("[device] FAIL: torch.cuda.is_available() is False",
@@ -3123,29 +3489,42 @@ def main() -> int:
         print(f"[build] {line}")
 
     rng = np.random.default_rng(SEED)
-    per_kernel = phase_kernels(torch, K, dev, kind, rng)
-    plans = {name: phase_plan(torch, K, name, rng) for name in PLANS}
     launches = dict.fromkeys((k.__name__ for k in K.KERNELS), 0)
-    for p in SERVED:
-        for k, v in phase_serve(torch, K, p, plans[p][0], card,
-                                rng).items():
+
+    def add(counts):
+        for k, v in counts.items():
             launches[k] += v
-    plans = {name: plans[name] for name in TUNED_PLANS}   # for phase 8
-    for k, v in phase_lm(torch, K, card, rng).items():
-        launches[k] += v
+    with phase_clock("3 kernels"):
+        per_kernel = phase_kernels(torch, K, dev, kind, rng)
+    with phase_clock("4 plan"):
+        plans = {name: phase_plan(torch, K, name, rng) for name in PLANS}
+    with phase_clock("5 serve"):
+        for p in SERVED:
+            add(phase_serve(torch, K, p, plans[p][0], card, rng))
+    # phases 8 and 9 run before the LM phases: in three of seven runs, at
+    # the start of phase 8 right after a large LM was freed, torch.profiler
+    # sessions recorded nothing for over 18 s
+    with phase_clock("8 tune"):
+        add(phase_tune(torch, K, card, {name: plans[name]
+                                        for name in TUNED_PLANS}))
+    del plans
+    with phase_clock("9 cnn-flow"):
+        add(phase_cnn_flow(torch, K, card))
+    with phase_clock("6 lm"):
+        lm_launches, lm_prompts = phase_lm(torch, K, card, rng)
+        add(lm_launches)
     torch.cuda.empty_cache()    # phase 6's model is gone; 7.27 B params next
-    for k, v in phase_ssm(torch, K, card, rng).items():
-        launches[k] += v
+    with phase_clock("7 ssm"):
+        add(phase_ssm(torch, K, card, rng))
     integer = [k for k in launches if not k.endswith("_f")]
     check(all(launches[k] > 0 for k in integer),
           f"serve: a kernel was never launched: {launches}")
-    torch.cuda.empty_cache()    # phase 7's model is gone
-    for k, v in phase_tune(torch, K, card, plans).items():
-        launches[k] += v
-    for k, v in phase_cnn_flow(torch, K, card).items():
-        launches[k] += v
     check(all(v > 0 for v in launches.values()),
           f"a kernel was never launched: {launches}")
+    torch.cuda.empty_cache()    # phase 7's model is gone
+    with phase_clock("10 families"):
+        add(phase_families(torch, K, card, lm_prompts))
+    print(f"[time] the run so far {time.perf_counter() - t_start:.1f} s")
 
     rows = []
     for kernel, (wrapper, source, replaces) in SOURCES.items():
@@ -3172,9 +3551,12 @@ def main() -> int:
           "each (pool: the tuner's float pool job; library: cuDNN conv2d, "
           "amax, torch.cdist(p=1), torch.matmul, TF32 off); launches are "
           "summed over the six served CNN runs, phase 6's LM runs "
-          "(contiguous, paged, static), the ssm run, the tuner's run "
+          "(contiguous, paged, static), the ssm run, the families runs "
+          "the tuner's run "
           "(phase 8) and the five trained plans' "
-          f"forwards and profiles (phase 9); card: {card}")
+          f"forwards and profiles (phase 9) and the families runs (phase "
+          f"10: internvl2-1b and granite-3-2b in int8 and w4a8); card: "
+          f"{card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -153,7 +153,7 @@ def check_serve_config(scfg, cfg=None, *, hbm_budget: Optional[int] = None,
         if scfg.kv_layout == "paged" and recurrent:
             errs.append("kv_layout='paged' covers attention-family dense "
                         "KV caches only (no ssm / hybrid / encdec)")
-        if scfg.precision != "float" and (cfg.family != "dense"
+        if scfg.precision != "float" and (recurrent
                                           or cfg.moe is not None):
             errs.append(f"precision={scfg.precision!r} quantizes dense FFN "
                         "matmuls; moe/ssm/hybrid/encdec are unsupported")

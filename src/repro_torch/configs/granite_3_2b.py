@@ -1,0 +1,9 @@
+"""IBM Granite 3.0 2B [dense] — GQA kv=8
+[hf:ibm-granite/granite-3.0-2b-base]."""
+from .base import ModelConfig, register
+
+register(ModelConfig(
+    name="granite-3-2b", family="dense",
+    n_layers=40, d_model=2048, n_heads=32, n_kv_heads=8,
+    d_ff=8192, vocab=49155, tied_embeddings=True, rope_theta=1e4, act="silu",
+))

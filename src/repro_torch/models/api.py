@@ -2,15 +2,16 @@
 against cached prefix K/V), decode and the KV cache helpers of continuous
 batching, contiguous and paged.
 
-Port of the dense and ssm part of ``repro/models/api.py``. The
-continuous-batching engine keeps ONE live batched decode cache with
-per-slot lengths and splices freshly prefilled requests into free slots
-between decode rounds; these helpers own the
-cache layout (:func:`slot_batch_axes`): (L, B, S, Hkv, D) K and V for the
-dense family (in the cache dtype, or int8 codes with (L, B, S, Hkv)
-float32 ``k_scale`` / ``v_scale``), (L, B, K-1, d_inner) conv and (L, B,
-d_inner, d_state) ssm state for the ssm family, plus a (B,) ``"len"``
-vector. The paged layout (:func:`init_paged_cache`, dense family only)
+Port of the dense, vlm, moe and ssm part of ``repro/models/api.py``
+(vlm and moe keep the dense family's caches). The continuous-batching
+engine keeps ONE live batched decode cache with per-slot lengths and
+splices freshly prefilled requests into free slots between decode rounds;
+these helpers own the cache layout (:func:`slot_batch_axes`): (L, B, S,
+Hkv, D) K and V for the attention families (in the cache dtype, or int8
+codes with (L, B, S, Hkv) float32 ``k_scale`` / ``v_scale``), (L, B, K-1,
+d_inner) conv and (L, B, d_inner, d_state) ssm state for the ssm family,
+plus a (B,) ``"len"`` vector. The paged layout (:func:`init_paged_cache`,
+attention families only)
 keeps K/V in pools of fixed-size pages instead, (L, NB, bs, Hkv, D) each
 (int8 codes with (L, NB, bs, Hkv) scale pools beside them), plus a (B,
 max_len // bs) int32 ``"block_table"`` shared by every layer and the (B,)
@@ -50,17 +51,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
 
 def prefill_fn(cfg: ModelConfig, max_len: int, *, attn_impl="flash",
                precision: str = "float", attn_block_k: int = 256):
+    """``fn(params, batch)``: :func:`~repro_torch.models.transformer.
+    prefill` of ``batch["tokens"]``, with a vlm model's ``batch["embeds"]``
+    ahead of them and ``batch["prompt_lens"]`` where given."""
     T.check_family(cfg, "prefill_fn")
     T.check_precision(precision)
     T.check_ssm_precision(cfg, precision, "prefill")
 
     def fn(params, batch):
-        if batch.get("embeds") is not None:
-            raise NotImplementedError(
-                "prefill: modality embeddings (vlm/audio) are not ported "
-                "(ROADMAP.md, queue A)")
         return T.prefill(params, batch["tokens"], cfg, max_len,
-                         attn_impl=attn_impl,
+                         embeds=batch.get("embeds"), attn_impl=attn_impl,
                          prompt_lens=batch.get("prompt_lens"),
                          precision=precision, attn_block_k=attn_block_k)
     return fn
@@ -71,8 +71,8 @@ def prefill_suffix_fn(cfg: ModelConfig, *, attn_impl="flash",
     """JAX's prefix-cache hit path: only the suffix of a prompt runs, against
     gathered prefix K/V (:func:`~repro_torch.models.transformer.
     prefill_suffix`). The prefix length is ``batch["prefix_k"].shape[2]``.
-    Dense layer stacks only."""
-    if cfg.family in ("ssm", "hybrid", "encdec"):
+    Attention layer stacks only."""
+    if cfg.family in T.NOT_DENSE_KV:
         raise NotImplementedError(
             "prefill_suffix covers attention-family dense layer stacks only")
     T.check_family(cfg, "prefill_suffix_fn")
@@ -120,12 +120,12 @@ def init_slot_cache(cfg: ModelConfig, batch: int, max_len: int,
 
     ``kv="int8"`` stores K/V as int8 codes (zeros) with per-(position,
     head) float32 scales ``k_scale`` / ``v_scale``, (L, B, S, Hkv), of
-    ones: about half the bytes of a bf16 cache. Attention-family dense
-    caches only."""
+    ones: about half the bytes of a bf16 cache. Attention-family caches
+    only."""
     if kv not in ("float", "int8"):
         raise ValueError(f"init_slot_cache: kv must be 'float' or 'int8', "
                          f"got {kv!r}")
-    if kv == "int8" and cfg.family in ("ssm", "hybrid", "encdec"):
+    if kv == "int8" and cfg.family in T.NOT_DENSE_KV:
         raise NotImplementedError(
             "int8 KV slot cache only covers attention-family dense caches")
     dev = resolve_device(device)
@@ -188,12 +188,13 @@ def init_paged_cache(cfg: ModelConfig, batch: int, num_blocks: int,
     """A paged decode cache: K/V pools, per-slot block tables and lengths,
     all zero (``kv="int8"``: int8 code pools and float32 scale pools of
     ones, the same per-token quantization as the contiguous int8 cache).
-    Dense caches only; ``block_size`` must divide ``max_len``, so the
-    gathered view spans exactly ``max_len`` positions."""
+    Attention-family caches only; ``block_size`` must divide
+    ``max_len``, so the gathered view spans exactly ``max_len``
+    positions."""
     if kv not in ("float", "int8"):
         raise ValueError(f"init_paged_cache: kv must be 'float' or 'int8', "
                          f"got {kv!r}")
-    if cfg.family in ("ssm", "hybrid", "encdec"):
+    if cfg.family in T.NOT_DENSE_KV:
         raise NotImplementedError(
             "paged KV cache only covers attention-family dense caches")
     if max_len % block_size:

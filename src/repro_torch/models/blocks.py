@@ -107,16 +107,34 @@ def qmlp(h, qp, act: str, cdt, *, a_fb: int = ACT_FRAC_BITS,
     return y.reshape(b, s, -1).to(cdt)
 
 
-def init_mlp(generator, d, ff, act, dtype):
-    """Random FFN weights drawn from ``generator`` on its device."""
-    def normal(shape, std):
-        return torch.randn(shape, generator=generator, dtype=dtype,
-                           device=generator.device) * std
+def stacked_normal(generator, shapes: dict, dtype, n_layers: int = 0):
+    """``{name: normal(shape) * std}`` for ``shapes = {name: (shape,
+    std)}``, drawn from ``generator`` on its device in the order of
+    ``shapes``. With ``n_layers`` every leaf gets a leading layer axis;
+    each stacked leaf is allocated once and filled layer by layer (the
+    draws of one layer after another, as ``n_layers`` single-layer calls
+    make them), so a stack is never held twice."""
+    lead = (n_layers,) if n_layers else ()
+    dev = generator.device
+    out = {k: torch.empty(lead + shape, dtype=dtype, device=dev)
+           for k, (shape, _) in shapes.items()}
+    for layer in range(max(n_layers, 1)):
+        for k, (shape, std) in shapes.items():
+            dst = out[k][layer] if n_layers else out[k]
+            torch.randn(shape, generator=generator, dtype=dtype, device=dev,
+                        out=dst)
+            dst.mul_(std)
+    return out
+
+
+def init_mlp(generator, d, ff, act, dtype, *, n_layers: int = 0):
+    """Random FFN weights drawn from ``generator`` on its device (stacked
+    over ``n_layers``: :func:`stacked_normal`)."""
     s_in, s_out = d ** -0.5, ff ** -0.5
-    p = {"w_up": normal((d, ff), s_in), "w_down": normal((ff, d), s_out)}
+    shapes = {"w_up": ((d, ff), s_in), "w_down": ((ff, d), s_out)}
     if act == "silu":
-        p["w_gate"] = normal((d, ff), s_in)
-    return p
+        shapes["w_gate"] = ((d, ff), s_in)
+    return stacked_normal(generator, shapes, dtype, n_layers)
 
 
 def rope(x, positions, theta: float):

@@ -1,7 +1,13 @@
-"""Decoder-only LM, dense and ssm families: init, prefill and one-token
-decode.
+"""Decoder-only LM, dense, vlm, moe and ssm families: init, prefill and
+one-token decode.
 
-Port of the dense and ssm parts of ``repro/models/transformer.py``.
+Port of the dense, vlm, moe and ssm parts of
+``repro/models/transformer.py``. A vlm model is the dense stack with a
+prefix of modality embeddings: :func:`prefill` takes ``embeds`` (B, P,
+d_model) ahead of the tokens (the frontend that makes them is a stub in
+the JAX package too). A moe model's layers carry a ``"moe"`` tree (router,
+stacked expert weights; :mod:`~repro_torch.models.moe`) in place of the
+``"mlp"`` one, or beside it where ``dense_residual`` adds a dense FFN.
 Parameters keep the JAX package's layer-stacked layout (every leaf of
 ``params["layers"]`` carries a leading layer axis), so a JAX parameter
 tree carries across leaf by leaf
@@ -38,9 +44,10 @@ suffix runs, against its prefix's cached K/V. Bitwise the full prefill on
 the host; the port's engine serves no hit with it (on a card a suffix's
 rows do not get the bits the whole prompt's get).
 
-Not ported yet, and raising ``NotImplementedError``: the moe, hybrid and
+Not ported yet, and raising ``NotImplementedError``: the hybrid and
 encdec families, training (ROADMAP.md, queue A). The ssm family runs in
-``"float"`` precision only, as in the JAX package.
+``"float"`` precision only, as in the JAX package; the serving engine
+keeps moe in ``"float"`` too (JAX's gate).
 """
 from __future__ import annotations
 
@@ -54,6 +61,13 @@ from . import attention as A
 from .blocks import init_mlp, mlp, qmlp, rmsnorm, rope
 from .mamba import (init_mamba, mamba_decode_step, mamba_forward_with_state,
                     mamba_init_state)
+from .moe import init_moe, moe_ffn
+
+#: the families :func:`check_family` admits
+FAMILIES = ("dense", "vlm", "moe", "ssm")
+#: the families whose cache is not the attention stack's (L, B, S, Hkv, D)
+#: K/V (JAX's gates: no paged or int8 KV cache, no integer FFN for them)
+NOT_DENSE_KV = ("ssm", "hybrid", "encdec")
 
 
 def _cdt(cfg: ModelConfig):
@@ -61,13 +75,13 @@ def _cdt(cfg: ModelConfig):
 
 
 def check_family(cfg: ModelConfig, what: str):
-    """Raise unless ``cfg`` is of a family the port builds: dense (without
-    moe) or ssm."""
-    if cfg.family not in ("dense", "ssm") or cfg.moe is not None:
+    """Raise unless ``cfg`` is of a family the port builds: dense, vlm,
+    moe or ssm."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{what}: the port builds the dense and ssm families only, not "
-            f"{cfg.family!r}{' with moe' if cfg.moe is not None else ''} "
-            "(ROADMAP.md, queue A: moe, hybrid and encdec follow)")
+            f"{what}: the port builds the dense, vlm, moe and ssm families "
+            f"only, not {cfg.family!r} (ROADMAP.md, queue A: encdec "
+            "follows, hybrid after A3's fused scan)")
 
 
 def check_ssm_precision(cfg: ModelConfig, precision: str, what: str):
@@ -89,8 +103,11 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator) -> dict:
     """Random parameters drawn from ``generator`` on its device, in the JAX
     package's layout and scales (normal embeddings * 0.02, normal matmul
     weights * fan_in^-1/2, zero biases, unit norms; Mamba's as
-    :func:`~repro_torch.models.mamba.init_mamba` draws them), in
-    ``param_dtype``."""
+    :func:`~repro_torch.models.mamba.init_mamba` draws them, the experts'
+    as :func:`~repro_torch.models.moe.init_moe`), in ``param_dtype``. Each
+    stacked FFN leaf is allocated once and filled layer by layer, so the
+    FFN stack is never held twice (granite-34b's bf16 FFN alone is 53
+    GB)."""
     check_family(cfg, "init_lm")
     pdt = torch_dtype(cfg.param_dtype)
     dev = generator.device
@@ -120,11 +137,14 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator) -> dict:
         for name, width in (("bq", hq * dh), ("bk", hkv * dh),
                             ("bv", hkv * dh)):
             attn[name] = torch.zeros((nl, width), dtype=pdt, device=dev)
-    mlps = [init_mlp(generator, d, cfg.d_ff, cfg.act, pdt)
-            for _ in range(nl)]
-    params["layers"] = {
-        "ln1": ones(nl, d), "ln2": ones(nl, d), "attn": attn,
-        "mlp": {k: torch.stack([m[k] for m in mlps]) for k in mlps[0]}}
+    layers = {"ln1": ones(nl, d), "ln2": ones(nl, d), "attn": attn}
+    if cfg.moe is not None:
+        layers["moe"] = init_moe(generator, d, cfg.moe, cfg.act, pdt,
+                                 n_layers=nl)
+    if cfg.moe is None or cfg.moe.dense_residual:
+        layers["mlp"] = init_mlp(generator, d, cfg.d_ff, cfg.act, pdt,
+                                 n_layers=nl)
+    params["layers"] = layers
     return params
 
 
@@ -134,8 +154,10 @@ def cast_params(params: dict, cfg: ModelConfig, *, mlp_too: bool = True):
     values every call would otherwise get from a per-use cast, made once.
     For an ssm model: every Mamba leaf but ``A_log``, which stays float32
     (A = -exp(A_log) is computed from the float32 parameter, as in JAX).
-    The embedding (read in float32 by :func:`unembed`), the norms and any
-    quantized tree are kept as they are."""
+    For a moe model: the expert weights; the router stays as it is (the
+    routing reads it in float32). The embedding (read in float32 by
+    :func:`unembed`), the norms and any quantized tree are kept as they
+    are."""
     cdt = _cdt(cfg)
     layers = dict(params["layers"])
     if cfg.family == "ssm":
@@ -143,8 +165,11 @@ def cast_params(params: dict, cfg: ModelConfig, *, mlp_too: bool = True):
                            for k, v in layers["mamba"].items()}
         return dict(params, layers=layers)
     layers["attn"] = {k: v.to(cdt) for k, v in layers["attn"].items()}
-    if mlp_too:
+    if mlp_too and "mlp" in layers:
         layers["mlp"] = {k: v.to(cdt) for k, v in layers["mlp"].items()}
+    if "moe" in layers:
+        layers["moe"] = {k: v if k == "router" else v.to(cdt)
+                         for k, v in layers["moe"].items()}
     return dict(params, layers=layers)
 
 
@@ -265,9 +290,10 @@ def attn_decode_paged(lp, x, cfg: ModelConfig, cdt, k_pool, v_pool,
 
 
 def ffn_forward(lp, x, cfg: ModelConfig, cdt, precision: str = "float"):
-    """The float FFN, or with an integer ``precision`` the quantized one
-    (:func:`~repro_torch.models.blocks.qmlp`; the layer must carry a
-    ``"qmlp"`` tree)."""
+    """The float FFN (a moe layer's experts, plus the dense FFN where
+    ``dense_residual`` is set), or with an integer ``precision`` the
+    quantized one (:func:`~repro_torch.models.blocks.qmlp`; the layer must
+    carry a ``"qmlp"`` tree)."""
     if precision != "float":
         check_precision(precision)
         if "qmlp" not in lp:
@@ -278,6 +304,11 @@ def ffn_forward(lp, x, cfg: ModelConfig, cdt, precision: str = "float"):
         return qmlp(x, lp["qmlp"], cfg.act, cdt,
                     method="torch" if precision.endswith("-torch")
                     else "cuda")
+    if cfg.moe is not None and "moe" in lp:
+        y = moe_ffn(x, lp["moe"], cfg.moe, cfg.act, cdt)
+        if cfg.moe.dense_residual:
+            y = y + mlp(x, lp["mlp"], cfg.act, cdt)
+        return y
     return mlp(x, lp["mlp"], cfg.act, cdt)
 
 
@@ -309,10 +340,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def _check_cache(cfg: ModelConfig, cache):
-    if "block_table" in cache and cfg.family != "dense":
+    if "block_table" in cache and cfg.family in NOT_DENSE_KV:
         raise NotImplementedError(
             "paged KV decode only covers attention-family dense caches")
-    if "k_scale" in cache and cfg.family != "dense":
+    if "k_scale" in cache and cfg.family in NOT_DENSE_KV:
         raise NotImplementedError(
             "int8 KV decode only covers attention-family dense caches")
 
@@ -364,10 +395,15 @@ def decode_step(params, token, cache, cfg: ModelConfig, *,
     return unembed(params, h, cfg), dict(cache, len=clen + 1)
 
 
-def prefill(params, tokens, cfg: ModelConfig, max_len: int, *,
+def prefill(params, tokens, cfg: ModelConfig, max_len: int, *, embeds=None,
             attn_impl: str = "flash", prompt_lens=None,
             precision: str = "float", attn_block_k: int = 256):
     """Run the prompt, build the cache, return ``(last_logits, cache)``.
+
+    ``embeds`` (B, P, d_model), a vlm model's patch embeddings, go ahead of
+    the tokens' embeddings: the prompt is P + S positions, and its length
+    (``cache["len"]`` without ``prompt_lens``; a caller's ``prompt_lens``)
+    counts them.
 
     With ``prompt_lens`` (a (B,) int vector) the batch is RIGHT-padded: row
     i's real tokens occupy positions [0, prompt_lens[i]); causality keeps
@@ -380,9 +416,11 @@ def prefill(params, tokens, cfg: ModelConfig, max_len: int, *,
     check_family(cfg, "prefill")
     check_ssm_precision(cfg, precision, "prefill")
     cdt = _cdt(cfg)
-    b, s = tokens.shape
+    b = tokens.shape[0]
     cache = init_cache(cfg, b, max_len, device=tokens.device)
     h = embed_tokens(params, tokens, cfg, cdt)
+    if embeds is not None:
+        h = torch.cat([embeds.to(cdt), h], dim=1)
     if cfg.family == "ssm":
         h = _ssm_prefill_layers(params, h, cfg, cdt, cache)
     else:
@@ -390,7 +428,7 @@ def prefill(params, tokens, cfg: ModelConfig, max_len: int, *,
                                   precision, attn_block_k)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
     if prompt_lens is None:
-        cache["len"] = torch.tensor(s, dtype=torch.int32,
+        cache["len"] = torch.tensor(h.shape[1], dtype=torch.int32,
                                     device=tokens.device)
         return unembed(params, h[:, -1:], cfg), cache
     pl = torch.as_tensor(prompt_lens, dtype=torch.int32,
@@ -445,10 +483,10 @@ def prefill_suffix(params, tokens, prefix_k, prefix_v, prefix_len: int,
     logits and suffix K/V are what a prefill of the whole prompt gives
     (bitwise where the row products do not depend on the row count).
     Returns ``(last_logits, k_sfx, v_sfx)``, K/V (L, B, S_sfx, Hkv, D) in
-    the compute dtype, for the caller to scatter into its pages. Dense
-    layer stacks only."""
+    the compute dtype, for the caller to scatter into its pages. Attention
+    layer stacks only (dense, vlm, moe)."""
     check_family(cfg, "prefill_suffix")
-    if cfg.family != "dense":
+    if cfg.family in NOT_DENSE_KV:
         raise NotImplementedError(
             "prefill_suffix covers attention-family dense layer stacks only")
     cdt = _cdt(cfg)

@@ -1,7 +1,9 @@
 """LM serve engine over a fixed (max_batch, max_len) budget: continuous
 batching over a contiguous or a paged KV cache, or static drain batches.
 
-Port of ``repro/serve/engine.py`` for the dense and ssm families. Two
+Port of ``repro/serve/engine.py`` for the dense, vlm, moe and ssm
+families (a vlm model is served text-only, as the JAX engine serves it:
+requests carry tokens, no patch embeddings). Two
 schedulers share one ``Engine`` API; ``ServeConfig.scheduler`` picks:
 
 * ``"continuous"`` (default) — each admitted request is prefilled on its
@@ -19,7 +21,7 @@ schedulers share one ``Engine`` API; ``ServeConfig.scheduler`` picks:
   one prefill at that exact length, then the whole batch decoded to
   completion before the next batch is taken.
 
-KV backing (continuous scheduler, dense family) is picked by
+KV backing (continuous scheduler, attention families) is picked by
 ``ServeConfig.kv_layout``: ``"contiguous"`` gives every slot a (max_len,)
 row; ``"paged"`` keeps K/V in a :class:`BlockPool` of ``kv_block_size``
 -position pages, each slot a block table that grows a page at a time.
@@ -58,11 +60,12 @@ serves in ``"float"`` only, as in the JAX package. ``ServeConfig.kv_cache``
 picks the resident cache: ``"float"`` (the compute dtype) or ``"int8"``
 (int8 codes with per-(position, head) float32 scales; a prefilled row is
 quantized as it is written into its slot or pages, and each decode step
-quantizes its new K/V at the row's own position), dense models and the
-continuous scheduler only. At init the engine also
-casts the float32 attention (and, for ``"float"``, FFN) weights, or an ssm
-model's Mamba weights but ``A_log``, to the compute dtype once — the values
-JAX's per-use casts give.
+quantizes its new K/V at the row's own position), attention-family models
+and the continuous scheduler only. A moe model serves in ``"float"``
+only, as in the JAX package. At init the engine also casts the float32
+attention (and, for ``"float"``, FFN and expert) weights, or an ssm
+model's Mamba weights but ``A_log``, to the compute dtype once — the
+values JAX's per-use casts give.
 
 ``Engine.stats`` has the JAX engine's keys: prefill/decode-round/token
 counters, slot occupancy, TTFT/TPOT/queue-wait quantiles, decode
@@ -105,7 +108,7 @@ scales, ``"block_table"`` and ``"len"``), which the engine therefore only
 ever updates in place: slot and page writes and frees, the per-slot
 lengths and the block table copied in before every round from pinned host
 mirrors, and the arena cleared in place at each drain and after an
-unrecoverable round. A dense model's prefill is captured once per
+unrecoverable round. An attention model's prefill is captured once per
 power-of-two bucket at batch 1 (static tokens and prompt length; static
 logits and fresh cache, copied into the arena's slot or pages by an eager
 write), all in one memory pool with the decode graph. The static
@@ -120,9 +123,10 @@ eager path. On the host ``jit`` has no effect; ``jit=False`` runs every
 op from Python.
 
 Not ported yet, and raising ``NotImplementedError`` (ROADMAP.md, queue A):
-the moe, hybrid and encdec families. The JAX engine's own gates keep its
+the hybrid and encdec families. The JAX engine's own gates keep its
 messages: ``kv_cache="int8"`` and ``kv_layout="paged"`` need the continuous
-scheduler and a dense model, and an ssm model serves in ``"float"`` only.
+scheduler and an attention-family model, and an ssm or moe model serves in
+``"float"`` only.
 """
 from __future__ import annotations
 
@@ -431,12 +435,14 @@ class ServeConfig:
     """Engine knobs, with the JAX package's fields and defaults (see
     ``repro/serve/engine.py`` for each). ``scheduler`` is
     ``"continuous"`` or ``"static"``; ``kv_layout`` ``"contiguous"`` or
-    ``"paged"`` (continuous, dense only), with ``kv_block_size`` positions
+    ``"paged"`` (continuous, attention families), with ``kv_block_size``
+    positions
     a page (dividing ``max_len``), a pool of ``kv_num_blocks`` pages
     (page 0 the garbage page; None sizes it to the contiguous capacity,
     :func:`~repro_torch.check.config.paged_num_blocks`) and
     ``prefix_cache`` sharing full prompt pages; ``kv_cache`` ``"float"``
-    or ``"int8"`` (continuous, dense only); ``attn_impl`` the prefill
+    or ``"int8"`` (continuous, attention families); ``attn_impl`` the
+    prefill
     attention, ``"flash"``, ``"flash_tri"`` or ``"full"``; ``precision``
     one of ``"float"``, ``"int8"``, ``"int8-torch"``, ``"w4a8"`` and
     ``"w4a8-torch"``."""
@@ -474,16 +480,16 @@ def prefix_salt(bucket: int, salted: bool) -> bytes:
 
 def _check_gates(cfg: ModelConfig, scfg: ServeConfig):
     """The JAX engine's gates, with its messages: the int8 KV cache and the
-    paged layout need the continuous scheduler and a dense model; an ssm
-    model serves in ``"float"`` only."""
-    recurrent = cfg.family in ("ssm", "hybrid", "encdec")
+    paged layout need the continuous scheduler and an attention-family
+    model; an ssm or moe model serves in ``"float"`` only."""
+    not_dense_kv = cfg.family in T.NOT_DENSE_KV
     if scfg.kv_cache == "int8":
         if scfg.scheduler != "continuous":
             raise NotImplementedError(
                 "kv_cache='int8' quantizes the resident slot cache; the "
                 "static scheduler decodes off the float prefill cache — "
                 "use scheduler='continuous'")
-        if recurrent:
+        if not_dense_kv:
             raise NotImplementedError(
                 "kv_cache='int8' covers attention-family dense KV caches "
                 "only (no ssm / hybrid / encdec)")
@@ -493,11 +499,11 @@ def _check_gates(cfg: ModelConfig, scfg: ServeConfig):
                 "kv_layout='paged' pages the live slotted decode cache; "
                 "the static scheduler decodes off the prefill cache — "
                 "use scheduler='continuous'")
-        if recurrent:
+        if not_dense_kv:
             raise NotImplementedError(
                 "kv_layout='paged' covers attention-family dense KV "
                 "caches only (no ssm / hybrid / encdec)")
-    if recurrent and scfg.precision in PRECISIONS \
+    if (not_dense_kv or cfg.moe is not None) and scfg.precision in PRECISIONS \
             and scfg.precision != "float":
         raise NotImplementedError(
             "ServeConfig.precision='int8' quantizes dense FFN "
@@ -506,7 +512,7 @@ def _check_gates(cfg: ModelConfig, scfg: ServeConfig):
 
 class Engine:
     """The LM engine (module docstring); ``jit`` captures its decode steps
-    and dense prefill buckets on a card."""
+    and an attention model's prefill buckets on a card."""
 
     def __init__(self, cfg: ModelConfig, params, scfg: ServeConfig, *,
                  jit: bool = True):
@@ -757,13 +763,13 @@ class Engine:
 
     def _prefill_slot(self, toks: np.ndarray, plen: int):
         """(logits, fresh cache) of one right-padded prompt, (1, bucket):
-        a replay of the bucket's graph under capture (a dense model), else
-        the eager prefill."""
+        a replay of the bucket's graph under capture (an attention model),
+        else the eager prefill."""
         inputs = (torch.from_numpy(toks),
                   torch.tensor([plen], dtype=torch.int32))
         fn = lambda t, n: self.prefill(    # noqa: E731
             self.params, {"tokens": t, "prompt_lens": n})
-        if self.cfg.family != "dense":
+        if self.cfg.family in T.NOT_DENSE_KV:
             return fn(*(x.to(self.device) for x in inputs))
         return self._run_graph(("prefill", toks.shape[1]), fn, inputs)
 

@@ -89,8 +89,10 @@ SMEM_PER_SM, STAGE_INSTR = 228 * 1024, 20
 #: merges. On the card's machine (an H100 under torch.profiler's CUPTI
 #: tracing) a session now and then records none, or only part, of the
 #: device activity it ran, more often late in a long process: 800-930
-#: lossy sessions a chip_smoke.py run, and once 8 empty ones in a row
-PROFILE_TRIES, PROFILE_PAUSE_S, PROFILE_MIN_CALLS = 16, 0.05, 20
+#: lossy sessions a chip_smoke.py run, bursts of two or three empty ones
+#: in a loop of short sessions, and, right after a large model was freed,
+#: 16 empty ones in a row (about 18 s); 40 tries wait about 58 s
+PROFILE_TRIES, PROFILE_PAUSE_S, PROFILE_MIN_CALLS = 40, 0.05, 20
 PROFILE_SESSIONS = 2
 
 

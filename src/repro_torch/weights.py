@@ -114,9 +114,14 @@ W4_KEYS = frozenset({"q", "shifts", "frac_bits", "size", "axis"})
 
 def lm_params_from_numpy(tree, device="cuda"):
     """An LM parameter tree of numpy arrays (the JAX package's
-    ``init_params`` layout, layer-stacked: a dense model's ``{"ln1", "ln2",
-    "attn", "mlp"}`` layers or an ssm model's ``{"ln", "mamba"}``) -> the
-    same tree of tensors on ``device``, dtypes kept. A quantized FFN tree
+    ``init_params`` layout, layer-stacked: a dense or vlm model's ``{"ln1",
+    "ln2", "attn", "mlp"}`` layers, ``attn`` with its ``bq`` / ``bk`` /
+    ``bv`` biases where the config has ``qkv_bias``; a moe model's with a
+    ``"moe"`` tree of ``router`` (L, d, E) and ``w_gate`` / ``w_up`` (L,
+    E, d, ff) and ``w_down`` (L, E, ff, d) in place of ``mlp``, or beside
+    it where ``dense_residual`` is set; an ssm model's ``{"ln",
+    "mamba"}``) -> the same tree of tensors on ``device``, dtypes kept. A
+    quantized FFN tree
     may ride along under ``tree["layers"]["qmlp"]``: an int8 weight as an
     ``(int8 codes, frac_bits)`` pair, a W4 weight as a ``{"q", "shifts",
     "frac_bits", "size", "axis"}`` dict (stacked or not), checked as

@@ -42,7 +42,7 @@ from repro.serve.engine import Request as JRequest  # noqa: E402
 from repro.serve.engine import ServeConfig as JServeConfig  # noqa: E402
 
 from repro_torch.check import check_serve_config  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import MoEConfig, get_config  # noqa: E402
 from repro_torch.core.quantize import QTensor, QTensorW4, quantize  # noqa: E402
 from repro_torch.faults import FaultPlan, FaultSpec  # noqa: E402
 from repro_torch.kernels import matmul_q8, matmul_w4, ops  # noqa: E402
@@ -577,14 +577,25 @@ def test_engine_serves_static_paged_and_flash_tri(lm, kw):
 
 @pytest.mark.parametrize("family", ["ssm", "hybrid", "moe", "encdec"])
 def test_other_families_raise(lm, family):
-    """The families the port does not build raise; ssm is built and served
-    in "float" only, and an integer precision raises JAX's message."""
+    """The families the port does not build raise; ssm and moe are built
+    and served in "float" only, and an integer precision raises JAX's
+    message."""
     _, _, cfg, params = lm
     if family == "ssm":
         ssm = get_config("falcon-mamba-7b")
         with pytest.raises(NotImplementedError,
                            match="precision='int8' quantizes dense FFN"):
             Engine(ssm, params, ServeConfig(precision="int8"))
+        return
+    if family == "moe":
+        moe = dataclasses.replace(cfg, family="moe", moe=MoEConfig(
+            num_experts=4, top_k=2, d_ff=16))
+        p = T.init_lm(moe, torch.Generator().manual_seed(0))
+        assert p["layers"]["moe"]["w_up"].shape == (2, 4, 32, 16)
+        assert "mlp" not in p["layers"]
+        with pytest.raises(NotImplementedError,
+                           match="precision='int8' quantizes dense FFN"):
+            Engine(moe, p, ServeConfig(precision="int8"))
         return
     other = dataclasses.replace(cfg, family=family)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
