@@ -246,9 +246,36 @@ Phases, one line each, any failure exits non-zero:
               leave it (the cut printed): 8 requests of 16 new tokens,
               captured, the first 2 again with jit=False (streams
               equal), the peak memory printed.
+11. encdec-hybrid — the last two families, each model freed before the
+              next is made: seamless-m4t-large-v2 at full size (24
+              encoder and 24 decoder layers, d_model 1024, vocab
+              256,206; its parameter count printed), seeded weights made
+              on the card, the matrices cast to bf16 once, one batch of
+              8 requests (seeded stub frames (8, 256, 1024) bf16, the
+              speech frontend a stub as in JAX; 16-token prompts; 32 new
+              tokens, greedy) through api.prefill_fn / api.decode_fn, the
+              decode step captured once with graph.capture over a cache
+              it updates in place, then the same batch eager: streams
+              equal, no kernel of the port launched; TTFT of the batch,
+              decode-step ms (CUDA events), the captured step's device
+              busy and idle (torch.profiler) beside its byte bound.
+              jamba-v0.1-52b at full width with bf16 weights, cut in
+              whole super-blocks of 8 layers to the most whose reckoned
+              peak (weights, the float32 unembedding copies, the K/V of
+              its attention sublayers and its Mamba state, counted
+              directly) leaves 4 GB free (the cut printed), served by
+              Engine(max_batch=8, max_len=256) to 8 of phase 6's prompts,
+              16 new tokens, captured, causal_conv1d launched exactly 7
+              times a super-block per prefill and never in a decode step;
+              the first 2 again with jit=False (streams equal; the
+              (token, expert) pairs a decode step drops printed); the
+              static scheduler on the same 8 requests (its agreement with
+              the continuous engine printed: the left pads run through
+              the recurrence); one decode step's breakdown, the byte
+              bound of its weights at 3.35 TB/s, the peak memory.
 
-The phases run in the order 1-5, 8, 9, 6, 7, 10; each one's wall time is
-printed as it ends ([time]). The second-to-last
+The phases run in the order 1-5, 8, 9, 6, 7, 10, 11; each one's wall time
+is printed as it ends ([time]). The second-to-last
 line is a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -256,6 +283,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -2312,6 +2340,8 @@ class LMRunner:
         prec = eng.scfg.precision
         if prec in LM_KERNEL and torch.device(dev).type == "cuda":
             want[LM_KERNEL[prec]] = calls     # a host run launches nothing
+        if cfg.mamba is not None and torch.device(dev).type == "cuda":
+            want["causal_conv1d"] = conv_per_prefill(cfg) * st["prefills"]
         check(got == want, f"{tag} {label}: launches {got}, "
                            f"{st['prefills']} prefills and "
                            f"{st['decode_steps']} decode steps need {want}")
@@ -2581,7 +2611,9 @@ def serve_lm(torch, K, eng, prompts, new_tokens, label, dev, warm=None,
     st = eng.stats
     statuses = {r.status for r in done}
     check(len(done) == len(prompts) and statuses == {"ok"},
-          f"lm {label}: {len(done)} requests, statuses {statuses}")
+          f"lm {label}: {len(done)} requests, statuses {statuses}"
+          + "".join(f"; uid {r.uid}: {r.error}" for r in done[:1]
+                    if r.error))
     done = sorted(done, key=lambda r: r.uid)
     check(all(len(r.out_tokens) == new_tokens
               and all(0 <= t < vocab for t in r.out_tokens)
@@ -3139,6 +3171,318 @@ def family_big(torch, K, card, prompts, arch, dev):
     return runner.launches
 
 
+# --------------------------------------------------------------- phase 11 --
+
+#: phase 11: the encdec model at full size, one batch of ENCDEC_BATCH
+#: requests: stub frames of ENCDEC_FRAMES positions, prompts of
+#: ENCDEC_PROMPT tokens, ENCDEC_NEW new tokens, greedy
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+ENCDEC_BATCH, ENCDEC_FRAMES, ENCDEC_PROMPT, ENCDEC_NEW = 8, 256, 16, 32
+#: the hybrid model at full width, bf16 weights, cut in whole super-blocks:
+#: requests of phase 6's prompts, new tokens, of them again with jit=False
+HYBRID_ARCH = "jamba-v0.1-52b"
+HYBRID_REQUESTS, HYBRID_NEW, HYBRID_EAGER = 8, 16, 2
+#: HBM bytes/s of the byte bounds printed
+HBM_RATE = PEAKS["SXM"][0]
+
+
+def conv_per_prefill(cfg) -> int:
+    """causal_conv1d launches per prefill: one per Mamba layer (an ssm
+    model's every layer, a hybrid model's period - 1 a super-block)."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_period * (cfg.attn_period - 1)
+    return cfg.n_layers
+
+
+def phase_encdec_hybrid(torch, K, card, prompts, dev="cuda"):
+    """The encdec and hybrid families (module docstring, 11), the first
+    model freed before the second is made. Returns the launch count of
+    every kernel over the runs."""
+    launches = dict.fromkeys((k.__name__ for k in K.KERNELS), 0)
+    for run in (lambda: family_encdec(torch, K, card, dev),
+                lambda: family_hybrid(torch, K, card, prompts, dev)):
+        for k, v in run().items():
+            launches[k] += v
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()    # the model is gone
+    return launches
+
+
+def encdec_generate(torch, params, cfg, frames, toks, prefill, decode,
+                    captured, dev):
+    """Greedy ``ENCDEC_NEW`` tokens for the batch: the prefill, then the
+    decode step eager or (``captured``) captured once with
+    ``graph.capture`` over the cache, which the step updates in place, and
+    replayed with the length advanced in place. Returns (the (B, new)
+    token ids on the host, the TTFT of the batch in seconds, decode-step
+    ms by CUDA events, the captured step or None, the cache)."""
+    from repro_torch.graph.capture import capture
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"frames": frames, "tokens": toks})
+    tok = logits[:, -1:].argmax(-1)
+    sync(torch, dev)
+    ttft = time.perf_counter() - t0
+    out, cap = [tok], None
+    on_card = torch.device(dev).type == "cuda"
+    if captured and on_card:            # a host run has no graphs
+        # the graph's static input: a copy, written before each replay
+        cap, logits = capture(lambda t: decode(params, t, cache)[0],
+                              (tok.clone(),), key="encdec.decode")
+        cache["len"].add_(1)
+        out.append(logits[:, -1:].argmax(-1))
+    if on_card:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+    t0 = time.perf_counter()
+    while len(out) < ENCDEC_NEW:
+        if cap is not None:
+            cap.inputs[0].copy_(out[-1])
+            logits = cap.replay()
+            cache["len"].add_(1)
+        else:
+            logits, cache = decode(params, out[-1], cache)
+        out.append(logits[:, -1:].argmax(-1))
+    steps = ENCDEC_NEW - 1 - (cap is not None)
+    if on_card:
+        end.record()
+        end.synchronize()
+        step_ms = start.elapsed_time(end) / steps
+    else:
+        step_ms = 1e3 * (time.perf_counter() - t0) / steps
+    check(int(cache["len"]) == toks.shape[1] + ENCDEC_NEW - 1,
+          f"encdec: cache length {int(cache['len'])} after the run")
+    return (torch.cat(out, 1).cpu().numpy(), ttft, step_ms, cap, cache)
+
+
+def family_encdec(torch, K, card, dev, n_layers=None, vocab=None,
+                  frames_len=ENCDEC_FRAMES):
+    """seamless-m4t-large-v2 at full size (the depth and vocabulary
+    overridable for a host rehearsal): seeded weights made on the card,
+    the matrices cast to bf16 once (``cast_params``); one batch of
+    ``ENCDEC_BATCH`` requests through ``api.prefill_fn`` / ``decode_fn``,
+    the decode step captured, then eager: streams equal, the logits
+    finite; the captured step's time, device busy and idle, its byte
+    bound, the TTFT of the batch."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.models import transformer as T
+    cfg = get_config(ENCDEC_ARCH)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers,
+                                  n_encoder_layers=n_layers, vocab=vocab)
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, torch.Generator(device=dev)
+                             .manual_seed(SEED), device=dev)
+    sync(torch, dev)
+    made = sum(v.numel() for v in _leaves(params))
+    d = cfg.d_model
+    # param_count counts an untied unembedding (the config's
+    # tied_embeddings is False; the model ties it) and no final norms
+    check(made == cfg.param_count() - cfg.vocab * d + 2 * d,
+          f"encdec: {made} parameters, param_count {cfg.param_count()}")
+    print(f"[encdec] {cfg.name}: {cfg.n_encoder_layers} encoder and "
+          f"{cfg.n_layers} decoder layers, d_model {d}, heads "
+          f"{cfg.n_heads} / {cfg.n_kv_heads} KV, d_ff {cfg.d_ff}, "
+          f"{cfg.act}, vocab {cfg.vocab}; {made:,} parameters "
+          f"({cfg.param_dtype}) made on the card in "
+          f"{time.perf_counter() - t0:.2f} s (param_count "
+          f"{cfg.param_count():,} counts an untied unembedding of "
+          f"{cfg.vocab * d:,}, which the model ties to the embedding, and "
+          "leaves out the two final norms); matrices cast to "
+          f"{cfg.compute_dtype} once")
+    params = T.cast_params(params, cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    frames = torch.randn((ENCDEC_BATCH, frames_len, d), generator=gen,
+                         device=dev).to(torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab, (ENCDEC_BATCH, ENCDEC_PROMPT),
+                         generator=gen, device=dev)
+    prefill = api.prefill_fn(cfg, ENCDEC_PROMPT + ENCDEC_NEW)
+    decode = api.decode_fn(cfg)
+    prefill(params, {"frames": frames, "tokens": toks})     # warm-up
+    K.reset_launches()
+    runs = {}
+    for captured in (True, False):
+        runs[captured] = encdec_generate(torch, params, cfg, frames, toks,
+                                         prefill, decode, captured, dev)
+    got = {k.__name__: k.launches for k in K.KERNELS}
+    check(not any(got.values()),
+          f"encdec: launches {got} (no kernel of the port is on its path)")
+    streams, ttft, step_ms, cap, cache = runs[True]
+    check(np.array_equal(streams, runs[False][0]),
+          "encdec: captured token streams differ from the eager ones")
+    check(streams.shape == (ENCDEC_BATCH, ENCDEC_NEW)
+          and ((0 <= streams) & (streams < cfg.vocab)).all(),
+          "encdec: a stream is short or holds an id outside the vocabulary")
+    print(f"[encdec] {ENCDEC_BATCH} requests (frames ({ENCDEC_BATCH}, "
+          f"{frames_len}, {d}) bf16, {ENCDEC_PROMPT}-token prompts), "
+          f"{ENCDEC_NEW} new tokens each: captured token streams equal to "
+          f"the eager ones; TTFT of the batch (encode + prefill) "
+          f"{ttft:.4f} s captured run, {runs[False][1]:.4f} s eager run; "
+          f"decode step {step_ms:.3f} ms captured, {runs[False][2]:.3f} ms "
+          f"eager (CUDA events, mean of the run's steps); first call of "
+          f"the captured step (eager pass + capture) "
+          f"{1e3 * cap.seconds if cap else 0:.1f} ms; on {card}")
+    if cap is None:
+        return got
+    # the step's bytes: the decoder's matrices and norms, the float32
+    # embedding (the tied unembedding), the self and cross K/V read
+    dec = sum(v.numel() * v.element_size()
+              for v in _leaves(params["dec_layers"]))
+    kv = sum(cache[k].numel() * cache[k].element_size()
+             for k in ("k", "v", "xk", "xv"))
+    emb = params["embed"].numel() * params["embed"].element_size()
+    bound_ms = 1e3 * (dec + kv + emb) / HBM_RATE
+    step = time_ms(torch, cap.replay, reps=5, trials=3)
+    rows = device_kernels(torch, cap.replay, 5)
+    busy = sum(r.us for r in rows) / 1e3
+    check(busy > 0, "torch.profiler saw no device time")
+    n_ops = sum(r.launches for r in rows)
+    print(f"[encdec-breakdown] one captured decode step of "
+          f"{ENCDEC_BATCH} rows at position {int(cache['len'])}: "
+          f"{step:.4f} ms (CUDA events), device busy {busy:.4f} ms in "
+          f"{n_ops:.0f} device operations, idle {1 - busy / step:.3f}; "
+          f"byte bound {bound_ms:.4f} ms ({(dec + kv + emb) / 1e9:.3f} GB: "
+          f"decoder weights {dec / 1e9:.3f}, float32 embedding "
+          f"{emb / 1e9:.3f}, K/V and cross K/V {kv / 1e9:.3f}, at "
+          f"{HBM_RATE / 1e12:.2f} TB/s), {step / bound_ms:.2f}x it")
+    for r in sorted(rows, key=lambda r: -r.us)[:6]:
+        kernel = r.key.replace("void ", "").replace("at::native::", "")
+        print(f"[encdec-breakdown]   {r.us:9.1f} us x{r.launches:4.0f}  "
+              f"{kernel[:100]}")
+    return got
+
+
+def hybrid_peak(cfg, n_layers) -> dict:
+    """The reckoned device bytes of serving ``cfg`` in "float" with bf16
+    weights at ``n_layers``: the weights, the float32 copy of the
+    unembedding (held by the eager allocator and by the graph pool), the
+    cache of LM_BATCH x LM_MAX_LEN counted directly (the K/V of the
+    attention sublayers, one a super-block, and the Mamba sublayers' conv
+    (bf16) and ssm (float32) state), and the static scheduler's prefill
+    of LM_BATCH prompts of the longest length LM_PROMPT[1]: its selective
+    scan holds about four float32 (B, L, d_inner, d_state) tensors at
+    once."""
+    cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    nb = n_layers // cfg.attn_period
+    nm = cfg.attn_period - 1
+    di = cfg.mamba.expand * cfg.d_model
+    f32_unembed = 4 * cfg.d_model * cfg.vocab
+    parts = {"weights": 2 * (cfg.param_count() + cfg.d_model),
+             "float32 unembedding (eager)": f32_unembed,
+             "float32 unembedding (graph pool)": f32_unembed,
+             "K/V": 2 * 2 * nb * LM_BATCH * LM_MAX_LEN * cfg.n_kv_heads
+             * cfg.head_dim,
+             "conv and ssm state": nb * nm * LM_BATCH * di
+             * (2 * (cfg.mamba.d_conv - 1) + 4 * cfg.mamba.d_state),
+             "static prefill's scan": 4 * 4 * LM_BATCH * LM_PROMPT[1] * di
+             * cfg.mamba.d_state}
+    return dict(parts, total=sum(parts.values()))
+
+
+def family_hybrid(torch, K, card, prompts, dev, blocks=None):
+    """jamba-v0.1-52b at full width with bf16 weights, cut in whole
+    super-blocks to the most that leave ``BIG_HEADROOM`` free under the
+    reckoned peak (``blocks`` forces a count, for a host rehearsal): the
+    cut printed; HYBRID_REQUESTS requests of HYBRID_NEW tokens, captured
+    (causal_conv1d launched 7 times a super-block per prefill, checked by
+    the runner), the first HYBRID_EAGER again with jit=False (streams
+    equal; the (token, expert) pairs each decode step drops counted
+    there), the static scheduler on the same requests; one decode step's
+    breakdown, the byte bound of the weights, the peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as M
+    cfg = dataclasses.replace(get_config(HYBRID_ARCH),
+                              param_dtype="bfloat16")
+    on_card = torch.device(dev).type == "cuda"
+    free = torch.cuda.mem_get_info()[0] if on_card else float("inf")
+    period = cfg.attn_period
+    nb = cfg.n_layers // period if blocks is None else blocks
+    while blocks is None and nb > 1 and \
+            free - hybrid_peak(cfg, nb * period)["total"] < BIG_HEADROOM:
+        nb -= 1
+    peak = hybrid_peak(cfg, nb * period)
+    print(f"[hybrid] {HYBRID_ARCH}: {cfg.n_layers} layers in "
+          f"{cfg.n_layers // period} super-blocks of {period}; reckoned peak "
+          f"of {nb} (" + ", ".join(f"{k} {v / 1e9:.3f} GB"
+                                    for k, v in peak.items())
+          + f"), of {nb + 1}: "
+          f"{hybrid_peak(cfg, (nb + 1) * period)['total'] / 1e9:.2f} GB; "
+          + (f"{free / 1e9:.2f} GB free on the card: " if on_card else "")
+          + f"depth cut to {nb} super-blocks, {nb * period} of "
+          f"{cfg.n_layers} layers"
+          + (f", leaving {BIG_HEADROOM / 1e9:.0f} GB free" if on_card
+             else ""))
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    runner, served = family_runner(torch, K, card, cfg, prompts, dev,
+                                   new_tokens=HYBRID_NEW,
+                                   n_layers=nb * period)
+    cfg = runner.cfg
+    streams, served = runner.streams, served[:HYBRID_REQUESTS]
+    eng, _ = runner.run("hybrid", "float", served)
+    weights = sum(v.numel() * v.element_size()
+                  for v in _leaves(eng.params))
+    print(f"[hybrid] byte bound of a decode step's weights: "
+          f"{weights / 1e9:.3f} GB at {HBM_RATE / 1e12:.2f} TB/s = "
+          f"{1e3 * weights / HBM_RATE:.3f} ms (every expert's weights: "
+          "the experts run as one batched matmul over their capacity "
+          "rows)")
+    if on_card:
+        lm_breakdown(torch, "hybrid float", eng, cfg, dev,
+                     port=("gemm", "nvjet"), what="the cuBLAS matmuls "
+                     "(attention, Mamba projections, experts, FFN, "
+                     "unembedding)")
+    # one captured engine (its graph pool) at a time
+    runner.engines.clear()
+    del eng
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    per_prefill = conv_per_prefill(cfg)
+    drops, real = [], M._dispatch_combine
+
+    def counted(x2d, probs, ids, fn, e, cap):
+        over = torch.bincount(ids.reshape(-1), minlength=e) - cap
+        drops.append((x2d.shape[0], over.clamp(min=0).sum()))
+        return real(x2d, probs, ids, fn, e, cap)
+    M._dispatch_combine = counted
+    try:
+        runner.run("hybrid", "float jit=False", served[:HYBRID_EAGER],
+                   jit=False)
+    finally:
+        M._dispatch_combine = real
+    check(streams["float jit=False"] == streams["float"][:HYBRID_EAGER],
+          "hybrid: jit=False token streams differ from the captured "
+          "engine's")
+    n_moe = cfg.n_layers // cfg.moe.every_n_layers
+    step = [int(d) for t, d in drops if t == LM_BATCH]
+    per_step = np.add.reduceat(step, range(0, len(step), n_moe))
+    pairs = LM_BATCH * cfg.moe.top_k
+    print(f"[hybrid] captured token streams equal to jit=False's "
+          f"({HYBRID_EAGER} x {HYBRID_NEW} tokens); causal_conv1d "
+          f"{per_prefill} launches a prefill ({cfg.attn_period - 1} Mamba "
+          f"sublayers x {nb} super-blocks), none a decode step; dropped "
+          f"(token, expert) pairs in a decode step of {LM_BATCH} slots "
+          f"(capacity {M._capacity(LM_BATCH, cfg.moe)} an expert, {pairs} "
+          f"pairs a MoE layer, {n_moe} MoE layers): mean "
+          f"{np.mean(per_step):.1f} (min {per_step.min()}, max "
+          f"{per_step.max()}) of {pairs * n_moe} a step over "
+          f"{len(per_step)} jit=False steps")
+    runner.run("hybrid", "float static", served, warm=served, graphs=1,
+               scheduler="static")
+    print(f"[hybrid] static: token agreement with the continuous engine "
+          f"{agreement(streams['float static'], streams['float']):.4f} "
+          "(the left pads run through the recurrence; not gated)")
+    if on_card:
+        print(f"[hybrid] peak allocated "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, reserved "
+              f"{torch.cuda.max_memory_reserved() / 1e9:.2f} GB against "
+              f"the reckoned {peak['total'] / 1e9:.2f} GB, on {card}")
+    return runner.launches
+
+
 # ---------------------------------------------------------------- phase 8 --
 
 #: phase 8: the phase-4 plans served again with the tuned cache installed
@@ -3524,6 +3868,9 @@ def main() -> int:
     torch.cuda.empty_cache()    # phase 7's model is gone
     with phase_clock("10 families"):
         add(phase_families(torch, K, card, lm_prompts))
+    torch.cuda.empty_cache()    # phase 10's last model is gone
+    with phase_clock("11 encdec-hybrid"):
+        add(phase_encdec_hybrid(torch, K, card, lm_prompts))
     print(f"[time] the run so far {time.perf_counter() - t_start:.1f} s")
 
     rows = []
@@ -3554,9 +3901,10 @@ def main() -> int:
           "(contiguous, paged, static), the ssm run, the families runs "
           "the tuner's run "
           "(phase 8) and the five trained plans' "
-          f"forwards and profiles (phase 9) and the families runs (phase "
-          f"10: internvl2-1b and granite-3-2b in int8 and w4a8); card: "
-          f"{card}")
+          f"forwards and profiles (phase 9), the families runs (phase "
+          f"10: internvl2-1b and granite-3-2b in int8 and w4a8) and the "
+          f"hybrid runs' prefills (phase 11: jamba-v0.1-52b, 7 "
+          f"causal_conv1d launches a super-block); card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -6,9 +6,7 @@ The port's own copy of ``MoEConfig``, ``MambaConfig``, ``ModelConfig``,
 describes the same model on both sides, and the same analytic
 ``param_count``. The dtype fields are names (``"float32"``,
 ``"bfloat16"``) that :func:`torch_dtype` turns into torch dtypes. The
-registry holds the configs of the families the port builds (dense, vlm,
-moe, ssm); the hybrid and encdec configs come with their families
-(ROADMAP.md, queue A).
+registry holds the configs of all ten of the JAX package's architectures.
 """
 from __future__ import annotations
 
@@ -161,6 +159,5 @@ def get_config(arch: str) -> ModelConfig:
         except ModuleNotFoundError:
             raise KeyError(
                 f"unknown arch {arch!r}: the port has "
-                f"{', '.join(registered())}; the hybrid and encdec configs "
-                "come with their families (ROADMAP.md, queue A)") from None
+                f"{', '.join(registered())}") from None
     return _REGISTRY[arch]

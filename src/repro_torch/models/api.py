@@ -2,25 +2,28 @@
 against cached prefix K/V), decode and the KV cache helpers of continuous
 batching, contiguous and paged.
 
-Port of the dense, vlm, moe and ssm part of ``repro/models/api.py``
-(vlm and moe keep the dense family's caches). The continuous-batching
-engine keeps ONE live batched decode cache with per-slot lengths and
-splices freshly prefilled requests into free slots between decode rounds;
-these helpers own the cache layout (:func:`slot_batch_axes`): (L, B, S,
-Hkv, D) K and V for the attention families (in the cache dtype, or int8
-codes with (L, B, S, Hkv) float32 ``k_scale`` / ``v_scale``), (L, B, K-1,
-d_inner) conv and (L, B, d_inner, d_state) ssm state for the ssm family,
-plus a (B,) ``"len"`` vector. The paged layout (:func:`init_paged_cache`,
-attention families only)
-keeps K/V in pools of fixed-size pages instead, (L, NB, bs, Hkv, D) each
-(int8 codes with (L, NB, bs, Hkv) scale pools beside them), plus a (B,
-max_len // bs) int32 ``"block_table"`` shared by every layer and the (B,)
-``"len"``; page 0 is the reserved garbage page that a retired slot's
-zeroed table row writes into. The engine owns the pages (its
-``BlockPool``) and the table on the host. Unlike the JAX helpers, which
-return new arrays, the slot and page writes here update the live cache in
-place and return a dict holding the same tensors, so a captured decode
-step that reads the cache by address stays valid across them.
+Port of the serve half of ``repro/models/api.py``, every family (vlm and moe
+keep the dense family's caches; encdec runs
+:mod:`~repro_torch.models.encdec`, whose batch carries the encoder's
+``"frames"`` and whose cache is per batch, not slotted). The
+continuous-batching engine keeps ONE live batched decode cache with per-slot
+lengths and splices freshly prefilled requests into free slots between
+decode rounds; these helpers own the cache layout (:func:`slot_batch_axes`):
+(L, B, S, Hkv, D) K and V for the attention families (in the cache dtype, or
+int8 codes with (L, B, S, Hkv) float32 ``k_scale`` / ``v_scale``), (L, B,
+K-1, d_inner) conv and (L, B, d_inner, d_state) ssm state for the ssm
+family, both for the hybrid family (K/V per super-block, (nb, B, S, Hkv, D);
+conv and ssm state (nb, period - 1, B, ...)), plus a (B,) ``"len"`` vector.
+The paged layout (:func:`init_paged_cache`, attention families only) keeps
+K/V in pools of fixed-size pages instead, (L, NB, bs, Hkv, D) each (int8
+codes with (L, NB, bs, Hkv) scale pools beside them), plus a (B, max_len //
+bs) int32 ``"block_table"`` shared by every layer and the (B,) ``"len"``;
+page 0 is the reserved garbage page that a retired slot's zeroed table row
+writes into. The engine owns the pages (its ``BlockPool``) and the table on
+the host. Unlike the JAX helpers, which return new arrays, the slot and page
+writes here update the live cache in place and return a dict holding the
+same tensors, so a captured decode step that reads the cache by address
+stays valid across them.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 
 from . import attention as A
+from . import encdec as E
 from . import transformer as T
 
 
@@ -40,7 +44,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
     """Random parameters drawn from ``generator`` (on its own device), on
     ``device``."""
     dev = resolve_device(device)
-    params = T.init_lm(cfg, generator)
+    T.check_family(cfg, "init_params")
+    params = (E.init_encdec(cfg, generator) if cfg.family == "encdec"
+              else T.init_lm(cfg, generator))
 
     def to(tree):
         if isinstance(tree, dict):
@@ -53,9 +59,19 @@ def prefill_fn(cfg: ModelConfig, max_len: int, *, attn_impl="flash",
                precision: str = "float", attn_block_k: int = 256):
     """``fn(params, batch)``: :func:`~repro_torch.models.transformer.
     prefill` of ``batch["tokens"]``, with a vlm model's ``batch["embeds"]``
-    ahead of them and ``batch["prompt_lens"]`` where given."""
+    ahead of them and ``batch["prompt_lens"]`` where given; for an encdec
+    model :func:`~repro_torch.models.encdec.encdec_prefill` of
+    ``batch["frames"]`` and ``batch["tokens"]`` (``"float"`` only, as in
+    JAX)."""
     T.check_family(cfg, "prefill_fn")
     T.check_precision(precision)
+    if cfg.family == "encdec":
+        _check_encdec_precision(precision)
+
+        def encdec_fn(params, batch):
+            return E.encdec_prefill(params, batch["frames"], batch["tokens"],
+                                    cfg, max_len, attn_impl=attn_impl)
+        return encdec_fn
     T.check_ssm_precision(cfg, precision, "prefill")
 
     def fn(params, batch):
@@ -89,9 +105,19 @@ def prefill_suffix_fn(cfg: ModelConfig, *, attn_impl="flash",
     return fn
 
 
+def _check_encdec_precision(precision: str):
+    if precision != "float":
+        raise NotImplementedError("integer-FFN serve: encdec unsupported")
+
+
 def decode_fn(cfg: ModelConfig, *, precision: str = "float"):
+    """``fn(params, token, cache)``: one decode step of the model's
+    family."""
     T.check_family(cfg, "decode_fn")
     T.check_precision(precision)
+    if cfg.family == "encdec":
+        _check_encdec_precision(precision)
+        return functools.partial(E.encdec_decode_step, cfg=cfg)
     T.check_ssm_precision(cfg, precision, "decode")
     return functools.partial(T.decode_step, cfg=cfg, precision=precision)
 

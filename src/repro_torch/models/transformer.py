@@ -1,19 +1,27 @@
-"""Decoder-only LM, dense, vlm, moe and ssm families: init, prefill and
-one-token decode.
+"""Decoder-only LM, dense, vlm, moe, ssm and hybrid families: init, prefill
+and one-token decode.
 
-Port of the dense, vlm, moe and ssm parts of
-``repro/models/transformer.py``. A vlm model is the dense stack with a
-prefix of modality embeddings: :func:`prefill` takes ``embeds`` (B, P,
-d_model) ahead of the tokens (the frontend that makes them is a stub in
-the JAX package too). A moe model's layers carry a ``"moe"`` tree (router,
-stacked expert weights; :mod:`~repro_torch.models.moe`) in place of the
-``"mlp"`` one, or beside it where ``dense_residual`` adds a dense FFN.
-Parameters keep the JAX package's layer-stacked layout (every leaf of
-``params["layers"]`` carries a leading layer axis), so a JAX parameter
-tree carries across leaf by leaf
+Port of the decoder-only parts of ``repro/models/transformer.py``. A vlm
+model is the dense stack with a prefix of modality embeddings:
+:func:`prefill` takes ``embeds`` (B, P, d_model) ahead of the tokens (the
+frontend that makes them is a stub in the JAX package too). A moe model's
+layers carry a ``"moe"`` tree (router, stacked expert weights;
+:mod:`~repro_torch.models.moe`) in place of the ``"mlp"`` one, or beside
+it where ``dense_residual`` adds a dense FFN. Parameters keep the JAX
+package's layer-stacked layout (every leaf of ``params["layers"]`` carries
+a leading layer axis), so a JAX parameter tree carries across leaf by leaf
 (``repro_torch.weights.lm_params_from_numpy``). Where the JAX package
 scans over the stack, the port loops over it in Python, taking each layer
 as views of the stacked tensors.
+
+A hybrid (Jamba) model stacks super-blocks of ``attn_period`` sublayers
+instead, ``params["blocks"]``: sublayer ``attn_offset`` mixes with
+attention, the others with a Mamba block, and every sublayer ``i`` with
+``i % moe.every_n_layers == 1`` takes the MoE FFN, the others the dense
+one. Its leaves are ``ln_mix`` / ``ln_ffn`` (nb, period, d), ``attn``
+(nb, ...), ``mamba`` (nb, period - 1, ...), ``moe`` (nb, n_moe, E, ...)
+and ``mlp`` (nb, n_dense, ...), as JAX lays them out. The encoder-decoder
+family is :mod:`~repro_torch.models.encdec`'s.
 
 Serving state is a contiguous KV cache, ``{"k", "v"}`` of (L, B, S, Hkv,
 D) plus ``"len"``: a (B,) vector of per-slot lengths, or a scalar for a
@@ -31,7 +39,11 @@ the returned dict holds the same tensors, and a new ``"len"``. An ssm
 dtype and ``{"ssm"}`` (L, B, d_inner, d_state) in float32, plus
 ``"len"``; decode overwrites it in place too. Its prefill runs the
 ``causal_conv1d`` CUDA kernel once per layer; its recurrence is
-position-exact, so a prompt is prefilled at its exact length.
+position-exact, so a prompt is prefilled at its exact length. A hybrid
+model's state is both: K/V (nb, B, S, Hkv, D) of its nb attention
+sublayers, and conv (nb, period - 1, B, K-1, d_inner) and ssm (nb,
+period - 1, B, d_inner, d_state) of its Mamba sublayers; its prefill runs
+``causal_conv1d`` once per Mamba sublayer.
 
 ``precision`` picks the FFN: ``"float"``, or the integer modes of the
 serving engine — ``"int8"`` / ``"w4a8"`` through the ``matmul_q8`` /
@@ -44,10 +56,10 @@ suffix runs, against its prefix's cached K/V. Bitwise the full prefill on
 the host; the port's engine serves no hit with it (on a card a suffix's
 rows do not get the bits the whole prompt's get).
 
-Not ported yet, and raising ``NotImplementedError``: the hybrid and
-encdec families, training (ROADMAP.md, queue A). The ssm family runs in
-``"float"`` precision only, as in the JAX package; the serving engine
-keeps moe in ``"float"`` too (JAX's gate).
+Not ported yet: training (``forward``, ``hybrid_block``, ``lm_loss``;
+ROADMAP.md, A7). The ssm and hybrid families run in ``"float"`` precision
+only, as in the JAX package; the serving engine keeps moe in ``"float"``
+too (JAX's gate).
 """
 from __future__ import annotations
 
@@ -63,8 +75,8 @@ from .mamba import (init_mamba, mamba_decode_step, mamba_forward_with_state,
                     mamba_init_state)
 from .moe import init_moe, moe_ffn
 
-#: the families :func:`check_family` admits
-FAMILIES = ("dense", "vlm", "moe", "ssm")
+#: the families :func:`check_family` admits: every family a config uses
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
 #: the families whose cache is not the attention stack's (L, B, S, Hkv, D)
 #: K/V (JAX's gates: no paged or int8 KV cache, no integer FFN for them)
 NOT_DENSE_KV = ("ssm", "hybrid", "encdec")
@@ -75,13 +87,20 @@ def _cdt(cfg: ModelConfig):
 
 
 def check_family(cfg: ModelConfig, what: str):
-    """Raise unless ``cfg`` is of a family the port builds: dense, vlm,
-    moe or ssm."""
+    """Raise unless ``cfg`` names a family the port builds."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{what}: the port builds the dense, vlm, moe and ssm families "
-            f"only, not {cfg.family!r} (ROADMAP.md, queue A: encdec "
-            "follows, hybrid after A3's fused scan)")
+            f"{what}: unknown model family {cfg.family!r}; the port builds "
+            f"{', '.join(FAMILIES)}")
+
+
+def _check_decoder(cfg: ModelConfig, what: str):
+    """This module's entry points build the decoder-only families."""
+    check_family(cfg, what)
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            f"{what}: an encdec model is models/encdec.py's (api.init_params"
+            ", prefill_fn and decode_fn dispatch to it)")
 
 
 def check_ssm_precision(cfg: ModelConfig, precision: str, what: str):
@@ -99,6 +118,30 @@ def check_precision(precision: str):
 
 # ===================================================================== init
 
+def init_attn(generator: torch.Generator, cfg: ModelConfig, dtype,
+              n_layers: int) -> dict:
+    """Stacked attention weights drawn from ``generator`` on its device, in
+    the JAX package's layout and scales: ``wq`` / ``wk`` / ``wv`` (n, d,
+    H * Dh) * d^-1/2, ``wo`` (n, Hq * Dh, d) * (Hq * Dh)^-1/2, zero biases
+    where the config has ``qkv_bias``."""
+    d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dev = generator.device
+
+    def normal(shape, std):
+        return torch.randn((n_layers,) + shape, generator=generator,
+                           dtype=dtype, device=dev).mul_(std)
+    attn = {"wq": normal((d, hq * dh), d ** -0.5),
+            "wk": normal((d, hkv * dh), d ** -0.5),
+            "wv": normal((d, hkv * dh), d ** -0.5),
+            "wo": normal((hq * dh, d), (hq * dh) ** -0.5)}
+    if cfg.qkv_bias:
+        for name, width in (("bq", hq * dh), ("bk", hkv * dh),
+                            ("bv", hkv * dh)):
+            attn[name] = torch.zeros((n_layers, width), dtype=dtype,
+                                     device=dev)
+    return attn
+
+
 def init_lm(cfg: ModelConfig, generator: torch.Generator) -> dict:
     """Random parameters drawn from ``generator`` on its device, in the JAX
     package's layout and scales (normal embeddings * 0.02, normal matmul
@@ -107,12 +150,11 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator) -> dict:
     as :func:`~repro_torch.models.moe.init_moe`), in ``param_dtype``. Each
     stacked FFN leaf is allocated once and filled layer by layer, so the
     FFN stack is never held twice (granite-34b's bf16 FFN alone is 53
-    GB)."""
-    check_family(cfg, "init_lm")
+    GB). A hybrid model's super-blocks: :func:`_init_hybrid_blocks`."""
+    _check_decoder(cfg, "init_lm")
     pdt = torch_dtype(cfg.param_dtype)
     dev = generator.device
-    d, hq, hkv, dh, nl = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                          cfg.head_dim, cfg.n_layers)
+    d, nl = cfg.d_model, cfg.n_layers
 
     def normal(shape, std):
         return torch.randn(shape, generator=generator, dtype=pdt,
@@ -129,15 +171,11 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator) -> dict:
                             "mamba": init_mamba(generator, d, cfg.mamba, pdt,
                                                 n_layers=nl)}
         return params
-    attn = {"wq": normal((nl, d, hq * dh), d ** -0.5),
-            "wk": normal((nl, d, hkv * dh), d ** -0.5),
-            "wv": normal((nl, d, hkv * dh), d ** -0.5),
-            "wo": normal((nl, hq * dh, d), (hq * dh) ** -0.5)}
-    if cfg.qkv_bias:
-        for name, width in (("bq", hq * dh), ("bk", hkv * dh),
-                            ("bv", hkv * dh)):
-            attn[name] = torch.zeros((nl, width), dtype=pdt, device=dev)
-    layers = {"ln1": ones(nl, d), "ln2": ones(nl, d), "attn": attn}
+    if cfg.family == "hybrid":
+        params["blocks"] = _init_hybrid_blocks(cfg, generator, pdt)
+        return params
+    layers = {"ln1": ones(nl, d), "ln2": ones(nl, d),
+              "attn": init_attn(generator, cfg, pdt, nl)}
     if cfg.moe is not None:
         layers["moe"] = init_moe(generator, d, cfg.moe, cfg.act, pdt,
                                  n_layers=nl)
@@ -148,6 +186,41 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator) -> dict:
     return params
 
 
+def _hybrid_counts(cfg: ModelConfig) -> tuple:
+    """(super-blocks, Mamba sublayers a block, MoE FFNs a block, dense FFNs
+    a block)."""
+    period = cfg.attn_period
+    n_moe = period // cfg.moe.every_n_layers
+    return cfg.n_layers // period, period - 1, n_moe, period - n_moe
+
+
+def _init_hybrid_blocks(cfg: ModelConfig, generator: torch.Generator, pdt):
+    """Jamba super-blocks, stacked as JAX's ``_init_hybrid_blocks`` lays
+    them out. Each sublayer stack is drawn over nb * n layers (each leaf
+    allocated once and filled in place) and viewed as (nb, n, ...)."""
+    nb, nm, n_moe, n_dense = _hybrid_counts(cfg)
+    d, dev = cfg.d_model, generator.device
+
+    def per_block(tree, n):
+        return {k: v.view((nb, n) + tuple(v.shape[1:]))
+                for k, v in tree.items()}
+    return {
+        "ln_mix": torch.ones((nb, cfg.attn_period, d), dtype=pdt, device=dev),
+        "ln_ffn": torch.ones((nb, cfg.attn_period, d), dtype=pdt, device=dev),
+        "mamba": per_block(init_mamba(generator, d, cfg.mamba, pdt,
+                                      n_layers=nb * nm), nm),
+        "attn": init_attn(generator, cfg, pdt, nb),
+        "moe": per_block(init_moe(generator, d, cfg.moe, cfg.act, pdt,
+                                  n_layers=nb * n_moe), n_moe),
+        "mlp": per_block(init_mlp(generator, d, cfg.d_ff, cfg.act, pdt,
+                                  n_layers=nb * n_dense), n_dense),
+    }
+
+
+def _cast(tree: dict, cdt, keep=()) -> dict:
+    return {k: v if k in keep else v.to(cdt) for k, v in tree.items()}
+
+
 def cast_params(params: dict, cfg: ModelConfig, *, mlp_too: bool = True):
     """A copy of ``params`` whose attention weights and biases (and, with
     ``mlp_too``, the float FFN weights) are in the compute dtype: the
@@ -155,22 +228,29 @@ def cast_params(params: dict, cfg: ModelConfig, *, mlp_too: bool = True):
     For an ssm model: every Mamba leaf but ``A_log``, which stays float32
     (A = -exp(A_log) is computed from the float32 parameter, as in JAX).
     For a moe model: the expert weights; the router stays as it is (the
-    routing reads it in float32). The embedding (read in float32 by
+    routing reads it in float32). A hybrid model: each of those in its
+    super-blocks. An encdec model: the attention, cross-attention and FFN
+    weights of both stacks. The embedding (read in float32 by
     :func:`unembed`), the norms and any quantized tree are kept as they
     are."""
     cdt = _cdt(cfg)
-    layers = dict(params["layers"])
-    if cfg.family == "ssm":
-        layers["mamba"] = {k: v if k == "A_log" else v.to(cdt)
-                           for k, v in layers["mamba"].items()}
-        return dict(params, layers=layers)
-    layers["attn"] = {k: v.to(cdt) for k, v in layers["attn"].items()}
+    if cfg.family == "encdec":
+        return dict(params, **{
+            stack: dict(params[stack], **{
+                k: _cast(params[stack][k], cdt)
+                for k in ("attn", "xattn", "mlp") if k in params[stack]})
+            for stack in ("enc_layers", "dec_layers")})
+    key = "blocks" if cfg.family == "hybrid" else "layers"
+    layers = dict(params[key])
+    if "mamba" in layers:
+        layers["mamba"] = _cast(layers["mamba"], cdt, keep=("A_log",))
+    if "attn" in layers:
+        layers["attn"] = _cast(layers["attn"], cdt)
     if mlp_too and "mlp" in layers:
-        layers["mlp"] = {k: v.to(cdt) for k, v in layers["mlp"].items()}
+        layers["mlp"] = _cast(layers["mlp"], cdt)
     if "moe" in layers:
-        layers["moe"] = {k: v if k == "router" else v.to(cdt)
-                         for k, v in layers["moe"].items()}
-    return dict(params, layers=layers)
+        layers["moe"] = _cast(layers["moe"], cdt, keep=("router",))
+    return dict(params, **{key: layers})
 
 
 def _take(tree, l: int):
@@ -187,6 +267,26 @@ def _take(tree, l: int):
 
 def _layers(params: dict, cfg: ModelConfig):
     return [_take(params["layers"], l) for l in range(cfg.n_layers)]
+
+
+def _blocks(params: dict, cfg: ModelConfig):
+    return [_take(params["blocks"], b)
+            for b in range(_hybrid_counts(cfg)[0])]
+
+
+def _hybrid_layout(cfg: ModelConfig) -> list:
+    """Per sublayer of a super-block: ``((mixer, index), (ffn, index))``,
+    mixer ``"attn"`` or ``"mamba"``, ffn ``"moe"`` or ``"mlp"``, each
+    index the sublayer's place in its stack of the block."""
+    seen = {"attn": 0, "mamba": 0, "moe": 0, "mlp": 0}
+    out = []
+    for i in range(cfg.attn_period):
+        kinds = ("attn" if i == cfg.attn_offset else "mamba",
+                 "moe" if i % cfg.moe.every_n_layers == 1 else "mlp")
+        out.append(tuple((k, seen[k]) for k in kinds))
+        for k in kinds:
+            seen[k] += 1
+    return out
 
 
 # ==================================================================== layers
@@ -312,6 +412,14 @@ def ffn_forward(lp, x, cfg: ModelConfig, cdt, precision: str = "float"):
     return mlp(x, lp["mlp"], cfg.act, cdt)
 
 
+def _hybrid_ffn(x, bp, kind: str, j: int, cfg: ModelConfig, cdt):
+    """Sublayer FFN ``j`` of its kind (``"moe"`` or ``"mlp"``) of the
+    super-block ``bp``."""
+    if kind == "moe":
+        return moe_ffn(x, _take(bp["moe"], j), cfg.moe, cfg.act, cdt)
+    return mlp(x, _take(bp["mlp"], j), cfg.act, cdt)
+
+
 def embed_tokens(params, tokens, cfg: ModelConfig, cdt):
     return params["embed"][tokens].to(cdt)
 
@@ -325,7 +433,18 @@ def unembed(params, h, cfg: ModelConfig):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cuda"):
-    check_family(cfg, "init_cache")
+    _check_decoder(cfg, "init_cache")
+    if cfg.family == "hybrid":
+        nb, nm, _, _ = _hybrid_counts(cfg)
+        st = mamba_init_state(cfg.d_model, cfg.mamba, batch, dtype, device)
+        kv = (nb, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(kv, dtype=dtype, device=device),
+                "v": torch.zeros(kv, dtype=dtype, device=device),
+                "conv": torch.zeros((nb, nm) + st["conv"].shape,
+                                    dtype=dtype, device=device),
+                "ssm": torch.zeros((nb, nm) + st["ssm"].shape,
+                                   dtype=torch.float32, device=device),
+                "len": torch.zeros((), dtype=torch.int32, device=device)}
     if cfg.family == "ssm":
         st = mamba_init_state(cfg.d_model, cfg.mamba, batch, dtype, device)
         return {"conv": st["conv"].expand((cfg.n_layers,)
@@ -353,9 +472,9 @@ def decode_step(params, token, cache, cfg: ModelConfig, *,
     """One-token serve step. token: (B, 1) int. Returns ``(logits (B,1,V)
     float32, cache)`` with the cache's K/V (an int8 cache: codes and
     scales; a paged cache: its pools' page slots; an ssm model: its conv
-    and ssm states) written in place and ``"len"`` a new tensor, advanced
-    by one."""
-    check_family(cfg, "decode_step")
+    and ssm states; a hybrid model: both) written in place and ``"len"`` a
+    new tensor, advanced by one."""
+    _check_decoder(cfg, "decode_step")
     check_ssm_precision(cfg, precision, "decode")
     _check_cache(cfg, cache)
     cdt = _cdt(cfg)
@@ -376,6 +495,10 @@ def decode_step(params, token, cache, cfg: ModelConfig, *,
         return unembed(params, h, cfg), dict(cache, len=clen + 1)
     lockstep = clen.dim() == 0
     cl = clen.expand(b) if lockstep else clen
+    if cfg.family == "hybrid":
+        h = _hybrid_decode_blocks(params, h, cfg, cdt, cache, cl, lockstep)
+        h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+        return unembed(params, h, cfg), dict(cache, len=clen + 1)
     for l, lp in enumerate(_layers(params, cfg)):
         x = rmsnorm(h, lp["ln1"], cfg.norm_eps)
         scales = ((cache["k_scale"][l], cache["v_scale"][l])
@@ -395,6 +518,30 @@ def decode_step(params, token, cache, cfg: ModelConfig, *,
     return unembed(params, h, cfg), dict(cache, len=clen + 1)
 
 
+def _hybrid_decode_blocks(params, h, cfg: ModelConfig, cdt, cache, cl,
+                          lockstep: bool):
+    """One token through the super-blocks: each attention sublayer writes
+    its K/V into the block's cache row, each Mamba sublayer overwrites its
+    conv and ssm state, in place."""
+    for b, bp in enumerate(_blocks(params, cfg)):
+        for i, ((mix, j), (ffn, jf)) in enumerate(_hybrid_layout(cfg)):
+            x = rmsnorm(h, bp["ln_mix"][i], cfg.norm_eps)
+            if mix == "attn":
+                h = h + attn_decode(bp["attn"], x, cfg, cdt, cache["k"][b],
+                                    cache["v"][b], cl, lockstep=lockstep)
+            else:
+                conv, ssm = cache["conv"][b, j], cache["ssm"][b, j]
+                y, st = mamba_decode_step(_take(bp["mamba"], j), x,
+                                          {"conv": conv, "ssm": ssm},
+                                          cfg.mamba, cdt)
+                conv.copy_(st["conv"])
+                ssm.copy_(st["ssm"])
+                h = h + y
+            h = h + _hybrid_ffn(rmsnorm(h, bp["ln_ffn"][i], cfg.norm_eps),
+                                bp, ffn, jf, cfg, cdt)
+    return h
+
+
 def prefill(params, tokens, cfg: ModelConfig, max_len: int, *, embeds=None,
             attn_impl: str = "flash", prompt_lens=None,
             precision: str = "float", attn_block_k: int = 256):
@@ -410,10 +557,10 @@ def prefill(params, tokens, cfg: ModelConfig, max_len: int, *, embeds=None,
     them from attending the trailing pads, pad K/V land at positions the
     per-slot decode mask never reads, logits are taken at each row's last
     real position, and ``cache["len"]`` is the length vector. Right-padding
-    is exact for the dense family only: an ssm recurrence folds every
-    position into its state, so its callers pass exact lengths
+    is exact for the attention families only: an ssm or hybrid recurrence
+    folds every position into its state, so its callers pass exact lengths
     (``prompt_lens[i] == S``), as the serving engine does."""
-    check_family(cfg, "prefill")
+    _check_decoder(cfg, "prefill")
     check_ssm_precision(cfg, precision, "prefill")
     cdt = _cdt(cfg)
     b = tokens.shape[0]
@@ -423,6 +570,12 @@ def prefill(params, tokens, cfg: ModelConfig, max_len: int, *, embeds=None,
         h = torch.cat([embeds.to(cdt), h], dim=1)
     if cfg.family == "ssm":
         h = _ssm_prefill_layers(params, h, cfg, cdt, cache)
+    elif cfg.family == "hybrid":
+        for blk, bp in enumerate(_blocks(params, cfg)):
+            h, st = _hybrid_block_with_state(h, bp, cfg, cdt, attn_impl,
+                                             max_len)
+            for key in ("k", "v", "conv", "ssm"):
+                cache[key][blk] = st[key].to(cache[key].dtype)
     else:
         h = _dense_prefill_layers(params, h, cfg, cdt, cache, attn_impl,
                                   precision, attn_block_k)
@@ -448,6 +601,36 @@ def _ssm_prefill_layers(params, h, cfg: ModelConfig, cdt, cache):
         cache["ssm"][l] = st["ssm"]
         h = h + y
     return h
+
+
+def _pad_seq(x, max_len: int):
+    """(B, S, H, D) zero-padded along S to ``max_len``."""
+    return torch.nn.functional.pad(x, (0, 0, 0, 0, 0, max_len - x.shape[1]))
+
+
+def _hybrid_block_with_state(h, bp, cfg: ModelConfig, cdt, attn_impl,
+                             max_len: int):
+    """One super-block over the prompt (JAX's ``_hybrid_block_with_state``):
+    returns ``(h, {"k", "v", "conv", "ssm"})``, the attention sublayer's
+    K/V zero-padded to ``max_len`` and the Mamba sublayers' final conv and
+    ssm states stacked, (period - 1, B, ...)."""
+    convs, ssms, kv = [], [], None
+    for i, ((mix, j), (ffn, jf)) in enumerate(_hybrid_layout(cfg)):
+        x = rmsnorm(h, bp["ln_mix"][i], cfg.norm_eps)
+        if mix == "attn":
+            a, (k, v) = attn_forward(bp["attn"], x, cfg, cdt, impl=attn_impl)
+            h = h + a
+            kv = (_pad_seq(k, max_len), _pad_seq(v, max_len))
+        else:
+            y, st = mamba_forward_with_state(_take(bp["mamba"], j), x,
+                                             cfg.mamba, cdt)
+            h = h + y
+            convs.append(st["conv"])
+            ssms.append(st["ssm"])
+        h = h + _hybrid_ffn(rmsnorm(h, bp["ln_ffn"][i], cfg.norm_eps), bp,
+                            ffn, jf, cfg, cdt)
+    return h, {"k": kv[0], "v": kv[1], "conv": torch.stack(convs),
+               "ssm": torch.stack(ssms)}
 
 
 def _dense_prefill_layers(params, h, cfg: ModelConfig, cdt, cache, attn_impl,

@@ -1,25 +1,31 @@
 """LM serve engine over a fixed (max_batch, max_len) budget: continuous
 batching over a contiguous or a paged KV cache, or static drain batches.
 
-Port of ``repro/serve/engine.py`` for the dense, vlm, moe and ssm
+Port of ``repro/serve/engine.py`` for the dense, vlm, moe, ssm and hybrid
 families (a vlm model is served text-only, as the JAX engine serves it:
-requests carry tokens, no patch embeddings). Two
+requests carry tokens, no patch embeddings). An encdec model is not
+served by the engine: its requests would need the encoder's frames, which
+a ``Request`` does not carry (the JAX engine sends it to its static
+scheduler, whose prefill then fails on the missing frames); it runs
+through ``models/api.prefill_fn`` / ``decode_fn``. Two
 schedulers share one ``Engine`` API; ``ServeConfig.scheduler`` picks:
 
 * ``"continuous"`` (default) — each admitted request is prefilled on its
   own, right-padded to a power-of-two length bucket (``prefill_bucket`` is
-  the floor; an ssm model's recurrence is position-exact, so its prompts
-  are prefilled at their exact length), and its K/V (or conv and ssm
-  state) and length are written into a free slot of the ONE live batched
-  cache (``models/api.cache_write_slot``). Decode then advances every
-  occupied slot one token per round with per-slot lengths. A sequence
+  the floor; an ssm or hybrid model's recurrence is position-exact, so its
+  prompts are prefilled at their exact length), and its K/V (or conv and ssm
+  state, or both) and length are written into a free slot of the ONE live
+  batched cache (``models/api.cache_write_slot``). Decode then advances
+  every occupied slot one token per round with per-slot lengths. A sequence
   retires the round it finishes — per-request EOS, per-request
   ``max_new_tokens``, or the ``max_len`` KV cap — and its freed slot is
   refilled from the queue between decode rounds.
 * ``"static"`` — the drain baseline: up to ``max_batch`` requests, prompts
-  left-padded to the longest (unmasked, the JAX engine's approximation),
-  one prefill at that exact length, then the whole batch decoded to
-  completion before the next batch is taken.
+  left-padded to the longest (unmasked, the JAX engine's approximation; an
+  ssm or hybrid recurrence folds the pads into its state, so a short
+  prompt's stream differs from the continuous scheduler's, as in JAX), one
+  prefill at that exact length, then the whole batch decoded to completion
+  before the next batch is taken.
 
 KV backing (continuous scheduler, attention families) is picked by
 ``ServeConfig.kv_layout``: ``"contiguous"`` gives every slot a (max_len,)
@@ -54,18 +60,18 @@ that request to softmax sampling with the engine's seeded host rng.
 paper's integer FFN (Eq. 4 / Algorithm 1) with weights PTQ'd once at init —
 ``"int8"`` and ``"w4a8"`` (nibble-packed weights) through the ``matmul_q8``
 and ``matmul_w4`` CUDA kernels, ``"int8-torch"`` and ``"w4a8-torch"``
-through their plain PyTorch versions (the JAX package's ``"int8-xla"``);
-a kernel and its plain version give the same token streams. An ssm model
-serves in ``"float"`` only, as in the JAX package. ``ServeConfig.kv_cache``
-picks the resident cache: ``"float"`` (the compute dtype) or ``"int8"``
-(int8 codes with per-(position, head) float32 scales; a prefilled row is
-quantized as it is written into its slot or pages, and each decode step
-quantizes its new K/V at the row's own position), attention-family models
-and the continuous scheduler only. A moe model serves in ``"float"``
-only, as in the JAX package. At init the engine also casts the float32
-attention (and, for ``"float"``, FFN and expert) weights, or an ssm
-model's Mamba weights but ``A_log``, to the compute dtype once — the
-values JAX's per-use casts give.
+through their plain PyTorch versions (the JAX package's ``"int8-xla"``); a
+kernel and its plain version give the same token streams. An ssm or hybrid
+model serves in ``"float"`` only, as in the JAX package.
+``ServeConfig.kv_cache`` picks the resident cache: ``"float"`` (the compute
+dtype) or ``"int8"`` (int8 codes with per-(position, head) float32 scales; a
+prefilled row is quantized as it is written into its slot or pages, and each
+decode step quantizes its new K/V at the row's own position),
+attention-family models and the continuous scheduler only. A moe model
+serves in ``"float"`` only, as in the JAX package. At init the engine also
+casts the float32 attention (and, for ``"float"``, FFN and expert) weights,
+or an ssm model's Mamba weights but ``A_log``, to the compute dtype once —
+the values JAX's per-use casts give.
 
 ``Engine.stats`` has the JAX engine's keys: prefill/decode-round/token
 counters, slot occupancy, TTFT/TPOT/queue-wait quantiles, decode
@@ -96,37 +102,38 @@ poisons the sampled host logits; the affected uids are recorded in
 ``Engine.poisoned_uids``.
 
 ``Engine(..., jit=True)`` (the default) is the counterpart of the JAX
-engine's ``jax.jit`` of prefill and decode: on a card the continuous
-decode step is captured once per engine as a CUDA graph
-(``graph/capture.py``; the decode batch is always ``max_batch``) at the
-first decode round, after one eager pass, which is that round's result,
-and every later round replays it. Its static input is a (max_batch, 1)
-token tensor, which each round fills from a pinned host buffer; its
-static output the (max_batch, 1, V) float32 logits; its cache is the live
-arena's own tensors (K/V or their page pools, conv and ssm state, the int8
-scales, ``"block_table"`` and ``"len"``), which the engine therefore only
-ever updates in place: slot and page writes and frees, the per-slot
-lengths and the block table copied in before every round from pinned host
-mirrors, and the arena cleared in place at each drain and after an
-unrecoverable round. An attention model's prefill is captured once per
-power-of-two bucket at batch 1 (static tokens and prompt length; static
+engine's ``jax.jit`` of prefill and decode: on a card the continuous decode
+step is captured once per engine as a CUDA graph (``graph/capture.py``; the
+decode batch is always ``max_batch``) at the first decode round, after one
+eager pass, which is that round's result, and every later round replays it.
+Its static input is a (max_batch, 1) token tensor, which each round fills
+from a pinned host buffer; its static output the (max_batch, 1, V) float32
+logits; its cache is the live arena's own tensors (K/V or their page pools,
+conv and ssm state, the int8 scales, ``"block_table"`` and ``"len"``), which
+the engine therefore only ever updates in place: slot and page writes and
+frees, the per-slot lengths and the block table copied in before every round
+from pinned host mirrors, and the arena cleared in place at each drain and
+after an unrecoverable round. An attention model's prefill is captured once
+per power-of-two bucket at batch 1 (static tokens and prompt length; static
 logits and fresh cache, copied into the arena's slot or pages by an eager
-write), all in one memory pool with the decode graph. The static
-scheduler's decode is one graph per batch size over a static cache of
-that size, into which each batch's prefill cache is copied; its prefill,
-at the batch's exact length, stays eager, and so does an ssm model's
-(its prompts run at their exact length, so capture would take one graph
-per length, and the prefill is device-bound anyway). ``traces`` counts
-captures (also in the process counter ``graph.compiles``). A capture or replay that fails raises, and
-the round fails by the failure model above; nothing falls back to the
-eager path. On the host ``jit`` has no effect; ``jit=False`` runs every
-op from Python.
+write), all in one memory pool with the decode graph. The static scheduler's
+decode is one graph per batch size over a static cache of that size, into
+which each batch's prefill cache is copied; its prefill, at the batch's
+exact length, stays eager, and so does an ssm model's (its prompts run at
+their exact length, so capture would take one graph per length, and the
+prefill is device-bound anyway), and a hybrid model's. ``traces`` counts
+captures (also in the process counter ``graph.compiles``). A capture or
+replay that fails raises, and the round fails by the failure model above;
+nothing falls back to the eager path. On the host ``jit`` has no effect;
+``jit=False`` runs every op from Python.
 
-Not ported yet, and raising ``NotImplementedError`` (ROADMAP.md, queue A):
-the hybrid and encdec families. The JAX engine's own gates keep its
-messages: ``kv_cache="int8"`` and ``kv_layout="paged"`` need the continuous
-scheduler and an attention-family model, and an ssm or moe model serves in
-``"float"`` only.
+The JAX engine's gates keep its messages: ``kv_cache="int8"`` and
+``kv_layout="paged"`` need the continuous scheduler and an
+attention-family model, an ssm, hybrid or moe model serves in ``"float"``
+only, and an encdec model is refused under the continuous scheduler. Under
+the static scheduler the port refuses it too, at construction
+(:data:`ENCDEC_STATIC_MESSAGE`), where the JAX engine would retire every
+request with ``status="error"``.
 """
 from __future__ import annotations
 
@@ -478,10 +485,24 @@ def prefix_salt(bucket: int, salted: bool) -> bytes:
     return f"prefill bucket {bucket}".encode() if salted else b""
 
 
+#: the port's refusal of an encdec model under the static scheduler
+ENCDEC_STATIC_MESSAGE = (
+    "Engine: an encdec model's prefill needs the encoder's frames, which "
+    "the engine's requests do not carry (the JAX engine's static scheduler "
+    "retires every such request with KeyError('frames'); ROADMAP.md, C): "
+    "run it through models/api.prefill_fn and decode_fn")
+
+
 def _check_gates(cfg: ModelConfig, scfg: ServeConfig):
-    """The JAX engine's gates, with its messages: the int8 KV cache and the
-    paged layout need the continuous scheduler and an attention-family
-    model; an ssm or moe model serves in ``"float"`` only."""
+    """The JAX engine's gates, with its messages: an encdec model needs the
+    static scheduler; the int8 KV cache and the paged layout need the
+    continuous scheduler and an attention-family model; an ssm, hybrid or
+    moe model serves in ``"float"`` only. Then the port's own: an encdec
+    model is not served (:data:`ENCDEC_STATIC_MESSAGE`)."""
+    if cfg.family == "encdec" and scfg.scheduler == "continuous":
+        raise NotImplementedError(
+            "continuous batching needs slotted caches; encdec is not "
+            "slotted (models/api.slot_batch_axes) — use scheduler='static'")
     not_dense_kv = cfg.family in T.NOT_DENSE_KV
     if scfg.kv_cache == "int8":
         if scfg.scheduler != "continuous":
@@ -508,6 +529,8 @@ def _check_gates(cfg: ModelConfig, scfg: ServeConfig):
         raise NotImplementedError(
             "ServeConfig.precision='int8' quantizes dense FFN "
             "matmuls; moe/ssm/hybrid/encdec configs are unsupported")
+    if cfg.family == "encdec" and scfg.scheduler == "static":
+        raise NotImplementedError(ENCDEC_STATIC_MESSAGE)
 
 
 class Engine:

@@ -120,7 +120,13 @@ def lm_params_from_numpy(tree, device="cuda"):
     ``"moe"`` tree of ``router`` (L, d, E) and ``w_gate`` / ``w_up`` (L,
     E, d, ff) and ``w_down`` (L, E, ff, d) in place of ``mlp``, or beside
     it where ``dense_residual`` is set; an ssm model's ``{"ln",
-    "mamba"}``) -> the same tree of tensors on ``device``, dtypes kept. A
+    "mamba"}``; a hybrid model's ``"blocks"`` in place of ``"layers"``:
+    ``ln_mix`` / ``ln_ffn`` (nb, period, d), ``attn`` (nb, ...), ``mamba``
+    (nb, period - 1, ...), ``moe`` (nb, n_moe, ...) and ``mlp`` (nb,
+    n_dense, ...); an encdec model's ``{"embed", "enc_layers",
+    "dec_layers", "enc_norm", "final_norm"}``, each stack's layers ``{"ln1",
+    "ln2", "attn", "mlp"}`` with ``"lnx"`` and ``"xattn"`` in the
+    decoder's) -> the same tree of tensors on ``device``, dtypes kept. A
     quantized FFN tree
     may ride along under ``tree["layers"]["qmlp"]``: an int8 weight as an
     ``(int8 codes, frac_bits)`` pair, a W4 weight as a ``{"q", "shifts",

@@ -1596,13 +1596,26 @@ def test_training_step_on_card_matches_host(dev, prim):
 # ------------------------------------ the LM engine's captured decode step
 
 def _tiny_lm(dev, family):
-    """A tiny Qwen2 or Falcon-Mamba with seeded weights made on the card."""
+    """A tiny Qwen2, Falcon-Mamba, Jamba (two super-blocks, 4 experts
+    top-2 at Jamba's capacity factor) or SeamlessM4T with seeded weights
+    made on the card."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import api
     if family == "ssm":
         cfg = dataclasses.replace(get_config("falcon-mamba-7b"), n_layers=3,
                                   d_model=64, vocab=96)
+    elif family == "hybrid":
+        jamba = get_config("jamba-v0.1-52b")
+        cfg = dataclasses.replace(
+            jamba, n_layers=16, d_model=64, n_heads=4, n_kv_heads=2,
+            d_ff=128, vocab=96, moe=dataclasses.replace(
+                jamba.moe, num_experts=4, top_k=2, d_ff=64))
+    elif family == "encdec":
+        cfg = dataclasses.replace(get_config("seamless-m4t-large-v2"),
+                                  n_layers=2, n_encoder_layers=2, d_model=64,
+                                  n_heads=4, n_kv_heads=2, d_ff=128,
+                                  vocab=96)
     else:
         cfg = dataclasses.replace(get_config("qwen2-0.5b"), n_layers=2,
                                   d_model=64, n_heads=4, n_kv_heads=2,
@@ -1613,7 +1626,8 @@ def _tiny_lm(dev, family):
 
 LM_MODES = [("dense", p, kv) for p in ("float", "int8", "int8-torch", "w4a8",
                                        "w4a8-torch")
-            for kv in ("float", "int8")] + [("ssm", "float", "float")]
+            for kv in ("float", "int8")] + [("ssm", "float", "float"),
+                                            ("hybrid", "float", "float")]
 
 
 @pytest.mark.parametrize("family,precision,kv", LM_MODES,
@@ -1791,3 +1805,79 @@ def test_failed_decode_capture_raises_and_never_runs_eager(dev,
     assert eng.stats["arena_rebuilds"] == 2
     assert ("decode", 2) not in eng._graphs
     assert eng.traces == len(eng._graphs) == 1       # the prefill bucket
+
+
+# ------------------------------------------- the hybrid and encdec families
+
+def test_hybrid_prefill_launches_conv_per_mamba_sublayer_bitwise(dev,
+                                                                 monkeypatch):
+    """A tiny Jamba's prefill on the card launches causal_conv1d once per
+    Mamba sublayer, 7 a super-block, and no other kernel; its logits and
+    cache equal, bit for bit, the prefill with the conv's plain version."""
+    from repro_torch import kernels
+    from repro_torch.models import api, mamba
+    from repro_torch.models import transformer as T
+    cfg, params = _tiny_lm(dev, "hybrid")
+    params = T.cast_params(params, cfg)
+    toks = torch.from_numpy(np.random.default_rng(31).integers(
+        0, 96, (2, 19))).to(dev)
+    prefill = api.prefill_fn(cfg, 32)
+    kernels.reset_launches()
+    logits, cache = prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    launched = {k.__name__: k.launches for k in kernels.KERNELS
+                if k.launches}
+    assert launched == {"causal_conv1d": 7 * 2}
+    real = mamba.K.causal_conv1d
+    monkeypatch.setattr(mamba.K, "causal_conv1d",
+                        lambda x, w, **kw: real(x, w, **dict(kw,
+                                                             method="torch")))
+    kernels.reset_launches()
+    plain_logits, plain_cache = prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    assert kernels.causal_conv1d.launches == 0
+    assert torch.equal(_bits(logits), _bits(plain_logits))
+    for key in ("k", "v", "conv", "ssm"):
+        assert torch.equal(_bits(cache[key]), _bits(plain_cache[key])), key
+
+
+def test_captured_encdec_step_equals_eager(dev):
+    """A tiny SeamlessM4T's decode step captured once (``graph.capture``)
+    over a cache the step updates in place, replayed 4 times with the
+    length advanced in place, against the eager step on its own cache:
+    logits and self-attention K/V bitwise equal."""
+    from repro_torch.graph.capture import capture
+    from repro_torch.models import api
+    from repro_torch.models import transformer as T
+    cfg, params = _tiny_lm(dev, "encdec")
+    params = T.cast_params(params, cfg)
+    rng = np.random.default_rng(37)
+    frames = torch.from_numpy(rng.standard_normal((3, 24, 64))
+                              .astype(np.float32)).to(dev).to(torch.bfloat16)
+    toks = torch.from_numpy(rng.integers(0, 96, (3, 7))).to(dev)
+    prefill, decode = api.prefill_fn(cfg, 16), api.decode_fn(cfg)
+    out = {}
+    for captured in (True, False):
+        logits, cache = prefill(params, {"frames": frames, "tokens": toks})
+        tok = logits[:, -1:].argmax(-1)
+        seen = [logits.clone()]
+        if captured:
+            cap, lg = capture(lambda t: decode(params, t, cache)[0], (tok,),
+                              key="encdec.test")
+        for step in range(5):
+            if not captured:
+                lg, cache = decode(params, tok, cache)
+            elif step:
+                cap.inputs[0].copy_(tok)
+                lg = cap.replay()
+            if captured:
+                cache["len"].add_(1)
+            seen.append(lg.clone())
+            tok = lg[:, -1:].argmax(-1)
+        torch.cuda.synchronize()
+        assert int(cache["len"]) == 7 + 5
+        out[captured] = (seen, cache["k"].clone(), cache["v"].clone())
+    for a, b in zip(out[True][0], out[False][0]):
+        assert torch.equal(a, b)
+    assert torch.equal(_bits(out[True][1]), _bits(out[False][1]))
+    assert torch.equal(_bits(out[True][2]), _bits(out[False][2]))

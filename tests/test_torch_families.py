@@ -46,9 +46,8 @@ from repro_torch.models.blocks import stacked_normal  # noqa: E402
 from repro_torch.serve import Engine, Request, ServeConfig  # noqa: E402
 from repro_torch.weights import lm_params_from_numpy  # noqa: E402
 
-#: the JAX architecture ids the port registers; jamba-v0.1-52b (hybrid)
-#: and seamless-m4t-large-v2 (encdec) come with their families
-PORTED = sorted(set(ARCH_IDS) - {"jamba-v0.1-52b", "seamless-m4t-large-v2"})
+#: the JAX architecture ids the port registers: all of them
+PORTED = sorted(ARCH_IDS)
 REDUCED = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
                vocab=256, compute_dtype="float32")
 
@@ -109,17 +108,35 @@ def test_param_count_equals_jax_for_every_arch(arch):
 
 @pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "seamless-m4t-large-v2"])
 def test_unregistered_config_is_a_key_error(arch):
+    """The hybrid and encdec configs are registered now; a name next to
+    theirs that no config has is a KeyError naming every registered
+    config."""
+    assert get_config(arch) == port_config(j_get_config(arch))
     with pytest.raises(KeyError, match="granite-moe-1b-a400m"):
-        get_config(arch)
+        get_config(arch + "-x")
 
 
 def test_hybrid_and_encdec_raise_naming_roadmap():
-    for arch in ("jamba-v0.1-52b", "seamless-m4t-large-v2"):
-        cfg = port_config(j_get_config(arch))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            T.init_lm(cfg, torch.Generator().manual_seed(0))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            api.prefill_fn(cfg, 16)
+    """What still refuses: the engine refuses an encdec model under the
+    static scheduler, naming ROADMAP.md (its requests carry no encoder
+    frames), and under the continuous one with JAX's message; a family
+    name no config uses raises in every entry point."""
+    cfg = port_config(j_get_config("seamless-m4t-large-v2"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Engine(cfg, {}, ServeConfig(scheduler="static"))
+    with pytest.raises(NotImplementedError) as want:
+        JEngine(j_get_config("seamless-m4t-large-v2"), {}, JServeConfig())
+    with pytest.raises(NotImplementedError) as got:
+        Engine(cfg, {}, ServeConfig())
+    assert str(got.value) == str(want.value)
+    unknown = dataclasses.replace(cfg, family="rwkv")
+    for fn in (lambda: T.init_lm(unknown, torch.Generator().manual_seed(0)),
+               lambda: api.init_params(unknown, torch.Generator()
+                                       .manual_seed(0), device="cpu"),
+               lambda: api.prefill_fn(unknown, 16),
+               lambda: api.decode_fn(unknown)):
+        with pytest.raises(NotImplementedError, match="unknown model family"):
+            fn()
 
 
 def test_stacked_draws_equal_single_layer_draws():

@@ -577,15 +577,27 @@ def test_engine_serves_static_paged_and_flash_tri(lm, kw):
 
 @pytest.mark.parametrize("family", ["ssm", "hybrid", "moe", "encdec"])
 def test_other_families_raise(lm, family):
-    """The families the port does not build raise; ssm and moe are built
-    and served in "float" only, and an integer precision raises JAX's
-    message."""
-    _, _, cfg, params = lm
-    if family == "ssm":
-        ssm = get_config("falcon-mamba-7b")
+    """What each other family still refuses: ssm, hybrid and moe serve in
+    "float" only (JAX's message for an integer precision); an encdec model
+    is refused by the engine under either scheduler (the continuous one
+    with JAX's message; the static one, whose requests carry no encoder
+    frames, naming ROADMAP.md); a family name no config uses raises
+    everywhere."""
+    jcfg, _, cfg, params = lm
+    if family in ("ssm", "hybrid"):
+        other = get_config("falcon-mamba-7b" if family == "ssm"
+                           else "jamba-v0.1-52b")
         with pytest.raises(NotImplementedError,
                            match="precision='int8' quantizes dense FFN"):
-            Engine(ssm, params, ServeConfig(precision="int8"))
+            Engine(other, params, ServeConfig(precision="int8"))
+        unknown = dataclasses.replace(cfg, family="rwkv")
+        for fn in (lambda: Engine(unknown, params, ServeConfig()),
+                   lambda: T.init_lm(unknown,
+                                     torch.Generator().manual_seed(0)),
+                   lambda: api.prefill_fn(unknown, 16)):
+            with pytest.raises(NotImplementedError,
+                               match="unknown model family 'rwkv'"):
+                fn()
         return
     if family == "moe":
         moe = dataclasses.replace(cfg, family="moe", moe=MoEConfig(
@@ -597,11 +609,14 @@ def test_other_families_raise(lm, family):
                            match="precision='int8' quantizes dense FFN"):
             Engine(moe, p, ServeConfig(precision="int8"))
         return
-    other = dataclasses.replace(cfg, family=family)
+    seamless = get_config("seamless-m4t-large-v2")
+    with pytest.raises(NotImplementedError) as want:
+        JEngine(j_get_config("seamless-m4t-large-v2"), {}, JServeConfig())
+    with pytest.raises(NotImplementedError) as got:
+        Engine(seamless, params, ServeConfig())
+    assert str(got.value) == str(want.value)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(other, params, ServeConfig(precision="int8"))
-    with pytest.raises(NotImplementedError, match="dense"):
-        T.init_lm(other, torch.Generator().manual_seed(0))
+        Engine(seamless, params, ServeConfig(scheduler="static"))
 
 
 def test_paged_decode_step_and_unregistered_config(lm):
@@ -637,7 +652,7 @@ def test_paged_decode_step_and_unregistered_config(lm):
                                np.asarray(jc["k"], np.float32),
                                rtol=1e-2, atol=1e-2)
     with pytest.raises(KeyError, match="qwen2-0.5b"):
-        get_config("jamba-v0.1-52b")
+        get_config("jamba-v0.2-52b")
 
 
 def test_invalid_serve_configs(lm):
