@@ -263,15 +263,17 @@ Phases, one line each, any failure exits non-zero:
               whole super-blocks of 8 layers to the most whose reckoned
               peak (weights, the float32 unembedding copies, the K/V of
               its attention sublayers and its Mamba state, counted
-              directly) leaves 4 GB free (the cut printed), served by
+              directly, the static prefill's scan) leaves 4 GB free (the
+              cut printed; the measured peak must stay under it), served by
               Engine(max_batch=8, max_len=256) to 8 of phase 6's prompts,
               16 new tokens, captured, causal_conv1d launched exactly 7
               times a super-block per prefill and never in a decode step;
               the first 2 again with jit=False (streams equal; the
               (token, expert) pairs a decode step drops printed); the
-              static scheduler on the same 8 requests (its agreement with
-              the continuous engine printed: the left pads run through
-              the recurrence); one decode step's breakdown, the byte
+              static scheduler on the same 8 requests, captured and again
+              with jit=False (streams equal; its agreement with the
+              continuous engine printed: the left pads run through the
+              recurrence); one decode step's breakdown, the byte
               bound of its weights at 3.35 TB/s, the peak memory.
 
 The phases run in the order 1-5, 8, 9, 6, 7, 10, 11; each one's wall time
@@ -3194,22 +3196,20 @@ def conv_per_prefill(cfg) -> int:
     return cfg.n_layers
 
 
-def phase_encdec_hybrid(torch, K, card, prompts, dev="cuda"):
+def phase_encdec_hybrid(torch, K, card, prompts):
     """The encdec and hybrid families (module docstring, 11), the first
     model freed before the second is made. Returns the launch count of
     every kernel over the runs."""
     launches = dict.fromkeys((k.__name__ for k in K.KERNELS), 0)
-    for run in (lambda: family_encdec(torch, K, card, dev),
-                lambda: family_hybrid(torch, K, card, prompts, dev)):
+    for run in (lambda: family_encdec(torch, K, card),
+                lambda: family_hybrid(torch, K, card, prompts)):
         for k, v in run().items():
             launches[k] += v
-        if torch.device(dev).type == "cuda":
-            torch.cuda.empty_cache()    # the model is gone
+        torch.cuda.empty_cache()        # the model is gone
     return launches
 
 
-def encdec_generate(torch, params, cfg, frames, toks, prefill, decode,
-                    captured, dev):
+def encdec_generate(torch, params, frames, toks, prefill, decode, captured):
     """Greedy ``ENCDEC_NEW`` tokens for the batch: the prefill, then the
     decode step eager or (``captured``) captured once with
     ``graph.capture`` over the cache, which the step updates in place, and
@@ -3217,25 +3217,22 @@ def encdec_generate(torch, params, cfg, frames, toks, prefill, decode,
     token ids on the host, the TTFT of the batch in seconds, decode-step
     ms by CUDA events, the captured step or None, the cache)."""
     from repro_torch.graph.capture import capture
-    sync(torch, dev)
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, cache = prefill(params, {"frames": frames, "tokens": toks})
     tok = logits[:, -1:].argmax(-1)
-    sync(torch, dev)
+    torch.cuda.synchronize()
     ttft = time.perf_counter() - t0
     out, cap = [tok], None
-    on_card = torch.device(dev).type == "cuda"
-    if captured and on_card:            # a host run has no graphs
+    if captured:
         # the graph's static input: a copy, written before each replay
         cap, logits = capture(lambda t: decode(params, t, cache)[0],
                               (tok.clone(),), key="encdec.decode")
         cache["len"].add_(1)
         out.append(logits[:, -1:].argmax(-1))
-    if on_card:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-    t0 = time.perf_counter()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
     while len(out) < ENCDEC_NEW:
         if cap is not None:
             cap.inputs[0].copy_(out[-1])
@@ -3244,22 +3241,16 @@ def encdec_generate(torch, params, cfg, frames, toks, prefill, decode,
         else:
             logits, cache = decode(params, out[-1], cache)
         out.append(logits[:, -1:].argmax(-1))
-    steps = ENCDEC_NEW - 1 - (cap is not None)
-    if on_card:
-        end.record()
-        end.synchronize()
-        step_ms = start.elapsed_time(end) / steps
-    else:
-        step_ms = 1e3 * (time.perf_counter() - t0) / steps
+    end.record()
+    end.synchronize()
+    step_ms = start.elapsed_time(end) / (ENCDEC_NEW - 1 - (cap is not None))
     check(int(cache["len"]) == toks.shape[1] + ENCDEC_NEW - 1,
           f"encdec: cache length {int(cache['len'])} after the run")
     return (torch.cat(out, 1).cpu().numpy(), ttft, step_ms, cap, cache)
 
 
-def family_encdec(torch, K, card, dev, n_layers=None, vocab=None,
-                  frames_len=ENCDEC_FRAMES):
-    """seamless-m4t-large-v2 at full size (the depth and vocabulary
-    overridable for a host rehearsal): seeded weights made on the card,
+def family_encdec(torch, K, card):
+    """seamless-m4t-large-v2 at full size: seeded weights made on the card,
     the matrices cast to bf16 once (``cast_params``); one batch of
     ``ENCDEC_BATCH`` requests through ``api.prefill_fn`` / ``decode_fn``,
     the decode step captured, then eager: streams equal, the logits
@@ -3269,13 +3260,10 @@ def family_encdec(torch, K, card, dev, n_layers=None, vocab=None,
     from repro_torch.models import api
     from repro_torch.models import transformer as T
     cfg = get_config(ENCDEC_ARCH)
-    if n_layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=n_layers,
-                                  n_encoder_layers=n_layers, vocab=vocab)
     t0 = time.perf_counter()
-    params = api.init_params(cfg, torch.Generator(device=dev)
-                             .manual_seed(SEED), device=dev)
-    sync(torch, dev)
+    params = api.init_params(cfg, torch.Generator(device="cuda")
+                             .manual_seed(SEED), device="cuda")
+    torch.cuda.synchronize()
     made = sum(v.numel() for v in _leaves(params))
     d = cfg.d_model
     # param_count counts an untied unembedding (the config's
@@ -3293,19 +3281,19 @@ def family_encdec(torch, K, card, dev, n_layers=None, vocab=None,
           "leaves out the two final norms); matrices cast to "
           f"{cfg.compute_dtype} once")
     params = T.cast_params(params, cfg)
-    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
-    frames = torch.randn((ENCDEC_BATCH, frames_len, d), generator=gen,
-                         device=dev).to(torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    frames = torch.randn((ENCDEC_BATCH, ENCDEC_FRAMES, d), generator=gen,
+                         device="cuda").to(torch.bfloat16)
     toks = torch.randint(0, cfg.vocab, (ENCDEC_BATCH, ENCDEC_PROMPT),
-                         generator=gen, device=dev)
+                         generator=gen, device="cuda")
     prefill = api.prefill_fn(cfg, ENCDEC_PROMPT + ENCDEC_NEW)
     decode = api.decode_fn(cfg)
     prefill(params, {"frames": frames, "tokens": toks})     # warm-up
     K.reset_launches()
     runs = {}
     for captured in (True, False):
-        runs[captured] = encdec_generate(torch, params, cfg, frames, toks,
-                                         prefill, decode, captured, dev)
+        runs[captured] = encdec_generate(torch, params, frames, toks,
+                                         prefill, decode, captured)
     got = {k.__name__: k.launches for k in K.KERNELS}
     check(not any(got.values()),
           f"encdec: launches {got} (no kernel of the port is on its path)")
@@ -3316,16 +3304,14 @@ def family_encdec(torch, K, card, dev, n_layers=None, vocab=None,
           and ((0 <= streams) & (streams < cfg.vocab)).all(),
           "encdec: a stream is short or holds an id outside the vocabulary")
     print(f"[encdec] {ENCDEC_BATCH} requests (frames ({ENCDEC_BATCH}, "
-          f"{frames_len}, {d}) bf16, {ENCDEC_PROMPT}-token prompts), "
+          f"{ENCDEC_FRAMES}, {d}) bf16, {ENCDEC_PROMPT}-token prompts), "
           f"{ENCDEC_NEW} new tokens each: captured token streams equal to "
           f"the eager ones; TTFT of the batch (encode + prefill) "
           f"{ttft:.4f} s captured run, {runs[False][1]:.4f} s eager run; "
           f"decode step {step_ms:.3f} ms captured, {runs[False][2]:.3f} ms "
           f"eager (CUDA events, mean of the run's steps); first call of "
           f"the captured step (eager pass + capture) "
-          f"{1e3 * cap.seconds if cap else 0:.1f} ms; on {card}")
-    if cap is None:
-        return got
+          f"{1e3 * cap.seconds:.1f} ms; on {card}")
     # the step's bytes: the decoder's matrices and norms, the float32
     # embedding (the tied unembedding), the self and cross K/V read
     dec = sum(v.numel() * v.element_size()
@@ -3362,8 +3348,10 @@ def hybrid_peak(cfg, n_layers) -> dict:
     attention sublayers, one a super-block, and the Mamba sublayers' conv
     (bf16) and ssm (float32) state), and the static scheduler's prefill
     of LM_BATCH prompts of the longest length LM_PROMPT[1]: its selective
-    scan holds about four float32 (B, L, d_inner, d_state) tensors at
-    once."""
+    scan holds six float32 (B, L, d_inner, d_state) tensors at once (the
+    chunk's a and b, a doubling round's previous pair, its sum and the
+    new concatenation). An upper bound: the phase checks the measured
+    peak against it."""
     cfg = dataclasses.replace(cfg, n_layers=n_layers)
     nb = n_layers // cfg.attn_period
     nm = cfg.attn_period - 1
@@ -3376,30 +3364,30 @@ def hybrid_peak(cfg, n_layers) -> dict:
              * cfg.head_dim,
              "conv and ssm state": nb * nm * LM_BATCH * di
              * (2 * (cfg.mamba.d_conv - 1) + 4 * cfg.mamba.d_state),
-             "static prefill's scan": 4 * 4 * LM_BATCH * LM_PROMPT[1] * di
+             "static prefill's scan": 6 * 4 * LM_BATCH * LM_PROMPT[1] * di
              * cfg.mamba.d_state}
     return dict(parts, total=sum(parts.values()))
 
 
-def family_hybrid(torch, K, card, prompts, dev, blocks=None):
+def family_hybrid(torch, K, card, prompts):
     """jamba-v0.1-52b at full width with bf16 weights, cut in whole
     super-blocks to the most that leave ``BIG_HEADROOM`` free under the
-    reckoned peak (``blocks`` forces a count, for a host rehearsal): the
-    cut printed; HYBRID_REQUESTS requests of HYBRID_NEW tokens, captured
-    (causal_conv1d launched 7 times a super-block per prefill, checked by
-    the runner), the first HYBRID_EAGER again with jit=False (streams
-    equal; the (token, expert) pairs each decode step drops counted
-    there), the static scheduler on the same requests; one decode step's
-    breakdown, the byte bound of the weights, the peak memory."""
+    reckoned peak: the cut printed; HYBRID_REQUESTS requests of HYBRID_NEW
+    tokens, captured (causal_conv1d launched 7 times a super-block per
+    prefill, checked by the runner), the first HYBRID_EAGER again with
+    jit=False (streams equal; the (token, expert) pairs each decode step
+    drops counted there), the static scheduler on the same requests,
+    captured and jit=False (streams equal); one decode step's breakdown,
+    the byte bound of the weights, the peak memory against the
+    reckoning."""
     from repro_torch.configs import get_config
     from repro_torch.models import moe as M
     cfg = dataclasses.replace(get_config(HYBRID_ARCH),
                               param_dtype="bfloat16")
-    on_card = torch.device(dev).type == "cuda"
-    free = torch.cuda.mem_get_info()[0] if on_card else float("inf")
+    free = torch.cuda.mem_get_info()[0]
     period = cfg.attn_period
-    nb = cfg.n_layers // period if blocks is None else blocks
-    while blocks is None and nb > 1 and \
+    nb = cfg.n_layers // period
+    while nb > 1 and \
             free - hybrid_peak(cfg, nb * period)["total"] < BIG_HEADROOM:
         nb -= 1
     peak = hybrid_peak(cfg, nb * period)
@@ -3409,14 +3397,11 @@ def family_hybrid(torch, K, card, prompts, dev, blocks=None):
                                     for k, v in peak.items())
           + f"), of {nb + 1}: "
           f"{hybrid_peak(cfg, (nb + 1) * period)['total'] / 1e9:.2f} GB; "
-          + (f"{free / 1e9:.2f} GB free on the card: " if on_card else "")
-          + f"depth cut to {nb} super-blocks, {nb * period} of "
-          f"{cfg.n_layers} layers"
-          + (f", leaving {BIG_HEADROOM / 1e9:.0f} GB free" if on_card
-             else ""))
-    if on_card:
-        torch.cuda.reset_peak_memory_stats()
-    runner, served = family_runner(torch, K, card, cfg, prompts, dev,
+          f"{free / 1e9:.2f} GB free on the card: depth cut to {nb} "
+          f"super-blocks, {nb * period} of {cfg.n_layers} layers, leaving "
+          f"{BIG_HEADROOM / 1e9:.0f} GB free")
+    torch.cuda.reset_peak_memory_stats()
+    runner, served = family_runner(torch, K, card, cfg, prompts, "cuda",
                                    new_tokens=HYBRID_NEW,
                                    n_layers=nb * period)
     cfg = runner.cfg
@@ -3429,17 +3414,14 @@ def family_hybrid(torch, K, card, prompts, dev, blocks=None):
           f"{1e3 * weights / HBM_RATE:.3f} ms (every expert's weights: "
           "the experts run as one batched matmul over their capacity "
           "rows)")
-    if on_card:
-        lm_breakdown(torch, "hybrid float", eng, cfg, dev,
-                     port=("gemm", "nvjet"), what="the cuBLAS matmuls "
-                     "(attention, Mamba projections, experts, FFN, "
-                     "unembedding)")
+    lm_breakdown(torch, "hybrid float", eng, cfg, "cuda",
+                 port=("gemm", "nvjet"), what="the cuBLAS matmuls "
+                 "(attention, Mamba projections, experts, FFN, unembedding)")
     # one captured engine (its graph pool) at a time
     runner.engines.clear()
     del eng
     gc.collect()
-    if on_card:
-        torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
     per_prefill = conv_per_prefill(cfg)
     drops, real = [], M._dispatch_combine
 
@@ -3472,14 +3454,23 @@ def family_hybrid(torch, K, card, prompts, dev, blocks=None):
           f"{len(per_step)} jit=False steps")
     runner.run("hybrid", "float static", served, warm=served, graphs=1,
                scheduler="static")
-    print(f"[hybrid] static: token agreement with the continuous engine "
+    # the same batch: capacity drops couple the slots of a step
+    runner.run("hybrid", "float static jit=False", served, jit=False,
+               scheduler="static")
+    check(streams["float static jit=False"] == streams["float static"],
+          "hybrid static: jit=False token streams differ from the captured "
+          "engine's")
+    print(f"[hybrid] static: captured token streams equal to jit=False's "
+          f"({len(served)} x {HYBRID_NEW} tokens); token agreement with "
+          f"the continuous engine "
           f"{agreement(streams['float static'], streams['float']):.4f} "
           "(the left pads run through the recurrence; not gated)")
-    if on_card:
-        print(f"[hybrid] peak allocated "
-              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, reserved "
-              f"{torch.cuda.max_memory_reserved() / 1e9:.2f} GB against "
-              f"the reckoned {peak['total'] / 1e9:.2f} GB, on {card}")
+    got = torch.cuda.max_memory_allocated()
+    print(f"[hybrid] peak allocated {got / 1e9:.2f} GB, reserved "
+          f"{torch.cuda.max_memory_reserved() / 1e9:.2f} GB against "
+          f"the reckoned {peak['total'] / 1e9:.2f} GB, on {card}")
+    check(got <= peak["total"], f"hybrid: peak allocated {got / 1e9:.2f} "
+          f"GB above the reckoned {peak['total'] / 1e9:.2f} GB")
     return runner.launches
 
 

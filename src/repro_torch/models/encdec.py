@@ -35,7 +35,7 @@ from repro_torch.configs.base import ModelConfig, torch_dtype
 
 from . import attention as A
 from .blocks import init_mlp, mlp, rmsnorm
-from .transformer import _cdt, _qkv, _take, attn_decode, init_attn
+from .transformer import _cdt, _kv, _q, _qkv, _take, attn_decode, init_attn
 
 
 def init_encdec(cfg: ModelConfig, generator: torch.Generator) -> dict:
@@ -97,8 +97,8 @@ def _decoder_layer(hh, lp, enc_out, cfg: ModelConfig, cdt, attn_impl):
     hh = hh + o.reshape(b, s, -1) @ lp["attn"]["wo"].to(cdt)
     xx = rmsnorm(hh, lp["lnx"], cfg.norm_eps)
     epos = torch.arange(enc_out.shape[1], device=hh.device)[None, :]
-    qx = _qkv(lp["xattn"], xx, cfg, cdt, positions)[0]
-    _, kx, vx = _qkv(lp["xattn"], enc_out, cfg, cdt, epos)
+    qx = _q(lp["xattn"], xx, cfg, cdt, positions)
+    kx, vx = _kv(lp["xattn"], enc_out, cfg, cdt, epos)
     ox = A.attention(qx, kx, vx, causal=False, impl=attn_impl)
     hh = hh + ox.reshape(b, s, -1) @ lp["xattn"]["wo"].to(cdt)
     f = mlp(rmsnorm(hh, lp["ln2"], cfg.norm_eps), lp["mlp"], cfg.act, cdt)
@@ -106,8 +106,9 @@ def _decoder_layer(hh, lp, enc_out, cfg: ModelConfig, cdt, attn_impl):
 
 
 def _unembed(params, h):
-    """Logits of the tied projection, in float32 (no copy of a float32
-    embedding)."""
+    """Logits of the tied projection, in float32. A float32 embedding is
+    read as it is; ``cast_params`` makes one once, so that a step over
+    its weights copies none."""
     return h.to(torch.float32) @ params["embed"].t().to(torch.float32)
 
 
@@ -169,7 +170,7 @@ def encdec_decode_step(params, token, cache, cfg: ModelConfig):
         h = h + attn_decode(lp["attn"], x, cfg, cdt, cache["k"][l],
                             cache["v"][l], cl, lockstep=True)
         xx = rmsnorm(h, lp["lnx"], cfg.norm_eps)
-        qx = _qkv(lp["xattn"], xx, cfg, cdt, cl[:, None])[0]
+        qx = _q(lp["xattn"], xx, cfg, cdt, cl[:, None])
         ox = A.decode_attention(qx, cache["xk"][l].to(cdt),
                                 cache["xv"][l].to(cdt), enc_len)
         h = h + ox.reshape(b, 1, -1) @ lp["xattn"]["wo"].to(cdt)

@@ -99,7 +99,9 @@ def mamba_scan(x_c, dt, A, B_t, C_t, *, chunk: int = 256, h0=None):
         hs = cum_a * h[:, None] + cum_b                       # (B,ch,dI,N)
         c32 = C_t[:, s:s + ch].to(torch.float32)
         ys.append(torch.matmul(hs, c32[..., None])[..., 0])   # (B,ch,dI)
-        h = hs[:, -1]
+        # a copy: a view would keep the chunk's (B,ch,dI,N) states alive
+        # as long as the returned state
+        h = hs[:, -1].clone()
     return torch.cat(ys, 1).to(x_c.dtype), h
 
 

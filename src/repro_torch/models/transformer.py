@@ -230,12 +230,14 @@ def cast_params(params: dict, cfg: ModelConfig, *, mlp_too: bool = True):
     For a moe model: the expert weights; the router stays as it is (the
     routing reads it in float32). A hybrid model: each of those in its
     super-blocks. An encdec model: the attention, cross-attention and FFN
-    weights of both stacks. The embedding (read in float32 by
+    weights of both stacks, and the embedding in float32, the dtype its
+    tied unembedding reads it in (the token lookup gives the same values
+    from it). The other families' embedding (read in float32 by
     :func:`unembed`), the norms and any quantized tree are kept as they
     are."""
     cdt = _cdt(cfg)
     if cfg.family == "encdec":
-        return dict(params, **{
+        return dict(params, embed=params["embed"].to(torch.float32), **{
             stack: dict(params[stack], **{
                 k: _cast(params[stack][k], cdt)
                 for k in ("attn", "xattn", "mlp") if k in params[stack]})
@@ -291,19 +293,31 @@ def _hybrid_layout(cfg: ModelConfig) -> list:
 
 # ==================================================================== layers
 
-def _qkv(lp, x, cfg: ModelConfig, cdt, positions):
+def _q(lp, x, cfg: ModelConfig, cdt, positions):
+    """The queries of ``x`` (B, S, d), rotated at ``positions``."""
     b, s, _ = x.shape
-    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = x @ lp["wq"].to(cdt)
+    if cfg.qkv_bias:
+        q = q + lp["bq"].to(cdt)
+    return rope(q.reshape(b, s, cfg.n_heads, cfg.head_dim), positions,
+                cfg.rope_theta)
+
+
+def _kv(lp, x, cfg: ModelConfig, cdt, positions):
+    """The keys (rotated at ``positions``) and values of ``x``."""
+    b, s, _ = x.shape
     k = x @ lp["wk"].to(cdt)
     v = x @ lp["wv"].to(cdt)
     if cfg.qkv_bias:
-        q = q + lp["bq"].to(cdt)
         k = k + lp["bk"].to(cdt)
         v = v + lp["bv"].to(cdt)
-    q = rope(q.reshape(b, s, hq, dh), positions, cfg.rope_theta)
-    k = rope(k.reshape(b, s, hkv, dh), positions, cfg.rope_theta)
-    return q, k, v.reshape(b, s, hkv, dh)
+    shape = (b, s, cfg.n_kv_heads, cfg.head_dim)
+    return rope(k.reshape(shape), positions, cfg.rope_theta), v.reshape(shape)
+
+
+def _qkv(lp, x, cfg: ModelConfig, cdt, positions):
+    return (_q(lp, x, cfg, cdt, positions),
+            *_kv(lp, x, cfg, cdt, positions))
 
 
 def attn_forward(lp, x, cfg: ModelConfig, cdt, *, impl: str, q_offset=0,

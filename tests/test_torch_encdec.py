@@ -237,6 +237,29 @@ def test_cast_params_gives_the_uncast_step_bitwise():
     assert all(torch.equal(a, b) for a, b in zip(*outs))
 
 
+def test_cast_params_makes_the_float32_embedding_once():
+    """bfloat16 weights: ``cast_params`` makes the float32 embedding the
+    tied unembedding reads, once; the token lookup gives the same values
+    from it, so the prefill and the decode step are bitwise the ones over
+    the bfloat16 embedding, which each call would copy to float32."""
+    _, _, cfg, params = reduced()
+    cfg = dataclasses.replace(cfg, compute_dtype="bfloat16",
+                              param_dtype="bfloat16")
+    params = jax.tree_util.tree_map(lambda v: v.to(torch.bfloat16), params)
+    cast = T.cast_params(params, cfg)
+    assert cast["embed"].dtype == torch.float32
+    assert torch.equal(cast["embed"], params["embed"].float())
+    assert T.cast_params(cast, cfg)["embed"] is cast["embed"]
+    _, (tf, tt) = _inputs(5)
+    outs = []
+    for p in (params, cast):
+        logits, cache = api.prefill_fn(cfg, 16)(p, {"frames": tf,
+                                                    "tokens": tt})
+        step, _ = api.decode_fn(cfg)(p, logits.argmax(-1), cache)
+        outs.append((logits, step))
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
 # ----------------------------------------------------------------- gates --
 
 @pytest.mark.parametrize("which", ["prefill_fn", "decode_fn"])
