@@ -276,8 +276,44 @@ Phases, one line each, any failure exits non-zero:
               recurrence); one decode step's breakdown, the byte
               bound of its weights at 3.35 TB/s, the peak memory.
 
-The phases run in the order 1-5, 8, 9, 6, 7, 10, 11; each one's wall time
-is printed as it ends ([time]). The second-to-last
+12. train   — LM training, after phase 11's model is freed. (a) Qwen2-0.5B
+              at full size (24 layers, d_model 896, vocab 151,936, tied),
+              seeded float32 params made on the card, bf16 compute,
+              TrainConfig(remat="full", attn_impl="flash"), AdamW (warmup
+              2 of 8 steps), IndexedDataset(kind="lm", seq_len=512,
+              global_batch=8, seed=11): 8 steps through Trainer (in-place
+              updates), a checkpoint every 4 steps under build/; every
+              loss and gradient norm finite, nothing skipped, the last loss
+              below the first plus 0.5; a new Trainer resumed from the
+              step-4 checkpoint to step 8, its losses within 1e-4 of the
+              straight run's; step 0 with attn_impl="full" within 2e-3
+              (loss) and 1e-2 (gradient norm) of flash's; step ms (CUDA
+              events, median of steps 2-8), tokens/s, model TFLOP/s
+              (estimate_model_flops) and its share of the bf16 peak, one
+              step's device busy and idle (torch.profiler), the peak
+              memory beside its reckoning; the step-8 checkpoint restored
+              into bf16 and served by Engine(max_batch=8, max_len=256),
+              captured, to 8 of phase 6's prompts (16 new tokens, every
+              status ok), the first 2 again with jit=False, streams
+              equal. (b) Falcon-Mamba-7B at full width (d_model 4096,
+              d_inner 8192, d_state 16, vocab 65,024), cut in whole layers
+              to the most whose reckoned training peak leaves 8 GB free
+              (the cut and the reckoning printed), float32 params, bf16
+              compute, remat "full", 2 x 256 tokens: one loss and gradient
+              through api.loss_fn launching causal_conv1d exactly 3 times
+              a layer (forward, recompute, dx) and its plain version
+              never, the loss and every gradient leaf bitwise equal to a
+              loss built here layer by layer from ssm_layer(...,
+              conv_method="torch"); then 4 in-place train steps, each
+              launching causal_conv1d 3 times a layer (the wrapper's count,
+              and torch.profiler's count by kernel name in one step) and
+              nothing else of the port's, every loss finite, the peak
+              memory under the reckoning; step ms, tokens/s, the conv
+              launches' device time a step (forward and recompute apart
+              from dx) and the selective scan's share of the step.
+
+The phases run in the order 1-5, 8, 9, 6, 7, 10, 11, 12; each one's wall
+time is printed as it ends ([time]). The second-to-last
 line is a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -287,6 +323,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -3474,6 +3511,550 @@ def family_hybrid(torch, K, card, prompts):
     return runner.launches
 
 
+# --------------------------------------------------------------- phase 12 --
+
+#: phase 12 (a): Qwen2-0.5B trained at full size, float32 params, bf16
+#: compute: TRAIN_STEPS AdamW steps of TRAIN_BATCH x TRAIN_SEQ tokens
+#: through the Trainer, a checkpoint every TRAIN_CKPT_EVERY steps
+TRAIN_ARCH = "qwen2-0.5b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_CKPT_EVERY = 8, 512, 8, 4
+TRAIN_DATA_SEED = 11
+#: the trained model served: requests (phase 6's prompts), new tokens,
+#: and the requests run again with jit=False
+TRAIN_SERVE, TRAIN_SERVE_NEW, TRAIN_SERVE_EAGER = 8, 16, 2
+#: phase 12 (b): Falcon-Mamba-7B at full width, cut in whole layers to the
+#: most whose reckoned training peak leaves SSM_TRAIN_HEADROOM bytes free;
+#: SSM_TRAIN_STEPS steps of SSM_TRAIN_BATCH x SSM_TRAIN_SEQ tokens
+SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_STEPS = 2, 256, 4
+SSM_TRAIN_HEADROOM = 8e9
+#: the loss's chunk (lm_loss's loss_chunk default)
+LOSS_CHUNK = 512
+#: NVIDIA's data sheet: the H100 SXM's dense bf16 tensor-core peak
+BF16_PEAK = 989e12
+#: row 7's device time of the 64 causal_conv1d launches of one 96-token
+#: Falcon-Mamba prefill (PERF.md section 6, PR 22), for comparison
+PREFILL_CONV_MS = 0.1514
+#: profiled steps tried until a torch.profiler session records device
+#: activity (a session on the card's machine now and then records none)
+TRAIN_PROFILE_TRIES = 4
+
+
+def phase_train(torch, K, card, prompts):
+    """Phase 12: LM training on the card (module docstring); returns the
+    kernel launches of its train steps."""
+    t0 = time.perf_counter()
+    launches = dict.fromkeys((k.__name__ for k in K.KERNELS), 0)
+    train_dense(torch, K, card, prompts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    for k, v in train_ssm(torch, K, card).items():
+        launches[k] += v
+    t2 = time.perf_counter()
+    print(f"[train] phase 12 took {t2 - t0:.1f} s: {TRAIN_ARCH} "
+          f"{t1 - t0:.1f} s, {SSM_ARCH} {t2 - t1:.1f} s")
+    return launches
+
+
+def dense_train_peak(cfg, batch, seq) -> dict:
+    """The reckoned device bytes of a Qwen2 train step: params, gradients
+    and both AdamW moments in float32 (16 B a parameter); the loss chunk's
+    float32 (B, chunk, V) logits: the logits the backward recomputes and
+    keeps, logsumexp's difference, exp and product in its backward and
+    the gather's scattered gradient (five of them); one checkpointed
+    layer's recompute (its activations kept for its backward: about 24
+    (B, S, d_ff)-sized bf16 tensors and the flash scores of one KV block,
+    generously); the largest stacked float32 leaf once more (autograd's
+    stack of its per-layer gradients; the gradient norm's square)."""
+    n = cfg.param_count() + cfg.d_model
+    chunk = min(LOSS_CHUNK, seq)
+    stacked = max(cfg.vocab * cfg.d_model,
+                  cfg.n_layers * cfg.d_model * cfg.d_ff)
+    parts = {"p, g, m, v": 16 * n,
+             "loss chunk's logits (5 x float32)":
+             5 * 4 * batch * chunk * cfg.vocab,
+             "a layer's recompute": 24 * 2 * batch * seq * cfg.d_ff
+             + 4 * 4 * batch * cfg.n_heads * seq * min(256, seq),
+             "largest leaf again": 4 * stacked}
+    return dict(parts, total=sum(parts.values()))
+
+
+def ssm_train_peak(cfg, n_layers, batch, seq) -> dict:
+    """The reckoned device bytes of a Falcon-Mamba train step at
+    ``n_layers``: params, gradients and both AdamW moments in float32 (16 B
+    a parameter); the largest stacked float32 leaf (in_proj) once more
+    (autograd's stack of its per-layer gradients; the gradient norm's
+    square); the loss chunk's five float32 logits tensors; and one
+    checkpointed layer's recompute, its selective scan dominant: the
+    doubling scan keeps a new (a, b) pair of float32 (B, chunk, d_inner,
+    d_state) tensors each of its log2(chunk) rounds for the backward, plus
+    the first pair, the states and the chunk's inputs, and the backward
+    holds about six more of that size in flight; the layer's other
+    activations (bf16 (B, L, 2 d_inner) and smaller), generously."""
+    from repro_torch.models.mamba import chunk_size
+    cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    n = cfg.param_count() + cfg.d_model
+    di, st = cfg.mamba.expand * cfg.d_model, cfg.mamba.d_state
+    ch = chunk_size(seq, 256)
+    scan = 4 * batch * ch * di * st
+    rounds = max(ch - 1, 1).bit_length()
+    parts = {"p, g, m, v": 16 * n,
+             "largest leaf again": 4 * n_layers * cfg.d_model * 2 * di,
+             "loss chunk's logits (5 x float32)":
+             5 * 4 * batch * min(LOSS_CHUNK, seq) * cfg.vocab,
+             "a layer's recompute (scan)": (2 * rounds + 2 + 2 + 6) * scan,
+             "a layer's recompute (other)": 16 * 2 * batch * seq * 2 * di}
+    return dict(parts, total=sum(parts.values()))
+
+
+class StepTimer:
+    """Wraps a train step: CUDA events around each call, and a
+    torch.profiler session around the calls ``profile`` picks out (its
+    rows and events kept for the first call whose session recorded device
+    activity)."""
+
+    def __init__(self, torch, fn, profile=()):
+        self.torch, self.fn, self.profile = torch, fn, set(profile)
+        self.events, self.calls, self.prof = [], 0, None
+        self.profiled = None
+
+    def __call__(self, *args):
+        torch = self.torch
+        self.calls += 1
+        if self.calls in self.profile and self.prof is None:
+            from torch.profiler import ProfilerActivity, profile
+            torch.cuda.synchronize()
+            # device activity only: a step's host operator events would
+            # take the profiler tens of seconds to parse
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                out = self._timed(*args)
+                torch.cuda.synchronize()
+            kernels = device_events(torch, prof)
+            if kernels:
+                self.prof = (kernels, self.events[-1])
+                self.profiled = self.calls
+            return out
+        return self._timed(*args)
+
+    def _timed(self, *args):
+        start = self.torch.cuda.Event(enable_timing=True)
+        end = self.torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.fn(*args)
+        end.record()
+        self.events.append((start, end))
+        return out
+
+    def ms(self) -> list:
+        self.torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.events]
+
+
+def device_events(torch, prof) -> list:
+    """(start us, duration us, name) of every device operation a profiler
+    session recorded, in start order."""
+    out = [(e.time_range.start, e.time_range.elapsed_us(), e.name)
+           for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sorted(out)
+
+
+def busy_share(kernels, wall_ms) -> tuple:
+    """(device busy ms, idle share) of a step of ``wall_ms``: the union of
+    its device operations' intervals."""
+    busy, end = 0.0, -math.inf
+    for start, dur, _ in kernels:
+        busy += max(0.0, start + dur - max(start, end))
+        end = max(end, start + dur)
+    return busy / 1e3, 1 - busy / 1e3 / wall_ms
+
+
+def train_dense(torch, K, card, prompts):
+    """Phase 12 (a): Qwen2-0.5B at full size trained, resumed and served
+    (module docstring)."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, IndexedDataset, PrefetchLoader
+    from repro_torch.models import api
+    from repro_torch.optim import OptConfig, global_norm
+    from repro_torch.train import (LoopConfig, TrainConfig, Trainer,
+                                   estimate_model_flops, trainable,
+                                   value_and_grad)
+    cfg = get_config(TRAIN_ARCH)
+    tcfg = TrainConfig(opt=OptConfig(warmup_steps=2,
+                                     total_steps=TRAIN_STEPS),
+                       remat="full", attn_impl="flash")
+    ds = IndexedDataset(DataConfig(kind="lm", vocab=cfg.vocab,
+                                   seq_len=TRAIN_SEQ,
+                                   global_batch=TRAIN_BATCH,
+                                   seed=TRAIN_DATA_SEED))
+
+    def init(gen):
+        return api.init_params(cfg, gen, device="cuda")
+    peak = dense_train_peak(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = estimate_model_flops(cfg, tokens)
+    print(f"[train] {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab}, tied embeddings "
+          f"{cfg.tied_embeddings}, {cfg.param_count() + cfg.d_model:,} "
+          f"parameters in {cfg.param_dtype}, compute {cfg.compute_dtype}; "
+          f"remat {tcfg.remat}, attn {tcfg.attn_impl}, AdamW warmup "
+          f"{tcfg.opt.warmup_steps} of {tcfg.opt.total_steps} steps; "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens a step; reckoned peak "
+          + ", ".join(f"{k} {v / 1e9:.2f} GB" for k, v in peak.items()))
+
+    # step 0 with full attention against the trainer's flash step 0
+    params = trainable(init(torch.Generator(device="cuda").manual_seed(0)))
+    batch0 = next(PrefetchLoader(ds, 0))
+    loss_full, g = value_and_grad(api.loss_fn(
+        cfg, attn_impl="full", remat="full"))(params, batch0)
+    gn_full = float(global_norm(g))
+    loss_full = float(loss_full)
+    del params, g, batch0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def loop(path, every):
+        return LoopConfig(total_steps=TRAIN_STEPS, ckpt_every=every,
+                          ckpt_dir=str(path), keep=2, log_every=0)
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        tmp = Path(tmp)
+        print(f"[train] checkpoints under build/, "
+              f"{shutil.disk_usage(tmp).free / 1e9:.1f} GB free on its disk")
+        torch.cuda.reset_peak_memory_stats()
+        tr = Trainer(cfg, tcfg, loop(tmp / "a", TRAIN_CKPT_EVERY), ds, init)
+        timer = StepTimer(torch, tr.step_fn)
+        tr.step_fn = timer
+        t0 = time.perf_counter()
+        params, opt, step, hist = tr.run()
+        wall = time.perf_counter() - t0
+        got_peak = torch.cuda.max_memory_allocated()
+        ms = timer.ms()
+        losses = [h["loss"] for h in hist]
+        norms = [h["grad_norm"] for h in hist]
+        check(step == TRAIN_STEPS and len(hist) == TRAIN_STEPS
+              and tr.skipped == 0,
+              f"train {cfg.name}: step {step}, {len(hist)} finite steps, "
+              f"{tr.skipped} skipped")
+        check(all(math.isfinite(x) for x in losses + norms),
+              f"train {cfg.name}: a loss or gradient norm is not finite")
+        check(losses[-1] < losses[0] + 0.5,
+              f"train {cfg.name}: loss {losses[0]} -> {losses[-1]}")
+        print(f"[train] {cfg.name}: {TRAIN_STEPS} steps in {wall:.2f} s "
+              f"(checkpoints at steps {TRAIN_CKPT_EVERY} and {TRAIN_STEPS} "
+              f"included); losses "
+              + " ".join(f"{x:.4f}" for x in losses) + "; grad norms "
+              + " ".join(f"{x:.4f}" for x in norms))
+        d_loss = abs(loss_full - losses[0]) / abs(losses[0])
+        d_norm = abs(gn_full - norms[0]) / abs(norms[0])
+        print(f"[train] step 0: flash loss {losses[0]:.6f} grad norm "
+              f"{norms[0]:.6f}; full attention loss {loss_full:.6f} grad "
+              f"norm {gn_full:.6f}: relative differences {d_loss:.3e} "
+              f"(limit 2e-3) and {d_norm:.3e} (limit 1e-2)")
+        check(d_loss <= 2e-3 and d_norm <= 1e-2,
+              f"train {cfg.name}: full attention's step 0 is not flash's")
+        step_ms = statistics.median(ms[1:])
+        tflops = flops / (step_ms / 1e3) / 1e12
+        print(f"[train] {cfg.name}: step {step_ms:.2f} ms (median of steps "
+              f"2-{TRAIN_STEPS}, CUDA events; step 1 {ms[0]:.2f} ms), "
+              f"{tokens / step_ms * 1e3:.0f} tokens/s, model "
+              f"{tflops:.2f} TFLOP/s by estimate_model_flops (6 N D = "
+              f"{flops / 1e12:.3f} TFLOP a step), "
+              f"{tflops * 1e12 / BF16_PEAK:.4f} of the bf16 dense peak "
+              f"{BF16_PEAK / 1e12:.0f} TFLOP/s; peak allocated "
+              f"{got_peak / 1e9:.2f} GB against the reckoned "
+              f"{peak['total'] / 1e9:.2f} GB, on {card}")
+
+        # resume: the straight run's step-4 checkpoint, a new Trainer on
+        t_restore = time.perf_counter()
+        like = {"params": params, "opt": opt}
+        tree, at = Checkpointer(str(tmp / "a")).restore(
+            like, step=TRAIN_CKPT_EVERY)
+        del params, opt, like
+        shutil.rmtree(tmp / "a")
+        gc.collect()
+        # its only checkpoint: the one its run writes at its end
+        tr2 = Trainer(cfg, tcfg, loop(tmp / "b", 2 * TRAIN_STEPS), ds, init)
+        timer2 = StepTimer(torch, tr2.step_fn,
+                           profile=range(1, TRAIN_PROFILE_TRIES + 1))
+        tr2.step_fn = timer2
+        params, _, step2, hist2 = tr2.run(trainable(tree["params"]),
+                                          tree["opt"], at)
+        del tree
+        resumed = [h["loss"] for h in hist2]
+        check(at == TRAIN_CKPT_EVERY and step2 == TRAIN_STEPS
+              and len(resumed) == TRAIN_STEPS - at,
+              f"train resume: from step {at} to {step2}, "
+              f"{len(resumed)} steps")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, losses[at:]))
+        check(rel <= 1e-4, f"train resume: losses {resumed} differ from "
+                           f"the straight run's {losses[at:]}")
+        print(f"[train] resumed from the step-{at} checkpoint by a new "
+              f"Trainer: losses of steps {at + 1}-{TRAIN_STEPS} "
+              + " ".join(f"{x:.4f}" for x in resumed)
+              + f", at most {rel:.2e} relative from the straight run's "
+              f"(restore and {TRAIN_STEPS - at} steps with a checkpoint at "
+              f"the end: {time.perf_counter() - t_restore:.2f} s)")
+        check(timer2.prof is not None, f"train: {TRAIN_PROFILE_TRIES} "
+              "profiled steps recorded no device activity")
+        kernels, (s, e) = timer2.prof
+        wall_ms = s.elapsed_time(e)
+        busy, idle = busy_share(kernels, wall_ms)
+        print(f"[train] one profiled step: {wall_ms:.2f} ms (CUDA events, "
+              f"under the profiler), device busy {busy:.2f} ms in "
+              f"{len(kernels)} device operations, idle {idle:.4f}; against "
+              f"the unprofiled median step: idle {1 - busy / step_ms:.4f}")
+        for name, (n, us) in sorted(
+                kernel_sums(kernels).items(), key=lambda r: -r[1][1])[:6]:
+            print(f"[train]   {us / 1e3:9.3f} ms x{n:5d}  {name[:100]}")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        # serve the step-8 checkpoint in bf16
+        t_serve = time.perf_counter()
+        like = api.init_params(dataclasses.replace(
+            cfg, param_dtype="bfloat16"), torch.Generator(
+            device="cuda").manual_seed(1), device="cuda")
+        tree, at = Checkpointer(str(tmp / "b")).restore({"params": like})
+        del like
+    check(at == TRAIN_STEPS, f"train: restored step {at}")
+    served = prompts[:TRAIN_SERVE]
+    runner = LMRunner(torch, K, card, cfg, tree["params"], "cuda",
+                      TRAIN_SERVE_NEW)
+    runner.run("train", "trained bf16", served)
+    runner.run("train", "trained bf16 jit=False",
+               served[:TRAIN_SERVE_EAGER], jit=False)
+    check(runner.streams["trained bf16 jit=False"]
+          == runner.streams["trained bf16"][:TRAIN_SERVE_EAGER],
+          "train: the trained model's jit=False streams differ from the "
+          "captured engine's")
+    print(f"[train] the step-{at} checkpoint restored into bf16 and served "
+          f"captured: {TRAIN_SERVE} requests ok; the first "
+          f"{TRAIN_SERVE_EAGER} again with jit=False: streams equal "
+          f"(restore and serve {time.perf_counter() - t_serve:.2f} s)")
+
+
+def kernel_sums(kernels) -> dict:
+    """{name: (launches, device us)} of a step's device operations."""
+    out = {}
+    for _, dur, name in kernels:
+        n, us = out.get(name, (0, 0.0))
+        out[name] = (n + 1, us + dur)
+    return out
+
+
+def ssm_plain_loss(torch, cfg):
+    """The Falcon-Mamba training loss built here layer by layer from the
+    port's ``ssm_layer`` with the plain causal_conv1d: lm_loss's sequence
+    of operations (the same embedding, non-reentrant checkpoint per layer,
+    final norm and chunked cross-entropy), with no knob of lm_loss."""
+    from torch.utils.checkpoint import checkpoint
+    from repro_torch.configs.base import torch_dtype
+    from repro_torch.models import transformer as T
+    from repro_torch.models.blocks import chunked_softmax_ce, rmsnorm
+    cdt = torch_dtype(cfg.compute_dtype)
+
+    def layer(h, lp):
+        return T.ssm_layer(h, lp, cfg, cdt, conv_method="torch")
+
+    def loss(params, batch):
+        tokens = batch["tokens"]
+        h = params["embed"][tokens[:, :-1]].to(cdt)
+        stack = params["layers"]
+        parts = {"ln": stack["ln"].unbind(0),
+                 **{k: v.unbind(0) for k, v in stack["mamba"].items()}}
+        for i in range(cfg.n_layers):
+            lp = {"ln": parts["ln"][i],
+                  "mamba": {k: parts[k][i] for k in stack["mamba"]}}
+            h = checkpoint(layer, h, lp, use_reentrant=False,
+                           preserve_rng_state=False)
+        h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+        return chunked_softmax_ce(h, params["unembed"], tokens[:, 1:],
+                                  chunk=LOSS_CHUNK)
+    return loss
+
+
+def train_ssm(torch, K, card) -> dict:
+    """Phase 12 (b): Falcon-Mamba-7B at full width, cut in whole layers;
+    the kernel step's loss and gradients bitwise the plain step's; then
+    SSM_TRAIN_STEPS in-place train steps, each launching causal_conv1d
+    3 x layers times and its plain version never; returns the steps'
+    launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, IndexedDataset, PrefetchLoader
+    from repro_torch.models import api, mamba
+    from repro_torch.obs import metrics
+    from repro_torch.optim import OptConfig, init_opt_state
+    from repro_torch.tree import leaves
+    from repro_torch.train import (TrainConfig, estimate_model_flops,
+                                   make_train_step, trainable, value_and_grad)
+    full = get_config(SSM_ARCH)
+    b, s = SSM_TRAIN_BATCH, SSM_TRAIN_SEQ
+    free = torch.cuda.mem_get_info()[0]
+    layers = full.n_layers
+    while layers > 1 and free - ssm_train_peak(full, layers, b, s)["total"] \
+            < SSM_TRAIN_HEADROOM:
+        layers -= 1
+    cfg = dataclasses.replace(full, n_layers=layers)
+    peak = ssm_train_peak(full, layers, b, s)
+    print(f"[train] {SSM_ARCH}: d_model {cfg.d_model}, d_inner "
+          f"{cfg.mamba.expand * cfg.d_model}, d_state {cfg.mamba.d_state}, "
+          f"vocab {cfg.vocab}; {b} x {s} tokens a step, remat full; reckoned "
+          f"peak at {layers} layers: " + ", ".join(
+              f"{k} {v / 1e9:.2f} GB" for k, v in peak.items())
+          + f"; at {layers + 1}: "
+          f"{ssm_train_peak(full, layers + 1, b, s)['total'] / 1e9:.2f} GB; "
+          f"{free / 1e9:.2f} GB free on the card: depth cut from "
+          f"{full.n_layers} to {layers} layers, leaving "
+          f"{SSM_TRAIN_HEADROOM / 1e9:.0f} GB free")
+    torch.cuda.reset_peak_memory_stats()
+    params = trainable(api.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED),
+        device="cuda"))
+    ds = IndexedDataset(DataConfig(kind="lm", vocab=cfg.vocab, seq_len=s,
+                                   global_batch=b, seed=TRAIN_DATA_SEED))
+    loader = PrefetchLoader(ds, 0)
+    batch0 = ds.batch(0)
+    batch0 = {k: torch.as_tensor(v).cuda() for k, v in batch0.items()}
+    plain = metrics.counter("kernels.dispatch.causal_conv1d.torch")
+    want = 3 * layers
+
+    # the kernel step against the plain step, bitwise
+    t_check = time.perf_counter()
+    K.reset_launches()
+    torch_before = plain.value
+    loss_k, g_k = value_and_grad(api.loss_fn(cfg, remat="full"))(params,
+                                                                 batch0)
+    torch.cuda.synchronize()
+    conv = K.causal_conv1d.launches
+    check(conv == want and plain.value == torch_before,
+          f"train {SSM_ARCH}: the loss and gradients launched causal_conv1d "
+          f"{conv} times (not {want}) and its plain version "
+          f"{plain.value - torch_before} times")
+    loss_p, g_p = value_and_grad(ssm_plain_loss(torch, cfg))(params, batch0)
+    pairs = list(zip(leaves(g_k), leaves(g_p)))
+    diff = max(float((a.float() - c.float()).abs().max()) for a, c in pairs)
+    same = torch.equal(loss_k, loss_p) and all(torch.equal(a, c)
+                                               for a, c in pairs)
+    print(f"[train] {SSM_ARCH}: the kernel step's loss {float(loss_k):.6f} "
+          f"and {len(pairs)} gradient leaves against the plain step's "
+          f"(ssm_layer with conv_method='torch', layer by layer): "
+          f"{'bitwise equal' if same else 'DIFFER'} (loss difference "
+          f"{float(loss_k - loss_p):.3e}, largest gradient difference "
+          f"{diff:.3e}); causal_conv1d {conv} launches = 3 x {layers} "
+          "layers (forward, recompute, dx), no plain dispatch "
+          f"({time.perf_counter() - t_check:.2f} s)")
+    check(same, f"train {SSM_ARCH}: the kernel step is not bitwise the "
+                "plain step")
+    del g_k, g_p, pairs
+    gc.collect()
+
+    # train steps, in place
+    opt = OptConfig(warmup_steps=1, total_steps=SSM_TRAIN_STEPS)
+    state = init_opt_state(params, opt)
+    timer = StepTimer(torch, make_train_step(
+        cfg, TrainConfig(opt=opt, remat="full")),
+        profile=range(2, SSM_TRAIN_STEPS + 1))
+    losses, step_launches = [], dict.fromkeys(
+        (k.__name__ for k in K.KERNELS), 0)
+    t_steps = time.perf_counter()
+    for i in range(SSM_TRAIN_STEPS):
+        batch = next(loader)
+        K.reset_launches()
+        torch_before = plain.value
+        params, state, m = timer(params, state, batch)
+        losses.append(float(m["loss"]))
+        got = {k.__name__: k.launches for k in K.KERNELS}
+        check(got["causal_conv1d"] == want and plain.value == torch_before
+              and sum(got.values()) == want,
+              f"train {SSM_ARCH} step {i + 1}: launches {got} and "
+              f"{plain.value - torch_before} plain causal_conv1d calls, "
+              f"not {want} and 0")
+        for k, v in got.items():
+            step_launches[k] += v
+    got_peak = torch.cuda.max_memory_allocated()
+    ms = timer.ms()
+    check(all(math.isfinite(x) for x in losses),
+          f"train {SSM_ARCH}: losses {losses}")
+    check(timer.prof is not None, f"train {SSM_ARCH}: no profiled step "
+                                  "recorded device activity")
+    kernels, (s_ev, e_ev) = timer.prof
+    convs = [k for k in kernels if "causal_conv1d" in k[2]]
+    check(len(convs) == want, f"train {SSM_ARCH}: torch.profiler saw "
+                              f"{len(convs)} causal_conv1d kernels in a "
+                              f"step, not {want}")
+    # in start order: the forward's, then per layer (last first) its
+    # recompute and its dx
+    fwd = sum(k[1] for k in convs[:layers]) \
+        + sum(k[1] for k in convs[layers::2])
+    dx = sum(k[1] for k in convs[layers + 1::2])
+    step_ms = statistics.median(t for i, t in enumerate(ms[1:], start=2)
+                                if i != timer.profiled)
+    tokens = b * s
+    flops = estimate_model_flops(cfg, tokens)
+    busy, idle = busy_share(kernels, s_ev.elapsed_time(e_ev))
+    print(f"[train] {SSM_ARCH} at {layers} layers: {SSM_TRAIN_STEPS} steps, "
+          f"losses " + " ".join(f"{x:.4f}" for x in losses)
+          + f"; step {step_ms:.2f} ms (median of steps 2-{SSM_TRAIN_STEPS} "
+          f"but the profiled step {timer.profiled}, CUDA events; step 1 "
+          f"{ms[0]:.2f} ms, each step "
+          + " ".join(f"{t:.1f}" for t in ms) + " ms), "
+          f"{tokens / step_ms * 1e3:.1f} tokens/s, model "
+          f"{flops / (step_ms / 1e3) / 1e12:.2f} TFLOP/s; causal_conv1d "
+          f"{want} launches a step (torch.profiler and the wrapper's count), "
+          f"device time a step: forward and recompute {2 * layers} launches "
+          f"{fwd / 1e3:.4f} ms, dx {layers} launches {dx / 1e3:.4f} ms "
+          f"(row 7: {PREFILL_CONV_MS} ms for the 64 launches of a 96-token "
+          f"prefill); profiled step busy {busy:.2f} ms, idle {idle:.4f} "
+          f"(the steps: {time.perf_counter() - t_steps:.2f} s)")
+    scan_ms = scan_step_ms(torch, cfg, b, s, mamba)
+    print(f"[train] {SSM_ARCH}: the selective scan alone at the step's "
+          f"shapes (forward {scan_ms[0]:.3f} ms, forward and backward "
+          f"{scan_ms[1]:.3f} ms a layer, CUDA events) x {layers} layers x "
+          f"(forward, recompute, backward) = "
+          f"{layers * (scan_ms[0] + scan_ms[1]):.1f} ms, "
+          f"{layers * (scan_ms[0] + scan_ms[1]) / step_ms:.3f} of the step")
+    print(f"[train] {SSM_ARCH}: peak allocated {got_peak / 1e9:.2f} GB "
+          f"against the reckoned {peak['total'] / 1e9:.2f} GB, on {card}")
+    check(got_peak <= peak["total"], f"train {SSM_ARCH}: peak allocated "
+          f"{got_peak / 1e9:.2f} GB above the reckoned "
+          f"{peak['total'] / 1e9:.2f} GB")
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return step_launches
+
+
+def scan_step_ms(torch, cfg, b, s, mamba) -> tuple:
+    """(forward ms, forward + backward ms) of one layer's selective scan
+    on seeded inputs of the train step's shapes, by CUDA events."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    di, n = cfg.mamba.expand * cfg.d_model, cfg.mamba.d_state
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda") \
+            .to(torch.bfloat16).requires_grad_()
+    x, dt, bt, ct = rnd(b, s, di), rnd(b, s, di), rnd(b, s, n), rnd(b, s, n)
+    a = -torch.rand((di, n), generator=gen, device="cuda")
+    with torch.no_grad():
+        dt.copy_(torch.nn.functional.softplus(dt.float()))
+    g = torch.ones((b, s, di), dtype=torch.bfloat16, device="cuda")
+
+    def fwd():
+        with torch.no_grad():
+            mamba.mamba_scan(x, dt, a, bt, ct)
+
+    def both():
+        y, _ = mamba.mamba_scan(x, dt, a, bt, ct)
+        torch.autograd.grad(y, (x, dt, bt, ct), g)
+    return time_ms(torch, fwd, reps=3, trials=3), \
+        time_ms(torch, both, reps=3, trials=3)
+
+
 # ---------------------------------------------------------------- phase 8 --
 
 #: phase 8: the phase-4 plans served again with the tuned cache installed
@@ -3862,6 +4443,10 @@ def main() -> int:
     torch.cuda.empty_cache()    # phase 10's last model is gone
     with phase_clock("11 encdec-hybrid"):
         add(phase_encdec_hybrid(torch, K, card, lm_prompts))
+    gc.collect()
+    torch.cuda.empty_cache()    # phase 11's last model is gone
+    with phase_clock("12 train"):
+        add(phase_train(torch, K, card, lm_prompts))
     print(f"[time] the run so far {time.perf_counter() - t_start:.1f} s")
 
     rows = []
@@ -3893,9 +4478,11 @@ def main() -> int:
           "the tuner's run "
           "(phase 8) and the five trained plans' "
           f"forwards and profiles (phase 9), the families runs (phase "
-          f"10: internvl2-1b and granite-3-2b in int8 and w4a8) and the "
+          f"10: internvl2-1b and granite-3-2b in int8 and w4a8), the "
           f"hybrid runs' prefills (phase 11: jamba-v0.1-52b, 7 "
-          f"causal_conv1d launches a super-block); card: {card}")
+          f"causal_conv1d launches a super-block) and the Falcon-Mamba "
+          f"train steps (phase 12: 3 causal_conv1d launches a layer a "
+          f"step); card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

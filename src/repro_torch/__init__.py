@@ -5,8 +5,9 @@ quantization, the standard / grouped / depthwise-separable / shift / add
 primitives, the layer-graph lowering and executor, and the CNN serving
 engine), and the LM serve path of every family (dense and vlm LMs with
 the paper's integer FFN, moe, the ssm and hybrid families' Mamba blocks on
-the depthwise ``causal_conv1d``, and the encoder-decoder) on an NVIDIA
-Hopper card, with hand-written CUDA C++ kernels under
+the depthwise ``causal_conv1d``, and the encoder-decoder) and their
+training (``train``: the loss, the train step and the fault-tolerant
+loop) on an NVIDIA Hopper card, with hand-written CUDA C++ kernels under
 ``kernels/csrc``.
 
 Each module keeps the name and layout of its counterpart in the JAX package

@@ -35,9 +35,11 @@ from repro_torch.tree import map_with_paths, paths
 
 
 def _to_host(v) -> tuple:
-    """(numpy array as stored, dtype name) of one leaf."""
+    """(numpy array as stored, dtype name) of one leaf, a copy: a host
+    tensor's ``.cpu()`` is the tensor itself, which a trainer updating in
+    place would change under a save in flight."""
     if isinstance(v, torch.Tensor):
-        v = v.detach().cpu()
+        v = v.detach().to("cpu", copy=True)
         if v.dtype == torch.bfloat16:
             return v.view(torch.int16).numpy().view(np.uint16), "bfloat16"
         v = v.numpy()

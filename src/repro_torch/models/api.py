@@ -1,8 +1,9 @@
-"""Model API of the serve path: init, prefill (whole prompts, or a suffix
+"""Model API: init, the training loss, prefill (whole prompts, or a suffix
 against cached prefix K/V), decode and the KV cache helpers of continuous
 batching, contiguous and paged.
 
-Port of the serve half of ``repro/models/api.py``, every family (vlm and moe
+Port of ``repro/models/api.py`` but for its sharding and dry-run specs
+(ROADMAP.md, A8), every family (vlm and moe
 keep the dense family's caches; encdec runs
 :mod:`~repro_torch.models.encdec`, whose batch carries the encoder's
 ``"frames"`` and whose cache is per batch, not slotted). The
@@ -53,6 +54,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
             return {k: to(v) for k, v in tree.items()}
         return tree.to(dev)
     return to(params)
+
+
+def loss_fn(cfg: ModelConfig, *, attn_impl="full", remat="full"):
+    """``fn(params, batch)``: the training loss,
+    :func:`~repro_torch.models.transformer.lm_loss` or, for an encdec
+    model, :func:`~repro_torch.models.encdec.encdec_loss`."""
+    T.check_family(cfg, "loss_fn")
+    loss = E.encdec_loss if cfg.family == "encdec" else T.lm_loss
+    return functools.partial(loss, cfg=cfg, attn_impl=attn_impl, remat=remat)
 
 
 def prefill_fn(cfg: ModelConfig, max_len: int, *, attn_impl="flash",

@@ -1,8 +1,10 @@
-"""GQA attention for serving: prefill (``"full"``, ``"flash"`` and
-``"flash_tri"``) and one-token decode against a contiguous or a paged KV
-cache, float or int8.
+"""GQA attention: full and flash attention over a sequence (``"full"``,
+``"flash"`` and ``"flash_tri"``; differentiable, for training and
+prefill) and one-token decode against a contiguous or a paged KV cache,
+float or int8.
 
-Port of the inference half of ``repro/models/attention.py``. Attention is
+Port of ``repro/models/attention.py``; the sequence-parallel decode over
+a mesh waits for the port's sharding (ROADMAP.md, A8). Attention is
 not a TPU kernel in the JAX package, so it is plain PyTorch here. Layouts
 are the JAX package's: q (B,Sq,Hq,D), k and v (B,Sk,Hkv,D); the ``Hq``
 query heads split into ``Hkv`` groups of ``G = Hq / Hkv``. Scores and the
@@ -62,16 +64,13 @@ def _causal_mask(sq, sk, q_offset, device, k_offset=0):
     return qpos[:, None] >= kpos[None, :]
 
 
-def flash_attention(q, k, v, *, causal: bool, block_k: int = 256,
-                    q_offset=0):
-    """Blockwise online-softmax attention over KV blocks of ``block_k``
-    (the largest divisor of Sk not above it), forward only."""
+def _flash_fwd(q, k, v, causal: bool, bk: int, q_offset):
+    """The online-softmax scan over KV blocks of ``bk``: ``(out (B,Sq,Hq,D)
+    in q's dtype, o (B,Hkv,G,Sq,D) float32, m, l (B,Hkv,G,Sq) float32)``,
+    m the running max and l the running sum of each row."""
     b, sq, hq, d = q.shape
     n_kv = k.shape[2]
     sk = k.shape[1]
-    bk = min(block_k, sk)
-    while sk % bk:
-        bk -= 1
     qg = _split_gqa(q, n_kv) * (d ** -0.5)
     g = hq // n_kv
     m = torch.full((b, n_kv, g, sq), NEG_INF, dtype=torch.float32,
@@ -94,7 +93,71 @@ def flash_attention(q, k, v, *, causal: bool, block_k: int = 256,
             "bhgqk,bkhd->bhgqd", p.to(kc.dtype), vc).to(torch.float32)
         m = m_new
     o = acc / torch.clamp(l, min=1e-30)[..., None]
-    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(q.dtype)
+    out = o.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(q.dtype)
+    return out, o, m, l
+
+
+class _Flash(torch.autograd.Function):
+    """Flash attention with the FlashAttention-style backward of the JAX
+    package's custom VJP (``repro/models/attention.py`` ``_flash_vjp_bwd``,
+    plain jnp there, plain PyTorch here): the forward keeps only q, k, v,
+    the float32 output and each row's logsumexp; the backward re-scans
+    the KV blocks, recomputes p from the logsumexp, accumulates dq in
+    float32 and writes dk and dv block by block, so no (Sq, Sk) tensor is
+    ever held."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, bk, q_offset):
+        out, o, m, l = _flash_fwd(q, k, v, causal, bk, q_offset)
+        lse = m + torch.log(torch.clamp(l, min=1e-30))     # (B,Hkv,G,Sq)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.bk, ctx.q_offset = causal, bk, q_offset
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        b, sq, hq, d = q.shape
+        n_kv, bk = k.shape[2], ctx.bk
+        scale = d ** -0.5
+        qg = (_split_gqa(q, n_kv) * scale).to(torch.float32) \
+            .permute(0, 2, 3, 1, 4)                        # (B,Hkv,G,Sq,D)
+        dog = _split_gqa(do, n_kv).to(torch.float32).permute(0, 2, 3, 1, 4)
+        delta = torch.sum(dog * o, dim=-1)                 # (B,Hkv,G,Sq)
+        dq = torch.zeros_like(qg)
+        dks, dvs = [], []
+        for kk in range(k.shape[1] // bk):
+            kc = k[:, kk * bk:(kk + 1) * bk].to(torch.float32)
+            vc = v[:, kk * bk:(kk + 1) * bk].to(torch.float32)
+            s = torch.einsum("bhgqd,bkhd->bhgqk", qg, kc)
+            if ctx.causal:
+                s = torch.where(_causal_mask(sq, bk, ctx.q_offset, q.device,
+                                             k_offset=kk * bk), s, NEG_INF)
+            p = torch.exp(s - lse[..., None])              # (B,Hkv,G,Sq,bk)
+            dvs.append(torch.einsum("bhgqk,bhgqd->bkhd", p, dog).to(v.dtype))
+            dp = torch.einsum("bhgqd,bkhd->bhgqk", dog, vc)
+            ds = p * (dp - delta[..., None])
+            dq = dq + torch.einsum("bhgqk,bkhd->bhgqd", ds, kc) * scale
+            dks.append(torch.einsum("bhgqk,bhgqd->bkhd", ds, qg).to(k.dtype))
+        dq = dq.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(q.dtype)
+        return dq, torch.cat(dks, 1), torch.cat(dvs, 1), None, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool, block_k: int = 256,
+                    q_offset=0):
+    """Blockwise online-softmax attention over KV blocks of ``block_k``
+    (the largest divisor of Sk not above it). Differentiable: where a
+    gradient is wanted it runs as :class:`_Flash`; otherwise (serving) the
+    same scan alone, which keeps no residuals and gives the same output
+    bits."""
+    sk = k.shape[1]
+    bk = min(block_k, sk)
+    while sk % bk:
+        bk -= 1
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _Flash.apply(q, k, v, causal, bk, q_offset)
+    return _flash_fwd(q, k, v, causal, bk, q_offset)[0]
 
 
 def flash_attention_tri(q, k, v, *, block_k: int = 256, n_chunks: int = 8):

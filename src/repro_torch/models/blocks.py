@@ -1,18 +1,20 @@
-"""Shared LM blocks: RMSNorm, the float and the integer FFN, RoPE.
+"""Shared LM blocks: RMSNorm, the float and the integer FFN, RoPE, and the
+training loss (:func:`cross_entropy`, :func:`chunked_softmax_ce`).
 
-Port of the parts of ``repro/models/blocks.py`` that the dense serve path
-runs. The integer FFN (:func:`qmlp`) is the paper's Eq. 4 / Algorithm 1
-applied to the LM's feed-forward matmuls, the largest weight volume of a
-decode step: weights are PTQ'd once (:func:`quantize_mlp_params`, at engine
-init), activations are quantized on the fly at a fixed power-of-two scale,
-so every requantization is a static shift fused into the ``matmul_q8``
-kernel's epilogue, and the nonlinearity runs in float between the integer
-matmuls (W8A8, or W4A8 with nibble-packed weights).
+Port of ``repro/models/blocks.py``, its sharding specs aside. The integer
+FFN (:func:`qmlp`) is the paper's Eq. 4 / Algorithm 1 applied to the LM's
+feed-forward matmuls, the largest weight volume of a decode step: weights
+are PTQ'd once (:func:`quantize_mlp_params`, at engine init), activations
+are quantized on the fly at a fixed power-of-two scale, so every
+requantization is a static shift fused into the ``matmul_q8`` kernel's
+epilogue, and the nonlinearity runs in float between the integer matmuls
+(W8A8, or W4A8 with nibble-packed weights).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.quantize import QTensorW4, quantize, quantize_w4
 from repro_torch.kernels import ops as K
@@ -147,3 +149,55 @@ def rope(x, positions, theta: float):
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)
+
+
+def cross_entropy(logits, labels, mask=None):
+    """Mean token cross-entropy in float32; labels < 0 are ignored (or
+    ``mask`` picks the counted tokens)."""
+    logits = logits.to(torch.float32)
+    valid = (labels >= 0) if mask is None else mask
+    lab = torch.clamp(labels, min=0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, lab[..., None])[..., 0]
+    nll = (lse - ll) * valid
+    return torch.sum(nll) / torch.clamp(torch.sum(valid), min=1)
+
+
+def _ce_chunk(h_c, w, y_c):
+    """One chunk's (nll sum, squared-lse sum) over its valid labels, the
+    (B, chunk, V) float32 logits made and dropped inside."""
+    logits = h_c.to(torch.float32) @ w.to(torch.float32)
+    valid = y_c >= 0
+    lab = torch.clamp(y_c, min=0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, lab[..., None])[..., 0]
+    return torch.sum((lse - ll) * valid), torch.sum(torch.square(lse) * valid)
+
+
+def chunked_softmax_ce(h, w_unembed, labels, *, chunk: int = 512,
+                       z_loss: float = 1e-4):
+    """Cross-entropy over a large vocabulary without (B, S, V) logits.
+
+    The sequence is cut into chunks of ``min(chunk, S)`` (the tail padded
+    with labels -1); each chunk's logits are computed, reduced to its nll
+    and z sums and dropped, under a non-reentrant checkpoint, so the
+    backward recomputes them chunk by chunk: the peak holds one chunk's
+    (B, chunk, V) float32 logits, as JAX's ``@jax.checkpoint`` scan body
+    does. Returns mean nll + ``z_loss`` * mean lse^2 over the valid
+    labels."""
+    b, s, _ = h.shape
+    c = min(chunk, s)
+    pad = (-s) % c
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    l_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+    z_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, s + pad, c):
+        y_c = labels[:, i:i + c]
+        nll, zs = checkpoint(_ce_chunk, h[:, i:i + c], w_unembed, y_c,
+                             use_reentrant=False)
+        l_sum = l_sum + nll
+        z_sum = z_sum + zs
+    denom = torch.clamp(torch.sum(labels >= 0), min=1).to(torch.float32)
+    return l_sum / denom + z_loss * z_sum / denom

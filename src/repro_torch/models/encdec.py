@@ -24,8 +24,10 @@ per-batch, not per-slot). :func:`encdec_decode_step` writes the new
 token's K/V into ``k`` / ``v`` in place, so a captured step that reads the
 cache by address stays valid; it returns a new ``"len"``.
 
-Not ported yet: ``encdec_loss`` (training, ROADMAP.md A7) and
-``encdec_param_specs`` (sharding, A8).
+Training: :func:`encdec_loss`, each encoder and decoder layer under the
+decoder-only stack's ``_remat`` and its stacks taken apart with
+``_unstack``. Not ported yet: ``encdec_param_specs`` (sharding,
+ROADMAP.md A8).
 """
 from __future__ import annotations
 
@@ -34,8 +36,9 @@ import torch
 from repro_torch.configs.base import ModelConfig, torch_dtype
 
 from . import attention as A
-from .blocks import init_mlp, mlp, rmsnorm
-from .transformer import _cdt, _kv, _q, _qkv, _take, attn_decode, init_attn
+from .blocks import chunked_softmax_ce, init_mlp, mlp, rmsnorm
+from .transformer import (_cdt, _kv, _q, _qkv, _remat, _take, _unstack,
+                          attn_decode, init_attn)
 
 
 def init_encdec(cfg: ModelConfig, generator: torch.Generator) -> dict:
@@ -68,21 +71,26 @@ def init_encdec(cfg: ModelConfig, generator: torch.Generator) -> dict:
             "enc_norm": ones(d), "final_norm": ones(d)}
 
 
-def encode(params, frames, cfg: ModelConfig, *, attn_impl="full"):
+def encode(params, frames, cfg: ModelConfig, *, attn_impl="full",
+           remat="full"):
     """frames: (B, S_enc, d_model) stub embeddings -> the encoder output,
-    (B, S_enc, d_model) in the compute dtype."""
+    (B, S_enc, d_model) in the compute dtype; each layer under
+    ``_remat(.., remat)`` (which changes nothing outside autograd)."""
     cdt = _cdt(cfg)
     h = frames.to(cdt)
     b, s, _ = h.shape
     positions = torch.arange(s, device=h.device)[None, :]
-    for l in range(cfg.n_encoder_layers):
-        lp = _take(params["enc_layers"], l)
-        x = rmsnorm(h, lp["ln1"], cfg.norm_eps)
+
+    def body(hh, lp):
+        x = rmsnorm(hh, lp["ln1"], cfg.norm_eps)
         q, k, v = _qkv(lp["attn"], x, cfg, cdt, positions)
         o = A.attention(q, k, v, causal=False, impl=attn_impl)
-        h = h + o.reshape(b, s, -1) @ lp["attn"]["wo"].to(cdt)
-        h = h + mlp(rmsnorm(h, lp["ln2"], cfg.norm_eps), lp["mlp"], cfg.act,
-                    cdt)
+        hh = hh + o.reshape(b, s, -1) @ lp["attn"]["wo"].to(cdt)
+        return hh + mlp(rmsnorm(hh, lp["ln2"], cfg.norm_eps), lp["mlp"],
+                        cfg.act, cdt)
+    body = _remat(body, remat)
+    for lp in _unstack(params["enc_layers"], cfg.n_encoder_layers):
+        h = body(h, lp)
     return rmsnorm(h, params["enc_norm"], cfg.norm_eps)
 
 
@@ -112,6 +120,27 @@ def _unembed(params, h):
     return h.to(torch.float32) @ params["embed"].t().to(torch.float32)
 
 
+def encdec_loss(params, batch, cfg: ModelConfig, *, attn_impl="full",
+                remat="full", z_loss: float = 1e-4, loss_chunk: int = 512):
+    """Next-token loss of ``batch["tokens"]`` (B, S + 1) given the encoder
+    output of ``batch["frames"]``: the decoder over tokens[:, :-1], each
+    layer under ``_remat(.., remat)``, then
+    :func:`~repro_torch.models.blocks.chunked_softmax_ce` against
+    tokens[:, 1:] through the output projection tied to ``embed``."""
+    cdt = _cdt(cfg)
+    enc_out = encode(params, batch["frames"], cfg, attn_impl=attn_impl,
+                     remat=remat)
+    tokens = batch["tokens"]
+    h = params["embed"][tokens[:, :-1]].to(cdt)
+    body = _remat(lambda hh, lp: _decoder_layer(hh, lp, enc_out, cfg, cdt,
+                                                attn_impl)[0], remat)
+    for lp in _unstack(params["dec_layers"], cfg.n_layers):
+        h = body(h, lp)
+    h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    return chunked_softmax_ce(h, params["embed"].t(), tokens[:, 1:],
+                              chunk=loss_chunk, z_loss=z_loss)
+
+
 def init_encdec_cache(cfg: ModelConfig, batch: int, max_len: int,
                       enc_len: int, dtype=torch.bfloat16,
                       device="cuda") -> dict:
@@ -135,7 +164,7 @@ def encdec_prefill(params, frames, tokens, cfg: ModelConfig, max_len: int,
     holding the prompt's K/V (zeros past S), the cross K/V and ``len`` =
     S."""
     cdt = _cdt(cfg)
-    enc_out = encode(params, frames, cfg, attn_impl=attn_impl)
+    enc_out = encode(params, frames, cfg, attn_impl=attn_impl, remat="none")
     b, s = tokens.shape
     cache = init_encdec_cache(cfg, b, max_len, enc_out.shape[1],
                               device=tokens.device)

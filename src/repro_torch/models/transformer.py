@@ -56,23 +56,32 @@ suffix runs, against its prefix's cached K/V. Bitwise the full prefill on
 the host; the port's engine serves no hit with it (on a card a suffix's
 rows do not get the bits the whole prompt's get).
 
-Not ported yet: training (``forward``, ``hybrid_block``, ``lm_loss``;
-ROADMAP.md, A7). The ssm and hybrid families run in ``"float"`` precision
-only, as in the JAX package; the serving engine keeps moe in ``"float"``
-too (JAX's gate).
+Training (:func:`lm_loss` over :func:`forward_hidden`): each layer (a
+super-block for a hybrid model) runs stateless, :func:`dense_layer`,
+:func:`ssm_layer` or :func:`hybrid_block`, under :func:`_remat`'s
+checkpointing. The training path takes each stacked leaf apart with one
+``unbind(0)`` a forward (:func:`_unstack`): indexing the stack once per
+layer, as the serve path's views do, would make every layer's gradient a
+zero tensor the size of the whole stack.
+
+The ssm and hybrid families run in ``"float"`` precision only, as in the
+JAX package; the serving engine keeps moe in ``"float"`` too (JAX's
+gate).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.check.config import PRECISIONS
 from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.core.quantize import QTensor, QTensorW4
 
 from . import attention as A
-from .blocks import init_mlp, mlp, qmlp, rmsnorm, rope
-from .mamba import (init_mamba, mamba_decode_step, mamba_forward_with_state,
-                    mamba_init_state)
+from .blocks import chunked_softmax_ce, init_mlp, mlp, qmlp, rmsnorm, rope
+from .mamba import (init_mamba, mamba_decode_step, mamba_forward,
+                    mamba_forward_with_state, mamba_init_state)
 from .moe import init_moe, moe_ffn
 
 #: the families :func:`check_family` admits: every family a config uses
@@ -267,6 +276,15 @@ def _take(tree, l: int):
     return tree[l]
 
 
+def _unstack(tree, n: int) -> list:
+    """The ``n`` layers of a stacked tree, each leaf taken apart with one
+    ``unbind(0)``: views whose gradients autograd stacks once."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in parts} for i in range(n)]
+    return tree.unbind(0)
+
+
 def _layers(params: dict, cfg: ModelConfig):
     return [_take(params["layers"], l) for l in range(cfg.n_layers)]
 
@@ -441,6 +459,134 @@ def embed_tokens(params, tokens, cfg: ModelConfig, cdt):
 def unembed(params, h, cfg: ModelConfig):
     w = params["embed"].t() if cfg.tied_embeddings else params["unembed"]
     return h.to(torch.float32) @ w.to(torch.float32)
+
+
+# ================================================================== training
+
+def dense_layer(h, lp, cfg: ModelConfig, cdt, *, impl: str):
+    """One attention + FFN layer over a whole sequence, no cache."""
+    a, _ = attn_forward(lp["attn"], rmsnorm(h, lp["ln1"], cfg.norm_eps),
+                        cfg, cdt, impl=impl)
+    h = h + a
+    return h + ffn_forward(lp, rmsnorm(h, lp["ln2"], cfg.norm_eps), cfg, cdt)
+
+
+def ssm_layer(h, lp, cfg: ModelConfig, cdt, conv_method: str = "cuda"):
+    """One Mamba layer over a whole sequence, no state: the conv stage
+    through ``causal_conv1d`` (``"cuda"``: the kernel; ``"torch"``: its
+    plain version)."""
+    y = mamba_forward(lp["mamba"], rmsnorm(h, lp["ln"], cfg.norm_eps),
+                      cfg.mamba, cdt, conv_method=conv_method)
+    return h + y
+
+
+def hybrid_block(h, bp, cfg: ModelConfig, cdt, *, impl: str):
+    """One super-block over a whole sequence, no state (its serve twin:
+    :func:`_hybrid_block_with_state`), the sublayer stacks of ``bp`` taken
+    apart with :func:`_unstack`."""
+    _, nm, n_moe, n_dense = _hybrid_counts(cfg)
+    ln_mix, ln_ffn = bp["ln_mix"].unbind(0), bp["ln_ffn"].unbind(0)
+    subs = {"mamba": _unstack(bp["mamba"], nm),
+            "moe": _unstack(bp["moe"], n_moe),
+            "mlp": _unstack(bp["mlp"], n_dense)}
+    for i, ((mix, j), (ffn, jf)) in enumerate(_hybrid_layout(cfg)):
+        x = rmsnorm(h, ln_mix[i], cfg.norm_eps)
+        if mix == "attn":
+            h = h + attn_forward(bp["attn"], x, cfg, cdt, impl=impl)[0]
+        else:
+            h = h + mamba_forward(subs["mamba"][j], x, cfg.mamba, cdt)
+        f_in = rmsnorm(h, ln_ffn[i], cfg.norm_eps)
+        if ffn == "moe":
+            h = h + moe_ffn(f_in, subs["moe"][jf], cfg.moe, cfg.act, cdt)
+        else:
+            h = h + mlp(f_in, subs["mlp"][jf], cfg.act, cdt)
+    return h
+
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, mode: str):
+    """``fn`` under activation checkpointing (JAX's ``_remat``):
+    ``"full"`` keeps only its inputs and recomputes the rest in the
+    backward; ``"dots"`` keeps the outputs of the unbatched matrix
+    products (``aten.mm`` / ``addmm``) and recomputes everything else,
+    batched products included (JAX's ``checkpoint_dots_with_no_batch_dims``);
+    ``"none"`` keeps every residual. The checkpoint is the non-reentrant
+    one: the reentrant one loses the gradients of the parameters ``fn``
+    reads without taking them as inputs. Outside autograd ``fn`` runs
+    as it is."""
+    if mode == "none":
+        return fn
+    if mode not in ("full", "dots"):
+        raise ValueError(f"unknown remat mode {mode!r}; expected 'full', "
+                         "'dots' or 'none'")
+    kw = {} if mode == "full" else {
+        "context_fn": lambda: create_selective_checkpoint_contexts(
+            _save_dots)}
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kw)
+    return wrapped
+
+
+def forward_hidden(params, tokens, cfg: ModelConfig, *, embeds=None,
+                   attn_impl: str = "full", remat: str = "full"):
+    """Final hidden states (after the final norm) of ``tokens`` (B, S), a
+    vlm model's ``embeds`` (B, P, d_model) ahead of them, each layer (or
+    super-block) under ``_remat(.., remat)``."""
+    _check_decoder(cfg, "forward_hidden")
+    cdt = _cdt(cfg)
+    h = embed_tokens(params, tokens, cfg, cdt)
+    if embeds is not None:
+        h = torch.cat([embeds.to(cdt), h], dim=1)
+    if cfg.family == "hybrid":
+        body = _remat(lambda hh, bp: hybrid_block(hh, bp, cfg, cdt,
+                                                  impl=attn_impl), remat)
+        stack = _unstack(params["blocks"], _hybrid_counts(cfg)[0])
+    elif cfg.family == "ssm":
+        body = _remat(lambda hh, lp: ssm_layer(hh, lp, cfg, cdt), remat)
+        stack = _unstack(params["layers"], cfg.n_layers)
+    else:
+        body = _remat(lambda hh, lp: dense_layer(hh, lp, cfg, cdt,
+                                                 impl=attn_impl), remat)
+        stack = _unstack(params["layers"], cfg.n_layers)
+    for lp in stack:
+        h = body(h, lp)
+    return rmsnorm(h, params["final_norm"], cfg.norm_eps)
+
+
+def forward(params, tokens, cfg: ModelConfig, *, embeds=None,
+            attn_impl: str = "full", remat: str = "full"):
+    """Float32 logits (B, P + S, V) of :func:`forward_hidden`."""
+    h = forward_hidden(params, tokens, cfg, embeds=embeds,
+                       attn_impl=attn_impl, remat=remat)
+    return unembed(params, h, cfg)
+
+
+def lm_loss(params, batch, cfg: ModelConfig, *, attn_impl: str = "full",
+            remat: str = "full", z_loss: float = 1e-4, loss_chunk: int = 512):
+    """Next-token loss of ``batch["tokens"]`` (B, S + 1):
+    :func:`~repro_torch.models.blocks.chunked_softmax_ce` of the hidden
+    states of tokens[:, :-1] against tokens[:, 1:]; a vlm model's
+    ``batch["embeds"]`` go ahead of the tokens and their positions are
+    left out of the loss."""
+    tokens = batch["tokens"]
+    embeds = batch.get("embeds")
+    h = forward_hidden(params, tokens[:, :-1], cfg, embeds=embeds,
+                       attn_impl=attn_impl, remat=remat)
+    n_img = 0 if embeds is None else embeds.shape[1]
+    w = params["embed"].t() if cfg.tied_embeddings else params["unembed"]
+    return chunked_softmax_ce(h[:, n_img:], w, tokens[:, 1:],
+                              chunk=loss_chunk, z_loss=z_loss)
 
 
 # ==================================================================== decode

@@ -1,7 +1,8 @@
 """AdamW with decoupled weight decay, a warmup + cosine schedule and
 global-norm clipping, over the port's trees of tensors.
 
-Port of the AdamW half of ``repro/optim/optimizer.py``. Not
+Port of the AdamW half of ``repro/optim/optimizer.py``, with an in-place
+form of the update (:func:`apply_updates_`) for the trainer. Not
 ``torch.optim``: the update is the JAX package's arithmetic in its order,
 float32 throughout, so one step agrees with JAX's to float32 rounding. A
 leaf that is not floating point (a shift table) is never updated, and its
@@ -80,32 +81,78 @@ def init_opt_state(params, cfg: OptConfig) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
+def _adamw(p, g, m, v, lr, bc1, bc2, cfg: OptConfig):
+    """One float leaf's AdamW step from its clipped gradient: ``(p, m, v)``
+    new, each in its own dtype."""
+    b1, b2 = cfg.b1, cfg.b2
+    g32 = g.to(torch.float32)
+    m32 = b1 * m.to(torch.float32) + (1 - b1) * g32
+    v32 = b2 * v.to(torch.float32) + (1 - b2) * g32 * g32
+    mhat = m32 / bc1
+    vhat = v32 / bc2
+    delta = (mhat / (torch.sqrt(vhat) + cfg.eps)
+             + cfg.weight_decay * p.to(torch.float32))
+    return ((p.to(torch.float32) - lr * delta).to(p.dtype),
+            m32.to(m.dtype), v32.to(v.dtype))
+
+
+def _schedule_terms(step: torch.Tensor, cfg: OptConfig):
+    """(lr, 1 - b1^step, 1 - b2^step) at ``step``."""
+    s32 = step.to(torch.float32)
+    return schedule(cfg, step), 1 - cfg.b1 ** s32, 1 - cfg.b2 ** s32
+
+
 def apply_updates(params, grads, state: dict, cfg: OptConfig):
     """One AdamW step: clip, schedule, moments, bias correction, decoupled
     weight decay. Returns ``(new_params, new_state, {"lr", "grad_norm"})``
     and changes none of its arguments."""
     grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
     step = state["step"] + 1
-    lr = schedule(cfg, step)
-    b1, b2 = cfg.b1, cfg.b2
-    bc1 = 1 - b1 ** step.to(torch.float32)
-    bc2 = 1 - b2 ** step.to(torch.float32)
+    lr, bc1, bc2 = _schedule_terms(step, cfg)
 
     def upd(p, g, m, v):
         if not _is_float(p):             # integer leaves (shift tables)
             return p, m, v
-        g32 = g.to(torch.float32)
-        m32 = b1 * m.to(torch.float32) + (1 - b1) * g32
-        v32 = b2 * v.to(torch.float32) + (1 - b2) * g32 * g32
-        mhat = m32 / bc1
-        vhat = v32 / bc2
-        delta = (mhat / (torch.sqrt(vhat) + cfg.eps)
-                 + cfg.weight_decay * p.to(torch.float32))
-        return ((p.to(torch.float32) - lr * delta).to(p.dtype),
-                m32.to(m.dtype), v32.to(v.dtype))
+        return _adamw(p, g, m, v, lr, bc1, bc2, cfg)
 
     out = tree_map(upd, params, grads, state["m"], state["v"])
     new_p, new_m, new_v = (tree_map(lambda _, o, i=i: o[i], params, out)
                            for i in range(3))
     return new_p, {"m": new_m, "v": new_v, "step": step}, \
         {"lr": lr, "grad_norm": gnorm}
+
+
+#: elements a slice of :func:`apply_updates_` updates at a time
+SLICE_ELEMS = 1 << 24
+
+
+@torch.no_grad()
+def apply_updates_(params, grads, state: dict, cfg: OptConfig):
+    """:func:`apply_updates` in place, the port's counterpart of the JAX
+    trainer's buffer donation: params, ``state["m"]``, ``state["v"]`` and
+    ``state["step"]`` are overwritten with the new values, bitwise those
+    of :func:`apply_updates`, and returned with ``{"lr", "grad_norm"}``;
+    ``grads`` are read only. Each leaf goes in slices of whole rows along
+    its first axis of at most :data:`SLICE_ELEMS` elements (one row where
+    a row is larger), clipping included, so the temporaries stay a slice's
+    size: the functional form holds old and new params, moments and
+    clipped gradients together. The arithmetic is elementwise, so slicing
+    changes no bit."""
+    gnorm = global_norm(grads)
+    scale = torch.minimum(torch.ones_like(gnorm),
+                          cfg.grad_clip / torch.clamp(gnorm, min=1e-12))
+    state["step"] += 1
+    lr, bc1, bc2 = _schedule_terms(state["step"], cfg)
+    for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state["m"]),
+                          leaves(state["v"])):
+        if not _is_float(p):
+            continue
+        rows = max(1, SLICE_ELEMS // max(1, p[0].numel())) if p.dim() else 1
+        parts = ((p, g, m, v),) if p.dim() == 0 else zip(
+            *(t.split(rows) for t in (p, g, m, v)))
+        for ps, gs, ms, vs in parts:
+            gs = gs * scale.to(gs.dtype)
+            for dst, new in zip((ps, ms, vs),
+                                _adamw(ps, gs, ms, vs, lr, bc1, bc2, cfg)):
+                dst.copy_(new)
+    return params, state, {"lr": lr, "grad_norm": gnorm}

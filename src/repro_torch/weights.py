@@ -112,7 +112,7 @@ def plan_from_numpy(nodes, in_fb: int, device="cuda") -> Plan:
 W4_KEYS = frozenset({"q", "shifts", "frac_bits", "size", "axis"})
 
 
-def lm_params_from_numpy(tree, device="cuda"):
+def lm_params_from_numpy(tree, device="cuda", *, requires_grad=False):
     """An LM parameter tree of numpy arrays (the JAX package's
     ``init_params`` layout, layer-stacked: a dense or vlm model's ``{"ln1",
     "ln2", "attn", "mlp"}`` layers, ``attn`` with its ``bq`` / ``bk`` /
@@ -131,7 +131,9 @@ def lm_params_from_numpy(tree, device="cuda"):
     may ride along under ``tree["layers"]["qmlp"]``: an int8 weight as an
     ``(int8 codes, frac_bits)`` pair, a W4 weight as a ``{"q", "shifts",
     "frac_bits", "size", "axis"}`` dict (stacked or not), checked as
-    :func:`plan_from_numpy` checks them."""
+    :func:`plan_from_numpy` checks them. ``requires_grad``: the float
+    leaves come across as trainable leaves (a training step's
+    parameters)."""
     dev = resolve_device(device)
 
     def conv(t):
@@ -141,5 +143,18 @@ def lm_params_from_numpy(tree, device="cuda"):
             return {k: conv(v) for k, v in t.items()}
         if isinstance(t, tuple):
             return _qparam(t, dev)
-        return _tensor(t, dev)
+        x = _tensor(t, dev)
+        return x.requires_grad_(requires_grad and x.is_floating_point())
     return conv(tree)
+
+
+def tree_to_numpy(tree):
+    """A tree of tensors (dicts, lists, tuples) -> the same tree of numpy
+    arrays on the host, bfloat16 widened to float32 (numpy has no
+    bfloat16): the way back for comparing trees leaf by leaf."""
+    if isinstance(tree, dict):
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_to_numpy(v) for v in tree)
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
