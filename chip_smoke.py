@@ -288,7 +288,8 @@ Phases, one line each, any failure exits non-zero:
               step-4 checkpoint to step 8, its losses within 1e-4 of the
               straight run's; step 0 with attn_impl="full" within 2e-3
               (loss) and 1e-2 (gradient norm) of flash's; step ms (CUDA
-              events, median of steps 2-8), tokens/s, model TFLOP/s
+              events, median of steps 2-8, each begun with no checkpoint
+              write in flight), tokens/s, model TFLOP/s
               (estimate_model_flops) and its share of the bf16 peak, one
               step's device busy and idle (torch.profiler), the peak
               memory beside its reckoning; the step-8 checkpoint restored
@@ -304,10 +305,14 @@ Phases, one line each, any failure exits non-zero:
               a layer (forward, recompute, dx) and its plain version
               never, the loss and every gradient leaf bitwise equal to a
               loss built here layer by layer from ssm_layer(...,
-              conv_method="torch"); then 4 in-place train steps, each
-              launching causal_conv1d 3 times a layer (the wrapper's count,
-              and torch.profiler's count by kernel name in one step) and
-              nothing else of the port's, every loss finite, the peak
+              conv_method="torch"); then 4 timed in-place train steps
+              and up to 4 profiled ones after them, each launching
+              causal_conv1d 3 times a layer by the wrapper's count and
+              nothing else of the port's; torch.profiler's count by kernel
+              name the same in one profiled step's session and above it
+              in none (a session in a long run now and then drops a few
+              device records, so the steps stop at the first whole one);
+              every loss finite, the peak
               memory under the reckoning; step ms, tokens/s, the conv
               launches' device time a step (forward and recompute apart
               from dx) and the selective scan's share of the step.
@@ -3524,8 +3529,12 @@ TRAIN_DATA_SEED = 11
 TRAIN_SERVE, TRAIN_SERVE_NEW, TRAIN_SERVE_EAGER = 8, 16, 2
 #: phase 12 (b): Falcon-Mamba-7B at full width, cut in whole layers to the
 #: most whose reckoned training peak leaves SSM_TRAIN_HEADROOM bytes free;
-#: SSM_TRAIN_STEPS steps of SSM_TRAIN_BATCH x SSM_TRAIN_SEQ tokens
+#: SSM_TRAIN_STEPS timed steps of SSM_TRAIN_BATCH x SSM_TRAIN_SEQ tokens,
+#: then up to SSM_PROFILE_TRIES profiled ones, until a torch.profiler
+#: session holds every causal_conv1d launch of its step (in a long run a
+#: session now and then drops a few device records)
 SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_STEPS = 2, 256, 4
+SSM_PROFILE_TRIES = 4
 SSM_TRAIN_HEADROOM = 8e9
 #: the loss's chunk (lm_loss's loss_chunk default)
 LOSS_CHUNK = 512
@@ -3611,16 +3620,24 @@ class StepTimer:
     """Wraps a train step: CUDA events around each call, and a
     torch.profiler session around the calls ``profile`` picks out (its
     rows and events kept for the first call whose session recorded device
-    activity)."""
+    activity and, where ``accept`` is given, that ``accept(kernels)``
+    takes). ``before`` runs ahead of each call, outside its events (its
+    host seconds summed in ``waited``)."""
 
-    def __init__(self, torch, fn, profile=()):
+    def __init__(self, torch, fn, profile=(), before=None, accept=None):
         self.torch, self.fn, self.profile = torch, fn, set(profile)
         self.events, self.calls, self.prof = [], 0, None
         self.profiled = None
+        self.before, self.waited = before, 0.0
+        self.accept = accept
 
     def __call__(self, *args):
         torch = self.torch
         self.calls += 1
+        if self.before is not None:
+            t0 = time.perf_counter()
+            self.before()
+            self.waited += time.perf_counter() - t0
         if self.calls in self.profile and self.prof is None:
             from torch.profiler import ProfilerActivity, profile
             torch.cuda.synchronize()
@@ -3630,7 +3647,7 @@ class StepTimer:
                 out = self._timed(*args)
                 torch.cuda.synchronize()
             kernels = device_events(torch, prof)
-            if kernels:
+            if kernels and (self.accept is None or self.accept(kernels)):
                 self.prof = (kernels, self.events[-1])
                 self.profiled = self.calls
             return out
@@ -3727,7 +3744,9 @@ def train_dense(torch, K, card, prompts):
               f"{shutil.disk_usage(tmp).free / 1e9:.1f} GB free on its disk")
         torch.cuda.reset_peak_memory_stats()
         tr = Trainer(cfg, tcfg, loop(tmp / "a", TRAIN_CKPT_EVERY), ds, init)
-        timer = StepTimer(torch, tr.step_fn)
+        # each timed step starts with no checkpoint write in flight: the
+        # step-4 save's thread would share the host with steps 5-8
+        timer = StepTimer(torch, tr.step_fn, before=tr.ckpt.wait)
         tr.step_fn = timer
         t0 = time.perf_counter()
         params, opt, step, hist = tr.run()
@@ -3760,7 +3779,10 @@ def train_dense(torch, K, card, prompts):
         step_ms = statistics.median(ms[1:])
         tflops = flops / (step_ms / 1e3) / 1e12
         print(f"[train] {cfg.name}: step {step_ms:.2f} ms (median of steps "
-              f"2-{TRAIN_STEPS}, CUDA events; step 1 {ms[0]:.2f} ms), "
+              f"2-{TRAIN_STEPS}, CUDA events, no checkpoint write in "
+              f"flight: {timer.waited:.2f} s waited for the step-"
+              f"{TRAIN_CKPT_EVERY} write; steps " + " ".join(
+                  f"{x:.2f}" for x in ms) + " ms), "
               f"{tokens / step_ms * 1e3:.0f} tokens/s, model "
               f"{tflops:.2f} TFLOP/s by estimate_model_flops (6 N D = "
               f"{flops / 1e12:.3f} TFLOP a step), "
@@ -3881,9 +3903,9 @@ def ssm_plain_loss(torch, cfg):
 def train_ssm(torch, K, card) -> dict:
     """Phase 12 (b): Falcon-Mamba-7B at full width, cut in whole layers;
     the kernel step's loss and gradients bitwise the plain step's; then
-    SSM_TRAIN_STEPS in-place train steps, each launching causal_conv1d
-    3 x layers times and its plain version never; returns the steps'
-    launches."""
+    SSM_TRAIN_STEPS timed in-place train steps and the profiled ones
+    after them, each launching causal_conv1d 3 x layers times and its
+    plain version never; returns the steps' launches."""
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, IndexedDataset, PrefetchLoader
     from repro_torch.models import api, mamba
@@ -3954,15 +3976,22 @@ def train_ssm(torch, K, card) -> dict:
     gc.collect()
 
     # train steps, in place
-    opt = OptConfig(warmup_steps=1, total_steps=SSM_TRAIN_STEPS)
+    most = SSM_TRAIN_STEPS + SSM_PROFILE_TRIES
+    opt = OptConfig(warmup_steps=1, total_steps=most)
     state = init_opt_state(params, opt)
+    sessions = []       # causal_conv1d kernels each profiled session saw
+
+    def complete(kernels):
+        sessions.append(sum("causal_conv1d" in k[2] for k in kernels))
+        return sessions[-1] == want
     timer = StepTimer(torch, make_train_step(
         cfg, TrainConfig(opt=opt, remat="full")),
-        profile=range(2, SSM_TRAIN_STEPS + 1))
+        profile=range(SSM_TRAIN_STEPS + 1, most + 1), accept=complete)
     losses, step_launches = [], dict.fromkeys(
         (k.__name__ for k in K.KERNELS), 0)
     t_steps = time.perf_counter()
-    for i in range(SSM_TRAIN_STEPS):
+    i = 0
+    while i < SSM_TRAIN_STEPS or (timer.prof is None and i < most):
         batch = next(loader)
         K.reset_launches()
         torch_before = plain.value
@@ -3976,36 +4005,36 @@ def train_ssm(torch, K, card) -> dict:
               f"not {want} and 0")
         for k, v in got.items():
             step_launches[k] += v
+        i += 1
     got_peak = torch.cuda.max_memory_allocated()
     ms = timer.ms()
     check(all(math.isfinite(x) for x in losses),
           f"train {SSM_ARCH}: losses {losses}")
-    check(timer.prof is not None, f"train {SSM_ARCH}: no profiled step "
-                                  "recorded device activity")
+    check(max(sessions, default=0) <= want and timer.prof is not None,
+          f"train {SSM_ARCH}: torch.profiler saw {sessions} causal_conv1d "
+          f"kernels in the sessions of {i - SSM_TRAIN_STEPS} profiled "
+          f"steps, not {want} in one")
     kernels, (s_ev, e_ev) = timer.prof
     convs = [k for k in kernels if "causal_conv1d" in k[2]]
-    check(len(convs) == want, f"train {SSM_ARCH}: torch.profiler saw "
-                              f"{len(convs)} causal_conv1d kernels in a "
-                              f"step, not {want}")
     # in start order: the forward's, then per layer (last first) its
     # recompute and its dx
     fwd = sum(k[1] for k in convs[:layers]) \
         + sum(k[1] for k in convs[layers::2])
     dx = sum(k[1] for k in convs[layers + 1::2])
-    step_ms = statistics.median(t for i, t in enumerate(ms[1:], start=2)
-                                if i != timer.profiled)
+    step_ms = statistics.median(ms[1:SSM_TRAIN_STEPS])
     tokens = b * s
     flops = estimate_model_flops(cfg, tokens)
     busy, idle = busy_share(kernels, s_ev.elapsed_time(e_ev))
-    print(f"[train] {SSM_ARCH} at {layers} layers: {SSM_TRAIN_STEPS} steps, "
-          f"losses " + " ".join(f"{x:.4f}" for x in losses)
-          + f"; step {step_ms:.2f} ms (median of steps 2-{SSM_TRAIN_STEPS} "
-          f"but the profiled step {timer.profiled}, CUDA events; step 1 "
-          f"{ms[0]:.2f} ms, each step "
+    print(f"[train] {SSM_ARCH} at {layers} layers: {i} steps, losses "
+          + " ".join(f"{x:.4f}" for x in losses)
+          + f"; step {step_ms:.2f} ms (median of steps 2-{SSM_TRAIN_STEPS}, "
+          f"CUDA events; step 1 {ms[0]:.2f} ms, each step "
           + " ".join(f"{t:.1f}" for t in ms) + " ms), "
           f"{tokens / step_ms * 1e3:.1f} tokens/s, model "
           f"{flops / (step_ms / 1e3) / 1e12:.2f} TFLOP/s; causal_conv1d "
-          f"{want} launches a step (torch.profiler and the wrapper's count), "
+          f"{want} launches a step (the wrapper's count in every step; "
+          f"torch.profiler's in step {timer.profiled}, its sessions seeing "
+          f"{sessions}), "
           f"device time a step: forward and recompute {2 * layers} launches "
           f"{fwd / 1e3:.4f} ms, dx {layers} launches {dx / 1e3:.4f} ms "
           f"(row 7: {PREFILL_CONV_MS} ms for the 64 launches of a 96-token "

@@ -58,11 +58,17 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(sums)))
 
 
+def _clip_scale(gnorm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """The factor that scales gradients of norm ``gnorm`` to at most
+    ``max_norm``."""
+    return torch.minimum(torch.ones_like(gnorm),
+                         max_norm / torch.clamp(gnorm, min=1e-12))
+
+
 def clip_by_global_norm(grads, max_norm: float):
     """``(grads scaled to a global norm of at most max_norm, the norm)``."""
     g = global_norm(grads)
-    scale = torch.minimum(torch.ones_like(g),
-                          max_norm / torch.clamp(g, min=1e-12))
+    scale = _clip_scale(g, max_norm)
     return tree_map(lambda x: x * scale.to(x.dtype) if _is_float(x) else x,
                     grads), g
 
@@ -139,8 +145,7 @@ def apply_updates_(params, grads, state: dict, cfg: OptConfig):
     clipped gradients together. The arithmetic is elementwise, so slicing
     changes no bit."""
     gnorm = global_norm(grads)
-    scale = torch.minimum(torch.ones_like(gnorm),
-                          cfg.grad_clip / torch.clamp(gnorm, min=1e-12))
+    scale = _clip_scale(gnorm, cfg.grad_clip)
     state["step"] += 1
     lr, bc1, bc2 = _schedule_terms(state["step"], cfg)
     for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state["m"]),

@@ -26,9 +26,6 @@ class TrainConfig:
     remat: str = "full"                 # full | dots | none
     attn_impl: str = "full"
     microbatches: int = 1               # grad accumulation steps
-    # carried as the JAX package carries it: its train step never reads
-    # it, and neither does this one
-    compress_grads: bool = False
 
 
 def trainable(params):

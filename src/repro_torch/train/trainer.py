@@ -48,7 +48,8 @@ from .train_step import TrainConfig, make_train_step, trainable
 class LoopConfig:
     total_steps: int = 100
     ckpt_every: int = 50
-    ckpt_dir: str = "/tmp/repro_ckpt"
+    # no default: a Trainer resumes from any checkpoint it finds there
+    ckpt_dir: str = dataclasses.field(kw_only=True)
     keep: int = 3
     log_every: int = 10
     straggler_factor: float = 3.0

@@ -112,7 +112,7 @@ def plan_from_numpy(nodes, in_fb: int, device="cuda") -> Plan:
 W4_KEYS = frozenset({"q", "shifts", "frac_bits", "size", "axis"})
 
 
-def lm_params_from_numpy(tree, device="cuda", *, requires_grad=False):
+def lm_params_from_numpy(tree, device="cuda"):
     """An LM parameter tree of numpy arrays (the JAX package's
     ``init_params`` layout, layer-stacked: a dense or vlm model's ``{"ln1",
     "ln2", "attn", "mlp"}`` layers, ``attn`` with its ``bq`` / ``bk`` /
@@ -131,9 +131,8 @@ def lm_params_from_numpy(tree, device="cuda", *, requires_grad=False):
     may ride along under ``tree["layers"]["qmlp"]``: an int8 weight as an
     ``(int8 codes, frac_bits)`` pair, a W4 weight as a ``{"q", "shifts",
     "frac_bits", "size", "axis"}`` dict (stacked or not), checked as
-    :func:`plan_from_numpy` checks them. ``requires_grad``: the float
-    leaves come across as trainable leaves (a training step's
-    parameters)."""
+    :func:`plan_from_numpy` checks them. A training step's parameters
+    are ``train.trainable(lm_params_from_numpy(...))``."""
     dev = resolve_device(device)
 
     def conv(t):
@@ -143,8 +142,7 @@ def lm_params_from_numpy(tree, device="cuda", *, requires_grad=False):
             return {k: conv(v) for k, v in t.items()}
         if isinstance(t, tuple):
             return _qparam(t, dev)
-        x = _tensor(t, dev)
-        return x.requires_grad_(requires_grad and x.is_floating_point())
+        return _tensor(t, dev)
     return conv(tree)
 
 

@@ -36,7 +36,7 @@ from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models import moe as M  # noqa: E402
 from repro_torch.optim import OptConfig, init_opt_state  # noqa: E402
 from repro_torch.train import (TrainConfig, estimate_model_flops,  # noqa: E402
-                               make_train_step, value_and_grad)
+                               make_train_step, trainable, value_and_grad)
 from repro_torch.tree import leaves  # noqa: E402
 from repro_torch.weights import lm_params_from_numpy, tree_to_numpy  # noqa: E402
 
@@ -122,7 +122,7 @@ def _case(family: str, dtype: str):
 
 def port_value_and_grad(family, dtype="float32", **kw):
     cfg, weights, batch, _, _ = case(family, dtype)
-    params = lm_params_from_numpy(weights, device="cpu", requires_grad=True)
+    params = trainable(lm_params_from_numpy(weights, device="cpu"))
     return value_and_grad(api.loss_fn(cfg, **kw))(params,
                                                   _torch_batch(batch))
 
@@ -310,7 +310,7 @@ def jax_step(mb: int):
 def _port_step(mb: int):
     """The port's (in-place) train step on JAX's inputs of :func:`jax_step`."""
     cfg, weights, _, _, _ = case("dense")
-    params = lm_params_from_numpy(weights, device="cpu", requires_grad=True)
+    params = trainable(lm_params_from_numpy(weights, device="cpu"))
     opt = OptConfig(**OPT)
     step = make_train_step(cfg, TrainConfig(opt=opt, microbatches=mb))
     st = init_opt_state(params, opt)
@@ -382,7 +382,7 @@ def test_train_step_updates_in_place():
     """make_train_step writes params, m, v and step into the tensors it
     was given and returns them."""
     cfg, weights, _, _, _ = case("dense")
-    params = lm_params_from_numpy(weights, device="cpu", requires_grad=True)
+    params = trainable(lm_params_from_numpy(weights, device="cpu"))
     opt = OptConfig(**OPT)
     st = init_opt_state(params, opt)
     ptrs = [t.data_ptr() for t in leaves((params, st))]
@@ -396,11 +396,13 @@ def test_train_step_updates_in_place():
 
 
 def test_weights_round_trip_and_flops():
-    """lm_params_from_numpy's trainable leaves and tree_to_numpy's way
+    """lm_params_from_numpy's leaves made trainable and tree_to_numpy's way
     back; estimate_model_flops as JAX's."""
     from repro.train import estimate_model_flops as j_flops
     cfg, weights, _, _, _ = case("moe")
-    params = lm_params_from_numpy(weights, device="cpu", requires_grad=True)
+    params = lm_params_from_numpy(weights, device="cpu")
+    assert not any(t.requires_grad for t in leaves(params))
+    assert trainable(params) is params
     assert all(t.requires_grad for t in leaves(params))
     back = tree_to_numpy(params)
     for a, b in zip(leaves(back), jax.tree_util.tree_leaves(weights)):

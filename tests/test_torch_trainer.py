@@ -185,6 +185,15 @@ def test_heartbeat_straggler_detection():
     assert mon.beat(0.11) is False
 
 
+def test_loop_config_names_its_checkpoint_directory():
+    """LoopConfig has no default ckpt_dir: a Trainer resumes from any
+    checkpoint it finds there, so a shared default could resume another
+    run's."""
+    with pytest.raises(TypeError, match="ckpt_dir"):
+        LoopConfig(total_steps=2)
+    assert LoopConfig(ckpt_dir="x").ckpt_dir == "x"
+
+
 def test_lm_train_checkpoint_serve_roundtrip(tmp_path):
     """Train a reduced LM from the port's own seeded init, checkpoint,
     restore into bfloat16, serve 3 requests batched."""
