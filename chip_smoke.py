@@ -317,8 +317,29 @@ Phases, one line each, any failure exits non-zero:
               launches' device time a step (forward and recompute apart
               from dx) and the selective scan's share of the step.
 
-The phases run in the order 1-5, 8, 9, 6, 7, 10, 11, 12; each one's wall
-time is printed as it ends ([time]). The second-to-last
+13. launch  — the port's dry run and roofline count, after phase 12's
+              models are freed. (a) ``python -m repro_torch.launch.dryrun
+              --all --jobs 8`` in a subprocess that sees no card
+              (torch.distributed's fake backend, meta tensors): 80 records
+              under JAX's cell names, 64 ok and 16 skipped (long_500k on
+              the eight full-attention archs), none an error; its wall
+              time and each ok cell's first-device argument GB at 16x16
+              beside the card's memory. (b) ``roofline.count`` on the card
+              for three steps: Qwen2-0.5B's int8 decode step at 8 slots
+              (counted eager, timed over replays of its captured graph;
+              72 matmul_q8 calls), a 96-token Falcon-Mamba-7B prefill at
+              full width cut to 8 layers (one causal_conv1d call a layer)
+              and Qwen2-0.5B's train step at 8 x 512: FLOPs by kind, the
+              bytes floor, the device ms (tune.device_kernels), the
+              roofline terms at the card model's peaks and the binding
+              share, which must be at most 1; each counted kernel's calls
+              equal to its wrapper's launches and to torch.profiler's
+              launches of its device kernel; the decode step's work the
+              same with every kernel call run as its plain version
+              (``kernels.ops.force_method("torch")``).
+
+The phases run in the order 1-5, 8, 9, 6, 7, 10, 11, 12, 13; each one's
+wall time is printed as it ends ([time]). The second-to-last
 line is a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -433,13 +454,6 @@ C1D_SHAPES = ((1, 16), (1, 33), (1, 96), (1, 256), (8, 64))
 C1D_WIDTH, C1D_TAPS, C1D_SUMMED = 8192, 4, (1, 96)
 C1D_PER_PREFILL = 64           # Falcon-Mamba-7B's layers
 
-# Published dense peaks (NVIDIA data sheets): HBM bytes/s and int8 ops/s;
-# float32 outside the tensor cores (causal_conv1d's multiply-adds).
-PEAKS = {"SXM": (3.35e12, 1979e12), "PCIe": (2.0e12, 1513e12)}
-F32_PEAKS = {"SXM": 67e12, "PCIe": 51e12}
-#: int32 lanes per SM (Hopper: 64 INT32 units per SM), for add-conv's bound
-INT32_LANES_PER_SM = 64
-
 
 class SmokeFailure(Exception):
     pass
@@ -459,8 +473,12 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def peaks(name: str):
-    return PEAKS["PCIe"] if "PCIe" in name else PEAKS["SXM"]
+def card_model():
+    """The card's peaks: ``repro_torch.core.energy``'s H100 model of the
+    card torch sees (the PCIe card's where its name says PCIe)."""
+    import torch
+    from repro_torch.core.energy import h100_for
+    return h100_for(torch.cuda.get_device_name(0))
 
 
 def sms_and_clock(torch) -> tuple:
@@ -475,12 +493,13 @@ def sms_and_clock(torch) -> tuple:
 
 
 def int32_rate(torch) -> tuple:
-    """(ops/s, text): the CUDA cores' int32 rate, SMs x 64 lanes x the
-    maximum SM clock (nvidia-smi), the ceiling of add-conv, which has no
-    tensor-core form."""
+    """(ops/s, text): the CUDA cores' int32 rate, SMs x 64 lanes (the
+    card model's) x the maximum SM clock (nvidia-smi), the ceiling of
+    add-conv, which has no tensor-core form."""
     sms, mhz = sms_and_clock(torch)
-    rate = sms * INT32_LANES_PER_SM * mhz * 1e6
-    return rate, (f"{sms} SMs x {INT32_LANES_PER_SM} int32 lanes x "
+    lanes = card_model().int32_lanes_per_sm
+    rate = sms * lanes * mhz * 1e6
+    return rate, (f"{sms} SMs x {lanes} int32 lanes x "
                   f"{mhz:.0f} MHz = {rate / 1e12:.2f} T ops/s")
 
 
@@ -523,6 +542,14 @@ def device_ms(torch, fn, reps=20) -> float:
     ms = sum(r.us for r in device_kernels(torch, fn, reps)) / 1e3
     check(ms > 0, "torch.profiler saw no device time")
     return ms
+
+
+def work_ms(work, bw, rates) -> tuple:
+    """(bytes ms, operations ms) of ``roofline.count.kernel_work``'s
+    ``work``: its bytes at ``bw`` bytes/s, and the slowest of its kinds of
+    operations at ``rates[kind]``."""
+    return (1e3 * work.nbytes / bw,
+            max(1e3 * n / rates[kind] for kind, n in work.ops.items()))
 
 
 # ---------------------------------------------------------------- phase 3 --
@@ -577,11 +604,14 @@ def grid_table(c: int, d: int):
 
 def kernel_cases(torch, K, dev, rng):
     """Yield (kernel, label, on_main_path, run_kernel, run_plain, run_lib,
-    bytes, ops) for every comparison of phase 3. ``ops`` is (count, kind):
-    int8 tensor-core operations, or add-conv's int32 |x - w| accumulates."""
+    work) for every comparison of phase 3. ``work`` is the call's
+    ``roofline.count.kernel_work``: bytes, and operations by kind (int8
+    tensor-core operations; add-conv's |x - w| accumulates and the pool's
+    compares on the int32 lanes)."""
     import torch.nn.functional as F
     from repro_torch.core.primitives import shift_channels
     from repro_torch.core.quantize import expand_w4, pack_w4
+    from repro_torch.roofline.count import kernel_work
 
     def i8(shape):
         return torch.from_numpy(rng.integers(-128, 128, shape)
@@ -611,10 +641,8 @@ def kernel_cases(torch, K, dev, rng):
             x = offset_view(torch, x, x_offset)
         if w4_mode:
             wp, ws, wt = w4((hk, hk, cx // g, cy), 2, all_max)
-            wbytes = wp.numel() + ws.numel()
         else:
             wt = i8((hk, hk, cx // g, cy))
-            wbytes = wt.numel()
         b = i32((cy,)) if bias else None
         kw = dict(groups=g, requant_shift=shift, act=act)
         # yardstick: cuDNN float32 convolution of the same (expanded) codes
@@ -623,18 +651,17 @@ def kernel_cases(torch, K, dev, rng):
         wf = wt.permute(3, 2, 0, 1).float().contiguous()
         pad = (hk // 2, (hk - 1) // 2, hk // 2, (hk - 1) // 2)
         xf = F.pad(xf, pad)
-        nbytes = x.numel() + wbytes + (4 * cy if bias else 0) + n * h * w * cy
-        ops = (2 * n * h * w * cy * (cx // g) * hk * hk, "int8")
         lib = lambda: F.conv2d(xf, wf, groups=g)       # noqa: E731
         if w4_mode:
             return ("conv2d_w4", label, main,
                     lambda: K.conv2d_w4(x, wp, ws, b, **kw),
                     lambda: K.conv2d_w4_plain(x, wp, ws, b, **kw),
-                    lib, nbytes, ops)
+                    lib, kernel_work("conv2d_w4", x, wp, b, groups=g,
+                                     w_shifts=ws))
         return ("conv2d", label, main,
                 lambda: K.conv2d_q8(x, wt, b, **kw),
                 lambda: K.conv2d_q8_plain(x, wt, b, **kw),
-                lib, nbytes, ops)
+                lib, kernel_work("conv2d_q8", x, wt, b, groups=g))
 
     def dw(label, n, h, w, c, hk, act=None, shift=7, layout4=True,
            main=False, w4_mode=False, all_max=False, x_offset=0):
@@ -644,35 +671,28 @@ def kernel_cases(torch, K, dev, rng):
         shape = (hk, hk, c, 1) if layout4 else (hk, hk, c)
         if w4_mode:                      # packed along the tap rows
             wp, ws, wt = w4(shape, 0, all_max)
-            wbytes = wp.numel() + ws.numel()
         else:
             wt = i8(shape)
-            wbytes = wt.numel()
         kw = dict(requant_shift=shift, act=act)
         xf = x.permute(0, 3, 1, 2).float().contiguous()
         xf = F.pad(xf, (hk // 2, (hk - 1) // 2, hk // 2, (hk - 1) // 2))
         wf = wt.reshape(hk, hk, c).permute(2, 0, 1)[:, None].float() \
             .contiguous()
-        nbytes = 2 * x.numel() + wbytes
-        ops = (2 * x.numel() * hk * hk, "int8")
         lib = lambda: F.conv2d(xf, wf, groups=c)       # noqa: E731
         if w4_mode:
             return ("depthwise2d_w4", label, main,
                     lambda: K.depthwise2d_w4(x, wp, ws, **kw),
                     lambda: K.depthwise2d_w4_plain(x, wp, ws, **kw),
-                    lib, nbytes, ops)
+                    lib, kernel_work("depthwise2d_w4", x, wp, w_shifts=ws))
         return ("depthwise2d", label, main,
                 lambda: K.depthwise2d_q8(x, wt, **kw),
                 lambda: K.depthwise2d_q8_plain(x, wt, **kw),
-                lib, nbytes, ops)
+                lib, kernel_work("depthwise2d_q8", x, wt))
 
     def pool(label, n, h, w, c, win=2, stride=2, main=False, x_offset=0):
         x = i8((n, h, w, c))
         if x_offset:                 # the same codes at an odd address
             x = offset_view(torch, x, x_offset)
-        ho, wo = (h - win) // stride + 1, (w - win) // stride + 1
-        nbytes = x.numel() + n * ho * wo * c
-        ops = (n * ho * wo * c * (win * win - 1), "int8")
         lib = None
         if win == stride and h % win == 0 and w % win == 0:
             # yardstick: one reduction over a free view of the same int8s
@@ -681,7 +701,8 @@ def kernel_cases(torch, K, dev, rng):
         return ("maxpool2d", label, main,
                 lambda: K.maxpool2d_s8(x, window=win, stride=stride),
                 lambda: K.maxpool2d_plain(x, window=win, stride=stride),
-                lib, nbytes, ops)
+                lib, kernel_work("maxpool2d_s8", x, window=win,
+                                 stride=stride))
 
     def shift_conv(label, n, h, w, c, cy, table, bias=True, act="relu", rs=7,
                    main=False, w4_mode=False, all_max=False, x_offset=0):
@@ -690,10 +711,8 @@ def kernel_cases(torch, K, dev, rng):
             x = offset_view(torch, x, x_offset)
         if w4_mode:
             wp, ws, wt = w4((c, cy), 0, all_max)
-            wbytes = wp.numel() + ws.numel()
         else:
             wt = i8((c, cy))
-            wbytes = wt.numel()
         s = torch.from_numpy(table).to(dev)
         d = int(np.abs(table).max())
         b = i32((cy,)) if bias else None
@@ -702,19 +721,17 @@ def kernel_cases(torch, K, dev, rng):
         # codes (contraction only), made before timing
         xs = shift_channels(x, s).permute(0, 3, 1, 2).float().contiguous()
         wf = wt.t().float()[:, :, None, None].contiguous()
-        nbytes = (x.numel() + wbytes + s.numel() * 4
-                  + (4 * cy if bias else 0) + n * h * w * cy)
-        ops = (2 * n * h * w * cy * c, "int8")
         lib = lambda: F.conv2d(xs, wf)                 # noqa: E731
         if w4_mode:
             return ("shift_conv2d_w4", label, main,
                     lambda: K.shift_conv2d_w4(x, s, wp, ws, b, **kw),
                     lambda: K.shift_conv2d_w4_plain(x, s, wp, ws, b, **kw),
-                    lib, nbytes, ops)
+                    lib, kernel_work("shift_conv2d_w4", x, s, wp, b,
+                                     w_shifts=ws))
         return ("shift_conv2d", label, main,
                 lambda: K.shift_conv2d_q8(x, s, wt, b, **kw),
                 lambda: K.shift_conv2d_q8_plain(x, s, wt, b, **kw),
-                lib, nbytes, ops)
+                lib, kernel_work("shift_conv2d_q8", x, s, wt, b))
 
     def mm(label, m, k, n, shift=9, act=None, weight=None, w4_mode=False,
            all_max=False, offset=0):
@@ -726,10 +743,8 @@ def kernel_cases(torch, K, dev, rng):
         a = i8((m, k))
         if w4_mode:
             wp, ws, wt = w4((k, n), 0, all_max)
-            wbytes = wp.numel() + ws.numel()
         else:
             wt = i8((k, n))
-            wbytes = wt.numel()
         if offset:
             a = offset_view(torch, a, offset)
             if w4_mode:
@@ -737,8 +752,6 @@ def kernel_cases(torch, K, dev, rng):
             else:
                 wt = offset_view(torch, wt, offset)
         kw = dict(requant_shift=shift, act=act)
-        nbytes = a.numel() + wbytes + m * n
-        ops = (2 * m * n * k, "int8")
         lib = None
         if k % 8 == 0 and n % 8 == 0:
             # yardstick: torch._int_mm on the same (expanded) codes, its a
@@ -751,11 +764,11 @@ def kernel_cases(torch, K, dev, rng):
             return ("matmul_w4", label, weight,
                     lambda: K.matmul_w4(a, wp, ws, **kw),
                     lambda: K.matmul_w4_plain(a, wp, ws, **kw),
-                    lib, nbytes, ops)
+                    lib, kernel_work("matmul_w4", a, wp, w_shifts=ws))
         return ("matmul", label, weight,
                 lambda: K.matmul_q8(a, wt, **kw),
                 lambda: K.matmul_q8_plain(a, wt, **kw),
-                lib, nbytes, ops)
+                lib, kernel_work("matmul_q8", a, wt))
 
     def add_conv(label, n, h, w, cx, cy, hk, xp=2, wp=0, bias=True, act=None,
                  rs=9, main=False, w4_mode=False, all_max=False, x_offset=0):
@@ -764,10 +777,8 @@ def kernel_cases(torch, K, dev, rng):
             x = offset_view(torch, x, x_offset)
         if w4_mode:
             wpk, ws, wt = w4((hk, hk, cx, cy), 2, all_max)
-            wbytes = wpk.numel() + ws.numel()
         else:
             wt = i8((hk, hk, cx, cy))
-            wbytes = wt.numel()
         b = i32((cy,)) if bias else None
         kw = dict(requant_shift=rs, x_preshift=xp, w_preshift=wp, act=act)
         # yardstick: torch.cdist(p=1) between float32 patches extracted
@@ -779,19 +790,17 @@ def kernel_cases(torch, K, dev, rng):
             .reshape(n * h * w, cx * hk * hk).contiguous()
         wf = wt.permute(3, 2, 0, 1).reshape(cy, cx * hk * hk).float() \
             .contiguous()
-        nbytes = x.numel() + wbytes + (4 * cy if bias else 0) \
-            + n * h * w * cy
-        ops = (n * h * w * cy * cx * hk * hk, "int32")
         lib = lambda: torch.cdist(patches, wf, p=1)    # noqa: E731
         if w4_mode:
             return ("add_conv2d_w4", label, main,
                     lambda: K.add_conv2d_w4(x, wpk, ws, b, **kw),
                     lambda: K.add_conv2d_w4_plain(x, wpk, ws, b, **kw),
-                    lib, nbytes, ops)
+                    lib, kernel_work("add_conv2d_w4", x, wpk, b,
+                                     w_shifts=ws))
         return ("add_conv2d", label, main,
                 lambda: K.add_conv2d_q8(x, wt, b, **kw),
                 lambda: K.add_conv2d_q8_plain(x, wt, b, **kw),
-                lib, nbytes, ops)
+                lib, kernel_work("add_conv2d_q8", x, wt, b))
 
     seen = set()
     for prim in ("dws", "standard", "shift", "add"):
@@ -1310,14 +1319,16 @@ EARLIER_C1D_MS = {(1, 16): 0.0029, (1, 33): 0.0032, (1, 96): 0.0037,
 
 
 def phase_kernels(torch, K, dev, name, rng):
+    from repro_torch.core.energy import h100_for
     from repro_torch.device import exact_float32
-    bw, int8_rate = peaks(name)
+    card = h100_for(name)
+    bw = card.hbm_bps
     i32_rate, i32_text = int32_rate(torch)
     print(f"[kernels] bounds: bytes / {bw / 1e12:.2f} TB/s; int8 ops / "
-          f"{int8_rate / 1e12:.0f} T ops/s (tensor cores); add-conv's "
-          f"|x - w| accumulates / {i32_text}")
-    rates = {"int8": int8_rate, "int32": i32_rate}
-    f32_rate = F32_PEAKS["PCIe" if "PCIe" in name else "SXM"]
+          f"{card.int8_tc_ops / 1e12:.0f} T ops/s (tensor cores); add-conv's "
+          f"|x - w| accumulates and the pool's compares / {i32_text}")
+    rates = {"int8": card.int8_tc_ops, "int32": i32_rate}
+    f32_rate = card.f32_fma_flops
     check_plans(K)
     with exact_float32():      # the float32 yardsticks run without TF32
         per_kernel = _phase_kernels(torch, K, dev, rng, bw, rates)
@@ -1337,8 +1348,8 @@ def phase_kernels(torch, K, dev, name, rng):
 
 def _phase_kernels(torch, K, dev, rng, bw, rates):
     per_kernel = {}
-    for (kernel, label, main, run_k, run_p, run_lib, nbytes,
-         (n_ops, kind)) in kernel_cases(torch, K, dev, rng):
+    for (kernel, label, main, run_k, run_p, run_lib,
+         work) in kernel_cases(torch, K, dev, rng):
         got = run_k()
         want = run_p()
         torch.cuda.synchronize()
@@ -1360,7 +1371,7 @@ def _phase_kernels(torch, K, dev, rng, bw, rates):
         # model's own line instead of the kernel's row
         step, weight = main if isinstance(main, tuple) else \
             (None, 1 if main is True else main)
-        bytes_ms, ops_ms = 1e3 * nbytes / bw, 1e3 * n_ops / rates[kind]
+        bytes_ms, ops_ms = work_ms(work, bw, rates)
         t_k = device_ms(torch, run_k)
         t_p = device_ms(torch, run_p, reps=5)
         t_l = device_ms(torch, run_lib) if run_lib is not None else None
@@ -1477,6 +1488,7 @@ def phase_conv1d(torch, K, dev, rng, bw, f32_rate):
     the first design's kernel, at an odd address), then the backward."""
     import torch.nn.functional as F
     from repro_torch.kernels.conv1d_causal import c1d_plan, row_stride
+    from repro_torch.roofline.count import kernel_work
     row = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
                library_ms=0.0, bytes_ms=0.0, ops_ms=0.0, shapes=0)
     paths = {True: 0, False: 0}
@@ -1503,9 +1515,8 @@ def phase_conv1d(torch, K, dev, rng, bw, f32_rate):
             continue
         b, l, d = x.shape
         k = w.shape[0]
-        nbytes = (2 * b * l * d + k * d) * x.element_size()
-        bytes_ms = 1e3 * nbytes / bw
-        ops_ms = 1e3 * 2 * k * b * l * d / f32_rate
+        bytes_ms, ops_ms = work_ms(kernel_work("causal_conv1d", x, w), bw,
+                                   {"f32": f32_rate})
         # yardstick: cuDNN's depthwise conv1d (groups=D) on channel-major
         # copies left-padded by K-1, made before timing
         xt = F.pad(x.transpose(1, 2).contiguous(), (k - 1, 0))
@@ -1606,27 +1617,31 @@ T2_POOL = (8, 32, 32, 64, 2, 2)
 
 def f32_rates(torch) -> tuple:
     """(FMA flop/s, non-FMA op/s, text): float32 on the CUDA cores, SMs x
-    128 lanes x the maximum SM clock (nvidia-smi), x 2 for an FMA."""
+    128 lanes (the card model's) x the maximum SM clock (nvidia-smi), x 2
+    for an FMA."""
     sms, mhz = sms_and_clock(torch)
-    ops = sms * 128 * mhz * 1e6
-    return 2 * ops, ops, (f"{sms} SMs x 128 float32 lanes x {mhz:.0f} MHz "
+    lanes = card_model().f32_lanes_per_sm
+    ops = sms * lanes * mhz * 1e6
+    return 2 * ops, ops, (f"{sms} SMs x {lanes} float32 lanes x {mhz:.0f} MHz "
                           f"= {ops / 1e12:.2f} T ops/s, {2 * ops / 1e12:.2f} "
                           "TFLOP/s as FMAs")
 
 
 def float_cases(torch, K, dev, rng, earlier):
-    """Yield (kernel, label, timed, run_kernel, run_plain, run_lib, bytes,
-    (ops, kind)) for every float-mode comparison of phase 3: the tuner's
+    """Yield (kernel, label, timed, run_kernel, run_plain, run_lib, work)
+    for every float-mode comparison of phase 3: the tuner's
     Table-2 float jobs and the CNN plans' layer shapes at B=256 (float32,
     timed; the Table-2 ones summed into the JSON row, ``timed == "t2"``),
     the same in bfloat16, then HK=1, even HK, grouped, C off a multiple of
     32, M=1, K off a multiple of 32, relu and bias on and off (bitwise
-    only). ``kind`` is "fma" (float32 multiply-adds, 2 flops each) or
-    "op" (float32 operations with no FMA form). Each timed pool case puts
+    only). ``work`` is the call's ``roofline.count.kernel_work``: its
+    operations "f32" (float32 FLOPs, 2 a multiply-add) or "f32_op"
+    (float32 operations with no FMA form). Each timed pool case puts
     into ``earlier``, under its label, a call of the first design's kernel
     (the scalar path) on the same values at an odd address."""
     import torch.nn.functional as F
     from repro_torch.core.primitives import shift_channels
+    from repro_torch.roofline.count import kernel_work
 
     def f(shape, dtype):
         return torch.from_numpy(rng.standard_normal(shape).astype("float32")
@@ -1643,16 +1658,13 @@ def float_cases(torch, K, dev, rng, earlier):
             x = offset_view(torch, x, off)
         b = f((cy,), dtype) if bias else None
         kw = dict(groups=g, act=act)
-        es = x.element_size()
         xf = F.pad(x.permute(0, 3, 1, 2).float(), pads(hk)).contiguous()
         wf = wt.permute(3, 2, 0, 1).float().contiguous()
         return ("conv2d_f", label, timed,
                 lambda: K.conv2d_f(x, wt, b, **kw),
                 lambda: K.conv2d_f_plain(x, wt, b, **kw),
                 lambda: F.conv2d(xf, wf, groups=g),
-                es * (x.numel() + wt.numel() + n * h * w * cy + (cy if bias
-                                                                 else 0)),
-                (n * h * w * cy * (cx // g) * hk * hk, "fma"))
+                kernel_work("conv2d_f", x, wt, b, groups=g))
 
     def dw(label, shape, dtype, timed=False, act="relu", off=0):
         n, h, w, c, hk = shape
@@ -1665,8 +1677,7 @@ def float_cases(torch, K, dev, rng, earlier):
                 lambda: K.depthwise2d_f(x, wt, act=act),
                 lambda: K.depthwise2d_f_plain(x, wt, act=act),
                 lambda: F.conv2d(xf, wf, groups=c),
-                x.element_size() * (2 * x.numel() + wt.numel()),
-                (x.numel() * hk * hk, "fma"))
+                kernel_work("depthwise2d_f", x, wt))
 
     def pool(label, shape, dtype, timed=False, off=0, nans=False):
         n, h, w, c, win, st = shape
@@ -1675,7 +1686,6 @@ def float_cases(torch, K, dev, rng, earlier):
             plant_nans(torch, x, rng)
         if off:                      # x at an unaligned address
             x = offset_view(torch, x, off)
-        ho, wo = (h - win) // st + 1, (w - win) // st + 1
         if timed:
             xo = offset_view(torch, x, 1)
             earlier[label] = lambda: K.maxpool2d_f(xo, window=win,
@@ -1687,8 +1697,7 @@ def float_cases(torch, K, dev, rng, earlier):
         return ("maxpool2d_f", label, timed,
                 lambda: K.maxpool2d_f(x, window=win, stride=st),
                 lambda: K.maxpool2d_plain(x, window=win, stride=st), lib,
-                x.element_size() * (x.numel() + n * ho * wo * c),
-                (n * ho * wo * c * (win * win - 1), "op"))
+                kernel_work("maxpool2d_f", x, window=win, stride=st))
 
     def shift(label, shape, dtype, d=1, timed=False, act="relu", off=0):
         n, h, w, c, cy = shape
@@ -1704,8 +1713,7 @@ def float_cases(torch, K, dev, rng, earlier):
                 lambda: K.shift_conv2d_f_plain(x, table, wt, max_shift=d,
                                                act=act),
                 lambda: F.conv2d(xs, wf),
-                x.element_size() * (x.numel() + wt.numel() + n * h * w * cy)
-                + 8 * c, (n * h * w * cy * c, "fma"))
+                kernel_work("shift_conv2d_f", x, table, wt))
 
     def add(label, shape, dtype, timed=False, act=None, off=0):
         n, h, w, cx, cy, hk = shape
@@ -1721,8 +1729,7 @@ def float_cases(torch, K, dev, rng, earlier):
                 lambda: K.add_conv2d_f(x, wt, act=act),
                 lambda: K.add_conv2d_f_plain(x, wt, act=act),
                 lambda: torch.cdist(patches, wf, p=1),
-                x.element_size() * (x.numel() + wt.numel() + n * h * w * cy),
-                (2 * n * h * w * cy * cx * hk * hk, "op"))
+                kernel_work("add_conv2d_f", x, wt))
 
     def mm(label, shape, dtype, timed=False, act=None, off=0):
         m, k, n = shape
@@ -1734,8 +1741,7 @@ def float_cases(torch, K, dev, rng, earlier):
                 lambda: K.matmul_f(a, b, act=act),
                 lambda: K.matmul_f_plain(a, b, act=act),
                 lambda: torch.matmul(af, bf),
-                a.element_size() * (a.numel() + b.numel() + m * n),
-                (m * n * k, "fma"))
+                kernel_work("matmul_f", a, b))
 
     f32, bf16 = torch.float32, torch.bfloat16
     for dtype in (f32, bf16):
@@ -1830,10 +1836,10 @@ def phase_float(torch, K, dev, rng, bw):
     fma_rate, op_rate, text = f32_rates(torch)
     print(f"[kernels] float bounds: bytes / {bw / 1e12:.2f} TB/s; float32 "
           f"multiply-adds and |x - w| / max operations against {text}")
-    rates = {"fma": fma_rate / 2, "op": op_rate}    # per MAC / per op
+    rates = {"f32": fma_rate, "f32_op": op_rate}
     rows, earlier = {}, {}
-    for (kernel, label, timed, run_k, run_p, run_lib, nbytes,
-         (n_ops, kind)) in float_cases(torch, K, dev, rng, earlier):
+    for (kernel, label, timed, run_k, run_p, run_lib,
+         work) in float_cases(torch, K, dev, rng, earlier):
         got = run_k()
         want = run_p()
         torch.cuda.synchronize()
@@ -1851,7 +1857,7 @@ def phase_float(torch, K, dev, rng, bw):
         row["shapes"] += 1
         if not timed:
             continue
-        bytes_ms, ops_ms = 1e3 * nbytes / bw, 1e3 * n_ops / rates[kind]
+        bytes_ms, ops_ms = work_ms(work, bw, rates)
         t_k = device_ms(torch, run_k)
         t_p = device_ms(torch, run_p, reps=3)
         t_l = device_ms(torch, run_lib) if run_lib is not None else None
@@ -3226,8 +3232,6 @@ ENCDEC_BATCH, ENCDEC_FRAMES, ENCDEC_PROMPT, ENCDEC_NEW = 8, 256, 16, 32
 #: requests of phase 6's prompts, new tokens, of them again with jit=False
 HYBRID_ARCH = "jamba-v0.1-52b"
 HYBRID_REQUESTS, HYBRID_NEW, HYBRID_EAGER = 8, 16, 2
-#: HBM bytes/s of the byte bounds printed
-HBM_RATE = PEAKS["SXM"][0]
 
 
 def conv_per_prefill(cfg) -> int:
@@ -3361,7 +3365,8 @@ def family_encdec(torch, K, card):
     kv = sum(cache[k].numel() * cache[k].element_size()
              for k in ("k", "v", "xk", "xv"))
     emb = params["embed"].numel() * params["embed"].element_size()
-    bound_ms = 1e3 * (dec + kv + emb) / HBM_RATE
+    hbm = card_model().hbm_bps
+    bound_ms = 1e3 * (dec + kv + emb) / hbm
     step = time_ms(torch, cap.replay, reps=5, trials=3)
     rows = device_kernels(torch, cap.replay, 5)
     busy = sum(r.us for r in rows) / 1e3
@@ -3374,7 +3379,7 @@ def family_encdec(torch, K, card):
           f"byte bound {bound_ms:.4f} ms ({(dec + kv + emb) / 1e9:.3f} GB: "
           f"decoder weights {dec / 1e9:.3f}, float32 embedding "
           f"{emb / 1e9:.3f}, K/V and cross K/V {kv / 1e9:.3f}, at "
-          f"{HBM_RATE / 1e12:.2f} TB/s), {step / bound_ms:.2f}x it")
+          f"{hbm / 1e12:.2f} TB/s), {step / bound_ms:.2f}x it")
     for r in sorted(rows, key=lambda r: -r.us)[:6]:
         kernel = r.key.replace("void ", "").replace("at::native::", "")
         print(f"[encdec-breakdown]   {r.us:9.1f} us x{r.launches:4.0f}  "
@@ -3451,9 +3456,10 @@ def family_hybrid(torch, K, card, prompts):
     eng, _ = runner.run("hybrid", "float", served)
     weights = sum(v.numel() * v.element_size()
                   for v in _leaves(eng.params))
+    hbm = card_model().hbm_bps
     print(f"[hybrid] byte bound of a decode step's weights: "
-          f"{weights / 1e9:.3f} GB at {HBM_RATE / 1e12:.2f} TB/s = "
-          f"{1e3 * weights / HBM_RATE:.3f} ms (every expert's weights: "
+          f"{weights / 1e9:.3f} GB at {hbm / 1e12:.2f} TB/s = "
+          f"{1e3 * weights / hbm:.3f} ms (every expert's weights: "
           "the experts run as one batched matmul over their capacity "
           "rows)")
     lm_breakdown(torch, "hybrid float", eng, cfg, "cuda",
@@ -3538,8 +3544,6 @@ SSM_PROFILE_TRIES = 4
 SSM_TRAIN_HEADROOM = 8e9
 #: the loss's chunk (lm_loss's loss_chunk default)
 LOSS_CHUNK = 512
-#: NVIDIA's data sheet: the H100 SXM's dense bf16 tensor-core peak
-BF16_PEAK = 989e12
 #: row 7's device time of the 64 causal_conv1d launches of one 96-token
 #: Falcon-Mamba prefill (PERF.md section 6, PR 22), for comparison
 PREFILL_CONV_MS = 0.1514
@@ -3786,8 +3790,9 @@ def train_dense(torch, K, card, prompts):
               f"{tokens / step_ms * 1e3:.0f} tokens/s, model "
               f"{tflops:.2f} TFLOP/s by estimate_model_flops (6 N D = "
               f"{flops / 1e12:.3f} TFLOP a step), "
-              f"{tflops * 1e12 / BF16_PEAK:.4f} of the bf16 dense peak "
-              f"{BF16_PEAK / 1e12:.0f} TFLOP/s; peak allocated "
+              f"{tflops * 1e12 / card_model().bf16_tc_flops:.4f} of the "
+              f"bf16 dense peak {card_model().bf16_tc_flops / 1e12:.0f} "
+              f"TFLOP/s; peak allocated "
               f"{got_peak / 1e9:.2f} GB against the reckoned "
               f"{peak['total'] / 1e9:.2f} GB, on {card}")
 
@@ -4390,6 +4395,221 @@ SOURCES = {
 }
 
 
+# ---------------------------------------------------------------- phase 13 --
+
+#: the dry run's sweep: 10 archs x 4 shapes x 2 meshes, of which the
+#: eight full-attention archs' long_500k cells are skipped; its processes
+DRYRUN_CELLS, DRYRUN_OK, DRYRUN_SKIPPED, DRYRUN_JOBS = 80, 64, 16, 8
+DRYRUN_OUT = ROOT / "build" / "dryrun_torch"
+DRYRUN_TIMEOUT_S = 600
+#: the roofline count's steps: Qwen2-0.5B's int8 decode step of LM_BATCH
+#: slots at position ROOF_POS; a ROOF_PREFILL-token Falcon-Mamba-7B
+#: prefill at full width cut to ROOF_SSM_LAYERS layers; Qwen2-0.5B's train
+#: step at ROOF_TRAIN_BATCH x ROOF_TRAIN_SEQ tokens
+ROOF_POS, ROOF_PREFILL, ROOF_SSM_LAYERS = 128, 96, 8
+ROOF_TRAIN_BATCH, ROOF_TRAIN_SEQ = 8, 512
+#: the device kernel (a part of its name in a torch.profiler record) each
+#: counted kernel launches once a call
+ROOF_DEVICE_KERNEL = {"matmul_q8": "matmul_q_kernel",
+                      "causal_conv1d": "causal_conv1d"}
+
+
+def phase_launch(torch, K, card) -> dict:
+    """Phase 13 (module docstring): the dry run's sweep, then the roofline
+    count of three steps on the card. Returns the kernel launches of the
+    counted steps."""
+    dryrun_sweep(torch, card)
+    launches = {}
+    for name, build in (("decode", roof_decode), ("prefill", roof_prefill),
+                        ("train", roof_train)):
+        for k, v in roof_step(torch, K, card, name, build).items():
+            launches[k] = launches.get(k, 0) + v
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def dryrun_sweep(torch, card):
+    """``python -m repro_torch.launch.dryrun --all`` in a subprocess that
+    sees no card (the fake backend, meta tensors): 80 records under
+    JAX's cell names, 64 ok and 16 skipped; each ok cell's first-device
+    argument bytes at 16x16 beside the card's memory."""
+    import collections
+    import os
+    import shutil
+    shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("REPRO_")}
+    env.update(PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--jobs", str(DRYRUN_JOBS), "--out", str(DRYRUN_OUT)],
+        cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=DRYRUN_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    check(r.returncode == 0, f"launch: the dry run exited {r.returncode}: "
+                             f"{r.stderr[-2000:]}")
+    recs = {p.name: json.loads(p.read_text())
+            for p in sorted(DRYRUN_OUT.glob("*.json"))}
+    status = collections.Counter(rec["status"] for rec in recs.values())
+    errors = [f"{n}: {rec.get('error')}" for n, rec in recs.items()
+              if rec["status"] == "error"]
+    check(not errors, "launch: dry-run cells failed: " + "; ".join(errors))
+    check(len(recs) == DRYRUN_CELLS and status["ok"] == DRYRUN_OK
+          and status["skipped"] == DRYRUN_SKIPPED,
+          f"launch: the dry run wrote {len(recs)} records {dict(status)}, "
+          f"not {DRYRUN_CELLS} ({DRYRUN_OK} ok, {DRYRUN_SKIPPED} skipped)")
+    for name, rec in recs.items():
+        want = f"{rec['arch']}__{rec['shape']}__{rec['mesh']}__{rec['tag']}"
+        check(name == want + ".json", f"launch: record {name} names {want}")
+    mem = torch.cuda.get_device_properties(0).total_memory
+    print(f"[launch] dry run (python -m repro_torch.launch.dryrun --all "
+          f"--jobs {DRYRUN_JOBS}, the fake backend, no card): "
+          f"{len(recs)} records, {status['ok']} ok, {status['skipped']} "
+          f"skipped, 0 error, in {wall:.1f} s wall")
+    fit = []
+    for rec in recs.values():
+        if rec["status"] != "ok" or rec["mesh"] != "16x16":
+            continue
+        gb = rec["memory"]["argument_bytes"] / 1e9
+        fit.append(gb <= mem / 1e9)
+        print(f"[launch]   {rec['arch']:22s} {rec['shape']:12s} 16x16: "
+              f"{gb:8.3f} GB of arguments a device against the card's "
+              f"{mem / 1e9:.1f} GB; dot FLOPs {rec['dot_flops_global']:.4e}"
+              f" a step ({rec['n_chips']} devices), model FLOPs "
+              f"{rec['model_flops']:.4e}")
+    print(f"[launch] {sum(fit)} of {len(fit)} cells' arguments fit one "
+          f"card's memory at 16x16; card: {card}")
+
+
+def roof_decode(torch, rng):
+    """(label, fn, args, timed fn, device_only, profiler calls, its
+    counterpart under "torch") of Qwen2-0.5B's int8 decode step: counted
+    eager, timed over replays of its captured graph."""
+    from repro_torch.configs import get_config
+    from repro_torch.graph.capture import capture
+    from repro_torch.models import api
+    from repro_torch.serve import Engine, ServeConfig
+    cfg = get_config(LM_ARCH)
+    params, _ = make_lm_params(torch, cfg, "cuda", "launch decode")
+    eng = Engine(cfg, params, ServeConfig(max_batch=LM_BATCH,
+                                          max_len=LM_MAX_LEN,
+                                          precision="int8"))
+    del params
+    cache = api.init_slot_cache(cfg, LM_BATCH, LM_MAX_LEN, device="cuda")
+    cache["len"].fill_(ROOF_POS)
+    tok = torch.zeros((LM_BATCH, 1), dtype=torch.long, device="cuda")
+    cap, _ = capture(lambda t: eng.decode(eng.params, t, cache)[0], (tok,),
+                     key="launch.decode")
+    return (f"Qwen2-0.5B int8 decode step, {LM_BATCH} slots at position "
+            f"{ROOF_POS} (timed: captured replays)", eng.decode,
+            (eng.params, tok, cache), cap.replay, False, 10, True)
+
+
+def roof_prefill(torch, rng):
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_config(SSM_ARCH), n_layers=ROOF_SSM_LAYERS)
+    params, _ = make_lm_params(torch, cfg, "cuda", "launch prefill")
+    params = T.cast_params(params, cfg)      # as the engine serves them
+    fn = api.prefill_fn(cfg, ROOF_PREFILL)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (1, ROOF_PREFILL)).astype(np.int32)).cuda()}
+    return (f"Falcon-Mamba-7B prefill of {ROOF_PREFILL} tokens, full width, "
+            f"{ROOF_SSM_LAYERS} of 64 layers (eager)", fn, (params, batch),
+            lambda: fn(params, batch), False, 3, False)
+
+
+def roof_train(torch, rng):
+    from repro_torch.configs import get_config
+    from repro_torch.optim import OptConfig, init_opt_state
+    from repro_torch.train import TrainConfig, make_train_step, trainable
+    cfg = get_config(TRAIN_ARCH)
+    params, _ = make_lm_params(torch, cfg, "cuda", "launch train")
+    params = trainable(params)
+    ocfg = OptConfig(warmup_steps=2, total_steps=8)
+    opt = init_opt_state(params, ocfg)
+    step = make_train_step(cfg, TrainConfig(opt=ocfg, remat="full",
+                                            attn_impl="flash"))
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (ROOF_TRAIN_BATCH, ROOF_TRAIN_SEQ)).astype(
+            np.int32)).cuda()}
+    return (f"Qwen2-0.5B train step, {ROOF_TRAIN_BATCH} x {ROOF_TRAIN_SEQ} "
+            "tokens, float32 params, bf16 compute, remat full, flash "
+            "(eager; in place)", step, (params, opt, batch),
+            lambda: step(params, opt, batch), True, 1, False)
+
+
+def roof_step(torch, K, card, name, build) -> dict:
+    """Count one step on the card (``roofline.count.step_report``, the
+    launch counts set to 0 just before), time it (``tune.device_kernels``)
+    and print its FLOPs by kind, bytes floor, device ms, roofline terms and
+    binding share. Gates: the share at most 1; each counted kernel's calls
+    equal to its wrapper's launches and to torch.profiler's launches of its
+    device kernel a call; with ``with_torch`` the same work counted with
+    every kernel call run as its plain version."""
+    from repro_torch.kernels import ops
+    from repro_torch.roofline import count as R
+    rng = np.random.default_rng(SEED)
+    label, fn, args, timed, device_only, calls, with_torch = build(torch, rng)
+    K.reset_launches()
+    rep = R.step_report(fn, *args)
+    torch.cuda.synchronize()
+    launched = {k.__name__: k.launches for k in K.KERNELS if k.launches}
+    del rep["outputs"]
+    check(rep["kernel_calls"] == launched,
+          f"launch {name}: counted kernel calls {rep['kernel_calls']}, the "
+          f"wrappers launched {launched}")
+    if with_torch:
+        with ops.force_method("torch"):
+            plain = R.step_report(fn, *args)
+        del plain["outputs"]
+        check(plain["flops"] == rep["flops"]
+              and plain["kernel_calls"] == rep["kernel_calls"]
+              and plain["bytes_floor"] == rep["bytes_floor"],
+              f"launch {name}: \"torch\" counts {plain['flops']} "
+              f"{plain['kernel_calls']}, \"cuda\" {rep['flops']} "
+              f"{rep['kernel_calls']}")
+    rows = device_kernels(torch, timed, calls) if not device_only else \
+        _device_only_rows(torch, timed, calls)
+    device_s = sum(r.us for r in rows) / 1e6
+    check(device_s > 0, f"launch {name}: torch.profiler saw no device time")
+    for kernel, n in rep["kernel_calls"].items():
+        seen = sum(r.launches for r in rows
+                   if ROOF_DEVICE_KERNEL[kernel] in r.key)
+        check(seen == n, f"launch {name}: {n} counted {kernel} calls, "
+                         f"torch.profiler saw {seen} a call")
+    model = card_model()
+    out = R.report(rep["flops"], rep["bytes_floor"], device_s=device_s,
+                   card=model)
+    check(out["share"] <= 1.0, f"launch {name}: the binding term "
+                               f"{out['binding']} is {out['share']:.3f} of "
+                               "the device time")
+    flops = ", ".join(f"{k} {v / 1e12:.4f} T" for k, v in
+                      sorted(rep["flops"].items()))
+    same = ' (method="torch" counts the same work)' if with_torch else ""
+    terms = ", ".join(f"{k[:-2]} {1e3 * v:.4f} ms" for k, v in
+                      out["terms"].items())
+    print(f"[launch] roofline of {label}: FLOPs by kind {flops}; bytes "
+          f"floor {rep['bytes_floor'] / 1e9:.4f} GB (arguments and "
+          f"outputs); device {1e3 * device_s:.4f} ms "
+          f"(tune.device_kernels); terms at the {model.name}'s peaks "
+          f"{terms}; binding {out['binding'][:-2]}, "
+          f"{out['share']:.4f} of the device time; kernel calls counted "
+          f"{rep['kernel_calls'] or 'none'} = the wrappers' launches = "
+          f"torch.profiler's{same}; card: {card}")
+    return launched
+
+
+def _device_only_rows(torch, fn, calls):
+    from repro_torch.tune.runner import device_kernels as per_call
+    try:
+        return per_call(fn, calls=calls, device_only=True)
+    except RuntimeError as e:
+        raise SmokeFailure(str(e)) from e
+
+
 @contextlib.contextmanager
 def phase_clock(name: str):
     """Print the wall time of the phase run inside the block."""
@@ -4476,6 +4696,10 @@ def main() -> int:
     torch.cuda.empty_cache()    # phase 11's last model is gone
     with phase_clock("12 train"):
         add(phase_train(torch, K, card, lm_prompts))
+    gc.collect()
+    torch.cuda.empty_cache()    # phase 12's models are gone
+    with phase_clock("13 launch"):
+        add(phase_launch(torch, K, card))
     print(f"[time] the run so far {time.perf_counter() - t_start:.1f} s")
 
     rows = []
@@ -4509,9 +4733,12 @@ def main() -> int:
           f"forwards and profiles (phase 9), the families runs (phase "
           f"10: internvl2-1b and granite-3-2b in int8 and w4a8), the "
           f"hybrid runs' prefills (phase 11: jamba-v0.1-52b, 7 "
-          f"causal_conv1d launches a super-block) and the Falcon-Mamba "
+          f"causal_conv1d launches a super-block), the Falcon-Mamba "
           f"train steps (phase 12: 3 causal_conv1d launches a layer a "
-          f"step); card: {card}")
+          f"step) and the counted roofline steps (phase 13: Qwen2-0.5B's "
+          f"int8 decode step, 72 matmul_q8, and an {ROOF_SSM_LAYERS}-layer "
+          f"Falcon-Mamba prefill, {ROOF_SSM_LAYERS} causal_conv1d); "
+          f"card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

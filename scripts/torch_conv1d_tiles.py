@@ -51,6 +51,7 @@ def main() -> int:
     from repro_torch import kernels as Kn
     from repro_torch import tune
     card = cs.card_line()
+    hbm = cs.card_model().hbm_bps
     print(card)
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -108,7 +109,7 @@ def main() -> int:
               + " and ".join(f"{v / 1e3:.4f}" for v in turns["scalar"])
               + " ms, the copy x.contiguous() "
               + " and ".join(f"{v / 1e3:.4f}" for v in turns["copy"])
-              + f" ms; byte bound {1e3 * nbytes / 3.35e12:.5f} ms; every "
+              + f" ms; byte bound {1e3 * nbytes / hbm:.5f} ms; every "
               "config, 1 device operation a call, bitwise: "
               + ", ".join(f"{c} {v / 1e3:.4f}" for c, v in
                           sorted(times.items()))
@@ -140,7 +141,7 @@ def main() -> int:
               f"default threads {default} {vec[default] / 1e3:.4f} ms; "
               f"analytic {ana} {vec[ana] / 1e3:.4f} ms; fastest {best} "
               f"{vec[best] / 1e3:.4f} ms; byte bound "
-              f"{1e3 * nbytes / 3.35e12:.5f} ms; every block size, bitwise: "
+              f"{1e3 * nbytes / hbm:.5f} ms; every block size, bitwise: "
               + ", ".join(f"{p} {t} {v / 1e3:.4f}" for (p, t), v in
                           sorted(times.items()))
               + f" ms; {card}")

@@ -49,6 +49,7 @@ def main() -> int:
     from repro_torch import tune
     from repro_torch.core.quantize import pack_w4
     card = cs.card_line()
+    hbm = cs.card_model().hbm_bps
     print(card)
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -111,7 +112,7 @@ def main() -> int:
         for order in (0, 1, 1, 0):
             (vec if order == 0 else sca).append(
                 us(lambda: K.maxpool2d_s8(x if order == 0 else xo))[0])
-        bound = 1e3 * (x.numel() + x.numel() // 4) / 3.35e12
+        bound = 1e3 * (x.numel() + x.numel() // 4) / hbm
         print(f"[pool-paths] {n}x{h}x{w}x{c} 2x2/2: vector path (16 "
               f"channels a thread) {vec[0] / 1e3:.4f} and "
               f"{vec[1] / 1e3:.4f} ms, scalar path (x at an odd address, a "

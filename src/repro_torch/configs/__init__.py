@@ -6,9 +6,13 @@
 ``qwen2-0.5b``, ``granite-3-2b``, ``granite-34b`` and ``qwen1.5-32b``
 (dense), ``internvl2-1b`` (vlm), ``granite-moe-1b-a400m`` and
 ``arctic-480b`` (moe), ``falcon-mamba-7b`` (ssm), ``jamba-v0.1-52b``
-(hybrid) and ``seamless-m4t-large-v2`` (encdec)."""
-from .base import (MambaConfig, ModelConfig, MoEConfig, get_config, register,
+(hybrid) and ``seamless-m4t-large-v2`` (encdec); the dry run's
+:data:`~repro_torch.configs.base.SHAPES` and
+:func:`~repro_torch.configs.base.cell_supported`."""
+from .base import (ARCH_IDS, SHAPES, MambaConfig, ModelConfig, MoEConfig,
+                   ShapeConfig, cell_supported, get_config, register,
                    registered)
 
-__all__ = ["MambaConfig", "ModelConfig", "MoEConfig", "get_config",
-           "register", "registered"]
+__all__ = ["ARCH_IDS", "SHAPES", "MambaConfig", "ModelConfig", "MoEConfig",
+           "ShapeConfig", "cell_supported", "get_config", "register",
+           "registered"]

@@ -6,7 +6,10 @@ The port's own copy of ``MoEConfig``, ``MambaConfig``, ``ModelConfig``,
 describes the same model on both sides, and the same analytic
 ``param_count``. The dtype fields are names (``"float32"``,
 ``"bfloat16"``) that :func:`torch_dtype` turns into torch dtypes. The
-registry holds the configs of all ten of the JAX package's architectures.
+registry holds the configs of all ten of the JAX package's architectures
+(:data:`ARCH_IDS`, in the JAX package's order). :class:`ShapeConfig`,
+:data:`SHAPES` and :func:`cell_supported` are the dry run's production
+shapes and its skip rule, copied with the same names and values.
 """
 from __future__ import annotations
 
@@ -123,6 +126,37 @@ class ModelConfig:
                                    + 3 * d)
             return emb + enc + dec
         return emb
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                          # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+ARCH_IDS = [
+    "internvl2-1b", "arctic-480b", "granite-moe-1b-a400m", "granite-34b",
+    "qwen1.5-32b", "granite-3-2b", "qwen2-0.5b", "seamless-m4t-large-v2",
+    "jamba-v0.1-52b", "falcon-mamba-7b",
+]
+
+
+def cell_supported(cfg: ModelConfig, shape: ShapeConfig) -> tuple:
+    """``(ok, reason)``: the JAX package's skip rule, a 500k-token decode
+    only for a sub-quadratic (ssm or hybrid) model."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic():
+        return False, "long_500k needs sub-quadratic attention; " \
+                      f"{cfg.name} is pure full-attention (skip per DESIGN.md)"
+    return True, ""
 
 
 def torch_dtype(name: str) -> torch.dtype:

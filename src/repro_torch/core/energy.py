@@ -15,6 +15,10 @@ linear in the theoretical MACs without SIMD, latency the better predictor
 with SIMD. Pure Python on :class:`~repro_torch.core.primitives.ConvSpec`;
 every expression repeats the reference's, so both packages give the same
 integers and the same floats.
+
+:class:`H100` is the card's model, the counterpart of the JAX package's
+``TPUv5e``: the one place the port keeps the card's peaks (the roofline
+count, the tuner's cost model and ``chip_smoke.py``'s bounds read them).
 """
 from __future__ import annotations
 
@@ -134,3 +138,87 @@ class MCUModel:
                   f_mhz: float = 84.0, opt: str = "Os") -> float:
         return self.power_mw(simd=simd, f_mhz=f_mhz) * self.latency_s(
             spec, out_width, simd=simd, f_mhz=f_mhz, opt=opt)
+
+
+# --------------------------------------------------------------------------
+# NVIDIA H100 first-order peaks (roofline terms)
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class H100:
+    """An H100's dense peaks. Defaults: the SXM5 80 GB card (NVIDIA H100
+    Tensor Core GPU data sheet); :data:`H100_PCIE` is the PCIe card. The
+    data sheet's tensor-core figures are with sparsity: the dense peaks
+    are half of them (bf16 1,979 -> 989 TFLOP/s, int8 3,958 -> 1,979
+    TOP/s on SXM; 1,513 -> 756 and 3,026 -> 1,513 on PCIe). The CUDA
+    cores' rates are SMs x lanes x boost clock: float32 132 x 128 x 1,980
+    MHz = 33.45 T operations/s, 66.91 TFLOP/s as FMAs (the data sheet
+    rounds to 67); int32 132 x 64 x 1,980 MHz = 16.73 T operations/s."""
+    name: str = "H100 SXM5 80GB"
+    sms: int = 132
+    boost_hz: float = 1.98e9
+    #: HBM3 bandwidth, bytes/s (data sheet: 3.35 TB/s)
+    hbm_bps: float = 3.35e12
+    bf16_tc_flops: float = 989e12
+    int8_tc_ops: float = 1979e12
+    f32_lanes_per_sm: int = 128
+    int32_lanes_per_sm: int = 64
+    #: device memory (data sheet: 80 GB) and shared memory an SM (228 KB,
+    #: the Hopper tuning guide; 227 KB of it a block)
+    hbm_bytes: int = 80 * 10 ** 9
+    smem_per_sm: int = 228 * 1024
+
+    @property
+    def f32_ops(self) -> float:
+        """float32 operations/s with no FMA form (subtract, add, max)."""
+        return self.sms * self.f32_lanes_per_sm * self.boost_hz
+
+    @property
+    def f32_fma_flops(self) -> float:
+        """float32 FLOP/s as FMAs, 2 a multiply-add."""
+        return 2 * self.f32_ops
+
+    @property
+    def int32_ops(self) -> float:
+        return self.sms * self.int32_lanes_per_sm * self.boost_hz
+
+    def peak(self, kind: str) -> float:
+        """The peak of one kind of work: ``"bf16"`` (tensor-core FLOPs,
+        float16 too), ``"int8"`` (tensor-core operations), ``"f32"``
+        (float32 FLOPs on the CUDA cores, 2 a multiply-add), ``"f32_op"``
+        (float32 operations with no FMA form) or ``"int32"``."""
+        peaks = {"bf16": self.bf16_tc_flops, "int8": self.int8_tc_ops,
+                 "f32": self.f32_fma_flops, "f32_op": self.f32_ops,
+                 "int32": self.int32_ops}
+        if kind not in peaks:
+            raise KeyError(f"no H100 peak for work of kind {kind!r}; kinds: "
+                           f"{sorted(peaks)}")
+        return peaks[kind]
+
+    def roofline_terms(self, flops_by_kind: dict, nbytes: float) -> dict:
+        """Seconds each bottleneck alone would take: ``memory_s`` (the
+        bytes at HBM bandwidth) and ``<kind>_s`` for every kind of work in
+        ``flops_by_kind`` (its count at its peak)."""
+        terms = {"memory_s": nbytes / self.hbm_bps}
+        for kind, n in sorted(flops_by_kind.items()):
+            terms[f"{kind}_s"] = n / self.peak(kind)
+        return terms
+
+    def energy_j(self, seconds: float, power_limit_w: float) -> float:
+        """An upper bound on the energy of ``seconds`` of card time: the
+        power limit (what ``nvidia-smi --query-gpu=power.limit`` reads)
+        times the time. No energy per operation was ever measured for
+        this card, so there is no dynamic term."""
+        return power_limit_w * seconds
+
+
+H100_SXM = H100()
+H100_PCIE = H100(name="H100 PCIe 80GB", sms=114, boost_hz=1.755e9,
+                 hbm_bps=2.0e12, bf16_tc_flops=756e12, int8_tc_ops=1513e12)
+
+
+def h100_for(device_name: str) -> H100:
+    """The model of the card ``torch.cuda.get_device_name`` names: the
+    PCIe card's where the name says PCIe, else the SXM card's."""
+    return H100_PCIE if "PCIe" in device_name else H100_SXM

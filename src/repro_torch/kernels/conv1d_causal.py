@@ -37,6 +37,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.energy import H100_SXM
+
 from ._build import check_launch, library
 from .common import FLOAT_CODES, apply_act, cdiv
 from .conv_im2col import check_act, check_cuda_operand
@@ -57,9 +59,11 @@ VEC_BYTES = 16
 #: NVIDIA H100 80GB HBM3 at 700 W, PERF.md; mean error 12.5%): a launch and
 #: a trip to L2; the scale of the longest other term; a warp's cycles an
 #: instruction of its chain, and the warps a scheduler holds per chain;
-#: the card's SMs, schedulers an SM, clock and L2 rate (tune.runner's)
+#: schedulers an SM and the L2 rate (tune.runner's); the card's SMs and
+#: clock are core.energy.H100's
 C1D_BASE_S, C1D_SCALE, C1D_CPI, C1D_HIDE = 1.72e-6, 1.24, 2, 2
-SMS, ISSUE_PER_CLK, CLOCK_HZ, L2_BPS = 132, 4, 1.98e9, 6e12
+ISSUE_PER_CLK, L2_BPS = 4, 6e12
+SMS, CLOCK_HZ = H100_SXM.sms, H100_SXM.boost_hz
 
 
 def c1d_plan(b: int, l: int, d: int, esize: int, aligned: bool, run: int,

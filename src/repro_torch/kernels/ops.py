@@ -28,16 +28,22 @@ checked against the tuner's space (``tune.check_config``, a
 changes an output.
 
 Every call counts into the process metrics registry as
-``kernels.dispatch.<kernel>.<method>``.
+``kernels.dispatch.<kernel>.<method>``, and reports its kernel and that
+kernel's work (``roofline.count.kernel_work``) to an open
+``roofline.count.counting``, whichever method runs it; the aten
+operations of its plain version are not counted there.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.obs import metrics as _obs_metrics
+from repro_torch.roofline import count as _roofline
 
 from . import ref
 from .conv1d_causal import causal_conv1d as _c1d_kernel
@@ -50,16 +56,53 @@ from .matmul_q8 import matmul_f, matmul_q8, matmul_w4
 from .pool import maxpool2d_f, maxpool2d_s8
 
 METHODS = ("cuda", "torch")
+#: the method :func:`force_method` imposes, innermost last
+_FORCED: list = []
 
 
-def _check_method(method: str):
+def _check_method(method: str) -> str:
+    """``method``, checked; inside :func:`force_method`, the forced one."""
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; expected one of "
                          f"{METHODS}")
+    return _FORCED[-1] if _FORCED else method
+
+
+@contextlib.contextmanager
+def force_method(method: str):
+    """Every entry point called inside the block runs ``method`` whatever
+    method its caller passes: ``force_method("torch")`` runs the models'
+    kernel calls as plain versions, on meta tensors too (the dry run's
+    count, where JAX's ``method="auto"`` resolves to XLA under a mesh)."""
+    _check_method(method)
+    _FORCED.append(method)
+    try:
+        yield
+    finally:
+        _FORCED.pop()
 
 
 def _count_dispatch(kernel: str, method: str):
     _obs_metrics.counter(f"kernels.dispatch.{kernel}.{method}").inc()
+
+
+def _counted(entry: str):
+    """Decorate entry point ``entry``: under an open count, its call
+    reports the kernel it runs (``roofline.count.kernel_of``) with that
+    kernel's work on its operands, and the aten operations inside are not
+    counted."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if not _roofline.active():
+                return fn(*args, **kwargs)
+            kernel = _roofline.kernel_of(
+                entry, args[0], requant_shift=kwargs.get("requant_shift"),
+                w_shifts=kwargs.get("w_shifts"))
+            with _roofline.kernel_call(kernel, *args, **kwargs):
+                return fn(*args, **kwargs)
+        return call
+    return deco
 
 
 def _check_w4(kernel: str, x, requant_shift):
@@ -92,12 +135,13 @@ def _launch_config(kernel: str, method: str, config, sig_fn, dims, x,
     return tune.check_config(sig, config, dtype)
 
 
+@_counted("conv2d")
 def conv2d(x, w, bias=None, *, groups: int = 1, method: str = "cuda",
            requant_shift: Optional[int] = None, act: Optional[str] = None,
            w_shifts=None, config: Optional[dict] = None):
     """SAME stride-1 standard / grouped conv, NHWC x HWIO. With
     ``w_shifts``, ``w`` is packed W4 (HK,HK,ceil(Cx/g/2),Cy)."""
-    _check_method(method)
+    method = _check_method(method)
     _count_dispatch("conv2d", method)
     n, h, wd, cx = x.shape
     cfg = _launch_config("conv2d", method, config, "sig_conv2d",
@@ -121,13 +165,14 @@ def conv2d(x, w, bias=None, *, groups: int = 1, method: str = "cuda",
                      act=act, **cfg)
 
 
+@_counted("depthwise2d")
 def depthwise2d(x, w_dw, *, method: str = "cuda",
                 requant_shift: Optional[int] = None,
                 act: Optional[str] = None, w_shifts=None,
                 config: Optional[dict] = None):
     """SAME stride-1 depthwise conv; ``w_dw`` is (HK,HK,C) or (HK,HK,C,1),
     or with ``w_shifts`` packed W4 along the tap rows (ceil(HK/2),HK,C)."""
-    _check_method(method)
+    method = _check_method(method)
     _count_dispatch("depthwise2d", method)
     n, h, wd, c = x.shape
     hk = w_dw.shape[1] if w_shifts is not None else w_dw.shape[0]
@@ -152,6 +197,7 @@ def depthwise2d(x, w_dw, *, method: str = "cuda",
                           **cfg)
 
 
+@_counted("shift_conv2d")
 def shift_conv2d(x, shifts, w_pw, bias=None, *, method: str = "cuda",
                  requant_shift: Optional[int] = None,
                  act: Optional[str] = None, max_shift: Optional[int] = None,
@@ -161,7 +207,7 @@ def shift_conv2d(x, shifts, w_pw, bias=None, *, method: str = "cuda",
     ``max_shift`` bounds |shift| (pass ``kernel_size // 2``; required on a
     card under ``"cuda"``, where it sizes the kernel's window); ``bias`` is
     added at accumulator scale (quantized paths only)."""
-    _check_method(method)
+    method = _check_method(method)
     _count_dispatch("shift_conv2d", method)
     n, h, wd, c = x.shape
     d = 1 if method == "torch" else window_shift("shift_conv2d", shifts,
@@ -189,6 +235,7 @@ def shift_conv2d(x, shifts, w_pw, bias=None, *, method: str = "cuda",
     return shift_conv2d_q8(x, shifts, w_pw, bias, **kw, **cfg)
 
 
+@_counted("add_conv2d")
 def add_conv2d(x, w, bias=None, *, method: str = "cuda",
                requant_shift: Optional[int] = None, x_preshift: int = 0,
                w_preshift: int = 0, act: Optional[str] = None,
@@ -197,7 +244,7 @@ def add_conv2d(x, w, bias=None, *, method: str = "cuda",
     ``w_shifts``). ``x_preshift`` and ``w_preshift`` are the Algorithm-1
     (right) left shifts that align the operands' scales; they and ``bias``
     (at accumulator scale) belong to the quantized paths only."""
-    _check_method(method)
+    method = _check_method(method)
     _count_dispatch("add_conv2d", method)
     n, h, wd, cx = x.shape
     cfg = _launch_config("add_conv2d", method, config, "sig_add_conv2d",
@@ -223,10 +270,11 @@ def add_conv2d(x, w, bias=None, *, method: str = "cuda",
     return add_conv2d_q8(x, w, bias, **kw, **cfg)
 
 
+@_counted("maxpool2d")
 def maxpool2d(x, *, window: int = 2, stride: Optional[int] = None,
               method: str = "cuda", config: Optional[dict] = None):
     """VALID max-pool, int8 or float32 / bfloat16."""
-    _check_method(method)
+    method = _check_method(method)
     _count_dispatch("maxpool2d", method)
     n, h, wd, c = x.shape
     cfg = _launch_config("maxpool2d", method, config, "sig_maxpool2d",
@@ -238,6 +286,7 @@ def maxpool2d(x, *, window: int = 2, stride: Optional[int] = None,
     return maxpool2d_s8(x, window=window, stride=stride, **cfg)
 
 
+@_counted("matmul")
 def matmul(a, b, *, method: str = "cuda", requant_shift: Optional[int] = None,
            act: Optional[str] = None, w_shifts=None,
            config: Optional[dict] = None):
@@ -246,7 +295,7 @@ def matmul(a, b, *, method: str = "cuda", requant_shift: Optional[int] = None,
     into M (and the tuner's signature sees the folded M), so one launch
     covers the whole batch. With ``w_shifts``, ``b`` is packed W4 along K,
     (ceil(K/2), N)."""
-    _check_method(method)
+    method = _check_method(method)
     _count_dispatch("matmul", method)
     if a.dim() == 3:
         nb, m, k = a.shape
@@ -277,9 +326,12 @@ def _matmul(a, b, method, requant_shift, act, w_shifts, config):
 
 
 def _c1d(x, w, method, cfg):
-    if method == "torch":
-        return ref.causal_conv1d_f32(x, w)
-    return _c1d_kernel(x, w, **cfg)
+    """One causal_conv1d call (the forward's, or the backward's dx): the
+    unit an open count sees."""
+    with _roofline.kernel_call("causal_conv1d", x, w):
+        if method == "torch":
+            return ref.causal_conv1d_f32(x, w)
+        return _c1d_kernel(x, w, **cfg)
 
 
 class _CausalConv1d(torch.autograd.Function):
@@ -321,7 +373,7 @@ def causal_conv1d(x, w, *, method: str = "cuda",
     ``act`` (the backward assumes a linear kernel); the kernel-level
     wrapper has one. The backward's dx launches with the forward's
     config."""
-    _check_method(method)
+    method = _check_method(method)
     _count_dispatch("causal_conv1d", method)
     b, l, d = x.shape
     cfg = _launch_config("causal_conv1d", method, config,

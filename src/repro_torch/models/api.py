@@ -2,8 +2,7 @@
 against cached prefix K/V), decode and the KV cache helpers of continuous
 batching, contiguous and paged.
 
-Port of ``repro/models/api.py`` but for its sharding and dry-run specs
-(ROADMAP.md, A8), every family (vlm and moe
+Port of ``repro/models/api.py``, every family (vlm and moe
 keep the dense family's caches; encdec runs
 :mod:`~repro_torch.models.encdec`, whose batch carries the encoder's
 ``"frames"`` and whose cache is per batch, not slotted). The
@@ -25,6 +24,14 @@ the host. Unlike the JAX helpers, which return new arrays, the slot and page
 writes here update the live cache in place and return a dict holding the
 same tensors, so a captured decode step that reads the cache by address
 stays valid across them.
+
+The dry run's specs (:func:`param_specs`, :func:`cache_specs`,
+:func:`input_specs`, :func:`param_structs`, :func:`cache_structs`): trees
+of logical axis names in the structure of the parameter and cache trees,
+and the counterparts of JAX's ``jax.eval_shape`` / ``ShapeDtypeStruct``,
+tensors on ``torch.device("meta")`` with JAX's shapes and dtypes, nothing
+allocated. Modality frontends (vlm, encdec) are stubs, as in JAX: their
+specs hold precomputed patch or frame embeddings.
 """
 from __future__ import annotations
 
@@ -32,7 +39,7 @@ import functools
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig, torch_dtype
 from repro_torch.device import resolve_device
 
 from . import attention as A
@@ -54,6 +61,68 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
             return {k: to(v) for k, v in tree.items()}
         return tree.to(dev)
     return to(params)
+
+
+def param_specs(cfg: ModelConfig):
+    """The logical axis names of every leaf of :func:`init_params`'s tree,
+    in the same structure."""
+    T.check_family(cfg, "param_specs")
+    if cfg.family == "encdec":
+        return E.encdec_param_specs(cfg)
+    return T.lm_param_specs(cfg)
+
+
+def cache_specs(cfg: ModelConfig):
+    """The logical axis names of the decode cache's leaves."""
+    T.check_family(cfg, "cache_specs")
+    if cfg.family == "encdec":
+        return E.encdec_cache_specs()
+    return T.cache_specs(cfg)
+
+
+def param_structs(cfg: ModelConfig):
+    """The parameter tree as meta tensors: :func:`init_params`'s shapes
+    and ``param_dtype``, nothing drawn or allocated."""
+    T.check_family(cfg, "param_structs")
+    init = E.init_encdec if cfg.family == "encdec" else T.init_lm
+    return init(cfg, torch.Generator(), device="meta")
+
+
+def cache_structs(cfg: ModelConfig, batch: int, max_len: int,
+                  dtype=torch.bfloat16):
+    """The decode cache as meta tensors (JAX's ``cache_structs``; an
+    encdec cache's cross K/V span ``max_len`` there, as JAX's struct
+    assumes)."""
+    T.check_family(cfg, "cache_structs")
+    if cfg.family == "encdec":
+        return E.init_encdec_cache(cfg, batch, max_len, max_len, dtype,
+                                   device="meta")
+    return T.init_cache(cfg, batch, max_len, dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """The inputs of the (arch x shape) cell's step as meta tensors: a
+    train or prefill batch, or a decode step's token and cache of
+    ``seq_len``."""
+    b, s = shape.global_batch, shape.seq_len
+    cdt = torch_dtype(cfg.compute_dtype)
+
+    def meta(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+    if shape.kind in ("train", "prefill"):
+        if cfg.family == "vlm":
+            p = cfg.frontend_positions
+            return {"tokens": meta((b, s - p), torch.int32),
+                    "embeds": meta((b, p, cfg.d_model), cdt)}
+        if cfg.family == "encdec":
+            # train: encoder frames S, decoder tokens S; prefill: a
+            # 128-token prompt against S frames
+            return {"frames": meta((b, s, cfg.d_model), cdt),
+                    "tokens": meta((b, s if shape.kind == "train" else 128),
+                                   torch.int32)}
+        return {"tokens": meta((b, s), torch.int32)}
+    return {"token": meta((b, 1), torch.int32),
+            "cache": cache_structs(cfg, b, s)}
 
 
 def loss_fn(cfg: ModelConfig, *, attn_impl="full", remat="full"):

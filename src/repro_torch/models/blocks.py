@@ -109,15 +109,17 @@ def qmlp(h, qp, act: str, cdt, *, a_fb: int = ACT_FRAC_BITS,
     return y.reshape(b, s, -1).to(cdt)
 
 
-def stacked_normal(generator, shapes: dict, dtype, n_layers: int = 0):
+def stacked_normal(generator, shapes: dict, dtype, n_layers: int = 0, *,
+                   device=None):
     """``{name: normal(shape) * std}`` for ``shapes = {name: (shape,
-    std)}``, drawn from ``generator`` on its device in the order of
-    ``shapes``. With ``n_layers`` every leaf gets a leading layer axis;
+    std)}``, drawn from ``generator`` on its device (or on ``device``: a
+    ``"meta"`` device gives the shapes and allocates nothing) in the order
+    of ``shapes``. With ``n_layers`` every leaf gets a leading layer axis;
     each stacked leaf is allocated once and filled layer by layer (the
     draws of one layer after another, as ``n_layers`` single-layer calls
     make them), so a stack is never held twice."""
     lead = (n_layers,) if n_layers else ()
-    dev = generator.device
+    dev = generator.device if device is None else device
     out = {k: torch.empty(lead + shape, dtype=dtype, device=dev)
            for k, (shape, _) in shapes.items()}
     for layer in range(max(n_layers, 1)):
@@ -129,14 +131,24 @@ def stacked_normal(generator, shapes: dict, dtype, n_layers: int = 0):
     return out
 
 
-def init_mlp(generator, d, ff, act, dtype, *, n_layers: int = 0):
+def init_mlp(generator, d, ff, act, dtype, *, n_layers: int = 0,
+             device=None):
     """Random FFN weights drawn from ``generator`` on its device (stacked
     over ``n_layers``: :func:`stacked_normal`)."""
     s_in, s_out = d ** -0.5, ff ** -0.5
     shapes = {"w_up": ((d, ff), s_in), "w_down": ((ff, d), s_out)}
     if act == "silu":
         shapes["w_gate"] = ((d, ff), s_in)
-    return stacked_normal(generator, shapes, dtype, n_layers)
+    return stacked_normal(generator, shapes, dtype, n_layers, device=device)
+
+
+def mlp_specs(act, prefix_layers=True):
+    """The FFN leaves' logical axis names (JAX's ``blocks.mlp_specs``)."""
+    L = ("layers",) if prefix_layers else ()
+    p = {"w_up": L + ("embed", "ffn"), "w_down": L + ("ffn", "embed")}
+    if act == "silu":
+        p["w_gate"] = L + ("embed", "ffn")
+    return p
 
 
 def rope(x, positions, theta: float):

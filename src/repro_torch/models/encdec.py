@@ -36,20 +36,22 @@ import torch
 from repro_torch.configs.base import ModelConfig, torch_dtype
 
 from . import attention as A
-from .blocks import chunked_softmax_ce, init_mlp, mlp, rmsnorm
+from .blocks import chunked_softmax_ce, init_mlp, mlp, mlp_specs, rmsnorm
 from .transformer import (_cdt, _kv, _q, _qkv, _remat, _take, _unstack,
-                          attn_decode, init_attn)
+                          attn_decode, attn_specs, init_attn)
 
 
-def init_encdec(cfg: ModelConfig, generator: torch.Generator) -> dict:
+def init_encdec(cfg: ModelConfig, generator: torch.Generator, *,
+                device=None) -> dict:
     """Random parameters drawn from ``generator`` on its device, in the JAX
     package's layout and scales (normal embedding * 0.02, attention as
     :func:`~repro_torch.models.transformer.init_attn`, the FFN as
     :func:`~repro_torch.models.blocks.init_mlp`, unit norms), in
     ``param_dtype``. Every stacked leaf is allocated once and filled in
-    place."""
+    place. ``device`` overrides the generator's (``"meta"``: shapes
+    only)."""
     pdt = torch_dtype(cfg.param_dtype)
-    dev = generator.device
+    dev = generator.device if device is None else torch.device(device)
     d = cfg.d_model
 
     def ones(*shape):
@@ -57,11 +59,11 @@ def init_encdec(cfg: ModelConfig, generator: torch.Generator) -> dict:
 
     def stack(n, norms):
         layers = {name: ones(n, d) for name in norms}
-        layers["attn"] = init_attn(generator, cfg, pdt, n)
+        layers["attn"] = init_attn(generator, cfg, pdt, n, device=dev)
         if "lnx" in norms:
-            layers["xattn"] = init_attn(generator, cfg, pdt, n)
+            layers["xattn"] = init_attn(generator, cfg, pdt, n, device=dev)
         layers["mlp"] = init_mlp(generator, d, cfg.d_ff, cfg.act, pdt,
-                                 n_layers=n)
+                                 n_layers=n, device=dev)
         return layers
     embed = torch.randn((cfg.vocab, d), generator=generator, dtype=pdt,
                         device=dev).mul_(0.02)
@@ -69,6 +71,18 @@ def init_encdec(cfg: ModelConfig, generator: torch.Generator) -> dict:
             "enc_layers": stack(cfg.n_encoder_layers, ("ln1", "ln2")),
             "dec_layers": stack(cfg.n_layers, ("ln1", "lnx", "ln2")),
             "enc_norm": ones(d), "final_norm": ones(d)}
+
+
+def encdec_param_specs(cfg: ModelConfig) -> dict:
+    """The logical axis names of :func:`init_encdec`'s leaves (JAX's
+    ``encdec_param_specs``)."""
+    a = attn_specs(cfg)
+    enc = {"ln1": ("layers", None), "ln2": ("layers", None),
+           "attn": a, "mlp": mlp_specs(cfg.act)}
+    dec = dict(enc, lnx=("layers", None), xattn=a)
+    return {"embed": ("vocab", "embed_table"),
+            "enc_layers": enc, "dec_layers": dec,
+            "enc_norm": (None,), "final_norm": (None,)}
 
 
 def encode(params, frames, cfg: ModelConfig, *, attn_impl="full",
@@ -155,6 +169,13 @@ def init_encdec_cache(cfg: ModelConfig, batch: int, max_len: int,
             "xk": torch.zeros(xkv, dtype=dtype, device=device),
             "xv": torch.zeros(xkv, dtype=dtype, device=device),
             "len": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def encdec_cache_specs():
+    """The logical axis names of the decode cache's leaves (JAX's
+    ``encdec_cache_specs``)."""
+    kv = (None, "batch", "kv_seq", "kv_heads", None)
+    return {"k": kv, "v": kv, "xk": kv, "xv": kv, "len": ()}
 
 
 def encdec_prefill(params, frames, tokens, cfg: ModelConfig, max_len: int,

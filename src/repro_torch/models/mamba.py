@@ -20,6 +20,8 @@ so it agrees with JAX within float32 rounding, not bitwise.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 
@@ -28,14 +30,14 @@ from repro_torch.kernels import ops as K
 
 
 def init_mamba(generator: torch.Generator, d: int, m: MambaConfig, dtype, *,
-               n_layers=None):
+               n_layers=None, device=None):
     """Random Mamba parameters drawn from ``generator`` on its device, with
     the JAX package's distributions and scales. With ``n_layers`` every
     leaf carries a leading layer axis (drawn in one go, so a full-width
     stack never exists twice)."""
     di = m.expand * d
     rank = m.rank(d)
-    dev = generator.device
+    dev = generator.device if device is None else device
     lead = () if n_layers is None else (n_layers,)
 
     def normal(shape, std):
@@ -60,6 +62,22 @@ def init_mamba(generator: torch.Generator, d: int, m: MambaConfig, dtype, *,
     }
 
 
+def mamba_specs(prefix_layers=True):
+    """The Mamba leaves' logical axis names (JAX's ``mamba.mamba_specs``)."""
+    L = ("layers",) if prefix_layers else ()
+    return {
+        "in_proj": L + ("embed", "d_inner"),
+        "conv_w": L + (None, "d_inner"),
+        "conv_b": L + ("d_inner",),
+        "x_proj": L + ("d_inner", None),
+        "dt_proj": L + (None, "d_inner"),
+        "dt_bias": L + ("d_inner",),
+        "A_log": L + ("d_inner", None),
+        "D": L + ("d_inner",),
+        "out_proj": L + ("d_inner", "embed"),
+    }
+
+
 def _doubling_scan(a, b):
     """Inclusive scan of h_t = a_t * h_{t-1} + b_t along axis 1 from h = 0:
     returns (prod_{s<=t} a_s, h_t). Hillis-Steele: log2(L) rounds, each
@@ -80,12 +98,30 @@ def chunk_size(length: int, chunk: int) -> int:
     return ch
 
 
+#: one entry for each open :func:`whole_sequence_scans`
+_WHOLE: list = []
+
+
+@contextlib.contextmanager
+def whole_sequence_scans():
+    """Every :func:`mamba_scan` inside the block runs its whole sequence as
+    one chunk, whatever chunk its caller passes. Its matmuls are the same
+    (one (dI, N) x N product a position in any chunking); only the number
+    of operations that issue them falls, which is what the dry run's count
+    on meta tensors pays for (``launch.dryrun``)."""
+    _WHOLE.append(True)
+    try:
+        yield
+    finally:
+        _WHOLE.pop()
+
+
 def mamba_scan(x_c, dt, A, B_t, C_t, *, chunk: int = 256, h0=None):
     """Selective scan. x_c, dt: (B,L,dI); A: (dI,N); B_t, C_t: (B,L,N).
     Returns (y (B,L,dI) in x_c's dtype, h_last (B,dI,N) float32)."""
     b, l, di = x_c.shape
     n = A.shape[-1]
-    ch = chunk_size(l, chunk)
+    ch = chunk_size(l, l if _WHOLE else chunk)
     a32 = A.to(torch.float32)
     h = torch.zeros((b, di, n), dtype=torch.float32, device=x_c.device) \
         if h0 is None else h0

@@ -36,7 +36,7 @@ from .blocks import _act, stacked_normal
 
 
 def init_moe(generator: torch.Generator, d: int, moe: MoEConfig, act: str,
-             dtype, *, n_layers: int = 0) -> dict:
+             dtype, *, n_layers: int = 0, device=None) -> dict:
     """Random expert weights drawn from ``generator`` on its device, in the
     JAX package's layout and scales: ``router`` (d, E) * d^-1/2, ``w_up``
     and (silu) ``w_gate`` (E, d, ff) * d^-1/2, ``w_down`` (E, ff, d) *
@@ -47,7 +47,18 @@ def init_moe(generator: torch.Generator, d: int, moe: MoEConfig, act: str,
               "w_down": ((e, ff, d), ff ** -0.5)}
     if act == "silu":
         shapes["w_gate"] = ((e, d, ff), d ** -0.5)
-    return stacked_normal(generator, shapes, dtype, n_layers)
+    return stacked_normal(generator, shapes, dtype, n_layers, device=device)
+
+
+def moe_specs(act, prefix_layers=True):
+    """The expert leaves' logical axis names (JAX's ``moe.moe_specs``)."""
+    L = ("layers",) if prefix_layers else ()
+    p = {"router": L + ("embed", None),
+         "w_up": L + ("experts", "embed", "ffn_expert"),
+         "w_down": L + ("experts", "ffn_expert", "embed")}
+    if act == "silu":
+        p["w_gate"] = L + ("experts", "embed", "ffn_expert")
+    return p
 
 
 def _capacity(tokens: int, moe: MoEConfig) -> int:

@@ -79,10 +79,11 @@ from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.core.quantize import QTensor, QTensorW4
 
 from . import attention as A
-from .blocks import chunked_softmax_ce, init_mlp, mlp, qmlp, rmsnorm, rope
+from .blocks import (chunked_softmax_ce, init_mlp, mlp, mlp_specs, qmlp,
+                     rmsnorm, rope)
 from .mamba import (init_mamba, mamba_decode_step, mamba_forward,
-                    mamba_forward_with_state, mamba_init_state)
-from .moe import init_moe, moe_ffn
+                    mamba_forward_with_state, mamba_init_state, mamba_specs)
+from .moe import init_moe, moe_ffn, moe_specs
 
 #: the families :func:`check_family` admits: every family a config uses
 FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
@@ -128,13 +129,13 @@ def check_precision(precision: str):
 # ===================================================================== init
 
 def init_attn(generator: torch.Generator, cfg: ModelConfig, dtype,
-              n_layers: int) -> dict:
+              n_layers: int, *, device=None) -> dict:
     """Stacked attention weights drawn from ``generator`` on its device, in
     the JAX package's layout and scales: ``wq`` / ``wk`` / ``wv`` (n, d,
     H * Dh) * d^-1/2, ``wo`` (n, Hq * Dh, d) * (Hq * Dh)^-1/2, zero biases
     where the config has ``qkv_bias``."""
     d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    dev = generator.device
+    dev = generator.device if device is None else device
 
     def normal(shape, std):
         return torch.randn((n_layers,) + shape, generator=generator,
@@ -151,7 +152,19 @@ def init_attn(generator: torch.Generator, cfg: ModelConfig, dtype,
     return attn
 
 
-def init_lm(cfg: ModelConfig, generator: torch.Generator) -> dict:
+def attn_specs(cfg: ModelConfig, prefix_layers=True):
+    """The attention leaves' logical axis names (JAX's ``attn_specs``)."""
+    L = ("layers",) if prefix_layers else ()
+    p = {"wq": L + ("embed", "heads"), "wk": L + ("embed", "kv_heads"),
+         "wv": L + ("embed", "kv_heads"), "wo": L + ("heads", "embed")}
+    if cfg.qkv_bias:
+        p.update({"bq": L + ("heads",), "bk": L + ("kv_heads",),
+                  "bv": L + ("kv_heads",)})
+    return p
+
+
+def init_lm(cfg: ModelConfig, generator: torch.Generator, *,
+            device=None) -> dict:
     """Random parameters drawn from ``generator`` on its device, in the JAX
     package's layout and scales (normal embeddings * 0.02, normal matmul
     weights * fan_in^-1/2, zero biases, unit norms; Mamba's as
@@ -159,10 +172,12 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator) -> dict:
     as :func:`~repro_torch.models.moe.init_moe`), in ``param_dtype``. Each
     stacked FFN leaf is allocated once and filled layer by layer, so the
     FFN stack is never held twice (granite-34b's bf16 FFN alone is 53
-    GB). A hybrid model's super-blocks: :func:`_init_hybrid_blocks`."""
+    GB). A hybrid model's super-blocks: :func:`_init_hybrid_blocks`.
+    ``device`` overrides the generator's: ``"meta"`` gives the tree's
+    shapes and dtypes and allocates nothing (``api.param_structs``)."""
     _check_decoder(cfg, "init_lm")
     pdt = torch_dtype(cfg.param_dtype)
-    dev = generator.device
+    dev = generator.device if device is None else torch.device(device)
     d, nl = cfg.d_model, cfg.n_layers
 
     def normal(shape, std):
@@ -178,19 +193,19 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator) -> dict:
     if cfg.family == "ssm":
         params["layers"] = {"ln": ones(nl, d),
                             "mamba": init_mamba(generator, d, cfg.mamba, pdt,
-                                                n_layers=nl)}
+                                                n_layers=nl, device=dev)}
         return params
     if cfg.family == "hybrid":
-        params["blocks"] = _init_hybrid_blocks(cfg, generator, pdt)
+        params["blocks"] = _init_hybrid_blocks(cfg, generator, pdt, dev)
         return params
     layers = {"ln1": ones(nl, d), "ln2": ones(nl, d),
-              "attn": init_attn(generator, cfg, pdt, nl)}
+              "attn": init_attn(generator, cfg, pdt, nl, device=dev)}
     if cfg.moe is not None:
         layers["moe"] = init_moe(generator, d, cfg.moe, cfg.act, pdt,
-                                 n_layers=nl)
+                                 n_layers=nl, device=dev)
     if cfg.moe is None or cfg.moe.dense_residual:
         layers["mlp"] = init_mlp(generator, d, cfg.d_ff, cfg.act, pdt,
-                                 n_layers=nl)
+                                 n_layers=nl, device=dev)
     params["layers"] = layers
     return params
 
@@ -203,12 +218,13 @@ def _hybrid_counts(cfg: ModelConfig) -> tuple:
     return cfg.n_layers // period, period - 1, n_moe, period - n_moe
 
 
-def _init_hybrid_blocks(cfg: ModelConfig, generator: torch.Generator, pdt):
+def _init_hybrid_blocks(cfg: ModelConfig, generator: torch.Generator, pdt,
+                        dev):
     """Jamba super-blocks, stacked as JAX's ``_init_hybrid_blocks`` lays
     them out. Each sublayer stack is drawn over nb * n layers (each leaf
     allocated once and filled in place) and viewed as (nb, n, ...)."""
     nb, nm, n_moe, n_dense = _hybrid_counts(cfg)
-    d, dev = cfg.d_model, generator.device
+    d = cfg.d_model
 
     def per_block(tree, n):
         return {k: v.view((nb, n) + tuple(v.shape[1:]))
@@ -217,13 +233,42 @@ def _init_hybrid_blocks(cfg: ModelConfig, generator: torch.Generator, pdt):
         "ln_mix": torch.ones((nb, cfg.attn_period, d), dtype=pdt, device=dev),
         "ln_ffn": torch.ones((nb, cfg.attn_period, d), dtype=pdt, device=dev),
         "mamba": per_block(init_mamba(generator, d, cfg.mamba, pdt,
-                                      n_layers=nb * nm), nm),
-        "attn": init_attn(generator, cfg, pdt, nb),
+                                      n_layers=nb * nm, device=dev), nm),
+        "attn": init_attn(generator, cfg, pdt, nb, device=dev),
         "moe": per_block(init_moe(generator, d, cfg.moe, cfg.act, pdt,
-                                  n_layers=nb * n_moe), n_moe),
+                                  n_layers=nb * n_moe, device=dev), n_moe),
         "mlp": per_block(init_mlp(generator, d, cfg.d_ff, cfg.act, pdt,
-                                  n_layers=nb * n_dense), n_dense),
+                                  n_layers=nb * n_dense, device=dev),
+                         n_dense),
     }
+
+
+def lm_param_specs(cfg: ModelConfig) -> dict:
+    """The logical axis names of every leaf of :func:`init_lm`'s tree, a
+    tuple per leaf in the same structure (JAX's ``lm_param_specs``)."""
+    specs: dict = {"embed": ("vocab", "embed_table"),
+                   "final_norm": (None,)}
+    if not cfg.tied_embeddings:
+        specs["unembed"] = ("embed_table", "vocab")
+    if cfg.family == "ssm":
+        specs["layers"] = {"ln": ("layers", None), "mamba": mamba_specs()}
+    elif cfg.family == "hybrid":
+        def per_block(tree):
+            return {k: ("layers", None) + v[1:] for k, v in tree.items()}
+        specs["blocks"] = {
+            "ln_mix": ("layers", None, None), "ln_ffn": ("layers", None, None),
+            "mamba": per_block(mamba_specs()), "attn": attn_specs(cfg),
+            "moe": per_block(moe_specs(cfg.act)),
+            "mlp": per_block(mlp_specs(cfg.act))}
+    else:
+        lp = {"ln1": ("layers", None), "ln2": ("layers", None),
+              "attn": attn_specs(cfg)}
+        if cfg.moe is not None:
+            lp["moe"] = moe_specs(cfg.act)
+        if cfg.moe is None or cfg.moe.dense_residual:
+            lp["mlp"] = mlp_specs(cfg.act)
+        specs["layers"] = lp
+    return specs
 
 
 def _cast(tree: dict, cdt, keep=()) -> dict:
@@ -616,6 +661,20 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
             "len": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def cache_specs(cfg: ModelConfig):
+    """The logical axis names of :func:`init_cache`'s leaves (JAX's
+    ``cache_specs``: the sequence-parallel rules shard ``kv_seq``)."""
+    if cfg.family == "ssm":
+        return {"conv": (None, "batch", None, "d_inner"),
+                "ssm": (None, "batch", "d_inner", None), "len": ()}
+    kv = (None, "batch", "kv_seq", "kv_heads", None)
+    if cfg.family == "hybrid":
+        return {"k": kv, "v": kv,
+                "conv": (None, None, "batch", None, "d_inner"),
+                "ssm": (None, None, "batch", "d_inner", None), "len": ()}
+    return {"k": kv, "v": kv, "len": ()}
 
 
 def _check_cache(cfg: ModelConfig, cache):

@@ -39,6 +39,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core.energy import H100_SXM as CARD
 from repro_torch.kernels.conv1d_causal import c1d_cost_s
 from repro_torch.obs import metrics as _obs_metrics
 from repro_torch.obs import trace as _obs_trace
@@ -47,19 +48,8 @@ from . import cache as _cache
 from . import space as _space
 from .space import ShapeSig, dtype_key, effective_config, integer
 
-# H100 SXM (NVIDIA's data sheet; 1,980 MHz boost clock): per-SM residency
-# limits, device-memory bandwidth, CUDA-core rates
-SMS = _space.SMS
+# the card's peaks and residency limits: core.energy.H100 (the SXM card)
 THREADS_PER_SM, BLOCKS_PER_SM = 2048, 32
-HBM_BPS = 3.35e12
-#: float32 multiply-adds as FMAs: 132 SMs x 128 lanes x 2 x 1.98 GHz
-F32_FMA_FLOPS = 66.9e12
-#: float32 operations with no FMA form (|x - w|'s subtract and add, max)
-F32_OPS = 33.45e12
-#: int32 lanes: 132 SMs x 64 x 1.98 GHz
-INT32_OPS = 16.73e12
-#: int8 operations on the tensor cores (dense peak; the integer matmul's)
-INT8_TC_OPS = 1979e12
 #: the integer matmul's latency terms, fitted to every config's device time
 #: at Qwen2-0.5B's FFN shapes (scripts/torch_matmul_tiles.py on an NVIDIA
 #: H100 80GB HBM3 at 700 W, PERF.md): a trip to device memory and back (a
@@ -81,8 +71,7 @@ SECTOR, DEFAULT_BLOCKS = 32, 128
 #: (four schedulers), its clock, the resident warps an SM needs to keep
 #: them busy, its shared memory, and instructions per element staged by
 #: index arithmetic (divisions and bounds checks)
-ISSUE_PER_CLK, CLOCK_HZ, WARPS_TO_HIDE = 4, 1.98e9, 8
-SMEM_PER_SM, STAGE_INSTR = 228 * 1024, 20
+ISSUE_PER_CLK, WARPS_TO_HIDE, STAGE_INSTR = 4, 8, 20
 #: profiler sessions tried before the device timer gives up, the pause
 #: after a session that recorded nothing (doubled each time, up to 32x),
 #: the fewest calls a session times, and the sessions each measurement
@@ -166,27 +155,31 @@ def _work(sig: ShapeSig, dtype) -> Tuple[float, float]:
         nbytes = (xb * g("n") * g("h") * g("w") * g("ci")
                   + wb * g("k") ** 2 * g("ci") * g("co") + xb * out)
         # |x - w| and the accumulate: no FMA form
-        return nbytes, (3 * taps / INT32_OPS if ints else 2 * taps / F32_OPS)
+        return nbytes, (3 * taps / CARD.int32_ops if ints
+                        else 2 * taps / CARD.f32_ops)
     elif k == "maxpool2d":
         nbytes = xb * (g("n") * g("h") * g("w") * g("c") + out)
-        return nbytes, out * g("k") ** 2 / (INT32_OPS if ints else F32_OPS)
+        return nbytes, out * g("k") ** 2 / (CARD.int32_ops if ints
+                                             else CARD.f32_ops)
     elif k == "causal_conv1d":
         macs = out * g("k")
         nbytes = 2 * xb * out + wb * g("k") * g("d")
     elif k == "matmul":
         macs = out * g("k")
         nbytes = xb * g("m") * g("k") + wb * g("k") * g("n") + xb * out
-        return nbytes, 2 * macs / (INT8_TC_OPS if ints else F32_FMA_FLOPS)
+        return nbytes, 2 * macs / (CARD.int8_tc_ops if ints
+                                    else CARD.f32_fma_flops)
     else:
         raise ValueError(f"unknown kernel {k!r}")
-    return nbytes, (macs / INT32_OPS if ints else 2 * macs / F32_FMA_FLOPS)
+    return nbytes, (macs / CARD.int32_ops if ints
+                    else 2 * macs / CARD.f32_fma_flops)
 
 
 def _tail(blocks: int, threads: int) -> float:
     """Tail-wave factor: whole waves launched over the waves the blocks
     fill, with ``min(32, 2048 / threads)`` blocks resident per SM."""
     resident = max(1, min(BLOCKS_PER_SM, THREADS_PER_SM // threads))
-    waves = blocks / (SMS * resident)
+    waves = blocks / (CARD.sms * resident)
     return math.ceil(waves) / waves if waves > 0 else 1.0
 
 
@@ -199,11 +192,11 @@ def _issue_s(blocks: int, threads: int, smem: int,
     are resident."""
     warps = _space.cdiv(threads, 32)
     resident = max(1, min(BLOCKS_PER_SM, THREADS_PER_SM // threads,
-                          SMEM_PER_SM // max(smem, 1)))
-    per_sm = min(blocks / SMS, resident) * warps
+                          CARD.smem_per_sm // max(smem, 1)))
+    per_sm = min(blocks / CARD.sms, resident) * warps
     slow = max(1.0, WARPS_TO_HIDE / per_sm)
     return (blocks * warps * instr_per_thread * slow
-            / (SMS * ISSUE_PER_CLK * CLOCK_HZ))
+            / (CARD.sms * ISSUE_PER_CLK * CARD.boost_hz))
 
 
 def _tiled_s(sig: ShapeSig, eff: Dict[str, int], dtype) -> float:
@@ -232,7 +225,7 @@ def _tiled_s(sig: ShapeSig, eff: Dict[str, int], dtype) -> float:
             per_thread = (kk * (terms * pt * q + pt + q // 4 + 1)
                           + STAGE_INSTR * (plan["window"] / 4 + kk * bn) / t)
             lsu_s = (gx * gy * _space.cdiv(t, 32) * kk * (pt + q)
-                     / (SMS * CLOCK_HZ))
+                     / (CARD.sms * CARD.boost_hz))
             return max(lsu_s, _issue_s(gx * gy, t, plan["smem"],
                                        per_thread))
         if not integer(dtype):           # the float shift conv: 1 x q a thread
@@ -271,7 +264,7 @@ def _mmq_s(sig: ShapeSig, eff: Dict[str, int], dtype) -> float:
     stages, the stages' instructions (a's fragments, the weights' word
     loads and transposes, W4's unpack, the mma, the copies) slowed by the
     warps that share a scheduler, and a cluster's launch, barrier and
-    inbox; plus the bytes, each operand once over HBM_BPS (a weight row
+    inbox; plus the bytes, each operand once over the HBM rate (a weight row
     read in pieces narrower than DRAM_BURST counted whole) or all the
     grid's re-reads (the weight once a row tile, a once a column tile)
     over L2_BPS, slowed where the grid has fewer than WARPS_TO_HIDE warps
@@ -284,8 +277,8 @@ def _mmq_s(sig: ShapeSig, eff: Dict[str, int], dtype) -> float:
     gx, gy = plan["grid"]
     blocks, tiles_n = gx * gy, gx // cs
     resident = max(1, min(BLOCKS_PER_SM, THREADS_PER_SM // plan["threads"],
-                          SMEM_PER_SM // plan["smem"]))
-    waves = math.ceil(blocks / (SMS * resident))
+                          CARD.smem_per_sm // plan["smem"]))
+    waves = math.ceil(blocks / (CARD.sms * resident))
     no, nt = bn // 32, bm // 8
     # per 32-deep half of a stage: nt x 2 fragment loads of a; per 32
     # columns 8 word loads and 16 byte permutes (W4: 4 loads and the
@@ -294,7 +287,7 @@ def _mmq_s(sig: ShapeSig, eff: Dict[str, int], dtype) -> float:
     per_half = 2 * nt + no * ((28 if w4 else 24) + 2 * nt + 4)
     copies = ((32 if w4 else 64) * bn + 64 * bm) / 16 / 32
     instr = 2 * per_half + STAGE_INSTR * copies
-    sharing = max(1.0, min(blocks / SMS, resident) * plan["threads"] / 32
+    sharing = max(1.0, min(blocks / CARD.sms, resident) * plan["threads"] / 32
                   / ISSUE_PER_CLK)
     chain = plan["stages"] * instr * WARP_INSTR_S * sharing
     trips = _space.cdiv(plan["stages"], plan["ring"] - 1)
@@ -307,8 +300,8 @@ def _mmq_s(sig: ShapeSig, eff: Dict[str, int], dtype) -> float:
     once = wb * kk * n * burst + xb * m * kk + xb * m * n
     reread = wb * kk * n * gy + xb * m * kk * tiles_n + xb * m * n
     warps = blocks * plan["threads"] / 32
-    bytes_s = (max(once / HBM_BPS, reread / L2_BPS)
-               / min(1.0, warps / (SMS * WARPS_TO_HIDE)))
+    bytes_s = (max(once / CARD.hbm_bps, reread / L2_BPS)
+               / min(1.0, warps / (CARD.sms * WARPS_TO_HIDE)))
     ops_s = _work(sig, dtype)[1]
     return (waves * (trips * DRAM_TRIP_S + chain + cluster)
             + max(bytes_s, ops_s))
@@ -322,7 +315,7 @@ def estimate_s(sig: ShapeSig, config: Dict[str, int], dtype) -> float:
         return _mmq_s(sig, eff, dtype) + LAUNCH_S
     nbytes, ops_s = _work(sig, dtype)
     if _space.tiled(k, dtype) or (k == "matmul" and not integer(dtype)):
-        return max(nbytes / HBM_BPS, _tiled_s(sig, eff, dtype)) + LAUNCH_S
+        return max(nbytes / CARD.hbm_bps, _tiled_s(sig, eff, dtype)) + LAUNCH_S
     if k == "depthwise2d":
         # a staged-row block reads its rows' and columns' halo too, and a
         # slab of fewer channels than a pixel reads whole 32-byte sectors
@@ -340,12 +333,12 @@ def estimate_s(sig: ShapeSig, config: Dict[str, int], dtype) -> float:
         x_bytes = xb * n * h * w * c
         staged = nbytes - x_bytes + x_bytes * halo * waste
         gx, gy = plan["grid"]
-        return (max(staged / HBM_BPS, ops_s)
+        return (max(staged / CARD.hbm_bps, ops_s)
                 * max(1.0, DEFAULT_BLOCKS / (gx * gy)) + LAUNCH_S)
     if k in _space.THREADED:
         threads = eff["threads"]
         blocks = _space.pool_launch(sig, threads, dtype)["blocks"]
-        return (max(nbytes / HBM_BPS, ops_s) * _tail(blocks, threads)
+        return (max(nbytes / CARD.hbm_bps, ops_s) * _tail(blocks, threads)
                 + LAUNCH_S)
     return _c1d_s(sig, eff, dtype)
 
@@ -404,8 +397,22 @@ class DeviceRow:
     us: float
 
 
-def device_kernels(fn: Callable, *args,
-                   calls: int = PROFILE_MIN_CALLS) -> list:
+def _device_rows(prof, device_only: bool) -> dict:
+    """``{kernel name: (records, device us)}`` of a profiler session."""
+    cuda = torch.autograd.DeviceType.CUDA
+    if not device_only:
+        return {e.key: (e.count, e.self_device_time_total)
+                for e in prof.key_averages() if e.device_type == cuda}
+    rows: dict = {}
+    for e in prof.events():
+        if e.device_type == cuda:
+            n, us = rows.get(e.name, (0, 0.0))
+            rows[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    return rows
+
+
+def device_kernels(fn: Callable, *args, calls: int = PROFILE_MIN_CALLS,
+                   device_only: bool = False) -> list:
     """The device activity of one call of ``fn``, one :class:`DeviceRow`
     per kernel name, from ``PROFILE_SESSIONS`` ``torch.profiler`` sessions
     of ``calls`` calls each. Records a session lost are filled in: a
@@ -414,20 +421,21 @@ def device_kernels(fn: Callable, *args,
     number of times), its time per launch the mean over every record of
     it. A session that recorded
     nothing is run again after a pause; raises if too few sessions, of
-    ``PROFILE_TRIES``, recorded anything."""
+    ``PROFILE_TRIES``, recorded anything. ``device_only`` records the
+    device's activity alone, without the host's operator events (a train
+    step's take the profiler tens of seconds to parse)."""
     from torch.profiler import ProfilerActivity, profile
     fn(*args)
     torch.cuda.synchronize()
     sessions = []
+    activities = [ProfilerActivity.CUDA] if device_only else \
+        [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     for i in range(PROFILE_TRIES):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=activities) as prof:
             for _ in range(calls):
                 fn(*args)
             torch.cuda.synchronize()
-        rows = {e.key: (e.count, e.self_device_time_total)
-                for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA}
+        rows = _device_rows(prof, device_only)
         if not rows:
             _obs_metrics.counter("tune.profile.lost_sessions").inc()
             time.sleep(PROFILE_PAUSE_S * 2 ** min(i, 5))

@@ -62,6 +62,7 @@ import dataclasses
 import functools
 from typing import Dict, Iterator, List, Tuple
 
+from repro_torch.core.energy import H100_SXM
 from repro_torch.kernels.common import DEFAULT_THREADS, cdiv
 from repro_torch.kernels.conv1d_causal import RUNS as C1D_RUNS
 from repro_torch.kernels.conv1d_causal import THREADS as C1D_THREADS
@@ -97,7 +98,7 @@ TILED = ("conv2d", "shift_conv2d", "add_conv2d")
 THREADS = (DEFAULT_THREADS, 64, 128, 512, 1024)
 #: SMs of the card the space is sized for (an H100 SXM): the integer
 #: matmul's default cluster depends on it
-SMS = 132
+SMS = H100_SXM.sms
 #: CUDA grid limits: x, and y and z
 MAX_GRID_X, MAX_GRID_YZ = 2 ** 31 - 1, 65535
 
