@@ -83,9 +83,24 @@ Phases, one line each, any failure exits non-zero:
               bound, the plain version's time and one PyTorch call's time
               as a yardstick (device times from torch.profiler, TF32 off),
               and the time of back-to-back wrapper calls.
+check      — the static checks (repro_torch.check), after phase 3:
+              phase 4's plans lowered and built here, each build verified
+              by validate_plan (dataflow and int32 accumulator /
+              requant-shift safety from the weight codes); for each plan
+              its least accumulator headroom in bits, its weight bytes and
+              the ms validate_plan adds to its build; a copy of the int8
+              dws plan with a broken scale chain refused by CompiledPlan
+              (CheckError) before any kernel wrapper's count moves, and
+              built with validate=False; the lint (repro_torch.check.
+              astlint) over the port's tree, 0 findings. After phase 9,
+              the Hopper verdict (check_schedule) of every config phases
+              4, 5, 8 and 9 resolved, with this build's ptxas registers:
+              all ok, the count with a warning (a spill) and the largest
+              registers x threads; then the audit of phase 8's cache.
 4. plan     — CNNConfig(primitive=...) for "dws", "standard", "shift" and
               "add" at full width with seeded random weights, lowered with
-              a 256-image calibration batch on the card, with int8 weights
+              a 256-image calibration batch on the card (in the check
+              phase), with int8 weights
               and with W4 weights (weight_bits=4, group_size=32; and one
               standard plan at group_size=8): method="cuda" trunk bitwise
               equal to method="torch" and to a host run, logits within
@@ -338,8 +353,9 @@ Phases, one line each, any failure exits non-zero:
               same with every kernel call run as its plain version
               (``kernels.ops.force_method("torch")``).
 
-The phases run in the order 1-5, 8, 9, 6, 7, 10, 11, 12, 13; each one's
-wall time is printed as it ends ([time]). The second-to-last
+The phases run in the order 1-3, check, 4, 5, 8, 9, the check of their
+configs, 6, 7, 10, 11, 12, 13; each one's wall time is printed as it ends
+([time]). The second-to-last
 line is a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -1102,49 +1118,6 @@ TILED_KERNELS = ("igemm_kernel", "fgemm_kernel", "matmul_f_kernel",
                  "matmul_q_kernel", "maxpool2d_s8_vec_kernel",
                  "maxpool2d_f_vec_kernel",
                  "causal_conv1d_vec_kernel(?=<__nv_bfloat16, 4,)")
-
-
-def ptxas_report(log: str, kernels) -> list:
-    """One line per instantiation of ``kernels`` in ``nvcc -Xptxas -v``'s
-    output: its name (demangled by c++filt where the machine has it), its
-    registers, static shared memory and spill bytes."""
-    import re
-    out, name, props = [], None, {}
-
-    def flush():
-        if name is not None and any(
-                re.search(rf"(?<!\w){k}<", name) for k in kernels):
-            out.append(f"{name}: {props.get('regs', '?')} registers, "
-                       f"{props.get('smem', '0')} bytes static shared "
-                       "memory (its tiles: dynamic, sized per launch), "
-                       f"spill stores {props.get('st', '?')} loads "
-                       f"{props.get('ld', '?')} bytes")
-    for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '([^']+)'", ln)
-        if m:
-            flush()
-            name = _demangle(m.group(1)).replace("(anonymous namespace)::", "")
-            name, props = name.split("(")[0], {}
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
-        if m:
-            props["st"], props["ld"] = m.group(1), m.group(2)
-        m = re.search(r"Used (\d+) registers", ln)
-        if m:
-            props["regs"] = m.group(1)
-            s = re.search(r"(\d+) bytes smem", ln)
-            props["smem"] = s.group(1) if s else "0"
-    flush()
-    return out
-
-
-def _demangle(sym: str) -> str:
-    try:
-        r = subprocess.run(["c++filt", sym], capture_output=True, text=True,
-                           timeout=30)
-        return r.stdout.strip() or sym if r.returncode == 0 else sym
-    except (OSError, subprocess.SubprocessError):
-        return sym
 
 
 def check_plans(K):
@@ -2059,11 +2032,12 @@ def plan_to_host(plan):
     return dataclasses.replace(plan, nodes=nodes)
 
 
-def phase_plan(torch, K, name, rng, dev="cuda"):
-    """Lower one plan of ``PLANS`` on ``dev`` and hold its cuda trunk
-    against the torch trunk and a host run; returns ``(plan, x, trunk)``,
-    the CompiledPlan, its 256 input images and its cuda trunk."""
-    from repro_torch.core.quantize import QTensorW4
+def build_plan(torch, name, rng, dev="cuda") -> dict:
+    """Lower one plan of ``PLANS`` on ``dev`` from seeded weights and build
+    its CompiledPlan, which verifies it at build
+    (``repro_torch.check.validate_plan``; a plan that fails raises). Returns
+    ``{"plan", "x", "cfg", "t_lower"}``: the CompiledPlan, its 256 input
+    images, its CNNConfig and the seconds lowering and build took."""
     from repro_torch.graph import CompiledPlan, build_cnn_graph, lower
     from repro_torch.models import CNNConfig, quantize_cnn
     from repro_torch.weights import params_from_numpy
@@ -2084,7 +2058,21 @@ def phase_plan(torch, K, name, rng, dev="cuda"):
         cuda_plan = CompiledPlan(plan, method="cuda", device=dev)
     if torch.device(dev).type == "cuda":
         torch.cuda.synchronize()
-    t_lower = time.perf_counter() - t0
+    return {"plan": cuda_plan, "x": x, "cfg": cfg,
+            "t_lower": time.perf_counter() - t0}
+
+
+def phase_plan(torch, K, name, built, dev="cuda"):
+    """Hold one built plan of ``PLANS`` (``build_plan``, in the check
+    phase): its cuda trunk against the torch trunk and a host run; returns
+    ``(plan, x, trunk)``, the CompiledPlan, its 256 input images and its
+    cuda trunk."""
+    from repro_torch.core.quantize import QTensorW4
+    from repro_torch.graph import CompiledPlan
+    primitive, bits, group = PLANS[name]
+    spread = group if bits == 4 and group < 32 else None
+    cuda_plan, x, cfg = built["plan"], built["x"], built["cfg"]
+    t_lower = built["t_lower"]
     weights = [v for n in cuda_plan.plan.nodes if n.op == "qconv"
                for k, v in n.qparams.items() if k in ("w", "w_dw", "w_pw")]
     check(all(isinstance(v, QTensorW4) == (bits == 4) for v in weights),
@@ -2129,6 +2117,159 @@ def phase_plan(torch, K, name, rng, dev="cuda"):
           f"({tuple(tc.q.shape)}, {nz:.3f} nonzero) == host trunk, "
           f"logits max |diff| {err:.2e}{groups}{captured}")
     return cuda_plan, x, tc
+
+
+# ------------------------------------------------------------- phase check --
+
+def plan_weight_bytes(plan) -> tuple:
+    """(bytes, leaves) of a plan's quantized parameters: every tensor leaf
+    of its qconv and qbn nodes (codes, W4 shifts, biases, qbn affines)."""
+    n_bytes = n_leaves = 0
+    for node in plan.nodes:
+        if node.op not in ("qconv", "qbn"):
+            continue
+        for v in node.qparams.values():
+            for t in (getattr(v, "q", None), getattr(v, "shifts", None),
+                      v if hasattr(v, "element_size") else None):
+                if t is not None:
+                    n_bytes += t.numel() * t.element_size()
+                    n_leaves += 1
+    return n_bytes, n_leaves
+
+
+def phase_check(torch, K, card, rng, dev="cuda") -> dict:
+    """The static checks on the card (``repro_torch.check``): every plan of
+    ``PLANS`` lowered at full size and built, each build verified by
+    ``validate_plan`` (a plan that fails raises: a finding, never
+    bypassed); for the served plans their least accumulator headroom in
+    bits, their weight bytes and the seconds ``validate_plan`` adds to a
+    build; a copy of the int8 dws plan whose first conv reads its input 3
+    frac bits off the producer's scale refused by ``CompiledPlan`` with
+    ``CheckError`` before any kernel wrapper's count moves; the lint over
+    the port's tree. Returns the built plans, for phase 4."""
+    from repro_torch.check import (CheckError, check_plan_overflow,
+                                   validate_plan)
+    from repro_torch.check.astlint import lint_paths, port_paths
+    from repro_torch.graph import CompiledPlan
+    built = {}
+    for name in PLANS:
+        b = built[name] = build_plan(torch, name, rng, dev)
+        plan = b["plan"].plan
+        t0 = time.perf_counter()
+        validate_plan(plan)
+        validate_s = time.perf_counter() - t0
+        bounds = check_plan_overflow(plan)
+        check(bounds and all(x.ok for x in bounds),
+              f"check {name}: bounds {bounds}")
+        worst = min(bounds, key=lambda x: x.headroom_bits)
+        n_bytes, n_leaves = plan_weight_bytes(plan)
+        served = "served" if name in SERVED else "phase 4 only"
+        print(f"[check] {name} ({served}): validate_plan "
+              f"{1e3 * validate_s:.3f} ms of a {b['t_lower']:.3f} s "
+              "lowering and build; "
+              f"{len(bounds)} bounds, least headroom "
+              f"{worst.headroom_bits:.2f} bits ({worst.node}/{worst.stage}, "
+              f"|acc| <= {worst.acc_max}, requant shift "
+              f"{worst.requant_shift}); weights {n_bytes} B in {n_leaves} "
+              f"tensors on {card}")
+
+    base = built["dws"]["plan"].plan
+    first = next(i for i, n in enumerate(base.nodes) if n.op == "qconv")
+    nodes = list(base.nodes)
+    nodes[first] = dataclasses.replace(nodes[first],
+                                       in_fb=nodes[first].in_fb + 3)
+    tampered = dataclasses.replace(base, nodes=tuple(nodes))
+    K.reset_launches()
+    try:
+        CompiledPlan(tampered, method="cuda", device=dev)
+        refused = None
+    except CheckError as e:
+        refused = e
+    launched = {k.__name__: k.launches for k in K.KERNELS if k.launches}
+    check(refused is not None and not launched,
+          f"check: the tampered dws plan built (refused: {refused}), "
+          f"launches {launched}")
+    CompiledPlan(tampered, method="cuda", device=dev, validate=False)
+    print(f"[check] the int8 dws plan with {base.nodes[first].name}'s in_fb "
+          f"moved by 3: CompiledPlan raised CheckError with "
+          f"{len(refused.messages)} message(s) {list(refused.messages)}, "
+          "no kernel launched; validate=False builds it")
+
+    t0 = time.perf_counter()
+    paths = port_paths(ROOT)
+    findings = lint_paths(paths)
+    check(not findings, "check: the lint found "
+          + "; ".join(str(f) for f in findings))
+    print(f"[check] astlint over src/repro_torch, chip_smoke.py and "
+          f"scripts/torch_*.py ({len(paths)} paths): 0 findings in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return built
+
+
+@contextlib.contextmanager
+def recording_configs(resolved: dict):
+    """Record every config ``tune.get_config`` returns inside the block
+    (the executor's and ``kernels.ops``' lookups), keyed (sig, dtype,
+    config items)."""
+    from repro_torch import tune
+    inner = tune.get_config
+
+    def get_config(sig, dtype, device=None):
+        cfg = inner(sig, dtype, device)
+        dt = dtype if type(dtype) is str else tune.dtype_key(dtype)
+        resolved[sig, dt, tuple(sorted(cfg.items()))] = cfg
+        return cfg
+    tune.get_config = get_config
+    try:
+        yield
+    finally:
+        tune.get_config = inner
+
+
+def phase_check_configs(torch, card, resolved: dict):
+    """The Hopper verdict (``repro_torch.check.check_schedule``) of every
+    config phases 4, 5, 8 and 9 resolved, each with this build's
+    registers (``ptxas``'s report of the loaded library); the phase fails
+    on an error or on a config whose registers the report lacks. Then the
+    audit of the cache phase 8 wrote."""
+    from repro_torch.check import (audit_cache, check_schedule,
+                                   summarize_audit)
+    verdicts = [(sig, dt, check_schedule(sig, cfg, dt))
+                for (sig, dt, _), cfg in resolved.items()]
+    bad = [v.message() for _, _, v in verdicts if not v.ok]
+    unknown = [v.message() for _, _, v in verdicts if v.registers is None]
+    check(not bad, f"check: configs the verdict refuses: {bad}")
+    check(verdicts and not unknown,
+          f"check: configs without this build's registers: {unknown}")
+    warned = [v for _, _, v in verdicts if v.warnings]
+    top = max(verdicts,
+              key=lambda t: t[2].registers * t[2].footprint.threads)
+    v = top[2]
+    per_kernel = {}
+    for sig, dt, x in verdicts:
+        per_kernel[f"{sig.kernel}/{dt}"] = per_kernel.get(
+            f"{sig.kernel}/{dt}", 0) + 1
+    print(f"[check] {len(verdicts)} configs resolved in phases 4, 5, 8 and "
+          f"9 ({dict(sorted(per_kernel.items()))}): {len(verdicts)} ok, "
+          f"{len(warned)} with a warning "
+          f"({'; '.join(sorted({w for x in warned for w in x.warnings}))}"
+          f"), 0 errors; largest registers x threads {v.registers} x "
+          f"{v.footprint.threads} = {v.registers * v.footprint.threads} of "
+          f"65536 ({v.footprint.instance}, {top[0].kernel}/{top[0].key()} "
+          f"[{top[1]}]); largest shared bytes "
+          f"{max(x.footprint.total_bytes for _, _, x in verdicts)} of "
+          f"{v.budget}; registers from this build's ptxas report, on "
+          f"{card}")
+    rows = audit_cache(str(TUNE_CACHE))
+    summ = summarize_audit(rows)
+    check(summ["entries"] > 0 and not summ["infeasible"]
+          and all(r["registers"] is not None for r in rows),
+          f"check: the audit of {TUNE_CACHE}: {summ}")
+    print(f"[check] audit of {TUNE_CACHE.relative_to(ROOT)}: "
+          f"{summ['entries']} entries, {summ['feasible']} feasible, "
+          f"{summ['warnings']} with a warning, registers of every entry "
+          f"known; largest registers x threads "
+          f"{max(r['registers'] * r['threads'] for r in rows)}")
 
 
 def check_captured(torch, K, name, plan, x):
@@ -3639,9 +3780,7 @@ class StepTimer:
         torch = self.torch
         self.calls += 1
         if self.before is not None:
-            t0 = time.perf_counter()
-            self.before()
-            self.waited += time.perf_counter() - t0
+            self._wait()
         if self.calls in self.profile and self.prof is None:
             from torch.profiler import ProfilerActivity, profile
             torch.cuda.synchronize()
@@ -3656,6 +3795,13 @@ class StepTimer:
                 self.profiled = self.calls
             return out
         return self._timed(*args)
+
+    def _wait(self):
+        """Run ``before`` (host work: no device launch to wait for), its
+        host seconds summed in ``waited``."""
+        t0 = time.perf_counter()
+        self.before()
+        self.waited += time.perf_counter() - t0
 
     def _timed(self, *args):
         start = self.torch.cuda.Event(enable_timing=True)
@@ -4650,6 +4796,7 @@ def main() -> int:
           + " | ".join(regs))
     # ptxas's report of the build that made the library (this run's, or
     # the one an earlier process made from the same sources)
+    from repro_torch.check.footprint import ptxas_report
     for line in ptxas_report(log, TILED_KERNELS):
         print(f"[build] {line}")
 
@@ -4661,20 +4808,28 @@ def main() -> int:
             launches[k] += v
     with phase_clock("3 kernels"):
         per_kernel = phase_kernels(torch, K, dev, kind, rng)
-    with phase_clock("4 plan"):
-        plans = {name: phase_plan(torch, K, name, rng) for name in PLANS}
-    with phase_clock("5 serve"):
-        for p in SERVED:
-            add(phase_serve(torch, K, p, plans[p][0], card, rng))
-    # phases 8 and 9 run before the LM phases: in three of seven runs, at
-    # the start of phase 8 right after a large LM was freed, torch.profiler
-    # sessions recorded nothing for over 18 s
-    with phase_clock("8 tune"):
-        add(phase_tune(torch, K, card, {name: plans[name]
-                                        for name in TUNED_PLANS}))
-    del plans
-    with phase_clock("9 cnn-flow"):
-        add(phase_cnn_flow(torch, K, card))
+    with phase_clock("check"):
+        built = phase_check(torch, K, card, rng)
+    resolved = {}
+    with recording_configs(resolved):
+        with phase_clock("4 plan"):
+            plans = {name: phase_plan(torch, K, name, built[name])
+                     for name in PLANS}
+        del built
+        with phase_clock("5 serve"):
+            for p in SERVED:
+                add(phase_serve(torch, K, p, plans[p][0], card, rng))
+        # phases 8 and 9 run before the LM phases: in three of seven runs,
+        # at the start of phase 8 right after a large LM was freed,
+        # torch.profiler sessions recorded nothing for over 18 s
+        with phase_clock("8 tune"):
+            add(phase_tune(torch, K, card, {name: plans[name]
+                                            for name in TUNED_PLANS}))
+        del plans
+        with phase_clock("9 cnn-flow"):
+            add(phase_cnn_flow(torch, K, card))
+    with phase_clock("check configs"):
+        phase_check_configs(torch, card, resolved)
     with phase_clock("6 lm"):
         lm_launches, lm_prompts = phase_lm(torch, K, card, rng)
         add(lm_launches)

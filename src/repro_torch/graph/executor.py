@@ -31,15 +31,20 @@ execute nothing and do not count. On a CPU plan there is nothing to
 capture: ``jit`` has no effect there and ``traces`` stays 0.
 ``jit=False`` runs every node from Python on every call.
 
+Static checks (``repro_torch.check``), as the JAX package's: a plan is
+verified at build (``validate_plan``: dataflow and int32 overflow), and a
+plan that fails raises ``CheckError`` before any kernel runs.
+
 Launch configs (``repro_torch.tune``): each ``"cuda"`` qconv node's
 per-stage configs are looked up once per node and batch size (memo, then
-the installed cache, then the analytic model), checked against the
-tuner's space when ``validate`` is on, recorded in ``node_configs`` and
-passed to ``qconv_apply``; pool nodes look theirs up in ``ops``. No
-config changes an output, so a tuned plan's trunk is bitwise the
-untuned one's. :meth:`CompiledPlan.throughput` reports images/s and
-:meth:`CompiledPlan.profile` the paper's per-layer reading: measured time,
-analytic MACs and the MCU latency / energy model (``core.energy``).
+the installed cache, then the analytic model), given the Hopper verdict
+(``check.check_schedule``) when ``validate`` is on, recorded in
+``node_configs`` and passed to ``qconv_apply``; pool nodes look theirs
+up in ``ops``. No config changes an output, so a tuned plan's trunk is
+bitwise the untuned one's. :meth:`CompiledPlan.throughput` reports
+images/s and :meth:`CompiledPlan.profile` the paper's per-layer reading:
+measured time, analytic MACs and the MCU latency / energy model
+(``core.energy``).
 
 Two more entry points share the plan: :func:`float_forward`, the float
 interpreter over the IR, and :func:`unfused_forward`, the float-bounce
@@ -93,20 +98,49 @@ def _node_dtype(node: PlanNode) -> str:
     return "int8"
 
 
+def stage_sigs(node: PlanNode, n: int, h: int, w: int, c: int) -> dict:
+    """The tuner's signatures of one qconv node's stages on an (n, h, w,
+    c) input: ``{"main": sig}``, or ``{"dw": sig, "pw": sig}`` for dws."""
+    from repro_torch import tune
+    spec = node.spec
+    p = spec.primitive
+    if p in ("standard", "grouped"):
+        g = spec.groups if p == "grouped" else 1
+        return {"main": tune.sig_conv2d(n, h, w, c, spec.out_channels,
+                                        spec.kernel_size, g)}
+    if p == "dws":
+        return {"dw": tune.sig_depthwise2d(n, h, w, c, spec.kernel_size),
+                "pw": tune.sig_conv2d(n, h, w, c, spec.out_channels, 1, 1)}
+    if p == "shift":
+        return {"main": tune.sig_shift_conv2d(n, h, w, c, spec.out_channels,
+                                              max(1, spec.kernel_size // 2))}
+    return {"main": tune.sig_add_conv2d(n, h, w, c, spec.out_channels,
+                                        spec.kernel_size)}
+
+
 class CompiledPlan:
     """Callable integer-only forward for one lowered plan on ``device``.
 
     The plan's tensors must live on ``device``; inputs (tensors or numpy
-    arrays) are moved there. ``validate=True`` checks every resolved launch
-    config against the tuner's space (a stale or hand-edited cache entry
-    raises ``ValueError`` naming the node). ``jit`` captures each batch
-    size as a CUDA graph on a card (module docstring)."""
+    arrays) are moved there. ``validate=True`` (the default) verifies the
+    plan at build, before anything is moved, captured or launched
+    (``repro_torch.check.validate_plan``: dataflow legality and int32
+    accumulator / requant-shift safety from the actual weight codes), and
+    gives every launch config a node resolves the hard Hopper verdict
+    (``check.check_schedule``, and membership of the tuner's space); each
+    failure raises ``repro_torch.check.CheckError`` (a ``ValueError``)
+    listing its reasons. ``validate=False`` opts out of both. ``jit``
+    captures each batch size as a CUDA graph on a card (module
+    docstring)."""
 
     def __init__(self, plan: Plan, *, method: str = "cuda", device="cuda",
                  jit: bool = True, validate: bool = True):
         if method not in PLAN_METHODS:
             raise ValueError(f"unknown method {method!r}; expected one of "
                              f"{PLAN_METHODS}")
+        if validate:
+            from repro_torch.check import validate_plan
+            validate_plan(plan)
         self.plan = plan
         self.method = method
         self.device = resolve_device(device)
@@ -132,38 +166,38 @@ class CompiledPlan:
         cfg = self._configs.get(key)
         if cfg is None:
             from repro_torch import tune
-            spec = node.spec
-            p = spec.primitive
-            if p in ("standard", "grouped"):
-                g = spec.groups if p == "grouped" else 1
-                sigs = {"main": tune.sig_conv2d(n, h, w, c, spec.out_channels,
-                                                spec.kernel_size, g)}
-            elif p == "dws":
-                sigs = {"dw": tune.sig_depthwise2d(n, h, w, c,
-                                                   spec.kernel_size),
-                        "pw": tune.sig_conv2d(n, h, w, c, spec.out_channels,
-                                              1, 1)}
-            elif p == "shift":
-                sigs = {"main": tune.sig_shift_conv2d(
-                    n, h, w, c, spec.out_channels,
-                    max(1, spec.kernel_size // 2))}
-            else:                        # add
-                sigs = {"main": tune.sig_add_conv2d(n, h, w, c,
-                                                    spec.out_channels,
-                                                    spec.kernel_size)}
+            sigs = stage_sigs(node, n, h, w, c)
             dt = _node_dtype(node)
             cfg = {stage: tune.get_config(sig, dt, self.device)
                    for stage, sig in sigs.items()}
             if self.validate:
-                for stage, sig in sigs.items():
-                    try:
-                        tune.check_config(sig, cfg[stage], dt)
-                    except ValueError as e:
-                        raise ValueError(f"node {node.name!r}, stage "
-                                         f"{stage!r}: {e}") from e
+                self._check_configs(node, sigs, cfg, dt)
             self._configs[key] = cfg
         self.node_configs[node.name] = cfg
         return cfg
+
+    @staticmethod
+    def _check_configs(node: PlanNode, sigs: dict, cfg: dict, dt: str):
+        """The hard verdict on every config a node resolved: a stale or
+        hand-edited cache entry could smuggle in one that cannot launch
+        on the card, or one outside the tuner's space. Raises
+        ``CheckError`` naming the node, its stage, its signature and the
+        reasons."""
+        from repro_torch.check import CheckError
+        from repro_torch.check.footprint import check_schedule
+        from repro_torch.tune.space import space_errors
+        bad = []
+        for stage, sig in sigs.items():
+            v = check_schedule(sig, cfg[stage], dt)
+            errs = v.errors or space_errors(sig, cfg[stage], dt)
+            bad.extend(f"node {node.name!r}, stage {stage!r} "
+                       f"[{sig.kernel}/{sig.key()}] {cfg[stage]}: {e}"
+                       for e in errs)
+        if bad:
+            raise CheckError(
+                f"infeasible kernel schedule for node {node.name!r} "
+                "(repro_torch.check.check_schedule; pass validate=False to "
+                "bypass):", bad)
 
     # -------------------------------------------------------------- forward
 

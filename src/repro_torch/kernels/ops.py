@@ -21,11 +21,13 @@ custom VJP.
 
 Launch configs (``repro_torch.tune``): every ``"cuda"`` call without
 ``config=`` launches the config ``tune.get_config`` returns (memo, then
-the installed cache, then the analytic model); an explicit ``config=`` is
-checked against the tuner's space (``tune.check_config``, a
-``ValueError`` outside it). ``config=`` with ``"torch"`` is a
-``ValueError``: the plain versions have no launch to configure. No config
-changes an output.
+the installed cache, then the analytic model); an explicit ``config=``
+gets the same hard verdict as the tuner's and the executor's
+(``repro_torch.check.check_schedule``, through ``tune.check_config``) and
+must lie in the tuner's space, else ``repro_torch.check.CheckError`` (a
+``ValueError``) "infeasible schedule for ...". ``config=`` with
+``"torch"`` is a ``ValueError``: the plain versions have no launch to
+configure. No config changes an output.
 
 Every call counts into the process metrics registry as
 ``kernels.dispatch.<kernel>.<method>``, and reports its kernel and that
@@ -117,10 +119,11 @@ def _check_w4(kernel: str, x, requant_shift):
 def _launch_config(kernel: str, method: str, config, sig_fn, dims, x,
                    w_shifts=None) -> dict:
     """The launch config of one call: ``{}`` under ``"torch"`` (which takes
-    none), else the explicit ``config`` checked against the tuner's space,
-    or the tuner's lookup for x's device, keyed "w4a8" for packed weights
-    and by x's dtype otherwise. Imported lazily: the tuner measures
-    through these entry points."""
+    none), else the explicit ``config`` given the Hopper verdict and held
+    to the tuner's space (``tune.check_config``, which raises
+    ``repro_torch.check.CheckError``), or the tuner's lookup for x's
+    device, keyed "w4a8" for packed weights and by x's dtype otherwise.
+    Imported lazily: the tuner measures through these entry points."""
     if method == "torch":
         if config is not None:
             raise ValueError(

@@ -42,19 +42,22 @@ names, which mean nothing to them:
 No knob changes the value of an output: each changes only the launch
 shape, and the integer split sums are exact. So every candidate gives
 output bitwise equal to the default's, which is what makes the tuner safe
-to leave on. :func:`launch_errors` holds each config to the H100's limits:
-the grid, threads per block, the integer matmul's cluster (at most 8
-blocks, the portable limit) and, for the kernels that stage tiles in
-shared memory (``conv2d``, ``depthwise2d``, ``shift_conv2d``,
-``add_conv2d``, ``matmul``), the Hopper footprint: their tiles are dynamic
-shared memory, at most 232,448 bytes a block (past 48 KB the sources raise
-the kernel's limit with ``cudaFuncSetAttribute``).
+to leave on. :func:`launch_errors` holds each config to the H100's limits
+through ``repro_torch.check.check_schedule``, the one footprint model and
+verdict (``check/footprint.py``): the grid, threads per block, the integer
+matmul's cluster (at most 8 blocks, the portable limit), for the kernels
+that stage tiles in shared memory (``conv2d``, ``depthwise2d``,
+``shift_conv2d``, ``add_conv2d``, ``matmul``) their dynamic shared bytes,
+at most 232,448 a block (past 48 KB the sources raise the kernel's limit
+with ``cudaFuncSetAttribute``), and where this process loaded a built
+library, ``ptxas``'s registers.
 
 A *config* is a plain dict of those kwargs. :func:`candidates` enumerates
 the configs a shape can launch, default first and deduplicated by the
-schedule they run (:func:`effective_config`); :func:`check_config` rejects
-one outside that space. Shape signatures and their ``key()`` strings are
-the JAX package's, so one (kernel, key, dtype) names the same job in both.
+schedule they run (:func:`effective_config`); :func:`check_config` raises
+``repro_torch.check.CheckError`` for one outside that space. Shape
+signatures and their ``key()`` strings are the JAX package's, so one
+(kernel, key, dtype) names the same job in both.
 """
 from __future__ import annotations
 
@@ -62,28 +65,26 @@ import dataclasses
 import functools
 from typing import Dict, Iterator, List, Tuple
 
+from repro_torch.check import footprint as _footprint
 from repro_torch.core.energy import H100_SXM
+from repro_torch.kernels import _build
 from repro_torch.kernels.common import DEFAULT_THREADS, cdiv
 from repro_torch.kernels.conv1d_causal import RUNS as C1D_RUNS
 from repro_torch.kernels.conv1d_causal import THREADS as C1D_THREADS
-from repro_torch.kernels.conv1d_causal import (MAX_BATCH, MAX_RUNS, c1d_plan,
-                                               default_c1d_config)
+from repro_torch.kernels.conv1d_causal import c1d_plan, default_c1d_config
 from repro_torch.kernels.conv_add import add_f_plan
 from repro_torch.kernels.conv_dw import (DW_PT, DW_ROWS, default_dw_tile,
-                                         dw_knob_errors, dw_plan,
-                                         dw_tile_errors)
-from repro_torch.kernels.conv_im2col import (CONV_BP, CONV_MAX_THREADS,
-                                             CONV_Q, conv_f_plan, conv_plan,
-                                             default_f_tile, default_tile,
-                                             knob_errors, tile_errors)
+                                         dw_plan)
+from repro_torch.kernels.conv_im2col import (CONV_BP, CONV_Q, conv_f_plan,
+                                             conv_plan, default_f_tile,
+                                             default_tile)
 from repro_torch.kernels.conv_shift import (default_shift_tile, shift_f_plan,
                                             shift_plan)
 from repro_torch.kernels.matmul_q8 import (MMF_KNOBS, MMF_TILES,
                                            MMQ_CLUSTERS, MMQ_KNOBS,
                                            MMQ_TILES, default_mmf_tile,
-                                           default_mmq_config, mmf_tile_errors,
-                                           mmq_bm_cap, mmq_cluster_cap,
-                                           mmq_config_errors)
+                                           default_mmq_config, mmq_bm_cap,
+                                           mmq_cluster_cap)
 from repro_torch.kernels.pool import pool_f_plan, pool_plan
 
 # Kernels the tuner knows about. Names match repro_torch.kernels.ops.
@@ -327,65 +328,13 @@ def effective_config(sig: ShapeSig, cfg: Dict[str, int],
 
 
 def launch_errors(sig: ShapeSig, cfg: Dict[str, int], dtype) -> List[str]:
-    """Why an (effective) config cannot launch on this shape on an H100:
-    the block size, the grid limits, the integer matmul's cluster (at most
-    8) and, for the kernels that stage tiles (conv2d, depthwise2d,
-    shift_conv2d, add_conv2d, matmul), the Hopper footprint: shared bytes
-    per block (static at most 48 KB, dynamic at most 232,448) and threads
-    per block. Empty if it can."""
-    k = sig.kernel
-    errs = []
-    if tiled(k, dtype):
-        bp, q = cfg["bp"], cfg["q"]
-        errs = knob_errors(bp, q)
-        if errs:
-            return errs
-        plan = tile_plan(sig, bp, q, dtype)
-        errs.extend(tile_errors(plan))
-        if plan["threads"] > CONV_MAX_THREADS:
-            errs.append(f"{plan['threads']} threads a block exceed "
-                        f"{CONV_MAX_THREADS}")
-        if plan["grid"][0] > MAX_GRID_X:
-            errs.append(f"{plan['grid'][0]} pixel blocks exceed the grid")
-    elif k == "depthwise2d":
-        pt, rows = cfg["pt"], cfg["rows"]
-        errs = dw_knob_errors(pt, rows)
-        if errs:
-            return errs
-        plan = dw_plan(*dw_shape(sig), dw_esize(dtype), pt, rows)
-        errs.extend(dw_tile_errors(plan))
-        if plan["grid"][0] > MAX_GRID_X:
-            errs.append(f"{plan['grid'][0]} row blocks exceed the grid")
-    elif k == "matmul" and not integer(dtype):
-        esize = 2 if dtype_key(dtype) == "bfloat16" else 4
-        errs.extend(mmf_tile_errors(sig.get("m"), sig.get("n"),
-                                    tuple(cfg[x] for x in MMF_KNOBS), esize))
-    elif k in THREADED:
-        t = cfg["threads"]
-        if not (isinstance(t, int) and 32 <= t <= 1024 and t % 32 == 0):
-            errs.append(f"threads={t!r} is not a whole number of warps up "
-                        "to 1024")
-        elif pool_launch(sig, t, dtype)["blocks"] > MAX_GRID_X:
-            errs.append(f"{pool_launch(sig, t, dtype)['blocks']} blocks "
-                        "exceed the grid")
-    elif k == "causal_conv1d":
-        t, r = cfg["threads"], cfg["run"]
-        if t not in C1D_THREADS:
-            errs.append(f"threads={t!r} has no instantiation (one of "
-                        f"{C1D_THREADS})")
-        elif r not in C1D_RUNS:
-            errs.append(f"run={r!r} has no instantiation (one of "
-                        f"{C1D_RUNS})")
-        else:
-            _, gy, gz = c1d_launch(sig, cfg, dtype)["grid"]
-            if gy > MAX_RUNS or gz > MAX_BATCH:
-                errs.append(f"{gy} runs or batch {gz} exceed the grid's y "
-                            "or z limit")
-    elif k == "matmul":
-        errs.extend(mmq_config_errors(sig.get("m"), sig.get("k"),
-                                      sig.get("n"), cfg,
-                                      dtype_key(dtype) == "w4a8"))
-    return errs
+    """Why a config cannot launch on this shape on an H100, empty if it
+    can: the errors of ``repro_torch.check.check_schedule``, the one
+    verdict the tuner, ``kernels.ops`` and the executor share (the block
+    size, the grid limits, the integer matmul's cluster, for the kernels
+    that stage tiles shared bytes a block and threads a block, and where
+    this process loaded a build, ``ptxas``'s registers)."""
+    return _footprint.check_schedule(sig, cfg, dtype).errors
 
 
 def _key(cfg) -> tuple:
@@ -441,33 +390,51 @@ def space_size(sig: ShapeSig, dtype="float32") -> int:
     return sum(1 for _ in candidates(sig, dtype))
 
 
+@functools.lru_cache(maxsize=1024)
+def _space_keys(sig: ShapeSig, dtype: str, build: int,
+                budget: int) -> frozenset:
+    """The effective launches of a shape's candidates, per loaded build
+    and shared-memory budget (the verdict that prunes them reads both)."""
+    return frozenset(_key(effective_config(sig, c, dtype))
+                     for c in candidates(sig, dtype))
+
+
+def space_errors(sig: ShapeSig, cfg: Dict[str, int], dtype) -> List[str]:
+    """Why a config that can launch is still not one of the tuner's
+    candidates for this shape. Empty if it is."""
+    dt = dtype_key(dtype)
+    keys = _space_keys(sig, dt, _build.library.cache_info().currsize,
+                       _footprint.smem_budget())
+    if _key(effective_config(sig, cfg, dt)) in keys:
+        return []
+    return [f"config {cfg} is outside the tuner's space"]
+
+
 @functools.lru_cache(maxsize=4096)
-def _check(sig: ShapeSig, items: tuple, dtype: str):
-    cfg = dict(items)
-    unknown = set(cfg) - set(knobs(sig.kernel, dtype))
-    if unknown:
-        raise ValueError(f"{sig.kernel}/{sig.key()} [{dtype}]: config "
-                         f"{cfg} has unknown knobs {sorted(unknown)}; "
-                         f"{sig.kernel} takes {knobs(sig.kernel, dtype)}")
-    eff = effective_config(sig, cfg, dtype)
-    errs = launch_errors(sig, eff, dtype)
+def _check(sig: ShapeSig, items: tuple, dtype: str, build: int, budget: int):
+    from repro_torch.check import CheckError
+    v = _footprint.check_schedule(sig, dict(items), dtype)
+    if not v.ok:
+        raise CheckError(f"infeasible schedule for {v.kernel}/{v.sig_key} "
+                         f"[{v.dtype}] {v.config}: it cannot launch:",
+                         v.errors)
+    errs = space_errors(sig, v.config, dtype)
     if errs:
-        raise ValueError(f"{sig.kernel}/{sig.key()} [{dtype}]: config {cfg} "
-                         f"cannot launch: {'; '.join(errs)}")
-    if _key(eff) not in {_key(effective_config(sig, c, dtype))
-                         for c in candidates(sig, dtype)}:
-        raise ValueError(f"{sig.kernel}/{sig.key()} [{dtype}]: config {cfg} "
-                         "is outside the tuner's space")
+        raise CheckError(f"infeasible schedule for {v.kernel}/{v.sig_key} "
+                         f"[{v.dtype}] {v.config}:", errs)
 
 
 def check_config(sig: ShapeSig, config: Dict[str, int], dtype="float32"):
-    """Raise ``ValueError`` for a config outside the space or one that
-    breaks a launch limit; return the config unchanged. Verdicts are
-    memoized, so a config checked once costs a dict probe after."""
+    """Raise ``repro_torch.check.CheckError`` (a ``ValueError``) for a
+    config that cannot launch (``check_schedule``'s verdict) or lies
+    outside the space; return the config unchanged. Verdicts are memoized
+    per loaded build and shared-memory budget, so a config checked once
+    costs a dict probe after."""
     try:
         items = _key(config)
         hash(items)
     except TypeError:
         raise ValueError(f"config must be a dict of ints, got {config!r}")
-    _check(sig, items, dtype_key(dtype))
+    _check(sig, items, dtype_key(dtype),
+           _build.library.cache_info().currsize, _footprint.smem_budget())
     return config

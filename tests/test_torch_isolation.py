@@ -1,6 +1,7 @@
 """The port imports neither JAX nor the JAX package: an AST scan of its
-sources, of chip_smoke.py and of the examples train_cnn_torch.py and
-train_lm_torch.py, and a clean-interpreter import check."""
+sources, of chip_smoke.py, of the examples train_cnn_torch.py and
+train_lm_torch.py and of the scripts/torch_*.py (torch_check_plan.py among
+them), and a clean-interpreter import check."""
 import ast
 import os
 import subprocess
@@ -12,7 +13,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py", ROOT / "examples" / "train_cnn_torch.py",
-     ROOT / "examples" / "train_lm_torch.py"]
+     ROOT / "examples" / "train_lm_torch.py"] + \
+    sorted((ROOT / "scripts").glob("torch_*.py"))
 
 
 def _forbidden(mod: str) -> bool:
@@ -44,7 +46,8 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.models.api, repro_torch.models.transformer\n"
         "import repro_torch.tune, repro_torch.tune.__main__\n"
         "import repro_torch.optim, repro_torch.data, repro_torch.checkpoint\n"
-        "import repro_torch.train\n"
+        "import repro_torch.train, repro_torch.check\n"
+        "import repro_torch.check.astlint\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
