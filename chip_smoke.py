@@ -180,6 +180,37 @@ check      — the static checks (repro_torch.check), after phase 3:
               w4a8, int8 over the int8 KV cache and float and int8 over
               the paged cache, and the captured prefill against the eager
               one at buckets 32 and 128.
+chaos      — the chaos harness (repro_torch.faults.chaos) at full size,
+              after phase 6, on its Qwen2-0.5B weights and phase 4's int8
+              dws plan: each schedule a clean and a faulted drain on fresh
+              engines, every request in a terminal status, survivors
+              bitwise the clean run's, the paged pool audited empty, spans
+              balanced, no stream left capturing, no entry point run as
+              its plain version, degraded 0. LM: Engine(max_batch=8,
+              max_len=256, precision="int8") over 12 of phase 6's prompts,
+              32 new tokens each, greedy, under tests/test_faults.py's
+              matrix (a prefill raise absorbed; prefill retries
+              exhausted; decode retries exhausted with the arena rebuilt;
+              a corrupt round contained; a deadline of 0.5 s against a
+              0.2 s stall of every decode round; shedding by reject and
+              drop; the paged pool's blockpool.alloc fault; a paged
+              decode error; the static scheduler's prefill raise, decode
+              raise and corrupt round; the probability matrix at seed 0)
+              and one kernels.dispatch raise, contiguous (in the eager pass
+              of the first prefill's capture) and paged (inside that
+              capture). CNN: CNNEngine(max_batch=256) over 293 images (a
+              full round and a ragged one of 37): a round raise absorbed,
+              a round's retries exhausted (error, the next round ok), a
+              corrupt round contained, and kernels.dispatch raising on a
+              fresh plan in its first capture's eager pass, inside the
+              capture, and on every attempt (every round error). One
+              line a schedule (fired, statuses, survivors, poisoned,
+              retries, arena rebuilds or degraded, pool violations, entry
+              point calls by method, seconds). Then one engine of each,
+              warm, drains its traffic four times, tracing off, on, off,
+              on: the last traced drain exported to build/ as Chrome
+              trace-event JSON (its events, request lanes, span balance)
+              and each drain's tokens/s or images/s.
 7. ssm      — Falcon-Mamba-7B at full width and depth (64 layers, d_model
               4096, d_inner 8192, d_state 16, d_conv 4, dt_rank 256, vocab
               65,024; 7.27 B parameters), seeded random weights made on the
@@ -354,8 +385,8 @@ check      — the static checks (repro_torch.check), after phase 3:
               (``kernels.ops.force_method("torch")``).
 
 The phases run in the order 1-3, check, 4, 5, 8, 9, the check of their
-configs, 6, 7, 10, 11, 12, 13; each one's wall time is printed as it ends
-([time]). The second-to-last
+configs, 6, chaos, 7, 10, 11, 12, 13; each one's wall time is printed as it
+ends ([time]). The second-to-last
 line is a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -2433,8 +2464,8 @@ def phase_lm(torch, K, card, rng, dev="cuda", cfg=None, n_req=LM_REQUESTS,
     """Serve Qwen2-0.5B in every (precision, KV cache) of ``LM_RUNS``,
     captured, and ``LM_EAGER`` again with jit=False on the first
     ``n_eager`` requests; then the other serve paths (:func:`lm_paths`);
-    returns the launch count of every kernel over the runs and the
-    prompts."""
+    returns the launch count of every kernel over the runs, the prompts
+    and the model's parameters."""
     from repro_torch.configs import get_config
     cfg = cfg or get_config(LM_ARCH)
     params, made = make_lm_params(torch, cfg, dev, "lm")
@@ -2475,7 +2506,7 @@ def phase_lm(torch, K, card, rng, dev="cuda", cfg=None, n_req=LM_REQUESTS,
     lm_paths(runner, prompts, n_eager)
     for label, eng in engines.items():
         lm_breakdown(torch, label, eng, cfg, dev)
-    return runner.launches, prompts
+    return runner.launches, prompts, params
 
 
 def make_lm_params(torch, cfg, dev, tag):
@@ -2917,6 +2948,286 @@ def lm_breakdown(torch, label, eng, cfg, dev, pos=128, reps=5,
         print(f"[lm-breakdown] {label}: one prefill at bucket {b} (batch 1): "
               f"captured {ms['captured']:.4f} ms, eager {ms['eager']:.4f} ms "
               f"(CUDA events)")
+
+
+# ---------------------------------------------------------------- chaos --
+
+#: the chaos phase's LM traffic: the first CHAOS_REQUESTS of phase 6's
+#: prompts (16-96 tokens), LM_NEW new tokens each, greedy, Qwen2-0.5B in
+#: "int8" at full size, Engine(max_batch=LM_BATCH, max_len=LM_MAX_LEN)
+CHAOS_REQUESTS = 12
+CHAOS_PAGED = dict(kv_layout="paged", kv_block_size=LM_BLOCK)
+CHAOS_STATIC = dict(scheduler="static")
+#: the chaos phase's CNN traffic through the int8 dws plan: one full
+#: round of BATCH images and a ragged round of 37 (bucket 64)
+CHAOS_IMAGES = BATCH + 37
+#: the deadline schedule: every decode round stalls CHAOS_STALL_S against
+#: a CHAOS_DEADLINE_S deadline
+CHAOS_STALL_S, CHAOS_DEADLINE_S = 0.2, 0.5
+
+
+def chaos_lm_schedules(per_prefill: int):
+    """(name, fault specs, serve config, harness keywords, the outcome
+    check on (report, status counts)) of the LM schedules: the matrix of
+    tests/test_faults.py at full size, and one kernels.dispatch raise,
+    contiguous (in the eager pass of the first prefill's capture) and
+    paged (inside that capture, after the pages were taken)."""
+    n, b = CHAOS_REQUESTS, LM_BATCH
+    rest = n - b
+
+    def only(*ok):
+        return lambda rep, by: set(by) <= set(ok)
+    return [
+        ("prefill raise absorbed",
+         [dict(site="engine.prefill", kind="raise", nth=2)], {}, {},
+         lambda rep, by: by == {"ok": n} and rep.stats["retries"] >= 1),
+        ("prefill retries exhausted",
+         [dict(site="engine.prefill", kind="raise", nth=1, times=3)], {},
+         {}, lambda rep, by: by == {"error": 1, "ok": n - 1}),
+        ("decode retries exhausted, arena rebuilt",
+         [dict(site="engine.decode_round", kind="raise", nth=2, times=3)],
+         {}, {}, lambda rep, by: by == {"error": b, "ok": rest}
+         and rep.stats["arena_rebuilds"] == 1),
+        ("corrupt round contained",
+         [dict(site="engine.decode_round", kind="corrupt", nth=2)], {}, {},
+         lambda rep, by: by == {"ok": n} and len(rep.poisoned) == b
+         and len(rep.survivors) == rest),
+        ("deadline by delay",
+         [dict(site="engine.decode_round", kind="delay", nth=1,
+               times=10 ** 6, delay_s=CHAOS_STALL_S)],
+         dict(deadline_s=CHAOS_DEADLINE_S), {},
+         lambda rep, by: set(by) <= {"ok", "timeout"}
+         and rep.stats["timeouts"] >= 1),
+        ("shed reject", [], dict(max_queue=b, shed_policy="reject"),
+         dict(expect_fired=False),
+         lambda rep, by: by == {"ok": b, "shed": rest}),
+        ("shed drop", [], dict(max_queue=b, shed_policy="drop"),
+         dict(expect_fired=False),
+         lambda rep, by: by == {"ok": b, "shed": rest}
+         and rep.stats["shed"] == rest),
+        ("paged blockpool.alloc",
+         [dict(site="blockpool.alloc", kind="raise", nth=2, times=2)],
+         CHAOS_PAGED, {}, lambda rep, by: by == {"ok": n}),
+        ("paged decode error",
+         [dict(site="engine.decode_round", kind="raise", nth=3, times=3)],
+         CHAOS_PAGED, {}, lambda rep, by: by == {"error": b, "ok": rest}
+         and rep.stats["arena_rebuilds"] == 1),
+        ("static prefill raise",
+         [dict(site="engine.prefill", kind="raise", nth=1)], CHAOS_STATIC,
+         {}, lambda rep, by: by == {"ok": n}),
+        ("static decode raise",
+         [dict(site="engine.decode_round", kind="raise", nth=1, times=3)],
+         CHAOS_STATIC, {}, lambda rep, by: by == {"error": b, "ok": rest}),
+        ("static decode corrupt",
+         [dict(site="engine.decode_round", kind="corrupt", nth=2)],
+         CHAOS_STATIC, {}, lambda rep, by: by == {"ok": n}
+         and len(rep.poisoned) == b),
+        ("probability matrix, seed 0",
+         [dict(site="engine.decode_round", kind="raise", probability=0.2,
+               times=2),
+          dict(site="engine.prefill", kind="raise", probability=0.2,
+               times=2)], {}, dict(expect_fired=False),
+         only("ok", "error")),
+        ("kernels.dispatch raise, contiguous",
+         [dict(site="kernels.dispatch", kind="raise", nth=1)], {}, {},
+         lambda rep, by: by == {"ok": n} and rep.stats["retries"] == 1),
+        ("kernels.dispatch raise in a capture, paged",
+         [dict(site="kernels.dispatch", kind="raise", nth=per_prefill + 1)],
+         CHAOS_PAGED, {},
+         lambda rep, by: by == {"ok": n} and rep.stats["retries"] == 1),
+    ]
+
+
+def chaos_cnn_schedules(per_forward: int):
+    """(name, fault specs, a fresh plan per engine, the outcome check) of
+    the CNN schedules; the kernels.dispatch ones fire while a fresh
+    plan's first graph is captured (its eager pass, then inside the
+    capture), once or on every attempt."""
+    n, b = CHAOS_IMAGES, BATCH
+    return [
+        ("round raise absorbed",
+         [dict(site="cnn.batch_round", kind="raise", nth=1, times=2)],
+         False, lambda rep, by: by == {"ok": n}
+         and rep.stats["retries"] == 2),
+        ("round retries exhausted",
+         [dict(site="cnn.batch_round", kind="raise", nth=1, times=3)],
+         False, lambda rep, by: by == {"error": b, "ok": n - b}),
+        ("corrupt round contained",
+         [dict(site="cnn.batch_round", kind="corrupt", nth=1)], False,
+         lambda rep, by: by == {"ok": n} and len(rep.poisoned) == b
+         and len(rep.survivors) == n - b),
+        ("kernels.dispatch raise in the first capture's eager pass",
+         [dict(site="kernels.dispatch", kind="raise", nth=1)], True,
+         lambda rep, by: by == {"ok": n} and rep.stats["retries"] == 1),
+        ("kernels.dispatch raise inside the first capture",
+         [dict(site="kernels.dispatch", kind="raise", nth=per_forward + 1)],
+         True, lambda rep, by: by == {"ok": n}
+         and rep.stats["retries"] == 1),
+        ("kernels.dispatch persistent",
+         [dict(site="kernels.dispatch", kind="raise", nth=1,
+               times=10 ** 6)], True,
+         lambda rep, by: by == {"error": n}),
+    ]
+
+
+def _dispatch_counts() -> dict:
+    """The process counters of kernel entry-point calls, by method."""
+    from repro_torch.obs import metrics
+    out = {"cuda": 0, "torch": 0}
+    for name, m in metrics.snapshot().items():
+        if name.startswith("kernels.dispatch."):
+            out[name.rsplit(".", 1)[1]] += int(m["value"])
+    return out
+
+
+def run_schedule(torch, card, tag, name, run, specs, check_outcome):
+    """One paired schedule through ``run(plan)`` (a chaos harness call):
+    every invariant held, the outcome ``check_outcome(report, status
+    counts)``, no stream left capturing; prints its line and returns
+    the report."""
+    import collections
+    from repro_torch.faults import inject
+    plan = inject.FaultPlan([inject.FaultSpec(**s) for s in specs], SEED)
+    calls = _dispatch_counts()
+    t0 = time.perf_counter()
+    rep = run(plan)
+    secs = time.perf_counter() - t0
+    calls = {k: v - calls[k] for k, v in _dispatch_counts().items()}
+    by = dict(collections.Counter(rep.statuses.values()))
+    check(rep.ok, f"chaos {tag} {name}: {rep.summary()}")
+    check(check_outcome(rep, by),
+          f"chaos {tag} {name}: unexpected outcome {rep.summary()}; "
+          f"stats {rep.stats}")
+    check(not torch.cuda.is_current_stream_capturing(),
+          f"chaos {tag} {name}: a stream was left capturing")
+    check(calls["torch"] == 0 and rep.stats.get("degraded", 0) == 0,
+          f"chaos {tag} {name}: {calls['torch']} entry-point calls ran "
+          f"the plain version, degraded {rep.stats.get('degraded')}")
+    statuses = ",".join(f"{k}:{v}" for k, v in sorted(by.items()))
+    extra = (f"arena rebuilds {rep.stats['arena_rebuilds']}, "
+             if "arena_rebuilds" in rep.stats
+             else f"degraded {rep.stats['degraded']}, ")
+    print(f"[chaos] {tag} {name}: fired {rep.fired}, statuses {statuses}, "
+          f"survivors {len(rep.survivors)}, poisoned {len(rep.poisoned)}, "
+          f"retries {rep.stats['retries']}, {extra}pool violations "
+          f"{len(rep.pool_violations)}, entry-point calls cuda "
+          f"{calls['cuda']} torch {calls['torch']}, {secs:.2f} s; all "
+          f"invariants held; {card}")
+    return rep
+
+
+def phase_chaos(torch, K, card, lm_params, prompts, dws_plan):
+    """The chaos harness (``repro_torch.faults.chaos``) at full size on the
+    card: Qwen2-0.5B "int8" (phase 6's weights and prompts) under every LM
+    schedule, the int8 dws plan (phase 4's, captured) through
+    CNNEngine(max_batch=BATCH) under every CNN schedule, each a clean and
+    a faulted drain on fresh engines; then one traced drain of each engine
+    exported under build/ and the cost of tracing. Returns the launch
+    count of every kernel over the phase."""
+    from repro_torch.configs import get_config
+    from repro_torch.faults import chaos
+    from repro_torch.graph import CompiledPlan
+    from repro_torch.serve import (CNNEngine, CNNServeConfig, Engine,
+                                   ImageRequest, Request, ServeConfig)
+    cfg = get_config(LM_ARCH)
+    served = prompts[:CHAOS_REQUESTS]
+    K.reset_launches()
+
+    def lm_requests():
+        return [Request(uid=i, prompt=p, max_new_tokens=LM_NEW)
+                for i, p in enumerate(served)]
+
+    def lm_engine(**kw):
+        return Engine(cfg, lm_params, ServeConfig(
+            max_batch=LM_BATCH, max_len=LM_MAX_LEN, precision="int8", **kw))
+    for name, specs, kw, harness_kw, ok in chaos_lm_schedules(
+            3 * cfg.n_layers):
+        def run(plan, kw=kw, hk=harness_kw):
+            return chaos.run_lm_chaos(lambda: lm_engine(**kw), lm_requests,
+                                      plan, **hk)
+        run_schedule(torch, card, "lm", name, run, specs, ok)
+    images = (np.random.default_rng(SEED).standard_normal(
+        (CHAOS_IMAGES, 32, 32, 3)) * 0.5).astype("float32")
+
+    def cnn_requests():
+        return [ImageRequest(uid=i, image=images[i])
+                for i in range(CHAOS_IMAGES)]
+
+    def cnn_engine(fresh):
+        plan = (CompiledPlan(dws_plan.plan, method=dws_plan.method,
+                             device=dws_plan.device) if fresh else dws_plan)
+        return CNNEngine(plan, CNNServeConfig(max_batch=BATCH))
+    per_forward = sum(PER_FORWARD["dws"].values())
+    for name, specs, fresh, ok in chaos_cnn_schedules(per_forward):
+        run_schedule(torch, card, "cnn", name, lambda plan, f=fresh:
+                     chaos.run_cnn_chaos(lambda: cnn_engine(f),
+                                         cnn_requests, plan), specs, ok)
+    launches = {k.__name__: k.launches for k in K.KERNELS}
+    used = ("matmul_q8", "conv2d_q8", "depthwise2d_q8", "maxpool2d_s8")
+    check(all(launches[k] > 0 for k in used),
+          f"chaos: a kernel of the served paths was never launched: "
+          f"{launches}")
+    chaos_trace(torch, card, "lm", lm_engine(), lm_requests,
+                lambda done: sum(len(r.out_tokens) for r in done), "tokens")
+    chaos_trace(torch, card, "cnn", cnn_engine(False), cnn_requests,
+                len, "images")
+    return launches
+
+
+def chaos_trace(torch, card, tag, eng, make_requests, count, unit):
+    """Drain the same traffic through one warm engine four times, tracing
+    off, on, off, on; export the last traced drain under build/ (Chrome
+    trace-event JSON) and print its events, request lanes and span
+    balance, and each drain's rate."""
+    import collections
+    import threading
+    from repro_torch.obs import trace as obs_trace
+
+    def drain():
+        reqs = make_requests()
+        for r in reqs:
+            eng.submit(r)
+        t0 = time.perf_counter()
+        done = eng.run_until_drained()
+        wall = time.perf_counter() - t0
+        check(len(done) == len(reqs) and {r.status for r in done} == {"ok"},
+              f"chaos trace {tag}: statuses {({r.status for r in done})}")
+        return count(done) / wall
+    drain()                             # the captures
+    path = ROOT / "build" / f"chaos_trace_{tag}.json"
+    rates = {False: [], True: []}
+    for on in (False, True, False, True):
+        obs_trace.clear()
+        if on:
+            obs_trace.enable()
+        try:
+            rates[on].append(drain())
+            if on:
+                obs_trace.export(str(path))
+        finally:
+            obs_trace.disable()
+            obs_trace.clear()
+    data = json.loads(path.read_text())
+    events = data["traceEvents"]
+    me = threading.get_ident()
+    lanes = {e["tid"] for e in events if e["tid"] != me}
+    balance = collections.Counter()
+    for e in events:
+        balance[(e["tid"], e["name"])] += {"B": 1, "E": -1}[e["ph"]]
+    unbalanced = {k: v for k, v in balance.items() if v}
+    check(events and not unbalanced,
+          f"chaos trace {tag}: unbalanced spans {unbalanced}")
+    check(len(lanes) == len(make_requests()),
+          f"chaos trace {tag}: {len(lanes)} request lanes")
+    off, on = (statistics.mean(rates[k]) for k in (False, True))
+    print(f"[chaos] {tag} traced drain: {len(events)} events, {len(lanes)} "
+          f"request lanes, every span balanced, exported to "
+          f"{path.relative_to(ROOT)} ({path.stat().st_size} bytes); "
+          f"{unit}/s tracing off / on / off / on: "
+          + " / ".join(f"{r:.1f}" for r in
+                       (rates[False][0], rates[True][0], rates[False][1],
+                        rates[True][1]))
+          + f" (on / off {on / off:.4f}); {card}")
 
 
 # ---------------------------------------------------------------- phase 7 --
@@ -4825,14 +5136,19 @@ def main() -> int:
         with phase_clock("8 tune"):
             add(phase_tune(torch, K, card, {name: plans[name]
                                             for name in TUNED_PLANS}))
+        chaos_plan = plans["dws"][0]    # served again in the chaos phase
         del plans
         with phase_clock("9 cnn-flow"):
             add(phase_cnn_flow(torch, K, card))
     with phase_clock("check configs"):
         phase_check_configs(torch, card, resolved)
     with phase_clock("6 lm"):
-        lm_launches, lm_prompts = phase_lm(torch, K, card, rng)
+        lm_launches, lm_prompts, lm_params = phase_lm(torch, K, card, rng)
         add(lm_launches)
+    with phase_clock("chaos"):
+        add(phase_chaos(torch, K, card, lm_params, lm_prompts, chaos_plan))
+    del lm_params, chaos_plan
+    gc.collect()
     torch.cuda.empty_cache()    # phase 6's model is gone; 7.27 B params next
     with phase_clock("7 ssm"):
         add(phase_ssm(torch, K, card, rng))

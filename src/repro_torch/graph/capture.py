@@ -18,6 +18,12 @@ the change they make to each kernel wrapper's ``launches`` is taken back
 out and kept as :attr:`CapturedFn.launches`, the launches one replay
 makes; :meth:`CapturedFn.replay` adds it back. Each capture counts into the
 process metrics as ``graph.compiles`` and ``graph.compiles.<key>``.
+
+A raise inside ``fn`` (an injected ``kernels.dispatch`` fault, in the
+eager pass or while capturing) propagates: ``torch.cuda.graph`` ends the
+capture on the way out, so no stream is left capturing, the launch counts
+are restored, nothing is counted as a compile and the caller caches no
+graph; its retry captures afresh.
 """
 from __future__ import annotations
 
@@ -83,9 +89,13 @@ def capture(fn: Callable, inputs: tuple, *, key: str,
         cur = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            eager = fn(*inputs)
-        cur.wait_stream(side)
+        try:
+            with torch.cuda.stream(side):
+                eager = fn(*inputs)
+        finally:
+            # after a raise too: a retry must not race what this pass
+            # launched before it failed
+            cur.wait_stream(side)
         for t in leaves(eager):
             if isinstance(t, torch.Tensor):
                 t.record_stream(cur)

@@ -10,7 +10,13 @@ versions. The tensor's device decides what runs:
   ``chip_smoke.py`` compare the two this way).
 
 There is no fallback from a kernel to its plain version: a kernel that
-fails to build or launch raises. Every mode is ported: int8 codes with
+fails to build or launch raises. Every ``"cuda"`` call passes the
+``kernels.dispatch`` fault seam (``repro_torch.faults``) after its
+argument checks and before the tensor's device picks what runs, so host
+tests hit it too; ``"torch"`` never does, and a captured graph hits it
+while it is captured, not on replay. An injected raise there propagates
+to the caller, as a kernel failure would (the JAX package's Pallas guard
+retries and degrades to XLA instead). Every mode is ported: int8 codes with
 ``requant_shift``; W4A8, where a call with ``w_shifts`` takes
 nibble-packed weights (``core.quantize.QTensorW4``'s ``q`` and
 ``shifts``) and needs ``requant_shift``; and float32 / bfloat16, where
@@ -44,6 +50,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.faults import inject as _faults
 from repro_torch.obs import metrics as _obs_metrics
 from repro_torch.roofline import count as _roofline
 
@@ -86,6 +93,15 @@ def force_method(method: str):
 
 def _count_dispatch(kernel: str, method: str):
     _obs_metrics.counter(f"kernels.dispatch.{kernel}.{method}").inc()
+
+
+def _launch(kernel_fn, *args, **kwargs):
+    """The ``"cuda"`` branch of an entry point, after its argument checks:
+    the ``kernels.dispatch`` fault seam, then the kernel wrapper (which
+    runs its plain version on host tensors and launches the kernel on a
+    card). An injected raise propagates: nothing falls back."""
+    _faults.check("kernels.dispatch")
+    return kernel_fn(*args, **kwargs)
 
 
 def _counted(entry: str):
@@ -155,17 +171,17 @@ def conv2d(x, w, bias=None, *, groups: int = 1, method: str = "cuda",
         if method == "torch":
             return ref.conv2d_w4_ref(x, w, w_shifts, bias, groups=groups,
                                      requant_shift=requant_shift, act=act)
-        return conv2d_w4(x, w, w_shifts, bias, groups=groups,
-                         requant_shift=requant_shift, act=act, **cfg)
+        return _launch(conv2d_w4, x, w, w_shifts, bias, groups=groups,
+                       requant_shift=requant_shift, act=act, **cfg)
     if requant_shift is None:
         if method == "torch":
             return ref.conv2d_ref(x, w, bias, groups=groups, act=act)
-        return conv2d_f(x, w, bias, groups=groups, act=act, **cfg)
+        return _launch(conv2d_f, x, w, bias, groups=groups, act=act, **cfg)
     if method == "torch":
         return ref.conv2d_q8_ref(x, w, bias, groups=groups,
                                  requant_shift=requant_shift, act=act)
-    return conv2d_q8(x, w, bias, groups=groups, requant_shift=requant_shift,
-                     act=act, **cfg)
+    return _launch(conv2d_q8, x, w, bias, groups=groups,
+                   requant_shift=requant_shift, act=act, **cfg)
 
 
 @_counted("depthwise2d")
@@ -187,17 +203,17 @@ def depthwise2d(x, w_dw, *, method: str = "cuda",
             return ref.depthwise2d_w4_ref(x, w_dw, w_shifts,
                                           requant_shift=requant_shift,
                                           act=act)
-        return depthwise2d_w4(x, w_dw, w_shifts, requant_shift=requant_shift,
-                              act=act, **cfg)
+        return _launch(depthwise2d_w4, x, w_dw, w_shifts,
+                       requant_shift=requant_shift, act=act, **cfg)
     if requant_shift is None:
         if method == "torch":
             return ref.depthwise2d_ref(x, w_dw, act=act)
-        return depthwise2d_f(x, w_dw, act=act, **cfg)
+        return _launch(depthwise2d_f, x, w_dw, act=act, **cfg)
     if method == "torch":
         return ref.depthwise2d_q8_ref(x, w_dw, requant_shift=requant_shift,
                                       act=act)
-    return depthwise2d_q8(x, w_dw, requant_shift=requant_shift, act=act,
-                          **cfg)
+    return _launch(depthwise2d_q8, x, w_dw, requant_shift=requant_shift,
+                   act=act, **cfg)
 
 
 @_counted("shift_conv2d")
@@ -223,7 +239,8 @@ def shift_conv2d(x, shifts, w_pw, bias=None, *, method: str = "cuda",
         if method == "torch":
             return ref.shift_conv2d_w4_ref(x, shifts, w_pw, w_shifts, bias,
                                            **kw)
-        return shift_conv2d_w4(x, shifts, w_pw, w_shifts, bias, **kw, **cfg)
+        return _launch(shift_conv2d_w4, x, shifts, w_pw, w_shifts, bias,
+                       **kw, **cfg)
     if requant_shift is None:
         if bias is not None:
             raise ValueError("shift_conv2d: bias without requant_shift is "
@@ -231,11 +248,11 @@ def shift_conv2d(x, shifts, w_pw, bias=None, *, method: str = "cuda",
         if method == "torch":
             return ref.shift_conv2d_ref(x, shifts, w_pw, max_shift=max_shift,
                                         act=act)
-        return shift_conv2d_f(x, shifts, w_pw, max_shift=max_shift, act=act,
-                              **cfg)
+        return _launch(shift_conv2d_f, x, shifts, w_pw,
+                       max_shift=max_shift, act=act, **cfg)
     if method == "torch":
         return ref.shift_conv2d_q8_ref(x, shifts, w_pw, bias, **kw)
-    return shift_conv2d_q8(x, shifts, w_pw, bias, **kw, **cfg)
+    return _launch(shift_conv2d_q8, x, shifts, w_pw, bias, **kw, **cfg)
 
 
 @_counted("add_conv2d")
@@ -259,7 +276,7 @@ def add_conv2d(x, w, bias=None, *, method: str = "cuda",
         _check_w4("add_conv2d", x, requant_shift)
         if method == "torch":
             return ref.add_conv2d_w4_ref(x, w, w_shifts, bias, **kw)
-        return add_conv2d_w4(x, w, w_shifts, bias, **kw, **cfg)
+        return _launch(add_conv2d_w4, x, w, w_shifts, bias, **kw, **cfg)
     if requant_shift is None:
         if bias is not None or x_preshift or w_preshift:
             raise ValueError("add_conv2d: bias/preshifts without "
@@ -267,10 +284,10 @@ def add_conv2d(x, w, bias=None, *, method: str = "cuda",
                              "quantized path")
         if method == "torch":
             return ref.add_conv2d_ref(x, w, act=act)
-        return add_conv2d_f(x, w, act=act, **cfg)
+        return _launch(add_conv2d_f, x, w, act=act, **cfg)
     if method == "torch":
         return ref.add_conv2d_q8_ref(x, w, bias, **kw)
-    return add_conv2d_q8(x, w, bias, **kw, **cfg)
+    return _launch(add_conv2d_q8, x, w, bias, **kw, **cfg)
 
 
 @_counted("maxpool2d")
@@ -285,8 +302,8 @@ def maxpool2d(x, *, window: int = 2, stride: Optional[int] = None,
     if method == "torch":
         return ref.maxpool2d_ref(x, window=window, stride=stride)
     if x.dtype.is_floating_point:
-        return maxpool2d_f(x, window=window, stride=stride, **cfg)
-    return maxpool2d_s8(x, window=window, stride=stride, **cfg)
+        return _launch(maxpool2d_f, x, window=window, stride=stride, **cfg)
+    return _launch(maxpool2d_s8, x, window=window, stride=stride, **cfg)
 
 
 @_counted("matmul")
@@ -317,15 +334,16 @@ def _matmul(a, b, method, requant_shift, act, w_shifts, config):
         if method == "torch":
             return ref.matmul_w4_ref(a, b, w_shifts,
                                      requant_shift=requant_shift, act=act)
-        return matmul_w4(a, b, w_shifts, requant_shift=requant_shift,
-                         act=act, **cfg)
+        return _launch(matmul_w4, a, b, w_shifts,
+                       requant_shift=requant_shift, act=act, **cfg)
     if requant_shift is None:
         if method == "torch":
             return ref.matmul_ref(a, b, act=act)
-        return matmul_f(a, b, act=act, **cfg)
+        return _launch(matmul_f, a, b, act=act, **cfg)
     if method == "torch":
         return ref.matmul_ref(a, b, requant_shift=requant_shift, act=act)
-    return matmul_q8(a, b, requant_shift=requant_shift, act=act, **cfg)
+    return _launch(matmul_q8, a, b, requant_shift=requant_shift, act=act,
+                   **cfg)
 
 
 def _c1d(x, w, method, cfg):
@@ -381,4 +399,6 @@ def causal_conv1d(x, w, *, method: str = "cuda",
     b, l, d = x.shape
     cfg = _launch_config("causal_conv1d", method, config,
                          "sig_causal_conv1d", (b, l, d, w.shape[0]), x)
+    if method == "cuda":
+        _faults.check("kernels.dispatch")
     return _CausalConv1d.apply(x, w, method, cfg)

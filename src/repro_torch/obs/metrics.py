@@ -1,8 +1,10 @@
-"""Metrics registry: counters and fixed-bucket histograms.
+"""Metrics registry: counters, gauges, fixed-bucket histograms.
 
 The port's own copy of the JAX package's stdlib-only ``repro/obs/metrics.py``
-(the port imports nothing of that package), cut to what the port uses. A
-:class:`Registry` is a thread-safe, name-keyed collection of instruments.
+(the port imports nothing of that package). A :class:`Registry` is a
+thread-safe, name-keyed collection of instruments with
+``snapshot()``/``to_json()`` for machine-readable export (the same dict and
+the same JSON string as the JAX package's for the same observations).
 :data:`REGISTRY` is the process-wide default that the kernel dispatch layer
 and the fault seams count into; each ``CNNEngine`` and LM ``Engine`` owns a
 private ``Registry`` so its ``stats`` stay isolated across engine instances
@@ -17,8 +19,9 @@ bucket-resolution approximations.
 from __future__ import annotations
 
 import bisect
+import json
 import threading
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 # 1-2-5 per decade, 1µs .. 50s: latency-shaped default for seconds values.
 DEFAULT_BUCKETS: Tuple[float, ...] = tuple(
@@ -49,6 +52,9 @@ class Counter:
         with self._lock:
             self._v = 0.0
 
+    def snapshot(self) -> dict:
+        return {"type": "counter", "value": self._v}
+
 
 class Gauge:
     """Last-write-wins value (e.g. the LM engine's block-pool gauges)."""
@@ -70,6 +76,9 @@ class Gauge:
     def reset(self):
         with self._lock:
             self._v = 0.0
+
+    def snapshot(self) -> dict:
+        return {"type": "gauge", "value": self._v}
 
 
 class Histogram:
@@ -111,8 +120,24 @@ class Histogram:
                 self._max = v
 
     @property
+    def count(self) -> int:
+        return self._count
+
+    @property
+    def sum(self) -> float:
+        return self._sum
+
+    @property
     def mean(self) -> float:
         return self._sum / self._count if self._count else 0.0
+
+    @property
+    def min(self) -> float:
+        return self._min if self._count else 0.0
+
+    @property
+    def max(self) -> float:
+        return self._max if self._count else 0.0
 
     def percentile(self, p: float) -> float:
         """p in [0, 100] -> interpolated value at that rank."""
@@ -146,6 +171,16 @@ class Histogram:
             self._min = float("inf")
             self._max = float("-inf")
 
+    def snapshot(self) -> dict:
+        with self._lock:
+            count, s = self._count, self._sum
+        return {"type": "histogram", "count": count, "sum": s,
+                "mean": s / count if count else 0.0,
+                "min": self.min, "max": self.max,
+                "p50": self.percentile(50.0),
+                "p95": self.percentile(95.0),
+                "p99": self.percentile(99.0)}
+
 
 class Registry:
     """Name-keyed get-or-create store of metric instruments."""
@@ -176,6 +211,10 @@ class Registry:
                   buckets: Optional[Sequence[float]] = None) -> Histogram:
         return self._get_or_create(name, Histogram, buckets)
 
+    def names(self) -> List[str]:
+        with self._lock:
+            return sorted(self._metrics)
+
     def reset(self):
         """Zero every instrument IN PLACE (handles stay valid — the serve
         engines hold references across ``reset_stats`` calls)."""
@@ -184,10 +223,35 @@ class Registry:
         for m in metrics:
             m.reset()
 
+    def snapshot(self) -> Dict[str, dict]:
+        with self._lock:
+            metrics = sorted(self._metrics.items())
+        return {name: m.snapshot() for name, m in metrics}
 
-# Process-wide default registry (kernel dispatch, fault seams).
+    def to_json(self, indent: Optional[int] = None) -> str:
+        return json.dumps(self.snapshot(), indent=indent, sort_keys=True)
+
+
+# Process-wide default registry (kernel dispatch, fault seams, captures).
 REGISTRY = Registry()
 
 
 def counter(name: str) -> Counter:
     return REGISTRY.counter(name)
+
+
+def gauge(name: str) -> Gauge:
+    return REGISTRY.gauge(name)
+
+
+def histogram(name: str,
+              buckets: Optional[Sequence[float]] = None) -> Histogram:
+    return REGISTRY.histogram(name, buckets)
+
+
+def snapshot() -> Dict[str, dict]:
+    return REGISTRY.snapshot()
+
+
+def to_json(indent: Optional[int] = None) -> str:
+    return REGISTRY.to_json(indent)

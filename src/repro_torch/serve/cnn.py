@@ -10,14 +10,19 @@ Observability: ``CNNEngine.stats`` is backed by a private metrics registry
 (``repro_torch.obs``; the same keys as the JAX engine), the round timer
 stops only after ``torch.cuda.synchronize(device)`` so ``images_per_s``
 measures device time, request timestamps are monotonic ``perf_counter``
-values, and with ``REPRO_TRACE=1`` each round lands on the process tracer
-as a ``cnn.batch_round`` span.
+values (with one wall-clock field for trace export), and with
+``REPRO_TRACE=1`` each round lands on the process tracer as a
+``cnn.batch_round`` span and each served request's lifecycle
+(``image_request`` over ``queue_wait`` and ``execute``) on a lane of its
+own.
 
 Failure model: every request ends in a terminal ``status`` (ok | timeout |
 error | shed). The ``cnn.batch_round`` fault seam (``repro_torch.faults``)
-fires once per round attempt; an injected raise is absorbed by
-``max_retries`` bounded retries, and a round that still fails retires its
-batch with ``status="error"``. A real exception from the plan (a kernel
+fires once per round attempt; an injected raise there, or at the
+``kernels.dispatch`` seam inside the plan's forward (a ``"cuda"`` plan:
+per kernel call, or per capture when the plan is captured), is absorbed
+by ``max_retries`` bounded retries, and a round that still fails retires
+its batch with ``status="error"``. A real exception from the plan (a kernel
 that fails to build or launch) is not retried: the round retires at once.
 Unlike the JAX engine, a failing plan is never switched to the plain
 PyTorch versions, so a broken kernel shows as errors, not as a slower
@@ -55,8 +60,9 @@ class ImageRequest:
     error: Optional[str] = None     # the absorbed exception, status="error"
     deadline_s: Optional[float] = None  # overrides CNNServeConfig.deadline_s
     # engine-filled metrics — monotonic perf_counter stamps (negative-proof
-    # intervals)
+    # intervals); submit_wall_t is the wall-clock field for trace export
     submit_t: float = 0.0
+    submit_wall_t: float = 0.0
     admit_t: float = 0.0            # perf_counter when its round started
     finish_t: float = 0.0
     batch_round: int = -1           # round the request was served in
@@ -152,11 +158,20 @@ class CNNEngine:
     def _observe_served(self, req: ImageRequest):
         self._m["latency"].observe(req.latency_s)
         self._m["queue_wait"].observe(req.queue_wait_s)
+        tr = obs_trace.TRACER
+        if tr.enabled:
+            lane = obs_trace.next_lane()
+            tr.begin("image_request", ts=req.submit_t, tid=lane, uid=req.uid,
+                     round=req.batch_round, submit_wall_t=req.submit_wall_t)
+            tr.complete("queue_wait", req.submit_t, req.admit_t, tid=lane)
+            tr.complete("execute", req.admit_t, req.finish_t, tid=lane)
+            tr.end("image_request", ts=req.finish_t, tid=lane)
 
     # ----------------------------------------------------------- frontend --
 
     def submit(self, req: ImageRequest):
         req.submit_t = time.perf_counter()
+        req.submit_wall_t = time.time()
         # load shedding at the door (single-threaded, so qsize is exact)
         mq = self.scfg.max_queue
         if mq is not None and self.queue.qsize() >= mq:
@@ -244,7 +259,10 @@ class CNNEngine:
                     got = attempt_round()
                     break
                 except faults.InjectedFault as e:
-                    last_err = e        # fired pre-dispatch: retry is safe
+                    # the round seam, or a kernels.dispatch fault inside
+                    # the forward (a failed capture caches no graph): the
+                    # round's inputs are untouched, so retry is safe
+                    last_err = e
                 except Exception as e:
                     last_err = e        # real plan failure: no retry, the
                     break               # round retires with "error"

@@ -83,8 +83,10 @@ measures device time, not the enqueue. With ``REPRO_TRACE=1`` each
 admission prefill and each decode round is an ``engine.prefill`` /
 ``engine.decode_round`` span on the process tracer, and the paged pool's
 events ``engine.prefix_lookup``, ``engine.block_alloc`` and
-``engine.block_free`` (``preempt=True`` for a preemption) are spans too
-(the JAX engine's per-request trace lanes are not ported).
+``engine.block_free`` (``preempt=True`` for a preemption) are spans too;
+each retired request's lifecycle is replayed onto a lane of its own
+(``obs.trace.next_lane``): ``request`` over ``queue_wait``, ``prefill``
+and ``generate``, from its recorded ``perf_counter`` stamps.
 
 Failure model: every request reaches exactly one terminal ``status`` —
 ``ok``, ``timeout`` (its ``deadline_s`` elapsed; cancelled at a round
@@ -96,8 +98,13 @@ at ``submit``; ``shed_policy="reject"`` raises :class:`QueueFullError`
 instead). The ``engine.prefill`` and ``engine.decode_round`` fault seams
 (``repro_torch.faults``) fire once per attempt, before any device work; an
 injected raise is retried, a real exception (a kernel that fails to build
-or launch) is not. ``blockpool.alloc`` fires in :meth:`BlockPool.alloc`;
-the engine takes it as a transient page shortage. A ``corrupt`` fault
+or launch) is not. The ``kernels.dispatch`` seam fires inside a prefill or
+a decode step (every ``"cuda"`` kernel call, or its capture); its raise is
+an injected fault too and retried the same way: a failed admission has
+written no cache row and given its pages back, and a failed decode round
+rewrites the same positions when it runs again. ``blockpool.alloc`` fires
+in :meth:`BlockPool.alloc`; the engine takes it as a transient page
+shortage. A ``corrupt`` fault
 poisons the sampled host logits; the affected uids are recorded in
 ``Engine.poisoned_uids``.
 
@@ -664,11 +671,25 @@ class Engine:
             pool.hits / pool.lookups if pool.lookups else 0.0)
 
     def _observe_retired(self, req: Request):
+        """Latency histograms + the request's trace-lane replay (the spans
+        are emitted at retirement from recorded perf_counter stamps, so
+        overlapping requests land on separate, properly nested lanes)."""
         self._m["queue_wait"].observe(req.queue_wait_s)
         n_out = len(req.out_tokens)
         if n_out > 1 and req.finish_t > req.first_token_t:
             self._m["tpot"].observe(
                 (req.finish_t - req.first_token_t) / (n_out - 1))
+        tr = obs_trace.TRACER
+        if tr.enabled:
+            lane = obs_trace.next_lane()
+            tr.begin("request", ts=req.submit_t, tid=lane, uid=req.uid,
+                     prompt_len=int(len(req.prompt)), new_tokens=n_out,
+                     submit_wall_t=req.submit_wall_t)
+            tr.complete("queue_wait", req.submit_t, req.admit_t, tid=lane)
+            tr.complete("prefill", req.admit_t, req.first_token_t, tid=lane)
+            tr.complete("generate", req.first_token_t, req.finish_t, tid=lane,
+                        tokens=n_out)
+            tr.end("request", ts=req.finish_t, tid=lane)
 
     # ----------------------------------------------------------- frontend --
 
@@ -950,7 +971,11 @@ class Engine:
                     else:
                         logits = admit_slot(i, req, plen)
                 except faults.InjectedFault as e:
-                    last_err = e        # fired pre-dispatch: retry is safe
+                    # the engine.prefill seam fires before any state
+                    # change; a kernels.dispatch fault inside the prefill
+                    # fires before the slot's cache row is written, and
+                    # admit_paged has given its pages back: retry is safe
+                    last_err = e
                     continue
                 except Exception as e:
                     last_err = e        # a real failure: do not retry

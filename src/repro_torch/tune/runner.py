@@ -510,7 +510,7 @@ def autotune(kernel: str, sig: ShapeSig, args: Tuple, *,
     for i, cfg in enumerate(_space.candidates(sig, dtype)):
         if max_candidates is not None and i >= max_candidates:
             break
-        with _obs_trace.span("tune.candidate", kernel=kernel,
+        with _obs_trace.span("tune.candidate", cat="tune", kernel=kernel,
                              shape=sig.key(), config=dict(cfg)) as sp:
             fn = lambda a=args, c=cfg: call(a, c, kw)     # noqa: E731
             us = (device_us(fn, reps=reps) if on_card

@@ -1881,3 +1881,37 @@ def test_captured_encdec_step_equals_eager(dev):
         assert torch.equal(a, b)
     assert torch.equal(_bits(out[True][1]), _bits(out[False][1]))
     assert torch.equal(_bits(out[True][2]), _bits(out[False][2]))
+
+
+def test_failed_capture_leaves_no_capture_and_recaptures(dev):
+    """On the card: a ``kernels.dispatch`` raise in a plan's first capture
+    (in its eager pass, then inside the graph capture) leaves no stream
+    capturing and no graph cached; the retry captures and its logits equal
+    a plan that was never faulted."""
+    from repro_torch.faults import inject
+    from repro_torch.graph import CompiledPlan, build_cnn_graph, lower
+    from repro_torch.models import CNNConfig, init_cnn
+    cfg = CNNConfig(primitive="dws", widths=(8, 12), image_size=16)
+    params = init_cnn(cfg, torch.Generator("cuda").manual_seed(0))
+    x = torch.from_numpy((np.random.default_rng(0).standard_normal(
+        (8, 16, 16, 3)) * 0.5).astype(np.float32))
+    plan = lower(build_cnn_graph(cfg), params, x.cuda())
+    want = CompiledPlan(plan, method="cuda").forward_batch(x)
+    calls = CompiledPlan(plan, method="cuda", jit=False)
+    with inject.FaultPlan([]) as counter:
+        calls.forward_batch(x)
+    per_forward = counter._hits["kernels.dispatch"]
+    for nth in (1, per_forward + 1):        # eager pass, then the capture
+        ex = CompiledPlan(plan, method="cuda")
+        with inject.FaultPlan([inject.FaultSpec(
+                site="kernels.dispatch", kind="raise", nth=nth)]) as fp:
+            with pytest.raises(inject.InjectedFault):
+                ex.forward_batch(x)
+            assert not torch.cuda.is_current_stream_capturing()
+            assert ex._graphs == {} and ex.traces == 0
+            got = ex.forward_batch(x)
+        assert len(fp.log) == 1 and ex.traces == 1
+        assert torch.equal(got, want)
+        hits = fp._hits["kernels.dispatch"]
+        ex.forward_batch(x)                 # a replay: no hit
+        assert fp._hits["kernels.dispatch"] == hits

@@ -48,6 +48,8 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.optim, repro_torch.data, repro_torch.checkpoint\n"
         "import repro_torch.train, repro_torch.check\n"
         "import repro_torch.check.astlint\n"
+        "import repro_torch.obs, repro_torch.faults\n"
+        "import repro_torch.faults.chaos\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"

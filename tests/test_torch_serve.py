@@ -2,7 +2,10 @@
 stats keys, deadlines, load shedding, an injected round fault absorbed by a
 retry, a corrupt fault contained to its round (the port's own
 ``repro_torch.faults``), a real plan failure retired as ``error`` without
-switching the plan to another method, and the round spans on the tracer."""
+switching the plan to another method, and the round spans and request
+lanes on the tracer."""
+import threading
+
 import numpy as np
 import pytest
 
@@ -168,6 +171,14 @@ def test_round_and_forward_spans_on_the_tracer(plan):
     finally:
         trace.disable()
         trace.clear()
+    # each served request's lifecycle is replayed on a lane of its own
+    me = threading.get_ident()
+    lanes = [e for e in events if e["tid"] != me]
+    events = [e for e in events if e["tid"] == me]
+    assert len({e["tid"] for e in lanes}) == 5
+    assert sorted(e["args"]["uid"] for e in lanes
+                  if e["name"] == "image_request" and e["ph"] == "B") == \
+        list(range(5))
     pairs = [(e["ph"], e["name"]) for e in events]
     assert pairs == [("B", "cnn.batch_round"), ("B", "plan.forward_batch"),
                      ("E", "plan.forward_batch"), ("E", "cnn.batch_round")] * 2
