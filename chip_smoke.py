@@ -162,19 +162,26 @@ check      — the static checks (repro_torch.check), after phase 3:
               one, in bucket 128), each paged with the prefix cache and
               contiguous, in "float" and in "int8" over the int8 KV
               cache: streams equal, hit rate above 0, the mixed traffic
-              with hits in both buckets (a hit shares only pages of a
-              prefill of its own bucket); the prefix exactness measured
-              (the prefix rows' K/V at buckets 64, 128 and 256,
-              prefill_suffix against the whole prompt), each run with its
-              miss's and hits' prefill latency;
+              with hits in both buckets and hits that cross buckets (the
+              first prefill of a bucket hitting pages a prefill of the
+              other bucket wrote: page digests are unsalted, and a paged
+              engine with the prefix cache prefills through
+              api.shared_prefill_fn, GEMMs in row blocks of one shape;
+              the contiguous engine it is held to takes the same prefill
+              function); the
+              prefix exactness measured (the prefix rows' K/V at buckets
+              64, 128 and 256, prefill_suffix against the whole prompt),
+              each run with its miss's and hits' prefill latency;
               (c) a tight pool (kv_num_blocks=41) in "float", streams
-              equal to the contiguous engine's, with at least one
+              equal to the contiguous engine's (with the shared-page
+              prefill, as in (b)), with at least one
               preemption (an engine.block_free span with preempt=True);
               (d) the static scheduler in "float", "int8" and
               "int8-torch" (one decode graph for batch 8), "float" and
               "int8" equal to jit=False on the first 8 requests and
-              "int8" to "int8-torch"; (e) attn_impl="flash_tri", its
-              agreement with "flash" printed. Then one decode step's
+              "int8" to "int8-torch"; (e) attn_impl="flash_tri" on the
+              contiguous engine, its agreement with "flash" printed. Then
+              one decode step's
               device breakdown (its count of device operations, kernels
               and memsets) captured and with jit=False for float, int8,
               w4a8, int8 over the int8 KV cache and float and int8 over
@@ -384,9 +391,42 @@ chaos      — the chaos harness (repro_torch.faults.chaos) at full size,
               same with every kernel call run as its plain version
               (``kernels.ops.force_method("torch")``).
 
+14. shard   — the sharded serve paths, after phase 13: a world of 2 ranks
+              as threads of this process on the one card
+              (``launch.world.run_world``, torch's threaded process group;
+              its backend, rank count and torch.cuda.device_count()
+              printed), a (1, 2) ("data", "model") mesh. (a) SP decode:
+              granite-3-2b at full size (40 layers, d_model 2048, 32 / 8
+              heads), seeded weights, 2 prompts of 512 tokens prefilled
+              outside the mesh into 4,096 positions, each rank holding
+              2,048 (cache_specs under spmd_rules(make_rules(...,
+              sp=True))), 32 greedy lockstep steps through
+              api.decode_fn(cfg, sp_axis="model") in float32 compute over
+              a float32 cache: tokens equal to the unsharded decode's,
+              logits within 1e-4, each rank's K/V half the whole cache's;
+              then 8 steps in the config's bf16, fed the unsharded
+              decode's tokens (SP rounds the softmax otherwise: a near
+              tie may part the greedy streams), logits within 0.2, token
+              agreement printed, and beside it the unsharded bf16 decode
+              against the unsharded float32 one on float32's tokens; step
+              ms of both. (b) EP MoE: granite-moe-1b-a400m at full
+              size with capacity_factor E / top_k = 4 (printed as a
+              change of the config), 16 experts a rank: layer 0's
+              moe_ffn_sharded on an (8, 64, 1024) input against
+              moe_ffn_local within atol 2^-5, rtol 2^-6 (its ms beside
+              the local path's), then 16 greedy decode steps of 8 slots
+              inside the mesh, every layer's FFN on the EP path: tokens
+              equal to the same decode outside the mesh. (c) a kernel
+              under the mesh: a 96-token Falcon-Mamba-7B prefill at full
+              width cut to 8 layers on each rank inside the mesh:
+              causal_conv1d launched 8 times a rank on the "cuda" route
+              (no kernels.fallback.causal_conv1d.mesh), logits and state
+              bitwise the prefill outside the mesh. The phase must end
+              within 60 s.
+
 The phases run in the order 1-3, check, 4, 5, 8, 9, the check of their
-configs, 6, chaos, 7, 10, 11, 12, 13; each one's wall time is printed as it
-ends ([time]). The second-to-last
+configs, 6, chaos, 7, 10, 11, 12, 13, 14; each one's wall time is printed
+as it ends ([time]). The second-to-last
 line is a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -2544,12 +2584,21 @@ class LMRunner:
         self.streams, self.engines, self.done = {}, {}, {}
 
     def run(self, tag, label, served, jit=True, warm=None, graphs=None,
-            trace=False, **scfg_kw):
+            trace=False, shared=False, **scfg_kw):
+        """Serve ``served`` on a new engine of ``scfg_kw``; ``shared``
+        gives a contiguous engine the prefill a paged engine with the
+        prefix cache takes (``api.shared_prefill_fn``), so that the two
+        differ in the layout and the sharing only."""
+        from repro_torch.models import api
         from repro_torch.serve import Engine, ServeConfig
         torch, dev, cfg = self.torch, self.dev, self.cfg
         t0 = time.perf_counter()
         eng = Engine(cfg, self.params, ServeConfig(
             max_batch=LM_BATCH, max_len=LM_MAX_LEN, **scfg_kw), jit=jit)
+        if shared:
+            eng.prefill = api.shared_prefill_fn(
+                cfg, LM_MAX_LEN, attn_impl=eng.scfg.attn_impl,
+                precision=eng.scfg.precision)
         sync(torch, dev)
         t_init = time.perf_counter() - t0
         got, done, wall, events = serve_lm(torch, self.K, eng, served,
@@ -2605,7 +2654,8 @@ def lm_paths(runner, prompts, n_eager):
     (``LM_MIXED_SHARED`` tokens, suffixes in two buckets), each paged and
     contiguous per ``LM_PREFIX``, streams equal, hit rate above 0, the
     mixed traffic with hits in both buckets; (c) the tight pool,
-    streams equal to the contiguous engine's with at least one preemption
+    streams equal to the contiguous engine's (with the shared-page
+    prefill, as in (b)) with at least one preemption
     (an ``engine.block_free`` span with ``preempt=True``); (d) the static
     scheduler per ``LM_STATIC``, captured equal to jit=False on the first
     ``n_eager`` requests and int8 to int8-torch; (e) ``attn_impl=
@@ -2635,16 +2685,18 @@ def lm_paths(runner, prompts, n_eager):
         for lo, hi in LM_MIXED_SUFFIX * (n_req // 2)]
     for traffic, served in (("prefix", chat), ("mixed prefix", mixed)):
         for prec, kv in LM_PREFIX:
-            prefix_run(runner, traffic, served, prec, kv)
+            prefix_run(runner, traffic, served, prec, kv,
+                       cross=traffic == "mixed prefix")
     prefix_exactness(runner, chat[0])
-    label = "float tight paged"
+    label, ref = "float tight paged", "float shared-prefill contiguous"
+    runner.run("paged", ref, prompts, shared=True)
     _, events = runner.run("paged", label, prompts, trace=True,
                            kv_layout="paged", kv_block_size=LM_BLOCK,
                            kv_num_blocks=LM_TIGHT_BLOCKS)
     preempts = sum(1 for e in events if e["name"] == "engine.block_free"
                    and e["ph"] == "B" and e.get("args", {}).get("preempt"))
     check(preempts > 0, f"paged {label}: no preemption in the run")
-    check(streams[label] == streams["float"],
+    check(streams[label] == streams[ref],
           f"paged {label}: token streams differ from the contiguous "
           "engine's")
     print(f"[paged] {label}: kv_num_blocks={LM_TIGHT_BLOCKS}, {preempts} "
@@ -2678,13 +2730,17 @@ def lm_paths(runner, prompts, n_eager):
           "of tokens equal to attn_impl='flash''s")
 
 
-def prefix_run(runner, traffic, served, prec, kv):
-    """Serve ``served`` contiguous and paged with the prefix cache: streams
+def prefix_run(runner, traffic, served, prec, kv, cross=False):
+    """Serve ``served`` contiguous (with the paged engine's prefill,
+    ``api.shared_prefill_fn``) and paged with the prefix cache: streams
     equal, hit rate above 0, and a hit in every prefill bucket the
-    prompts fall in (the ``engine.prefill`` spans' ``prefix_hit``)."""
+    prompts fall in (the ``engine.prefill`` spans' ``prefix_hit``); with
+    ``cross``, a hit across buckets: the first prefill of some bucket
+    hits, so its pages came from a prefill of another bucket."""
     streams, n_req, new = runner.streams, len(served), runner.new_tokens
     ref = lm_label(prec, kv, traffic + " contiguous")
-    runner.run("paged", ref, served, precision=prec, kv_cache=kv)
+    runner.run("paged", ref, served, precision=prec, kv_cache=kv,
+               shared=True)
     label = lm_label(prec, kv, traffic + " paged")
     eng, events = runner.run("paged", label, served, precision=prec,
                              kv_cache=kv, kv_layout="paged",
@@ -2700,17 +2756,23 @@ def prefix_run(runner, traffic, served, prec, kv):
             hits.setdefault(a["bucket"], []).append(a["prefix_hit"] > 0)
     check(all(any(h) for h in hits.values()),
           f"paged {label}: a prefill bucket has no hit ({hits})")
+    crossed = sorted(b for b, h in hits.items() if h[0])
+    check(not cross or crossed,
+          f"paged {label}: no hit crosses buckets ({hits})")
     print(f"[paged] {label}: token streams equal to the contiguous "
           f"engine's on the same prompts ({n_req} x {new} tokens); hits "
           "share storage and recompute their prompt; hits / prefills by "
           "bucket " + ", ".join(f"{b}: {sum(h)} / {len(h)}"
                                 for b, h in sorted(hits.items()))
+          + f"; buckets whose first prefill hit pages of another bucket: "
+          f"{crossed}"
           + "; " + prefill_latency(runner.done[label], runner.done[ref]))
 
 
 def prefix_exactness(runner, prompt):
     """What a prefix hit's exactness rests on, measured on one prefix
-    prompt (float, the engine's prefill): the max |diff| of the prefix
+    prompt (float, the paged engine's prefill, ``api.shared_prefill_fn``,
+    and ``api.prefill_fn`` beside it): the max |diff| of the prefix
     rows' K/V between a prefill of the prefix alone at each bucket and of
     the whole prompt at its bucket, and of the logits and suffix K/V of
     ``prefill_suffix`` over the whole prompt's prefix K/V against the
@@ -2719,21 +2781,25 @@ def prefix_exactness(runner, prompt):
     from repro_torch.models import transformer as T
     torch, dev, cfg = runner.torch, runner.dev, runner.cfg
     params = T.cast_params(runner.params, cfg)
-    pre = api.prefill_fn(cfg, LM_MAX_LEN)
 
-    def prefill(toks, n, bucket):
+    def prefill(toks, n, bucket, make=api.shared_prefill_fn):
         t = torch.zeros((1, bucket), dtype=torch.long, device=dev)
         t[0, :n] = torch.from_numpy(toks[:n]).to(dev)
-        return pre(params, {"tokens": t, "prompt_lens": torch.tensor(
-            [n], dtype=torch.int32, device=dev)})
+        return make(cfg, LM_MAX_LEN)(params, {
+            "tokens": t, "prompt_lens": torch.tensor(
+                [n], dtype=torch.int32, device=dev)})
     plen, n = len(prompt), LM_SHARED
     full = 1 << (plen - 1).bit_length()
-    logits, cache = prefill(prompt, plen, full)
-    diffs = []
-    for b in (64, 128, 256):
-        _, c = prefill(prompt, n, b)
-        diffs.append(max((c[k][:, :, :n].float() - cache[k][:, :, :n]
-                          .float()).abs().max().item() for k in ("k", "v")))
+    diffs = {}
+    for make in (api.prefill_fn, api.shared_prefill_fn):
+        logits, cache = prefill(prompt, plen, full, make)
+        diffs[make.__name__] = " / ".join(str(max(
+            (c[k][:, :, :n].float() - cache[k][:, :, :n].float())
+            .abs().max().item() for k in ("k", "v")))
+            for c in (prefill(prompt, n, b, make)[1] for b in (64, 128, 256)))
+    check(diffs["shared_prefill_fn"] == "0.0 / 0.0 / 0.0",
+          f"paged prefix exactness: shared_prefill_fn's prefix rows differ "
+          f"across buckets ({diffs['shared_prefill_fn']})")
     s = plen - n
     sb = max(16, 1 << (s - 1).bit_length())
     t = torch.zeros((1, sb), dtype=torch.long, device=dev)
@@ -2747,7 +2813,8 @@ def prefix_exactness(runner, prompt):
     print(f"[paged] prefix exactness (float, one {plen}-token prompt, "
           f"{n}-token prefix): max |diff| of the prefix rows' K/V, prefix "
           f"alone at bucket 64 / 128 / 256 against the whole prompt at "
-          f"{full}: {diffs[0]} / {diffs[1]} / {diffs[2]}; prefill_suffix "
+          f"{full}: shared_prefill_fn {diffs['shared_prefill_fn']}, "
+          f"prefill_fn {diffs['prefill_fn']}; prefill_suffix "
           f"({s} rows at bucket {sb}) against the whole prompt: logits "
           f"{(lg - logits).abs().max().item()}, suffix K {dk}")
 
@@ -5059,6 +5126,316 @@ def roof_step(torch, K, card, name, build) -> dict:
     return launched
 
 
+# ---------------------------------------------------------------- shard --
+
+#: phase 14: a world of SHARD_RANKS threads on the one card, one
+#: ("data", "model") mesh of (1, SHARD_RANKS)
+SHARD_RANKS = 2
+SHARD_MESH = ((1, SHARD_RANKS), ("data", "model"))
+#: (a) SP decode: granite-3-2b at full size, a batch of prompts prefilled
+#: outside the mesh into a cache of SHARD_SP_MAX positions, then greedy
+#: lockstep steps through api.decode_fn(cfg, sp_axis="model")
+SHARD_SP_ARCH, SHARD_SP_BATCH, SHARD_SP_PROMPT = "granite-3-2b", 2, 512
+SHARD_SP_MAX, SHARD_SP_STEPS = 4096, 32
+#: (a)'s (compute dtype, steps, logits bound against the unsharded
+#: decode): float32 over a float32 cache, greedy, tokens equal (the bound
+#: 20x the 5e-6 the card read); then the config's bfloat16, fed the
+#: unsharded decode's tokens (SP rounds the softmax otherwise, so a
+#: greedy stream may part on a near tie; the bound about 2x the 0.0884 and
+#: 0.0955 the card read over 8 and 32 steps). JAX's 5e-2
+#: (tests/test_sharded.py) is for 2 layers: at 40 the unsharded bfloat16
+#: decode itself is far from float32's on the same tokens, printed beside
+SHARD_SP_RUNS = (("float32", SHARD_SP_STEPS, 1e-4), ("bfloat16", 8, 0.2))
+#: (b) EP MoE: granite-moe-1b-a400m at full size with the capacity factor
+#: E / top_k (no pair drops, so EP and local route the same pairs): one
+#: layer's moe_ffn_sharded on a SHARD_EP_X input against moe_ffn_local
+#: (tests/test_torch_moe.py's bf16 tolerance), then greedy lockstep decode
+#: steps of the whole model inside the mesh against the same outside it
+SHARD_EP_ARCH, SHARD_EP_X = "granite-moe-1b-a400m", (8, 64, 1024)
+SHARD_EP_TOL = dict(atol=2 ** -5, rtol=2 ** -6)
+SHARD_EP_BATCH, SHARD_EP_PROMPT, SHARD_EP_STEPS = 8, 64, 16
+#: (c) a kernel under the mesh: Falcon-Mamba-7B at full width cut to
+#: SHARD_SSM_LAYERS layers, one prefill of SHARD_SSM_LEN tokens a rank
+SHARD_SSM_LAYERS, SHARD_SSM_LEN = 8, 96
+
+
+def phase_shard(torch, K, card) -> dict:
+    """Phase 14 (module docstring): the sharded serve paths on a world of
+    ``SHARD_RANKS`` threads of this process that share the one card
+    (``launch.world.run_world``: torch's threaded process group; every
+    thread issues to the device's default stream, which runs the work in
+    issue order, and a collective's copy is queued only once every rank
+    has joined it, so nothing races across threads). Returns the kernel
+    launches of case (c)."""
+    from repro_torch.launch.world import run_world
+    t0 = time.perf_counter()
+    world = run_world(lambda rank: (rank, torch.cuda.current_device()),
+                      SHARD_RANKS)
+    check(world.backend == "threaded" and world.ranks == SHARD_RANKS
+          and [r for r, _ in world.results] == list(range(SHARD_RANKS)),
+          f"shard: the world is {world}")
+    print(f"[shard] world: backend {world.backend}, {world.ranks} ranks as "
+          f"threads of one process on device "
+          f"{sorted({d for _, d in world.results})}, "
+          f"torch.cuda.device_count() {torch.cuda.device_count()}, mesh "
+          f"{SHARD_MESH[0]} {SHARD_MESH[1]}; {card}")
+    shard_sp(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    shard_ep(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = shard_kernel(torch, K, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    check(secs <= 60, f"shard: the phase took {secs:.1f} s, over 60 s")
+    return launches
+
+
+def _shard_mesh():
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh(*SHARD_MESH)
+
+
+def _greedy(torch, fn, params, tok, cache, steps, forced=None):
+    """(tokens (B, steps), logits of every step (B, steps, V), ms a step
+    by wall clock around synchronised ends) of ``steps`` greedy lockstep
+    decode steps from ``tok``; with ``forced`` (B, steps), step i + 1
+    takes ``forced[:, i]`` as its input, whatever step i chose."""
+    toks, logits = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        lg, cache = fn(params, tok, cache)
+        toks.append(lg[:, -1:].argmax(-1))
+        logits.append(lg[:, -1])
+        tok = toks[-1] if forced is None else forced[:, i:i + 1]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    return torch.cat(toks, 1), torch.stack(logits, 1), ms
+
+
+def shard_sp(torch, card):
+    """(a): SP decode against the unsharded decode on the card, in the
+    compute dtypes of ``SHARD_SP_RUNS``: float32 compute over a float32
+    cache, greedy, tokens equal; the config's bfloat16, the SP path fed
+    the unsharded path's tokens (its rounding differs from one softmax's,
+    so greedy streams may part on a near tie), token agreement printed;
+    logits within each run's bound. Beside the bfloat16 run, the
+    unsharded bfloat16 decode against the float32 one, both fed the
+    float32 run's tokens. Each rank's cache bytes half the whole cache's;
+    step ms of both."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.world import run_world
+    from repro_torch.models import api
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import sharding as S
+    base = get_config(SHARD_SP_ARCH)
+    params32, made = make_lm_params(torch, base, "cuda", "shard sp")
+    gen = np.random.default_rng([SEED, 14])
+    toks = torch.from_numpy(gen.integers(0, base.vocab, (
+        SHARD_SP_BATCH, SHARD_SP_PROMPT))).cuda()
+    f32 = None
+    for dtype, steps, tol in SHARD_SP_RUNS:
+        cfg = dataclasses.replace(base, compute_dtype=dtype)
+        params = T.cast_params(params32, cfg)
+        logits, cache = api.prefill_fn(cfg, SHARD_SP_MAX)(
+            params, {"tokens": toks})
+        if dtype == "float32":
+            cache = {k: v.float() if v.is_floating_point() else v
+                     for k, v in cache.items()}
+        tok = logits.argmax(-1)
+        ref_toks, ref_logits, ref_ms = _greedy(
+            torch, api.decode_fn(cfg), params, tok,
+            {k: v.clone() for k, v in cache.items()}, steps)
+        forced = None if dtype == "float32" else ref_toks
+        witness = ""
+        if f32 is None:
+            f32 = (tok, ref_toks, ref_logits)
+        else:           # the unsharded bf16 decode on float32's tokens
+            _, lg, _ = _greedy(torch, api.decode_fn(cfg), params, f32[0],
+                               {k: v.clone() for k, v in cache.items()},
+                               steps, f32[1][:, :steps])
+            witness = (f"; the unsharded {dtype} decode against the "
+                       f"unsharded float32 one on float32's tokens: logits "
+                       f"max |diff| "
+                       f"{float((lg - f32[2][:, :steps]).abs().max()):.6f}")
+        whole = sum(cache[k].numel() * cache[k].element_size() for k in "kv")
+
+        def rank_main(rank):
+            mesh = _shard_mesh()
+            rules = S.spmd_rules(S.prune_batch_axes(mesh, S.make_rules(
+                mesh, cfg, "decode", sp=True), SHARD_SP_BATCH))
+            with S.use_mesh(mesh), S.use_rules(rules):
+                local = {k: v.clone() for k, v in S.shard_tree(
+                    cache, api.cache_specs(cfg)).items()}
+                mine = sum(local[k].numel() * local[k].element_size()
+                           for k in "kv")
+                got = _greedy(torch, api.decode_fn(cfg, sp_axis="model"),
+                              params, tok, local, steps, forced)
+            return mine, got
+        world = run_world(rank_main, SHARD_RANKS)
+        for rank, (mine, (got_toks, got_logits, ms)) in enumerate(
+                world.results):
+            err = float((got_logits - ref_logits).abs().max())
+            agree = float((got_toks == ref_toks).float().mean())
+            check(mine * SHARD_RANKS == whole,
+                  f"shard sp rank {rank}: cache {mine} bytes of {whole}")
+            check(bool(torch.isfinite(got_logits).all()),
+                  f"shard sp {dtype} rank {rank}: logits not finite")
+            check((agree == 1.0 or forced is not None) and err <= tol,
+                  f"shard sp {dtype} rank {rank}: tokens {agree:.4f} "
+                  f"equal, logits {err} from the unsharded decode's "
+                  f"(bound {tol})")
+            print(f"[shard] (a) SP decode, {SHARD_SP_ARCH} full size "
+                  f"({made}), {dtype} compute, {cache['k'].dtype} cache: "
+                  f"{SHARD_SP_BATCH} x {SHARD_SP_PROMPT}-token prompts "
+                  f"prefilled outside the mesh into {SHARD_SP_MAX} "
+                  f"positions, {steps} lockstep steps "
+                  + ("greedy" if forced is None else
+                     "fed the unsharded decode's tokens")
+                  + f": rank {rank} holds positions "
+                  f"{rank * SHARD_SP_MAX // SHARD_RANKS}-"
+                  f"{(rank + 1) * SHARD_SP_MAX // SHARD_RANKS - 1}, K/V "
+                  f"{mine / 2 ** 20:.1f} MiB of {whole / 2 ** 20:.1f}; "
+                  f"tokens {agree:.4f} equal to the unsharded decode's, "
+                  f"logits max |diff| {err:.6f} (bound {tol}){witness}; "
+                  f"step {ms:.3f} ms sharded (eager, {SHARD_RANKS} "
+                  f"threads) against {ref_ms:.3f} ms unsharded (eager; "
+                  f"wall clock); {card}")
+        del params, cache, world
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def shard_ep(torch, card):
+    """(b): one layer's EP MoE against the local path, then greedy decode
+    steps of the whole model inside the mesh against outside it."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.world import run_world
+    from repro_torch.models import api
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import sharding as S
+    cfg = get_config(SHARD_EP_ARCH)
+    moe = dataclasses.replace(cfg.moe, capacity_factor=(
+        cfg.moe.num_experts / cfg.moe.top_k))
+    print(f"[shard] (b) config change: {SHARD_EP_ARCH} capacity_factor "
+          f"{cfg.moe.capacity_factor} -> {moe.capacity_factor} (E / top_k: "
+          "no (token, expert) pair drops, so EP and local route the same "
+          "pairs)")
+    cfg = dataclasses.replace(cfg, moe=moe)
+    params, made = make_lm_params(torch, cfg, "cuda", "shard ep")
+    params = T.cast_params(params, cfg)
+    cdt = T._cdt(cfg)
+    p0 = T._take(params["layers"]["moe"], 0)
+    gen = np.random.default_rng([SEED, 15])
+    x = torch.from_numpy(gen.standard_normal(SHARD_EP_X, np.float32)) \
+        .cuda().to(cdt)
+    local_fn = lambda: M.moe_ffn_local(x, p0, moe, cfg.act, cdt)  # noqa
+    want = local_fn()
+    local_ms = time_ms(torch, local_fn, reps=5, trials=3)
+    toks = torch.from_numpy(gen.integers(0, cfg.vocab, (
+        SHARD_EP_BATCH, SHARD_EP_PROMPT))).cuda()
+    max_len = SHARD_EP_PROMPT + SHARD_EP_STEPS
+    logits, cache = api.prefill_fn(cfg, max_len)(params, {"tokens": toks})
+    tok = logits.argmax(-1)
+    ref_toks, _, ref_ms = _greedy(torch, api.decode_fn(cfg), params, tok,
+                                  {k: v.clone() for k, v in cache.items()},
+                                  SHARD_EP_STEPS)
+
+    def rank_main(rank):
+        mesh = _shard_mesh()
+        rules = S.spmd_rules(S.prune_batch_axes(
+            mesh, S.make_rules(mesh, cfg, "decode"), SHARD_EP_BATCH))
+        with S.use_mesh(mesh), S.use_rules(rules):
+            fn = lambda: M.moe_ffn_sharded(x, p0, moe, cfg.act, cdt)  # noqa
+            y = fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+            ep_ms = (time.perf_counter() - t0) * 1e3 / 5
+            local = {k: v.clone() for k, v in S.shard_tree(
+                cache, api.cache_specs(cfg)).items()}
+            got = _greedy(torch, api.decode_fn(cfg), params, tok, local,
+                          SHARD_EP_STEPS)
+        return y, ep_ms, got
+    world = run_world(rank_main, SHARD_RANKS)
+    for rank, (y, ep_ms, (got_toks, _, ms)) in enumerate(world.results):
+        err = (y.float() - want.float()).abs()
+        ok = bool((err <= SHARD_EP_TOL["atol"] + SHARD_EP_TOL["rtol"]
+                   * want.float().abs()).all())
+        check(ok, f"shard ep rank {rank}: moe_ffn_sharded {float(err.max())}"
+              f" from moe_ffn_local, over {SHARD_EP_TOL}")
+        check(bool((got_toks == ref_toks).all()),
+              f"shard ep rank {rank}: decode tokens differ from the same "
+              "decode outside the mesh")
+        print(f"[shard] (b) EP MoE, {SHARD_EP_ARCH} full size ({made}; "
+              f"{moe.num_experts} experts, top-{moe.top_k}, "
+              f"{moe.num_experts // SHARD_RANKS} a rank): layer 0's "
+              f"moe_ffn_sharded on {SHARD_EP_X} bf16 against moe_ffn_local, "
+              f"max |diff| {float(err.max()):.6f} (within {SHARD_EP_TOL}), "
+              f"{ep_ms:.3f} ms a call on rank {rank} ({SHARD_RANKS} threads, "
+              f"wall clock) against {local_ms:.3f} ms local (CUDA events); "
+              f"{SHARD_EP_STEPS} greedy decode steps of {SHARD_EP_BATCH} "
+              f"slots inside the mesh, every layer's moe_ffn on the EP "
+              f"path: tokens equal to the decode outside the mesh; step "
+              f"{ms:.3f} ms against {ref_ms:.3f} ms (eager, wall clock); "
+              f"{card}")
+
+
+def shard_kernel(torch, K, card) -> dict:
+    """(c): a Falcon-Mamba prefill inside the mesh on every rank:
+    causal_conv1d on the "cuda" route, launched once a layer a rank by its
+    wrapper's count, no ``.mesh`` fallback counted, output bitwise the
+    prefill outside the mesh. Returns the launches of the ranks' run."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.world import run_world
+    from repro_torch.models import api
+    from repro_torch.models import transformer as T
+    from repro_torch.obs import metrics
+    from repro_torch.parallel import sharding as S
+    cfg = dataclasses.replace(get_config(SSM_ARCH), n_layers=SHARD_SSM_LAYERS)
+    params, made = make_lm_params(torch, cfg, "cuda", "shard ssm")
+    params = T.cast_params(params, cfg)
+    gen = np.random.default_rng([SEED, 16])
+    batch = {"tokens": torch.from_numpy(gen.integers(
+        0, cfg.vocab, (1, SHARD_SSM_LEN))).cuda()}
+    pre = api.prefill_fn(cfg, SHARD_SSM_LEN)
+    want, wc = pre(params, batch)
+    names = ("kernels.dispatch.causal_conv1d.cuda",
+             "kernels.fallback.causal_conv1d.mesh")
+    before = [metrics.counter(n).value for n in names]
+    K.reset_launches()
+
+    def rank_main(rank):
+        with S.use_mesh(_shard_mesh()):
+            return pre(params, batch)
+    world = run_world(rank_main, SHARD_RANKS)
+    launches = {k.__name__: k.launches for k in K.KERNELS}
+    calls = [metrics.counter(n).value - b for n, b in zip(names, before)]
+    n = SHARD_SSM_LAYERS * SHARD_RANKS
+    check(launches["causal_conv1d"] == n and calls == [n, 0]
+          and sum(launches.values()) == n,
+          f"shard ssm: launches {launches}, dispatch/fallback {calls}, "
+          f"expected {n} causal_conv1d launches and no fallback")
+    for rank, (got, gc_) in enumerate(world.results):
+        check(torch.equal(got, want) and all(
+            torch.equal(gc_[k], wc[k]) for k in ("conv", "ssm")),
+            f"shard ssm rank {rank}: the prefill inside the mesh differs "
+            "from the one outside it")
+    print(f"[shard] (c) {SSM_ARCH} at {SHARD_SSM_LAYERS} layers ({made}), "
+          f"one {SHARD_SSM_LEN}-token prefill a rank inside the mesh: "
+          f"causal_conv1d launched {launches['causal_conv1d']} times "
+          f"({SHARD_SSM_LAYERS} a rank) on the \"cuda\" route, "
+          f"kernels.fallback.causal_conv1d.mesh {calls[1]:.0f}; logits and "
+          f"conv / ssm state bitwise the prefill outside the mesh; {card}")
+    return launches
+
+
 def _device_only_rows(torch, fn, calls):
     from repro_torch.tune.runner import device_kernels as per_call
     try:
@@ -5171,6 +5548,8 @@ def main() -> int:
     torch.cuda.empty_cache()    # phase 12's models are gone
     with phase_clock("13 launch"):
         add(phase_launch(torch, K, card))
+    with phase_clock("14 shard"):
+        add(phase_shard(torch, K, card))
     print(f"[time] the run so far {time.perf_counter() - t_start:.1f} s")
 
     rows = []
@@ -5208,8 +5587,9 @@ def main() -> int:
           f"train steps (phase 12: 3 causal_conv1d launches a layer a "
           f"step) and the counted roofline steps (phase 13: Qwen2-0.5B's "
           f"int8 decode step, 72 matmul_q8, and an {ROOF_SSM_LAYERS}-layer "
-          f"Falcon-Mamba prefill, {ROOF_SSM_LAYERS} causal_conv1d); "
-          f"card: {card}")
+          f"Falcon-Mamba prefill, {ROOF_SSM_LAYERS} causal_conv1d) and the "
+          f"shard phase's prefills (phase 14: {SHARD_SSM_LAYERS} "
+          f"causal_conv1d a rank on {SHARD_RANKS} ranks); card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

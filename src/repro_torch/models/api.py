@@ -142,6 +142,22 @@ def prefill_fn(cfg: ModelConfig, max_len: int, *, attn_impl="flash",
     model :func:`~repro_torch.models.encdec.encdec_prefill` of
     ``batch["frames"]`` and ``batch["tokens"]`` (``"float"`` only, as in
     JAX)."""
+    return _prefill_fn(cfg, max_len, attn_impl, precision, attn_block_k,
+                       T.prefill)
+
+
+def shared_prefill_fn(cfg: ModelConfig, max_len: int, *, attn_impl="flash",
+                      precision: str = "float", attn_block_k: int = 256):
+    """:func:`prefill_fn` through :func:`~repro_torch.models.transformer.
+    shared_prefill`, whose rows get the same bits under every prefill
+    bucket on a card: the prefill of a serving engine whose prefix cache
+    shares prompt pages."""
+    return _prefill_fn(cfg, max_len, attn_impl, precision, attn_block_k,
+                       T.shared_prefill)
+
+
+def _prefill_fn(cfg: ModelConfig, max_len: int, attn_impl, precision: str,
+                attn_block_k: int, prefill):
     T.check_family(cfg, "prefill_fn")
     T.check_precision(precision)
     if cfg.family == "encdec":
@@ -154,10 +170,10 @@ def prefill_fn(cfg: ModelConfig, max_len: int, *, attn_impl="flash",
     T.check_ssm_precision(cfg, precision, "prefill")
 
     def fn(params, batch):
-        return T.prefill(params, batch["tokens"], cfg, max_len,
-                         embeds=batch.get("embeds"), attn_impl=attn_impl,
-                         prompt_lens=batch.get("prompt_lens"),
-                         precision=precision, attn_block_k=attn_block_k)
+        return prefill(params, batch["tokens"], cfg, max_len,
+                       embeds=batch.get("embeds"), attn_impl=attn_impl,
+                       prompt_lens=batch.get("prompt_lens"),
+                       precision=precision, attn_block_k=attn_block_k)
     return fn
 
 
@@ -189,16 +205,19 @@ def _check_encdec_precision(precision: str):
         raise NotImplementedError("integer-FFN serve: encdec unsupported")
 
 
-def decode_fn(cfg: ModelConfig, *, precision: str = "float"):
+def decode_fn(cfg: ModelConfig, *, sp_axis=None, precision: str = "float"):
     """``fn(params, token, cache)``: one decode step of the model's
-    family."""
+    family; ``sp_axis`` its sequence-parallel decode over that mesh axis
+    (:func:`~repro_torch.models.transformer.decode_step`)."""
     T.check_family(cfg, "decode_fn")
     T.check_precision(precision)
     if cfg.family == "encdec":
         _check_encdec_precision(precision)
-        return functools.partial(E.encdec_decode_step, cfg=cfg)
+        return functools.partial(E.encdec_decode_step, cfg=cfg,
+                                 sp_axis=sp_axis)
     T.check_ssm_precision(cfg, precision, "decode")
-    return functools.partial(T.decode_step, cfg=cfg, precision=precision)
+    return functools.partial(T.decode_step, cfg=cfg, sp_axis=sp_axis,
+                             precision=precision)
 
 
 def slot_batch_axes(cfg: ModelConfig) -> dict:

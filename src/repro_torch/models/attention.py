@@ -3,8 +3,10 @@
 prefill) and one-token decode against a contiguous or a paged KV cache,
 float or int8.
 
-Port of ``repro/models/attention.py``; the sequence-parallel decode over
-a mesh waits for the port's sharding (ROADMAP.md, A8). Attention is
+Port of ``repro/models/attention.py``. The sequence-parallel decode of a
+mesh: each rank's flash statistics over its own positions of the cache
+(:func:`decode_attention_partial`), combined across the ranks of the SP
+axis (:func:`sp_combine`). Attention is
 not a TPU kernel in the JAX package, so it is plain PyTorch here. Layouts
 are the JAX package's: q (B,Sq,Hq,D), k and v (B,Sk,Hkv,D); the ``Hq``
 query heads split into ``Hkv`` groups of ``G = Hq / Hkv``. Scores and the
@@ -30,6 +32,8 @@ contiguous counterparts bitwise, provided ``bs`` divides ``max_len``.
 from __future__ import annotations
 
 import torch
+
+from repro_torch.parallel.sharding import pmax, psum
 
 NEG_INF = -1e30
 
@@ -180,6 +184,18 @@ def flash_attention_tri(q, k, v, *, block_k: int = 256, n_chunks: int = 8):
     return torch.cat(outs, dim=1)
 
 
+def prefix_chunk_attention(q, k, v, rows: int):
+    """Causal self-attention (Sq == Sk, a multiple of ``rows``) in query
+    chunks of ``rows``: chunk i attends its key prefix [0, (i + 1) * rows)
+    in one :func:`full_attention`, so every tensor of chunk i has a shape
+    set by i alone and a row gets the same bits whatever S is
+    (``transformer.shared_prefill``)."""
+    return torch.cat([full_attention(q[:, i:i + rows], k[:, :i + rows],
+                                     v[:, :i + rows], causal=True,
+                                     q_offset=i)
+                      for i in range(0, q.shape[1], rows)], dim=1)
+
+
 def attention(q, k, v, *, causal: bool, impl: str = "full", q_offset=0,
               block_k: int = 256):
     """``"flash_tri"`` takes the triangle schedule for causal
@@ -212,6 +228,37 @@ def decode_attention(q, k_cache, v_cache, cache_len):
     p = torch.softmax(sc, dim=-1).to(q.dtype)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v_cache.to(q.dtype))
     return o.reshape(b, 1, hq, d)
+
+
+def decode_attention_partial(q, k_shard, v_shard, valid_mask):
+    """Per-shard flash statistics for SP decode: ``(m, l, o)``, each row's
+    max score and sum of exp(score - m) over this shard's valid positions
+    (``valid_mask``, (S_loc,) bool) and its unnormalised output, all
+    float32, (B, Hkv, G, 1[, D]). A shard with no valid position has m =
+    ``NEG_INF``."""
+    n_kv = k_shard.shape[2]
+    d = q.shape[-1]
+    qg = _split_gqa(q, n_kv) * (d ** -0.5)
+    sc = _gqa_scores(qg, k_shard)                       # (B,Hkv,G,1,Sloc)
+    sc = torch.where(valid_mask[None, None, None, None], sc, NEG_INF)
+    m = sc.amax(dim=-1)
+    p = torch.exp(sc - m[..., None])
+    l = p.sum(dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bhgqd", p.to(q.dtype), v_shard.to(q.dtype))
+    return m, l, o.to(torch.float32)
+
+
+def sp_combine(m, l, o, axis_name: str):
+    """Combine per-shard ``(m, l, o)`` across the ranks of ``axis_name``:
+    the global max, each shard's sums rescaled by exp(m - m_glob) (0 for a
+    shard with no valid position: exp(NEG_INF - m_glob)), summed, and the
+    output normalised. The collectives carry O(heads * head_dim) a rank,
+    not O(S)."""
+    m_glob = pmax(m, axis_name)
+    corr = torch.exp(m - m_glob)
+    l_glob = psum(l * corr, axis_name)
+    o_glob = psum(o * corr[..., None], axis_name)
+    return o_glob / torch.clamp(l_glob, min=1e-30)[..., None]
 
 
 def quantize_kv(x):

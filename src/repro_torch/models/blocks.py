@@ -1,7 +1,7 @@
 """Shared LM blocks: RMSNorm, the float and the integer FFN, RoPE, and the
 training loss (:func:`cross_entropy`, :func:`chunked_softmax_ce`).
 
-Port of ``repro/models/blocks.py``, its sharding specs aside. The integer
+Port of ``repro/models/blocks.py``. The integer
 FFN (:func:`qmlp`) is the paper's Eq. 4 / Algorithm 1 applied to the LM's
 feed-forward matmuls, the largest weight volume of a decode step: weights
 are PTQ'd once (:func:`quantize_mlp_params`, at engine init), activations
@@ -18,6 +18,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.quantize import QTensorW4, quantize, quantize_w4
 from repro_torch.kernels import ops as K
+from repro_torch.parallel.sharding import constrain
 
 ACT_FRAC_BITS = 4      # activation scale 2^-4: post-rmsnorm streams are O(1)
 
@@ -35,16 +36,37 @@ def _act(x, act: str):
     return F.gelu(x, approximate="tanh")       # jax.nn.gelu's default
 
 
-def mlp(h, p, act: str, cdt):
-    """SwiGLU (3 mats) or GELU (2 mats) feed-forward."""
+def row_mm(x, w, rows=None):
+    """``x (..., k) @ w (k, n)``. With ``rows``, on a card, the rows of x
+    go through it in blocks of ``rows`` (the last one zero-padded), each
+    block its own GEMM of one shape: cuBLAS picks a GEMM's kernel, and so
+    the order of its sums, by the row count, so a row then gets the same
+    bits whatever the call's row count. On the host (whose GEMM rows do
+    not depend on the row count) and without ``rows``: ``x @ w``."""
+    if rows is None or not x.is_cuda:
+        return x @ w
+    k = x.shape[-1]
+    x2 = x.reshape(-1, k)
+    m = x2.shape[0]
+    x2 = F.pad(x2, (0, 0, 0, -m % rows))
+    out = x2.new_empty((x2.shape[0], w.shape[1]))
+    for i in range(0, x2.shape[0], rows):
+        torch.mm(x2[i:i + rows], w, out=out[i:i + rows])
+    return out[:m].reshape(x.shape[:-1] + (w.shape[1],))
+
+
+def mlp(h, p, act: str, cdt, rows=None):
+    """SwiGLU (3 mats) or GELU (2 mats) feed-forward; each matmul
+    :func:`row_mm` in blocks of ``rows`` rows."""
     h = h.to(cdt)
     if act == "silu":
-        g = h @ p["w_gate"].to(cdt)
-        u = h @ p["w_up"].to(cdt)
+        g = row_mm(h, p["w_gate"].to(cdt), rows)
+        u = row_mm(h, p["w_up"].to(cdt), rows)
         z = F.silu(g) * u
     else:
-        z = _act(h @ p["w_up"].to(cdt), act)
-    return z @ p["w_down"].to(cdt)
+        z = _act(row_mm(h, p["w_up"].to(cdt), rows), act)
+    z = constrain(z, "batch", "seq", "ffn")
+    return row_mm(z, p["w_down"].to(cdt), rows)
 
 
 def quantize_mlp_params(p, *, bits: int = 8, group_size: int = 32):
@@ -178,7 +200,8 @@ def cross_entropy(logits, labels, mask=None):
 def _ce_chunk(h_c, w, y_c):
     """One chunk's (nll sum, squared-lse sum) over its valid labels, the
     (B, chunk, V) float32 logits made and dropped inside."""
-    logits = h_c.to(torch.float32) @ w.to(torch.float32)
+    logits = constrain(h_c.to(torch.float32) @ w.to(torch.float32),
+                       "batch", None, "vocab")
     valid = y_c >= 0
     lab = torch.clamp(y_c, min=0).long()
     lse = torch.logsumexp(logits, dim=-1)

@@ -26,19 +26,25 @@ cache by address stays valid; it returns a new ``"len"``.
 
 Training: :func:`encdec_loss`, each encoder and decoder layer under the
 decoder-only stack's ``_remat`` and its stacks taken apart with
-``_unstack``. Not ported yet: ``encdec_param_specs`` (sharding,
-ROADMAP.md A8).
+``_unstack``.
+
+:func:`encdec_decode_step` with ``sp_axis`` decodes sequence-parallel
+inside a mesh, each rank holding its block of the cache under
+:func:`encdec_cache_specs` (``kv_seq`` of the self and the cross K/V): the
+self-attention as the decoder-only stack's, the cross-attention as its
+``_sp_decode`` over every encoder position.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, torch_dtype
+from repro_torch.parallel.sharding import axis_size, constrain, current_mesh
 
 from . import attention as A
 from .blocks import chunked_softmax_ce, init_mlp, mlp, mlp_specs, rmsnorm
-from .transformer import (_cdt, _kv, _q, _qkv, _remat, _take, _unstack,
-                          attn_decode, attn_specs, init_attn)
+from .transformer import (_cdt, _kv, _q, _qkv, _remat, _sp_decode, _take,
+                          _unstack, attn_decode, attn_specs, init_attn)
 
 
 def init_encdec(cfg: ModelConfig, generator: torch.Generator, *,
@@ -91,7 +97,7 @@ def encode(params, frames, cfg: ModelConfig, *, attn_impl="full",
     (B, S_enc, d_model) in the compute dtype; each layer under
     ``_remat(.., remat)`` (which changes nothing outside autograd)."""
     cdt = _cdt(cfg)
-    h = frames.to(cdt)
+    h = constrain(frames.to(cdt), "batch", None, None)
     b, s, _ = h.shape
     positions = torch.arange(s, device=h.device)[None, :]
 
@@ -202,27 +208,38 @@ def encdec_prefill(params, frames, tokens, cfg: ModelConfig, max_len: int,
     return _unembed(params, h[:, -1:]), cache
 
 
-def encdec_decode_step(params, token, cache, cfg: ModelConfig):
+def encdec_decode_step(params, token, cache, cfg: ModelConfig, *,
+                       sp_axis=None):
     """One token for every row of the batch. token: (B, 1) int. Returns
     ``(logits (B, 1, V) float32, cache)``: the new K/V written into
     ``k`` / ``v`` in place at position ``len``, cross-attention over the
-    whole ``xk`` / ``xv``, ``"len"`` a new tensor, advanced by one."""
+    whole ``xk`` / ``xv``, ``"len"`` a new tensor, advanced by one.
+    ``sp_axis``: sequence-parallel over that mesh axis (module
+    docstring); outside a mesh it changes nothing."""
     cdt = _cdt(cfg)
     h = params["embed"][token].to(cdt)
     b = token.shape[0]
     clen = cache["len"]
     cl = clen.expand(b)
     n_enc = cache["xk"].shape[2]
+    sp = sp_axis is not None and current_mesh() is not None \
+        and axis_size(sp_axis) > 1
     enc_len = torch.full((b,), n_enc, dtype=torch.int32, device=h.device)
     for l in range(cfg.n_layers):
         lp = _take(params["dec_layers"], l)
         x = rmsnorm(h, lp["ln1"], cfg.norm_eps)
         h = h + attn_decode(lp["attn"], x, cfg, cdt, cache["k"][l],
-                            cache["v"][l], cl, lockstep=True)
+                            cache["v"][l], cl, lockstep=True,
+                            sp_axis=sp_axis)
         xx = rmsnorm(h, lp["lnx"], cfg.norm_eps)
         qx = _q(lp["xattn"], xx, cfg, cdt, cl[:, None])
-        ox = A.decode_attention(qx, cache["xk"][l].to(cdt),
-                                cache["xv"][l].to(cdt), enc_len)
+        if sp:
+            ox = _sp_decode(qx, cache["xk"][l].to(cdt),
+                            cache["xv"][l].to(cdt), enc_len[0] * axis_size(
+                                sp_axis), sp_axis)
+        else:
+            ox = A.decode_attention(qx, cache["xk"][l].to(cdt),
+                                    cache["xv"][l].to(cdt), enc_len)
         h = h + ox.reshape(b, 1, -1) @ lp["xattn"]["wo"].to(cdt)
         h = h + mlp(rmsnorm(h, lp["ln2"], cfg.norm_eps), lp["mlp"], cfg.act,
                     cdt)

@@ -6,7 +6,10 @@ Port of ``repro/models/mamba.py`` and of the state-returning prefill
 JAX package's parameter names, layouts and scales. The conv1d stage runs
 ``kernels.ops.causal_conv1d``: ``conv_method="cuda"`` is the kernel (the
 JAX package's ``"auto"`` off a mesh, the Pallas kernel), ``"torch"`` its
-plain version (``"xla"``). A decode step computes its one conv window in
+plain version (``"xla"``). Under a mesh the kernel stays: JAX's ``"auto"``
+takes XLA there (and counts ``kernels.fallback.causal_conv1d.mesh``)
+because the partitioner would gather an opaque ``pallas_call``'s
+operands, which does not hold for the port's rank-local tensors. A decode step computes its one conv window in
 plain PyTorch, as JAX's does, and launches no kernel.
 
 The selective scan is plain PyTorch, as JAX's is plain ``jnp``: a
@@ -27,6 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import MambaConfig
 from repro_torch.kernels import ops as K
+from repro_torch.parallel.sharding import constrain
 
 
 def init_mamba(generator: torch.Generator, d: int, m: MambaConfig, dtype, *,
@@ -148,6 +152,7 @@ def _mixer(p, x, cdt, chunk, conv_method):
     xz = x @ p["in_proj"].to(cdt)
     # x_in is a view of xz's first D columns: the conv reads it in place
     x_in, z = xz.chunk(2, dim=-1)
+    x_in = constrain(x_in, "batch", None, "d_inner")
     x_c = K.causal_conv1d(x_in, p["conv_w"].to(cdt), method=conv_method)
     x_c = F.silu(x_c + p["conv_b"].to(cdt))
     dbc = x_c @ p["x_proj"].to(cdt)
@@ -156,7 +161,7 @@ def _mixer(p, x, cdt, chunk, conv_method):
     A = -torch.exp(p["A_log"].to(torch.float32))
     y, h_last = mamba_scan(x_c, dt, A, b_t, c_t, chunk=chunk)
     y = y + p["D"].to(cdt) * x_c
-    y = y * F.silu(z)
+    y = constrain(y * F.silu(z), "batch", None, "d_inner")
     return y @ p["out_proj"].to(cdt), x_in, h_last
 
 

@@ -1,6 +1,6 @@
-"""Mixture-of-Experts FFN with capacity dispatch: the local path.
+"""Mixture-of-Experts FFN with capacity dispatch, local and expert-parallel.
 
-Port of the local path of ``repro/models/moe.py``. Dispatch is GShard-style
+Port of ``repro/models/moe.py``. Dispatch is GShard-style
 capacity + dropping without a (tokens, E, C) one-hot: a token's position in
 its expert comes from a cumsum over a (tokens * top_k, E) one-hot in
 flattened (token, k) order, kept pairs scatter into a dense (E, C, d)
@@ -21,16 +21,29 @@ order, which in bf16 changes bits from run to run). The dispatch writes
 unique (expert, position) rows, and every dropped pair writes zeros to
 one spare row that is cut off before the experts run.
 
-``moe_ffn`` is the local path: the expert-parallel ``moe_ffn_sharded``
-(``shard_map`` over a mesh's model axis) waits for the port's sharding
-(ROADMAP.md, A8).
+Two execution paths, as in JAX. ``moe_ffn_local`` routes every token of
+the call together, with no collective. ``moe_ffn_sharded`` is JAX's
+``shard_map`` expert parallelism, run SPMD on the ranks of a mesh
+(``parallel.sharding``): each rank of the model axis routes its own slice
+of the (padded) tokens, ``all_to_all`` sends each expert's (C, d) block to
+the rank that holds that expert (E / model of them), the experts run, a
+second ``all_to_all`` brings the blocks back, and a tiled ``all_gather``
+gives every rank all tokens again. ``moe_ffn`` goes through
+``moe_ffn_sharded``, which takes the local path outside a mesh, on a model
+axis of size 1, when the experts do not split over it, or inside
+:class:`prefer_local`.
 """
 from __future__ import annotations
+
+import threading
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.parallel.sharding import (all_gather, all_to_all,
+                                           axis_index, axis_size,
+                                           current_mesh)
 
 from .blocks import _act, stacked_normal
 
@@ -128,13 +141,72 @@ def moe_ffn_local(x, p, moe: MoEConfig, act: str, cdt):
     return y.reshape(b, s, d)
 
 
-def moe_ffn(x, p, moe: MoEConfig, act: str, cdt):
-    """The MoE FFN of a layer: the local path (module docstring)."""
-    return moe_ffn_local(x, p, moe, act, cdt)
+#: this thread's :class:`prefer_local` depth
+_LOCAL = threading.local()
+
+
+class prefer_local:
+    """Inside the block :func:`moe_ffn_sharded` takes the local path (JAX's
+    switch for decode, whose one token a slot is too few for the token
+    split and the exchanges to pay off; JAX's models never enter it)."""
+    def __enter__(self):
+        _LOCAL.depth = getattr(_LOCAL, "depth", 0) + 1
+
+    def __exit__(self, *exc):
+        _LOCAL.depth -= 1
+
+
+def _expert_block(w, e: int, e_local: int, j: int):
+    """Rank ``j``'s ``e_local`` experts of a stacked expert leaf: a slice
+    of the whole stack (``e`` experts), or the leaf itself where it holds
+    that rank's experts only."""
+    if w.shape[0] == e:
+        return w[j * e_local:(j + 1) * e_local]
+    if w.shape[0] == e_local:
+        return w
+    raise ValueError(f"moe_ffn_sharded: an expert leaf of {w.shape[0]} "
+                     f"experts, expected {e} or this rank's {e_local}")
 
 
 def moe_ffn_sharded(x, p, moe: MoEConfig, act: str, cdt,
                     model_axis: str = "model"):
-    raise NotImplementedError(
-        "moe_ffn_sharded: expert parallelism over a mesh waits for the "
-        "port's sharding (ROADMAP.md, A8); moe_ffn runs the local path")
+    """JAX's expert-parallel path, rank-local. ``x`` (B, S, d) is this
+    rank's batch (its DP block, whole across ``model_axis``); the expert
+    leaves hold every expert or this rank's E / model. The steps: pad the
+    tokens to a multiple of the axis size (zero rows, routed like any
+    token, cut at the end), take this rank's slice, route it with the
+    capacity of a slice, ``all_to_all`` the (E, C, d) dispatch blocks to
+    the experts' ranks, run this rank's experts (cast to ``cdt``), send
+    the blocks back, combine, and ``all_gather`` every rank's tokens. The
+    local path under JAX's conditions (module docstring)."""
+    nm = axis_size(model_axis)
+    if current_mesh() is None or nm == 1 or moe.num_experts % nm \
+            or getattr(_LOCAL, "depth", 0):
+        return moe_ffn_local(x, p, moe, act, cdt)
+    e_local = moe.num_experts // nm
+    j = axis_index(model_axis)
+    b, s, d = x.shape
+    t2 = x.reshape(-1, d)
+    t = t2.shape[0]
+    t_pad = -(-t // nm) * nm
+    tloc = t_pad // nm
+    xj = F.pad(t2, (0, 0, 0, t_pad - t))[j * tloc:(j + 1) * tloc]
+    probs, ids = _route(xj, p["router"], moe.top_k)
+    cap = _capacity(tloc, moe)
+    pw = {k: _expert_block(v, moe.num_experts, e_local, j).to(cdt)
+          for k, v in p.items() if k != "router"}
+
+    def experts_a2a(blocks):                          # (E, C, d)
+        de = all_to_all(blocks, model_axis, 0, 1)     # (E/nm, nm*C, d)
+        h = _expert_ffn(de, pw, act, cdt)
+        return all_to_all(h, model_axis, 1, 0)        # (E, C, d)
+
+    yj = _dispatch_combine(xj, probs, ids, experts_a2a, moe.num_experts, cap)
+    y = all_gather(yj, model_axis, dim=0)             # (t_pad, d)
+    return y[:t].reshape(b, s, d)
+
+
+def moe_ffn(x, p, moe: MoEConfig, act: str, cdt):
+    """The MoE FFN of a layer, through :func:`moe_ffn_sharded` as in
+    JAX: the local path outside a mesh."""
+    return moe_ffn_sharded(x, p, moe, act, cdt)

@@ -67,6 +67,14 @@ zero tensor the size of the whole stack.
 The ssm and hybrid families run in ``"float"`` precision only, as in the
 JAX package; the serving engine keeps moe in ``"float"`` too (JAX's
 gate).
+
+Inside a mesh (``parallel.sharding``) every function computes on its
+rank's block of the data as it is; :func:`decode_step`'s ``sp_axis`` is
+JAX's sequence-parallel decode (:func:`attn_decode`, :func:`_sp_decode`)
+and a moe FFN is expert-parallel (``moe.moe_ffn_sharded``). On a card a
+dense or vlm :func:`shared_prefill` (the prefill of a serving engine whose
+prefix cache shares prompt pages) runs in row blocks of one GEMM shape, so
+a prompt's rows get the same bits in every prefill bucket.
 """
 from __future__ import annotations
 
@@ -77,10 +85,13 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.check.config import PRECISIONS
 from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.core.quantize import QTensor, QTensorW4
+from repro_torch.parallel.sharding import (active_rules, axis_index,
+                                           axis_size, constrain,
+                                           current_mesh)
 
 from . import attention as A
 from .blocks import (chunked_softmax_ce, init_mlp, mlp, mlp_specs, qmlp,
-                     rmsnorm, rope)
+                     rmsnorm, rope, row_mm)
 from .mamba import (init_mamba, mamba_decode_step, mamba_forward,
                     mamba_forward_with_state, mamba_init_state, mamba_specs)
 from .moe import init_moe, moe_ffn, moe_specs
@@ -90,6 +101,8 @@ FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
 #: the families whose cache is not the attention stack's (L, B, S, Hkv, D)
 #: K/V (JAX's gates: no paged or int8 KV cache, no integer FFN for them)
 NOT_DENSE_KV = ("ssm", "hybrid", "encdec")
+#: the row block of a dense or vlm :func:`shared_prefill` on a card
+PREFILL_ROWS = 128
 
 
 def _cdt(cfg: ModelConfig):
@@ -356,45 +369,61 @@ def _hybrid_layout(cfg: ModelConfig) -> list:
 
 # ==================================================================== layers
 
-def _q(lp, x, cfg: ModelConfig, cdt, positions):
-    """The queries of ``x`` (B, S, d), rotated at ``positions``."""
+def _q(lp, x, cfg: ModelConfig, cdt, positions, rows=None):
+    """The queries of ``x`` (B, S, d), rotated at ``positions`` (the
+    projection :func:`~repro_torch.models.blocks.row_mm` in blocks of
+    ``rows``)."""
     b, s, _ = x.shape
-    q = x @ lp["wq"].to(cdt)
+    q = row_mm(x, lp["wq"].to(cdt), rows)
     if cfg.qkv_bias:
         q = q + lp["bq"].to(cdt)
+    q = constrain(q, "batch", "seq", "heads")
     return rope(q.reshape(b, s, cfg.n_heads, cfg.head_dim), positions,
                 cfg.rope_theta)
 
 
-def _kv(lp, x, cfg: ModelConfig, cdt, positions):
+def _kv(lp, x, cfg: ModelConfig, cdt, positions, rows=None):
     """The keys (rotated at ``positions``) and values of ``x``."""
     b, s, _ = x.shape
-    k = x @ lp["wk"].to(cdt)
-    v = x @ lp["wv"].to(cdt)
+    k = row_mm(x, lp["wk"].to(cdt), rows)
+    v = row_mm(x, lp["wv"].to(cdt), rows)
     if cfg.qkv_bias:
         k = k + lp["bk"].to(cdt)
         v = v + lp["bv"].to(cdt)
+    k = constrain(k, "batch", "seq", "kv_heads")
+    v = constrain(v, "batch", "seq", "kv_heads")
     shape = (b, s, cfg.n_kv_heads, cfg.head_dim)
     return rope(k.reshape(shape), positions, cfg.rope_theta), v.reshape(shape)
 
 
-def _qkv(lp, x, cfg: ModelConfig, cdt, positions):
-    return (_q(lp, x, cfg, cdt, positions),
-            *_kv(lp, x, cfg, cdt, positions))
+def _qkv(lp, x, cfg: ModelConfig, cdt, positions, rows=None):
+    return (_q(lp, x, cfg, cdt, positions, rows),
+            *_kv(lp, x, cfg, cdt, positions, rows))
 
 
 def attn_forward(lp, x, cfg: ModelConfig, cdt, *, impl: str, q_offset=0,
-                 block_k: int = 256):
+                 block_k: int = 256, rows=None):
+    """Causal self-attention of ``x`` (B, S, d). With ``rows`` (which must
+    divide S) every GEMM has one shape whatever S is: the projections
+    :func:`~repro_torch.models.blocks.row_mm` in blocks of ``rows``, and
+    the attention :func:`~repro_torch.models.attention.
+    prefix_chunk_attention` in query chunks of ``rows`` (``impl`` and
+    ``block_k`` are then not used)."""
     b, s, _ = x.shape
     positions = q_offset + torch.arange(s, device=x.device)[None, :]
-    q, k, v = _qkv(lp, x, cfg, cdt, positions)
-    o = A.attention(q, k, v, causal=True, impl=impl, block_k=block_k)
-    out = o.reshape(b, s, cfg.n_heads * cfg.head_dim) @ lp["wo"].to(cdt)
-    return out, (k, v)
+    q, k, v = _qkv(lp, x, cfg, cdt, positions, rows)
+    if rows is None:
+        o = A.attention(q, k, v, causal=True, impl=impl, block_k=block_k)
+    else:
+        o = A.prefix_chunk_attention(q, k, v, rows)
+    o = constrain(o.reshape(b, s, cfg.n_heads * cfg.head_dim),
+                  "batch", "seq", "heads")
+    out = row_mm(o, lp["wo"].to(cdt), rows)
+    return constrain(out, "batch", "seq", None), (k, v)
 
 
 def attn_decode(lp, x, cfg: ModelConfig, cdt, k_cache, v_cache, cache_len,
-                kv_scales=None, lockstep: bool = False):
+                kv_scales=None, lockstep: bool = False, sp_axis=None):
     """One decode step against one layer's cache, (B,S,Hkv,D) each.
 
     ``cache_len`` is a (B,) vector: row i writes its new K/V at position
@@ -404,13 +433,35 @@ def attn_decode(lp, x, cfg: ModelConfig, cdt, k_cache, v_cache, cache_len,
     position instead, as JAX's clamped ``dynamic_update_slice`` does.
     ``kv_scales=(k_scale, v_scale)``, each (B,S,Hkv) float32, marks an
     int8 cache: the new K/V row is quantized on write at its own position
-    (its scale beside it) and the cache is dequantized on read."""
+    (its scale beside it) and the cache is dequantized on read.
+
+    ``sp_axis`` names the mesh axis of a sequence-parallel decode
+    (lockstep only, float caches only, as in JAX): each rank's caches hold
+    its S positions of the axis's S * size, the rank that owns position
+    ``cache_len`` writes the new K/V there, and the ranks combine their
+    attention (:func:`_sp_decode`). Outside a mesh, or on an axis of size
+    1, it changes nothing."""
+    if sp_axis is not None:
+        if kv_scales is not None:
+            raise NotImplementedError("int8 KV decode: sequence-parallel "
+                                      "path is float-only")
+        if not lockstep:
+            raise ValueError("attn_decode: the sequence-parallel path takes "
+                             "a scalar cache_len (lockstep decode)")
     b = x.shape[0]
     s = k_cache.shape[1]
     q, k, v = _qkv(lp, x, cfg, cdt, cache_len[:, None])
     rows = torch.arange(b, device=x.device)
     pos = torch.clamp(cache_len, max=s - 1)
     live = (cache_len < s)[:, None]
+    sp = sp_axis is not None and current_mesh() is not None \
+        and axis_size(sp_axis) > 1
+    if sp:          # the owner of the (clamped) global position writes
+        n = axis_size(sp_axis)
+        local = torch.clamp(cache_len, max=s * n - 1) - axis_index(sp_axis) * s
+        pos = torch.clamp(local, 0, s - 1)
+        live = ((local >= 0) & (local < s))[:, None]
+        lockstep = False
     writes = [(k_cache, k), (v_cache, v)]
     if kv_scales is not None:
         (kq, ks), (vq, vs) = A.quantize_kv(k), A.quantize_kv(v)
@@ -425,9 +476,34 @@ def attn_decode(lp, x, cfg: ModelConfig, cdt, k_cache, v_cache, cache_len,
     if kv_scales is not None:
         o = A.decode_attention_q8(q, k_cache, v_cache, *kv_scales,
                                   cache_len + 1)
+    elif sp:
+        o = _sp_decode(q, k_cache, v_cache, cache_len[0] + 1, sp_axis)
     else:
         o = A.decode_attention(q, k_cache, v_cache, cache_len + 1)
     return o.reshape(b, 1, cfg.n_heads * cfg.head_dim) @ lp["wo"].to(cdt)
+
+
+def _sp_decode(q, k_cache, v_cache, n_valid, axis: str):
+    """Sequence-parallel decode attention (JAX's ``_sp_decode``): this
+    rank's caches hold positions [i * S_loc, (i + 1) * S_loc) of the
+    sequence, i its index on ``axis``; the valid ones (global position
+    below the scalar ``n_valid``) give this shard's flash statistics,
+    which :func:`~repro_torch.models.attention.sp_combine` merges across
+    the axis. Outside a mesh, or on an axis of size 1, plain
+    :func:`~repro_torch.models.attention.decode_attention`."""
+    b = q.shape[0]
+    if current_mesh() is None or axis_size(axis) == 1:
+        return A.decode_attention(q, k_cache, v_cache, n_valid.expand(b))
+    kv_seq = active_rules().kv_seq
+    if axis not in ((kv_seq,) if isinstance(kv_seq, str) else kv_seq or ()):
+        raise ValueError(f"sequence-parallel decode over {axis!r}: the "
+                         f"active rules shard the cache's kv_seq over "
+                         f"{kv_seq!r}")
+    s_loc = k_cache.shape[1]
+    pos = axis_index(axis) * s_loc + torch.arange(s_loc, device=q.device)
+    m, l, o = A.decode_attention_partial(q, k_cache, v_cache, pos < n_valid)
+    o = A.sp_combine(m, l, o, axis)                    # (B,Hkv,G,1,D)
+    return o.movedim(3, 1).reshape(b, 1, -1, q.shape[-1]).to(q.dtype)
 
 
 def attn_decode_paged(lp, x, cfg: ModelConfig, cdt, k_pool, v_pool,
@@ -466,11 +542,13 @@ def attn_decode_paged(lp, x, cfg: ModelConfig, cdt, k_pool, v_pool,
     return o.reshape(b, 1, cfg.n_heads * cfg.head_dim) @ lp["wo"].to(cdt)
 
 
-def ffn_forward(lp, x, cfg: ModelConfig, cdt, precision: str = "float"):
+def ffn_forward(lp, x, cfg: ModelConfig, cdt, precision: str = "float",
+                rows=None):
     """The float FFN (a moe layer's experts, plus the dense FFN where
-    ``dense_residual`` is set), or with an integer ``precision`` the
-    quantized one (:func:`~repro_torch.models.blocks.qmlp`; the layer must
-    carry a ``"qmlp"`` tree)."""
+    ``dense_residual`` is set; a dense FFN's matmuls in blocks of
+    ``rows``), or with an integer ``precision`` the quantized one
+    (:func:`~repro_torch.models.blocks.qmlp`, integer GEMMs whose rows are
+    exact; the layer must carry a ``"qmlp"`` tree)."""
     if precision != "float":
         check_precision(precision)
         if "qmlp" not in lp:
@@ -486,7 +564,7 @@ def ffn_forward(lp, x, cfg: ModelConfig, cdt, precision: str = "float"):
         if cfg.moe.dense_residual:
             y = y + mlp(x, lp["mlp"], cfg.act, cdt)
         return y
-    return mlp(x, lp["mlp"], cfg.act, cdt)
+    return mlp(x, lp["mlp"], cfg.act, cdt, rows)
 
 
 def _hybrid_ffn(x, bp, kind: str, j: int, cfg: ModelConfig, cdt):
@@ -503,7 +581,8 @@ def embed_tokens(params, tokens, cfg: ModelConfig, cdt):
 
 def unembed(params, h, cfg: ModelConfig):
     w = params["embed"].t() if cfg.tied_embeddings else params["unembed"]
-    return h.to(torch.float32) @ w.to(torch.float32)
+    return constrain(h.to(torch.float32) @ w.to(torch.float32),
+                     "batch", None, "vocab")
 
 
 # ================================================================== training
@@ -513,7 +592,8 @@ def dense_layer(h, lp, cfg: ModelConfig, cdt, *, impl: str):
     a, _ = attn_forward(lp["attn"], rmsnorm(h, lp["ln1"], cfg.norm_eps),
                         cfg, cdt, impl=impl)
     h = h + a
-    return h + ffn_forward(lp, rmsnorm(h, lp["ln2"], cfg.norm_eps), cfg, cdt)
+    f = ffn_forward(lp, rmsnorm(h, lp["ln2"], cfg.norm_eps), cfg, cdt)
+    return constrain(h + f, "batch", "seq", "d_model_act")
 
 
 def ssm_layer(h, lp, cfg: ModelConfig, cdt, conv_method: str = "cuda"):
@@ -522,7 +602,7 @@ def ssm_layer(h, lp, cfg: ModelConfig, cdt, conv_method: str = "cuda"):
     plain version)."""
     y = mamba_forward(lp["mamba"], rmsnorm(h, lp["ln"], cfg.norm_eps),
                       cfg.mamba, cdt, conv_method=conv_method)
-    return h + y
+    return constrain(h + y, "batch", "seq", "d_model_act")
 
 
 def hybrid_block(h, bp, cfg: ModelConfig, cdt, *, impl: str):
@@ -545,7 +625,7 @@ def hybrid_block(h, bp, cfg: ModelConfig, cdt, *, impl: str):
             h = h + moe_ffn(f_in, subs["moe"][jf], cfg.moe, cfg.act, cdt)
         else:
             h = h + mlp(f_in, subs["mlp"][jf], cfg.act, cdt)
-    return h
+    return constrain(h, "batch", None, "d_model_act")
 
 
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -593,6 +673,7 @@ def forward_hidden(params, tokens, cfg: ModelConfig, *, embeds=None,
     h = embed_tokens(params, tokens, cfg, cdt)
     if embeds is not None:
         h = torch.cat([embeds.to(cdt), h], dim=1)
+    h = constrain(h, "batch", "seq", None)
     if cfg.family == "hybrid":
         body = _remat(lambda hh, bp: hybrid_block(hh, bp, cfg, cdt,
                                                   impl=attn_impl), remat)
@@ -686,16 +767,23 @@ def _check_cache(cfg: ModelConfig, cache):
             "int8 KV decode only covers attention-family dense caches")
 
 
-def decode_step(params, token, cache, cfg: ModelConfig, *,
+def decode_step(params, token, cache, cfg: ModelConfig, *, sp_axis=None,
                 precision: str = "float"):
     """One-token serve step. token: (B, 1) int. Returns ``(logits (B,1,V)
     float32, cache)`` with the cache's K/V (an int8 cache: codes and
     scales; a paged cache: its pools' page slots; an ssm model: its conv
     and ssm states; a hybrid model: both) written in place and ``"len"`` a
-    new tensor, advanced by one."""
+    new tensor, advanced by one. ``sp_axis``: the attention layers'
+    sequence-parallel decode over that mesh axis (:func:`attn_decode`; a
+    contiguous float cache with a scalar length), inside a mesh whose
+    rules shard the cache's ``kv_seq``; every tensor is this rank's block
+    (``parallel.sharding.shard_tree`` of ``cache_specs``)."""
     _check_decoder(cfg, "decode_step")
     check_ssm_precision(cfg, precision, "decode")
     _check_cache(cfg, cache)
+    if sp_axis is not None and "block_table" in cache:
+        raise NotImplementedError("paged KV decode: sequence-parallel "
+                                  "path is contiguous-only")
     cdt = _cdt(cfg)
     h = embed_tokens(params, token, cfg, cdt)
     b = token.shape[0]
@@ -715,7 +803,8 @@ def decode_step(params, token, cache, cfg: ModelConfig, *,
     lockstep = clen.dim() == 0
     cl = clen.expand(b) if lockstep else clen
     if cfg.family == "hybrid":
-        h = _hybrid_decode_blocks(params, h, cfg, cdt, cache, cl, lockstep)
+        h = _hybrid_decode_blocks(params, h, cfg, cdt, cache, cl, lockstep,
+                                  sp_axis)
         h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
         return unembed(params, h, cfg), dict(cache, len=clen + 1)
     for l, lp in enumerate(_layers(params, cfg)):
@@ -729,7 +818,7 @@ def decode_step(params, token, cache, cfg: ModelConfig, *,
         else:
             a = attn_decode(lp["attn"], x, cfg, cdt, cache["k"][l],
                             cache["v"][l], cl, kv_scales=scales,
-                            lockstep=lockstep)
+                            lockstep=lockstep, sp_axis=sp_axis)
         h = h + a
         h = h + ffn_forward(lp, rmsnorm(h, lp["ln2"], cfg.norm_eps), cfg,
                             cdt, precision=precision)
@@ -738,7 +827,7 @@ def decode_step(params, token, cache, cfg: ModelConfig, *,
 
 
 def _hybrid_decode_blocks(params, h, cfg: ModelConfig, cdt, cache, cl,
-                          lockstep: bool):
+                          lockstep: bool, sp_axis=None):
     """One token through the super-blocks: each attention sublayer writes
     its K/V into the block's cache row, each Mamba sublayer overwrites its
     conv and ssm state, in place."""
@@ -747,7 +836,8 @@ def _hybrid_decode_blocks(params, h, cfg: ModelConfig, cdt, cache, cl,
             x = rmsnorm(h, bp["ln_mix"][i], cfg.norm_eps)
             if mix == "attn":
                 h = h + attn_decode(bp["attn"], x, cfg, cdt, cache["k"][b],
-                                    cache["v"][b], cl, lockstep=lockstep)
+                                    cache["v"][b], cl, lockstep=lockstep,
+                                    sp_axis=sp_axis)
             else:
                 conv, ssm = cache["conv"][b, j], cache["ssm"][b, j]
                 y, st = mamba_decode_step(_take(bp["mamba"], j), x,
@@ -779,6 +869,32 @@ def prefill(params, tokens, cfg: ModelConfig, max_len: int, *, embeds=None,
     is exact for the attention families only: an ssm or hybrid recurrence
     folds every position into its state, so its callers pass exact lengths
     (``prompt_lens[i] == S``), as the serving engine does."""
+    return _prefill(params, tokens, cfg, max_len, embeds, attn_impl,
+                    prompt_lens, precision, attn_block_k, None)
+
+
+def shared_prefill(params, tokens, cfg: ModelConfig, max_len: int, *,
+                   embeds=None, attn_impl: str = "flash", prompt_lens=None,
+                   precision: str = "float", attn_block_k: int = 256):
+    """:func:`prefill` whose rows get the same bits under every prefill
+    bucket, for a serving engine whose prefix cache shares a prompt's
+    pages with prompts of other buckets. cuBLAS picks a GEMM's kernel, and
+    so the order of its sums, by the row count, so :func:`prefill` gives a
+    prompt's K/V rows other bits under another bucket. Here, on a card, a
+    dense or vlm prefill runs its positions in blocks of
+    :data:`PREFILL_ROWS` (the prompt zero-padded after its end to a
+    multiple of it; the pad rows' K/V are not written): every projection
+    and FFN GEMM in one shape (``blocks.row_mm``) and the attention in
+    query chunks of that many rows (:func:`attn_forward`), whatever
+    ``attn_impl`` and ``attn_block_k`` say. A moe model's routing depends
+    on every row of the call (capacity), so it runs as :func:`prefill`;
+    so does the host, whose rows do not depend on the row count."""
+    return _prefill(params, tokens, cfg, max_len, embeds, attn_impl,
+                    prompt_lens, precision, attn_block_k, PREFILL_ROWS)
+
+
+def _prefill(params, tokens, cfg: ModelConfig, max_len: int, embeds,
+             attn_impl, prompt_lens, precision, attn_block_k, row_block):
     _check_decoder(cfg, "prefill")
     check_ssm_precision(cfg, precision, "prefill")
     cdt = _cdt(cfg)
@@ -796,8 +912,10 @@ def prefill(params, tokens, cfg: ModelConfig, max_len: int, *, embeds=None,
             for key in ("k", "v", "conv", "ssm"):
                 cache[key][blk] = st[key].to(cache[key].dtype)
     else:
+        rows = (row_block if row_block and h.is_cuda and cfg.moe is None
+                else None)
         h = _dense_prefill_layers(params, h, cfg, cdt, cache, attn_impl,
-                                  precision, attn_block_k)
+                                  precision, attn_block_k, rows)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
     if prompt_lens is None:
         cache["len"] = torch.tensor(h.shape[1], dtype=torch.int32,
@@ -853,21 +971,24 @@ def _hybrid_block_with_state(h, bp, cfg: ModelConfig, cdt, attn_impl,
 
 
 def _dense_prefill_layers(params, h, cfg: ModelConfig, cdt, cache, attn_impl,
-                          precision, attn_block_k):
+                          precision, attn_block_k, rows=None):
     """The attention stack over the prompt; each layer's K/V go into
-    ``cache``."""
+    ``cache``. With ``rows``: in row blocks (:func:`prefill`), the prompt
+    zero-padded to a multiple of ``rows`` and cut back at the end."""
     s = h.shape[1]
+    if rows is not None:
+        h = torch.nn.functional.pad(h, (0, 0, 0, -s % rows))
     for l, lp in enumerate(_layers(params, cfg)):
         x = rmsnorm(h, lp["ln1"], cfg.norm_eps)
         a, (k, v) = attn_forward(lp["attn"], x, cfg, cdt, impl=attn_impl,
-                                 block_k=attn_block_k)
+                                 block_k=attn_block_k, rows=rows)
         h = h + a
         f = ffn_forward(lp, rmsnorm(h, lp["ln2"], cfg.norm_eps), cfg, cdt,
-                        precision=precision)
-        cache["k"][l, :, :s] = k.to(cache["k"].dtype)
-        cache["v"][l, :, :s] = v.to(cache["v"].dtype)
+                        precision=precision, rows=rows)
+        cache["k"][l, :, :s] = k[:, :s].to(cache["k"].dtype)
+        cache["v"][l, :, :s] = v[:, :s].to(cache["v"].dtype)
         h = h + f
-    return h
+    return h[:, :s]
 
 
 def prefill_suffix(params, tokens, prefix_k, prefix_v, prefix_len: int,
@@ -903,8 +1024,9 @@ def prefill_suffix(params, tokens, prefix_k, prefix_v, prefix_len: int,
                         torch.cat([prefix_v[l].to(v.dtype), v], dim=1),
                         causal=True, impl=attn_impl, q_offset=prefix_len,
                         block_k=attn_block_k)
-        h = h + o.reshape(b, s, cfg.n_heads * cfg.head_dim) \
-            @ lp["attn"]["wo"].to(cdt)
+        o = constrain(o.reshape(b, s, cfg.n_heads * cfg.head_dim),
+                      "batch", "seq", "heads")
+        h = h + constrain(o @ lp["attn"]["wo"].to(cdt), "batch", "seq", None)
         h = h + ffn_forward(lp, rmsnorm(h, lp["ln2"], cfg.norm_eps), cfg,
                             cdt, precision=precision)
         ks.append(k)

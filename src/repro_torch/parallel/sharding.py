@@ -23,13 +23,26 @@ split by them in the spec's order, which DTensor's placements express only
 in the mesh's order; every rule here lists axes in the mesh's order, and a
 spec that does not raises.
 
-Not ported yet: ``constrain`` and ``named_sharding``, which act only inside
-a sharded step (ROADMAP.md, A8).
+Inside a sharded step (:class:`use_mesh` over a ``DeviceMesh`` of a real
+world, ``launch.world.run_world``) the port runs explicit SPMD, as the
+bodies of JAX's ``shard_map`` do: every rank calls the model functions on
+plain tensors that hold its own block of the data (:func:`local_shard`,
+:func:`shard_tree`), and the layers that split work across ranks say so
+with collectives over the current mesh's per-axis groups
+(:func:`axis_index`, :func:`psum`, :func:`pmax`, :func:`all_gather`,
+:func:`all_to_all`): sequence-parallel decode and expert-parallel MoE.
+:func:`constrain` and :func:`named_sharding` are JAX's.
+
+The rules and the mesh are per thread: the card runs a world's ranks as
+threads of one process, each inside its own mesh and rules.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Optional
+
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,6 +139,21 @@ def make_rules(mesh, cfg, kind: str, *, fsdp: bool = False,
     return ShardingRules(**kw)
 
 
+#: the logical dims a sharded step's layers split across ranks: batch (DP),
+#: the cache's kv_seq (SP decode) and experts (EP MoE)
+SPMD_AXES = ("batch", "kv_seq", "experts")
+
+
+def spmd_rules(rules: ShardingRules) -> ShardingRules:
+    """``rules`` cut to what the port's rank-local step splits
+    (:data:`SPMD_AXES`); every other dim (heads, ffn, vocab, d_inner, the
+    FSDP embed) is computed whole on each rank, so its tensors are held
+    whole: the layout :func:`shard_tree` cuts for a sharded step."""
+    return dataclasses.replace(rules, **{
+        f.name: None for f in dataclasses.fields(rules)
+        if f.name not in SPMD_AXES})
+
+
 def prune_batch_axes(mesh, rules: ShardingRules,
                      global_batch: int) -> ShardingRules:
     """Drop batch axes that do not divide the global batch."""
@@ -144,12 +172,24 @@ def prune_batch_axes(mesh, rules: ShardingRules,
     return dataclasses.replace(rules, batch=tuple(kept) if kept else None)
 
 
-_ACTIVE: list = [ShardingRules()]
-_MESHES: list = []
+#: this thread's stacks of active rules and meshes
+_LOCAL = threading.local()
+
+
+def _rules_stack() -> list:
+    if not hasattr(_LOCAL, "rules"):
+        _LOCAL.rules = [ShardingRules()]
+    return _LOCAL.rules
+
+
+def _mesh_stack() -> list:
+    if not hasattr(_LOCAL, "meshes"):
+        _LOCAL.meshes = []
+    return _LOCAL.meshes
 
 
 def active_rules() -> ShardingRules:
-    return _ACTIVE[-1]
+    return _rules_stack()[-1]
 
 
 class use_rules:
@@ -157,11 +197,11 @@ class use_rules:
         self.rules = rules
 
     def __enter__(self):
-        _ACTIVE.append(self.rules)
+        _rules_stack().append(self.rules)
         return self.rules
 
     def __exit__(self, *exc):
-        _ACTIVE.pop()
+        _rules_stack().pop()
 
 
 class use_mesh:
@@ -171,15 +211,16 @@ class use_mesh:
         self.mesh = mesh
 
     def __enter__(self):
-        _MESHES.append(self.mesh)
+        _mesh_stack().append(self.mesh)
         return self.mesh
 
     def __exit__(self, *exc):
-        _MESHES.pop()
+        _mesh_stack().pop()
 
 
 def current_mesh():
-    return _MESHES[-1] if _MESHES else None
+    meshes = _mesh_stack()
+    return meshes[-1] if meshes else None
 
 
 def axis_size(name) -> int:
@@ -279,3 +320,123 @@ def local_bytes(tensors, shardings) -> int:
         raise ValueError(f"local_bytes: tensors {sorted(tensors)} against "
                          f"shardings {sorted(shardings)}")
     return sum(local_bytes(tensors[k], shardings[k]) for k in tensors)
+
+
+# ------------------------------------------------ inside a sharded step --
+
+def constrain(x, *names: Optional[str]):
+    """JAX's ``with_sharding_constraint`` by logical names. Outside a mesh
+    ``x`` as it is. Inside one, a ``DTensor`` is redistributed to the
+    active rules' placements on the current mesh
+    (:attr:`NamedSharding.placements`); a plain tensor is rank-local SPMD
+    data, its rank's own block, and is returned unchanged (after one type
+    check, before any mesh lookup: the model code's calls cost a plain
+    tensor nothing more)."""
+    if type(x) is torch.Tensor:
+        return x
+    mesh = current_mesh()
+    if mesh is None:
+        return x
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    return x.redistribute(mesh, NamedSharding(
+        mesh, active_rules().spec(*names)).placements)
+
+
+def named_sharding(*names: Optional[str], mesh=None):
+    """The :class:`NamedSharding` of logical ``names`` under the active
+    rules on ``mesh`` (default: the current one); ``None`` outside a
+    mesh."""
+    mesh = mesh or current_mesh()
+    if mesh is None:
+        return None
+    return NamedSharding(mesh, active_rules().spec(*names))
+
+
+def local_shard(t, sharding: NamedSharding):
+    """This rank's block of the global tensor ``t`` under ``sharding``
+    (a view, as DTensor's ``distribute_tensor`` would cut it)."""
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    shape, offset = compute_local_shape_and_global_offset(
+        tuple(t.shape), sharding.mesh, list(sharding.placements))
+    return t[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+
+
+def shard_tree(tree, specs, mesh=None):
+    """This rank's blocks of a tree of global tensors whose logical axis
+    names are ``specs`` (the same dict structure), under the active rules
+    (a sharded step's: :func:`spmd_rules`): the layout its model functions
+    take."""
+    shardings = tree_shardings(specs, mesh)
+
+    def cut(t, s):
+        if isinstance(t, dict):
+            return {k: cut(t[k], s[k]) for k in t}
+        return local_shard(t, s)
+    return cut(tree, shardings)
+
+
+def _group(axis: str):
+    mesh = current_mesh()
+    if mesh is None or axis not in mesh.mesh_dim_names:
+        raise ValueError(f"no mesh axis {axis!r} is current")
+    return mesh.get_group(axis)
+
+
+def axis_index(axis: str) -> int:
+    """This rank's coordinate along mesh axis ``axis`` (JAX's
+    ``lax.axis_index``); 0 outside a mesh or for an axis it lacks."""
+    mesh = current_mesh()
+    if mesh is None or axis not in mesh.mesh_dim_names:
+        return 0
+    return mesh.get_local_rank(axis)
+
+
+def _all_reduce(x, axis: str, op):
+    import torch.distributed as dist
+    y = x.clone()
+    dist.all_reduce(y, op=op, group=_group(axis))
+    return y
+
+
+def psum(x, axis: str):
+    """The sum of ``x`` over the ranks of ``axis`` (JAX's ``lax.psum``)."""
+    import torch.distributed as dist
+    return _all_reduce(x, axis, dist.ReduceOp.SUM)
+
+
+def pmax(x, axis: str):
+    """The elementwise max of ``x`` over the ranks of ``axis``."""
+    import torch.distributed as dist
+    return _all_reduce(x, axis, dist.ReduceOp.MAX)
+
+
+def all_gather(x, axis: str, dim: int = 0):
+    """Every rank's ``x`` along ``axis``, concatenated along ``dim`` in
+    rank order (JAX's tiled ``lax.all_gather``)."""
+    import torch
+    import torch.distributed as dist
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(axis_size(axis))]
+    dist.all_gather(parts, x, group=_group(axis))
+    return torch.cat(parts, dim=dim)
+
+
+def all_to_all(x, axis: str, split_dim: int, concat_dim: int):
+    """JAX's tiled ``lax.all_to_all``: ``x`` cut into ``axis_size(axis)``
+    blocks along ``split_dim``, block j sent to the rank of index j, and
+    the blocks this rank receives concatenated along ``concat_dim`` in
+    rank order (``all_to_all_single`` over dim 0)."""
+    import torch
+    import torch.distributed as dist
+    n = axis_size(axis)
+    if x.shape[split_dim] % n:
+        raise ValueError(f"all_to_all: dim {split_dim} of {tuple(x.shape)} "
+                         f"does not split over {n} ranks of {axis!r}")
+    xs = x.movedim(split_dim, 0).contiguous()
+    out = torch.empty_like(xs)
+    dist.all_to_all_single(out, xs, group=_group(axis))
+    return torch.cat([c.movedim(0, split_dim) for c in out.chunk(n)],
+                     dim=concat_dim)

@@ -37,11 +37,13 @@ pages. A hit shares storage only: the whole prompt is recomputed (its
 logits are the first token's) and the shared pages are not written
 (JAX's float hit prefills only its suffix; ``models/api.prefill_suffix_fn``
 is ported and bitwise on the host, but on a card a suffix's rows do not
-get the bits the whole prompt's get, so no hit runs it). On a
-card each digest is also salted with the prefill's bucket
-(:func:`prefix_salt`): the bf16 GEMMs' row results there depend on the
-row count, so a page is shared only with prompts whose own prefill would
-write it bit for bit. On the host the digests are JAX's.
+get the bits the whole prompt's get, so no hit runs it). The digests are
+JAX's on every device: on a card a paged engine with the prefix cache
+prefills through ``models/api.shared_prefill_fn``, whose GEMMs run in row
+blocks of one shape, so a prompt's rows get the same bits under every
+bucket and a page is shared across buckets as on the host (its attention
+is then the row-blocked one whatever ``attn_impl`` says; every other
+engine prefills through ``prefill_fn``).
 Pages of retired requests park in an LRU evictable set until a shortage
 reclaims them. When the pool runs dry, new admissions wait in a FIFO
 holdback, and a slot that must grow preempts the youngest slot, whose
@@ -267,16 +269,16 @@ class BlockPool:
 
     # -------------------------------------------------------- prefix cache --
 
-    def prefix_keys(self, prompt: np.ndarray, salt: bytes = b"") -> List[str]:
+    def prefix_keys(self, prompt: np.ndarray) -> List[str]:
         """Chained sha1 digest per full prompt block, excluding the block
         holding the last prompt token — at least one position is always
-        recomputed so admission has last-token logits to sample from. The
-        chain starts from ``salt`` (empty: JAX's digests)."""
+        recomputed so admission has last-token logits to sample from
+        (JAX's digests)."""
         if not self.prefix_cache:
             return []
         bs = self.block_size
         toks = np.ascontiguousarray(np.asarray(prompt, np.int32))
-        h = hashlib.sha1(salt)
+        h = hashlib.sha1()
         keys = []
         for j in range((len(toks) - 1) // bs):
             h.update(toks[j * bs:(j + 1) * bs].tobytes())
@@ -482,16 +484,6 @@ class ServeConfig:
     retry_backoff_s: float = 0.0
 
 
-def prefix_salt(bucket: int, salted: bool) -> bytes:
-    """The salt of a prompt's page digests (``BlockPool.prefix_keys``):
-    its prefill bucket where ``salted`` (on a card, whose bf16 GEMMs give
-    the same prompt rows other bits under another row count, so pages are
-    shared only between prefills of one bucket), else nothing (the host,
-    where a row's products do not depend on the row count; JAX's
-    digests)."""
-    return f"prefill bucket {bucket}".encode() if salted else b""
-
-
 #: the port's refusal of an encdec model under the static scheduler
 ENCDEC_STATIC_MESSAGE = (
     "Engine: an encdec model's prefill needs the encoder's frames, which "
@@ -567,14 +559,15 @@ class Engine:
         self.device = params["embed"].device
         self.params = T.cast_params(params, cfg,
                                     mlp_too=scfg.precision == "float")
-        self.prefill = api.prefill_fn(cfg, scfg.max_len,
-                                      attn_impl=scfg.attn_impl,
-                                      precision=scfg.precision)
-        self.decode = api.decode_fn(cfg, precision=scfg.precision)
         self.paged = scfg.kv_layout == "paged"
-        #: salt prompt-page digests with the prefill bucket (a card:
-        #: :func:`prefix_salt`)
-        self.salt_prefix = self.device.type == "cuda"
+        # a page shared across buckets needs rows whose bits do not depend
+        # on the bucket (api.shared_prefill_fn); engines that share no
+        # page keep the prefill their config asks for
+        make = (api.shared_prefill_fn if self.paged and scfg.prefix_cache
+                else api.prefill_fn)
+        self.prefill = make(cfg, scfg.max_len, attn_impl=scfg.attn_impl,
+                            precision=scfg.precision)
+        self.decode = api.decode_fn(cfg, precision=scfg.precision)
         self.jit = jit
         #: CUDA graph captures made (decode steps, prefill buckets)
         self.traces = 0
@@ -880,8 +873,7 @@ class Engine:
             the prompt's pages (backpressure). Any failure after pages
             were referenced or allocated rolls the pool back first."""
             nb = -(-plen // bs)         # pages covering positions [0, plen)
-            salt = prefix_salt(self._bucket_len(plen), self.salt_prefix)
-            keys = pool.prefix_keys(req.prompt, salt)
+            keys = pool.prefix_keys(req.prompt)
             with obs_trace.span("engine.prefix_lookup", uid=req.uid,
                                 blocks=len(keys)):
                 hit_ids = pool.lookup(keys)

@@ -22,7 +22,7 @@ device).
 The step (:func:`~repro_torch.train.train_step.make_train_step`)
 updates params and optimizer state in place. The
 JAX package's ``param_shardings`` / ``batch_shardings`` wait for the
-port's sharding (ROADMAP.md, A8).
+port's sharded training (ROADMAP.md, A8.1b).
 """
 from __future__ import annotations
 

@@ -200,9 +200,18 @@ def test_moe_ffn_local_matches_jax(dtype, act, e, k, cf):
 
 
 def test_moe_ffn_sharded_waits_for_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.moe_ffn_sharded(torch.zeros(1, 1, 4), {}, MoEConfig(2, 1, 4),
-                          "silu", torch.float32)
+    """``moe_ffn_sharded`` no longer refuses: outside a mesh it is
+    ``moe_ffn_local`` bitwise, drops included (its mesh path:
+    ``tests/test_torch_sharded.py``)."""
+    gen = torch.Generator().manual_seed(0)
+    moe = MoEConfig(4, 2, 8, capacity_factor=1.0)
+    p = {"router": torch.randn(16, 4, generator=gen),
+         "w_up": torch.randn(4, 16, 8, generator=gen),
+         "w_gate": torch.randn(4, 16, 8, generator=gen),
+         "w_down": torch.randn(4, 8, 16, generator=gen)}
+    x = torch.randn(2, 6, 16, generator=gen)
+    assert torch.equal(M.moe_ffn_sharded(x, p, moe, "silu", torch.float32),
+                       M.moe_ffn_local(x, p, moe, "silu", torch.float32))
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])

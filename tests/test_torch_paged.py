@@ -55,7 +55,7 @@ from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.obs import trace  # noqa: E402
 from repro_torch.serve import Engine, Request, ServeConfig  # noqa: E402
-from repro_torch.serve.engine import BlockPool, prefix_salt  # noqa: E402
+from repro_torch.serve.engine import BlockPool  # noqa: E402
 from repro_torch.weights import lm_params_from_numpy  # noqa: E402
 
 TINY = dict(n_layers=2, d_model=32, n_heads=4, n_kv_heads=2, d_ff=64,
@@ -246,34 +246,38 @@ def test_prefix_sharing_hits_and_parity(f32, bf16):
 
 
 def test_prefix_salt_keeps_hits_within_a_bucket(bf16):
-    """With digests salted by the prefill bucket (the card's rule), a
-    prompt hits only pages published by a prefill of its own bucket: a
-    bucket-64 request misses the bucket-32 donor's pages and publishes its
-    own. Streams equal the contiguous layout's either way; on the host
-    (no salt) it hits across buckets, as JAX's pool does."""
+    """No salt any more: page digests are JAX's on every device, so a
+    prompt hits pages published by a prefill of another bucket (on a card
+    a paged engine with the prefix cache prefills through
+    ``transformer.shared_prefill``, in row blocks of one shape): the
+    bucket-64 request hits the bucket-32 donor's
+    shared pages. Streams equal the contiguous layout's and JAX's pool
+    counts the same hits."""
     shared = _shared(11)
 
     def make(cls):       # buckets 32, 64, 32, 64; the shared run 2 pages
         return [make_prefixed(cls, i, shared, s, max_new=4)
                 for i, s in enumerate([3, 20, 5, 25])]
     _, ref = drain(bf16, make, max_batch=1, max_len=64)
-    hits = {}
-    for salted in (False, True):
-        jcfg, jparams, cfg, params = bf16
-        eng = Engine(cfg, params, ServeConfig(
-            max_batch=1, max_len=64, kv_layout="paged", kv_block_size=8))
-        assert eng.salt_prefix is False             # the host's rule
-        eng.salt_prefix = salted
-        for r in make(Request):
-            eng.submit(r)
-        got = sorted(eng.run_until_drained(), key=lambda r: r.uid)
-        assert streams(got) == streams(ref)
-        assert eng.stats["prefills"] == 4
-        assert eng.pool.audit(expect_drained=True) == []
-        hits[salted] = (eng.pool.hits, eng.pool.lookups)
-    # keys per prompt: 2, 4, 2, 5; the second request hits the first's 2
-    # shared pages only unsalted, the third and fourth hit 2 either way
-    assert hits == {False: (6, 13), True: (4, 13)}
+    jcfg, jparams, cfg, params = bf16
+    eng = Engine(cfg, params, ServeConfig(
+        max_batch=1, max_len=64, kv_layout="paged", kv_block_size=8))
+    assert not hasattr(eng, "salt_prefix")
+    for r in make(Request):
+        eng.submit(r)
+    got = sorted(eng.run_until_drained(), key=lambda r: r.uid)
+    assert streams(got) == streams(ref)
+    assert eng.stats["prefills"] == 4
+    assert eng.pool.audit(expect_drained=True) == []
+    # keys per prompt: 2, 4, 2, 5; every request after the first hits the
+    # 2 shared pages, the second across buckets 32 -> 64
+    assert (eng.pool.hits, eng.pool.lookups) == (6, 13)
+    jeng = JEngine(jcfg, jparams, JServeConfig(
+        max_batch=1, max_len=64, kv_layout="paged", kv_block_size=8))
+    for r in make(JRequest):
+        jeng.submit(r)
+    jeng.run_until_drained()
+    assert (jeng.pool.hits, jeng.pool.lookups) == (6, 13)
 
 
 def test_prefix_refcount_survives_retire_orders(bf16):
@@ -526,20 +530,14 @@ def test_blockpool_chained_keys_diverge():
 
 
 def test_blockpool_prefix_keys_salt():
-    """An empty salt gives JAX's digests; a salt starts another chain, so
-    equal prompts under two salts share no page; the engine salts with
-    the prefill bucket only where asked (a card)."""
+    """The digests are JAX's, unsalted, for every prompt length around a
+    page edge (the salt by prefill bucket is gone from the engine)."""
     pool = BlockPool(num_blocks=8, block_size=4)
-    prompt = np.arange(13, dtype=np.int32)
-    plain = pool.prefix_keys(prompt)
-    assert plain == pool.prefix_keys(prompt, b"") \
-        == JBlockPool(8, 4).prefix_keys(prompt)
-    a = pool.prefix_keys(prompt, prefix_salt(32, True))
-    b = pool.prefix_keys(prompt, prefix_salt(64, True))
-    assert len(a) == len(b) == len(plain) == 3
-    assert not set(a) & set(b) and not set(a) & set(plain)
-    assert prefix_salt(32, False) == b""
-    assert prefix_salt(32, True) != prefix_salt(64, True)
+    for n in (4, 5, 12, 13):
+        prompt = np.arange(n, dtype=np.int32)
+        assert pool.prefix_keys(prompt) == JBlockPool(8, 4).prefix_keys(
+            prompt)
+        assert len(pool.prefix_keys(prompt)) == (n - 1) // 4
 
 
 def test_blockpool_no_prefix_cache():
