@@ -423,9 +423,44 @@ chaos      — the chaos harness (repro_torch.faults.chaos) at full size,
               (no kernels.fallback.causal_conv1d.mesh), logits and state
               bitwise the prefill outside the mesh. The phase must end
               within 60 s.
+15. train-shard — the sharded training step (FSDP + TP, ZeRO-3), after
+              phase 14, on worlds of threads on the one card as phase 14's.
+              (a) Qwen2-0.5B at full size (24 layers, d_model 896, 14 / 2
+              heads, d_ff 4,864, vocab 151,936, tied), float32 params and
+              compute (printed as a change of the config), remat full,
+              flash attention: 8 ranks on a (2, 2, 2) ("pod", "data",
+              "model") mesh under make_rules(..., "train", fsdp=True), 2
+              steps on IndexedDataset(kind="lm", seq_len=512,
+              global_batch=8) batches, each rank on its blocks and its 2
+              rows, against the unsharded step on the same batches: loss
+              and grad norm within 1e-4 relative, the params gathered back
+              to global within 1e-3 of the update in norm and 2 lr a step
+              elementwise (TSHARD_UPDATE_REL), each rank's param + m + v bytes
+              equal to local_bytes under tree_shardings(param_specs)
+              (printed beside the unsharded bytes); step ms of both (a
+              reading: the threads share the interpreter lock). (d) on
+              (a)'s world, allreduce_compressed over the 8 ranks of each
+              rank's step-0 gradients (before the sum over ranks that hold
+              copies): within 0.08 of the mean per leaf, residuals not
+              zero, its ms beside the plain psum's. (b) the sharded
+              Trainer on that world, (a)'s model at full width cut to 4
+              layers (its checkpoints' writes), 4 steps with a checkpoint
+              at step 2
+              (gathered, written by the mesh's first rank); a new world of
+              2 ranks on a (1, 2) ("data", "model") mesh restores step 2,
+              each block bitwise the slice of the stored global array,
+              and takes 2 more steps, losses within 1e-4 of the straight
+              run's. (c) Falcon-Mamba-7B at full width (d_model 4,096,
+              d_inner 8,192, vocab 65,024) cut to 4 layers, float32
+              compute, on a (2, 2) ("data", "model") world of 4 ranks: one
+              sharded step of 2 x 256 tokens against the unsharded one
+              (the bounds of (a));
+              causal_conv1d launched on the "cuda" route exactly 3 times a
+              layer a rank (forward, recompute, dx) on 4,096 channels, its
+              plain version never. The phase must end within 150 s.
 
 The phases run in the order 1-3, check, 4, 5, 8, 9, the check of their
-configs, 6, chaos, 7, 10, 11, 12, 13, 14; each one's wall time is printed
+configs, 6, chaos, 7, 10, 11, 12, 13, 14, 15; each one's wall time is printed
 as it ends ([time]). The second-to-last
 line is a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -5436,6 +5471,452 @@ def shard_kernel(torch, K, card) -> dict:
     return launches
 
 
+# ---------------------------------------------------------- train shard --
+
+#: phase 15: the sharded train step on worlds of threads on the one card
+TSHARD_MESH = ((2, 2, 2), ("pod", "data", "model"))
+TSHARD_RANKS = 8
+#: (a) Qwen2-0.5B at full size, float32 compute; the batch and steps
+TSHARD_ARCH, TSHARD_SEQ, TSHARD_BATCH, TSHARD_STEPS = \
+    "qwen2-0.5b", 512, 8, 2
+TSHARD_OPT = dict(lr=1e-3, warmup_steps=0, total_steps=100)
+#: (a)'s and (c)'s bounds against the unsharded step: loss and grad norm
+#: relative; the params after the steps: the norm of their difference
+#: over the norm of the unsharded step's update, and no weight further
+#: apart than two AdamW paths can take it (2 lr a step). Elementwise the
+#: steps part: AdamW moves a weight by lr g / (|g| + eps), and at full
+#: size a gradient's rounding error (the sums' other order) passes eps
+#: = 1e-8, so a weight whose gradient is within rounding of zero moves by
+#: up to lr either way; TSHARD_FAR counts the weights over 1% of lr apart
+TSHARD_REL, TSHARD_UPDATE_REL = 1e-4, 1e-3
+TSHARD_FAR = 1e-5
+#: (d) the compressed all-reduce's bound on each leaf's relative error
+TSHARD_COMPRESSED_REL = 0.08
+#: (b) the sharded Trainer: steps, the checkpoint step, the restore mesh;
+#: (a)'s model at full width cut to TSHARD_TRAINER_LAYERS layers: at 24
+#: its 5.9-GB checkpoints (params, m, v) took the phase past its 150 s on
+#: an H100 (PERF.md: (b) 136.2 s of 175.6)
+TSHARD_TRAINER_STEPS, TSHARD_TRAINER_CKPT = 4, 2
+TSHARD_TRAINER_LAYERS = 4
+TSHARD_RESTORE_MESH = ((1, 2), ("data", "model"))
+#: (c) Falcon-Mamba-7B at full width cut to these layers, 2 x 256 tokens
+TSHARD_SSM_MESH = ((2, 2), ("data", "model"))
+TSHARD_SSM_LAYERS, TSHARD_SSM_BATCH, TSHARD_SSM_SEQ = 4, 2, 256
+TSHARD_SECONDS = 150
+
+
+def phase_train_shard(torch, K, card) -> dict:
+    """Phase 15 (module docstring): (a) and (d), (b), then (c); returns
+    (c)'s kernel launches."""
+    from repro_torch.launch.world import run_world
+    t0 = time.perf_counter()
+    world = run_world(lambda rank: rank, TSHARD_RANKS)
+    check(world.backend == "threaded" and world.results == list(range(
+        TSHARD_RANKS)), f"train shard: the world is {world}")
+    tshard_dense(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tshard_trainer(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = tshard_ssm(torch, K, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    check(secs <= TSHARD_SECONDS,
+          f"train shard: the phase took {secs:.1f} s, over "
+          f"{TSHARD_SECONDS} s")
+    return launches
+
+
+def _tshard_rules(S, mesh, cfg, batch):
+    return S.prune_batch_axes(mesh, S.make_rules(mesh, cfg, "train",
+                                                 fsdp=True), batch)
+
+
+def _tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def _gathered_errs(torch, S, blocks, shardings, want, start,
+                   prefix="") -> dict:
+    """``{path: (largest |difference|, sum of squared differences, sum of
+    squared updates, elements apart by over TSHARD_FAR)}`` between the
+    global arrays of a rank's ``blocks`` (each split dim gathered over its
+    mesh axes, a leaf at a time) and the global tensors ``want`` (the
+    same structure), the updates ``want - start``."""
+    out = {}
+    with torch.no_grad():
+        for key in sorted(blocks):
+            path = f"{prefix}/{key}" if prefix else key
+            if isinstance(blocks[key], dict):
+                out.update(_gathered_errs(torch, S, blocks[key],
+                                          shardings[key], want[key],
+                                          start[key], path))
+                continue
+            t = blocks[key]
+            for dim, entry in enumerate(shardings[key].spec):
+                if entry is not None and S.axis_size(entry) > 1:
+                    t = S.all_gather(t, entry, dim)
+            d = (t.float() - want[key].float()).abs()
+            u = want[key].float() - start[key].float()
+            out[path] = (float(d.max()), float(torch.sum(d * d)),
+                         float(torch.sum(u * u)),
+                         int((d > TSHARD_FAR).sum()))
+            del t, d, u
+    return out
+
+
+def _tshard_reference(torch, cfg, tcfg, params, batches):
+    """The unsharded step on a copy of ``params``: (metrics of each step,
+    the params after them, ms a step by wall clock around synchronised
+    ends, the params' + moments' bytes)."""
+    from repro_torch.optim import init_opt_state
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import tree_map
+    ref = tree_map(lambda t: t.detach().clone(), params)
+    opt = init_opt_state(ref, tcfg.opt)
+    whole = 3 * _tree_bytes(ref)
+    step = make_train_step(cfg, tcfg)
+    metrics = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        ref, opt, m = step(ref, opt, b)
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    del opt
+    return metrics, ref, ms, whole
+
+
+def _param_gap(errs) -> tuple:
+    """(the params' difference over the update, in norm; the largest
+    elementwise difference; weights over TSHARD_FAR apart, of all)."""
+    diff = sum(v[1] for v in errs.values())
+    upd = sum(v[2] for v in errs.values())
+    return (math.sqrt(diff / max(upd, 1e-30)),
+            max(v[0] for v in errs.values()),
+            sum(v[3] for v in errs.values()))
+
+
+def _tshard_check(tag, rank, ref_m, got_m, errs, lr, steps):
+    for (l1, g1), (l2, g2) in zip(ref_m, got_m):
+        check(math.isfinite(l2) and abs(l2 - l1) <= TSHARD_REL * abs(l1)
+              and abs(g2 - g1) <= TSHARD_REL * abs(g1),
+              f"train shard {tag} rank {rank}: loss / grad norm {got_m} "
+              f"against the unsharded {ref_m} (bound {TSHARD_REL} "
+              "relative)")
+    rel, worst, far = _param_gap(errs)
+    top = sorted(errs.items(), key=lambda kv: -kv[1][0])[:3]
+    check(rel <= TSHARD_UPDATE_REL and worst <= 2 * lr * steps,
+          f"train shard {tag} rank {rank}: params {rel} of the update "
+          f"apart in norm (bound {TSHARD_UPDATE_REL}), {worst} at most "
+          f"(bound {2 * lr * steps}), {far} weights over {TSHARD_FAR}; "
+          f"largest {[(k, v[0]) for k, v in top]}")
+
+
+def tshard_dense(torch, card):
+    """(a) and (d): Qwen2-0.5B's sharded steps against the unsharded ones,
+    and the compressed all-reduce on the step-0 gradients."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, IndexedDataset
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.world import run_world
+    from repro_torch.models import api
+    from repro_torch.optim import (OptConfig, allreduce_compressed,
+                                   init_errors, init_opt_state)
+    from repro_torch.parallel import sharding as S
+    from repro_torch.train import TrainConfig, make_train_step, value_and_grad
+    from repro_torch.tree import leaves
+    base = get_config(TSHARD_ARCH)
+    cfg = dataclasses.replace(base, compute_dtype="float32")
+    tcfg = TrainConfig(opt=OptConfig(**TSHARD_OPT), remat="full",
+                       attn_impl="flash")
+    print(f"[train-shard] (a) config change: {TSHARD_ARCH} compute_dtype "
+          f"{base.compute_dtype} -> float32 (params {cfg.param_dtype})")
+    ds = IndexedDataset(DataConfig(kind="lm", vocab=cfg.vocab,
+                                   seq_len=TSHARD_SEQ,
+                                   global_batch=TSHARD_BATCH,
+                                   seed=TRAIN_DATA_SEED))
+    batches = [{k: torch.as_tensor(v).cuda() for k, v in ds.batch(i).items()}
+               for i in range(TSHARD_STEPS)]
+    params, made = make_lm_params(torch, cfg, "cuda", "train shard")
+    ref_m, ref, ref_ms, whole = _tshard_reference(torch, cfg, tcfg, params,
+                                                  batches)
+    step = make_train_step(cfg, tcfg)
+    grad_fn = value_and_grad(api.loss_fn(cfg, attn_impl=tcfg.attn_impl,
+                                         remat=tcfg.remat))
+
+    def rank_main(rank):
+        mesh = make_mesh(*TSHARD_MESH)
+        axes = tuple(mesh.mesh_dim_names)
+        with S.use_mesh(mesh), S.use_rules(_tshard_rules(S, mesh, cfg,
+                                                         TSHARD_BATCH)):
+            psh = S.tree_shardings(api.param_specs(cfg))
+            p = S.local_tree(params, psh, copy=True)
+            opt = init_opt_state(p, tcfg.opt)
+            mine = 3 * _tree_bytes(p)
+            want = 3 * S.local_bytes(api.param_structs(cfg), psh)
+            rows = [{k: S.local_shard(v, S.named_sharding("batch", None))
+                     for k, v in b.items()} for b in batches]
+            # (d) on the step-0 gradients, before the sum over copies
+            _, g = grad_fn(p, rows[0], 1.0 / mesh.size())
+            with torch.no_grad():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got, errs = allreduce_compressed(g, init_errors(g), axes)
+                torch.cuda.synchronize()
+                comp_ms = (time.perf_counter() - t0) * 1e3
+                t0 = time.perf_counter()
+                mean = [S.psum(x, axes) / mesh.size() for x in leaves(g)]
+                torch.cuda.synchronize()
+                plain_ms = (time.perf_counter() - t0) * 1e3
+                rel = max(float((a - b).abs().max() / b.abs().max().clamp(
+                    min=1e-30)) for a, b in zip(leaves(got), mean))
+                resid = max(float(e.abs().max()) for e in leaves(errs))
+            del g, got, errs, mean
+            metrics = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for b in rows:
+                p, opt, m = step(p, opt, b)
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            ms = (time.perf_counter() - t0) * 1e3 / len(rows)
+            err = _gathered_errs(torch, S, p, psh, ref, params)
+        return metrics, mine, want, ms, err, (rel, resid, comp_ms, plain_ms)
+    world = run_world(rank_main, TSHARD_RANKS)
+    for rank, (got_m, mine, want, ms, err, comp) in enumerate(
+            world.results):
+        _tshard_check("(a)", rank, ref_m, got_m, err, tcfg.opt.lr,
+                      TSHARD_STEPS)
+        check(mine == want, f"train shard (a) rank {rank}: param + moment "
+              f"bytes {mine}, local_bytes says {want}")
+        rel, resid, comp_ms, plain_ms = comp
+        check(rel < TSHARD_COMPRESSED_REL and resid > 0,
+              f"train shard (d) rank {rank}: compressed all-reduce {rel} "
+              f"from the mean (bound {TSHARD_COMPRESSED_REL}), largest "
+              f"residual {resid}")
+    got_m, mine, _, ms, errs, _ = world.results[0]
+    rel, worst, far = _param_gap(errs)
+    comps = [r[5] for r in world.results]
+    print(f"[train-shard] (a) {TSHARD_ARCH} full size ({made}), float32, "
+          f"remat {tcfg.remat}, attn {tcfg.attn_impl}, AdamW lr "
+          f"{tcfg.opt.lr}: {TSHARD_RANKS} threads on a {TSHARD_MESH[0]} "
+          f"{TSHARD_MESH[1]} mesh, FSDP + TP, {TSHARD_BATCH} x "
+          f"{TSHARD_SEQ} tokens a step ({TSHARD_BATCH * 2 // TSHARD_RANKS} "
+          f"rows a rank); losses "
+          + " ".join(f"{x[0]:.6f}" for x in got_m) + " against "
+          + " ".join(f"{x[0]:.6f}" for x in ref_m) + ", grad norms "
+          + " ".join(f"{x[1]:.6f}" for x in got_m) + " against "
+          + " ".join(f"{x[1]:.6f}" for x in ref_m)
+          + f" unsharded (bound {TSHARD_REL} relative); params after "
+          f"{TSHARD_STEPS} steps, gathered: {rel:.3e} of the update apart "
+          f"in norm (bound {TSHARD_UPDATE_REL}), max |diff| {worst:.3e} "
+          f"(bound {2 * tcfg.opt.lr * TSHARD_STEPS}), {far:,} of "
+          f"{sum(t.numel() for t in _leaves(params)):,} weights over "
+          f"{TSHARD_FAR} apart; param + m + v bytes a rank "
+          f"{mine / 2 ** 20:.1f} MiB = local_bytes, against "
+          f"{whole / 2 ** 20:.1f} MiB unsharded; step {ms:.1f} ms sharded "
+          f"({TSHARD_RANKS} threads, wall clock) against {ref_ms:.1f} ms "
+          f"unsharded; {card}")
+    print(f"[train-shard] (d) allreduce_compressed over {TSHARD_RANKS} "
+          f"ranks of each rank's step-0 gradient blocks "
+          f"({len(list(_leaves(params)))} leaves): largest relative error of a "
+          f"leaf {max(c[0] for c in comps):.5f} (bound "
+          f"{TSHARD_COMPRESSED_REL}), residuals up to "
+          f"{max(c[1] for c in comps):.3e}; "
+          f"{statistics.median(c[2] for c in comps):.1f} ms against "
+          f"{statistics.median(c[3] for c in comps):.1f} ms for the plain "
+          f"psum (median of the ranks, wall clock); {card}")
+
+
+def tshard_trainer(torch, card):
+    """(b): the sharded Trainer on (a)'s world, then restored from its
+    step-2 checkpoint onto a world of 2 ranks."""
+    import shutil
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, IndexedDataset
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.world import run_world
+    from repro_torch.models import api
+    from repro_torch.optim import OptConfig
+    from repro_torch.parallel import sharding as S
+    from repro_torch.train import LoopConfig, TrainConfig, Trainer
+    base = get_config(TSHARD_ARCH)
+    cfg = dataclasses.replace(base, compute_dtype="float32",
+                              n_layers=TSHARD_TRAINER_LAYERS)
+    print(f"[train-shard] (b) config change: {TSHARD_ARCH} n_layers "
+          f"{base.n_layers} -> {cfg.n_layers} (full width), compute_dtype "
+          f"{base.compute_dtype} -> float32")
+    tcfg = TrainConfig(opt=OptConfig(**TSHARD_OPT), remat="full",
+                       attn_impl="flash")
+    ds = IndexedDataset(DataConfig(kind="lm", vocab=cfg.vocab,
+                                   seq_len=TSHARD_SEQ,
+                                   global_batch=TSHARD_BATCH,
+                                   seed=TRAIN_DATA_SEED))
+    name = f"step_{TSHARD_TRAINER_CKPT:09d}"
+
+    def init(gen):
+        return api.init_params(cfg, gen, device="cuda")
+
+    def run(spec, directory):
+        mesh = make_mesh(*spec)
+        with S.use_mesh(mesh), S.use_rules(_tshard_rules(S, mesh, cfg,
+                                                         TSHARD_BATCH)):
+            psh = S.tree_shardings(api.param_specs(cfg))
+            tr = Trainer(cfg, tcfg, LoopConfig(
+                total_steps=TSHARD_TRAINER_STEPS,
+                ckpt_every=TSHARD_TRAINER_CKPT, ckpt_dir=directory,
+                keep=TSHARD_TRAINER_STEPS, log_every=0), ds, init, psh,
+                S.named_sharding("batch", None), device="cuda")
+            params, opt, start = tr.init_or_restore(SEED)
+            equal = None
+            if start:
+                with np.load(Path(directory) / name / "shard_0.npz") as z:
+                    equal = all(torch.equal(blk.cpu(), S.local_shard(
+                        torch.from_numpy(z["params/" + key]),
+                        sh).contiguous())
+                        for key, blk, sh in _paired(params, psh))
+            t0 = time.perf_counter()
+            _, _, step, hist = tr.run(params, opt, start)
+            secs = time.perf_counter() - t0
+        return [h["loss"] for h in hist], start, equal, step, secs
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        straight, restored = Path(tmp) / "straight", Path(tmp) / "restored"
+        world = run_world(lambda rank: run(TSHARD_MESH, str(straight)),
+                          TSHARD_RANKS)
+        losses, _, _, step, secs = world.results[0]
+        check(step == TSHARD_TRAINER_STEPS
+              and len(losses) == TSHARD_TRAINER_STEPS
+              and all(math.isfinite(x) for x in losses)
+              and all(r[0] == losses for r in world.results),
+              f"train shard (b): {[r[0] for r in world.results]}")
+        restored.mkdir()
+        shutil.copytree(straight / name, restored / name)
+        small = run_world(lambda rank: run(TSHARD_RESTORE_MESH,
+                                           str(restored)), 2)
+        for rank, (more, start, equal, _, secs2) in enumerate(small.results):
+            gap = max(abs(a - b) for a, b in zip(
+                more, losses[TSHARD_TRAINER_CKPT:]))
+            check(start == TSHARD_TRAINER_CKPT and equal and len(more) == 2
+                  and gap <= 1e-4,
+                  f"train shard (b) rank {rank} of 2: restored step {start},"
+                  f" blocks bitwise {equal}, losses {more} against "
+                  f"{losses[TSHARD_TRAINER_CKPT:]}")
+    print(f"[train-shard] (b) Trainer, {TSHARD_ARCH} at {cfg.n_layers} "
+          f"layers, on the {TSHARD_MESH[0]} world: "
+          f"{TSHARD_TRAINER_STEPS} steps in {secs:.1f} s (checkpoints at "
+          f"steps {TSHARD_TRAINER_CKPT} and {TSHARD_TRAINER_STEPS}, "
+          "gathered and written by the mesh's first rank), losses "
+          + " ".join(f"{x:.6f}" for x in losses) + f"; step "
+          f"{TSHARD_TRAINER_CKPT} restored onto 2 ranks of a "
+          f"{TSHARD_RESTORE_MESH[0]} {TSHARD_RESTORE_MESH[1]} mesh, every "
+          f"block bitwise its slice of the stored global array, 2 more "
+          f"steps in {secs2:.1f} s: losses "
+          + " ".join(f"{x:.6f}" for x in more) + f", max |diff| {gap:.2e} "
+          f"from the straight run's (bound 1e-4); {card}")
+
+
+def _paired(blocks, shardings, prefix=""):
+    """(path, block, sharding) of every leaf of a tree of blocks."""
+    for key in sorted(blocks):
+        path = f"{prefix}/{key}" if prefix else key
+        if isinstance(blocks[key], dict):
+            yield from _paired(blocks[key], shardings[key], path)
+        else:
+            yield path, blocks[key], shardings[key]
+
+
+def tshard_ssm(torch, K, card) -> dict:
+    """(c): Falcon-Mamba-7B at full width cut to TSHARD_SSM_LAYERS layers,
+    one sharded step against the unsharded one; causal_conv1d's launches
+    counted in the ranks' run. Returns them."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, IndexedDataset
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.world import run_world
+    from repro_torch.models import api
+    from repro_torch.obs import metrics
+    from repro_torch.optim import OptConfig, init_opt_state
+    from repro_torch.parallel import sharding as S
+    from repro_torch.train import TrainConfig, make_train_step
+    full = get_config(SSM_ARCH)
+    cfg = dataclasses.replace(full, n_layers=TSHARD_SSM_LAYERS,
+                              compute_dtype="float32")
+    print(f"[train-shard] (c) config change: {SSM_ARCH} n_layers "
+          f"{full.n_layers} -> {TSHARD_SSM_LAYERS}, compute_dtype "
+          f"{full.compute_dtype} -> float32")
+    tcfg = TrainConfig(opt=OptConfig(**TSHARD_OPT), remat="full")
+    ds = IndexedDataset(DataConfig(kind="lm", vocab=cfg.vocab,
+                                   seq_len=TSHARD_SSM_SEQ,
+                                   global_batch=TSHARD_SSM_BATCH,
+                                   seed=TRAIN_DATA_SEED))
+    batch = {k: torch.as_tensor(v).cuda() for k, v in ds.batch(0).items()}
+    params, made = make_lm_params(torch, cfg, "cuda", "train shard ssm")
+    ref_m, ref, ref_ms, whole = _tshard_reference(torch, cfg, tcfg, params,
+                                                  [batch])
+    step = make_train_step(cfg, tcfg)
+    plain = metrics.counter("kernels.dispatch.causal_conv1d.torch")
+    plain_before = plain.value
+    n_ranks = 1
+    for n in TSHARD_SSM_MESH[0]:
+        n_ranks *= n
+    K.reset_launches()
+
+    def rank_main(rank):
+        mesh = make_mesh(*TSHARD_SSM_MESH)
+        with S.use_mesh(mesh), S.use_rules(_tshard_rules(
+                S, mesh, cfg, TSHARD_SSM_BATCH)):
+            psh = S.tree_shardings(api.param_specs(cfg))
+            p = S.local_tree(params, psh, copy=True)
+            channels = p["layers"]["mamba"]["conv_w"].shape[-1]
+            opt = init_opt_state(p, tcfg.opt)
+            rows = {k: S.local_shard(v, S.named_sharding("batch", None))
+                    for k, v in batch.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, opt, m = step(p, opt, rows)
+            got = [(float(m["loss"]), float(m["grad_norm"]))]
+            ms = (time.perf_counter() - t0) * 1e3
+            err = _gathered_errs(torch, S, p, psh, ref, params)
+        return got, ms, err, channels, _tree_bytes(p) * 3
+    world = run_world(rank_main, n_ranks)
+    launches = {k.__name__: k.launches for k in K.KERNELS}
+    want = 3 * TSHARD_SSM_LAYERS * n_ranks
+    check(launches["causal_conv1d"] == want
+          and sum(launches.values()) == want
+          and plain.value == plain_before,
+          f"train shard (c): launches {launches}, plain causal_conv1d "
+          f"{plain.value - plain_before}; expected {want} causal_conv1d "
+          "launches and no plain call")
+    di = cfg.mamba.expand * cfg.d_model
+    for rank, (got_m, ms, err, channels, mine) in enumerate(world.results):
+        _tshard_check("(c)", rank, ref_m, got_m, err, tcfg.opt.lr, 1)
+        check(channels * TSHARD_SSM_MESH[0][1] == di,
+              f"train shard (c) rank {rank}: {channels} of {di} channels")
+    got_m, ms, errs, channels, mine = world.results[0]
+    rel, worst, far = _param_gap(errs)
+    print(f"[train-shard] (c) {SSM_ARCH} at {TSHARD_SSM_LAYERS} layers "
+          f"({made}), float32, remat {tcfg.remat}: {n_ranks} threads on a "
+          f"{TSHARD_SSM_MESH[0]} {TSHARD_SSM_MESH[1]} mesh, one step of "
+          f"{TSHARD_SSM_BATCH} x {TSHARD_SSM_SEQ} tokens: loss "
+          f"{got_m[0][0]:.6f} against {ref_m[0][0]:.6f}, grad norm "
+          f"{got_m[0][1]:.6f} against {ref_m[0][1]:.6f} unsharded (bound "
+          f"{TSHARD_REL} relative), params {rel:.3e} of the update apart "
+          f"in norm (bound {TSHARD_UPDATE_REL}), max |diff| {worst:.3e}, "
+          f"{far:,} weights over {TSHARD_FAR} apart; causal_conv1d launched "
+          f"{launches['causal_conv1d']} times on the \"cuda\" route = 3 x "
+          f"{TSHARD_SSM_LAYERS} layers x {n_ranks} ranks (forward, "
+          f"recompute, dx) on {channels} of {di} channels a rank, its plain "
+          f"version never; param + m + v {mine / 2 ** 30:.2f} GiB a rank "
+          f"of {whole / 2 ** 30:.2f}; step {ms:.1f} ms sharded against "
+          f"{ref_ms:.1f} ms unsharded (wall clock); {card}")
+    return launches
+
+
 def _device_only_rows(torch, fn, calls):
     from repro_torch.tune.runner import device_kernels as per_call
     try:
@@ -5550,6 +6031,10 @@ def main() -> int:
         add(phase_launch(torch, K, card))
     with phase_clock("14 shard"):
         add(phase_shard(torch, K, card))
+    gc.collect()
+    torch.cuda.empty_cache()    # phase 14's models are gone
+    with phase_clock("15 train-shard"):
+        add(phase_train_shard(torch, K, card))
     print(f"[time] the run so far {time.perf_counter() - t_start:.1f} s")
 
     rows = []
@@ -5589,7 +6074,9 @@ def main() -> int:
           f"int8 decode step, 72 matmul_q8, and an {ROOF_SSM_LAYERS}-layer "
           f"Falcon-Mamba prefill, {ROOF_SSM_LAYERS} causal_conv1d) and the "
           f"shard phase's prefills (phase 14: {SHARD_SSM_LAYERS} "
-          f"causal_conv1d a rank on {SHARD_RANKS} ranks); card: {card}")
+          f"causal_conv1d a rank on {SHARD_RANKS} ranks) and the sharded "
+          f"Falcon-Mamba train step (phase 15: 3 causal_conv1d a layer a "
+          f"rank, {TSHARD_SSM_LAYERS} layers on 4 ranks); card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

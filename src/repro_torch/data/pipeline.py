@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.parallel.sharding import NamedSharding, local_shard
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,21 +111,33 @@ def _to32(a: np.ndarray) -> np.ndarray:
 
 class PrefetchLoader:
     """Batches moved to ``device`` ``depth`` steps ahead of the one handed
-    out (on a card the copies are enqueued behind the running step)."""
+    out (on a card the copies are enqueued behind the running step). With
+    ``sharding`` (a ``parallel.sharding.NamedSharding`` for every leaf,
+    or a dict of them by key; ``None`` for a leaf held whole) each leaf
+    handed out is this rank's block of the dataset's batch, as JAX's
+    ``device_put`` with a sharding places it."""
 
     def __init__(self, ds: IndexedDataset, start_step: int = 0,
-                 depth: int = 2, device="cuda"):
+                 depth: int = 2, device="cuda", sharding=None):
         self.ds = ds
         self.step = start_step
         self.depth = depth
         self.device = resolve_device(device)
+        self.sharding = sharding
         self.buf: list = []
 
     def _put(self, batch: dict) -> dict:
-        # 64-bit arrays arrive in 32 bits, as JAX puts them with x64 off
-        return {k: torch.as_tensor(_to32(v)).to(self.device,
-                                                non_blocking=True)
-                for k, v in batch.items()}
+        out = {}
+        for k, v in batch.items():
+            # 64-bit arrays arrive in 32 bits, as JAX puts them with x64 off
+            t = torch.as_tensor(_to32(v))
+            sh = self.sharding
+            if sh is not None and not isinstance(sh, NamedSharding):
+                sh = sh[k]
+            if sh is not None:
+                t = local_shard(t, sh)
+            out[k] = t.to(self.device, non_blocking=True)
+        return out
 
     def __next__(self) -> dict:
         while len(self.buf) < self.depth:

@@ -28,8 +28,9 @@ batch and cache by the rules' local shapes; ``output_bytes``;
 extrapolated to the full depth, :func:`cell_work`), ``n_chips`` and
 ``tokens``. It has
 no compile times, temp bytes or collective bytes: eager PyTorch has no
-compiler to ask, and a cell's collective bytes wait for the sharded
-training step (ROADMAP.md, A8.1b). Nothing stands in for them.
+compiler to ask, and a cell's collective bytes wait for a count of the
+sharded training step's collectives (ROADMAP.md, A8.1c). Nothing stands
+in for them.
 """
 from __future__ import annotations
 

@@ -13,8 +13,10 @@ def make_mesh(shape, axes, *, device_type: str = "cuda"):
     """A mesh of ``shape`` over axes named ``axes`` (tests, elastic
     restore)."""
     from torch.distributed.device_mesh import init_device_mesh
-    return init_device_mesh(device_type, tuple(shape),
-                            mesh_dim_names=tuple(axes))
+
+    from repro_torch.parallel.sharding import off_turn
+    return off_turn(lambda: init_device_mesh(device_type, tuple(shape),
+                                             mesh_dim_names=tuple(axes)))
 
 
 def make_production_mesh(*, multi_pod: bool = False,

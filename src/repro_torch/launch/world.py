@@ -21,11 +21,15 @@ with its process group initialised (the sharded step inside makes its
   runs it in issue order; a collective runs once every rank has joined it
   (the lowest rank copies the data, the others wait for it), so no rank
   reads a collective's output before the copy is queued, and nothing
-  races across threads. While the threads run, the interpreter's thread
-  switch interval is ``THREAD_SWITCH_S`` (the default is 5 ms): a rank
-  woken from a collective waits for the GIL until the rank that holds it
-  lets go, and with the default that wait dominated a step of 120
-  collectives.
+  races across threads. The ranks take turns on the host
+  (``parallel.sharding.taking_turns``): one runs until it waits in a
+  collective (or makes a group or a mesh, ``launch.mesh.make_mesh``),
+  then the next; a rank that waits on the others anywhere else holds
+  its turn and stops the world. While the threads run, the interpreter's
+  thread switch interval is ``THREAD_SWITCH_S`` (the default is 5 ms): a
+  rank woken from a collective waits for the GIL until the rank that
+  holds it lets go, and with the default that wait dominated a step of
+  120 collectives.
 
 A rank that raises, or a world that outlives ``timeout`` seconds, raises
 here (the other ranks are terminated or released): nothing retries on
@@ -143,7 +147,9 @@ def _thread_world(fn, n, args, timeout, device_type) -> World:
     if isolate is not None:
         isolate(True)
     tpg._install_threaded_pg()
+    from repro_torch.parallel.sharding import taking_turns
     store = dist.HashStore()
+    turn = threading.Lock()
     out = queue_mod.Queue()
     device = torch.cuda.current_device() if device_type == "cuda" else None
 
@@ -156,7 +162,9 @@ def _thread_world(fn, n, args, timeout, device_type) -> World:
                 torch.cuda.set_device(device)
             dist.init_process_group("threaded", rank=rank, world_size=n,
                                     store=store)
-            out.put((rank, True, fn(rank, *args)))
+            with taking_turns(turn):
+                result = fn(rank, *args)
+            out.put((rank, True, result))
         except BaseException as e:
             out.put((rank, False, traceback.format_exc()))
             tpg.ProcessLocalGroup.exception_handle(e)   # release the others

@@ -18,7 +18,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.quantize import QTensorW4, quantize, quantize_w4
 from repro_torch.kernels import ops as K
-from repro_torch.parallel.sharding import constrain
+from repro_torch.parallel.sharding import (axis_index, constrain, pmax,
+                                           psum, split_axes)
 
 ACT_FRAC_BITS = 4      # activation scale 2^-4: post-rmsnorm streams are O(1)
 
@@ -57,7 +58,10 @@ def row_mm(x, w, rows=None):
 
 def mlp(h, p, act: str, cdt, rows=None):
     """SwiGLU (3 mats) or GELU (2 mats) feed-forward; each matmul
-    :func:`row_mm` in blocks of ``rows`` rows."""
+    :func:`row_mm` in blocks of ``rows`` rows. Where the active rules
+    split ``ffn``, ``p`` holds this rank's columns of ``w_gate`` /
+    ``w_up`` and rows of ``w_down``, and the partial products are summed
+    over the ranks (:func:`~repro_torch.parallel.sharding.psum`)."""
     h = h.to(cdt)
     if act == "silu":
         g = row_mm(h, p["w_gate"].to(cdt), rows)
@@ -66,7 +70,9 @@ def mlp(h, p, act: str, cdt, rows=None):
     else:
         z = _act(row_mm(h, p["w_up"].to(cdt), rows), act)
     z = constrain(z, "batch", "seq", "ffn")
-    return row_mm(z, p["w_down"].to(cdt), rows)
+    y = row_mm(z, p["w_down"].to(cdt), rows)
+    ax = split_axes("ffn")
+    return psum(y, ax) if ax else y
 
 
 def quantize_mlp_params(p, *, bits: int = 8, group_size: int = 32):
@@ -185,27 +191,62 @@ def rope(x, positions, theta: float):
                      dim=-1).to(x.dtype)
 
 
+def _lse_ll(logits, labels):
+    """(logsumexp, the label's logit) of float32 ``logits`` over the last
+    dim, ``labels`` >= 0. Where the active rules split ``vocab``, ``logits``
+    are this rank's block of the vocabulary: the max is the ranks' ``pmax``
+    (no gradient, as logsumexp's shift has none), the sum of exponentials
+    their ``psum``, and the label's logit comes from the rank whose block
+    holds it, ``psum`` ed."""
+    ax = split_axes("vocab")
+    if not ax:
+        return (torch.logsumexp(logits, dim=-1),
+                torch.gather(logits, -1, labels[..., None])[..., 0])
+    vl = logits.shape[-1]
+    m = pmax(torch.amax(logits.detach(), dim=-1), ax)
+    lse = m + torch.log(psum(torch.sum(torch.exp(logits - m[..., None]),
+                                       dim=-1), ax))
+    loc = labels - axis_index(ax) * vl
+    mine = (loc >= 0) & (loc < vl)
+    ll = torch.gather(logits, -1, loc.clamp(0, vl - 1)[..., None])[..., 0]
+    return lse, psum(torch.where(mine, ll, torch.zeros_like(ll)), ax)
+
+
+def _batch_sums(*sums):
+    """``sums`` summed over the ranks of the batch axes the active rules
+    split (one collective), or as they are."""
+    ax = split_axes("batch")
+    if not ax:
+        return sums
+    return tuple(psum(torch.stack(sums), ax).unbind(0))
+
+
 def cross_entropy(logits, labels, mask=None):
     """Mean token cross-entropy in float32; labels < 0 are ignored (or
-    ``mask`` picks the counted tokens)."""
+    ``mask`` picks the counted tokens). In a sharded step ``logits`` may
+    be this rank's block of the vocabulary (:func:`_lse_ll`), and the mean
+    is over every rank's tokens."""
     logits = logits.to(torch.float32)
     valid = (labels >= 0) if mask is None else mask
     lab = torch.clamp(labels, min=0).long()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, lab[..., None])[..., 0]
+    lse, ll = _lse_ll(logits, lab)
     nll = (lse - ll) * valid
-    return torch.sum(nll) / torch.clamp(torch.sum(valid), min=1)
+    if not split_axes("batch"):
+        return torch.sum(nll) / torch.clamp(torch.sum(valid), min=1)
+    total, count = _batch_sums(torch.sum(nll),
+                               torch.sum(valid).to(torch.float32))
+    return total / torch.clamp(count, min=1)
 
 
 def _ce_chunk(h_c, w, y_c):
     """One chunk's (nll sum, squared-lse sum) over its valid labels, the
-    (B, chunk, V) float32 logits made and dropped inside."""
+    (B, chunk, V) float32 logits made and dropped inside (this rank's
+    block of V where the rules split ``vocab``)."""
     logits = constrain(h_c.to(torch.float32) @ w.to(torch.float32),
                        "batch", None, "vocab")
     valid = y_c >= 0
     lab = torch.clamp(y_c, min=0).long()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, lab[..., None])[..., 0]
+    lse, ll = _lse_ll(logits, lab)
     return torch.sum((lse - ll) * valid), torch.sum(torch.square(lse) * valid)
 
 
@@ -219,7 +260,10 @@ def chunked_softmax_ce(h, w_unembed, labels, *, chunk: int = 512,
     backward recomputes them chunk by chunk: the peak holds one chunk's
     (B, chunk, V) float32 logits, as JAX's ``@jax.checkpoint`` scan body
     does. Returns mean nll + ``z_loss`` * mean lse^2 over the valid
-    labels."""
+    labels. In a sharded step ``w_unembed`` holds this rank's columns of
+    the vocabulary where the rules split it, and the sums and the count of
+    valid labels are summed over the batch axes' ranks (ranks may count
+    different tokens), so every rank returns the global mean."""
     b, s, _ = h.shape
     c = min(chunk, s)
     pad = (-s) % c
@@ -234,5 +278,10 @@ def chunked_softmax_ce(h, w_unembed, labels, *, chunk: int = 512,
                              use_reentrant=False)
         l_sum = l_sum + nll
         z_sum = z_sum + zs
-    denom = torch.clamp(torch.sum(labels >= 0), min=1).to(torch.float32)
+    if split_axes("batch"):
+        l_sum, z_sum, count = _batch_sums(
+            l_sum, z_sum, torch.sum(labels >= 0).to(torch.float32))
+        denom = torch.clamp(count, min=1)
+    else:
+        denom = torch.clamp(torch.sum(labels >= 0), min=1).to(torch.float32)
     return l_sum / denom + z_loss * z_sum / denom

@@ -44,7 +44,8 @@ from repro_torch.parallel.sharding import axis_size, constrain, current_mesh
 from . import attention as A
 from .blocks import chunked_softmax_ce, init_mlp, mlp, mlp_specs, rmsnorm
 from .transformer import (_cdt, _kv, _q, _qkv, _remat, _sp_decode, _take,
-                          _unstack, attn_decode, attn_specs, init_attn)
+                          _unstack, attn_decode, attn_specs, check_splits,
+                          init_attn)
 
 
 def init_encdec(cfg: ModelConfig, generator: torch.Generator, *,
@@ -147,6 +148,7 @@ def encdec_loss(params, batch, cfg: ModelConfig, *, attn_impl="full",
     layer under ``_remat(.., remat)``, then
     :func:`~repro_torch.models.blocks.chunked_softmax_ce` against
     tokens[:, 1:] through the output projection tied to ``embed``."""
+    check_splits(cfg, "encdec_loss")
     cdt = _cdt(cfg)
     enc_out = encode(params, batch["frames"], cfg, attn_impl=attn_impl,
                      remat=remat)

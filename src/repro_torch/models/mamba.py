@@ -30,7 +30,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import MambaConfig
 from repro_torch.kernels import ops as K
-from repro_torch.parallel.sharding import constrain
+from repro_torch.parallel.sharding import (all_gather, axis_index,
+                                           constrain, psum, split_axes)
 
 
 def init_mamba(generator: torch.Generator, d: int, m: MambaConfig, dtype, *,
@@ -145,24 +146,51 @@ def mamba_scan(x_c, dt, A, B_t, C_t, *, chunk: int = 256, h0=None):
     return torch.cat(ys, 1).to(x_c.dtype), h
 
 
+def _own_in_proj(w, di: int, ax: tuple):
+    """This rank's ``x`` and ``z`` columns of ``in_proj``, side by side,
+    where the rules split ``d_inner`` over ``ax``: ``w`` is the rank's
+    block of the (d, 2 * d_inner) weight, whose columns hold all of ``x``
+    then all of ``z`` (so on two ranks one block is ``x``, the other
+    ``z``); it is gathered over ``ax`` and the rank's ``di`` channels of
+    each half taken (the gather's backward reduce-scatters the
+    gradient)."""
+    full = all_gather(w, ax, dim=1)
+    half = full.shape[1] // 2
+    lo = axis_index(ax) * di
+    return torch.cat([full[:, lo:lo + di], full[:, half + lo:half + lo + di]],
+                     dim=1)
+
+
 def _mixer(p, x, cdt, chunk, conv_method):
-    """The block's body: (out, x_in before the conv, h_last)."""
+    """The block's body: (out, x_in before the conv, h_last). Where the
+    rules split ``d_inner``, ``p`` holds this rank's channels (the conv,
+    ``dt_proj``, ``A_log``, ``D``: per channel; ``x_proj`` and
+    ``out_proj``: row-parallel, their products summed over the ranks), and
+    ``in_proj``'s are taken by :func:`_own_in_proj`; the scan is per
+    channel."""
     rank = p["dt_proj"].shape[0]
     n = p["A_log"].shape[-1]
-    xz = x @ p["in_proj"].to(cdt)
+    ax = split_axes("d_inner")
+    w_in = p["in_proj"]
+    if ax:
+        w_in = _own_in_proj(w_in, p["D"].shape[-1], ax)
+    xz = x @ w_in.to(cdt)
     # x_in is a view of xz's first D columns: the conv reads it in place
     x_in, z = xz.chunk(2, dim=-1)
     x_in = constrain(x_in, "batch", None, "d_inner")
     x_c = K.causal_conv1d(x_in, p["conv_w"].to(cdt), method=conv_method)
     x_c = F.silu(x_c + p["conv_b"].to(cdt))
     dbc = x_c @ p["x_proj"].to(cdt)
+    if ax:
+        dbc = psum(dbc, ax)
     dt_low, b_t, c_t = torch.split(dbc, [rank, n, n], dim=-1)
     dt = F.softplus(dt_low @ p["dt_proj"].to(cdt) + p["dt_bias"].to(cdt))
     A = -torch.exp(p["A_log"].to(torch.float32))
     y, h_last = mamba_scan(x_c, dt, A, b_t, c_t, chunk=chunk)
     y = y + p["D"].to(cdt) * x_c
     y = constrain(y * F.silu(z), "batch", None, "d_inner")
-    return y @ p["out_proj"].to(cdt), x_in, h_last
+    out = y @ p["out_proj"].to(cdt)
+    return (psum(out, ax) if ax else out), x_in, h_last
 
 
 def mamba_forward(p, x, m: MambaConfig, cdt, *, chunk: int = 256,

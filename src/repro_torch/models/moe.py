@@ -28,7 +28,10 @@ the call together, with no collective. ``moe_ffn_sharded`` is JAX's
 of the (padded) tokens, ``all_to_all`` sends each expert's (C, d) block to
 the rank that holds that expert (E / model of them), the experts run, a
 second ``all_to_all`` brings the blocks back, and a tiled ``all_gather``
-gives every rank all tokens again. ``moe_ffn`` goes through
+gives every rank all tokens again. The collectives carry gradients (their
+backward is JAX's transpose: the exchanges swapped, the gather a
+reduce-scatter), so a moe model trains on this path as JAX's does under a
+mesh. ``moe_ffn`` goes through
 ``moe_ffn_sharded``, which takes the local path outside a mesh, on a model
 axis of size 1, when the experts do not split over it, or inside
 :class:`prefer_local`.
@@ -43,7 +46,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import MoEConfig
 from repro_torch.parallel.sharding import (all_gather, all_to_all,
                                            axis_index, axis_size,
-                                           current_mesh)
+                                           current_mesh, psum, split_axes)
 
 from .blocks import _act, stacked_normal
 
@@ -119,14 +122,18 @@ def _dispatch_combine(x2d, probs, ids, expert_fn, num_experts: int,
 
 def _expert_ffn(blocks, p, act: str, cdt):
     """blocks: (E, C, d); expert weights (E, d, ff) / (E, ff, d), all in
-    the compute dtype."""
+    the compute dtype (this rank's ff columns and rows where the rules
+    split ``ffn_expert``, the partial products then summed over the
+    ranks)."""
     blocks = blocks.to(cdt)
     up = torch.bmm(blocks, p["w_up"].to(cdt))
     if act == "silu":
         z = F.silu(torch.bmm(blocks, p["w_gate"].to(cdt))) * up
     else:
         z = _act(up, act)
-    return torch.bmm(z, p["w_down"].to(cdt))
+    y = torch.bmm(z, p["w_down"].to(cdt))
+    ax = split_axes("ffn_expert")
+    return psum(y, ax) if ax else y
 
 
 def moe_ffn_local(x, p, moe: MoEConfig, act: str, cdt):

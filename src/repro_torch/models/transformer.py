@@ -71,7 +71,20 @@ gate).
 Inside a mesh (``parallel.sharding``) every function computes on its
 rank's block of the data as it is; :func:`decode_step`'s ``sp_axis`` is
 JAX's sequence-parallel decode (:func:`attn_decode`, :func:`_sp_decode`)
-and a moe FFN is expert-parallel (``moe.moe_ffn_sharded``). On a card a
+and a moe FFN is expert-parallel (``moe.moe_ffn_sharded``). The training
+path of the dense, vlm, moe and ssm families also splits what the active
+rules split (``sharding.split_axes``; ``make_rules(..., "train",
+fsdp=True)``): heads (each rank's query heads meet the key/value heads of
+their own GQA groups; the head counts come from the local weight widths)
+with a ``psum`` after ``wo``, the FFN (``blocks.mlp``), the Mamba
+channels (``mamba._mixer``), the vocabulary (:func:`embed_tokens`, the
+loss), and the weights' ``embed`` dim, gathered at the start of each
+layer inside its checkpointed function (FSDP: the recompute gathers
+again, the backward reduce-scatters). It does not split the ``seq`` and
+``d_model_act`` dims of the activations: each rank holds its batch rows
+whole (those rules change activation memory, not results). A hybrid or
+encdec model refuses rules that split anything but the batch, the cache
+and the experts (``sharding.split_dims``). On a card a
 dense or vlm :func:`shared_prefill` (the prefill of a serving engine whose
 prefix cache shares prompt pages) runs in row blocks of one GEMM shape, so
 a prompt's rows get the same bits in every prefill bucket.
@@ -87,7 +100,8 @@ from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.core.quantize import QTensor, QTensorW4
 from repro_torch.parallel.sharding import (active_rules, axis_index,
                                            axis_size, constrain,
-                                           current_mesh)
+                                           current_mesh, gather_dims, psum,
+                                           split_axes, split_dims)
 
 from . import attention as A
 from .blocks import (chunked_softmax_ce, init_mlp, mlp, mlp_specs, qmlp,
@@ -372,13 +386,13 @@ def _hybrid_layout(cfg: ModelConfig) -> list:
 def _q(lp, x, cfg: ModelConfig, cdt, positions, rows=None):
     """The queries of ``x`` (B, S, d), rotated at ``positions`` (the
     projection :func:`~repro_torch.models.blocks.row_mm` in blocks of
-    ``rows``)."""
+    ``rows``), as many heads as ``wq`` holds columns for."""
     b, s, _ = x.shape
     q = row_mm(x, lp["wq"].to(cdt), rows)
     if cfg.qkv_bias:
         q = q + lp["bq"].to(cdt)
     q = constrain(q, "batch", "seq", "heads")
-    return rope(q.reshape(b, s, cfg.n_heads, cfg.head_dim), positions,
+    return rope(q.reshape(b, s, -1, cfg.head_dim), positions,
                 cfg.rope_theta)
 
 
@@ -392,7 +406,7 @@ def _kv(lp, x, cfg: ModelConfig, cdt, positions, rows=None):
         v = v + lp["bv"].to(cdt)
     k = constrain(k, "batch", "seq", "kv_heads")
     v = constrain(v, "batch", "seq", "kv_heads")
-    shape = (b, s, cfg.n_kv_heads, cfg.head_dim)
+    shape = (b, s, -1, cfg.head_dim)
     return rope(k.reshape(shape), positions, cfg.rope_theta), v.reshape(shape)
 
 
@@ -412,14 +426,32 @@ def attn_forward(lp, x, cfg: ModelConfig, cdt, *, impl: str, q_offset=0,
     b, s, _ = x.shape
     positions = q_offset + torch.arange(s, device=x.device)[None, :]
     q, k, v = _qkv(lp, x, cfg, cdt, positions, rows)
+    heads = split_axes("heads")
+    ka, va = _own_groups(k, q.shape[2], cfg, heads), \
+        _own_groups(v, q.shape[2], cfg, heads)
     if rows is None:
-        o = A.attention(q, k, v, causal=True, impl=impl, block_k=block_k)
+        o = A.attention(q, ka, va, causal=True, impl=impl, block_k=block_k)
     else:
-        o = A.prefix_chunk_attention(q, k, v, rows)
-    o = constrain(o.reshape(b, s, cfg.n_heads * cfg.head_dim),
-                  "batch", "seq", "heads")
+        o = A.prefix_chunk_attention(q, ka, va, rows)
+    o = constrain(o.reshape(b, s, -1), "batch", "seq", "heads")
     out = row_mm(o, lp["wo"].to(cdt), rows)
+    if heads:
+        out = psum(out, heads)
     return constrain(out, "batch", "seq", None), (k, v)
+
+
+def _own_groups(kv, hq: int, cfg: ModelConfig, heads: tuple):
+    """``kv`` (B, S, Hkv, D) cut to the key/value heads of this rank's
+    ``hq`` query heads where the rules split the query heads over
+    ``heads`` but not the key/value heads (``make_rules`` then leaves the
+    rank part of a GQA group): one key/value head per query head, each
+    its group's. Anything else as it is."""
+    if not heads or split_axes("kv_heads") or hq == cfg.n_heads:
+        return kv
+    first = axis_index(heads) * hq
+    ids = torch.arange(first, first + hq, device=kv.device) \
+        // (cfg.n_heads // cfg.n_kv_heads)
+    return kv.index_select(2, ids)
 
 
 def attn_decode(lp, x, cfg: ModelConfig, cdt, k_cache, v_cache, cache_len,
@@ -576,7 +608,20 @@ def _hybrid_ffn(x, bp, kind: str, j: int, cfg: ModelConfig, cdt):
 
 
 def embed_tokens(params, tokens, cfg: ModelConfig, cdt):
-    return params["embed"][tokens].to(cdt)
+    """The token embeddings in the compute dtype. Where the rules split
+    ``vocab``, ``params["embed"]`` holds this rank's rows of the table:
+    a token outside them looks up zeros, and the ranks' lookups are
+    summed (one rank holds each token, so the sum is its row exactly)."""
+    ax = split_axes("vocab")
+    if not ax:
+        return params["embed"][tokens].to(cdt)
+    table = params["embed"]
+    vl = table.shape[0]
+    loc = tokens - axis_index(ax) * vl
+    mine = ((loc >= 0) & (loc < vl))[..., None]
+    rows = table[loc.clamp(0, vl - 1)]
+    return psum(torch.where(mine, rows, torch.zeros_like(rows)),
+                ax).to(cdt)
 
 
 def unembed(params, h, cfg: ModelConfig):
@@ -663,13 +708,61 @@ def _remat(fn, mode: str):
     return wrapped
 
 
+def _layer_specs(cfg: ModelConfig) -> dict:
+    """The logical axis names of one layer's leaves (a super-block's for
+    a hybrid model): :func:`lm_param_specs`' stack without its leading
+    layer axis."""
+    specs = lm_param_specs(cfg)["blocks" if cfg.family == "hybrid"
+                                else "layers"]
+
+    def strip(t):
+        if isinstance(t, dict):
+            return {k: strip(v) for k, v in t.items()}
+        return t[1:]
+    return strip(specs)
+
+
+#: the top-level leaves whose ``embed_table`` dim FSDP splits
+_TABLES = ("embed", "unembed")
+
+
+def gather_tables(params, cfg: ModelConfig) -> dict:
+    """``params`` with the embedding (and unembedding) table's
+    ``embed_table`` dim gathered where the rules split it (FSDP), once a
+    step, ahead of :func:`forward_hidden`; ``params`` itself elsewhere."""
+    specs = lm_param_specs(cfg)
+    keys = [k for k in _TABLES if k in params]
+    got = gather_dims({k: params[k] for k in keys},
+                      {k: specs[k] for k in keys}, ("embed_table",))
+    return dict(params, **got)
+
+
+def check_splits(cfg: ModelConfig, what: str):
+    """A hybrid or encdec model's layers compute every dim whole: raise
+    where the active rules split one beyond the batch, the cache and the
+    experts."""
+    dims = split_dims() if cfg.family in ("hybrid", "encdec") else ()
+    if dims:
+        raise NotImplementedError(
+            f"{what}: the {cfg.family} family does not train under rules "
+            f"that split {', '.join(dims)} (ROADMAP A8.1c); its sharded "
+            "step splits the batch only")
+
+
 def forward_hidden(params, tokens, cfg: ModelConfig, *, embeds=None,
                    attn_impl: str = "full", remat: str = "full"):
     """Final hidden states (after the final norm) of ``tokens`` (B, S), a
     vlm model's ``embeds`` (B, P, d_model) ahead of them, each layer (or
-    super-block) under ``_remat(.., remat)``."""
+    super-block) under ``_remat(.., remat)``. Under FSDP rules each
+    layer's weights are gathered inside its checkpointed function, and
+    the tables must come gathered (:func:`gather_tables`)."""
     _check_decoder(cfg, "forward_hidden")
+    check_splits(cfg, "forward_hidden")
     cdt = _cdt(cfg)
+    specs = _layer_specs(cfg)
+
+    def whole(lp):
+        return gather_dims(lp, specs, ("embed",))
     h = embed_tokens(params, tokens, cfg, cdt)
     if embeds is not None:
         h = torch.cat([embeds.to(cdt), h], dim=1)
@@ -679,10 +772,11 @@ def forward_hidden(params, tokens, cfg: ModelConfig, *, embeds=None,
                                                   impl=attn_impl), remat)
         stack = _unstack(params["blocks"], _hybrid_counts(cfg)[0])
     elif cfg.family == "ssm":
-        body = _remat(lambda hh, lp: ssm_layer(hh, lp, cfg, cdt), remat)
+        body = _remat(lambda hh, lp: ssm_layer(hh, whole(lp), cfg, cdt),
+                      remat)
         stack = _unstack(params["layers"], cfg.n_layers)
     else:
-        body = _remat(lambda hh, lp: dense_layer(hh, lp, cfg, cdt,
+        body = _remat(lambda hh, lp: dense_layer(hh, whole(lp), cfg, cdt,
                                                  impl=attn_impl), remat)
         stack = _unstack(params["layers"], cfg.n_layers)
     for lp in stack:
@@ -692,7 +786,9 @@ def forward_hidden(params, tokens, cfg: ModelConfig, *, embeds=None,
 
 def forward(params, tokens, cfg: ModelConfig, *, embeds=None,
             attn_impl: str = "full", remat: str = "full"):
-    """Float32 logits (B, P + S, V) of :func:`forward_hidden`."""
+    """Float32 logits (B, P + S, V) of :func:`forward_hidden` (this
+    rank's block of V where the rules split ``vocab``)."""
+    params = gather_tables(params, cfg)
     h = forward_hidden(params, tokens, cfg, embeds=embeds,
                        attn_impl=attn_impl, remat=remat)
     return unembed(params, h, cfg)
@@ -707,6 +803,7 @@ def lm_loss(params, batch, cfg: ModelConfig, *, attn_impl: str = "full",
     left out of the loss."""
     tokens = batch["tokens"]
     embeds = batch.get("embeds")
+    params = gather_tables(params, cfg)
     h = forward_hidden(params, tokens[:, :-1], cfg, embeds=embeds,
                        attn_impl=attn_impl, remat=remat)
     n_img = 0 if embeds is None else embeds.shape[1]

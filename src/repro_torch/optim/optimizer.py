@@ -51,10 +51,27 @@ def _is_float(x) -> bool:
     return isinstance(x, torch.Tensor) and x.is_floating_point()
 
 
-def global_norm(tree) -> torch.Tensor:
-    """The L2 norm over every float leaf, summed in float32."""
+def global_norm(tree, axes=None) -> torch.Tensor:
+    """The L2 norm over every float leaf, summed in float32. In a sharded
+    step ``axes`` gives, leaf by leaf in flatten order, the mesh axes
+    that split that leaf (``()`` for one held whole): each leaf's sum of
+    squares over its block is summed over exactly those ranks (leaves of
+    the same axes in one collective), so a replicated dim counts once and
+    every rank gets the global norm."""
+    float_leaves = [(i, x) for i, x in enumerate(leaves(tree))
+                    if _is_float(x)]
     sums = [torch.sum(torch.square(x.to(torch.float32)))
-            for x in leaves(tree) if _is_float(x)]
+            for _, x in float_leaves]
+    if axes is not None:
+        from repro_torch.parallel.sharding import psum
+        by_axes: dict = {}
+        for j, (i, _) in enumerate(float_leaves):
+            if axes[i]:
+                by_axes.setdefault(tuple(axes[i]), []).append(j)
+        for ax, js in by_axes.items():
+            got = psum(torch.stack([sums[j] for j in js]), ax).unbind(0)
+            for j, v in zip(js, got):
+                sums[j] = v
     return torch.sqrt(torch.sum(torch.stack(sums)))
 
 
@@ -133,7 +150,8 @@ SLICE_ELEMS = 1 << 24
 
 
 @torch.no_grad()
-def apply_updates_(params, grads, state: dict, cfg: OptConfig):
+def apply_updates_(params, grads, state: dict, cfg: OptConfig, *,
+                   norm_axes=None):
     """:func:`apply_updates` in place, the port's counterpart of the JAX
     trainer's buffer donation: params, ``state["m"]``, ``state["v"]`` and
     ``state["step"]`` are overwritten with the new values, bitwise those
@@ -143,8 +161,11 @@ def apply_updates_(params, grads, state: dict, cfg: OptConfig):
     a row is larger), clipping included, so the temporaries stay a slice's
     size: the functional form holds old and new params, moments and
     clipped gradients together. The arithmetic is elementwise, so slicing
-    changes no bit."""
-    gnorm = global_norm(grads)
+    changes no bit. In a sharded step ``params``, ``grads`` and the
+    moments are this rank's blocks and ``norm_axes`` the mesh axes of
+    each leaf (:func:`global_norm`): the norm, and so the clipping, are
+    the global ones, and the update runs on the blocks."""
+    gnorm = global_norm(grads, norm_axes)
     scale = _clip_scale(gnorm, cfg.grad_clip)
     state["step"] += 1
     lr, bc1, bc2 = _schedule_terms(state["step"], cfg)

@@ -28,10 +28,17 @@ world, ``launch.world.run_world``) the port runs explicit SPMD, as the
 bodies of JAX's ``shard_map`` do: every rank calls the model functions on
 plain tensors that hold its own block of the data (:func:`local_shard`,
 :func:`shard_tree`), and the layers that split work across ranks say so
-with collectives over the current mesh's per-axis groups
-(:func:`axis_index`, :func:`psum`, :func:`pmax`, :func:`all_gather`,
-:func:`all_to_all`): sequence-parallel decode and expert-parallel MoE.
-:func:`constrain` and :func:`named_sharding` are JAX's.
+with collectives over the current mesh's groups, of one axis or of a
+tuple of them (:func:`axis_index`, :func:`psum`, :func:`pmax`,
+:func:`all_gather`, :func:`psum_scatter`, :func:`all_to_all`), each
+differentiable with JAX's transpose for its backward. The active rules
+decide what a layer splits (:func:`split_axes`): under
+``make_rules(mesh, cfg, "train", fsdp=True)`` a rank holds and computes
+only its block of the heads, the FFN, the vocabulary, the Mamba channels
+and the experts, and its weights' ``embed`` dim is gathered at the start
+of each layer (FSDP, :func:`gather_dims`); under :func:`spmd_rules` (the
+serve paths: sequence-parallel decode, expert-parallel MoE) every such dim
+is whole. :func:`constrain` and :func:`named_sharding` are JAX's.
 
 The rules and the mesh are per thread: the card runs a world's ranks as
 threads of one process, each inside its own mesh and rules.
@@ -369,74 +376,354 @@ def shard_tree(tree, specs, mesh=None):
     names are ``specs`` (the same dict structure), under the active rules
     (a sharded step's: :func:`spmd_rules`): the layout its model functions
     take."""
-    shardings = tree_shardings(specs, mesh)
-
-    def cut(t, s):
-        if isinstance(t, dict):
-            return {k: cut(t[k], s[k]) for k in t}
-        return local_shard(t, s)
-    return cut(tree, shardings)
+    return local_tree(tree, tree_shardings(specs, mesh))
 
 
-def _group(axis: str):
-    mesh = current_mesh()
-    if mesh is None or axis not in mesh.mesh_dim_names:
-        raise ValueError(f"no mesh axis {axis!r} is current")
-    return mesh.get_group(axis)
+def local_tree(tree, shardings, *, copy: bool = False):
+    """This rank's blocks of a tree of global tensors under a tree of
+    :class:`NamedSharding` s of the same structure (``None`` for a leaf or
+    subtree held whole); with ``copy``, each block a contiguous tensor of
+    its own, not a view of the global one (the blocks a rank updates in
+    place)."""
+    if isinstance(tree, dict):
+        whole = shardings is None or isinstance(shardings, NamedSharding)
+        return {k: local_tree(v, shardings if whole else shardings[k],
+                              copy=copy)
+                for k, v in tree.items()}
+    t = tree if shardings is None else local_shard(tree, shardings)
+    return t.clone(memory_format=torch.contiguous_format) if copy else t
 
 
-def axis_index(axis: str) -> int:
-    """This rank's coordinate along mesh axis ``axis`` (JAX's
-    ``lax.axis_index``); 0 outside a mesh or for an axis it lacks."""
-    mesh = current_mesh()
-    if mesh is None or axis not in mesh.mesh_dim_names:
-        return 0
-    return mesh.get_local_rank(axis)
+class taking_turns:
+    """Inside the block this thread runs only while it holds ``lock``, a
+    lock that every rank thread of a threaded world shares (the card's
+    world, ``launch.world``): it takes the lock on entry and gives it up
+    only while it waits on the other ranks (:func:`off_turn`: the
+    collectives, making a group or a mesh). So one rank runs host code at
+    a time, up to its next collective: PyTorch drops the interpreter lock
+    around every operation, and ranks all running would trade it at every
+    one (on an H100, a Qwen2-0.5B train step on 8 such threads took 26x
+    the one-rank step's time, and 8.5x taking turns)."""
+    def __init__(self, lock):
+        self.lock = lock
+
+    def __enter__(self):
+        self.lock.acquire()
+        _LOCAL.turn = self.lock
+        return self
+
+    def __exit__(self, *exc):
+        _LOCAL.turn = None
+        self.lock.release()
 
 
-def _all_reduce(x, axis: str, op):
+def off_turn(fn):
+    """``fn()`` with this thread's turn (:class:`taking_turns`) given up
+    while it runs: every call that waits on other ranks goes through
+    here."""
+    turn = getattr(_LOCAL, "turn", None)
+    if turn is None:
+        return fn()
+    turn.release()
+    try:
+        return fn()
+    finally:
+        turn.acquire()
+
+
+def _axes(axis) -> tuple:
+    """``axis`` (a mesh axis name or a tuple of them) as a tuple."""
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
+def _group(axis):
+    """The process group over mesh axis ``axis``, or over the product of a
+    tuple of axes (listed in the mesh's order): the ranks that share this
+    rank's coordinates on every other axis, in the mesh's major-to-minor
+    order of their coordinates on ``axis``, made once a mesh and cached
+    on it (``new_group`` with local synchronisation: only its members
+    make it)."""
     import torch.distributed as dist
-    y = x.clone()
-    dist.all_reduce(y, op=op, group=_group(axis))
+    mesh = current_mesh()
+    axes = _axes(axis)
+    names = tuple(mesh.mesh_dim_names) if mesh is not None else ()
+    if mesh is None or not axes or any(a not in names for a in axes):
+        raise ValueError(f"no mesh axis {axis!r} is current")
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    idx = [names.index(a) for a in axes]
+    if idx != sorted(set(idx)):
+        raise ValueError(f"axes {axes} are not in the mesh's order {names}")
+    cache = mesh.__dict__.setdefault("_repro_axis_groups", {})
+    if axes not in cache:
+        coord = mesh.get_coordinate()
+        ranks = mesh.mesh[tuple(slice(None) if i in idx else coord[i]
+                                for i in range(len(names)))]
+        ranks = ranks.reshape(-1).tolist()
+        if ranks != sorted(ranks):
+            raise ValueError(f"mesh ranks {ranks} along {axes} are not in "
+                             "ascending order")
+        cache[axes] = off_turn(lambda: dist.new_group(
+            ranks=ranks, use_local_synchronization=True))
+    return cache[axes]
+
+
+def axis_index(axis) -> int:
+    """This rank's coordinate along mesh axis ``axis`` (JAX's
+    ``lax.axis_index``), or along the product of a tuple of axes in the
+    mesh's major-to-minor order; 0 outside a mesh or for an axis it
+    lacks."""
+    mesh = current_mesh()
+    if mesh is None:
+        return 0
+    index = 0
+    for a in _axes(axis):
+        if a in mesh.mesh_dim_names:
+            index = index * axis_size(a) + mesh.get_local_rank(a)
+    return index
+
+
+def split_axes(name: str) -> tuple:
+    """The axes of the current mesh, of size > 1, over which the rank-local
+    step splits logical dim ``name``: the entry of the rules the caller
+    made active with :class:`use_rules`. Empty outside a mesh, under the
+    default rules (no :class:`use_rules` around the call: every dim is
+    whole, as the serve paths inside a bare mesh hold it) and where the
+    rules name no axis (:func:`spmd_rules`' dims)."""
+    mesh = current_mesh()
+    stack = _rules_stack()
+    if mesh is None or len(stack) < 2:
+        return ()
+    entry = getattr(stack[-1], name)
+    if entry is None:
+        return ()
+    shape = mesh_shape(mesh)
+    return tuple(a for a in _axes(entry) if shape.get(a, 1) > 1)
+
+
+def split_dims() -> tuple:
+    """The logical dims outside :data:`SPMD_AXES` that the active rules
+    split (:func:`split_axes`): what a family whose layers compute every
+    such dim whole must refuse."""
+    return tuple(f.name for f in dataclasses.fields(ShardingRules)
+                 if f.name not in SPMD_AXES and split_axes(f.name))
+
+
+def spec_axes(names) -> tuple:
+    """The mesh axes, in the mesh's order, that split a tensor whose dims
+    are the logical ``names`` (:func:`split_axes` of each)."""
+    mesh = current_mesh()
+    used = {a for n in names or () if n is not None for a in split_axes(n)}
+    return tuple(a for a in (mesh.mesh_dim_names if mesh is not None
+                             else ()) if a in used)
+
+
+def mesh_axes() -> tuple:
+    """The current mesh's axes of size > 1, in its order."""
+    mesh = current_mesh()
+    if mesh is None:
+        return ()
+    return tuple(a for a, n in mesh_shape(mesh).items() if n > 1)
+
+
+# The collectives. Each is a torch.autograd.Function whose backward is its
+# transpose in JAX's shard_map: psum's is psum, all_gather's psum_scatter
+# and the other way round, all_to_all's the all_to_all with the split and
+# concat dims swapped. So a step differentiates a loss that every rank
+# holds whole as shard_map does: each rank seeds 1 / (the mesh's size)
+# (train.train_step), and a leaf that ranks hold the same copy of sums its
+# ranks' gradients (:func:`psum` over the axes its spec does not name).
+
+
+def _all_reduce(x, group, op):
+    import torch.distributed as dist
+    y = x.detach().clone()
+    off_turn(lambda: dist.all_reduce(y, op=op, group=group))
     return y
 
 
-def psum(x, axis: str):
-    """The sum of ``x`` over the ranks of ``axis`` (JAX's ``lax.psum``)."""
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+        ctx.group = group
+        return _all_reduce(x, group, dist.ReduceOp.SUM)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+        return _all_reduce(g, ctx.group, dist.ReduceOp.SUM), None
+
+
+def psum(x, axis):
+    """The sum of ``x`` over the ranks of ``axis`` (a mesh axis or a tuple
+    of them; JAX's ``lax.psum``); its backward is the psum of the
+    gradient."""
+    return _PSum.apply(x, _group(axis))
+
+
+def pmax(x, axis):
+    """The elementwise max of ``x`` over the ranks of ``axis``; no
+    gradient flows through it (a softmax's shift)."""
     import torch.distributed as dist
-    return _all_reduce(x, axis, dist.ReduceOp.SUM)
+    return _all_reduce(x, _group(axis), dist.ReduceOp.MAX)
 
 
-def pmax(x, axis: str):
-    """The elementwise max of ``x`` over the ranks of ``axis``."""
-    import torch.distributed as dist
-    return _all_reduce(x, axis, dist.ReduceOp.MAX)
-
-
-def all_gather(x, axis: str, dim: int = 0):
-    """Every rank's ``x`` along ``axis``, concatenated along ``dim`` in
-    rank order (JAX's tiled ``lax.all_gather``)."""
-    import torch
+def _gather(x, group, n: int, dim: int):
     import torch.distributed as dist
     x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(axis_size(axis))]
-    dist.all_gather(parts, x, group=_group(axis))
+    parts = [torch.empty_like(x) for _ in range(n)]
+    off_turn(lambda: dist.all_gather(parts, x, group=group))
     return torch.cat(parts, dim=dim)
 
 
-def all_to_all(x, axis: str, split_dim: int, concat_dim: int):
+def _scatter_sum(x, group, n: int, dim: int):
+    import torch.distributed as dist
+    if x.shape[dim] % n:
+        raise ValueError(f"psum_scatter: dim {dim} of {tuple(x.shape)} does "
+                         f"not split over {n} ranks")
+    chunks = [c.contiguous() for c in x.chunk(n, dim)]
+    out = torch.empty_like(chunks[0])
+    off_turn(lambda: dist.reduce_scatter(out, chunks, group=group))
+    return out
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n, dim):
+        ctx.args = (group, n, dim)
+        return _gather(x, group, n, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_sum(g, *ctx.args), None, None, None
+
+
+class _PSumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n, dim):
+        ctx.args = (group, n, dim)
+        return _scatter_sum(x, group, n, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, *ctx.args), None, None, None
+
+
+def all_gather(x, axis, dim: int = 0):
+    """Every rank's ``x`` along ``axis``, concatenated along ``dim`` in
+    rank order (JAX's tiled ``lax.all_gather``; over a tuple of axes, in
+    the mesh's major-to-minor order, the order :func:`local_shard` cuts
+    a dim that takes them). Its backward is :func:`psum_scatter`."""
+    return _AllGather.apply(x, _group(axis), axis_size(axis), dim)
+
+
+def psum_scatter(x, axis, dim: int = 0):
+    """This rank's block along ``dim`` of the sum of ``x`` over the ranks
+    of ``axis`` (JAX's tiled ``lax.psum_scatter``, a reduce-scatter). Its
+    backward is :func:`all_gather`."""
+    return _PSumScatter.apply(x, _group(axis), axis_size(axis), dim)
+
+
+def _exchange(x, group, n: int, split_dim: int, concat_dim: int):
+    import torch.distributed as dist
+    if x.shape[split_dim] % n:
+        raise ValueError(f"all_to_all: dim {split_dim} of {tuple(x.shape)} "
+                         f"does not split over {n} ranks")
+    xs = x.movedim(split_dim, 0).contiguous()
+    out = torch.empty_like(xs)
+    off_turn(lambda: dist.all_to_all_single(out, xs, group=group))
+    return torch.cat([c.movedim(0, split_dim) for c in out.chunk(n)],
+                     dim=concat_dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n, split_dim, concat_dim):
+        ctx.args = (group, n, split_dim, concat_dim)
+        return _exchange(x, group, n, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, n, split_dim, concat_dim = ctx.args
+        return _exchange(g, group, n, concat_dim, split_dim), None, None, \
+            None, None
+
+
+def all_to_all(x, axis, split_dim: int, concat_dim: int):
     """JAX's tiled ``lax.all_to_all``: ``x`` cut into ``axis_size(axis)``
     blocks along ``split_dim``, block j sent to the rank of index j, and
     the blocks this rank receives concatenated along ``concat_dim`` in
-    rank order (``all_to_all_single`` over dim 0)."""
-    import torch
-    import torch.distributed as dist
-    n = axis_size(axis)
-    if x.shape[split_dim] % n:
-        raise ValueError(f"all_to_all: dim {split_dim} of {tuple(x.shape)} "
-                         f"does not split over {n} ranks of {axis!r}")
-    xs = x.movedim(split_dim, 0).contiguous()
-    out = torch.empty_like(xs)
-    dist.all_to_all_single(out, xs, group=_group(axis))
-    return torch.cat([c.movedim(0, split_dim) for c in out.chunk(n)],
-                     dim=concat_dim)
+    rank order (``all_to_all_single`` over dim 0). Its backward is the
+    exchange with the two dims swapped."""
+    return _AllToAll.apply(x, _group(axis), axis_size(axis), split_dim,
+                           concat_dim)
+
+
+class _GatherMany(torch.autograd.Function):
+    """:func:`all_gather` of several tensors over one group in one
+    collective: their blocks flattened side by side, each rebuilt along
+    its own dim; the backward is one reduce-scatter."""
+
+    @staticmethod
+    def forward(ctx, group, n, dims, *xs):
+        ctx.args = (group, n, dims, [x.shape for x in xs])
+        flat = torch.cat([x.reshape(-1) for x in xs])
+        parts = _gather(flat, group, n, 0).view(n, -1)
+        out, at = [], 0
+        for x, dim in zip(xs, dims):
+            k = x.numel()
+            out.append(torch.cat([parts[r, at:at + k].view(x.shape)
+                                  for r in range(n)], dim=dim))
+            at += k
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        group, n, dims, shapes = ctx.args
+        rows = torch.stack([torch.cat([g.chunk(n, d)[r].reshape(-1)
+                                       for g, d in zip(gs, dims)])
+                            for r in range(n)])
+        mine = _scatter_sum(rows, group, n, 0)[0]
+        out, at = [], 0
+        for s in shapes:
+            out.append(mine[at:at + s.numel()].view(s))
+            at += s.numel()
+        return (None, None, None, *out)
+
+
+def gather_dims(tree, specs, names):
+    """``tree`` (nested dicts of this rank's blocks) with every dim whose
+    logical name in ``specs`` (the same structure, a tuple per leaf) is
+    one of ``names`` gathered whole over the axes that split it
+    (:func:`split_axes`), one collective for all the leaves gathered over
+    the same axes; a leaf no such dim splits is returned as it is (so is
+    the whole tree outside a sharded step). FSDP's gather of a layer's
+    weights (ZeRO-3): its backward reduce-scatters their gradients."""
+    flat = []
+
+    def walk(t, s, path):
+        if isinstance(t, dict):
+            for k in t:
+                walk(t[k], s[k], path + (k,))
+            return
+        for dim, n in enumerate(s or ()):
+            if n in names and split_axes(n):
+                flat.append((path, t, dim, split_axes(n)))
+                return
+    walk(tree, specs, ())
+    if not flat:
+        return tree
+    got = {}
+    for axes in dict.fromkeys(a for *_, a in flat):
+        group = [(p, t, d) for p, t, d, a in flat if a == axes]
+        out = _GatherMany.apply(_group(axes), axis_size(axes),
+                                tuple(d for _, _, d in group),
+                                *(t for _, t, _ in group))
+        got.update({p: o for (p, _, _), o in zip(group, out)})
+
+    def rebuild(t, path):
+        if isinstance(t, dict):
+            return {k: rebuild(v, path + (k,)) for k, v in t.items()}
+        return got.get(path, t)
+    return rebuild(tree, ())

@@ -7,6 +7,24 @@ Port of ``repro/train/train_step.py``. Gradients come from
 params and optimizer state into the old ones (``optim.apply_updates_``,
 bitwise the functional ``apply_updates``), the port's counterpart of the
 JAX trainer's ``donate_argnums=(0, 1)``: the card holds one copy of each.
+
+Inside a mesh (``parallel.sharding``: ``use_mesh`` and the rules of
+``make_rules(mesh, cfg, "train", fsdp=True)``, every rank of a
+``launch.world.run_world`` world calling the step on its blocks of the
+params and optimizer state, ``shard_tree``, and its rows of the batch)
+the step is the sharded one, differentiated as JAX's ``shard_map``
+differentiates: the loss is the global mean on every rank, each rank
+seeds its backward with 1 / (the mesh's size), the collectives carry the
+gradient back by their transposes (an FSDP leaf's gradient comes out
+reduce-scattered over the batch axes by its gather's backward), and a
+leaf's gradient is then summed over the ranks its spec does not split,
+which hold copies of it (the ranks of a batch axis, and of the model axis
+for a leaf held whole there). The gradient norm is the global one
+(``optim.global_norm`` with each leaf's axes), and clipping and AdamW run
+on the blocks in place. With ``microbatches`` n the rank's rows split in
+n; a microbatch's loss is the mean over every rank's microbatch, so the
+step equals the single-device step wherever each microbatch counts as
+many labels as the others (the port's LM batches label every position).
 """
 from __future__ import annotations
 
@@ -17,7 +35,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import api
 from repro_torch.optim import OptConfig, apply_updates_
-from repro_torch.tree import leaves, tree_map
+from repro_torch.parallel.sharding import (current_mesh, mesh_axes, psum,
+                                           spec_axes)
+from repro_torch.tree import leaves, paths, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,6 +46,10 @@ class TrainConfig:
     remat: str = "full"                 # full | dots | none
     attn_impl: str = "full"
     microbatches: int = 1               # grad accumulation steps
+    # int8 error-feedback all-reduce on the DP axes: carried as JAX's is,
+    # and read by nothing in either package (optim.allreduce_compressed is
+    # the operation)
+    compress_grads: bool = False
 
 
 def trainable(params):
@@ -37,15 +61,24 @@ def trainable(params):
 
 
 def value_and_grad(loss_fn):
-    """``fn(params, batch) -> (loss, grads)``: the loss (a float32 0-d
-    tensor, detached) and a tree of gradients in the structure of
-    ``params``, zeros for a leaf the loss does not reach (integer leaves
-    keep their own dtype)."""
-    def fn(params, batch):
+    """``fn(params, batch, seed=None) -> (loss, grads)``: the loss (a
+    float32 0-d tensor, detached) and a tree of gradients in the structure
+    of ``params``, zeros for a leaf the loss does not reach (integer
+    leaves keep their own dtype). With ``seed`` the backward starts from
+    ``seed`` in place of 1 and runs on the calling thread (a sharded
+    step's ranks may be threads of one process, whose collectives in the
+    backward would otherwise meet on autograd's one thread per device)."""
+    def fn(params, batch, seed=None):
         flat = [p for p in leaves(trainable(params)) if p.is_floating_point()]
         with torch.enable_grad():
             loss = loss_fn(params, batch)
-            gs = iter(torch.autograd.grad(loss, flat, allow_unused=True))
+            if seed is None:
+                gs = iter(torch.autograd.grad(loss, flat, allow_unused=True))
+            else:
+                with torch.autograd.set_multithreading_enabled(False):
+                    gs = iter(torch.autograd.grad(
+                        loss, flat, grad_outputs=torch.full_like(loss, seed),
+                        allow_unused=True))
 
         def grad_of(p):
             if not p.is_floating_point():
@@ -62,13 +95,14 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
     opt_state are updated in place and returned. With ``microbatches`` n >
     1 the batch splits into n along its first axis and the gradients are
     summed over them in the parameter dtype, then scaled by 1/n, as JAX's
-    scan does."""
+    scan does. Inside a mesh: the sharded step (module docstring)."""
     grad_fn = value_and_grad(api.loss_fn(cfg, attn_impl=tcfg.attn_impl,
                                          remat=tcfg.remat))
+    specs = dict(paths_of_specs(api.param_specs(cfg)))
 
-    def grads_of(params, batch):
+    def grads_of(params, batch, seed):
         if tcfg.microbatches <= 1:
-            return grad_fn(params, batch)
+            return grad_fn(params, batch, seed)
         n = tcfg.microbatches
         mbs = {k: v.reshape((n, v.shape[0] // n) + tuple(v.shape[1:]))
                for k, v in batch.items()}
@@ -77,7 +111,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
         acc = tree_map(lambda p: torch.zeros(p.shape, dtype=p.dtype,
                                              device=p.device), params)
         for i in range(n):
-            l, g = grad_fn(params, {k: v[i] for k, v in mbs.items()})
+            l, g = grad_fn(params, {k: v[i] for k, v in mbs.items()},
+                           seed)
             loss = loss + l
             acc = tree_map(torch.add, acc, g)
             del g
@@ -85,12 +120,54 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
         return loss * scale, tree_map(lambda g: g * scale, acc)
 
     def step(params, opt_state, batch):
-        loss, grads = grads_of(params, batch)
+        mesh = current_mesh()
+        if mesh is None:
+            loss, grads = grads_of(params, batch, None)
+            params, opt_state, om = apply_updates_(params, grads, opt_state,
+                                                   tcfg.opt)
+            return params, opt_state, {"loss": loss, **om}
+        loss, grads = grads_of(params, batch, 1.0 / mesh.size())
+        axes = [spec_axes(specs[k]) for k, _ in paths(grads)]
+        grads = sum_replicas(grads, axes)
         params, opt_state, om = apply_updates_(params, grads, opt_state,
-                                               tcfg.opt)
+                                               tcfg.opt, norm_axes=axes)
         return params, opt_state, {"loss": loss, **om}
 
     return step
+
+
+def paths_of_specs(specs, prefix: str = "") -> list:
+    """``(path, logical names)`` of every leaf of a tree of specs (dicts
+    whose leaves are tuples), paths as ``tree.paths`` names them."""
+    out = []
+    for k in sorted(specs):
+        path = f"{prefix}/{k}" if prefix else str(k)
+        v = specs[k]
+        out += (paths_of_specs(v, path) if isinstance(v, dict)
+                else [(path, v)])
+    return out
+
+
+@torch.no_grad()
+def sum_replicas(grads, axes: list):
+    """``grads`` with each leaf summed over the current mesh's ranks that
+    hold copies of it: the axes of size > 1 that its entry of ``axes``
+    (leaf by leaf in flatten order, the axes that split it) leaves out.
+    Leaves with the same such axes and dtype go in one collective."""
+    flat = [g for _, g in paths(grads)]
+    every = mesh_axes()
+    groups: dict = {}
+    for i, (g, ax) in enumerate(zip(flat, axes)):
+        rest = tuple(a for a in every if a not in ax)
+        if rest and g.is_floating_point():
+            groups.setdefault((rest, g.dtype), []).append(i)
+    for (rest, _), idx in groups.items():
+        summed = psum(torch.cat([flat[i].reshape(-1) for i in idx]), rest)
+        for i, part in zip(idx, summed.split([flat[i].numel()
+                                               for i in idx])):
+            flat[i] = part.view(flat[i].shape)
+    it = iter(flat)
+    return tree_map(lambda _: next(it), grads)
 
 
 def estimate_model_flops(cfg: ModelConfig, tokens: int,
