@@ -372,12 +372,20 @@ chaos      — the chaos harness (repro_torch.faults.chaos) at full size,
 
 13. launch  — the port's dry run and roofline count, after phase 12's
               models are freed. (a) ``python -m repro_torch.launch.dryrun
-              --all --jobs 8`` in a subprocess that sees no card
+              --all --jobs 6``, started before phase 10 at nice 19 (CPU
+              work only, beside phases 10-12) and waited for here, in a
+              subprocess that sees no card
               (torch.distributed's fake backend, meta tensors): 80 records
               under JAX's cell names, 64 ok and 16 skipped (long_500k on
-              the eight full-attention archs), none an error; its wall
-              time and each ok cell's first-device argument GB at 16x16
-              beside the card's memory. (b) ``roofline.count`` on the card
+              the eight full-attention archs), none an error, every ok
+              record with its ``collectives`` (rank 0's step at its local
+              shapes inside the cell's mesh: train cells under their own
+              rules, serve cells under spmd_rules), none across pods at
+              16x16, some across pods in every 2x16x16 train cell whose
+              FSDP axes include "pod" (``dryrun.record_faults``); its wall
+              time, each ok cell's first-device argument GB at 16x16
+              beside the card's memory, and each ok cell's collective GB
+              in pod and across pods beside its argument GB. (b) ``roofline.count`` on the card
               for three steps: Qwen2-0.5B's int8 decode step at 8 slots
               (counted eager, timed over replays of its captured graph;
               72 matmul_q8 calls), a 96-token Falcon-Mamba-7B prefill at
@@ -457,7 +465,25 @@ chaos      — the chaos harness (repro_torch.faults.chaos) at full size,
               (the bounds of (a));
               causal_conv1d launched on the "cuda" route exactly 3 times a
               layer a rank (forward, recompute, dx) on 4,096 channels, its
-              plain version never. The phase must end within 150 s.
+              plain version never. (e) seamless-m4t-large-v2 at full width
+              (d_model 1,024, 16 / 16 heads, d_ff 8,192, vocab 256,206,
+              tied) cut to 4 encoder and 4 decoder layers (the run's time),
+              float32, on (a)'s world: two sharded steps of 8 rows (128
+              frames, 128 + 1 tokens) against the unsharded ones, (a)'s
+              gates (the params gathered back and compared on rank 0). (f)
+              jamba-v0.1-52b at full width (d_model 4,096, d_inner 8,192,
+              32 / 8 heads) cut to one super-block (7 Mamba sublayers, 1
+              attention, 4 MoE FFNs), its experts cut to 2 (top-2, nothing
+              dropped) and its FFN width to 1,024 (the reckoning printed:
+              at d_ff 14,336 the world's state and its ranks' FSDP gathers
+              pass the card's memory), float32, on (a)'s world: the
+              unsharded step first, its params and result then on the host,
+              one sharded step of 8 x 32 tokens, (a)'s gates (params
+              compared on rank 0);
+              causal_conv1d launched on the "cuda" route exactly 3 times a
+              Mamba sublayer a rank (21) on 4,096 channels, its plain
+              version never; the world's collectives (roofline.count)
+              include EP's all-to-all. The phase must end within 150 s.
 
 The phases run in the order 1-3, check, 4, 5, 8, 9, the check of their
 configs, 6, chaos, 7, 10, 11, 12, 13, 14, 15; each one's wall time is printed
@@ -4958,7 +4984,12 @@ SOURCES = {
 
 #: the dry run's sweep: 10 archs x 4 shapes x 2 meshes, of which the
 #: eight full-attention archs' long_500k cells are skipped; its processes
-DRYRUN_CELLS, DRYRUN_OK, DRYRUN_SKIPPED, DRYRUN_JOBS = 80, 64, 16, 8
+DRYRUN_CELLS, DRYRUN_OK, DRYRUN_SKIPPED, DRYRUN_JOBS = 80, 64, 16, 6
+#: the sweep is CPU work only (meta tensors): it starts before phase 10 at
+#: this niceness beside phases 10-12, which drive the card from one host
+#: thread, and phase 13 waits for it (run by itself it took phase 13's
+#: first 121.5 s on an H100's host; PERF.md)
+DRYRUN_NICE = 19
 DRYRUN_OUT = ROOT / "build" / "dryrun_torch"
 DRYRUN_TIMEOUT_S = 600
 #: the roofline count's steps: Qwen2-0.5B's int8 decode step of LM_BATCH
@@ -4973,11 +5004,11 @@ ROOF_DEVICE_KERNEL = {"matmul_q8": "matmul_q_kernel",
                       "causal_conv1d": "causal_conv1d"}
 
 
-def phase_launch(torch, K, card) -> dict:
-    """Phase 13 (module docstring): the dry run's sweep, then the roofline
-    count of three steps on the card. Returns the kernel launches of the
-    counted steps."""
-    dryrun_sweep(torch, card)
+def phase_launch(torch, K, card, sweep=None) -> dict:
+    """Phase 13 (module docstring): the dry run's sweep (``sweep``, started
+    earlier, or one started now), then the roofline count of three steps
+    on the card. Returns the kernel launches of the counted steps."""
+    dryrun_sweep(torch, card, sweep or DryrunSweep())
     launches = {}
     for name, build in (("decode", roof_decode), ("prefill", roof_prefill),
                         ("train", roof_train)):
@@ -4988,32 +5019,69 @@ def phase_launch(torch, K, card) -> dict:
     return launches
 
 
-def dryrun_sweep(torch, card):
-    """``python -m repro_torch.launch.dryrun --all`` in a subprocess that
-    sees no card (the fake backend, meta tensors): 80 records under
-    JAX's cell names, 64 ok and 16 skipped; each ok cell's first-device
-    argument bytes at 16x16 beside the card's memory."""
+class DryrunSweep:
+    """``python -m repro_torch.launch.dryrun --all`` started in a
+    subprocess that sees no card (the fake backend, meta tensors), at
+    DRYRUN_NICE, in a session of its own (``stop`` ends it and its
+    workers); its output in files beside DRYRUN_OUT."""
+
+    def __init__(self):
+        import os
+        import shutil
+        shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
+        DRYRUN_OUT.parent.mkdir(parents=True, exist_ok=True)
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("REPRO_")}
+        env.update(PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+        self.err = DRYRUN_OUT.with_suffix(".err")
+        self.t0 = time.perf_counter()
+        with open(DRYRUN_OUT.with_suffix(".out"), "w") as out, \
+                open(self.err, "w") as err:
+            self.proc = subprocess.Popen(
+                ["nice", "-n", str(DRYRUN_NICE), sys.executable, "-m",
+                 "repro_torch.launch.dryrun", "--all", "--jobs",
+                 str(DRYRUN_JOBS), "--out", str(DRYRUN_OUT)],
+                cwd=ROOT, env=env, stdout=out, stderr=err,
+                start_new_session=True)
+
+    def wait(self) -> tuple:
+        """(its exit code, its wall seconds, the seconds waited here)."""
+        t0 = time.perf_counter()
+        try:
+            rc = self.proc.wait(timeout=max(
+                1.0, DRYRUN_TIMEOUT_S - (t0 - self.t0)))
+        except subprocess.TimeoutExpired:
+            self.stop()
+            rc = "timed out"
+        t1 = time.perf_counter()
+        return rc, t1 - self.t0, t1 - t0
+
+    def stop(self):
+        import os
+        import signal
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.wait()
+
+
+def dryrun_sweep(torch, card, sweep):
+    """The dry run's sweep (:class:`DryrunSweep`), waited for: 80 records
+    under JAX's cell names, 64 ok and 16 skipped, none faulty by
+    ``dryrun.record_faults`` (no error; every ok record with its
+    collectives, none across pods at 16x16, some at 2x16x16 in a train
+    cell whose FSDP spans "pod"); each ok cell's first-device argument
+    bytes at 16x16 beside the card's memory, and every ok cell's
+    collective bytes."""
     import collections
-    import os
-    import shutil
-    shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
-    env = {k: v for k, v in os.environ.items() if not k.startswith("REPRO_")}
-    env.update(PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
-    t0 = time.perf_counter()
-    r = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
-         "--jobs", str(DRYRUN_JOBS), "--out", str(DRYRUN_OUT)],
-        cwd=ROOT, env=env, capture_output=True, text=True,
-        timeout=DRYRUN_TIMEOUT_S)
-    wall = time.perf_counter() - t0
-    check(r.returncode == 0, f"launch: the dry run exited {r.returncode}: "
-                             f"{r.stderr[-2000:]}")
+    from repro_torch.launch import dryrun
+    rc, wall, waited = sweep.wait()
+    check(rc == 0, f"launch: the dry run exited {rc}: "
+                   f"{sweep.err.read_text()[-2000:]}")
     recs = {p.name: json.loads(p.read_text())
             for p in sorted(DRYRUN_OUT.glob("*.json"))}
     status = collections.Counter(rec["status"] for rec in recs.values())
-    errors = [f"{n}: {rec.get('error')}" for n, rec in recs.items()
-              if rec["status"] == "error"]
-    check(not errors, "launch: dry-run cells failed: " + "; ".join(errors))
+    faults = dryrun.record_faults(recs.values())
+    check(not faults, "launch: dry-run records: " + "; ".join(faults))
     check(len(recs) == DRYRUN_CELLS and status["ok"] == DRYRUN_OK
           and status["skipped"] == DRYRUN_SKIPPED,
           f"launch: the dry run wrote {len(recs)} records {dict(status)}, "
@@ -5023,9 +5091,10 @@ def dryrun_sweep(torch, card):
         check(name == want + ".json", f"launch: record {name} names {want}")
     mem = torch.cuda.get_device_properties(0).total_memory
     print(f"[launch] dry run (python -m repro_torch.launch.dryrun --all "
-          f"--jobs {DRYRUN_JOBS}, the fake backend, no card): "
-          f"{len(recs)} records, {status['ok']} ok, {status['skipped']} "
-          f"skipped, 0 error, in {wall:.1f} s wall")
+          f"--jobs {DRYRUN_JOBS}, the fake backend, no card, at nice "
+          f"{DRYRUN_NICE}): {len(recs)} records, {status['ok']} ok, "
+          f"{status['skipped']} skipped, 0 error, in {wall:.1f} s wall from "
+          f"its start, {waited:.1f} s of it waited for here")
     fit = []
     for rec in recs.values():
         if rec["status"] != "ok" or rec["mesh"] != "16x16":
@@ -5039,6 +5108,21 @@ def dryrun_sweep(torch, card):
               f"{rec['model_flops']:.4e}")
     print(f"[launch] {sum(fit)} of {len(fit)} cells' arguments fit one "
           f"card's memory at 16x16; card: {card}")
+    print("[launch] collective GB a device a step (rank 0's step at its "
+          "local shapes, roofline.count; in pod / across pods), beside "
+          "its argument GB; train cells under their own rules, serve cells "
+          "under spmd_rules:")
+    for rec in recs.values():
+        if rec["status"] != "ok":
+            continue
+        c = rec["collectives"]
+        print(f"[launch]   {rec['arch']:22s} {rec['shape']:12s} "
+              f"{rec['mesh']:8s}: {c['bytes_in_pod'] / 1e9:10.3f} / "
+              f"{c['bytes_cross_pod'] / 1e9:9.3f} GB in {c['calls']:5d} "
+              f"calls ({c['step_rules']}), arguments "
+              f"{rec['memory']['argument_bytes'] / 1e9:8.3f} GB; "
+              + ", ".join(f"{k} {v / 1e9:.3f}"
+                          for k, v in c["by_kind"].items()))
 
 
 def roof_decode(torch, rng):
@@ -5502,12 +5586,35 @@ TSHARD_RESTORE_MESH = ((1, 2), ("data", "model"))
 #: (c) Falcon-Mamba-7B at full width cut to these layers, 2 x 256 tokens
 TSHARD_SSM_MESH = ((2, 2), ("data", "model"))
 TSHARD_SSM_LAYERS, TSHARD_SSM_BATCH, TSHARD_SSM_SEQ = 4, 2, 256
+#: (e) seamless-m4t-large-v2 at full width, float32, its encoder and
+#: decoder each cut to this depth (the run's time: at full depth 22-28 s,
+#: and the run passed 1,100 s on a host that ran Python at half speed);
+#: TSHARD_BATCH rows of
+#: TSHARD_ENCDEC_FRAMES frames and TSHARD_ENCDEC_TOKENS + 1 tokens, two
+#: steps on (a)'s world
+TSHARD_ENCDEC_ARCH, TSHARD_ENCDEC_LAYERS = "seamless-m4t-large-v2", 4
+TSHARD_ENCDEC_FRAMES, TSHARD_ENCDEC_TOKENS = 128, 128
+#: (f) jamba-v0.1-52b at full width, one super-block (7 Mamba sublayers,
+#: attention, 4 MoE FFNs), float32, one step of TSHARD_BATCH x
+#: TSHARD_HYBRID_SEQ tokens on (a)'s world; its experts cut to 2 (top-2,
+#: so nothing drops) and its FFN width (dense and experts') to
+#: TSHARD_HYBRID_FF: with 2 experts at d_ff 14,336 the super-block and
+#: tables are 3.43 G parameters, 54.9 GB of params, gradients and both
+#: moments, which the world's ranks hold between them as the unsharded
+#: step does, and each of the 8 ranks gathers its 5.72-GB share of the
+#: super-block at once (FSDP) and its gradient in the backward
+#: (tshard_hybrid_reckoning). The sequence is short because the
+#: super-block is one checkpoint: its backward keeps the doubling scan's
+#: levels of all 7 Mamba sublayers at once (at 128 tokens the unsharded
+#: step's alone took the card past its 80 GB)
+TSHARD_HYBRID_ARCH, TSHARD_HYBRID_SEQ = "jamba-v0.1-52b", 32
+TSHARD_HYBRID_EXPERTS, TSHARD_HYBRID_FF = 2, 1024
 TSHARD_SECONDS = 150
 
 
 def phase_train_shard(torch, K, card) -> dict:
-    """Phase 15 (module docstring): (a) and (d), (b), then (c); returns
-    (c)'s kernel launches."""
+    """Phase 15 (module docstring): (a) and (d), (b), (c), (e), then (f);
+    returns (c)'s and (f)'s kernel launches."""
     from repro_torch.launch.world import run_world
     t0 = time.perf_counter()
     world = run_world(lambda rank: rank, TSHARD_RANKS)
@@ -5520,6 +5627,13 @@ def phase_train_shard(torch, K, card) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     launches = tshard_ssm(torch, K, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tshard_encdec(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k, v in tshard_hybrid(torch, K, card).items():
+        launches[k] += v
     gc.collect()
     torch.cuda.empty_cache()
     secs = time.perf_counter() - t0
@@ -5539,12 +5653,14 @@ def _tree_bytes(tree) -> int:
 
 
 def _gathered_errs(torch, S, blocks, shardings, want, start,
-                   prefix="") -> dict:
+                   prefix="", compare=True) -> dict:
     """``{path: (largest |difference|, sum of squared differences, sum of
     squared updates, elements apart by over TSHARD_FAR)}`` between the
     global arrays of a rank's ``blocks`` (each split dim gathered over its
     mesh axes, a leaf at a time) and the global tensors ``want`` (the
-    same structure), the updates ``want - start``."""
+    same structure), the updates ``want - start``. Without ``compare``
+    the rank joins the gathers and compares nothing (every rank gathers
+    the same global arrays): ``{}``."""
     out = {}
     with torch.no_grad():
         for key in sorted(blocks):
@@ -5552,18 +5668,21 @@ def _gathered_errs(torch, S, blocks, shardings, want, start,
             if isinstance(blocks[key], dict):
                 out.update(_gathered_errs(torch, S, blocks[key],
                                           shardings[key], want[key],
-                                          start[key], path))
+                                          start[key], path, compare))
                 continue
             t = blocks[key]
             for dim, entry in enumerate(shardings[key].spec):
                 if entry is not None and S.axis_size(entry) > 1:
                     t = S.all_gather(t, entry, dim)
-            d = (t.float() - want[key].float()).abs()
-            u = want[key].float() - start[key].float()
+            if not compare:
+                continue
+            w, w0 = want[key].to(t.device), start[key].to(t.device)
+            d = (t.float() - w.float()).abs()
+            u = w.float() - w0.float()
             out[path] = (float(d.max()), float(torch.sum(d * d)),
                          float(torch.sum(u * u)),
                          int((d > TSHARD_FAR).sum()))
-            del t, d, u
+            del t, d, u, w, w0
     return out
 
 
@@ -5606,6 +5725,8 @@ def _tshard_check(tag, rank, ref_m, got_m, errs, lr, steps):
               f"train shard {tag} rank {rank}: loss / grad norm {got_m} "
               f"against the unsharded {ref_m} (bound {TSHARD_REL} "
               "relative)")
+    if not errs:        # a rank that joined the gathers only
+        return
     rel, worst, far = _param_gap(errs)
     top = sorted(errs.items(), key=lambda kv: -kv[1][0])[:3]
     check(rel <= TSHARD_UPDATE_REL and worst <= 2 * lr * steps,
@@ -5917,6 +6038,292 @@ def tshard_ssm(torch, K, card) -> dict:
     return launches
 
 
+def _tshard_world(torch, cfg, tcfg, make_params, batches, *,
+                  on_host=False, world_ctx=contextlib.nullcontext):
+    """(e) and (f)'s run: ``make_params()``'s params (global tensors on the
+    card), the unsharded steps on ``batches``, then the sharded ones on
+    TSHARD_MESH's world of threads inside ``world_ctx()``, each rank
+    copying its blocks of the params to the card. ``on_host``: the params
+    and the unsharded step's result wait on the host while the world runs
+    (both would not fit beside it). Returns (the unsharded metrics and ms
+    a step, the bytes of its params and moments, the world's results: per
+    rank its metrics, param + m + v bytes, local_bytes' count of them, ms
+    a step, ``_gathered_errs`` (rank 0's; the others join the gathers:
+    with ``on_host`` each comparison copies the step's result to the card
+    again), its Mamba channels)."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.world import run_world
+    from repro_torch.models import api
+    from repro_torch.optim import init_opt_state
+    from repro_torch.parallel import sharding as S
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import tree_map
+    params = make_params()
+    ref_m, ref, ref_ms, whole = _tshard_reference(torch, cfg, tcfg, params,
+                                                  batches)
+    if on_host:
+        params, ref = (tree_map(lambda t: t.detach().cpu(), x)
+                       for x in (params, ref))
+        gc.collect()
+        torch.cuda.empty_cache()
+    step = make_train_step(cfg, tcfg)
+
+    def rank_main(rank):
+        mesh = make_mesh(*TSHARD_MESH)
+        with S.use_mesh(mesh), S.use_rules(_tshard_rules(S, mesh, cfg,
+                                                         TSHARD_BATCH)):
+            psh = S.tree_shardings(api.param_specs(cfg))
+            p = tree_map(lambda t: t.cuda(),
+                         S.local_tree(params, psh, copy=True))
+            opt = init_opt_state(p, tcfg.opt)
+            mine = 3 * _tree_bytes(p)
+            want = 3 * S.local_bytes(api.param_structs(cfg), psh)
+            mamba = p.get("blocks", {}).get("mamba")
+            channels = mamba["conv_w"].shape[-1] if mamba else None
+            rows = [{k: S.local_shard(v, S.named_sharding(
+                "batch", *([None] * (v.dim() - 1)))) for k, v in b.items()}
+                for b in batches]
+            metrics = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for b in rows:
+                p, opt, m = step(p, opt, b)
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            ms = (time.perf_counter() - t0) * 1e3 / len(rows)
+            del opt
+            err = _gathered_errs(torch, S, p, psh, ref, params,
+                                 compare=rank == 0)
+        return metrics, mine, want, ms, err, channels
+    with world_ctx():
+        world = run_world(rank_main, TSHARD_RANKS)
+    return ref_m, ref_ms, whole, world.results
+
+
+def _tshard_gates(tag, results, ref_m, lr, steps):
+    for rank, (got_m, mine, want, _, err, _) in enumerate(results):
+        _tshard_check(tag, rank, ref_m, got_m, err, lr, steps)
+        check(mine == want, f"train shard {tag} rank {rank}: param + moment "
+              f"bytes {mine}, local_bytes says {want}")
+
+
+def _tshard_line(results, ref_m, ref_ms, whole, tcfg) -> str:
+    got_m, mine, _, ms, errs, _ = results[0]
+    rel, worst, far = _param_gap(errs)
+    return (
+        "losses " + " ".join(f"{x[0]:.6f}" for x in got_m) + " against "
+        + " ".join(f"{x[0]:.6f}" for x in ref_m) + ", grad norms "
+        + " ".join(f"{x[1]:.6f}" for x in got_m) + " against "
+        + " ".join(f"{x[1]:.6f}" for x in ref_m)
+        + f" unsharded (bound {TSHARD_REL} relative); params after "
+        f"{len(got_m)} step(s), gathered: {rel:.3e} of the update apart in "
+        f"norm (bound {TSHARD_UPDATE_REL}), max |diff| {worst:.3e} (bound "
+        f"{2 * tcfg.opt.lr * len(got_m)}), {far:,} weights over "
+        f"{TSHARD_FAR} apart; param + m + v {mine / 2 ** 30:.3f} GiB a rank "
+        f"= local_bytes, against {whole / 2 ** 30:.3f} GiB unsharded; step "
+        f"{ms:.1f} ms sharded ({TSHARD_RANKS} threads, wall clock) against "
+        f"{ref_ms:.1f} ms unsharded")
+
+
+def tshard_encdec(torch, card):
+    """(e): seamless-m4t-large-v2 at full width, its stacks cut to
+    TSHARD_ENCDEC_LAYERS layers each: two FSDP + TP steps (heads, FFN and
+    the tied vocabulary split) against the unsharded ones."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import TrainConfig
+    full = get_config(TSHARD_ENCDEC_ARCH)
+    cfg = dataclasses.replace(full, n_layers=TSHARD_ENCDEC_LAYERS,
+                              n_encoder_layers=TSHARD_ENCDEC_LAYERS,
+                              compute_dtype="float32")
+    print(f"[train-shard] (e) config change: {cfg.name} n_encoder_layers "
+          f"{full.n_encoder_layers} -> {cfg.n_encoder_layers}, n_layers "
+          f"{full.n_layers} -> {cfg.n_layers} (full width), compute_dtype "
+          f"{full.compute_dtype} -> float32 (params {cfg.param_dtype})")
+    tcfg = TrainConfig(opt=OptConfig(**TSHARD_OPT), remat="full",
+                       attn_impl="flash")
+    d = cfg.d_model
+    made = []
+
+    def make_params():
+        params = api.init_params(cfg, torch.Generator(device="cuda")
+                                 .manual_seed(SEED), device="cuda")
+        made.append(sum(t.numel() for t in _leaves(params)))
+        return params
+    gen = torch.Generator(device="cuda").manual_seed(TRAIN_DATA_SEED)
+    batches = [{"frames": torch.randn(
+        (TSHARD_BATCH, TSHARD_ENCDEC_FRAMES, d), generator=gen,
+        device="cuda"), "tokens": torch.randint(
+            0, cfg.vocab, (TSHARD_BATCH, TSHARD_ENCDEC_TOKENS + 1),
+            generator=gen, device="cuda")} for _ in range(TSHARD_STEPS)]
+    t0 = time.perf_counter()
+    ref_m, ref_ms, whole, results = _tshard_world(torch, cfg, tcfg,
+                                                  make_params, batches)
+    secs = time.perf_counter() - t0
+    # param_count counts an untied unembedding, and no final norms
+    check(made[0] == cfg.param_count() - cfg.vocab * d + 2 * d,
+          f"train shard (e): {made[0]} parameters, param_count "
+          f"{cfg.param_count()}")
+    _tshard_gates("(e)", results, ref_m, tcfg.opt.lr, TSHARD_STEPS)
+    print(f"[train-shard] (e) {cfg.name}, {cfg.n_encoder_layers} + "
+          f"{cfg.n_layers} layers, d_model {d}, heads {cfg.n_heads} / "
+          f"{cfg.n_kv_heads} KV, d_ff {cfg.d_ff}, vocab {cfg.vocab:,} tied "
+          f"({made[0]:,} parameters (float32) made on the card), float32, "
+          f"remat {tcfg.remat}, attn {tcfg.attn_impl}, AdamW lr "
+          f"{tcfg.opt.lr}: {TSHARD_RANKS} threads on a {TSHARD_MESH[0]} "
+          f"{TSHARD_MESH[1]} mesh, {TSHARD_BATCH} rows of "
+          f"{TSHARD_ENCDEC_FRAMES} frames and {TSHARD_ENCDEC_TOKENS} + 1 "
+          f"tokens a step, {secs:.1f} s with both runs; "
+          + _tshard_line(results, ref_m, ref_ms, whole, tcfg)
+          + f"; {card}")
+
+
+#: the logical dims the train rules split over "model" (every one of them
+#: divides by 2 in jamba)
+_MODEL_DIMS = ("heads", "kv_heads", "ffn", "vocab", "experts", "d_inner")
+
+
+def tshard_hybrid_reckoning(cfg) -> dict:
+    """(f)'s super-block in float32 at ``cfg``'s widths and experts: its
+    parameters; GB of params + gradients + both moments, which the
+    unsharded step holds and the world's ranks hold between them; one
+    rank's gathered share of the super-block's weights with an embed dim
+    (whole along it, halved along a dim "model" splits: FSDP gathers them
+    at once, and their gradient comes out whole in the backward) and of
+    the two tables; and the world's reckoned peak: the state and, on
+    each of the 8 ranks, the share twice (weights, gradients) and the
+    tables."""
+    from repro_torch.models import api
+    from repro_torch.train.train_step import paths_of_specs
+    from repro_torch.tree import paths
+    specs = dict(paths_of_specs(api.param_specs(cfg)))
+    share = tables = n = 0
+    for key, t in paths(api.param_structs(cfg)):
+        n += t.numel()
+        names = specs[key]
+        half = 2 if any(x in _MODEL_DIMS for x in names) else 1
+        if "embed" in names:
+            share += 4 * t.numel() / half / 1e9
+        elif "embed_table" in names:
+            tables += 4 * t.numel() / half / 1e9
+    state = 16 * n / 1e9
+    return {"params": n, "state": state, "share": share, "tables": tables,
+            "peak": state + TSHARD_RANKS * (2 * share + tables)}
+
+
+def tshard_hybrid(torch, K, card) -> dict:
+    """(f): jamba-v0.1-52b at full width, one super-block, its experts and
+    FFN width cut (TSHARD_HYBRID_*): one FSDP + TP + EP step against the
+    unsharded one, whose params and result wait on the host while the
+    world runs; causal_conv1d launched on the "cuda" route 3 times a Mamba
+    sublayer a rank and its plain version never, EP's all-to-all reached
+    (the world's collectives counted by ``roofline.count``). Returns the
+    world's kernel launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.obs import metrics
+    from repro_torch.optim import OptConfig
+    from repro_torch.roofline import count as roofline
+    from repro_torch.train import TrainConfig
+    full = get_config(TSHARD_HYBRID_ARCH)
+    one = dataclasses.replace(full, n_layers=full.attn_period,
+                              compute_dtype="float32",
+                              moe=dataclasses.replace(
+                                  full.moe, num_experts=TSHARD_HYBRID_EXPERTS,
+                                  capacity_factor=TSHARD_HYBRID_EXPERTS
+                                  / full.moe.top_k))
+    cfg = dataclasses.replace(one, d_ff=TSHARD_HYBRID_FF, moe=dataclasses
+                              .replace(one.moe, d_ff=TSHARD_HYBRID_FF))
+    wide, cut = tshard_hybrid_reckoning(one), tshard_hybrid_reckoning(cfg)
+    free = torch.cuda.mem_get_info()[0] / 1e9
+    print(f"[train-shard] (f) config change: {cfg.name} n_layers "
+          f"{full.n_layers} -> {cfg.n_layers} (one super-block), experts "
+          f"{full.moe.num_experts} -> {cfg.moe.num_experts} (top-"
+          f"{cfg.moe.top_k}, capacity factor {full.moe.capacity_factor} -> "
+          f"{cfg.moe.capacity_factor}: nothing drops), d_ff and the experts' "
+          f"d_ff {full.d_ff} -> {cfg.d_ff}, compute_dtype "
+          f"{full.compute_dtype} -> float32 (params {cfg.param_dtype}). "
+          f"Reckoned in float32 with 2 experts at d_ff {one.d_ff}: "
+          f"{wide['params'] / 1e9:.2f} G parameters, {wide['state']:.1f} GB "
+          f"of params, gradients and moments, which the world's ranks hold "
+          f"between them as the unsharded step does, and a rank's gathered "
+          f"share of the super-block {wide['share']:.2f} GB and of the "
+          f"tables {wide['tables']:.2f} GB, held by all {TSHARD_RANKS} "
+          f"ranks at once: the world's peak reckoned {wide['peak']:.1f} GB "
+          f"against {free:.1f} GB free less 8; at d_ff {cfg.d_ff}: "
+          f"{cut['params'] / 1e9:.2f} G parameters, {cut['state']:.1f} GB, "
+          f"a rank's share {cut['share']:.2f} + {cut['tables']:.2f} GB, the "
+          f"peak reckoned {cut['peak']:.1f} GB")
+    check(wide["peak"] > free - 8 >= cut["peak"],
+          f"train shard (f): reckoned {wide['peak']:.1f} GB at d_ff "
+          f"{one.d_ff} and {cut['peak']:.1f} GB at {cfg.d_ff} against "
+          f"{free:.1f} GB free: the cut is no longer what fits")
+    tcfg = TrainConfig(opt=OptConfig(**TSHARD_OPT), remat="full",
+                       attn_impl="flash")
+    gen = torch.Generator(device="cuda").manual_seed(TRAIN_DATA_SEED)
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab, (TSHARD_BATCH, TSHARD_HYBRID_SEQ + 1), generator=gen,
+        device="cuda")}
+    made, counted = [], []
+
+    def make_params():
+        params, text = make_lm_params(torch, cfg, "cuda", "train shard (f)")
+        made.append(text)
+        return params
+
+    @contextlib.contextmanager
+    def world_ctx():
+        K.reset_launches()
+        with roofline.counting(flops=False) as c:
+            counted.append(c)
+            yield
+    plain = metrics.counter("kernels.dispatch.causal_conv1d.torch")
+    plain_before = plain.value
+    torch.cuda.reset_peak_memory_stats()
+    ref_m, ref_ms, whole, results = _tshard_world(
+        torch, cfg, tcfg, make_params, [batch], on_host=True,
+        world_ctx=world_ctx)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = {k.__name__: k.launches for k in K.KERNELS}
+    nm = cfg.attn_period - 1
+    want = 3 * nm * TSHARD_RANKS
+    check(launches["causal_conv1d"] == want
+          and sum(launches.values()) == want
+          and plain.value == plain_before,
+          f"train shard (f): launches {launches}, plain causal_conv1d "
+          f"{plain.value - plain_before}; expected {want} causal_conv1d "
+          f"launches (3 x {nm} Mamba sublayers x {TSHARD_RANKS} ranks) and "
+          "no plain call")
+    _tshard_gates("(f)", results, ref_m, tcfg.opt.lr, 1)
+    di = cfg.mamba.expand * cfg.d_model
+    for rank, r in enumerate(results):
+        check(r[5] * TSHARD_MESH[0][-1] == di,
+              f"train shard (f) rank {rank}: {r[5]} of {di} channels")
+    coll = counted[0].collective_bytes()
+    a2a = sum(1 for x in counted[0].collectives if x.kind == "all-to-all")
+    check(a2a > 0, f"train shard (f): no all-to-all in the world's "
+                   f"collectives {coll}")
+    print(f"[train-shard] (f) {cfg.name}, one super-block ({nm} Mamba, 1 "
+          f"attention, {cfg.moe.num_experts} experts top-{cfg.moe.top_k}), "
+          f"d_model {cfg.d_model}, d_inner {di}, heads {cfg.n_heads} / "
+          f"{cfg.n_kv_heads} KV, d_ff {cfg.d_ff}, vocab {cfg.vocab:,} "
+          f"({made[0]}), float32, remat {tcfg.remat}: {TSHARD_RANKS} "
+          f"threads on a {TSHARD_MESH[0]} {TSHARD_MESH[1]} mesh, one step of "
+          f"{TSHARD_BATCH} x {TSHARD_HYBRID_SEQ} tokens, the unsharded "
+          f"step's params on the host while the world ran; "
+          + _tshard_line(results, ref_m, ref_ms, whole, tcfg)
+          + f"; causal_conv1d launched {launches['causal_conv1d']} times in "
+          f"the world on the \"cuda\" route = 3 x {nm} Mamba sublayers x "
+          f"{TSHARD_RANKS} ranks (forward, recompute, dx) on "
+          f"{results[0][5]} of {di} channels a rank, its plain version "
+          f"never; the world's collectives (all ranks, roofline.count): "
+          f"{coll['calls']} calls, {a2a} all-to-all (EP), "
+          + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in
+                      coll["by_kind"].items())
+          + f"; peak allocated {peak:.1f} GB (reckoned {cut['peak']:.1f});"
+          f" {card}")
+    return launches
+
+
 def _device_only_rows(torch, fn, calls):
     from repro_torch.tune.runner import device_kernels as per_call
     try:
@@ -6016,19 +6423,23 @@ def main() -> int:
     check(all(v > 0 for v in launches.values()),
           f"a kernel was never launched: {launches}")
     torch.cuda.empty_cache()    # phase 7's model is gone
-    with phase_clock("10 families"):
-        add(phase_families(torch, K, card, lm_prompts))
-    torch.cuda.empty_cache()    # phase 10's last model is gone
-    with phase_clock("11 encdec-hybrid"):
-        add(phase_encdec_hybrid(torch, K, card, lm_prompts))
-    gc.collect()
-    torch.cuda.empty_cache()    # phase 11's last model is gone
-    with phase_clock("12 train"):
-        add(phase_train(torch, K, card, lm_prompts))
-    gc.collect()
-    torch.cuda.empty_cache()    # phase 12's models are gone
-    with phase_clock("13 launch"):
-        add(phase_launch(torch, K, card))
+    sweep = DryrunSweep()       # phase 13's, beside phases 10-12
+    try:
+        with phase_clock("10 families"):
+            add(phase_families(torch, K, card, lm_prompts))
+        torch.cuda.empty_cache()    # phase 10's last model is gone
+        with phase_clock("11 encdec-hybrid"):
+            add(phase_encdec_hybrid(torch, K, card, lm_prompts))
+        gc.collect()
+        torch.cuda.empty_cache()    # phase 11's last model is gone
+        with phase_clock("12 train"):
+            add(phase_train(torch, K, card, lm_prompts))
+        gc.collect()
+        torch.cuda.empty_cache()    # phase 12's models are gone
+        with phase_clock("13 launch"):
+            add(phase_launch(torch, K, card, sweep))
+    finally:
+        sweep.stop()
     with phase_clock("14 shard"):
         add(phase_shard(torch, K, card))
     gc.collect()
@@ -6076,7 +6487,9 @@ def main() -> int:
           f"shard phase's prefills (phase 14: {SHARD_SSM_LAYERS} "
           f"causal_conv1d a rank on {SHARD_RANKS} ranks) and the sharded "
           f"Falcon-Mamba train step (phase 15: 3 causal_conv1d a layer a "
-          f"rank, {TSHARD_SSM_LAYERS} layers on 4 ranks); card: {card}")
+          f"rank, {TSHARD_SSM_LAYERS} layers on 4 ranks) and the sharded "
+          f"jamba super-block's step (phase 15: 3 a Mamba sublayer a rank, "
+          f"7 sublayers on {TSHARD_RANKS} ranks); card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -26,11 +26,20 @@ batch and cache by the rules' local shapes; ``output_bytes``;
 ``roofline.count``, kernel calls as plain versions,
 ``kernels.ops.force_method("torch")``: at one and two layers, then
 extrapolated to the full depth, :func:`cell_work`), ``n_chips`` and
-``tokens``. It has
-no compile times, temp bytes or collective bytes: eager PyTorch has no
-compiler to ask, and a cell's collective bytes wait for a count of the
-sharded training step's collectives (ROADMAP.md, A8.1c). Nothing stands
-in for them.
+``tokens``, and ``collectives``: the first device's collective bytes a
+step (:func:`cell_collectives`: rank 0's step run at its local shapes
+inside the cell's mesh, every ``psum``, ``all_gather``, ``psum_scatter``
+and ``all_to_all`` counted by ``roofline.count`` with its operand bytes
+and its group's axes, at the same depths and extrapolated the same way):
+``bytes_in_pod``, ``bytes_cross_pod`` (a group that spans ``"pod"``:
+JAX's ICI / DCN split), ``by_kind`` under JAX's HLO names, ``calls``, and
+``step_rules``, the rules the counted step ran under: ``"cell"`` (a train
+cell's own rules: the FSDP + TP step) or ``"spmd"`` (a prefill or decode
+cell's ``spmd_rules`` of them, the rules the port's serve step is held
+to: batch, cache and experts split, every other dim whole; decode
+sequence-parallel over ``"model"``, as JAX's ``build_cell`` runs it). It
+has no compile times or temp bytes: eager PyTorch has no compiler to ask,
+and nothing stands in for them.
 """
 from __future__ import annotations
 
@@ -50,8 +59,9 @@ from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import api, mamba
 from repro_torch.optim import OptConfig
 from repro_torch.parallel.sharding import (ShardingRules, local_bytes,
-                                           make_rules, mesh_shape,
-                                           prune_batch_axes, tree_shardings,
+                                           local_tree, make_rules,
+                                           mesh_shape, prune_batch_axes,
+                                           spmd_rules, tree_shardings,
                                            use_mesh, use_rules)
 from repro_torch.roofline import count as roofline
 from repro_torch.train.train_step import (TrainConfig, estimate_model_flops,
@@ -190,7 +200,8 @@ def build_cell(arch: str, shape_name: str, mesh, rules_override=None, *,
                 (psh, _batch_shardings(batch_specs, mesh)), (), rules, cfg, \
                 shape, (logits_sh, csh)
 
-        fn = api.decode_fn(cfg)
+        sp_axis = "model" if "model" in mesh.mesh_dim_names else None
+        fn = api.decode_fn(cfg, sp_axis=sp_axis)
         tsh = tree_shardings(("batch", None), mesh)
         return fn, (params, batch_specs["token"], batch_specs["cache"]), \
             (psh, tsh, csh), (2,), rules, cfg, shape, (logits_sh, csh)
@@ -207,12 +218,13 @@ def _sharded_bytes(tree, sh) -> int:
         if isinstance(tree, tuple) else local_bytes(tree, sh)
 
 
-def count_step(fn, args) -> tuple:
+def count_step(fn, args, *, flops: bool = True) -> tuple:
     """``(outputs, Count)`` of one run of a step on its meta arguments,
     kernel calls as plain versions and each Mamba scan as one chunk
-    (``models.mamba.whole_sequence_scans``: the same matmuls)."""
+    (``models.mamba.whole_sequence_scans``: the same matmuls);
+    ``flops=False``: its collectives and kernel calls only."""
     with ops.force_method("torch"), mamba.whole_sequence_scans(), \
-            roofline.counting() as c:
+            roofline.counting(flops) as c:
         out = fn(*args)
     return out, c
 
@@ -283,6 +295,35 @@ def cell_work(arch: str, shape_name: str, mesh, rules) -> tuple:
     return int(out_bytes), flops
 
 
+def cell_collectives(arch: str, shape_name: str, mesh, rules) -> dict:
+    """The first device's collectives a step of the cell (module
+    docstring): rank 0's step of :func:`build_cell` at each depth of
+    :func:`_depths`, its arguments cut to rank 0's blocks under the step's
+    rules (a train cell's ``rules``; a serve cell's ``spmd_rules`` of
+    them), run once on meta tensors inside ``mesh`` (this process is rank
+    0 of the fake world) under ``roofline.count``; bytes and calls
+    extrapolated to the full depth (:func:`_extrapolate`)."""
+    cfg = get_config(arch)
+    train = SHAPES[shape_name].kind == "train"
+    step_rules = rules if train else spmd_rules(rules)
+    points = []
+    for d in _depths(cfg):
+        fn, args, in_sh, *_ = build_cell(arch, shape_name, mesh, step_rules,
+                                         cfg=dataclasses.replace(cfg, **d))
+        local = [local_tree(a, sh, copy=True) for a, sh in zip(args, in_sh)]
+        with use_mesh(mesh), use_rules(step_rules):
+            _, c = count_step(fn, local, flops=False)
+        got = c.collective_bytes()
+        points.append([got["bytes_in_pod"], got["bytes_cross_pod"],
+                       got["calls"]] + [got["by_kind"].get(k, 0)
+                                        for k in roofline.COLLECTIVE_KINDS])
+    in_pod, cross, calls, *kinds = _extrapolate(cfg, points)
+    return {"bytes_in_pod": int(in_pod), "bytes_cross_pod": int(cross),
+            "by_kind": {k: int(v) for k, v in zip(
+                roofline.COLLECTIVE_KINDS, kinds) if v},
+            "calls": int(calls), "step_rules": "cell" if train else "spmd"}
+
+
 def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
              tag: str = "baseline", rules_override=None) -> dict:
     cfg = get_config(arch)
@@ -305,6 +346,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
             arch, shape_name, mesh, rules_override)
         t0 = time.perf_counter()
         out_bytes, flops = cell_work(arch, shape_name, mesh, rules)
+        coll = cell_collectives(arch, shape_name, mesh, rules)
         t_count = time.perf_counter() - t0
         arg_bytes = argument_bytes(args, in_sh)
         alias = sum(local_bytes(args[i], in_sh[i]) for i in donate)
@@ -322,12 +364,42 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
             n_chips=n_chips,
             tokens=tokens,
             rules=rules.as_dict(),
+            collectives=coll,
         )
     except Exception as e:    # noqa: BLE001 — record it, keep sweeping
         rec.update(status="error", error=f"{type(e).__name__}: {e}",
                    traceback=traceback.format_exc()[-2500:])
     _write(path, rec)
     return rec
+
+
+def record_faults(recs) -> list:
+    """What is wrong with a sweep's records (dicts as written), one line
+    each: a cell that raised, an ok record without ``collectives``, a
+    16x16 record with collective bytes across pods (that mesh has one), a
+    2x16x16 train record whose FSDP axes (the rules' ``embed``) include
+    ``"pod"`` and whose step's collectives cross no pod."""
+    out = []
+    for rec in recs:
+        name = f"{rec['arch']}__{rec['shape']}__{rec['mesh']}"
+        if rec["status"] == "error":
+            out.append(f"{name}: {rec.get('error')}")
+        if rec["status"] != "ok":
+            continue
+        coll = rec.get("collectives")
+        if not coll:
+            out.append(f"{name}: no collectives")
+            continue
+        embed = rec["rules"].get("embed") or ()
+        fsdp = (embed,) if isinstance(embed, str) else tuple(embed)
+        if rec["mesh"] == "16x16" and coll["bytes_cross_pod"]:
+            out.append(f"{name}: {coll['bytes_cross_pod']} bytes across "
+                       "pods on one pod")
+        if rec["mesh"] == "2x16x16" and "pod" in fsdp \
+                and SHAPES[rec["shape"]].kind == "train" \
+                and not coll["bytes_cross_pod"] > 0:
+            out.append(f"{name}: FSDP over {fsdp} and no bytes across pods")
+    return out
 
 
 def _write(path, rec):
@@ -341,11 +413,20 @@ def _write(path, rec):
         json.dump(rec, f, indent=1, default=default)
 
 
+def _train_units(arch: str) -> int:
+    """A train cell's count cost, for the sweep's order: the layers of one
+    depth unit (:func:`_depths`; an encdec model's two stacks) times the
+    microbatches, each of which runs the unit again."""
+    cfg = get_config(arch)
+    unit = {"hybrid": cfg.attn_period, "encdec": 2}.get(cfg.family, 1)
+    return unit * arch_train_overrides(arch)["microbatches"]
+
+
 def _sweep(arch: str, shape: str, pods, out: str, tag: str,
            skip_done: bool) -> list:
     """Run (or skip) the cells of one (arch, shape) on the meshes of
-    ``pods``; the line printed for each. One process counts the step once
-    for both meshes."""
+    ``pods``; the line printed for each. One process counts the step at
+    global shapes once for both meshes."""
     lines = []
     for mp in pods:
         meshname = "2x16x16" if mp else "16x16"
@@ -406,8 +487,9 @@ def main(argv=None):
         return
     import concurrent.futures
     import multiprocessing
-    # the longest sweeps (the train steps') first
-    tasks.sort(key=lambda t: SHAPES[t[1]].kind != "train")
+    # the longest sweeps (the train steps', the deepest unit first) first
+    tasks.sort(key=lambda t: (SHAPES[t[1]].kind != "train",
+                              -_train_units(t[0])))
     with concurrent.futures.ProcessPoolExecutor(
             args.jobs, mp_context=multiprocessing.get_context("spawn")) as ex:
         for fut in concurrent.futures.as_completed(

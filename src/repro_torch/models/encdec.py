@@ -26,7 +26,14 @@ cache by address stays valid; it returns a new ``"len"``.
 
 Training: :func:`encdec_loss`, each encoder and decoder layer under the
 decoder-only stack's ``_remat`` and its stacks taken apart with
-``_unstack``.
+``_unstack``. In a sharded step (``make_rules(..., "train", fsdp=True)``)
+it splits what the rules split, as the decoder-only stack does: each
+layer's weights come gathered along their ``embed`` dim inside its
+checkpointed function (FSDP), every attention (the encoder's, the
+decoder's self- and cross-attention, whose K/V heads come from the
+encoder output) runs on this rank's heads with a ``psum`` after ``wo``
+(:func:`_attend`), the FFN on its columns (``blocks.mlp``), and the token
+lookup and the tied output projection on its block of the vocabulary.
 
 :func:`encdec_decode_step` with ``sp_axis`` decodes sequence-parallel
 inside a mesh, each rank holding its block of the cache under
@@ -39,13 +46,15 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig, torch_dtype
-from repro_torch.parallel.sharding import axis_size, constrain, current_mesh
+from repro_torch.parallel.sharding import (axis_size, constrain,
+                                           current_mesh, psum, split_axes)
 
 from . import attention as A
 from .blocks import chunked_softmax_ce, init_mlp, mlp, mlp_specs, rmsnorm
-from .transformer import (_cdt, _kv, _q, _qkv, _remat, _sp_decode, _take,
-                          _unstack, attn_decode, attn_specs, check_splits,
-                          init_attn)
+from .transformer import (TABLE_SPECS, _cdt, _kv, _own_groups, _q, _remat,
+                          _sp_decode, _take, _unstack, attn_decode,
+                          attn_specs, embed_tokens, gather_tables, init_attn,
+                          layer_gather)
 
 
 def init_encdec(cfg: ModelConfig, generator: torch.Generator, *,
@@ -87,26 +96,46 @@ def encdec_param_specs(cfg: ModelConfig) -> dict:
     enc = {"ln1": ("layers", None), "ln2": ("layers", None),
            "attn": a, "mlp": mlp_specs(cfg.act)}
     dec = dict(enc, lnx=("layers", None), xattn=a)
-    return {"embed": ("vocab", "embed_table"),
+    return {"embed": TABLE_SPECS["embed"],
             "enc_layers": enc, "dec_layers": dec,
             "enc_norm": (None,), "final_norm": (None,)}
+
+
+def _attend(lp, x, src, cfg: ModelConfig, cdt, q_pos, kv_pos, *,
+            causal: bool, impl: str):
+    """The attention of ``x``'s queries (rotated at ``q_pos``) over the
+    keys (rotated at ``kv_pos``) and values of ``src`` (``x`` itself for
+    self-attention), through ``wo``: ``(out, (k, v))``. Where the rules
+    split ``heads``, ``lp`` holds this rank's heads (the counts come from
+    the local weight widths), its query heads meet the key/value heads of
+    their own GQA groups and the ranks' partial outputs are summed."""
+    b, s, _ = x.shape
+    q = _q(lp, x, cfg, cdt, q_pos)
+    k, v = _kv(lp, src, cfg, cdt, kv_pos)
+    heads = split_axes("heads")
+    o = A.attention(q, _own_groups(k, q.shape[2], cfg, heads),
+                    _own_groups(v, q.shape[2], cfg, heads), causal=causal,
+                    impl=impl)
+    out = o.reshape(b, s, -1) @ lp["wo"].to(cdt)
+    return (psum(out, heads) if heads else out), (k, v)
 
 
 def encode(params, frames, cfg: ModelConfig, *, attn_impl="full",
            remat="full"):
     """frames: (B, S_enc, d_model) stub embeddings -> the encoder output,
     (B, S_enc, d_model) in the compute dtype; each layer under
-    ``_remat(.., remat)`` (which changes nothing outside autograd)."""
+    ``_remat(.., remat)`` (which changes nothing outside autograd), its
+    weights gathered inside it under FSDP rules."""
     cdt = _cdt(cfg)
     h = constrain(frames.to(cdt), "batch", None, None)
-    b, s, _ = h.shape
-    positions = torch.arange(s, device=h.device)[None, :]
+    positions = torch.arange(h.shape[1], device=h.device)[None, :]
+    whole = layer_gather(encdec_param_specs(cfg)["enc_layers"])
 
     def body(hh, lp):
+        lp = whole(lp)
         x = rmsnorm(hh, lp["ln1"], cfg.norm_eps)
-        q, k, v = _qkv(lp["attn"], x, cfg, cdt, positions)
-        o = A.attention(q, k, v, causal=False, impl=attn_impl)
-        hh = hh + o.reshape(b, s, -1) @ lp["attn"]["wo"].to(cdt)
+        hh = hh + _attend(lp["attn"], x, x, cfg, cdt, positions, positions,
+                          causal=False, impl=attn_impl)[0]
         return hh + mlp(rmsnorm(hh, lp["ln2"], cfg.norm_eps), lp["mlp"],
                         cfg.act, cdt)
     body = _remat(body, remat)
@@ -117,21 +146,20 @@ def encode(params, frames, cfg: ModelConfig, *, attn_impl="full",
 
 def _decoder_layer(hh, lp, enc_out, cfg: ModelConfig, cdt, attn_impl):
     """One decoder layer over the prompt: returns ``(hh, ((k, v), (kx,
-    vx)))``, its self-attention K/V and the cross K/V of ``enc_out``."""
-    b, s, _ = hh.shape
+    vx)))``, its self-attention K/V and the cross K/V of ``enc_out``
+    (this rank's heads where the rules split them)."""
     x = rmsnorm(hh, lp["ln1"], cfg.norm_eps)
-    positions = torch.arange(s, device=hh.device)[None, :]
-    q, k, v = _qkv(lp["attn"], x, cfg, cdt, positions)
-    o = A.attention(q, k, v, causal=True, impl=attn_impl)
-    hh = hh + o.reshape(b, s, -1) @ lp["attn"]["wo"].to(cdt)
+    positions = torch.arange(hh.shape[1], device=hh.device)[None, :]
+    a, kv = _attend(lp["attn"], x, x, cfg, cdt, positions, positions,
+                    causal=True, impl=attn_impl)
+    hh = hh + a
     xx = rmsnorm(hh, lp["lnx"], cfg.norm_eps)
     epos = torch.arange(enc_out.shape[1], device=hh.device)[None, :]
-    qx = _q(lp["xattn"], xx, cfg, cdt, positions)
-    kx, vx = _kv(lp["xattn"], enc_out, cfg, cdt, epos)
-    ox = A.attention(qx, kx, vx, causal=False, impl=attn_impl)
-    hh = hh + ox.reshape(b, s, -1) @ lp["xattn"]["wo"].to(cdt)
+    ax, xkv = _attend(lp["xattn"], xx, enc_out, cfg, cdt, positions, epos,
+                      causal=False, impl=attn_impl)
+    hh = hh + ax
     f = mlp(rmsnorm(hh, lp["ln2"], cfg.norm_eps), lp["mlp"], cfg.act, cdt)
-    return hh + f, ((k, v), (kx, vx))
+    return hh + f, (kv, xkv)
 
 
 def _unembed(params, h):
@@ -147,15 +175,19 @@ def encdec_loss(params, batch, cfg: ModelConfig, *, attn_impl="full",
     output of ``batch["frames"]``: the decoder over tokens[:, :-1], each
     layer under ``_remat(.., remat)``, then
     :func:`~repro_torch.models.blocks.chunked_softmax_ce` against
-    tokens[:, 1:] through the output projection tied to ``embed``."""
-    check_splits(cfg, "encdec_loss")
+    tokens[:, 1:] through the output projection tied to ``embed`` (in a
+    sharded step: the table gathered along ``embed_table`` once, then
+    this rank's block of the vocabulary, as the decoder-only loss
+    reads it)."""
     cdt = _cdt(cfg)
+    params = gather_tables(params)
     enc_out = encode(params, batch["frames"], cfg, attn_impl=attn_impl,
                      remat=remat)
     tokens = batch["tokens"]
-    h = params["embed"][tokens[:, :-1]].to(cdt)
-    body = _remat(lambda hh, lp: _decoder_layer(hh, lp, enc_out, cfg, cdt,
-                                                attn_impl)[0], remat)
+    h = embed_tokens(params, tokens[:, :-1], cfg, cdt)
+    whole = layer_gather(encdec_param_specs(cfg)["dec_layers"])
+    body = _remat(lambda hh, lp: _decoder_layer(hh, whole(lp), enc_out, cfg,
+                                                cdt, attn_impl)[0], remat)
     for lp in _unstack(params["dec_layers"], cfg.n_layers):
         h = body(h, lp)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)

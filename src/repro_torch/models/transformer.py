@@ -72,20 +72,19 @@ Inside a mesh (``parallel.sharding``) every function computes on its
 rank's block of the data as it is; :func:`decode_step`'s ``sp_axis`` is
 JAX's sequence-parallel decode (:func:`attn_decode`, :func:`_sp_decode`)
 and a moe FFN is expert-parallel (``moe.moe_ffn_sharded``). The training
-path of the dense, vlm, moe and ssm families also splits what the active
-rules split (``sharding.split_axes``; ``make_rules(..., "train",
-fsdp=True)``): heads (each rank's query heads meet the key/value heads of
-their own GQA groups; the head counts come from the local weight widths)
-with a ``psum`` after ``wo``, the FFN (``blocks.mlp``), the Mamba
-channels (``mamba._mixer``), the vocabulary (:func:`embed_tokens`, the
-loss), and the weights' ``embed`` dim, gathered at the start of each
-layer inside its checkpointed function (FSDP: the recompute gathers
-again, the backward reduce-scatters). It does not split the ``seq`` and
-``d_model_act`` dims of the activations: each rank holds its batch rows
-whole (those rules change activation memory, not results). A hybrid or
-encdec model refuses rules that split anything but the batch, the cache
-and the experts (``sharding.split_dims``). On a card a
-dense or vlm :func:`shared_prefill` (the prefill of a serving engine whose
+path of every family also splits what the active rules split
+(``sharding.split_axes``; ``make_rules(..., "train", fsdp=True)``): heads
+(each rank's query heads meet the key/value heads of their own GQA
+groups; the head counts come from the local weight widths) with a
+``psum`` after ``wo``, the FFN (``blocks.mlp``), the Mamba channels
+(``mamba._mixer``), the vocabulary (:func:`embed_tokens`, the loss), and
+the weights' ``embed`` dim, gathered at the start of each layer (a hybrid
+model's super-block; an encdec model's encoder and decoder layers,
+``models.encdec``) inside its checkpointed function (FSDP: the recompute
+gathers again, the backward reduce-scatters). It does not split the
+``seq`` and ``d_model_act`` dims of the activations: each rank holds its
+batch rows whole (those rules change activation memory, not results). On
+a card a dense or vlm :func:`shared_prefill` (the prefill of a serving engine whose
 prefix cache shares prompt pages) runs in row blocks of one GEMM shape, so
 a prompt's rows get the same bits in every prefill bucket.
 """
@@ -101,7 +100,7 @@ from repro_torch.core.quantize import QTensor, QTensorW4
 from repro_torch.parallel.sharding import (active_rules, axis_index,
                                            axis_size, constrain,
                                            current_mesh, gather_dims, psum,
-                                           split_axes, split_dims)
+                                           split_axes)
 
 from . import attention as A
 from .blocks import (chunked_softmax_ce, init_mlp, mlp, mlp_specs, qmlp,
@@ -117,6 +116,9 @@ FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
 NOT_DENSE_KV = ("ssm", "hybrid", "encdec")
 #: the row block of a dense or vlm :func:`shared_prefill` on a card
 PREFILL_ROWS = 128
+#: the token tables' logical axis names (every family's, tied or not)
+TABLE_SPECS = {"embed": ("vocab", "embed_table"),
+               "unembed": ("embed_table", "vocab")}
 
 
 def _cdt(cfg: ModelConfig):
@@ -273,10 +275,9 @@ def _init_hybrid_blocks(cfg: ModelConfig, generator: torch.Generator, pdt,
 def lm_param_specs(cfg: ModelConfig) -> dict:
     """The logical axis names of every leaf of :func:`init_lm`'s tree, a
     tuple per leaf in the same structure (JAX's ``lm_param_specs``)."""
-    specs: dict = {"embed": ("vocab", "embed_table"),
-                   "final_norm": (None,)}
+    specs: dict = {"embed": TABLE_SPECS["embed"], "final_norm": (None,)}
     if not cfg.tied_embeddings:
-        specs["unembed"] = ("embed_table", "vocab")
+        specs["unembed"] = TABLE_SPECS["unembed"]
     if cfg.family == "ssm":
         specs["layers"] = {"ln": ("layers", None), "mamba": mamba_specs()}
     elif cfg.family == "hybrid":
@@ -708,45 +709,32 @@ def _remat(fn, mode: str):
     return wrapped
 
 
-def _layer_specs(cfg: ModelConfig) -> dict:
-    """The logical axis names of one layer's leaves (a super-block's for
-    a hybrid model): :func:`lm_param_specs`' stack without its leading
-    layer axis."""
-    specs = lm_param_specs(cfg)["blocks" if cfg.family == "hybrid"
-                                else "layers"]
-
-    def strip(t):
-        if isinstance(t, dict):
-            return {k: strip(v) for k, v in t.items()}
-        return t[1:]
-    return strip(specs)
+def _unstacked(specs):
+    """A layer stack's logical axis names without their leading layer
+    axis: one layer's."""
+    if isinstance(specs, dict):
+        return {k: _unstacked(v) for k, v in specs.items()}
+    return specs[1:]
 
 
-#: the top-level leaves whose ``embed_table`` dim FSDP splits
-_TABLES = ("embed", "unembed")
+def layer_gather(stack_specs):
+    """``fn(lp)``: one layer's leaves of the stack whose logical names are
+    ``stack_specs`` (a super-block's for a hybrid model) with their
+    ``embed`` dims gathered where the rules split them (FSDP). Called
+    inside the layer's checkpointed function, so the recompute gathers
+    again and the backward reduce-scatters the gradients."""
+    specs = _unstacked(stack_specs)
+    return lambda lp: gather_dims(lp, specs, ("embed",))
 
 
-def gather_tables(params, cfg: ModelConfig) -> dict:
+def gather_tables(params) -> dict:
     """``params`` with the embedding (and unembedding) table's
     ``embed_table`` dim gathered where the rules split it (FSDP), once a
-    step, ahead of :func:`forward_hidden`; ``params`` itself elsewhere."""
-    specs = lm_param_specs(cfg)
-    keys = [k for k in _TABLES if k in params]
+    step, ahead of the layers; ``params`` itself elsewhere."""
+    keys = [k for k in TABLE_SPECS if k in params]
     got = gather_dims({k: params[k] for k in keys},
-                      {k: specs[k] for k in keys}, ("embed_table",))
+                      {k: TABLE_SPECS[k] for k in keys}, ("embed_table",))
     return dict(params, **got)
-
-
-def check_splits(cfg: ModelConfig, what: str):
-    """A hybrid or encdec model's layers compute every dim whole: raise
-    where the active rules split one beyond the batch, the cache and the
-    experts."""
-    dims = split_dims() if cfg.family in ("hybrid", "encdec") else ()
-    if dims:
-        raise NotImplementedError(
-            f"{what}: the {cfg.family} family does not train under rules "
-            f"that split {', '.join(dims)} (ROADMAP A8.1c); its sharded "
-            "step splits the batch only")
 
 
 def forward_hidden(params, tokens, cfg: ModelConfig, *, embeds=None,
@@ -757,18 +745,15 @@ def forward_hidden(params, tokens, cfg: ModelConfig, *, embeds=None,
     layer's weights are gathered inside its checkpointed function, and
     the tables must come gathered (:func:`gather_tables`)."""
     _check_decoder(cfg, "forward_hidden")
-    check_splits(cfg, "forward_hidden")
     cdt = _cdt(cfg)
-    specs = _layer_specs(cfg)
-
-    def whole(lp):
-        return gather_dims(lp, specs, ("embed",))
+    whole = layer_gather(lm_param_specs(cfg)[
+        "blocks" if cfg.family == "hybrid" else "layers"])
     h = embed_tokens(params, tokens, cfg, cdt)
     if embeds is not None:
         h = torch.cat([embeds.to(cdt), h], dim=1)
     h = constrain(h, "batch", "seq", None)
     if cfg.family == "hybrid":
-        body = _remat(lambda hh, bp: hybrid_block(hh, bp, cfg, cdt,
+        body = _remat(lambda hh, bp: hybrid_block(hh, whole(bp), cfg, cdt,
                                                   impl=attn_impl), remat)
         stack = _unstack(params["blocks"], _hybrid_counts(cfg)[0])
     elif cfg.family == "ssm":
@@ -788,7 +773,7 @@ def forward(params, tokens, cfg: ModelConfig, *, embeds=None,
             attn_impl: str = "full", remat: str = "full"):
     """Float32 logits (B, P + S, V) of :func:`forward_hidden` (this
     rank's block of V where the rules split ``vocab``)."""
-    params = gather_tables(params, cfg)
+    params = gather_tables(params)
     h = forward_hidden(params, tokens, cfg, embeds=embeds,
                        attn_impl=attn_impl, remat=remat)
     return unembed(params, h, cfg)
@@ -803,7 +788,7 @@ def lm_loss(params, batch, cfg: ModelConfig, *, attn_impl: str = "full",
     left out of the loss."""
     tokens = batch["tokens"]
     embeds = batch.get("embeds")
-    params = gather_tables(params, cfg)
+    params = gather_tables(params)
     h = forward_hidden(params, tokens[:, :-1], cfg, embeds=embeds,
                        attn_impl=attn_impl, remat=remat)
     n_img = 0 if embeds is None else embeds.shape[1]

@@ -501,14 +501,6 @@ def split_axes(name: str) -> tuple:
     return tuple(a for a in _axes(entry) if shape.get(a, 1) > 1)
 
 
-def split_dims() -> tuple:
-    """The logical dims outside :data:`SPMD_AXES` that the active rules
-    split (:func:`split_axes`): what a family whose layers compute every
-    such dim whole must refuse."""
-    return tuple(f.name for f in dataclasses.fields(ShardingRules)
-                 if f.name not in SPMD_AXES and split_axes(f.name))
-
-
 def spec_axes(names) -> tuple:
     """The mesh axes, in the mesh's order, that split a tensor whose dims
     are the logical ``names`` (:func:`split_axes` of each)."""
@@ -533,66 +525,92 @@ def mesh_axes() -> tuple:
 # holds whole as shard_map does: each rank seeds 1 / (the mesh's size)
 # (train.train_step), and a leaf that ranks hold the same copy of sums its
 # ranks' gradients (:func:`psum` over the axes its spec does not name).
+#
+# Every transfer goes through the four helpers below (_all_reduce, _gather,
+# _scatter_sum, _exchange; _GatherMany's through _gather and _scatter_sum),
+# and each reports its call to the open roofline counts
+# (``roofline.count.counting``): JAX's kind, the operand's bytes on this
+# rank, the mesh axes of its group. Meta tensors take the same path (the
+# dry run's fake backend takes them).
 
 
-def _all_reduce(x, group, op):
+class _Comm:
+    """A collective's group and the current mesh's axes of size > 1 that
+    the group spans (what a count records of it)."""
+    __slots__ = ("group", "axes")
+
+    def __init__(self, axis):
+        self.group = _group(axis)
+        self.axes = tuple(a for a in _axes(axis) if axis_size(a) > 1)
+
+
+def _note(kind: str, x, comm: _Comm):
+    from repro_torch.roofline import count
+    if count.active():
+        count.collective(kind, x.numel() * x.element_size(), comm.axes)
+
+
+def _all_reduce(x, comm: _Comm, op):
     import torch.distributed as dist
     y = x.detach().clone()
-    off_turn(lambda: dist.all_reduce(y, op=op, group=group))
+    _note("all-reduce", y, comm)
+    off_turn(lambda: dist.all_reduce(y, op=op, group=comm.group))
     return y
 
 
 class _PSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
+    def forward(ctx, x, comm):
         import torch.distributed as dist
-        ctx.group = group
-        return _all_reduce(x, group, dist.ReduceOp.SUM)
+        ctx.comm = comm
+        return _all_reduce(x, comm, dist.ReduceOp.SUM)
 
     @staticmethod
     def backward(ctx, g):
         import torch.distributed as dist
-        return _all_reduce(g, ctx.group, dist.ReduceOp.SUM), None
+        return _all_reduce(g, ctx.comm, dist.ReduceOp.SUM), None
 
 
 def psum(x, axis):
     """The sum of ``x`` over the ranks of ``axis`` (a mesh axis or a tuple
     of them; JAX's ``lax.psum``); its backward is the psum of the
     gradient."""
-    return _PSum.apply(x, _group(axis))
+    return _PSum.apply(x, _Comm(axis))
 
 
 def pmax(x, axis):
     """The elementwise max of ``x`` over the ranks of ``axis``; no
     gradient flows through it (a softmax's shift)."""
     import torch.distributed as dist
-    return _all_reduce(x, _group(axis), dist.ReduceOp.MAX)
+    return _all_reduce(x, _Comm(axis), dist.ReduceOp.MAX)
 
 
-def _gather(x, group, n: int, dim: int):
+def _gather(x, comm: _Comm, n: int, dim: int):
     import torch.distributed as dist
     x = x.contiguous()
+    _note("all-gather", x, comm)
     parts = [torch.empty_like(x) for _ in range(n)]
-    off_turn(lambda: dist.all_gather(parts, x, group=group))
+    off_turn(lambda: dist.all_gather(parts, x, group=comm.group))
     return torch.cat(parts, dim=dim)
 
 
-def _scatter_sum(x, group, n: int, dim: int):
+def _scatter_sum(x, comm: _Comm, n: int, dim: int):
     import torch.distributed as dist
     if x.shape[dim] % n:
         raise ValueError(f"psum_scatter: dim {dim} of {tuple(x.shape)} does "
                          f"not split over {n} ranks")
+    _note("reduce-scatter", x, comm)
     chunks = [c.contiguous() for c in x.chunk(n, dim)]
     out = torch.empty_like(chunks[0])
-    off_turn(lambda: dist.reduce_scatter(out, chunks, group=group))
+    off_turn(lambda: dist.reduce_scatter(out, chunks, group=comm.group))
     return out
 
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, n, dim):
-        ctx.args = (group, n, dim)
-        return _gather(x, group, n, dim)
+    def forward(ctx, x, comm, n, dim):
+        ctx.args = (comm, n, dim)
+        return _gather(x, comm, n, dim)
 
     @staticmethod
     def backward(ctx, g):
@@ -601,9 +619,9 @@ class _AllGather(torch.autograd.Function):
 
 class _PSumScatter(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, n, dim):
-        ctx.args = (group, n, dim)
-        return _scatter_sum(x, group, n, dim)
+    def forward(ctx, x, comm, n, dim):
+        ctx.args = (comm, n, dim)
+        return _scatter_sum(x, comm, n, dim)
 
     @staticmethod
     def backward(ctx, g):
@@ -615,38 +633,39 @@ def all_gather(x, axis, dim: int = 0):
     rank order (JAX's tiled ``lax.all_gather``; over a tuple of axes, in
     the mesh's major-to-minor order, the order :func:`local_shard` cuts
     a dim that takes them). Its backward is :func:`psum_scatter`."""
-    return _AllGather.apply(x, _group(axis), axis_size(axis), dim)
+    return _AllGather.apply(x, _Comm(axis), axis_size(axis), dim)
 
 
 def psum_scatter(x, axis, dim: int = 0):
     """This rank's block along ``dim`` of the sum of ``x`` over the ranks
     of ``axis`` (JAX's tiled ``lax.psum_scatter``, a reduce-scatter). Its
     backward is :func:`all_gather`."""
-    return _PSumScatter.apply(x, _group(axis), axis_size(axis), dim)
+    return _PSumScatter.apply(x, _Comm(axis), axis_size(axis), dim)
 
 
-def _exchange(x, group, n: int, split_dim: int, concat_dim: int):
+def _exchange(x, comm: _Comm, n: int, split_dim: int, concat_dim: int):
     import torch.distributed as dist
     if x.shape[split_dim] % n:
         raise ValueError(f"all_to_all: dim {split_dim} of {tuple(x.shape)} "
                          f"does not split over {n} ranks")
     xs = x.movedim(split_dim, 0).contiguous()
+    _note("all-to-all", xs, comm)
     out = torch.empty_like(xs)
-    off_turn(lambda: dist.all_to_all_single(out, xs, group=group))
+    off_turn(lambda: dist.all_to_all_single(out, xs, group=comm.group))
     return torch.cat([c.movedim(0, split_dim) for c in out.chunk(n)],
                      dim=concat_dim)
 
 
 class _AllToAll(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, n, split_dim, concat_dim):
-        ctx.args = (group, n, split_dim, concat_dim)
-        return _exchange(x, group, n, split_dim, concat_dim)
+    def forward(ctx, x, comm, n, split_dim, concat_dim):
+        ctx.args = (comm, n, split_dim, concat_dim)
+        return _exchange(x, comm, n, split_dim, concat_dim)
 
     @staticmethod
     def backward(ctx, g):
-        group, n, split_dim, concat_dim = ctx.args
-        return _exchange(g, group, n, concat_dim, split_dim), None, None, \
+        comm, n, split_dim, concat_dim = ctx.args
+        return _exchange(g, comm, n, concat_dim, split_dim), None, None, \
             None, None
 
 
@@ -656,20 +675,21 @@ def all_to_all(x, axis, split_dim: int, concat_dim: int):
     the blocks this rank receives concatenated along ``concat_dim`` in
     rank order (``all_to_all_single`` over dim 0). Its backward is the
     exchange with the two dims swapped."""
-    return _AllToAll.apply(x, _group(axis), axis_size(axis), split_dim,
+    return _AllToAll.apply(x, _Comm(axis), axis_size(axis), split_dim,
                            concat_dim)
 
 
 class _GatherMany(torch.autograd.Function):
     """:func:`all_gather` of several tensors over one group in one
     collective: their blocks flattened side by side, each rebuilt along
-    its own dim; the backward is one reduce-scatter."""
+    its own dim; the backward is one reduce-scatter of the gradients,
+    each rank's blocks written side by side into one buffer."""
 
     @staticmethod
-    def forward(ctx, group, n, dims, *xs):
-        ctx.args = (group, n, dims, [x.shape for x in xs])
+    def forward(ctx, comm, n, dims, *xs):
+        ctx.args = (comm, n, dims, [x.shape for x in xs])
         flat = torch.cat([x.reshape(-1) for x in xs])
-        parts = _gather(flat, group, n, 0).view(n, -1)
+        parts = _gather(flat, comm, n, 0).view(n, -1)
         out, at = [], 0
         for x, dim in zip(xs, dims):
             k = x.numel()
@@ -680,16 +700,17 @@ class _GatherMany(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *gs):
-        group, n, dims, shapes = ctx.args
-        rows = torch.stack([torch.cat([g.chunk(n, d)[r].reshape(-1)
-                                       for g, d in zip(gs, dims)])
-                            for r in range(n)])
-        mine = _scatter_sum(rows, group, n, 0)[0]
-        out, at = [], 0
-        for s in shapes:
-            out.append(mine[at:at + s.numel()].view(s))
-            at += s.numel()
-        return (None, None, None, *out)
+        comm, n, dims, shapes = ctx.args
+        sizes = [s.numel() for s in shapes]
+        rows = gs[0].new_empty((n, sum(sizes)))
+        at = 0
+        for g, d, k, s in zip(gs, dims, sizes, shapes):
+            for r, c in enumerate(g.chunk(n, d)):
+                rows[r, at:at + k].view(s).copy_(c)
+            at += k
+        mine = _scatter_sum(rows, comm, n, 0)[0]
+        return (None, None, None, *(m.view(s) for m, s in
+                                    zip(mine.split(sizes), shapes)))
 
 
 def gather_dims(tree, specs, names):
@@ -717,7 +738,7 @@ def gather_dims(tree, specs, names):
     got = {}
     for axes in dict.fromkeys(a for *_, a in flat):
         group = [(p, t, d) for p, t, d, a in flat if a == axes]
-        out = _GatherMany.apply(_group(axes), axis_size(axes),
+        out = _GatherMany.apply(_Comm(axes), axis_size(axes),
                                 tuple(d for _, _, d in group),
                                 *(t for _, t, _ in group))
         got.update({p: o for (p, _, _), o in zip(group, out)})

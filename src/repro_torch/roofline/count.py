@@ -2,7 +2,7 @@
 
 The port's counterpart of ``repro/roofline/hlo.py``. JAX walks the
 compiled HLO of a step; eager PyTorch has no HLO to walk, so this module
-counts the step's work while it runs, in two parts:
+counts the step's work while it runs, in three parts:
 
 * the aten matmuls, convolutions and attention, by the formulas of
   ``torch.utils.flop_counter.FlopCounterMode``'s registry (the FLOPs JAX
@@ -14,6 +14,12 @@ counts the step's work while it runs, in two parts:
   packed), and the aten operations of whatever runs inside it (a plain
   version's step-by-step arithmetic) are not counted. So a call counts the
   same work under ``method="cuda"`` and ``"torch"``, and on meta tensors.
+* every collective of a sharded step (``parallel.sharding``'s ``psum``,
+  ``pmax``, ``all_gather``, ``psum_scatter``, ``all_to_all`` and FSDP's
+  gathers, their backwards included): its kind under JAX's HLO name, its
+  operand bytes on this rank and its group's mesh axes
+  (:class:`Collective`), on real tensors or on the dry run's meta tensors
+  over the fake backend alike.
 
 :func:`kernel_work` is also what ``chip_smoke.py`` phase 3 bounds each
 kernel by. :func:`step_report` gives a step's FLOPs by kind, its bytes
@@ -182,15 +188,39 @@ def kernel_of(entry: str, x, *, requant_shift=None, w_shifts=None) -> str:
 
 # ------------------------------------------------------------------ counting
 
+#: the collectives' kinds, JAX's HLO names (``repro/roofline/hlo.py``)
+COLLECTIVE_KINDS = ("all-reduce", "all-gather", "reduce-scatter",
+                    "all-to-all")
+
+
+@dataclasses.dataclass(frozen=True)
+class Collective:
+    """One collective call on this rank: its kind (:data:`COLLECTIVE_KINDS`),
+    its operand's bytes here (the tensor it sends: an all-gather's block,
+    a reduce-scatter's whole input, as ``analyze_hlo`` counts an HLO
+    collective's operands) and the mesh axes of size > 1 its group spans.
+    A group that spans ``"pod"`` crosses pods (JAX's ``_crosses_pod``:
+    the DCN bytes)."""
+    kind: str
+    nbytes: int
+    axes: tuple
+
+    @property
+    def cross_pod(self) -> bool:
+        return "pod" in self.axes
+
+
 class Count:
     """What :func:`counting` saw: FLOPs (operations) by kind, aten's and
-    the kernels' together, the kernels' bytes, and each kernel's calls."""
+    the kernels' together, the kernels' bytes, each kernel's calls, and
+    every collective call in order (:class:`Collective`)."""
 
     def __init__(self):
         self.aten = collections.Counter()
         self.kernel_ops = collections.Counter()
         self.kernel_bytes = 0
         self.calls = collections.Counter()
+        self.collectives = []
 
     @property
     def flops(self) -> dict:
@@ -206,6 +236,21 @@ class Count:
         self.kernel_ops.update(work.ops)
         self.kernel_bytes += work.nbytes
 
+    def collective_bytes(self) -> dict:
+        """``{"bytes_in_pod", "bytes_cross_pod", "by_kind", "calls"}`` of
+        the collectives seen: bytes summed within pods and across them (a
+        record's ``hlo.coll_bytes_ici`` / ``coll_bytes_dcn`` in JAX's dry
+        run), by kind, and the number of calls."""
+        by_kind = collections.Counter()
+        cross = 0
+        for c in self.collectives:
+            by_kind[c.kind] += c.nbytes
+            cross += c.nbytes if c.cross_pod else 0
+        total = sum(by_kind.values())
+        return {"bytes_in_pod": total - cross, "bytes_cross_pod": cross,
+                "by_kind": dict(sorted(by_kind.items())),
+                "calls": len(self.collectives)}
+
 
 #: the open counts, and how deep inside kernel calls the running code is
 _ACTIVE: list = []
@@ -214,6 +259,17 @@ _QUIET = [0]
 
 def active() -> bool:
     return bool(_ACTIVE)
+
+
+def collective(kind: str, nbytes: int, axes: tuple):
+    """Report one collective call (:class:`Collective`) to every open
+    count; ``parallel.sharding``'s helpers call it for every transfer."""
+    if kind not in COLLECTIVE_KINDS:
+        raise KeyError(f"unknown collective {kind!r}; kinds: "
+                       f"{COLLECTIVE_KINDS}")
+    rec = Collective(kind, int(nbytes), tuple(axes))
+    for c in _ACTIVE:
+        c.collectives.append(rec)
 
 
 @contextlib.contextmanager
@@ -261,13 +317,16 @@ def _aten_mode(count: Count):
 
 
 @contextlib.contextmanager
-def counting():
+def counting(flops: bool = True):
     """``with counting() as c:`` counts the work of whatever runs inside,
-    forward and backward (:class:`Count`)."""
+    forward and backward (:class:`Count`). ``flops=False`` leaves the aten
+    operations uncounted (no dispatch mode: each operation then costs no
+    more than it does uncounted) and counts the kernel calls and the
+    collectives alone."""
     c = Count()
     _ACTIVE.append(c)
     try:
-        with _aten_mode(c):
+        with _aten_mode(c) if flops else contextlib.nullcontext():
             yield c
     finally:
         _ACTIVE.remove(c)

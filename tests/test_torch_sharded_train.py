@@ -5,26 +5,42 @@ meshes and against the port's own single-device step.
 
 Three launches serve the file, the first two at the same time:
 
-* one JAX subprocess with 8 host devices (``XLA_FLAGS``, as
-  ``tests/test_sharded.py``), which computes from the seeded numpy inputs
+* two JAX subprocesses with 8 host devices (``XLA_FLAGS``, as
+  ``tests/test_sharded.py``), which compute from the seeded numpy inputs
   written here ``tests/test_sharded.py``'s train-step case (granite-3-2b
   at its reduced size, its bf16 compute, one step on one device and on a
   (2, 2, 2) ("pod", "data", "model") mesh with FSDP and pruned batch
-  axes) and its compressed all-reduce (its own input, written out), and
-  exchanges checkpoints with the port: it restores onto a (4, 2) mesh the
-  checkpoint the port saved sharded there, and saves one of its own;
+  axes; the compiled sharded step's collective bytes by
+  ``analyze_hlo``), one step of the reduced seamless and (in the second
+  process, whose compile is the longest) jamba cases of ``JAX_CASES`` on
+  that mesh,
+  and its compressed all-reduce (its own input, written out), and
+  exchange checkpoints with the port: the first restores onto a (4, 2)
+  mesh the checkpoint the port saved sharded there, and saves one of its
+  own;
 * one world of 8 gloo processes (``launch.world.run_world``), each rank
-  running the port's sharded step on its blocks beside the port's
-  single-device step: JAX's case, then dense (granite-34b: gelu, one
-  key/value head, so each rank's query heads meet their group's head;
+  running the port's sharded step on its blocks (and one rank a case the
+  port's single-device step, the same on every rank, ``_owner``): JAX's
+  cases (jamba at 4
+  experts, top-2, also against the port's single-device step: expert
+  selection and expert-parallel dispatch), then dense (granite-34b: gelu,
+  one key/value head, so each rank's query heads meet their group's head;
   untied unembedding), vlm (internvl2-1b: embeddings, qkv biases), moe
   (granite-moe at capacity factor E / top_k: nothing drops, so expert
-  parallelism routes the pairs the local path routes) and ssm
+  parallelism routes the pairs the local path routes), ssm
   (falcon-mamba: ``in_proj`` gathered over "model", ``causal_conv1d``'s
-  plain version on the host), each in float32 for two steps, one case
-  with ``microbatches=2``; each rank's bytes; the refusals of hybrid and
-  encdec; the sharded ``Trainer`` over 4 steps, restored from step 2 onto
-  2 of the ranks;
+  plain version on the host), hybrid (jamba: one super-block of 7 Mamba
+  sublayers, attention and 2 experts, top-2, gathered whole; 2 experts
+  only for the two-step params check, where every token takes both: with
+  4 experts a token's second choice can flip on a near-tie after the
+  first step, and the second step then moved weights by up to 1.2e-3 on
+  either side of the single-device step, both sides 3-7e-6 of a float64
+  reference apart in their gradients; the one-step 4-expert case above
+  holds the routing) and encdec (seamless: self- and
+  cross-attention split by heads, the tied vocabulary split), each in
+  float32 for two steps, one case with
+  ``microbatches=2``; each rank's bytes; the sharded ``Trainer`` over 4
+  steps, restored from step 2 onto 2 of the ranks;
 * worlds of threads in this process (the card's world, here on host
   tensors) for the collectives and the checkpoints around the JAX
   subprocess: the port's sharded save before it starts, the restores of
@@ -71,7 +87,8 @@ JAX_CFG = dict(n_layers=2, d_model=32, n_heads=4, n_kv_heads=2, d_ff=64,
                vocab=128)
 BATCH, SEQ = 8, 16
 OPT = dict(lr=1e-2, warmup_steps=0, grad_clip=1e9)
-#: the port against itself: reduced configs in float32
+#: the port against itself, two steps: reduced configs in float32; a
+#: ``"moe"`` entry replaces fields of the arch's MoEConfig
 FAMILIES = {
     "dense": ("granite-34b", dict(n_layers=2, d_model=32, n_heads=4,
                                   n_kv_heads=1, d_ff=64, vocab=128)),
@@ -81,15 +98,27 @@ FAMILIES = {
     "moe": ("granite-moe-1b-a400m", dict(n_layers=2, d_model=32, n_heads=4,
                                          n_kv_heads=2, d_ff=64, vocab=128)),
     "ssm": ("falcon-mamba-7b", dict(n_layers=2, d_model=32, vocab=64)),
-}
-REFUSED = {
     "hybrid": ("jamba-v0.1-52b", dict(
         n_layers=8, attn_period=8, attn_offset=4, d_model=32, n_heads=4,
-        n_kv_heads=2, d_ff=64, vocab=128)),
+        n_kv_heads=2, d_ff=64, vocab=128, moe=dict(num_experts=2,
+                                                   d_ff=64))),
     "encdec": ("seamless-m4t-large-v2", dict(
         n_layers=2, n_encoder_layers=2, d_model=32, n_heads=4,
         n_kv_heads=2, d_ff=64, vocab=128)),
 }
+#: the cases JAX's subprocess also steps once on the mesh: jamba at 4
+#: experts, top-2, so that tokens choose among experts (FAMILIES' 2 take
+#: both), and FAMILIES' seamless
+JAX_CASES = {
+    "hybrid": ("jamba-v0.1-52b", dict(FAMILIES["hybrid"][1], moe=dict(
+        num_experts=4, d_ff=64))),
+    "encdec": FAMILIES["encdec"],
+}
+#: the one-step case of JAX's jamba, held against the port's single-device
+#: step as well
+ROUTED = "hybrid-4-experts"
+#: an encdec batch's frames
+ENC_SEQ = 8
 STEPS = 2
 REL = 1e-5
 PARAM_ATOL = 5e-4
@@ -101,6 +130,14 @@ CKPT_MESH = ((4, 2), ("data", "model"))
 CKPT_W = np.arange(64, dtype=np.float32).reshape(8, 8)
 CKPT_JAX_W = CKPT_W * 2 + 1
 TIMEOUT = 300
+#: the single-device reference steps, each taken by one rank of the world
+#: (every rank's would be the same), spread over the ranks to run at once
+REF_CASES = ("jax_case", ROUTED, *FAMILIES, "microbatches")
+
+
+def _owner(case) -> int:
+    """The rank that takes ``case``'s single-device steps."""
+    return REF_CASES.index(case) % int(np.prod(MESH[0]))
 
 JAX_SCRIPT = r"""
 import dataclasses, json, os, sys
@@ -117,30 +154,60 @@ from repro.optim import OptConfig, allreduce_compressed, init_errors
 from repro.optim import init_opt_state
 from repro.parallel.sharding import (make_rules, prune_batch_axes,
                                      tree_shardings, use_rules)
+from repro.roofline.hlo import analyze_hlo
 from repro.train import TrainConfig, make_train_step
 src, dst, meta = sys.argv[1], sys.argv[2], json.loads(sys.argv[3])
 data = dict(np.load(src))
-params = {}
-for key, v in data.items():
-    if key.startswith("p/"):
-        *path, leaf = key[2:].split("/")
-        node = params
-        for p in path:
-            node = node.setdefault(p, {})
-        node[leaf] = jnp.asarray(v)
-cfg = dataclasses.replace(get_config(meta["arch"]), **meta["cfg"])
+def subtree(prefix):
+    out = {}
+    for key, v in data.items():
+        if key.startswith(prefix):
+            *path, leaf = key[len(prefix):].split("/")
+            node = out
+            for p in path:
+                node = node.setdefault(p, {})
+            node[leaf] = jnp.asarray(v)
+    return out
+def config(arch, kw):
+    base = get_config(arch)
+    kw = dict(kw)
+    if "moe" in kw:
+        kw["moe"] = dataclasses.replace(base.moe, **kw["moe"])
+    return dataclasses.replace(base, **kw)
 tcfg = TrainConfig(opt=OptConfig(**meta["opt"]))
-step = make_train_step(cfg, tcfg)
-batch = {"tokens": jnp.asarray(data["tokens"])}
-_, _, m1 = jax.jit(step)(params, init_opt_state(params, tcfg.opt), batch)
 mesh = make_mesh(tuple(meta["mesh"][0]), tuple(meta["mesh"][1]))
-rules = prune_batch_axes(mesh, make_rules(mesh, cfg, "train", fsdp=True),
-                         batch["tokens"].shape[0])
-with mesh, use_rules(rules):
-    psh = tree_shardings(api.param_specs(cfg), mesh)
-    p2 = jax.device_put(params, psh)
-    _, _, m2 = jax.jit(step)(p2, init_opt_state(p2, tcfg.opt), batch)
-out = dict(l1=float(m1["loss"]), l2=float(m2["loss"]),
+def sharded(cfg, params, batch, hlo=None):
+    step = make_train_step(cfg, tcfg)
+    rules = prune_batch_axes(mesh, make_rules(mesh, cfg, "train", fsdp=True),
+                             batch["tokens"].shape[0])
+    with mesh, use_rules(rules):
+        psh = tree_shardings(api.param_specs(cfg), mesh)
+        p2 = jax.device_put(params, psh)
+        opt = init_opt_state(p2, tcfg.opt)
+        fn = jax.jit(step).lower(p2, opt, batch).compile()
+        _, _, m = fn(p2, opt, batch)
+    if hlo is not None:   # the compiled step's collectives, a device's
+        got = analyze_hlo(fn.as_text(), pod_size=mesh.devices.size
+                          // mesh.shape["pod"])
+        hlo.update({k: got[k] for k in ("coll_bytes_ici", "coll_bytes_dcn",
+                                         "coll_by_kind")})
+    return m
+out = {}
+for fam, (arch, kw) in meta["families"].items():
+    m = sharded(config(arch, kw), subtree(fam + "/p/"),
+                subtree(fam + "/batch/"))
+    out[fam] = (float(m["loss"]), float(m["grad_norm"]))
+if not meta.get("arch"):          # a process of the families alone
+    print("OUT::" + json.dumps(out))
+    sys.exit(0)
+cfg = config(meta["arch"], meta["cfg"])
+params = subtree("p/")
+batch = {"tokens": jnp.asarray(data["tokens"])}
+step = make_train_step(cfg, tcfg)
+_, _, m1 = jax.jit(step)(params, init_opt_state(params, tcfg.opt), batch)
+out["hlo"] = {}
+m2 = sharded(cfg, params, batch, out["hlo"])
+out.update(l1=float(m1["loss"]), l2=float(m2["loss"]),
            g1=float(m1["grad_norm"]), g2=float(m2["grad_norm"]))
 # tests/test_sharded.py's compressed all-reduce, its input included
 mesh8 = make_mesh((8,), ("data",))
@@ -172,7 +239,10 @@ print("OUT::" + json.dumps(out))
 
 
 def _cfg(arch, **kw):
-    return dataclasses.replace(get_config(arch), **kw)
+    base = get_config(arch)
+    if "moe" in kw:
+        kw["moe"] = dataclasses.replace(base.moe, **kw["moe"])
+    return dataclasses.replace(base, **kw)
 
 
 def _f32(arch, kw):
@@ -182,6 +252,17 @@ def _f32(arch, kw):
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             m, capacity_factor=m.num_experts / m.top_k))
     return cfg
+
+
+def _f32_fields(arch, kw):
+    """(arch, the config fields :func:`_f32` sets) of a case, as JSON for
+    JAX's subprocess."""
+    cfg = _f32(arch, kw)
+    kw = dict(kw, compute_dtype="float32")
+    if cfg.moe is not None:
+        kw["moe"] = dict(kw.get("moe", {}),
+                         capacity_factor=cfg.moe.capacity_factor)
+    return arch, kw
 
 
 def _flat(tree, prefix=""):
@@ -224,6 +305,15 @@ def make_inputs(path):
     data = {"p/" + k: v for k, v in numpy_params(cfg, rng).items()}
     data["tokens"] = rng.integers(0, cfg.vocab, (BATCH, SEQ)).astype(
         np.int32)
+    for fam, case in JAX_CASES.items():
+        cfg = _f32(*case)
+        data.update({f"{fam}/p/{k}": v
+                     for k, v in numpy_params(cfg, rng).items()})
+        data[f"{fam}/batch/tokens"] = rng.integers(
+            0, cfg.vocab, (BATCH, SEQ + 1)).astype(np.int32)
+        if cfg.family == "encdec":
+            data[f"{fam}/batch/frames"] = rng.standard_normal(
+                (BATCH, ENC_SEQ, cfg.d_model)).astype(np.float32)
     data["ckpt_w"] = CKPT_W
     data["ckpt_jax_w"] = CKPT_JAX_W
     np.savez(path, **data)
@@ -257,6 +347,9 @@ def _batches(cfg, seed, n=STEPS):
         if cfg.family == "vlm":
             b["embeds"] = torch.randn((BATCH, cfg.frontend_positions,
                                        cfg.d_model), generator=gen)
+        if cfg.family == "encdec":
+            b["frames"] = torch.randn((BATCH, ENC_SEQ, cfg.d_model),
+                                      generator=gen)
         out.append(b)
     return out
 
@@ -280,10 +373,15 @@ def _gathered(tree, shardings):
                     else whole(v, shardings[k])) for k, v in tree.items()}
 
 
-def _steps(cfg, tcfg, params, batches, mesh=None):
+def _steps(cfg, tcfg, params, batches, mesh=None, count=None,
+           moments=None):
     """Metrics of each step and the params after them: the single-device
     step on a copy of ``params``, or inside ``mesh`` the sharded step on
-    this rank's blocks and rows (the params returned gathered)."""
+    this rank's blocks and rows (the params returned gathered; with a
+    ``count`` dict, the steps' collectives, ``Count.collective_bytes``,
+    put in it; with a ``moments`` dict, the first moments, gathered and
+    flat by path, put in it)."""
+    from repro_torch.roofline import count as roofline
     from repro_torch.optim import init_opt_state
     from repro_torch.train import make_train_step
     step = make_train_step(cfg, tcfg)
@@ -295,20 +393,39 @@ def _steps(cfg, tcfg, params, batches, mesh=None):
         for b in batches:
             p, opt, m = step(p, opt, b)
             metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        if moments is not None:
+            moments.update(_numpy(opt["m"]))
         return metrics, p
     with S.use_mesh(mesh), S.use_rules(_rules(mesh, cfg)):
         psh = S.tree_shardings(api.param_specs(cfg))
         p = S.local_tree(params, psh, copy=True)
         opt = init_opt_state(p, tcfg.opt)
         metrics = []
-        for b in batches:
-            p, opt, m = step(p, opt, _rows(b))
-            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        with roofline.counting(flops=False) as c:
+            for b in batches:
+                p, opt, m = step(p, opt, _rows(b))
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        if count is not None:
+            count.update(c.collective_bytes())
+        if moments is not None:
+            moments.update(_numpy(_gathered(opt["m"], psh)))
         return metrics, _gathered(p, psh)
 
 
 def _numpy(tree):
     return {k: v.detach().numpy() for k, v in _flat(tree).items()}
+
+
+def _moment64(cfg, params, batch):
+    """The first moment after one AdamW step, (1 - b1) g, of the loss's
+    gradient computed in float64, flat by path."""
+    cfg = dataclasses.replace(cfg, compute_dtype="float64")
+    p = {k: v.detach().double().requires_grad_()
+         for k, v in _flat(params).items()}
+    b = {k: v.double() if v.is_floating_point() else v
+         for k, v in batch.items()}
+    api.loss_fn(cfg)(_nest(p, ""), b).backward()
+    return {k: (1 - _tcfg().opt.b1) * v.grad.numpy() for k, v in p.items()}
 
 
 def _rank(rank, path, ckpt_dir):
@@ -321,26 +438,54 @@ def _rank(rank, path, ckpt_dir):
     cfg = _cfg(JAX_ARCH, **JAX_CFG)
     params = lm_params_from_numpy(_nest(data, "p/"), device="cpu")
     batch = [{"tokens": torch.from_numpy(data["tokens"]).long()}]
-    out["jax_case"] = (_steps(cfg, _tcfg(), params, batch)[0][0],
-                       _steps(cfg, _tcfg(), params, batch, mesh)[0][0])
+    # the single-device steps, the same on every rank: each case's owner
+    # takes them
+    def mine(case):
+        return _owner(case) == rank
+    out["collectives"] = {}
+    out["jax_case"] = (mine("jax_case") and _steps(cfg, _tcfg(), params, batch)[0][0],
+                       _steps(cfg, _tcfg(), params, batch, mesh,
+                              out["collectives"])[0][0])
     out["bytes"] = _bytes(cfg, params, mesh)
+    # JAX's hybrid and encdec cases, float32, one sharded step; the
+    # 4-expert jamba's also against the single-device step
+    for fam, case in JAX_CASES.items():
+        cfg = _f32(*case)
+        params = lm_params_from_numpy(_nest(data, f"{fam}/p/"), device="cpu")
+        batch = {k: torch.from_numpy(v).long() if k == "tokens"
+                 else torch.from_numpy(v)
+                 for k, v in _nest(data, f"{fam}/batch/").items()}
+        coll, mom, ref_mom = {}, {}, {}
+        got_m, got_p = _steps(cfg, _tcfg(), params, [batch], mesh, coll,
+                              mom)
+        out["jax_" + fam] = got_m[0]
+        if fam == "hybrid":
+            ref = mine(ROUTED) and _steps(cfg, _tcfg(), params, [batch],
+                                   moments=ref_mom)
+            out[ROUTED] = (ref and (ref[0], _numpy(ref[1]), ref_mom,
+                                    _moment64(cfg, params, batch)),
+                           (got_m, _numpy(got_p), mom))
+            out[ROUTED + "/by_kind"] = coll["by_kind"]
     # the port against itself, float32
+    out["family_bytes"] = {}
     for fam, (arch, kw) in FAMILIES.items():
         cfg = _f32(arch, kw)
         params = api.init_params(cfg, torch.Generator().manual_seed(3),
                                  device="cpu")
         batches = _batches(cfg, 4)
-        ref_m, ref_p = _steps(cfg, _tcfg(), params, batches)
+        ref = mine(fam) and _steps(cfg, _tcfg(), params, batches)
         got_m, got_p = _steps(cfg, _tcfg(), params, batches, mesh)
-        out[fam] = (ref_m, got_m, _numpy(ref_p), _numpy(got_p))
+        out[fam] = (ref and (ref[0], _numpy(ref[1])), (got_m, _numpy(got_p)))
+        out["family_bytes"][fam] = _bytes(cfg, params, mesh)
     cfg = _f32(JAX_ARCH, JAX_CFG)
     params = api.init_params(cfg, torch.Generator().manual_seed(5),
                              device="cpu")
     batches = _batches(cfg, 6)
-    ref_m, ref_p = _steps(cfg, _tcfg(microbatches=2), params, batches)
+    ref = mine("microbatches") and _steps(cfg, _tcfg(microbatches=2),
+                                          params, batches)
     got_m, got_p = _steps(cfg, _tcfg(microbatches=2), params, batches, mesh)
-    out["microbatches"] = (ref_m, got_m, _numpy(ref_p), _numpy(got_p))
-    out["refused"] = _refusals(mesh)
+    out["microbatches"] = (ref and (ref[0], _numpy(ref[1])),
+                           (got_m, _numpy(got_p)))
     out["serve"] = _serve_paths(mesh)
     out["trainer"] = _trainer(rank, mesh, ckpt_dir)
     return out
@@ -360,37 +505,15 @@ def _bytes(cfg, params, mesh):
         return mine, 3 * S.local_bytes(api.param_structs(cfg), psh)
 
 
-def _refusals(mesh):
-    """Each refused family's message under the train rules."""
-    out = {}
-    for fam, (arch, kw) in REFUSED.items():
-        cfg = _f32(arch, kw)
-        params = api.init_params(cfg, torch.Generator().manual_seed(1),
-                                 device="cpu")
-        batch = {"tokens": torch.zeros((BATCH, SEQ + 1), dtype=torch.long)}
-        if fam == "encdec":
-            batch["frames"] = torch.zeros((BATCH, SEQ, cfg.d_model))
-        with S.use_mesh(mesh), S.use_rules(_rules(mesh, cfg)):
-            p = S.shard_tree(params, api.param_specs(cfg))
-            try:
-                api.loss_fn(cfg)(p, _rows(batch))
-                out[fam] = None
-            except NotImplementedError as e:
-                out[fam] = str(e)
-    return out
-
-
 def _serve_paths(mesh):
-    """Per family but moe (whose FFN takes the EP path inside a mesh,
-    ``tests/test_torch_sharded.py``), whether its prefill and a decode
-    step of this rank's rows inside the mesh under spmd_rules of the train
-    rules (every dim they split but the batch, the cache and the experts
-    held whole) give the bits they give outside it."""
+    """Per dense, vlm and ssm family (moe's FFN takes the EP path inside a
+    mesh, ``tests/test_torch_sharded.py``), whether its prefill and a
+    decode step of this rank's rows inside the mesh under spmd_rules of
+    the train rules (every dim they split but the batch, the cache and the
+    experts held whole) give the bits they give outside it."""
     out = {}
-    for fam, (arch, kw) in FAMILIES.items():
-        if fam == "moe":
-            continue
-        cfg = _f32(arch, kw)
+    for fam in ("dense", "vlm", "ssm"):
+        cfg = _f32(*FAMILIES[fam])
         params = api.init_params(cfg, torch.Generator().manual_seed(7),
                                  device="cpu")
         batch = {k: v[:, :8] if k == "tokens" else v
@@ -580,26 +703,34 @@ def runs(tmp_path_factory):
     _threads(_save_port_ckpt, 8, port_ckpt)
     trainer_dir = str(tmp / "trainer")
     os.makedirs(trainer_dir)
-    meta = dict(arch=JAX_ARCH, cfg=JAX_CFG, opt=OPT,
-                mesh=[list(MESH[0]), list(MESH[1])],
-                ckpt_mesh=[list(CKPT_MESH[0]), list(CKPT_MESH[1])],
-                port_ckpt=port_ckpt, jax_ckpt=jax_ckpt, jax_step=5)
+    common = dict(opt=OPT, mesh=[list(MESH[0]), list(MESH[1])])
+    metas = [  # JAX's own cases and seamless; jamba's compile, at once
+        dict(common, arch=JAX_ARCH, cfg=JAX_CFG,
+             families={"encdec": _f32_fields(*JAX_CASES["encdec"])},
+             ckpt_mesh=[list(CKPT_MESH[0]), list(CKPT_MESH[1])],
+             port_ckpt=port_ckpt, jax_ckpt=jax_ckpt, jax_step=5),
+        dict(common, families={"hybrid": _f32_fields(*JAX_CASES["hybrid"])})]
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                PYTHONPATH=os.path.join(ROOT, "src"))
-    proc = subprocess.Popen([sys.executable, "-c", JAX_SCRIPT, src, dst,
-                             json.dumps(meta)], env=env, text=True,
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    procs = [subprocess.Popen([sys.executable, "-c", JAX_SCRIPT, src, dst,
+                               json.dumps(meta)], env=env, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for meta in metas]
+    out = {}
     try:
         world = run_world(_rank, 8, src, trainer_dir, device_type="cpu",
                           timeout=TIMEOUT)
-        stdout, stderr = proc.communicate(timeout=TIMEOUT)
+        for proc in procs:
+            stdout, stderr = proc.communicate(timeout=TIMEOUT)
+            assert proc.returncode == 0, stderr[-3000:]
+            out.update(json.loads([
+                line for line in stdout.splitlines()
+                if line.startswith("OUT::")][-1][len("OUT::"):]))
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.communicate()
-    assert proc.returncode == 0, stderr[-3000:]
-    out = json.loads([line for line in stdout.splitlines()
-                      if line.startswith("OUT::")][-1][len("OUT::"):])
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
     return out, dict(np.load(dst)), world.results, (port_ckpt, jax_ckpt)
 
 
@@ -610,12 +741,30 @@ def test_jax_train_step_case_matches_jax(runs):
     on the (2, 2, 2) mesh against JAX's sharded ones, within JAX's bounds
     (and the port's single-device step against JAX's)."""
     jax_out, _, results, _ = runs
+    l1, g1 = results[_owner("jax_case")]["jax_case"][0]
+    assert abs(l1 - jax_out["l1"]) < 2e-3, (l1, jax_out)
+    assert abs(g1 - jax_out["g1"]) / max(jax_out["g1"], 1e-6) < 2e-2
     for r in results:
-        (l1, g1), (l2, g2) = r["jax_case"]
+        l2, g2 = r["jax_case"][1]
         assert abs(l2 - jax_out["l2"]) < 2e-3, (l2, jax_out)
         assert abs(g2 - jax_out["g2"]) / max(jax_out["g2"], 1e-6) < 2e-2
-        assert abs(l1 - jax_out["l1"]) < 2e-3, (l1, jax_out)
-        assert abs(g1 - jax_out["g1"]) / max(jax_out["g1"], 1e-6) < 2e-2
+
+
+def test_collective_bytes_beside_jax_hlo(runs):
+    """A reading, not a gate: rank 0's collective bytes of JAX's case
+    (``roofline.count``, by JAX's kind names) printed beside
+    ``analyze_hlo``'s of JAX's compiled sharded step (XLA's partitioner
+    picks its own collectives); shown with ``-s``."""
+    jax_hlo = runs[0]["hlo"]
+    mine = runs[2][0]["collectives"]
+    print(f"\n[collectives] {JAX_ARCH} reduced, one step on {MESH}: the "
+          f"port (rank 0) {mine['bytes_in_pod']} B in pod, "
+          f"{mine['bytes_cross_pod']} B across pods, {mine['calls']} calls, "
+          f"by kind {mine['by_kind']}; JAX's analyze_hlo "
+          f"{jax_hlo['coll_bytes_ici']:.0f} B in pod, "
+          f"{jax_hlo['coll_bytes_dcn']:.0f} B across pods, by kind "
+          f"{ {k: int(v) for k, v in jax_hlo['coll_by_kind'].items()} }")
+    assert mine["calls"] > 0 and jax_hlo["coll_by_kind"]
 
 
 def test_world_covers_the_mesh(runs):
@@ -623,14 +772,30 @@ def test_world_covers_the_mesh(runs):
         (i, j, k) for i in range(2) for j in range(2) for k in range(2)]
 
 
+@pytest.mark.parametrize("family", list(JAX_CASES))
+def test_sharded_step_matches_jax(runs, family):
+    """One FSDP + TP step of the reduced jamba (4 experts, top-2) and
+    seamless on the (2, 2, 2) mesh from the same numpy params and batch,
+    float32 compute: the port's loss and grad norm against JAX's sharded
+    ones, within JAX's bounds."""
+    want = runs[0][family]
+    for r in runs[2]:
+        loss, gnorm = r["jax_" + family]
+        assert abs(loss - want[0]) < 2e-3, (loss, want)
+        assert abs(gnorm - want[1]) / max(want[1], 1e-6) < 2e-2, (gnorm,
+                                                                    want)
+
+
 @pytest.mark.parametrize("case", list(FAMILIES) + ["microbatches"])
 def test_sharded_step_matches_single_device(runs, case):
     """Two FSDP + TP steps of each family on the (2, 2, 2) mesh against
     the port's single-device step, float32: losses and grad norms within
     1e-5 relative, the params gathered back to global within 5e-4 (module
-    docstring); microbatches=2 on the dense case."""
+    docstring); microbatches=2 on the dense case. The single-device steps
+    are one rank's (``_owner``; every rank's are the same)."""
+    ref_m, ref_p = runs[2][_owner(case)][case][0]
     for r in runs[2]:
-        ref_m, got_m, ref_p, got_p = r[case]
+        got_m, got_p = r[case][1]
         for (l1, g1), (l2, g2) in zip(ref_m, got_m):
             assert abs(l2 - l1) <= REL * abs(l1), (case, ref_m, got_m)
             assert abs(g2 - g1) <= REL * abs(g1), (case, ref_m, got_m)
@@ -641,6 +806,41 @@ def test_sharded_step_matches_single_device(runs, case):
                                        atol=PARAM_ATOL, err_msg=k)
 
 
+def test_routed_hybrid_step_matches_single_device(runs):
+    """One FSDP + TP step of JAX's jamba case (4 experts, top-2: tokens
+    choose, and the MoE dispatches expert-parallel, an all-to-all on every
+    rank) against the port's single-device step, float32: loss and grad
+    norm within 1e-5 relative; the gradient itself (the first moment after
+    one step, (1 - b1) g, gathered back to global) no further in norm from
+    the float64 gradient than twice the single-device float32 one is
+    (read: 1.99e-4 against 2.34e-4; the two float32 gradients 9.5e-5
+    apart, of 9.26); the params within 2 lr elementwise, as far as two
+    AdamW paths can part them. Not the 5e-4 of the two-step cases: AdamW's
+    first step moves a weight by lr g / (|g| + 1e-8), a few of this case's
+    gradients lie within float32 rounding of zero (6 of 28,672 Mamba
+    ``in_proj`` gradients below 1e-6, where the single-device float32
+    gradient changes sign against float64's), and the sharded sum's order
+    moves such a weight by up to a few lr / 10 (read: 4.9e-3, 2 of the
+    attention block's 8,192 FFN ``w_down`` weights)."""
+    def dist(a, b):
+        return np.sqrt(sum(float(((a[k] - b[k]).astype(np.float64) ** 2)
+                                 .sum()) for k in b))
+    for r in runs[2]:
+        assert r[ROUTED + "/by_kind"].get("all-to-all", 0) > 0
+    ref_m, ref_p, ref_g, g64 = runs[2][_owner(ROUTED)][ROUTED][0]
+    bound = 2 * dist(ref_g, g64)
+    for r in runs[2]:
+        got_m, got_p, got_g = r[ROUTED][1]
+        (l1, g1), (l2, g2) = ref_m[0], got_m[0]
+        assert abs(l2 - l1) <= REL * abs(l1), (ref_m, got_m)
+        assert abs(g2 - g1) <= REL * abs(g1), (ref_m, got_m)
+        assert set(got_p) == set(ref_p) == set(got_g) == set(g64)
+        assert 0 < dist(got_g, g64) <= bound, (dist(got_g, g64), bound)
+        for k in ref_p:
+            np.testing.assert_allclose(got_p[k], ref_p[k], rtol=0,
+                                       atol=2 * OPT["lr"], err_msg=k)
+
+
 def test_rank_bytes_equal_local_bytes(runs):
     """Each rank's param + m + v bytes are the dry run's first-device
     bytes of the same (``local_bytes`` under ``tree_shardings``)."""
@@ -649,11 +849,13 @@ def test_rank_bytes_equal_local_bytes(runs):
         assert mine == want > 0
 
 
-@pytest.mark.parametrize("family", list(REFUSED))
-def test_hybrid_and_encdec_refuse_split_rules(runs, family):
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_family_rank_bytes_equal_local_bytes(runs, family):
+    """Each family's param + m + v bytes on each rank are the dry run's
+    first-device bytes of the same."""
     for r in runs[2]:
-        msg = r["refused"][family]
-        assert msg is not None and "A8.1c" in msg and family in msg
+        mine, want = r["family_bytes"][family]
+        assert mine == want > 0
 
 
 def test_serve_paths_under_spmd_rules_keep_their_bits(runs):
@@ -665,10 +867,11 @@ def test_serve_paths_under_spmd_rules_keep_their_bits(runs):
         assert r["serve"] == {"dense": True, "vlm": True, "ssm": True}
 
 
-def test_refusals_leave_unsharded_paths_alone():
-    """Outside a mesh the refused families' loss runs as it did."""
-    for fam, (arch, kw) in REFUSED.items():
-        cfg = _f32(arch, kw)
+def test_hybrid_and_encdec_losses_run_outside_a_mesh():
+    """Outside a mesh (no rules made active) the hybrid and encdec losses
+    run unsharded and are finite."""
+    for fam in ("hybrid", "encdec"):
+        cfg = _f32(*FAMILIES[fam])
         params = api.init_params(cfg, torch.Generator().manual_seed(1),
                                  device="cpu")
         batch = {"tokens": torch.zeros((2, 9), dtype=torch.long)}
